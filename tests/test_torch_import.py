@@ -1,0 +1,140 @@
+"""svc_tpu_torch imports no JAX, resolves devices strictly, and registers
+one CUDA kernel per TPU kernel on the encode -> decode path."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import svc_tpu_torch, svc_tpu_torch.models.encoder, "
+        "svc_tpu_torch.models.decoder, svc_tpu_torch.apps.encoder_app, "
+        "svc_tpu_torch.apps.decoder_app\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_port_sources_have_no_jax_import_line():
+    pkg = os.path.join(REPO, "svc_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(root, name)) as f:
+                for line in f:
+                    s = line.strip()
+                    assert not s.startswith(("import jax", "from jax")), (
+                        name, line)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_card(monkeypatch):
+    from svc_tpu_torch.runtime.device import resolve_device
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device(torch.device("cuda", 0))
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device type"):
+        resolve_device("meta")
+
+
+def test_entry_points_refuse_cuda_without_card(monkeypatch):
+    from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
+    from svc_tpu.io import bitstream
+    from svc_tpu_torch.models.decoder import Decoder
+    from svc_tpu_torch.models.encoder import Encoder
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError):
+        Encoder(EncoderConfig(reference_compat=True),
+                VideoProperties(64, 64, 3), device="cuda")
+    hdr = bitstream.Header(2, 64, 64, 0, 0, 8, 8, 3)
+    with pytest.raises(RuntimeError):
+        Decoder(DecoderConfig(), hdr, device="cuda")
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: __import__(
+            "svc_tpu_torch.ops.pyramid", fromlist=["x"]
+        ).pyr_down(torch.zeros((2, 8, 8), dtype=torch.uint8, device="meta")),
+        lambda: __import__(
+            "svc_tpu_torch.ops.dct", fromlist=["x"]
+        ).dct8x8_to_wire(
+            torch.zeros((2, 8, 24), dtype=torch.uint8, device="meta"), 1, 1, 8, 8
+        ),
+    ],
+)
+def test_wrappers_refuse_devices_they_do_not_run_on(call):
+    # a wrapper takes its plain version only for CPU tensors; any other
+    # device launches a kernel (cuda) or raises
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+
+
+def test_kernel_registry_names_sources_and_tpu_kernels():
+    from svc_tpu_torch.kernels import build
+    from svc_tpu_torch.ops import dct, motion, pyramid  # noqa: F401
+
+    ks = build.kernels()
+    assert set(ks) == {
+        "pyr_down_u8", "refine_sads", "dct8x8_to_wire", "idct_display"
+    }
+    for k in ks.values():
+        assert os.path.isfile(os.path.join(REPO, k.source)), k.source
+        path, line = k.replaces.split(":")
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read().splitlines()
+        assert text[int(line) - 1].startswith("def "), k.replaces
+    srcs = {p.name for p in build.sources()}
+    assert {"pyr_down.cu", "refine_sads.cu", "dct_wire.cu",
+            "idct_display.cu"} <= srcs
+    # sources are found relative to the package, not the working directory
+    assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
+
+
+def test_launch_counters_reset():
+    from svc_tpu_torch.kernels import build
+    from svc_tpu_torch.ops import pyramid
+
+    pyramid.PYR_DOWN.launches = 3
+    build.reset_launch_counts()
+    assert build.launch_counts()["pyr_down_u8"] == 0
+    # the CPU path takes the plain version and launches nothing
+    pyramid.pyr_down(torch.zeros((1, 8, 8), dtype=torch.uint8))
+    assert build.launch_counts()["pyr_down_u8"] == 0
+
+
+def test_nvcc_flags_keep_ieee_division():
+    from svc_tpu_torch.kernels import build
+
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert np.all([f in build.NVCC_FLAGS for f in ("-O3", "-shared")])
