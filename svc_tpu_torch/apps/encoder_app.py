@@ -4,14 +4,14 @@ Same flag names and meanings as ``svc_tpu``'s encoder app (the reference
 encoder's flags, apps/encoder.cpp:75-104, plus the framework extensions);
 the bitstream goes to stdout or ``--output``, diagnostics to stderr:
 
-  python -m svc_tpu_torch.apps.encoder_app --reference-compat 1 \\
-      --device cuda --output clip.svc clip.npy
+  python -m svc_tpu_torch.apps.encoder_app --device cuda \\
+      --output clip.svc clip.npy
 
 Port-specific: ``--device cuda|cpu`` (default ``cuda``; ``cuda`` without a
-card is an error). This slice encodes with ``--reference-compat 1`` only
-(the default k-means repair needs kernel K5, not ported yet). ``--devices``,
-``--visualize``, ``--show``, ``--trace``, ``--profile`` and ``--start-frame``
-are accepted by name but exit with status 1.
+card is an error). ``--reference-compat`` defaults to 0 (the default
+config, k-means kernel K5); 1 selects the reference-compat config.
+``--devices``, ``--visualize``, ``--show``, ``--trace``, ``--profile`` and
+``--start-frame`` are accepted by name but exit with status 1.
 """
 
 from __future__ import annotations

@@ -8,14 +8,10 @@
 // the width-aligned display routes of svc_tpu/models/decoder.py (:274-321):
 // the column step is the identity there, so only rows are resampled.
 //
-// Per element, in this order (all IEEE float32, no fast-math):
-//   dequant  q = copysign(floor(|c / s| + 0.5) * s, c / s)   (C std::round,
-//            half away from zero, true division — quant.py:19-31)
-//   rows     a[i][l] = sum_k q[k][l] * dh[k][i]             (k ascending)
-//   cols     p[i][j] = sum_l a[i][l] * dw[l][j]             (l ascending)
+// Per element: dequantize and inverse DCT as idct_tile.cuh states, then
 //   resample v = top * (1 - f) + bot * f on source rows y0[Y], y1[Y]
 //   display  byte = clip(rint(v), 0, 255)   (half to even, like jnp.round;
-//            the dequant rounding above is the other one — kept apart)
+//            the dequant rounding is the other one — kept apart)
 // written to packed (T, H, W*C) rows: byte X*C + c of row Y.
 //
 // Bound: memory. Reads 4 bytes of coefficient per output byte-channel
@@ -30,7 +26,7 @@
 // output bytes are written as contiguous row runs. Host-side tables (y0,
 // y1, fy, br0 per band) carry the geometry, so one kernel serves the
 // resample route and, with y0 = y1 = Y and f = 0, the zero-excess route.
-#include "common.cuh"
+#include "idct_tile.cuh"
 
 namespace {
 
@@ -48,65 +44,20 @@ idct_display_kernel(const float* __restrict__ coeffs,
                     int channels, int bh, int bw, int band_rows, int nbr,
                     int nb) {
   extern __shared__ float smem[];
-  const int n = bh * bw;
-  const int cn = channels * n;
-  const int per = nbr * nb * cn;
-  float* buf0 = smem;        // dequantized coefficients, then pixel planes
-  float* buf1 = smem + per;  // after the rows stage
+  const int per = nbr * nb * channels * bh * bw;
+  float* planes = smem;  // planes[c][row][col], row pitch nb * bw
 
   const int t = blockIdx.z;
   const int band = blockIdx.y;
   const int bx0 = blockIdx.x * nb;
   const int nblk = min(nb, nbx - bx0);
   const int br0 = band_br0[band];
-
-  // 1. load + dequantize, block layout buf0[rb][blk][c][k][l]
-  for (int idx = threadIdx.x; idx < per; idx += blockDim.x) {
-    const int rb = idx / (nb * cn);
-    const int blk = (idx / cn) % nb;
-    const int e = idx % cn;
-    const int br = br0 + rb;
-    float v = 0.f;
-    if (br < nby && blk < nblk) {
-      const size_t b = (static_cast<size_t>(t) * nby + br) * nbx + bx0 + blk;
-      const float s = steps[b];
-      const float y = __fdiv_rn(coeffs[b * cn + e], s);
-      const float mag = __fmul_rn(floorf(__fadd_rn(fabsf(y), 0.5f)), s);
-      v = copysignf(mag, y);
-    }
-    buf0[idx] = v;
-  }
-  __syncthreads();
-
-  // 2. rows stage: buf1[rb][blk][c][i][l] = sum_k q[k][l] * dh[k][i]
-  for (int idx = threadIdx.x; idx < per; idx += blockDim.x) {
-    const int e = idx % n;
-    const int i = e / bw;
-    const int l = e % bw;
-    const float* q = buf0 + (idx - e) + l;  // q[k][l] at q[k * bw]
-    float acc = 0.f;
-    for (int k = 0; k < bh; ++k) acc = fmaf(q[k * bw], dh[k * bh + i], acc);
-    buf1[idx] = acc;
-  }
-  __syncthreads();
-
-  // 3. cols stage into planes buf0[c][rb*bh + i][blk*bw + j]
+  idct_tile(coeffs, steps, dh, dw, t, nby, nbx, br0, nbr, bx0, nb, channels,
+            bh, bw, planes, smem + per);
   const int strip_w = nb * bw;
   const int plane_rows = nbr * bh;
-  for (int idx = threadIdx.x; idx < per; idx += blockDim.x) {
-    const int j = idx % bw;
-    const int i = (idx / bw) % bh;
-    const int c = (idx / n) % channels;
-    const int blk = (idx / cn) % nb;
-    const int rb = idx / (nb * cn);
-    const float* arow = buf1 + (idx - j);  // a[i][0]
-    float acc = 0.f;
-    for (int l = 0; l < bw; ++l) acc = fmaf(arow[l], dw[l * bw + j], acc);
-    buf0[(c * plane_rows + rb * bh + i) * strip_w + blk * bw + j] = acc;
-  }
-  __syncthreads();
 
-  // 4. resample + round + clip + interleave: contiguous runs of each row
+  // resample + round + clip + interleave: contiguous runs of each row
   const int src0 = br0 * bh;
   const int run = nblk * bw * channels;
   const size_t row_bytes = static_cast<size_t>(nbx) * bw * channels;
@@ -117,17 +68,12 @@ idct_display_kernel(const float* __restrict__ coeffs,
     if (yo >= out_h) continue;
     const int px = b / channels;
     const int c = b % channels;
-    const float* pl = buf0 + c * plane_rows * strip_w + px;
-    const float top = pl[(y0[yo] - src0) * strip_w];
+    const float* pl = planes + c * plane_rows * strip_w + px;
     const float f = fy[yo];
-    float v = top;
-    if (f != 0.f) {
-      const float bot = pl[(y1[yo] - src0) * strip_w];
-      v = __fadd_rn(__fmul_rn(top, __fsub_rn(1.f, f)), __fmul_rn(bot, f));
-    }
-    v = fminf(fmaxf(rintf(v), 0.f), 255.f);
+    float v = pl[(y0[yo] - src0) * strip_w];
+    if (f != 0.f) v = lerp_rn(v, pl[(y1[yo] - src0) * strip_w], f);
     out[(static_cast<size_t>(t) * out_h + yo) * row_bytes +
-        static_cast<size_t>(bx0) * bw * channels + b] = static_cast<uint8_t>(v);
+        static_cast<size_t>(bx0) * bw * channels + b] = display_byte(v);
   }
 }
 

@@ -6,7 +6,8 @@ C++ extension that includes the torch headers takes minutes — and loaded
 with :mod:`ctypes`. The build happens at first use, into
 ``build/svc_tpu_torch/`` at the checkout root, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one does
-not. Nothing is compiled when this module is imported.
+not. Each source compiles in its own nvcc process, all at once, and one
+more links them. Nothing is compiled when this module is imported.
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
 :class:`Kernel` raises when that is not ``cudaSuccess`` (a launch refused for
@@ -86,7 +87,8 @@ def find_nvcc() -> str:
 
 
 def build() -> BuildResult:
-    """Build the kernel library if its hash-keyed file is missing."""
+    """Build the kernel library if its hash-keyed file is missing: one nvcc
+    per source, all started together, then one link."""
     global _build_result
     with _lock:
         if _build_result is not None:
@@ -97,20 +99,39 @@ def build() -> BuildResult:
             return _build_result
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(f) for f in sorted(CSRC_DIR.glob("*.cu"))]
+        tag = f"tmp{os.getpid()}"
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *compile_flags, "-c", str(src), "-o", str(obj)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, obj, proc))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            logs.append(text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{text}")
+        tmp = out.with_suffix(f".{tag}.so")
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
+            cmd += [str(obj) for _, obj, _ in jobs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{logs[-1]}")
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
+            raise RuntimeError("\n".join(failed))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
-        _build_result = BuildResult(out, seconds, log)
+        _build_result = BuildResult(out, time.perf_counter() - t0, "".join(logs))
         return _build_result
 
 
@@ -195,3 +216,4 @@ def stream_handle(tensor) -> int:
 # passed as a 32-bit int and cut a 64-bit pointer)
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+FLOAT = ctypes.c_float

@@ -11,10 +11,10 @@ Routes, by geometry:
   divisible width, 1080p included): only rows are resampled, and the whole
   path is kernel K1 (``ops.dct.idct_display``); zero excess is its
   identity-row mode;
-* general (width excess): a two-axis resize whose TPU kernel
-  (``resize_pallas.resize_rows_pallas``, K6) is not ported yet. It runs in
-  plain PyTorch on the CPU; on CUDA the decoder raises
-  ``NotImplementedError``.
+* general (width excess — 854x480, 1366x768, ...): both axes are
+  resampled, and the whole path is kernel K6 (``ops.dct.idct_resize_display``).
+
+On the CPU both routes run the kernels' plain PyTorch versions.
 
 Every route returns uint8 packed ``(T, H, W*C)`` rows.
 """
@@ -29,17 +29,9 @@ import torch
 from svc_tpu.config import DecoderConfig
 from svc_tpu.io import bitstream
 from svc_tpu.utils.mathx import round_half_away_from_zero
-from svc_tpu_torch.ops.dct import display_bytes, idct_display, idct_planes_plain
+from svc_tpu_torch.ops.dct import idct_display, idct_resize_display
 from svc_tpu_torch.ops.quant import block_quant_steps
-from svc_tpu_torch.ops.resize import resize_bilinear
 from svc_tpu_torch.runtime.device import DeviceLike, resolve_device
-
-K6_MESSAGE = (
-    "decoding a stream with frame width excess (frame_w {} != padded width "
-    "{}) needs the two-axis display resize, whose kernel K6 "
-    "(svc_tpu/ops/resize_pallas.py resize_rows_pallas) is not yet ported to "
-    "svc_tpu_torch (ROADMAP.md Queue 2, K6); decode it with device='cpu'"
-)
 
 
 def gaze_rect_from_center(
@@ -71,7 +63,7 @@ class Decoder:
       cfg: validated ``DecoderConfig``.
       header: bitstream header.
       batch_size: frames decoded per batch.
-      device: ``"cuda"`` (kernel K1) or ``"cpu"`` (plain PyTorch).
+      device: ``"cuda"`` (kernels K1 / K6) or ``"cpu"`` (plain PyTorch).
     """
 
     def __init__(
@@ -86,10 +78,6 @@ class Decoder:
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.width_aligned = header.frame_w == header.padded_frame_w
-        if not self.width_aligned and self.device.type == "cuda":
-            raise NotImplementedError(
-                K6_MESSAGE.format(header.frame_w, header.padded_frame_w)
-            )
 
     def padded_gaze_rect(
         self, gaze: Optional[Tuple[int, int]]
@@ -147,8 +135,7 @@ class Decoder:
         ch, tbh, tbw = h.channel_count, h.transform_block_h, h.transform_block_w
         if self.width_aligned:
             return idct_display(c, steps, h.frame_h, ch, tbh, tbw)
-        planes = idct_planes_plain(c, steps, ch, tbh, tbw)
-        return display_bytes(resize_bilinear(planes, h.frame_h, h.frame_w))
+        return idct_resize_display(c, steps, h.frame_h, h.frame_w, ch, tbh, tbw)
 
     def decode_frames(
         self,

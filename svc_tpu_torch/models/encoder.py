@@ -12,11 +12,11 @@ Randomness: anchor ``i`` draws from ``fold_in(key(cfg.seed), i)``, split
 into the RANSAC and k-means keys — the same derivation as ``svc_tpu``, so
 both packages emit the same bitstream for the same input and config.
 
-This slice implements ``EncoderConfig(reference_compat=True)``: k-means
-features in the reference's effective ``(0, mv.x, x, y)`` layout (quirk Q1)
-with cv::kmeans' split-the-biggest-cluster repair. The default config's
-``global_farthest`` repair runs kernel K5 in ``svc_tpu``, not ported yet,
-so the encoder raises ``NotImplementedError`` for it.
+K-means features and repair follow the config, as in ``svc_tpu``: the
+default config clusters ``(mv.x, mv.y, x, y)`` with the ``global_farthest``
+repair (kernel K5 on CUDA); ``reference_compat=True`` clusters the
+reference's effective ``(0, mv.x, x, y)`` layout (quirk Q1) with cv::kmeans'
+split-the-biggest-cluster repair.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from svc_tpu_torch.ops import prng
 from svc_tpu_torch.ops.ccl import block_types_from_clusters
 from svc_tpu_torch.ops.color import bgr_planes_to_y
 from svc_tpu_torch.ops.dct import dct8x8_to_wire
-from svc_tpu_torch.ops.kmeans import K5_MESSAGE, kmeans_t_frames
+from svc_tpu_torch.ops.kmeans import kmeans_t_frames
 from svc_tpu_torch.ops.morphology import close_then_open
 from svc_tpu_torch.ops.motion import hbma_stack
 from svc_tpu_torch.ops.pad import pad_frame, padded_dims
@@ -45,7 +45,7 @@ class Encoder:
     """Batched video encoder.
 
     Args:
-      cfg: validated ``EncoderConfig`` with ``reference_compat=True``.
+      cfg: validated ``EncoderConfig``.
       vidprops: source video properties.
       batch_size: anchor frames encoded per batch.
       device: ``"cuda"`` (kernels) or ``"cpu"`` (plain PyTorch versions).
@@ -58,8 +58,6 @@ class Encoder:
         batch_size: int = 8,
         device: DeviceLike = "cuda",
     ):
-        if not cfg.reference_compat:
-            raise NotImplementedError(K5_MESSAGE.format("global_farthest"))
         if iter_count(cfg.ransac) == 0:
             raise ValueError(
                 "RANSAC parameters yield zero hypotheses; nothing to fit"
@@ -138,21 +136,18 @@ class Encoder:
         fg_raw = ~inliers
         fg = close_then_open(fg_raw, cfg.morph_rect_w, cfg.morph_rect_h)
 
-        # k-means features per block, quirk Q1 layout (0, mv.x, x, y)
+        # k-means features per block (libs/encoder.cpp:296-321)
         dev = packed.device
         ys = (torch.arange(mfh, dtype=torch.float32, device=dev)[:, None]
-              * cfg.mv_block_h).expand(mfh, mfw)
+              * cfg.mv_block_h).expand(t, mfh, mfw)
         xs = (torch.arange(mfw, dtype=torch.float32, device=dev)[None, :]
-              * cfg.mv_block_w).expand(mfh, mfw)
-        feats = torch.stack(
-            [
-                torch.zeros_like(mv[..., 0]),
-                mv[..., 0],
-                xs.expand(t, mfh, mfw),
-                ys.expand(t, mfh, mfw),
-            ],
-            dim=1,
-        ).reshape(t, 4, mfh * mfw)
+              * cfg.mv_block_w).expand(t, mfh, mfw)
+        if cfg.reference_compat:
+            # quirk Q1: the reference's effective layout (0, mv.x, x, y)
+            rows = [torch.zeros_like(mv[..., 0]), mv[..., 0], xs, ys]
+        else:
+            rows = [mv[..., 0], mv[..., 1], xs, ys]
+        feats = torch.stack(rows, dim=1).reshape(t, 4, mfh * mfw)
         labels, _, _ = kmeans_t_frames(
             feats,
             fg.reshape(t, -1),
@@ -161,7 +156,7 @@ class Encoder:
             attempts=cfg.kmeans.attempt_count,
             max_iter=cfg.kmeans.max_iter_count,
             epsilon=cfg.kmeans.epsilon,
-            repair="opencv_split",
+            repair="opencv_split" if cfg.reference_compat else "global_farthest",
         )
         labels = labels.reshape(t, mfh, mfw)
         btypes, _ = block_types_from_clusters(

@@ -10,13 +10,15 @@ with ``D_n[k, j] = s_k cos(pi (2j + 1) k / 2n)``. The wire layout is
 ``(T, nby, nbx, C*bh*bw)``: each transform block's channel-major
 coefficient rows are contiguous, so (de)serialization is a memcpy.
 
-Two kernels live here, each beside its plain PyTorch version:
+Three kernels live here, each beside its plain PyTorch version:
 
 * K2 :func:`dct8x8_to_wire` (``csrc/dct_wire.cu``) — forward DCT straight
   from the packed ``(N, H, W*C)`` uint8 rows the host ships;
 * K1 :func:`idct_display` (``csrc/idct_display.cu``) — the decoder's
   dequantize + inverse DCT + row resample + round/clip + interleave, to
-  packed ``(T, H, W*C)`` display bytes.
+  packed ``(T, H, W*C)`` display bytes (the width-aligned routes);
+* K6 :func:`idct_resize_display` (``csrc/idct_resize.cu``) — the same with
+  both axes resampled (the general route: frame width excess).
 
 The plain versions set ``allow_tf32 = False`` for matmuls and cuDNN: TF32
 keeps ~3 decimal digits, far outside the 2.5e-4 coefficient gate. The
@@ -33,7 +35,7 @@ import torch
 
 from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 from svc_tpu_torch.ops.quant import dequantize
-from svc_tpu_torch.ops.resize import bilinear_axis_weights
+from svc_tpu_torch.ops.resize import bilinear_axis_weights, resize_bilinear
 
 DCT_WIRE = Kernel(
     "dct8x8_to_wire",
@@ -48,6 +50,13 @@ IDCT_DISPLAY = Kernel(
     [PTR] * 9 + [INT] * 10 + [PTR],
     source="svc_tpu_torch/csrc/idct_display.cu",
     replaces="svc_tpu/ops/dct_pallas.py:1077",
+)
+IDCT_RESIZE = Kernel(
+    "idct_resize_display",
+    "svc_idct_resize_display",
+    [PTR] * 13 + [INT] * 12 + [PTR],
+    source="svc_tpu_torch/csrc/idct_resize.cu",
+    replaces="svc_tpu/ops/resize_pallas.py:96",
 )
 
 _SMEM_BYTES = 48 * 1024  # dynamic shared memory without the opt-in
@@ -214,17 +223,38 @@ def idct_display_plain(
 
 
 @functools.lru_cache(maxsize=64)
-def _display_tables(out_h: int, in_h: int, block_h: int, band_rows: int):
-    """Row tables and per-band source block rows for K1 (host numpy)."""
-    y0, y1, fy, _ = bilinear_axis_weights(out_h, in_h)
-    n_bands = -(-out_h // band_rows)
-    first = np.arange(n_bands) * band_rows
-    last = np.minimum(first + band_rows, out_h) - 1
-    br0 = (y0[first] // block_h).astype(np.int32)
-    # y0 and y1 are non-decreasing, so a band's sources span
-    # [y0[first], y1[last]]
-    nbr = int((y1[last] // block_h - br0).max()) + 1
-    return y0, y1, fy, br0, nbr
+def _span_tables(out_n: int, in_n: int, block: int, tile: int):
+    """One axis of a display kernel's geometry (host numpy): the bilinear
+    ``(i0, i1, frac)``, each tile's first source block (a tile is ``tile``
+    consecutive outputs) and the most source blocks any tile reads. A
+    second source ``i1`` counts only where its weight is not zero, as the
+    kernels read it only there."""
+    i0, i1, frac, _ = bilinear_axis_weights(out_n, in_n)
+    starts = np.arange(0, out_n, tile)
+    first = (i0[starts] // block).astype(np.int32)
+    # i0 and i1 are non-decreasing, so a tile reads [i0[start], max read]
+    last = np.maximum.reduceat(np.where(frac != 0, i1, i0), starts) // block
+    return i0, i1, frac, first, int((last - first).max()) + 1
+
+
+def _check_idct_inputs(name, coeffs, steps, channels, block_h, block_w):
+    _check_cuda(name, coeffs)
+    t, nby, nbx, cn = coeffs.shape
+    if coeffs.dtype != torch.float32 or cn != channels * block_h * block_w:
+        raise TypeError(f"{name}: coeffs must be (T, nby, nbx, C*bh*bw) "
+                        "float32")
+    if steps.dtype != torch.float32 or tuple(steps.shape) != (t, nby, nbx):
+        raise TypeError(f"{name}: steps must be (T, nby, nbx) float32")
+    if steps.device != coeffs.device:
+        raise ValueError(f"{name}: coeffs and steps on different devices")
+
+
+def _int32(a, dev):
+    return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+
+def _float32(a, dev):
+    return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
 
 def idct_display(
@@ -248,17 +278,10 @@ def idct_display(
     """
     if coeffs.device.type == "cpu":
         return idct_display_plain(coeffs, steps, out_h, channels, block_h, block_w)
-    _check_cuda("idct_display", coeffs)
+    _check_idct_inputs("idct_display", coeffs, steps, channels, block_h, block_w)
     t, nby, nbx, cn = coeffs.shape
-    if coeffs.dtype != torch.float32 or cn != channels * block_h * block_w:
-        raise TypeError("idct_display: coeffs must be (T, nby, nbx, C*bh*bw) "
-                        "float32")
-    if steps.dtype != torch.float32 or tuple(steps.shape) != (t, nby, nbx):
-        raise TypeError("idct_display: steps must be (T, nby, nbx) float32")
-    if steps.device != coeffs.device:
-        raise ValueError("idct_display: coeffs and steps on different devices")
     band_rows = 2 * block_h
-    y0, y1, fy, br0, nbr = _display_tables(out_h, nby * block_h, block_h, band_rows)
+    y0, y1, fy, br0, nbr = _span_tables(out_h, nby * block_h, block_h, band_rows)
     nb = min(_MAX_STRIP_BLOCKS, _SMEM_BYTES // (2 * nbr * cn * 4))
     if nb < 1:
         raise ValueError(
@@ -270,21 +293,95 @@ def idct_display(
     s = steps.contiguous()
     dh = _matrix(block_h, dev)
     dw = _matrix(block_w, dev)
-    tab_y0 = torch.as_tensor(y0, dtype=torch.int32, device=dev)
-    tab_y1 = torch.as_tensor(y1, dtype=torch.int32, device=dev)
-    tab_fy = torch.as_tensor(fy, dtype=torch.float32, device=dev)
-    tab_br0 = torch.as_tensor(br0, dtype=torch.int32, device=dev)
     out = torch.empty(
         (t, out_h, nbx * block_w * channels), dtype=torch.uint8, device=dev
     )
     if out.numel() == 0:
         return out
+    tabs = [_int32(y0, dev), _int32(y1, dev), _float32(fy, dev), _int32(br0, dev)]
     with torch.cuda.device(dev):
         IDCT_DISPLAY.launch(
             c.data_ptr(), s.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-            tab_y0.data_ptr(), tab_y1.data_ptr(), tab_fy.data_ptr(),
-            tab_br0.data_ptr(), out.data_ptr(),
+            *[tab.data_ptr() for tab in tabs], out.data_ptr(),
             t, out_h, nby, nbx, channels, block_h, block_w, band_rows, nbr,
             nb, stream_handle(c),
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: dequantize + inverse DCT + row and column resample + display bytes
+# ---------------------------------------------------------------------------
+
+
+def idct_resize_display_plain(
+    coeffs: torch.Tensor, steps: torch.Tensor, out_h: int, out_w: int,
+    channels: int, block_h: int, block_w: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6 (same contract as
+    :func:`idct_resize_display`): rows blended first, then columns, each
+    ``a * (1 - f) + b * f``, an identity axis not blended."""
+    planes = idct_planes_plain(coeffs, steps, channels, block_h, block_w)
+    return display_bytes(resize_bilinear(planes, out_h, out_w))
+
+
+def idct_resize_display(
+    coeffs: torch.Tensor,
+    steps: torch.Tensor,
+    out_h: int,
+    out_w: int,
+    channels: int = 3,
+    block_h: int = 8,
+    block_w: int = 8,
+) -> torch.Tensor:
+    """Dequantize + inverse DCT + bilinear resize of both axes from the
+    padded frame to ``(out_h, out_w)`` + display round/clip, as packed bytes
+    (kernel K6 — the general display route, frame width excess).
+
+    Args:
+      coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients.
+      steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
+
+    Returns ``(T, out_h, out_w*C)`` uint8.
+    """
+    if coeffs.device.type == "cpu":
+        return idct_resize_display_plain(
+            coeffs, steps, out_h, out_w, channels, block_h, block_w
+        )
+    _check_idct_inputs(
+        "idct_resize_display", coeffs, steps, channels, block_h, block_w
+    )
+    t, nby, nbx, cn = coeffs.shape
+    band_rows = 2 * block_h
+    y0, y1, fy, br0, nbr = _span_tables(out_h, nby * block_h, block_h, band_rows)
+    for strip_cols in (64, 32, 16, 8):
+        x0, x1, fx, bc0, nbc = _span_tables(
+            out_w, nbx * block_w, block_w, strip_cols
+        )
+        if 2 * nbr * nbc * cn * 4 <= _SMEM_BYTES:
+            break
+    else:
+        raise ValueError(
+            "idct_resize_display: an output tile's source blocks exceed "
+            "shared memory"
+        )
+    dev = coeffs.device
+    c = coeffs.contiguous()
+    s = steps.contiguous()
+    dh = _matrix(block_h, dev)
+    dw = _matrix(block_w, dev)
+    out = torch.empty((t, out_h, out_w * channels), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    tabs = [
+        _int32(y0, dev), _int32(y1, dev), _float32(fy, dev), _int32(br0, dev),
+        _int32(x0, dev), _int32(x1, dev), _float32(fx, dev), _int32(bc0, dev),
+    ]
+    with torch.cuda.device(dev):
+        IDCT_RESIZE.launch(
+            c.data_ptr(), s.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+            *[tab.data_ptr() for tab in tabs], out.data_ptr(),
+            t, out_h, out_w, nby, nbx, channels, block_h, block_w, band_rows,
+            nbr, strip_cols, nbc, stream_handle(c),
         )
     return out

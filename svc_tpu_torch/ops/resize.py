@@ -5,8 +5,8 @@ with OpenCV INTER_LINEAR's center-aligned mapping
 ``src = (dst + 0.5) * in / out - 0.5`` and edge clamping
 (libs/decoder.cpp:210). The width-aligned routes only resample rows, inside
 kernel K1 (``ops.dct.idct_display``); the general route (width excess)
-resamples both axes here, in plain PyTorch — its TPU kernel
-(``resize_pallas.resize_rows_pallas``, K6) is not ported yet.
+resamples both axes inside kernel K6 (``ops.dct.idct_resize_display``),
+whose plain version is :func:`resize_bilinear` here.
 """
 
 from __future__ import annotations

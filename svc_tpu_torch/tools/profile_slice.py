@@ -1,9 +1,10 @@
 """Where the time goes in one 1080p encode batch and one decode batch.
 
-Runs the port's encode (``Encoder.encode_packed``) and decode
-(``Decoder.decode_batch``) on one CUDA card under ``torch.profiler`` after a
-warm-up. It prints what ptxas reported for each kernel (registers, shared
-memory, spills) when the library is built in this process, then per batch:
+Runs the port's encode (``Encoder.encode_packed``, with the default
+``EncoderConfig()`` that users run) and decode (``Decoder.decode_batch``)
+on one CUDA card under ``torch.profiler`` after a warm-up. It prints what
+ptxas reported for each kernel (registers, shared memory, spills) when the
+library is built in this process, then per batch:
 wall time, device busy time (the union of kernel intervals) and idle
 share, and the device time by kernel name. The Chrome traces go to
 ``--out`` (default ``build/profile/``).
@@ -85,8 +86,8 @@ def main(argv=None) -> int:
 
     w, h = 1920, 1080
     clip = make_clip(w, h, 9)
-    enc = Encoder(EncoderConfig(reference_compat=True), VideoProperties(w, h, 9),
-                  batch_size=8, device="cuda")
+    enc = Encoder(EncoderConfig(), VideoProperties(w, h, 9), batch_size=8,
+                  device="cuda")
     packed = torch.as_tensor(clip).reshape(9, h, w * 3).cuda()
     _report("encode_batch8", lambda: enc.encode_packed(packed, 0), args.out,
             args.rows)

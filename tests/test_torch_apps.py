@@ -1,6 +1,7 @@
 """The port's CLIs, in-process through ``main(argv)`` with ``--device cpu``
 on a tiny .npy clip: same flags and outputs as the library, unsupported
-flags refused with status 1, and no silent CPU fallback for ``cuda``."""
+flags refused with status 1, and no silent CPU fallback for ``cuda``; the
+encoder runs the default config unless ``--reference-compat 1``."""
 
 import numpy as np
 import pytest
@@ -102,10 +103,18 @@ def test_cli_cuda_without_card_fails(monkeypatch, clip_path, stream_path, capsys
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_encoder_default_config_refused(clip_path, capsys):
-    rc = encoder_app.main(["enc", "--device", "cpu", "--verbose", "0", clip_path])
-    assert rc == 1
-    assert "K5" in capsys.readouterr().err
+def test_encoder_default_config_cli_matches_library(clip_path, tmp_path):
+    # no --reference-compat: the default config (k-means repair
+    # global_farthest, kernel K5 on a card)
+    svc = str(tmp_path / "default.svc")
+    rc = encoder_app.main(["enc", "--device", "cpu", "--batch-size", "2",
+                           "--verbose", "0", "--output", svc, clip_path])
+    assert rc == 0
+    clip = np.load(clip_path)
+    enc = Encoder(EncoderConfig(), VideoProperties(64, 48, len(clip)),
+                  batch_size=2, device="cpu")
+    with open(svc, "rb") as f:
+        assert f.read() == b"".join(enc.encode_video(iter(clip)))
 
 
 def test_cli_errors(capsys, stream_path):

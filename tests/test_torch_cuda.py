@@ -19,7 +19,8 @@ from svc_tpu.io import bitstream
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
-from svc_tpu_torch.ops import dct, motion, pyramid
+from svc_tpu_torch.ops import dct, kmeans, motion, prng, pyramid
+from svc_tpu_torch.ops.resize import bilinear_axis_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +95,66 @@ def test_idct_display_matches_plain(gen, nby, nbx, out_h, block):
     assert (d > 0).double().mean().item() < 1e-3
 
 
+def _lloyd_inputs(gen, f, n, k, attempts=3):
+    """Integer motion-like features, masks (frame 0 empty), seeded centers."""
+    x = torch.randint(-8, 9, (f, 4, n), generator=gen).float()
+    x[:, 2:] *= 16  # block coordinates
+    mask = torch.rand((f, n), generator=gen) < 0.4
+    mask[0] = False
+    keys = prng.split(prng.fold_in(prng.key(5), torch.arange(f)), attempts)
+    init = kmeans._plus_plus_init(keys, x, mask, k).transpose(0, 1)
+    return x.cuda(), mask.cuda(), init.contiguous().cuda()
+
+
+@pytest.mark.parametrize("f,n,k", [(3, 1, 2), (2, 37, 5), (4, 1000, 10),
+                                   (2, 8160, 10), (2, 5003, 16)])
+def test_lloyd_bit_equal(gen, f, n, k):
+    x, mask, init = _lloyd_inputs(gen, f, n, k)
+    before = kmeans.LLOYD.launches
+    got = kmeans.lloyd(x, mask, init, k, 10, 1.0)
+    assert kmeans.LLOYD.launches == before + 1
+    ref = kmeans.lloyd_plain(x, mask, init, k, 10, 1.0)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+    again = kmeans.lloyd(x, mask, init, k, 10, 1.0)
+    for a, b in zip(got, again):  # fixed reduction trees: same bits
+        assert torch.equal(a, b)
+
+
+def test_lloyd_few_distinct_points(gen):
+    # fewer distinct valid points than clusters: empty clusters every
+    # iteration, repaired from the farthest points
+    x = torch.randint(0, 2, (2, 3, 300), generator=gen).float() * 5
+    mask = torch.rand((2, 300), generator=gen) < 0.7
+    init = x[:, :, :6].transpose(1, 2)[None].expand(2, -1, -1, -1).contiguous()
+    x, mask, init = x.cuda(), mask.cuda(), init.cuda()
+    got = kmeans.lloyd(x, mask, init, 6, 10, 1.0)
+    ref = kmeans.lloyd_plain(x, mask, init, 6, 10, 1.0)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("w,h", [(120, 64), (200, 120), (854, 480), (1366, 768)])
+def test_idct_resize_display_matches_plain(gen, w, h):
+    # the decoder's padded geometry: 16-pixel MV blocks
+    pw, ph = -(-w // 16) * 16, -(-h // 16) * 16
+    nby, nbx = ph // 8, pw // 8
+    coeffs = (torch.randn((2, nby, nbx, 192), generator=gen) * 90).cuda()
+    steps = torch.where(
+        torch.rand((2, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
+    ).cuda()
+    before = dct.IDCT_RESIZE.launches
+    got = dct.idct_resize_display(coeffs, steps, h, w)
+    assert dct.IDCT_RESIZE.launches == before + 1
+    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, 8, 8)
+    assert got.shape == (2, h, w * 3)
+    d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+    assert d.max().item() <= 1
+    assert (d > 0).double().mean().item() < 1e-3
+    assert not bilinear_axis_weights(w, pw)[3]  # the columns were blended
+
+
 def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(TypeError):
         pyramid.pyr_down(torch.zeros((2, 8, 8), dtype=torch.int32, device="cuda"))
@@ -103,6 +164,16 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(TypeError):
         dct.idct_display(torch.zeros((1, 2, 2, 192), device="cuda"),
                          torch.ones((1, 2, 3), device="cuda"), 16)
+    with pytest.raises(TypeError):
+        dct.idct_resize_display(torch.zeros((1, 2, 2, 100), device="cuda"),
+                                torch.ones((1, 2, 2), device="cuda"), 16, 15)
+    x = torch.zeros((1, 4, 8), device="cuda")
+    with pytest.raises(ValueError):  # k above K5's 16 clusters
+        kmeans.lloyd(x, torch.ones((1, 8), dtype=torch.bool, device="cuda"),
+                     torch.zeros((1, 1, 17, 4), device="cuda"), 17, 10, 1.0)
+    with pytest.raises(TypeError):
+        kmeans.lloyd(x, torch.ones((1, 8), device="cuda"),
+                     torch.zeros((1, 1, 2, 4), device="cuda"), 2, 10, 1.0)
 
 
 @pytest.mark.parametrize("w,h", [(128, 120), (128, 128), (96, 72)])
@@ -131,5 +202,36 @@ def test_port_on_card_matches_port_on_cpu(gen, w, h):
             list(dec.decode_frames(iter(cpu_stream[1:]), iter(gaze)))
         )
     assert build.launch_counts()["idct_display"] > 0
+    d = np.abs(frames["cuda"].astype(np.int16) - frames["cpu"].astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("w,h", [(128, 120), (120, 64)])
+def test_default_config_on_card_matches_cpu(gen, w, h):
+    # EncoderConfig(): k-means through K5; 120x64 decodes through K6
+    clip = make_clip(w, h, 6, seed=w * h)
+    props = VideoProperties(w, h, len(clip))
+    build.reset_launch_counts()
+    cuda_stream = list(Encoder(EncoderConfig(), props, 2, device="cuda")
+                       .encode_video(iter(clip)))
+    assert build.launch_counts()["lloyd"] > 0
+    cpu_stream = list(Encoder(EncoderConfig(), props, 2, device="cpu")
+                      .encode_video(iter(clip)))
+    assert cuda_stream[0] == cpu_stream[0]
+    header = bitstream.Header.unpack(cuda_stream[0])
+    for a, b in zip(cuda_stream[1:], cpu_stream[1:]):
+        ta, ca = bitstream.deserialize_frame_blocks(a, header)
+        tb, cb = bitstream.deserialize_frame_blocks(b, header)
+        np.testing.assert_array_equal(ta, tb)
+        assert np.abs(ca - cb).max() <= COEFF_GATE
+    gaze = [(w // 2, h // 2)] * (len(clip) - 1)
+    frames = {}
+    for device in ("cuda", "cpu"):
+        dec = Decoder(DecoderConfig(), header, batch_size=2, device=device)
+        frames[device] = np.stack(
+            list(dec.decode_frames(iter(cpu_stream[1:]), iter(gaze)))
+        )
+    kernel = "idct_display" if header.frame_w == header.padded_frame_w else "idct_resize_display"
+    assert build.launch_counts()[kernel] > 0
     d = np.abs(frames["cuda"].astype(np.int16) - frames["cpu"].astype(np.int16))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3

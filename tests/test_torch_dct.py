@@ -1,6 +1,9 @@
 """Port vs svc_tpu: forward DCT into wire layout (K2), dequantization, and
-the decoder's display path (K1) on every width-aligned route, plus the
-general route's plain-PyTorch CPU path."""
+the decoder's display path on every route — width-aligned (K1) and general
+(K6, width excess) — through the kernels' plain versions, plus the host
+tables that cut the display kernels' tiles."""
+
+import contextlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,12 +115,14 @@ def _decode_inputs(w, h, ew, eh, seed):
 
 
 # (w, h, excess w, excess h): row resample (the 1080p class), zero excess
-# (identity rows), multi-band resample, width excess (general route)
+# (identity rows), multi-band resample, width excess (general route), both
+# excesses (general route, both axes blended)
 DECODE_GEOMETRIES = [
     (128, 120, 0, 8),
     (128, 128, 0, 0),
     (256, 248, 0, 8),
     (120, 64, 8, 0),
+    (200, 120, 8, 8),
 ]
 
 
@@ -143,13 +148,40 @@ def test_display_bytes_match_svc_tpu_decoder(w, h, ew, eh):
     assert (diff > 0).mean() < 1e-3
 
 
-def test_general_route_refuses_cuda(monkeypatch):
+def test_general_route_dispatches_to_k6(monkeypatch):
+    # on a non-CPU device the general route launches K6 (a meta device
+    # stands in for the card: shapes and dtypes flow, nothing computes)
     from svc_tpu_torch.models import decoder as dec_mod
 
-    monkeypatch.setattr(
-        dec_mod, "resolve_device", lambda d: torch.device("cuda", 0)
+    launched = []
+    monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
+    monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
+    monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(dct.IDCT_RESIZE, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(dct.IDCT_DISPLAY, "launch", lambda *a: pytest.fail("K1"))
+    hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3)
+    out = dec_mod.Decoder(DecoderConfig(), hdr, device="cuda").decode_batch(
+        coeffs, btypes, rects
     )
-    hdr = bitstream.Header(2, 120, 64, 8, 0, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="K6"):
-        dec_mod.Decoder(DecoderConfig(), hdr, device="cuda")
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)
+    (args,) = launched
+    assert len(args) == len(dct.IDCT_RESIZE.argtypes)
+    # t, out_h, out_w, nby, nbx, channels, bh, bw follow the 13 pointers
+    assert args[13:21] == (2, 120, 200, 16, 26, 3, 8, 8)
 
+
+@pytest.mark.parametrize(
+    "out_n,in_n", [(1080, 1088), (768, 768), (1366, 1376), (120, 128),
+                   (200, 208), (854, 864), (7, 16)],
+)
+@pytest.mark.parametrize("tile", [8, 16, 64])
+def test_span_tables_cover_every_read(out_n, in_n, tile):
+    # every source pixel a display kernel's tile reads lies inside the
+    # blocks the host tables give that tile
+    i0, i1, frac, first, n_blk = dct._span_tables(out_n, in_n, 8, tile)
+    for t, start in enumerate(range(0, out_n, tile)):
+        sl = slice(start, start + tile)
+        reads = np.concatenate([i0[sl], i1[sl][frac[sl] != 0]])
+        assert reads.min() // 8 >= first[t]
+        assert reads.max() // 8 < first[t] + n_blk

@@ -100,11 +100,12 @@ def test_wrappers_refuse_devices_they_do_not_run_on(call):
 
 def test_kernel_registry_names_sources_and_tpu_kernels():
     from svc_tpu_torch.kernels import build
-    from svc_tpu_torch.ops import dct, motion, pyramid  # noqa: F401
+    from svc_tpu_torch.ops import dct, kmeans, motion, pyramid  # noqa: F401
 
     ks = build.kernels()
     assert set(ks) == {
-        "pyr_down_u8", "refine_sads", "dct8x8_to_wire", "idct_display"
+        "pyr_down_u8", "refine_sads", "dct8x8_to_wire", "idct_display",
+        "lloyd", "idct_resize_display",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -114,7 +115,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         assert text[int(line) - 1].startswith("def "), k.replaces
     srcs = {p.name for p in build.sources()}
     assert {"pyr_down.cu", "refine_sads.cu", "dct_wire.cu",
-            "idct_display.cu"} <= srcs
+            "idct_display.cu", "lloyd.cu", "idct_resize.cu",
+            "idct_tile.cuh"} <= srcs
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
 

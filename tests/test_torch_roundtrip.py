@@ -1,7 +1,8 @@
 """The slice as a whole: svc_tpu and svc_tpu_torch encode the same clip to
 the same stream (header and block types byte-equal, coefficients within
-the DCT gate), and each package's decoder turns the streams into the same
-display bytes (max |diff| <= 1 in < 1e-3 of the bytes)."""
+the DCT gate), under the default config and under reference-compat, and
+each package's decoder turns the streams into the same display bytes (max
+|diff| <= 1 in < 1e-3 of the bytes) on every display route."""
 
 import numpy as np
 import pytest
@@ -19,16 +20,21 @@ COEFF_GATE = 2.5e-4
 N_FRAMES = 6  # batch 2: two full batches and a padded last one
 BATCH = 2
 # 128x120: 8 rows of frame excess like 1080p (row-resample display route,
-# j-split DCT); 128x128: zero excess (identity display route)
-GEOMETRIES = [(128, 120), (128, 128)]
+# j-split DCT); 128x128: zero excess (identity display route); 120x64: 8
+# columns of width excess (general display route, both axes resampled)
+GEOMETRIES = [(128, 120), (128, 128), (120, 64)]
+CASES = [(w, h, compat) for compat in (True, False) for w, h in GEOMETRIES]
 
 
-@pytest.fixture(scope="module", params=GEOMETRIES, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.fixture(
+    scope="module", params=CASES,
+    ids=lambda c: f"{c[0]}x{c[1]}-{'compat' if c[2] else 'default'}",
+)
 def encoded(request):
-    """One JAX encode per geometry (the expensive compile), shared."""
-    w, h = request.param
+    """One JAX encode per geometry and config (the expensive compile), shared."""
+    w, h, compat = request.param
     clip = make_clip(w, h, N_FRAMES, seed=w + h)
-    cfg = EncoderConfig(reference_compat=True)
+    cfg = EncoderConfig(reference_compat=compat)
     props = VideoProperties(w, h, N_FRAMES)
     jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
     tenc = t_enc.Encoder(cfg, props, batch_size=BATCH, device="cpu")
@@ -105,9 +111,25 @@ def test_each_decoder_on_the_port_stream(encoded):
     _assert_display_close(got, want)
 
 
-def test_default_config_needs_unported_k5():
-    with pytest.raises(NotImplementedError, match="K5"):
-        t_enc.Encoder(EncoderConfig(), VideoProperties(64, 64, 3), device="cpu")
+def test_default_config_round_trip():
+    # EncoderConfig() through both packages on a clip whose 48 rows pad to
+    # 64: the same stream, and the port decodes it like svc_tpu
+    w, h, n = 64, 48, 5
+    clip = make_clip(w, h, n, seed=9)
+    props = VideoProperties(w, h, n)
+    js = list(j_enc.Encoder(EncoderConfig(), props, batch_size=BATCH).encode_video(iter(clip)))
+    ts = list(t_enc.Encoder(EncoderConfig(), props, batch_size=BATCH,
+                            device="cpu").encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    gaze = (w // 2, h // 2)
+    _assert_display_close(_decode(t_dec, js, gaze, device="cpu"),
+                          _decode(j_dec, js, gaze))
 
 
 def test_stream_resume_from_anchor_index():

@@ -1,5 +1,7 @@
-"""Port vs svc_tpu: RANSAC, morphology, k-means (opencv_split) and
-per-cluster connected components — all bit-equal on shared keys."""
+"""Port vs svc_tpu: RANSAC, morphology, k-means (both repair rules, and
+the Lloyd kernel K5's plain version against the Pallas kernel in interpret
+mode) and per-cluster connected components — all bit-equal on shared keys
+(compactness, a float sum in another order, within rtol 1e-6)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +12,7 @@ import torch
 from svc_tpu.config import EncoderConfig, RansacParams
 from svc_tpu.ops import ccl as j_ccl
 from svc_tpu.ops import kmeans as j_kmeans
+from svc_tpu.ops import kmeans_pallas as j_kmeans_pallas
 from svc_tpu.ops import morphology as j_morph
 from svc_tpu.ops import ransac as j_ransac
 from svc_tpu_torch.ops import ccl, kmeans, morphology, prng, ransac
@@ -103,6 +106,7 @@ def test_kmeans_matches(segmentation):
     labels, centers, compact = kmeans.kmeans_t_frames(
         torch.from_numpy(s["feats"]), torch.from_numpy(s["mask"]), 10,
         s["kt"][:, 1], attempts=3, max_iter=10, epsilon=1.0,
+        repair="opencv_split",
     )
     np.testing.assert_array_equal(labels.numpy(), s["labels"])
     np.testing.assert_array_equal(centers.numpy(), s["centers"])
@@ -176,12 +180,116 @@ def test_ransac_degenerate_keeps_hypothesis():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="K5"):
-        kmeans.kmeans_t_frames(
-            torch.zeros((1, 4, 8)), torch.ones((1, 8), dtype=torch.bool), 2,
-            prng.split(prng.key(0), 1), repair="global_farthest",
+def _lloyd_case(case):
+    """Integer features ``(F, D, N)``, mask, k for one Lloyd parity case."""
+    rng = np.random.default_rng(len(case))
+    f, n, k = (1, 200, 5) if case == "one_frame" else (3, 256, 6)
+    feats = rng.integers(-8, 9, (f, 4, n)).astype(np.float32)
+    mask = rng.random((f, n)) < 0.5
+    if case == "empty_mask":
+        mask[1] = False  # every cluster empty, every iteration
+    if case == "few_distinct":
+        # 4 distinct points for k = 6: empty clusters every iteration
+        feats[2] = np.where(rng.random((4, n)) < 0.5, 2.0, -3.0)
+        feats[2, 2:] = 7.0
+    return feats, mask, k
+
+
+def _jax_lloyd_inputs(feats, mask, k, attempts, seed):
+    """svc_tpu's seeded Lloyd-kernel inputs, as kmeans_t_frames builds them."""
+    f, d, n = feats.shape
+    keys = jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.key(seed), jnp.arange(f)
+    )
+    keys_a = jax.vmap(lambda kk: jax.random.split(kk, attempts))(keys)
+    centers0 = jax.vmap(
+        lambda ft, mk, ks: jax.vmap(
+            lambda kk: j_kmeans._plus_plus_init(kk, ft, mk, k)
+        )(ks)
+    )(jnp.asarray(feats), jnp.asarray(mask), keys_a)  # (F, A, k, d)
+    init = (
+        jnp.zeros((attempts, f, 16, 128), jnp.float32)
+        .at[:, :, :k, :d]
+        .set(jnp.swapaxes(centers0, 0, 1))
+    )
+    x_aug = jnp.zeros((f, 8, n), jnp.float32).at[:, :d].set(feats).at[:, d].set(1.0)
+    return x_aug, jnp.asarray(mask, jnp.float32)[:, None, :], init, keys
+
+
+@pytest.mark.parametrize("case", ["integer", "empty_mask", "few_distinct", "one_frame"])
+def test_lloyd_plain_matches_pallas_kernel(case):
+    # K5's plain version against svc_tpu's fused Lloyd kernel itself, run
+    # in interpret mode from the same seeded start
+    feats, mask, k = _lloyd_case(case)
+    d = feats.shape[1]
+    x_aug, mask_f, init, _ = _jax_lloyd_inputs(feats, mask, k, 3, seed=7)
+    want = j_kmeans_pallas.lloyd_pallas_batched(
+        x_aug, mask_f, init, k, d, 10, 1.0, interpret=True
+    )
+    x, m, c0 = kmeans.lloyd_inputs_from_jax(
+        np.asarray(x_aug), np.asarray(mask_f), np.asarray(init), k, d
+    )
+    labels, centers, compact = kmeans.lloyd_plain(x, m, c0, k, 10, 1.0)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(
+        centers.numpy(), np.asarray(want[1])[:, :, :k, :d]
+    )
+    np.testing.assert_allclose(compact.numpy(), np.asarray(want[2]), rtol=1e-6)
+
+
+def test_lloyd_plain_matches_per_frame_pallas_kernel():
+    # a single frame runs svc_tpu's per-frame twin (lloyd_pallas)
+    feats, mask, k = _lloyd_case("one_frame")
+    x_aug, mask_f, init, _ = _jax_lloyd_inputs(feats, mask, k, 1, seed=8)
+    want = j_kmeans_pallas.lloyd_pallas(
+        x_aug[0], mask_f[0], init[:, 0], k, 4, 10, 1.0, interpret=True
+    )
+    x, m, c0 = kmeans.lloyd_inputs_from_jax(
+        np.asarray(x_aug), np.asarray(mask_f), np.asarray(init), k, 4
+    )
+    labels, centers, compact = kmeans.lloyd_plain(x, m, c0, k, 10, 1.0)
+    np.testing.assert_array_equal(labels.numpy()[:, 0], np.asarray(want[0]))
+    np.testing.assert_array_equal(
+        centers.numpy()[:, 0], np.asarray(want[1])[:, :k, :4]
+    )
+    np.testing.assert_allclose(
+        compact.numpy()[:, 0], np.asarray(want[2]), rtol=1e-6
+    )
+
+
+@pytest.mark.parametrize("case", ["motion", "empty_mask", "few_distinct"])
+def test_kmeans_global_farthest_matches(case, segmentation):
+    # the default config's k-means end to end: Gumbel seeding, Lloyd with
+    # the global_farthest repair, best attempt
+    s = segmentation
+    if case == "motion":
+        # the default config's features (mv.x, mv.y, x, y) of the fixture
+        feats = np.concatenate(
+            [np.moveaxis(s["mv"], -1, 1).reshape(F, 2, -1), s["feats"][:, 2:]],
+            axis=1,
         )
+        mask, k, keys_j, keys_t = s["mask"], 10, None, s["kt"][:, 1]
+    else:
+        feats, mask, k = _lloyd_case(case)
+        _, _, _, keys_j = _jax_lloyd_inputs(feats, mask, k, 3, seed=5)
+        keys_t = prng.key_from_jax_data(np.asarray(jax.random.key_data(keys_j)))
+    if keys_j is None:
+        kj, _ = _keys(s["cfg"].seed)
+        keys_j = kj[:, 1]
+    want = j_kmeans.kmeans_t_frames(
+        jnp.asarray(feats), jnp.asarray(mask), k, keys_j,
+        attempts=3, max_iter=10, epsilon=1.0, repair="global_farthest",
+    )
+    got = kmeans.kmeans_t_frames(
+        torch.from_numpy(feats), torch.from_numpy(mask), k, keys_t,
+        attempts=3, max_iter=10, epsilon=1.0, repair="global_farthest",
+    )
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-6)
+
+
+def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="subset_sz"):
         ransac.estimate_global_motion_ransac(
             torch.zeros((1, 2, 2, 2)), RansacParams(subset_sz=2),
