@@ -3,30 +3,42 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
 CUDA card and nvcc (the kernels are built from ``svc_tpu_torch/csrc`` at
-first use), and exits non-zero on any failure, printing no result. Phases,
-one line each:
+first use), and exits non-zero on any failure, printing no result. It
+imports nothing of JAX, ``svc_tpu`` or ``benchmarks``. Phases, one line
+each:
 
 1. card — name and power limit (``nvidia-smi``);
 2. build — compile the kernels, with the build time;
-3. kernel parity — each kernel against its plain PyTorch version on the
-   card at the shapes of the encode/decode paths (K4, K3 and K5 bit-equal,
-   K5's compactness within rtol 1e-6; K2 within 2.5e-4; K1 and K6 within 1
-   with under 1e-3 of the bytes differing), with both times;
+3. kernel parity — each of the ten kernels against its plain PyTorch
+   version on the card at the shapes of its path (K3, K4, K5, K7, K8, K9
+   bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4; K1 and
+   K6 within 1 with under 1e-3 of the bytes differing), with the kernel's
+   time, the plain version's, the one-call PyTorch yardstick's where one
+   exists, and the bound (bytes over 3.35 TB/s or operations over 67
+   T/s, whichever is larger);
 4. default config — a 17-frame 1080p clip through ``stream_encode`` with
-   ``EncoderConfig()`` on ``cuda``, read back through
-   ``svc_tpu.io.bitstream`` and decoded with a gaze; the launch counters
-   must show K1-K5 ran;
+   ``EncoderConfig()`` on ``cuda``, read back through the port's
+   ``io.bitstream`` and decoded with a gaze; K1-K5 and K9 must run;
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
    decoded on ``cuda`` (K6 must run), the bytes held against the CPU
    port's decode of the same payloads;
 6. reference-compat — a 9-frame 1080p clip with
-   ``EncoderConfig(reference_compat=True)``, K1-K4 must run;
+   ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
 7. card against CPU — the first 3 frames, default config, on both devices;
-8. timings — 1080p encode and decode frames per second.
+8. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
+   through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
+   global-motion estimators on ``cuda`` (K7 must run), held against
+   ``hbma_stack`` on the same 2-frame stack and the CPU port;
+9. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
+   subplanes through ``pyr_down_pitched`` and ``hbma_stack(...,
+   base_pitched=...)`` (both K8 kernels must run), held against the
+   spatial pyramid and ``hbma_stack``;
+10. timings — 1080p encode and decode frames per second, per-frame HBMA.
 
-Each path of phases 4-6 runs with the launch counters set to 0 just before
-it and read just after. The second-to-last line is a JSON object with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+Each path of phases 4-6, 8 and 9 runs with the launch counters set to 0
+just before it and read just after. The second-to-last line is a JSON
+object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -43,6 +55,13 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BLOCK_TYPE_TOL = 0.01  # phase 7: share of blocks allowed to differ
+# the bound of a kernel (H100 SXM data sheet):
+# each input byte read once and each output byte written once over the
+# HBM rate, or the operations over the float32 rate outside the tensor
+# cores (also used for the integer SAD and filter operations; an
+# absolute-difference or multiply accumulate counts 2), whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -65,6 +84,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could take."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / CORE_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def record(results, name, kernel, err, ms, plain_ms, nbytes, ops, library_ms=None):
+    b_ms, b_by = bound(nbytes, ops)
+    results[name] = dict(kernel=kernel, err=float(err), ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    return (f"bound {b_ms:.4f} ms ({b_by}), one-call PyTorch {lib}")
+
+
+def valid_mask(mv, r, b, fh, fw, dev):
+    """(ncand, ..., mfh, mfw) candidates whose window lies inside the frame."""
+    mfh, mfw = mv.shape[-3:-1]
+    by = torch.arange(mfh, device=dev)[:, None] * b
+    bx = torch.arange(mfw, device=dev)[None, :] * b
+    out = []
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            py = by + mv[..., 1] + dy
+            px = bx + mv[..., 0] + dx
+            out.append((py >= 0) & (py <= fh - b) & (px >= 0) & (px <= fw - b))
+    return torch.stack(out)
+
+
+def even_mvs(g, shape, bound_, dev):
+    return 2 * torch.randint(-bound_ // 2, bound_ // 2 + 1, shape, generator=g,
+                             dtype=torch.int32).to(dev)
+
+
 def phase_parity(dev):
     """Each kernel against its plain version at the 1080p path shapes."""
     from svc_tpu_torch.ops import dct, kmeans, motion, prng, pyramid, quant
@@ -74,9 +127,16 @@ def phase_parity(dev):
     results = {}
 
     # K4: the three pyramid levels of a 9-frame 1088x1920 luma stack, plus
-    # an odd size
+    # an odd size; yardstick: the same 5x5 filter as one reflect-padded
+    # float32 convolution (no integer descale)
     y = torch.randint(0, 256, (9, 1088, 1920), generator=g, dtype=torch.uint8).to(dev)
-    level, ms, plain_ms, err4 = y, 0.0, 0.0, 0
+    taps = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0])
+    conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2, padding_mode="reflect",
+                           bias=False).to(dev)
+    with torch.no_grad():
+        conv.weight.copy_((taps[:, None] * taps[None, :] / 256.0).reshape(1, 1, 5, 5))
+    level, ms, plain_ms, lib_ms, err4, nbytes, ops = y, 0.0, 0.0, 0.0, 0, 0, 0
+    conv_l0_ms = None
     for _ in range(3):
         got = pyramid.pyr_down(level)
         ref = pyramid.pyr_down_plain(level)
@@ -85,50 +145,146 @@ def phase_parity(dev):
             fail(f"K4 pyr_down_u8 differs at {tuple(level.shape)}")
         ms += cuda_ms(lambda: pyramid.pyr_down(level))
         plain_ms += cuda_ms(lambda: pyramid.pyr_down_plain(level))
+        xf = level.float()[:, None]
+        with torch.no_grad():
+            c_ms = cuda_ms(lambda: conv(xf))
+        conv_l0_ms = c_ms if conv_l0_ms is None else conv_l0_ms
+        lib_ms += c_ms
+        nbytes += level.numel() + got.numel()
+        ops += 30 * got.numel()  # separable: 15 multiply-adds per output
         level = got
     odd = y[:2, :1087, :1919]
     if not torch.equal(pyramid.pyr_down(odd), pyramid.pyr_down_plain(odd)):
         fail("K4 pyr_down_u8 differs on an odd size")
-    results["pyr_down_u8"] = (pyramid.PYR_DOWN, float(err4), ms, plain_ms)
+    line = record(results, "pyr_down_u8", pyramid.PYR_DOWN, err4, ms, plain_ms,
+                  nbytes, ops, lib_ms)
     print(f"parity K4 pyr_down_u8: bit-equal on levels 1-3 + odd size; "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T+1=9)")
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T+1=9); {line}")
 
     # K3: refine SADs at levels 2, 1, 0 (blocks 4, 8, 16; r = 1) with the
     # even propagated MVs those levels receive
     levels = [y]
-    for _ in range(2):
+    for _ in range(3):
         levels.append(pyramid.pyr_down(levels[-1]))
     ms = plain_ms = 0.0
-    err3 = 0
-    for lvl, bound in ((2, 2), (1, 6), (0, 14)):
+    err3, nbytes, ops = 0, 0, 0
+    level_mvs = {}
+    for lvl, bnd in ((2, 2), (1, 6), (0, 14)):
         stack = levels[lvl]
         b = 16 >> lvl
-        mfh, mfw = stack.shape[1] // b, stack.shape[2] // b
-        mv = 2 * torch.randint(
-            -bound // 2, bound // 2 + 1, (8, mfh, mfw, 2), generator=g,
-            dtype=torch.int32,
-        ).to(dev)
+        fh, fw = stack.shape[1:]
+        mfh, mfw = fh // b, fw // b
+        mv = even_mvs(g, (8, mfh, mfw, 2), bnd, dev)
+        level_mvs[lvl] = mv
         got = motion.refine_sads(stack, mv, 1, b, b)
         ref = motion.refine_sads_plain(stack, mv, 1, b, b)
-        fh, fw = stack.shape[1:]
-        by = torch.arange(mfh, device=dev)[:, None] * b
-        bx = torch.arange(mfw, device=dev)[None, :] * b
-        for i, (ey, ex) in enumerate(motion.candidate_offsets(1)):
-            py = by + mv[..., 1] + int(ey)
-            px = bx + mv[..., 0] + int(ex)
-            valid = (py >= 0) & (py <= fh - b) & (px >= 0) & (px <= fw - b)
-            d = (got[:, i][valid] - ref[:, i][valid]).abs()
-            err3 = max(err3, d.max().item() if d.numel() else 0)
-            if not torch.equal(got[:, i][valid], ref[:, i][valid]):
-                fail(f"K3 refine_sads differs at level {lvl}, candidate {i}")
+        valid = valid_mask(mv, 1, b, fh, fw, dev).transpose(0, 1)
+        d = (got[valid] - ref[valid]).abs()
+        err3 = max(err3, d.max().item() if d.numel() else 0)
+        if not torch.equal(got[valid], ref[valid]):
+            fail(f"K3 refine_sads differs at level {lvl}")
         ms += cuda_ms(lambda: motion.refine_sads(stack, mv, 1, b, b))
         plain_ms += cuda_ms(lambda: motion.refine_sads_plain(stack, mv, 1, b, b),
                             iters=5)
-    results["refine_sads"] = (motion.REFINE_SADS, float(err3), ms, plain_ms)
+        nbytes += stack.numel() + mv.numel() * 4 + got.numel() * 4
+        ops += 2 * got.numel() * b * b
+    line = record(results, "refine_sads", motion.REFINE_SADS, err3, ms, plain_ms,
+                  nbytes, ops)
     print(f"parity K3 refine_sads: bit-equal on valid candidates, levels "
-          f"2-0; {ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T=8)")
+          f"2-0; {ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T=8); {line}")
 
-    # K2: forward DCT of 8 anchor frames from 9 packed 1080p frames
+    # K7: levels 2, 1, 0 of one 1088x1920 pair, r = 1, even MVs within
+    # each level's bound
+    ms = plain_ms = 0.0
+    nbytes, ops = 0, 0
+    for lvl, bnd in ((2, 2), (1, 6), (0, 14)):
+        tr, an = levels[lvl][0], levels[lvl][1]
+        b = 16 >> lvl
+        mv = level_mvs[lvl][0].contiguous()
+        got = motion.refine_mads(tr, an, mv, 1, b, b)
+        if not torch.equal(got, motion.refine_mads_plain(tr, an, mv, 1, b, b)):
+            fail(f"K7 refine_mads differs at level {lvl}")
+        ms += cuda_ms(lambda: motion.refine_mads(tr, an, mv, 1, b, b))
+        plain_ms += cuda_ms(lambda: motion.refine_mads_plain(tr, an, mv, 1, b, b),
+                            iters=5)
+        nbytes += 2 * tr.numel() + mv.numel() * 4 + got.numel() * 4
+        ops += 2 * got.numel() * b * b
+    line = record(results, "refine_mads", motion.REFINE_MADS, 0, ms, plain_ms,
+                  nbytes, ops)
+    print(f"parity K7 refine_mads: bit-equal on every candidate, levels 2-0 "
+          f"of one pair; {ms:.4f} ms vs plain {plain_ms:.4f} ms; {line}")
+
+    # K9: its path shape (the encoder's top-level EBMA: 136x240, 2x2
+    # blocks, r = 1, zero MVs, T = 8), then T = 8, r = 4, 16x16 blocks at
+    # 1088x1920 with mv_pad 0 (EBMA) and 14, and the refine_sads_static
+    # entry at mv_bound 12
+    top = levels[3]
+    tr, an = top[:-1], top[1:]
+    zero = torch.zeros((8, 68, 120, 2), dtype=torch.int32, device=dev)
+    got = motion.candidate_sads(tr, an, zero, 1, 2, 2)
+    if not torch.equal(got, motion.candidate_sads_plain(tr, an, zero, 1, 2, 2)):
+        fail("K9 candidate_sads differs at the EBMA path shape")
+    ms = cuda_ms(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2))
+    plain_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, 1, 2, 2),
+                       iters=5)
+    nbytes = 2 * tr.numel() + zero.numel() * 4 + got.numel() * 4
+    line = record(results, "candidate_sads", motion.CANDIDATE_SADS, 0, ms,
+                  plain_ms, nbytes, 2 * got.numel() * 4)
+    tr, an = y[:-1], y[1:]
+    wide = []
+    for pad in (0, 14):
+        mv = (torch.randint(-pad, pad + 1, (8, 68, 120, 2), generator=g,
+                            dtype=torch.int32).to(dev))
+        got = motion.candidate_sads(tr, an, mv, 4, 16, 16, pad)
+        if not torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 4, 16, 16)):
+            fail(f"K9 candidate_sads differs at r=4, mv_pad {pad}")
+        k_ms = cuda_ms(lambda: motion.candidate_sads(tr, an, mv, 4, 16, 16, pad),
+                       iters=5)
+        p_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, mv, 4, 16, 16),
+                       iters=2, warmup=1)
+        wide.append(f"mv_pad {pad}: {k_ms:.4f} ms vs plain {p_ms:.4f} ms")
+    mv = even_mvs(g, (8, 68, 120, 2), 12, dev)
+    got = motion.refine_sads_static(tr, an, mv, 4, 16, 16, 12)
+    if not torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 4, 16, 16)):
+        fail("K9 refine_sads_static differs at mv_bound 12")
+    print(f"parity K9 candidate_sads: bit-equal on every entry; EBMA path "
+          f"shape (T=8, 136x240, 2x2, r=1) {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms; {line}; T=8, r=4, 16x16 at 1088x1920: "
+          f"{'; '.join(wide)}; refine_sads_static (mv_bound 12) bit-equal")
+
+    # K8: the 9-frame 1088x1920 stack as tbw=8 column-pitched subplanes;
+    # pyrDown to level 1 and the level-0 refine (r = 1, even MVs within 14)
+    y8 = pyramid.to_pitched(y, 8)
+    got = pyramid.pyr_down_pitched(y8)
+    if not (torch.equal(got, pyramid.pyr_down_pitched_plain(y8))
+            and torch.equal(got, levels[1])):
+        fail("K8 pyr_down_pitched differs from its plain version or K4")
+    ms = cuda_ms(lambda: pyramid.pyr_down_pitched(y8))
+    plain_ms = cuda_ms(lambda: pyramid.pyr_down_pitched_plain(y8), iters=5)
+    line = record(results, "pyr_down_pitched", pyramid.PYR_DOWN_PITCHED, 0, ms,
+                  plain_ms, y8.numel() + got.numel(), 30 * got.numel(),
+                  conv_l0_ms)
+    print(f"parity K8 pyr_down_pitched: bit-equal to its plain version and "
+          f"to K4 on the spatial stack; {ms:.4f} ms vs plain {plain_ms:.4f} "
+          f"ms (T+1=9, tbw=8); {line}")
+    mv = level_mvs[0]
+    got = motion.refine_sads_pitched(y8, mv, 1, 16, 16)
+    if not (torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16))
+            and torch.equal(got, motion.refine_sads(y, mv, 1, 16, 16))):
+        fail("K8 refine_sads_pitched differs from its plain version or K3")
+    ms = cuda_ms(lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16))
+    plain_ms = cuda_ms(lambda: motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16),
+                       iters=5)
+    line = record(results, "refine_sads_pitched", motion.REFINE_SADS_PITCHED, 0,
+                  ms, plain_ms, y8.numel() + mv.numel() * 4 + got.numel() * 4,
+                  2 * got.numel() * 256)
+    print(f"parity K8 refine_sads_pitched: bit-equal on every candidate to its "
+          f"plain version and to K3 on the spatial stack; {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms (level 0, T=8, tbw=8); {line}")
+
+    # K2: forward DCT of 8 anchor frames from 9 packed 1080p frames;
+    # yardstick: the blockwise DCT of the 24 padded float32 planes as one
+    # 64-filter stride-8 convolution (no packing, no wire layout)
     packed = torch.randint(0, 256, (9, 1080, 5760), generator=g,
                            dtype=torch.uint8).to(dev)
     got = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920)
@@ -141,9 +297,18 @@ def phase_parity(dev):
     plain_ms = cuda_ms(
         lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, 8, 8), iters=5
     )
-    results["dct8x8_to_wire"] = (dct.DCT_WIRE, err, ms, plain_ms)
+    c8 = torch.tensor(dct.dct_matrix(8), device=dev)
+    basis = (c8[:, None, :, None] * c8[None, :, None, :]).reshape(64, 1, 8, 8)
+    planes = torch.zeros((24, 1, 1088, 1920), device=dev)
+    planes[:, 0, :1080] = packed[1:].reshape(8, 1080, 1920, 3).permute(
+        0, 3, 1, 2).reshape(24, 1080, 1920).float() - 128.0
+    lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(planes, basis, stride=8))
+    line = record(results, "dct8x8_to_wire", dct.DCT_WIRE, err, ms, plain_ms,
+                  8 * 1080 * 5760 + got.numel() * 4, 2048 * got.numel() // 64,
+                  lib_ms)
     print(f"parity K2 dct8x8_to_wire: max |err| {err:.3e} <= 2.5e-4, "
-          f"bit-exact fraction {exact:.6f}; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+          f"bit-exact fraction {exact:.6f}; {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms; {line}")
 
     # K1: display path of 8 frames, 1088 padded rows -> 1080 display rows,
     # then the zero-excess (identity rows) mode
@@ -172,9 +337,14 @@ def phase_parity(dev):
                 lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8),
                 iters=5,
             )
-    results["idct_display"] = (dct.IDCT_DISPLAY, worst, ms, plain_ms)
+            # dequantize (3 per coefficient), IDCT (2048 per block and
+            # channel), row lerp (3 per output byte)
+            nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
+            ops = 3 * coeffs.numel() + 2048 * coeffs.numel() // 64 + 3 * got.numel()
+    line = record(results, "idct_display", dct.IDCT_DISPLAY, worst, ms, plain_ms,
+                  nbytes, ops)
     print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms (1088->1080 rows, T=8)")
+          f"plain {plain_ms:.4f} ms (1088->1080 rows, T=8); {line}")
 
     # K5: every Lloyd attempt of an 8-frame batch from the same seeded
     # start, at the 1080p (8160 MV blocks) and 4K (32400) field sizes
@@ -198,15 +368,24 @@ def phase_parity(dev):
         if not rel <= 1e-6:
             fail(f"K5 lloyd compactness rel err {rel} > 1e-6 at {name}")
         worst = max(worst, (got[2] - ref[2]).abs().max().item())
+        iters = kmeans.lloyd_iterations(x, mask, init, 10, 10, 1.0)
+        # per iteration and point: k distances of D (3 ops each per dim)
+        # and D sums; one more assignment after the loop
+        its = int(iters.sum().item())
+        ops = (its + iters.numel()) * n * 10 * 3 * 4 + its * n * 4
+        nbytes = (x.numel() * 4 + mask.numel() + init.numel() * 4
+                  + sum(t.numel() * 4 for t in got))
         times[name] = (
             cuda_ms(lambda: kmeans.lloyd(x, mask, init, 10, 10, 1.0)),
             cuda_ms(lambda: kmeans.lloyd_plain(x, mask, init, 10, 10, 1.0), iters=3),
+            nbytes, ops, its,
         )
-        lines.append(f"{name} (F=8, N={n}, A=3, k=10, D=4): labels and centers "
-                     f"bit-equal, compactness rel err {rel:.2e}, "
-                     f"{times[name][0]:.4f} ms vs plain {times[name][1]:.4f} ms")
-    results["lloyd"] = (kmeans.LLOYD, worst, *times["1080p"])
-    print(f"parity K5 lloyd: {'; '.join(lines)}")
+        lines.append(f"{name} (F=8, N={n}, A=3, k=10, D=4, {its} attempt "
+                     f"iterations): labels and centers bit-equal, compactness "
+                     f"rel err {rel:.2e}, {times[name][0]:.4f} ms vs plain "
+                     f"{times[name][1]:.4f} ms")
+    line = record(results, "lloyd", kmeans.LLOYD, worst, *times["1080p"][:4])
+    print(f"parity K5 lloyd: {'; '.join(lines)}; 1080p {line}")
 
     # K6: the general display route — 1366x768 (padded 1376x768, width
     # excess 10), then a geometry with both excesses (1270x714, padded
@@ -234,11 +413,16 @@ def phase_parity(dev):
         )
         if w == 1366:
             ms, plain_ms = k_ms, p_ms
+            # dequantize, IDCT, two lerps (3 each) per output byte
+            nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
+            ops = 3 * coeffs.numel() + 2048 * coeffs.numel() // 64 + 6 * got.numel()
         modes.append(f"{nbx * 8}x{nby * 8}->{w}x{h}: max diff "
                      f"{diff.max().item()}, {frac:.2e} of bytes differ, "
                      f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms")
-    results["idct_resize_display"] = (dct.IDCT_RESIZE, worst, ms, plain_ms)
-    print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}")
+    line = record(results, "idct_resize_display", dct.IDCT_RESIZE, worst, ms,
+                  plain_ms, nbytes, ops)
+    print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; "
+          f"1366x768 {line}")
     return results
 
 
@@ -247,13 +431,13 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required):
     -> ``stream_encode`` -> bytes -> ``read_frames`` -> ``decode_frames``
     with a gaze. The launch counters are set to 0 just before and read just
     after; every kernel in ``required`` must have run."""
-    from benchmarks.clips import make_clip
-    from svc_tpu.config import DecoderConfig, VideoProperties
-    from svc_tpu.io import bitstream
-    from svc_tpu.metrics import psnr
+    from svc_tpu_torch.config import DecoderConfig, VideoProperties
+    from svc_tpu_torch.io import bitstream
     from svc_tpu_torch.kernels import build
+    from svc_tpu_torch.metrics import psnr
     from svc_tpu_torch.models.decoder import Decoder
     from svc_tpu_torch.models.encoder import Encoder, stream_encode
+    from svc_tpu_torch.tools.clips import make_clip
 
     clip = make_clip(w, h, n_frames)
     enc = Encoder(cfg, VideoProperties(w, h, n_frames), batch_size=8, device="cuda")
@@ -306,6 +490,105 @@ def display_gate(a: np.ndarray, b: np.ndarray, what: str) -> str:
     return f"max diff {diff.max()}, {frac:.2e} of bytes differ"
 
 
+def padded_luma(clip: np.ndarray, dev) -> torch.Tensor:
+    """``(n, ph, pw)`` uint8 luma of BGR frames, padded as the default
+    config's encoder pads them (1080p: 1088 rows)."""
+    from svc_tpu_torch.ops.color import bgr_planes_to_y
+    from svc_tpu_torch.ops.pad import pad_frame, padded_dims
+
+    px = torch.as_tensor(clip).to(dev)
+    y = bgr_planes_to_y(px[..., 0], px[..., 1], px[..., 2])
+    pw, ph = padded_dims(clip.shape[2], clip.shape[1], 16, 16, 4)
+    return pad_frame(y, pw, ph)
+
+
+def per_frame_motion(clip: np.ndarray, dev):
+    """Phase 8: ``build_pyramid`` -> ``hbma`` -> the three global-motion
+    estimators on one 1080p frame pair, on ``cuda``."""
+    from svc_tpu_torch.kernels import build
+    from svc_tpu_torch.ops import motion
+    from svc_tpu_torch.ops.pyramid import build_pyramid
+
+    y = padded_luma(clip[:2], dev)
+    mfh, mfw = y.shape[1] // 16, y.shape[2] // 16
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pyr = build_pyramid(y, 4)
+    tracked, anchor = [p[0] for p in pyr], [p[1] for p in pyr]
+    mv, mm = motion.hbma(tracked, anchor, 8, 16, 16)
+    gm_avg = motion.estimate_global_motion_avg(mv)
+    gm_ex, mad_ex = motion.estimate_global_motion_exhaustive(tracked[0], anchor[0], 8)
+    gm_h = motion.estimate_global_motion_hierarchical(tracked, anchor, 8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = build.launch_counts()
+    missing = [k for k in ("pyr_down_u8", "candidate_sads", "refine_mads")
+               if counts[k] <= 0]
+    if missing:
+        fail(f"per-frame motion: kernels never launched on this path: {missing}")
+    if tuple(mv.shape) != (mfh, mfw, 2) or not bool(torch.isfinite(mm).all()):
+        fail(f"per-frame motion: MV field {tuple(mv.shape)}, finite "
+             f"min-MADs {bool(torch.isfinite(mm).all())}")
+    mv_s, mm_s = motion.hbma_stack(pyr, 8, 16, 16)
+    if not (torch.equal(mv, mv_s[0]) and torch.equal(mm, mm_s[0])):
+        fail("per-frame motion: hbma differs from hbma_stack on the same stack")
+    cpu = [p.cpu() for p in pyr]
+    ct, ca = [p[0] for p in cpu], [p[1] for p in cpu]
+    mv_c, mm_c = motion.hbma(ct, ca, 8, 16, 16)
+    if not (torch.equal(mv.cpu(), mv_c) and torch.equal(mm.cpu(), mm_c)):
+        fail("per-frame motion: hbma on cuda differs from the CPU port")
+    gms = {
+        "avg": (gm_avg, motion.estimate_global_motion_avg(mv_c)),
+        "exhaustive": (gm_ex, motion.estimate_global_motion_exhaustive(ct[0], ca[0], 8)[0]),
+        "hierarchical": (gm_h, motion.estimate_global_motion_hierarchical(ct, ca, 8)),
+    }
+    for name, (a, b) in gms.items():
+        if not (bool(torch.isfinite(a).all()) and torch.equal(a.cpu(), b)):
+            fail(f"per-frame motion: global motion ({name}) {a.tolist()} on "
+                 f"cuda vs {b.tolist()} on the CPU")
+    moved = int((mv != 0).any(dim=-1).sum().item())
+    print(f"  MV field {mfh}x{mfw} equal to hbma_stack and to the CPU port, "
+          f"{moved} blocks moved; global motion (x, y) avg "
+          f"{gm_avg.tolist()}, exhaustive {gm_ex.tolist()} (MAD "
+          f"{mad_ex.item():.4f}), hierarchical {gm_h.tolist()}, each equal "
+          f"to the CPU port; {seconds:.2f} s incl. first calls; launches "
+          f"{counts}")
+    return dict(pyr=pyr, counts=counts)
+
+
+def pitched_motion(clip: np.ndarray, dev):
+    """Phase 9: the 9-frame luma stack as tbw=8 column-pitched subplanes
+    through ``pyr_down_pitched`` and ``hbma_stack(..., base_pitched=)``."""
+    from svc_tpu_torch.kernels import build
+    from svc_tpu_torch.ops import motion
+    from svc_tpu_torch.ops.pyramid import (build_pyramid, pyr_down,
+                                           pyr_down_pitched, to_pitched)
+
+    y = padded_luma(clip[:9], dev)
+    y8 = to_pitched(y, 8)
+    build.reset_launch_counts()
+    l1 = pyr_down_pitched(y8)
+    l2 = pyr_down(l1)
+    l3 = pyr_down(l2)
+    mv, mm = motion.hbma_stack([y8, l1, l2, l3], 8, 16, 16, base_pitched=y8)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    missing = [k for k in ("pyr_down_pitched", "refine_sads_pitched",
+                           "candidate_sads", "pyr_down_u8") if counts[k] <= 0]
+    if missing:
+        fail(f"pitched motion: kernels never launched on this path: {missing}")
+    ref = build_pyramid(y, 4)
+    mv_s, mm_s = motion.hbma_stack(ref, 8, 16, 16)
+    if not (torch.equal(l1, ref[1]) and torch.equal(mv, mv_s)
+            and torch.equal(mm, mm_s)):
+        fail("pitched motion: differs from the spatial pyramid and hbma_stack")
+    print(f"  level 1 equal to the spatial pyramid, MV fields "
+          f"{tuple(mv.shape[:3])} and min-MADs equal to hbma_stack on the "
+          f"spatial stack; launches "
+          f"{counts}")
+    return dict(counts=counts)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "svc_tpu_torch")):
         fail("svc_tpu_torch/ not found beside chip_smoke.py; run it from the "
@@ -338,15 +621,16 @@ def main() -> int:
     # 3. kernel parity
     results = phase_parity(dev)
 
-    from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
-    from svc_tpu.io import bitstream
+    from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+    from svc_tpu_torch.io import bitstream
     from svc_tpu_torch.models.decoder import Decoder
     from svc_tpu_torch.models.encoder import Encoder, stream_encode
-    from svc_tpu_torch.ops import dct
+    from svc_tpu_torch.ops import dct, motion
 
-    encode_kernels = ("pyr_down_u8", "refine_sads", "dct8x8_to_wire")
+    encode_kernels = ("pyr_down_u8", "candidate_sads", "refine_sads",
+                      "dct8x8_to_wire")
 
-    # 4. the default config at 1080p: K1-K5
+    # 4. the default config at 1080p: K1-K5, K9
     print("default config 1080p, 17 frames:")
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
                           encode_kernels + ("lloyd", "idct_display"))
@@ -361,7 +645,7 @@ def main() -> int:
     print(f"  cuda decode vs cpu decode of the same payloads: "
           f"{display_gate(wide['frames'], cpu_frames, 'width-excess decode')}")
 
-    # 6. reference-compat at 1080p: K1-K4
+    # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
     round_trip(EncoderConfig(reference_compat=True), 1920, 1080, 9,
                encode_kernels + ("idct_display",))
@@ -398,7 +682,15 @@ def main() -> int:
           f"differ on {lab_share:.4%} of blocks, block types on {share:.4%} "
           f"(first mismatch {first}); decoded bytes {dgate}")
 
-    # 8. timings (warm: every kernel is built and loaded), default config
+    # 8. per-frame motion at 1080p: K7
+    print("per-frame motion 1080p (frames 0-1, padded 1920x1088):")
+    frame_run = per_frame_motion(clip, dev)
+
+    # 9. pitched motion at 1080p: K8
+    print("pitched motion 1080p (frames 0-8, tbw=8):")
+    pitched_run = pitched_motion(clip, dev)
+
+    # 10. timings (warm: every kernel is built and loaded), default config
     enc, dec, stream = main_run["enc"], main_run["dec"], main_run["stream"]
     t0 = time.perf_counter()
     stream2 = b"".join(stream_encode(enc, iter(clip)))
@@ -419,27 +711,40 @@ def main() -> int:
     ).reshape(8, 136, 240, 192).to(dev)
     steps = torch.full((8, 136, 240), 640.0, device=dev)
     dec_ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, h), iters=20)
+    pyr = frame_run["pyr"]
+    tracked, anchor = [p[0] for p in pyr], [p[1] for p in pyr]
+    hbma_ms = cuda_ms(lambda: motion.hbma(tracked, anchor, 8, 16, 16), iters=5,
+                      warmup=1)
     print(f"timings 1080p batch 8 [{card}]: default config encode "
           f"{16 / enc_s:.2f} fps end to end (host clip -> bytes), "
           f"{8000.0 / enc_ms:.2f} fps device batch ({enc_ms:.2f} ms / 8 "
           f"frames; reference-compat {compat_ms:.2f} ms); decode "
           f"{n_dec / dec_s:.2f} fps end to end (bytes -> host frames), "
-          f"{8000.0 / dec_ms:.2f} fps device ({dec_ms:.3f} ms / 8 frames)")
+          f"{8000.0 / dec_ms:.2f} fps device ({dec_ms:.3f} ms / 8 frames); "
+          f"per-frame hbma {hbma_ms:.3f} ms per 1080p pair")
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))
+    if loaded:
+        fail(f"modules of JAX, svc_tpu or benchmarks were imported: {loaded[:5]}")
+    # where each kernel's launches were counted: the path that runs it
+    path_of = {"idct_resize_display": wide, "refine_mads": frame_run,
+               "pyr_down_pitched": pitched_run, "refine_sads_pitched": pitched_run}
     kernels = []
-    for name, (k, err, ms, plain_ms) in results.items():
-        run = wide if name == "idct_resize_display" else main_run
+    for name, r in results.items():
+        k = r["kernel"]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": run["counts"][name],
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
+            "launches": path_of.get(name, main_run)["counts"][name],
+            "max_abs_err": r["err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

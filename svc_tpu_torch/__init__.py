@@ -6,9 +6,12 @@ written by hand for NVIDIA Hopper (``sm_90a``). The module layout mirrors
 has an obvious counterpart, and ``svc_tpu`` stays the reference the port is
 checked against.
 
-What the port shares with ``svc_tpu`` instead of copying: the configs
-(``svc_tpu.config``), the wire format (``svc_tpu.io.bitstream``), video I/O,
-the CLI parser and the metrics — none of them imports JAX.
+The port imports nothing of ``svc_tpu``. It keeps its own copies of the
+reference package's host layer — the configs (``config``, with
+``config.from_dict`` to carry a config across), the wire format
+(``io.bitstream`` over the repo's ``native/`` library), video I/O
+(``io.video``), the CLI parser and scalar helpers (``utils``) and the
+metrics — so it runs where neither JAX nor ``svc_tpu`` is installed.
 
 Conventions:
 

@@ -20,10 +20,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from svc_tpu.config import DecoderConfig, validate_decoder_config
-from svc_tpu.io import bitstream
-from svc_tpu.io.video import write_npy_video, write_y4m_video
-from svc_tpu.utils import cli
+from svc_tpu_torch.config import DecoderConfig, validate_decoder_config
+from svc_tpu_torch.io import bitstream
+from svc_tpu_torch.io.video import write_npy_video, write_y4m_video
+from svc_tpu_torch.utils import cli
 from svc_tpu_torch.apps import UNSUPPORTED
 
 _UNSUPPORTED_FLAGS = ("devices", "show", "trace", "start-frame")

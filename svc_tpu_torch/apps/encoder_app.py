@@ -19,9 +19,9 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from svc_tpu.config import EncoderConfig, VideoProperties, validate_encoder_config
-from svc_tpu.io.video import VideoReader
-from svc_tpu.utils import cli
+from svc_tpu_torch.config import EncoderConfig, VideoProperties, validate_encoder_config
+from svc_tpu_torch.io.video import VideoReader
+from svc_tpu_torch.utils import cli
 from svc_tpu_torch.apps import UNSUPPORTED
 
 _UNSUPPORTED_FLAGS = (

@@ -26,9 +26,9 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from svc_tpu.config import DecoderConfig
-from svc_tpu.io import bitstream
-from svc_tpu.utils.mathx import round_half_away_from_zero
+from svc_tpu_torch.config import DecoderConfig
+from svc_tpu_torch.io import bitstream
+from svc_tpu_torch.utils.mathx import round_half_away_from_zero
 from svc_tpu_torch.ops.dct import idct_display, idct_resize_display
 from svc_tpu_torch.ops.quant import block_quant_steps
 from svc_tpu_torch.runtime.device import DeviceLike, resolve_device

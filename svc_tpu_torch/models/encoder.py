@@ -26,8 +26,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from svc_tpu.config import EncoderConfig, VideoProperties
-from svc_tpu.io import bitstream
+from svc_tpu_torch.config import EncoderConfig, VideoProperties
+from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.ops import prng
 from svc_tpu_torch.ops.ccl import block_types_from_clusters
 from svc_tpu_torch.ops.color import bgr_planes_to_y

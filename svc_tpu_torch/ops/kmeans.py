@@ -226,6 +226,24 @@ def lloyd_plain(
     float32 sum past 2**24 would depend on the order); compactness is
     summed in float64 too.
     """
+    return _lloyd_plain(x, mask, init_centers, k, max_iter, epsilon)[:3]
+
+
+def lloyd_iterations(
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    init_centers: torch.Tensor,
+    k: int,
+    max_iter: int,
+    epsilon: float,
+) -> torch.Tensor:
+    """``(A, F)`` int32: the Lloyd iterations each attempt of each frame
+    runs before it converges (or reaches ``max_iter``) — the work K5 does on
+    these inputs, for its roofline bound."""
+    return _lloyd_plain(x, mask, init_centers, k, max_iter, epsilon)[3]
+
+
+def _lloyd_plain(x, mask, init_centers, k, max_iter, epsilon):
     xt = x.to(torch.float32)
     x64 = xt.to(torch.float64)
     dev = xt.device
@@ -234,9 +252,11 @@ def lloyd_plain(
     ks = torch.arange(k, device=dev)[:, None]
     eps2 = torch.tensor(_eps2(epsilon), dtype=torch.float32, device=dev)
     done = torch.zeros(centers.shape[:2], dtype=torch.bool, device=dev)
+    iterations = torch.zeros(centers.shape[:2], dtype=torch.int32, device=dev)
     for _ in range(max_iter):
         if bool(done.all()):
             break
+        iterations += (~done).to(torch.int32)
         labels, point_d2 = _assign(xt, centers, mask)
         onehot = (labels[:, :, None, :] == ks).to(torch.float32) * maskf
         counts = onehot.sum(dim=-1)  # (F, A, k), exact
@@ -260,6 +280,7 @@ def lloyd_plain(
         labels.transpose(0, 1).to(torch.int32).contiguous(),
         centers.transpose(0, 1).contiguous(),
         compact.transpose(0, 1).contiguous(),
+        iterations.transpose(0, 1).contiguous(),
     )
 
 

@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from svc_tpu.utils.mathx import closest_larger_divisible, pow2
+from svc_tpu_torch.utils.mathx import closest_larger_divisible, pow2
 
 
 def padded_dims(

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from svc_tpu.io.bitstream import BLOCK_TYPE_BACKGROUND
+from svc_tpu_torch.io.bitstream import BLOCK_TYPE_BACKGROUND
 
 
 def dequantize(coeffs: torch.Tensor, step: torch.Tensor) -> torch.Tensor:

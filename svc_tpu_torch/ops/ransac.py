@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from svc_tpu.config import RansacParams
+from svc_tpu_torch.config import RansacParams
 from svc_tpu_torch.ops import prng
 
 #: Budget for the (k, N) hypothesis-scoring tensors (svc_tpu/ops/ransac.py).

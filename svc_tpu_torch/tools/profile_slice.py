@@ -1,8 +1,10 @@
-"""Where the time goes in one 1080p encode batch and one decode batch.
+"""Where the time goes in one 1080p encode batch, one decode batch and one
+per-frame motion search.
 
 Runs the port's encode (``Encoder.encode_packed``, with the default
-``EncoderConfig()`` that users run) and decode (``Decoder.decode_batch``)
-on one CUDA card under ``torch.profiler`` after a warm-up. It prints what
+``EncoderConfig()`` that users run), decode (``Decoder.decode_batch``) and
+per-frame ``ops.motion.hbma`` of one padded 1080p frame pair on one CUDA
+card under ``torch.profiler`` after a warm-up. It prints what
 ptxas reported for each kernel (registers, shared memory, spills) when the
 library is built in this process, then per batch:
 wall time, device busy time (the union of kernel intervals) and idle
@@ -24,11 +26,15 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from benchmarks.clips import make_clip
-from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
+from svc_tpu_torch.tools.clips import make_clip
+from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
+from svc_tpu_torch.ops import motion
+from svc_tpu_torch.ops.color import bgr_planes_to_y
+from svc_tpu_torch.ops.pad import pad_frame
+from svc_tpu_torch.ops.pyramid import build_pyramid
 
 
 def _busy_us(prof) -> float:
@@ -100,6 +106,15 @@ def main(argv=None) -> int:
     rects = np.tile(np.array([[928, 512, 64, 64]], np.int64), (8, 1))
     _report("decode_batch8",
             lambda: dec.decode_batch(coeffs, types[:, :nby, :nbx], rects),
+            args.out, args.rows)
+
+    # frames 0 and 1 of the clip, as the encoder's frontend pads their luma
+    px = packed[:2].reshape(2, h, w, 3)
+    luma = pad_frame(bgr_planes_to_y(px[..., 0], px[..., 1], px[..., 2]),
+                     enc.padded_w, enc.padded_h)
+    pyr = build_pyramid(luma, 4)
+    tracked, anchor = [p[0] for p in pyr], [p[1] for p in pyr]
+    _report("hbma_pair", lambda: motion.hbma(tracked, anchor, 8, 16, 16),
             args.out, args.rows)
     return 0
 

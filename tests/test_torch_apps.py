@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 import torch
 
-from benchmarks.clips import make_clip
-from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
-from svc_tpu.io import bitstream
-from svc_tpu.metrics import psnr
 from svc_tpu_torch.apps import decoder_app, encoder_app
+from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+from svc_tpu_torch.io import bitstream
+from svc_tpu_torch.metrics import psnr
 from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
+from svc_tpu_torch.tools.clips import make_clip
 
 ENC_FLAGS = [
     "--reference-compat", "1", "--device", "cpu", "--batch-size", "2",

@@ -13,14 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from benchmarks.clips import make_clip
-from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
-from svc_tpu.io import bitstream
+from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
 from svc_tpu_torch.ops import dct, kmeans, motion, prng, pyramid
 from svc_tpu_torch.ops.resize import bilinear_axis_weights
+from svc_tpu_torch.tools.clips import make_clip
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +61,89 @@ def test_refine_sads_bit_equal(gen, block, r, bound):
         motion.refine_sads(stack, mv, r, block, block),
         motion.refine_sads_plain(stack, mv, r, block, block),
     )
+
+
+@pytest.mark.parametrize("block,r,bound", [(4, 1, 2), (8, 1, 6), (16, 1, 14),
+                                           (8, 3, 21), (16, 4, 40)])
+def test_refine_mads_bit_equal(gen, block, r, bound):
+    # one frame pair; odd MVs reaching past the frame edge
+    tr, an = _u8(gen, (4 * block, 6 * block)), _u8(gen, (4 * block, 6 * block))
+    mv = torch.randint(-bound, bound + 1, (4, 6, 2), generator=gen,
+                       dtype=torch.int32).cuda()
+    before = motion.REFINE_MADS.launches
+    got = motion.refine_mads(tr, an, mv, r, block, block)
+    assert motion.REFINE_MADS.launches == before + 1
+    assert got.shape == ((2 * r + 1) ** 2, 4, 6)
+    assert torch.equal(got, motion.refine_mads_plain(tr, an, mv, r, block, block))
+
+
+@pytest.mark.parametrize("mv_pad", [0, 14])
+@pytest.mark.parametrize("t,h,w,bw,bh,r", [(3, 48, 80, 16, 16, 4),
+                                           (2, 36, 52, 4, 6, 2),
+                                           (1, 14, 10, 2, 2, 1)])
+def test_candidate_sads_bit_equal(gen, mv_pad, t, h, w, bw, bh, r):
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    mv = torch.randint(-mv_pad, mv_pad + 1, (t, h // bh, w // bw, 2),
+                       generator=gen, dtype=torch.int32).cuda()
+    before = motion.CANDIDATE_SADS.launches
+    got = motion.candidate_sads(tr, an, mv, r, bw, bh, mv_pad)
+    assert motion.CANDIDATE_SADS.launches == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, bw, bh))
+
+
+def test_refine_sads_static_and_ebma_on_card(gen):
+    tr, an = _u8(gen, (2, 64, 96)), _u8(gen, (2, 64, 96))
+    mv = 2 * torch.randint(-6, 7, (2, 4, 6, 2), generator=gen,
+                           dtype=torch.int32).cuda()
+    got = motion.refine_sads_static(tr, an, mv, 4, 16, 16, 12)
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 4, 16, 16))
+    mv_g, mm_g = motion.ebma(tr, an, 2, 4, 4)
+    mv_c, mm_c = motion.ebma(tr.cpu(), an.cpu(), 2, 4, 4)
+    assert torch.equal(mv_g.cpu(), mv_c) and torch.equal(mm_g.cpu(), mm_c)
+
+
+@pytest.mark.parametrize("tbw", [4, 8])
+@pytest.mark.parametrize("n,h,w", [(3, 64, 128), (2, 40, 104), (1, 8, 16)])
+def test_pyr_down_pitched_bit_equal(gen, tbw, n, h, w):
+    x = _u8(gen, (n, h, w))
+    y8 = pyramid.to_pitched(x, tbw)
+    before = pyramid.PYR_DOWN_PITCHED.launches
+    got = pyramid.pyr_down_pitched(y8)
+    assert pyramid.PYR_DOWN_PITCHED.launches == before + 1
+    assert torch.equal(got, pyramid.pyr_down_pitched_plain(y8))
+    assert torch.equal(got, pyramid.pyr_down_plain(x))
+
+
+@pytest.mark.parametrize("tbw", [4, 8])
+@pytest.mark.parametrize("block,r,bound", [(8, 1, 6), (16, 1, 14), (16, 2, 20)])
+def test_refine_sads_pitched_bit_equal(gen, tbw, block, r, bound):
+    stack = _u8(gen, (3, 4 * block, 5 * block))
+    y8 = pyramid.to_pitched(stack, tbw)
+    mv = torch.randint(-bound, bound + 1, (2, 4, 5, 2), generator=gen,
+                       dtype=torch.int32).cuda()
+    before = motion.REFINE_SADS_PITCHED.launches
+    got = motion.refine_sads_pitched(y8, mv, r, block, block)
+    assert motion.REFINE_SADS_PITCHED.launches == before + 1
+    assert torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, r, block, block))
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, block, block))
+
+
+def test_hbma_on_card_matches_cpu(gen):
+    stack = _u8(gen, (2, 64, 128))
+    stack[1, :, 3:] = stack[0, :, :-3]  # a 3-pixel pan
+    pyr = pyramid.build_pyramid(stack, 4)
+    before = motion.REFINE_MADS.launches
+    mv, mm = motion.hbma([p[0] for p in pyr], [p[1] for p in pyr], 8, 16, 16)
+    assert motion.REFINE_MADS.launches == before + 3
+    cpu = [p.cpu() for p in pyr]
+    mv_c, mm_c = motion.hbma([p[0] for p in cpu], [p[1] for p in cpu], 8, 16, 16)
+    assert torch.equal(mv.cpu(), mv_c) and torch.equal(mm.cpu(), mm_c)
+    gm = motion.estimate_global_motion_hierarchical(
+        [p[0] for p in pyr], [p[1] for p in pyr], 8)
+    gm_c = motion.estimate_global_motion_hierarchical(
+        [p[0] for p in cpu], [p[1] for p in cpu], 8)
+    assert torch.equal(gm.cpu(), gm_c)
 
 
 @pytest.mark.parametrize(
@@ -161,6 +244,14 @@ def test_wrappers_reject_bad_inputs(gen):
     stack = _u8(gen, (3, 32, 32))
     with pytest.raises(TypeError):
         motion.refine_sads(stack, torch.zeros((2, 2, 2, 2), device="cuda"), 1, 16, 16)
+    zero_mv = torch.zeros((2, 2, 2, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="candidate_sads"):
+        # a 116x116 window per warp needs more than the default 48 KB
+        motion.candidate_sads(stack[:2], stack[1:], zero_mv, 50, 16, 16)
+    with pytest.raises(ValueError, match="multiple of tbw"):
+        motion.refine_sads_pitched(pyramid.to_pitched(stack, 8), zero_mv, 1, 12, 16)
+    with pytest.raises(ValueError, match="H % 8"):
+        pyramid.pyr_down_pitched(pyramid.to_pitched(stack[:, :30], 8))
     with pytest.raises(TypeError):
         dct.idct_display(torch.zeros((1, 2, 2, 192), device="cuda"),
                          torch.ones((1, 2, 3), device="cuda"), 16)
@@ -185,6 +276,7 @@ def test_port_on_card_matches_port_on_cpu(gen, w, h):
     cuda_stream = list(Encoder(cfg, props, 2, device="cuda").encode_video(iter(clip)))
     counts = build.launch_counts()
     assert counts["pyr_down_u8"] > 0 and counts["refine_sads"] > 0
+    assert counts["candidate_sads"] > 0  # the top-level EBMA
     assert counts["dct8x8_to_wire"] > 0
     cpu_stream = list(Encoder(cfg, props, 2, device="cpu").encode_video(iter(clip)))
     assert cuda_stream[0] == cpu_stream[0]

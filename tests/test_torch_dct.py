@@ -4,20 +4,23 @@ the decoder's display path on every route — width-aligned (K1) and general
 tables that cut the display kernels' tiles."""
 
 import contextlib
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from svc_tpu.config import DecoderConfig
-from svc_tpu.io import bitstream
+from svc_tpu import config as j_config
+from svc_tpu.io import bitstream as j_bitstream
 from svc_tpu.ops import dct as j_dct
 from svc_tpu.ops import dct_pallas as j_dctp
 from svc_tpu.ops import interleave as j_inter
 from svc_tpu.ops import quant as j_quant
 from svc_tpu.ops import resize as j_resize
 from svc_tpu.ops.pad import pad_frame as j_pad_frame
+from svc_tpu_torch import config
+from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.ops import dct, quant, resize
 
 COEFF_GATE = 2.5e-4  # max |err| of wire coefficients (BASELINE.md DCT gate)
@@ -132,12 +135,13 @@ def test_display_bytes_match_svc_tpu_decoder(w, h, ew, eh):
     from svc_tpu_torch.models.decoder import Decoder
 
     hdr, coeffs, btypes, rects = _decode_inputs(w, h, ew, eh, seed=w * h)
+    j_cfg = j_config.DecoderConfig()
+    j_hdr = j_bitstream.Header(*dataclasses.astuple(hdr))
     want = JDecoder.packed_bytes(
-        JDecoder(DecoderConfig(), hdr, batch_size=2)._decode_batch(
-            coeffs, btypes, rects
-        )
+        JDecoder(j_cfg, j_hdr, batch_size=2)._decode_batch(coeffs, btypes, rects)
     )
-    got = Decoder(DecoderConfig(), hdr, batch_size=2, device="cpu").decode_batch(
+    cfg = config.from_dict(config.DecoderConfig, dataclasses.asdict(j_cfg))
+    got = Decoder(cfg, hdr, batch_size=2, device="cpu").decode_batch(
         coeffs, btypes, rects
     )
     assert got.dtype == torch.uint8
@@ -161,7 +165,7 @@ def test_general_route_dispatches_to_k6(monkeypatch):
     monkeypatch.setattr(dct.IDCT_RESIZE, "launch", lambda *a: launched.append(a))
     monkeypatch.setattr(dct.IDCT_DISPLAY, "launch", lambda *a: pytest.fail("K1"))
     hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3)
-    out = dec_mod.Decoder(DecoderConfig(), hdr, device="cuda").decode_batch(
+    out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
         coeffs, btypes, rects
     )
     assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)

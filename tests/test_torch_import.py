@@ -1,7 +1,9 @@
-"""svc_tpu_torch imports no JAX, resolves devices strictly, and registers
-one CUDA kernel per TPU kernel on the encode -> decode path."""
+"""svc_tpu_torch imports neither JAX nor anything of svc_tpu (it keeps its
+own host layer), resolves devices strictly, and registers one CUDA kernel
+per TPU kernel."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -12,14 +14,20 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# top-level packages the port must never load: JAX, the JAX package and
+# its benchmarks
+FORBIDDEN = ("jax", "jaxlib", "svc_tpu", "benchmarks")
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import svc_tpu_torch, svc_tpu_torch.models.encoder, "
         "svc_tpu_torch.models.decoder, svc_tpu_torch.apps.encoder_app, "
-        "svc_tpu_torch.apps.decoder_app\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
+        "svc_tpu_torch.apps.decoder_app, svc_tpu_torch.tools.profile_slice, "
+        "svc_tpu_torch.ops.motion, svc_tpu_torch.io.video, "
+        "svc_tpu_torch.metrics\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -35,15 +43,16 @@ def test_port_imports_no_jax():
 
 def test_port_sources_have_no_jax_import_line():
     pkg = os.path.join(REPO, "svc_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(pkg):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            with open(os.path.join(root, name)) as f:
-                for line in f:
-                    s = line.strip()
-                    assert not s.startswith(("import jax", "from jax")), (
-                        name, line)
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    bad_import = re.compile(
+        r"^\s*(from|import)\s+(jax|jaxlib|svc_tpu|benchmarks)(\.|\s|$)"
+    )
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                assert not bad_import.match(line), (path, line)
 
 
 def _no_cuda(monkeypatch):
@@ -64,8 +73,8 @@ def test_resolve_device_raises_without_card(monkeypatch):
 
 
 def test_entry_points_refuse_cuda_without_card(monkeypatch):
-    from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
-    from svc_tpu.io import bitstream
+    from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+    from svc_tpu_torch.io import bitstream
     from svc_tpu_torch.models.decoder import Decoder
     from svc_tpu_torch.models.encoder import Encoder
 
@@ -105,7 +114,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
     ks = build.kernels()
     assert set(ks) == {
         "pyr_down_u8", "refine_sads", "dct8x8_to_wire", "idct_display",
-        "lloyd", "idct_resize_display",
+        "lloyd", "idct_resize_display", "refine_mads", "candidate_sads",
+        "pyr_down_pitched", "refine_sads_pitched",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -116,7 +126,10 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
     srcs = {p.name for p in build.sources()}
     assert {"pyr_down.cu", "refine_sads.cu", "dct_wire.cu",
             "idct_display.cu", "lloyd.cu", "idct_resize.cu",
-            "idct_tile.cuh"} <= srcs
+            "idct_tile.cuh", "refine_mads.cu", "candidate_sads.cu",
+            "pyr_down_pitched.cu", "refine_sads_pitched.cu", "window_sads.cuh",
+            "pyr_down.cuh", "planes.cuh"} <= srcs
+    assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
 

@@ -4,15 +4,19 @@ the DCT gate), under the default config and under reference-compat, and
 each package's decoder turns the streams into the same display bytes (max
 |diff| <= 1 in < 1e-3 of the bytes) on every display route."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from benchmarks.clips import make_clip
 from svc_tpu.config import DecoderConfig, EncoderConfig, VideoProperties
-from svc_tpu.io import bitstream
+from svc_tpu.io import bitstream as j_bitstream
 from svc_tpu.models import decoder as j_dec
 from svc_tpu.models import encoder as j_enc
+from svc_tpu_torch import config
+from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.models import decoder as t_dec
 from svc_tpu_torch.models import encoder as t_enc
 
@@ -37,12 +41,18 @@ def encoded(request):
     cfg = EncoderConfig(reference_compat=compat)
     props = VideoProperties(w, h, N_FRAMES)
     jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
-    tenc = t_enc.Encoder(cfg, props, batch_size=BATCH, device="cpu")
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=BATCH, device="cpu")
     js = list(jenc.encode_video(iter(clip)))
     ts = list(tenc.encode_video(iter(clip)))
     jb = {k: np.array(v) for k, v in jenc.encode_batch(clip[: BATCH + 1], 0).items()}
     tb = tenc.encode_batch(clip[: BATCH + 1], 0)
     return dict(clip=clip, js=js, ts=ts, jb=jb, tb=tb, w=w, h=h)
+
+
+def _port(*configs):
+    """svc_tpu configs carried across to the port's (``config.from_dict``)."""
+    return [config.from_dict(getattr(config, type(c).__name__),
+                             dataclasses.asdict(c)) for c in configs]
 
 
 def _payloads(stream):
@@ -80,8 +90,12 @@ def test_batch_intermediates_equal(encoded):
 
 
 def _decode(module, stream, gaze, **kw):
-    header = bitstream.Header.unpack(stream[0])
-    dec = module.Decoder(DecoderConfig(), header, batch_size=BATCH, **kw)
+    if module is j_dec:
+        cfg, header = DecoderConfig(), j_bitstream.Header.unpack(stream[0])
+    else:
+        (cfg,) = _port(DecoderConfig())
+        header = bitstream.Header.unpack(stream[0])
+    dec = module.Decoder(cfg, header, batch_size=BATCH, **kw)
     n = len(stream) - 1
     return np.stack(list(dec.decode_frames(iter(stream[1:]), iter([gaze] * n))))
 
@@ -118,7 +132,7 @@ def test_default_config_round_trip():
     clip = make_clip(w, h, n, seed=9)
     props = VideoProperties(w, h, n)
     js = list(j_enc.Encoder(EncoderConfig(), props, batch_size=BATCH).encode_video(iter(clip)))
-    ts = list(t_enc.Encoder(EncoderConfig(), props, batch_size=BATCH,
+    ts = list(t_enc.Encoder(*_port(EncoderConfig(), props), batch_size=BATCH,
                             device="cpu").encode_video(iter(clip)))
     assert ts[0] == js[0]
     _, jp = _payloads(js)
@@ -136,8 +150,9 @@ def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads
     clip = make_clip(64, 48, 5, seed=3)
-    cfg = EncoderConfig(reference_compat=True)
-    enc = t_enc.Encoder(cfg, VideoProperties(64, 48, 5), batch_size=2, device="cpu")
+    cfg = config.EncoderConfig(reference_compat=True)
+    enc = t_enc.Encoder(cfg, config.VideoProperties(64, 48, 5), batch_size=2,
+                        device="cpu")
     full = list(enc.encode_video(iter(clip)))
     tail = list(enc.encode_video(iter(clip[2:]), emit_header=False,
                                  first_anchor_index=2))

@@ -3,6 +3,8 @@ the Lloyd kernel K5's plain version against the Pallas kernel in interpret
 mode) and per-cluster connected components — all bit-equal on shared keys
 (compactness, a float sum in another order, within rtol 1e-6)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from svc_tpu.ops import kmeans as j_kmeans
 from svc_tpu.ops import kmeans_pallas as j_kmeans_pallas
 from svc_tpu.ops import morphology as j_morph
 from svc_tpu.ops import ransac as j_ransac
+from svc_tpu_torch import config
 from svc_tpu_torch.ops import ccl, kmeans, morphology, prng, ransac
 
 F, MFH, MFW = 4, 8, 16
@@ -32,6 +35,12 @@ def _motion_fields(seed=1):
         noise = rng.random((MFH, MFW, 1)) < 0.05
         mv[f] += noise * rng.integers(-3, 4, (MFH, MFW, 2))
     return mv
+
+
+def _port(params):
+    """A svc_tpu config carried across to the port's."""
+    return config.from_dict(getattr(config, type(params).__name__),
+                            dataclasses.asdict(params))
 
 
 def _keys(seed):
@@ -79,7 +88,7 @@ def segmentation():
 def test_ransac_matches(segmentation):
     s = segmentation
     gm, rmse, inl = ransac.estimate_global_motion_ransac(
-        torch.from_numpy(s["mv"]), s["cfg"].ransac, s["kt"][:, 0]
+        torch.from_numpy(s["mv"]), _port(s["cfg"].ransac), s["kt"][:, 0]
     )
     np.testing.assert_array_equal(inl.numpy(), s["inliers"])
     np.testing.assert_array_equal(gm.numpy(), s["gm"])
@@ -152,7 +161,7 @@ def test_ransac_iteration_math_matches():
         RansacParams(inlier_ratio=0.0),
         RansacParams(success_prob=0.0),
     ]:
-        assert ransac.iter_count(p) == j_ransac.iter_count(p)
+        assert ransac.iter_count(_port(p)) == j_ransac.iter_count(p)
     for n in (1, 100, 8160, 10**6):
         assert ransac.hypothesis_cap(n) == j_ransac.hypothesis_cap(n)
 
@@ -160,7 +169,7 @@ def test_ransac_iteration_math_matches():
 def test_ransac_zero_hypotheses():
     mv = torch.zeros((2, 3, 4, 2))
     gm, rmse, inl = ransac.estimate_global_motion_ransac(
-        mv, RansacParams(success_prob=0.0), prng.split(prng.key(0), 2)
+        mv, config.RansacParams(success_prob=0.0), prng.split(prng.key(0), 2)
     )
     assert not inl.any() and gm.abs().sum() == 0 and rmse.abs().sum() == 0
 
@@ -175,7 +184,7 @@ def test_ransac_degenerate_keeps_hypothesis():
     want = jax.vmap(
         lambda m, k: j_ransac.estimate_global_motion_ransac(m, p, k)
     )(jnp.asarray(mv), kj[:2, 0])
-    got = ransac.estimate_global_motion_ransac(torch.from_numpy(mv), p, kt[:2, 0])
+    got = ransac.estimate_global_motion_ransac(torch.from_numpy(mv), _port(p), kt[:2, 0])
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
@@ -292,6 +301,6 @@ def test_kmeans_global_farthest_matches(case, segmentation):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="subset_sz"):
         ransac.estimate_global_motion_ransac(
-            torch.zeros((1, 2, 2, 2)), RansacParams(subset_sz=2),
+            torch.zeros((1, 2, 2, 2)), config.RansacParams(subset_sz=2),
             prng.split(prng.key(0), 1),
         )
