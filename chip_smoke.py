@@ -9,33 +9,39 @@ each:
 
 1. card — name and power limit (``nvidia-smi``);
 2. build — compile the kernels, with the build time;
-3. kernel parity — each of the ten kernels against its plain PyTorch
+3. kernel parity — each of the twelve kernels against its plain PyTorch
    version on the card at the shapes of its path (K3, K4, K5, K7, K8, K9
    bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4; K1 and
    K6 within 1 with under 1e-3 of the bytes differing), with the kernel's
    time, the plain version's, the one-call PyTorch yardstick's where one
    exists, and the bound (bytes over 3.35 TB/s or operations over 67
-   T/s, whichever is larger);
+   T/s, float64 operations over 34 T/s, whichever is larger). K1 and K2
+   run on their 8x8 x 3 kernels, held bit for bit against the general
+   kernels on the same inputs and timed in turns with them; the general
+   kernels also run once at 4x4 blocks;
 4. default config — a 17-frame 1080p clip through ``stream_encode`` with
    ``EncoderConfig()`` on ``cuda``, read back through the port's
    ``io.bitstream`` and decoded with a gaze; K1-K5 and K9 must run;
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
-   decoded on ``cuda`` (K6 must run), the bytes held against the CPU
-   port's decode of the same payloads;
+   decoded on ``cuda`` (K6 must run, and K2 on 2-byte aligned rows), the
+   bytes held against the CPU port's decode of the same payloads;
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
-7. card against CPU — the first 3 frames, default config, on both devices;
-8. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
+   phases 4-6 must not launch the general K1 or K2;
+7. 4x4 transform blocks — a 9-frame CIF clip, default config with 4x4
+   transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones not;
+8. card against CPU — the first 3 frames, default config, on both devices;
+9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
    global-motion estimators on ``cuda`` (K7 must run), held against
    ``hbma_stack`` on the same 2-frame stack and the CPU port;
-9. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
-   subplanes through ``pyr_down_pitched`` and ``hbma_stack(...,
-   base_pitched=...)`` (both K8 kernels must run), held against the
-   spatial pyramid and ``hbma_stack``;
-10. timings — 1080p encode and decode frames per second, per-frame HBMA.
+10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
+    subplanes through ``pyr_down_pitched`` and ``hbma_stack(...,
+    base_pitched=...)`` (both K8 kernels must run), held against the
+    spatial pyramid and ``hbma_stack``;
+11. timings — 1080p encode and decode frames per second, per-frame HBMA.
 
-Each path of phases 4-6, 8 and 9 runs with the launch counters set to 0
+Each path of phases 4-7, 9 and 10 runs with the launch counters set to 0
 just before it and read just after. The second-to-last line is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -46,6 +52,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -54,7 +61,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-BLOCK_TYPE_TOL = 0.01  # phase 7: share of blocks allowed to differ
+BLOCK_TYPE_TOL = 0.01  # phase 8: share of blocks allowed to differ
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
 # HBM rate, or the operations over the float32 rate outside the tensor
@@ -62,6 +69,7 @@ BLOCK_TYPE_TOL = 0.01  # phase 7: share of blocks allowed to differ
 # absolute-difference or multiply accumulate counts 2), whichever is larger
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores (K2's sums)
 
 
 def fail(msg: str) -> None:
@@ -84,15 +92,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def ptxas_summary(log: str) -> str:
+    """Registers and static shared memory of each kernel, by source file,
+    from nvcc's ``-Xptxas -v`` report (empty when the library was already
+    built)."""
+    out, name = [], None
+    for line in log.splitlines():
+        # the mangled kernel name holds "<length>_<source stem>_cu_"
+        m = re.search(r"Compiling entry function '[^']*?_\d+_([a-z]\w*?)_cu_", line)
+        if m:
+            name = f"{m.group(1)}.cu"
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs, {m.group(2) or 0} B static smem")
+            name = None
+    return "; ".join(out) or "not reported (already built)"
+
+
+def in_turns(general, new):
+    """Mean ms of two kernels timed in turns in one call: general, new,
+    new, general. Returns ``(general_ms, new_ms, the four readings)``."""
+    g1, n1, n2, g2 = (cuda_ms(f) for f in (general, new, new, general))
+    return (g1 + g2) / 2, (n1 + n2) / 2, (g1, n1, n2, g2)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = CORE_OPS_PER_S):
     """``(ms, "bytes" | "operations")``: the least time the card could take."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / CORE_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def record(results, name, kernel, err, ms, plain_ms, nbytes, ops, library_ms=None):
-    b_ms, b_by = bound(nbytes, ops)
+def record(results, name, kernel, err, ms, plain_ms, nbytes, ops, library_ms=None,
+           ops_per_s=CORE_OPS_PER_S):
+    b_ms, b_by = bound(nbytes, ops, ops_per_s)
     results[name] = dict(kernel=kernel, err=float(err), ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
@@ -282,18 +315,26 @@ def phase_parity(dev):
           f"plain version and to K3 on the spatial stack; {ms:.4f} ms vs plain "
           f"{plain_ms:.4f} ms (level 0, T=8, tbw=8); {line}")
 
-    # K2: forward DCT of 8 anchor frames from 9 packed 1080p frames;
-    # yardstick: the blockwise DCT of the 24 padded float32 planes as one
-    # 64-filter stride-8 convolution (no packing, no wire layout)
+    # K2: forward DCT of 8 anchor frames from 9 packed 1080p frames, on the
+    # specialised 8x8 x 3 kernel and on the general one (bit-equal), timed
+    # in turns; yardstick: the blockwise DCT of the 24 padded float32
+    # planes as one 64-filter stride-8 convolution (no packing, no wire
+    # layout). Then the general kernel once at 4x4 blocks.
     packed = torch.randint(0, 256, (9, 1080, 5760), generator=g,
                            dtype=torch.uint8).to(dev)
     got = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920)
+    got_g = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, general=True)
     ref = dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, 8, 8)
     err = (got - ref).abs().max().item()
+    err_g = (got_g - ref).abs().max().item()
     exact = (got == ref).double().mean().item()
     if not err <= 2.5e-4:
         fail(f"K2 dct8x8_to_wire max |err| {err} > 2.5e-4")
-    ms = cuda_ms(lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
+    if not torch.equal(got, got_g):
+        fail("K2 dct8x8_to_wire differs from the general kernel")
+    gen_ms, ms, turns = in_turns(
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, general=True),
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
     plain_ms = cuda_ms(
         lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, 8, 8), iters=5
     )
@@ -303,15 +344,29 @@ def phase_parity(dev):
     planes[:, 0, :1080] = packed[1:].reshape(8, 1080, 1920, 3).permute(
         0, 3, 1, 2).reshape(24, 1080, 1920).float() - 128.0
     lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(planes, basis, stride=8))
+    # bytes: each packed byte read once, each coefficient written once;
+    # operations: 16 float64 multiply-adds (2 each) per coefficient
+    nbytes, ops = 8 * 1080 * 5760 + got.numel() * 4, 32 * got.numel()
     line = record(results, "dct8x8_to_wire", dct.DCT_WIRE, err, ms, plain_ms,
-                  8 * 1080 * 5760 + got.numel() * 4, 2048 * got.numel() // 64,
-                  lib_ms)
+                  nbytes, ops, lib_ms, FP64_OPS_PER_S)
+    record(results, "dct_to_wire_general", dct.DCT_WIRE_GENERAL, err_g, gen_ms,
+           plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
+    got4 = dct.dct8x8_to_wire(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
+    err4 = (got4 - dct.dct8x8_to_wire_plain(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
+            ).abs().max().item()
+    if not err4 <= 2.5e-4:
+        fail(f"K2 general at 4x4 blocks: max |err| {err4} > 2.5e-4")
     print(f"parity K2 dct8x8_to_wire: max |err| {err:.3e} <= 2.5e-4, "
-          f"bit-exact fraction {exact:.6f}; {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms; {line}")
+          f"bit-exact fraction {exact:.6f}, bit-equal to the general kernel; "
+          f"{ms:.4f} ms (general {gen_ms:.4f} ms; in turns general, new, "
+          f"new, general: {', '.join(f'{x:.4f}' for x in turns)}) vs plain "
+          f"{plain_ms:.4f} ms; {line}; general at 4x4 blocks (T=2, 1080p): "
+          f"max |err| {err4:.3e}")
 
     # K1: display path of 8 frames, 1088 padded rows -> 1080 display rows,
-    # then the zero-excess (identity rows) mode
+    # then the zero-excess (identity rows) mode, on the specialised 8x8 x 3
+    # kernel and on the general one (byte-equal), timed in turns at the
+    # first; then the general kernel once at 4x4 blocks
     worst, modes = 0.0, []
     for nby, out_h in ((136, 1080), (135, 1080)):
         coeffs = (torch.randn((8, nby, 240, 192), generator=g) * 90).to(dev)
@@ -321,6 +376,8 @@ def phase_parity(dev):
         steps = quant.block_quant_steps(btypes, gazed, 1, 640)
         got = dct.idct_display(coeffs, steps, out_h)
         ref = dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8)
+        if not torch.equal(got, dct.idct_display(coeffs, steps, out_h, general=True)):
+            fail(f"K1 idct_display differs from the general kernel (nby={nby})")
         diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
         frac = (diff > 0).double().mean().item()
         if diff.max().item() > 1 or not frac < 1e-3:
@@ -330,9 +387,12 @@ def phase_parity(dev):
         _, _, _, ident = bilinear_axis_weights(out_h, nby * 8)
         modes.append(f"{'identity' if ident else 'resample'} rows "
                      f"{nby * 8}->{out_h}: max diff {diff.max().item()}, "
-                     f"{frac:.2e} of bytes differ")
+                     f"{frac:.2e} of bytes differ, byte-equal to the general "
+                     f"kernel")
         if nby == 136:
-            ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, out_h))
+            gen_ms, ms, turns = in_turns(
+                lambda: dct.idct_display(coeffs, steps, out_h, general=True),
+                lambda: dct.idct_display(coeffs, steps, out_h))
             plain_ms = cuda_ms(
                 lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8),
                 iters=5,
@@ -343,8 +403,24 @@ def phase_parity(dev):
             ops = 3 * coeffs.numel() + 2048 * coeffs.numel() // 64 + 3 * got.numel()
     line = record(results, "idct_display", dct.IDCT_DISPLAY, worst, ms, plain_ms,
                   nbytes, ops)
-    print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms (1088->1080 rows, T=8); {line}")
+    record(results, "idct_display_general", dct.IDCT_DISPLAY_GENERAL, worst,
+           gen_ms, plain_ms, nbytes, ops)
+    coeffs = (torch.randn((2, 272, 480, 48), generator=g) * 90).to(dev)
+    steps = torch.where(torch.rand((2, 272, 480), generator=g) < 0.5, 640.0,
+                        1.0).to(dev)
+    diff = (dct.idct_display(coeffs, steps, 1080, 3, 4, 4).to(torch.int16)
+            - dct.idct_display_plain(coeffs, steps, 1080, 3, 4, 4).to(torch.int16)
+            ).abs()
+    frac4 = (diff > 0).double().mean().item()
+    if diff.max().item() > 1 or not frac4 < 1e-3:
+        fail(f"K1 general at 4x4 blocks: max diff {diff.max().item()}, "
+             f"{frac4:.2e} of bytes differ")
+    print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms (general "
+          f"{gen_ms:.4f} ms; in turns general, new, new, general: "
+          f"{', '.join(f'{x:.4f}' for x in turns)}) vs plain {plain_ms:.4f} ms "
+          f"(1088->1080 rows, T=8); {line}; general at 4x4 blocks (T=2, "
+          f"1088->1080): max diff {diff.max().item()}, {frac4:.2e} of bytes "
+          f"differ")
 
     # K5: every Lloyd attempt of an 8-frame batch from the same seeded
     # start, at the 1080p (8160 MV blocks) and 4K (32400) field sizes
@@ -426,11 +502,12 @@ def phase_parity(dev):
     return results
 
 
-def round_trip(cfg, w: int, h: int, n_frames: int, required):
+def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
     """One path through the public entry points on ``cuda``: ``make_clip``
     -> ``stream_encode`` -> bytes -> ``read_frames`` -> ``decode_frames``
     with a gaze. The launch counters are set to 0 just before and read just
-    after; every kernel in ``required`` must have run."""
+    after; every kernel in ``required`` must have run, none in
+    ``forbidden``."""
     from svc_tpu_torch.config import DecoderConfig, VideoProperties
     from svc_tpu_torch.io import bitstream
     from svc_tpu_torch.kernels import build
@@ -474,6 +551,10 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required):
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         fail(f"{w}x{h}: kernels never launched on this path: {missing}")
+    stray = [k for k in forbidden if counts[k] != 0]
+    if stray:
+        fail(f"{w}x{h}: kernels launched that this path's shapes do not ask "
+             f"for: {stray}")
     print(f"  {len(payloads)} payloads, {len(stream)} bytes, {fg_blocks} "
           f"foreground transform blocks, PSNR {quality:.3f} dB (gaze {gaze}), "
           f"{seconds:.2f} s incl. first calls; launches {counts}")
@@ -503,7 +584,7 @@ def padded_luma(clip: np.ndarray, dev) -> torch.Tensor:
 
 
 def per_frame_motion(clip: np.ndarray, dev):
-    """Phase 8: ``build_pyramid`` -> ``hbma`` -> the three global-motion
+    """Phase 9: ``build_pyramid`` -> ``hbma`` -> the three global-motion
     estimators on one 1080p frame pair, on ``cuda``."""
     from svc_tpu_torch.kernels import build
     from svc_tpu_torch.ops import motion
@@ -557,7 +638,7 @@ def per_frame_motion(clip: np.ndarray, dev):
 
 
 def pitched_motion(clip: np.ndarray, dev):
-    """Phase 9: the 9-frame luma stack as tbw=8 column-pitched subplanes
+    """Phase 10: the 9-frame luma stack as tbw=8 column-pitched subplanes
     through ``pyr_down_pitched`` and ``hbma_stack(..., base_pitched=)``."""
     from svc_tpu_torch.kernels import build
     from svc_tpu_torch.ops import motion
@@ -616,7 +697,7 @@ def main() -> int:
     build.library()  # load: a link error fails here, not mid-run
     print(f"build: {res.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {res.seconds:.2f} s, one process per source; 0 = already "
-          f"built)")
+          f"built); ptxas: {ptxas_summary(res.log)}")
 
     # 3. kernel parity
     results = phase_parity(dev)
@@ -629,16 +710,20 @@ def main() -> int:
 
     encode_kernels = ("pyr_down_u8", "candidate_sads", "refine_sads",
                       "dct8x8_to_wire")
+    # 8x8 blocks of 3 channels take the specialised K1 / K2
+    general_dct = ("dct_to_wire_general", "idct_display_general")
 
     # 4. the default config at 1080p: K1-K5, K9
     print("default config 1080p, 17 frames:")
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
-                          encode_kernels + ("lloyd", "idct_display"))
+                          encode_kernels + ("lloyd", "idct_display"), general_dct)
 
-    # 5. width excess: the general decode route, K6
+    # 5. width excess: the general decode route, K6; K2 on packed rows of
+    # 4098 bytes (row starts only 2-byte aligned)
     print("width excess 1366x768 (padded 1376x768), 9 frames, default config:")
     wide = round_trip(EncoderConfig(), 1366, 768, 9,
-                      encode_kernels + ("lloyd", "idct_resize_display"))
+                      encode_kernels + ("lloyd", "idct_resize_display"),
+                      general_dct + ("idct_display",))
     cpu_dec = Decoder(DecoderConfig(), wide["header"], batch_size=8, device="cpu")
     cpu_frames = np.stack(list(cpu_dec.decode_frames(
         iter(wide["payloads"]), iter([wide["gaze"]] * len(wide["payloads"])))))
@@ -648,9 +733,15 @@ def main() -> int:
     # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
     round_trip(EncoderConfig(reference_compat=True), 1920, 1080, 9,
-               encode_kernels + ("idct_display",))
+               encode_kernels + ("idct_display",), general_dct)
 
-    # 7. card against CPU on the first 3 frames, default config
+    # 7. 4x4 transform blocks (the config allows any block dividing the MV
+    # block): the general K1 and K2, and not the specialised ones
+    print("4x4 transform blocks, CIF 352x288, 9 frames, default config:")
+    tb4 = round_trip(EncoderConfig(transform_block_w=4, transform_block_h=4),
+                     352, 288, 9, general_dct, ("dct8x8_to_wire", "idct_display"))
+
+    # 8. card against CPU on the first 3 frames, default config
     cfg = EncoderConfig()
     clip, w, h = main_run["clip"], 1920, 1080
     props = VideoProperties(w, h, len(clip))
@@ -682,15 +773,15 @@ def main() -> int:
           f"differ on {lab_share:.4%} of blocks, block types on {share:.4%} "
           f"(first mismatch {first}); decoded bytes {dgate}")
 
-    # 8. per-frame motion at 1080p: K7
+    # 9. per-frame motion at 1080p: K7
     print("per-frame motion 1080p (frames 0-1, padded 1920x1088):")
     frame_run = per_frame_motion(clip, dev)
 
-    # 9. pitched motion at 1080p: K8
+    # 10. pitched motion at 1080p: K8
     print("pitched motion 1080p (frames 0-8, tbw=8):")
     pitched_run = pitched_motion(clip, dev)
 
-    # 10. timings (warm: every kernel is built and loaded), default config
+    # 11. timings (warm: every kernel is built and loaded), default config
     enc, dec, stream = main_run["enc"], main_run["dec"], main_run["stream"]
     t0 = time.perf_counter()
     stream2 = b"".join(stream_encode(enc, iter(clip)))
@@ -729,7 +820,8 @@ def main() -> int:
         fail(f"modules of JAX, svc_tpu or benchmarks were imported: {loaded[:5]}")
     # where each kernel's launches were counted: the path that runs it
     path_of = {"idct_resize_display": wide, "refine_mads": frame_run,
-               "pyr_down_pitched": pitched_run, "refine_sads_pitched": pitched_run}
+               "pyr_down_pitched": pitched_run, "refine_sads_pitched": pitched_run,
+               "dct_to_wire_general": tb4, "idct_display_general": tb4}
     kernels = []
     for name, r in results.items():
         k = r["kernel"]

@@ -1,123 +1,159 @@
-// K2 dct8x8_to_wire: forward blockwise 2-D DCT of packed BGR frames into
-// the bitstream's wire layout.
+// K2 dct8x8_to_wire: forward 8x8 DCT of packed 3-channel frames into the
+// bitstream's wire layout, specialised at compile time for the codec's
+// default transform block (8x8) and channel count (3).
 //
 // Replaces svc_tpu/ops/dct_pallas.py dct2_jsplit_to_wire_pallas (:347,
-// pallas_call :416) and dct2_planes_to_wire_pallas (:282, :334). Input is
-// the packed interleaved uint8 rows (N, frame_h, frame_w*C) the host ships;
-// frames [frame_offset, frame_offset + T) are transformed (the encoder
-// skips the overlap frame 0). Pixels past frame_h / frame_w are the zero
-// pad of the codec's padded grid. Output (T, nby, nbx, C*bh*bw) float32:
-// per block, channel-major coefficient rows, exactly the wire payload.
+// pallas_call :416) and dct2_planes_to_wire_pallas (:282, :334). Same
+// contract as the general kernel (dct_wire_general.cu), which serves every
+// other block shape and channel count, and the same arithmetic in the same
+// order, so the two outputs are bit-identical:
+//   A[k][j] = sum_i d[k][i] * x[i][j]      (i ascending)
+//   Z[k][l] = sum_j d[l][j] * A[k][j]      (j ascending)
+// with the float32 DCT matrix widened to double, double FMA chains, and
+// one rounding to the float32 output.
 //
-// Arithmetic follows the TPU kernel's two chained contractions, in order:
-//   A[k][j] = sum_i dh[k][i] * x[i][j]      (i ascending)
-//   Z[k][l] = sum_j dw[l][j] * A[k][j]      (j ascending)
-// with the float32 DCT matrices, accumulated in double and rounded once to
-// the float32 output (no TF32 anywhere; the TPU kernel's bf16 three-term
-// weight split was a TPU workaround and is dropped). Float32 accumulation
-// measured up to 2 ulps (2.44e-4) from the exact transform on 1080p DC
-// coefficients near 2040 — at the 2.5e-4 gate; one final rounding keeps
-// the kernel within half an ulp of it. The 16 double FMAs per coefficient
-// (about 0.8 G per 8-frame 1080p batch) are small against the card's FP64
-// rate; the kernel stays bound by its writes.
-//
-// Bound: memory writes — 4 bytes of coefficient per input byte (about
-// 200 MB per 8-frame 1080p batch); 16 FMAs per coefficient are negligible.
-// Design: one CTA per (frame, block row, strip of up to 16 blocks). The
-// strip's bh input rows are read once, coalesced, straight from the packed
-// rows (no de-interleave pass) into shared memory as float; stage 1 lands
-// in shared memory; stage 2 writes the strip's coefficients, which are
-// contiguous in the wire layout, as one coalesced run.
+// Bound: memory — 1 byte read and 4 bytes of coefficient written per pixel
+// and channel (250 MB per 8-frame 1080p batch). The 16 double FMAs per
+// coefficient (0.8 G per batch) take a fraction of that on the FP64 pipe,
+// so the design keeps everything else off the inner loops:
+//  - one CTA of 384 threads per (frame, block row, strip of 16 blocks);
+//  - staging: one warp per pixel row copies the strip's 384 packed bytes to
+//    shared memory with 16-byte loads where the row segment is 16-byte
+//    aligned and whole (every 1080p row), 4-byte or 1-byte loads otherwise
+//    (1366-pixel rows are only 2-byte aligned), zero past the frame;
+//  - stage 1: thread (block, channel, column j) converts its 8 pixels to
+//    double once, keeps them in registers and writes A[.][j] to shared
+//    memory, padded so that neither stage's accesses conflict on banks;
+//  - stage 2: thread (block, channel, row k) reads A[k][.] and stores
+//    Z[k][.] as two float4. A strip's blocks are contiguous in the wire
+//    layout, so the CTA writes one contiguous 12 KB run;
+//  - the DCT matrix (the same for rows and columns at 8x8) is a kernel
+//    parameter (constant bank), widened on the host; every index is a
+//    compile-time constant or a shift.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kStrip = 16;                 // blocks per CTA
+constexpr int kGroups = kStrip * 3;        // (block, channel) pairs
+constexpr int kThreads = kGroups * 8;      // one per column / row of a pair
+constexpr int kRowBytes = kStrip * 8 * 3;  // packed bytes of a strip row
+// A[k][j] of pair g at a[g * kAGroup + k * kAPitch + j]: stage 1's 8-byte
+// stores (lanes along j, two pairs per half-warp) and stage 2's 16-byte
+// loads (lanes along k) both spread over all 32 banks.
+constexpr int kAPitch = 10;
+constexpr int kAGroup = 88;
 
-__global__ void __launch_bounds__(kThreads)
-dct_wire_kernel(const uint8_t* __restrict__ packed,
-                const float* __restrict__ dh, const float* __restrict__ dw,
-                float* __restrict__ out, int frame_offset, int frame_h,
-                int frame_w, int channels, int nby, int nbx, int bh, int bw,
-                int nb) {
-  extern __shared__ double smem_d[];
-  const int n = bh * bw;
-  const int cn = channels * n;
-  const int strip_w = nb * bw;
-  double* a = smem_d;  // [nb][C][k][j] stage 1 (first: 8-byte aligned)
-  float* x = reinterpret_cast<float*>(smem_d + nb * cn);  // [C][bh][nb*bw]
+struct Dct8d {
+  double m[64];
+};
+
+__global__ void __launch_bounds__(kThreads, 3)
+dct8x8_wire_kernel(const uint8_t* __restrict__ packed, const Dct8d d,
+                   float* __restrict__ out, int frame_offset, int frame_h,
+                   int frame_w, int nby, int nbx) {
+  __shared__ __align__(16) uint8_t px[8 * kRowBytes];
+  __shared__ __align__(16) double a[kGroups * kAGroup];
 
   const int t = blockIdx.z;
   const int by = blockIdx.y;
-  const int bx0 = blockIdx.x * nb;
-  const int nblk = min(nb, nbx - bx0);
+  const int bx0 = blockIdx.x * kStrip;
+  const int nblk = min(kStrip, nbx - bx0);
   const uint8_t* frame = packed + static_cast<size_t>(t + frame_offset) *
-                                      frame_h * frame_w * channels;
+                                      frame_h * frame_w * 3;
 
-  const int row_elems = strip_w * channels;
-  for (int idx = threadIdx.x; idx < bh * row_elems; idx += blockDim.x) {
-    const int i = idx / row_elems;
-    const int b = idx % row_elems;  // byte within the strip's packed row
-    const int px = b / channels;
-    const int c = b % channels;
-    const int y = by * bh + i;
-    const int xg = bx0 * bw + px;
-    float v = 0.f;
-    if (px < nblk * bw && y < frame_h && xg < frame_w) {
-      v = static_cast<float>(
-          frame[(static_cast<size_t>(y) * frame_w + xg) * channels + c]);
+  // staging: warp i copies pixel row i of the strip
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < 8) {
+    const int y = by * 8 + warp;
+    const int x0 = bx0 * 8;
+    const int valid =
+        y < frame_h ? min(kRowBytes, max(0, (frame_w - x0) * 3)) : 0;
+    const uint8_t* src =
+        frame + (static_cast<size_t>(y) * frame_w + x0) * 3;
+    uint8_t* dst = px + warp * kRowBytes;
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
+    if (valid == kRowBytes && (addr & 15) == 0) {
+      if (lane < kRowBytes / 16) {
+        reinterpret_cast<uint4*>(dst)[lane] =
+            reinterpret_cast<const uint4*>(src)[lane];
+      }
+    } else if (valid == kRowBytes && (addr & 3) == 0) {
+      for (int w = lane; w < kRowBytes / 4; w += 32) {
+        reinterpret_cast<uint32_t*>(dst)[w] =
+            reinterpret_cast<const uint32_t*>(src)[w];
+      }
+    } else {
+      for (int b = lane; b < kRowBytes; b += 32) {
+        dst[b] = b < valid ? src[b] : 0;
+      }
     }
-    x[(c * bh + i) * strip_w + px] = v;
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < nb * cn; idx += blockDim.x) {
-    const int blk = idx / cn;
-    const int rem = idx % cn;
-    const int c = rem / n;
-    const int k = (rem % n) / bw;
-    const int j = rem % bw;
-    const float* col = x + c * bh * strip_w + blk * bw + j;
+  const int g = threadIdx.x >> 3;  // block * 3 + channel
+  const int r = threadIdx.x & 7;   // column j in stage 1, row k in stage 2
+  const int blk = g / 3;
+  const int c = g - 3 * blk;
+  double* ag = a + g * kAGroup;
+
+  // stage 1: column r of pair g
+  double x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x[i] = static_cast<double>(px[i * kRowBytes + (blk * 8 + r) * 3 + c]);
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
     double acc = 0.0;
-    for (int i = 0; i < bh; ++i) {
-      acc = fma(static_cast<double>(dh[k * bh + i]),
-                static_cast<double>(col[i * strip_w]), acc);
-    }
-    a[idx] = acc;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc = fma(d.m[k * 8 + i], x[i], acc);
+    ag[k * kAPitch + r] = acc;
   }
   __syncthreads();
 
-  float* o = out + ((static_cast<size_t>(t) * nby + by) * nbx + bx0) * cn;
-  for (int idx = threadIdx.x; idx < nblk * cn; idx += blockDim.x) {
-    const int kl = idx % n;
-    const int l = kl % bw;
-    const double* arow = a + (idx - l);  // a[blk][c][k][0]
+  // stage 2: row r of pair g
+  double arow[8];
+  const double2* a2 = reinterpret_cast<const double2*>(ag + r * kAPitch);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const double2 v = a2[q];
+    arow[2 * q] = v.x;
+    arow[2 * q + 1] = v.y;
+  }
+  float z[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
     double acc = 0.0;
-    for (int j = 0; j < bw; ++j) {
-      acc = fma(static_cast<double>(dw[l * bw + j]), arow[j], acc);
-    }
-    o[idx] = static_cast<float>(acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = fma(d.m[l * 8 + j], arow[j], acc);
+    z[l] = static_cast<float>(acc);
+  }
+  if (blk < nblk) {
+    // wire offset of (block, channel, row) within the strip: thread * 8
+    float4* o = reinterpret_cast<float4*>(
+        out + ((static_cast<size_t>(t) * nby + by) * nbx + bx0) * 192 +
+        threadIdx.x * 8);
+    o[0] = make_float4(z[0], z[1], z[2], z[3]);
+    o[1] = make_float4(z[4], z[5], z[6], z[7]);
   }
 }
 
 }  // namespace
 
-// packed: (N, frame_h, frame_w*channels) uint8; dh: (bh, bh), dw: (bw, bw)
-// float32 DCT-II matrices; out: (t_count, nby, nbx, channels*bh*bw) float32.
-SVC_EXPORT int svc_dct8x8_to_wire(const void* packed, const void* dh,
-                                  const void* dw, void* out, int t_count,
-                                  int frame_offset, int frame_h, int frame_w,
-                                  int channels, int nby, int nbx, int bh,
-                                  int bw, int nb, void* stream) {
-  const int smem = nb * channels * bh * bw *
-                   static_cast<int>(sizeof(float) + sizeof(double));
-  if (nb < 1 || smem > kSvcDefaultSmemBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((nbx + nb - 1) / nb, nby, t_count);
-  dct_wire_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const float*>(dh),
-      static_cast<const float*>(dw), static_cast<float*>(out), frame_offset,
-      frame_h, frame_w, channels, nby, nbx, bh, bw, nb);
+// packed: (N, frame_h, frame_w*3) uint8 on the card; d: HOST pointer to
+// the (8, 8) float32 DCT-II matrix (passed to the kernel by value); out:
+// (t_count, nby, nbx, 192) float32 on the card.
+SVC_EXPORT int svc_dct8x8_to_wire(const void* packed, const void* d,
+                                  void* out, int t_count, int frame_offset,
+                                  int frame_h, int frame_w, int nby, int nbx,
+                                  void* stream) {
+  Dct8d m;
+  for (int i = 0; i < 64; ++i) m.m[i] = static_cast<const float*>(d)[i];
+  const dim3 grid((nbx + kStrip - 1) / kStrip, nby, t_count);
+  dct8x8_wire_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), m, static_cast<float*>(out),
+      frame_offset, frame_h, frame_w, nby, nbx);
   return static_cast<int>(cudaGetLastError());
 }

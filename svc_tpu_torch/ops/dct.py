@@ -10,15 +10,22 @@ with ``D_n[k, j] = s_k cos(pi (2j + 1) k / 2n)``. The wire layout is
 ``(T, nby, nbx, C*bh*bw)``: each transform block's channel-major
 coefficient rows are contiguous, so (de)serialization is a memcpy.
 
-Three kernels live here, each beside its plain PyTorch version:
+Three wrappers live here, each beside its plain PyTorch version:
 
-* K2 :func:`dct8x8_to_wire` (``csrc/dct_wire.cu``) — forward DCT straight
-  from the packed ``(N, H, W*C)`` uint8 rows the host ships;
-* K1 :func:`idct_display` (``csrc/idct_display.cu``) — the decoder's
-  dequantize + inverse DCT + row resample + round/clip + interleave, to
-  packed ``(T, H, W*C)`` display bytes (the width-aligned routes);
+* K2 :func:`dct8x8_to_wire` — forward DCT straight from the packed
+  ``(N, H, W*C)`` uint8 rows the host ships;
+* K1 :func:`idct_display` — the decoder's dequantize + inverse DCT + row
+  resample + round/clip + interleave, to packed ``(T, H, W*C)`` display
+  bytes (the width-aligned routes);
 * K6 :func:`idct_resize_display` (``csrc/idct_resize.cu``) — the same with
   both axes resampled (the general route: frame width excess).
+
+K2 and K1 each dispatch by shape to one of two kernels: 8x8 blocks of 3
+channels (the codec's default, every config the CLI runs) go to a kernel
+specialised for them (``csrc/dct_wire.cu``, ``csrc/idct_display.cu``);
+every other block shape or channel count goes to the general one
+(``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``). The two
+give the same bits.
 
 The plain versions set ``allow_tf32 = False`` for matmuls and cuDNN: TF32
 keeps ~3 decimal digits, far outside the 2.5e-4 coefficient gate. The
@@ -40,16 +47,30 @@ from svc_tpu_torch.ops.resize import bilinear_axis_weights, resize_bilinear
 DCT_WIRE = Kernel(
     "dct8x8_to_wire",
     "svc_dct8x8_to_wire",
-    [PTR, PTR, PTR, PTR] + [INT] * 10 + [PTR],
+    [PTR] * 3 + [INT] * 6 + [PTR],
     source="svc_tpu_torch/csrc/dct_wire.cu",
     replaces="svc_tpu/ops/dct_pallas.py:347",
+)
+DCT_WIRE_GENERAL = Kernel(
+    "dct_to_wire_general",
+    "svc_dct_to_wire_general",
+    [PTR] * 4 + [INT] * 10 + [PTR],
+    source="svc_tpu_torch/csrc/dct_wire_general.cu",
+    replaces="svc_tpu/ops/dct_pallas.py:282",
 )
 IDCT_DISPLAY = Kernel(
     "idct_display",
     "svc_idct_display",
-    [PTR] * 9 + [INT] * 10 + [PTR],
+    [PTR] * 9 + [INT] * 6 + [PTR],
     source="svc_tpu_torch/csrc/idct_display.cu",
     replaces="svc_tpu/ops/dct_pallas.py:1077",
+)
+IDCT_DISPLAY_GENERAL = Kernel(
+    "idct_display_general",
+    "svc_idct_display_general",
+    [PTR] * 9 + [INT] * 10 + [PTR],
+    source="svc_tpu_torch/csrc/idct_display_general.cu",
+    replaces="svc_tpu/ops/dct_pallas.py:692",
 )
 IDCT_RESIZE = Kernel(
     "idct_resize_display",
@@ -61,6 +82,20 @@ IDCT_RESIZE = Kernel(
 
 _SMEM_BYTES = 48 * 1024  # dynamic shared memory without the opt-in
 _MAX_STRIP_BLOCKS = 16
+# the shape the specialised kernels take: (block_h, block_w, channels)
+_SPECIALISED = (8, 8, 3)
+# K1's specialised kernel (csrc/idct_display.cu): 8 block columns per CTA;
+# 37,184 bytes of shared memory (two coefficient slots of 24 x 104 floats,
+# a 16-row pixel ring of 244 floats a row, two step slots of 8, three
+# tables of up to 128 output rows), so 6 CTAs fit an SM's 228 KB
+_K1_STRIP = 8
+_K1_SMEM_BYTES = (2 * 24 * 104 + 16 * 244 + 2 * 8 + 3 * 128) * 4
+_K1_CTAS_PER_SM = 6
+_K1_BAND_ROWS = (128, 64, 32, 16, 8)
+
+
+def _specialised(block_h: int, block_w: int, channels: int) -> bool:
+    return (block_h, block_w, channels) == _SPECIALISED
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,13 +164,19 @@ def dct8x8_to_wire(
     block_h: int = 8,
     block_w: int = 8,
     channels: int = 3,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
-    """Forward blockwise DCT of packed frames into wire layout (kernel K2).
+    """Forward blockwise DCT of packed frames into wire layout (kernel K2:
+    the specialised kernel for 8x8 blocks of 3 channels, the general one
+    otherwise).
 
     Args:
       packed: ``(N, H, W*C)`` uint8 interleaved rows; frames
         ``[frame_offset, frame_offset + t_count)`` are transformed. Pixels
         past ``H`` / ``W`` (up to ``padded_h`` / ``padded_w``) are zero.
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
     Returns ``(t_count, nby, nbx, C*bh*bw)`` float32.
     """
@@ -161,17 +202,24 @@ def dct8x8_to_wire(
         raise ValueError(f"dct8x8_to_wire: {block_h}x{block_w} blocks of "
                          f"{channels} channels exceed shared memory")
     p = packed.contiguous()
-    dh = _matrix(block_h, p.device)
-    dw = _matrix(block_w, p.device)
     out = torch.empty((t_count, nby, nbx, cn), dtype=torch.float32, device=p.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(p.device):
-        DCT_WIRE.launch(
-            p.data_ptr(), dh.data_ptr(), dw.data_ptr(), out.data_ptr(),
-            t_count, frame_offset, h, w, channels, nby, nbx,
-            block_h, block_w, nb, stream_handle(p),
-        )
+        if _specialised(block_h, block_w, channels) and not general:
+            d8 = dct_matrix(8)  # host matrix, passed by value
+            DCT_WIRE.launch(
+                p.data_ptr(), d8.ctypes.data, out.data_ptr(),
+                t_count, frame_offset, h, w, nby, nbx, stream_handle(p),
+            )
+        else:
+            dh = _matrix(block_h, p.device)
+            dw = _matrix(block_w, p.device)
+            DCT_WIRE_GENERAL.launch(
+                p.data_ptr(), dh.data_ptr(), dw.data_ptr(), out.data_ptr(),
+                t_count, frame_offset, h, w, channels, nby, nbx,
+                block_h, block_w, nb, stream_handle(p),
+            )
     return out
 
 
@@ -237,6 +285,50 @@ def _span_tables(out_n: int, in_n: int, block: int, tile: int):
     return i0, i1, frac, first, int((last - first).max()) + 1
 
 
+@functools.lru_cache(maxsize=64)
+def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int):
+    """The row geometry of K1's specialised kernel (host numpy), which walks
+    each band of output rows down its source block rows of 8.
+
+    Returns ``(y0, y1, fy, row_lo, band_b, band_rows)``: the bilinear
+    ``(y0, y1, fy)`` per output row; ``row_lo[b]`` (``b`` in ``[0, nby]``)
+    the first output row whose last source row (``y1`` where its weight is
+    not zero, else ``y0``) lies in block row ``b`` or later — the kernel
+    emits rows ``[row_lo[b], row_lo[b + 1])`` once block row ``b`` is
+    transformed; ``band_b`` ``(n_bands, 2)`` each band's first block row
+    (that of its first ``y0``) and last (that of its last row's last source
+    row); ``band_rows`` the tallest of 128, 64, ..., 8 output rows that
+    still gives two waves of CTAs (``_K1_CTAS_PER_SM`` per SM) on
+    ``sm_count`` SMs, else 8.
+    """
+    y0, y1, fy, _ = bilinear_axis_weights(out_h, in_h)
+    hi = np.where(fy != 0, y1, y0)  # non-decreasing, y0 <= hi <= y0 + 1
+    row_lo = np.searchsorted(hi // 8, np.arange(in_h // 8 + 1)).astype(np.int32)
+    strips = -(-nbx // _K1_STRIP)
+    for band_rows in _K1_BAND_ROWS:
+        if t * strips * -(-out_h // band_rows) >= 2 * _K1_CTAS_PER_SM * sm_count:
+            break
+    starts = np.arange(0, out_h, band_rows)
+    ends = np.minimum(starts + band_rows, out_h) - 1
+    band_b = np.stack([y0[starts] // 8, hi[ends] // 8], axis=1).astype(np.int32)
+    return y0, y1, fy, row_lo, band_b, band_rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=16)
+def _band_tables_on(dev, out_h: int, in_h: int, nbx: int, t: int):
+    """:func:`_band_tables` for ``dev``: ``(y0, y1, fy, row_lo, band_b)``
+    as device tensors, copied once per geometry (a copy from pageable host
+    memory on every call would stall the stream), and ``band_rows``."""
+    *tabs, band_rows = _band_tables(out_h, in_h, nbx, t, _sm_count(dev))
+    conv = (_int32, _int32, _float32, _int32, _int32)
+    return [f(a, dev) for f, a in zip(conv, tabs)], band_rows
+
+
 def _check_idct_inputs(name, coeffs, steps, channels, block_h, block_w):
     _check_cuda(name, coeffs)
     t, nby, nbx, cn = coeffs.shape
@@ -264,6 +356,8 @@ def idct_display(
     channels: int = 3,
     block_h: int = 8,
     block_w: int = 8,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
     """Dequantize + inverse DCT + bilinear row resample to ``out_h`` rows +
     display round/clip, as packed bytes (kernel K1).
@@ -272,14 +366,36 @@ def idct_display(
       coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients.
       steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
       out_h: display height (``<= nby*bh``; equal = identity rows).
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
     Returns ``(T, out_h, nbx*bw*C)`` uint8 — the width is not resampled
-    (the width-aligned display routes).
+    (the width-aligned display routes). 8x8 blocks of 3 channels go to the
+    specialised kernel, every other shape to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_display_plain(coeffs, steps, out_h, channels, block_h, block_w)
     _check_idct_inputs("idct_display", coeffs, steps, channels, block_h, block_w)
     t, nby, nbx, cn = coeffs.shape
+    dev = coeffs.device
+    if _specialised(block_h, block_w, channels) and not general:
+        out = torch.empty((t, out_h, nbx * 24), dtype=torch.uint8, device=dev)
+        if out.numel() == 0:
+            return out
+        c = coeffs.contiguous()
+        if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
+            c = c.clone()
+        s = steps.contiguous()
+        tabs, band_rows = _band_tables_on(dev, out_h, nby * 8, nbx, t)
+        n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
+        d8 = dct_matrix(8)  # host matrix, passed by value
+        with torch.cuda.device(dev):
+            IDCT_DISPLAY.launch(
+                c.data_ptr(), s.data_ptr(), d8.ctypes.data,
+                *[tab.data_ptr() for tab in tabs], out.data_ptr(),
+                t, out_h, nby, nbx, band_rows, n_bands, stream_handle(c),
+            )
+        return out
     band_rows = 2 * block_h
     y0, y1, fy, br0, nbr = _span_tables(out_h, nby * block_h, block_h, band_rows)
     nb = min(_MAX_STRIP_BLOCKS, _SMEM_BYTES // (2 * nbr * cn * 4))
@@ -288,7 +404,6 @@ def idct_display(
             f"idct_display: a {band_rows}-row band needs {nbr} source block "
             "rows, more than shared memory holds"
         )
-    dev = coeffs.device
     c = coeffs.contiguous()
     s = steps.contiguous()
     dh = _matrix(block_h, dev)
@@ -300,7 +415,7 @@ def idct_display(
         return out
     tabs = [_int32(y0, dev), _int32(y1, dev), _float32(fy, dev), _int32(br0, dev)]
     with torch.cuda.device(dev):
-        IDCT_DISPLAY.launch(
+        IDCT_DISPLAY_GENERAL.launch(
             c.data_ptr(), s.data_ptr(), dh.data_ptr(), dw.data_ptr(),
             *[tab.data_ptr() for tab in tabs], out.data_ptr(),
             t, out_h, nby, nbx, channels, block_h, block_w, band_rows, nbr,

@@ -153,7 +153,10 @@ def test_hbma_on_card_matches_cpu(gen):
 )
 def test_dct_to_wire_matches_plain(gen, h, w, ph, pw, block):
     packed = _u8(gen, (3, h, w * 3))
+    kernel = dct.DCT_WIRE if block == 8 else dct.DCT_WIRE_GENERAL
+    before = kernel.launches
     got = dct.dct8x8_to_wire(packed, 1, 2, ph, pw, block, block)
+    assert kernel.launches == before + 1
     ref = dct.dct8x8_to_wire_plain(packed, 1, 2, ph, pw, block, block)
     assert got.shape == ref.shape
     assert (got - ref).abs().max().item() <= COEFF_GATE
@@ -170,9 +173,55 @@ def test_idct_display_matches_plain(gen, nby, nbx, out_h, block):
     steps = torch.where(
         torch.rand((2, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
     ).cuda()
+    kernel = dct.IDCT_DISPLAY if block == 8 else dct.IDCT_DISPLAY_GENERAL
+    before = kernel.launches
     got = dct.idct_display(coeffs, steps, out_h, 3, block, block)
+    assert kernel.launches == before + 1
     ref = dct.idct_display_plain(coeffs, steps, out_h, 3, block, block)
     assert got.shape == (2, out_h, nbx * block * 3)
+    d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+    assert d.max().item() <= 1
+    assert (d > 0).double().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize(
+    "t,h,w,ph,pw",
+    [(8, 64, 200, 64, 208),   # 26 block columns: a ragged last strip
+     (1, 40, 128, 48, 128),   # T = 1, zero-padded rows
+     (2, 24, 1366, 24, 1376),  # 4098-byte rows: 2-byte aligned starts
+     (3, 17, 37, 24, 40)],    # odd row bytes, ragged rows and columns
+)
+def test_dct8x8_specialised_equals_general(gen, t, h, w, ph, pw):
+    packed = _u8(gen, (t + 1, h, w * 3))
+    before = (dct.DCT_WIRE.launches, dct.DCT_WIRE_GENERAL.launches)
+    got = dct.dct8x8_to_wire(packed, 1, t, ph, pw)
+    gen_out = dct.dct8x8_to_wire(packed, 1, t, ph, pw, general=True)
+    assert (dct.DCT_WIRE.launches, dct.DCT_WIRE_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, gen_out)  # bit for bit
+    ref = dct.dct8x8_to_wire_plain(packed, 1, t, ph, pw, 8, 8)
+    assert (got - ref).abs().max().item() <= COEFF_GATE
+
+
+@pytest.mark.parametrize(
+    "t,nby,nbx,out_h",
+    [(8, 36, 26, 282),   # ragged strip, resample over several bands
+     (1, 37, 17, 296),   # T = 1, identity, nby not a band multiple
+     (2, 13, 3, 100),    # odd nbx: row starts not 16-byte aligned
+     (3, 20, 44, 160)],  # identity, CIF width
+)
+def test_idct_display_specialised_equals_general(gen, t, nby, nbx, out_h):
+    coeffs = (torch.randn((t, nby, nbx, 192), generator=gen) * 90).cuda()
+    steps = torch.where(
+        torch.rand((t, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
+    ).cuda()
+    before = (dct.IDCT_DISPLAY.launches, dct.IDCT_DISPLAY_GENERAL.launches)
+    got = dct.idct_display(coeffs, steps, out_h)
+    gen_out = dct.idct_display(coeffs, steps, out_h, general=True)
+    assert (dct.IDCT_DISPLAY.launches, dct.IDCT_DISPLAY_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, gen_out)  # byte for byte
+    ref = dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
     assert d.max().item() <= 1
     assert (d > 0).double().mean().item() < 1e-3

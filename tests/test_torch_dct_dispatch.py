@@ -1,0 +1,201 @@
+"""The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
+specialised kernels K1 / K2, every other shape to the general ones) and the
+band geometry of K1's specialised kernel, on the CPU.
+
+A meta device stands in for the card in the dispatch tests: shapes and
+dtypes flow through the wrappers, the launch is replaced, nothing computes.
+The geometry tests replay the kernel's walk over its host tables in numpy.
+"""
+
+import contextlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from svc_tpu_torch.kernels import build
+from svc_tpu_torch.ops import dct
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SM_SMEM_BYTES = 228 * 1024  # shared memory of one SM
+CTA_SMEM_BYTES = 227 * 1024  # the most one CTA may ask for (with the opt-in)
+
+
+@pytest.fixture
+def meta_launches(monkeypatch):
+    """Route the wrappers' CUDA path to a meta device; record each launch
+    as ``(kernel name, args)``."""
+    launched = []
+    monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
+    monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(dct, "_sm_count", lambda dev: SMS)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    for k in (dct.DCT_WIRE, dct.DCT_WIRE_GENERAL, dct.IDCT_DISPLAY,
+              dct.IDCT_DISPLAY_GENERAL):
+        monkeypatch.setattr(k, "launch",
+                            lambda *a, _k=k: launched.append((_k.name, a)))
+    return launched
+
+
+@pytest.mark.parametrize(
+    "block,channels,general,kernel",
+    [(8, 3, False, "dct8x8_to_wire"), (8, 3, True, "dct_to_wire_general"),
+     (4, 3, False, "dct_to_wire_general"), (8, 1, False, "dct_to_wire_general")],
+)
+def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
+    packed = torch.zeros((3, 16, 32 * channels), dtype=torch.uint8, device="meta")
+    out = dct.dct8x8_to_wire(packed, 1, 2, 16, 32, block, block, channels,
+                             general=general)
+    n = channels * block * block
+    assert tuple(out.shape) == (2, 16 // block, 32 // block, n)
+    ((name, args),) = meta_launches
+    assert name == kernel
+    k = dct.DCT_WIRE if kernel == "dct8x8_to_wire" else dct.DCT_WIRE_GENERAL
+    assert len(args) == len(k.argtypes)
+    if kernel == "dct8x8_to_wire":
+        # t_count, frame_offset, frame_h, frame_w, nby, nbx follow 3 pointers
+        assert args[3:9] == (2, 1, 16, 32, 2, 4)
+        # the DCT matrix travels as a host pointer, read by value
+        assert args[1] == dct.dct_matrix(8).ctypes.data
+
+
+@pytest.mark.parametrize(
+    "block,channels,general,kernel",
+    [(8, 3, False, "idct_display"), (8, 3, True, "idct_display_general"),
+     (4, 3, False, "idct_display_general"), (8, 1, False, "idct_display_general")],
+)
+def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
+    n = channels * block * block
+    coeffs = torch.zeros((2, 136 * 8 // block, 240 * 8 // block, n), device="meta")
+    steps = torch.ones(coeffs.shape[:3], device="meta")
+    out = dct.idct_display(coeffs, steps, 1080, channels, block, block,
+                           general=general)
+    assert out.dtype == torch.uint8
+    assert tuple(out.shape) == (2, 1080, 1920 * channels)
+    ((name, args),) = meta_launches
+    assert name == kernel
+    if kernel == "idct_display":
+        assert len(args) == len(dct.IDCT_DISPLAY.argtypes)
+        # t, out_h, nby, nbx, band_rows, n_bands follow the 9 pointers
+        t, out_h, nby, nbx, band_rows, n_bands = args[9:15]
+        assert (t, out_h, nby, nbx) == (2, 1080, 136, 240)
+        assert n_bands == -(-1080 // band_rows)
+    else:
+        assert len(args) == len(dct.IDCT_DISPLAY_GENERAL.argtypes)
+
+
+def test_decoder_width_aligned_route_takes_specialised_k1(meta_launches,
+                                                          monkeypatch):
+    from svc_tpu_torch import config
+    from svc_tpu_torch.io import bitstream
+    from svc_tpu_torch.models import decoder as dec_mod
+
+    monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
+    hdr = bitstream.Header(2, 128, 120, 0, 8, 8, 8, 3)
+    rng = np.random.default_rng(5)
+    coeffs = rng.normal(size=(2, 16, 16, 192)).astype(np.float32)
+    btypes = rng.integers(0, 3, (2, 16, 16)).astype(np.uint32)
+    rects = np.tile(np.array([[32, 30, 64, 32]], np.int32), (2, 1))
+    out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
+        coeffs, btypes, rects
+    )
+    assert tuple(out.shape) == (2, 120, 384)
+    assert [name for name, _ in meta_launches] == ["idct_display"]
+
+
+# (display height, padded height, padded width): 1080p resample, 1080p
+# identity, 4K identity, 1366x768's padded width with identity rows, CIF
+K1_GEOMETRIES = [(1080, 1088, 1920), (1080, 1080, 1920), (2160, 2160, 3840),
+                 (768, 768, 1376), (288, 288, 352)]
+
+
+def _walk(out_h, in_h, nbx, t):
+    """Replay the kernel's walk: per band, the block rows it transforms and
+    the output rows it emits after each, with the source rows the ring
+    holds at that moment (the current and the previous block row)."""
+    y0, y1, fy, row_lo, band_b, band_rows = dct._band_tables(
+        out_h, in_h, nbx, t, SMS)
+    for band, (b_first, b_last) in enumerate(band_b):
+        yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
+        for b in range(b_first, b_last + 1):
+            ring = set(range(max(8 * b_first, 8 * (b - 1)), 8 * b + 8))
+            rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
+            yield band, b, rows, ring
+
+
+@pytest.mark.parametrize("out_h,in_h,pw", K1_GEOMETRIES)
+def test_k1_band_walk_reads_inside_its_window(out_h, in_h, pw):
+    # every y0 / y1 an output row reads is in the ring when the row is
+    # emitted, each row is emitted once by its own band, and a band walks
+    # its own block rows plus at most one halo block row
+    y0, y1, fy, row_lo, band_b, band_rows = dct._band_tables(
+        out_h, in_h, pw // 8, 8, SMS)
+    emitted = np.zeros(out_h, np.int64)
+    for band, b, rows, ring in _walk(out_h, in_h, pw // 8, 8):
+        for yo in rows:
+            assert band * band_rows <= yo < (band + 1) * band_rows
+            assert y0[yo] in ring
+            if fy[yo] != 0:
+                assert y1[yo] in ring
+            emitted[yo] += 1
+    assert (emitted == 1).all()
+    walked = band_b[:, 1] - band_b[:, 0] + 1
+    assert walked.max() <= band_rows // 8 + 2
+    # the walk transforms about (1 + 8 / band_rows) of the frame's block rows
+    assert walked.sum() <= (in_h // 8) * (1 + 8 / band_rows) + len(band_b)
+
+
+@pytest.mark.parametrize("out_h,in_h,pw", K1_GEOMETRIES)
+def test_k1_grid_fills_the_card(out_h, in_h, pw):
+    # at T = 8: at least 2 CTAs per SM, and two waves at the CTAs per SM
+    # that the kernel's shared memory allows; one CTA's shared memory fits
+    _, _, _, _, band_b, band_rows = dct._band_tables(out_h, in_h, pw // 8, 8, SMS)
+    ctas = 8 * -(-(pw // 8) // dct._K1_STRIP) * len(band_b)
+    assert ctas >= 2 * SMS
+    assert dct._K1_SMEM_BYTES <= CTA_SMEM_BYTES
+    assert dct._K1_CTAS_PER_SM * (dct._K1_SMEM_BYTES + 1024) <= SM_SMEM_BYTES
+    if band_rows != dct._K1_BAND_ROWS[-1]:
+        assert ctas >= 2 * dct._K1_CTAS_PER_SM * SMS
+    assert band_rows in dct._K1_BAND_ROWS
+
+
+def test_k1_host_geometry_matches_the_kernel_source():
+    # the strip width, tallest band, CTAs per SM and shared memory that the
+    # wrapper plans with are those csrc/idct_display.cu is compiled with
+    src = (build.CSRC_DIR / "idct_display.cu").read_text()
+    k = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kStrip"] == dct._K1_STRIP
+    assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
+    (ctas,) = re.findall(r"__launch_bounds__\(kThreads, (\d+)\)", src)
+    assert int(ctas) == dct._K1_CTAS_PER_SM
+    slot = k["kStrip"] * 3 * k["kCoefGroup"]
+    ring_pitch = k["kStrip"] * 24 // 16 * 20 + 4
+    assert dct._K1_SMEM_BYTES == 4 * (
+        2 * slot + k["kRingRows"] * ring_pitch + 2 * k["kStrip"]
+        + 3 * k["kMaxBandRows"])
+
+
+@pytest.mark.parametrize("out_h,in_h,nbx,t", [(120, 128, 16, 2), (128, 128, 16, 2),
+                                              (37, 40, 3, 1), (248, 256, 35, 1)])
+def test_k1_band_walk_reproduces_plain_bytes(out_h, in_h, nbx, t):
+    # the kernel's walk, replayed on the plain version's planes with the
+    # kernel's per-element blend, gives the plain version's bytes
+    rng = np.random.default_rng(out_h + nbx)
+    coeffs = torch.from_numpy(
+        (rng.normal(size=(t, in_h // 8, nbx, 192)) * 90).astype(np.float32))
+    steps = torch.from_numpy(
+        rng.choice([1.0, 640.0], size=(t, in_h // 8, nbx)).astype(np.float32))
+    planes = dct.idct_planes_plain(coeffs, steps, 3, 8, 8)
+    y0, y1, fy, _, _, _ = dct._band_tables(out_h, in_h, nbx, t, SMS)
+    rows = torch.full((t, 3, out_h, nbx * 8), float("nan"))
+    for _, _, emit, _ in _walk(out_h, in_h, nbx, t):
+        for yo in emit:
+            v = planes[:, :, y0[yo]]
+            if fy[yo] != 0:
+                f = torch.tensor(fy[yo])
+                v = v * (1 - f) + planes[:, :, y1[yo]] * f
+            rows[:, :, yo] = v
+    got = dct.display_bytes(rows)
+    want = dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8)
+    assert torch.equal(got, want)

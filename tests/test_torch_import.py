@@ -115,7 +115,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
     assert set(ks) == {
         "pyr_down_u8", "refine_sads", "dct8x8_to_wire", "idct_display",
         "lloyd", "idct_resize_display", "refine_mads", "candidate_sads",
-        "pyr_down_pitched", "refine_sads_pitched",
+        "pyr_down_pitched", "refine_sads_pitched", "dct_to_wire_general",
+        "idct_display_general",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -128,7 +129,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "idct_display.cu", "lloyd.cu", "idct_resize.cu",
             "idct_tile.cuh", "refine_mads.cu", "candidate_sads.cu",
             "pyr_down_pitched.cu", "refine_sads_pitched.cu", "window_sads.cuh",
-            "pyr_down.cuh", "planes.cuh"} <= srcs
+            "pyr_down.cuh", "planes.cuh", "dct_wire_general.cu",
+            "idct_display_general.cu"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
