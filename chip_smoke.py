@@ -8,17 +8,27 @@ imports nothing of JAX, ``svc_tpu`` or ``benchmarks``. Phases, one line
 each:
 
 1. card — name and power limit (``nvidia-smi``);
-2. build — compile the kernels, with the build time;
-3. kernel parity — each of the twelve kernels against its plain PyTorch
+2. build — compile the kernels, with the build time, each kernel's
+   registers and static shared memory (ptxas), K5's dynamic shared memory
+   and CTAs per SM, and K5's static shared memory held to what its
+   wrapper plans with;
+3. kernel parity — each of the fourteen kernels against its plain PyTorch
    version on the card at the shapes of its path (K3, K4, K5, K7, K8, K9
    bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4; K1 and
    K6 within 1 with under 1e-3 of the bytes differing), with the kernel's
-   time, the plain version's, the one-call PyTorch yardstick's where one
-   exists, and the bound (bytes over 3.35 TB/s or operations over 67
-   T/s, float64 operations over 34 T/s, whichever is larger). K1 and K2
-   run on their 8x8 x 3 kernels, held bit for bit against the general
-   kernels on the same inputs and timed in turns with them; the general
-   kernels also run once at 4x4 blocks;
+   time, its time through the wrapper, the plain version's, the one-call
+   PyTorch yardstick's where one exists, and the bound (bytes over 3.35
+   TB/s or operations over 67 T/s, float64 operations over 34 T/s,
+   whichever is larger). A kernel's time is that of CUDA graph replays,
+   so that no host time of the wrapper enters (the yardsticks too), except
+   for the general K1 and K2 and for K6, whose wrappers copy tables from
+   pageable host memory on every call and are timed through the wrapper.
+   K1, K2, K3 and K5 run on their specialised kernels (K1 / K2 8x8 x 3,
+   K3 square 4/8/16 blocks at r = 1, K5 the 8-CTA cluster kernel), held
+   bit for bit against the general kernels on the same inputs and timed
+   in turns with them (K3 per level, K5 at 1080p, 1440p and 4K; K1 and K2
+   through the wrappers); K5 also at 1080p with D = 7; the general K1
+   and K2 also run once at 4x4 blocks;
 4. default config — a 17-frame 1080p clip through ``stream_encode`` with
    ``EncoderConfig()`` on ``cuda``, read back through the port's
    ``io.bitstream`` and decoded with a gaze; K1-K5 and K9 must run;
@@ -27,9 +37,10 @@ each:
    bytes held against the CPU port's decode of the same payloads;
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
-   phases 4-6 must not launch the general K1 or K2;
+   phases 4-6 must not launch a general kernel (K1, K2, K3, K5);
 7. 4x4 transform blocks — a 9-frame CIF clip, default config with 4x4
-   transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones not;
+   transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones
+   not; its 16x16 MV blocks run the specialised K3 and the cluster K5;
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
@@ -37,8 +48,8 @@ each:
    ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched`` and ``hbma_stack(...,
-    base_pitched=...)`` (both K8 kernels must run), held against the
-    spatial pyramid and ``hbma_stack``;
+    base_pitched=...)`` (both K8 kernels must run, and the specialised K3
+    on levels 2-1), held against the spatial pyramid and ``hbma_stack``;
 11. timings — 1080p encode and decode frames per second, per-frame HBMA.
 
 Each path of phases 4-7, 9 and 10 runs with the launch counters set to 0
@@ -92,27 +103,77 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ptxas_summary(log: str) -> str:
-    """Registers and static shared memory of each kernel, by source file,
-    from nvcc's ``-Xptxas -v`` report (empty when the library was already
-    built)."""
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of ``fn`` with no host time in between:
+    ``iters`` calls captured into one CUDA graph, the graph replayed and
+    timed with CUDA events. A wrapper whose host work outlasts its kernel
+    (a few microseconds of kernel) reads its kernel's time here, where
+    ``cuda_ms`` reads the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed(fn, iters: int = 20):
+    """``(graph_ms(fn), cuda_ms(fn))``: the kernel's device time, and its
+    time through the wrapper."""
+    return graph_ms(fn, iters), cuda_ms(fn, iters)
+
+
+def ctas_per_sm(regs: int, smem: int, threads: int) -> int:
+    """CTAs of ``threads`` threads an H100 SM holds for ``regs`` registers
+    a thread and ``smem`` bytes of shared memory a CTA: 65,536 registers
+    (256 a warp at a time), 2,048 threads, 233,472 bytes of shared memory
+    with 1,024 reserved a CTA, at most 32 CTAs."""
+    warp_regs = -(-regs * 32 // 256) * 256
+    return min(65536 // (warp_regs * (threads // 32)), 2048 // threads,
+               233472 // (smem + 1024), 32)
+
+
+def ptxas_report(log: str):
+    """``[(source file, kernel, registers, static smem bytes)]`` from nvcc's
+    ``-Xptxas -v`` report (empty when the library was already built)."""
     out, name = [], None
     for line in log.splitlines():
-        # the mangled kernel name holds "<length>_<source stem>_cu_"
-        m = re.search(r"Compiling entry function '[^']*?_\d+_([a-z]\w*?)_cu_", line)
+        # the mangled kernel name holds "<length>_<source stem>_cu_<hash>"
+        # then "<length><kernel name>", then "ILi<B>E" for a template
+        m = re.search(r"Compiling entry function '[^']*?_\d+_([a-z]\w*?)_cu_"
+                      r"[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)(?:ILi(\d+)E)?", line)
         if m:
-            name = f"{m.group(1)}.cu"
+            tmpl = f"<{m.group(3)}>" if m.group(3) else ""
+            name = (f"{m.group(1)}.cu", f"{m.group(2)}{tmpl}")
         m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
         if m and name:
-            out.append(f"{name} {m.group(1)} regs, {m.group(2) or 0} B static smem")
+            out.append(name + (int(m.group(1)), int(m.group(2) or 0)))
             name = None
-    return "; ".join(out) or "not reported (already built)"
+    return out
 
 
-def in_turns(general, new):
+def ptxas_summary(report) -> str:
+    return "; ".join(f"{src} {kern} {regs} regs, {smem} B static smem"
+                     for src, kern, regs, smem in report) or "not reported (already built)"
+
+
+def in_turns(general, new, timer=cuda_ms):
     """Mean ms of two kernels timed in turns in one call: general, new,
     new, general. Returns ``(general_ms, new_ms, the four readings)``."""
-    g1, n1, n2, g2 = (cuda_ms(f) for f in (general, new, new, general))
+    g1, n1, n2, g2 = (timer(f) for f in (general, new, new, general))
     return (g1 + g2) / 2, (n1 + n2) / 2, (g1, n1, n2, g2)
 
 
@@ -123,27 +184,15 @@ def bound(nbytes: float, ops: float, ops_per_s: float = CORE_OPS_PER_S):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def record(results, name, kernel, err, ms, plain_ms, nbytes, ops, library_ms=None,
-           ops_per_s=CORE_OPS_PER_S):
+def record(results, name, kernel, err, ms, wrapper_ms, plain_ms, nbytes, ops,
+           library_ms=None, ops_per_s=CORE_OPS_PER_S):
     b_ms, b_by = bound(nbytes, ops, ops_per_s)
-    results[name] = dict(kernel=kernel, err=float(err), ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    results[name] = dict(kernel=kernel, err=float(err), ms=ms, wrapper_ms=wrapper_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    return (f"bound {b_ms:.4f} ms ({b_by}), one-call PyTorch {lib}")
-
-
-def valid_mask(mv, r, b, fh, fw, dev):
-    """(ncand, ..., mfh, mfw) candidates whose window lies inside the frame."""
-    mfh, mfw = mv.shape[-3:-1]
-    by = torch.arange(mfh, device=dev)[:, None] * b
-    bx = torch.arange(mfw, device=dev)[None, :] * b
-    out = []
-    for dy in range(-r, r + 1):
-        for dx in range(-r, r + 1):
-            py = by + mv[..., 1] + dy
-            px = bx + mv[..., 0] + dx
-            out.append((py >= 0) & (py <= fh - b) & (px >= 0) & (px <= fw - b))
-    return torch.stack(out)
+    return (f"through the wrapper {wrapper_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), one-call PyTorch {lib}")
 
 
 def even_mvs(g, shape, bound_, dev):
@@ -168,7 +217,7 @@ def phase_parity(dev):
                            bias=False).to(dev)
     with torch.no_grad():
         conv.weight.copy_((taps[:, None] * taps[None, :] / 256.0).reshape(1, 1, 5, 5))
-    level, ms, plain_ms, lib_ms, err4, nbytes, ops = y, 0.0, 0.0, 0.0, 0, 0, 0
+    level, ms, w_ms, plain_ms, lib_ms, err4, nbytes, ops = y, 0.0, 0.0, 0.0, 0.0, 0, 0, 0
     conv_l0_ms = None
     for _ in range(3):
         got = pyramid.pyr_down(level)
@@ -176,11 +225,12 @@ def phase_parity(dev):
         err4 = max(err4, (got.int() - ref.int()).abs().max().item())
         if not torch.equal(got, ref):
             fail(f"K4 pyr_down_u8 differs at {tuple(level.shape)}")
-        ms += cuda_ms(lambda: pyramid.pyr_down(level))
+        k_ms, k_w = timed(lambda: pyramid.pyr_down(level))
+        ms, w_ms = ms + k_ms, w_ms + k_w
         plain_ms += cuda_ms(lambda: pyramid.pyr_down_plain(level))
         xf = level.float()[:, None]
         with torch.no_grad():
-            c_ms = cuda_ms(lambda: conv(xf))
+            c_ms = graph_ms(lambda: conv(xf))
         conv_l0_ms = c_ms if conv_l0_ms is None else conv_l0_ms
         lib_ms += c_ms
         nbytes += level.numel() + got.numel()
@@ -189,19 +239,22 @@ def phase_parity(dev):
     odd = y[:2, :1087, :1919]
     if not torch.equal(pyramid.pyr_down(odd), pyramid.pyr_down_plain(odd)):
         fail("K4 pyr_down_u8 differs on an odd size")
-    line = record(results, "pyr_down_u8", pyramid.PYR_DOWN, err4, ms, plain_ms,
-                  nbytes, ops, lib_ms)
+    line = record(results, "pyr_down_u8", pyramid.PYR_DOWN, err4, ms, w_ms,
+                  plain_ms, nbytes, ops, lib_ms)
     print(f"parity K4 pyr_down_u8: bit-equal on levels 1-3 + odd size; "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T+1=9); {line}")
 
     # K3: refine SADs at levels 2, 1, 0 (blocks 4, 8, 16; r = 1) with the
-    # even propagated MVs those levels receive
+    # even propagated MVs those levels receive (windows reach past the
+    # frame edges), on the specialised kernel and on the general one, each
+    # held bit for bit to the plain version on every candidate and timed
+    # in turns per level
     levels = [y]
     for _ in range(3):
         levels.append(pyramid.pyr_down(levels[-1]))
-    ms = plain_ms = 0.0
-    err3, nbytes, ops = 0, 0, 0
-    level_mvs = {}
+    ms = gen_ms = plain_ms = wrap_ms = gen_wrap_ms = 0.0
+    nbytes, ops = 0, 0
+    level_mvs, per_level = {}, []
     for lvl, bnd in ((2, 2), (1, 6), (0, 14)):
         stack = levels[lvl]
         b = 16 >> lvl
@@ -210,25 +263,43 @@ def phase_parity(dev):
         mv = even_mvs(g, (8, mfh, mfw, 2), bnd, dev)
         level_mvs[lvl] = mv
         got = motion.refine_sads(stack, mv, 1, b, b)
+        got_g = motion.refine_sads(stack, mv, 1, b, b, general=True)
         ref = motion.refine_sads_plain(stack, mv, 1, b, b)
-        valid = valid_mask(mv, 1, b, fh, fw, dev).transpose(0, 1)
-        d = (got[valid] - ref[valid]).abs()
-        err3 = max(err3, d.max().item() if d.numel() else 0)
-        if not torch.equal(got[valid], ref[valid]):
-            fail(f"K3 refine_sads differs at level {lvl}")
-        ms += cuda_ms(lambda: motion.refine_sads(stack, mv, 1, b, b))
-        plain_ms += cuda_ms(lambda: motion.refine_sads_plain(stack, mv, 1, b, b),
-                            iters=5)
-        nbytes += stack.numel() + mv.numel() * 4 + got.numel() * 4
-        ops += 2 * got.numel() * b * b
-    line = record(results, "refine_sads", motion.REFINE_SADS, err3, ms, plain_ms,
-                  nbytes, ops)
-    print(f"parity K3 refine_sads: bit-equal on valid candidates, levels "
-          f"2-0; {ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T=8); {line}")
+        if not torch.equal(got, ref):
+            fail(f"K3 refine_sads differs from its plain version at level {lvl}")
+        if not torch.equal(got_g, ref):
+            fail(f"K3 refine_sads_general differs from its plain version at "
+                 f"level {lvl}")
+        g_ms, n_ms, turns = in_turns(
+            lambda: motion.refine_sads(stack, mv, 1, b, b, general=True),
+            lambda: motion.refine_sads(stack, mv, 1, b, b), graph_ms)
+        w_ms = cuda_ms(lambda: motion.refine_sads(stack, mv, 1, b, b))
+        gw_ms = cuda_ms(lambda: motion.refine_sads(stack, mv, 1, b, b, general=True))
+        p_ms = cuda_ms(lambda: motion.refine_sads_plain(stack, mv, 1, b, b),
+                       iters=5)
+        lvl_bytes = stack.numel() + mv.numel() * 4 + got.numel() * 4
+        lvl_ops = 2 * got.numel() * b * b
+        ms, gen_ms, plain_ms = ms + n_ms, gen_ms + g_ms, plain_ms + p_ms
+        wrap_ms, gen_wrap_ms = wrap_ms + w_ms, gen_wrap_ms + gw_ms
+        nbytes, ops = nbytes + lvl_bytes, ops + lvl_ops
+        per_level.append(
+            f"level {lvl} ({b}x{b}, {mfh}x{mfw} blocks) {n_ms:.4f} ms "
+            f"(general {g_ms:.4f}; in turns {', '.join(f'{x:.4f}' for x in turns)}"
+            f"; through the wrapper {w_ms:.4f}; bound "
+            f"{bound(lvl_bytes, lvl_ops)[0]:.4f} ms)")
+    line = record(results, "refine_sads", motion.REFINE_SADS, 0, ms, wrap_ms,
+                  plain_ms, nbytes, ops)
+    record(results, "refine_sads_general", motion.REFINE_SADS_GENERAL, 0, gen_ms,
+           gen_wrap_ms, plain_ms, nbytes, ops)
+    print(f"parity K3 refine_sads: the specialised and the general kernel "
+          f"bit-equal to the plain version on every candidate, levels 2-0; "
+          f"{'; '.join(per_level)}; 3 levels {ms:.4f} ms (general "
+          f"{gen_ms:.4f} ms, through the wrapper {gen_wrap_ms:.4f}) vs plain "
+          f"{plain_ms:.4f} ms (T=8); {line}")
 
     # K7: levels 2, 1, 0 of one 1088x1920 pair, r = 1, even MVs within
     # each level's bound
-    ms = plain_ms = 0.0
+    ms = w_ms = plain_ms = 0.0
     nbytes, ops = 0, 0
     for lvl, bnd in ((2, 2), (1, 6), (0, 14)):
         tr, an = levels[lvl][0], levels[lvl][1]
@@ -237,13 +308,14 @@ def phase_parity(dev):
         got = motion.refine_mads(tr, an, mv, 1, b, b)
         if not torch.equal(got, motion.refine_mads_plain(tr, an, mv, 1, b, b)):
             fail(f"K7 refine_mads differs at level {lvl}")
-        ms += cuda_ms(lambda: motion.refine_mads(tr, an, mv, 1, b, b))
+        k_ms, k_w = timed(lambda: motion.refine_mads(tr, an, mv, 1, b, b))
+        ms, w_ms = ms + k_ms, w_ms + k_w
         plain_ms += cuda_ms(lambda: motion.refine_mads_plain(tr, an, mv, 1, b, b),
                             iters=5)
         nbytes += 2 * tr.numel() + mv.numel() * 4 + got.numel() * 4
         ops += 2 * got.numel() * b * b
-    line = record(results, "refine_mads", motion.REFINE_MADS, 0, ms, plain_ms,
-                  nbytes, ops)
+    line = record(results, "refine_mads", motion.REFINE_MADS, 0, ms, w_ms,
+                  plain_ms, nbytes, ops)
     print(f"parity K7 refine_mads: bit-equal on every candidate, levels 2-0 "
           f"of one pair; {ms:.4f} ms vs plain {plain_ms:.4f} ms; {line}")
 
@@ -257,11 +329,11 @@ def phase_parity(dev):
     got = motion.candidate_sads(tr, an, zero, 1, 2, 2)
     if not torch.equal(got, motion.candidate_sads_plain(tr, an, zero, 1, 2, 2)):
         fail("K9 candidate_sads differs at the EBMA path shape")
-    ms = cuda_ms(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2))
+    ms, w_ms = timed(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2))
     plain_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, 1, 2, 2),
                        iters=5)
     nbytes = 2 * tr.numel() + zero.numel() * 4 + got.numel() * 4
-    line = record(results, "candidate_sads", motion.CANDIDATE_SADS, 0, ms,
+    line = record(results, "candidate_sads", motion.CANDIDATE_SADS, 0, ms, w_ms,
                   plain_ms, nbytes, 2 * got.numel() * 4)
     tr, an = y[:-1], y[1:]
     wide = []
@@ -292,10 +364,10 @@ def phase_parity(dev):
     if not (torch.equal(got, pyramid.pyr_down_pitched_plain(y8))
             and torch.equal(got, levels[1])):
         fail("K8 pyr_down_pitched differs from its plain version or K4")
-    ms = cuda_ms(lambda: pyramid.pyr_down_pitched(y8))
+    ms, w_ms = timed(lambda: pyramid.pyr_down_pitched(y8))
     plain_ms = cuda_ms(lambda: pyramid.pyr_down_pitched_plain(y8), iters=5)
     line = record(results, "pyr_down_pitched", pyramid.PYR_DOWN_PITCHED, 0, ms,
-                  plain_ms, y8.numel() + got.numel(), 30 * got.numel(),
+                  w_ms, plain_ms, y8.numel() + got.numel(), 30 * got.numel(),
                   conv_l0_ms)
     print(f"parity K8 pyr_down_pitched: bit-equal to its plain version and "
           f"to K4 on the spatial stack; {ms:.4f} ms vs plain {plain_ms:.4f} "
@@ -305,11 +377,11 @@ def phase_parity(dev):
     if not (torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16))
             and torch.equal(got, motion.refine_sads(y, mv, 1, 16, 16))):
         fail("K8 refine_sads_pitched differs from its plain version or K3")
-    ms = cuda_ms(lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16))
+    ms, w_ms = timed(lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16))
     plain_ms = cuda_ms(lambda: motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16),
                        iters=5)
     line = record(results, "refine_sads_pitched", motion.REFINE_SADS_PITCHED, 0,
-                  ms, plain_ms, y8.numel() + mv.numel() * 4 + got.numel() * 4,
+                  ms, w_ms, plain_ms, y8.numel() + mv.numel() * 4 + got.numel() * 4,
                   2 * got.numel() * 256)
     print(f"parity K8 refine_sads_pitched: bit-equal on every candidate to its "
           f"plain version and to K3 on the spatial stack; {ms:.4f} ms vs plain "
@@ -332,9 +404,13 @@ def phase_parity(dev):
         fail(f"K2 dct8x8_to_wire max |err| {err} > 2.5e-4")
     if not torch.equal(got, got_g):
         fail("K2 dct8x8_to_wire differs from the general kernel")
-    gen_ms, ms, turns = in_turns(
+    # in turns through the wrappers: the general wrapper copies its DCT
+    # matrices from pageable host memory on every call, which no CUDA graph
+    # can capture
+    gen_ms, new_w_ms, turns = in_turns(
         lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, general=True),
         lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
+    ms = graph_ms(lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
     plain_ms = cuda_ms(
         lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, 8, 8), iters=5
     )
@@ -343,14 +419,14 @@ def phase_parity(dev):
     planes = torch.zeros((24, 1, 1088, 1920), device=dev)
     planes[:, 0, :1080] = packed[1:].reshape(8, 1080, 1920, 3).permute(
         0, 3, 1, 2).reshape(24, 1080, 1920).float() - 128.0
-    lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(planes, basis, stride=8))
+    lib_ms = graph_ms(lambda: torch.nn.functional.conv2d(planes, basis, stride=8))
     # bytes: each packed byte read once, each coefficient written once;
     # operations: 16 float64 multiply-adds (2 each) per coefficient
     nbytes, ops = 8 * 1080 * 5760 + got.numel() * 4, 32 * got.numel()
-    line = record(results, "dct8x8_to_wire", dct.DCT_WIRE, err, ms, plain_ms,
-                  nbytes, ops, lib_ms, FP64_OPS_PER_S)
+    line = record(results, "dct8x8_to_wire", dct.DCT_WIRE, err, ms, new_w_ms,
+                  plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
     record(results, "dct_to_wire_general", dct.DCT_WIRE_GENERAL, err_g, gen_ms,
-           plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
+           gen_ms, plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
     got4 = dct.dct8x8_to_wire(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
     err4 = (got4 - dct.dct8x8_to_wire_plain(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
             ).abs().max().item()
@@ -358,8 +434,8 @@ def phase_parity(dev):
         fail(f"K2 general at 4x4 blocks: max |err| {err4} > 2.5e-4")
     print(f"parity K2 dct8x8_to_wire: max |err| {err:.3e} <= 2.5e-4, "
           f"bit-exact fraction {exact:.6f}, bit-equal to the general kernel; "
-          f"{ms:.4f} ms (general {gen_ms:.4f} ms; in turns general, new, "
-          f"new, general: {', '.join(f'{x:.4f}' for x in turns)}) vs plain "
+          f"{ms:.4f} ms (through the wrappers in turns general, new, new, "
+          f"general: {', '.join(f'{x:.4f}' for x in turns)}) vs plain "
           f"{plain_ms:.4f} ms; {line}; general at 4x4 blocks (T=2, 1080p): "
           f"max |err| {err4:.3e}")
 
@@ -390,9 +466,12 @@ def phase_parity(dev):
                      f"{frac:.2e} of bytes differ, byte-equal to the general "
                      f"kernel")
         if nby == 136:
-            gen_ms, ms, turns = in_turns(
+            # in turns through the wrappers: the general one copies its
+            # tables from pageable host memory on every call
+            gen_ms, new_w_ms, turns = in_turns(
                 lambda: dct.idct_display(coeffs, steps, out_h, general=True),
                 lambda: dct.idct_display(coeffs, steps, out_h))
+            ms = graph_ms(lambda: dct.idct_display(coeffs, steps, out_h))
             plain_ms = cuda_ms(
                 lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8),
                 iters=5,
@@ -401,10 +480,10 @@ def phase_parity(dev):
             # channel), row lerp (3 per output byte)
             nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
             ops = 3 * coeffs.numel() + 2048 * coeffs.numel() // 64 + 3 * got.numel()
-    line = record(results, "idct_display", dct.IDCT_DISPLAY, worst, ms, plain_ms,
-                  nbytes, ops)
+    line = record(results, "idct_display", dct.IDCT_DISPLAY, worst, ms, new_w_ms,
+                  plain_ms, nbytes, ops)
     record(results, "idct_display_general", dct.IDCT_DISPLAY_GENERAL, worst,
-           gen_ms, plain_ms, nbytes, ops)
+           gen_ms, gen_ms, plain_ms, nbytes, ops)
     coeffs = (torch.randn((2, 272, 480, 48), generator=g) * 90).to(dev)
     steps = torch.where(torch.rand((2, 272, 480), generator=g) < 0.5, 640.0,
                         1.0).to(dev)
@@ -415,35 +494,58 @@ def phase_parity(dev):
     if diff.max().item() > 1 or not frac4 < 1e-3:
         fail(f"K1 general at 4x4 blocks: max diff {diff.max().item()}, "
              f"{frac4:.2e} of bytes differ")
-    print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms (general "
-          f"{gen_ms:.4f} ms; in turns general, new, new, general: "
+    print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms (through "
+          f"the wrappers in turns general, new, new, general: "
           f"{', '.join(f'{x:.4f}' for x in turns)}) vs plain {plain_ms:.4f} ms "
           f"(1088->1080 rows, T=8); {line}; general at 4x4 blocks (T=2, "
           f"1088->1080): max diff {diff.max().item()}, {frac4:.2e} of bytes "
           f"differ")
 
     # K5: every Lloyd attempt of an 8-frame batch from the same seeded
-    # start, at the 1080p (8160 MV blocks) and 4K (32400) field sizes
+    # start, at the 1080p (8160 MV blocks), 1440p (14400) and 4K (32400)
+    # field sizes, on the cluster kernel and on the general one (timed in
+    # turns), both held bit for bit to the plain version, the cluster
+    # kernel run twice. 1080p with D = 7 and 1440p run before 4K: their
+    # slices need 48 KB or less of dynamic shared memory, but more than 48
+    # KB with the static part, so they fail unless the wrapper opts in on
+    # its own and not through a larger launch before it.
     lines, worst, times = [], 0.0, {}
-    for name, mfh, mfw in (("1080p", 68, 120), ("4K", 135, 240)):
+    sizes = (("1080p", 68, 120, 4), ("1080p", 68, 120, 7), ("1440p", 90, 160, 4),
+             ("4K", 135, 240, 4))
+    for name, mfh, mfw, d in sizes:
         n = mfh * mfw
         mv = torch.randint(-8, 9, (8, 2, n), generator=g).float()
         ys, xs = torch.meshgrid(torch.arange(mfh) * 16.0, torch.arange(mfw) * 16.0,
                                 indexing="ij")
+        extra = torch.randint(-64, 65, (8, d - 4, n), generator=g).float()
         x = torch.cat([mv, xs.reshape(1, 1, n).expand(8, 1, n),
-                       ys.reshape(1, 1, n).expand(8, 1, n)], dim=1).to(dev)
+                       ys.reshape(1, 1, n).expand(8, 1, n), extra], dim=1).to(dev)
         mask = (torch.rand((8, n), generator=g) < 0.3).to(dev)
         mask[0] = False  # a frame without foreground
         keys = prng.split(prng.fold_in(prng.key(7, dev), torch.arange(8, device=dev)), 3)
         init = kmeans._plus_plus_init(keys, x, mask, 10).transpose(0, 1).contiguous()
+        before = kmeans.LLOYD.launches
         got = kmeans.lloyd(x, mask, init, 10, 10, 1.0)
+        if kmeans.LLOYD.launches != before + 1:
+            fail(f"K5 at {name}, D={d} did not take the cluster kernel")
         ref = kmeans.lloyd_plain(x, mask, init, 10, 10, 1.0)
-        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-            fail(f"K5 lloyd labels or centers differ from lloyd_plain at {name}")
-        rel = ((got[2] - ref[2]).abs() / ref[2].abs().clamp(min=1e-30)).max().item()
-        if not rel <= 1e-6:
-            fail(f"K5 lloyd compactness rel err {rel} > 1e-6 at {name}")
-        worst = max(worst, (got[2] - ref[2]).abs().max().item())
+        for kname, out in (("lloyd", got), ("lloyd_general", kmeans.lloyd(
+                x, mask, init, 10, 10, 1.0, general=True))):
+            if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+                fail(f"K5 {kname} labels or centers differ from lloyd_plain at "
+                     f"{name}, D={d}")
+            rel = ((out[2] - ref[2]).abs() / ref[2].abs().clamp(min=1e-30)).max().item()
+            if not rel <= 1e-6:
+                fail(f"K5 {kname} compactness rel err {rel} > 1e-6 at {name}, D={d}")
+            worst = max(worst, (out[2] - ref[2]).abs().max().item())
+        again = kmeans.lloyd(x, mask, init, 10, 10, 1.0)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K5 lloyd gave other bits on a second run at {name}, D={d}")
+        if d != 4:
+            lines.append(f"{name} D={d} (N={n}, "
+                         f"{kmeans.cluster_smem_bytes(n, d)} B dynamic smem): "
+                         f"bit-equal, not timed")
+            continue
         iters = kmeans.lloyd_iterations(x, mask, init, 10, 10, 1.0)
         # per iteration and point: k distances of D (3 ops each per dim)
         # and D sums; one more assignment after the loop
@@ -451,17 +553,30 @@ def phase_parity(dev):
         ops = (its + iters.numel()) * n * 10 * 3 * 4 + its * n * 4
         nbytes = (x.numel() * 4 + mask.numel() + init.numel() * 4
                   + sum(t.numel() * 4 for t in got))
-        times[name] = (
-            cuda_ms(lambda: kmeans.lloyd(x, mask, init, 10, 10, 1.0)),
-            cuda_ms(lambda: kmeans.lloyd_plain(x, mask, init, 10, 10, 1.0), iters=3),
-            nbytes, ops, its,
-        )
-        lines.append(f"{name} (F=8, N={n}, A=3, k=10, D=4, {its} attempt "
-                     f"iterations): labels and centers bit-equal, compactness "
-                     f"rel err {rel:.2e}, {times[name][0]:.4f} ms vs plain "
-                     f"{times[name][1]:.4f} ms")
-    line = record(results, "lloyd", kmeans.LLOYD, worst, *times["1080p"][:4])
-    print(f"parity K5 lloyd: {'; '.join(lines)}; 1080p {line}")
+        g_ms, n_ms, turns = in_turns(
+            lambda: kmeans.lloyd(x, mask, init, 10, 10, 1.0, general=True),
+            lambda: kmeans.lloyd(x, mask, init, 10, 10, 1.0), graph_ms)
+        w_ms = cuda_ms(lambda: kmeans.lloyd(x, mask, init, 10, 10, 1.0))
+        gw_ms = cuda_ms(lambda: kmeans.lloyd(x, mask, init, 10, 10, 1.0, general=True))
+        p_ms = cuda_ms(lambda: kmeans.lloyd_plain(x, mask, init, 10, 10, 1.0),
+                       iters=3)
+        times[name] = (n_ms, w_ms, g_ms, gw_ms, p_ms, nbytes, ops)
+        lines.append(
+            f"{name} (F=8, N={n}, A=3, k=10, D=4, {its} attempt iterations, "
+            f"{kmeans.cluster_smem_bytes(n, d)} B dynamic smem): {n_ms:.4f} ms "
+            f"(general {g_ms:.4f}; in turns "
+            f"{', '.join(f'{v:.4f}' for v in turns)}; through the wrapper "
+            f"{w_ms:.4f}, general {gw_ms:.4f}) vs plain {p_ms:.4f} ms, bound "
+            f"{bound(nbytes, ops)[0]:.4f} ms")
+    n_ms, w_ms, g_ms, gw_ms, p_ms, nbytes, ops = times["1080p"]
+    line = record(results, "lloyd", kmeans.LLOYD, worst, n_ms, w_ms, p_ms, nbytes,
+                  ops)
+    record(results, "lloyd_general", kmeans.LLOYD_GENERAL, worst, g_ms, gw_ms, p_ms,
+           nbytes, ops)
+    print(f"parity K5 lloyd: the cluster and the general kernel bit-equal to "
+          f"lloyd_plain (labels, centers; compactness within rtol 1e-6, max "
+          f"|err| {worst:.3e}), the cluster kernel the same bits twice; "
+          f"{'; '.join(lines)}; 1080p {line}")
 
     # K6: the general display route — 1366x768 (padded 1376x768, width
     # excess 10), then a geometry with both excesses (1270x714, padded
@@ -495,10 +610,11 @@ def phase_parity(dev):
         modes.append(f"{nbx * 8}x{nby * 8}->{w}x{h}: max diff "
                      f"{diff.max().item()}, {frac:.2e} of bytes differ, "
                      f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms")
-    line = record(results, "idct_resize_display", dct.IDCT_RESIZE, worst, ms,
+    line = record(results, "idct_resize_display", dct.IDCT_RESIZE, worst, ms, ms,
                   plain_ms, nbytes, ops)
-    print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; "
-          f"1366x768 {line}")
+    print(f"parity K6 idct_resize_display (T=8; through the wrapper, which "
+          f"copies its tables from pageable host memory on every call, so no "
+          f"CUDA graph captures it): {'; '.join(modes)}; 1366x768 {line}")
     return results
 
 
@@ -655,9 +771,12 @@ def pitched_motion(clip: np.ndarray, dev):
     torch.cuda.synchronize()
     counts = build.launch_counts()
     missing = [k for k in ("pyr_down_pitched", "refine_sads_pitched",
-                           "candidate_sads", "pyr_down_u8") if counts[k] <= 0]
+                           "candidate_sads", "pyr_down_u8", "refine_sads")
+               if counts[k] <= 0]
     if missing:
         fail(f"pitched motion: kernels never launched on this path: {missing}")
+    if counts["refine_sads_general"]:
+        fail("pitched motion: levels 2-1 launched the general K3")
     ref = build_pyramid(y, 4)
     mv_s, mm_s = motion.hbma_stack(ref, 8, 16, 16)
     if not (torch.equal(l1, ref[1]) and torch.equal(mv, mv_s)
@@ -692,12 +811,32 @@ def main() -> int:
     # 2. build
     from svc_tpu_torch.kernels import build
 
+    from svc_tpu_torch.ops import kmeans
+
     t0 = time.perf_counter()
     res = build.build()
     build.library()  # load: a link error fails here, not mid-run
+    report = ptxas_report(res.log)
+    # K5's wrapper plans the cluster kernel's shared memory with
+    # _K5_STATIC_SMEM for its static part
+    k5 = {kern: (regs, smem) for _, kern, regs, smem in report
+          if kern.split("<")[0] == "lloyd_cluster_kernel"}
+    if report and not k5:
+        fail("ptxas reported no lloyd_cluster_kernel instance")
+    for kern, (regs, smem) in k5.items():
+        if smem > kmeans._K5_STATIC_SMEM:
+            fail(f"{kern} declares {smem} B of static shared memory, more "
+                 f"than the {kmeans._K5_STATIC_SMEM} B ops/kmeans.py plans with")
+    k5_line = "; ".join(
+        f"{kern} at {name} {ctas_per_sm(regs, smem + kmeans.cluster_smem_bytes(n, 4), 512)}"
+        f" CTAs per SM" for kern, (regs, smem) in k5.items() if kern.endswith("<4>")
+        for name, n in (("1080p", 8160), ("4K", 32400)))
     print(f"build: {res.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {res.seconds:.2f} s, one process per source; 0 = already "
-          f"built); ptxas: {ptxas_summary(res.log)}")
+          f"built); ptxas: {ptxas_summary(report)}; K5 cluster kernel dynamic "
+          f"smem per CTA {kmeans.cluster_smem_bytes(8160, 4)} B (1080p), "
+          f"{kmeans.cluster_smem_bytes(32400, 4)} B (4K); "
+          f"{k5_line or 'K5 static smem not checked (already built)'}")
 
     # 3. kernel parity
     results = phase_parity(dev)
@@ -710,20 +849,24 @@ def main() -> int:
 
     encode_kernels = ("pyr_down_u8", "candidate_sads", "refine_sads",
                       "dct8x8_to_wire")
-    # 8x8 blocks of 3 channels take the specialised K1 / K2
+    # 8x8 blocks of 3 channels take the specialised K1 / K2; 16x16 MV
+    # blocks at range 8 take the specialised K3 on every level; every
+    # frame size here takes K5's cluster kernel
     general_dct = ("dct_to_wire_general", "idct_display_general")
+    general_k3_k5 = ("refine_sads_general", "lloyd_general")
 
     # 4. the default config at 1080p: K1-K5, K9
     print("default config 1080p, 17 frames:")
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
-                          encode_kernels + ("lloyd", "idct_display"), general_dct)
+                          encode_kernels + ("lloyd", "idct_display"),
+                          general_dct + general_k3_k5)
 
     # 5. width excess: the general decode route, K6; K2 on packed rows of
     # 4098 bytes (row starts only 2-byte aligned)
     print("width excess 1366x768 (padded 1376x768), 9 frames, default config:")
     wide = round_trip(EncoderConfig(), 1366, 768, 9,
                       encode_kernels + ("lloyd", "idct_resize_display"),
-                      general_dct + ("idct_display",))
+                      general_dct + general_k3_k5 + ("idct_display",))
     cpu_dec = Decoder(DecoderConfig(), wide["header"], batch_size=8, device="cpu")
     cpu_frames = np.stack(list(cpu_dec.decode_frames(
         iter(wide["payloads"]), iter([wide["gaze"]] * len(wide["payloads"])))))
@@ -733,13 +876,14 @@ def main() -> int:
     # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
     round_trip(EncoderConfig(reference_compat=True), 1920, 1080, 9,
-               encode_kernels + ("idct_display",), general_dct)
+               encode_kernels + ("idct_display",), general_dct + general_k3_k5)
 
     # 7. 4x4 transform blocks (the config allows any block dividing the MV
     # block): the general K1 and K2, and not the specialised ones
     print("4x4 transform blocks, CIF 352x288, 9 frames, default config:")
     tb4 = round_trip(EncoderConfig(transform_block_w=4, transform_block_h=4),
-                     352, 288, 9, general_dct, ("dct8x8_to_wire", "idct_display"))
+                     352, 288, 9, general_dct + ("refine_sads", "lloyd"),
+                     ("dct8x8_to_wire", "idct_display") + general_k3_k5)
 
     # 8. card against CPU on the first 3 frames, default config
     cfg = EncoderConfig()
@@ -757,7 +901,8 @@ def main() -> int:
     cerr = (o_gpu["coeffs"].cpu() - o_cpu["coeffs"]).abs().max().item()
     if not cerr <= 2.5e-4:
         fail(f"coefficients differ by {cerr} > 2.5e-4 between cuda and cpu")
-    lab_share = (o_gpu["cluster_labels"].cpu() != o_cpu["cluster_labels"]).double().mean().item()
+    lab_diff = o_gpu["cluster_labels"].cpu() != o_cpu["cluster_labels"]
+    lab_share = lab_diff.double().mean().item()
     bt_diff = o_gpu["block_types"].cpu() != o_cpu["block_types"]
     share = bt_diff.double().mean().item()
     first = bt_diff.nonzero()[0].tolist() if bool(bt_diff.any()) else None
@@ -770,8 +915,9 @@ def main() -> int:
     dgate = display_gate(main_run["frames"][:2], ref_frames, "1080p decode")
     print(f"card vs cpu (3 frames, default config): header, MV fields and "
           f"inliers equal; coefficients max |err| {cerr:.3e}; k-means labels "
-          f"differ on {lab_share:.4%} of blocks, block types on {share:.4%} "
-          f"(first mismatch {first}); decoded bytes {dgate}")
+          f"differ on {int(lab_diff.sum())} blocks ({lab_share:.4%}), block "
+          f"types on {int(bt_diff.sum())} ({share:.4%}; first mismatch "
+          f"{first}); decoded bytes {dgate}")
 
     # 9. per-frame motion at 1080p: K7
     print("per-frame motion 1080p (frames 0-1, padded 1920x1088):")
@@ -833,6 +979,7 @@ def main() -> int:
             "launches": path_of.get(name, main_run)["counts"][name],
             "max_abs_err": r["err"],
             "ms": r["ms"],
+            "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

@@ -15,8 +15,9 @@ Two repair rules, as in svc_tpu:
 
 * ``global_farthest`` (the default config): the r-th empty cluster takes
   the r-th farthest valid point, centers are ``sums / counts``. The Lloyd
-  loop is kernel K5 (:func:`lloyd`, ``csrc/lloyd.cu``) beside its plain
-  version :func:`lloyd_plain`;
+  loop is kernel K5 (:func:`lloyd`: the cluster kernel ``csrc/lloyd.cu``,
+  or ``csrc/lloyd_general.cu`` for slices too large for shared memory)
+  beside its plain version :func:`lloyd_plain`;
 * ``opencv_split`` (``reference_compat``): cv::kmeans' rule — each empty
   cluster, in index order, takes the farthest member (last-wins) of the
   biggest cluster (first-wins) — with reciprocal-multiply centers
@@ -40,13 +41,42 @@ _BIG = 1e30
 _MAX_K = 16  # K5's shared-memory cluster capacity (svc_tpu's _KPAD)
 _MAX_D = 7  # K5's feature capacity (svc_tpu's x_aug rows minus the ones row)
 
+# K5's cluster kernel (csrc/lloyd.cu): kCluster CTAs per (frame, attempt),
+# each holding a slice of the points in shared memory
+_K5_CLUSTER = 8
+_K5_CHUNKS = 32  # label-word chunks of its sums scan
+# its static shared memory, at most (chip_smoke.py phase 2 holds the
+# kernel's ptxas figure to it; svc_lloyd reads the real one)
+_K5_STATIC_SMEM = 20 * 1024
+_K5_MAX_SMEM = 227 * 1024  # the most one CTA may use on an H100
+
 LLOYD = Kernel(
     "lloyd",
     "svc_lloyd",
-    [PTR] * 7 + [INT] * 6 + [FLOAT, PTR],
+    [PTR] * 6 + [INT] * 6 + [FLOAT, PTR],
     source="svc_tpu_torch/csrc/lloyd.cu",
     replaces="svc_tpu/ops/kmeans_pallas.py:485",
 )
+LLOYD_GENERAL = Kernel(
+    "lloyd_general",
+    "svc_lloyd_general",
+    [PTR] * 7 + [INT] * 6 + [FLOAT, PTR],
+    source="svc_tpu_torch/csrc/lloyd_general.cu",
+    replaces="svc_tpu/ops/kmeans_pallas.py:485",
+)
+
+
+def cluster_smem_bytes(n: int, d: int) -> int:
+    """Dynamic shared memory of one CTA of K5's cluster kernel: features,
+    parked distances, labels and mask of a slice padded to whole chunks of
+    4-label words (``dynamic_smem`` in ``csrc/lloyd.cu``)."""
+    slice_words = -(-(-(-n // _K5_CLUSTER)) // 4)  # ceil(ceil(n / 8) / 4)
+    words = -(-slice_words // _K5_CHUNKS)  # per chunk
+    return _K5_CHUNKS * 4 * words * (4 * d + 6)
+
+
+def _cluster_fits(n: int, d: int) -> bool:
+    return cluster_smem_bytes(n, d) + _K5_STATIC_SMEM <= _K5_MAX_SMEM
 
 
 def _sqdist(xt: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -284,6 +314,11 @@ def _lloyd_plain(x, mask, init_centers, k, max_iter, epsilon):
     )
 
 
+def _check_cuda(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"lloyd: unsupported device {x.device}")
+
+
 def lloyd(
     x: torch.Tensor,
     mask: torch.Tensor,
@@ -291,22 +326,28 @@ def lloyd(
     k: int,
     max_iter: int,
     epsilon: float,
+    *,
+    general: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every Lloyd attempt of every frame with the ``global_farthest``
-    repair (kernel K5).
+    repair (kernel K5: the cluster kernel, 8 CTAs per (frame, attempt),
+    when a slice of ``ceil(N / 8)`` points fits a CTA's shared memory —
+    every frame size up to and beyond 4K — and the one-CTA general kernel
+    otherwise).
 
     Args:
       x: ``(F, D, N)`` float32 features, points on the last axis.
       mask: ``(F, N)`` bool validity.
       init_centers: ``(A, F, k, D)`` float32 seeded centers.
+      general: launch the general kernel whatever the size (the yardstick
+        the cluster kernel is held and timed against).
 
     Returns ``(labels (A, F, N) int32 — every point, masked or not;
     centers (A, F, k, D); compactness (A, F))``.
     """
     if x.device.type == "cpu":
         return lloyd_plain(x, mask, init_centers, k, max_iter, epsilon)
-    if x.device.type != "cuda":
-        raise ValueError(f"lloyd: unsupported device {x.device}")
+    _check_cuda(x)
     if x.dtype != torch.float32 or x.ndim != 3:
         raise TypeError("lloyd: x must be (F, D, N) float32")
     f, d, n = x.shape
@@ -329,13 +370,20 @@ def lloyd(
     compact = torch.empty((a, f), dtype=torch.float32, device=dev)
     if compact.numel() == 0:
         return labels, centers, compact
-    scratch = torch.empty((a, f, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        LLOYD.launch(
-            xc.data_ptr(), m.data_ptr(), c0.data_ptr(), labels.data_ptr(),
-            centers.data_ptr(), compact.data_ptr(), scratch.data_ptr(),
-            a, f, n, d, k, max_iter, _eps2(epsilon), stream_handle(xc),
-        )
+        if _cluster_fits(n, d) and not general:
+            LLOYD.launch(
+                xc.data_ptr(), m.data_ptr(), c0.data_ptr(), labels.data_ptr(),
+                centers.data_ptr(), compact.data_ptr(),
+                a, f, n, d, k, max_iter, _eps2(epsilon), stream_handle(xc),
+            )
+        else:
+            scratch = torch.empty((a, f, n), dtype=torch.float32, device=dev)
+            LLOYD_GENERAL.launch(
+                xc.data_ptr(), m.data_ptr(), c0.data_ptr(), labels.data_ptr(),
+                centers.data_ptr(), compact.data_ptr(), scratch.data_ptr(),
+                a, f, n, d, k, max_iter, _eps2(epsilon), stream_handle(xc),
+            )
     return labels, centers, compact
 
 

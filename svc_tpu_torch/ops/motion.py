@@ -16,7 +16,9 @@ Kernels, each with its plain PyTorch version beside it (CPU tensors take
 the plain version; a CUDA tensor launches the kernel or raises):
 
 * K3 :func:`refine_sads` — candidate SADs of one refinement level for a
-  frame stack (``hbma_stack``);
+  frame stack (``hbma_stack``): ``csrc/refine_sads.cu`` for square 4/8/16
+  blocks at ``r = 1`` (the default encoder's three levels), the general
+  kernel ``csrc/refine_sads_general.cu`` otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
   ``hbma``);
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
@@ -24,9 +26,10 @@ the plain version; a CUDA tensor launches the kernel or raises):
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
   ``T`` separate plane pairs (``ebma``).
 
-All four are one CUDA kernel (``csrc/window_sads.cuh``) templated on the
-plane layout and the output type: exact integer sums, bit-equal to their
-plain versions on every entry. Tracked pixels outside the frame read as
+K3's general kernel, K7, K8 and K9 are one CUDA kernel
+(``csrc/window_sads.cuh``) templated on the plane layout and the output
+type. Every SAD kernel sums exact integers: bit-equal to its plain version
+on every entry. Tracked pixels outside the frame read as
 zero; candidates whose window leaves the frame are masked by the callers.
 
 Conventions as in ``svc_tpu``: a motion field is ``(..., mfh, mfw, 2)``
@@ -46,12 +49,20 @@ from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
+_K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's specialised kernel (r = 1)
 
 REFINE_SADS = Kernel(
     "refine_sads",
     "svc_refine_sads",
-    [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_sads.cu",
+    replaces="svc_tpu/ops/motion_pallas.py:887",
+)
+REFINE_SADS_GENERAL = Kernel(
+    "refine_sads_general",
+    "svc_refine_sads_general",
+    [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/refine_sads_general.cu",
     replaces="svc_tpu/ops/motion_pallas.py:887",
 )
 REFINE_MADS = Kernel(
@@ -165,16 +176,33 @@ def refine_sads_plain(
     return _sads_plain(stack[:-1], stack[1:], mv, r, block_w, block_h)
 
 
+def _refine_specialised(block_w: int, block_h: int, r: int, stack) -> bool:
+    """K3's specialised kernel takes square 4/8/16 blocks at r = 1 on a
+    16-byte aligned stack; every other case runs the general kernel."""
+    return (block_w == block_h and block_w in _K3_BLOCKS and r == 1
+            and stack.data_ptr() % 16 == 0)
+
+
 def refine_sads(
-    stack: torch.Tensor, mv: torch.Tensor, r: int, block_w: int, block_h: int
+    stack: torch.Tensor,
+    mv: torch.Tensor,
+    r: int,
+    block_w: int,
+    block_h: int,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
-    """Candidate SADs of one refinement level (kernel K3).
+    """Candidate SADs of one refinement level (kernel K3: the specialised
+    kernel for square 4/8/16 blocks at ``r = 1``, the general one
+    otherwise).
 
     Args:
       stack: ``(T+1, fh, fw)`` uint8 luma planes of one pyramid level;
         frame ``t`` is tracked against anchor ``t+1``.
       mv: ``(T, mfh, mfw, 2)`` int32 rounded propagated MVs, ``(x, y)``.
       r: refinement search radius.
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
     Returns ``(T, (2r+1)**2, mfh, mfw)`` int32 SADs in candidate ``(oy, ox)``
     raster order, tracked pixels outside the frame read as zero (entries
@@ -195,10 +223,16 @@ def refine_sads(
     if out.numel() == 0:
         return out
     with torch.cuda.device(s.device):
-        REFINE_SADS.launch(
-            s.data_ptr(), m.data_ptr(), out.data_ptr(),
-            tp1 - 1, fh, fw, block_w, block_h, r, stream_handle(s),
-        )
+        if _refine_specialised(block_w, block_h, r, s) and not general:
+            REFINE_SADS.launch(
+                s.data_ptr(), m.data_ptr(), out.data_ptr(),
+                tp1 - 1, fh, fw, block_w, stream_handle(s),
+            )
+        else:
+            REFINE_SADS_GENERAL.launch(
+                s.data_ptr(), m.data_ptr(), out.data_ptr(),
+                tp1 - 1, fh, fw, block_w, block_h, r, stream_handle(s),
+            )
     return out
 
 

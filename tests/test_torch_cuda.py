@@ -9,6 +9,11 @@ This file imports no JAX, so it runs on a card machine without it:
 (``--noconftest``: the suite's conftest configures JAX.)
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +66,43 @@ def test_refine_sads_bit_equal(gen, block, r, bound):
         motion.refine_sads(stack, mv, r, block, block),
         motion.refine_sads_plain(stack, mv, r, block, block),
     )
+
+
+@pytest.mark.parametrize(
+    "block,t,h,w,bound",
+    [(4, 2, 48, 344, 2),     # level 2 of a 1376-wide padded frame
+     (8, 3, 40, 688, 6),     # level 1 of it, 86 block columns
+     (16, 2, 64, 1376, 14),  # level 0: a ragged last CTA (86 of 96 columns)
+     (16, 1, 32, 48, 30),    # windows far past every edge
+     (4, 1, 8, 12, 9)],      # a 3x2 field
+)
+def test_refine_sads_specialised_equals_general(gen, block, t, h, w, bound):
+    # every candidate, valid or not, bit-equal across the two kernels and
+    # the plain version
+    stack = _u8(gen, (t + 1, h, w))
+    mv = torch.randint(-bound, bound + 1, (t, h // block, w // block, 2),
+                       generator=gen, dtype=torch.int32).cuda()
+    before = (motion.REFINE_SADS.launches, motion.REFINE_SADS_GENERAL.launches)
+    got = motion.refine_sads(stack, mv, 1, block, block)
+    gen_out = motion.refine_sads(stack, mv, 1, block, block, general=True)
+    assert (motion.REFINE_SADS.launches, motion.REFINE_SADS_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, gen_out)
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, 1, block, block))
+
+
+def test_refine_sads_unaligned_stack_takes_the_general_kernel(gen):
+    # the specialised kernel loads 16-byte chunks; a stack that starts 4
+    # bytes into its buffer goes to the general kernel, with the same SADs
+    flat = _u8(gen, (3 * 32 * 64 + 4,))
+    stack = flat[4:].view(3, 32, 64)
+    assert stack.data_ptr() % 16 != 0
+    mv = torch.randint(-6, 7, (2, 4, 8, 2), generator=gen, dtype=torch.int32).cuda()
+    before = (motion.REFINE_SADS.launches, motion.REFINE_SADS_GENERAL.launches)
+    got = motion.refine_sads(stack, mv, 1, 8, 8)
+    assert (motion.REFINE_SADS.launches, motion.REFINE_SADS_GENERAL.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, 1, 8, 8))
 
 
 @pytest.mark.parametrize("block,r,bound", [(4, 1, 2), (8, 1, 6), (16, 1, 14),
@@ -227,9 +269,9 @@ def test_idct_display_specialised_equals_general(gen, t, nby, nbx, out_h):
     assert (d > 0).double().mean().item() < 1e-3
 
 
-def _lloyd_inputs(gen, f, n, k, attempts=3):
+def _lloyd_inputs(gen, f, n, k, attempts=3, d=4):
     """Integer motion-like features, masks (frame 0 empty), seeded centers."""
-    x = torch.randint(-8, 9, (f, 4, n), generator=gen).float()
+    x = torch.randint(-8, 9, (f, d, n), generator=gen).float()
     x[:, 2:] *= 16  # block coordinates
     mask = torch.rand((f, n), generator=gen) < 0.4
     mask[0] = False
@@ -254,6 +296,31 @@ def test_lloyd_bit_equal(gen, f, n, k):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize(
+    "f,n,k,d,kernel",
+    [(3, 1, 2, 4, "lloyd"),          # seven empty slices
+     (2, 37, 5, 4, "lloyd"),
+     (2, 8160, 10, 4, "lloyd"),      # 1080p
+     (2, 32400, 16, 7, "lloyd"),     # 4K, the most clusters and features
+     (1, 200000, 10, 4, "lloyd_general")],  # a slice past shared memory
+)
+def test_lloyd_cluster_equals_general(gen, f, n, k, d, kernel):
+    x, mask, init = _lloyd_inputs(gen, f, n, k, d=d)
+    before = (kmeans.LLOYD.launches, kmeans.LLOYD_GENERAL.launches)
+    got = kmeans.lloyd(x, mask, init, k, 10, 1.0)
+    gen_out = kmeans.lloyd(x, mask, init, k, 10, 1.0, general=True)
+    cluster = kernel == "lloyd"
+    assert (kmeans.LLOYD.launches, kmeans.LLOYD_GENERAL.launches) == (
+        before[0] + cluster, before[1] + 2 - cluster)
+    ref = kmeans.lloyd_plain(x, mask, init, k, 10, 1.0)
+    for out in (got, gen_out):
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        torch.testing.assert_close(out[2], ref[2], rtol=1e-6, atol=0)
+    again = kmeans.lloyd(x, mask, init, k, 10, 1.0)
+    for a, b in zip(got, again):  # fixed reduction order: same bits
+        assert torch.equal(a, b)
+
+
 def test_lloyd_few_distinct_points(gen):
     # fewer distinct valid points than clusters: empty clusters every
     # iteration, repaired from the farthest points
@@ -261,10 +328,47 @@ def test_lloyd_few_distinct_points(gen):
     mask = torch.rand((2, 300), generator=gen) < 0.7
     init = x[:, :, :6].transpose(1, 2)[None].expand(2, -1, -1, -1).contiguous()
     x, mask, init = x.cuda(), mask.cuda(), init.cuda()
-    got = kmeans.lloyd(x, mask, init, 6, 10, 1.0)
     ref = kmeans.lloyd_plain(x, mask, init, 6, 10, 1.0)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+    for general in (False, True):
+        got = kmeans.lloyd(x, mask, init, 6, 10, 1.0, general=general)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+
+
+_FRESH_LLOYD = """
+import torch
+from svc_tpu_torch.ops import kmeans, prng
+f, n, k, d = 2, {n}, 10, {d}
+g = torch.Generator().manual_seed(3)
+x = torch.randint(-8, 9, (f, d, n), generator=g).float()
+x[:, 2:] *= 16
+mask = torch.rand((f, n), generator=g) < 0.4
+keys = prng.split(prng.fold_in(prng.key(5), torch.arange(f)), 3)
+init = kmeans._plus_plus_init(keys, x, mask, k).transpose(0, 1).contiguous()
+x, mask, init = x.cuda(), mask.cuda(), init.cuda()
+got = kmeans.lloyd(x, mask, init, k, 10, 1.0)
+assert kmeans.LLOYD.launches == 1
+ref = kmeans.lloyd_plain(x, mask, init, k, 10, 1.0)
+gen_out = kmeans.lloyd(x, mask, init, k, 10, 1.0, general=True)
+for out in (got, gen_out):
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    torch.testing.assert_close(out[2], ref[2], rtol=1e-6, atol=0)
+"""
+
+
+@pytest.mark.parametrize("n,d", [(14400, 4),   # 2560x1440: 42,240 B dynamic
+                                 (8160, 7)])   # 1080p, D = 7: 34,816 B
+def test_lloyd_cluster_first_launch_past_48k_with_static(gen, n, d):
+    # dynamic shared memory under 48 KB that passes 48 KB with the kernel's
+    # static part, launched first in a fresh process: no earlier launch
+    # has raised the kernel's limit
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _FRESH_LLOYD.format(n=n, d=d)],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
 
 
 @pytest.mark.parametrize("w,h", [(120, 64), (200, 120), (854, 480), (1366, 768)])
