@@ -12,7 +12,7 @@ each:
    registers and static shared memory (ptxas), K5's dynamic shared memory
    and CTAs per SM, and K5's static shared memory held to what its
    wrapper plans with;
-3. kernel parity — each of the fourteen kernels against its plain PyTorch
+3. kernel parity — each of the sixteen kernels against its plain PyTorch
    version on the card at the shapes of its path (K3, K4, K5, K7, K8, K9
    bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4; K1 and
    K6 within 1 with under 1e-3 of the bytes differing), with the kernel's
@@ -23,33 +23,40 @@ each:
    so that no host time of the wrapper enters (the yardsticks too), except
    for the general K1 and K2 and for K6, whose wrappers copy tables from
    pageable host memory on every call and are timed through the wrapper.
-   K1, K2, K3 and K5 run on their specialised kernels (K1 / K2 8x8 x 3,
-   K3 square 4/8/16 blocks at r = 1, K5 the 8-CTA cluster kernel), held
-   bit for bit against the general kernels on the same inputs and timed
-   in turns with them (K3 per level, K5 at 1080p, 1440p and 4K; K1 and K2
-   through the wrappers); K5 also at 1080p with D = 7; the general K1
-   and K2 also run once at 4x4 blocks;
+   K1, K2, K3, K4, K5 and K9 run on their new kernels (K1 / K2 8x8 x 3,
+   K3 square 4/8/16 blocks at r = 1, K4 levels 1-3 in one launch, K5 the
+   8-CTA cluster kernel, K9 2x2 blocks at r = 1), held bit for bit against
+   the general (K4: single-level) kernels on the same inputs and timed in
+   turns with them (K3 per level, K5 at 1080p, 1440p and 4K; K1 and K2
+   through the wrappers); K4 also at odd and tiny sizes and 2-5 levels,
+   K9 also with random, past-edge and T = 1 MVs; K5 also at 1080p with
+   D = 7; the general K1 and K2 also run once at 4x4 blocks;
 4. default config — a 17-frame 1080p clip through ``stream_encode`` with
    ``EncoderConfig()`` on ``cuda``, read back through the port's
-   ``io.bitstream`` and decoded with a gaze; K1-K5 and K9 must run;
+   ``io.bitstream`` and decoded with a gaze; K1-K5 and K9 must run (K4
+   the fused kernel);
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
    decoded on ``cuda`` (K6 must run, and K2 on 2-byte aligned rows), the
    bytes held against the CPU port's decode of the same payloads;
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
-   phases 4-6 must not launch a general kernel (K1, K2, K3, K5);
+   phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K9) or
+   the single-level K4;
 7. 4x4 transform blocks — a 9-frame CIF clip, default config with 4x4
    transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones
-   not; its 16x16 MV blocks run the specialised K3 and the cluster K5;
+   not; its 16x16 MV blocks run the specialised K3 and the cluster K5,
+   the fused K4 and the 2x2 K9 (no general K3, K5, K9, single-level K4);
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
-   global-motion estimators on ``cuda`` (K7 must run), held against
+   global-motion estimators on ``cuda`` (K7, the fused K4 and the 2x2 K9
+   must run, the single-level K4 and the general K9 not), held against
    ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched`` and ``hbma_stack(...,
-    base_pitched=...)`` (both K8 kernels must run, and the specialised K3
-    on levels 2-1), held against the spatial pyramid and ``hbma_stack``;
+    base_pitched=...)`` (both K8 kernels must run, the single-level K4 on
+    levels 2-3 and the specialised K3 on levels 2-1), held against the
+    spatial pyramid and ``hbma_stack``;
 11. timings — 1080p encode and decode frames per second, per-frame HBMA.
 
 Each path of phases 4-7, 9 and 10 runs with the launch counters set to 0
@@ -208,50 +215,88 @@ def phase_parity(dev):
     g = torch.Generator(device="cpu").manual_seed(1234)
     results = {}
 
-    # K4: the three pyramid levels of a 9-frame 1088x1920 luma stack, plus
-    # an odd size; yardstick: the same 5x5 filter as one reflect-padded
-    # float32 convolution (no integer descale)
+    # K4: levels 1-3 of a 9-frame 1088x1920 luma stack, on the fused kernel
+    # (one launch) and on the single-level kernel (three launches), held
+    # bit for bit to chained pyr_down_plain and timed in turns; then odd and
+    # tiny sizes and level counts 2-5 (5 chains a second fused launch);
+    # yardstick: the same 5x5 filter as one reflect-padded float32
+    # convolution per level (no integer descale)
     y = torch.randint(0, 256, (9, 1088, 1920), generator=g, dtype=torch.uint8).to(dev)
     taps = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0])
     conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2, padding_mode="reflect",
                            bias=False).to(dev)
     with torch.no_grad():
         conv.weight.copy_((taps[:, None] * taps[None, :] / 256.0).reshape(1, 1, 5, 5))
-    level, ms, w_ms, plain_ms, lib_ms, err4, nbytes, ops = y, 0.0, 0.0, 0.0, 0.0, 0, 0, 0
-    conv_l0_ms = None
+    chain = [y]
     for _ in range(3):
-        got = pyramid.pyr_down(level)
-        ref = pyramid.pyr_down_plain(level)
-        err4 = max(err4, (got.int() - ref.int()).abs().max().item())
-        if not torch.equal(got, ref):
-            fail(f"K4 pyr_down_u8 differs at {tuple(level.shape)}")
-        k_ms, k_w = timed(lambda: pyramid.pyr_down(level))
-        ms, w_ms = ms + k_ms, w_ms + k_w
-        plain_ms += cuda_ms(lambda: pyramid.pyr_down_plain(level))
-        xf = level.float()[:, None]
+        chain.append(pyramid.pyr_down_plain(chain[-1]))
+    fused = pyramid.pyr_down_levels(y, 3)
+    single = pyramid.build_pyramid(y, 4, general=True)[1:]
+    for lvl in range(1, 4):
+        if not torch.equal(fused[lvl - 1], chain[lvl]):
+            fail(f"K4 pyr_down_levels differs from chained pyr_down_plain at level {lvl}")
+        if not torch.equal(single[lvl - 1], chain[lvl]):
+            fail(f"K4 pyr_down_u8 differs from pyr_down_plain at level {lvl}")
+    g_ms, n_ms, turns = in_turns(
+        lambda: pyramid.build_pyramid(y, 4, general=True),
+        lambda: pyramid.pyr_down_levels(y, 3), graph_ms)
+    w_ms = cuda_ms(lambda: pyramid.pyr_down_levels(y, 3))
+    gw_ms = cuda_ms(lambda: pyramid.build_pyramid(y, 4, general=True))
+    plain_ms = cuda_ms(lambda: [pyramid.pyr_down_plain(chain[i]) for i in range(3)],
+                       iters=5)
+    lib_ms, conv_l0_ms, per_level = 0.0, None, []
+    for lvl in range(3):
+        xf = chain[lvl].float()[:, None]
         with torch.no_grad():
             c_ms = graph_ms(lambda: conv(xf))
         conv_l0_ms = c_ms if conv_l0_ms is None else conv_l0_ms
         lib_ms += c_ms
-        nbytes += level.numel() + got.numel()
-        ops += 30 * got.numel()  # separable: 15 multiply-adds per output
-        level = got
-    odd = y[:2, :1087, :1919]
-    if not torch.equal(pyramid.pyr_down(odd), pyramid.pyr_down_plain(odd)):
-        fail("K4 pyr_down_u8 differs on an odd size")
-    line = record(results, "pyr_down_u8", pyramid.PYR_DOWN, err4, ms, w_ms,
-                  plain_ms, nbytes, ops, lib_ms)
-    print(f"parity K4 pyr_down_u8: bit-equal on levels 1-3 + odd size; "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (3 levels, T+1=9); {line}")
+        per_level.append(graph_ms(lambda: pyramid.pyr_down(chain[lvl])))
+    outs = sum(t.numel() for t in fused)
+    # fused: level 0 read once, levels 1-3 written once; per level: each
+    # level read and its next written, so levels 1 and 2 are read back
+    fused_bytes = y.numel() + outs
+    single_bytes = sum(chain[i].numel() + chain[i + 1].numel() for i in range(3))
+    ops = 30 * outs  # separable: 15 multiply-adds per output
+    line = record(results, "pyr_down_levels", pyramid.PYR_DOWN_LEVELS, 0, n_ms, w_ms,
+                  plain_ms, fused_bytes, ops, lib_ms)
+    record(results, "pyr_down_u8", pyramid.PYR_DOWN, 0, g_ms, gw_ms, plain_ms,
+           single_bytes, ops, lib_ms)
+    checks = []
+    for shape, count in (((2, 1087, 1919), 4), ((3, 5, 7), 4), ((1, 1, 1919), 4),
+                         ((2, 1087, 1), 4), ((1, 768, 1366), 4), ((2, 70, 530), 2),
+                         ((9, 1088, 1920), 3), ((9, 1088, 1920), 5), ((1, 1, 1), 5)):
+        x = y[: shape[0], : shape[1], : shape[2]].contiguous()
+        before = pyramid.PYR_DOWN_LEVELS.launches
+        pyr = pyramid.build_pyramid(x, count)
+        want = -(-(count - 1) // 3)
+        if pyramid.PYR_DOWN_LEVELS.launches != before + want:
+            fail(f"K4 build_pyramid {shape} x {count} did not launch the fused "
+                 f"kernel {want} times")
+        ref = x
+        for lvl in range(1, count):
+            ref = pyramid.pyr_down_plain(ref)
+            if not torch.equal(pyr[lvl], ref):
+                fail(f"K4 pyr_down_levels differs at {shape}, {count} levels, "
+                     f"level {lvl}")
+        checks.append(f"{'x'.join(map(str, shape))}/{count}")
+    print(f"parity K4 pyr_down_levels: levels 1-3 of 9x1088x1920 bit-equal to "
+          f"chained pyr_down_plain and to the single-level kernel; fused "
+          f"{n_ms:.4f} ms in one launch vs single-level {g_ms:.4f} ms in three "
+          f"(levels {', '.join(f'{v:.4f}' for v in per_level)}; in turns single, "
+          f"fused, fused, single: {', '.join(f'{v:.4f}' for v in turns)}; "
+          f"through the wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain "
+          f"{plain_ms:.4f} ms; bound fused {bound(fused_bytes, ops)[0]:.4f} ms "
+          f"(level 0 read once), three launches "
+          f"{bound(single_bytes, ops)[0]:.4f} ms (levels 1-2 read back); {line}; "
+          f"also bit-equal at {', '.join(checks)} (shape/levels)")
 
     # K3: refine SADs at levels 2, 1, 0 (blocks 4, 8, 16; r = 1) with the
     # even propagated MVs those levels receive (windows reach past the
     # frame edges), on the specialised kernel and on the general one, each
     # held bit for bit to the plain version on every candidate and timed
     # in turns per level
-    levels = [y]
-    for _ in range(3):
-        levels.append(pyramid.pyr_down(levels[-1]))
+    levels = chain
     ms = gen_ms = plain_ms = wrap_ms = gen_wrap_ms = 0.0
     nbytes, ops = 0, 0
     level_mvs, per_level = {}, []
@@ -320,21 +365,46 @@ def phase_parity(dev):
           f"of one pair; {ms:.4f} ms vs plain {plain_ms:.4f} ms; {line}")
 
     # K9: its path shape (the encoder's top-level EBMA: 136x240, 2x2
-    # blocks, r = 1, zero MVs, T = 8), then T = 8, r = 4, 16x16 blocks at
-    # 1088x1920 with mv_pad 0 (EBMA) and 14, and the refine_sads_static
-    # entry at mv_bound 12
+    # blocks, r = 1, T = 8, zero MVs) on the 2x2 kernel and on the general
+    # one, timed in turns; then random MVs within +-14, odd MVs past every
+    # frame edge, and T = 1 (per-frame hbma), each bit-equal to the plain
+    # version and the general kernel on every entry; then the general
+    # kernel at T = 8, r = 4, 16x16 blocks at 1088x1920 with mv_pad 0
+    # (EBMA) and 14, and the refine_sads_static entry at mv_bound 12
     top = levels[3]
     tr, an = top[:-1], top[1:]
     zero = torch.zeros((8, 68, 120, 2), dtype=torch.int32, device=dev)
+    cases = {
+        "T=8 zero MVs": (tr, an, zero),
+        "T=8 MVs within +-14": (tr, an, torch.randint(
+            -14, 15, (8, 68, 120, 2), generator=g, dtype=torch.int32).to(dev)),
+        "T=8 odd MVs past the edges": (tr, an, (2 * torch.randint(
+            -4, 5, (8, 68, 120, 2), generator=g, dtype=torch.int32) + 1).to(dev)),
+        "T=1 odd MVs past the edges": (tr[:1], an[:1], (2 * torch.randint(
+            -4, 5, (1, 68, 120, 2), generator=g, dtype=torch.int32) + 1).to(dev)),
+    }
+    for name, (a, b, mv) in cases.items():
+        before = motion.CANDIDATE_SADS.launches
+        got = motion.candidate_sads(a, b, mv, 1, 2, 2)
+        if motion.CANDIDATE_SADS.launches != before + 1:
+            fail(f"K9 at the EBMA shape ({name}) did not take the 2x2 kernel")
+        if not torch.equal(got, motion.candidate_sads_plain(a, b, mv, 1, 2, 2)):
+            fail(f"K9 candidate_sads differs from its plain version ({name})")
+        if not torch.equal(got, motion.candidate_sads(a, b, mv, 1, 2, 2, general=True)):
+            fail(f"K9 candidate_sads differs from the general kernel ({name})")
     got = motion.candidate_sads(tr, an, zero, 1, 2, 2)
-    if not torch.equal(got, motion.candidate_sads_plain(tr, an, zero, 1, 2, 2)):
-        fail("K9 candidate_sads differs at the EBMA path shape")
-    ms, w_ms = timed(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2))
+    g_ms, ms, turns = in_turns(
+        lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2, general=True),
+        lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2), graph_ms)
+    w_ms = cuda_ms(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2))
+    gw_ms = cuda_ms(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2, general=True))
     plain_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, 1, 2, 2),
                        iters=5)
     nbytes = 2 * tr.numel() + zero.numel() * 4 + got.numel() * 4
     line = record(results, "candidate_sads", motion.CANDIDATE_SADS, 0, ms, w_ms,
                   plain_ms, nbytes, 2 * got.numel() * 4)
+    record(results, "candidate_sads_general", motion.CANDIDATE_SADS_GENERAL, 0,
+           g_ms, gw_ms, plain_ms, nbytes, 2 * got.numel() * 4)
     tr, an = y[:-1], y[1:]
     wide = []
     for pad in (0, 14):
@@ -342,7 +412,7 @@ def phase_parity(dev):
                             dtype=torch.int32).to(dev))
         got = motion.candidate_sads(tr, an, mv, 4, 16, 16, pad)
         if not torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 4, 16, 16)):
-            fail(f"K9 candidate_sads differs at r=4, mv_pad {pad}")
+            fail(f"K9 candidate_sads_general differs at r=4, mv_pad {pad}")
         k_ms = cuda_ms(lambda: motion.candidate_sads(tr, an, mv, 4, 16, 16, pad),
                        iters=5)
         p_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, mv, 4, 16, 16),
@@ -352,9 +422,13 @@ def phase_parity(dev):
     got = motion.refine_sads_static(tr, an, mv, 4, 16, 16, 12)
     if not torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 4, 16, 16)):
         fail("K9 refine_sads_static differs at mv_bound 12")
-    print(f"parity K9 candidate_sads: bit-equal on every entry; EBMA path "
-          f"shape (T=8, 136x240, 2x2, r=1) {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms; {line}; T=8, r=4, 16x16 at 1088x1920: "
+    print(f"parity K9 candidate_sads: the 2x2 and the general kernel bit-equal "
+          f"to the plain version on every entry at the EBMA path shape "
+          f"(136x240, 2x2, r=1) with {', '.join(cases)}; T=8 zero MVs "
+          f"{ms:.4f} ms (general {g_ms:.4f}; in turns general, new, new, "
+          f"general: {', '.join(f'{v:.4f}' for v in turns)}; through the "
+          f"wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain {plain_ms:.4f} ms; "
+          f"{line}; general kernel at T=8, r=4, 16x16, 1088x1920: "
           f"{'; '.join(wide)}; refine_sads_static (mv_bound 12) bit-equal")
 
     # K8: the 9-frame 1088x1920 stack as tbw=8 column-pitched subplanes;
@@ -719,10 +793,14 @@ def per_frame_motion(clip: np.ndarray, dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = build.launch_counts()
-    missing = [k for k in ("pyr_down_u8", "candidate_sads", "refine_mads")
+    missing = [k for k in ("pyr_down_levels", "candidate_sads", "refine_mads")
                if counts[k] <= 0]
     if missing:
         fail(f"per-frame motion: kernels never launched on this path: {missing}")
+    stray = [k for k in ("pyr_down_u8", "candidate_sads_general") if counts[k]]
+    if stray:
+        fail(f"per-frame motion: launched {stray}, which the fused K4 and the "
+             f"2x2 K9 replace on this path")
     if tuple(mv.shape) != (mfh, mfw, 2) or not bool(torch.isfinite(mm).all()):
         fail(f"per-frame motion: MV field {tuple(mv.shape)}, finite "
              f"min-MADs {bool(torch.isfinite(mm).all())}")
@@ -847,13 +925,16 @@ def main() -> int:
     from svc_tpu_torch.models.encoder import Encoder, stream_encode
     from svc_tpu_torch.ops import dct, motion
 
-    encode_kernels = ("pyr_down_u8", "candidate_sads", "refine_sads",
+    encode_kernels = ("pyr_down_levels", "candidate_sads", "refine_sads",
                       "dct8x8_to_wire")
     # 8x8 blocks of 3 channels take the specialised K1 / K2; 16x16 MV
     # blocks at range 8 take the specialised K3 on every level; every
     # frame size here takes K5's cluster kernel
     general_dct = ("dct_to_wire_general", "idct_display_general")
-    general_k3_k5 = ("refine_sads_general", "lloyd_general")
+    # the fused K4 and the 2x2 K9 serve the motion path: the single-level
+    # K4 and the general K9 run on none of phases 4-7 and 9
+    general_k3_k5 = ("refine_sads_general", "lloyd_general",
+                     "candidate_sads_general", "pyr_down_u8")
 
     # 4. the default config at 1080p: K1-K5, K9
     print("default config 1080p, 17 frames:")
@@ -966,6 +1047,7 @@ def main() -> int:
         fail(f"modules of JAX, svc_tpu or benchmarks were imported: {loaded[:5]}")
     # where each kernel's launches were counted: the path that runs it
     path_of = {"idct_resize_display": wide, "refine_mads": frame_run,
+               "pyr_down_u8": pitched_run,
                "pyr_down_pitched": pitched_run, "refine_sads_pitched": pitched_run,
                "dct_to_wire_general": tb4, "idct_display_general": tb4}
     kernels = []

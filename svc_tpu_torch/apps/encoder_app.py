@@ -10,8 +10,12 @@ the bitstream goes to stdout or ``--output``, diagnostics to stderr:
 Port-specific: ``--device cuda|cpu`` (default ``cuda``; ``cuda`` without a
 card is an error). ``--reference-compat`` defaults to 0 (the default
 config, k-means kernel K5); 1 selects the reference-compat config.
-``--devices``, ``--visualize``, ``--show``, ``--trace``, ``--profile`` and
-``--start-frame`` are accepted by name but exit with status 1.
+``--start-frame N`` resumes at payload ``N`` (source frame ``N`` is the
+overlap frame) and ``--no-header 1`` leaves the header out, so a tail
+written with both, appended to the first ``N`` payloads of the full
+stream, gives the full stream byte for byte. ``--devices``,
+``--visualize``, ``--show``, ``--trace`` and ``--profile`` are accepted
+by name but exit with status 1.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from svc_tpu_torch.utils import cli
 from svc_tpu_torch.apps import UNSUPPORTED
 
 _UNSUPPORTED_FLAGS = (
-    "devices", "visualize", "show", "trace", "profile", "start-frame",
+    "devices", "visualize", "show", "trace", "profile",
 )
 
 
@@ -36,7 +40,9 @@ class _AppConfig:
         self.video_path: Optional[str] = None
         self.output: Optional[str] = None
         self.batch_size = 8
+        self.start_frame = 0
         self.max_frames = 0  # 0 = all
+        self.no_header = 0
         self.device = "cuda"
         self.unsupported: List[str] = []
 
@@ -83,7 +89,11 @@ def _opts(c: _AppConfig) -> List[cli.Opt]:
         ),
         cli.Opt("output", P, fs(c, "output")),
         cli.Opt("batch-size", U, fs(c, "batch_size")),
+        # resume: payload index to start from (the bitstream is random
+        # access; the encoder's state is only the previous frame)
+        cli.Opt("start-frame", U, fs(c, "start_frame")),
         cli.Opt("max-frames", U, fs(c, "max_frames")),
+        cli.Opt("no-header", I, fs(c, "no_header")),
         cli.Opt("device", S, fs(c, "device")),
     ]
     for name in _UNSUPPORTED_FLAGS:
@@ -143,12 +153,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"creating encoder: {e}", file=sys.stderr)
             return 1
 
-        n_payloads = max(props.frame_count - 1, 0)
+        # resume accounting: payload k encodes source frame k+1
+        total_payloads = max(props.frame_count - 1, 0)
+        start = min(cfg.start_frame, total_payloads)
+        n_payloads = total_payloads - start
         if cfg.max_frames:
             n_payloads = min(n_payloads, cfg.max_frames)
 
         def frames():
-            for i, frame in enumerate(reader):
+            it = iter(reader)
+            for _ in range(start):  # skip up to the overlap frame
+                next(it, None)
+            for i, frame in enumerate(it):
                 if i > n_payloads:  # overlap frame + payload frames
                     break
                 yield frame
@@ -156,11 +172,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         payloads = 0
         out = open(cfg.output, "wb") if cfg.output else sys.stdout.buffer
         try:
-            for i, chunk in enumerate(
-                encoder.encode_video(frames(), header_frame_count=n_payloads)
-            ):
+            chunks = encoder.encode_video(
+                frames(),
+                emit_header=not cfg.no_header,
+                header_frame_count=n_payloads,
+                first_anchor_index=start,
+            )
+            for i, chunk in enumerate(chunks):
                 out.write(chunk)
-                if i:  # chunk 0 is the header
+                if i or cfg.no_header:  # chunk 0 is the header, if any
                     payloads += 1
         finally:
             if cfg.output:
@@ -170,7 +190,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # the container's frame count can be wrong; a header promising more
     # payloads than the body holds makes the stream undecodable
-    if payloads != n_payloads:
+    if not cfg.no_header and payloads != n_payloads:
         if cfg.output:
             with open(cfg.output, "r+b") as f:
                 f.write(encoder.header(payloads).pack())

@@ -24,9 +24,11 @@ the plain version; a CUDA tensor launches the kernel or raises):
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
   (``hbma_stack(..., base_pitched=...)``);
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
-  ``T`` separate plane pairs (``ebma``).
+  ``T`` separate plane pairs (``ebma``): ``csrc/candidate_sads.cu`` for
+  square 2x2 blocks at ``r = 1`` (the default encoder's top level), the
+  general kernel ``csrc/candidate_sads_general.cu`` otherwise.
 
-K3's general kernel, K7, K8 and K9 are one CUDA kernel
+K3's and K9's general kernels, K7 and K8 are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
 type. Every SAD kernel sums exact integers: bit-equal to its plain version
 on every entry. Tracked pixels outside the frame read as
@@ -75,8 +77,15 @@ REFINE_MADS = Kernel(
 CANDIDATE_SADS = Kernel(
     "candidate_sads",
     "svc_candidate_sads",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, PTR, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/candidate_sads.cu",
+    replaces="svc_tpu/ops/motion_pallas.py:121",
+)
+CANDIDATE_SADS_GENERAL = Kernel(
+    "candidate_sads_general",
+    "svc_candidate_sads_general",
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/candidate_sads_general.cu",
     replaces="svc_tpu/ops/motion_pallas.py:121",
 )
 REFINE_SADS_PITCHED = Kernel(
@@ -302,6 +311,15 @@ def candidate_sads_plain(
                        block_h).to(torch.float32)
 
 
+def _candidate_specialised(block_w: int, block_h: int, r: int, tracked,
+                           anchor) -> bool:
+    """K9's specialised kernel takes square 2x2 blocks at r = 1 on a
+    4-byte aligned tracked and a 2-byte aligned anchor stack; every other
+    case runs the general kernel."""
+    return (block_w == block_h == 2 and r == 1 and tracked.data_ptr() % 4 == 0
+            and anchor.data_ptr() % 2 == 0)
+
+
 def candidate_sads(
     tracked: torch.Tensor,
     anchor: torch.Tensor,
@@ -310,9 +328,13 @@ def candidate_sads(
     block_w: int,
     block_h: int,
     mv_pad: int = 0,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
     """Per-block SADs of every ``(2r+1)**2`` candidate around each block's
-    MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``).
+    MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``): the
+    specialised kernel for square 2x2 blocks at ``r = 1``, the general one
+    otherwise.
 
     Args:
       tracked / anchor: ``(T, H, W)`` uint8 luma planes.
@@ -322,6 +344,8 @@ def candidate_sads(
       mv_pad: svc_tpu's bound on ``|mv_round|`` (its tracked-plane pad).
         The port places each window at its block's own MV, so the SADs are
         svc_tpu's wherever its bound holds and exact elsewhere too.
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
     Returns ``(T, (2r+1)**2, mfh, mfw)`` float32 SADs. Entries whose window
     leaves the frame are undefined, as in svc_tpu (here: tracked pixels
@@ -344,10 +368,16 @@ def candidate_sads(
     if out.numel() == 0:
         return out
     with torch.cuda.device(tr.device):
-        CANDIDATE_SADS.launch(
-            tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
-            t, fh, fw, block_w, block_h, r, stream_handle(tr),
-        )
+        if _candidate_specialised(block_w, block_h, r, tr, an) and not general:
+            CANDIDATE_SADS.launch(
+                tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
+                t, fh, fw, stream_handle(tr),
+            )
+        else:
+            CANDIDATE_SADS_GENERAL.launch(
+                tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
+                t, fh, fw, block_w, block_h, r, stream_handle(tr),
+            )
     return out
 
 

@@ -6,8 +6,13 @@ dimension (sum 256) in integer arithmetic with BORDER_REFLECT_101, sampled
 at even coordinates, descaled by ``(s + 128) >> 8``. Output dims are
 ``(h + 1) // 2, (w + 1) // 2`` for any input size.
 
-Kernel K4 (``csrc/pyr_down.cu``) computes one level on CUDA tensors;
-:func:`pyr_down_plain` is its plain PyTorch version, taken for CPU tensors.
+Kernel K4 comes in two: ``csrc/pyr_down_levels.cu``
+(:func:`pyr_down_levels`) computes up to three levels in one launch and
+serves :func:`build_pyramid`; ``csrc/pyr_down.cu`` (:func:`pyr_down`)
+computes one level, the yardstick the fused kernel is held and timed
+against (``build_pyramid(..., general=True)`` takes it per level).
+:func:`pyr_down_plain` is their plain PyTorch version, taken for CPU
+tensors.
 Kernel K8 (``csrc/pyr_down_pitched.cu``, :func:`pyr_down_pitched`) computes
 the same level from column-pitched luma subplanes (:func:`to_pitched`).
 """
@@ -31,6 +36,15 @@ PYR_DOWN = Kernel(
     source="svc_tpu_torch/csrc/pyr_down.cu",
     replaces="svc_tpu/ops/pyramid_pallas.py:271",
 )
+
+PYR_DOWN_LEVELS = Kernel(
+    "pyr_down_levels",
+    "svc_pyr_down_levels",
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/pyr_down_levels.cu",
+    replaces="svc_tpu/ops/pyramid_pallas.py:271",
+)
+_MAX_HALVINGS = 3  # levels one pyr_down_levels launch computes
 
 PYR_DOWN_PITCHED = Kernel(
     "pyr_down_pitched",
@@ -66,20 +80,25 @@ def pyr_down_plain(img: torch.Tensor) -> torch.Tensor:
     return ((x + 128) >> 8).to(torch.uint8)
 
 
+def _check_cuda_u8(name: str, img: torch.Tensor) -> None:
+    if img.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {img.device}")
+    if img.dtype != torch.uint8 or img.ndim < 2:
+        raise TypeError(
+            f"{name}: expected a (..., H, W) uint8 tensor, got "
+            f"{tuple(img.shape)} {img.dtype}"
+        )
+
+
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """One pyramid level of a ``(..., H, W)`` uint8 tensor.
 
-    CPU tensors take :func:`pyr_down_plain`; CUDA tensors launch K4.
+    CPU tensors take :func:`pyr_down_plain`; CUDA tensors launch K4's
+    single-level kernel.
     """
     if img.device.type == "cpu":
         return pyr_down_plain(img)
-    if img.device.type != "cuda":
-        raise ValueError(f"pyr_down: unsupported device {img.device}")
-    if img.dtype != torch.uint8 or img.ndim < 2:
-        raise TypeError(
-            f"pyr_down: expected a (..., H, W) uint8 tensor, got "
-            f"{tuple(img.shape)} {img.dtype}"
-        )
+    _check_cuda_u8("pyr_down", img)
     x = img.contiguous()
     h, w = x.shape[-2], x.shape[-1]
     lead = tuple(x.shape[:-2])
@@ -96,11 +115,55 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def build_pyramid(img: torch.Tensor, level_count: int) -> List[torch.Tensor]:
-    """Levels 0..level_count-1; level 0 is the input itself."""
+def pyr_down_levels(img: torch.Tensor, halvings: int) -> List[torch.Tensor]:
+    """Levels ``1..halvings`` (at most 3) of a ``(..., H, W)`` uint8 tensor:
+    what ``halvings`` chained :func:`pyr_down` calls return, bit for bit.
+
+    CPU tensors take chained :func:`pyr_down_plain`; CUDA tensors launch
+    K4's fused kernel once.
+    """
+    if not 1 <= halvings <= _MAX_HALVINGS:
+        raise ValueError(f"pyr_down_levels: halvings must be 1..{_MAX_HALVINGS}")
+    if img.device.type == "cpu":
+        levels = [img]
+        for _ in range(halvings):
+            levels.append(pyr_down_plain(levels[-1]))
+        return levels[1:]
+    _check_cuda_u8("pyr_down_levels", img)
+    x = img.contiguous()
+    lead = tuple(x.shape[:-2])
+    h, w = x.shape[-2], x.shape[-1]
+    outs, lh, lw = [], h, w
+    for _ in range(halvings):
+        lh, lw = (lh + 1) // 2, (lw + 1) // 2
+        outs.append(torch.empty(lead + (lh, lw), dtype=torch.uint8, device=x.device))
+    n = math.prod(lead)
+    if x.numel() == 0:
+        return outs
+    ptrs = [o.data_ptr() for o in outs] + [0] * (_MAX_HALVINGS - halvings)
+    with torch.cuda.device(x.device):
+        PYR_DOWN_LEVELS.launch(x.data_ptr(), *ptrs, n, h, w, halvings,
+                               stream_handle(x))
+    return outs
+
+
+def build_pyramid(img: torch.Tensor, level_count: int, *,
+                  general: bool = False) -> List[torch.Tensor]:
+    """Levels 0..level_count-1; level 0 is the input itself.
+
+    On a CUDA tensor, one fused K4 launch computes up to three levels, and
+    a deeper pyramid launches it again from the last level it wrote;
+    ``general=True`` launches the single-level kernel once per level (the
+    yardstick).
+    """
     levels = [img]
-    for _ in range(level_count - 1):
-        levels.append(pyr_down(levels[-1]))
+    if img.device.type == "cpu" or general:
+        for _ in range(level_count - 1):
+            levels.append(pyr_down(levels[-1]))
+        return levels
+    while len(levels) < level_count:
+        halvings = min(_MAX_HALVINGS, level_count - len(levels))
+        levels += pyr_down_levels(levels[-1], halvings)
     return levels
 
 

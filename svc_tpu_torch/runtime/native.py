@@ -7,12 +7,17 @@ C++ queue/writer/serializer runtime (libs/queue.hpp,
 apps/encoder.cpp:151-173, libs/encoder.cpp:222-269).
 
 The library is built on demand with ``make`` (g++); every entry point has
-a pure-NumPy fallback so the port works without a native toolchain.
+a pure-NumPy fallback so the port works without a native toolchain. The
+build runs under an exclusive ``flock`` on ``build/native.lock`` at the
+checkout root, held around the exists check and ``make``: processes that
+load at once (pytest-xdist workers) build once, and the others wait and
+find the whole library. It is loaded after the lock is released.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import sys
@@ -21,11 +26,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_NATIVE_DIR = os.path.join(_ROOT, "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libsvcio.so")
+_LOCK_PATH = os.path.join(_ROOT, "build", "native.lock")
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -43,13 +47,25 @@ def _build() -> bool:
         return False
 
 
+def _ensure_built() -> bool:
+    """Build the library unless it exists, under the cross-process lock."""
+    try:
+        os.makedirs(os.path.dirname(_LOCK_PATH), exist_ok=True)
+        lock = open(_LOCK_PATH, "a")
+    except OSError:  # no writable build/: build unlocked
+        return os.path.exists(_LIB_PATH) or _build()
+    with lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return os.path.exists(_LIB_PATH) or _build()
+
+
 def load() -> Optional[ctypes.CDLL]:
     """Load (building if needed) the native library; None if unavailable."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH) and not _build():
+        if not _ensure_built():
             return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)

@@ -77,8 +77,7 @@ def test_lossless_steps_round_trip(clip_path, stream_path, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", ["--devices", "--visualize", "--show", "--trace", "--profile",
-             "--start-frame"],
+    "flag", ["--devices", "--visualize", "--show", "--trace", "--profile"],
 )
 def test_encoder_refuses_unsupported_flags(flag, clip_path, capsys):
     rc = encoder_app.main(["enc", *ENC_FLAGS, flag, "1", clip_path])
@@ -92,6 +91,57 @@ def test_decoder_refuses_unsupported_flags(flag, stream_path, capsys):
                            "--input", stream_path])
     assert rc == 1
     assert "not yet supported by svc_tpu_torch" in capsys.readouterr().err
+
+
+def test_resume_produces_identical_stream(clip_path, stream_path, tmp_path):
+    # svc_tpu's test of the same name (tests/test_apps.py): the full stream
+    # up to payload 2, then the tail that --start-frame 2 --no-header 1
+    # writes, is the full stream byte for byte
+    tail = str(tmp_path / "tail.svc")
+    rc = encoder_app.main(["enc", *ENC_FLAGS, "--start-frame", "2",
+                           "--no-header", "1", "--output", tail, clip_path])
+    assert rc == 0
+    with open(stream_path, "rb") as f:
+        full = f.read()
+    with open(tail, "rb") as f:
+        tail_bytes = f.read()
+    header = bitstream.Header.unpack(full)
+    assert len(tail_bytes) == len(full) - bitstream.frame_offset(header, 2) > 0
+    assert full[:bitstream.frame_offset(header, 2)] + tail_bytes == full
+
+
+def test_start_frame_with_header_and_max_frames(clip_path, stream_path, tmp_path):
+    # a resumed stream with its own header: 1 payload from payload 1 on
+    svc = str(tmp_path / "mid.svc")
+    rc = encoder_app.main(["enc", *ENC_FLAGS, "--start-frame", "1",
+                           "--max-frames", "1", "--output", svc, clip_path])
+    assert rc == 0
+    with open(svc, "rb") as f:
+        mid = f.read()
+    with open(stream_path, "rb") as f:
+        full = f.read()
+    header = bitstream.Header.unpack(full)
+    assert bitstream.Header.unpack(mid).frame_count == 1
+    assert mid[bitstream.HEADER_SIZE:] == full[
+        bitstream.frame_offset(header, 1):bitstream.frame_offset(header, 2)]
+
+
+def test_full_stream_header_equals_svc_tpu(clip_path, stream_path, tmp_path):
+    # the same clip and flags through svc_tpu's encoder app: the header
+    # bytes are equal (the payloads differ within the coefficient gate)
+    from svc_tpu.apps import encoder_app as ref_app
+
+    ref = str(tmp_path / "ref.svc")
+    flags = list(ENC_FLAGS)
+    i = flags.index("--device")
+    del flags[i:i + 2]
+    assert ref_app.main(["enc", *flags, "--output", ref, clip_path]) == 0
+    with open(ref, "rb") as f:
+        ref_bytes = f.read()
+    with open(stream_path, "rb") as f:
+        full = f.read()
+    assert full[:bitstream.HEADER_SIZE] == ref_bytes[:bitstream.HEADER_SIZE]
+    assert len(full) == len(ref_bytes)
 
 
 def test_cli_cuda_without_card_fails(monkeypatch, clip_path, stream_path, capsys):

@@ -127,11 +127,91 @@ def test_candidate_sads_bit_equal(gen, mv_pad, t, h, w, bw, bh, r):
     tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
     mv = torch.randint(-mv_pad, mv_pad + 1, (t, h // bh, w // bw, 2),
                        generator=gen, dtype=torch.int32).cuda()
-    before = motion.CANDIDATE_SADS.launches
+    kernel = (motion.CANDIDATE_SADS if (bw, bh, r) == (2, 2, 1)
+              else motion.CANDIDATE_SADS_GENERAL)
+    before = kernel.launches
     got = motion.candidate_sads(tr, an, mv, r, bw, bh, mv_pad)
-    assert motion.CANDIDATE_SADS.launches == before + 1
+    assert kernel.launches == before + 1
     assert got.dtype == torch.float32
     assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, bw, bh))
+
+
+@pytest.mark.parametrize(
+    "t,h,w,mv_kind",
+    [(8, 136, 240, "zero"),     # the encoder's top-level EBMA
+     (8, 136, 240, "random"),   # MVs within +-14
+     (1, 136, 240, "edge"),     # per-frame hbma's shape, odd MVs past the edges
+     (2, 34, 58, "edge"),       # fw % 4 == 2: words straddle the row's end
+     (3, 10, 300, "far"),       # windows wholly outside, 3 CTAs a row
+     (1, 2, 2, "random")],
+)
+def test_candidate_sads_2x2_equals_general(gen, t, h, w, mv_kind):
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    shape = (t, h // 2, w // 2, 2)
+    if mv_kind == "zero":
+        mv = torch.zeros(shape, dtype=torch.int32)
+    elif mv_kind == "random":
+        mv = torch.randint(-14, 15, shape, generator=gen, dtype=torch.int32)
+    elif mv_kind == "edge":
+        mv = 2 * torch.randint(-4, 5, shape, generator=gen, dtype=torch.int32) + 1
+    else:
+        mv = torch.randint(-400, 401, shape, generator=gen, dtype=torch.int32)
+    mv = mv.cuda()
+    before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
+    got = motion.candidate_sads(tr, an, mv, 1, 2, 2)
+    gen_out = motion.candidate_sads(tr, an, mv, 1, 2, 2, general=True)
+    assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, gen_out)  # every entry, valid or not
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 1, 2, 2))
+
+
+def test_candidate_sads_unaligned_takes_the_general_kernel(gen):
+    # the 2x2 kernel loads aligned words: a tracked stack 2 bytes into its
+    # buffer goes to the general kernel, with the same SADs
+    flat = _u8(gen, (2 * 2 * 16 * 24 + 2,))
+    tr = flat[2:2 + 2 * 16 * 24].view(2, 16, 24)
+    an = flat[:2 * 16 * 24].view(2, 16, 24)
+    assert tr.data_ptr() % 4 != 0
+    mv = torch.randint(-3, 4, (2, 8, 12, 2), generator=gen, dtype=torch.int32).cuda()
+    before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
+    got = motion.candidate_sads(tr, an, mv, 1, 2, 2)
+    assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 1, 2, 2))
+
+
+@pytest.mark.parametrize(
+    "shape,levels",
+    [((9, 1088, 1920), 4), ((2, 1087, 1919), 4), ((3, 5, 7), 4), ((1, 1, 40), 4),
+     ((2, 40, 1), 3), ((1, 768, 1366), 4), ((2, 70, 530), 2), ((1, 130, 66), 5),
+     ((1, 1, 1), 4), ((2, 37, 51), 3)],
+)
+def test_pyr_down_levels_equals_chained_plain(gen, shape, levels):
+    x = _u8(gen, shape)
+    launches = -(-(levels - 1) // 3)
+    before = (pyramid.PYR_DOWN_LEVELS.launches, pyramid.PYR_DOWN.launches)
+    pyr = pyramid.build_pyramid(x, levels)
+    assert (pyramid.PYR_DOWN_LEVELS.launches, pyramid.PYR_DOWN.launches) == (
+        before[0] + launches, before[1])
+    ref = x
+    for lvl in range(1, levels):
+        ref = pyramid.pyr_down_plain(ref)
+        assert torch.equal(pyr[lvl], ref), f"level {lvl}"
+    assert all(torch.equal(a, b) for a, b in
+               zip(pyr, pyramid.build_pyramid(x, levels, general=True)))
+
+
+def test_pyr_down_levels_unaligned_input(gen):
+    # a stack that starts 3 bytes into its buffer takes the byte loads
+    flat = _u8(gen, (2 * 64 * 320 + 3,))
+    x = flat[3:].view(2, 64, 320)
+    assert x.data_ptr() % 16 != 0
+    got = pyramid.pyr_down_levels(x, 3)
+    ref = x
+    for lvl in range(3):
+        ref = pyramid.pyr_down_plain(ref)
+        assert torch.equal(got[lvl], ref)
 
 
 def test_refine_sads_static_and_ebma_on_card(gen):
@@ -428,7 +508,7 @@ def test_port_on_card_matches_port_on_cpu(gen, w, h):
     build.reset_launch_counts()
     cuda_stream = list(Encoder(cfg, props, 2, device="cuda").encode_video(iter(clip)))
     counts = build.launch_counts()
-    assert counts["pyr_down_u8"] > 0 and counts["refine_sads"] > 0
+    assert counts["pyr_down_levels"] > 0 and counts["refine_sads"] > 0
     assert counts["candidate_sads"] > 0  # the top-level EBMA
     assert counts["dct8x8_to_wire"] > 0
     cpu_stream = list(Encoder(cfg, props, 2, device="cpu").encode_video(iter(clip)))

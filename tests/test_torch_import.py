@@ -117,6 +117,7 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "lloyd", "idct_resize_display", "refine_mads", "candidate_sads",
         "pyr_down_pitched", "refine_sads_pitched", "dct_to_wire_general",
         "idct_display_general", "refine_sads_general", "lloyd_general",
+        "candidate_sads_general", "pyr_down_levels",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -131,7 +132,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "pyr_down_pitched.cu", "refine_sads_pitched.cu", "window_sads.cuh",
             "pyr_down.cuh", "planes.cuh", "dct_wire_general.cu",
             "idct_display_general.cu", "refine_sads_general.cu",
-            "lloyd_general.cu", "lloyd.cuh"} <= srcs
+            "lloyd_general.cu", "lloyd.cuh", "candidate_sads_general.cu",
+            "pyr_down_levels.cu"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
