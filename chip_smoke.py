@@ -31,10 +31,19 @@ each:
    through the wrappers); K4 also at odd and tiny sizes and 2-5 levels,
    K9 also with random, past-edge and T = 1 MVs; K5 also at 1080p with
    D = 7; the general K1 and K2 also run once at 4x4 blocks;
-4. default config — a 17-frame 1080p clip through ``stream_encode`` with
-   ``EncoderConfig()`` on ``cuda``, read back through the port's
-   ``io.bitstream`` and decoded with a gaze; K1-K5 and K9 must run (K4
-   the fused kernel);
+4. default config — a 17-frame 1080p clip through the staged,
+   one-batch-in-flight ``stream_encode`` with ``EncoderConfig()`` on
+   ``cuda``, read back through the port's ``io.bitstream`` and decoded by
+   the staged ``decode_frames`` with a gaze; K1-K5 and K9 must run (K4
+   the fused kernel). Then the staged stream against the direct per-batch
+   encode (``encode_batch`` + ``.cpu()`` + serialize) byte for byte at 17
+   frames (two full batches) and 13 (a remainder), decode with
+   ``stage_h2d`` on and off; and the CLIs in-process on ``cuda``: the
+   encoder app's bytes equal the library stream through the native writer
+   (where it builds) and the Python writer thread, ``--trace`` holds the
+   spans, the ``--profile`` trace names the port's kernels, the decoder
+   app's frames equal the library decode and ``--start-frame 4`` gives
+   their exact tail;
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
    decoded on ``cuda`` (K6 must run, and K2 on 2-byte aligned rows), the
    bytes held against the CPU port's decode of the same payloads;
@@ -57,7 +66,13 @@ each:
     base_pitched=...)`` (both K8 kernels must run, the single-level K4 on
     levels 2-3 and the specialised K3 on levels 2-1), held against the
     spatial pyramid and ``hbma_stack``;
-11. timings — 1080p encode and decode frames per second, per-frame HBMA.
+11. timings — 1080p encode and decode frames per second, per-frame HBMA;
+    then the synchronous-direct and the staged path in turns (S, T, T, S,
+    S, T) for encode and decode at batch 8 over 24 payloads, each run with
+    its fps and its Tracer split per batch (``parse``,
+    ``device_dispatch``, ``device_fetch``, ``serialize``, the rest as
+    ``other``), the medians and spreads, and the 56.0 MB frame H2D and
+    200.5 MB coefficient D2H from pageable and from pinned memory.
 
 Each path of phases 4-7, 9 and 10 runs with the launch counters set to 0
 just before it and read just after. The second-to-last line is a JSON
@@ -73,6 +88,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -752,6 +768,243 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
                 payloads=payloads, frames=frames, gaze=gaze, counts=counts)
 
 
+def direct_stream(enc, clip, tracer=None):
+    """The synchronous path: the header, then per batch ``encode_batch``
+    (pageable H2D), ``.cpu()`` of the outputs and serialization before the
+    next batch starts; no stager, nothing in flight. Spans as svc_tpu's."""
+    from svc_tpu_torch.io import bitstream
+    from svc_tpu_torch.runtime.tracing import span
+
+    yield enc.header(len(clip) - 1).pack()
+    cfg, t, i = enc.cfg, enc.batch_size, 0
+    while i + 1 < len(clip):
+        n_valid = min(t, len(clip) - 1 - i)
+        window = clip[i:i + n_valid + 1]
+        if n_valid < t:
+            window = np.concatenate([window, np.repeat(window[-1:], t - n_valid, 0)])
+        with span(tracer, "device_dispatch", frames=n_valid):
+            out = enc.encode_batch(window, i)
+        with span(tracer, "device_fetch", frames=n_valid):
+            c = out["coeffs"].cpu().numpy()
+            btypes = out["block_types"].cpu().numpy().astype(np.uint32)
+        c = c.reshape(c.shape[0], c.shape[1], c.shape[2], -1,
+                      cfg.transform_block_h, cfg.transform_block_w)
+        for k in range(n_valid):
+            with span(tracer, "serialize"):
+                payload = bitstream.serialize_frame_blocks(
+                    c[k], btypes[k], cfg.mv_block_w, cfg.mv_block_h)
+            yield payload
+        i += n_valid
+
+
+def direct_decode(dec, payloads, gazes, tracer=None):
+    """The synchronous decode: per batch parse, ``decode_batch`` (pageable
+    H2D) and ``.cpu()`` before the next batch starts."""
+    from svc_tpu_torch.io import bitstream
+    from svc_tpu_torch.runtime.tracing import span
+
+    h = dec.header
+    for s in range(0, len(payloads), dec.batch_size):
+        coeffs, types = [], []
+        for p in payloads[s:s + dec.batch_size]:
+            with span(tracer, "parse"):
+                t_, c_ = bitstream.deserialize_frame_blocks(p, h)
+            coeffs.append(c_.reshape(c_.shape[0], c_.shape[1], -1))
+            types.append(t_)
+        rects = [dec.padded_gaze_rect(g) for g in gazes[s:s + len(coeffs)]]
+        with span(tracer, "device_dispatch", frames=len(coeffs)):
+            out = dec.decode_batch(np.stack(coeffs), np.stack(types), rects)
+        with span(tracer, "device_fetch", frames=len(coeffs)):
+            rows = out.cpu().numpy()
+        yield from rows.reshape(len(coeffs), h.frame_h, h.frame_w, -1)
+
+
+def staged_against_direct(main_run, dev):
+    """Phase 4, continued: the staged, one-batch-in-flight stream against
+    the direct per-batch path, byte for byte, at 17 frames (two full
+    batches) and 13 (a remainder); decode with and without H2D staging."""
+    from svc_tpu_torch.config import EncoderConfig, VideoProperties
+    from svc_tpu_torch.models.encoder import Encoder
+
+    clip, enc, dec = main_run["clip"], main_run["enc"], main_run["dec"]
+    checks = []
+    for n in (17, 13):
+        part = clip[:n]
+        if n == 17:
+            e, staged = enc, main_run["stream"]
+        else:
+            h, w = clip.shape[1:3]
+            e = Encoder(EncoderConfig(), VideoProperties(w, h, n), 8, device=dev)
+            staged = b"".join(e.encode_video(iter(part)))
+        direct = b"".join(direct_stream(e, part))
+        if staged != direct:
+            fail(f"staged stream of {n} frames differs from the direct per-batch "
+                 f"encode ({len(staged)} against {len(direct)} bytes)")
+        checks.append(f"{n} frames {len(staged)} bytes")
+    gazes = [main_run["gaze"]] * len(main_run["payloads"])
+    plain = np.stack(list(dec.decode_frames(iter(main_run["payloads"]), iter(gazes),
+                                            stage_h2d=False)))
+    if not np.array_equal(plain, main_run["frames"]):
+        fail("decode with stage_h2d=False differs from the staged decode")
+    print(f"  staged stream_encode equals the direct per-batch encode byte for "
+          f"byte: {', '.join(checks)}; decode_frames stage_h2d on and off give "
+          f"identical frames ({len(plain)})")
+
+
+def cli_checks(main_run, tmp: str) -> str:
+    """Phase 4, continued: the CLIs on ``cuda``, in-process."""
+    from svc_tpu_torch.apps import decoder_app, encoder_app
+    from svc_tpu_torch.runtime import native
+    from svc_tpu_torch.runtime.tracing import TRACE_FILE
+
+    clip_path = os.path.join(tmp, "clip.npy")
+    np.save(clip_path, main_run["clip"])
+    flags = ["enc", "--device", "cuda", "--verbose", "0"]
+
+    def encode(name, *extra):
+        path = os.path.join(tmp, name)
+        if encoder_app.main([*flags, *extra, "--output", path, clip_path]) != 0:
+            fail(f"encoder_app {' '.join(extra)} failed")
+        with open(path, "rb") as f:
+            data = f.read()
+        if data != main_run["stream"]:
+            fail(f"encoder_app {' '.join(extra)} wrote other bytes than the library")
+        return data
+
+    lines = []
+    has_native = native.available()
+    if has_native:
+        encode("native.svc")
+        lines.append("native writer bytes equal to the library stream")
+    available = native.available
+    native.available = lambda: False
+    try:
+        encode("python.svc")
+    finally:
+        native.available = available
+    lines.append("Python writer thread bytes equal" + ("" if has_native else
+                 " (native writer unavailable on this machine)"))
+    trace = os.path.join(tmp, "enc.json")
+    prof = os.path.join(tmp, "prof")
+    encode("traced.svc", "--trace", trace, "--profile", prof)
+    with open(trace) as f:
+        stats = json.load(f)["stats"]
+    if set(stats) != {"device_dispatch", "device_fetch", "serialize"}:
+        fail(f"encoder_app --trace spans {sorted(stats)}")
+    with open(os.path.join(prof, TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    seen = sorted({k for k in ("dct8x8_wire_kernel", "idct8x8_display_kernel",
+                               "pyr_down_levels_kernel", "refine_sads_kernel",
+                               "lloyd_cluster_kernel", "candidate_sads_kernel")
+                   if any(k in n for n in names)})
+    if "dct8x8_wire_kernel" not in seen:
+        fail(f"encoder_app --profile trace names none of the port's kernels "
+             f"({len(names)} event names)")
+    lines.append(f"--trace spans {sorted(stats)}; --profile trace names {seen}")
+    svc = os.path.join(tmp, "native.svc" if has_native else "python.svc")
+    gaze = ",".join(map(str, main_run["gaze"]))
+    dflags = ["dec", "--device", "cuda", "--gaze", gaze, "--input", svc]
+    full, tail = os.path.join(tmp, "full.npy"), os.path.join(tmp, "tail.npy")
+    dtrace = os.path.join(tmp, "dec.json")
+    if decoder_app.main([*dflags, "--output", full, "--trace", dtrace]) != 0:
+        fail("decoder_app failed")
+    if decoder_app.main([*dflags, "--start-frame", "4", "--output", tail]) != 0:
+        fail("decoder_app --start-frame 4 failed")
+    full_f, tail_f = np.load(full), np.load(tail)
+    if not np.array_equal(full_f, main_run["frames"]):
+        fail("decoder_app frames differ from the library decode")
+    if not np.array_equal(tail_f, full_f[4:]):
+        fail("decoder_app --start-frame 4 is not the tail of the full decode")
+    with open(dtrace) as f:
+        dstats = json.load(f)["stats"]
+    if set(dstats) != {"parse", "device_dispatch", "device_fetch"}:
+        fail(f"decoder_app --trace spans {sorted(dstats)}")
+    lines.append(f"decoder_app frames equal to the library decode, --start-frame "
+                 f"4 the exact tail ({len(tail_f)} frames), --trace spans "
+                 f"{sorted(dstats)}")
+    return "; ".join(lines)
+
+
+def transfer_ms(src: torch.Tensor, dst: torch.Tensor, reps: int = 5) -> float:
+    """Median ms of ``dst.copy_(src)`` through to the host's return after
+    the copy is complete (a pageable copy is synchronous; a pinned one is
+    waited for)."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def phase_overlap(main_run, card: str, dev) -> str:
+    """Phase 11 (split): the synchronous-direct and the staged path in
+    turns, three runs each, encode and decode at 1080p batch 8, with the
+    Tracer split per batch and the measured H2D and D2H rates."""
+    from svc_tpu_torch.runtime.tracing import Tracer
+
+    clip, enc, dec = main_run["clip"], main_run["enc"], main_run["dec"]
+    t = enc.batch_size
+    clip = np.concatenate([clip, clip[-2::-1]])[:3 * t + 1]  # forth and back
+    payloads = [p for p in enc.encode_video(iter(clip))][1:]
+    gazes = [main_run["gaze"]] * len(payloads)
+    batches = -(-len(payloads) // t)
+
+    rates = {}
+    n, h, w, _ = clip[:t + 1].shape
+    frames = torch.from_numpy(np.ascontiguousarray(clip[:t + 1])).reshape(n, h, w * 3)
+    hd = dec.header
+    wire = hd.channel_count * hd.transform_block_h * hd.transform_block_w
+    coeffs = torch.empty((t, hd.padded_frame_h // hd.transform_block_h,
+                          hd.padded_frame_w // hd.transform_block_w, wire),
+                         dtype=torch.float32, device=dev)
+    for what, host, on_dev in (
+            ("H2D", frames, torch.empty_like(frames, device=dev)),
+            ("D2H", torch.empty_like(coeffs, device="cpu"), coeffs)):
+        mb = host.numel() * host.element_size() / 1e6
+        for mem, hst in (("pageable", host), ("pinned", host.pin_memory())):
+            src, dst = (hst, on_dev) if what == "H2D" else (on_dev, hst)
+            ms = transfer_ms(src, dst)
+            rates[f"{what} {mb:.1f} MB {mem}"] = (ms, mb / ms)  # MB/ms = GB/s
+    del coeffs
+
+    def run(kind: str, leg: str):
+        tr = Tracer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if leg == "encode":
+            it = direct_stream(enc, clip, tr) if kind == "sync" else enc.encode_video(
+                iter(clip), tracer=tr)
+            n = sum(1 for _ in it) - 1
+        else:
+            it = (direct_decode(dec, payloads, gazes, tr) if kind == "sync"
+                  else dec.decode_frames(iter(payloads), iter(gazes), tracer=tr))
+            n = sum(1 for _ in it)
+        wall = time.perf_counter() - t0
+        if n != len(payloads):
+            fail(f"phase 11 {leg} {kind}: {n} frames of {len(payloads)}")
+        split = {k: v["total_s"] * 1e3 / batches for k, v in tr.stats().items()}
+        split["other"] = wall * 1e3 / batches - sum(split.values())
+        return n / wall, split
+
+    lines, fps = [], {}
+    for leg in ("encode", "decode"):
+        for kind in ("sync", "staged", "staged", "sync", "sync", "staged"):
+            f, split = run(kind, leg)
+            fps.setdefault((leg, kind), []).append(f)
+            parts = ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            print(f"  {leg} {kind}: {f:.2f} fps; per batch of 8 (ms): {parts}")
+    for (leg, kind), v in fps.items():
+        lines.append(f"{leg} {kind} median {np.median(v):.2f} fps (runs "
+                     f"{', '.join(f'{x:.2f}' for x in v)}; spread "
+                     f"{max(v) - min(v):.2f})")
+    xfer = "; ".join(f"{k} {ms:.2f} ms ({gbs:.2f} GB/s)" for k, (ms, gbs) in rates.items())
+    return (f"split batch {t}, {len(payloads)} payloads in {batches} batches "
+            f"[{card}]: {'; '.join(lines)}; transfers: {xfer}")
+
+
 def display_gate(a: np.ndarray, b: np.ndarray, what: str) -> str:
     """Max |diff| <= 1 on under 1e-3 of the bytes, or fail."""
     diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
@@ -941,6 +1194,9 @@ def main() -> int:
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
                           encode_kernels + ("lloyd", "idct_display"),
                           general_dct + general_k3_k5)
+    staged_against_direct(main_run, dev)
+    with tempfile.TemporaryDirectory(prefix="svc_smoke_") as tmp:
+        print(f"  CLIs on cuda: {cli_checks(main_run, tmp)}")
 
     # 5. width excess: the general decode route, K6; K2 on packed rows of
     # 4098 bytes (row starts only 2-byte aligned)
@@ -1040,6 +1296,8 @@ def main() -> int:
           f"{n_dec / dec_s:.2f} fps end to end (bytes -> host frames), "
           f"{8000.0 / dec_ms:.2f} fps device ({dec_ms:.3f} ms / 8 frames); "
           f"per-frame hbma {hbma_ms:.3f} ms per 1080p pair")
+    print("timings, synchronous-direct against staged, in turns:")
+    print(f"  {phase_overlap(main_run, card, dev)}")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))

@@ -8,8 +8,17 @@ BGR frames to ``--output`` (``.npy`` or ``.y4m``, default ``out.npy``):
   python -m svc_tpu_torch.apps.decoder_app --device cuda --gaze 960,540 \\
       --input clip.svc --output out.npy
 
-Port-specific: ``--device cuda|cpu`` (default ``cuda``). ``--devices``,
-``--show``, ``--trace`` and ``--start-frame`` are accepted by name but exit
+Port-specific: ``--device cuda|cpu`` (default ``cuda``).
+
+  --start-frame N   decode from payload N (the stream is random access)
+  --trace PATH      dump the host spans (parse, device_dispatch,
+                    device_fetch) as JSON and print a summary to stderr
+
+The decode runs svc_tpu's thread layout (svc_tpu/apps/decoder_app.py:
+220-241, the reference's apps/decoder.cpp:55-88): a reader thread streams
+payloads through a bounded queue (capacity 100) while the main thread
+decodes, staging each batch's coefficients one batch ahead and keeping one
+batch in flight. ``--devices`` and ``--show`` are accepted by name but exit
 with status 1.
 """
 
@@ -23,10 +32,12 @@ import numpy as np
 from svc_tpu_torch.config import DecoderConfig, validate_decoder_config
 from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.io.video import write_npy_video, write_y4m_video
+from svc_tpu_torch.runtime.pipeline import BoundedQueue, pipeline_threads
+from svc_tpu_torch.runtime.tracing import Tracer
 from svc_tpu_torch.utils import cli
 from svc_tpu_torch.apps import UNSUPPORTED
 
-_UNSUPPORTED_FLAGS = ("devices", "show", "trace", "start-frame")
+_UNSUPPORTED_FLAGS = ("devices", "show")
 
 
 class _AppConfig:
@@ -37,7 +48,9 @@ class _AppConfig:
         self.gaze: Optional[str] = None
         self.gaze_trajectory: Optional[str] = None
         self.batch_size = 8
+        self.start_frame = 0
         self.max_frames = 0  # 0 = all
+        self.trace: Optional[str] = None
         self.device = "cuda"
         self.unsupported: List[str] = []
 
@@ -58,7 +71,10 @@ def _opts(c: _AppConfig) -> List[cli.Opt]:
         cli.Opt("gaze", S, fs(c, "gaze")),
         cli.Opt("gaze-trajectory", P, fs(c, "gaze_trajectory")),
         cli.Opt("batch-size", U, fs(c, "batch_size")),
+        # random access: every block has the same wire size
+        cli.Opt("start-frame", U, fs(c, "start_frame")),
         cli.Opt("max-frames", U, fs(c, "max_frames")),
+        cli.Opt("trace", P, fs(c, "trace")),
         cli.Opt("device", S, fs(c, "device")),
     ]
     for name in _UNSUPPORTED_FLAGS:
@@ -153,20 +169,31 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"creating decoder: {e}", file=sys.stderr)
             return 1
 
-        count = header.frame_count
+        start = min(cfg.start_frame, header.frame_count)
+        count = header.frame_count - start
         if cfg.max_frames:
             count = min(count, cfg.max_frames)
         try:
-            gazes = _parse_gazes(cfg, header.frame_count)[:count]
+            gazes = _parse_gazes(cfg, header.frame_count)[start:start + count]
+            bitstream.seek_to_frame(stream, header, start)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
+
+        tracer = Tracer(enabled=bool(cfg.trace))
+        frames: List[np.ndarray] = []
+
+        # 2-stage pipeline: reader thread -> decode (main)
+        def produce(q: BoundedQueue) -> None:
+            for payload in bitstream.read_frames(stream, header, count):
+                q.push(payload)
+
+        def consume(q: BoundedQueue) -> None:
+            frames.extend(decoder.decode_frames(
+                iter(q), iter(gazes), tracer=tracer if cfg.trace else None))
+
         try:
-            frames = list(
-                decoder.decode_frames(
-                    bitstream.read_frames(stream, header, count), iter(gazes)
-                )
-            )
+            pipeline_threads(produce, consume, capacity=100)
         except ValueError as e:  # truncated stream
             print(str(e), file=sys.stderr)
             return 1
@@ -184,6 +211,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         write_npy_video(cfg.output, video)
     print(f"decoded {len(frames)} frames -> {cfg.output}", file=sys.stderr)
+    if cfg.trace:
+        tracer.dump(cfg.trace)
+        print(tracer.report(), file=sys.stderr)
     return 0
 
 

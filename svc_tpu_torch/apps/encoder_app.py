@@ -13,9 +13,23 @@ config, k-means kernel K5); 1 selects the reference-compat config.
 ``--start-frame N`` resumes at payload ``N`` (source frame ``N`` is the
 overlap frame) and ``--no-header 1`` leaves the header out, so a tail
 written with both, appended to the first ``N`` payloads of the full
-stream, gives the full stream byte for byte. ``--devices``,
-``--visualize``, ``--show``, ``--trace`` and ``--profile`` are accepted
-by name but exit with status 1.
+stream, gives the full stream byte for byte.
+
+The encode runs svc_tpu's thread layout (svc_tpu/apps/encoder_app.py:
+253-292, the reference's apps/encoder.cpp:223-228): a reader thread feeds
+frames through a bounded queue to the encoder on the main thread, whose
+staged, one-batch-in-flight stream goes to a writer — the native C++
+queue and thread when ``runtime.native`` is available, otherwise a Python
+writer thread. A reader failure fails the run (no short stream with status
+0); Ctrl-C exits with status 130.
+
+  --trace PATH      dump the host spans (device_dispatch, device_fetch,
+                    serialize) as JSON and print a summary to stderr
+  --profile DIR     torch.profiler Chrome trace of the run in DIR/trace.json
+  --visualize DIR   dump the seven-view composite of every payload frame
+  --show 1          show it live in a window (needs OpenCV)
+
+``--devices`` is accepted by name but exits with status 1.
 """
 
 from __future__ import annotations
@@ -25,12 +39,13 @@ from typing import List, Optional
 
 from svc_tpu_torch.config import EncoderConfig, VideoProperties, validate_encoder_config
 from svc_tpu_torch.io.video import VideoReader
+from svc_tpu_torch.runtime import native
+from svc_tpu_torch.runtime.pipeline import BoundedQueue, CancelToken, pipeline_threads
+from svc_tpu_torch.runtime.tracing import Tracer, device_profile
 from svc_tpu_torch.utils import cli
 from svc_tpu_torch.apps import UNSUPPORTED
 
-_UNSUPPORTED_FLAGS = (
-    "devices", "visualize", "show", "trace", "profile",
-)
+_UNSUPPORTED_FLAGS = ("devices",)
 
 
 class _AppConfig:
@@ -43,6 +58,10 @@ class _AppConfig:
         self.start_frame = 0
         self.max_frames = 0  # 0 = all
         self.no_header = 0
+        self.visualize: Optional[str] = None
+        self.show = 0
+        self.trace: Optional[str] = None
+        self.profile: Optional[str] = None
         self.device = "cuda"
         self.unsupported: List[str] = []
 
@@ -94,6 +113,11 @@ def _opts(c: _AppConfig) -> List[cli.Opt]:
         cli.Opt("start-frame", U, fs(c, "start_frame")),
         cli.Opt("max-frames", U, fs(c, "max_frames")),
         cli.Opt("no-header", I, fs(c, "no_header")),
+        cli.Opt("visualize", P, fs(c, "visualize")),
+        cli.Opt("show", I, fs(c, "show")),
+        # observability
+        cli.Opt("trace", P, fs(c, "trace")),
+        cli.Opt("profile", P, fs(c, "profile")),
         cli.Opt("device", S, fs(c, "device")),
     ]
     for name in _UNSUPPORTED_FLAGS:
@@ -145,13 +169,28 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"  Height: {props.frame_h}", file=sys.stderr)
             print(f"  Frame count: {props.frame_count}", file=sys.stderr)
         try:
+            # the visualizers are the only consumers of the padded planes
             encoder = Encoder(
                 cfg.encoder, props, batch_size=cfg.batch_size,
-                device=cfg.device,
+                device=cfg.device, keep_planes=bool(cfg.visualize or cfg.show),
             )
         except (NotImplementedError, RuntimeError, ValueError) as e:
             print(f"creating encoder: {e}", file=sys.stderr)
             return 1
+        device = encoder.device
+        if cfg.visualize:
+            from svc_tpu_torch.visualize import VisualizingEncoder
+
+            encoder = VisualizingEncoder(encoder, cfg.visualize)
+        if cfg.show:
+            from svc_tpu_torch.visualize import LiveEncoderView
+
+            try:
+                encoder = LiveEncoderView(encoder)
+            except ImportError:
+                print("--show requires OpenCV (cv2)", file=sys.stderr)
+                return 1
+        tracer = Tracer(enabled=bool(cfg.trace))
 
         # resume accounting: payload k encodes source frame k+1
         total_payloads = max(props.frame_count - 1, 0)
@@ -160,8 +199,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if cfg.max_frames:
             n_payloads = min(n_payloads, cfg.max_frames)
 
-        def frames():
-            it = iter(reader)
+        def frames_from(q: BoundedQueue):
+            it = iter(q)
             for _ in range(start):  # skip up to the overlap frame
                 next(it, None)
             for i, frame in enumerate(it):
@@ -170,21 +209,61 @@ def main(argv: Optional[List[str]] = None) -> int:
                 yield frame
 
         payloads = 0
-        out = open(cfg.output, "wb") if cfg.output else sys.stdout.buffer
-        try:
+
+        def encode_stream(q: BoundedQueue):
+            nonlocal payloads
             chunks = encoder.encode_video(
-                frames(),
+                frames_from(q),
                 emit_header=not cfg.no_header,
                 header_frame_count=n_payloads,
                 first_anchor_index=start,
+                tracer=tracer if cfg.trace else None,
             )
             for i, chunk in enumerate(chunks):
-                out.write(chunk)
                 if i or cfg.no_header:  # chunk 0 is the header, if any
                     payloads += 1
-        finally:
-            if cfg.output:
-                out.close()
+                yield chunk
+
+        cancel = CancelToken()
+
+        def produce(q: BoundedQueue) -> None:
+            for frame in reader:
+                cancel.check()
+                q.push(frame)
+
+        def consume(q: BoundedQueue) -> None:
+            if native.available():
+                with native.NativeWriter(cfg.output, capacity=10) as w:
+                    for chunk in encode_stream(q):
+                        w.push(chunk)
+                return
+            out = open(cfg.output, "wb") if cfg.output else sys.stdout.buffer
+
+            def write_all(wq: BoundedQueue) -> None:
+                for chunk in encode_stream(q):
+                    wq.push(chunk)
+
+            def drain(wq: BoundedQueue) -> None:
+                for chunk in wq:
+                    out.write(chunk)
+
+            try:
+                pipeline_threads(write_all, drain, capacity=10, cancel=cancel)
+            finally:
+                if cfg.output:
+                    out.close()
+
+        try:
+            # 3-stage pipeline: reader thread -> encode -> writer
+            with device_profile(cfg.profile, device):
+                pipeline_threads(produce, consume, capacity=10, cancel=cancel)
+        except KeyboardInterrupt:
+            cancel.cancel()
+            print("interrupted", file=sys.stderr)
+            return 130
+        except Exception as e:  # noqa: BLE001 — the CLI's boundary
+            print(f"encoding failed: {e!r}", file=sys.stderr)
+            return 1
     finally:
         reader.close()
 
@@ -201,6 +280,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"warning: wrote {payloads} payload frames but the header "
                   f"(already on the pipe) promises {n_payloads}",
                   file=sys.stderr)
+    if cfg.trace:
+        tracer.dump(cfg.trace)
+        print(tracer.report(), file=sys.stderr)
     return 0
 
 

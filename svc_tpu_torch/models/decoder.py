@@ -17,6 +17,12 @@ Routes, by geometry:
 On the CPU both routes run the kernels' plain PyTorch versions.
 
 Every route returns uint8 packed ``(T, H, W*C)`` rows.
+
+``decode_frames`` streams the way ``svc_tpu`` does: wire coefficients are
+staged one batch ahead on a worker thread (``stage_coeffs``: pinned
+buffer, copy stream, event), and one batch stays in flight, so batch ``i``
+is read back (pinned D2H on a second copy stream) only after batch
+``i + 1`` has been dispatched.
 """
 
 from __future__ import annotations
@@ -32,6 +38,14 @@ from svc_tpu_torch.utils.mathx import round_half_away_from_zero
 from svc_tpu_torch.ops.dct import idct_display, idct_resize_display
 from svc_tpu_torch.ops.quant import block_quant_steps
 from svc_tpu_torch.runtime.device import DeviceLike, resolve_device
+from svc_tpu_torch.runtime.staging import (
+    DoubleBufferedStager,
+    PinnedDownload,
+    PinnedUpload,
+    Staged,
+    to_device,
+)
+from svc_tpu_torch.runtime.tracing import span
 
 
 def gaze_rect_from_center(
@@ -78,6 +92,7 @@ class Decoder:
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.width_aligned = header.frame_w == header.padded_frame_w
+        self._upload = PinnedUpload(self.device)
 
     def padded_gaze_rect(
         self, gaze: Optional[Tuple[int, int]]
@@ -118,19 +133,36 @@ class Decoder:
             self.cfg.foreground_quant_step, self.cfg.background_quant_step,
         )
 
+    def stage_coeffs(self, coeffs) -> Staged:
+        """Ship host wire coefficients to the device for
+        :meth:`decode_batch`: a ``(T, nby, nbx, C*bh*bw)`` float32 array or
+        a sequence of T ``(nby, nbx, C*bh*bw)`` ones, stacked straight into
+        one of two reused pinned buffers and copied on the copy stream
+        (``cuda``). Safe to call from the stager's worker thread."""
+        h = self.header
+        nby = h.padded_frame_h // h.transform_block_h
+        nbx = h.padded_frame_w // h.transform_block_w
+        per_block = h.channel_count * h.transform_block_h * h.transform_block_w
+        return self._upload(coeffs, (len(coeffs), nby, nbx, per_block), torch.float32)
+
     def decode_batch(self, coeffs, block_types, gaze_rects) -> torch.Tensor:
         """Decode one batch to packed ``(T, H, W*C)`` uint8 rows.
 
         Args:
-          coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients.
+          coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients, as
+            an array, a tensor or staged by :meth:`stage_coeffs` (then the
+            current stream waits on the copy's event first).
           block_types: ``(T, nby, nbx)`` wire block types.
           gaze_rects: ``(T, 4)`` padded-space ``(x, y, w, h)`` rects.
         """
         h = self.header
         dev = self.device
-        c = torch.as_tensor(coeffs).to(dev, torch.float32)
-        bt = torch.as_tensor(np.asarray(block_types, np.int64)).to(dev)
-        rects = torch.as_tensor(np.asarray(gaze_rects, np.int64)).to(dev)
+        if isinstance(coeffs, Staged):
+            c = coeffs.take()
+        else:
+            c = torch.as_tensor(coeffs).to(dev, torch.float32)
+        bt = to_device(np.asarray(block_types, np.int64), dev)
+        rects = to_device(np.asarray(gaze_rects, np.int64), dev)
         steps = self._steps(bt, rects)
         ch, tbh, tbw = h.channel_count, h.transform_block_h, h.transform_block_w
         if self.width_aligned:
@@ -141,29 +173,91 @@ class Decoder:
         self,
         payloads: Iterator[bytes],
         gazes: Optional[Iterator[Optional[Tuple[int, int]]]] = None,
+        tracer=None,
+        stage_h2d: bool = True,
     ) -> Iterator[np.ndarray]:
-        """Decode wire payloads into ``(H, W, C)`` uint8 BGR frames, one
-        batch of up to ``batch_size`` payloads at a time."""
+        """Decode wire payloads into ``(H, W, C)`` uint8 BGR frames.
+
+        Batches are padded to the batch shape with copies of their last
+        payload; the surplus outputs are dropped. One batch is in flight:
+        batch ``i`` is read back only after batch ``i + 1`` has been
+        dispatched, and with ``stage_h2d`` each batch's coefficients are
+        staged on a worker thread while the previous batch computes
+        (svc_tpu/models/decoder.py:404-537). The bytes are the same either
+        way. ``tracer`` records the ``parse``, ``device_dispatch`` and
+        ``device_fetch`` spans.
+        """
         h = self.header
+        batch = self.batch_size
         buf_c: List[np.ndarray] = []
         buf_t: List[np.ndarray] = []
         buf_g: List[Tuple[int, int, int, int]] = []
+        download = PinnedDownload()
+        pending = None  # one batch in flight: fetch i while i+1 computes
 
-        def flush() -> Iterator[np.ndarray]:
-            out = self.decode_batch(np.stack(buf_c), np.stack(buf_t), buf_g)
-            frames = out.cpu().numpy().reshape(len(buf_c), h.frame_h, h.frame_w, -1)
+        def take_buffers():
+            while len(buf_c) < batch:
+                buf_c.append(buf_c[-1])
+                buf_t.append(buf_t[-1])
+                buf_g.append(buf_g[-1])
+            args = (list(buf_c), np.stack(buf_t), np.asarray(buf_g, np.int32))
             buf_c.clear()
             buf_t.clear()
             buf_g.clear()
-            yield from frames
+            return args
 
-        for payload in payloads:
-            types, coeffs = bitstream.deserialize_frame_blocks(payload, h)
-            gaze = next(gazes, None) if gazes is not None else None
-            buf_c.append(coeffs.reshape(coeffs.shape[0], coeffs.shape[1], -1))
-            buf_t.append(types)
-            buf_g.append(self.padded_gaze_rect(gaze))
-            if len(buf_c) == self.batch_size:
-                yield from flush()
-        if buf_c:
-            yield from flush()
+        def fetch(done) -> np.ndarray:
+            rows, n_valid = done
+            # copied out: the pinned buffer is refilled two batches on
+            packed = np.array(rows.wait()["rows"][:n_valid])
+            return packed.reshape(n_valid, h.frame_h, h.frame_w, -1)
+
+        def dispatch(coeffs, types, rects, n_valid: int):
+            nonlocal pending
+            with span(tracer, "device_dispatch", frames=n_valid):
+                rows = download.start({"rows": self.decode_batch(coeffs, types, rects)})
+            prev, pending = pending, (rows, n_valid)
+            if prev is not None:
+                with span(tracer, "device_fetch", frames=prev[1]):
+                    frames = fetch(prev)
+                yield from frames
+
+        stager = DoubleBufferedStager(self.stage_coeffs) if stage_h2d else None
+        staged_meta = None  # (types, rects, n_valid) of the staged batch
+
+        def run(n_valid: int):
+            nonlocal staged_meta
+            coeffs, types, rects = take_buffers()
+            if stager is None:
+                yield from dispatch(np.stack(coeffs), types, rects, n_valid)
+            elif staged_meta is not None:
+                staged = stager.collect()  # batch i-1's transfer
+                meta = staged_meta
+                stager.submit(coeffs)  # batch i streams H2D...
+                staged_meta = (types, rects, n_valid)
+                yield from dispatch(staged, *meta)  # ...while i-1 computes
+            else:
+                stager.submit(coeffs)
+                staged_meta = (types, rects, n_valid)
+
+        try:
+            for payload in payloads:
+                with span(tracer, "parse"):
+                    types, coeffs = bitstream.deserialize_frame_blocks(payload, h)
+                gaze = next(gazes, None) if gazes is not None else None
+                buf_c.append(coeffs.reshape(coeffs.shape[0], coeffs.shape[1], -1))
+                buf_t.append(types)
+                buf_g.append(self.padded_gaze_rect(gaze))
+                if len(buf_c) == batch:
+                    yield from run(batch)
+            if buf_c:
+                yield from run(len(buf_c))
+            if staged_meta is not None:
+                yield from dispatch(stager.collect(), *staged_meta)
+            if pending is not None:
+                with span(tracer, "device_fetch", frames=pending[1]):
+                    frames = fetch(pending)
+                yield from frames
+        finally:
+            if stager is not None:
+                stager.close()

@@ -17,6 +17,12 @@ default config clusters ``(mv.x, mv.y, x, y)`` with the ``global_farthest``
 repair (kernel K5 on CUDA); ``reference_compat=True`` clusters the
 reference's effective ``(0, mv.x, x, y)`` layout (quirk Q1) with cv::kmeans'
 split-the-biggest-cluster repair.
+
+Streaming (``stream_encode``) overlaps the stages the way ``svc_tpu`` does:
+each batch's frames are staged one batch ahead on a worker thread
+(``stage_frames``: pinned buffer, copy stream, event), and one batch stays
+in flight, so batch ``i`` is fetched (pinned D2H on a second copy stream)
+and serialized only after batch ``i + 1`` has been dispatched.
 """
 
 from __future__ import annotations
@@ -39,6 +45,13 @@ from svc_tpu_torch.ops.pad import pad_frame, padded_dims
 from svc_tpu_torch.ops.pyramid import build_pyramid
 from svc_tpu_torch.ops.ransac import estimate_global_motion_ransac, iter_count
 from svc_tpu_torch.runtime.device import DeviceLike, resolve_device
+from svc_tpu_torch.runtime.staging import (
+    DoubleBufferedStager,
+    PinnedDownload,
+    PinnedUpload,
+    Staged,
+)
+from svc_tpu_torch.runtime.tracing import span
 
 
 class Encoder:
@@ -49,6 +62,9 @@ class Encoder:
       vidprops: source video properties.
       batch_size: anchor frames encoded per batch.
       device: ``"cuda"`` (kernels) or ``"cpu"`` (plain PyTorch versions).
+      keep_planes: include the padded channel planes in the outputs
+        (``padded_planes``, the full ``(3, T+1, PH, PW)`` stack; frame 0 is
+        the overlap frame). Only the visualizer consumes them.
     """
 
     def __init__(
@@ -57,6 +73,7 @@ class Encoder:
         vidprops: VideoProperties,
         batch_size: int = 8,
         device: DeviceLike = "cuda",
+        keep_planes: bool = False,
     ):
         if iter_count(cfg.ransac) == 0:
             raise ValueError(
@@ -66,6 +83,8 @@ class Encoder:
         self.vidprops = vidprops
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        self.keep_planes = keep_planes
+        self._upload = PinnedUpload(self.device)
         self.padded_w, self.padded_h = padded_dims(
             vidprops.frame_w,
             vidprops.frame_h,
@@ -101,11 +120,34 @@ class Encoder:
         idx = torch.arange(start_index, start_index + count, device=self.device)
         return prng.fold_in(prng.key(self.cfg.seed, self.device), idx)
 
+    def stage_frames(self, packed) -> Staged:
+        """Ship host frames to the device for :meth:`encode_batch_staged`.
+
+        ``packed`` is ``(N, H, W*3)`` uint8 rows, or a sequence of N
+        ``(H, W, 3)`` frames; either is stacked straight into one of two
+        reused pinned buffers and copied on the copy stream (``cuda``).
+        Safe to call from the stager's worker thread.
+        """
+        first = packed if isinstance(packed, np.ndarray) else packed[0]
+        n = len(packed)
+        h = first.shape[1] if isinstance(packed, np.ndarray) else first.shape[0]
+        shape = (n, h, self.vidprops.frame_w * 3)
+        return self._upload(packed, shape, torch.uint8)
+
+    def encode_batch_staged(
+        self, staged: Staged, first_anchor_index: int
+    ) -> Dict[str, torch.Tensor]:
+        """Dispatch on frames shipped by :meth:`stage_frames`: the current
+        stream waits on the copy's event before the batch's first kernel."""
+        return self.encode_packed(staged.take(), first_anchor_index)
+
     def encode_batch(
         self, frames_bgr, first_anchor_index: int
     ) -> Dict[str, torch.Tensor]:
         """Encode ``(T+1, H, W, 3)`` uint8 BGR frames (numpy or tensor);
         anchor ``t`` of the batch has stream index ``first_anchor_index + t``.
+        The direct, synchronous path: the frames are copied as they are,
+        from pageable memory.
         """
         frames = torch.as_tensor(np.ascontiguousarray(frames_bgr))
         n, h, w, c = frames.shape
@@ -166,7 +208,7 @@ class Encoder:
             packed, 1, t, self.padded_h, self.padded_w,
             cfg.transform_block_h, cfg.transform_block_w, 3,
         )
-        return {
+        out = {
             "coeffs": coeffs,
             "block_types": btypes,
             "mv_field": mv,
@@ -176,67 +218,160 @@ class Encoder:
             "global_motion": gm,
             "ransac_rmse": rmse,
         }
+        if self.keep_planes:
+            out["padded_planes"] = pad_frame(
+                px.permute(3, 0, 1, 2), self.padded_w, self.padded_h
+            ).contiguous()
+        return out
 
     def encode_video(
         self,
         frames: Iterator[np.ndarray],
+        on_batch=None,
         emit_header: bool = True,
         header_frame_count: Optional[int] = None,
         first_anchor_index: int = 0,
+        tracer=None,
     ) -> Iterator[bytes]:
-        """Stream encode: the header, then one payload per anchor frame."""
+        """Stream encode: the header, then one payload per anchor frame
+        (see :func:`stream_encode`)."""
         return stream_encode(
             self,
             frames,
+            on_batch=on_batch,
             emit_header=emit_header,
             header_frame_count=header_frame_count,
             first_anchor_index=first_anchor_index,
+            tracer=tracer,
         )
 
 
 def stream_encode(
-    enc: Encoder,
+    enc,
     frames: Iterator[np.ndarray],
+    on_batch=None,
     emit_header: bool = True,
     header_frame_count: Optional[int] = None,
     first_anchor_index: int = 0,
+    tracer=None,
 ) -> Iterator[bytes]:
-    """Yield the header, then one wire payload per anchor frame.
+    """Yield the header, then one wire payload per anchor frame, through
+    any encoder exposing the batch protocol (``header()``, ``batch_size``,
+    ``cfg``, ``encode_batch``).
 
     Frames are consumed ``batch_size + 1`` at a time; the last frame of a
     batch is the overlap (tracked-only) frame of the next. The final partial
     batch is padded with copies of its last frame and the surplus payloads
-    are dropped. Synchronous: each batch is encoded, copied back and
-    serialized before the next starts.
+    are dropped.
+
+    The structure is ``svc_tpu``'s (svc_tpu/models/encoder.py:544-705):
+
+    * when the encoder exposes ``stage_frames`` and ``encode_batch_staged``,
+      each batch's frames are staged on a worker thread
+      (``DoubleBufferedStager``) while the previous batch computes;
+    * one batch is in flight: right after a batch is dispatched its outputs
+      start copying to pinned host memory on a copy stream, and they are
+      read and serialized only after the NEXT batch has been dispatched.
+
+    The port's dispatch returns only once most of the batch has run (the
+    glue syncs the host), so serialization overlaps the copies but not the
+    device work. Fetch and serialization stay on this thread all the same:
+    a serializer thread beside the dispatching one measured no faster on
+    an H100 host, contention slowing dispatch by about what it overlapped
+    (PERF.md).
+
+    ``on_batch(first_anchor_index, outputs, n_valid)`` is an observability
+    hook (the visualizer); ``tracer`` records the ``device_dispatch``,
+    ``device_fetch`` and ``serialize`` spans (``runtime.tracing.Tracer``).
+    ``emit_header=False`` plus ``first_anchor_index`` resume a partially
+    written stream: the caller feeds frames from one before the resume
+    point.
     """
     if emit_header:
         yield enc.header(header_frame_count).pack()
 
     cfg = enc.cfg
-    batch = enc.batch_size
-    anchor_index = first_anchor_index
-
-    def run(window_frames: List[np.ndarray], n_valid: int) -> Iterator[bytes]:
-        out = enc.encode_batch(np.stack(window_frames), anchor_index)
-        c = out["coeffs"].cpu().numpy()
-        t_, nby, nbx, _ = c.shape
-        coeffs = c.reshape(
-            t_, nby, nbx, -1, cfg.transform_block_h, cfg.transform_block_w
-        )
-        btypes = out["block_types"].cpu().numpy().astype(np.uint32)
-        for i in range(n_valid):
-            yield bitstream.serialize_frame_blocks(
-                coeffs[i], btypes[i], cfg.mv_block_w, cfg.mv_block_h
-            )
-
     window: List[np.ndarray] = []
-    for frame in frames:
-        window.append(np.asarray(frame, dtype=np.uint8))
-        if len(window) == batch + 1:
-            yield from run(window, batch)
-            anchor_index += batch
-            window = window[-1:]  # overlap frame
-    remainder = len(window) - 1
-    if remainder > 0:
-        pad = [window[-1]] * (batch - remainder)
-        yield from run(window + pad, remainder)
+    anchor_index = first_anchor_index
+    batch = enc.batch_size
+    download = PinnedDownload()
+    pending = None  # one batch in flight: fetch i while i+1 computes
+
+    def serialize(done):
+        out, fetch, first_index, n_valid = done
+        with span(tracer, "device_fetch", frames=n_valid):
+            host = fetch.wait()
+            c = host["coeffs"]
+            t_, nby, nbx, _ = c.shape
+            coeffs = c.reshape(
+                t_, nby, nbx, -1, cfg.transform_block_h, cfg.transform_block_w
+            )
+            btypes = host["block_types"].astype(np.uint32)
+        if on_batch is not None:
+            on_batch(first_index, out, n_valid)
+        for i in range(n_valid):
+            with span(tracer, "serialize"):
+                payload = bitstream.serialize_frame_blocks(
+                    coeffs[i], btypes[i], cfg.mv_block_w, cfg.mv_block_h
+                )
+            yield payload
+
+    use_staging = hasattr(enc, "stage_frames") and hasattr(enc, "encode_batch_staged")
+    stager = None
+    staged_meta = None  # (first_anchor_index, n_valid) of the staged batch
+
+    def dispatch(frames_or_staged, first_index: int, n_valid: int, staged: bool):
+        nonlocal pending
+        with span(tracer, "device_dispatch", frames=n_valid):
+            if staged:
+                out = enc.encode_batch_staged(frames_or_staged, first_index)
+            else:
+                out = enc.encode_batch(frames_or_staged, first_index)
+            fetch = download.start(
+                {"coeffs": out["coeffs"], "block_types": out["block_types"]}
+            )
+        prev, pending = pending, (out, fetch, first_index, n_valid)
+        if prev is not None:
+            yield from serialize(prev)
+
+    def run(window_frames: List[np.ndarray], n_valid: int):
+        nonlocal anchor_index, staged_meta
+        if stager is None:
+            fi = anchor_index
+            anchor_index += n_valid
+            yield from dispatch(np.stack(window_frames), fi, n_valid, staged=False)
+            return
+        if staged_meta is not None:
+            staged = stager.collect()  # batch i-1's transfer
+            fi, nv = staged_meta
+            stager.submit(window_frames)  # batch i streams H2D...
+            staged_meta = (anchor_index, n_valid)
+            anchor_index += n_valid
+            yield from dispatch(staged, fi, nv, staged=True)  # ...while i-1 computes
+        else:
+            stager.submit(window_frames)
+            staged_meta = (anchor_index, n_valid)
+            anchor_index += n_valid
+
+    try:
+        if use_staging:
+            stager = DoubleBufferedStager(enc.stage_frames)
+        for frame in frames:
+            window.append(np.asarray(frame, dtype=np.uint8))
+            if len(window) == batch + 1:
+                yield from run(window, batch)
+                window = window[-1:]  # overlap frame
+        remainder = len(window) - 1
+        if remainder > 0:
+            # pad to the batch shape; the surplus outputs are dropped
+            pad = [window[-1]] * (batch - remainder)
+            yield from run(window + pad, remainder)
+        if staged_meta is not None:
+            staged = stager.collect()
+            fi, nv = staged_meta
+            yield from dispatch(staged, fi, nv, staged=True)
+        if pending is not None:
+            yield from serialize(pending)
+    finally:
+        if stager is not None:
+            stager.close()

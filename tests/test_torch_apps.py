@@ -1,7 +1,14 @@
 """The port's CLIs, in-process through ``main(argv)`` with ``--device cpu``
-on a tiny .npy clip: same flags and outputs as the library, unsupported
-flags refused with status 1, and no silent CPU fallback for ``cuda``; the
-encoder runs the default config unless ``--reference-compat 1``."""
+on a tiny .npy clip: same flags and outputs as the library (through the
+native writer and the Python writer thread alike), ``--trace``,
+``--profile``, ``--visualize`` and the decoder's ``--start-frame``,
+unsupported flags refused with status 1, a failing reader failing the run,
+and no silent CPU fallback for ``cuda``; the encoder runs the default
+config unless ``--reference-compat 1``."""
+
+import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -13,6 +20,8 @@ from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.metrics import psnr
 from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
+from svc_tpu_torch.runtime import native
+from svc_tpu_torch.runtime.tracing import TRACE_FILE
 from svc_tpu_torch.tools.clips import make_clip
 
 ENC_FLAGS = [
@@ -76,16 +85,19 @@ def test_lossless_steps_round_trip(clip_path, stream_path, tmp_path):
     assert psnr(np.load(clip_path)[1:4], frames) > 40
 
 
-@pytest.mark.parametrize(
-    "flag", ["--devices", "--visualize", "--show", "--trace", "--profile"],
-)
-def test_encoder_refuses_unsupported_flags(flag, clip_path, capsys):
+@pytest.mark.parametrize("flag", ["--devices", "--show"])
+def test_encoder_refuses_unsupported_flags(flag, clip_path, capsys, monkeypatch):
+    # --show is gated on OpenCV, as in svc_tpu; cv2 is made unimportable so
+    # that no test opens a window
+    monkeypatch.setitem(sys.modules, "cv2", None)
     rc = encoder_app.main(["enc", *ENC_FLAGS, flag, "1", clip_path])
     assert rc == 1
-    assert "not yet supported by svc_tpu_torch" in capsys.readouterr().err
+    want = {"--show": "--show requires OpenCV (cv2)"}.get(
+        flag, "not yet supported by svc_tpu_torch")
+    assert want in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", ["--devices", "--show", "--trace", "--start-frame"])
+@pytest.mark.parametrize("flag", ["--devices", "--show"])
 def test_decoder_refuses_unsupported_flags(flag, stream_path, capsys):
     rc = decoder_app.main(["dec", "--device", "cpu", flag, "1",
                            "--input", stream_path])
@@ -201,3 +213,103 @@ def test_encoder_max_frames(clip_path, stream_path, tmp_path):
     assert header.frame_count == 2
     assert head[bitstream.HEADER_SIZE:] == full[
         bitstream.HEADER_SIZE:bitstream.frame_offset(header, 2)]
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_encoder_native_and_python_writers_agree(clip_path, stream_path, tmp_path,
+                                                 monkeypatch):
+    # the native C++ writer thread and the Python writer thread write the
+    # library's bytes
+    assert native.available()
+    py = str(tmp_path / "py.svc")
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert encoder_app.main(["enc", *ENC_FLAGS, "--output", py, clip_path]) == 0
+    assert _read(py) == _read(stream_path)
+
+
+class _FailingReader(encoder_app.VideoReader):
+    """Yields two frames, then fails like a corrupt file would."""
+
+    def __iter__(self):
+        for i, frame in enumerate(super().__iter__()):
+            if i == 2:
+                raise OSError("read error mid-clip")
+            yield frame
+
+
+@pytest.mark.parametrize("writer", ["native", "python"])
+def test_reader_failure_fails_the_app(writer, clip_path, tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(encoder_app, "VideoReader", _FailingReader)
+    if writer == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    out = str(tmp_path / "short.svc")
+    rc = encoder_app.main(["enc", *ENC_FLAGS, "--output", out, clip_path])
+    assert rc == 1
+    assert "read error mid-clip" in capsys.readouterr().err
+
+
+def test_encoder_trace_has_svc_tpu_stat_keys(clip_path, stream_path, tmp_path):
+    from svc_tpu.apps import encoder_app as ref_app
+
+    ours, ref = str(tmp_path / "t.json"), str(tmp_path / "j.json")
+    out = str(tmp_path / "t.svc")
+    assert encoder_app.main(["enc", *ENC_FLAGS, "--trace", ours, "--output", out,
+                             clip_path]) == 0
+    assert _read(out) == _read(stream_path)
+    flags = [f for f in ENC_FLAGS if f not in ("--device", "cpu")]
+    assert ref_app.main(["enc", *flags, "--trace", ref, "--output",
+                         str(tmp_path / "j.svc"), clip_path]) == 0
+    with open(ours) as f:
+        got = json.load(f)
+    with open(ref) as f:
+        want = json.load(f)
+    assert set(got) == set(want) == {"events", "stats"}
+    assert set(got["stats"]) == set(want["stats"]) == {
+        "device_dispatch", "device_fetch", "serialize"}
+    for name, stat in got["stats"].items():
+        assert set(stat) == set(want["stats"][name])
+        assert stat["count"] == want["stats"][name]["count"]
+
+
+def test_encoder_profile_writes_a_trace(clip_path, tmp_path):
+    prof = tmp_path / "prof"
+    assert encoder_app.main(["enc", *ENC_FLAGS, "--profile", str(prof), "--output",
+                             str(tmp_path / "p.svc"), clip_path]) == 0
+    with open(prof / TRACE_FILE) as f:
+        assert json.load(f)["traceEvents"]
+
+
+def test_encoder_visualize_dumps_each_payload(clip_path, stream_path, tmp_path):
+    views = tmp_path / "views"
+    out = str(tmp_path / "v.svc")
+    assert encoder_app.main(["enc", *ENC_FLAGS, "--visualize", str(views),
+                             "--output", out, clip_path]) == 0
+    names = sorted(os.listdir(views))
+    assert len(names) == 4 and names[0].startswith("frame_00000")
+    assert _read(out) == _read(stream_path)  # the planes change no byte
+
+
+def test_decoder_start_frame_is_the_tail(stream_path, tmp_path):
+    full, tail = str(tmp_path / "full.npy"), str(tmp_path / "tail.npy")
+    flags = ["dec", "--device", "cpu", "--gaze", "32,24", "--batch-size", "3",
+             "--input", stream_path]
+    assert decoder_app.main([*flags, "--output", full]) == 0
+    assert decoder_app.main([*flags, "--start-frame", "2", "--output", tail]) == 0
+    np.testing.assert_array_equal(np.load(tail), np.load(full)[2:])
+    assert np.load(tail).shape[0] == 2
+
+
+def test_decoder_trace(stream_path, tmp_path, capsys):
+    trace = str(tmp_path / "d.json")
+    assert decoder_app.main(["dec", "--device", "cpu", "--batch-size", "3",
+                             "--trace", trace, "--input", stream_path,
+                             "--output", str(tmp_path / "d.npy")]) == 0
+    with open(trace) as f:
+        stats = json.load(f)["stats"]
+    assert stats["parse"]["count"] == 4
+    assert stats["device_dispatch"]["count"] == stats["device_fetch"]["count"] == 2
+    assert "device_fetch" in capsys.readouterr().err

@@ -560,3 +560,92 @@ def test_default_config_on_card_matches_cpu(gen, w, h):
     assert build.launch_counts()[kernel] > 0
     d = np.abs(frames["cuda"].astype(np.int16) - frames["cpu"].astype(np.int16))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+def _direct_stream(enc, clip):
+    """Header, then direct per-batch encode + ``.cpu()`` + serialize: no
+    stager, nothing in flight, pageable copies both ways."""
+    out_payloads, i, n, t = [enc.header().pack()], 0, len(clip), enc.batch_size
+    tbh, tbw = enc.cfg.transform_block_h, enc.cfg.transform_block_w
+    while i + 1 < n:
+        n_valid = min(t, n - 1 - i)
+        window = clip[i:i + n_valid + 1]
+        if n_valid < t:
+            window = np.concatenate([window, np.repeat(window[-1:], t - n_valid, 0)])
+        out = enc.encode_batch(window, i)
+        c = out["coeffs"].cpu().numpy()
+        c = c.reshape(c.shape[0], c.shape[1], c.shape[2], -1, tbh, tbw)
+        btypes = out["block_types"].cpu().numpy().astype(np.uint32)
+        for k in range(n_valid):
+            out_payloads.append(bitstream.serialize_frame_blocks(
+                c[k], btypes[k], enc.cfg.mv_block_w, enc.cfg.mv_block_h))
+        i += n_valid
+    return out_payloads
+
+
+@pytest.mark.parametrize("n", [13, 15])  # 3 full batches + a remainder; 3 + 2 of 2
+def test_staged_stream_equals_direct_on_card(gen, n):
+    # four batches back to back through the pinned buffers and both copy
+    # streams: a missing event wait shows up as a byte difference
+    clip = make_clip(128, 96, n, seed=n)
+    enc = Encoder(EncoderConfig(), VideoProperties(128, 96, n), 4, device="cuda")
+    staged = list(enc.encode_video(iter(clip)))
+    assert staged == _direct_stream(enc, clip)
+
+
+def test_one_encoder_two_clips_back_to_back(gen):
+    # the pinned buffers are reused across clips and calls
+    a, b = make_clip(128, 96, 10, seed=1), make_clip(128, 96, 10, seed=2)
+    enc = Encoder(EncoderConfig(), VideoProperties(128, 96, 10), 4, device="cuda")
+    got = [list(enc.encode_video(iter(c))) for c in (a, b, a)]
+    fresh = Encoder(EncoderConfig(), VideoProperties(128, 96, 10), 4, device="cuda")
+    assert got[0] == got[2] == _direct_stream(fresh, a)
+    assert got[1] == _direct_stream(fresh, b) and got[1] != got[0]
+
+
+def test_staged_frames_wait_and_record_on_compute_stream(gen, monkeypatch):
+    clip = make_clip(128, 96, 5, seed=3)
+    enc = Encoder(EncoderConfig(), VideoProperties(128, 96, 5), 4, device="cuda")
+    recorded = []
+    original = torch.Tensor.record_stream
+
+    def spy(self, stream):
+        recorded.append((self.data_ptr(), stream))
+        return original(self, stream)
+
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy)
+    staged = enc.stage_frames(list(clip))
+    assert staged.event is not None and staged.tensor.is_cuda
+    compute = torch.cuda.current_stream()
+    packed = staged.take()
+    assert recorded == [(packed.data_ptr(), compute)]
+    out = enc.encode_packed(packed, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.cpu(), torch.as_tensor(clip).reshape(5, 96, 384))
+    ref = enc.encode_batch(clip, 0)
+    assert torch.equal(out["coeffs"], ref["coeffs"])
+
+
+@pytest.mark.parametrize("w,h", [(128, 96), (120, 64)])  # K1; K6
+def test_decode_staged_equals_unstaged_on_card(gen, w, h):
+    clip = make_clip(w, h, 12, seed=w)
+    stream = list(Encoder(EncoderConfig(), VideoProperties(w, h, 12), 4, device="cuda")
+                  .encode_video(iter(clip)))
+    header = bitstream.Header.unpack(stream[0])
+    dec = Decoder(DecoderConfig(), header, batch_size=3, device="cuda")
+    gaze = [(w // 2, h // 2)] * 11
+    staged = list(dec.decode_frames(iter(stream[1:]), iter(gaze)))
+    plain = list(dec.decode_frames(iter(stream[1:]), iter(gaze), stage_h2d=False))
+    assert len(staged) == 11
+    for a, b in zip(staged, plain):
+        np.testing.assert_array_equal(a, b)
+    # the frames handed out are not views of the reused pinned buffers:
+    # another decode through the same decoder leaves them as they were
+    snapshot = [f.copy() for f in staged]
+    list(dec.decode_frames(iter(stream[:0:-1]), iter(gaze)))
+    for a, b in zip(staged, snapshot):
+        np.testing.assert_array_equal(a, b)
+    cpu = Decoder(DecoderConfig(), header, batch_size=3, device="cpu")
+    want = np.stack(list(cpu.decode_frames(iter(stream[1:]), iter(gaze))))
+    d = np.abs(np.stack(staged).astype(np.int16) - want.astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3

@@ -26,7 +26,9 @@ def test_port_imports_no_jax():
         "svc_tpu_torch.models.decoder, svc_tpu_torch.apps.encoder_app, "
         "svc_tpu_torch.apps.decoder_app, svc_tpu_torch.tools.profile_slice, "
         "svc_tpu_torch.ops.motion, svc_tpu_torch.io.video, "
-        "svc_tpu_torch.metrics\n"
+        "svc_tpu_torch.metrics, svc_tpu_torch.runtime.pipeline, "
+        "svc_tpu_torch.runtime.tracing, svc_tpu_torch.runtime.staging, "
+        "svc_tpu_torch.visualize\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -85,6 +87,25 @@ def test_entry_points_refuse_cuda_without_card(monkeypatch):
     hdr = bitstream.Header(2, 64, 64, 0, 0, 8, 8, 3)
     with pytest.raises(RuntimeError):
         Decoder(DecoderConfig(), hdr, device="cuda")
+
+
+def test_staging_on_cuda_without_card_raises(monkeypatch):
+    # an encoder and a decoder built for cuda:0, whose card is then gone:
+    # staging raises instead of copying through pageable memory or the CPU
+    from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+    from svc_tpu_torch.io import bitstream
+    from svc_tpu_torch.models.decoder import Decoder
+    from svc_tpu_torch.models.encoder import Encoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    enc = Encoder(EncoderConfig(), VideoProperties(64, 48, 3), device="cuda:0")
+    dec = Decoder(DecoderConfig(), bitstream.Header(2, 64, 48, 0, 0, 8, 8, 3),
+                  device="cuda:0")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        enc.stage_frames([np.zeros((48, 64, 3), np.uint8)] * 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dec.stage_coeffs(np.zeros((2, 6, 8, 192), np.float32))
 
 
 @pytest.mark.parametrize(
