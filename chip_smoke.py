@@ -12,25 +12,24 @@ each:
    registers and static shared memory (ptxas), K5's dynamic shared memory
    and CTAs per SM, and K5's static shared memory held to what its
    wrapper plans with;
-3. kernel parity — each of the sixteen kernels against its plain PyTorch
-   version on the card at the shapes of its path (K3, K4, K5, K7, K8, K9
-   bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4; K1 and
-   K6 within 1 with under 1e-3 of the bytes differing), with the kernel's
-   time, its time through the wrapper, the plain version's, the one-call
-   PyTorch yardstick's where one exists, and the bound (bytes over 3.35
-   TB/s or operations over 67 T/s, float64 operations over 34 T/s,
-   whichever is larger). A kernel's time is that of CUDA graph replays,
-   so that no host time of the wrapper enters (the yardsticks too), except
-   for the general K1 and K2 and for K6, whose wrappers copy tables from
-   pageable host memory on every call and are timed through the wrapper.
-   K1, K2, K3, K4, K5 and K9 run on their new kernels (K1 / K2 8x8 x 3,
-   K3 square 4/8/16 blocks at r = 1, K4 levels 1-3 in one launch, K5 the
-   8-CTA cluster kernel, K9 2x2 blocks at r = 1), held bit for bit against
-   the general (K4: single-level) kernels on the same inputs and timed in
-   turns with them (K3 per level, K5 at 1080p, 1440p and 4K; K1 and K2
-   through the wrappers); K4 also at odd and tiny sizes and 2-5 levels,
-   K9 also with random, past-edge and T = 1 MVs; K5 also at 1080p with
-   D = 7; the general K1 and K2 also run once at 4x4 blocks;
+3. kernel parity — each of the seventeen kernels against its plain
+   PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
+   K8, K9 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
+   K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
+   kernel's time, its time through the wrapper, the plain version's, the
+   one-call PyTorch yardstick's where one exists, and the bound (bytes
+   over 3.35 TB/s or operations over 67 T/s, float64 operations over 34
+   T/s, whichever is larger). A kernel's time is that of CUDA graph
+   replays, so that no host time of the wrapper enters (the yardsticks
+   too). K1, K2, K3, K4, K5, K6 and K9 run on their new kernels (K1 / K2 /
+   K6 8x8 x 3, K3 square 4/8/16 blocks at r = 1, K4 levels 1-3 in one
+   launch, K5 the 8-CTA cluster kernel, K9 2x2 blocks at r = 1), held bit
+   for bit against the general (K4: single-level) kernels on the same
+   inputs and timed in turns with them (K3 per level, K5 at 1080p, 1440p
+   and 4K, K6 at 1366x768 and 1270x714); K4 also at odd and tiny sizes
+   and 2-5 levels, K9 also with random, past-edge and T = 1 MVs; K5 also
+   at 1080p with D = 7; the general K1, K2 and K6 also run once at 4x4
+   blocks;
 4. default config — a 17-frame 1080p clip through the staged,
    one-batch-in-flight ``stream_encode`` with ``EncoderConfig()`` on
    ``cuda``, read back through the port's ``io.bitstream`` and decoded by
@@ -45,12 +44,13 @@ each:
    app's frames equal the library decode and ``--start-frame 4`` gives
    their exact tail;
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
-   decoded on ``cuda`` (K6 must run, and K2 on 2-byte aligned rows), the
-   bytes held against the CPU port's decode of the same payloads;
+   decoded on ``cuda`` (the 8x8 x 3 K6 must run, and K2 on 2-byte aligned
+   rows), the bytes held against the CPU port's decode of the same
+   payloads;
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
-   phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K9) or
-   the single-level K4;
+   phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9)
+   or the single-level K4;
 7. 4x4 transform blocks — a 9-frame CIF clip, default config with 4x4
    transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones
    not; its 16x16 MV blocks run the specialised K3 and the cluster K5,
@@ -494,13 +494,12 @@ def phase_parity(dev):
         fail(f"K2 dct8x8_to_wire max |err| {err} > 2.5e-4")
     if not torch.equal(got, got_g):
         fail("K2 dct8x8_to_wire differs from the general kernel")
-    # in turns through the wrappers: the general wrapper copies its DCT
-    # matrices from pageable host memory on every call, which no CUDA graph
-    # can capture
-    gen_ms, new_w_ms, turns = in_turns(
+    gen_ms, ms, turns = in_turns(
         lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, general=True),
-        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
-    ms = graph_ms(lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920), graph_ms)
+    new_w_ms = cuda_ms(lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920))
+    gen_w_ms = cuda_ms(
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, general=True))
     plain_ms = cuda_ms(
         lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, 8, 8), iters=5
     )
@@ -516,7 +515,7 @@ def phase_parity(dev):
     line = record(results, "dct8x8_to_wire", dct.DCT_WIRE, err, ms, new_w_ms,
                   plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
     record(results, "dct_to_wire_general", dct.DCT_WIRE_GENERAL, err_g, gen_ms,
-           gen_ms, plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
+           gen_w_ms, plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
     got4 = dct.dct8x8_to_wire(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
     err4 = (got4 - dct.dct8x8_to_wire_plain(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
             ).abs().max().item()
@@ -524,8 +523,9 @@ def phase_parity(dev):
         fail(f"K2 general at 4x4 blocks: max |err| {err4} > 2.5e-4")
     print(f"parity K2 dct8x8_to_wire: max |err| {err:.3e} <= 2.5e-4, "
           f"bit-exact fraction {exact:.6f}, bit-equal to the general kernel; "
-          f"{ms:.4f} ms (through the wrappers in turns general, new, new, "
-          f"general: {', '.join(f'{x:.4f}' for x in turns)}) vs plain "
+          f"{ms:.4f} ms (general {gen_ms:.4f}; in turns general, new, new, "
+          f"general: {', '.join(f'{x:.4f}' for x in turns)}; through the "
+          f"wrappers {new_w_ms:.4f} / {gen_w_ms:.4f}) vs plain "
           f"{plain_ms:.4f} ms; {line}; general at 4x4 blocks (T=2, 1080p): "
           f"max |err| {err4:.3e}")
 
@@ -556,12 +556,12 @@ def phase_parity(dev):
                      f"{frac:.2e} of bytes differ, byte-equal to the general "
                      f"kernel")
         if nby == 136:
-            # in turns through the wrappers: the general one copies its
-            # tables from pageable host memory on every call
-            gen_ms, new_w_ms, turns = in_turns(
+            gen_ms, ms, turns = in_turns(
                 lambda: dct.idct_display(coeffs, steps, out_h, general=True),
-                lambda: dct.idct_display(coeffs, steps, out_h))
-            ms = graph_ms(lambda: dct.idct_display(coeffs, steps, out_h))
+                lambda: dct.idct_display(coeffs, steps, out_h), graph_ms)
+            new_w_ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, out_h))
+            gen_w_ms = cuda_ms(
+                lambda: dct.idct_display(coeffs, steps, out_h, general=True))
             plain_ms = cuda_ms(
                 lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8),
                 iters=5,
@@ -573,7 +573,7 @@ def phase_parity(dev):
     line = record(results, "idct_display", dct.IDCT_DISPLAY, worst, ms, new_w_ms,
                   plain_ms, nbytes, ops)
     record(results, "idct_display_general", dct.IDCT_DISPLAY_GENERAL, worst,
-           gen_ms, gen_ms, plain_ms, nbytes, ops)
+           gen_ms, gen_w_ms, plain_ms, nbytes, ops)
     coeffs = (torch.randn((2, 272, 480, 48), generator=g) * 90).to(dev)
     steps = torch.where(torch.rand((2, 272, 480), generator=g) < 0.5, 640.0,
                         1.0).to(dev)
@@ -584,9 +584,10 @@ def phase_parity(dev):
     if diff.max().item() > 1 or not frac4 < 1e-3:
         fail(f"K1 general at 4x4 blocks: max diff {diff.max().item()}, "
              f"{frac4:.2e} of bytes differ")
-    print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms (through "
-          f"the wrappers in turns general, new, new, general: "
-          f"{', '.join(f'{x:.4f}' for x in turns)}) vs plain {plain_ms:.4f} ms "
+    print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms (general "
+          f"{gen_ms:.4f}; in turns general, new, new, general: "
+          f"{', '.join(f'{x:.4f}' for x in turns)}; through the wrappers "
+          f"{new_w_ms:.4f} / {gen_w_ms:.4f}) vs plain {plain_ms:.4f} ms "
           f"(1088->1080 rows, T=8); {line}; general at 4x4 blocks (T=2, "
           f"1088->1080): max diff {diff.max().item()}, {frac4:.2e} of bytes "
           f"differ")
@@ -669,8 +670,10 @@ def phase_parity(dev):
           f"{'; '.join(lines)}; 1080p {line}")
 
     # K6: the general display route — 1366x768 (padded 1376x768, width
-    # excess 10), then a geometry with both excesses (1270x714, padded
-    # 1280x720)
+    # excess 10, identity rows), then a geometry with both excesses
+    # (1270x714, padded 1280x720), T = 8, on the specialised 8x8 x 3
+    # kernel and on the general one (byte-equal), timed in turns at each;
+    # then the general kernel once at 4x4 blocks with width excess
     worst, modes = 0.0, []
     for w, h in ((1366, 768), (1270, 714)):
         nby, nbx = -(-h // 16) * 2, -(-w // 16) * 2
@@ -679,32 +682,71 @@ def phase_parity(dev):
         gazed = torch.zeros((8, nby, nbx), dtype=torch.bool, device=dev)
         gazed[:, 40:48, 80:88] = True
         steps = quant.block_quant_steps(btypes, gazed, 1, 640)
+        before = (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches)
         got = dct.idct_resize_display(coeffs, steps, h, w)
+        got_g = dct.idct_resize_display(coeffs, steps, h, w, general=True)
+        if (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"K6 at {w}x{h} did not launch the 8x8 x 3 and the general "
+                 f"kernel once each")
+        if not torch.equal(got, got_g):
+            fail(f"K6 idct_resize_display differs from the general kernel at "
+                 f"{w}x{h}")
         ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, 8, 8)
-        diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
-        frac = (diff > 0).double().mean().item()
-        if diff.max().item() > 1 or not frac < 1e-3:
-            fail(f"K6 idct_resize_display: max diff {diff.max().item()}, "
-                 f"{frac:.2e} of bytes differ at {w}x{h}")
-        worst = max(worst, float(diff.max().item()))
-        k_ms = cuda_ms(lambda: dct.idct_resize_display(coeffs, steps, h, w))
+        gates = []
+        for kname, out in (("idct_resize_display", got),
+                           ("idct_resize_display_general", got_g)):
+            diff = (out.to(torch.int16) - ref.to(torch.int16)).abs()
+            frac = (diff > 0).double().mean().item()
+            if diff.max().item() > 1 or not frac < 1e-3:
+                fail(f"K6 {kname}: max diff {diff.max().item()}, {frac:.2e} of "
+                     f"bytes differ at {w}x{h}")
+            gates.append(f"max diff {diff.max().item()}, {frac:.2e} of bytes "
+                         f"differ")
+            worst = max(worst, float(diff.max().item()))
+        g_ms, n_ms, turns = in_turns(
+            lambda: dct.idct_resize_display(coeffs, steps, h, w, general=True),
+            lambda: dct.idct_resize_display(coeffs, steps, h, w), graph_ms)
+        w_ms = cuda_ms(lambda: dct.idct_resize_display(coeffs, steps, h, w))
+        gw_ms = cuda_ms(
+            lambda: dct.idct_resize_display(coeffs, steps, h, w, general=True))
         p_ms = cuda_ms(
             lambda: dct.idct_resize_display_plain(coeffs, steps, h, w, 3, 8, 8),
             iters=5,
         )
+        # dequantize (3 per coefficient), IDCT (2048 per block and
+        # channel), two lerps (3 each) per output byte
+        k_bytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
+        k_ops = 3 * coeffs.numel() + 2048 * coeffs.numel() // 64 + 6 * got.numel()
         if w == 1366:
-            ms, plain_ms = k_ms, p_ms
-            # dequantize, IDCT, two lerps (3 each) per output byte
-            nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
-            ops = 3 * coeffs.numel() + 2048 * coeffs.numel() // 64 + 6 * got.numel()
-        modes.append(f"{nbx * 8}x{nby * 8}->{w}x{h}: max diff "
-                     f"{diff.max().item()}, {frac:.2e} of bytes differ, "
-                     f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms")
-    line = record(results, "idct_resize_display", dct.IDCT_RESIZE, worst, ms, ms,
-                  plain_ms, nbytes, ops)
-    print(f"parity K6 idct_resize_display (T=8; through the wrapper, which "
-          f"copies its tables from pageable host memory on every call, so no "
-          f"CUDA graph captures it): {'; '.join(modes)}; 1366x768 {line}")
+            ms, gen_ms, wrap_ms, gen_w_ms, plain_ms = n_ms, g_ms, w_ms, gw_ms, p_ms
+            nbytes, ops = k_bytes, k_ops
+        modes.append(
+            f"{nbx * 8}x{nby * 8}->{w}x{h}: byte-equal to the general kernel, "
+            f"{gates[0]}; {n_ms:.4f} ms (general {g_ms:.4f}; in turns general, "
+            f"new, new, general: {', '.join(f'{x:.4f}' for x in turns)}; "
+            f"through the wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain "
+            f"{p_ms:.4f} ms, bound {bound(k_bytes, k_ops)[0]:.4f} ms")
+    line = record(results, "idct_resize_display", dct.IDCT_RESIZE, worst, ms,
+                  wrap_ms, plain_ms, nbytes, ops)
+    record(results, "idct_resize_display_general", dct.IDCT_RESIZE_GENERAL,
+           worst, gen_ms, gen_w_ms, plain_ms, nbytes, ops)
+    coeffs = (torch.randn((2, 192, 344, 48), generator=g) * 90).to(dev)
+    steps = torch.where(torch.rand((2, 192, 344), generator=g) < 0.5, 640.0,
+                        1.0).to(dev)
+    before = dct.IDCT_RESIZE_GENERAL.launches
+    got4 = dct.idct_resize_display(coeffs, steps, 768, 1366, 3, 4, 4)
+    if dct.IDCT_RESIZE_GENERAL.launches != before + 1:
+        fail("K6 at 4x4 blocks did not take the general kernel")
+    diff = (got4.to(torch.int16) - dct.idct_resize_display_plain(
+        coeffs, steps, 768, 1366, 3, 4, 4).to(torch.int16)).abs()
+    frac4 = (diff > 0).double().mean().item()
+    if diff.max().item() > 1 or not frac4 < 1e-3:
+        fail(f"K6 general at 4x4 blocks: max diff {diff.max().item()}, "
+             f"{frac4:.2e} of bytes differ")
+    print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; 1366x768 "
+          f"{line}; general at 4x4 blocks (T=2, 1376x768->1366x768): max diff "
+          f"{diff.max().item()}, {frac4:.2e} of bytes differ")
     return results
 
 
@@ -1162,12 +1204,22 @@ def main() -> int:
         f"{kern} at {name} {ctas_per_sm(regs, smem + kmeans.cluster_smem_bytes(n, 4), 512)}"
         f" CTAs per SM" for kern, (regs, smem) in k5.items() if kern.endswith("<4>")
         for name, n in (("1080p", 8160), ("4K", 32400)))
+    from svc_tpu_torch.ops import dct
+
+    # the specialised display kernels' dynamic shared memory and threads
+    display = {"idct8x8_display_kernel": (dct._K1_SMEM_BYTES, 192),
+               "idct8x8_resize_kernel": (dct._K6_SMEM_BYTES, 224)}
+    display_line = "; ".join(
+        f"{kern} {smem} B dynamic smem, {ctas_per_sm(regs, smem, threads)} CTAs "
+        f"of {threads} per SM" for _, kern, regs, _ in report if kern in display
+        for smem, threads in [display[kern]])
     print(f"build: {res.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {res.seconds:.2f} s, one process per source; 0 = already "
           f"built); ptxas: {ptxas_summary(report)}; K5 cluster kernel dynamic "
           f"smem per CTA {kmeans.cluster_smem_bytes(8160, 4)} B (1080p), "
           f"{kmeans.cluster_smem_bytes(32400, 4)} B (4K); "
-          f"{k5_line or 'K5 static smem not checked (already built)'}")
+          f"{k5_line or 'K5 static smem not checked (already built)'}; "
+          f"{display_line or 'display kernels not reported (already built)'}")
 
     # 3. kernel parity
     results = phase_parity(dev)
@@ -1188,12 +1240,15 @@ def main() -> int:
     # K4 and the general K9 run on none of phases 4-7 and 9
     general_k3_k5 = ("refine_sads_general", "lloyd_general",
                      "candidate_sads_general", "pyr_down_u8")
+    # 8x8 blocks of 3 channels take the specialised K6 on the width-excess
+    # path; the general K6 runs on none of phases 4-6
+    general_k6 = ("idct_resize_display_general",)
 
     # 4. the default config at 1080p: K1-K5, K9
     print("default config 1080p, 17 frames:")
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
                           encode_kernels + ("lloyd", "idct_display"),
-                          general_dct + general_k3_k5)
+                          general_dct + general_k3_k5 + general_k6)
     staged_against_direct(main_run, dev)
     with tempfile.TemporaryDirectory(prefix="svc_smoke_") as tmp:
         print(f"  CLIs on cuda: {cli_checks(main_run, tmp)}")
@@ -1203,7 +1258,8 @@ def main() -> int:
     print("width excess 1366x768 (padded 1376x768), 9 frames, default config:")
     wide = round_trip(EncoderConfig(), 1366, 768, 9,
                       encode_kernels + ("lloyd", "idct_resize_display"),
-                      general_dct + general_k3_k5 + ("idct_display",))
+                      general_dct + general_k3_k5 + general_k6
+                      + ("idct_display",))
     cpu_dec = Decoder(DecoderConfig(), wide["header"], batch_size=8, device="cpu")
     cpu_frames = np.stack(list(cpu_dec.decode_frames(
         iter(wide["payloads"]), iter([wide["gaze"]] * len(wide["payloads"])))))
@@ -1213,7 +1269,8 @@ def main() -> int:
     # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
     round_trip(EncoderConfig(reference_compat=True), 1920, 1080, 9,
-               encode_kernels + ("idct_display",), general_dct + general_k3_k5)
+               encode_kernels + ("idct_display",),
+               general_dct + general_k3_k5 + general_k6)
 
     # 7. 4x4 transform blocks (the config allows any block dividing the MV
     # block): the general K1 and K2, and not the specialised ones

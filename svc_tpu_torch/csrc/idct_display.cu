@@ -38,7 +38,7 @@
 //    one kernel serves the resample route and, with
 //    y0 = y1 = Y and f = 0, the identity route. Every index in the loops is
 //    a compile-time constant or a shift.
-#include "idct_tile.cuh"
+#include "idct8x8.cuh"
 
 namespace {
 
@@ -47,12 +47,7 @@ constexpr int kGroups = kStrip * 3;          // (block, channel) pairs
 constexpr int kThreads = kGroups * 8;        // one per column / row of a pair
 constexpr int kRowBytes = kStrip * 8 * 3;    // display bytes of a strip row
 constexpr int kChunks = kRowBytes / 16;      // 16-byte output runs per row
-// coefficient slot: element (k, l) of pair g at g * kCoefGroup + k *
-// kCoefPitch + l (column stage lanes along l, row stage 16-byte loads
-// along k: both conflict-free)
-constexpr int kCoefPitch = 12;
-constexpr int kCoefGroup = 104;
-constexpr int kSlot = kGroups * kCoefGroup;
+constexpr int kSlot = kGroups * kCoefGroup;  // coefficient slot (idct8x8.cuh)
 // pixel ring: source row y at row y & 15; interleaved byte position e of
 // a strip row at (e >> 4) * 20 + (e & 15), so 16-byte runs start 20 floats
 // apart and a quarter-warp's 16-byte loads hit distinct banks
@@ -64,42 +59,6 @@ constexpr int kSmemBytes =
     (2 * kSlot + kRingRows * kRingPitch + 2 * kStrip + 3 * kMaxBandRows) *
     static_cast<int>(sizeof(float));
 
-struct Dct8f {
-  float m[64];
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// Coefficients and steps of blocks [blk0, blk0 + nblk) (flat block index)
-// into a slot, as one cp.async group per thread.
-__device__ __forceinline__ void fetch_block_row(
-    const float* __restrict__ coeffs, const float* __restrict__ steps,
-    size_t blk0, int nblk, float* slot, float* slot_steps) {
-  const float* src = coeffs + blk0 * 192;
-  for (int ch = threadIdx.x; ch < nblk * 48; ch += kThreads) {
-    const int g = ch >> 4;          // 16 chunks of 4 floats per pair
-    const int k = (ch & 15) >> 1;   // 2 chunks per coefficient row
-    cp_async16(slot + g * kCoefGroup + k * kCoefPitch + (ch & 1) * 4,
-               src + ch * 4);
-  }
-  if (threadIdx.x < nblk) {
-    cp_async4(slot_steps + threadIdx.x, steps + blk0 + threadIdx.x);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 __device__ __forceinline__ uint32_t pack4(float4 v) {
   return static_cast<uint32_t>(display_byte(v.x)) |
          static_cast<uint32_t>(display_byte(v.y)) << 8 |
@@ -107,40 +66,17 @@ __device__ __forceinline__ uint32_t pack4(float4 v) {
          static_cast<uint32_t>(display_byte(v.w)) << 24;
 }
 
-// Columns of pair g: dequantize + inverse transform of column r, in place.
-__device__ __forceinline__ void column_stage(float* grp, float step,
-                                             const Dct8f& d, int r) {
-  float q[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float y = __fdiv_rn(grp[k * kCoefPitch + r], step);
-    const float mag = __fmul_rn(floorf(__fadd_rn(fabsf(y), 0.5f)), step);
-    q[k] = copysignf(mag, y);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc = fmaf(q[k], d.m[k * 8 + i], acc);
-    grp[i * kCoefPitch + r] = acc;
-  }
-}
-
 // Rows of pair g (block blk, channel c): row r into ring row `dst`,
 // interleaved.
-__device__ __forceinline__ void row_stage(const float* grp, float* dst,
-                                          const Dct8f& d, int r, int blk,
-                                          int c) {
-  const float4 lo = *reinterpret_cast<const float4*>(grp + r * kCoefPitch);
-  const float4 hi = *reinterpret_cast<const float4*>(grp + r * kCoefPitch + 4);
-  const float a[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+__device__ __forceinline__ void ring_row(const float* grp, float* dst,
+                                         const Dct8f& d, int r, int blk,
+                                         int c) {
+  float px[8];
+  row_stage(grp, d, r, px);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int l = 0; l < 8; ++l) acc = fmaf(a[l], d.m[l * 8 + j], acc);
     const int e = (blk * 8 + j) * 3 + c;
-    dst[(e >> 4) * 20 + (e & 15)] = acc;
+    dst[(e >> 4) * 20 + (e & 15)] = px[j];
   }
 }
 
@@ -182,19 +118,20 @@ idct8x8_display_kernel(const float* __restrict__ coeffs,
   const int blk = g / 3;
   const int c = g - 3 * blk;
 
-  fetch_block_row(coeffs, steps, blk_row0 + static_cast<size_t>(b_first) * nbx,
-                  nblk, smem, slot_steps);
+  fetch_block_row<kThreads>(
+      coeffs, steps, blk_row0 + static_cast<size_t>(b_first) * nbx, nblk,
+      smem, slot_steps);
   for (int i = threadIdx.x; i < yb1 - yb0; i += kThreads) {
     band_r0[i] = (y0[yb0 + i] & (kRingRows - 1)) * kRingPitch;
     band_r1[i] = (y1[yb0 + i] & (kRingRows - 1)) * kRingPitch;
     band_f[i] = fy[yb0 + i];
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait_all();
   __syncthreads();
   if (b_first < b_last) {
-    fetch_block_row(coeffs, steps,
-                    blk_row0 + static_cast<size_t>(b_first + 1) * nbx, nblk,
-                    smem + kSlot, slot_steps + kStrip);
+    fetch_block_row<kThreads>(
+        coeffs, steps, blk_row0 + static_cast<size_t>(b_first + 1) * nbx,
+        nblk, smem + kSlot, slot_steps + kStrip);
   }
   column_stage(smem + g * kCoefGroup, slot_steps[blk], d, r);
 
@@ -206,15 +143,15 @@ idct8x8_display_kernel(const float* __restrict__ coeffs,
     const int ya = max(yb0, row_lo[b]);
     const int yz = min(yb1, row_lo[b + 1]);
     __syncthreads();
-    row_stage(smem + s * kSlot + g * kCoefGroup,
-              ring + ((b * 8 + r) & (kRingRows - 1)) * kRingPitch, d, r, blk,
-              c);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    ring_row(smem + s * kSlot + g * kCoefGroup,
+             ring + ((b * 8 + r) & (kRingRows - 1)) * kRingPitch, d, r, blk,
+             c);
+    cp_async_wait_all();
     __syncthreads();
     if (b + 2 <= b_last) {
-      fetch_block_row(coeffs, steps,
-                      blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
-                      smem + s * kSlot, slot_steps + s * kStrip);
+      fetch_block_row<kThreads>(
+          coeffs, steps, blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
+          smem + s * kSlot, slot_steps + s * kStrip);
     }
     for (int task = threadIdx.x; task < (yz - ya) * kChunks;
          task += kThreads) {
@@ -274,8 +211,7 @@ SVC_EXPORT int svc_idct_display(const void* coeffs, const void* steps,
                                 void* out, int t_count, int out_h, int nby,
                                 int nbx, int band_rows, int n_bands,
                                 void* stream) {
-  Dct8f m;
-  for (int i = 0; i < 64; ++i) m.m[i] = static_cast<const float*>(d)[i];
+  const Dct8f m = dct8_from_host(d);
   if (band_rows < 1 || band_rows > kMaxBandRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,15 +17,19 @@ Three wrappers live here, each beside its plain PyTorch version:
 * K1 :func:`idct_display` — the decoder's dequantize + inverse DCT + row
   resample + round/clip + interleave, to packed ``(T, H, W*C)`` display
   bytes (the width-aligned routes);
-* K6 :func:`idct_resize_display` (``csrc/idct_resize.cu``) — the same with
-  both axes resampled (the general route: frame width excess).
+* K6 :func:`idct_resize_display` — the same with both axes resampled (the
+  general route: frame width excess).
 
-K2 and K1 each dispatch by shape to one of two kernels: 8x8 blocks of 3
-channels (the codec's default, every config the CLI runs) go to a kernel
-specialised for them (``csrc/dct_wire.cu``, ``csrc/idct_display.cu``);
-every other block shape or channel count goes to the general one
-(``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``). The two
-give the same bits.
+Each dispatches by shape to one of two kernels: 8x8 blocks of 3 channels
+(the codec's default, every config the CLI runs) go to a kernel
+specialised for them (``csrc/dct_wire.cu``, ``csrc/idct_display.cu``,
+``csrc/idct_resize.cu``); every other block shape or channel count goes to
+the general one (``csrc/dct_wire_general.cu``,
+``csrc/idct_display_general.cu``, ``csrc/idct_resize_general.cu``). The two
+give the same bits. No call copies from host memory once its geometry is
+cached: tables and DCT matrices are copied to the device once per (device,
+geometry) or travel by value, so every wrapper can be captured in a CUDA
+graph.
 
 The plain versions set ``allow_tf32 = False`` for matmuls and cuDNN: TF32
 keeps ~3 decimal digits, far outside the 2.5e-4 coefficient gate. The
@@ -75,8 +79,15 @@ IDCT_DISPLAY_GENERAL = Kernel(
 IDCT_RESIZE = Kernel(
     "idct_resize_display",
     "svc_idct_resize_display",
-    [PTR] * 13 + [INT] * 12 + [PTR],
+    [PTR] * 12 + [INT] * 7 + [PTR],
     source="svc_tpu_torch/csrc/idct_resize.cu",
+    replaces="svc_tpu/ops/resize_pallas.py:96",
+)
+IDCT_RESIZE_GENERAL = Kernel(
+    "idct_resize_display_general",
+    "svc_idct_resize_display_general",
+    [PTR] * 13 + [INT] * 12 + [PTR],
+    source="svc_tpu_torch/csrc/idct_resize_general.cu",
     replaces="svc_tpu/ops/resize_pallas.py:96",
 )
 
@@ -92,6 +103,16 @@ _K1_STRIP = 8
 _K1_SMEM_BYTES = (2 * 24 * 104 + 16 * 244 + 2 * 8 + 3 * 128) * 4
 _K1_CTAS_PER_SM = 6
 _K1_BAND_ROWS = (128, 64, 32, 16, 8)
+# K6's specialised kernel (csrc/idct_resize.cu): K1's band walk over strips
+# of 8 block columns plus one halo block column, a thread per byte of a
+# strip's run of at most 192 display-row bytes; 38,152 bytes of shared
+# memory (two coefficient slots of 27 x 104 floats, a 16-row pixel ring of
+# 220 floats a row, two step slots of 9, three tables of up to 128 output
+# rows), so 5 CTAs fit an SM
+_K6_STRIP = 8
+_K6_STRIP_BYTES = _K6_STRIP * 8 * 3
+_K6_SMEM_BYTES = (2 * 27 * 104 + 16 * 220 + 2 * 9 + 3 * 128) * 4
+_K6_CTAS_PER_SM = 5
 
 
 def _specialised(block_h: int, block_w: int, channels: int) -> bool:
@@ -111,6 +132,14 @@ def dct_matrix(n: int) -> np.ndarray:
 
 def _matrix(n: int, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(dct_matrix(n), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_on(dev, n: int) -> torch.Tensor:
+    """The float32 DCT matrix on ``dev`` for the general kernels, copied
+    once per device (a copy from pageable host memory on every call would
+    stall the stream and keep the wrapper out of a CUDA graph)."""
+    return _matrix(n, dev)
 
 
 def _no_tf32() -> None:
@@ -213,8 +242,8 @@ def dct8x8_to_wire(
                 t_count, frame_offset, h, w, nby, nbx, stream_handle(p),
             )
         else:
-            dh = _matrix(block_h, p.device)
-            dw = _matrix(block_w, p.device)
+            dh = _matrix_on(p.device, block_h)
+            dw = _matrix_on(p.device, block_w)
             DCT_WIRE_GENERAL.launch(
                 p.data_ptr(), dh.data_ptr(), dw.data_ptr(), out.data_ptr(),
                 t_count, frame_offset, h, w, channels, nby, nbx,
@@ -285,10 +314,22 @@ def _span_tables(out_n: int, in_n: int, block: int, tile: int):
     return i0, i1, frac, first, int((last - first).max()) + 1
 
 
+@functools.lru_cache(maxsize=16)
+def _span_tables_on(dev, out_n: int, in_n: int, block: int, tile: int):
+    """:func:`_span_tables` for the general display kernels on ``dev``:
+    ``(i0, i1, frac, first)`` as device tensors, copied once per geometry,
+    and the most source blocks a tile reads."""
+    i0, i1, frac, first, n_blk = _span_tables(out_n, in_n, block, tile)
+    return [_int32(i0, dev), _int32(i1, dev), _float32(frac, dev),
+            _int32(first, dev)], n_blk
+
+
 @functools.lru_cache(maxsize=64)
-def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int):
-    """The row geometry of K1's specialised kernel (host numpy), which walks
-    each band of output rows down its source block rows of 8.
+def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
+                 ctas_per_sm: int = _K1_CTAS_PER_SM):
+    """The row geometry of the specialised display kernels K1 and K6 (host
+    numpy), which walk each band of output rows down its source block rows
+    of 8, a strip of 8 block columns per CTA.
 
     Returns ``(y0, y1, fy, row_lo, band_b, band_rows)``: the bilinear
     ``(y0, y1, fy)`` per output row; ``row_lo[b]`` (``b`` in ``[0, nby]``)
@@ -298,7 +339,7 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int):
     transformed; ``band_b`` ``(n_bands, 2)`` each band's first block row
     (that of its first ``y0``) and last (that of its last row's last source
     row); ``band_rows`` the tallest of 128, 64, ..., 8 output rows that
-    still gives two waves of CTAs (``_K1_CTAS_PER_SM`` per SM) on
+    still gives two waves of CTAs (``ctas_per_sm`` per SM) on
     ``sm_count`` SMs, else 8.
     """
     y0, y1, fy, _ = bilinear_axis_weights(out_h, in_h)
@@ -306,7 +347,7 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int):
     row_lo = np.searchsorted(hi // 8, np.arange(in_h // 8 + 1)).astype(np.int32)
     strips = -(-nbx // _K1_STRIP)
     for band_rows in _K1_BAND_ROWS:
-        if t * strips * -(-out_h // band_rows) >= 2 * _K1_CTAS_PER_SM * sm_count:
+        if t * strips * -(-out_h // band_rows) >= 2 * ctas_per_sm * sm_count:
             break
     starts = np.arange(0, out_h, band_rows)
     ends = np.minimum(starts + band_rows, out_h) - 1
@@ -320,11 +361,13 @@ def _sm_count(dev) -> int:
 
 
 @functools.lru_cache(maxsize=16)
-def _band_tables_on(dev, out_h: int, in_h: int, nbx: int, t: int):
+def _band_tables_on(dev, out_h: int, in_h: int, nbx: int, t: int,
+                    ctas_per_sm: int = _K1_CTAS_PER_SM):
     """:func:`_band_tables` for ``dev``: ``(y0, y1, fy, row_lo, band_b)``
     as device tensors, copied once per geometry (a copy from pageable host
     memory on every call would stall the stream), and ``band_rows``."""
-    *tabs, band_rows = _band_tables(out_h, in_h, nbx, t, _sm_count(dev))
+    *tabs, band_rows = _band_tables(out_h, in_h, nbx, t, _sm_count(dev),
+                                    ctas_per_sm)
     conv = (_int32, _int32, _float32, _int32, _int32)
     return [f(a, dev) for f, a in zip(conv, tabs)], band_rows
 
@@ -397,7 +440,7 @@ def idct_display(
             )
         return out
     band_rows = 2 * block_h
-    y0, y1, fy, br0, nbr = _span_tables(out_h, nby * block_h, block_h, band_rows)
+    tabs, nbr = _span_tables_on(dev, out_h, nby * block_h, block_h, band_rows)
     nb = min(_MAX_STRIP_BLOCKS, _SMEM_BYTES // (2 * nbr * cn * 4))
     if nb < 1:
         raise ValueError(
@@ -406,14 +449,13 @@ def idct_display(
         )
     c = coeffs.contiguous()
     s = steps.contiguous()
-    dh = _matrix(block_h, dev)
-    dw = _matrix(block_w, dev)
+    dh = _matrix_on(dev, block_h)
+    dw = _matrix_on(dev, block_w)
     out = torch.empty(
         (t, out_h, nbx * block_w * channels), dtype=torch.uint8, device=dev
     )
     if out.numel() == 0:
         return out
-    tabs = [_int32(y0, dev), _int32(y1, dev), _float32(fy, dev), _int32(br0, dev)]
     with torch.cuda.device(dev):
         IDCT_DISPLAY_GENERAL.launch(
             c.data_ptr(), s.data_ptr(), dh.data_ptr(), dw.data_ptr(),
@@ -440,6 +482,37 @@ def idct_resize_display_plain(
     return display_bytes(resize_bilinear(planes, out_h, out_w))
 
 
+@functools.lru_cache(maxsize=64)
+def _strip_tables(out_w: int, in_w: int):
+    """The column geometry of K6's specialised kernel (host numpy), whose
+    CTAs each transform a strip of 8 block columns (64 source columns) plus
+    one halo block column, and emit the output columns whose ``x0`` lies in
+    the strip.
+
+    Returns ``(col_e, col_f, strip_lo)``: per byte ``3 * xo + c`` of a
+    display row, ``col_e`` the ring position of its ``x0`` within its strip
+    (``3 * (x0 - 64 * strip) + c``; its ``x1``, read only where the weight
+    is not zero, is ``x0 + 1``, 3 further on) and ``col_f`` its ``fx``;
+    ``strip_lo`` ``(n_strips + 1,)`` the first byte of each strip, so strip
+    ``s`` writes bytes ``[strip_lo[s], strip_lo[s + 1])`` of every row.
+    """
+    x0, _, fx, _ = bilinear_axis_weights(out_w, in_w)
+    span = 8 * _K6_STRIP
+    strip = x0 // span  # non-decreasing
+    lo = np.searchsorted(strip, np.arange(-(-in_w // span) + 1))
+    byte = np.arange(3 * out_w)
+    col_e = 3 * (x0[byte // 3] - span * strip[byte // 3]) + byte % 3
+    return (col_e.astype(np.int32), fx[byte // 3].astype(np.float32),
+            (3 * lo).astype(np.int32))
+
+
+@functools.lru_cache(maxsize=16)
+def _strip_tables_on(dev, out_w: int, in_w: int):
+    """:func:`_strip_tables` as device tensors, copied once per geometry."""
+    col_e, col_f, strip_lo = _strip_tables(out_w, in_w)
+    return [_int32(col_e, dev), _float32(col_f, dev), _int32(strip_lo, dev)]
+
+
 def idct_resize_display(
     coeffs: torch.Tensor,
     steps: torch.Tensor,
@@ -448,6 +521,8 @@ def idct_resize_display(
     channels: int = 3,
     block_h: int = 8,
     block_w: int = 8,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
     """Dequantize + inverse DCT + bilinear resize of both axes from the
     padded frame to ``(out_h, out_w)`` + display round/clip, as packed bytes
@@ -456,8 +531,13 @@ def idct_resize_display(
     Args:
       coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients.
       steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
-    Returns ``(T, out_h, out_w*C)`` uint8.
+    Returns ``(T, out_h, out_w*C)`` uint8. 8x8 blocks of 3 channels go to
+    the specialised kernel, unless the columns are upsampled (``out_w``
+    past the padded width, which the decoder never asks for); every other
+    shape goes to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_resize_display_plain(
@@ -467,12 +547,33 @@ def idct_resize_display(
         "idct_resize_display", coeffs, steps, channels, block_h, block_w
     )
     t, nby, nbx, cn = coeffs.shape
+    dev = coeffs.device
+    out = torch.empty((t, out_h, out_w * channels), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    if (_specialised(block_h, block_w, channels) and out_w <= nbx * 8
+            and not general):
+        c = coeffs.contiguous()
+        if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
+            c = c.clone()
+        s = steps.contiguous()
+        tabs, band_rows = _band_tables_on(dev, out_h, nby * 8, nbx, t,
+                                          _K6_CTAS_PER_SM)
+        n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
+        cols = _strip_tables_on(dev, out_w, nbx * 8)
+        d8 = dct_matrix(8)  # host matrix, passed by value
+        with torch.cuda.device(dev):
+            IDCT_RESIZE.launch(
+                c.data_ptr(), s.data_ptr(), d8.ctypes.data,
+                *[tab.data_ptr() for tab in tabs + cols], out.data_ptr(),
+                t, out_h, out_w, nby, nbx, band_rows, n_bands,
+                stream_handle(c),
+            )
+        return out
     band_rows = 2 * block_h
-    y0, y1, fy, br0, nbr = _span_tables(out_h, nby * block_h, block_h, band_rows)
+    rows, nbr = _span_tables_on(dev, out_h, nby * block_h, block_h, band_rows)
     for strip_cols in (64, 32, 16, 8):
-        x0, x1, fx, bc0, nbc = _span_tables(
-            out_w, nbx * block_w, block_w, strip_cols
-        )
+        nbc = _span_tables(out_w, nbx * block_w, block_w, strip_cols)[4]
         if 2 * nbr * nbc * cn * 4 <= _SMEM_BYTES:
             break
     else:
@@ -480,22 +581,15 @@ def idct_resize_display(
             "idct_resize_display: an output tile's source blocks exceed "
             "shared memory"
         )
-    dev = coeffs.device
+    cols, _ = _span_tables_on(dev, out_w, nbx * block_w, block_w, strip_cols)
     c = coeffs.contiguous()
     s = steps.contiguous()
-    dh = _matrix(block_h, dev)
-    dw = _matrix(block_w, dev)
-    out = torch.empty((t, out_h, out_w * channels), dtype=torch.uint8, device=dev)
-    if out.numel() == 0:
-        return out
-    tabs = [
-        _int32(y0, dev), _int32(y1, dev), _float32(fy, dev), _int32(br0, dev),
-        _int32(x0, dev), _int32(x1, dev), _float32(fx, dev), _int32(bc0, dev),
-    ]
+    dh = _matrix_on(dev, block_h)
+    dw = _matrix_on(dev, block_w)
     with torch.cuda.device(dev):
-        IDCT_RESIZE.launch(
+        IDCT_RESIZE_GENERAL.launch(
             c.data_ptr(), s.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-            *[tab.data_ptr() for tab in tabs], out.data_ptr(),
+            *[tab.data_ptr() for tab in rows + cols], out.data_ptr(),
             t, out_h, out_w, nby, nbx, channels, block_h, block_w, band_rows,
             nbr, strip_cols, nbc, stream_handle(c),
         )

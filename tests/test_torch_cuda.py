@@ -451,24 +451,76 @@ def test_lloyd_cluster_first_launch_past_48k_with_static(gen, n, d):
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 
-@pytest.mark.parametrize("w,h", [(120, 64), (200, 120), (854, 480), (1366, 768)])
-def test_idct_resize_display_matches_plain(gen, w, h):
+def _k6_inputs(gen, w, h, t=2, block=8):
     # the decoder's padded geometry: 16-pixel MV blocks
     pw, ph = -(-w // 16) * 16, -(-h // 16) * 16
-    nby, nbx = ph // 8, pw // 8
-    coeffs = (torch.randn((2, nby, nbx, 192), generator=gen) * 90).cuda()
+    nby, nbx = ph // block, pw // block
+    coeffs = (torch.randn((t, nby, nbx, 3 * block * block), generator=gen)
+              * 90).cuda()
     steps = torch.where(
-        torch.rand((2, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
+        torch.rand((t, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
     ).cuda()
-    before = dct.IDCT_RESIZE.launches
+    return coeffs, steps, pw
+
+
+@pytest.mark.parametrize("w,h", [(120, 64), (200, 120), (854, 480), (1366, 768)])
+def test_idct_resize_display_matches_plain(gen, w, h):
+    # the specialised kernel byte-equal to the general one, both within
+    # the display gate of the plain version
+    coeffs, steps, pw = _k6_inputs(gen, w, h)
+    before = (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches)
     got = dct.idct_resize_display(coeffs, steps, h, w)
-    assert dct.IDCT_RESIZE.launches == before + 1
+    got_g = dct.idct_resize_display(coeffs, steps, h, w, general=True)
+    assert (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, got_g)
     ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, 8, 8)
     assert got.shape == (2, h, w * 3)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
     assert d.max().item() <= 1
     assert (d > 0).double().mean().item() < 1e-3
     assert not bilinear_axis_weights(w, pw)[3]  # the columns were blended
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_idct_resize_display_in_a_cuda_graph(gen, general):
+    # the wrapper, captured in a CUDA graph and replayed, writes the bytes
+    # of a direct call: no call copies from host memory once its geometry
+    # is cached
+    coeffs, steps, _ = _k6_inputs(gen, 854, 480)
+    want = dct.idct_resize_display(coeffs, steps, 480, 854, general=general)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dct.idct_resize_display(coeffs, steps, 480, 854, general=general)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dct.idct_resize_display(coeffs, steps, 480, 854, general=general)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("block,channels", [(4, 3), (8, 1)])
+def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
+                                                                  channels):
+    pw, ph, w, h = 208, 128, 200, 120
+    nby, nbx = ph // block, pw // block
+    n = channels * block * block
+    coeffs = (torch.randn((2, nby, nbx, n), generator=gen) * 90).cuda()
+    steps = torch.where(torch.rand((2, nby, nbx), generator=gen) < 0.5,
+                        640.0, 1.0).cuda()
+    before = (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches)
+    got = dct.idct_resize_display(coeffs, steps, h, w, channels, block, block)
+    assert (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches) == (
+        before[0], before[1] + 1)
+    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, channels, block,
+                                        block)
+    d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+    assert d.max().item() <= 1
+    assert (d > 0).double().mean().item() < 1e-3
 
 
 def test_wrappers_reject_bad_inputs(gen):

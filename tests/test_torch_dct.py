@@ -119,13 +119,15 @@ def _decode_inputs(w, h, ew, eh, seed):
 
 # (w, h, excess w, excess h): row resample (the 1080p class), zero excess
 # (identity rows), multi-band resample, width excess (general route), both
-# excesses (general route, both axes blended)
+# excesses (general route, both axes blended), the 854x480 class (width
+# excess 10, identity rows) at a small height
 DECODE_GEOMETRIES = [
     (128, 120, 0, 8),
     (128, 128, 0, 0),
     (256, 248, 0, 8),
     (120, 64, 8, 0),
     (200, 120, 8, 8),
+    (854, 48, 10, 0),
 ]
 
 
@@ -153,16 +155,20 @@ def test_display_bytes_match_svc_tpu_decoder(w, h, ew, eh):
 
 
 def test_general_route_dispatches_to_k6(monkeypatch):
-    # on a non-CPU device the general route launches K6 (a meta device
-    # stands in for the card: shapes and dtypes flow, nothing computes)
+    # on a non-CPU device the general route launches K6, the kernel
+    # specialised for 8x8 blocks of 3 channels (a meta device stands in
+    # for the card: shapes and dtypes flow, nothing computes)
     from svc_tpu_torch.models import decoder as dec_mod
 
     launched = []
     monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
     monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
     monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(dct, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(dct.IDCT_RESIZE, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(dct.IDCT_RESIZE_GENERAL, "launch",
+                        lambda *a: pytest.fail("general K6"))
     monkeypatch.setattr(dct.IDCT_DISPLAY, "launch", lambda *a: pytest.fail("K1"))
     hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3)
     out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
@@ -171,8 +177,10 @@ def test_general_route_dispatches_to_k6(monkeypatch):
     assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)
     (args,) = launched
     assert len(args) == len(dct.IDCT_RESIZE.argtypes)
-    # t, out_h, out_w, nby, nbx, channels, bh, bw follow the 13 pointers
-    assert args[13:21] == (2, 120, 200, 16, 26, 3, 8, 8)
+    # t, out_h, out_w, nby, nbx, band_rows, n_bands follow the 12 pointers
+    t, out_h, out_w, nby, nbx, band_rows, n_bands = args[12:19]
+    assert (t, out_h, out_w, nby, nbx) == (2, 120, 200, 16, 26)
+    assert n_bands == -(-120 // band_rows)
 
 
 @pytest.mark.parametrize(

@@ -1,6 +1,7 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
-specialised kernels K1 / K2, every other shape to the general ones) and the
-band geometry of K1's specialised kernel, on the CPU.
+specialised kernels K1 / K2 / K6, every other shape to the general ones)
+and the band and strip geometry of K1's and K6's specialised kernels, on
+the CPU.
 
 A meta device stands in for the card in the dispatch tests: shapes and
 dtypes flow through the wrappers, the launch is replaced, nothing computes.
@@ -32,7 +33,8 @@ def meta_launches(monkeypatch):
     monkeypatch.setattr(dct, "_sm_count", lambda dev: SMS)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     for k in (dct.DCT_WIRE, dct.DCT_WIRE_GENERAL, dct.IDCT_DISPLAY,
-              dct.IDCT_DISPLAY_GENERAL):
+              dct.IDCT_DISPLAY_GENERAL, dct.IDCT_RESIZE,
+              dct.IDCT_RESIZE_GENERAL):
         monkeypatch.setattr(k, "launch",
                             lambda *a, _k=k: launched.append((_k.name, a)))
     return launched
@@ -83,6 +85,66 @@ def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
         assert n_bands == -(-1080 // band_rows)
     else:
         assert len(args) == len(dct.IDCT_DISPLAY_GENERAL.argtypes)
+
+
+@pytest.mark.parametrize(
+    "block,channels,out_w,general,kernel",
+    [(8, 3, 1366, False, "idct_resize_display"),
+     (8, 3, 1366, True, "idct_resize_display_general"),
+     (4, 3, 1366, False, "idct_resize_display_general"),
+     (8, 1, 1366, False, "idct_resize_display_general"),
+     (8, 3, 1400, False, "idct_resize_display_general")],  # columns upsampled
+)
+def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
+                                      general, kernel):
+    n = channels * block * block
+    coeffs = torch.zeros((2, 768 // block, 1376 // block, n), device="meta")
+    steps = torch.ones(coeffs.shape[:3], device="meta")
+    out = dct.idct_resize_display(coeffs, steps, 768, out_w, channels, block,
+                                  block, general=general)
+    assert out.dtype == torch.uint8
+    assert tuple(out.shape) == (2, 768, out_w * channels)
+    ((name, args),) = meta_launches
+    assert name == kernel
+    if kernel == "idct_resize_display":
+        assert len(args) == len(dct.IDCT_RESIZE.argtypes)
+        # the DCT matrix travels as a host pointer, read by value
+        assert args[2] == dct.dct_matrix(8).ctypes.data
+        # t, out_h, out_w, nby, nbx, band_rows, n_bands follow 12 pointers
+        t, out_h, w, nby, nbx, band_rows, n_bands = args[12:19]
+        assert (t, out_h, w, nby, nbx) == (2, 768, out_w, 96, 172)
+        assert n_bands == -(-768 // band_rows)
+    else:
+        assert len(args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
+        assert args[13:21] == (2, 768, out_w, 768 // block, 1376 // block,
+                               channels, block, block)
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_display_wrappers_copy_tables_once(meta_launches, monkeypatch, general):
+    # a second call of the same geometry makes no host-to-device copy: its
+    # tables and matrices come from the per-(device, geometry) cache, so the
+    # wrapper can be captured in a CUDA graph
+    coeffs = torch.zeros((2, 16, 26, 192), device="meta")
+    steps = torch.ones(coeffs.shape[:3], device="meta")
+    packed = torch.zeros((3, 120, 600), dtype=torch.uint8, device="meta")
+    calls = [
+        lambda: dct.idct_resize_display(coeffs, steps, 120, 200, general=general),
+        lambda: dct.idct_display(coeffs, steps, 120, general=general),
+        lambda: dct.dct8x8_to_wire(packed, 1, 2, 128, 208, general=general),
+    ]
+    for call in calls:
+        call()
+    copies = []
+    as_tensor, tensor = torch.as_tensor, torch.tensor
+    monkeypatch.setattr(torch, "as_tensor",
+                        lambda *a, **k: copies.append(a) or as_tensor(*a, **k))
+    monkeypatch.setattr(torch, "tensor",
+                        lambda *a, **k: copies.append(a) or tensor(*a, **k))
+    for call in calls:
+        call()
+    assert copies == []
+    assert len(meta_launches) == 2 * len(calls)
 
 
 def test_decoder_width_aligned_route_takes_specialised_k1(meta_launches,
@@ -163,8 +225,11 @@ def test_k1_grid_fills_the_card(out_h, in_h, pw):
 def test_k1_host_geometry_matches_the_kernel_source():
     # the strip width, tallest band, CTAs per SM and shared memory that the
     # wrapper plans with are those csrc/idct_display.cu is compiled with
+    # (its coefficient slot layout from the shared idct8x8.cuh)
     src = (build.CSRC_DIR / "idct_display.cu").read_text()
-    k = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    shared = (build.CSRC_DIR / "idct8x8.cuh").read_text()
+    k = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                          src + shared)}
     assert k["kStrip"] == dct._K1_STRIP
     assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
     (ctas,) = re.findall(r"__launch_bounds__\(kThreads, (\d+)\)", src)
@@ -198,4 +263,157 @@ def test_k1_band_walk_reproduces_plain_bytes(out_h, in_h, nbx, t):
             rows[:, :, yo] = v
     got = dct.display_bytes(rows)
     want = dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8)
+    assert torch.equal(got, want)
+
+
+# (display width, display height, padded width, padded height): 1366x768
+# and 854x480 (width excess, identity rows), 1270x714 (both axes
+# resampled), and two small frames
+K6_GEOMETRIES = [(1366, 768, 1376, 768), (854, 480, 864, 480),
+                 (1270, 714, 1280, 720), (120, 64, 128, 64), (200, 120, 208, 128)]
+K6_RING_WIDTH = 9 * 24  # floats of a ring row: 8 blocks and the halo
+
+
+def _k6_walk(out_w, out_h, pw, ph, t):
+    """Replay K6's walk: per (band, strip), the block rows it transforms
+    and, after each, the output rows and the bytes of its strip it emits,
+    with the ring rows held at that moment."""
+    *_, band_b, band_rows = dct._band_tables(out_h, ph, pw // 8, t, SMS,
+                                             dct._K6_CTAS_PER_SM)
+    row_lo = dct._band_tables(out_h, ph, pw // 8, t, SMS, dct._K6_CTAS_PER_SM)[3]
+    strip_lo = dct._strip_tables(out_w, pw)[2]
+    for band, (b_first, b_last) in enumerate(band_b):
+        yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
+        for s in range(len(strip_lo) - 1):
+            for b in range(b_first, b_last + 1):
+                ring = set(range(max(8 * b_first, 8 * (b - 1)), 8 * b + 8))
+                rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
+                yield band, s, b, rows, ring
+
+
+@pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES)
+def test_k6_walk_reads_inside_its_ring_and_window(out_w, out_h, pw, ph):
+    # every y0 / y1 an output row reads is in the ring when the row is
+    # emitted; every x0 / x1 an output byte reads lies in the strip's 9
+    # transformed block columns, at the ring position the tables give
+    y0, y1, fy, *_ = dct._band_tables(out_h, ph, pw // 8, 8, SMS,
+                                      dct._K6_CTAS_PER_SM)
+    x0, x1, fx, _ = dct.bilinear_axis_weights(out_w, pw)
+    col_e, col_f, strip_lo = dct._strip_tables(out_w, pw)
+    for _, _, _, rows, ring in _k6_walk(out_w, out_h, pw, ph, 8):
+        for yo in rows:
+            assert y0[yo] in ring
+            if fy[yo] != 0:
+                assert y1[yo] in ring
+    nbx = pw // 8
+    for s in range(len(strip_lo) - 1):
+        blocks = range(8 * s, min(nbx, 8 * s + 9))  # those the CTA transforms
+        for byte in range(strip_lo[s], strip_lo[s + 1]):
+            xo, c = divmod(byte, 3)
+            assert x0[xo] // 8 in blocks and x0[xo] // 64 == s
+            assert col_e[byte] == 3 * (x0[xo] - 64 * s) + c
+            assert col_f[byte] == fx[xo]
+            if fx[xo] != 0:
+                assert x1[xo] == x0[xo] + 1 and x1[xo] // 8 in blocks
+                assert col_e[byte] + 3 < K6_RING_WIDTH
+
+
+@pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES)
+def test_k6_every_output_byte_written_once(out_w, out_h, pw, ph):
+    # the strips split each display row into runs of at most 192 bytes, and
+    # the walk's emit loop (per block row: thread k < nbytes writes byte k
+    # of the strip's run in rows [ya, yz)) writes every byte of the frame
+    # exactly once
+    _, _, strip_lo = dct._strip_tables(out_w, pw)
+    assert strip_lo[0] == 0 and strip_lo[-1] == 3 * out_w
+    assert (np.diff(strip_lo) >= 0).all()
+    assert np.diff(strip_lo).max() <= dct._K6_STRIP_BYTES
+    assert len(strip_lo) - 1 == -(-(pw // 8) // dct._K6_STRIP)
+    row_bytes = 3 * out_w
+    written = np.zeros(out_h * row_bytes, np.int64)
+    for _, s, _, rows, _ in _k6_walk(out_w, out_h, pw, ph, 1):
+        k = np.arange(strip_lo[s], strip_lo[s + 1])
+        for yo in rows:
+            written[yo * row_bytes + k] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES)
+def test_k6_grid_fills_the_card(out_w, out_h, pw, ph):
+    # at T = 8: at least 2 CTAs per SM, and two waves at the CTAs per SM
+    # that the kernel's shared memory allows; one CTA's shared memory fits
+    # without the opt-in
+    *_, band_b, band_rows = dct._band_tables(out_h, ph, pw // 8, 8, SMS,
+                                             dct._K6_CTAS_PER_SM)
+    ctas = 8 * -(-(pw // 8) // dct._K6_STRIP) * len(band_b)
+    if out_w >= 854:
+        assert ctas >= 2 * SMS
+    assert dct._K6_SMEM_BYTES <= 48 * 1024
+    assert dct._K6_CTAS_PER_SM * (dct._K6_SMEM_BYTES + 1024) <= SM_SMEM_BYTES
+    assert (dct._K6_CTAS_PER_SM + 1) * (dct._K6_SMEM_BYTES + 1024) > SM_SMEM_BYTES
+    if band_rows != dct._K1_BAND_ROWS[-1]:
+        assert ctas >= 2 * dct._K6_CTAS_PER_SM * SMS
+
+
+def test_k6_host_geometry_matches_the_kernel_source():
+    # the strip width, tallest band, strip bytes, CTAs per SM and shared
+    # memory that the wrapper plans with are those csrc/idct_resize.cu is
+    # compiled with
+    src = (build.CSRC_DIR / "idct_resize.cu").read_text()
+    shared = (build.CSRC_DIR / "idct8x8.cuh").read_text()
+    k = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                          src + shared)}
+    assert k["kStrip"] == dct._K6_STRIP
+    assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
+    (threads, ctas) = re.findall(r"constexpr int kThreads = (\d+);.*?"
+                                 r"__launch_bounds__\(kThreads, (\d+)\)", src,
+                                 re.S)[0]
+    assert int(ctas) == dct._K6_CTAS_PER_SM
+    blocks = k["kStrip"] + 1
+    assert int(threads) >= blocks * 3 * 8
+    ring_pitch = blocks * 24 + 4
+    assert dct._K6_STRIP_BYTES == k["kStrip"] * 8 * 3
+    assert dct._K6_STRIP_BYTES <= int(threads)  # a thread per byte
+    assert dct._K6_SMEM_BYTES == 4 * (
+        2 * blocks * 3 * k["kCoefGroup"] + k["kRingRows"] * ring_pitch
+        + 2 * blocks + 3 * k["kMaxBandRows"])
+
+
+@pytest.mark.parametrize("out_w,out_h,pw,ph,t", [(120, 64, 128, 64, 2),
+                                                 (200, 120, 208, 128, 1),
+                                                 (854, 40, 864, 48, 1),
+                                                 (61, 37, 64, 40, 1)])
+def test_k6_walk_reproduces_plain_bytes(out_w, out_h, pw, ph, t):
+    # the kernel's walk, replayed on the plain version's planes through a
+    # 16-row ring of 9 blocks a strip, with the tables' ring positions and
+    # the kernel's per-element blends, gives the plain version's bytes
+    rng = np.random.default_rng(out_w + out_h)
+    nby, nbx = ph // 8, pw // 8
+    coeffs = torch.from_numpy(
+        (rng.normal(size=(t, nby, nbx, 192)) * 90).astype(np.float32))
+    steps = torch.from_numpy(
+        rng.choice([1.0, 640.0], size=(t, nby, nbx)).astype(np.float32))
+    planes = dct.idct_planes_plain(coeffs, steps, 3, 8, 8)
+    # interleaved pixels, 9 blocks past each strip's start (zero past nbx)
+    pix = torch.nn.functional.pad(planes.permute(0, 2, 3, 1), (0, 0, 0, 72))
+    y0, y1, fy, *_ = dct._band_tables(out_h, ph, nbx, t, SMS, dct._K6_CTAS_PER_SM)
+    col_e, col_f, strip_lo = dct._strip_tables(out_w, pw)
+    out = torch.full((t, out_h, 3 * out_w), float("nan"))
+    ring = torch.full((t, 16, K6_RING_WIDTH), float("nan"))
+    for _, s, b, rows, _ in _k6_walk(out_w, out_h, pw, ph, t):
+        ring[:, (8 * b) % 16:(8 * b) % 16 + 8] = pix[
+            :, 8 * b:8 * b + 8, 64 * s:64 * s + 72].reshape(t, 8, -1)
+        k = torch.arange(strip_lo[s], strip_lo[s + 1])
+        e = torch.from_numpy(col_e[k.numpy()]).long()
+        g = torch.from_numpy(col_f[k.numpy()])
+        for yo in rows:
+            top, bot, f = ring[:, y0[yo] % 16], ring[:, y1[yo] % 16], fy[yo]
+            v, w = top[:, e], top[:, (e + 3).clamp(max=K6_RING_WIDTH - 1)]
+            if f != 0:
+                f = torch.tensor(f)
+                v = v * (1 - f) + bot[:, e] * f
+                w = w * (1 - f) + bot[:, (e + 3).clamp(max=K6_RING_WIDTH - 1)] * f
+            out[:, yo, k] = torch.where(g != 0, v * (1 - g) + w * g, v)
+    got = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    want = dct.idct_resize_display_plain(coeffs, steps, out_h, out_w, 3, 8, 8)
     assert torch.equal(got, want)

@@ -139,6 +139,7 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "pyr_down_pitched", "refine_sads_pitched", "dct_to_wire_general",
         "idct_display_general", "refine_sads_general", "lloyd_general",
         "candidate_sads_general", "pyr_down_levels",
+        "idct_resize_display_general",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -154,7 +155,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "pyr_down.cuh", "planes.cuh", "dct_wire_general.cu",
             "idct_display_general.cu", "refine_sads_general.cu",
             "lloyd_general.cu", "lloyd.cuh", "candidate_sads_general.cu",
-            "pyr_down_levels.cu"} <= srcs
+            "pyr_down_levels.cu", "idct_resize_general.cu",
+            "idct8x8.cuh"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
