@@ -12,7 +12,7 @@ each:
    registers and static shared memory (ptxas), K5's dynamic shared memory
    and CTAs per SM, and K5's static shared memory held to what its
    wrapper plans with;
-3. kernel parity — each of the seventeen kernels against its plain
+3. kernel parity — each of the nineteen kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -21,13 +21,17 @@ each:
    over 3.35 TB/s or operations over 67 T/s, float64 operations over 34
    T/s, whichever is larger). A kernel's time is that of CUDA graph
    replays, so that no host time of the wrapper enters (the yardsticks
-   too). K1, K2, K3, K4, K5, K6 and K9 run on their new kernels (K1 / K2 /
-   K6 8x8 x 3, K3 square 4/8/16 blocks at r = 1, K4 levels 1-3 in one
-   launch, K5 the 8-CTA cluster kernel, K9 2x2 blocks at r = 1), held bit
-   for bit against the general (K4: single-level) kernels on the same
-   inputs and timed in turns with them (K3 per level, K5 at 1080p, 1440p
-   and 4K, K6 at 1366x768 and 1270x714); K4 also at odd and tiny sizes
-   and 2-5 levels, K9 also with random, past-edge and T = 1 MVs; K5 also
+   too). K1, K2, K3, K4, K5, K6, K8 and K9 run on their new kernels (K1 /
+   K2 / K6 8x8 x 3, K3 square 4/8/16 blocks at r = 1, K4 and the K8
+   pyramid levels 1-3 in one launch, K5 the 8-CTA cluster kernel, the K8
+   refine 8 subplanes with 16x16 blocks at r = 1, K9 2x2 blocks at
+   r = 1), held bit for bit against the general (K4: single-level; K8
+   pyramid: the general pitched level, then the single-level K4) kernels
+   on the same inputs and timed in turns with them (K3 per level, K5 at
+   1080p, 1440p and 4K, K6 at 1366x768 and 1270x714); K4 also at odd and
+   tiny sizes and 2-5 levels, the K8 pyramid at odd subplane widths and
+   a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
+   refine with MVs past its staged band and past the frame edges; K5 also
    at 1080p with D = 7; the general K1, K2 and K6 also run once at 4x4
    blocks;
 4. default config — a 17-frame 1080p clip through the staged,
@@ -62,10 +66,12 @@ each:
    must run, the single-level K4 and the general K9 not), held against
    ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
-    subplanes through ``pyr_down_pitched`` and ``hbma_stack(...,
-    base_pitched=...)`` (both K8 kernels must run, the single-level K4 on
-    levels 2-3 and the specialised K3 on levels 2-1), held against the
-    spatial pyramid and ``hbma_stack``;
+    subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
+    launch) and ``hbma_stack(..., base_pitched=...)`` (the fused K8
+    pyramid, the specialised K8 refine on level 0 and the specialised K3
+    on levels 2-1 must run; no general K3 or K8 kernel and no
+    single-level K4), held against the spatial pyramid and
+    ``hbma_stack``;
 11. timings — 1080p encode and decode frames per second, per-frame HBMA;
     then the synchronous-direct and the staged path in turns (S, T, T, S,
     S, T) for encode and decode at batch 8 over 24 payloads, each run with
@@ -447,35 +453,130 @@ def phase_parity(dev):
           f"{line}; general kernel at T=8, r=4, 16x16, 1088x1920: "
           f"{'; '.join(wide)}; refine_sads_static (mv_bound 12) bit-equal")
 
-    # K8: the 9-frame 1088x1920 stack as tbw=8 column-pitched subplanes;
-    # pyrDown to level 1 and the level-0 refine (r = 1, even MVs within 14)
+    # K8 pyramid: levels 1-3 of the 9-frame 1088x1920 stack as tbw=8
+    # column-pitched subplanes in one fused launch, bit-equal to the fused
+    # spatial K4's levels, to the general chain (the general K8 level, then
+    # the single-level K4 twice) and to the chained plain versions, timed in
+    # turns against that chain; then at subplane widths that are not a
+    # multiple of 16 (172, odd 67, and 250 at tbw=4) and at a small frame;
+    # yardstick: K4's, the reflect-padded float32 convolution per level
     y8 = pyramid.to_pitched(y, 8)
-    got = pyramid.pyr_down_pitched(y8)
-    if not (torch.equal(got, pyramid.pyr_down_pitched_plain(y8))
-            and torch.equal(got, levels[1])):
-        fail("K8 pyr_down_pitched differs from its plain version or K4")
-    ms, w_ms = timed(lambda: pyramid.pyr_down_pitched(y8))
-    plain_ms = cuda_ms(lambda: pyramid.pyr_down_pitched_plain(y8), iters=5)
-    line = record(results, "pyr_down_pitched", pyramid.PYR_DOWN_PITCHED, 0, ms,
-                  w_ms, plain_ms, y8.numel() + got.numel(), 30 * got.numel(),
-                  conv_l0_ms)
-    print(f"parity K8 pyr_down_pitched: bit-equal to its plain version and "
-          f"to K4 on the spatial stack; {ms:.4f} ms vs plain {plain_ms:.4f} "
-          f"ms (T+1=9, tbw=8); {line}")
+
+    def k8_pyr_counts():
+        return (pyramid.PYR_DOWN_PITCHED_LEVELS.launches,
+                pyramid.PYR_DOWN_PITCHED_GENERAL.launches, pyramid.PYR_DOWN.launches)
+
+    before = k8_pyr_counts()
+    got = pyramid.pyr_down_pitched_levels(y8, 3)
+    if k8_pyr_counts() != (before[0] + 1, before[1], before[2]):
+        fail("K8 pyr_down_pitched_levels did not compute levels 1-3 in one launch")
+    chain_g = pyramid.pyr_down_pitched_levels(y8, 3, general=True)
+    for lvl in range(1, 4):
+        if not torch.equal(got[lvl - 1], chain[lvl]):
+            fail(f"K8 pyr_down_pitched_levels differs from chained pyr_down_plain "
+                 f"at level {lvl}")
+        if not (torch.equal(got[lvl - 1], fused[lvl - 1])
+                and torch.equal(got[lvl - 1], chain_g[lvl - 1])):
+            fail(f"K8 pyr_down_pitched_levels differs from the fused K4 or the "
+                 f"general chain at level {lvl}")
+    if not torch.equal(got[0], pyramid.pyr_down_pitched_plain(y8)):
+        fail("K8 pyr_down_pitched_levels differs from pyr_down_pitched_plain")
+    g_ms, n_ms, turns = in_turns(
+        lambda: pyramid.pyr_down_pitched_levels(y8, 3, general=True),
+        lambda: pyramid.pyr_down_pitched_levels(y8, 3), graph_ms)
+    w_ms = cuda_ms(lambda: pyramid.pyr_down_pitched_levels(y8, 3))
+    gw_ms = cuda_ms(lambda: pyramid.pyr_down_pitched_levels(y8, 3, general=True))
+    g1_ms, g1_w = timed(lambda: pyramid.pyr_down_pitched(y8, general=True))
+    plain_ms = cuda_ms(lambda: [pyramid.pyr_down_pitched_plain(y8)]
+                       + [pyramid.pyr_down_plain(chain[i]) for i in (1, 2)], iters=5)
+    g1_plain = cuda_ms(lambda: pyramid.pyr_down_pitched_plain(y8), iters=5)
+    # bytes: the fused kernel reads the subplanes once and writes levels 1-3;
+    # the chain reads levels 1 and 2 back
+    pyr_bytes = y8.numel() + sum(o.numel() for o in got)
+    chain_bytes = pyr_bytes + got[0].numel() + got[1].numel()
+    pyr_ops = 30 * sum(o.numel() for o in got)
+    line = record(results, "pyr_down_pitched_levels", pyramid.PYR_DOWN_PITCHED_LEVELS,
+                  0, n_ms, w_ms, plain_ms, pyr_bytes, pyr_ops, lib_ms)
+    record(results, "pyr_down_pitched_general", pyramid.PYR_DOWN_PITCHED_GENERAL, 0,
+           g1_ms, g1_w, g1_plain, y8.numel() + got[0].numel(), 30 * got[0].numel(),
+           conv_l0_ms)
+    checks = []
+    for tbw, shape in ((8, (2, 64, 1376)), (8, (2, 40, 536)), (4, (3, 48, 1000)),
+                       (8, (1, 8, 16))):
+        x = y[: shape[0], : shape[1], : shape[2]].contiguous()
+        before = k8_pyr_counts()
+        lv = pyramid.pyr_down_pitched_levels(pyramid.to_pitched(x, tbw), 3)
+        if k8_pyr_counts() != (before[0] + 1, before[1], before[2]):
+            fail(f"K8 pyr_down_pitched_levels at {shape}, tbw={tbw} did not launch "
+                 f"the fused kernel once")
+        ref = pyramid.pyr_down_levels(x, 3)
+        if not all(torch.equal(a, b) for a, b in zip(lv, ref)):
+            fail(f"K8 pyr_down_pitched_levels differs from the fused K4 at {shape}, "
+                 f"tbw={tbw}")
+        checks.append(f"{'x'.join(map(str, shape))}/tbw {tbw} (nbx {shape[2] // tbw})")
+    print(f"parity K8 pyr_down_pitched_levels: levels 1-3 of 9x1088x1920 as tbw=8 "
+          f"subplanes bit-equal to the fused K4, to the general chain and to "
+          f"chained pyr_down_plain; fused {n_ms:.4f} ms in one launch vs the "
+          f"general chain {g_ms:.4f} ms in three (in turns chain, fused, fused, "
+          f"chain: {', '.join(f'{v:.4f}' for v in turns)}; through the wrappers "
+          f"{w_ms:.4f} / {gw_ms:.4f}; the general K8 level alone {g1_ms:.4f} ms, "
+          f"through its wrapper {g1_w:.4f}) vs plain {plain_ms:.4f} ms; bound "
+          f"fused {bound(pyr_bytes, pyr_ops)[0]:.4f} ms (level 0 read once), "
+          f"general chain {bound(chain_bytes, pyr_ops)[0]:.4f} ms; {line}; also "
+          f"bit-equal to the fused K4 at {', '.join(checks)}")
+
+    # K8 refine: level 0 (16x16 blocks, r = 1) on the specialised kernel
+    # and on the general one, at the path's MVs (even, within 14), at MVs
+    # within +-40 (blocks leave the staged band and read global memory) and
+    # at odd MVs within +-17 (past every frame edge, some past the band);
+    # each bit-equal to the plain version and to K3 on the spatial stack;
+    # timed in turns at the path's MVs
+    k8_cases = {
+        "path MVs": level_mvs[0],
+        "MVs within +-40": torch.randint(-40, 41, (8, 68, 120, 2), generator=g,
+                                         dtype=torch.int32).to(dev),
+        "odd MVs within +-17": (2 * torch.randint(-9, 9, (8, 68, 120, 2), generator=g,
+                                                  dtype=torch.int32) + 1).to(dev),
+    }
+    in_band = []
+    for name, mv in k8_cases.items():
+        before = (motion.REFINE_SADS_PITCHED.launches,
+                  motion.REFINE_SADS_PITCHED_GENERAL.launches)
+        got = motion.refine_sads_pitched(y8, mv, 1, 16, 16)
+        got_g = motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=True)
+        if (motion.REFINE_SADS_PITCHED.launches,
+                motion.REFINE_SADS_PITCHED_GENERAL.launches) != (before[0] + 1,
+                                                                 before[1] + 1):
+            fail(f"K8 refine ({name}) did not take the specialised and the "
+                 f"general kernel once each")
+        if not torch.equal(got, got_g):
+            fail(f"K8 refine_sads_pitched differs from the general kernel ({name})")
+        if not torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16)):
+            fail(f"K8 refine_sads_pitched differs from its plain version ({name})")
+        if not torch.equal(got, motion.refine_sads(y, mv, 1, 16, 16)):
+            fail(f"K8 refine_sads_pitched differs from K3 on the spatial stack ({name})")
+        share = (mv.abs() <= 15).all(dim=-1).double().mean().item()
+        in_band.append(f"{name} ({share:.1%} of blocks in the band)")
     mv = level_mvs[0]
-    got = motion.refine_sads_pitched(y8, mv, 1, 16, 16)
-    if not (torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16))
-            and torch.equal(got, motion.refine_sads(y, mv, 1, 16, 16))):
-        fail("K8 refine_sads_pitched differs from its plain version or K3")
-    ms, w_ms = timed(lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16))
+    g_ms, ms, turns = in_turns(
+        lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=True),
+        lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16), graph_ms)
+    w_ms = cuda_ms(lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16))
+    gw_ms = cuda_ms(lambda: motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=True))
     plain_ms = cuda_ms(lambda: motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16),
                        iters=5)
+    nbytes = y8.numel() + mv.numel() * 4 + got.numel() * 4
     line = record(results, "refine_sads_pitched", motion.REFINE_SADS_PITCHED, 0,
-                  ms, w_ms, plain_ms, y8.numel() + mv.numel() * 4 + got.numel() * 4,
-                  2 * got.numel() * 256)
-    print(f"parity K8 refine_sads_pitched: bit-equal on every candidate to its "
-          f"plain version and to K3 on the spatial stack; {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms (level 0, T=8, tbw=8); {line}")
+                  ms, w_ms, plain_ms, nbytes, 2 * got.numel() * 256)
+    record(results, "refine_sads_pitched_general", motion.REFINE_SADS_PITCHED_GENERAL,
+           0, g_ms, gw_ms, plain_ms, nbytes, 2 * got.numel() * 256)
+    print(f"parity K8 refine_sads_pitched: the specialised and the general kernel "
+          f"bit-equal on every candidate to each other, to the plain version "
+          f"and to K3 on the spatial stack at {', '.join(in_band)}; "
+          f"{ms:.4f} ms (general {g_ms:.4f}; in turns general, new, new, "
+          f"general: {', '.join(f'{v:.4f}' for v in turns)}; through the "
+          f"wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain {plain_ms:.4f} ms "
+          f"(level 0, T=8, tbw=8); {line}")
 
     # K2: forward DCT of 8 anchor frames from 9 packed 1080p frames, on the
     # specialised 8x8 x 3 kernel and on the general one (bit-equal), timed
@@ -1092,10 +1193,12 @@ def per_frame_motion(clip: np.ndarray, dev):
                if counts[k] <= 0]
     if missing:
         fail(f"per-frame motion: kernels never launched on this path: {missing}")
-    stray = [k for k in ("pyr_down_u8", "candidate_sads_general") if counts[k]]
+    stray = [k for k in ("pyr_down_u8", "candidate_sads_general",
+                         "refine_sads_pitched_general", "pyr_down_pitched_general")
+             if counts[k]]
     if stray:
         fail(f"per-frame motion: launched {stray}, which the fused K4 and the "
-             f"2x2 K9 replace on this path")
+             f"2x2 K9 replace on this path (and no pitched refine runs)")
     if tuple(mv.shape) != (mfh, mfw, 2) or not bool(torch.isfinite(mm).all()):
         fail(f"per-frame motion: MV field {tuple(mv.shape)}, finite "
              f"min-MADs {bool(torch.isfinite(mm).all())}")
@@ -1128,34 +1231,37 @@ def per_frame_motion(clip: np.ndarray, dev):
 
 def pitched_motion(clip: np.ndarray, dev):
     """Phase 10: the 9-frame luma stack as tbw=8 column-pitched subplanes
-    through ``pyr_down_pitched`` and ``hbma_stack(..., base_pitched=)``."""
+    through ``pyr_down_pitched_levels`` and ``hbma_stack(...,
+    base_pitched=)``."""
     from svc_tpu_torch.kernels import build
     from svc_tpu_torch.ops import motion
-    from svc_tpu_torch.ops.pyramid import (build_pyramid, pyr_down,
-                                           pyr_down_pitched, to_pitched)
+    from svc_tpu_torch.ops.pyramid import (build_pyramid, pyr_down_pitched_levels,
+                                           to_pitched)
 
     y = padded_luma(clip[:9], dev)
     y8 = to_pitched(y, 8)
     build.reset_launch_counts()
-    l1 = pyr_down_pitched(y8)
-    l2 = pyr_down(l1)
-    l3 = pyr_down(l2)
-    mv, mm = motion.hbma_stack([y8, l1, l2, l3], 8, 16, 16, base_pitched=y8)
+    pyr = pyr_down_pitched_levels(y8, 3)
+    mv, mm = motion.hbma_stack([y8] + pyr, 8, 16, 16, base_pitched=y8)
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    missing = [k for k in ("pyr_down_pitched", "refine_sads_pitched",
-                           "candidate_sads", "pyr_down_u8", "refine_sads")
+    missing = [k for k in ("pyr_down_pitched_levels", "refine_sads_pitched",
+                           "candidate_sads", "refine_sads")
                if counts[k] <= 0]
     if missing:
         fail(f"pitched motion: kernels never launched on this path: {missing}")
-    if counts["refine_sads_general"]:
-        fail("pitched motion: levels 2-1 launched the general K3")
+    stray = [k for k in ("refine_sads_general", "refine_sads_pitched_general",
+                         "pyr_down_u8", "pyr_down_pitched_general") if counts[k]]
+    if stray:
+        fail(f"pitched motion: launched {stray}, which the fused K8 pyramid "
+             f"(levels 1-3), the specialised K3 (levels 2-1) and K8 refine "
+             f"(level 0) replace on this path")
     ref = build_pyramid(y, 4)
     mv_s, mm_s = motion.hbma_stack(ref, 8, 16, 16)
-    if not (torch.equal(l1, ref[1]) and torch.equal(mv, mv_s)
-            and torch.equal(mm, mm_s)):
+    if not (all(torch.equal(a, b) for a, b in zip(pyr, ref[1:]))
+            and torch.equal(mv, mv_s) and torch.equal(mm, mm_s)):
         fail("pitched motion: differs from the spatial pyramid and hbma_stack")
-    print(f"  level 1 equal to the spatial pyramid, MV fields "
+    print(f"  levels 1-3 equal to the spatial pyramid, MV fields "
           f"{tuple(mv.shape[:3])} and min-MADs equal to hbma_stack on the "
           f"spatial stack; launches "
           f"{counts}")
@@ -1213,13 +1319,21 @@ def main() -> int:
         f"{kern} {smem} B dynamic smem, {ctas_per_sm(regs, smem, threads)} CTAs "
         f"of {threads} per SM" for _, kern, regs, _ in report if kern in display
         for smem, threads in [display[kern]])
+    # the 256-thread refine and fused pyramid kernels (K3, K4, K8), static
+    # shared memory only
+    static_line = "; ".join(
+        f"{src} {kern} {ctas_per_sm(regs, smem, 256)} CTAs of 256 per SM"
+        for src, kern, regs, smem in report
+        if kern.split("<")[0] in ("refine_sads_kernel", "refine_sads_pitched_kernel",
+                                  "pyr_down_levels_kernel"))
     print(f"build: {res.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {res.seconds:.2f} s, one process per source; 0 = already "
           f"built); ptxas: {ptxas_summary(report)}; K5 cluster kernel dynamic "
           f"smem per CTA {kmeans.cluster_smem_bytes(8160, 4)} B (1080p), "
           f"{kmeans.cluster_smem_bytes(32400, 4)} B (4K); "
           f"{k5_line or 'K5 static smem not checked (already built)'}; "
-          f"{display_line or 'display kernels not reported (already built)'}")
+          f"{display_line or 'display kernels not reported (already built)'}; "
+          f"{static_line or 'refine and pyramid kernels not reported (already built)'}")
 
     # 3. kernel parity
     results = phase_parity(dev)
@@ -1239,7 +1353,8 @@ def main() -> int:
     # the fused K4 and the 2x2 K9 serve the motion path: the single-level
     # K4 and the general K9 run on none of phases 4-7 and 9
     general_k3_k5 = ("refine_sads_general", "lloyd_general",
-                     "candidate_sads_general", "pyr_down_u8")
+                     "candidate_sads_general", "pyr_down_u8",
+                     "refine_sads_pitched_general", "pyr_down_pitched_general")
     # 8x8 blocks of 3 channels take the specialised K6 on the width-excess
     # path; the general K6 runs on none of phases 4-6
     general_k6 = ("idct_resize_display_general",)
@@ -1362,8 +1477,10 @@ def main() -> int:
         fail(f"modules of JAX, svc_tpu or benchmarks were imported: {loaded[:5]}")
     # where each kernel's launches were counted: the path that runs it
     path_of = {"idct_resize_display": wide, "refine_mads": frame_run,
-               "pyr_down_u8": pitched_run,
-               "pyr_down_pitched": pitched_run, "refine_sads_pitched": pitched_run,
+               "pyr_down_pitched_levels": pitched_run,
+               "pyr_down_pitched_general": pitched_run,
+               "refine_sads_pitched": pitched_run,
+               "refine_sads_pitched_general": pitched_run,
                "dct_to_wire_general": tb4, "idct_display_general": tb4}
     kernels = []
     for name, r in results.items():

@@ -36,13 +36,11 @@
 //   - the 9 sums of a block reduce over its B lanes by log2(B) xor
 //     shuffles, go through shared memory, and leave as runs of
 //     consecutive block columns of each candidate plane.
-#include "common.cuh"
+// Everything from the window rows on lives in refine_rows.cuh, shared with
+// the K8 refine (refine_sads_pitched.cu).
+#include "refine_rows.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kCand = 9;  // (2r + 1)^2 at r = 1
-constexpr unsigned kFull = 0xffffffffu;
 
 // One aligned B-byte chunk (16, 8 or 4 bytes) as B / 4 words.
 template <int B>
@@ -88,35 +86,7 @@ __device__ __forceinline__ void load_window_row(const uint8_t* __restrict__ plan
   const int x2 = xb + 2 * B;  // the last window byte lies here when s = B-1
   w[2 * kW] = (row_in && s == B - 1 && x2 >= 0 && x2 < fw)
                   ? __ldg(reinterpret_cast<const unsigned int*>(row + x2)) : 0u;
-  // v[j] = w[s / 4 + j] by selects (register arrays take no runtime
-  // index), then a funnel shift by s % 4 bytes
-  const int q = s >> 2;
-  uint32_t v[kW + 2];
-#pragma unroll
-  for (int j = 0; j < kW + 2; ++j) {
-    uint32_t r = w[j];
-#pragma unroll
-    for (int t = 1; t < kW; ++t) r = q == t ? w[t + j] : r;
-    v[j] = r;
-  }
-#pragma unroll
-  for (int j = 0; j <= kW; ++j) al[j] = __funnelshift_r(v[j], v[j + 1], 8 * (s & 3));
-}
-
-// Adds one window row's share of the three candidates ox = 0, 1, 2 to
-// acc[0..2]; al holds the row from its first byte on.
-template <int B>
-__device__ __forceinline__ void sad_row(const uint32_t (&al)[B / 4 + 1],
-                                        const uint32_t (&a)[B / 4],
-                                        uint32_t* acc) {
-#pragma unroll
-  for (int ox = 0; ox < 3; ++ox) {
-#pragma unroll
-    for (int j = 0; j < B / 4; ++j) {
-      const uint32_t c = ox == 0 ? al[j] : __funnelshift_r(al[j], al[j + 1], 8 * ox);
-      acc[ox] = __vsadu4(c, a[j]) + acc[ox];
-    }
-  }
+  align_window_row<B>(w, s, al);
 }
 
 template <int B>
@@ -155,42 +125,9 @@ refine_sads_kernel(const uint8_t* __restrict__ stack,
   load_window_row<B>(trk, y0, x0, fh, fw, active, r0);
   // lanes B-2 and B-1 also load rows B and B+1 of the window
   load_window_row<B>(trk, y0 + 2, x0, fh, fw, active && i >= B - 2, ext);
-  // the block's lanes share x0, so their rows are aligned alike
-  uint32_t r1[kWords], r2[kWords];
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    const uint32_t down1 = __shfl_down_sync(kFull, r0[k], 1, B);
-    const uint32_t down2 = __shfl_down_sync(kFull, r0[k], 2, B);
-    const uint32_t up1 = __shfl_up_sync(kFull, ext[k], 1, B);
-    r1[k] = i == B - 1 ? up1 : down1;
-    r2[k] = i >= B - 2 ? ext[k] : down2;
-  }
-
-  uint32_t acc[kCand];
-#pragma unroll
-  for (int c = 0; c < kCand; ++c) acc[c] = 0;
-  sad_row<B>(r0, a, acc);
-  sad_row<B>(r1, a, acc + 3);
-  sad_row<B>(r2, a, acc + 6);
-
-#pragma unroll
-  for (int c = 0; c < kCand; ++c) {
-#pragma unroll
-    for (int off = B / 2; off > 0; off >>= 1) {
-      acc[c] += __shfl_xor_sync(kFull, acc[c], off, B);
-    }
-    if (i == static_cast<unsigned>(c % B)) s_out[c][blk] = static_cast<int32_t>(acc[c]);
-  }
+  block_sads<B>(r0, ext, a, i, blk, s_out);
   __syncthreads();
-
-  const size_t plane_out = static_cast<size_t>(mfh) * mfw;
-  const int bx0 = blockIdx.x * kBlocks;
-  int32_t* o = out + (static_cast<size_t>(t) * kCand * mfh + by) * mfw + bx0;
-  for (unsigned e = threadIdx.x; e < kCand * kBlocks; e += kThreads) {
-    const unsigned c = e / kBlocks;
-    const unsigned b = e % kBlocks;
-    if (bx0 + static_cast<int>(b) < mfw) o[c * plane_out + b] = s_out[c][b];
-  }
+  store_sads<B>(s_out, out, t, by, mfh, mfw);
 }
 
 template <int B>

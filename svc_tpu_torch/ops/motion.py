@@ -22,15 +22,19 @@ the plain version; a CUDA tensor launches the kernel or raises):
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
   ``hbma``);
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
-  (``hbma_stack(..., base_pitched=...)``);
+  (``hbma_stack(..., base_pitched=...)``): ``csrc/refine_sads_pitched.cu``
+  for 8 subplanes, square 16x16 blocks at ``r = 1`` (the pitched
+  frontend's level 0), the general kernel
+  ``csrc/refine_sads_pitched_general.cu`` otherwise;
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
   ``T`` separate plane pairs (``ebma``): ``csrc/candidate_sads.cu`` for
   square 2x2 blocks at ``r = 1`` (the default encoder's top level), the
   general kernel ``csrc/candidate_sads_general.cu`` otherwise.
 
-K3's and K9's general kernels, K7 and K8 are one CUDA kernel
+K3's, K8's and K9's general kernels and K7 are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
-type. Every SAD kernel sums exact integers: bit-equal to its plain version
+type; the specialised K3 and K8 share their SAD arithmetic
+(``csrc/refine_rows.cuh``). Every SAD kernel sums exact integers: bit-equal to its plain version
 on every entry. Tracked pixels outside the frame read as
 zero; candidates whose window leaves the frame are masked by the callers.
 
@@ -52,6 +56,7 @@ from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 _K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's specialised kernel (r = 1)
+_K8_TBW, _K8_BLOCK = 8, 16  # subplanes and square MV block of K8's specialised refine
 
 REFINE_SADS = Kernel(
     "refine_sads",
@@ -91,8 +96,15 @@ CANDIDATE_SADS_GENERAL = Kernel(
 REFINE_SADS_PITCHED = Kernel(
     "refine_sads_pitched",
     "svc_refine_sads_pitched",
-    [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_sads_pitched.cu",
+    replaces="svc_tpu/ops/motion_pallas.py:994",
+)
+REFINE_SADS_PITCHED_GENERAL = Kernel(
+    "refine_sads_pitched_general",
+    "svc_refine_sads_pitched_general",
+    [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/refine_sads_pitched_general.cu",
     replaces="svc_tpu/ops/motion_pallas.py:994",
 )
 
@@ -434,17 +446,52 @@ def refine_sads_pitched_plain(
     return refine_sads_plain(respatialize(y8), mv, r, block_w, block_h)
 
 
+def _check_pitched_args(y8: torch.Tensor, mv: torch.Tensor, block_w: int,
+                        block_h: int) -> Tuple[int, int]:
+    """Validation of K8's refine inputs (CUDA path); ``(mfh, mfw)``."""
+    if y8.device.type != "cuda":
+        raise ValueError(f"refine_sads_pitched: unsupported device {y8.device}")
+    tbw, tp1, fh, nbx = y8.shape
+    if fh % block_h or (tbw * nbx) % block_w:
+        raise ValueError("refine_sads_pitched: frame dims must be block multiples")
+    mfh, mfw = fh // block_h, tbw * nbx // block_w
+    want = (tp1 - 1, mfh, mfw, 2)
+    if mv.dtype != torch.int32 or tuple(mv.shape) != want or mv.device != y8.device:
+        raise TypeError(f"refine_sads_pitched: mv must be {want} int32 on {y8.device}")
+    return mfh, mfw
+
+
+def _pitched_specialised(tbw: int, nbx: int, block_w: int, block_h: int,
+                         r: int, y8) -> bool:
+    """K8's specialised refine takes 8 subplanes, square 16x16 blocks at
+    r = 1, and subplane rows of whole 4-byte words (``nbx % 4 == 0`` on a
+    4-byte aligned stack); every other case runs the general kernel."""
+    return (tbw == _K8_TBW and block_w == block_h == _K8_BLOCK and r == 1
+            and nbx % 4 == 0 and y8.data_ptr() % 4 == 0)
+
+
 def refine_sads_pitched(
-    y8: torch.Tensor, mv: torch.Tensor, r: int, block_w: int, block_h: int
+    y8: torch.Tensor,
+    mv: torch.Tensor,
+    r: int,
+    block_w: int,
+    block_h: int,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
     """:func:`refine_sads` over column-pitched luma subplanes (kernel K8;
-    svc_tpu's ``refine_mads_stack_pitched_pallas``).
+    svc_tpu's ``refine_mads_stack_pitched_pallas``): the specialised kernel
+    for 8 subplanes and square 16x16 blocks at ``r = 1``, the general one
+    otherwise.
 
     Args:
       y8: ``(tbw, T+1, fh, fw // tbw)`` uint8 subplanes (spatial column
         ``x`` is lane ``x // tbw`` of subplane ``x % tbw``); ``block_w``
         must be a multiple of ``tbw``.
-      mv: ``(T, mfh, mfw, 2)`` int32 MVs ``(x, y)``.
+      mv: ``(T, mfh, mfw, 2)`` int32 MVs ``(x, y)``; any values: each
+        block's window is placed at its own MV.
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
     Returns what :func:`refine_sads` returns for the respatialized stack,
     bit for bit.
@@ -452,26 +499,24 @@ def refine_sads_pitched(
     if y8.device.type == "cpu":
         return refine_sads_pitched_plain(y8, mv, r, block_w, block_h)
     _check_pitched_refine(y8, block_w)
+    mfh, mfw = _check_pitched_args(y8, mv, block_w, block_h)
     tbw, tp1, fh, nbx = y8.shape
-    fw = tbw * nbx
-    if y8.device.type != "cuda":
-        raise ValueError(f"refine_sads_pitched: unsupported device {y8.device}")
-    mfh, mfw = fh // block_h, fw // block_w
-    want = (tp1 - 1, mfh, mfw, 2)
-    if fh % block_h or fw % block_w:
-        raise ValueError("refine_sads_pitched: frame dims must be block multiples")
-    if mv.dtype != torch.int32 or tuple(mv.shape) != want or mv.device != y8.device:
-        raise TypeError(f"refine_sads_pitched: mv must be {want} int32 on {y8.device}")
     x, m = y8.contiguous(), mv.contiguous()
     out = torch.empty((tp1 - 1, (2 * r + 1) ** 2, mfh, mfw), dtype=torch.int32,
                       device=x.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        REFINE_SADS_PITCHED.launch(
-            x.data_ptr(), m.data_ptr(), out.data_ptr(), tbw, tp1 - 1, fh, nbx,
-            block_w, block_h, r, stream_handle(x),
-        )
+        if _pitched_specialised(tbw, nbx, block_w, block_h, r, x) and not general:
+            REFINE_SADS_PITCHED.launch(
+                x.data_ptr(), m.data_ptr(), out.data_ptr(), tp1 - 1, fh, nbx,
+                stream_handle(x),
+            )
+        else:
+            REFINE_SADS_PITCHED_GENERAL.launch(
+                x.data_ptr(), m.data_ptr(), out.data_ptr(), tbw, tp1 - 1, fh,
+                nbx, block_w, block_h, r, stream_handle(x),
+            )
     return out
 
 

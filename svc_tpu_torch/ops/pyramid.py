@@ -13,8 +13,12 @@ computes one level, the yardstick the fused kernel is held and timed
 against (``build_pyramid(..., general=True)`` takes it per level).
 :func:`pyr_down_plain` is their plain PyTorch version, taken for CPU
 tensors.
-Kernel K8 (``csrc/pyr_down_pitched.cu``, :func:`pyr_down_pitched`) computes
-the same level from column-pitched luma subplanes (:func:`to_pitched`).
+Kernel K8's pyramid computes the same levels from column-pitched luma
+subplanes (:func:`to_pitched`): ``csrc/pyr_down_pitched_levels.cu``
+(:func:`pyr_down_pitched_levels`, K4's fused kernel with a pitched level-0
+loader) for 4 or 8 subplanes, up to three levels in one launch; the
+general kernel ``csrc/pyr_down_pitched.cu`` (one level, any subplane
+count) otherwise, and as its yardstick.
 """
 
 from __future__ import annotations
@@ -46,13 +50,21 @@ PYR_DOWN_LEVELS = Kernel(
 )
 _MAX_HALVINGS = 3  # levels one pyr_down_levels launch computes
 
-PYR_DOWN_PITCHED = Kernel(
-    "pyr_down_pitched",
-    "svc_pyr_down_pitched",
+PYR_DOWN_PITCHED_LEVELS = Kernel(
+    "pyr_down_pitched_levels",
+    "svc_pyr_down_pitched_levels",
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/pyr_down_pitched_levels.cu",
+    replaces="svc_tpu/ops/pyramid_pallas.py:435",
+)
+PYR_DOWN_PITCHED_GENERAL = Kernel(
+    "pyr_down_pitched_general",
+    "svc_pyr_down_pitched_general",
     [PTR, PTR, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/pyr_down_pitched.cu",
     replaces="svc_tpu/ops/pyramid_pallas.py:435",
 )
+_K8_PYR_TBW = (4, 8)  # subplane counts of the fused pitched kernel
 
 
 def _reflect101(n: int, pad: int) -> np.ndarray:
@@ -209,21 +221,8 @@ def pyr_down_pitched_plain(y8: torch.Tensor) -> torch.Tensor:
     return pyr_down_plain(respatialize(y8))
 
 
-def pyr_down_pitched(y8: torch.Tensor) -> torch.Tensor:
-    """One pyramid level of column-pitched ``(tbw, N, H, W//tbw)`` uint8
-    subplanes, returned as spatial ``(N, H//2, W//2)`` planes — what
-    :func:`pyr_down` returns for the respatialized input, bit for bit.
-
-    The preconditions of svc_tpu's ``pyr_down_mxu_pitched_pallas`` hold on
-    every device (``H % 8 == 0``, an even ``W >= 16``; ``ValueError``
-    outside them). CPU tensors take :func:`pyr_down_pitched_plain`; CUDA
-    tensors launch K8.
-    """
-    if y8.device.type == "cpu":
-        return pyr_down_pitched_plain(y8)
-    _check_pitched_pyr(y8)
-    if y8.device.type != "cuda":
-        raise ValueError(f"pyr_down_pitched: unsupported device {y8.device}")
+def _pyr_down_pitched_general(y8: torch.Tensor) -> torch.Tensor:
+    """Level 1 of CUDA subplanes on K8's general kernel (one launch)."""
     x = y8.contiguous()
     tbw, n, h, nbx = x.shape
     out = torch.empty((n, h // 2, tbw * nbx // 2), dtype=torch.uint8,
@@ -231,7 +230,65 @@ def pyr_down_pitched(y8: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        PYR_DOWN_PITCHED.launch(
+        PYR_DOWN_PITCHED_GENERAL.launch(
             x.data_ptr(), out.data_ptr(), tbw, n, h, nbx, stream_handle(x)
         )
     return out
+
+
+def pyr_down_pitched_levels(y8: torch.Tensor, halvings: int, *,
+                            general: bool = False) -> List[torch.Tensor]:
+    """Levels ``1..halvings`` (at most 3) of column-pitched ``(tbw, N, H,
+    W//tbw)`` uint8 subplanes as spatial ``(N, h_l, w_l)`` planes: what
+    :func:`pyr_down_pitched` and then ``halvings - 1`` chained
+    :func:`pyr_down` calls return, bit for bit (svc_tpu's pitched encoder
+    path: ``pyr_down_mxu_pitched_pallas``, then ``pyr_down_mxu_pallas``).
+
+    The preconditions of :func:`pyr_down_pitched` hold on every device.
+    CPU tensors take chained :func:`pyr_down_pitched_plain` /
+    :func:`pyr_down_plain`; CUDA tensors launch K8's fused kernel once (4
+    or 8 subplanes). ``general=True``, or another subplane count, runs the
+    chain on the general kernel and the single-level K4 (the yardstick).
+    """
+    if not 1 <= halvings <= _MAX_HALVINGS:
+        raise ValueError(
+            f"pyr_down_pitched_levels: halvings must be 1..{_MAX_HALVINGS}")
+    if y8.device.type == "cpu":
+        levels = [pyr_down_pitched_plain(y8)]
+        for _ in range(halvings - 1):
+            levels.append(pyr_down_plain(levels[-1]))
+        return levels
+    _check_pitched_pyr(y8)
+    _check_cuda_u8("pyr_down_pitched_levels", y8)
+    tbw, n, h, nbx = y8.shape
+    if general or tbw not in _K8_PYR_TBW:
+        levels = [_pyr_down_pitched_general(y8)]
+        for _ in range(halvings - 1):
+            levels.append(pyr_down(levels[-1]))
+        return levels
+    x = y8.contiguous()
+    outs, lh, lw = [], h, tbw * nbx
+    for _ in range(halvings):
+        lh, lw = (lh + 1) // 2, (lw + 1) // 2
+        outs.append(torch.empty((n, lh, lw), dtype=torch.uint8, device=x.device))
+    if x.numel() == 0:
+        return outs
+    ptrs = [o.data_ptr() for o in outs] + [0] * (_MAX_HALVINGS - halvings)
+    with torch.cuda.device(x.device):
+        PYR_DOWN_PITCHED_LEVELS.launch(x.data_ptr(), *ptrs, tbw, n, h, nbx,
+                                       halvings, stream_handle(x))
+    return outs
+
+
+def pyr_down_pitched(y8: torch.Tensor, *, general: bool = False) -> torch.Tensor:
+    """One pyramid level of column-pitched ``(tbw, N, H, W//tbw)`` uint8
+    subplanes, returned as spatial ``(N, H//2, W//2)`` planes — what
+    :func:`pyr_down` returns for the respatialized input, bit for bit.
+
+    The preconditions of svc_tpu's ``pyr_down_mxu_pitched_pallas`` hold on
+    every device (``H % 8 == 0``, an even ``W >= 16``; ``ValueError``
+    outside them). CPU tensors take :func:`pyr_down_pitched_plain`; CUDA
+    tensors launch K8's fused kernel for one level (4 or 8 subplanes), or
+    the general kernel (another subplane count, or ``general=True``).
+    """
+    return pyr_down_pitched_levels(y8, 1, general=general)[0]

@@ -228,27 +228,177 @@ def test_refine_sads_static_and_ebma_on_card(gen):
 @pytest.mark.parametrize("tbw", [4, 8])
 @pytest.mark.parametrize("n,h,w", [(3, 64, 128), (2, 40, 104), (1, 8, 16)])
 def test_pyr_down_pitched_bit_equal(gen, tbw, n, h, w):
+    # one level on the fused kernel (D = 1) and on the general one
     x = _u8(gen, (n, h, w))
     y8 = pyramid.to_pitched(x, tbw)
-    before = pyramid.PYR_DOWN_PITCHED.launches
+    before = _k8_pyr_launches()
     got = pyramid.pyr_down_pitched(y8)
-    assert pyramid.PYR_DOWN_PITCHED.launches == before + 1
+    got_g = pyramid.pyr_down_pitched(y8, general=True)
+    assert _k8_pyr_launches() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, got_g)
     assert torch.equal(got, pyramid.pyr_down_pitched_plain(y8))
     assert torch.equal(got, pyramid.pyr_down_plain(x))
 
 
+def _k8_pyr_launches():
+    return (pyramid.PYR_DOWN_PITCHED_LEVELS.launches,
+            pyramid.PYR_DOWN_PITCHED_GENERAL.launches)
+
+
+@pytest.mark.parametrize(
+    "tbw,n,h,w",
+    [(8, 9, 1088, 1920),  # the 1080p path
+     (8, 2, 64, 1376),    # nbx 172 (% 16 == 12)
+     (8, 2, 40, 536),     # nbx 67: odd, byte loads
+     (4, 2, 48, 1000),    # nbx 250 (% 4 == 2): byte loads
+     (4, 3, 64, 512),     # 4-byte loads
+     (8, 1, 8, 16)],      # a small frame: one tile, reflect at every edge
+)
+@pytest.mark.parametrize("halvings", [1, 2, 3])
+def test_pyr_down_pitched_levels_equals_chained(gen, tbw, n, h, w, halvings):
+    # one launch, bit-equal to the fused spatial K4 on the respatialized
+    # input, to the general chain (the general K8 level, then the
+    # single-level K4) and to the chained plain versions
+    x = _u8(gen, (n, h, w))
+    y8 = pyramid.to_pitched(x, tbw)
+    before = (*_k8_pyr_launches(), pyramid.PYR_DOWN.launches)
+    got = pyramid.pyr_down_pitched_levels(y8, halvings)
+    assert (*_k8_pyr_launches(), pyramid.PYR_DOWN.launches) == (
+        before[0] + 1, before[1], before[2])
+    chain = pyramid.pyr_down_pitched_levels(y8, halvings, general=True)
+    assert _k8_pyr_launches()[1] == before[1] + 1
+    spatial = pyramid.pyr_down_levels(x, halvings)
+    ref = x
+    for lvl in range(halvings):
+        ref = pyramid.pyr_down_plain(ref)
+        assert torch.equal(got[lvl], ref), f"level {lvl + 1}"
+        assert torch.equal(got[lvl], spatial[lvl]) and torch.equal(got[lvl], chain[lvl])
+
+
+def test_pyr_down_pitched_levels_unaligned_input(gen):
+    # subplanes 1 byte into their buffer take the byte loads, same bytes
+    flat = _u8(gen, (8 * 2 * 64 * 40 + 1,))
+    y8 = flat[1:].view(8, 2, 64, 40)
+    assert y8.data_ptr() % 2 != 0
+    got = pyramid.pyr_down_pitched_levels(y8, 3)
+    ref = pyramid.respatialize(y8)
+    for lvl in range(3):
+        ref = pyramid.pyr_down_plain(ref)
+        assert torch.equal(got[lvl], ref)
+
+
+def test_pyr_down_pitched_levels_in_a_cuda_graph(gen):
+    y8 = pyramid.to_pitched(_u8(gen, (3, 64, 512)), 8)
+    want = pyramid.pyr_down_pitched_levels(y8, 3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pyramid.pyr_down_pitched_levels(y8, 3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = pyramid.pyr_down_pitched_levels(y8, 3)
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+def _k8_launches():
+    return (motion.REFINE_SADS_PITCHED.launches,
+            motion.REFINE_SADS_PITCHED_GENERAL.launches)
+
+
 @pytest.mark.parametrize("tbw", [4, 8])
-@pytest.mark.parametrize("block,r,bound", [(8, 1, 6), (16, 1, 14), (16, 2, 20)])
+@pytest.mark.parametrize("block,r,bound", [(8, 1, 6), (16, 1, 14), (16, 2, 20),
+                                           (16, 1, 40)])
 def test_refine_sads_pitched_bit_equal(gen, tbw, block, r, bound):
+    # 5 block columns: the subplane rows (nbx 10 or 5 at tbw 8) are not
+    # whole 4-byte words, so every case here takes the general kernel; the
+    # next test holds the specialised one
     stack = _u8(gen, (3, 4 * block, 5 * block))
     y8 = pyramid.to_pitched(stack, tbw)
     mv = torch.randint(-bound, bound + 1, (2, 4, 5, 2), generator=gen,
                        dtype=torch.int32).cuda()
-    before = motion.REFINE_SADS_PITCHED.launches
+    special = (tbw, block, r) == (8, 16, 1) and y8.shape[3] % 4 == 0
+    before = _k8_launches()
     got = motion.refine_sads_pitched(y8, mv, r, block, block)
-    assert motion.REFINE_SADS_PITCHED.launches == before + 1
+    assert _k8_launches() == (before[0] + special, before[1] + (not special))
     assert torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, r, block, block))
     assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, block, block))
+
+
+@pytest.mark.parametrize(
+    "t,h,w,kind",
+    [(8, 64, 1920, "path"),   # the 1080p path's width, even MVs within 14
+     (2, 96, 1376, "wide"),   # nbx 172 (% 16 == 12), MVs within +-40
+     (2, 48, 352, "edge"),    # CIF width, odd MVs past every edge
+     (1, 32, 512, "reach"),   # MVs at the band's edge and one past it
+     (1, 16, 32, "wide")],    # a 1x2 field
+)
+def test_refine_sads_pitched_specialised_equals_general(gen, t, h, w, kind):
+    # every candidate, valid or not, bit-equal across the two kernels, the
+    # plain version and K3 on the spatial stack; blocks whose MV leaves the
+    # staged band read global memory
+    stack = _u8(gen, (t + 1, h, w))
+    y8 = pyramid.to_pitched(stack, 8)
+    shape = (t, h // 16, w // 16, 2)
+    if kind == "path":
+        mv = 2 * torch.randint(-7, 8, shape, generator=gen, dtype=torch.int32)
+    elif kind == "wide":
+        mv = torch.randint(-40, 41, shape, generator=gen, dtype=torch.int32)
+    elif kind == "edge":
+        mv = 2 * torch.randint(-8, 8, shape, generator=gen, dtype=torch.int32) + 1
+    else:
+        mv = torch.tensor([-16, -15, 15, 16], dtype=torch.int32)[
+            torch.randint(0, 4, shape, generator=gen)]
+    mv = mv.cuda()
+    before = _k8_launches()
+    got = motion.refine_sads_pitched(y8, mv, 1, 16, 16)
+    gen_out = motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=True)
+    assert _k8_launches() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, gen_out)
+    assert torch.equal(got, motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16))
+    assert torch.equal(got, motion.refine_sads(stack, mv, 1, 16, 16))
+
+
+def test_refine_sads_pitched_unaligned_takes_the_general_kernel(gen):
+    # the specialised kernel loads 4-byte words of the subplanes: a stack 2
+    # bytes into its buffer, and subplane rows of 6 bytes (nbx % 4 == 2),
+    # go to the general kernel, with the same SADs
+    flat = _u8(gen, (8 * 3 * 32 * 64 + 2,))
+    y8 = flat[2:].view(8, 3, 32, 64)
+    assert y8.data_ptr() % 4 != 0
+    narrow = pyramid.to_pitched(_u8(gen, (3, 32, 48)), 8)
+    for x in (y8, narrow):
+        mv = torch.randint(-20, 21, (2, 2, x.shape[3] // 2, 2), generator=gen,
+                           dtype=torch.int32).cuda()
+        before = _k8_launches()
+        got = motion.refine_sads_pitched(x, mv, 1, 16, 16)
+        assert _k8_launches() == (before[0], before[1] + 1)
+        assert torch.equal(got, motion.refine_sads_pitched_plain(x, mv, 1, 16, 16))
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_refine_sads_pitched_in_a_cuda_graph(gen, general):
+    # the wrapper, captured in a CUDA graph and replayed, writes the SADs of
+    # a direct call
+    y8 = pyramid.to_pitched(_u8(gen, (3, 64, 512)), 8)
+    mv = torch.randint(-20, 21, (2, 4, 32, 2), generator=gen, dtype=torch.int32).cuda()
+    want = motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=general)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=general)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = motion.refine_sads_pitched(y8, mv, 1, 16, 16, general=general)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_hbma_on_card_matches_cpu(gen):

@@ -136,10 +136,11 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
     assert set(ks) == {
         "pyr_down_u8", "refine_sads", "dct8x8_to_wire", "idct_display",
         "lloyd", "idct_resize_display", "refine_mads", "candidate_sads",
-        "pyr_down_pitched", "refine_sads_pitched", "dct_to_wire_general",
+        "pyr_down_pitched_general", "pyr_down_pitched_levels",
+        "refine_sads_pitched", "dct_to_wire_general",
         "idct_display_general", "refine_sads_general", "lloyd_general",
         "candidate_sads_general", "pyr_down_levels",
-        "idct_resize_display_general",
+        "idct_resize_display_general", "refine_sads_pitched_general",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -156,7 +157,9 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "idct_display_general.cu", "refine_sads_general.cu",
             "lloyd_general.cu", "lloyd.cuh", "candidate_sads_general.cu",
             "pyr_down_levels.cu", "idct_resize_general.cu",
-            "idct8x8.cuh"} <= srcs
+            "idct8x8.cuh", "refine_sads_pitched_general.cu",
+            "refine_rows.cuh", "pyr_down_pitched_levels.cu",
+            "pyr_down_levels.cuh"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"

@@ -196,6 +196,22 @@ def test_pyr_down_pitched_plain_matches_pallas():
         pyramid.pyr_down_pitched(torch.from_numpy(y8[:, :, :60]))
 
 
+@pytest.mark.parametrize("tbw,t,h,w", [(8, 3, 64, 256), (4, 2, 32, 128)])
+def test_pyr_down_pitched_levels_matches_pallas(tbw, t, h, w):
+    # svc_tpu's pitched encoder path: level 1 from the subplanes, levels
+    # 2-3 from the spatial level 1 (models/encoder.py:402-420)
+    rng = np.random.default_rng(h + w)
+    spatial = rng.integers(0, 256, (t, h, w)).astype(np.uint8)
+    y8 = _pitched(spatial, tbw)
+    want = [j_pp.pyr_down_mxu_pitched_pallas(jnp.asarray(y8))]
+    for _ in range(2):
+        want.append(j_pp.pyr_down_mxu_pallas(want[-1]))
+    got = pyramid.pyr_down_pitched_levels(torch.from_numpy(y8), 3)
+    assert len(got) == 3
+    for lvl, (g, w_) in enumerate(zip(got, want), start=1):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_), err_msg=f"level {lvl}")
+
+
 def test_refine_sads_pitched_plain_matches_pallas():
     rng = np.random.default_rng(2)
     tbw, tp1, fh, fw = 8, 3, 64, 128
@@ -216,6 +232,33 @@ def test_refine_sads_pitched_plain_matches_pallas():
     np.testing.assert_array_equal(got[valid], want[valid])
     with pytest.raises(ValueError, match="multiple of tbw"):
         motion.refine_sads_pitched(y8, torch.from_numpy(mv), r, 12, bh)
+
+
+@pytest.mark.parametrize("t,h,w", [(2, 64, 128), (3, 48, 256)])
+def test_hbma_stack_pitched_base_bit_equal(t, h, w, monkeypatch):
+    # the pitched frontend's search (16x16 MV blocks, range 8, 4 levels)
+    # where svc_tpu's pitched refine gate holds: its level 0 runs
+    # refine_mads_stack_pitched_pallas (interpret mode), the port's the K8
+    # refine's plain version (the specialised kernel on a card)
+    frames = _moving_stack(t + 1, h, w, seed=t + h)
+    jp, tp = _pyramids(frames, 4)
+    assert j_mp.pitched_refine_supported(8, h // 16, w // 16, 16, 16, 1, 14)
+    calls = []
+    pallas = j_mp.refine_mads_stack_pitched_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_stack_pitched_pallas", counted)
+    y8 = _pitched(frames, 8)
+    mv_j, mm_j = j_motion.hbma_stack(jp, 8, 16, 16, base_pitched=jnp.asarray(y8))
+    assert len(calls) == 1
+    y8_t = torch.from_numpy(y8)
+    mv_t, mm_t = motion.hbma_stack([y8_t] + tp[1:], 8, 16, 16, base_pitched=y8_t)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
 
 
 def test_global_motion_avg_bit_equal():

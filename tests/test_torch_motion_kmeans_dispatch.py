@@ -89,7 +89,10 @@ def test_k3_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
     cases = set(map(int, re.findall(r"case (\d+): return launch<", src)))
     assert cases == set(motion._K3_BLOCKS)
-    assert "constexpr int kCand = 9;" in src  # r = 1 only
+    # the SAD arithmetic K3 shares with the K8 refine: r = 1 only
+    assert '#include "refine_rows.cuh"' in src
+    rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
+    assert "constexpr int kCand = 9;" in rows
 
 
 # ---------------------------------------------------------------------------

@@ -167,9 +167,15 @@ def _region_image(q, n, q0, length):
     return np.clip(_reflect101(q, n), q0, q0 + length - 1)
 
 
-def _replay_levels(img, d, rng):
+def _replay_levels(img, d, rng, level0=None):
     """Levels 1..d of ``(N, H, W)`` uint8 as the fused kernel computes
-    them, and how often each output byte was written."""
+    them, and how often each output byte was written. ``level0(z, y, x)``
+    reads the bytes of rows ``y`` and columns ``x`` (inside the frame) of
+    plane ``z`` as the kernel's level-0 loader does; by default K4's dense
+    loader, which reads ``img`` itself."""
+    if level0 is None:
+        def level0(z, y, x):
+            return img[z][y][:, x]
     g = _Geo(d)
     n, h, w = img.shape
     hs, ws = [h], [w]
@@ -195,7 +201,8 @@ def _replay_levels(img, d, rng):
                 x = cb + np.arange(_ROW0)
                 a = rng.integers(0, 256, (g.r(0), _ROW0))
                 yin, xin = (y >= 0) & (y < h), (x >= 0) & (x < w)
-                a[np.ix_(yin, xin)] = img[z][y[yin]][:, x[xin]]
+                if yin.any() and xin.any():
+                    a[np.ix_(yin, xin)] = level0(z, y[yin], x[xin])
                 for col in (-2, -1, w, w + 1):
                     c = col - cb
                     if 0 <= c < _ROW0:
@@ -265,7 +272,10 @@ def test_fused_tile_walk_equals_chained_plain(shape, d):
 
 
 def test_fused_kernel_host_constants_match_the_source():
-    src = (build.CSRC_DIR / "pyr_down_levels.cu").read_text()
+    # the kernel lives in pyr_down_levels.cuh, shared with the K8 pyramid
+    assert '#include "pyr_down_levels.cuh"' in (
+        build.CSRC_DIR / "pyr_down_levels.cu").read_text()
+    src = (build.CSRC_DIR / "pyr_down_levels.cuh").read_text()
     assert "constexpr int kLvRow0 = 160;" in src
     assert "static constexpr int kTH = 64 >> D;" in src
     assert "static constexpr int kTW = 128 >> D;" in src
