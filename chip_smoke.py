@@ -12,7 +12,7 @@ each:
    registers and static shared memory (ptxas), K5's dynamic shared memory
    and CTAs per SM, and K5's static shared memory held to what its
    wrapper plans with;
-3. kernel parity — each of the nineteen kernels against its plain
+3. kernel parity — each of the twenty kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -21,14 +21,15 @@ each:
    over 3.35 TB/s or operations over 67 T/s, float64 operations over 34
    T/s, whichever is larger). A kernel's time is that of CUDA graph
    replays, so that no host time of the wrapper enters (the yardsticks
-   too). K1, K2, K3, K4, K5, K6, K8 and K9 run on their new kernels (K1 /
-   K2 / K6 8x8 x 3, K3 square 4/8/16 blocks at r = 1, K4 and the K8
-   pyramid levels 1-3 in one launch, K5 the 8-CTA cluster kernel, the K8
-   refine 8 subplanes with 16x16 blocks at r = 1, K9 2x2 blocks at
-   r = 1), held bit for bit against the general (K4: single-level; K8
-   pyramid: the general pitched level, then the single-level K4) kernels
-   on the same inputs and timed in turns with them (K3 per level, K5 at
-   1080p, 1440p and 4K, K6 at 1366x768 and 1270x714); K4 also at odd and
+   too). Every kernel runs on its new kernel (K1 / K2 / K6 8x8 x 3, K3
+   and K7 square 4/8/16 blocks at r = 1, K4 and the K8 pyramid levels 1-3
+   in one launch, K5 the 8-CTA cluster kernel, the K8 refine 8 subplanes
+   with 16x16 blocks at r = 1, K9 2x2 blocks at r = 1), held bit for bit
+   against the general (K4: single-level; K8 pyramid: the general pitched
+   level, then the single-level K4) kernels on the same inputs and timed
+   in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
+   1366x768 and 1270x714; K7 also against stacking the pair for K3, and
+   at odd MVs past the frame edges); K4 also at odd and
    tiny sizes and 2-5 levels, the K8 pyramid at odd subplane widths and
    a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
    refine with MVs past its staged band and past the frame edges; K5 also
@@ -63,7 +64,7 @@ each:
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
    global-motion estimators on ``cuda`` (K7, the fused K4 and the 2x2 K9
-   must run, the single-level K4 and the general K9 not), held against
+   must run, the general K7 and K9 and the single-level K4 not), held against
    ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
@@ -364,27 +365,65 @@ def phase_parity(dev):
           f"{gen_ms:.4f} ms, through the wrapper {gen_wrap_ms:.4f}) vs plain "
           f"{plain_ms:.4f} ms (T=8); {line}")
 
-    # K7: levels 2, 1, 0 of one 1088x1920 pair, r = 1, even MVs within
-    # each level's bound
-    ms = w_ms = plain_ms = 0.0
+    # K7: levels 2, 1, 0 of one 1088x1920 pair (blocks 4, 8, 16; r = 1)
+    # with K3's even MVs of frame 0, then odd MVs past the frame edges, on
+    # the specialised kernel (K3's, two bases) and on the general one, each
+    # held bit for bit to the plain version on every candidate; timed per
+    # level in turns (new, general, stack + K3, stack + K3, general, new),
+    # where stack + K3 is torch.stack of the pair, then K3's refine_sads:
+    # the cost of reaching K3 without K7's entry (no library call)
+    ms = gen_ms = stk_ms = plain_ms = w_ms = gen_w_ms = 0.0
     nbytes, ops = 0, 0
+    per_level = []
+
+    def k7_counts():
+        return motion.REFINE_MADS.launches, motion.REFINE_MADS_GENERAL.launches
+
     for lvl, bnd in ((2, 2), (1, 6), (0, 14)):
         tr, an = levels[lvl][0], levels[lvl][1]
         b = 16 >> lvl
         mv = level_mvs[lvl][0].contiguous()
-        got = motion.refine_mads(tr, an, mv, 1, b, b)
-        if not torch.equal(got, motion.refine_mads_plain(tr, an, mv, 1, b, b)):
-            fail(f"K7 refine_mads differs at level {lvl}")
-        k_ms, k_w = timed(lambda: motion.refine_mads(tr, an, mv, 1, b, b))
-        ms, w_ms = ms + k_ms, w_ms + k_w
+        odd = (2 * torch.randint(-(bnd // 2) - 2, bnd // 2 + 2, mv.shape, generator=g,
+                                 dtype=torch.int32) + 1).to(dev)
+        for kind, m in (("even", mv), ("odd past the edges", odd)):
+            before = k7_counts()
+            got = motion.refine_mads(tr, an, m, 1, b, b)
+            if k7_counts() != (before[0] + 1, before[1]):
+                fail(f"K7 at level {lvl} did not take the specialised kernel")
+            got_g = motion.refine_mads(tr, an, m, 1, b, b, general=True)
+            ref = motion.refine_mads_plain(tr, an, m, 1, b, b)
+            if not torch.equal(got, ref):
+                fail(f"K7 refine_mads differs from its plain version at level "
+                     f"{lvl} ({kind} MVs)")
+            if not torch.equal(got_g, ref):
+                fail(f"K7 refine_mads_general differs from its plain version at "
+                     f"level {lvl} ({kind} MVs)")
+        new = lambda: motion.refine_mads(tr, an, mv, 1, b, b)
+        general = lambda: motion.refine_mads(tr, an, mv, 1, b, b, general=True)
+        stacked = lambda: motion.refine_sads(torch.stack((tr, an)), mv[None], 1, b, b)
+        turns = [graph_ms(f) for f in (new, general, stacked, stacked, general, new)]
+        n_ms, g_ms, s_ms = ((turns[i] + turns[5 - i]) / 2 for i in range(3))
+        ms, gen_ms, stk_ms = ms + n_ms, gen_ms + g_ms, stk_ms + s_ms
+        w_ms, gen_w_ms = w_ms + cuda_ms(new), gen_w_ms + cuda_ms(general)
         plain_ms += cuda_ms(lambda: motion.refine_mads_plain(tr, an, mv, 1, b, b),
                             iters=5)
-        nbytes += 2 * tr.numel() + mv.numel() * 4 + got.numel() * 4
-        ops += 2 * got.numel() * b * b
+        lvl_bytes = 2 * tr.numel() + mv.numel() * 4 + got.numel() * 4
+        lvl_ops = 2 * got.numel() * b * b
+        nbytes, ops = nbytes + lvl_bytes, ops + lvl_ops
+        per_level.append(
+            f"level {lvl} ({b}x{b}) {n_ms:.4f} ms (general {g_ms:.4f}, stack + "
+            f"K3 {s_ms:.4f}; in turns {', '.join(f'{x:.4f}' for x in turns)}; "
+            f"bound {bound(lvl_bytes, lvl_ops)[0]:.4f} ms)")
     line = record(results, "refine_mads", motion.REFINE_MADS, 0, ms, w_ms,
                   plain_ms, nbytes, ops)
-    print(f"parity K7 refine_mads: bit-equal on every candidate, levels 2-0 "
-          f"of one pair; {ms:.4f} ms vs plain {plain_ms:.4f} ms; {line}")
+    record(results, "refine_mads_general", motion.REFINE_MADS_GENERAL, 0, gen_ms,
+           gen_w_ms, plain_ms, nbytes, ops)
+    print(f"parity K7 refine_mads: the specialised and the general kernel "
+          f"bit-equal to the plain version on every candidate, levels 2-0 of "
+          f"one pair, even and odd past-edge MVs; {'; '.join(per_level)}; 3 "
+          f"levels {ms:.4f} ms (general {gen_ms:.4f} ms, {gen_ms / ms:.1f}x; "
+          f"stack + K3 {stk_ms:.4f} ms; through the wrappers {w_ms:.4f} / "
+          f"{gen_w_ms:.4f}) vs plain {plain_ms:.4f} ms; {line}")
 
     # K9: its path shape (the encoder's top-level EBMA: 136x240, 2x2
     # blocks, r = 1, T = 8, zero MVs) on the 2x2 kernel and on the general
@@ -1194,11 +1233,13 @@ def per_frame_motion(clip: np.ndarray, dev):
     if missing:
         fail(f"per-frame motion: kernels never launched on this path: {missing}")
     stray = [k for k in ("pyr_down_u8", "candidate_sads_general",
-                         "refine_sads_pitched_general", "pyr_down_pitched_general")
+                         "refine_mads_general", "refine_sads_pitched_general",
+                         "pyr_down_pitched_general")
              if counts[k]]
     if stray:
-        fail(f"per-frame motion: launched {stray}, which the fused K4 and the "
-             f"2x2 K9 replace on this path (and no pitched refine runs)")
+        fail(f"per-frame motion: launched {stray}, which the fused K4, the "
+             f"2x2 K9 and the specialised K7 replace on this path (and no "
+             f"pitched refine runs)")
     if tuple(mv.shape) != (mfh, mfw, 2) or not bool(torch.isfinite(mm).all()):
         fail(f"per-frame motion: MV field {tuple(mv.shape)}, finite "
              f"min-MADs {bool(torch.isfinite(mm).all())}")
@@ -1477,6 +1518,7 @@ def main() -> int:
         fail(f"modules of JAX, svc_tpu or benchmarks were imported: {loaded[:5]}")
     # where each kernel's launches were counted: the path that runs it
     path_of = {"idct_resize_display": wide, "refine_mads": frame_run,
+               "refine_mads_general": frame_run,
                "pyr_down_pitched_levels": pitched_run,
                "pyr_down_pitched_general": pitched_run,
                "refine_sads_pitched": pitched_run,

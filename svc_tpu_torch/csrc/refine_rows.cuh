@@ -1,6 +1,6 @@
 // The SAD arithmetic of the lane-per-anchor-row refine kernels: K3's
 // specialised kernel (refine_sads.cu, window rows loaded from dense planes
-// in global memory) and the K8 refine (refine_sads_pitched.cu, window rows
+// in global memory; also K7's, refine_mads.cu) and the K8 refine (refine_sads_pitched.cu, window rows
 // read from a band of column-pitched subplanes staged in shared memory).
 // Each kernel gets its window rows its own way; from the rows on both run
 // this code, so both give the same bits.

@@ -1,15 +1,20 @@
 // K3 refine_sads: candidate SADs of one hierarchical motion refinement
 // level for a whole frame stack, specialised for square B x B MV blocks
 // (B = 4, 8, 16) and search radius r = 1: the three refinement levels of
-// the default encoder (16x16 MV blocks, range 8, 4 pyramid levels).
+// the default encoder (16x16 MV blocks, range 8, 4 pyramid levels). The
+// same kernel is K7's for one frame pair (refine_mads.cu, through
+// launch_refine_sads, refine_sads.cuh): it reads frame t's tracked plane
+// and its anchor from two bases a per-frame stride apart, so K3 passes
+// (stack, stack + plane, plane) and K7 (tracked, anchor, 0).
 //
 // Replaces svc_tpu/ops/motion_pallas.py refine_mads_stack_pallas (:887,
-// pallas_call in _refine_stack_call :1093). Every other block shape or
-// range runs refine_sads_general.cu (window_sads.cuh); ops/motion.py
-// dispatches. The contract is the general kernel's: frame t tracked
-// against anchor t+1, SAD of candidate (oy, ox) in raster order at
+// pallas_call in _refine_stack_call :1093) and, for K7, refine_mads_pallas
+// (:541). Every other block shape or range runs refine_sads_general.cu /
+// refine_mads_general.cu (window_sads.cuh); ops/motion.py dispatches. The
+// contract is the general kernel's: frame t tracked against its anchor
+// (frame t+1 of K3's stack), SAD of candidate (oy, ox) in raster order at
 //   sum_{i,j<B} |trk(t, by*B + mvy + oy - 1 + i, bx*B + mvx + ox - 1 + j)
-//                - anc(t + 1, by*B + i, bx*B + j)|
+//                - anc(t, by*B + i, bx*B + j)|
 // with tracked pixels outside the frame read as 0: exact integer sums,
 // bit-equal to the general kernel and to refine_sads_plain on every
 // candidate, valid or not.
@@ -39,6 +44,7 @@
 // Everything from the window rows on lives in refine_rows.cuh, shared with
 // the K8 refine (refine_sads_pitched.cu).
 #include "refine_rows.cuh"
+#include "refine_sads.cuh"
 
 namespace {
 
@@ -91,7 +97,8 @@ __device__ __forceinline__ void load_window_row(const uint8_t* __restrict__ plan
 
 template <int B>
 __global__ void __launch_bounds__(kThreads)
-refine_sads_kernel(const uint8_t* __restrict__ stack,
+refine_sads_kernel(const uint8_t* __restrict__ tracked,
+                   const uint8_t* __restrict__ anchor, size_t frame_stride,
                    const int32_t* __restrict__ mv, int32_t* __restrict__ out,
                    int fh, int fw, int mfh, int mfw) {
   constexpr int kBlocks = kThreads / B;  // MV blocks of one block row
@@ -111,11 +118,10 @@ refine_sads_kernel(const uint8_t* __restrict__ stack,
     mvx = __ldg(m);
     mvy = __ldg(m + 1);
   }
-  const size_t plane = static_cast<size_t>(fh) * fw;
-  const uint8_t* trk = stack + t * plane;
+  const uint8_t* trk = tracked + t * frame_stride;
   uint32_t a[B / 4] = {};
   if (active) {
-    load_chunk<B>(stack + (t + 1) * plane +
+    load_chunk<B>(anchor + t * frame_stride +
                       static_cast<size_t>(by * B + i) * fw + bx * B, a);
   }
 
@@ -131,19 +137,40 @@ refine_sads_kernel(const uint8_t* __restrict__ stack,
 }
 
 template <int B>
-int launch(const void* stack, const void* mv, void* out, int t_count, int fh,
-           int fw, void* stream) {
+int launch(const void* tracked, const void* anchor, size_t frame_stride,
+           const void* mv, void* out, int t_count, int fh, int fw,
+           void* stream) {
   constexpr int kBlocks = kThreads / B;
   const int mfh = fh / B;
   const int mfw = fw / B;
   const dim3 grid((mfw + kBlocks - 1) / kBlocks, mfh, t_count);
   refine_sads_kernel<B><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(stack), static_cast<const int32_t*>(mv),
-      static_cast<int32_t*>(out), fh, fw, mfh, mfw);
+      static_cast<const uint8_t*>(tracked), static_cast<const uint8_t*>(anchor),
+      frame_stride, static_cast<const int32_t*>(mv), static_cast<int32_t*>(out),
+      fh, fw, mfh, mfw);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+int launch_refine_sads(const void* tracked, const void* anchor,
+                       size_t frame_stride, const void* mv, void* out,
+                       int t_count, int fh, int fw, int block, void* stream) {
+  if (reinterpret_cast<uintptr_t>(tracked) % 16 ||
+      reinterpret_cast<uintptr_t>(anchor) % 16 || block < 4 || fh % block ||
+      fw % block) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (block) {
+    case 4: return launch<4>(tracked, anchor, frame_stride, mv, out,
+                             t_count, fh, fw, stream);
+    case 8: return launch<8>(tracked, anchor, frame_stride, mv, out,
+                             t_count, fh, fw, stream);
+    case 16: return launch<16>(tracked, anchor, frame_stride, mv, out,
+                               t_count, fh, fw, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // stack: (t_count + 1, fh, fw) uint8, 16-byte aligned; mv: (t_count,
 // fh/block, fw/block, 2) int32 (x, y); out: (t_count, 9, fh/block,
@@ -152,14 +179,7 @@ int launch(const void* stack, const void* mv, void* out, int t_count, int fh,
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int block,
                                void* stream) {
-  if (reinterpret_cast<uintptr_t>(stack) % 16 || block < 4 || fh % block ||
-      fw % block) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (block) {
-    case 4: return launch<4>(stack, mv, out, t_count, fh, fw, stream);
-    case 8: return launch<8>(stack, mv, out, t_count, fh, fw, stream);
-    case 16: return launch<16>(stack, mv, out, t_count, fh, fw, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t plane = static_cast<size_t>(fh) * fw;
+  return launch_refine_sads(stack, static_cast<const uint8_t*>(stack) + plane,
+                            plane, mv, out, t_count, fh, fw, block, stream);
 }

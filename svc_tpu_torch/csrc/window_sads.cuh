@@ -1,5 +1,5 @@
-// The candidate-SAD kernel behind K3's general kernel, K7, K8 (refine)
-// and K9, templated on the plane layout and the output type.
+// The candidate-SAD kernel behind the general kernels of K3, K7, K8
+// (refine) and K9, templated on the plane layout and the output type.
 //
 // For MV block (by, bx) of frame t with rounded MV (mvx, mvy) and candidate
 // (oy, ox) in [0, 2r] x [0, 2r] (raster order), the SAD is

@@ -314,7 +314,13 @@ def _span_tables(out_n: int, in_n: int, block: int, tile: int):
     return i0, i1, frac, first, int((last - first).max()) + 1
 
 
-@functools.lru_cache(maxsize=16)
+# The device tables below are cached for the life of the process, never
+# evicted: a CUDA graph that captured a display kernel holds their raw
+# pointers, and an evicted (freed) table would be read by its replays. A
+# geometry's tables take O(out_h + out_w) words, and a process sees few.
+
+
+@functools.lru_cache(maxsize=None)
 def _span_tables_on(dev, out_n: int, in_n: int, block: int, tile: int):
     """:func:`_span_tables` for the general display kernels on ``dev``:
     ``(i0, i1, frac, first)`` as device tensors, copied once per geometry,
@@ -360,7 +366,7 @@ def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _band_tables_on(dev, out_h: int, in_h: int, nbx: int, t: int,
                     ctas_per_sm: int = _K1_CTAS_PER_SM):
     """:func:`_band_tables` for ``dev``: ``(y0, y1, fy, row_lo, band_b)``
@@ -506,7 +512,7 @@ def _strip_tables(out_w: int, in_w: int):
             (3 * lo).astype(np.int32))
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _strip_tables_on(dev, out_w: int, in_w: int):
     """:func:`_strip_tables` as device tensors, copied once per geometry."""
     col_e, col_f, strip_lo = _strip_tables(out_w, in_w)

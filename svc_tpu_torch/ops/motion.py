@@ -20,7 +20,10 @@ the plain version; a CUDA tensor launches the kernel or raises):
   blocks at ``r = 1`` (the default encoder's three levels), the general
   kernel ``csrc/refine_sads_general.cu`` otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
-  ``hbma``);
+  ``hbma``): K3's specialised kernel with the tracked and anchor planes as
+  two bases (``csrc/refine_mads.cu``) for square 4/8/16 blocks at
+  ``r = 1`` (the default per-frame search's three levels), the general
+  kernel ``csrc/refine_mads_general.cu`` otherwise;
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
   (``hbma_stack(..., base_pitched=...)``): ``csrc/refine_sads_pitched.cu``
   for 8 subplanes, square 16x16 blocks at ``r = 1`` (the pitched
@@ -31,10 +34,10 @@ the plain version; a CUDA tensor launches the kernel or raises):
   square 2x2 blocks at ``r = 1`` (the default encoder's top level), the
   general kernel ``csrc/candidate_sads_general.cu`` otherwise.
 
-K3's, K8's and K9's general kernels and K7 are one CUDA kernel
+K3's, K7's, K8's and K9's general kernels are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
-type; the specialised K3 and K8 share their SAD arithmetic
-(``csrc/refine_rows.cuh``). Every SAD kernel sums exact integers: bit-equal to its plain version
+type; the specialised K3 and K7 are one kernel, and share their SAD
+arithmetic with the specialised K8 (``csrc/refine_rows.cuh``). Every SAD kernel sums exact integers: bit-equal to its plain version
 on every entry. Tracked pixels outside the frame read as
 zero; candidates whose window leaves the frame are masked by the callers.
 
@@ -55,7 +58,7 @@ from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
-_K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's specialised kernel (r = 1)
+_K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's / K7's specialised kernel (r = 1)
 _K8_TBW, _K8_BLOCK = 8, 16  # subplanes and square MV block of K8's specialised refine
 
 REFINE_SADS = Kernel(
@@ -77,6 +80,13 @@ REFINE_MADS = Kernel(
     "svc_refine_mads",
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_mads.cu",
+    replaces="svc_tpu/ops/motion_pallas.py:541",
+)
+REFINE_MADS_GENERAL = Kernel(
+    "refine_mads_general",
+    "svc_refine_mads_general",
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/refine_mads_general.cu",
     replaces="svc_tpu/ops/motion_pallas.py:541",
 )
 CANDIDATE_SADS = Kernel(
@@ -270,6 +280,14 @@ def refine_mads_plain(
                        block_h)[0]
 
 
+def _refine_mads_specialised(block_w: int, block_h: int, r: int, tracked,
+                             anchor) -> bool:
+    """K7's specialised kernel is K3's: the same shapes, with the anchor
+    plane 16-byte aligned too; every other case runs the general kernel."""
+    return (_refine_specialised(block_w, block_h, r, tracked)
+            and anchor.data_ptr() % 16 == 0)
+
+
 def refine_mads(
     tracked: torch.Tensor,
     anchor: torch.Tensor,
@@ -277,13 +295,19 @@ def refine_mads(
     r: int,
     block_w: int,
     block_h: int,
+    *,
+    general: bool = False,
 ) -> torch.Tensor:
-    """Candidate SADs of one refinement level for one frame pair (K7).
+    """Candidate SADs of one refinement level for one frame pair (kernel
+    K7: K3's specialised kernel for square 4/8/16 blocks at ``r = 1``, the
+    general one otherwise).
 
     Args:
       tracked / anchor: ``(fh, fw)`` uint8 luma planes.
       mv: ``(mfh, mfw, 2)`` int32 rounded MVs ``(x, y)``; any values (odd,
         unbounded): each block's window is placed at its own MV.
+      general: launch the general kernel whatever the shape (the yardstick
+        the specialised one is held and timed against).
 
     Returns ``((2r+1)**2, mfh, mfw)`` int32 SADs in ``(oy, ox)`` raster
     order — the first ``(2r+1)**2`` rows of svc_tpu's
@@ -303,7 +327,10 @@ def refine_mads(
     if out.numel() == 0:
         return out
     with torch.cuda.device(tr.device):
-        REFINE_MADS.launch(
+        specialised = not general and _refine_mads_specialised(
+            block_w, block_h, r, tr, an)
+        kernel = REFINE_MADS if specialised else REFINE_MADS_GENERAL
+        kernel.launch(
             tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
             fh, fw, block_w, block_h, r, stream_handle(tr),
         )

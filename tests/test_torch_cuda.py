@@ -108,15 +108,57 @@ def test_refine_sads_unaligned_stack_takes_the_general_kernel(gen):
 @pytest.mark.parametrize("block,r,bound", [(4, 1, 2), (8, 1, 6), (16, 1, 14),
                                            (8, 3, 21), (16, 4, 40)])
 def test_refine_mads_bit_equal(gen, block, r, bound):
-    # one frame pair; odd MVs reaching past the frame edge
+    # one frame pair; odd MVs reaching past the frame edge; r = 1 takes the
+    # specialised kernel, r > 1 the general one
     tr, an = _u8(gen, (4 * block, 6 * block)), _u8(gen, (4 * block, 6 * block))
     mv = torch.randint(-bound, bound + 1, (4, 6, 2), generator=gen,
                        dtype=torch.int32).cuda()
-    before = motion.REFINE_MADS.launches
+    kernel = motion.REFINE_MADS if r == 1 else motion.REFINE_MADS_GENERAL
+    before = kernel.launches
     got = motion.refine_mads(tr, an, mv, r, block, block)
-    assert motion.REFINE_MADS.launches == before + 1
+    assert kernel.launches == before + 1
     assert got.shape == ((2 * r + 1) ** 2, 4, 6)
     assert torch.equal(got, motion.refine_mads_plain(tr, an, mv, r, block, block))
+
+
+def _k7_launches():
+    return motion.REFINE_MADS.launches, motion.REFINE_MADS_GENERAL.launches
+
+
+@pytest.mark.parametrize("block", [4, 8, 16])
+@pytest.mark.parametrize("kind", ["odd", "within40", "past_edges", "unaligned"])
+def test_refine_mads_specialised_equals_general(gen, block, kind):
+    # the specialised K7, the general K7, the plain version and K3 on the
+    # stacked pair agree on every candidate, valid or not; an anchor one
+    # byte into its buffer takes the general kernel
+    h, w = 5 * block, 40 * block
+    tr = _u8(gen, (h, w))
+    if kind == "unaligned":
+        flat = _u8(gen, (h * w + 1,))
+        an = flat[1:].view(h, w)
+        assert an.data_ptr() % 16 != 0
+    else:
+        an = _u8(gen, (h, w))
+    shape = (h // block, w // block, 2)
+    if kind == "odd":
+        mv = 2 * torch.randint(-7, 7, shape, generator=gen, dtype=torch.int32) + 1
+    elif kind == "within40":
+        mv = torch.randint(-40, 41, shape, generator=gen, dtype=torch.int32)
+    else:  # windows past every frame edge
+        mv = torch.randint(-w - 2 * block, w + 2 * block + 1, shape, generator=gen,
+                           dtype=torch.int32)
+    mv = mv.cuda()
+    before = _k7_launches()
+    got = motion.refine_mads(tr, an, mv, 1, block, block)
+    want = (before[0], before[1] + 1) if kind == "unaligned" else (
+        before[0] + 1, before[1])
+    assert _k7_launches() == want
+    gen_out = motion.refine_mads(tr, an, mv, 1, block, block, general=True)
+    assert _k7_launches() == (want[0], want[1] + 1)
+    k3 = motion.refine_sads(torch.stack((tr, an)), mv[None], 1, block, block)[0]
+    assert torch.equal(got, gen_out)
+    assert torch.equal(got, k3)
+    assert torch.equal(got, motion.refine_mads_plain(tr, an, mv, 1, block, block))
 
 
 @pytest.mark.parametrize("mv_pad", [0, 14])

@@ -147,6 +147,39 @@ def test_display_wrappers_copy_tables_once(meta_launches, monkeypatch, general):
     assert len(meta_launches) == 2 * len(calls)
 
 
+def _tensors(tables):
+    """The tensors of a cached table entry, in order."""
+    if isinstance(tables, torch.Tensor):
+        return [tables]
+    if isinstance(tables, (list, tuple)):
+        return [t for x in tables for t in _tensors(x)]
+    return []
+
+
+@pytest.mark.parametrize("cache", ["span", "band", "strip"])
+def test_device_tables_survive_twenty_geometries(monkeypatch, cache):
+    # a CUDA graph that captured a display kernel reads its tables through
+    # raw pointers: the device-table caches never evict, so the first
+    # geometry's tensors outlive 19 more geometries, the same objects at
+    # the same addresses
+    monkeypatch.setattr(dct, "_sm_count", lambda dev: SMS)
+    dev = torch.device("cpu")
+    build_tables = {
+        "span": lambda g: dct._span_tables_on(dev, 40 + g, 48, 8, 8),
+        "band": lambda g: dct._band_tables_on(dev, 40 + g, 48, 6, 2),
+        "strip": lambda g: dct._strip_tables_on(dev, 40 + g, 48),
+    }[cache]
+    first = _tensors(build_tables(0))
+    assert first
+    ptrs = [t.data_ptr() for t in first]
+    for g in range(1, 20):
+        build_tables(g)
+    again = _tensors(build_tables(0))
+    assert len(again) == len(first)
+    assert all(a is b for a, b in zip(again, first))
+    assert [t.data_ptr() for t in again] == ptrs
+
+
 def test_decoder_width_aligned_route_takes_specialised_k1(meta_launches,
                                                           monkeypatch):
     from svc_tpu_torch import config

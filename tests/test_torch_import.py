@@ -141,6 +141,7 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "idct_display_general", "refine_sads_general", "lloyd_general",
         "candidate_sads_general", "pyr_down_levels",
         "idct_resize_display_general", "refine_sads_pitched_general",
+        "refine_mads_general",
     }
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -159,7 +160,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "pyr_down_levels.cu", "idct_resize_general.cu",
             "idct8x8.cuh", "refine_sads_pitched_general.cu",
             "refine_rows.cuh", "pyr_down_pitched_levels.cu",
-            "pyr_down_levels.cuh"} <= srcs
+            "pyr_down_levels.cuh", "refine_mads_general.cu",
+            "refine_sads.cuh"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"

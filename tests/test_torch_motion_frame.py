@@ -112,7 +112,7 @@ def test_refine_bit_equal(mv_bound):
     assert (mv_t.numpy() != mv).any()  # some blocks moved
 
 
-@pytest.mark.parametrize("bound_in,bw,bh", [(14, 16, 16), (6, 8, 8)])
+@pytest.mark.parametrize("bound_in,bw,bh", [(14, 16, 16), (6, 8, 8), (2, 4, 4)])
 def test_refine_mads_plain_matches_pallas(bound_in, bw, bh):
     h, w, r = 64, 256, 1
     frames = _moving_stack(2, h, w, seed=bound_in)

@@ -1,5 +1,5 @@
-"""K3's and K5's dispatch (the specialised / cluster kernels and the general
-ones), the cluster kernel's slice geometry, and a CPU replay of its
+"""K3's, K7's and K5's dispatch (the specialised / cluster kernels and the
+general ones), the cluster kernel's slice geometry, and a CPU replay of its
 decomposition against ``lloyd_plain``.
 
 A meta device stands in for the card in the dispatch tests: shapes and
@@ -23,8 +23,8 @@ from svc_tpu_torch.ops import kmeans, motion, prng
 
 @pytest.fixture
 def meta_launches(monkeypatch):
-    """Route the K3 / K5 wrappers' CUDA path to a meta device; record each
-    launch as ``(kernel name, args)``."""
+    """Route the K3 / K7 / K5 wrappers' CUDA path to a meta device; record
+    each launch as ``(kernel name, args)``."""
     launched = []
     monkeypatch.setattr(
         motion, "_check_sad_args",
@@ -34,6 +34,7 @@ def meta_launches(monkeypatch):
         monkeypatch.setattr(mod, "stream_handle", lambda t: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     for k in (motion.REFINE_SADS, motion.REFINE_SADS_GENERAL,
+              motion.REFINE_MADS, motion.REFINE_MADS_GENERAL,
               motion.CANDIDATE_SADS, kmeans.LLOYD, kmeans.LLOYD_GENERAL):
         monkeypatch.setattr(k, "launch",
                             lambda *a, _k=k: launched.append((_k.name, a)))
@@ -85,6 +86,58 @@ def test_hbma_stack_default_levels_take_the_specialised_k3(meta_launches):
     assert blocks == [4, 8, 16]
 
 
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+
+def _meta_plane_at(offset, fh, fw):
+    """A meta ``(fh, fw)`` uint8 plane ``offset`` bytes into its buffer (a
+    meta tensor's ``data_ptr()`` is its view offset)."""
+    return _meta_u8(offset + fh * fw)[offset:].view(fh, fw)
+
+
+@pytest.mark.parametrize(
+    "bw,bh,r,general,anchor_offset,kernel",
+    [(4, 4, 1, False, 0, "refine_mads"), (8, 8, 1, False, 0, "refine_mads"),
+     (16, 16, 1, False, 0, "refine_mads"),
+     (16, 16, 1, False, 16, "refine_mads"),  # 16-byte aligned view
+     (4, 8, 1, False, 0, "refine_mads_general"),
+     (16, 16, 2, False, 0, "refine_mads_general"),
+     (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
+     (16, 16, 1, True, 0, "refine_mads_general")],
+)
+def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
+                              kernel):
+    fh, fw = 4 * bh, 6 * bw
+    tracked = _meta_plane_at(0, fh, fw)
+    anchor = _meta_plane_at(anchor_offset, fh, fw)
+    assert anchor.data_ptr() == anchor_offset
+    mv = torch.zeros((4, 6, 2), dtype=torch.int32, device="meta")
+    out = motion.refine_mads(tracked, anchor, mv, r, bw, bh, general=general)
+    assert out.dtype == torch.int32
+    assert tuple(out.shape) == ((2 * r + 1) ** 2, 4, 6)
+    ((name, args),) = meta_launches
+    assert name == kernel
+    k = motion.REFINE_MADS if kernel == "refine_mads" else motion.REFINE_MADS_GENERAL
+    assert len(args) == len(k.argtypes)
+    assert args[1] == anchor_offset  # the anchor plane itself, not a copy
+    assert args[4:9] == (fh, fw, bw, bh, r)
+
+
+def test_hbma_default_levels_take_the_specialised_k7(meta_launches):
+    # the default per-frame search (16x16 MV blocks, range 8, 4 levels) on
+    # one padded 1080p pair: the top-level EBMA on K9, then levels 2, 1, 0
+    # on the specialised K7
+    pyr = [_meta_u8(2, 1088 >> lvl, 1920 >> lvl) for lvl in range(4)]
+    mv, mm = motion.hbma([p[0] for p in pyr], [p[1] for p in pyr], 8, 16, 16)
+    assert tuple(mv.shape) == (68, 120, 2) and tuple(mm.shape) == (68, 120)
+    names = [name for name, _ in meta_launches]
+    assert names == ["candidate_sads"] + ["refine_mads"] * 3
+    blocks = [args[6:8] for name, args in meta_launches if name == "refine_mads"]
+    assert blocks == [(4, 4), (8, 8), (16, 16)]
+
+
 def test_k3_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
     cases = set(map(int, re.findall(r"case (\d+): return launch<", src)))
@@ -93,6 +146,18 @@ def test_k3_host_constants_match_the_kernel_source():
     assert '#include "refine_rows.cuh"' in src
     rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
     assert "constexpr int kCand = 9;" in rows
+
+
+def test_k7_entry_launches_k3s_kernel():
+    # one kernel body for K3 and K7: refine_mads.cu launches K3's kernel
+    # through its shared launcher; the window-per-warp kernel is the general
+    # entry's only
+    src = (build.CSRC_DIR / "refine_mads.cu").read_text()
+    assert '#include "refine_sads.cuh"' in src
+    assert "launch_refine_sads(" in src
+    assert '#include "window_sads.cuh"' not in src
+    general = (build.CSRC_DIR / "refine_mads_general.cu").read_text()
+    assert '#include "window_sads.cuh"' in general
 
 
 # ---------------------------------------------------------------------------
