@@ -79,10 +79,21 @@ each:
     its fps and its Tracer split per batch (``parse``,
     ``device_dispatch``, ``device_fetch``, ``serialize``, the rest as
     ``other``), the medians and spreads, and the 56.0 MB frame H2D and
-    200.5 MB coefficient D2H from pageable and from pinned memory.
+    200.5 MB coefficient D2H from pageable and from pinned memory;
+12. RANSAC subsets — the first 3 frames of the 1080p clip encoded with
+    3-vector subsets on ``cuda`` and on the CPU (MV fields, inlier masks
+    and global motion equal), 8-vector subsets (1177 hypotheses) on one
+    frame's field on both, a 9-frame clip streamed at subset 3 (K1-K5 and
+    K9 must run, no general kernel), and ``estimate_global_motion_ransac``
+    timed per 8-frame batch at subsets 1, 3 and 8;
+13. frame-parallel split — ``ShardedEncoder`` and the device-list
+    ``Decoder`` over two entries (two cards when there are, else
+    ``[cuda:0, cuda:0]``), 4 anchors each: phase 4's 17-frame clip gives
+    its stream byte for byte and its decoded frames (K1-K5 and K9 must
+    run, no general kernel), then single-device and split fps in turns.
 
-Each path of phases 4-7, 9 and 10 runs with the launch counters set to 0
-just before it and read just after. The second-to-last line is a JSON
+Each path of phases 4-7, 9, 10, 12 and 13 runs with the launch counters set
+to 0 just before it and read just after. The second-to-last line is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -1309,6 +1320,118 @@ def pitched_motion(clip: np.ndarray, dev):
     return dict(counts=counts)
 
 
+def ransac_subsets(main_run, card: str, dev, required, forbidden):
+    """Phase 12: RANSAC with 3-vector subsets at 1080p on ``cuda``. The
+    first 3 frames against the CPU port (MV fields, inlier masks, global
+    motion equal); subset 8 (1177 hypotheses) on one frame's field against
+    the CPU port; a 9-frame clip streamed at subset 3 with phase 4's launch
+    check; ``estimate_global_motion_ransac``'s time per 8-frame batch at
+    subsets 1, 3 and 8."""
+    from svc_tpu_torch.config import EncoderConfig, RansacParams, VideoProperties
+    from svc_tpu_torch.models.encoder import Encoder
+    from svc_tpu_torch.ops import prng, ransac
+
+    clip = main_run["clip"]
+    h, w = clip.shape[1:3]
+    cfg3 = EncoderConfig(ransac=RansacParams(subset_sz=3))
+    props = VideoProperties(w, h, len(clip))
+    o_gpu = Encoder(cfg3, props, batch_size=2, device=dev).encode_batch(clip[:3], 0)
+    o_cpu = Encoder(cfg3, props, batch_size=2, device="cpu").encode_batch(clip[:3], 0)
+    for key in ("mv_field", "foreground_mask_raw", "global_motion"):
+        if not torch.equal(o_gpu[key].cpu(), o_cpu[key]):
+            fail(f"phase 12: subset 3 {key} differs between cuda and cpu")
+    if not torch.allclose(o_gpu["ransac_rmse"].cpu(), o_cpu["ransac_rmse"], rtol=1e-6):
+        fail("phase 12: subset 3 RMSE differs between cuda and cpu beyond rtol 1e-6")
+
+    run = round_trip(cfg3, w, h, 9, required, forbidden)
+
+    enc = main_run["enc"]
+    packed = torch.as_tensor(clip[:9]).reshape(9, h, w * 3).to(dev)
+    mv = enc.encode_packed(packed, 0)["mv_field"]  # (8, 68, 120, 2)
+    keys = prng.split(enc._keys(0, 8))[:, 0]
+    p8 = RansacParams(subset_sz=8)
+    one = ransac.estimate_global_motion_ransac(mv[:1], p8, keys[:1])
+    ref = ransac.estimate_global_motion_ransac(mv[:1].cpu(), p8, keys[:1].cpu())
+    if not (torch.equal(one[0].cpu(), ref[0]) and torch.equal(one[2].cpu(), ref[2])):
+        fail("phase 12: subset 8 global motion or inliers differ between cuda and cpu")
+    if not torch.allclose(one[1].cpu(), ref[1], rtol=1e-6):
+        fail("phase 12: subset 8 RMSE differs between cuda and cpu beyond rtol 1e-6")
+    times = []
+    for m in (1, 3, 8):
+        p = RansacParams(subset_sz=m)
+        ms = cuda_ms(lambda: ransac.estimate_global_motion_ransac(mv, p, keys),
+                     iters=5, warmup=1)
+        times.append(f"subset {m} ({ransac.iter_count(p)} hypotheses) {ms:.3f} ms")
+    print(f"  first 3 frames at subset 3: MV fields, inlier masks, global motion "
+          f"equal to the CPU port; subset 8 on frame 1 equal to the CPU port; "
+          f"estimate_global_motion_ransac per 1080p batch of 8 [{card}]: "
+          f"{'; '.join(times)}")
+    return run
+
+
+def sharded_run(main_run, card: str, required, forbidden):
+    """Phase 13: the split over two device entries (two cards when there
+    are, else ``[cuda:0, cuda:0]``), 4 anchors each: phase 4's 17-frame
+    clip through ``stream_encode`` byte-equal to the main run's stream, the
+    split decoder's frames equal to its frames, launches checked; then
+    single-device and split encode and decode fps in turns."""
+    from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+    from svc_tpu_torch.kernels import build
+    from svc_tpu_torch.models.decoder import Decoder
+    from svc_tpu_torch.models.encoder import stream_encode
+    from svc_tpu_torch.parallel.sharding import ShardedEncoder, make_frame_devices
+
+    if torch.cuda.device_count() >= 2:
+        devs = make_frame_devices(2, device="cuda")
+    else:
+        devs = make_frame_devices(devices=["cuda:0", "cuda:0"])
+    clip, payloads = main_run["clip"], main_run["payloads"]
+    h, w = clip.shape[1:3]
+    gazes = [main_run["gaze"]] * len(payloads)
+    enc = ShardedEncoder(EncoderConfig(), VideoProperties(w, h, len(clip)), devs,
+                         batch_per_device=4)
+    dec = Decoder(DecoderConfig(), main_run["header"], batch_size=8, devices=devs)
+    build.reset_launch_counts()
+    stream = b"".join(stream_encode(enc, iter(clip)))
+    frames = np.stack(list(dec.decode_frames(iter(payloads), iter(gazes))))
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    if stream != main_run["stream"]:
+        fail(f"phase 13: split stream differs from the single-device stream "
+             f"({len(stream)} against {len(main_run['stream'])} bytes)")
+    if not np.array_equal(frames, main_run["frames"]):
+        fail("phase 13: split decode differs from the single-device decode")
+    missing = [k for k in required if counts[k] <= 0]
+    stray = [k for k in forbidden if counts[k] != 0]
+    if missing or stray:
+        fail(f"phase 13: kernels never launched {missing}, launched against "
+             f"the shapes {stray}")
+
+    def fps(leg, e, d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if leg == "encode":
+            n = sum(1 for _ in stream_encode(e, iter(clip))) - 1
+        else:
+            n = sum(1 for _ in d.decode_frames(iter(payloads), iter(gazes)))
+        return n / (time.perf_counter() - t0)
+
+    single = (main_run["enc"], main_run["dec"])
+    lines = []
+    for leg in ("encode", "decode"):
+        got = {"single": [], "split": []}
+        for kind in ("single", "split", "split", "single"):
+            e, d = single if kind == "single" else (enc, dec)
+            got[kind].append(fps(leg, e, d))
+        lines.append(f"{leg} single-device {', '.join(f'{x:.2f}' for x in got['single'])}"
+                     f" fps, split {', '.join(f'{x:.2f}' for x in got['split'])} fps")
+    print(f"  devices {[str(d) for d in devs]}, 4 anchors each: stream "
+          f"byte-equal ({len(stream)} bytes), decoded frames equal; launches "
+          f"{counts}")
+    print(f"  in turns (single, split, split, single), 16 payloads [{card}]: "
+          f"{'; '.join(lines)}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "svc_tpu_torch")):
         fail("svc_tpu_torch/ not found beside chip_smoke.py; run it from the "
@@ -1511,6 +1634,16 @@ def main() -> int:
           f"per-frame hbma {hbma_ms:.3f} ms per 1080p pair")
     print("timings, synchronous-direct against staged, in turns:")
     print(f"  {phase_overlap(main_run, card, dev)}")
+
+    # 12. RANSAC subsets at 1080p: subset 3 on the main path's kernels
+    print("RANSAC subsets 1080p (default config, subset 3; 9 frames):")
+    ransac_subsets(main_run, card, dev, encode_kernels + ("lloyd", "idct_display"),
+                   general_dct + general_k3_k5 + general_k6)
+
+    # 13. the frame-parallel split on the card
+    print("frame-parallel split 1080p, 17 frames, default config:")
+    sharded_run(main_run, card, encode_kernels + ("lloyd", "idct_display"),
+                general_dct + general_k3_k5 + general_k6)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))

@@ -13,13 +13,18 @@ Port-specific: ``--device cuda|cpu`` (default ``cuda``).
   --start-frame N   decode from payload N (the stream is random access)
   --trace PATH      dump the host spans (parse, device_dispatch,
                     device_fetch) as JSON and print a summary to stderr
+  --devices N       split each batch across N devices (``--device cuda``:
+                    cards 0..N-1; ``cpu``: N CPU chunks) of
+                    ``ceil(batch / N)`` frames; identical frames
+  --show 1          display the frames in an OpenCV window whose gaze
+                    follows the mouse, the reference's GUI (needs cv2;
+                    batch 1, one device)
 
 The decode runs svc_tpu's thread layout (svc_tpu/apps/decoder_app.py:
 220-241, the reference's apps/decoder.cpp:55-88): a reader thread streams
 payloads through a bounded queue (capacity 100) while the main thread
 decodes, staging each batch's coefficients one batch ahead and keeping one
-batch in flight. ``--devices`` and ``--show`` are accepted by name but exit
-with status 1.
+batch in flight.
 """
 
 from __future__ import annotations
@@ -35,9 +40,6 @@ from svc_tpu_torch.io.video import write_npy_video, write_y4m_video
 from svc_tpu_torch.runtime.pipeline import BoundedQueue, pipeline_threads
 from svc_tpu_torch.runtime.tracing import Tracer
 from svc_tpu_torch.utils import cli
-from svc_tpu_torch.apps import UNSUPPORTED
-
-_UNSUPPORTED_FLAGS = ("devices", "show")
 
 
 class _AppConfig:
@@ -52,15 +54,16 @@ class _AppConfig:
         self.max_frames = 0  # 0 = all
         self.trace: Optional[str] = None
         self.device = "cuda"
-        self.unsupported: List[str] = []
+        self.devices = 0  # 0 = single device
+        self.show = 0
 
 
 def _opts(c: _AppConfig) -> List[cli.Opt]:
     d = c.decoder
-    U, S = cli.OptArgType.UINT, cli.OptArgType.STRING
+    U, I, S = cli.OptArgType.UINT, cli.OptArgType.INT, cli.OptArgType.STRING
     P = cli.OptArgType.PATH
     fs = cli.field_setter
-    opts = [
+    return [
         cli.Opt("foreground-quant-step", U, fs(d, "foreground_quant_step")),
         cli.Opt("background-quant-step", U, fs(d, "background_quant_step")),
         cli.Opt("max-gaze-rect-w", U, fs(d, "max_gaze_rect_w")),
@@ -75,11 +78,10 @@ def _opts(c: _AppConfig) -> List[cli.Opt]:
         cli.Opt("start-frame", U, fs(c, "start_frame")),
         cli.Opt("max-frames", U, fs(c, "max_frames")),
         cli.Opt("trace", P, fs(c, "trace")),
+        cli.Opt("devices", U, fs(c, "devices")),
+        cli.Opt("show", I, fs(c, "show")),
         cli.Opt("device", S, fs(c, "device")),
     ]
-    for name in _UNSUPPORTED_FLAGS:
-        opts.append(cli.Opt(name, P, lambda _v, n=name: c.unsupported.append(n)))
-    return opts
 
 
 def _parse_gazes(
@@ -133,9 +135,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
-    if cfg.unsupported:
-        print(f"--{cfg.unsupported[0]}: {UNSUPPORTED}", file=sys.stderr)
-        return 1
     err = validate_decoder_config(cfg.decoder)
     if not err.ok:
         print(f"validating config: {err.message}", file=sys.stderr)
@@ -160,12 +159,26 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         from svc_tpu_torch.models.decoder import Decoder
 
+        if cfg.show:
+            # latency over throughput in the GUI: one frame a batch, one
+            # device
+            cfg.batch_size = 1
+            cfg.devices = 0
         try:
-            decoder = Decoder(
-                cfg.decoder, header, batch_size=cfg.batch_size,
-                device=cfg.device,
-            )
-        except (NotImplementedError, RuntimeError, ValueError) as e:
+            if cfg.devices > 1:
+                from svc_tpu_torch.parallel.sharding import make_frame_devices
+
+                per_dev = -(-cfg.batch_size // cfg.devices)
+                decoder = Decoder(
+                    cfg.decoder, header, batch_size=per_dev * cfg.devices,
+                    devices=make_frame_devices(cfg.devices, device=cfg.device),
+                )
+            else:
+                decoder = Decoder(
+                    cfg.decoder, header, batch_size=cfg.batch_size,
+                    device=cfg.device,
+                )
+        except (RuntimeError, ValueError) as e:
             print(f"creating decoder: {e}", file=sys.stderr)
             return 1
 
@@ -174,8 +187,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if cfg.max_frames:
             count = min(count, cfg.max_frames)
         try:
-            gazes = _parse_gazes(cfg, header.frame_count)[start:start + count]
             bitstream.seek_to_frame(stream, header, start)
+            if cfg.show:
+                return _run_gui(decoder, stream, header, count)
+            gazes = _parse_gazes(cfg, header.frame_count)[start:start + count]
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
@@ -214,6 +229,41 @@ def main(argv: Optional[List[str]] = None) -> int:
     if cfg.trace:
         tracer.dump(cfg.trace)
         print(tracer.report(), file=sys.stderr)
+    return 0
+
+
+def _run_gui(decoder, stream, header, count: int) -> int:
+    """The reference's GUI (libs/decoder.cpp:151-216): each decoded frame
+    in a window, the gaze of each next frame where the mouse last moved,
+    until a key is pressed. The stream is already at ``--start-frame``;
+    ``count`` honours ``--max-frames``."""
+    try:
+        import cv2
+    except ImportError:
+        print("--show requires OpenCV (cv2)", file=sys.stderr)
+        return 1
+
+    window = "Decoded Video"
+    cv2.namedWindow(window)
+    mouse = {"x": 0, "y": 0}
+
+    def on_mouse(event, x, y, _flags, _param):
+        if event == cv2.EVENT_MOUSEMOVE:
+            mouse["x"], mouse["y"] = x, y
+
+    cv2.setMouseCallback(window, on_mouse)
+
+    def gaze_stream():
+        for _ in range(count):
+            yield (mouse["x"], mouse["y"])
+
+    for frame in decoder.decode_frames(
+        bitstream.read_frames(stream, header, count), gaze_stream()
+    ):
+        cv2.imshow(window, frame)
+        if cv2.waitKey(1) >= 0:
+            break
+    cv2.destroyAllWindows()
     return 0
 
 

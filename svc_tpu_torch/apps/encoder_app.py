@@ -28,8 +28,10 @@ writer thread. A reader failure fails the run (no short stream with status
   --profile DIR     torch.profiler Chrome trace of the run in DIR/trace.json
   --visualize DIR   dump the seven-view composite of every payload frame
   --show 1          show it live in a window (needs OpenCV)
-
-``--devices`` is accepted by name but exits with status 1.
+  --devices N       split each batch across N devices (``--device cuda``:
+                    cards 0..N-1; ``cpu``: N CPU chunks), ``--batch-size``
+                    anchors each (``parallel.sharding.ShardedEncoder``);
+                    the stream is byte-identical to the single-device one
 """
 
 from __future__ import annotations
@@ -43,9 +45,6 @@ from svc_tpu_torch.runtime import native
 from svc_tpu_torch.runtime.pipeline import BoundedQueue, CancelToken, pipeline_threads
 from svc_tpu_torch.runtime.tracing import Tracer, device_profile
 from svc_tpu_torch.utils import cli
-from svc_tpu_torch.apps import UNSUPPORTED
-
-_UNSUPPORTED_FLAGS = ("devices",)
 
 
 class _AppConfig:
@@ -63,7 +62,7 @@ class _AppConfig:
         self.trace: Optional[str] = None
         self.profile: Optional[str] = None
         self.device = "cuda"
-        self.unsupported: List[str] = []
+        self.devices = 0  # 0 = single device
 
 
 def _opts(c: _AppConfig) -> List[cli.Opt]:
@@ -76,7 +75,7 @@ def _opts(c: _AppConfig) -> List[cli.Opt]:
     )
     P = cli.OptArgType.PATH
     fs = cli.field_setter
-    opts = [
+    return [
         cli.Opt("mv-block-w", U, fs(e, "mv_block_w")),
         cli.Opt("mv-block-h", U, fs(e, "mv_block_h")),
         cli.Opt("pyr-lvl-count", U, fs(e, "pyr_lvl_count")),
@@ -119,10 +118,8 @@ def _opts(c: _AppConfig) -> List[cli.Opt]:
         cli.Opt("trace", P, fs(c, "trace")),
         cli.Opt("profile", P, fs(c, "profile")),
         cli.Opt("device", S, fs(c, "device")),
+        cli.Opt("devices", U, fs(c, "devices")),
     ]
-    for name in _UNSUPPORTED_FLAGS:
-        opts.append(cli.Opt(name, P, lambda _v, n=name: c.unsupported.append(n)))
-    return opts
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -136,9 +133,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"{cli.status_message(status)}",
             file=sys.stderr,
         )
-        return 1
-    if cfg.unsupported:
-        print(f"--{cfg.unsupported[0]}: {UNSUPPORTED}", file=sys.stderr)
         return 1
     if len(argv) < argi + 1:
         print(
@@ -168,13 +162,29 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"  Width: {props.frame_w}", file=sys.stderr)
             print(f"  Height: {props.frame_h}", file=sys.stderr)
             print(f"  Frame count: {props.frame_count}", file=sys.stderr)
+        # the visualizers are the only consumers of the padded planes
+        keep_planes = bool(cfg.visualize or cfg.show)
         try:
-            # the visualizers are the only consumers of the padded planes
-            encoder = Encoder(
-                cfg.encoder, props, batch_size=cfg.batch_size,
-                device=cfg.device, keep_planes=bool(cfg.visualize or cfg.show),
-            )
-        except (NotImplementedError, RuntimeError, ValueError) as e:
+            if cfg.devices > 1:
+                from svc_tpu_torch.parallel.sharding import (
+                    ShardedEncoder,
+                    make_frame_devices,
+                )
+
+                encoder = ShardedEncoder(
+                    cfg.encoder, props,
+                    make_frame_devices(cfg.devices, device=cfg.device),
+                    batch_per_device=cfg.batch_size, keep_planes=keep_planes,
+                )
+                if cfg.verbose:
+                    print(f"sharding {encoder.batch_size}-frame batches "
+                          f"across {cfg.devices} devices", file=sys.stderr)
+            else:
+                encoder = Encoder(
+                    cfg.encoder, props, batch_size=cfg.batch_size,
+                    device=cfg.device, keep_planes=keep_planes,
+                )
+        except (RuntimeError, ValueError) as e:
             print(f"creating encoder: {e}", file=sys.stderr)
             return 1
         device = encoder.device

@@ -16,6 +16,13 @@ Routes, by geometry:
 
 On the CPU both routes run the kernels' plain PyTorch versions.
 
+With a device list (``devices=``, ``parallel.sharding.make_frame_devices``)
+a batch splits into one chunk of frames per entry, each decoded by the
+same single-device program on its own device and gathered back in order
+onto the first: frames are data-parallel in decode (each depends only on
+its own payload and gaze rect), so no collective is needed and the frames
+equal the single-device ones.
+
 Every route returns uint8 packed ``(T, H, W*C)`` rows.
 
 ``decode_frames`` streams the way ``svc_tpu`` does: wire coefficients are
@@ -27,7 +34,7 @@ is read back (pinned D2H on a second copy stream) only after batch
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +44,7 @@ from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.utils.mathx import round_half_away_from_zero
 from svc_tpu_torch.ops.dct import idct_display, idct_resize_display
 from svc_tpu_torch.ops.quant import block_quant_steps
-from svc_tpu_torch.runtime.device import DeviceLike, resolve_device
+from svc_tpu_torch.runtime.device import DeviceLike, device_scope, resolve_device
 from svc_tpu_torch.runtime.staging import (
     DoubleBufferedStager,
     PinnedDownload,
@@ -78,6 +85,9 @@ class Decoder:
       header: bitstream header.
       batch_size: frames decoded per batch.
       device: ``"cuda"`` (kernels K1 / K6) or ``"cpu"`` (plain PyTorch).
+      devices: optional device list (an entry may repeat); each batch
+        splits into ``len(devices)`` equal chunks of frames, one per
+        entry, and ``device`` is ignored. ``batch_size`` must divide.
     """
 
     def __init__(
@@ -86,13 +96,23 @@ class Decoder:
         header: bitstream.Header,
         batch_size: int = 8,
         device: DeviceLike = "cuda",
+        devices: Optional[Sequence[DeviceLike]] = None,
     ):
         self.cfg = cfg
         self.header = header
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        if devices:
+            self.devices = [resolve_device(d) for d in devices]
+            if batch_size % len(self.devices):
+                raise ValueError(
+                    f"batch size {batch_size} must divide across "
+                    f"{len(self.devices)} devices"
+                )
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]  # where the frames are gathered
         self.width_aligned = header.frame_w == header.padded_frame_w
-        self._upload = PinnedUpload(self.device)
+        self._uploads = [PinnedUpload(d) for d in self.devices]
 
     def padded_gaze_rect(
         self, gaze: Optional[Tuple[int, int]]
@@ -133,17 +153,30 @@ class Decoder:
             self.cfg.foreground_quant_step, self.cfg.background_quant_step,
         )
 
-    def stage_coeffs(self, coeffs) -> Staged:
+    def _split(self, items) -> list:
+        """``items`` (T frames) as one equal chunk per device."""
+        n = len(self.devices)
+        if len(items) % n:
+            raise ValueError(f"{len(items)} frames do not split across {n} devices")
+        per = len(items) // n
+        return [items[i * per:(i + 1) * per] for i in range(n)]
+
+    def stage_coeffs(self, coeffs):
         """Ship host wire coefficients to the device for
         :meth:`decode_batch`: a ``(T, nby, nbx, C*bh*bw)`` float32 array or
         a sequence of T ``(nby, nbx, C*bh*bw)`` ones, stacked straight into
         one of two reused pinned buffers and copied on the copy stream
-        (``cuda``). Safe to call from the stager's worker thread."""
+        (``cuda``). Safe to call from the stager's worker thread. With a
+        device list, a list of one :class:`Staged` chunk per device."""
         h = self.header
         nby = h.padded_frame_h // h.transform_block_h
         nbx = h.padded_frame_w // h.transform_block_w
         per_block = h.channel_count * h.transform_block_h * h.transform_block_w
-        return self._upload(coeffs, (len(coeffs), nby, nbx, per_block), torch.float32)
+        staged = [
+            up(c, (len(c), nby, nbx, per_block), torch.float32)
+            for up, c in zip(self._uploads, self._split(coeffs))
+        ]
+        return staged[0] if len(staged) == 1 else staged
 
     def decode_batch(self, coeffs, block_types, gaze_rects) -> torch.Tensor:
         """Decode one batch to packed ``(T, H, W*C)`` uint8 rows.
@@ -155,8 +188,22 @@ class Decoder:
           block_types: ``(T, nby, nbx)`` wire block types.
           gaze_rects: ``(T, 4)`` padded-space ``(x, y, w, h)`` rects.
         """
+        if len(self.devices) == 1:
+            return self._decode_on(self.device, coeffs, block_types, gaze_rects)
+        if not isinstance(coeffs, list) or not isinstance(coeffs[0], Staged):
+            coeffs = self._split(coeffs)
+        rows = []
+        for dev, c, bt, r in zip(
+            self.devices, coeffs, self._split(np.asarray(block_types)),
+            self._split(np.asarray(gaze_rects)),
+        ):
+            with device_scope(dev):
+                rows.append(self._decode_on(dev, c, bt, r))
+        return torch.cat([r.to(self.device) for r in rows])
+
+    def _decode_on(self, dev, coeffs, block_types, gaze_rects) -> torch.Tensor:
+        """The single-device program on ``dev``."""
         h = self.header
-        dev = self.device
         if isinstance(coeffs, Staged):
             c = coeffs.take()
         else:

@@ -14,7 +14,11 @@ default), so both packages draw the same bits:
 * :func:`randint` — ``jax.random.randint`` for int32 (two bit streams from
   a split key, combined modulo the span);
 * :func:`uniform` — ``jax.random.uniform`` for float32 (23 mantissa bits
-  under exponent 0, shifted to ``[minval, maxval)``).
+  under exponent 0, shifted to ``[minval, maxval)``);
+* :func:`permutation` — ``jax.random.permutation(key, n)``: ``_shuffle``'s
+  rounds of a stable sort of ``arange(n)`` by fresh 32-bit keys;
+* :func:`choice` — ``jax.random.choice(key, n, (m,), replace=False)``, the
+  first ``m`` entries of that permutation.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words (torch's
 uint32 support is thin, so 32-bit words live in int64 and every add,
@@ -136,3 +140,63 @@ def uniform(
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+#: Rows of ``n`` sort keys drawn at once by :func:`permutation`: bounds
+#: the int64 temporaries of the cipher and the sort (~128 MB each).
+_PERMUTATION_CHUNK = 1 << 24
+
+
+def shuffle_rounds(n: int) -> int:
+    """Sort rounds of ``jax.random``'s ``_shuffle`` over ``n`` elements:
+    ``ceil(3 ln n / ln(2**32 - 1))`` in float64 (1 up to n = 1625, then 2
+    up to ~2.6e6)."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.float64(_M))))
+
+
+def _permute_rows(k: torch.Tensor, n: int, rounds: int) -> torch.Tensor:
+    """:func:`permutation` of ``(R, 2)`` keys: ``(R, n)`` int64."""
+    perm = torch.arange(n, dtype=torch.int64, device=k.device).expand(
+        k.shape[0], n
+    )
+    for _ in range(rounds):
+        ks = split(k)
+        k, sub = ks[:, 0], ks[:, 1]  # [0] carried, [1] drawn from
+        # the sort keys belong to positions of the current permutation,
+        # not to the original indices
+        perm = sort_by_keys(perm, random_bits(sub, (n,)))
+    return perm.contiguous()
+
+
+def sort_by_keys(values: torch.Tensor, sort_keys: torch.Tensor) -> torch.Tensor:
+    """One shuffle round, ``lax.sort_key_val(sort_keys, values)`` along the
+    last axis: a stable sort, so equal keys keep their position order
+    (int64-held 32-bit words sort as uint32)."""
+    order = torch.sort(sort_keys, dim=-1, stable=True).indices
+    return torch.gather(values, -1, order)
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for every key: ``(*key_lead, n)``
+    int64. The keys' rows are drawn in chunks; each row's draw depends on
+    its key alone, so the chunking changes no bit."""
+    lead = k.shape[:-1]
+    rows = k.reshape(-1, 2)
+    rounds = shuffle_rounds(n)
+    step = max(1, _PERMUTATION_CHUNK // max(n, 1))
+    parts = [
+        _permute_rows(rows[i:i + step], n, rounds)
+        for i in range(0, rows.shape[0], step)
+    ]
+    return torch.cat(parts).reshape(lead + (n,))
+
+
+def choice(k: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """``jax.random.choice(key, n, (m,), replace=False)`` for every key:
+    ``(*key_lead, m)`` int64 distinct indices in ``[0, n)``."""
+    if m > n:
+        raise ValueError(
+            f"cannot take a larger sample (size {m}) than population "
+            f"(size {n}) without replacement"
+        )
+    return permutation(k, n)[..., :m]

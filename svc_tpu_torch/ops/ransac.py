@@ -12,9 +12,11 @@ against the whole motion field in one ``(k, N)`` broadcast:
 * refit: mean + RMSE over the best hypothesis's inliers; the degenerate case
   (fewer inliers than the subset) keeps the hypothesis and its subset RMSE.
 
-Batched over leading frame dims, one key per frame. Only ``subset_sz == 1``
-(the reference default) is implemented: larger subsets draw without
-replacement through ``jax.random.choice``, which the port does not carry yet.
+Batched over leading frame dims, one key per frame. A 1-subset is one
+``randint`` draw per hypothesis; a larger subset splits the frame's key into
+one key per hypothesis and draws ``choice(..., replace=False)`` from each
+(``ops.prng``), as ``svc_tpu`` does. Subset means are summed in index order
+and divided, jnp's float32 ``mean``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,26 @@ def iter_count(params: RansacParams, max_hypotheses: int = 65536) -> int:
     return min(int(math.ceil(float(ratio))), max_hypotheses)
 
 
+def _take(f: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``f[i, idx[i]]`` per frame: ``(F, N)`` at ``(F, k, m)`` indices."""
+    return torch.gather(f, 1, idx.reshape(f.shape[0], -1)).reshape(idx.shape)
+
+
+def _mean_last(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, summed in index order from 0 then divided
+    (jnp.mean's float32 order; exact for the integer MVs of the encoder).
+    A 1-subset is its own mean (the MVs and squared errors are never -0)."""
+    if x.shape[-1] == 1:
+        return x[..., 0]
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    # a device tensor: CUDA divides by a host scalar through its
+    # reciprocal; filled on the device, as a copy from pageable memory
+    # would sync the stream
+    return acc / torch.full((), float(x.shape[-1]), dtype=x.dtype, device=x.device)
+
+
 def estimate_global_motion_ransac(
     motion_field: torch.Tensor, params: RansacParams, keys: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -93,16 +115,13 @@ def estimate_global_motion_ransac(
             torch.zeros((f,), dtype=torch.float32, device=dev),
             torch.zeros(lead, dtype=torch.bool, device=dev),
         )
-    if params.subset_sz != 1:
-        raise NotImplementedError(
-            "svc_tpu_torch RANSAC implements subset_sz == 1 only (the "
-            "reference default); larger subsets need jax.random.choice's "
-            "without-replacement draw, not yet ported"
-        )
-
-    idx = prng.randint(keys, (k, 1), 0, n_points).to(torch.int64)  # (F, k, 1)
-    gm0 = torch.gather(f0, 1, idx[..., 0])  # mean of a 1-subset: exact
-    gm1 = torch.gather(f1, 1, idx[..., 0])
+    m = params.subset_sz
+    if m == 1:
+        idx = prng.randint(keys, (k, 1), 0, n_points).to(torch.int64)
+    else:
+        idx = prng.choice(prng.split(keys, k), n_points, m)  # (F, k, m)
+    gm0 = _mean_last(_take(f0, idx))  # hypothesis models: subset means
+    gm1 = _mean_last(_take(f1, idx))
 
     d0 = gm0[:, :, None] - f0[:, None, :]
     d1 = gm1[:, :, None] - f1[:, None, :]
@@ -117,7 +136,7 @@ def estimate_global_motion_ransac(
     best_gm = torch.stack([gm0[rows, best], gm1[rows, best]], dim=-1)
     best_count = counts[rows, best]
     best_mask = inliers[rows, best]  # (F, N)
-    best_subset = idx[rows, best]  # (F, 1)
+    best_subset = idx[rows, best]  # (F, m)
 
     degenerate = best_count < params.subset_sz
     denom = torch.clamp(best_count, min=1).to(torch.float32)
@@ -137,6 +156,6 @@ def estimate_global_motion_ransac(
     rmse_inliers = torch.sqrt(
         torch.where(best_mask, err2_final, zero).sum(dim=1) / denom
     )
-    rmse_subset = torch.sqrt(torch.gather(err2_final, 1, best_subset).mean(dim=1))
+    rmse_subset = torch.sqrt(_mean_last(torch.gather(err2_final, 1, best_subset)))
     rmse = torch.where(degenerate, rmse_subset, rmse_inliers)
     return gm, rmse, best_mask.reshape(lead)

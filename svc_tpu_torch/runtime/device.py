@@ -7,6 +7,7 @@ card is an error: nothing silently runs on the CPU in its place.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -36,3 +37,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "'cpu' (plain PyTorch) or 'cuda' (hand-written kernels)"
         )
     return dev
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` current for the work queued inside (``cuda``: the
+    kernels launch on its context and its current stream); a no-op on the
+    CPU."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -1,10 +1,12 @@
 """The port's CLIs, in-process through ``main(argv)`` with ``--device cpu``
 on a tiny .npy clip: same flags and outputs as the library (through the
 native writer and the Python writer thread alike), ``--trace``,
-``--profile``, ``--visualize`` and the decoder's ``--start-frame``,
-unsupported flags refused with status 1, a failing reader failing the run,
-and no silent CPU fallback for ``cuda``; the encoder runs the default
-config unless ``--reference-compat 1``."""
+``--profile``, ``--visualize``, the decoder's ``--start-frame``,
+``--devices N`` (byte-equal to the single-device stream and frames; more
+cards than exist exit 1), ``--ransac-subset-sz 3``, the decoder's GUI
+``--show`` on a stub OpenCV (``--show`` without OpenCV exits 1), a failing
+reader failing the run, and no silent CPU fallback for ``cuda``; the
+encoder runs the default config unless ``--reference-compat 1``."""
 
 import json
 import os
@@ -15,7 +17,12 @@ import pytest
 import torch
 
 from svc_tpu_torch.apps import decoder_app, encoder_app
-from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+from svc_tpu_torch.config import (
+    DecoderConfig,
+    EncoderConfig,
+    RansacParams,
+    VideoProperties,
+)
 from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.metrics import psnr
 from svc_tpu_torch.models.decoder import Decoder
@@ -85,24 +92,171 @@ def test_lossless_steps_round_trip(clip_path, stream_path, tmp_path):
     assert psnr(np.load(clip_path)[1:4], frames) > 40
 
 
+def _one_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+
+TOO_MANY = "requested 2 devices but only 1 available"
+
+
 @pytest.mark.parametrize("flag", ["--devices", "--show"])
 def test_encoder_refuses_unsupported_flags(flag, clip_path, capsys, monkeypatch):
-    # --show is gated on OpenCV, as in svc_tpu; cv2 is made unimportable so
-    # that no test opens a window
+    # --devices 2 on one card exits 1 with svc_tpu's message; --show is
+    # gated on OpenCV, as in svc_tpu; cv2 is made unimportable so that no
+    # test opens a window
     monkeypatch.setitem(sys.modules, "cv2", None)
-    rc = encoder_app.main(["enc", *ENC_FLAGS, flag, "1", clip_path])
-    assert rc == 1
-    want = {"--show": "--show requires OpenCV (cv2)"}.get(
-        flag, "not yet supported by svc_tpu_torch")
+    if flag == "--devices":
+        _one_card(monkeypatch)
+        args = [*ENC_FLAGS, "--device", "cuda", "--devices", "2"]
+    else:
+        args = [*ENC_FLAGS, "--show", "1"]
+    assert encoder_app.main(["enc", *args, clip_path]) == 1
+    want = {"--show": "--show requires OpenCV (cv2)"}.get(flag, TOO_MANY)
     assert want in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--show"])
-def test_decoder_refuses_unsupported_flags(flag, stream_path, capsys):
-    rc = decoder_app.main(["dec", "--device", "cpu", flag, "1",
-                           "--input", stream_path])
-    assert rc == 1
-    assert "not yet supported by svc_tpu_torch" in capsys.readouterr().err
+def test_decoder_refuses_unsupported_flags(flag, stream_path, capsys, monkeypatch):
+    # the decoder's counterparts: --devices 2 on one card, --show without
+    # OpenCV
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    if flag == "--devices":
+        _one_card(monkeypatch)
+        args = ["--device", "cuda", "--devices", "2"]
+    else:
+        args = ["--device", "cpu", "--show", "1"]
+    assert decoder_app.main(["dec", *args, "--input", stream_path]) == 1
+    want = {"--show": "--show requires OpenCV (cv2)"}.get(flag, TOO_MANY)
+    assert want in capsys.readouterr().err
+
+
+def test_cli_devices_cuda_without_card_fails(monkeypatch, clip_path, stream_path,
+                                             capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = [f for f in ENC_FLAGS if f not in ("--device", "cpu")]
+    assert encoder_app.main(["enc", *flags, "--devices", "2", clip_path]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert decoder_app.main(["dec", "--devices", "2", "--input", stream_path]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("per_device", [1, 3])
+def test_encoder_cli_devices_matches_library(per_device, clip_path, stream_path,
+                                             tmp_path, capsys):
+    # svc_tpu's tests/test_sharding.py:157 on CPU chunks: 2 devices x 1
+    # anchor (two batches) and x 3 (one padded batch) write the
+    # single-device stream byte for byte
+    out = str(tmp_path / "split.svc")
+    flags = [f for f in ENC_FLAGS if f not in ("--verbose", "0")]
+    rc = encoder_app.main(["enc", *flags, "--batch-size", str(per_device),
+                           "--devices", "2", "--output", out, clip_path])
+    assert rc == 0
+    batch = 2 * per_device
+    assert (f"sharding {batch}-frame batches across 2 devices"
+            in capsys.readouterr().err)
+    assert _read(out) == _read(stream_path)
+
+
+def test_decoder_cli_devices_matches_library(stream_path, tmp_path):
+    # svc_tpu's tests/test_sharding.py:241: batch 3 over 2 devices decodes
+    # batches of 4 (2 a device), the library's frames
+    out = str(tmp_path / "split.npy")
+    rc = decoder_app.main(["dec", "--device", "cpu", "--gaze", "32,24",
+                           "--batch-size", "3", "--devices", "2",
+                           "--input", stream_path, "--output", out])
+    assert rc == 0
+    np.testing.assert_array_equal(
+        np.load(out), _library_decode(stream_path, [(32, 24)] * 4))
+
+
+def test_encoder_cli_ransac_subset_matches_library(clip_path, tmp_path):
+    out = str(tmp_path / "subset3.svc")
+    rc = encoder_app.main(["enc", *ENC_FLAGS, "--ransac-subset-sz", "3",
+                           "--output", out, clip_path])
+    assert rc == 0
+    clip = np.load(clip_path)
+    cfg = EncoderConfig(reference_compat=True, ransac=RansacParams(subset_sz=3))
+    enc = Encoder(cfg, VideoProperties(64, 48, len(clip)), batch_size=2,
+                  device="cpu")
+    assert _read(out) == b"".join(enc.encode_video(iter(clip)))
+
+
+class _StubCv2:
+    """Enough of OpenCV for the decoder's GUI: each ``imshow`` records the
+    frame, then fires a click (ignored) and a mouse move; ``waitKey``
+    reports a key once ``stop_after`` frames have been shown."""
+
+    EVENT_MOUSEMOVE, EVENT_LBUTTONDOWN = 0, 1
+
+    def __init__(self, stop_after):
+        self.stop_after = stop_after
+        self.windows, self.shown, self.moves = [], [], []
+        self.callback = None
+        self.destroyed = False
+
+    def namedWindow(self, name, *flags):
+        self.windows.append(name)
+
+    def setMouseCallback(self, name, callback):
+        assert name in self.windows
+        self.callback = callback
+
+    def imshow(self, name, frame):
+        assert name == "Decoded Video"
+        self.shown.append(np.array(frame))
+        i = len(self.shown)
+        self.callback(self.EVENT_LBUTTONDOWN, 63, 47, 0, None)
+        self.moves.append((6 * i, 4 * i))
+        self.callback(self.EVENT_MOUSEMOVE, *self.moves[-1], 0, None)
+
+    def waitKey(self, delay):
+        return 27 if len(self.shown) == self.stop_after else -1
+
+    def destroyAllWindows(self):
+        self.destroyed = True
+
+
+def test_decoder_show_follows_the_mouse(tmp_path, monkeypatch):
+    # svc_tpu's GUI (apps/decoder_app.py:258-290): batch 1, each frame's
+    # gaze where the mouse last moved when its payload was read, a key stops
+    # the run; the shown frames are a batch-1 library decode at those gazes
+    clip = make_clip(64, 48, 9, seed=9)
+    enc = Encoder(EncoderConfig(reference_compat=True),
+                  VideoProperties(64, 48, len(clip)), batch_size=4, device="cpu")
+    svc = tmp_path / "clip.svc"
+    svc.write_bytes(b"".join(enc.encode_video(iter(clip))))
+    cv2 = _StubCv2(stop_after=6)
+    monkeypatch.setitem(sys.modules, "cv2", cv2)
+    gazes = []
+    decode_frames = Decoder.decode_frames
+
+    def recording(self, payloads, gaze_iter=None, **kwargs):
+        assert self.batch_size == 1 and len(self.devices) == 1
+
+        def record():
+            for g in gaze_iter:
+                gazes.append(g)
+                yield g
+
+        return decode_frames(self, payloads, record(), **kwargs)
+
+    monkeypatch.setattr(Decoder, "decode_frames", recording)
+    rc = decoder_app.main(["dec", "--device", "cpu", "--show", "1",
+                           "--batch-size", "4", "--devices", "2",
+                           "--input", str(svc)])
+    assert rc == 0
+    assert len(cv2.shown) == 6 and cv2.destroyed
+    assert (0, 0) == gazes[0] and set(gazes[1:]) - {(0, 0)} <= set(cv2.moves)
+    assert len(set(gazes)) > 2  # the gaze followed the mouse
+    monkeypatch.setattr(Decoder, "decode_frames", decode_frames)
+    payloads = [svc.read_bytes()[bitstream.frame_offset(enc.header(), i):
+                                 bitstream.frame_offset(enc.header(), i + 1)]
+                for i in range(len(gazes))]
+    want = list(Decoder(DecoderConfig(), enc.header(), batch_size=1,
+                        device="cpu").decode_frames(iter(payloads), iter(gazes)))
+    for got, ref in zip(cv2.shown, want):
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_resume_produces_identical_stream(clip_path, stream_path, tmp_path):

@@ -893,3 +893,98 @@ def test_decode_staged_equals_unstaged_on_card(gen, w, h):
     want = np.stack(list(cpu.decode_frames(iter(stream[1:]), iter(gaze))))
     d = np.abs(np.stack(staged).astype(np.int16) - want.astype(np.int16))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("n", [396, 1626, 8160])
+def test_choice_on_card_equals_cpu(gen, n):
+    # the without-replacement draw on the card: threefry, the stable sort
+    # and the row chunks give the CPU's indices
+    keys = prng.split(prng.fold_in(prng.key(7), torch.arange(3)), 40)
+    want = prng.choice(keys, n, 8)
+    got = prng.choice(keys.cuda(), n, 8)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sort_by_keys_on_card_keeps_equal_keys_in_order(gen):
+    words = torch.tensor([0, 1, 2**31 - 1, 2**31, 2**32 - 1], dtype=torch.int64)
+    bits = words[torch.randint(0, 5, (4, 3000), generator=gen)]
+    values = torch.randperm(4 * 3000, generator=gen).reshape(4, 3000)
+    want = prng.sort_by_keys(values, bits)
+    assert torch.equal(prng.sort_by_keys(values.cuda(), bits.cuda()).cpu(), want)
+
+
+@pytest.mark.parametrize("subset", [2, 3, 8])
+def test_ransac_subsets_on_card_equal_cpu(gen, subset):
+    from svc_tpu_torch.config import RansacParams
+    from svc_tpu_torch.ops import ransac
+
+    mv = torch.randint(-3, 4, (3, 17, 30, 2), generator=gen).float()
+    mv[:, 4:12, 5:20] += 6  # a moving region
+    keys = prng.fold_in(prng.key(1), torch.arange(3))
+    p = RansacParams(subset_sz=subset)
+    want = ransac.estimate_global_motion_ransac(mv, p, keys)
+    got = ransac.estimate_global_motion_ransac(mv.cuda(), p, keys.cuda())
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-6, atol=0)
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+def test_split_over_one_card_equals_single_device(gen):
+    # the frame-parallel split over [cuda:0, cuda:0], 2 anchors a chunk:
+    # the single-device stream and frames, a padded remainder batch included
+    from svc_tpu_torch.parallel.sharding import ShardedEncoder, make_frame_devices
+
+    clip = make_clip(128, 96, 8, seed=3)
+    props = VideoProperties(128, 96, 8)
+    devs = make_frame_devices(devices=["cuda:0", "cuda:0"])
+    want = list(Encoder(EncoderConfig(), props, 4, device="cuda")
+                .encode_video(iter(clip)))
+    got = list(ShardedEncoder(EncoderConfig(), props, devs, batch_per_device=2)
+               .encode_video(iter(clip)))
+    assert got == want
+    header = bitstream.Header.unpack(want[0])
+    gaze = [(64, 48)] * 7
+    single = Decoder(DecoderConfig(), header, batch_size=4, device="cuda")
+    split = Decoder(DecoderConfig(), header, batch_size=4, devices=devs)
+    a = np.stack(list(single.decode_frames(iter(want[1:]), iter(gaze))))
+    b = np.stack(list(split.decode_frames(iter(want[1:]), iter(gaze))))
+    np.testing.assert_array_equal(a, b)
+
+
+def test_split_over_distinct_cards_equals_single_device(gen, tmp_path):
+    # each chunk on its own card (up to 4): the kernels launch under that
+    # card's context, the outputs gather on cuda:0; the library and the
+    # CLIs give the single-device stream and frames
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA cards")
+    from svc_tpu_torch.apps import decoder_app, encoder_app
+    from svc_tpu_torch.parallel.sharding import ShardedEncoder, make_frame_devices
+
+    n = min(4, torch.cuda.device_count())
+    devs = make_frame_devices(n, device="cuda")
+    assert devs == [torch.device("cuda", i) for i in range(n)]
+    clip = make_clip(128, 96, 2 * n + 4, seed=5)
+    props = VideoProperties(128, 96, len(clip))
+    want = list(Encoder(EncoderConfig(), props, 2 * n, device="cuda")
+                .encode_video(iter(clip)))
+    got = list(ShardedEncoder(EncoderConfig(), props, devs, batch_per_device=2)
+               .encode_video(iter(clip)))
+    assert got == want
+    header = bitstream.Header.unpack(want[0])
+    gaze = [(64, 48)] * (len(want) - 1)
+    single = Decoder(DecoderConfig(), header, batch_size=2 * n, device="cuda")
+    split = Decoder(DecoderConfig(), header, batch_size=2 * n, devices=devs)
+    a = np.stack(list(single.decode_frames(iter(want[1:]), iter(gaze))))
+    b = np.stack(list(split.decode_frames(iter(want[1:]), iter(gaze))))
+    np.testing.assert_array_equal(a, b)
+    clip_path, svc = str(tmp_path / "clip.npy"), str(tmp_path / "clip.svc")
+    np.save(clip_path, clip)
+    assert encoder_app.main(["enc", "--device", "cuda", "--devices", str(n),
+                             "--batch-size", "2", "--verbose", "0",
+                             "--output", svc, clip_path]) == 0
+    assert Path(svc).read_bytes() == b"".join(want)
+    out = str(tmp_path / "dec.npy")
+    assert decoder_app.main(["dec", "--device", "cuda", "--devices", str(n),
+                             "--gaze", "64,48", "--input", svc,
+                             "--output", out]) == 0
+    np.testing.assert_array_equal(np.load(out), a)

@@ -28,7 +28,7 @@ def test_port_imports_no_jax():
         "svc_tpu_torch.ops.motion, svc_tpu_torch.io.video, "
         "svc_tpu_torch.metrics, svc_tpu_torch.runtime.pipeline, "
         "svc_tpu_torch.runtime.tracing, svc_tpu_torch.runtime.staging, "
-        "svc_tpu_torch.visualize\n"
+        "svc_tpu_torch.visualize, svc_tpu_torch.parallel.sharding\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('clean')\n"

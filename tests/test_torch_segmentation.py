@@ -298,9 +298,18 @@ def test_kmeans_global_farthest_matches(case, segmentation):
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-6)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="subset_sz"):
-        ransac.estimate_global_motion_ransac(
-            torch.zeros((1, 2, 2, 2)), config.RansacParams(subset_sz=2),
-            prng.split(prng.key(0), 1),
-        )
+def test_unported_options_raise(segmentation):
+    # RANSAC subset_sz = 2 was refused until the port drew subsets without
+    # replacement; it now runs and matches svc_tpu on the fixture's fields
+    s = segmentation
+    p = RansacParams(subset_sz=2)
+    kj, _ = _keys(s["cfg"].seed)
+    want = jax.vmap(
+        lambda m, k: j_ransac.estimate_global_motion_ransac(m, p, k)
+    )(jnp.asarray(s["mv"]), kj[:, 0])
+    gm, rmse, inl = ransac.estimate_global_motion_ransac(
+        torch.from_numpy(s["mv"]), _port(p), s["kt"][:, 0]
+    )
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(rmse.numpy(), np.asarray(want[1]), rtol=1e-6)
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(want[2]))
