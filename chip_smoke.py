@@ -12,9 +12,9 @@ each:
    registers and static shared memory (ptxas), K5's dynamic shared memory
    and CTAs per SM, and K5's static shared memory held to what its
    wrapper plans with;
-3. kernel parity — each of the twenty kernels against its plain
+3. kernel parity — each of the twenty-two kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
-   K8, K9 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
+   K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
    kernel's time, its time through the wrapper, the plain version's, the
    one-call PyTorch yardstick's where one exists, and the bound (bytes
@@ -34,7 +34,11 @@ each:
    a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
    refine with MVs past its staged band and past the frame edges; K5 also
    at 1080p with D = 7; the general K1, K2 and K6 also run once at 4x4
-   blocks;
+   blocks; K10 (the CCL loop on the device) at the path shape with both
+   connectivities, a snake, its global-memory loop (timed in turns with
+   the shared-memory one), 4K and a grid past shared memory; K11 (the
+   threefry cipher) on the anchor keys' fold_in and split, the seeding
+   draw (timed), uniform and randint;
 4. default config — a 17-frame 1080p clip through the staged,
    one-batch-in-flight ``stream_encode`` with ``EncoderConfig()`` on
    ``cuda``, read back through the port's ``io.bitstream`` and decoded by
@@ -45,7 +49,8 @@ each:
    ``stage_h2d`` on and off; and the CLIs in-process on ``cuda``: the
    encoder app's bytes equal the library stream through the native writer
    (where it builds) and the Python writer thread, ``--trace`` holds the
-   spans, the ``--profile`` trace names the port's kernels, the decoder
+   spans, the ``--profile`` trace names the port's kernels inside the
+   encoder's CUDA graph replays (K2, K10 and K11 at least), the decoder
    app's frames equal the library decode and ``--start-frame 4`` gives
    their exact tail;
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
@@ -90,9 +95,18 @@ each:
     ``Decoder`` over two entries (two cards when there are, else
     ``[cuda:0, cuda:0]``), 4 anchors each: phase 4's 17-frame clip gives
     its stream byte for byte and its decoded frames (K1-K5 and K9 must
-    run, no general kernel), then single-device and split fps in turns.
+    run, no general kernel), then single-device and split fps in turns;
+14. compiled batch — the encoder runs each batch as a CUDA graph replay
+    (phases 4-8, 11-13 all do); here against ``graph=False``: phase 4's
+    17-frame clip through ``stream_encode`` both ways, byte-equal to the
+    main run's stream, then in turns (eager, graph, graph, eager) with
+    fps and the Tracer split per batch; 13 frames both ways, phase 13's
+    split stream against the eager one; per mode the device batch time,
+    its dispatch and ``tools/profile_slice.py``'s launches per batch.
 
-Each path of phases 4-7, 9, 10, 12 and 13 runs with the launch counters set
+Phases 4-7 and 12 also need K10 and K11 to run. A graph's kernels count
+one launch each on every replay (its warm-up runs them once more). Each
+path of phases 4-7, 9, 10, 12 and 13 runs with the launch counters set
 to 0 just before it and read just after. The second-to-last line is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -898,7 +912,106 @@ def phase_parity(dev):
     print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; 1366x768 "
           f"{line}; general at 4x4 blocks (T=2, 1376x768->1366x768): max diff "
           f"{diff.max().item()}, {frac4:.2e} of bytes differ")
+    compiled_batch_parity(g, dev, results)
     return results
+
+
+def blob_clusters(g, b: int, h: int, w: int, k: int) -> torch.Tensor:
+    """``(b, h, w)`` int32 cluster images like the encoder's: k clusters in
+    8x8-cell regions, a tenth of the cells background (-1)."""
+    lab = torch.randint(0, k, (b, h // 8 + 1, w // 8 + 1), generator=g,
+                        dtype=torch.int32)
+    lab = lab.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w]
+    return torch.where(torch.rand((b, h, w), generator=g) < 0.1, -1, lab)
+
+
+def compiled_batch_parity(g, dev, results):
+    """Phase 3, the compiled batch's two kernels: K10 (the CCL loop on the
+    device) and K11 (the threefry cipher), each against its plain version
+    bit for bit at the 1080p path shapes and beyond, timed by CUDA graph
+    replay; K10's global-memory loop in turns with its shared-memory one."""
+    from svc_tpu_torch.ops import ccl, prng
+
+    # K10 at the path shape (8 frames of 68x120 MV blocks, k = 10), both
+    # connectivities, random labels, a 68x120 snake, the global-memory loop;
+    # 4K (135x240, 162,000 B of shared memory) and a grid past shared
+    # memory (270x480, global memory)
+    snake = -torch.ones((1, 68, 120), dtype=torch.int32)
+    snake[0, ::2, :] = 0
+    snake[0, 1::4, -1] = 0
+    snake[0, 3::4, 0] = 0
+    cases = [("path blobs, 4-conn", blob_clusters(g, 8, 68, 120, 10), 4, False),
+             ("path blobs, 8-conn", blob_clusters(g, 8, 68, 120, 10), 8, False),
+             ("path random, 4-conn", torch.randint(-1, 10, (8, 68, 120), generator=g,
+                                                   dtype=torch.int32), 4, False),
+             ("68x120 snake", snake, 4, False),
+             ("path blobs, global memory", blob_clusters(g, 8, 68, 120, 10), 4, True),
+             ("4K blobs", blob_clusters(g, 8, 135, 240, 10), 4, False),
+             ("270x480 blobs (past shared memory)", blob_clusters(g, 2, 270, 480, 10),
+              8, False)]
+    for name, lab, conn, glob in cases:
+        before = ccl.CCL_CONVERGE.launches
+        got = ccl.converge_labels(lab.to(dev), conn, global_memory=glob)
+        if ccl.CCL_CONVERGE.launches != before + 1:
+            fail(f"K10 did not launch ({name})")
+        if not torch.equal(got.cpu(), ccl.converge_labels_plain(lab, conn)):
+            fail(f"K10 ccl_converge differs from its plain version ({name})")
+    lab = cases[0][1].to(dev)
+    glob_ms, ms, turns = in_turns(
+        lambda: ccl.converge_labels(lab, 4, global_memory=True),
+        lambda: ccl.converge_labels(lab, 4), graph_ms)
+    w_ms = cuda_ms(lambda: ccl.converge_labels(lab, 4))
+    plain_ms = cuda_ms(lambda: ccl.converge_labels_plain(lab, 4), iters=3)
+    snake_d = snake.to(dev)
+    snake_ms = graph_ms(lambda: ccl.converge_labels(snake_d, 4))
+    line = record(results, "ccl_converge", ccl.CCL_CONVERGE, 0, ms, w_ms, plain_ms,
+                  lab.numel() * 4 * 2, 0)
+    print(f"parity K10 ccl_converge: bit-equal to the plain loop on "
+          f"{', '.join(c[0] for c in cases)}; path shape (8x68x120, blobs, "
+          f"4-conn) {ms:.4f} ms (global-memory loop {glob_ms:.4f}; in turns "
+          f"global, shared, shared, global: {', '.join(f'{v:.4f}' for v in turns)}"
+          f"; 68x120 snake {snake_ms:.4f}) vs plain {plain_ms:.4f} ms; {line}")
+
+    # K11 at the path shapes: the k-means++ seeding draw (8 frames x 3
+    # attempts x (10, 8160) words), the anchor keys (fold_in of 8
+    # indices), their split, RANSAC's randint and the uniform floats
+    anchors = prng.fold_in(prng.key(7, dev), torch.arange(8, device=dev))
+    base = prng.key(7)
+    if not torch.equal(anchors.cpu(), prng.threefry_words_plain(
+            base.expand(8, 2), 1, torch.arange(8).reshape(8, 1))[:, 0]):
+        fail("K11 fold_in differs from its plain version (8 anchor keys)")
+    pair = prng.split(anchors)
+    attempts = prng.split(pair[:, 1], 3)
+    if not (torch.equal(pair.cpu(), prng.threefry_words_plain(anchors.cpu(), 2))
+            and torch.equal(attempts.cpu(),
+                            prng.threefry_words_plain(pair[:, 1].cpu(), 3))):
+        fail("K11 split differs from its plain version")
+    bits = prng.random_bits(attempts, (10, 8160))
+    plain = prng.threefry_words_plain(attempts, 10 * 8160, both=False)
+    if not torch.equal(bits.reshape(plain.shape), plain):
+        fail("K11 random_bits differs from its plain version (the seeding draw)")
+    for what, a, b in (
+            ("uniform", prng.uniform(attempts, (10, 8160), 1e-12, 1.0),
+             prng.uniform(attempts.cpu(), (10, 8160), 1e-12, 1.0)),
+            ("randint", prng.randint(pair[:, 0], (7, 1), 0, 8160),
+             prng.randint(pair[:, 0].cpu(), (7, 1), 0, 8160))):
+        if not torch.equal(a.cpu(), b):
+            fail(f"K11 {what} on the card differs from the CPU")
+    ms = graph_ms(lambda: prng.random_bits(attempts, (10, 8160)))
+    w_ms = cuda_ms(lambda: prng.random_bits(attempts, (10, 8160)))
+    plain_ms = cuda_ms(lambda: prng.threefry_words_plain(attempts, 10 * 8160,
+                                                         both=False), iters=3)
+    small_ms = graph_ms(lambda: prng.split(anchors))
+    # bytes: 24 keys in, 1.96M int64 words out; operations: ~80 integer
+    # operations a word (20 mix steps of add, funnel shift, xor; 5 key
+    # injections of 3 adds; the key setup and the output xor)
+    line = record(results, "threefry2x32", prng.THREEFRY, 0, ms, w_ms, plain_ms,
+                  attempts.numel() * 8 + bits.numel() * 8, 80 * bits.numel())
+    print(f"parity K11 threefry2x32: fold_in (8 anchor keys), split, "
+          f"random_bits (the seeding draw, 8x3 keys x 81,600 words), uniform "
+          f"and randint bit-equal to the plain int64 cipher; seeding draw "
+          f"{ms:.4f} ms (split of the 8 anchor keys {small_ms:.4f}) vs plain "
+          f"{plain_ms:.4f} ms; {line}")
 
 
 def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
@@ -1086,12 +1199,17 @@ def cli_checks(main_run, tmp: str) -> str:
         fail(f"encoder_app --trace spans {sorted(stats)}")
     with open(os.path.join(prof, TRACE_FILE)) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    # the encoder runs as CUDA graph replays: the trace must still name
+    # the kernels inside them
     seen = sorted({k for k in ("dct8x8_wire_kernel", "idct8x8_display_kernel",
                                "pyr_down_levels_kernel", "refine_sads_kernel",
-                               "lloyd_cluster_kernel", "candidate_sads_kernel")
+                               "lloyd_cluster_kernel", "candidate_sads_kernel",
+                               "ccl_converge_kernel", "threefry2x32_kernel")
                    if any(k in n for n in names)})
-    if "dct8x8_wire_kernel" not in seen:
-        fail(f"encoder_app --profile trace names none of the port's kernels "
+    missing = {"dct8x8_wire_kernel", "ccl_converge_kernel",
+               "threefry2x32_kernel"} - set(seen)
+    if missing:
+        fail(f"encoder_app --profile trace does not name {sorted(missing)} "
              f"({len(names)} event names)")
     lines.append(f"--trace spans {sorted(stats)}; --profile trace names {seen}")
     svc = os.path.join(tmp, "native.svc" if has_native else "python.svc")
@@ -1430,6 +1548,81 @@ def sharded_run(main_run, card: str, required, forbidden):
           f"{counts}")
     print(f"  in turns (single, split, split, single), 16 payloads [{card}]: "
           f"{'; '.join(lines)}")
+    return stream
+
+
+def compiled_batch(main_run, split_stream, card: str, dev):
+    """Phase 14: the encode batch as a CUDA graph replay against the eager
+    path (``graph=False``). Phase 4's 17-frame clip through ``stream_encode``
+    both ways, byte-equal to the main run's stream (phase 4 ran it on
+    graphs), then in turns (eager, graph, graph, eager), each run with its
+    fps and Tracer split per batch; the 13-frame clip (a padded remainder
+    batch) both ways; phase 13's split stream, on graphs, against the
+    eager stream; per mode the device batch time and
+    ``tools/profile_slice.py``'s launches per batch."""
+    from svc_tpu_torch.config import EncoderConfig, VideoProperties
+    from svc_tpu_torch.models.encoder import Encoder, stream_encode
+    from svc_tpu_torch.runtime.tracing import Tracer
+    from svc_tpu_torch.tools.profile_slice import batch_launches
+
+    clip, stream = main_run["clip"], main_run["stream"]
+    h, w = clip.shape[1:3]
+    props = VideoProperties(w, h, len(clip))
+    graph = main_run["enc"]
+    eager = Encoder(EncoderConfig(), props, 8, device=dev, graph=False)
+    if not graph.graph or eager.graph:
+        fail("phase 14: the default encoder does not run as a graph")
+    modes = {"eager": eager, "graph": graph}
+    # the bytes, untimed (the eager run also makes the eager path's first
+    # calls); the timed runs below discard their payloads, as phase 11's do
+    for kind, e in modes.items():
+        if b"".join(stream_encode(e, iter(clip))) != stream:
+            fail(f"phase 14: the {kind} stream differs from the main run's "
+                 f"(17 frames)")
+    n_payloads = len(clip) - 1
+    batches = -(-n_payloads // graph.batch_size)
+    fps = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        tr = Tracer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in stream_encode(modes[kind], iter(clip), tracer=tr)) - 1
+        wall = time.perf_counter() - t0
+        if n != n_payloads:
+            fail(f"phase 14: the {kind} run gave {n} payloads of {n_payloads}")
+        split = {k: v["total_s"] * 1e3 / batches for k, v in tr.stats().items()}
+        split["other"] = wall * 1e3 / batches - sum(split.values())
+        fps[kind].append(n_payloads / wall)
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        print(f"  {kind}: {n_payloads / wall:.2f} fps; per batch of 8 (ms): {parts}")
+    part = clip[:13]
+    p13 = VideoProperties(w, h, 13)
+    s13 = {kind: b"".join(Encoder(EncoderConfig(), p13, 8, device=dev, graph=kind == "graph")
+                          .encode_video(iter(part))) for kind in ("eager", "graph")}
+    if s13["eager"] != s13["graph"]:
+        fail("phase 14: the graph stream differs from the eager one at 13 frames")
+    if split_stream != stream:
+        fail("phase 14: the split stream (graphs) differs from the eager stream")
+    packed = torch.as_tensor(clip[:9]).reshape(9, h, w * 3).to(dev)
+    lines = []
+    for kind, e in modes.items():
+        ms = cuda_ms(lambda: e.encode_packed(packed, 0), iters=5, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.encode_packed(packed, 0)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        n = batch_launches(lambda: e.encode_packed(packed, 0))
+        lines.append(f"{kind} {ms:.3f} ms a batch (its dispatch {dispatch_ms:.3f} ms "
+                     f"of host time), {n['host_launch_calls']} host launch calls, "
+                     f"{n['device_ops']} device operations")
+    replay = graph._graphs[tuple(packed.shape)].launches_per_replay()
+    print(f"  streams byte-equal: 17 frames eager and graph in turns, 13 frames "
+          f"({len(s13['graph'])} bytes), the split over two entries on graphs; "
+          f"fps medians eager {np.median(fps['eager']):.2f}, graph "
+          f"{np.median(fps['graph']):.2f} [{card}]")
+    print(f"  per 1080p batch of 8 [{card}]: {'; '.join(lines)}; the port's "
+          f"kernels in one replay {replay}")
 
 
 def main() -> int:
@@ -1509,7 +1702,7 @@ def main() -> int:
     from svc_tpu_torch.ops import dct, motion
 
     encode_kernels = ("pyr_down_levels", "candidate_sads", "refine_sads",
-                      "dct8x8_to_wire")
+                      "dct8x8_to_wire", "ccl_converge", "threefry2x32")
     # 8x8 blocks of 3 channels take the specialised K1 / K2; 16x16 MV
     # blocks at range 8 take the specialised K3 on every level; every
     # frame size here takes K5's cluster kernel
@@ -1642,8 +1835,13 @@ def main() -> int:
 
     # 13. the frame-parallel split on the card
     print("frame-parallel split 1080p, 17 frames, default config:")
-    sharded_run(main_run, card, encode_kernels + ("lloyd", "idct_display"),
-                general_dct + general_k3_k5 + general_k6)
+    split_stream = sharded_run(main_run, card, encode_kernels + ("lloyd", "idct_display"),
+                               general_dct + general_k3_k5 + general_k6)
+
+    # 14. the compiled batch: graph replay against the eager path
+    print("compiled batch 1080p, default config, eager (graph=False) against "
+          "graph, in turns:")
+    compiled_batch(main_run, split_stream, card, dev)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))

@@ -19,6 +19,8 @@ its configuration never runs, and a later synchronize would not report it).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -28,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -151,12 +153,18 @@ def library() -> ctypes.CDLL:
 _REGISTRY: Dict[str, "Kernel"] = {}
 
 
+_capture = threading.local()  # .counts: the launches a capture records
+
+
 class Kernel:
     """One C entry point of the library plus its launch counter.
 
     ``launches`` is a plain integer that :meth:`launch` adds one to after
-    each successful launch and nothing else touches — a run can show that
-    its main path went through the kernel (``chip_smoke.py``).
+    each successful launch — a run can show that its main path went
+    through the kernel (``chip_smoke.py``). A launch made while this
+    thread captures a CUDA graph (:func:`captured_launches`) runs nothing
+    yet: it is recorded for the graph, whose replays add it
+    (:func:`add_launches`).
     """
 
     def __init__(
@@ -187,7 +195,11 @@ class Kernel:
         if rc != 0:
             msg = library().svc_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        recording = getattr(_capture, "counts", None)
+        if recording is not None:
+            recording[self.name] += 1
+        else:
+            self.launches += 1
 
 
 def kernels() -> Dict[str, Kernel]:
@@ -204,6 +216,27 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in _REGISTRY.items()}
 
 
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Record the launches this thread makes inside (a CUDA graph capture:
+    nothing runs yet) in the yielded counter instead of the kernels'
+    counts."""
+    counts: Dict[str, int] = collections.Counter()
+    outer = getattr(_capture, "counts", None)
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = outer
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add one replay's launches (as :func:`captured_launches` recorded
+    them) to the kernels' counts."""
+    for name, n in counts.items():
+        _REGISTRY[name].launches += n
+
+
 def stream_handle(tensor) -> int:
     """PyTorch's current CUDA stream on ``tensor``'s device, as an int."""
     import torch
@@ -216,4 +249,5 @@ def stream_handle(tensor) -> int:
 # passed as a 32-bit int and cut a 64-bit pointer)
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+INT64 = ctypes.c_longlong
 FLOAT = ctypes.c_float

@@ -18,6 +18,15 @@ repair (kernel K5 on CUDA); ``reference_compat=True`` clusters the
 reference's effective ``(0, mv.x, x, y)`` layout (quirk Q1) with cv::kmeans'
 split-the-biggest-cluster repair.
 
+On ``cuda`` a batch runs as one CUDA graph per input shape
+(``runtime/graphs.py``), svc_tpu's one compiled program per batch shape
+(``jax.jit(self.encode_batch_fn)``): captured on first use, then replayed
+with the frames and anchor keys copied into its static inputs. The path
+has no host sync and no host copy for it to trip on: the CCL converges in
+kernel K10, the threefry draws run in K11, and every scalar constant is
+filled on the device. ``Encoder(..., graph=False)`` keeps the eager path
+on the card, to hold the graph against; CPU tensors always run eagerly.
+
 Streaming (``stream_encode``) overlaps the stages the way ``svc_tpu`` does:
 each batch's frames are staged one batch ahead on a worker thread
 (``stage_frames``: pinned buffer, copy stream, event), and one batch stays
@@ -45,6 +54,7 @@ from svc_tpu_torch.ops.pad import pad_frame, padded_dims
 from svc_tpu_torch.ops.pyramid import build_pyramid
 from svc_tpu_torch.ops.ransac import estimate_global_motion_ransac, iter_count
 from svc_tpu_torch.runtime.device import DeviceLike, resolve_device
+from svc_tpu_torch.runtime.graphs import GraphPair
 from svc_tpu_torch.runtime.staging import (
     DoubleBufferedStager,
     PinnedDownload,
@@ -65,6 +75,13 @@ class Encoder:
       keep_planes: include the padded channel planes in the outputs
         (``padded_planes``, the full ``(3, T+1, PH, PW)`` stack; frame 0 is
         the overlap frame). Only the visualizer consumes them.
+      graph: on ``cuda``, run each batch as a CUDA graph replay (the
+        default); ``False`` runs it eagerly, kernel by kernel. Ignored on
+        the CPU, which always runs eagerly.
+
+    On ``cuda`` with ``graph=True`` the tensors a batch returns are the
+    graph's own: they stay valid until the second call after it (two
+    graphs per shape, taken by turns); copy what must live longer.
     """
 
     def __init__(
@@ -74,6 +91,7 @@ class Encoder:
         batch_size: int = 8,
         device: DeviceLike = "cuda",
         keep_planes: bool = False,
+        graph: bool = True,
     ):
         if iter_count(cfg.ransac) == 0:
             raise ValueError(
@@ -84,6 +102,9 @@ class Encoder:
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.keep_planes = keep_planes
+        self.graph = graph and self.device.type == "cuda"
+        self._graphs: Dict[tuple, GraphPair] = {}  # by (T+1, H, W*3)
+        self._seed_key: Optional[torch.Tensor] = None  # copied on first use
         self._upload = PinnedUpload(self.device)
         self.padded_w, self.padded_h = padded_dims(
             vidprops.frame_w,
@@ -117,8 +138,10 @@ class Encoder:
 
     def _keys(self, start_index: int, count: int) -> torch.Tensor:
         """``(count, 2)`` anchor keys ``fold_in(key(seed), i)``."""
+        if self._seed_key is None:
+            self._seed_key = prng.key(self.cfg.seed, self.device)
         idx = torch.arange(start_index, start_index + count, device=self.device)
-        return prng.fold_in(prng.key(self.cfg.seed, self.device), idx)
+        return prng.fold_in(self._seed_key, idx)
 
     def stage_frames(self, packed) -> Staged:
         """Ship host frames to the device for :meth:`encode_batch_staged`.
@@ -157,7 +180,25 @@ class Encoder:
     def encode_packed(
         self, packed: torch.Tensor, first_anchor_index: int
     ) -> Dict[str, torch.Tensor]:
-        """Encode ``(T+1, H, W*3)`` uint8 packed rows already on the device."""
+        """Encode ``(T+1, H, W*3)`` uint8 packed rows already on the device.
+
+        The anchor keys are drawn outside the graph (K11); on ``cuda`` with
+        ``graph=True`` the batch is then one replay of the graph of its
+        shape, captured on first use (a capture that fails raises)."""
+        keys = self._keys(first_anchor_index, packed.shape[0] - 1)
+        if not self.graph:
+            return self._encode(packed, keys)
+        shape = tuple(packed.shape)
+        graphs = self._graphs.get(shape)
+        if graphs is None:
+            graphs = self._graphs[shape] = GraphPair(
+                self._encode, (packed, keys), self.device)
+        return graphs(packed, keys)
+
+    def _encode(
+        self, packed: torch.Tensor, anchor_keys: torch.Tensor
+    ) -> Dict[str, torch.Tensor]:
+        """The batch, eagerly: packed rows and ``(T, 2)`` anchor keys in."""
         cfg = self.cfg
         n, h, w3 = packed.shape
         t = n - 1
@@ -170,7 +211,7 @@ class Encoder:
         pyr = build_pyramid(y, cfg.pyr_lvl_count)
         mv, _ = hbma_stack(pyr, cfg.mv_search_range, cfg.mv_block_w, cfg.mv_block_h)
 
-        keys = prng.split(self._keys(first_anchor_index, t))  # (T, 2, 2)
+        keys = prng.split(anchor_keys)  # (T, 2, 2)
         gm, rmse, inliers = estimate_global_motion_ransac(
             mv, cfg.ransac, keys[:, 0]
         )
@@ -273,12 +314,14 @@ def stream_encode(
       start copying to pinned host memory on a copy stream, and they are
       read and serialized only after the NEXT batch has been dispatched.
 
-    The port's dispatch returns only once most of the batch has run (the
-    glue syncs the host), so serialization overlaps the copies but not the
-    device work. Fetch and serialization stay on this thread all the same:
-    a serializer thread beside the dispatching one measured no faster on
-    an H100 host, contention slowing dispatch by about what it overlapped
-    (PERF.md).
+    On ``cuda`` the dispatch returns once the batch's graph replay is
+    queued (the eager path, ``graph=False``, has no host sync either, but
+    its host launches take longer than the device work). Fetch and
+    serialization stay on this thread: a serializer thread beside the
+    dispatching one measured no faster on an H100 host, contention slowing
+    dispatch by about what it overlapped (PERF.md). The two graphs per
+    shape keep batch ``i``'s outputs intact while its copy runs beside
+    batch ``i + 1``.
 
     ``on_batch(first_anchor_index, outputs, n_valid)`` is an observability
     hook (the visualizer); ``tracer`` records the ``device_dispatch``,

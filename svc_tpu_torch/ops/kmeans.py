@@ -103,7 +103,7 @@ def _plus_plus_init(keys, xt, mask, k):
     gumbels = -torch.log(-torch.log(u))
     maskf = mask.to(xt.dtype)[:, None, :]  # (F, 1, N)
     valid = mask[:, None, :]
-    neg = torch.tensor(-_BIG, dtype=torch.float32, device=xt.device)
+    neg = torch.full((), -_BIG, dtype=torch.float32, device=xt.device)
     zero = torch.zeros((), dtype=torch.float32, device=xt.device)
 
     def pick(w, g):
@@ -157,10 +157,12 @@ def _opencv_split_repair(xt, mask, labels, sums, counts, k):
     dev = xt.device
     lanes = torch.arange(n, device=dev)
     ks = torch.arange(k, device=dev)
-    neg1 = torch.tensor(-1.0, dtype=torch.float32, device=dev)
+    neg1 = torch.full((), -1.0, dtype=torch.float32, device=dev)
     for kk in range(k):
         need = counts[..., kk] == 0.0  # (F, A)
-        if not bool(need.any()):
+        # the skip is a host sync: taken on the CPU only (with no cluster
+        # in need every update below is masked out)
+        if dev.type == "cpu" and not bool(need.any()):
             continue
         max_k = torch.argmax(counts, dim=-1)  # (F, A)
         cnt = torch.gather(counts, 2, max_k[..., None])[..., 0]
@@ -194,7 +196,9 @@ def _lloyd_opencv_split(xt, mask, centers, k, max_iter, epsilon):
     ks = torch.arange(k, device=dev)[:, None]
     done = torch.zeros(centers.shape[:2], dtype=torch.bool, device=dev)
     for _ in range(max_iter):
-        if bool(done.all()):
+        # the early exit is a host sync: taken on the CPU only (once every
+        # attempt is done, further iterations change nothing)
+        if dev.type == "cpu" and bool(done.all()):
             break
         labels, _ = _assign(xt, centers, mask)
         onehot = (labels[:, :, None, :] == ks).to(torch.float32) * maskf
@@ -222,7 +226,7 @@ def _global_farthest_repair(xt, mask, point_d2, empty, cand):
     index) over the pre-update distances, each taken point set to -1."""
     n_pick = int(empty.sum(dim=-1).max())
     lanes = torch.arange(xt.shape[-1], device=xt.device)
-    neg1 = torch.tensor(-1.0, dtype=torch.float32, device=xt.device)
+    neg1 = torch.full((), -1.0, dtype=torch.float32, device=xt.device)
     d2left = torch.where(mask[:, None, :], point_d2, neg1)  # (F, A, N)
     far = []
     for _ in range(n_pick):

@@ -580,10 +580,11 @@ def ebma(
         tracked.reshape(-1, fh, fw), anchor.reshape(-1, fh, fw), zero_mv, r,
         block_w, block_h,
     ).reshape(lead + ((2 * r + 1) ** 2, mfh, mfw))
-    area = torch.tensor(float(block_w * block_h), dtype=torch.float32, device=dev)
+    area = _area(block_w, block_h, dev)
     by, bx = _block_origins(mfh, mfw, block_w, block_h, dev)
 
-    mv = torch.zeros(lead + (mfh, mfw, 2), dtype=torch.float32, device=dev)
+    mv_x = torch.zeros(lead + (mfh, mfw), dtype=torch.float32, device=dev)
+    mv_y = torch.zeros_like(mv_x)
     min_mad = torch.full(lead + (mfh, mfw), _FLT_MAX, dtype=torch.float32,
                          device=dev)
     update_count = torch.zeros(lead + (mfh, mfw), dtype=torch.int32, device=dev)
@@ -598,12 +599,14 @@ def ebma(
             & (bx + dx <= fw - block_w)
         )
         update = valid & (mad <= min_mad)
-        new_mv = torch.tensor([dx, dy], dtype=torch.float32, device=dev)
-        mv = torch.where(update[..., None], new_mv, mv)
+        # Python scalars: no per-candidate host copy
+        mv_x = torch.where(update, float(dx), mv_x)
+        mv_y = torch.where(update, float(dy), mv_y)
         min_mad = torch.where(update, mad, min_mad)
         update_count += update.to(torch.int32)
         valid_count += valid.to(torch.int32)
     flat = update_count == valid_count
+    mv = torch.stack([mv_x, mv_y], dim=-1)
     mv = torch.where(flat[..., None], torch.zeros((), device=dev), mv)
     return mv, min_mad
 
@@ -646,10 +649,17 @@ def _refine_select(
     return mv, best
 
 
+def _area(block_w: int, block_h: int, dev) -> torch.Tensor:
+    """A block's pixel count as a float32 tensor on ``dev``: divided by as
+    a tensor (CUDA divides by a host scalar through its reciprocal), and
+    filled on the device (a copy from pageable memory would sync the
+    stream and keep the search out of a CUDA graph)."""
+    return torch.full((), float(block_w * block_h), dtype=torch.float32,
+                      device=dev)
+
+
 def _mads(sads: torch.Tensor, block_w: int, block_h: int) -> torch.Tensor:
-    area = torch.tensor(float(block_w * block_h), dtype=torch.float32,
-                        device=sads.device)
-    return sads.to(torch.float32) / area
+    return sads.to(torch.float32) / _area(block_w, block_h, sads.device)
 
 
 def refine(

@@ -21,24 +21,41 @@ default), so both packages draw the same bits:
   first ``m`` entries of that permutation.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words (torch's
-uint32 support is thin, so 32-bit words live in int64 and every add,
-multiply and shift is masked with ``0xFFFFFFFF``). Leading key dims batch:
-the result of a draw has the key's leading dims in front of ``shape``.
+uint32 support is thin, so 32-bit words live in int64). Leading key dims
+batch: the result of a draw has the key's leading dims in front of
+``shape``.
+
+The cipher runs as kernel K11 (:func:`threefry_words`,
+``csrc/threefry.cu``) on a CUDA tensor: one launch for every key and
+count, in native uint32 arithmetic. On a CPU tensor it runs as its plain
+version :func:`threefry_words_plain` (:func:`threefry2x32`, every add and
+shift of the int64-held words masked with ``0xFFFFFFFF``); the words are
+equal bit for bit.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from svc_tpu_torch.kernels.build import INT, INT64, PTR, Kernel, stream_handle
 
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
 Shape = Union[int, Sequence[int]]
+
+THREEFRY = Kernel(
+    "threefry2x32",
+    "svc_threefry2x32",
+    [PTR, PTR, PTR, INT64, INT64, INT, PTR],
+    source="svc_tpu_torch/csrc/threefry.cu",
+    replaces="svc_tpu/ops/kmeans.py:72",
+)
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -75,29 +92,87 @@ def key_from_jax_data(data: np.ndarray, device="cpu") -> torch.Tensor:
     )
 
 
-def _bits_at(k: torch.Tensor, counts: torch.Tensor, count_shape):
-    """``threefry2x32(key, (0, count))`` for every key and count."""
+def threefry_words_plain(
+    k: torch.Tensor,
+    n_counts: int,
+    data: Optional[torch.Tensor] = None,
+    both: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of K11 (same contract as
+    :func:`threefry_words`): :func:`threefry2x32` on int64-held words."""
     lead = k.shape[:-1]
-    k0 = k[..., 0].reshape(lead + (1,) * len(count_shape))
-    k1 = k[..., 1].reshape(lead + (1,) * len(count_shape))
+    k0 = k[..., 0].reshape(lead + (1,))
+    k1 = k[..., 1].reshape(lead + (1,))
+    if data is None:
+        x1 = torch.arange(n_counts, dtype=torch.int64, device=k.device)
+    else:
+        x1 = data.to(torch.int64) & _M
     zero = torch.zeros((), dtype=torch.int64, device=k.device)
-    return threefry2x32(k0, k1, zero, counts)
+    o0, o1 = threefry2x32(k0, k1, zero, x1)
+    return torch.stack([o0, o1], dim=-1) if both else o0 ^ o1
+
+
+def _check_cuda(k: torch.Tensor) -> None:
+    if k.device.type != "cuda":
+        raise ValueError(f"threefry_words: unsupported device {k.device}")
+
+
+def threefry_words(
+    k: torch.Tensor,
+    n_counts: int,
+    data: Optional[torch.Tensor] = None,
+    both: bool = True,
+) -> torch.Tensor:
+    """``threefry2x32(key, (0, x1))`` for every key of ``k (..., 2)`` and
+    every ``x1`` in ``0 .. n_counts - 1`` — or ``x1 = data[..., j]`` when
+    ``data (..., n_counts)`` is given (int64, low 32 bits).
+
+    Returns int64 words: ``(..., n_counts, 2)`` ``(x0, x1)`` when ``both``,
+    else ``(..., n_counts)`` ``x0 ^ x1``. A CUDA tensor launches K11 (the
+    launch or an error, never the plain version); a CPU tensor runs
+    :func:`threefry_words_plain`.
+    """
+    if k.device.type == "cpu":
+        return threefry_words_plain(k, n_counts, data, both)
+    lead = k.shape[:-1]
+    _check_cuda(k)
+    if k.dtype != torch.int64 or k.shape[-1:] != (2,):
+        raise TypeError("threefry_words: keys must be (..., 2) int64")
+    keys = k.reshape(-1, 2).contiguous()
+    n_keys = keys.shape[0]
+    if data is not None:
+        if data.dtype != torch.int64 or tuple(data.shape) != tuple(lead) + (n_counts,):
+            raise TypeError(f"threefry_words: data must be {tuple(lead) + (n_counts,)} int64")
+        if data.device != k.device:
+            raise ValueError("threefry_words: keys and data on different devices")
+        data = data.contiguous()
+    shape = tuple(lead) + (n_counts,) + ((2,) if both else ())
+    out = torch.empty(shape, dtype=torch.int64, device=k.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(keys.device):
+        THREEFRY.launch(
+            keys.data_ptr(), None if data is None else data.data_ptr(),
+            out.data_ptr(), n_keys, n_counts, int(both), stream_handle(keys),
+        )
+    return out
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` of uint32 ``data`` (int or tensor broadcasting
     against the key's leading dims)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & _M
-    zero = torch.zeros((), dtype=torch.int64, device=k.device)
-    o0, o1 = threefry2x32(k[..., 0], k[..., 1], zero, d)
-    return torch.stack([o0, o1], dim=-1)
+    if isinstance(data, int):  # filled on the device, no host copy
+        d = torch.full((), data, dtype=torch.int64, device=k.device)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64, device=k.device)
+    lead = torch.broadcast_shapes(k.shape[:-1], d.shape)
+    keys = k.expand(lead + (2,))
+    return threefry_words(keys, 1, d.expand(lead).reshape(lead + (1,)))[..., 0, :]
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: ``(..., num, 2)``."""
-    counts = torch.arange(num, dtype=torch.int64, device=k.device)
-    o0, o1 = _bits_at(k, counts, (num,))
-    return torch.stack([o0, o1], dim=-1)
+    return threefry_words(k, num)
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
@@ -108,11 +183,8 @@ def random_bits(k: torch.Tensor, shape: Shape) -> torch.Tensor:
     """32 random bits per element: ``(*key_lead, *shape)`` int64 in
     ``[0, 2**32)``."""
     shape = _shape(shape)
-    counts = torch.arange(
-        math.prod(shape), dtype=torch.int64, device=k.device
-    ).reshape(shape)
-    o0, o1 = _bits_at(k, counts, shape)
-    return o0 ^ o1
+    bits = threefry_words(k, math.prod(shape), both=False)
+    return bits.reshape(k.shape[:-1] + shape)
 
 
 def randint(k: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:
@@ -137,8 +209,10 @@ def uniform(
     bits = random_bits(k, shape)
     fbits = (bits >> 9) | 0x3F800000  # 23 mantissa bits, exponent of 1.0
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    # filled on the device: a copy from pageable memory would sync the
+    # stream and keep the draw out of a CUDA graph
+    lo = torch.full((), minval, dtype=torch.float32, device=k.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

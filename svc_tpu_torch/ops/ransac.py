@@ -126,8 +126,10 @@ def estimate_global_motion_ransac(
     d0 = gm0[:, :, None] - f0[:, None, :]
     d1 = gm1[:, :, None] - f1[:, None, :]
     err2 = d0 * d0 + d1 * d1
-    thresh = torch.tensor(params.inlier_thresh, dtype=torch.float32)
-    inliers = err2 < (thresh * thresh).to(dev)
+    # the float32 square, filled on the device (no host copy)
+    thresh = np.float32(params.inlier_thresh)
+    inliers = err2 < torch.full((), float(thresh * thresh), dtype=torch.float32,
+                                device=dev)
     counts = inliers.sum(dim=2)  # (F, k)
 
     # ">=" keep rule: the LAST hypothesis attaining the max count wins

@@ -15,9 +15,9 @@ where the stream statistics svc_tpu reduces with ``psum`` / ``pmean``
 
 The port's "mesh" is a sequence of torch devices. An entry may repeat: each
 entry is one chunk, so one card can run the split (``[cuda:0, cuda:0]``).
-Chunks are dispatched in order on the calling thread; the glue syncs the
-host once per connected-components check (``ops/ccl.py``), so chunks on
-distinct cards do not overlap yet.
+Chunks are dispatched in order on the calling thread. On ``cuda`` each
+chunk encoder replays its own CUDA graph, captured under its own device,
+and the batch has no host sync: no chunk's dispatch waits for a device.
 
 ``padded_planes`` (``keep_planes``) comes out in the single-device layout
 ``(3, T+1, PH, PW)``: chunk 0's stack, then every later chunk without its

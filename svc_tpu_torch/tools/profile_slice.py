@@ -2,14 +2,16 @@
 per-frame motion search.
 
 Runs the port's encode (``Encoder.encode_packed``, with the default
-``EncoderConfig()`` that users run), decode (``Decoder.decode_batch``) and
-per-frame ``ops.motion.hbma`` of one padded 1080p frame pair on one CUDA
-card under ``torch.profiler`` after a warm-up. It prints what
-ptxas reported for each kernel (registers, shared memory, spills) when the
-library is built in this process, then per batch:
-wall time, device busy time (the union of kernel intervals) and idle
-share, and the device time by kernel name. The Chrome traces go to
-``--out`` (default ``build/profile/``).
+``EncoderConfig()`` that users run; as its CUDA graph replay and eagerly,
+``graph=False``), decode (``Decoder.decode_batch``) and per-frame
+``ops.motion.hbma`` of one padded 1080p frame pair on one CUDA card under
+``torch.profiler`` after a warm-up. It prints what ptxas reported for each
+kernel (registers, shared memory, spills) when the library is built in
+this process, then per batch: wall time, device busy time (the union of
+kernel intervals) and idle share, the launches (:func:`batch_launches`:
+the host's launch calls and the operations the device ran), and the
+device time by kernel name. The Chrome traces go to ``--out`` (default
+``build/profile/``).
 
   python -m svc_tpu_torch.tools.profile_slice
 """
@@ -21,6 +23,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Dict
 
 import numpy as np
 import torch
@@ -57,6 +60,36 @@ def _busy_us(prof) -> float:
     return busy
 
 
+#: CUDA API calls (``cuda*`` and the lower-level ``cu*``) that put work on
+#: a stream: kernel launches (the port's kernels go through the runtime
+#: linked into their library), graph launches, copies and fills
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _launches(prof) -> Dict[str, int]:
+    host = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name in LAUNCH_CALLS)
+    device = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"host_launch_calls": host, "device_ops": device}
+
+
+def batch_launches(fn) -> Dict[str, int]:
+    """Launches of one call of ``fn`` after a warm-up call, under
+    ``torch.profiler``: the host's launch calls (``LAUNCH_CALLS``; a graph
+    replay is one) and the operations the device ran (kernels, copies,
+    fills; a replay's nodes each count)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _launches(prof)
+
+
 def _report(name: str, fn, out_dir: str, rows: int) -> None:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -66,8 +99,11 @@ def _report(name: str, fn, out_dir: str, rows: int) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy = _busy_us(prof)
+    launches = _launches(prof)
     print(f"== {name}: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}")
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
+          f"{launches['host_launch_calls']} host launch calls, "
+          f"{launches['device_ops']} device operations")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows))
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
 
@@ -94,9 +130,13 @@ def main(argv=None) -> int:
     clip = make_clip(w, h, 9)
     enc = Encoder(EncoderConfig(), VideoProperties(w, h, 9), batch_size=8,
                   device="cuda")
+    eager = Encoder(EncoderConfig(), VideoProperties(w, h, 9), batch_size=8,
+                    device="cuda", graph=False)
     packed = torch.as_tensor(clip).reshape(9, h, w * 3).cuda()
-    _report("encode_batch8", lambda: enc.encode_packed(packed, 0), args.out,
-            args.rows)
+    _report("encode_batch8_graph", lambda: enc.encode_packed(packed, 0),
+            args.out, args.rows)
+    _report("encode_batch8_eager", lambda: eager.encode_packed(packed, 0),
+            args.out, args.rows)
 
     out = enc.encode_packed(packed, 0)
     dec = Decoder(DecoderConfig(), enc.header(8), batch_size=8, device="cuda")

@@ -23,7 +23,7 @@ from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
-from svc_tpu_torch.ops import dct, kmeans, motion, prng, pyramid
+from svc_tpu_torch.ops import ccl, dct, kmeans, motion, prng, pyramid
 from svc_tpu_torch.ops.resize import bilinear_axis_weights
 from svc_tpu_torch.tools.clips import make_clip
 
@@ -988,3 +988,217 @@ def test_split_over_distinct_cards_equals_single_device(gen, tmp_path):
                              "--gaze", "64,48", "--input", svc,
                              "--output", out]) == 0
     np.testing.assert_array_equal(np.load(out), a)
+
+
+# ---------------------------------------------------------------------------
+# K10, K11 and the compiled encode batch
+# ---------------------------------------------------------------------------
+
+
+def _snake(h, w):
+    lab = -torch.ones((1, h, w), dtype=torch.int32)
+    lab[0, ::2, :] = 0
+    lab[0, 1::4, -1] = 0
+    lab[0, 3::4, 0] = 0
+    return lab
+
+
+@pytest.mark.parametrize(
+    "kind,b,h,w,k,connectivity,global_memory",
+    [("random", 8, 68, 120, 10, 4, False),   # the 1080p path shape
+     ("random", 8, 68, 120, 10, 8, False),
+     ("random", 8, 68, 120, 10, 4, True),    # the global-memory loop
+     ("blobs", 8, 68, 120, 10, 4, False),
+     ("blobs", 2, 135, 240, 10, 8, False),   # 4K: 162,000 B of shared memory
+     ("blobs", 1, 250, 200, 6, 4, False),    # past shared memory: global
+     ("own", 1, 37, 53, 37 * 53, 8, False),  # every cell its own cluster
+     ("snake", 1, 61, 61, 1, 4, False),
+     ("snake", 1, 61, 61, 1, 4, True),
+     ("snake", 1, 251, 199, 1, 8, False)],   # a snake past shared memory
+)
+def test_ccl_converge_bit_equal(gen, kind, b, h, w, k, connectivity, global_memory):
+    if kind == "random":
+        lab = torch.randint(-1, k, (b, h, w), generator=gen, dtype=torch.int32)
+    elif kind == "blobs":  # a few clusters in large regions, background between
+        lab = torch.randint(0, k, (b, h // 8 + 1, w // 8 + 1), generator=gen,
+                            dtype=torch.int32)
+        lab = lab.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w]
+        lab = torch.where(torch.rand((b, h, w), generator=gen) < 0.1, -1, lab)
+    elif kind == "own":
+        lab = torch.randperm(h * w, generator=gen).to(torch.int32).reshape(1, h, w)
+    else:
+        lab = _snake(h, w)
+    before = ccl.CCL_CONVERGE.launches
+    got = ccl.converge_labels(lab.cuda(), connectivity, global_memory=global_memory)
+    assert ccl.CCL_CONVERGE.launches == before + 1
+    assert torch.equal(got.cpu(), ccl.converge_labels_plain(lab, connectivity))
+    bt, ct = ccl.block_types_from_clusters(lab.cuda(), max(k, 1), connectivity)
+    bt_ref, ct_ref = ccl.block_types_from_clusters(lab, max(k, 1), connectivity)
+    assert torch.equal(bt.cpu(), bt_ref) and torch.equal(ct.cpu(), ct_ref)
+
+
+def test_ccl_converge_in_a_cuda_graph(gen):
+    lab = torch.randint(-1, 10, (8, 68, 120), generator=gen, dtype=torch.int32).cuda()
+    want = ccl.converge_labels_plain(lab.cpu(), 4)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ccl.converge_labels(lab, 4)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = ccl.converge_labels(lab, 4)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize(
+    "lead,shape",
+    [((8, 3), (10, 8160)),  # the k-means++ seeding draw of a 1080p batch
+     ((8,), (7, 1)),        # RANSAC's randint bit streams
+     ((2, 2), (5,)), ((1,), (1,))],
+)
+def test_threefry_random_bits_bit_equal(gen, lead, shape):
+    keys = prng.fold_in(prng.key(11), torch.arange(int(np.prod(lead))))
+    keys = keys.reshape(lead + (2,))
+    before = prng.THREEFRY.launches
+    got = prng.random_bits(keys.cuda(), shape)
+    assert prng.THREEFRY.launches == before + 1
+    assert torch.equal(got.cpu(), prng.random_bits(keys, shape))
+    want = prng.threefry_words_plain(keys.cuda(), int(np.prod(shape)), both=False)
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+def test_threefry_split_fold_in_uniform_randint_bit_equal(gen):
+    base = prng.key(2**40 + 3)
+    idx = torch.arange(5, 13)
+    anchors = prng.fold_in(base.cuda(), idx.cuda())
+    assert torch.equal(anchors.cpu(), prng.fold_in(base, idx))
+    assert torch.equal(prng.fold_in(base.cuda(), 2**32 - 1).cpu(),
+                       prng.fold_in(base, 2**32 - 1))
+    pair = prng.split(anchors)
+    assert torch.equal(pair.cpu(), prng.split(anchors.cpu()))
+    attempts = prng.split(pair[:, 1], 3)
+    assert torch.equal(attempts.cpu(), prng.split(pair[:, 1].cpu(), 3))
+    u = prng.uniform(attempts, (10, 8160), 1e-12, 1.0)
+    assert torch.equal(u.cpu(), prng.uniform(attempts.cpu(), (10, 8160), 1e-12, 1.0))
+    r = prng.randint(pair[:, 0], (7, 1), 0, 8160)
+    assert torch.equal(r.cpu(), prng.randint(pair[:, 0].cpu(), (7, 1), 0, 8160))
+
+
+def test_graph_stream_equals_eager_over_17_and_13_frames(gen):
+    # the CUDA graph replay (two graphs by turns, a padded remainder batch
+    # on the same graphs) against graph=False, byte for byte
+    for n in (17, 13):
+        clip = make_clip(128, 96, n, seed=n)
+        props = VideoProperties(128, 96, n)
+        graph = Encoder(EncoderConfig(), props, 8, device="cuda")
+        eager = Encoder(EncoderConfig(), props, 8, device="cuda", graph=False)
+        assert graph.graph and not eager.graph
+        got = list(graph.encode_video(iter(clip)))
+        assert got == list(eager.encode_video(iter(clip)))
+        assert got == _direct_stream(eager, clip)
+        assert list(graph._graphs) == [(9, 96, 384)]  # one shape, remainder included
+
+
+def test_graph_outputs_fetched_one_batch_late(gen):
+    # the output-overlap hazard: batch i's outputs are copied to the host
+    # while batch i + 1 replays; the two graphs of a shape keep them intact
+    from svc_tpu_torch.runtime.staging import PinnedDownload
+
+    clip = make_clip(128, 96, 33, seed=9)
+    props = VideoProperties(128, 96, 33)
+    graph = Encoder(EncoderConfig(), props, 8, device="cuda")
+    eager = Encoder(EncoderConfig(), props, 8, device="cuda", graph=False)
+    download = PinnedDownload()
+    packed = [torch.as_tensor(clip[i:i + 9]).reshape(9, 96, 384).cuda()
+              for i in range(0, 32, 8)]
+    pending, fetched = None, []
+    for i, p in enumerate(packed):
+        out = graph.encode_packed(p, 8 * i)
+        fetch = download.start({"coeffs": out["coeffs"],
+                                "block_types": out["block_types"]})
+        if pending is not None:
+            fetched.append({k: v.copy() for k, v in pending.wait().items()})
+        pending = fetch
+    fetched.append({k: v.copy() for k, v in pending.wait().items()})
+    for i, (p, got) in enumerate(zip(packed, fetched)):
+        want = eager.encode_packed(p, 8 * i)
+        np.testing.assert_array_equal(got["coeffs"], want["coeffs"].cpu().numpy())
+        np.testing.assert_array_equal(got["block_types"],
+                                      want["block_types"].cpu().numpy())
+
+
+def test_graph_replay_counts_its_launches_and_keeps_planes(gen):
+    clip = make_clip(128, 96, 9, seed=4)
+    props = VideoProperties(128, 96, 9)
+    graph = Encoder(EncoderConfig(), props, 8, device="cuda", keep_planes=True)
+    eager = Encoder(EncoderConfig(), props, 8, device="cuda", graph=False,
+                    keep_planes=True)
+    packed = torch.as_tensor(clip).reshape(9, 96, 384).cuda()
+    graph.encode_packed(packed, 0)  # warm-up and capture
+    per_replay = graph._graphs[(9, 96, 384)].launches_per_replay()
+    assert per_replay["ccl_converge"] == 1 and per_replay["lloyd"] == 1
+    assert per_replay["threefry2x32"] == 6  # split, RANSAC 3, seeding 2
+    build.reset_launch_counts()
+    out = graph.encode_packed(packed, 0)
+    counts = build.launch_counts()
+    for name, n in per_replay.items():
+        want = n + (1 if name == "threefry2x32" else 0)  # the anchor keys
+        assert counts[name] == want, name
+    ref = eager.encode_packed(packed, 0)
+    assert set(out) == set(ref) and "padded_planes" in out
+    for key in out:
+        assert torch.equal(out[key], ref[key]), key
+
+
+def test_split_with_graphs_equals_eager_single_device(gen):
+    from svc_tpu_torch.parallel.sharding import ShardedEncoder, make_frame_devices
+
+    clip = make_clip(128, 96, 12, seed=6)
+    props = VideoProperties(128, 96, 12)
+    devs = make_frame_devices(devices=["cuda:0", "cuda:0"])
+    split = ShardedEncoder(EncoderConfig(), props, devs, batch_per_device=2)
+    assert all(e.graph for e in split.inners)
+    want = list(Encoder(EncoderConfig(), props, 4, device="cuda", graph=False)
+                .encode_video(iter(clip)))
+    assert list(split.encode_video(iter(clip))) == want
+
+
+def test_a_failed_capture_raises(gen):
+    # a host sync inside the batch (here: int() of a device tensor in the
+    # CCL step) cannot be captured; the encoder raises instead of falling
+    # back to the eager path. In a child process: the failed capture must
+    # not disturb the other tests' CUDA context.
+    code = (
+        "import torch\n"
+        "from svc_tpu_torch.config import EncoderConfig, VideoProperties\n"
+        "from svc_tpu_torch.models import encoder as m\n"
+        "from svc_tpu_torch.tools.clips import make_clip\n"
+        "orig = m.block_types_from_clusters\n"
+        "def syncing(labels, k, c):\n"
+        "    int(labels.sum())\n"
+        "    return orig(labels, k, c)\n"
+        "m.block_types_from_clusters = syncing\n"
+        "clip = make_clip(64, 48, 3, seed=1)\n"
+        "packed = torch.as_tensor(clip).reshape(3, 48, 192).cuda()\n"
+        "eager = m.Encoder(EncoderConfig(), VideoProperties(64, 48, 3), 2,\n"
+        "                  device='cuda', graph=False)\n"
+        "eager.encode_packed(packed, 0)  # the eager path syncs and runs\n"
+        "enc = m.Encoder(EncoderConfig(), VideoProperties(64, 48, 3), 2,\n"
+        "                device='cuda')\n"
+        "try:\n"
+        "    enc.encode_packed(packed, 0)\n"
+        "except RuntimeError:\n"
+        "    print('raised')\n"
+        "else:\n"
+        "    print('no error')\n"
+    )
+    env = dict(os.environ)
+    repo = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "raised"

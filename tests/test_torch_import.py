@@ -28,7 +28,9 @@ def test_port_imports_no_jax():
         "svc_tpu_torch.ops.motion, svc_tpu_torch.io.video, "
         "svc_tpu_torch.metrics, svc_tpu_torch.runtime.pipeline, "
         "svc_tpu_torch.runtime.tracing, svc_tpu_torch.runtime.staging, "
-        "svc_tpu_torch.visualize, svc_tpu_torch.parallel.sharding\n"
+        "svc_tpu_torch.visualize, svc_tpu_torch.parallel.sharding, "
+        "svc_tpu_torch.runtime.graphs, svc_tpu_torch.ops.ccl, "
+        "svc_tpu_torch.ops.prng\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -130,7 +132,7 @@ def test_wrappers_refuse_devices_they_do_not_run_on(call):
 
 def test_kernel_registry_names_sources_and_tpu_kernels():
     from svc_tpu_torch.kernels import build
-    from svc_tpu_torch.ops import dct, kmeans, motion, pyramid  # noqa: F401
+    from svc_tpu_torch.ops import ccl, dct, kmeans, motion, prng, pyramid  # noqa: F401
 
     ks = build.kernels()
     assert set(ks) == {
@@ -141,14 +143,21 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "idct_display_general", "refine_sads_general", "lloyd_general",
         "candidate_sads_general", "pyr_down_levels",
         "idct_resize_display_general", "refine_sads_pitched_general",
-        "refine_mads_general",
+        "refine_mads_general", "ccl_converge", "threefry2x32",
     }
+    # K10 and K11 replace no pl.pallas_call: svc_tpu's CCL while_loop and
+    # jax.random's threefry (its k-means++ seeding draw)
+    no_pallas = {"ccl_converge": "jax.lax.while_loop(",
+                 "threefry2x32": "jax.random.uniform("}
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
         with open(os.path.join(REPO, path)) as f:
             text = f.read().splitlines()
-        assert text[int(line) - 1].startswith("def "), k.replaces
+        if k.name in no_pallas:
+            assert no_pallas[k.name] in text[int(line) - 1], k.replaces
+        else:
+            assert text[int(line) - 1].startswith("def "), k.replaces
     srcs = {p.name for p in build.sources()}
     assert {"pyr_down.cu", "refine_sads.cu", "dct_wire.cu",
             "idct_display.cu", "lloyd.cu", "idct_resize.cu",
@@ -161,7 +170,7 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "idct8x8.cuh", "refine_sads_pitched_general.cu",
             "refine_rows.cuh", "pyr_down_pitched_levels.cu",
             "pyr_down_levels.cuh", "refine_mads_general.cu",
-            "refine_sads.cuh"} <= srcs
+            "refine_sads.cuh", "ccl_converge.cu", "threefry.cu"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"

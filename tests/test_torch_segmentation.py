@@ -132,26 +132,85 @@ def test_block_types_match(segmentation):
     assert s["btypes"].max() > 0
 
 
-@pytest.mark.parametrize("connectivity", [4, 8])
-def test_block_types_random_clusters(connectivity):
-    lab = np.random.default_rng(connectivity).integers(-1, 3, (3, 11, 14))
+@pytest.mark.parametrize(
+    "connectivity,kind",
+    [pytest.param(4, "random", id="4"), pytest.param(8, "random", id="8"),
+     # every cell its own cluster: H*W single-cell components, k = H*W
+     pytest.param(4, "own", id="own-4"), pytest.param(8, "own", id="own-8"),
+     # 3x3 tiles of 9 clusters: no two 8-neighbours share a cluster
+     pytest.param(8, "tiles", id="tiles-8")],
+)
+def test_block_types_random_clusters(connectivity, kind):
+    if kind == "random":
+        lab = np.random.default_rng(connectivity).integers(-1, 3, (3, 11, 14))
+    elif kind == "own":
+        lab = np.random.default_rng(5).permutation(7 * 9).reshape(1, 7, 9)
+    else:
+        yy, xx = np.mgrid[0:12, 0:15]
+        lab = ((yy % 3) * 3 + xx % 3)[None]
     lab = lab.astype(np.int32)
-    bj, cj = j_ccl.block_types_from_clusters(jnp.asarray(lab), 3, connectivity)
-    bt, ct = ccl.block_types_from_clusters(torch.from_numpy(lab), 3, connectivity)
+    k = int(lab.max()) + 1
+    bj, cj = j_ccl.block_types_from_clusters(jnp.asarray(lab), k, connectivity)
+    bt, ct = ccl.block_types_from_clusters(torch.from_numpy(lab), k, connectivity)
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    if kind != "random":  # one component, and one block type, per cell
+        assert len(np.unique(bt.numpy())) == lab.size
 
 
-def test_block_types_snaking_component():
-    # one long serpentine component: propagation needs many sweeps
-    lab = -np.ones((1, 9, 9), np.int32)
+def _snake(n: int) -> np.ndarray:
+    """One serpentine component over an ``n x n`` grid (n odd)."""
+    lab = -np.ones((1, n, n), np.int32)
     lab[0, ::2, :] = 0
     lab[0, 1::4, -1] = 0
     lab[0, 3::4, 0] = 0
-    bj, _ = j_ccl.block_types_from_clusters(jnp.asarray(lab), 1, 4)
-    bt, _ = ccl.block_types_from_clusters(torch.from_numpy(lab), 1, 4)
+    return lab
+
+
+def _spiral(n: int) -> np.ndarray:
+    """One square spiral of cluster 1 winding into an ``n x n`` grid, the
+    gaps between its arms cluster 0 (a second, interleaved spiral)."""
+    lab = np.zeros((n, n), np.int32)
+    y, x, dy, dx = 0, 0, 0, 1
+    seen = np.zeros((n, n), bool)
+    for _ in range(n * n):
+        lab[y, x] = 1
+        seen[y, x] = True
+        ny, nx = y + 2 * dy, x + 2 * dx
+        if not (0 <= ny < n and 0 <= nx < n) or seen[ny, nx]:
+            dy, dx = dx, -dy  # turn right
+            ny, nx = y + 2 * dy, x + 2 * dx
+            if not (0 <= ny < n and 0 <= nx < n) or seen[ny, nx]:
+                break
+        lab[y + dy, x + dx] = 1
+        seen[y + dy, x + dx] = True
+        y, x = ny, nx
+    return lab[None]
+
+
+@pytest.mark.parametrize(
+    "kind,n,connectivity",
+    [pytest.param("snake", 9, 4, id="snake9-4"),
+     # svc_tpu's first loop stops after (h + w) // 10 blocks of 12 sweeps
+     # (72 at 31x31); these components are ~500 cells long, so its second
+     # loop (pointer jumping) must finish them
+     pytest.param("snake", 31, 4, id="snake31-4"),
+     pytest.param("snake", 31, 8, id="snake31-8"),
+     pytest.param("spiral", 33, 4, id="spiral33-4"),
+     pytest.param("spiral", 33, 8, id="spiral33-8")],
+)
+def test_block_types_snaking_component(kind, n, connectivity):
+    # one long serpentine component: propagation needs many sweeps
+    lab = _snake(n) if kind == "snake" else _spiral(n)
+    k = int(lab.max()) + 1
+    bj, cj = j_ccl.block_types_from_clusters(jnp.asarray(lab), k, connectivity)
+    bt, ct = ccl.block_types_from_clusters(torch.from_numpy(lab), k, connectivity)
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
-    assert bt.max().item() == 1
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    if kind == "snake":
+        assert bt.max().item() == 1
+    elif connectivity == 4:  # the spiral and the gaps between its arms
+        assert ct.numpy().tolist() == [[2, 2]]
 
 
 def test_ransac_iteration_math_matches():
