@@ -9,17 +9,21 @@ each:
 
 1. card — name and power limit (``nvidia-smi``);
 2. build — compile the kernels, with the build time, each kernel's
-   registers and static shared memory (ptxas), K5's dynamic shared memory
-   and CTAs per SM, and K5's static shared memory held to what its
-   wrapper plans with;
-3. kernel parity — each of the twenty-two kernels against its plain
+   registers and static shared memory (ptxas), K5's and K10's dynamic
+   shared memory and CTAs per SM, K5's static shared memory held to what
+   its wrapper plans with, K11's cipher instructions a word counted in the
+   built library's SASS (``cuobjdump -sass``), and the card's 32-bit
+   integer rate (64 instructions a clock on each SM at its maximum SM
+   clock, ``nvidia-smi``);
+3. kernel parity — each of the twenty-three kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
    kernel's time, its time through the wrapper, the plain version's, the
    one-call PyTorch yardstick's where one exists, and the bound (bytes
    over 3.35 TB/s or operations over 67 T/s, float64 operations over 34
-   T/s, whichever is larger). A kernel's time is that of CUDA graph
+   T/s, integer instructions over the integer rate for K3, K4, K7, K8, K9
+   and K11, whichever is larger). A kernel's time is that of CUDA graph
    replays, so that no host time of the wrapper enters (the yardsticks
    too). Every kernel runs on its new kernel (K1 / K2 / K6 8x8 x 3, K3
    and K7 square 4/8/16 blocks at r = 1, K4 and the K8 pyramid levels 1-3
@@ -34,11 +38,15 @@ each:
    a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
    refine with MVs past its staged band and past the frame edges; K5 also
    at 1080p with D = 7; the general K1, K2 and K6 also run once at 4x4
-   blocks; K10 (the CCL loop on the device) at the path shape with both
-   connectivities, a snake, its global-memory loop (timed in turns with
-   the shared-memory one), 4K and a grid past shared memory; K11 (the
-   threefry cipher) on the anchor keys' fold_in and split, the seeding
-   draw (timed), uniform and randint;
+   blocks; K10 (the CCL on the device: the 8-CTA cluster kernel and the
+   general one, each also with ``general=True`` and the general
+   global-memory loop) at the path shape with both connectivities, a
+   snake, 4K, 270x480, a grid past the cluster's capacity and
+   ``tools/ccl_cases.py``'s spiral, comb, one-cluster, background,
+   checkerboard, 1x1, 5x120 and 1x120 frames at both connectivities, 20
+   launches of one input bit-equal, the two kernels timed in turns; K11
+   (the threefry cipher) on the anchor keys' fold_in and split, the
+   seeding draw (timed), uniform and randint;
 4. default config — a 17-frame 1080p clip through the staged,
    one-batch-in-flight ``stream_encode`` with ``EncoderConfig()`` on
    ``cuda``, read back through the port's ``io.bitstream`` and decoded by
@@ -50,7 +58,8 @@ each:
    encoder app's bytes equal the library stream through the native writer
    (where it builds) and the Python writer thread, ``--trace`` holds the
    spans, the ``--profile`` trace names the port's kernels inside the
-   encoder's CUDA graph replays (K2, K10 and K11 at least), the decoder
+   encoder's CUDA graph replays (K2, K10's cluster kernel and K11 at
+   least; the general K10 never), the decoder
    app's frames equal the library decode and ``--start-frame 4`` gives
    their exact tail;
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
@@ -59,12 +68,13 @@ each:
    payloads;
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
-   phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9)
-   or the single-level K4;
+   phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9,
+   K10) or the single-level K4;
 7. 4x4 transform blocks — a 9-frame CIF clip, default config with 4x4
    transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones
    not; its 16x16 MV blocks run the specialised K3 and the cluster K5,
-   the fused K4 and the 2x2 K9 (no general K3, K5, K9, single-level K4);
+   the fused K4 and the 2x2 K9 (no general K3, K5, K9, K10, single-level
+   K4);
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
@@ -102,7 +112,8 @@ each:
     main run's stream, then in turns (eager, graph, graph, eager) with
     fps and the Tracer split per batch; 13 frames both ways, phase 13's
     split stream against the eager one; per mode the device batch time,
-    its dispatch and ``tools/profile_slice.py``'s launches per batch.
+    its dispatch and ``tools/profile_slice.py``'s launches per batch; a
+    replay launches K10's cluster kernel once and the general one never.
 
 Phases 4-7 and 12 also need K10 and K11 to run. A graph's kernels count
 one launch each on every replay (its warm-up runs them once more). Each
@@ -131,11 +142,76 @@ BLOCK_TYPE_TOL = 0.01  # phase 8: share of blocks allowed to differ
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
 # HBM rate, or the operations over the float32 rate outside the tensor
-# cores (also used for the integer SAD and filter operations; an
-# absolute-difference or multiply accumulate counts 2), whichever is larger
+# cores (a multiply accumulate counts 2; integer work: its instructions
+# over the integer rate below), whichever is larger
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores (K2's sums)
+# 32-bit integer instructions (add, multiply-add, shift, logic, compare) an
+# SM issues a clock at compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput): the integer kernels' rate is this
+# times the SMs times the card's maximum SM clock (nvidia-smi). A SIMD SAD
+# of 4 bytes with its accumulate (VABSDIFF4.U8.ACC) is one instruction
+INT_OPS_PER_CLOCK = 64
+
+
+def int_ops_per_s() -> tuple:
+    """``(instructions a second, SMs, MHz)``: the card's 32-bit integer
+    instruction rate at its maximum SM clock."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        mhz = float(smi.stdout.split()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no maximum SM clock: {smi.stdout!r} {smi.stderr!r}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT_OPS_PER_CLOCK * sms * mhz * 1e6, sms, mhz
+
+
+def sass_of(lib_path, kernel: str):
+    """The SASS instructions (``"OPCODE operands"``, predicate dropped, with
+    their addresses) of the one function of the library whose mangled name
+    holds ``kernel``, from ``cuobjdump -sass``."""
+    from svc_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300)
+    if dump.returncode != 0:
+        fail(f"cuobjdump -sass failed: {dump.stderr.strip()[-300:]}")
+    funcs = [f for f in re.split(r"\n\s*Function : ", dump.stdout)[1:]
+             if kernel in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        fail(f"cuobjdump -sass: {len(funcs)} functions named {kernel}")
+    out = []
+    for line in funcs[0].splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]*);", line)
+        if m:
+            out.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def cipher_instructions(sass) -> int:
+    """The threefry kernel's cipher instructions a word: inside its
+    grid-stride loop (from the target of its last backward branch to that
+    branch), the rotations (``SHF.L.W``), the xors (``LOP3.LUT`` with the
+    truth tables 0x3c and 0x96) and the adds (``IADD3``, ``IMAD.IADD``).
+    The loop's index arithmetic, loads, stores and branches are not
+    counted."""
+    back = [(a, int(m.group(1), 16)) for a, ins in sass
+            for m in [re.match(r"BRA (0x[0-9a-f]+)", ins)] if m and int(m.group(1), 16) < a]
+    if not back:
+        fail("threefry2x32_kernel's SASS has no loop")
+    end, head = back[-1]
+    body = [ins for a, ins in sass if head <= a <= end]
+    rotations = sum(ins.startswith("SHF.L.W") for ins in body)
+    if rotations != 20:
+        fail(f"threefry2x32_kernel's loop holds {rotations} funnel-shift "
+             f"rotations, not the cipher's 20")
+    xor = re.compile(r"LOP3\.LUT .*, 0x(3c|96), ")
+    return sum(bool(ins.startswith(("SHF.L.W", "IADD3 ", "IMAD.IADD "))
+                    or xor.match(ins)) for ins in body)
 
 
 def fail(msg: str) -> None:
@@ -220,6 +296,22 @@ def ptxas_report(log: str):
     return out
 
 
+def k10_occupancy(ccl, kern: str, regs: int) -> str:
+    """Dynamic shared memory and CTAs of 1024 threads per SM of a K10
+    kernel at the path shape and beyond."""
+    if kern == "ccl_cluster_kernel":  # a band of ceil(H / 8) rows a CTA
+        bands = ", ".join(
+            f"{5 * ccl.band_cells(h, w)} B dynamic smem a CTA at {h}x{w} "
+            f"({ctas_per_sm(regs, 5 * ccl.band_cells(h, w), 1024)} CTAs per SM)"
+            for h, w in ((68, 120), (135, 240), (270, 480)))
+        return f"{bands}; clusters of 8 CTAs, 64 CTAs at batch 8"
+    if kern.endswith("<1>"):  # the general kernel, a frame a CTA
+        return (f"{5 * 68 * 120} B dynamic smem at 68x120 "
+                f"({ctas_per_sm(regs, 5 * 68 * 120, 1024)} CTAs per SM), 8 CTAs "
+                f"at batch 8")
+    return "over global memory"
+
+
 def ptxas_summary(report) -> str:
     return "; ".join(f"{src} {kern} {regs} regs, {smem} B static smem"
                      for src, kern, regs, smem in report) or "not reported (already built)"
@@ -255,8 +347,11 @@ def even_mvs(g, shape, bound_, dev):
                              dtype=torch.int32).to(dev)
 
 
-def phase_parity(dev):
-    """Each kernel against its plain version at the 1080p path shapes."""
+def phase_parity(dev, int_ops_per_s, k11_per_word):
+    """Each kernel against its plain version at the 1080p path shapes.
+    ``int_ops_per_s`` is the card's 32-bit integer instruction rate, the
+    rate of the byte SADs and the cipher; ``k11_per_word`` the cipher's
+    instructions a word (phase 2)."""
     from svc_tpu_torch.ops import dct, kmeans, motion, prng, pyramid, quant
     from svc_tpu_torch.ops.resize import bilinear_axis_weights
 
@@ -305,11 +400,12 @@ def phase_parity(dev):
     # level read and its next written, so levels 1 and 2 are read back
     fused_bytes = y.numel() + outs
     single_bytes = sum(chain[i].numel() + chain[i + 1].numel() for i in range(3))
-    ops = 30 * outs  # separable: 15 multiply-adds per output
+    # separable, in integers: 15 multiply-add instructions per output
+    ops = 15 * outs
     line = record(results, "pyr_down_levels", pyramid.PYR_DOWN_LEVELS, 0, n_ms, w_ms,
-                  plain_ms, fused_bytes, ops, lib_ms)
+                  plain_ms, fused_bytes, ops, lib_ms, ops_per_s=int_ops_per_s)
     record(results, "pyr_down_u8", pyramid.PYR_DOWN, 0, g_ms, gw_ms, plain_ms,
-           single_bytes, ops, lib_ms)
+           single_bytes, ops, lib_ms, ops_per_s=int_ops_per_s)
     checks = []
     for shape, count in (((2, 1087, 1919), 4), ((3, 5, 7), 4), ((1, 1, 1919), 4),
                          ((2, 1087, 1), 4), ((1, 768, 1366), 4), ((2, 70, 530), 2),
@@ -334,9 +430,9 @@ def phase_parity(dev):
           f"(levels {', '.join(f'{v:.4f}' for v in per_level)}; in turns single, "
           f"fused, fused, single: {', '.join(f'{v:.4f}' for v in turns)}; "
           f"through the wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain "
-          f"{plain_ms:.4f} ms; bound fused {bound(fused_bytes, ops)[0]:.4f} ms "
+          f"{plain_ms:.4f} ms; bound fused {bound(fused_bytes, ops, int_ops_per_s)[0]:.4f} ms "
           f"(level 0 read once), three launches "
-          f"{bound(single_bytes, ops)[0]:.4f} ms (levels 1-2 read back); {line}; "
+          f"{bound(single_bytes, ops, int_ops_per_s)[0]:.4f} ms (levels 1-2 read back); {line}; "
           f"also bit-equal at {', '.join(checks)} (shape/levels)")
 
     # K3: refine SADs at levels 2, 1, 0 (blocks 4, 8, 16; r = 1) with the
@@ -371,7 +467,7 @@ def phase_parity(dev):
         p_ms = cuda_ms(lambda: motion.refine_sads_plain(stack, mv, 1, b, b),
                        iters=5)
         lvl_bytes = stack.numel() + mv.numel() * 4 + got.numel() * 4
-        lvl_ops = 2 * got.numel() * b * b
+        lvl_ops = got.numel() * b * b // 4  # a SIMD SAD of 4 bytes each
         ms, gen_ms, plain_ms = ms + n_ms, gen_ms + g_ms, plain_ms + p_ms
         wrap_ms, gen_wrap_ms = wrap_ms + w_ms, gen_wrap_ms + gw_ms
         nbytes, ops = nbytes + lvl_bytes, ops + lvl_ops
@@ -379,11 +475,11 @@ def phase_parity(dev):
             f"level {lvl} ({b}x{b}, {mfh}x{mfw} blocks) {n_ms:.4f} ms "
             f"(general {g_ms:.4f}; in turns {', '.join(f'{x:.4f}' for x in turns)}"
             f"; through the wrapper {w_ms:.4f}; bound "
-            f"{bound(lvl_bytes, lvl_ops)[0]:.4f} ms)")
+            f"{bound(lvl_bytes, lvl_ops, int_ops_per_s)[0]:.4f} ms)")
     line = record(results, "refine_sads", motion.REFINE_SADS, 0, ms, wrap_ms,
-                  plain_ms, nbytes, ops)
+                  plain_ms, nbytes, ops, ops_per_s=int_ops_per_s)
     record(results, "refine_sads_general", motion.REFINE_SADS_GENERAL, 0, gen_ms,
-           gen_wrap_ms, plain_ms, nbytes, ops)
+           gen_wrap_ms, plain_ms, nbytes, ops, ops_per_s=int_ops_per_s)
     print(f"parity K3 refine_sads: the specialised and the general kernel "
           f"bit-equal to the plain version on every candidate, levels 2-0; "
           f"{'; '.join(per_level)}; 3 levels {ms:.4f} ms (general "
@@ -433,16 +529,16 @@ def phase_parity(dev):
         plain_ms += cuda_ms(lambda: motion.refine_mads_plain(tr, an, mv, 1, b, b),
                             iters=5)
         lvl_bytes = 2 * tr.numel() + mv.numel() * 4 + got.numel() * 4
-        lvl_ops = 2 * got.numel() * b * b
+        lvl_ops = got.numel() * b * b // 4  # a SIMD SAD of 4 bytes each
         nbytes, ops = nbytes + lvl_bytes, ops + lvl_ops
         per_level.append(
             f"level {lvl} ({b}x{b}) {n_ms:.4f} ms (general {g_ms:.4f}, stack + "
             f"K3 {s_ms:.4f}; in turns {', '.join(f'{x:.4f}' for x in turns)}; "
-            f"bound {bound(lvl_bytes, lvl_ops)[0]:.4f} ms)")
+            f"bound {bound(lvl_bytes, lvl_ops, int_ops_per_s)[0]:.4f} ms)")
     line = record(results, "refine_mads", motion.REFINE_MADS, 0, ms, w_ms,
-                  plain_ms, nbytes, ops)
+                  plain_ms, nbytes, ops, ops_per_s=int_ops_per_s)
     record(results, "refine_mads_general", motion.REFINE_MADS_GENERAL, 0, gen_ms,
-           gen_w_ms, plain_ms, nbytes, ops)
+           gen_w_ms, plain_ms, nbytes, ops, ops_per_s=int_ops_per_s)
     print(f"parity K7 refine_mads: the specialised and the general kernel "
           f"bit-equal to the plain version on every candidate, levels 2-0 of "
           f"one pair, even and odd past-edge MVs; {'; '.join(per_level)}; 3 "
@@ -487,10 +583,11 @@ def phase_parity(dev):
     plain_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, 1, 2, 2),
                        iters=5)
     nbytes = 2 * tr.numel() + zero.numel() * 4 + got.numel() * 4
+    # one SIMD SAD of 4 bytes a candidate of a 2x2 block
     line = record(results, "candidate_sads", motion.CANDIDATE_SADS, 0, ms, w_ms,
-                  plain_ms, nbytes, 2 * got.numel() * 4)
+                  plain_ms, nbytes, got.numel(), ops_per_s=int_ops_per_s)
     record(results, "candidate_sads_general", motion.CANDIDATE_SADS_GENERAL, 0,
-           g_ms, gw_ms, plain_ms, nbytes, 2 * got.numel() * 4)
+           g_ms, gw_ms, plain_ms, nbytes, got.numel(), ops_per_s=int_ops_per_s)
     tr, an = y[:-1], y[1:]
     wide = []
     for pad in (0, 14):
@@ -558,12 +655,13 @@ def phase_parity(dev):
     # the chain reads levels 1 and 2 back
     pyr_bytes = y8.numel() + sum(o.numel() for o in got)
     chain_bytes = pyr_bytes + got[0].numel() + got[1].numel()
-    pyr_ops = 30 * sum(o.numel() for o in got)
+    pyr_ops = 15 * sum(o.numel() for o in got)  # integer multiply-adds
     line = record(results, "pyr_down_pitched_levels", pyramid.PYR_DOWN_PITCHED_LEVELS,
-                  0, n_ms, w_ms, plain_ms, pyr_bytes, pyr_ops, lib_ms)
+                  0, n_ms, w_ms, plain_ms, pyr_bytes, pyr_ops, lib_ms,
+                  ops_per_s=int_ops_per_s)
     record(results, "pyr_down_pitched_general", pyramid.PYR_DOWN_PITCHED_GENERAL, 0,
-           g1_ms, g1_w, g1_plain, y8.numel() + got[0].numel(), 30 * got[0].numel(),
-           conv_l0_ms)
+           g1_ms, g1_w, g1_plain, y8.numel() + got[0].numel(), 15 * got[0].numel(),
+           conv_l0_ms, ops_per_s=int_ops_per_s)
     checks = []
     for tbw, shape in ((8, (2, 64, 1376)), (8, (2, 40, 536)), (4, (3, 48, 1000)),
                        (8, (1, 8, 16))):
@@ -585,8 +683,8 @@ def phase_parity(dev):
           f"chain: {', '.join(f'{v:.4f}' for v in turns)}; through the wrappers "
           f"{w_ms:.4f} / {gw_ms:.4f}; the general K8 level alone {g1_ms:.4f} ms, "
           f"through its wrapper {g1_w:.4f}) vs plain {plain_ms:.4f} ms; bound "
-          f"fused {bound(pyr_bytes, pyr_ops)[0]:.4f} ms (level 0 read once), "
-          f"general chain {bound(chain_bytes, pyr_ops)[0]:.4f} ms; {line}; also "
+          f"fused {bound(pyr_bytes, pyr_ops, int_ops_per_s)[0]:.4f} ms (level 0 read once), "
+          f"general chain {bound(chain_bytes, pyr_ops, int_ops_per_s)[0]:.4f} ms; {line}; also "
           f"bit-equal to the fused K4 at {', '.join(checks)}")
 
     # K8 refine: level 0 (16x16 blocks, r = 1) on the specialised kernel
@@ -630,10 +728,13 @@ def phase_parity(dev):
     plain_ms = cuda_ms(lambda: motion.refine_sads_pitched_plain(y8, mv, 1, 16, 16),
                        iters=5)
     nbytes = y8.numel() + mv.numel() * 4 + got.numel() * 4
+    # a SIMD SAD of 4 bytes each: 64 a candidate of a 16x16 block
     line = record(results, "refine_sads_pitched", motion.REFINE_SADS_PITCHED, 0,
-                  ms, w_ms, plain_ms, nbytes, 2 * got.numel() * 256)
+                  ms, w_ms, plain_ms, nbytes, got.numel() * 64,
+                  ops_per_s=int_ops_per_s)
     record(results, "refine_sads_pitched_general", motion.REFINE_SADS_PITCHED_GENERAL,
-           0, g_ms, gw_ms, plain_ms, nbytes, 2 * got.numel() * 256)
+           0, g_ms, gw_ms, plain_ms, nbytes, got.numel() * 64,
+           ops_per_s=int_ops_per_s)
     print(f"parity K8 refine_sads_pitched: the specialised and the general kernel "
           f"bit-equal on every candidate to each other, to the plain version "
           f"and to K3 on the spatial stack at {', '.join(in_band)}; "
@@ -912,65 +1013,99 @@ def phase_parity(dev):
     print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; 1366x768 "
           f"{line}; general at 4x4 blocks (T=2, 1376x768->1366x768): max diff "
           f"{diff.max().item()}, {frac4:.2e} of bytes differ")
-    compiled_batch_parity(g, dev, results)
+    compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word)
     return results
 
 
-def blob_clusters(g, b: int, h: int, w: int, k: int) -> torch.Tensor:
-    """``(b, h, w)`` int32 cluster images like the encoder's: k clusters in
-    8x8-cell regions, a tenth of the cells background (-1)."""
-    lab = torch.randint(0, k, (b, h // 8 + 1, w // 8 + 1), generator=g,
-                        dtype=torch.int32)
-    lab = lab.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w]
-    return torch.where(torch.rand((b, h, w), generator=g) < 0.1, -1, lab)
-
-
-def compiled_batch_parity(g, dev, results):
-    """Phase 3, the compiled batch's two kernels: K10 (the CCL loop on the
-    device) and K11 (the threefry cipher), each against its plain version
-    bit for bit at the 1080p path shapes and beyond, timed by CUDA graph
-    replay; K10's global-memory loop in turns with its shared-memory one."""
+def compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word):
+    """Phase 3, the compiled batch's kernels: K10 (the CCL on the device:
+    the cluster kernel and the general one) and K11 (the threefry cipher),
+    each against its plain version bit for bit at the 1080p path shapes and
+    beyond, timed by CUDA graph replay; K10's two kernels in turns."""
     from svc_tpu_torch.ops import ccl, prng
+    from svc_tpu_torch.tools import ccl_cases
 
     # K10 at the path shape (8 frames of 68x120 MV blocks, k = 10), both
-    # connectivities, random labels, a 68x120 snake, the global-memory loop;
-    # 4K (135x240, 162,000 B of shared memory) and a grid past shared
-    # memory (270x480, global memory)
+    # connectivities, random labels, a 68x120 snake; 4K (135x240) and
+    # 270x480 (bands of 17 and 34 rows), a grid past the cluster's
+    # capacity (540x960, bands of 65,280 cells: the general kernel over
+    # global memory); ccl_cases' spiral, comb, one-cluster, background,
+    # checkerboard, 1x1, 5x120 and 1x120 frames at both connectivities.
+    # Each runs on the default route and on the general kernel
+    # (general=True); the general kernel's global-memory loop once more
     snake = -torch.ones((1, 68, 120), dtype=torch.int32)
     snake[0, ::2, :] = 0
     snake[0, 1::4, -1] = 0
     snake[0, 3::4, 0] = 0
-    cases = [("path blobs, 4-conn", blob_clusters(g, 8, 68, 120, 10), 4, False),
-             ("path blobs, 8-conn", blob_clusters(g, 8, 68, 120, 10), 8, False),
+    adversarial = ccl_cases.adversarial()
+    cases = [("path blobs, 4-conn", ccl_cases.blobs(g, 8, 68, 120, 10), 4),
+             ("path blobs, 8-conn", ccl_cases.blobs(g, 8, 68, 120, 10), 8),
              ("path random, 4-conn", torch.randint(-1, 10, (8, 68, 120), generator=g,
-                                                   dtype=torch.int32), 4, False),
-             ("68x120 snake", snake, 4, False),
-             ("path blobs, global memory", blob_clusters(g, 8, 68, 120, 10), 4, True),
-             ("4K blobs", blob_clusters(g, 8, 135, 240, 10), 4, False),
-             ("270x480 blobs (past shared memory)", blob_clusters(g, 2, 270, 480, 10),
-              8, False)]
-    for name, lab, conn, glob in cases:
-        before = ccl.CCL_CONVERGE.launches
-        got = ccl.converge_labels(lab.to(dev), conn, global_memory=glob)
-        if ccl.CCL_CONVERGE.launches != before + 1:
-            fail(f"K10 did not launch ({name})")
-        if not torch.equal(got.cpu(), ccl.converge_labels_plain(lab, conn)):
-            fail(f"K10 ccl_converge differs from its plain version ({name})")
+                                                   dtype=torch.int32), 4),
+             ("68x120 snake", snake, 4),
+             ("4K blobs", ccl_cases.blobs(g, 8, 135, 240, 10), 4),
+             ("270x480 blobs", ccl_cases.blobs(g, 2, 270, 480, 10), 8),
+             ("540x960 blobs (past the cluster's capacity)",
+              ccl_cases.blobs(g, 1, 540, 960, 10), 4)]
+    cases += [(f"{name}, {conn}-conn", lab, conn) for name, lab in adversarial.items()
+              for conn in (4, 8)]
+    for name, lab, conn in cases:
+        want = ccl.converge_labels_plain(lab, conn)
+        fits = ccl.band_cells(*lab.shape[1:]) <= ccl.K10_BAND_CELLS
+        route = ccl.CCL_CONVERGE if fits else ccl.CCL_CONVERGE_GENERAL
+        for kernel, kw in ((route, {}), (ccl.CCL_CONVERGE_GENERAL, {"general": True}),
+                           (ccl.CCL_CONVERGE_GENERAL, {"global_memory": True})):
+            before = kernel.launches
+            got = ccl.converge_labels(lab.to(dev), conn, **kw)
+            if kernel.launches != before + 1:
+                fail(f"K10 {kernel.name} did not launch ({name}, {kw})")
+            if not torch.equal(got.cpu(), want):
+                fail(f"K10 {kernel.name} differs from its plain version ({name}, {kw})")
+    # 20 launches of one input, all bit-equal, on each kernel
+    for name in ("68x120 spiral", "68x120 comb", "68x120 checkerboard"):
+        lab = adversarial[name].to(dev)
+        for conn in (4, 8):
+            want = ccl.converge_labels_plain(adversarial[name], conn)
+            for general in (False, True):
+                outs = [ccl.converge_labels(lab, conn, general=general) for _ in range(20)]
+                if not all(torch.equal(o.cpu(), want) for o in outs):
+                    fail(f"K10 (general={general}) is not stable over 20 launches "
+                         f"({name}, {conn}-conn)")
     lab = cases[0][1].to(dev)
-    glob_ms, ms, turns = in_turns(
-        lambda: ccl.converge_labels(lab, 4, global_memory=True),
+    gen_ms, ms, turns = in_turns(
+        lambda: ccl.converge_labels(lab, 4, general=True),
         lambda: ccl.converge_labels(lab, 4), graph_ms)
     w_ms = cuda_ms(lambda: ccl.converge_labels(lab, 4))
+    gw_ms = cuda_ms(lambda: ccl.converge_labels(lab, 4, general=True))
+    glob_ms = graph_ms(lambda: ccl.converge_labels(lab, 4, global_memory=True))
     plain_ms = cuda_ms(lambda: ccl.converge_labels_plain(lab, 4), iters=3)
-    snake_d = snake.to(dev)
-    snake_ms = graph_ms(lambda: ccl.converge_labels(snake_d, 4))
+    others = []
+    for name, x, conn in (("68x120 snake", snake, 4),
+                          ("spiral", adversarial["68x120 spiral"], 4),
+                          ("comb", adversarial["68x120 comb"], 4),
+                          ("one cluster", adversarial["68x120 one cluster"], 4),
+                          ("checkerboard 8-conn", adversarial["68x120 checkerboard"], 8),
+                          ("4K", cases[4][1], 4), ("270x480", cases[5][1], 8)):
+        x = x.to(dev)
+        o_gen, o_new, _ = in_turns(
+            lambda: ccl.converge_labels(x, conn, general=True),
+            lambda: ccl.converge_labels(x, conn), graph_ms)
+        others.append(f"{name} {o_new:.4f} (general {o_gen:.4f})")
+    nbytes = lab.numel() * 4 * 2
     line = record(results, "ccl_converge", ccl.CCL_CONVERGE, 0, ms, w_ms, plain_ms,
-                  lab.numel() * 4 * 2, 0)
-    print(f"parity K10 ccl_converge: bit-equal to the plain loop on "
-          f"{', '.join(c[0] for c in cases)}; path shape (8x68x120, blobs, "
-          f"4-conn) {ms:.4f} ms (global-memory loop {glob_ms:.4f}; in turns "
-          f"global, shared, shared, global: {', '.join(f'{v:.4f}' for v in turns)}"
-          f"; 68x120 snake {snake_ms:.4f}) vs plain {plain_ms:.4f} ms; {line}")
+                  nbytes, 0)
+    record(results, "ccl_converge_general", ccl.CCL_CONVERGE_GENERAL, 0, gen_ms,
+           gw_ms, plain_ms, nbytes, 0)
+    print(f"parity K10 ccl_converge (the cluster kernel) and ccl_converge_general "
+          f"(also its global-memory loop): bit-equal to the plain loop on "
+          f"{', '.join(c[0] for c in cases)}; 20 launches each bit-equal on the "
+          f"spiral, comb and checkerboard at both connectivities; path shape "
+          f"(8x68x120, blobs, 4-conn) {ms:.4f} ms (general {gen_ms:.4f}, "
+          f"{gen_ms / ms:.1f}x; in turns general, cluster, cluster, general: "
+          f"{', '.join(f'{v:.4f}' for v in turns)}; the general global-memory "
+          f"loop {glob_ms:.4f}; through the wrapper {w_ms:.4f}, general "
+          f"{gw_ms:.4f}) vs plain {plain_ms:.4f} ms; one call each, in turns (ms): "
+          f"{'; '.join(others)}; {line}")
 
     # K11 at the path shapes: the k-means++ seeding draw (8 frames x 3
     # attempts x (10, 8160) words), the anchor keys (fold_in of 8
@@ -1002,16 +1137,17 @@ def compiled_batch_parity(g, dev, results):
     plain_ms = cuda_ms(lambda: prng.threefry_words_plain(attempts, 10 * 8160,
                                                          both=False), iters=3)
     small_ms = graph_ms(lambda: prng.split(anchors))
-    # bytes: 24 keys in, 1.96M int64 words out; operations: ~80 integer
-    # operations a word (20 mix steps of add, funnel shift, xor; 5 key
-    # injections of 3 adds; the key setup and the output xor)
+    # bytes: 24 keys in, 1.96M int64 words out; operations: the cipher's
+    # integer instructions a word in the built kernel's SASS (phase 2)
     line = record(results, "threefry2x32", prng.THREEFRY, 0, ms, w_ms, plain_ms,
-                  attempts.numel() * 8 + bits.numel() * 8, 80 * bits.numel())
+                  attempts.numel() * 8 + bits.numel() * 8,
+                  k11_per_word * bits.numel(), ops_per_s=int_ops_per_s)
     print(f"parity K11 threefry2x32: fold_in (8 anchor keys), split, "
           f"random_bits (the seeding draw, 8x3 keys x 81,600 words), uniform "
           f"and randint bit-equal to the plain int64 cipher; seeding draw "
           f"{ms:.4f} ms (split of the 8 anchor keys {small_ms:.4f}) vs plain "
-          f"{plain_ms:.4f} ms; {line}")
+          f"{plain_ms:.4f} ms; {k11_per_word} integer instructions a word "
+          f"(SASS); {line}")
 
 
 def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
@@ -1204,13 +1340,15 @@ def cli_checks(main_run, tmp: str) -> str:
     seen = sorted({k for k in ("dct8x8_wire_kernel", "idct8x8_display_kernel",
                                "pyr_down_levels_kernel", "refine_sads_kernel",
                                "lloyd_cluster_kernel", "candidate_sads_kernel",
-                               "ccl_converge_kernel", "threefry2x32_kernel")
+                               "ccl_cluster_kernel", "threefry2x32_kernel")
                    if any(k in n for n in names)})
-    missing = {"dct8x8_wire_kernel", "ccl_converge_kernel",
+    missing = {"dct8x8_wire_kernel", "ccl_cluster_kernel",
                "threefry2x32_kernel"} - set(seen)
     if missing:
         fail(f"encoder_app --profile trace does not name {sorted(missing)} "
              f"({len(names)} event names)")
+    if any("ccl_converge_kernel" in n for n in names):
+        fail("encoder_app --profile trace names the general K10 kernel")
     lines.append(f"--trace spans {sorted(stats)}; --profile trace names {seen}")
     svc = os.path.join(tmp, "native.svc" if has_native else "python.svc")
     gaze = ",".join(map(str, main_run["gaze"]))
@@ -1617,6 +1755,9 @@ def compiled_batch(main_run, split_stream, card: str, dev):
                      f"of host time), {n['host_launch_calls']} host launch calls, "
                      f"{n['device_ops']} device operations")
     replay = graph._graphs[tuple(packed.shape)].launches_per_replay()
+    if replay.get("ccl_converge") != 1 or "ccl_converge_general" in replay:
+        fail(f"phase 14: a replay does not launch the cluster K10 once and the "
+             f"general one never: {replay}")
     print(f"  streams byte-equal: 17 frames eager and graph in turns, 13 frames "
           f"({len(s13['graph'])} bytes), the split over two entries on graphs; "
           f"fps medians eager {np.median(fps['eager']):.2f}, graph "
@@ -1683,6 +1824,17 @@ def main() -> int:
         for src, kern, regs, smem in report
         if kern.split("<")[0] in ("refine_sads_kernel", "refine_sads_pitched_kernel",
                                   "pyr_down_levels_kernel"))
+    # K10: the cluster kernel (a band of ceil(H / 8) rows a CTA, 1024
+    # threads) and the general one (a frame a CTA)
+    from svc_tpu_torch.ops import ccl
+
+    k10_line = "; ".join(f"{kern} {regs} regs, {k10_occupancy(ccl, kern, regs)}"
+                         for src, kern, regs, _ in report
+                         if src.startswith("ccl_converge"))
+    # K11's cipher instructions a word, from the built library's SASS, and
+    # the integer rate they run at
+    k11_per_word = cipher_instructions(sass_of(res.path, "threefry2x32_kernel"))
+    int_rate, sms, mhz = int_ops_per_s()
     print(f"build: {res.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {res.seconds:.2f} s, one process per source; 0 = already "
           f"built); ptxas: {ptxas_summary(report)}; K5 cluster kernel dynamic "
@@ -1690,10 +1842,14 @@ def main() -> int:
           f"{kmeans.cluster_smem_bytes(32400, 4)} B (4K); "
           f"{k5_line or 'K5 static smem not checked (already built)'}; "
           f"{display_line or 'display kernels not reported (already built)'}; "
-          f"{static_line or 'refine and pyramid kernels not reported (already built)'}")
+          f"{static_line or 'refine and pyramid kernels not reported (already built)'}; "
+          f"K10 {k10_line or 'not reported (already built)'}; K11 "
+          f"threefry2x32_kernel: {k11_per_word} cipher instructions a word in "
+          f"its SASS (cuobjdump -sass); integer rate {INT_OPS_PER_CLOCK} x {sms} "
+          f"SMs x {mhz:.0f} MHz = {int_rate:.4g} instructions/s")
 
     # 3. kernel parity
-    results = phase_parity(dev)
+    results = phase_parity(dev, int_rate, k11_per_word)
 
     from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
     from svc_tpu_torch.io import bitstream
@@ -1711,7 +1867,8 @@ def main() -> int:
     # K4 and the general K9 run on none of phases 4-7 and 9
     general_k3_k5 = ("refine_sads_general", "lloyd_general",
                      "candidate_sads_general", "pyr_down_u8",
-                     "refine_sads_pitched_general", "pyr_down_pitched_general")
+                     "refine_sads_pitched_general", "pyr_down_pitched_general",
+                     "ccl_converge_general")
     # 8x8 blocks of 3 channels take the specialised K6 on the width-excess
     # path; the general K6 runs on none of phases 4-6
     general_k6 = ("idct_resize_display_general",)

@@ -12,9 +12,13 @@ raster index, a canonical function of the cluster image, so it equals
 ``svc_tpu``'s bit for bit:
 
 * kernel K10 (:func:`converge_labels`, ``csrc/ccl_converge.cu``) on a
-  CUDA tensor: one CTA per frame loops on the device until a pass changes
-  nothing — no host check, so the encode batch can run as one CUDA graph
-  (svc_tpu's ``lax.while_loop`` s, ``svc_tpu/ops/ccl.py:249`` and :263);
+  CUDA tensor: a thread block cluster of 8 CTAs per frame, each CTA a band
+  of rows, runs a union-find in one launch — no host check, so the encode
+  batch can run as one CUDA graph (svc_tpu's ``lax.while_loop`` s,
+  ``svc_tpu/ops/ccl.py:249`` and :263). Its first port,
+  ``csrc/ccl_converge_general.cu`` (one CTA per frame, looping until a pass
+  changes nothing), takes ``general=True``, ``global_memory=True`` and the
+  frames whose band does not fit shared memory;
 * its plain version :func:`converge_labels_plain` on a CPU tensor:
   min-label propagation (each valid cell repeatedly takes the minimum over
   itself and its same-cluster neighbours) with pointer jumping (``label =
@@ -33,17 +37,34 @@ import torch.nn.functional as F
 from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 
 _SWEEPS_PER_CHECK = 4
-#: K10 keeps a frame in shared memory up to this many cells (5 bytes a
-#: cell of the 227 KB a CTA may use); larger frames loop over global memory
+#: K10's cluster kernel: CTAs (bands of ceil(H / 8) rows) per frame
+K10_CLUSTER = 8
+#: K10 keeps a band in shared memory up to this many cells (5 bytes a cell
+#: of the 227 KB a CTA may use); larger bands take the general kernel
+K10_BAND_CELLS = 227 * 1024 // 5
+#: the general kernel keeps a frame in shared memory up to this many cells
+#: (5 bytes a cell too); larger frames loop over global memory
 K10_SHARED_CELLS = 227 * 1024 // 5
 
 CCL_CONVERGE = Kernel(
     "ccl_converge",
     "svc_ccl_converge",
-    [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    [PTR, PTR, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/ccl_converge.cu",
     replaces="svc_tpu/ops/ccl.py:249",
 )
+CCL_CONVERGE_GENERAL = Kernel(
+    "ccl_converge_general",
+    "svc_ccl_converge_general",
+    [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    source="svc_tpu_torch/csrc/ccl_converge_general.cu",
+    replaces="svc_tpu/ops/ccl.py:249",
+)
+
+
+def band_cells(h: int, w: int) -> int:
+    """Cells of one band of K10's cluster kernel: ``ceil(h / 8)`` rows."""
+    return -(-h // K10_CLUSTER) * w
 
 
 def _shifted(x: torch.Tensor, dy: int, dx: int, fill: int) -> torch.Tensor:
@@ -111,16 +132,19 @@ def converge_labels(
     cluster_labels: torch.Tensor,
     connectivity: int = 4,
     *,
+    general: bool = False,
     global_memory: bool = False,
 ) -> torch.Tensor:
     """The converged min-label image of ``(B, H, W)`` cluster labels
     (``< 0`` = background): ``(B, H, W)`` int64, each valid cell's smallest
     same-component raster index, ``H * W`` outside.
 
-    A CPU tensor takes :func:`converge_labels_plain`; a CUDA tensor
-    launches K10 (one CTA per frame, looping on the device), whose frame
-    sits in shared memory up to ``K10_SHARED_CELLS`` cells and in global
-    memory past that or with ``global_memory=True``.
+    A CPU tensor takes :func:`converge_labels_plain`. A CUDA tensor launches
+    K10's cluster kernel when a band of ``ceil(H / 8)`` rows fits
+    ``K10_BAND_CELLS``, and the general kernel otherwise or with
+    ``general=True``; that kernel holds the frame in shared memory up to
+    ``K10_SHARED_CELLS`` cells and loops over global memory past that or
+    with ``global_memory=True``.
     """
     if cluster_labels.device.type == "cpu":
         return converge_labels_plain(cluster_labels, connectivity)
@@ -133,15 +157,19 @@ def converge_labels(
     out = torch.empty((b, h, w), dtype=torch.int32, device=cl.device)
     if out.numel() == 0:
         return out.to(torch.int64)
-    use_global = global_memory or h * w > K10_SHARED_CELLS
-    scratch = (torch.empty((b, h, w), dtype=torch.uint8, device=cl.device)
-               if use_global else None)
     with torch.cuda.device(cl.device):
-        CCL_CONVERGE.launch(
-            cl.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            b, h, w, connectivity, int(use_global), stream_handle(cl),
-        )
+        if not (general or global_memory) and band_cells(h, w) <= K10_BAND_CELLS:
+            CCL_CONVERGE.launch(cl.data_ptr(), out.data_ptr(), b, h, w,
+                                connectivity, stream_handle(cl))
+        else:
+            use_global = global_memory or h * w > K10_SHARED_CELLS
+            scratch = (torch.empty((b, h, w), dtype=torch.uint8, device=cl.device)
+                       if use_global else None)
+            CCL_CONVERGE_GENERAL.launch(
+                cl.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                b, h, w, connectivity, int(use_global), stream_handle(cl),
+            )
     return out.to(torch.int64)
 
 

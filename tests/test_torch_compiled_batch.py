@@ -1,13 +1,16 @@
 """The compiled encode batch on the CPU: the draws K11 takes over, held to
 jax.random at the exact shapes of the encode path; the K10 and K11
-wrappers' dispatch on a meta device; the launch accounting of a captured
-CUDA graph; and the CPU encoder, which never captures, byte-equal to
-svc_tpu's stream.
+wrappers' dispatch on a meta device; K10's cluster kernel replayed in
+Python (its bands, links and phases, unions interleaved at random) on
+``tools/ccl_cases.py``'s frames against the plain loop and svc_tpu; the
+launch accounting of a captured CUDA graph; and the CPU encoder, which
+never captures, byte-equal to svc_tpu's stream.
 
-K10 (``csrc/ccl_converge.cu``) and K11 (``csrc/threefry.cu``) have no CPU
-mode; ``tests/test_torch_cuda.py`` holds them to these plain versions on
-the card. The plain CCL loop's adversarial inputs are cases of
-``tests/test_torch_segmentation.py``'s block-type tests.
+K10 (``csrc/ccl_converge.cu``, ``csrc/ccl_converge_general.cu``) and K11
+(``csrc/threefry.cu``) have no CPU mode; ``tests/test_torch_cuda.py``
+holds them to these plain versions on the card. More adversarial inputs
+of the plain CCL loop are cases of ``tests/test_torch_segmentation.py``'s
+block-type tests.
 """
 
 import contextlib
@@ -22,12 +25,14 @@ import torch
 from svc_tpu.config import EncoderConfig as JEncoderConfig
 from svc_tpu.config import VideoProperties as JVideoProperties
 from svc_tpu.models.encoder import Encoder as JEncoder
+from svc_tpu.ops import ccl as j_ccl
 from svc_tpu_torch.config import EncoderConfig, VideoProperties
 from svc_tpu_torch.io import bitstream
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.models import encoder as encoder_mod
 from svc_tpu_torch.models.encoder import Encoder
 from svc_tpu_torch.ops import ccl, prng
+from svc_tpu_torch.tools import ccl_cases
 from svc_tpu_torch.tools.clips import make_clip
 
 T, F, A, K, N = 8, 8, 3, 10, 8160  # 1080p batch: 8 anchors, 68 x 120 blocks
@@ -123,28 +128,203 @@ def meta_launches(monkeypatch):
         monkeypatch.setattr(mod, "_check_cuda", lambda x: None)
         monkeypatch.setattr(mod, "stream_handle", lambda t: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    for k in (ccl.CCL_CONVERGE, prng.THREEFRY):
+    for k in (ccl.CCL_CONVERGE, ccl.CCL_CONVERGE_GENERAL, prng.THREEFRY):
         monkeypatch.setattr(k, "launch",
                             lambda *a, _k=k: launched.append((_k.name, a)))
     return launched
 
 
+# the cluster kernel's capacity: a band of ceil(H / 8) rows of W cells
+_CAP = 227 * 1024 // 5
+
+
 @pytest.mark.parametrize(
-    "b,h,w,global_memory,want_global",
-    [(8, 68, 120, False, 0),     # 1080p: 40,800 B of shared memory
-     (8, 135, 240, False, 0),    # 4K: 162,000 B
-     (2, 270, 480, False, 1),    # 8K: past shared memory
-     (8, 68, 120, True, 1)],
+    "b,h,w,general,global_memory,want_global",
+    [pytest.param(8, 68, 120, False, False, None,  # 1080p: bands of 9 rows
+                  id="8-68-120-False-0"),
+     pytest.param(8, 135, 240, False, False, None,  # 4K: 17 rows, 20,400 B
+                  id="8-135-240-False-0"),
+     pytest.param(2, 270, 480, False, False, None,  # 8K: 34 rows, 81,600 B
+                  id="2-270-480-False-1"),
+     pytest.param(8, 68, 120, False, True, 1,  # the general global-memory loop
+                  id="8-68-120-True-1"),
+     pytest.param(1, 8, _CAP, False, False, None,  # one-row bands at capacity
+                  id="band-at-capacity"),
+     pytest.param(1, 8, _CAP + 1, False, False, 1,  # one cell past: general
+                  id="band-past-capacity"),
+     pytest.param(1, 540, 960, False, False, 1,  # bands of 65,280 cells
+                  id="1-540-960"),
+     pytest.param(3, 5, 120, False, False, None,  # H < 8: bands 5-7 empty
+                  id="3-5-120"),
+     pytest.param(1, 1, 1, False, False, None, id="1-1-1"),
+     pytest.param(8, 68, 120, True, False, 0,  # the general kernel in smem
+                  id="general-8-68-120"),
+     pytest.param(2, 270, 480, True, False, 1,  # ... past its shared memory
+                  id="general-2-270-480")],
 )
-def test_ccl_converge_dispatch(meta_launches, b, h, w, global_memory, want_global):
+def test_ccl_converge_dispatch(meta_launches, b, h, w, general, global_memory,
+                               want_global):
     lab = torch.zeros((b, h, w), dtype=torch.int32, device="meta")
-    out = ccl.converge_labels(lab, 8, global_memory=global_memory)
+    out = ccl.converge_labels(lab, 8, general=general, global_memory=global_memory)
     assert out.dtype == torch.int64 and tuple(out.shape) == (b, h, w)
     ((name, args),) = meta_launches
-    assert name == "ccl_converge" and len(args) == len(ccl.CCL_CONVERGE.argtypes)
-    assert args[3:8] == (b, h, w, 8, want_global)
-    assert (args[2] is None) == (not want_global)  # scratch only for global
-    assert (h * w <= ccl.K10_SHARED_CELLS) == (5 * h * w <= 227 * 1024)
+    if want_global is None:
+        assert name == "ccl_converge" and len(args) == len(ccl.CCL_CONVERGE.argtypes)
+        assert args[2:6] == (b, h, w, 8)
+        assert ccl.band_cells(h, w) == -(-h // 8) * w <= ccl.K10_BAND_CELLS
+    else:
+        assert name == "ccl_converge_general"
+        assert len(args) == len(ccl.CCL_CONVERGE_GENERAL.argtypes)
+        assert args[3:8] == (b, h, w, 8, want_global)
+        assert (args[2] is None) == (not want_global)  # scratch only for global
+        assert want_global == int(global_memory or h * w > ccl.K10_SHARED_CELLS)
+
+
+def test_ccl_converge_capacities_are_227_kb_at_5_bytes_a_cell():
+    for cap in (ccl.K10_BAND_CELLS, ccl.K10_SHARED_CELLS):
+        assert 5 * cap <= 227 * 1024 < 5 * (cap + 1)
+    assert ccl.K10_CLUSTER == 8
+    # a frame past the cluster's capacity is past the general kernel's too,
+    # so it loops over global memory
+    assert ccl.band_cells(8, _CAP + 1) > ccl.K10_BAND_CELLS
+    assert 8 * (_CAP + 1) > ccl.K10_SHARED_CELLS
+
+
+# ---------------------------------------------------------------------------
+# K10's cluster kernel replayed on the CPU: its links, bands and phases, with
+# the unions of a phase interleaved at random between their finds and their
+# atomicMin, against the plain loop and svc_tpu
+# ---------------------------------------------------------------------------
+
+_UL, _UP, _UR, _LEFT, _VALID = 1, 2, 4, 8, 16
+
+
+def _linked(g, w, bit):
+    return {_UL: g - w - 1, _UP: g - w, _UR: g - w + 1, _LEFT: g - 1}[bit]
+
+
+def _root(par, g):
+    while par[g] != g:
+        g = par[g]
+    return g
+
+
+def _union(par, a, b):
+    """ccl_converge.cu's union; it yields where another thread's union may
+    land between its finds and its atomicMin."""
+    while True:
+        a, b = _root(par, a), _root(par, b)
+        if a == b:
+            return
+        hi, lo = max(a, b), min(a, b)
+        yield
+        old = par[hi]
+        par[hi] = min(old, lo)  # atomicMin
+        if old == hi:
+            return
+        a, b = old, lo
+
+
+def _interleave(rng, unions):
+    live = list(unions)
+    while live:
+        i = int(rng.integers(len(live)))
+        try:
+            next(live[i])
+        except StopIteration:
+            live[i] = live[-1]
+            live.pop()
+
+
+def _cluster_replay(lab: np.ndarray, connectivity: int, seed: int) -> np.ndarray:
+    """The labels ccl_converge.cu computes, phase by phase (a band's slot g
+    - rank * R * W is g itself here; a warp's 32 cells start at a multiple
+    of 32 of the band's own index)."""
+    b, h, w = lab.shape
+    n, cells = h * w, -(-h // ccl.K10_CLUSTER) * w
+    rng = np.random.default_rng(seed)
+    out = np.empty((b, n), dtype=np.int64)
+    for f in range(b):
+        c = lab[f].reshape(n)
+        link, par = np.zeros(n, dtype=np.int64), np.arange(n)
+        for g in range(n):
+            y, x = divmod(g, w)
+            if c[g] < 0:
+                continue
+            bits = _VALID | (_LEFT if x > 0 and c[g - 1] == c[g] else 0)
+            if y > 0:
+                bits |= _UP if c[g - w] == c[g] else 0
+                if connectivity == 8:
+                    bits |= _UL if x > 0 and c[g - w - 1] == c[g] else 0
+                    bits |= _UR if x + 1 < w and c[g - w + 1] == c[g] else 0
+            if bits & _UP:
+                bits &= ~(_UL | _UR)
+            if bits & _LEFT:
+                bits &= ~_UL
+            link[g] = bits
+        for g in range(n):
+            lane = (g % cells) % 32
+            up = link[g] & (_UL | _UP | _UR) if g % cells >= w else 0
+            if up:
+                par[g] = _linked(g, w, up & -up)
+            elif link[g] & _LEFT:  # the run's start among the warp's cells
+                starts = [j for j in range(lane + 1)
+                          if not link[g - lane + j] & _LEFT]
+                par[g] = g - lane + starts[-1] if starts else g - lane - 1
+        par = np.array([_root(par, g) for g in range(n)])
+        phase1 = []
+        for g in range(n):
+            rest = link[g] & (_UL | _UP | _UR | _LEFT) if g % cells >= w else 0
+            rest = rest & (rest - 1) if rest & (_UL | _UP | _UR) else 0
+            while rest:
+                bit = rest & -rest
+                rest &= rest - 1
+                phase1.append(_union(par, g, _linked(g, w, bit)))
+        _interleave(rng, phase1)
+        par = np.array([_root(par, g) for g in range(n)])
+        top = par == np.arange(n)
+        phase2 = []
+        for g in range(cells, n, cells):  # the first row of bands 1..7
+            for gg in range(g, g + w):
+                up = link[gg] & (_UL | _UP | _UR)
+                while up:
+                    bit = up & -up
+                    up &= up - 1
+                    phase2.append(_union(par, gg, _linked(gg, w, bit)))
+        _interleave(rng, phase2)
+        for g in np.flatnonzero(top):
+            par[g] = _root(par, g)
+        out[f] = [n if not link[g] & _VALID else par[g] if top[g] else par[par[g]]
+                  for g in range(n)]
+    return out.reshape(b, h, w)
+
+
+def _replay_cases():
+    rng = np.random.default_rng(14)
+    blobs = rng.integers(0, 10, (2, 68 // 8 + 1, 120 // 8 + 1), dtype=np.int32)
+    blobs = blobs.repeat(8, 1).repeat(8, 2)[:, :68, :120]
+    blobs = np.where(rng.random((2, 68, 120)) < 0.1, -1, blobs)
+    cases = {name: lab.numpy() for name, lab in ccl_cases.adversarial().items()}
+    cases["path blobs"] = blobs.astype(np.int32)
+    cases["path random"] = rng.integers(-1, 10, (2, 68, 120), dtype=np.int32)
+    return cases
+
+
+_REPLAY = _replay_cases()
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("name", sorted(_REPLAY))
+def test_ccl_cluster_replay_matches_plain_and_svc_tpu(name, connectivity):
+    lab = _REPLAY[name]
+    got = _cluster_replay(lab, connectivity, seed=connectivity)
+    want = ccl.converge_labels_plain(torch.from_numpy(lab), connectivity)
+    np.testing.assert_array_equal(got, want.numpy())
+    k = max(int(lab.max()) + 1, 1)
+    bt, ct = ccl.block_types_from_clusters(torch.from_numpy(lab), k, connectivity)
+    jbt, jct = j_ccl.block_types_from_clusters(jnp.asarray(lab), k, connectivity)
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(jbt))
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(jct))
 
 
 def test_ccl_converge_rejects_bad_connectivity(meta_launches):

@@ -25,6 +25,7 @@ from svc_tpu_torch.models.decoder import Decoder
 from svc_tpu_torch.models.encoder import Encoder
 from svc_tpu_torch.ops import ccl, dct, kmeans, motion, prng, pyramid
 from svc_tpu_torch.ops.resize import bilinear_axis_weights
+from svc_tpu_torch.tools import ccl_cases
 from svc_tpu_torch.tools.clips import make_clip
 
 pytestmark = pytest.mark.cuda
@@ -1007,10 +1008,11 @@ def _snake(h, w):
     "kind,b,h,w,k,connectivity,global_memory",
     [("random", 8, 68, 120, 10, 4, False),   # the 1080p path shape
      ("random", 8, 68, 120, 10, 8, False),
-     ("random", 8, 68, 120, 10, 4, True),    # the global-memory loop
+     ("random", 8, 68, 120, 10, 4, True),    # the general global-memory loop
      ("blobs", 8, 68, 120, 10, 4, False),
-     ("blobs", 2, 135, 240, 10, 8, False),   # 4K: 162,000 B of shared memory
-     ("blobs", 1, 250, 200, 6, 4, False),    # past shared memory: global
+     ("blobs", 2, 135, 240, 10, 8, False),   # 4K: bands of 17 rows
+     ("blobs", 1, 250, 200, 6, 4, False),    # past the general kernel's smem
+     ("blobs", 1, 540, 960, 6, 8, False),    # past the cluster's capacity
      ("own", 1, 37, 53, 37 * 53, 8, False),  # every cell its own cluster
      ("snake", 1, 61, 61, 1, 4, False),
      ("snake", 1, 61, 61, 1, 4, True),
@@ -1028,13 +1030,34 @@ def test_ccl_converge_bit_equal(gen, kind, b, h, w, k, connectivity, global_memo
         lab = torch.randperm(h * w, generator=gen).to(torch.int32).reshape(1, h, w)
     else:
         lab = _snake(h, w)
-    before = ccl.CCL_CONVERGE.launches
-    got = ccl.converge_labels(lab.cuda(), connectivity, global_memory=global_memory)
-    assert ccl.CCL_CONVERGE.launches == before + 1
-    assert torch.equal(got.cpu(), ccl.converge_labels_plain(lab, connectivity))
+    want = ccl.converge_labels_plain(lab, connectivity)
+    # the default route (the cluster kernel where a band fits), then the
+    # general kernel
+    fits = not global_memory and ccl.band_cells(h, w) <= ccl.K10_BAND_CELLS
+    for kernel, general in ((ccl.CCL_CONVERGE if fits else ccl.CCL_CONVERGE_GENERAL,
+                             False), (ccl.CCL_CONVERGE_GENERAL, True)):
+        before = kernel.launches
+        got = ccl.converge_labels(lab.cuda(), connectivity, general=general,
+                                  global_memory=global_memory)
+        assert kernel.launches == before + 1
+        assert torch.equal(got.cpu(), want)
     bt, ct = ccl.block_types_from_clusters(lab.cuda(), max(k, 1), connectivity)
     bt_ref, ct_ref = ccl.block_types_from_clusters(lab, max(k, 1), connectivity)
     assert torch.equal(bt.cpu(), bt_ref) and torch.equal(ct.cpu(), ct_ref)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("name", sorted(ccl_cases.adversarial()))
+def test_ccl_converge_adversarial(gen, name, connectivity):
+    lab = ccl_cases.adversarial()[name]
+    want = ccl.converge_labels_plain(lab, connectivity)
+    for kernel, general in ((ccl.CCL_CONVERGE, False), (ccl.CCL_CONVERGE_GENERAL, True)):
+        before = kernel.launches
+        outs = [ccl.converge_labels(lab.cuda(), connectivity, general=general)
+                for _ in range(20)]
+        assert kernel.launches == before + 20
+        for got in outs:
+            assert torch.equal(got.cpu(), want)
 
 
 def test_ccl_converge_in_a_cuda_graph(gen):
@@ -1140,6 +1163,7 @@ def test_graph_replay_counts_its_launches_and_keeps_planes(gen):
     graph.encode_packed(packed, 0)  # warm-up and capture
     per_replay = graph._graphs[(9, 96, 384)].launches_per_replay()
     assert per_replay["ccl_converge"] == 1 and per_replay["lloyd"] == 1
+    assert "ccl_converge_general" not in per_replay
     assert per_replay["threefry2x32"] == 6  # split, RANSAC 3, seeding 2
     build.reset_launch_counts()
     out = graph.encode_packed(packed, 0)

@@ -143,11 +143,13 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "idct_display_general", "refine_sads_general", "lloyd_general",
         "candidate_sads_general", "pyr_down_levels",
         "idct_resize_display_general", "refine_sads_pitched_general",
-        "refine_mads_general", "ccl_converge", "threefry2x32",
+        "refine_mads_general", "ccl_converge", "ccl_converge_general",
+        "threefry2x32",
     }
-    # K10 and K11 replace no pl.pallas_call: svc_tpu's CCL while_loop and
-    # jax.random's threefry (its k-means++ seeding draw)
+    # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
+    # while_loop and jax.random's threefry (its k-means++ seeding draw)
     no_pallas = {"ccl_converge": "jax.lax.while_loop(",
+                 "ccl_converge_general": "jax.lax.while_loop(",
                  "threefry2x32": "jax.random.uniform("}
     for k in ks.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -170,7 +172,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "idct8x8.cuh", "refine_sads_pitched_general.cu",
             "refine_rows.cuh", "pyr_down_pitched_levels.cu",
             "pyr_down_levels.cuh", "refine_mads_general.cu",
-            "refine_sads.cuh", "ccl_converge.cu", "threefry.cu"} <= srcs
+            "refine_sads.cuh", "ccl_converge.cu", "ccl_converge_general.cu",
+            "threefry.cu"} <= srcs
     assert len({k.source for k in ks.values()}) == len(ks)  # one file each
     # sources are found relative to the package, not the working directory
     assert build.CSRC_DIR == build.PACKAGE_DIR / "csrc"
