@@ -106,14 +106,22 @@ each:
     ``[cuda:0, cuda:0]``), 4 anchors each: phase 4's 17-frame clip gives
     its stream byte for byte and its decoded frames (K1-K5 and K9 must
     run, no general kernel), then single-device and split fps in turns;
-14. compiled batch — the encoder runs each batch as a CUDA graph replay
-    (phases 4-8, 11-13 all do); here against ``graph=False``: phase 4's
-    17-frame clip through ``stream_encode`` both ways, byte-equal to the
-    main run's stream, then in turns (eager, graph, graph, eager) with
-    fps and the Tracer split per batch; 13 frames both ways, phase 13's
-    split stream against the eager one; per mode the device batch time,
-    its dispatch and ``tools/profile_slice.py``'s launches per batch; a
-    replay launches K10's cluster kernel once and the general one never.
+14. compiled batch — the encoder and the decoder run each batch as a
+    CUDA graph replay (phases 4-8, 11-13 all do); here against
+    ``graph=False``: phase 4's 17-frame clip through ``stream_encode``
+    both ways, byte-equal to the main run's stream, then in turns (eager,
+    graph, graph, eager) with fps and the Tracer split per batch; 13
+    frames both ways, phase 13's split stream against the eager one; per
+    mode the device batch time, its dispatch and
+    ``tools/profile_slice.py``'s launches per batch; a replay launches
+    K10's cluster kernel once and the general one never. The decode the
+    same way: phase 4's payloads through ``decode_frames`` eager and
+    graph, staged and direct, byte-equal to phase 4's frames; 32 payloads
+    in turns with fps and the split; per mode the batch time, dispatch
+    and launches; one staged replay's profile (in a child process),
+    whose coefficients cross in one H2D copy straight into the graph's
+    input with no device-to-device copy of their size; a replay launches
+    K1 once and nothing else.
 
 Phases 4-7 and 12 also need K10 and K11 to run. A graph's kernels count
 one launch each on every replay (its warm-up runs them once more). Each
@@ -1766,6 +1774,126 @@ def compiled_batch(main_run, split_stream, card: str, dev):
           f"kernels in one replay {replay}")
 
 
+def compiled_decode(main_run, card: str, dev):
+    """Phase 14, the decode: each batch a CUDA graph replay against the
+    eager path (``graph=False``). Phase 4's payloads through
+    ``decode_frames`` both ways, staged and direct, byte-equal to the main
+    run's frames (phase 4 decoded them on graphs); then 32 payloads (the
+    16 forth and back) in turns (eager, graph, graph, eager), each run with
+    its fps and Tracer split per batch; per mode the device batch time, its
+    dispatch and ``tools/profile_slice.py``'s launches per batch; one
+    staged replay under ``torch.profiler``, in a process of its own: its
+    coefficients cross in one H2D copy and no device-to-device copy of
+    their size runs."""
+    from svc_tpu_torch.config import DecoderConfig
+    from svc_tpu_torch.io import bitstream
+    from svc_tpu_torch.models.decoder import Decoder
+    from svc_tpu_torch.runtime.tracing import Tracer
+    from svc_tpu_torch.tools.profile_slice import batch_launches
+
+    payloads, header = main_run["payloads"], main_run["header"]
+    graph = main_run["dec"]
+    eager = Decoder(DecoderConfig(), header, batch_size=8, device=dev, graph=False)
+    if not graph.graph or eager.graph:
+        fail("phase 14: the default decoder does not run as a graph")
+    modes = {"eager": eager, "graph": graph}
+    gazes = [main_run["gaze"]] * len(payloads)
+    for kind, d in modes.items():
+        for stage_h2d in (True, False):
+            got = np.stack(list(d.decode_frames(iter(payloads), iter(gazes),
+                                                stage_h2d=stage_h2d)))
+            if not np.array_equal(got, main_run["frames"]):
+                fail(f"phase 14: the {kind} decode (stage_h2d={stage_h2d}) "
+                     f"differs from the main run's frames")
+    stream = payloads + payloads[::-1]
+    gazes = [main_run["gaze"]] * len(stream)
+    batches = -(-len(stream) // graph.batch_size)
+    fps = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        tr = Tracer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in modes[kind].decode_frames(iter(stream), iter(gazes),
+                                                     tracer=tr))
+        wall = time.perf_counter() - t0
+        if n != len(stream):
+            fail(f"phase 14: the {kind} decode gave {n} frames of {len(stream)}")
+        split = {k: v["total_s"] * 1e3 / batches for k, v in tr.stats().items()}
+        split["other"] = wall * 1e3 / batches - sum(split.values())
+        fps[kind].append(n / wall)
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        print(f"  decode {kind}: {n / wall:.2f} fps; per batch of 8 (ms): {parts}")
+
+    parsed = [bitstream.deserialize_frame_blocks(p, header) for p in payloads[:8]]
+    host = np.stack([c.reshape(c.shape[0], c.shape[1], -1) for _, c in parsed])
+    types = np.stack([t for t, _ in parsed])
+    rects = [graph.padded_gaze_rect(main_run["gaze"])] * 8
+    coeffs = torch.from_numpy(host).to(dev)
+    coeff_bytes = host.nbytes
+    lines = []
+    for kind, d in modes.items():
+        ms = cuda_ms(lambda: d.decode_batch(coeffs, types, rects), iters=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.decode_batch(coeffs, types, rects)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        n = batch_launches(lambda: d.decode_batch(coeffs, types, rects))
+        lines.append(f"{kind} direct {ms:.3f} ms a batch (its dispatch "
+                     f"{dispatch_ms:.3f} ms of host time), "
+                     f"{n['host_launch_calls']} host launch calls, "
+                     f"{n['device_ops']} device operations")
+    # the staged path, as decode_frames' stager stages a batch: the
+    # coefficients into the next replay's static input, the block types
+    # and rects beside them
+    pair = graph._graphs[(0, 8)]
+    claimed = pair._slots[pair._calls % 2].inputs[0]
+    staged = graph._stage_batch((host, types, rects))
+    if staged[0].tensor is not claimed:
+        fail("phase 14: stage_coeffs did not write the next replay's static input")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.decode_batch(*staged)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    # one staged replay's profile, in a process of its own: this one's
+    # profiler has traced the phases before and has been seen to drop the
+    # copy streams' activity from later traces
+    code = ("import json; from svc_tpu_torch.tools.profile_slice import "
+            "staged_decode_profile; print(json.dumps(staged_decode_profile()))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 14: the staged replay's profile failed: {proc.stderr[-2000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    size = prof["coeff_bytes"]
+    copies = prof["copies"]
+    h2d = [c for c in copies if "HtoD" in c["name"] and c["bytes"] == size]
+    d2d = [c for c in copies if "DtoD" in c["name"]
+           and (c["bytes"] is None or c["bytes"] >= size)]
+    if len(h2d) != 1 or d2d:
+        fail(f"phase 14: a staged replay's coefficients do not cross in one "
+             f"{size} B H2D copy with no device-to-device copy of their size: "
+             f"{copies}")
+    lines.append(
+        f"graph staged: dispatch {dispatch_ms:.3f} ms of host time; its "
+        f"profile (tools/profile_slice.py staged_decode_profile): kernels busy "
+        f"{prof['kernels_busy_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
+        f"ms with its copies, wall {prof['wall_ms']:.3f} ms incl. the host "
+        f"staging, {prof['host_launch_calls']} host launch calls, "
+        f"{prof['device_ops']} device operations; copies: "
+        + "; ".join(f"{c['name']} {c['bytes']} B {c['us']:.1f} us" for c in copies))
+    replay = graph._graphs[(0, 8)].launches_per_replay()
+    if replay != {"idct_display": 1}:
+        fail(f"phase 14: a decode replay does not launch K1 once and nothing "
+             f"else: {replay}")
+    print(f"  decode byte-equal: phase 4's payloads eager and graph, staged "
+          f"and direct; fps medians eager {np.median(fps['eager']):.2f}, graph "
+          f"{np.median(fps['graph']):.2f} [{card}]")
+    print(f"  per 1080p decode batch of 8 [{card}]: {'; '.join(lines)}; the "
+          f"port's kernels in one replay {replay}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "svc_tpu_torch")):
         fail("svc_tpu_torch/ not found beside chip_smoke.py; run it from the "
@@ -1997,8 +2125,9 @@ def main() -> int:
 
     # 14. the compiled batch: graph replay against the eager path
     print("compiled batch 1080p, default config, eager (graph=False) against "
-          "graph, in turns:")
+          "graph, in turns (encode, then decode):")
     compiled_batch(main_run, split_stream, card, dev)
+    compiled_decode(main_run, card, dev)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))

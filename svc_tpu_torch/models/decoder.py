@@ -25,16 +25,32 @@ equal the single-device ones.
 
 Every route returns uint8 packed ``(T, H, W*C)`` rows.
 
+On ``cuda`` a batch runs as one CUDA graph replay per (device entry,
+batch shape) (``runtime/graphs.py``), svc_tpu's one compiled program per
+batch shape (``jax.jit`` of its ``decode_batch``, and the same under
+``shard_map`` for a mesh): the steps, then K1 or K6, captured after a
+warm-up that fills the display kernels' table caches. The captured
+program has no host sync and no host copy: its constants are scalars, its
+tables already on the device, its static inputs 16-byte aligned.
+``Decoder(..., graph=False)`` keeps the eager path on the card, to hold
+the graph against; CPU tensors always run eagerly.
+
 ``decode_frames`` streams the way ``svc_tpu`` does: wire coefficients are
 staged one batch ahead on a worker thread (``stage_coeffs``: pinned
 buffer, copy stream, event), and one batch stays in flight, so batch ``i``
 is read back (pinned D2H on a second copy stream) only after batch
-``i + 1`` has been dispatched.
+``i + 1`` has been dispatched. With graphs the stager copies each batch's
+coefficients straight into the static input of the graph that will
+replay it (``GraphPair.claim``), svc_tpu's one H2D copy into its
+program's own input (``stage_coeffs``). The block types and gaze rects,
+1% of the bytes, are staged beside them on the same worker thread, into
+new tensors the replay copies in: on the dispatching thread their pinned
+copy waited while the worker stacked its batch.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +61,7 @@ from svc_tpu_torch.utils.mathx import round_half_away_from_zero
 from svc_tpu_torch.ops.dct import idct_display, idct_resize_display
 from svc_tpu_torch.ops.quant import block_quant_steps
 from svc_tpu_torch.runtime.device import DeviceLike, device_scope, resolve_device
+from svc_tpu_torch.runtime.graphs import GraphPair
 from svc_tpu_torch.runtime.staging import (
     DoubleBufferedStager,
     PinnedDownload,
@@ -88,6 +105,15 @@ class Decoder:
       devices: optional device list (an entry may repeat); each batch
         splits into ``len(devices)`` equal chunks of frames, one per
         entry, and ``device`` is ignored. ``batch_size`` must divide.
+      graph: on ``cuda``, run each batch (each entry's chunk) as a CUDA
+        graph replay (the default); ``False`` runs it eagerly, kernel by
+        kernel. Ignored on the CPU, which always runs eagerly.
+
+    On ``cuda`` with ``graph=True`` and one device, the tensor
+    :meth:`decode_batch` returns is the graph's own: it stays valid until
+    the second call after it (two graphs per shape, taken by turns); copy
+    what must live longer. ``decode_frames`` reads batch ``k`` back before
+    it dispatches batch ``k + 2``.
     """
 
     def __init__(
@@ -97,6 +123,7 @@ class Decoder:
         batch_size: int = 8,
         device: DeviceLike = "cuda",
         devices: Optional[Sequence[DeviceLike]] = None,
+        graph: bool = True,
     ):
         self.cfg = cfg
         self.header = header
@@ -112,7 +139,19 @@ class Decoder:
             self.devices = [resolve_device(device)]
         self.device = self.devices[0]  # where the frames are gathered
         self.width_aligned = header.frame_w == header.padded_frame_w
+        self.graph = graph and self.device.type == "cuda"
+        self._graphs: Dict[Tuple[int, int], GraphPair] = {}  # by (entry, frames)
         self._uploads = [PinnedUpload(d) for d in self.devices]
+        # block types and gaze rects, staged beside the coefficients
+        self._small_uploads = [(PinnedUpload(d), PinnedUpload(d))
+                               for d in self.devices]
+        h = header
+        # (nby, nbx, C*bh*bw): a frame's wire coefficients
+        self._wire_shape = (
+            h.padded_frame_h // h.transform_block_h,
+            h.padded_frame_w // h.transform_block_w,
+            h.channel_count * h.transform_block_h * h.transform_block_w,
+        )
 
     def padded_gaze_rect(
         self, gaze: Optional[Tuple[int, int]]
@@ -137,8 +176,7 @@ class Decoder:
 
     def _steps(self, block_types: torch.Tensor, rects: torch.Tensor):
         h = self.header
-        nby = h.padded_frame_h // h.transform_block_h
-        nbx = h.padded_frame_w // h.transform_block_w
+        nby, nbx, _ = self._wire_shape
         dev = block_types.device
         bys = torch.arange(nby, device=dev)[:, None] * h.transform_block_h
         bxs = torch.arange(nbx, device=dev)[None, :] * h.transform_block_w
@@ -154,7 +192,10 @@ class Decoder:
         )
 
     def _split(self, items) -> list:
-        """``items`` (T frames) as one equal chunk per device."""
+        """``items`` (T frames) as one equal chunk per device; staged
+        chunks (a list of :class:`Staged`) as they are."""
+        if isinstance(items, list) and items and isinstance(items[0], Staged):
+            return items
         n = len(self.devices)
         if len(items) % n:
             raise ValueError(f"{len(items)} frames do not split across {n} devices")
@@ -166,17 +207,37 @@ class Decoder:
         :meth:`decode_batch`: a ``(T, nby, nbx, C*bh*bw)`` float32 array or
         a sequence of T ``(nby, nbx, C*bh*bw)`` ones, stacked straight into
         one of two reused pinned buffers and copied on the copy stream
-        (``cuda``). Safe to call from the stager's worker thread. With a
-        device list, a list of one :class:`Staged` chunk per device."""
-        h = self.header
-        nby = h.padded_frame_h // h.transform_block_h
-        nbx = h.padded_frame_w // h.transform_block_w
-        per_block = h.channel_count * h.transform_block_h * h.transform_block_w
-        staged = [
-            up(c, (len(c), nby, nbx, per_block), torch.float32)
-            for up, c in zip(self._uploads, self._split(coeffs))
-        ]
+        (``cuda``). Once the graph of the chunk's shape exists, the copy
+        goes straight into the static input of its next call not yet
+        claimed; that call must then decode it. Safe to call from the
+        stager's worker thread, which never captures. With a device list,
+        a list of one :class:`Staged` chunk per device."""
+        staged = []
+        for i, (up, c) in enumerate(zip(self._uploads, self._split(coeffs))):
+            shape = (len(c),) + self._wire_shape
+            pair = self._graphs.get((i, len(c)))
+            if pair is None:
+                staged.append(up(c, shape, torch.float32))
+            else:
+                claim = pair.claim()
+                staged.append(up(c, shape, torch.float32, into=claim.inputs[0],
+                                 after=claim.last_read))
         return staged[0] if len(staged) == 1 else staged
+
+    def _stage_batch(self, batch):
+        """``(coeffs, block_types, gaze_rects)`` of one host batch staged
+        for :meth:`decode_batch`: the coefficients by :meth:`stage_coeffs`,
+        the block types and rects as int64 through their own pinned
+        uploads."""
+        coeffs, types, rects = batch
+        small = [[], []]
+        for (up_t, up_r), t, r in zip(self._small_uploads, self._split(types),
+                                      self._split(rects)):
+            small[0].append(up_t(t, np.shape(t), torch.int64))
+            small[1].append(up_r(r, np.shape(r), torch.int64))
+        if len(self.devices) == 1:
+            small = [x[0] for x in small]
+        return (self.stage_coeffs(coeffs), *small)
 
     def decode_batch(self, coeffs, block_types, gaze_rects) -> torch.Tensor:
         """Decode one batch to packed ``(T, H, W*C)`` uint8 rows.
@@ -185,36 +246,65 @@ class Decoder:
           coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients, as
             an array, a tensor or staged by :meth:`stage_coeffs` (then the
             current stream waits on the copy's event first).
-          block_types: ``(T, nby, nbx)`` wire block types.
-          gaze_rects: ``(T, 4)`` padded-space ``(x, y, w, h)`` rects.
+          block_types: ``(T, nby, nbx)`` wire block types (or staged).
+          gaze_rects: ``(T, 4)`` padded-space ``(x, y, w, h)`` rects (or
+            staged).
         """
         if len(self.devices) == 1:
-            return self._decode_on(self.device, coeffs, block_types, gaze_rects)
-        if not isinstance(coeffs, list) or not isinstance(coeffs[0], Staged):
-            coeffs = self._split(coeffs)
+            return self._decode_on(0, coeffs, block_types, gaze_rects)
         rows = []
-        for dev, c, bt, r in zip(
-            self.devices, coeffs, self._split(np.asarray(block_types)),
-            self._split(np.asarray(gaze_rects)),
-        ):
+        for i, (dev, c, bt, r) in enumerate(zip(
+            self.devices, self._split(coeffs), self._split(block_types),
+            self._split(gaze_rects),
+        )):
             with device_scope(dev):
-                rows.append(self._decode_on(dev, c, bt, r))
+                rows.append(self._decode_on(i, c, bt, r))
         return torch.cat([r.to(self.device) for r in rows])
 
-    def _decode_on(self, dev, coeffs, block_types, gaze_rects) -> torch.Tensor:
-        """The single-device program on ``dev``."""
-        h = self.header
+    def _pair(self, entry: int, frames: int) -> GraphPair:
+        """Entry ``entry``'s graphs for chunks of ``frames`` frames,
+        captured on first use under its device (a capture that fails
+        raises)."""
+        pair = self._graphs.get((entry, frames))
+        if pair is None:
+            dev = self.devices[entry]
+            shape = (frames,) + self._wire_shape
+            example = (
+                torch.zeros(shape, device=dev),
+                torch.zeros(shape[:3], dtype=torch.int64, device=dev),
+                torch.zeros((frames, 4), dtype=torch.int64, device=dev),
+            )
+            pair = self._graphs[(entry, frames)] = GraphPair(
+                self._decode, example, dev)
+        return pair
+
+    def _decode_on(self, entry: int, coeffs, block_types, gaze_rects) -> torch.Tensor:
+        """The single-device program on device entry ``entry``."""
+        dev = self.devices[entry]
         if isinstance(coeffs, Staged):
             c = coeffs.take()
         else:
             c = torch.as_tensor(coeffs).to(dev, torch.float32)
-        bt = to_device(np.asarray(block_types, np.int64), dev)
-        rects = to_device(np.asarray(gaze_rects, np.int64), dev)
-        steps = self._steps(bt, rects)
+        bt, rects = (x.take() if isinstance(x, Staged)
+                     else to_device(np.asarray(x, np.int64), dev)
+                     for x in (block_types, gaze_rects))
+        if not self.graph:
+            return self._decode(c, bt, rects)["rows"]
+        return self._pair(entry, len(c))(c, bt, rects)["rows"]
+
+    def _decode(self, coeffs: torch.Tensor, block_types: torch.Tensor,
+                rects: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The batch, eagerly, on device tensors: int64 block types and
+        rects, the per-block steps, then K1 or K6."""
+        h = self.header
+        steps = self._steps(block_types, rects)
         ch, tbh, tbw = h.channel_count, h.transform_block_h, h.transform_block_w
         if self.width_aligned:
-            return idct_display(c, steps, h.frame_h, ch, tbh, tbw)
-        return idct_resize_display(c, steps, h.frame_h, h.frame_w, ch, tbh, tbw)
+            rows = idct_display(coeffs, steps, h.frame_h, ch, tbh, tbw)
+        else:
+            rows = idct_resize_display(coeffs, steps, h.frame_h, h.frame_w,
+                                       ch, tbh, tbw)
+        return {"rows": rows}
 
     def decode_frames(
         self,
@@ -233,6 +323,12 @@ class Decoder:
         (svc_tpu/models/decoder.py:404-537). The bytes are the same either
         way. ``tracer`` records the ``parse``, ``device_dispatch`` and
         ``device_fetch`` spans.
+
+        With graphs (``cuda``), each device entry's graphs for the batch
+        shape are captured here, on the calling thread, before the first
+        batch is staged; the padded last batch has the same shape. Batch
+        ``i`` is read back before batch ``i + 2`` is dispatched, so the
+        graph's outputs it reads are still its own.
         """
         h = self.header
         batch = self.batch_size
@@ -269,23 +365,26 @@ class Decoder:
                     frames = fetch(prev)
                 yield from frames
 
-        stager = DoubleBufferedStager(self.stage_coeffs) if stage_h2d else None
-        staged_meta = None  # (types, rects, n_valid) of the staged batch
+        if self.graph:
+            for entry in range(len(self.devices)):
+                self._pair(entry, batch // len(self.devices))
+        stager = DoubleBufferedStager(self._stage_batch) if stage_h2d else None
+        staged_valid = None  # n_valid of the staged batch
 
         def run(n_valid: int):
-            nonlocal staged_meta
+            nonlocal staged_valid
             coeffs, types, rects = take_buffers()
             if stager is None:
                 yield from dispatch(np.stack(coeffs), types, rects, n_valid)
-            elif staged_meta is not None:
+            elif staged_valid is not None:
                 staged = stager.collect()  # batch i-1's transfer
-                meta = staged_meta
-                stager.submit(coeffs)  # batch i streams H2D...
-                staged_meta = (types, rects, n_valid)
-                yield from dispatch(staged, *meta)  # ...while i-1 computes
+                valid = staged_valid
+                stager.submit((coeffs, types, rects))  # batch i streams H2D...
+                staged_valid = n_valid
+                yield from dispatch(*staged, valid)  # ...while i-1 computes
             else:
-                stager.submit(coeffs)
-                staged_meta = (types, rects, n_valid)
+                stager.submit((coeffs, types, rects))
+                staged_valid = n_valid
 
         try:
             for payload in payloads:
@@ -299,8 +398,8 @@ class Decoder:
                     yield from run(batch)
             if buf_c:
                 yield from run(len(buf_c))
-            if staged_meta is not None:
-                yield from dispatch(stager.collect(), *staged_meta)
+            if staged_valid is not None:
+                yield from dispatch(*stager.collect(), staged_valid)
             if pending is not None:
                 with span(tracer, "device_fetch", frames=pending[1]):
                     frames = fetch(pending)
@@ -308,3 +407,12 @@ class Decoder:
         finally:
             if stager is not None:
                 stager.close()
+                self._release_claims()
+
+    def _release_claims(self) -> None:
+        """After a staged stream, which may have ended with a batch staged
+        and never decoded: the current stream waits for every upload still
+        writing a static input, and no claim is left."""
+        for (entry, _), pair in self._graphs.items():
+            self._uploads[entry].settle()
+            pair.release()

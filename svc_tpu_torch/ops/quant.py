@@ -25,10 +25,11 @@ def block_quant_steps(
     block_types: torch.Tensor, gazed: torch.Tensor, fg_step: int, bg_step: int
 ) -> torch.Tensor:
     """Float32 per-block steps from ``(..., nby, nbx)`` wire block types and
-    the gaze mask (block top-left inside the gaze rect)."""
-    steps = torch.where(
-        block_types == BLOCK_TYPE_BACKGROUND,
-        torch.tensor(float(bg_step), dtype=torch.float32),
-        torch.tensor(float(fg_step), dtype=torch.float32),
-    ).to(block_types.device)
-    return torch.where(gazed, torch.ones((), device=steps.device), steps)
+    the gaze mask (block top-left inside the gaze rect).
+
+    The steps enter as Python scalars, which ``torch.where`` fills on the
+    condition's device: a CPU tensor here would be copied to the card on
+    every call, a host copy that a CUDA graph capture refuses."""
+    steps = torch.where(block_types == BLOCK_TYPE_BACKGROUND,
+                        float(bg_step), float(fg_step))
+    return torch.where(gazed, 1.0, steps)

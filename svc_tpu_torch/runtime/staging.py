@@ -19,6 +19,10 @@ events:
   event and records the tensor on that stream (:meth:`Staged.take`);
   without ``record_stream`` the caching allocator could hand the memory
   out again while the compute still reads it.
+  Given a device tensor to write (``into``, a CUDA graph's static input),
+  the copy stream first waits on that tensor's last-read event and copies
+  there, so the batch crosses in one H2D copy with no device-to-device
+  copy after it.
 * ``PinnedDownload`` copies a dispatched batch's outputs into one of two
   reused sets of pinned host buffers on a second copy stream that waits
   on an event recorded after the batch; :meth:`Download.wait`
@@ -130,10 +134,18 @@ class PinnedUpload:
         self._slots: List[Optional[tuple]] = [None, None]  # (pinned, event)
         self._next = 0
 
-    def __call__(self, batch, shape: Sequence[int], dtype: torch.dtype) -> Staged:
+    def __call__(self, batch, shape: Sequence[int], dtype: torch.dtype,
+                 into: Optional[torch.Tensor] = None,
+                 after: Optional["torch.cuda.Event"] = None) -> Staged:
+        """Stage ``batch`` as a ``shape`` / ``dtype`` tensor: a new one, or
+        ``into`` (on this device, written once the stream has passed
+        ``after``, the event of the work that last read it)."""
         shape = tuple(shape)
+        if into is not None and (tuple(into.shape) != shape or into.dtype != dtype):
+            raise ValueError(f"staging {shape} {dtype} into {tuple(into.shape)} "
+                             f"{into.dtype}")
         if self.device.type != "cuda":
-            host = torch.empty(shape, dtype=dtype)
+            host = torch.empty(shape, dtype=dtype) if into is None else into
             fill_stacked(host.numpy(), batch)
             return Staged(host)
         if self._stream is None:
@@ -147,12 +159,28 @@ class PinnedUpload:
             last_copy.synchronize()  # refill only once its last copy is done
         fill_stacked(pinned.numpy(), batch)
         with torch.cuda.stream(self._stream):
-            dev = torch.empty(shape, dtype=dtype, device=self.device)
+            if into is None:
+                dev = torch.empty(shape, dtype=dtype, device=self.device)
+            else:
+                dev = into
+                if after is not None:
+                    self._stream.wait_event(after)
+                # ``into`` was allocated on another stream (a graph's static
+                # input: by the caching allocator before the capture, held by
+                # the graph). record_stream is right for any block, a graph
+                # pool's too: were it freed, the allocator would reuse it
+                # only after the copy queued here is done.
+                dev.record_stream(self._stream)
             dev.copy_(pinned, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
         self._slots[i] = (pinned, event)
         return Staged(dev, event)
+
+    def settle(self) -> None:
+        """Make the current stream wait for every copy queued so far."""
+        if self._stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
 
 def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1226,3 +1226,153 @@ def test_a_failed_capture_raises(gen):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == "raised"
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode batch
+# ---------------------------------------------------------------------------
+
+
+def _wire_payloads(w, h, block, n, seed):
+    """A header and ``n`` payloads of seeded coefficients and block types
+    (the transform grid as the MV field), with one gaze each."""
+    from svc_tpu_torch.ops.pad import padded_dims
+
+    pw, ph = padded_dims(w, h, 16, 16, 4)
+    header = bitstream.Header(n, w, h, pw - w, ph - h, block, block, 3)
+    nby, nbx = ph // block, pw // block
+    rng = np.random.default_rng(seed)
+    payloads = [
+        bitstream.serialize_frame_blocks(
+            (rng.normal(size=(nby, nbx, 3, block, block)) * 90).astype(np.float32),
+            rng.integers(0, 3, (nby, nbx)).astype(np.uint32), block, block)
+        for _ in range(n)
+    ]
+    gazes = [(int(rng.integers(0, w)), int(rng.integers(0, h))) for _ in range(n)]
+    return header, payloads, gazes
+
+
+# 1080p (K1), 1366x768 (K6), 4x4-block CIF (the general K1)
+DECODE_GRAPH_CASES = [(1920, 1080, 8, "idct_display"),
+                      (1366, 768, 8, "idct_resize_display"),
+                      (352, 288, 4, "idct_display_general")]
+
+
+@pytest.mark.parametrize("w,h,block,kernel", DECODE_GRAPH_CASES)
+def test_decode_graph_equals_eager(gen, w, h, block, kernel):
+    # 7 payloads at batch 4: a padded remainder batch on the same graphs;
+    # staged (coefficients straight into the static input) and direct
+    header, payloads, gazes = _wire_payloads(w, h, block, 7, seed=w)
+    graph = Decoder(DecoderConfig(), header, batch_size=4, device="cuda")
+    eager = Decoder(DecoderConfig(), header, batch_size=4, device="cuda",
+                    graph=False)
+    assert graph.graph and not eager.graph
+    want = np.stack(list(eager.decode_frames(iter(payloads), iter(gazes))))
+    for stage_h2d in (True, False):
+        got = np.stack(list(graph.decode_frames(iter(payloads), iter(gazes),
+                                                stage_h2d=stage_h2d)))
+        np.testing.assert_array_equal(got, want)
+    assert list(graph._graphs) == [(0, 4)]
+    assert graph._graphs[(0, 4)].launches_per_replay() == {kernel: 1}
+    build.reset_launch_counts()
+    list(graph.decode_frames(iter(payloads), iter(gazes)))
+    counts = {k: n for k, n in build.launch_counts().items() if n}
+    assert counts == {kernel: 2}  # two replays, no warm-up, no other kernel
+    cpu = Decoder(DecoderConfig(), header, batch_size=4, device="cpu")
+    ref = np.stack(list(cpu.decode_frames(iter(payloads), iter(gazes))))
+    d = np.abs(want.astype(np.int16) - ref.astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+def test_decode_graph_over_a_device_list_equals_eager(gen):
+    from svc_tpu_torch.parallel.sharding import make_frame_devices
+
+    header, payloads, gazes = _wire_payloads(1920, 1080, 8, 7, seed=3)
+    devs = make_frame_devices(devices=["cuda:0", "cuda:0"])
+    split = Decoder(DecoderConfig(), header, batch_size=4, devices=devs)
+    eager = Decoder(DecoderConfig(), header, batch_size=4, device="cuda",
+                    graph=False)
+    want = np.stack(list(eager.decode_frames(iter(payloads), iter(gazes))))
+    for stage_h2d in (True, False):
+        got = np.stack(list(split.decode_frames(iter(payloads), iter(gazes),
+                                                stage_h2d=stage_h2d)))
+        np.testing.assert_array_equal(got, want)
+    # one pair per entry, though both entries are cuda:0
+    assert sorted(split._graphs) == [(0, 2), (1, 2)]
+    assert split._graphs[(0, 2)] is not split._graphs[(1, 2)]
+
+
+def test_decode_graph_second_stream_keeps_the_first(gen):
+    # the frames handed out are copies: a second stream through the same
+    # graphs leaves the first stream's frames as they were
+    header, payloads, gazes = _wire_payloads(128, 96, 8, 11, seed=4)
+    dec = Decoder(DecoderConfig(), header, batch_size=3, device="cuda")
+    first = list(dec.decode_frames(iter(payloads), iter(gazes)))
+    snapshot = [f.copy() for f in first]
+    second = list(dec.decode_frames(iter(payloads[::-1]), iter(gazes[::-1])))
+    for a, b in zip(first, snapshot):
+        np.testing.assert_array_equal(a, b)
+    eager = Decoder(DecoderConfig(), header, batch_size=3, device="cuda",
+                    graph=False)
+    want = list(eager.decode_frames(iter(payloads[::-1]), iter(gazes[::-1])))
+    for a, b in zip(second, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_decode_batch_graph_output_valid_until_two_calls_on(gen):
+    header, payloads, gazes = _wire_payloads(128, 96, 8, 6, seed=5)
+    dec = Decoder(DecoderConfig(), header, batch_size=3, device="cuda")
+    eager = Decoder(DecoderConfig(), header, batch_size=3, device="cuda",
+                    graph=False)
+    batches = []
+    for s in (0, 3):
+        types, coeffs = zip(*[bitstream.deserialize_frame_blocks(p, header)
+                              for p in payloads[s:s + 3]])
+        coeffs = np.stack([c.reshape(c.shape[0], c.shape[1], -1) for c in coeffs])
+        rects = [dec.padded_gaze_rect(g) for g in gazes[s:s + 3]]
+        batches.append((coeffs, np.stack(types), rects))
+    a = dec.decode_batch(*batches[0])
+    b = dec.decode_batch(*batches[1])
+    # call 0's output is the first graph's own, intact after call 1
+    assert torch.equal(a, eager.decode_batch(*batches[0]))
+    assert torch.equal(b, eager.decode_batch(*batches[1]))
+    want = a.clone()
+    # call 2 (the first graph again) staged straight into its static input
+    staged = dec.stage_coeffs(batches[0][0])
+    assert staged.tensor is dec._graphs[(0, 3)]._slots[0].inputs[0]
+    assert torch.equal(dec.decode_batch(staged, *batches[0][1:]), want)
+
+
+def test_a_failed_decode_capture_raises(gen):
+    # a host sync inside the decode batch cannot be captured; the decoder
+    # raises instead of running eagerly. In a child process, as for the
+    # encoder.
+    code = (
+        "import numpy as np, torch\n"
+        "from svc_tpu_torch.config import DecoderConfig\n"
+        "from svc_tpu_torch.io import bitstream\n"
+        "from svc_tpu_torch.models import decoder as m\n"
+        "orig = m.block_quant_steps\n"
+        "def syncing(types, gazed, fg, bg):\n"
+        "    int(types.sum())\n"
+        "    return orig(types, gazed, fg, bg)\n"
+        "m.block_quant_steps = syncing\n"
+        "hdr = bitstream.Header(2, 64, 48, 0, 0, 8, 8, 3)\n"
+        "args = (np.zeros((2, 6, 8, 192), np.float32),\n"
+        "        np.zeros((2, 6, 8), np.uint32), np.zeros((2, 4), np.int32))\n"
+        "m.Decoder(DecoderConfig(), hdr, 2, device='cuda', graph=False)"
+        ".decode_batch(*args)\n"
+        "try:\n"
+        "    m.Decoder(DecoderConfig(), hdr, 2, device='cuda').decode_batch(*args)\n"
+        "except RuntimeError:\n"
+        "    print('raised')\n"
+        "else:\n"
+        "    print('no error')\n"
+    )
+    env = dict(os.environ)
+    repo = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "raised"
