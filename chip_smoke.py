@@ -15,13 +15,13 @@ each:
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the twenty-three kernels against its plain
+3. kernel parity — each of the twenty-seven kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
    kernel's time, its time through the wrapper, the plain version's, the
    one-call PyTorch yardstick's where one exists, and the bound (bytes
-   over 3.35 TB/s or operations over 67 T/s, float64 operations over 34
+   over 3.35 TB/s or operations over 67 T/s, float64 operations over 67
    T/s, integer instructions over the integer rate for K3, K4, K7, K8, K9
    and K11, whichever is larger). A kernel's time is that of CUDA graph
    replays, so that no host time of the wrapper enters (the yardsticks
@@ -37,8 +37,13 @@ each:
    tiny sizes and 2-5 levels, the K8 pyramid at odd subplane widths and
    a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
    refine with MVs past its staged band and past the frame edges; K5 also
-   at 1080p with D = 7; the general K1, K2 and K6 also run once at 4x4
-   blocks; K10 (the CCL on the device: the 8-CTA cluster kernel and the
+   at 1080p with D = 7; the general K6 also runs once at 4x4 blocks; the
+   square-block K2 and K1 (4x4 and 16x16 blocks of 3 channels) at 1080p,
+   T = 8, bit-equal (K2) or byte-equal (K1) to the general kernels there
+   and on a ragged shape (1366-pixel packed rows, 2-byte aligned; block
+   columns ending mid-strip), K1 also with identity rows, each timed in
+   turns with the general kernel at its shape, K2 beside its b*b-filter
+   stride-b convolution; K10 (the CCL on the device: the 8-CTA cluster kernel and the
    general one, each also with ``general=True`` and the general
    global-memory loop) at the path shape with both connectivities, a
    snake, 4K, 270x480, a grid past the cluster's capacity and
@@ -69,12 +74,17 @@ each:
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
    phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9,
-   K10) or the single-level K4;
-7. 4x4 transform blocks — a 9-frame CIF clip, default config with 4x4
-   transform blocks: the general K1 and K2 must run, the 8x8 x 3 ones
-   not; its 16x16 MV blocks run the specialised K3 and the cluster K5,
-   the fused K4 and the 2x2 K9 (no general K3, K5, K9, K10, single-level
-   K4);
+   K10), the single-level K4 or a square-block K1 or K2;
+7. square transform blocks — a 9-frame CIF clip, default config with
+   4x4 transform blocks: the 4x4 K2 and K1 must run, no other K1 or K2;
+   its 16x16 MV blocks run the specialised K3 and the cluster K5, the
+   fused K4 and the 2x2 K9 (no general K3, K5, K9, K10, single-level K4);
+   then a 9-frame 1080p clip with 16x16 transform blocks on graph
+   replays: the 16x16 K2 and K1 must run, no other K1, K2 or K6, and no
+   general kernel; its stream and frames byte-equal to ``graph=False``;
+   its first 3 frames encoded on the CPU port (header and MV fields
+   equal, coefficients within 2.5e-4, block types within 1%) and 2
+   payloads decoded there (the display gate);
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
@@ -154,7 +164,7 @@ BLOCK_TYPE_TOL = 0.01  # phase 8: share of blocks allowed to differ
 # over the integer rate below), whichever is larger
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
-FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores (K2's sums)
+FP64_OPS_PER_S = 67e12  # float64 peak, on the tensor cores (K2's sums)
 # 32-bit integer instructions (add, multiply-add, shift, logic, compare) an
 # SM issues a clock at compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput): the integer kernels' rate is this
@@ -790,23 +800,17 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
                   plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
     record(results, "dct_to_wire_general", dct.DCT_WIRE_GENERAL, err_g, gen_ms,
            gen_w_ms, plain_ms, nbytes, ops, lib_ms, FP64_OPS_PER_S)
-    got4 = dct.dct8x8_to_wire(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
-    err4 = (got4 - dct.dct8x8_to_wire_plain(packed[:3], 1, 2, 1080, 1920, 4, 4, 3)
-            ).abs().max().item()
-    if not err4 <= 2.5e-4:
-        fail(f"K2 general at 4x4 blocks: max |err| {err4} > 2.5e-4")
     print(f"parity K2 dct8x8_to_wire: max |err| {err:.3e} <= 2.5e-4, "
           f"bit-exact fraction {exact:.6f}, bit-equal to the general kernel; "
           f"{ms:.4f} ms (general {gen_ms:.4f}; in turns general, new, new, "
           f"general: {', '.join(f'{x:.4f}' for x in turns)}; through the "
           f"wrappers {new_w_ms:.4f} / {gen_w_ms:.4f}) vs plain "
-          f"{plain_ms:.4f} ms; {line}; general at 4x4 blocks (T=2, 1080p): "
-          f"max |err| {err4:.3e}")
+          f"{plain_ms:.4f} ms; {line}")
 
     # K1: display path of 8 frames, 1088 padded rows -> 1080 display rows,
     # then the zero-excess (identity rows) mode, on the specialised 8x8 x 3
     # kernel and on the general one (byte-equal), timed in turns at the
-    # first; then the general kernel once at 4x4 blocks
+    # first
     worst, modes = 0.0, []
     for nby, out_h in ((136, 1080), (135, 1080)):
         coeffs = (torch.randn((8, nby, 240, 192), generator=g) * 90).to(dev)
@@ -848,23 +852,13 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
                   plain_ms, nbytes, ops)
     record(results, "idct_display_general", dct.IDCT_DISPLAY_GENERAL, worst,
            gen_ms, gen_w_ms, plain_ms, nbytes, ops)
-    coeffs = (torch.randn((2, 272, 480, 48), generator=g) * 90).to(dev)
-    steps = torch.where(torch.rand((2, 272, 480), generator=g) < 0.5, 640.0,
-                        1.0).to(dev)
-    diff = (dct.idct_display(coeffs, steps, 1080, 3, 4, 4).to(torch.int16)
-            - dct.idct_display_plain(coeffs, steps, 1080, 3, 4, 4).to(torch.int16)
-            ).abs()
-    frac4 = (diff > 0).double().mean().item()
-    if diff.max().item() > 1 or not frac4 < 1e-3:
-        fail(f"K1 general at 4x4 blocks: max diff {diff.max().item()}, "
-             f"{frac4:.2e} of bytes differ")
     print(f"parity K1 idct_display: {'; '.join(modes)}; {ms:.4f} ms (general "
           f"{gen_ms:.4f}; in turns general, new, new, general: "
           f"{', '.join(f'{x:.4f}' for x in turns)}; through the wrappers "
           f"{new_w_ms:.4f} / {gen_w_ms:.4f}) vs plain {plain_ms:.4f} ms "
-          f"(1088->1080 rows, T=8); {line}; general at 4x4 blocks (T=2, "
-          f"1088->1080): max diff {diff.max().item()}, {frac4:.2e} of bytes "
-          f"differ")
+          f"(1088->1080 rows, T=8); {line}")
+    for block in dct.DCT_WIRE_SQ:
+        square_block_parity(g, dev, results, block, packed, planes)
 
     # K5: every Lloyd attempt of an 8-frame batch from the same seeded
     # start, at the 1080p (8160 MV blocks), 1440p (14400) and 4K (32400)
@@ -1023,6 +1017,125 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
           f"{diff.max().item()}, {frac4:.2e} of bytes differ")
     compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word)
     return results
+
+
+def square_block_parity(g, dev, results, block, packed, planes):
+    """Phase 3, K2 and K1 for square ``block`` x ``block`` transform blocks
+    of 3 channels (4 and 16): the square-block kernel against the general
+    one (bit-equal K2, byte-equal K1) and the plain version (within the
+    gates) at 1080p, T = 8, and on a ragged shape; the two timed in turns.
+    ``packed`` holds 9 packed 1080p frames, ``planes`` their last 8 as 24
+    zero-padded 1088x1920 float32 planes (K2's yardstick)."""
+    from svc_tpu_torch.ops import dct, quant
+
+    b = block
+    k2, k1 = dct.DCT_WIRE_SQ[b], dct.IDCT_DISPLAY_SQ[b]
+
+    def counts():
+        return (k2.launches, dct.DCT_WIRE_GENERAL.launches, k1.launches,
+                dct.IDCT_DISPLAY_GENERAL.launches)
+
+    # K2: 8 anchor frames from 9 packed 1080p frames (frame_offset 1); then
+    # 1366-pixel rows (4098 bytes: 2-byte aligned starts) whose block
+    # columns end mid-strip; yardstick: the b*b-filter stride-b convolution
+    # of the 24 padded float32 planes (no packing, no wire layout)
+    before = counts()
+    got = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b)
+    got_g = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b, general=True)
+    if counts() != (before[0] + 1, before[1] + 1, before[2], before[3]):
+        fail(f"K2 at {b}x{b} did not launch the square-block and the general "
+             f"kernel once each")
+    if not torch.equal(got, got_g):
+        fail(f"K2 {k2.name} differs from the general kernel at 1080p")
+    ref = dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, b, b)
+    err = (got - ref).abs().max().item()
+    if not err <= 2.5e-4:
+        fail(f"K2 {k2.name} max |err| {err} > 2.5e-4")
+    pw = -(-1366 // 16) * 16
+    rag = torch.randint(0, 256, (3, 760, 1366 * 3), generator=g,
+                        dtype=torch.uint8).to(dev)
+    rag_new = dct.dct8x8_to_wire(rag, 1, 2, 768, pw, b, b)
+    if not torch.equal(rag_new, dct.dct8x8_to_wire(rag, 1, 2, 768, pw, b, b,
+                                                   general=True)):
+        fail(f"K2 {k2.name} differs from the general kernel at 1366x760")
+    rag_err = (rag_new - dct.dct8x8_to_wire_plain(rag, 1, 2, 768, pw, b, b)
+               ).abs().max().item()
+    if not rag_err <= 2.5e-4:
+        fail(f"K2 {k2.name} max |err| {rag_err} > 2.5e-4 at 1366x760")
+    gen_ms, ms, turns = in_turns(
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b, general=True),
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b), graph_ms)
+    w_ms = cuda_ms(lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b))
+    plain_ms = cuda_ms(
+        lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, b, b), iters=5)
+    cb = torch.tensor(dct.dct_matrix(b), device=dev)
+    basis = (cb[:, None, :, None] * cb[None, :, None, :]).reshape(b * b, 1, b, b)
+    lib_ms = graph_ms(lambda: torch.nn.functional.conv2d(planes, basis, stride=b))
+    # bytes: each packed byte read once, each coefficient written once;
+    # operations: 2b float64 multiply-adds (2 each) per coefficient
+    nbytes, ops = 8 * 1080 * 5760 + got.numel() * 4, 4 * b * got.numel()
+    line = record(results, k2.name, k2, err, ms, w_ms, plain_ms, nbytes, ops,
+                  lib_ms, FP64_OPS_PER_S)
+    print(f"parity K2 {k2.name}: max |err| {err:.3e} <= 2.5e-4, bit-equal to "
+          f"the general kernel at 1080p and at 1366x760 ({-(-pw // b)} block "
+          f"columns, strips of {128 // b}; max |err| {rag_err:.3e}); "
+          f"{ms:.4f} ms (general {gen_ms:.4f}, {gen_ms / ms:.1f}x; in turns "
+          f"general, new, new, general: {', '.join(f'{x:.4f}' for x in turns)}"
+          f") vs plain {plain_ms:.4f} ms, one conv {lib_ms:.4f} ms "
+          f"({lib_ms / ms:.2f}x the kernel); {line}")
+
+    # K1: 8 frames of 1088 / b block rows -> 1080 display rows at the
+    # decoder's gaze mix of steps 1 and 640, then identity rows, then a
+    # ragged shape (block columns ending mid-strip); byte-equal to the
+    # general kernel, within the display gate of the plain version; timed
+    # in turns at the first
+    nbx, worst, modes = 1920 // b, 0.0, []
+    for t, nby, cols, out_h in ((8, 1088 // b, nbx, 1080),
+                                (8, 1080 // 16 * 16 // b, nbx, 1080 // 16 * 16),
+                                (2, 768 // b, 1376 // b + 1 - 16 // b, 766)):
+        coeffs = (torch.randn((t, nby, cols, 3 * b * b), generator=g) * 90).to(dev)
+        btypes = torch.randint(0, 3, (t, nby, cols), generator=g).to(dev)
+        gazed = torch.zeros((t, nby, cols), dtype=torch.bool, device=dev)
+        gazed[:, nby // 2 - 64 // b:nby // 2 + 64 // b,
+              cols // 2 - 64 // b:cols // 2 + 64 // b] = True
+        steps = quant.block_quant_steps(btypes, gazed, 1, 640)
+        before = counts()
+        out = dct.idct_display(coeffs, steps, out_h, 3, b, b)
+        out_g = dct.idct_display(coeffs, steps, out_h, 3, b, b, general=True)
+        if counts() != (before[0], before[1], before[2] + 1, before[3] + 1):
+            fail(f"K1 at {b}x{b} did not launch the square-block and the "
+                 f"general kernel once each")
+        if not torch.equal(out, out_g):
+            fail(f"K1 {k1.name} differs from the general kernel "
+                 f"({nby * b}->{out_h} rows, {cols} block columns)")
+        diff = (out.to(torch.int16) - dct.idct_display_plain(
+            coeffs, steps, out_h, 3, b, b).to(torch.int16)).abs()
+        frac = (diff > 0).double().mean().item()
+        if diff.max().item() > 1 or not frac < 1e-3:
+            fail(f"K1 {k1.name}: max diff {diff.max().item()}, {frac:.2e} of "
+                 f"bytes differ ({nby * b}->{out_h} rows)")
+        worst = max(worst, float(diff.max().item()))
+        modes.append(f"{nby * b}->{out_h} rows x {cols} block columns "
+                     f"(T={t}): max diff {diff.max().item()}, {frac:.2e} of "
+                     f"bytes differ, byte-equal to the general kernel")
+        if len(modes) == 1:
+            timed_in = (coeffs, steps, out_h, out)
+    coeffs, steps, out_h, out = timed_in
+    gen1_ms, ms1, turns1 = in_turns(
+        lambda: dct.idct_display(coeffs, steps, out_h, 3, b, b, general=True),
+        lambda: dct.idct_display(coeffs, steps, out_h, 3, b, b), graph_ms)
+    w1_ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, out_h, 3, b, b))
+    plain1_ms = cuda_ms(
+        lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, b, b), iters=5)
+    # dequantize (3 per coefficient), IDCT (2b multiply-adds per
+    # coefficient), row lerp (3 per output byte)
+    nbytes = coeffs.numel() * 4 + steps.numel() * 4 + out.numel()
+    ops = 3 * coeffs.numel() + 4 * b * coeffs.numel() + 3 * out.numel()
+    line = record(results, k1.name, k1, worst, ms1, w1_ms, plain1_ms, nbytes, ops)
+    print(f"parity K1 {k1.name}: {'; '.join(modes)}; {ms1:.4f} ms (general "
+          f"{gen1_ms:.4f}, {gen1_ms / ms1:.1f}x; in turns general, new, new, "
+          f"general: {', '.join(f'{x:.4f}' for x in turns1)}) vs plain "
+          f"{plain1_ms:.4f} ms (1088->1080 rows, T=8); {line}")
 
 
 def compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word):
@@ -1216,6 +1329,57 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
           f"{seconds:.2f} s incl. first calls; launches {counts}")
     return dict(clip=clip, enc=enc, dec=dec, stream=stream, header=header,
                 payloads=payloads, frames=frames, gaze=gaze, counts=counts)
+
+
+def square_round_trip(required, forbidden):
+    """Phase 7's 16x16 run: a 9-frame 1080p clip, the default config with
+    16x16 transform blocks, through :func:`round_trip` on graph replays
+    (the encoder's and the decoder's default on ``cuda``); then the same
+    clip and payloads with ``graph=False``, byte for byte; then the first 3
+    frames encoded on the CPU port (header and MV fields equal,
+    coefficients within 2.5e-4, block types within ``BLOCK_TYPE_TOL``) and
+    the first 2 payloads decoded there (the display gate)."""
+    from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+    from svc_tpu_torch.models.decoder import Decoder
+    from svc_tpu_torch.models.encoder import Encoder, stream_encode
+
+    cfg = EncoderConfig(transform_block_w=16, transform_block_h=16)
+    run = round_trip(cfg, 1920, 1080, 9, required, forbidden)
+    clip, gaze, payloads = run["clip"], run["gaze"], run["payloads"]
+    if not (run["enc"].graph and run["dec"].graph):
+        fail("phase 7: the 16x16 run did not take graph replays")
+    props = VideoProperties(1920, 1080, len(clip))
+    eager = Encoder(cfg, props, batch_size=8, device="cuda", graph=False)
+    if b"".join(stream_encode(eager, iter(clip))) != run["stream"]:
+        fail("phase 7: the 16x16 stream differs between graph and graph=False")
+    eager_dec = Decoder(DecoderConfig(), run["header"], batch_size=8,
+                        device="cuda", graph=False)
+    eager_frames = np.stack(list(eager_dec.decode_frames(
+        iter(payloads), iter([gaze] * len(payloads)))))
+    if not np.array_equal(eager_frames, run["frames"]):
+        fail("phase 7: the 16x16 decode differs between graph and graph=False")
+    cpu_enc = Encoder(cfg, props, batch_size=2, device="cpu")
+    gpu_enc = Encoder(cfg, props, batch_size=2, device="cuda")
+    if cpu_enc.header().pack() != run["header"].pack():
+        fail("phase 7: the 16x16 header differs between cuda and cpu")
+    o_gpu, o_cpu = gpu_enc.encode_batch(clip[:3], 0), cpu_enc.encode_batch(clip[:3], 0)
+    if not torch.equal(o_gpu["mv_field"].cpu(), o_cpu["mv_field"]):
+        fail("phase 7: 16x16 MV fields differ between cuda and cpu")
+    cerr = (o_gpu["coeffs"].cpu() - o_cpu["coeffs"]).abs().max().item()
+    if not cerr <= 2.5e-4:
+        fail(f"phase 7: 16x16 coefficients differ by {cerr} > 2.5e-4 between "
+             f"cuda and cpu")
+    share = (o_gpu["block_types"].cpu() != o_cpu["block_types"]).double().mean().item()
+    if share > BLOCK_TYPE_TOL:
+        fail(f"phase 7: 16x16 block types differ on {share:.3%} of blocks")
+    cpu_dec = Decoder(DecoderConfig(), run["header"], batch_size=2, device="cpu")
+    ref = np.stack(list(cpu_dec.decode_frames(iter(payloads[:2]), iter([gaze] * 2))))
+    dgate = display_gate(run["frames"][:2], ref, "16x16 decode")
+    print(f"  16x16: graph replays byte-equal to graph=False (stream and "
+          f"frames); card vs cpu (3 frames): header and MV fields equal, "
+          f"coefficients max |err| {cerr:.3e}, block types differ on "
+          f"{share:.4%}; decoded bytes {dgate}")
+    return run
 
 
 def direct_stream(enc, clip, tracer=None):
@@ -1938,9 +2102,13 @@ def main() -> int:
         for name, n in (("1080p", 8160), ("4K", 32400)))
     from svc_tpu_torch.ops import dct
 
-    # the specialised display kernels' dynamic shared memory and threads
+    # the specialised display kernels' and the square-block K2 and K1
+    # kernels' dynamic shared memory and threads
     display = {"idct8x8_display_kernel": (dct._K1_SMEM_BYTES, 192),
                "idct8x8_resize_kernel": (dct._K6_SMEM_BYTES, 224)}
+    for b in dct.DCT_WIRE_SQ:
+        display[f"dct_sq_wire_kernel<{b}>"] = (dct._k2_sq_smem_bytes(b), 384)
+        display[f"idct_sq_display_kernel<{b}>"] = (dct._k1_sq_smem_bytes(b), 192)
     display_line = "; ".join(
         f"{kern} {smem} B dynamic smem, {ctas_per_sm(regs, smem, threads)} CTAs "
         f"of {threads} per SM" for _, kern, regs, _ in report if kern in display
@@ -1991,6 +2159,10 @@ def main() -> int:
     # blocks at range 8 take the specialised K3 on every level; every
     # frame size here takes K5's cluster kernel
     general_dct = ("dct_to_wire_general", "idct_display_general")
+    # 4x4 and 16x16 blocks of 3 channels take the square-block K2 / K1
+    square_dct = {b: (dct.DCT_WIRE_SQ[b].name, dct.IDCT_DISPLAY_SQ[b].name)
+                  for b in dct.DCT_WIRE_SQ}
+    any_square = square_dct[4] + square_dct[16]
     # the fused K4 and the 2x2 K9 serve the motion path: the single-level
     # K4 and the general K9 run on none of phases 4-7 and 9
     general_k3_k5 = ("refine_sads_general", "lloyd_general",
@@ -2005,7 +2177,7 @@ def main() -> int:
     print("default config 1080p, 17 frames:")
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
                           encode_kernels + ("lloyd", "idct_display"),
-                          general_dct + general_k3_k5 + general_k6)
+                          general_dct + general_k3_k5 + general_k6 + any_square)
     staged_against_direct(main_run, dev)
     with tempfile.TemporaryDirectory(prefix="svc_smoke_") as tmp:
         print(f"  CLIs on cuda: {cli_checks(main_run, tmp)}")
@@ -2016,7 +2188,7 @@ def main() -> int:
     wide = round_trip(EncoderConfig(), 1366, 768, 9,
                       encode_kernels + ("lloyd", "idct_resize_display"),
                       general_dct + general_k3_k5 + general_k6
-                      + ("idct_display",))
+                      + ("idct_display",) + any_square)
     cpu_dec = Decoder(DecoderConfig(), wide["header"], batch_size=8, device="cpu")
     cpu_frames = np.stack(list(cpu_dec.decode_frames(
         iter(wide["payloads"]), iter([wide["gaze"]] * len(wide["payloads"])))))
@@ -2027,14 +2199,22 @@ def main() -> int:
     print("reference-compat 1080p, 9 frames:")
     round_trip(EncoderConfig(reference_compat=True), 1920, 1080, 9,
                encode_kernels + ("idct_display",),
-               general_dct + general_k3_k5 + general_k6)
+               general_dct + general_k3_k5 + general_k6 + any_square)
 
-    # 7. 4x4 transform blocks (the config allows any block dividing the MV
-    # block): the general K1 and K2, and not the specialised ones
+    # 7. square transform blocks other than 8x8 (the config allows any
+    # block dividing the MV block): 4x4 at CIF, then 16x16 at 1080p, each
+    # on its square-block K2 and K1 and on no other K1 or K2
     print("4x4 transform blocks, CIF 352x288, 9 frames, default config:")
     tb4 = round_trip(EncoderConfig(transform_block_w=4, transform_block_h=4),
-                     352, 288, 9, general_dct + ("refine_sads", "lloyd"),
-                     ("dct8x8_to_wire", "idct_display") + general_k3_k5)
+                     352, 288, 9, square_dct[4] + ("refine_sads", "lloyd"),
+                     ("dct8x8_to_wire", "idct_display") + general_dct
+                     + square_dct[16] + general_k3_k5)
+    print("16x16 transform blocks, 1080p, 9 frames, default config:")
+    tb16 = square_round_trip(tuple(k for k in encode_kernels
+                                   if k != "dct8x8_to_wire")
+                             + ("lloyd",) + square_dct[16],
+                             ("dct8x8_to_wire", "idct_display") + general_dct
+                             + square_dct[4] + general_k3_k5 + general_k6)
 
     # 8. card against CPU on the first 3 frames, default config
     cfg = EncoderConfig()
@@ -2116,12 +2296,12 @@ def main() -> int:
     # 12. RANSAC subsets at 1080p: subset 3 on the main path's kernels
     print("RANSAC subsets 1080p (default config, subset 3; 9 frames):")
     ransac_subsets(main_run, card, dev, encode_kernels + ("lloyd", "idct_display"),
-                   general_dct + general_k3_k5 + general_k6)
+                   general_dct + general_k3_k5 + general_k6 + any_square)
 
     # 13. the frame-parallel split on the card
     print("frame-parallel split 1080p, 17 frames, default config:")
     split_stream = sharded_run(main_run, card, encode_kernels + ("lloyd", "idct_display"),
-                               general_dct + general_k3_k5 + general_k6)
+                               general_dct + general_k3_k5 + general_k6 + any_square)
 
     # 14. the compiled batch: graph replay against the eager path
     print("compiled batch 1080p, default config, eager (graph=False) against "
@@ -2140,7 +2320,9 @@ def main() -> int:
                "pyr_down_pitched_general": pitched_run,
                "refine_sads_pitched": pitched_run,
                "refine_sads_pitched_general": pitched_run,
-               "dct_to_wire_general": tb4, "idct_display_general": tb4}
+               "dct_to_wire_general": tb4, "idct_display_general": tb4,
+               **{name: tb4 for name in square_dct[4]},
+               **{name: tb16 for name in square_dct[16]}}
     kernels = []
     for name, r in results.items():
         k = r["kernel"]

@@ -20,16 +20,18 @@ Three wrappers live here, each beside its plain PyTorch version:
 * K6 :func:`idct_resize_display` — the same with both axes resampled (the
   general route: frame width excess).
 
-Each dispatches by shape to one of two kernels: 8x8 blocks of 3 channels
-(the codec's default, every config the CLI runs) go to a kernel
-specialised for them (``csrc/dct_wire.cu``, ``csrc/idct_display.cu``,
-``csrc/idct_resize.cu``); every other block shape or channel count goes to
-the general one (``csrc/dct_wire_general.cu``,
-``csrc/idct_display_general.cu``, ``csrc/idct_resize_general.cu``). The two
-give the same bits. No call copies from host memory once its geometry is
-cached: tables and DCT matrices are copied to the device once per (device,
-geometry) or travel by value, so every wrapper can be captured in a CUDA
-graph.
+Each dispatches by shape: 8x8 blocks of 3 channels (the codec's default)
+go to a kernel specialised for them (``csrc/dct_wire.cu``,
+``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); K2 and K1 also send
+square 4x4 and 16x16 blocks of 3 channels (the other transform blocks
+users pick) to one kernel template each, instantiated per block size
+(``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``); every other block
+shape or channel count goes to the general kernel
+(``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
+``csrc/idct_resize_general.cu``). All give the general kernel's bits.
+No call copies from host memory once its geometry is cached: tables and
+DCT matrices are copied to the device once per (device, geometry) or
+travel by value, so every wrapper can be captured in a CUDA graph.
 
 The plain versions set ``allow_tf32 = False`` for matmuls and cuDNN: TF32
 keeps ~3 decimal digits, far outside the 2.5e-4 coefficient gate. The
@@ -76,6 +78,29 @@ IDCT_DISPLAY_GENERAL = Kernel(
     source="svc_tpu_torch/csrc/idct_display_general.cu",
     replaces="svc_tpu/ops/dct_pallas.py:692",
 )
+# K2 and K1 for square blocks of 3 channels other than 8x8: one kernel
+# template each, an instantiation (and a launch count) per block size
+_SQUARE_BLOCKS = (4, 16)
+DCT_WIRE_SQ = {
+    b: Kernel(
+        f"dct{b}x{b}_to_wire",
+        f"svc_dct{b}x{b}_to_wire",
+        [PTR] * 3 + [INT] * 6 + [PTR],
+        source="svc_tpu_torch/csrc/dct_wire_sq.cu",
+        replaces="svc_tpu/ops/dct_pallas.py:282",
+    )
+    for b in _SQUARE_BLOCKS
+}
+IDCT_DISPLAY_SQ = {
+    b: Kernel(
+        f"idct{b}x{b}_display",
+        f"svc_idct{b}x{b}_display",
+        [PTR] * 9 + [INT] * 6 + [PTR],
+        source="svc_tpu_torch/csrc/idct_display_sq.cu",
+        replaces="svc_tpu/ops/dct_pallas.py:692",
+    )
+    for b in _SQUARE_BLOCKS
+}
 IDCT_RESIZE = Kernel(
     "idct_resize_display",
     "svc_idct_resize_display",
@@ -113,21 +138,53 @@ _K6_STRIP = 8
 _K6_STRIP_BYTES = _K6_STRIP * 8 * 3
 _K6_SMEM_BYTES = (2 * 27 * 104 + 16 * 220 + 2 * 9 + 3 * 128) * 4
 _K6_CTAS_PER_SM = 5
+# K2's square-block kernels (csrc/dct_wire_sq.cu): a strip of 128 pixels
+# (128 / B blocks), 384 threads; stage 1's doubles padded to
+# (row stride, pair stride) per B, then the strip's B packed rows
+_K2_SQ_STRIP_PIXELS = 128
+_K2_SQ_GEOM = {4: (5, 20), 16: (17, 272)}
+# K1's square-block kernels (csrc/idct_display_sq.cu): a strip of 64
+# pixels (64 / B block columns), 192 threads; per B the coefficient slot's
+# (row stride, pair stride) in floats and the CTAs an SM holds; two slots,
+# a ring of 2B pixel rows of 244 floats, two step slots, three tables of up
+# to 128 output rows
+_K1_SQ_STRIP_PIXELS = 64
+_K1_SQ_GEOM = {4: (8, 36, 6), 16: (20, 336, 3)}
+
+
+def _k2_sq_smem_bytes(block: int) -> int:
+    """Dynamic shared memory of K2's kernel for ``block`` x ``block``."""
+    groups = _K2_SQ_STRIP_PIXELS // block * 3
+    return groups * _K2_SQ_GEOM[block][1] * 8 + block * _K2_SQ_STRIP_PIXELS * 3
+
+
+def _k1_sq_smem_bytes(block: int) -> int:
+    """Dynamic shared memory of K1's kernel for ``block`` x ``block``."""
+    strip = _K1_SQ_STRIP_PIXELS // block
+    slot = strip * 3 * _K1_SQ_GEOM[block][1]
+    return 4 * (2 * slot + 2 * block * 244 + 2 * strip + 3 * max(_K1_BAND_ROWS))
 
 
 def _specialised(block_h: int, block_w: int, channels: int) -> bool:
     return (block_h, block_w, channels) == _SPECIALISED
 
 
+def _square(block_h: int, block_w: int, channels: int) -> bool:
+    """Square 4x4 or 16x16 blocks of 3 channels: K2's and K1's
+    square-block kernels."""
+    return block_h == block_w and block_h in _SQUARE_BLOCKS and channels == 3
+
+
 @functools.lru_cache(maxsize=None)
-def dct_matrix(n: int) -> np.ndarray:
-    """Orthonormal DCT-II matrix, float32 (``svc_tpu.ops.dct.dct_matrix``)."""
+def dct_matrix(n: int, dtype=np.float32) -> np.ndarray:
+    """Orthonormal DCT-II matrix, float32 (``svc_tpu.ops.dct.dct_matrix``)
+    unless ``dtype`` says otherwise."""
     k = np.arange(n)[:, None].astype(np.float64)
     j = np.arange(n)[None, :].astype(np.float64)
     d = np.cos(np.pi * (2 * j + 1) * k / (2 * n))
     d *= np.sqrt(2.0 / n)
     d[0] *= np.sqrt(0.5)
-    return d.astype(np.float32)
+    return d.astype(dtype)
 
 
 def _matrix(n: int, device, dtype=torch.float32) -> torch.Tensor:
@@ -197,7 +254,8 @@ def dct8x8_to_wire(
     general: bool = False,
 ) -> torch.Tensor:
     """Forward blockwise DCT of packed frames into wire layout (kernel K2:
-    the specialised kernel for 8x8 blocks of 3 channels, the general one
+    the specialised kernel for 8x8 blocks of 3 channels, the square-block
+    kernel for 4x4 and 16x16 blocks of 3 channels, the general one
     otherwise).
 
     Args:
@@ -205,7 +263,7 @@ def dct8x8_to_wire(
         ``[frame_offset, frame_offset + t_count)`` are transformed. Pixels
         past ``H`` / ``W`` (up to ``padded_h`` / ``padded_w``) are zero.
       general: launch the general kernel whatever the shape (the yardstick
-        the specialised one is held and timed against).
+        the specialised and square-block ones are held and timed against).
 
     Returns ``(t_count, nby, nbx, C*bh*bw)`` float32.
     """
@@ -235,10 +293,12 @@ def dct8x8_to_wire(
     if out.numel() == 0:
         return out
     with torch.cuda.device(p.device):
-        if _specialised(block_h, block_w, channels) and not general:
-            d8 = dct_matrix(8)  # host matrix, passed by value
-            DCT_WIRE.launch(
-                p.data_ptr(), d8.ctypes.data, out.data_ptr(),
+        if (_specialised(block_h, block_w, channels)
+                or _square(block_h, block_w, channels)) and not general:
+            kernel = DCT_WIRE if block_h == 8 else DCT_WIRE_SQ[block_h]
+            d = dct_matrix(block_h)  # host matrix, passed by value
+            kernel.launch(
+                p.data_ptr(), d.ctypes.data, out.data_ptr(),
                 t_count, frame_offset, h, w, nby, nbx, stream_handle(p),
             )
         else:
@@ -332,10 +392,12 @@ def _span_tables_on(dev, out_n: int, in_n: int, block: int, tile: int):
 
 @functools.lru_cache(maxsize=64)
 def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
-                 ctas_per_sm: int = _K1_CTAS_PER_SM):
-    """The row geometry of the specialised display kernels K1 and K6 (host
-    numpy), which walk each band of output rows down its source block rows
-    of 8, a strip of 8 block columns per CTA.
+                 ctas_per_sm: int = _K1_CTAS_PER_SM, block: int = 8,
+                 strip: int = _K1_STRIP):
+    """The row geometry of the specialised display kernels K1 and K6 and of
+    K1's square-block kernels (host numpy), which walk each band of output
+    rows down its source block rows of ``block`` rows, a strip of ``strip``
+    block columns per CTA.
 
     Returns ``(y0, y1, fy, row_lo, band_b, band_rows)``: the bilinear
     ``(y0, y1, fy)`` per output row; ``row_lo[b]`` (``b`` in ``[0, nby]``)
@@ -350,14 +412,16 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
     """
     y0, y1, fy, _ = bilinear_axis_weights(out_h, in_h)
     hi = np.where(fy != 0, y1, y0)  # non-decreasing, y0 <= hi <= y0 + 1
-    row_lo = np.searchsorted(hi // 8, np.arange(in_h // 8 + 1)).astype(np.int32)
-    strips = -(-nbx // _K1_STRIP)
+    row_lo = np.searchsorted(hi // block,
+                             np.arange(in_h // block + 1)).astype(np.int32)
+    strips = -(-nbx // strip)
     for band_rows in _K1_BAND_ROWS:
         if t * strips * -(-out_h // band_rows) >= 2 * ctas_per_sm * sm_count:
             break
     starts = np.arange(0, out_h, band_rows)
     ends = np.minimum(starts + band_rows, out_h) - 1
-    band_b = np.stack([y0[starts] // 8, hi[ends] // 8], axis=1).astype(np.int32)
+    band_b = np.stack([y0[starts] // block, hi[ends] // block],
+                      axis=1).astype(np.int32)
     return y0, y1, fy, row_lo, band_b, band_rows
 
 
@@ -368,12 +432,13 @@ def _sm_count(dev) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _band_tables_on(dev, out_h: int, in_h: int, nbx: int, t: int,
-                    ctas_per_sm: int = _K1_CTAS_PER_SM):
+                    ctas_per_sm: int = _K1_CTAS_PER_SM, block: int = 8,
+                    strip: int = _K1_STRIP):
     """:func:`_band_tables` for ``dev``: ``(y0, y1, fy, row_lo, band_b)``
     as device tensors, copied once per geometry (a copy from pageable host
     memory on every call would stall the stream), and ``band_rows``."""
     *tabs, band_rows = _band_tables(out_h, in_h, nbx, t, _sm_count(dev),
-                                    ctas_per_sm)
+                                    ctas_per_sm, block, strip)
     conv = (_int32, _int32, _float32, _int32, _int32)
     return [f(a, dev) for f, a in zip(conv, tabs)], band_rows
 
@@ -416,31 +481,40 @@ def idct_display(
       steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
       out_h: display height (``<= nby*bh``; equal = identity rows).
       general: launch the general kernel whatever the shape (the yardstick
-        the specialised one is held and timed against).
+        the specialised and square-block ones are held and timed against).
 
     Returns ``(T, out_h, nbx*bw*C)`` uint8 — the width is not resampled
     (the width-aligned display routes). 8x8 blocks of 3 channels go to the
-    specialised kernel, every other shape to the general one.
+    specialised kernel, 4x4 and 16x16 blocks of 3 channels to the
+    square-block kernel, every other shape to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_display_plain(coeffs, steps, out_h, channels, block_h, block_w)
     _check_idct_inputs("idct_display", coeffs, steps, channels, block_h, block_w)
     t, nby, nbx, cn = coeffs.shape
     dev = coeffs.device
-    if _specialised(block_h, block_w, channels) and not general:
-        out = torch.empty((t, out_h, nbx * 24), dtype=torch.uint8, device=dev)
+    if (_specialised(block_h, block_w, channels)
+            or _square(block_h, block_w, channels)) and not general:
+        b = block_h
+        if b == 8:
+            kernel, strip, ctas = IDCT_DISPLAY, _K1_STRIP, _K1_CTAS_PER_SM
+        else:
+            kernel, strip = IDCT_DISPLAY_SQ[b], _K1_SQ_STRIP_PIXELS // b
+            ctas = _K1_SQ_GEOM[b][2]
+        out = torch.empty((t, out_h, nbx * b * 3), dtype=torch.uint8, device=dev)
         if out.numel() == 0:
             return out
         c = coeffs.contiguous()
         if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
             c = c.clone()
         s = steps.contiguous()
-        tabs, band_rows = _band_tables_on(dev, out_h, nby * 8, nbx, t)
+        tabs, band_rows = _band_tables_on(dev, out_h, nby * b, nbx, t, ctas,
+                                          b, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
-        d8 = dct_matrix(8)  # host matrix, passed by value
+        d = dct_matrix(b)  # host matrix, passed by value
         with torch.cuda.device(dev):
-            IDCT_DISPLAY.launch(
-                c.data_ptr(), s.data_ptr(), d8.ctypes.data,
+            kernel.launch(
+                c.data_ptr(), s.data_ptr(), d.ctypes.data,
                 *[tab.data_ptr() for tab in tabs], out.data_ptr(),
                 t, out_h, nby, nbx, band_rows, n_bands, stream_handle(c),
             )

@@ -1,7 +1,8 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
-specialised kernels K1 / K2 / K6, every other shape to the general ones)
-and the band and strip geometry of K1's and K6's specialised kernels, on
-the CPU.
+specialised kernels K1 / K2 / K6, 4x4 and 16x16 blocks of 3 channels to
+K1's and K2's square-block kernels, every other shape to the general ones)
+and the band and strip geometry of K1's and K6's specialised kernels and
+K1's square-block kernels, on the CPU.
 
 A meta device stands in for the card in the dispatch tests: shapes and
 dtypes flow through the wrappers, the launch is replaced, nothing computes.
@@ -34,16 +35,27 @@ def meta_launches(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     for k in (dct.DCT_WIRE, dct.DCT_WIRE_GENERAL, dct.IDCT_DISPLAY,
               dct.IDCT_DISPLAY_GENERAL, dct.IDCT_RESIZE,
-              dct.IDCT_RESIZE_GENERAL):
+              dct.IDCT_RESIZE_GENERAL, *dct.DCT_WIRE_SQ.values(),
+              *dct.IDCT_DISPLAY_SQ.values()):
         monkeypatch.setattr(k, "launch",
                             lambda *a, _k=k: launched.append((_k.name, a)))
     return launched
 
 
+def _all_kernels():
+    return {k.name: k for k in (
+        dct.DCT_WIRE, dct.DCT_WIRE_GENERAL, dct.IDCT_DISPLAY,
+        dct.IDCT_DISPLAY_GENERAL, *dct.DCT_WIRE_SQ.values(),
+        *dct.IDCT_DISPLAY_SQ.values())}
+
+
 @pytest.mark.parametrize(
     "block,channels,general,kernel",
     [(8, 3, False, "dct8x8_to_wire"), (8, 3, True, "dct_to_wire_general"),
-     (4, 3, False, "dct_to_wire_general"), (8, 1, False, "dct_to_wire_general")],
+     (4, 3, False, "dct4x4_to_wire"), (16, 3, False, "dct16x16_to_wire"),
+     (4, 3, True, "dct_to_wire_general"), (16, 3, True, "dct_to_wire_general"),
+     (2, 3, False, "dct_to_wire_general"), (8, 1, False, "dct_to_wire_general"),
+     (16, 1, False, "dct_to_wire_general")],
 )
 def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
     packed = torch.zeros((3, 16, 32 * channels), dtype=torch.uint8, device="meta")
@@ -53,19 +65,21 @@ def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
     assert tuple(out.shape) == (2, 16 // block, 32 // block, n)
     ((name, args),) = meta_launches
     assert name == kernel
-    k = dct.DCT_WIRE if kernel == "dct8x8_to_wire" else dct.DCT_WIRE_GENERAL
-    assert len(args) == len(k.argtypes)
-    if kernel == "dct8x8_to_wire":
+    assert len(args) == len(_all_kernels()[kernel].argtypes)
+    if kernel != "dct_to_wire_general":
         # t_count, frame_offset, frame_h, frame_w, nby, nbx follow 3 pointers
-        assert args[3:9] == (2, 1, 16, 32, 2, 4)
+        assert args[3:9] == (2, 1, 16, 32, 16 // block, 32 // block)
         # the DCT matrix travels as a host pointer, read by value
-        assert args[1] == dct.dct_matrix(8).ctypes.data
+        assert args[1] == dct.dct_matrix(block).ctypes.data
 
 
 @pytest.mark.parametrize(
     "block,channels,general,kernel",
     [(8, 3, False, "idct_display"), (8, 3, True, "idct_display_general"),
-     (4, 3, False, "idct_display_general"), (8, 1, False, "idct_display_general")],
+     (4, 3, False, "idct4x4_display"), (16, 3, False, "idct16x16_display"),
+     (4, 3, True, "idct_display_general"), (16, 3, True, "idct_display_general"),
+     (2, 3, False, "idct_display_general"), (8, 1, False, "idct_display_general"),
+     (16, 1, False, "idct_display_general")],
 )
 def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
     n = channels * block * block
@@ -77,14 +91,28 @@ def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
     assert tuple(out.shape) == (2, 1080, 1920 * channels)
     ((name, args),) = meta_launches
     assert name == kernel
-    if kernel == "idct_display":
-        assert len(args) == len(dct.IDCT_DISPLAY.argtypes)
+    assert len(args) == len(_all_kernels()[kernel].argtypes)
+    if kernel != "idct_display_general":
+        # the DCT matrix travels as a host pointer, read by value
+        assert args[2] == dct.dct_matrix(block).ctypes.data
         # t, out_h, nby, nbx, band_rows, n_bands follow the 9 pointers
         t, out_h, nby, nbx, band_rows, n_bands = args[9:15]
-        assert (t, out_h, nby, nbx) == (2, 1080, 136, 240)
+        assert (t, out_h, nby, nbx) == (2, 1080, 1088 // block, 1920 // block)
         assert n_bands == -(-1080 // band_rows)
-    else:
-        assert len(args) == len(dct.IDCT_DISPLAY_GENERAL.argtypes)
+
+
+def test_rectangular_blocks_take_the_general_kernels(meta_launches):
+    # a 4x8 transform block (4 rows, 8 columns) is not square: both legs
+    # go to the general kernels
+    packed = torch.zeros((3, 16, 96), dtype=torch.uint8, device="meta")
+    assert tuple(dct.dct8x8_to_wire(packed, 1, 2, 16, 32, 4, 8).shape) == (
+        2, 4, 4, 96)
+    coeffs = torch.zeros((2, 272, 240, 96), device="meta")
+    steps = torch.ones(coeffs.shape[:3], device="meta")
+    assert tuple(dct.idct_display(coeffs, steps, 1080, 3, 4, 8).shape) == (
+        2, 1080, 5760)
+    assert [name for name, _ in meta_launches] == [
+        "dct_to_wire_general", "idct_display_general"]
 
 
 @pytest.mark.parametrize(
@@ -128,10 +156,18 @@ def test_display_wrappers_copy_tables_once(meta_launches, monkeypatch, general):
     coeffs = torch.zeros((2, 16, 26, 192), device="meta")
     steps = torch.ones(coeffs.shape[:3], device="meta")
     packed = torch.zeros((3, 120, 600), dtype=torch.uint8, device="meta")
+    sq = {b: (torch.zeros((2, 128 // b, 208 // b, 3 * b * b), device="meta"),
+              torch.ones((2, 128 // b, 208 // b), device="meta")) for b in (4, 16)}
     calls = [
         lambda: dct.idct_resize_display(coeffs, steps, 120, 200, general=general),
         lambda: dct.idct_display(coeffs, steps, 120, general=general),
         lambda: dct.dct8x8_to_wire(packed, 1, 2, 128, 208, general=general),
+    ] + [
+        call for b, (c, s) in sq.items() for call in (
+            lambda b=b, c=c, s=s: dct.idct_display(c, s, 120, 3, b, b,
+                                                   general=general),
+            lambda b=b: dct.dct8x8_to_wire(packed, 1, 2, 128, 208, b, b,
+                                           general=general))
     ]
     for call in calls:
         call()
@@ -205,16 +241,26 @@ K1_GEOMETRIES = [(1080, 1088, 1920), (1080, 1080, 1920), (2160, 2160, 3840),
                  (768, 768, 1376), (288, 288, 352)]
 
 
-def _walk(out_h, in_h, nbx, t):
+def _k1_tables(out_h, in_h, nbx, t, block=8):
+    """K1's band tables for ``block`` x ``block`` blocks: the 8x8 kernel's,
+    or the square-block kernel's strip and CTAs per SM."""
+    if block == 8:
+        return dct._band_tables(out_h, in_h, nbx, t, SMS)
+    return dct._band_tables(out_h, in_h, nbx, t, SMS, dct._K1_SQ_GEOM[block][2],
+                            block, dct._K1_SQ_STRIP_PIXELS // block)
+
+
+def _walk(out_h, in_h, nbx, t, block=8):
     """Replay the kernel's walk: per band, the block rows it transforms and
     the output rows it emits after each, with the source rows the ring
     holds at that moment (the current and the previous block row)."""
-    y0, y1, fy, row_lo, band_b, band_rows = dct._band_tables(
-        out_h, in_h, nbx, t, SMS)
+    y0, y1, fy, row_lo, band_b, band_rows = _k1_tables(out_h, in_h, nbx, t,
+                                                       block)
     for band, (b_first, b_last) in enumerate(band_b):
         yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
         for b in range(b_first, b_last + 1):
-            ring = set(range(max(8 * b_first, 8 * (b - 1)), 8 * b + 8))
+            ring = set(range(max(block * b_first, block * (b - 1)),
+                             block * b + block))
             rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
             yield band, b, rows, ring
 
@@ -296,6 +342,204 @@ def test_k1_band_walk_reproduces_plain_bytes(out_h, in_h, nbx, t):
             rows[:, :, yo] = v
     got = dct.display_bytes(rows)
     want = dct.idct_display_plain(coeffs, steps, out_h, 3, 8, 8)
+    assert torch.equal(got, want)
+
+
+def _band_tables_before(out_h, in_h, nbx, t, sm_count, ctas_per_sm=6):
+    """``_band_tables`` as it was before it took the block size and the
+    strip (blocks of 8 rows, strips of 8 block columns): K1's and K6's
+    8x8 tables must stay exactly these."""
+    y0, y1, fy, _ = dct.bilinear_axis_weights(out_h, in_h)
+    hi = np.where(fy != 0, y1, y0)
+    row_lo = np.searchsorted(hi // 8, np.arange(in_h // 8 + 1)).astype(np.int32)
+    strips = -(-nbx // 8)
+    for band_rows in (128, 64, 32, 16, 8):
+        if t * strips * -(-out_h // band_rows) >= 2 * ctas_per_sm * sm_count:
+            break
+    starts = np.arange(0, out_h, band_rows)
+    ends = np.minimum(starts + band_rows, out_h) - 1
+    band_b = np.stack([y0[starts] // 8, hi[ends] // 8], axis=1).astype(np.int32)
+    return y0, y1, fy, row_lo, band_b, band_rows
+
+
+@pytest.mark.parametrize("ctas", [dct._K1_CTAS_PER_SM, dct._K6_CTAS_PER_SM])
+@pytest.mark.parametrize("out_h,in_h,nbx,t", [(1080, 1088, 240, 8), (1080, 1080, 240, 8),
+                                              (768, 768, 172, 8), (288, 288, 44, 8),
+                                              (714, 720, 160, 1), (37, 40, 3, 1)])
+def test_band_tables_at_block_8_unchanged(out_h, in_h, nbx, t, ctas):
+    # K1's and K6's 8x8 tables are exactly those before the block size and
+    # the strip became parameters, by default and given explicitly
+    want = _band_tables_before(out_h, in_h, nbx, t, SMS, ctas)
+    for got in (dct._band_tables(out_h, in_h, nbx, t, SMS, ctas),
+                dct._band_tables(out_h, in_h, nbx, t, SMS, ctas, 8, 8)):
+        assert got[-1] == want[-1]
+        for a, b in zip(got[:-1], want[:-1]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+# K1's square-block kernels: (block, display height, padded height, padded
+# width): 1080p resample, identity rows, CIF, 1366x768's padded width (a
+# ragged last strip), 4K, and a small ragged frame
+K1_SQ_GEOMETRIES = [
+    (4, 1080, 1088, 1920), (4, 1080, 1080, 1920), (4, 288, 288, 352),
+    (4, 768, 768, 1376), (4, 2160, 2160, 3840), (4, 37, 40, 12),
+    (16, 1080, 1088, 1920), (16, 1072, 1072, 1920), (16, 288, 288, 352),
+    (16, 768, 768, 1376), (16, 2160, 2160, 3840), (16, 37, 48, 48),
+]
+
+
+@pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
+def test_k1_sq_band_walk_reads_inside_its_window(block, out_h, in_h, pw):
+    # every y0 / y1 an output row reads is in the ring of the last 2B rows
+    # when the row is emitted, each row is emitted once by its own band,
+    # and a band walks its own block rows plus at most one halo block row
+    nbx = pw // block
+    y0, y1, fy, row_lo, band_b, band_rows = _k1_tables(out_h, in_h, nbx, 8,
+                                                       block)
+    assert band_rows <= 128  # the kernel's kMaxBandRows
+    emitted = np.zeros(out_h, np.int64)
+    for band, b, rows, ring in _walk(out_h, in_h, nbx, 8, block):
+        assert 0 <= b < in_h // block
+        for yo in rows:
+            assert band * band_rows <= yo < (band + 1) * band_rows
+            assert y0[yo] in ring
+            if fy[yo] != 0:
+                assert y1[yo] in ring
+            emitted[yo] += 1
+    assert (emitted == 1).all()
+    walked = band_b[:, 1] - band_b[:, 0] + 1
+    assert walked.max() <= -(-band_rows // block) + 2
+
+
+@pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
+def test_k1_sq_writes_every_output_byte_once(block, out_h, in_h, pw):
+    # the emit loop (per block row: 16-byte runs q of each emitted row,
+    # bytes q * 16 + n below the strip's valid bytes, strip s at byte
+    # 192 * s of the row) writes every byte of the frame exactly once
+    nbx = pw // block
+    strip = dct._K1_SQ_STRIP_PIXELS // block
+    row_bytes = nbx * block * 3
+    *_, band_b, band_rows = _k1_tables(out_h, in_h, nbx, 1, block)
+    written = np.zeros((out_h, row_bytes), np.int64)
+    n_strips = -(-nbx // strip)
+    for _, _, rows, _ in _walk(out_h, in_h, nbx, 1, block):
+        for s in range(n_strips):
+            valid = min(strip, nbx - s * strip) * block * 3
+            for q in range(12):
+                if q * 16 >= valid:
+                    continue
+                k = 192 * s + q * 16 + np.arange(min(16, valid - q * 16))
+                for yo in rows:
+                    written[yo, k] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("block", [4, 16])
+def test_k1_sq_grid_fills_the_card(block):
+    # at T = 8 at 1080p: two waves at the CTAs per SM that the kernel's
+    # shared memory allows; one CTA's shared memory fits (with the opt-in)
+    nbx = 1920 // block
+    _, _, _, _, band_b, band_rows = _k1_tables(1080, 1088, nbx, 8, block)
+    strips = -(-nbx // (dct._K1_SQ_STRIP_PIXELS // block))
+    ctas_per_sm = dct._K1_SQ_GEOM[block][2]
+    assert 8 * strips * len(band_b) >= 2 * ctas_per_sm * SMS
+    smem = dct._k1_sq_smem_bytes(block)
+    assert smem <= CTA_SMEM_BYTES
+    assert ctas_per_sm * (smem + 1024) <= SM_SMEM_BYTES
+
+
+def _geom(path):
+    """``{B: {name: value}}`` of a square-block kernel source's SqGeom
+    specialisations, and its file-scope ``constexpr int`` constants."""
+    src = (build.CSRC_DIR / path).read_text()
+    geom = {int(b): dict((n, int(v)) for n, v in re.findall(r"(k\w+) = (\d+)", body))
+            for b, body in re.findall(r"struct SqGeom<(\d+)> \{([^}]*)\}", src)}
+    consts = {n: int(v) for n, v in re.findall(r"^constexpr int (k\w+) = (\d+);",
+                                               src, re.M)}
+    return geom, consts, src
+
+
+def test_sq_host_geometry_matches_the_kernel_sources():
+    # the strips, paddings, CTAs per SM and shared memory that the
+    # wrappers plan with are those csrc/dct_wire_sq.cu and
+    # csrc/idct_display_sq.cu are compiled with
+    geom, k, _ = _geom("idct_display_sq.cu")
+    assert sorted(geom) == sorted(dct._SQUARE_BLOCKS)
+    assert k["kStripPixels"] == dct._K1_SQ_STRIP_PIXELS
+    assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
+    ring_pitch = k["kStripPixels"] * 3 // 16 * 20 + 4
+    for b, g in geom.items():
+        assert (g["kCoefPitch"], g["kCoefGroup"], g["kMinCtas"]) == dct._K1_SQ_GEOM[b]
+        strip = k["kStripPixels"] // b
+        assert strip * 3 * b == k["kThreads"]
+        assert g["kCoefGroup"] >= b * g["kCoefPitch"]
+        assert dct._k1_sq_smem_bytes(b) == 4 * (
+            2 * strip * 3 * g["kCoefGroup"] + 2 * b * ring_pitch + 2 * strip
+            + 3 * k["kMaxBandRows"])
+    geom, k, _ = _geom("dct_wire_sq.cu")
+    assert sorted(geom) == sorted(dct._SQUARE_BLOCKS)
+    assert k["kStripPixels"] == dct._K2_SQ_STRIP_PIXELS
+    for b, g in geom.items():
+        assert (g["kAPitch"], g["kAGroup"]) == dct._K2_SQ_GEOM[b]
+        groups = k["kStripPixels"] // b * 3
+        assert groups * b == k["kThreads"]
+        assert dct._k2_sq_smem_bytes(b) == (
+            groups * g["kAGroup"] * 8 + b * k["kStripPixels"] * 3)
+        # with the opt-in, the CTAs per SM the launch bounds ask for fit
+        assert g["kMinCtas"] * (dct._k2_sq_smem_bytes(b) + 1024) <= SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("block", [4, 16])
+def test_sq_layouts_avoid_bank_conflicts(block):
+    # shared memory has 32 banks of 4 bytes; a warp's 8-byte accesses go in
+    # half-warps, its 16-byte ones in quarter-warps, and a phase is free of
+    # conflicts when its addresses fall on distinct banks
+    lanes = np.arange(384)
+    group, r = lanes // block, lanes % block
+    a_pitch, a_group = dct._K2_SQ_GEOM[block]
+    for fixed in range(block):  # K2, doubles: stage 1 stores, stage 2 loads
+        for addr in (group * a_group + fixed * a_pitch + r,
+                     group * a_group + r * a_pitch + fixed):
+            for h in range(0, 384, 16):
+                assert len(set(addr[h:h + 16] % 16)) == 16
+    lanes = np.arange(192)
+    group, r = lanes // block, lanes % block
+    pitch, c_group, _ = dct._K1_SQ_GEOM[block]
+    for fixed in range(block):  # K1, floats: the column stage
+        addr = group * c_group + fixed * pitch + r
+        for w in range(0, 192, 32):
+            assert len(set(addr[w:w + 32] % 32)) == 32
+    for q in range(block // 4):  # K1: the row stage's float4 loads
+        addr = (group * c_group + r * pitch + 4 * q) // 4
+        for h in range(0, 192, 8):
+            assert len(set(addr[h:h + 8] % 8)) == 8
+
+
+@pytest.mark.parametrize("block,out_h,in_h,nbx,t", [
+    (4, 120, 128, 20, 2), (4, 128, 128, 16, 1), (4, 37, 40, 3, 1),
+    (16, 120, 128, 5, 2), (16, 112, 112, 4, 1), (16, 37, 48, 3, 1)])
+def test_k1_sq_band_walk_reproduces_plain_bytes(block, out_h, in_h, nbx, t):
+    # the square-block kernel's walk, replayed on the plain version's
+    # planes with the kernel's per-element blend, gives the plain bytes
+    rng = np.random.default_rng(out_h + nbx + block)
+    n = 3 * block * block
+    coeffs = torch.from_numpy(
+        (rng.normal(size=(t, in_h // block, nbx, n)) * 90).astype(np.float32))
+    steps = torch.from_numpy(
+        rng.choice([1.0, 640.0], size=(t, in_h // block, nbx)).astype(np.float32))
+    planes = dct.idct_planes_plain(coeffs, steps, 3, block, block)
+    y0, y1, fy, *_ = _k1_tables(out_h, in_h, nbx, t, block)
+    rows = torch.full((t, 3, out_h, nbx * block), float("nan"))
+    for _, _, emit, _ in _walk(out_h, in_h, nbx, t, block):
+        for yo in emit:
+            v = planes[:, :, y0[yo]]
+            if fy[yo] != 0:
+                f = torch.tensor(fy[yo])
+                v = v * (1 - f) + planes[:, :, y1[yo]] * f
+            rows[:, :, yo] = v
+    got = dct.display_bytes(rows)
+    want = dct.idct_display_plain(coeffs, steps, out_h, 3, block, block)
     assert torch.equal(got, want)
 
 

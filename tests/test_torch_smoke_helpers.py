@@ -1,12 +1,14 @@
 """The bookkeeping of ``chip_smoke.py`` and ``tools/variant_timing.py`` that
 runs without a card: the integer rate, K11's cipher count from SASS, the
-ptxas report of K10's two kernels, and the variant build's edits."""
+ptxas report of K10's two kernels, the variant build's edits and its
+probes' report."""
 
 import importlib.util
 import os
 import types
 
 import pytest
+import torch
 
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.ops import ccl
@@ -127,3 +129,14 @@ def test_variant_build_applies_every_edit_once(monkeypatch, tmp_path):
     assert "kCluster = 8;" in (build.CSRC_DIR / "ccl_converge.cu").read_text()
     with pytest.raises(SystemExit, match="not once"):
         variant_timing.build_variant([("ccl_converge.cu", "no such text", "x")])
+
+
+def test_variant_probe_reports_how_far_its_outputs_are():
+    # an unchecked probe's times are printed beside its distance from the
+    # base build: the largest difference and the share of elements
+    a = torch.tensor([10, 20, 30, 40], dtype=torch.uint8)
+    b = torch.tensor([10, 21, 30, 37], dtype=torch.uint8)
+    assert variant_timing.diff(a, b) == "outputs differ, max |diff| 3 on 50.0000% of elements"
+    pair = (torch.zeros(3), torch.tensor([0.0, 0.5, 0.0]))
+    assert variant_timing.diff(pair, (torch.zeros(3), torch.zeros(3))) == (
+        "outputs differ, max |diff| 0.5 on 16.6667% of elements")
