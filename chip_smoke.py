@@ -10,12 +10,13 @@ each:
 1. card — name and power limit (``nvidia-smi``);
 2. build — compile the kernels, with the build time, each kernel's
    registers and static shared memory (ptxas), K5's and K10's dynamic
-   shared memory and CTAs per SM, K5's static shared memory held to what
+   shared memory and CTAs per SM, the display kernels' dynamic shared
+   memory and CTAs per SM, K5's static shared memory held to what
    its wrapper plans with, K11's cipher instructions a word counted in the
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the twenty-seven kernels against its plain
+3. kernel parity — each of the twenty-nine kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -37,8 +38,11 @@ each:
    tiny sizes and 2-5 levels, the K8 pyramid at odd subplane widths and
    a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
    refine with MVs past its staged band and past the frame edges; K5 also
-   at 1080p with D = 7; the general K6 also runs once at 4x4 blocks; the
-   square-block K2 and K1 (4x4 and 16x16 blocks of 3 channels) at 1080p,
+   at 1080p with D = 7; the square-block K6 (4x4 and 16x16 blocks of 3
+   channels) byte-equal to the general K6 at 1366x768, 1270x714 and
+   854x480, T = 8, and on a ragged shape (1312 padded pixels: block
+   columns ending mid-strip), timed in turns with it at 1366x768 and
+   854x480; the square-block K2 and K1 at 1080p,
    T = 8, bit-equal (K2) or byte-equal (K1) to the general kernels there
    and on a ragged shape (1366-pixel packed rows, 2-byte aligned; block
    columns ending mid-strip), K1 also with identity rows, each timed in
@@ -70,13 +74,18 @@ each:
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
    decoded on ``cuda`` (the 8x8 x 3 K6 must run, and K2 on 2-byte aligned
    rows), the bytes held against the CPU port's decode of the same
-   payloads;
+   payloads; then the clip with 4x4 and with 16x16 transform blocks on
+   graph replays: the square-block K2 and K6 of that size must run, no
+   other K6 and no K1; the frames byte-equal to ``graph=False`` and 2
+   payloads held to the CPU port's decode (the display gate);
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
    phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9,
-   K10), the single-level K4 or a square-block K1 or K2;
+   K10), the single-level K4 or a square-block K1, K2 or K6 (phase 5's
+   square-block runs: only their own size's K2 and K6);
 7. square transform blocks — a 9-frame CIF clip, default config with
-   4x4 transform blocks: the 4x4 K2 and K1 must run, no other K1 or K2;
+   4x4 transform blocks: the 4x4 K2 and K1 must run, no other K1 or K2
+   and no K6;
    its 16x16 MV blocks run the specialised K3 and the cluster K5, the
    fused K4 and the 2x2 K9 (no general K3, K5, K9, K10, single-level K4);
    then a 9-frame 1080p clip with 16x16 transform blocks on graph
@@ -109,13 +118,15 @@ each:
     3-vector subsets on ``cuda`` and on the CPU (MV fields, inlier masks
     and global motion equal), 8-vector subsets (1177 hypotheses) on one
     frame's field on both, a 9-frame clip streamed at subset 3 (K1-K5 and
-    K9 must run, no general kernel), and ``estimate_global_motion_ransac``
+    K9 must run, no general kernel and no square-block K6), and
+    ``estimate_global_motion_ransac``
     timed per 8-frame batch at subsets 1, 3 and 8;
 13. frame-parallel split — ``ShardedEncoder`` and the device-list
     ``Decoder`` over two entries (two cards when there are, else
     ``[cuda:0, cuda:0]``), 4 anchors each: phase 4's 17-frame clip gives
     its stream byte for byte and its decoded frames (K1-K5 and K9 must
-    run, no general kernel), then single-device and split fps in turns;
+    run, no general kernel and no square-block K6), then single-device and
+    split fps in turns;
 14. compiled batch — the encoder and the decoder run each batch as a
     CUDA graph replay (phases 4-8, 11-13 all do); here against
     ``graph=False``: phase 4's 17-frame clip through ``stream_encode``
@@ -999,22 +1010,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
                   wrap_ms, plain_ms, nbytes, ops)
     record(results, "idct_resize_display_general", dct.IDCT_RESIZE_GENERAL,
            worst, gen_ms, gen_w_ms, plain_ms, nbytes, ops)
-    coeffs = (torch.randn((2, 192, 344, 48), generator=g) * 90).to(dev)
-    steps = torch.where(torch.rand((2, 192, 344), generator=g) < 0.5, 640.0,
-                        1.0).to(dev)
-    before = dct.IDCT_RESIZE_GENERAL.launches
-    got4 = dct.idct_resize_display(coeffs, steps, 768, 1366, 3, 4, 4)
-    if dct.IDCT_RESIZE_GENERAL.launches != before + 1:
-        fail("K6 at 4x4 blocks did not take the general kernel")
-    diff = (got4.to(torch.int16) - dct.idct_resize_display_plain(
-        coeffs, steps, 768, 1366, 3, 4, 4).to(torch.int16)).abs()
-    frac4 = (diff > 0).double().mean().item()
-    if diff.max().item() > 1 or not frac4 < 1e-3:
-        fail(f"K6 general at 4x4 blocks: max diff {diff.max().item()}, "
-             f"{frac4:.2e} of bytes differ")
     print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; 1366x768 "
-          f"{line}; general at 4x4 blocks (T=2, 1376x768->1366x768): max diff "
-          f"{diff.max().item()}, {frac4:.2e} of bytes differ")
+          f"{line}")
+    for b in dct.IDCT_RESIZE_SQ:
+        square_resize_parity(g, dev, results, b)
     compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word)
     return results
 
@@ -1136,6 +1135,84 @@ def square_block_parity(g, dev, results, block, packed, planes):
           f"{gen1_ms:.4f}, {gen1_ms / ms1:.1f}x; in turns general, new, new, "
           f"general: {', '.join(f'{x:.4f}' for x in turns1)}) vs plain "
           f"{plain1_ms:.4f} ms (1088->1080 rows, T=8); {line}")
+
+
+def square_resize_parity(g, dev, results, block):
+    """Phase 3, K6 for square ``block`` x ``block`` transform blocks of 3
+    channels (4 and 16): the square-block kernel against the general one
+    (byte-equal) and the plain version (within the display gate) at
+    1366x768, 1270x714 and 854x480, T = 8, at the decoder's gaze mix of
+    steps 1 and 640, and on a ragged shape (1312 padded pixels: the block
+    columns end mid-strip, the last strip without its halo; both axes
+    resampled); the two timed in turns at 1366x768 and 854x480, with
+    each wrapper's time and the plain version's."""
+    from svc_tpu_torch.ops import dct, quant
+
+    b = block
+    k6 = dct.IDCT_RESIZE_SQ[b]
+
+    def counts():
+        return (k6.launches, dct.IDCT_RESIZE_GENERAL.launches,
+                dct.IDCT_RESIZE.launches)
+
+    worst, modes, timed_at = 0.0, [], {}
+    for w, h, t in ((1366, 768, 8), (1270, 714, 8), (854, 480, 8),
+                    (1300, 766, 2)):
+        pw, ph = -(-w // 16) * 16, -(-h // 16) * 16
+        nby, nbx = ph // b, pw // b
+        coeffs = (torch.randn((t, nby, nbx, 3 * b * b), generator=g) * 90).to(dev)
+        btypes = torch.randint(0, 3, (t, nby, nbx), generator=g).to(dev)
+        gazed = torch.zeros((t, nby, nbx), dtype=torch.bool, device=dev)
+        gazed[:, nby // 2 - 64 // b:nby // 2 + 64 // b,
+              nbx // 2 - 64 // b:nbx // 2 + 64 // b] = True
+        steps = quant.block_quant_steps(btypes, gazed, 1, 640)
+        before = counts()
+        got = dct.idct_resize_display(coeffs, steps, h, w, 3, b, b)
+        got_g = dct.idct_resize_display(coeffs, steps, h, w, 3, b, b,
+                                        general=True)
+        if counts() != (before[0] + 1, before[1] + 1, before[2]):
+            fail(f"K6 at {b}x{b} and {w}x{h} did not launch the square-block "
+                 f"and the general kernel once each")
+        if not torch.equal(got, got_g):
+            fail(f"K6 {k6.name} differs from the general kernel at {w}x{h}")
+        ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, b, b)
+        diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+        frac = (diff > 0).double().mean().item()
+        if diff.max().item() > 1 or not frac < 1e-3:
+            fail(f"K6 {k6.name}: max diff {diff.max().item()}, {frac:.2e} of "
+                 f"bytes differ at {w}x{h}")
+        worst = max(worst, float(diff.max().item()))
+        mode = (f"{pw}x{ph}->{w}x{h} (T={t}): byte-equal to the general "
+                f"kernel, max diff {diff.max().item()}, {frac:.2e} of bytes "
+                f"differ from plain")
+        if (w, h) in ((1366, 768), (854, 480)):
+            gen_ms, ms, turns = in_turns(
+                lambda: dct.idct_resize_display(coeffs, steps, h, w, 3, b, b,
+                                                general=True),
+                lambda: dct.idct_resize_display(coeffs, steps, h, w, 3, b, b),
+                graph_ms)
+            w_ms = cuda_ms(lambda: dct.idct_resize_display(coeffs, steps, h, w,
+                                                           3, b, b))
+            gw_ms = cuda_ms(lambda: dct.idct_resize_display(
+                coeffs, steps, h, w, 3, b, b, general=True))
+            p_ms = cuda_ms(lambda: dct.idct_resize_display_plain(
+                coeffs, steps, h, w, 3, b, b), iters=5)
+            # dequantize (3 per coefficient), IDCT (2b multiply-adds per
+            # coefficient), two lerps (3 each) per output byte
+            nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
+            ops = 3 * coeffs.numel() + 4 * b * coeffs.numel() + 6 * got.numel()
+            timed_at[w, h] = (ms, w_ms, p_ms, nbytes, ops)
+            mode += (f"; {ms:.4f} ms (general {gen_ms:.4f}, "
+                     f"{gen_ms / ms:.1f}x; in turns general, new, new, "
+                     f"general: {', '.join(f'{x:.4f}' for x in turns)}; "
+                     f"through the wrappers {w_ms:.4f} / {gw_ms:.4f}) vs "
+                     f"plain {p_ms:.4f} ms, bound "
+                     f"{bound(nbytes, ops)[0]:.4f} ms "
+                     f"({bound(nbytes, ops)[1]})")
+        modes.append(mode)
+    ms, w_ms, p_ms, nbytes, ops = timed_at[1366, 768]
+    line = record(results, k6.name, k6, worst, ms, w_ms, p_ms, nbytes, ops)
+    print(f"parity K6 {k6.name}: {'; '.join(modes)}; 1366x768 {line}")
 
 
 def compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word):
@@ -1379,6 +1456,36 @@ def square_round_trip(required, forbidden):
           f"frames); card vs cpu (3 frames): header and MV fields equal, "
           f"coefficients max |err| {cerr:.3e}, block types differ on "
           f"{share:.4%}; decoded bytes {dgate}")
+    return run
+
+
+def wide_square_round_trip(block, required, forbidden):
+    """Phase 5's square-block runs: a 9-frame 1366x768 clip (width excess
+    10), the default config with ``block`` x ``block`` transform blocks,
+    through :func:`round_trip` on graph replays (the square-block K6 of its
+    size decodes it, no other K6); then its payloads decoded with
+    ``graph=False``, byte for byte, and the first 2 decoded on the CPU port
+    (the display gate)."""
+    from svc_tpu_torch.config import DecoderConfig, EncoderConfig
+    from svc_tpu_torch.models.decoder import Decoder
+
+    cfg = EncoderConfig(transform_block_w=block, transform_block_h=block)
+    run = round_trip(cfg, 1366, 768, 9, required, forbidden)
+    gaze, payloads = run["gaze"], run["payloads"]
+    if not (run["enc"].graph and run["dec"].graph):
+        fail(f"phase 5: the {block}x{block} run did not take graph replays")
+    eager = Decoder(DecoderConfig(), run["header"], batch_size=8,
+                    device="cuda", graph=False)
+    eager_frames = np.stack(list(eager.decode_frames(
+        iter(payloads), iter([gaze] * len(payloads)))))
+    if not np.array_equal(eager_frames, run["frames"]):
+        fail(f"phase 5: the {block}x{block} decode differs between graph and "
+             f"graph=False")
+    cpu_dec = Decoder(DecoderConfig(), run["header"], batch_size=2, device="cpu")
+    ref = np.stack(list(cpu_dec.decode_frames(iter(payloads[:2]), iter([gaze] * 2))))
+    dgate = display_gate(run["frames"][:2], ref, f"{block}x{block} width-excess decode")
+    print(f"  {block}x{block}: graph replays byte-equal to graph=False "
+          f"(frames); cuda decode vs cpu decode of 2 payloads: {dgate}")
     return run
 
 
@@ -2109,9 +2216,12 @@ def main() -> int:
     for b in dct.DCT_WIRE_SQ:
         display[f"dct_sq_wire_kernel<{b}>"] = (dct._k2_sq_smem_bytes(b), 384)
         display[f"idct_sq_display_kernel<{b}>"] = (dct._k1_sq_smem_bytes(b), 192)
+        display[f"idct_sq_resize_kernel<{b}>"] = (dct._k6_sq_smem_bytes(b),
+                                                  dct._K6_SQ_GEOM[b][4])
     display_line = "; ".join(
-        f"{kern} {smem} B dynamic smem, {ctas_per_sm(regs, smem, threads)} CTAs "
-        f"of {threads} per SM" for _, kern, regs, _ in report if kern in display
+        f"{kern} {regs} regs, {smem} B dynamic smem, "
+        f"{ctas_per_sm(regs, smem, threads)} CTAs of {threads} per SM"
+        for _, kern, regs, _ in report if kern in display
         for smem, threads in [display[kern]])
     # the 256-thread refine and fused pyramid kernels (K3, K4, K8), static
     # shared memory only
@@ -2163,6 +2273,10 @@ def main() -> int:
     square_dct = {b: (dct.DCT_WIRE_SQ[b].name, dct.IDCT_DISPLAY_SQ[b].name)
                   for b in dct.DCT_WIRE_SQ}
     any_square = square_dct[4] + square_dct[16]
+    # 4x4 and 16x16 blocks of 3 channels on the width-excess route take the
+    # square-block K6 of their size
+    square_k6 = {b: (k.name,) for b, k in dct.IDCT_RESIZE_SQ.items()}
+    any_square_k6 = square_k6[4] + square_k6[16]
     # the fused K4 and the 2x2 K9 serve the motion path: the single-level
     # K4 and the general K9 run on none of phases 4-7 and 9
     general_k3_k5 = ("refine_sads_general", "lloyd_general",
@@ -2177,29 +2291,43 @@ def main() -> int:
     print("default config 1080p, 17 frames:")
     main_run = round_trip(EncoderConfig(), 1920, 1080, 17,
                           encode_kernels + ("lloyd", "idct_display"),
-                          general_dct + general_k3_k5 + general_k6 + any_square)
+                          general_dct + general_k3_k5 + general_k6 + any_square
+                          + any_square_k6)
     staged_against_direct(main_run, dev)
     with tempfile.TemporaryDirectory(prefix="svc_smoke_") as tmp:
         print(f"  CLIs on cuda: {cli_checks(main_run, tmp)}")
 
     # 5. width excess: the general decode route, K6; K2 on packed rows of
-    # 4098 bytes (row starts only 2-byte aligned)
+    # 4098 bytes (row starts only 2-byte aligned); then 4x4 and 16x16
+    # transform blocks there, on the square-block K6 of their size
     print("width excess 1366x768 (padded 1376x768), 9 frames, default config:")
     wide = round_trip(EncoderConfig(), 1366, 768, 9,
                       encode_kernels + ("lloyd", "idct_resize_display"),
                       general_dct + general_k3_k5 + general_k6
-                      + ("idct_display",) + any_square)
+                      + ("idct_display",) + any_square + any_square_k6)
     cpu_dec = Decoder(DecoderConfig(), wide["header"], batch_size=8, device="cpu")
     cpu_frames = np.stack(list(cpu_dec.decode_frames(
         iter(wide["payloads"]), iter([wide["gaze"]] * len(wide["payloads"])))))
     print(f"  cuda decode vs cpu decode of the same payloads: "
           f"{display_gate(wide['frames'], cpu_frames, 'width-excess decode')}")
+    wide_sq = {}
+    for b in (4, 16):
+        print(f"width excess 1366x768, {b}x{b} transform blocks, 9 frames, "
+              f"default config, graph replays:")
+        other = 16 if b == 4 else 4
+        wide_sq[b] = wide_square_round_trip(
+            b, tuple(k for k in encode_kernels if k != "dct8x8_to_wire")
+            + ("lloyd", square_dct[b][0]) + square_k6[b],
+            ("dct8x8_to_wire", "idct_display", "idct_resize_display")
+            + general_dct + general_k3_k5 + general_k6 + square_dct[other]
+            + (square_dct[b][1],) + square_k6[other])
 
     # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
     round_trip(EncoderConfig(reference_compat=True), 1920, 1080, 9,
                encode_kernels + ("idct_display",),
-               general_dct + general_k3_k5 + general_k6 + any_square)
+               general_dct + general_k3_k5 + general_k6 + any_square
+               + any_square_k6)
 
     # 7. square transform blocks other than 8x8 (the config allows any
     # block dividing the MV block): 4x4 at CIF, then 16x16 at 1080p, each
@@ -2208,13 +2336,15 @@ def main() -> int:
     tb4 = round_trip(EncoderConfig(transform_block_w=4, transform_block_h=4),
                      352, 288, 9, square_dct[4] + ("refine_sads", "lloyd"),
                      ("dct8x8_to_wire", "idct_display") + general_dct
-                     + square_dct[16] + general_k3_k5)
+                     + square_dct[16] + general_k3_k5 + general_k6
+                     + any_square_k6)
     print("16x16 transform blocks, 1080p, 9 frames, default config:")
     tb16 = square_round_trip(tuple(k for k in encode_kernels
                                    if k != "dct8x8_to_wire")
                              + ("lloyd",) + square_dct[16],
                              ("dct8x8_to_wire", "idct_display") + general_dct
-                             + square_dct[4] + general_k3_k5 + general_k6)
+                             + square_dct[4] + general_k3_k5 + general_k6
+                             + any_square_k6)
 
     # 8. card against CPU on the first 3 frames, default config
     cfg = EncoderConfig()
@@ -2296,12 +2426,14 @@ def main() -> int:
     # 12. RANSAC subsets at 1080p: subset 3 on the main path's kernels
     print("RANSAC subsets 1080p (default config, subset 3; 9 frames):")
     ransac_subsets(main_run, card, dev, encode_kernels + ("lloyd", "idct_display"),
-                   general_dct + general_k3_k5 + general_k6 + any_square)
+                   general_dct + general_k3_k5 + general_k6 + any_square
+                   + any_square_k6)
 
     # 13. the frame-parallel split on the card
     print("frame-parallel split 1080p, 17 frames, default config:")
     split_stream = sharded_run(main_run, card, encode_kernels + ("lloyd", "idct_display"),
-                               general_dct + general_k3_k5 + general_k6 + any_square)
+                               general_dct + general_k3_k5 + general_k6 + any_square
+                               + any_square_k6)
 
     # 14. the compiled batch: graph replay against the eager path
     print("compiled batch 1080p, default config, eager (graph=False) against "
@@ -2322,7 +2454,8 @@ def main() -> int:
                "refine_sads_pitched_general": pitched_run,
                "dct_to_wire_general": tb4, "idct_display_general": tb4,
                **{name: tb4 for name in square_dct[4]},
-               **{name: tb16 for name in square_dct[16]}}
+               **{name: tb16 for name in square_dct[16]},
+               **{square_k6[b][0]: wide_sq[b] for b in square_k6}}
     kernels = []
     for name, r in results.items():
         k = r["kernel"]

@@ -22,10 +22,11 @@ Three wrappers live here, each beside its plain PyTorch version:
 
 Each dispatches by shape: 8x8 blocks of 3 channels (the codec's default)
 go to a kernel specialised for them (``csrc/dct_wire.cu``,
-``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); K2 and K1 also send
-square 4x4 and 16x16 blocks of 3 channels (the other transform blocks
-users pick) to one kernel template each, instantiated per block size
-(``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``); every other block
+``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); square 4x4 and 16x16
+blocks of 3 channels (the other transform blocks users pick) go to one
+kernel template each, instantiated per block size
+(``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``,
+``csrc/idct_resize_sq.cu``); every other block
 shape or channel count goes to the general kernel
 (``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
 ``csrc/idct_resize_general.cu``). All give the general kernel's bits.
@@ -108,6 +109,18 @@ IDCT_RESIZE = Kernel(
     source="svc_tpu_torch/csrc/idct_resize.cu",
     replaces="svc_tpu/ops/resize_pallas.py:96",
 )
+# K6 for square blocks of 3 channels other than 8x8: one kernel template,
+# an instantiation (and a launch count) per block size
+IDCT_RESIZE_SQ = {
+    b: Kernel(
+        f"idct{b}x{b}_resize_display",
+        f"svc_idct{b}x{b}_resize_display",
+        [PTR] * 12 + [INT] * 7 + [PTR],
+        source="svc_tpu_torch/csrc/idct_resize_sq.cu",
+        replaces="svc_tpu/ops/resize_pallas.py:96",
+    )
+    for b in _SQUARE_BLOCKS
+}
 IDCT_RESIZE_GENERAL = Kernel(
     "idct_resize_display_general",
     "svc_idct_resize_display_general",
@@ -150,6 +163,15 @@ _K2_SQ_GEOM = {4: (5, 20), 16: (17, 272)}
 # to 128 output rows
 _K1_SQ_STRIP_PIXELS = 64
 _K1_SQ_GEOM = {4: (8, 36, 6), 16: (20, 336, 3)}
+# K6's square-block kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
+# (64 / B block columns) plus one halo block column, a thread per byte of a
+# strip's run of at most 192 display-row bytes; per B the coefficient
+# slot's (row stride, pair stride) in floats (K1's), the halo's pixel
+# columns the ring keeps, the ring's row pitch in floats, the threads and
+# the CTAs an SM holds; two slots and their steps, a ring of B + 1 pixel
+# rows, three tables of up to 128 output rows
+_K6_SQ_STRIP_PIXELS = 64
+_K6_SQ_GEOM = {4: (8, 36, 4, 206, 224, 6), 16: (20, 336, 1, 198, 256, 4)}
 
 
 def _k2_sq_smem_bytes(block: int) -> int:
@@ -165,12 +187,20 @@ def _k1_sq_smem_bytes(block: int) -> int:
     return 4 * (2 * slot + 2 * block * 244 + 2 * strip + 3 * max(_K1_BAND_ROWS))
 
 
+def _k6_sq_smem_bytes(block: int) -> int:
+    """Dynamic shared memory of K6's kernel for ``block`` x ``block``."""
+    _, group, _, ring_pitch, _, _ = _K6_SQ_GEOM[block]
+    blocks = _K6_SQ_STRIP_PIXELS // block + 1
+    return 4 * (2 * (blocks * 3 * group + blocks) + (block + 1) * ring_pitch
+                + 3 * max(_K1_BAND_ROWS))
+
+
 def _specialised(block_h: int, block_w: int, channels: int) -> bool:
     return (block_h, block_w, channels) == _SPECIALISED
 
 
 def _square(block_h: int, block_w: int, channels: int) -> bool:
-    """Square 4x4 or 16x16 blocks of 3 channels: K2's and K1's
+    """Square 4x4 or 16x16 blocks of 3 channels: K2's, K1's and K6's
     square-block kernels."""
     return block_h == block_w and block_h in _SQUARE_BLOCKS and channels == 3
 
@@ -563,21 +593,24 @@ def idct_resize_display_plain(
 
 
 @functools.lru_cache(maxsize=64)
-def _strip_tables(out_w: int, in_w: int):
-    """The column geometry of K6's specialised kernel (host numpy), whose
-    CTAs each transform a strip of 8 block columns (64 source columns) plus
-    one halo block column, and emit the output columns whose ``x0`` lies in
-    the strip.
+def _strip_tables(out_w: int, in_w: int, block: int = 8,
+                  strip: int = _K6_STRIP):
+    """The column geometry of K6's specialised kernel and its square-block
+    kernels (host numpy), whose CTAs each transform a strip of ``strip``
+    block columns of ``block`` pixels (``span = block * strip`` source
+    columns; 64 for every kernel) plus one halo block column, and emit the
+    output columns whose ``x0`` lies in the strip.
 
     Returns ``(col_e, col_f, strip_lo)``: per byte ``3 * xo + c`` of a
     display row, ``col_e`` the ring position of its ``x0`` within its strip
-    (``3 * (x0 - 64 * strip) + c``; its ``x1``, read only where the weight
-    is not zero, is ``x0 + 1``, 3 further on) and ``col_f`` its ``fx``;
-    ``strip_lo`` ``(n_strips + 1,)`` the first byte of each strip, so strip
-    ``s`` writes bytes ``[strip_lo[s], strip_lo[s + 1])`` of every row.
+    (``3 * (x0 - span * strip) + c``; its ``x1``, read only where the
+    weight is not zero, is ``x0 + 1``, 3 further on) and ``col_f`` its
+    ``fx``; ``strip_lo`` ``(n_strips + 1,)`` the first byte of each strip,
+    so strip ``s`` writes bytes ``[strip_lo[s], strip_lo[s + 1])`` of every
+    row.
     """
     x0, _, fx, _ = bilinear_axis_weights(out_w, in_w)
-    span = 8 * _K6_STRIP
+    span = block * strip
     strip = x0 // span  # non-decreasing
     lo = np.searchsorted(strip, np.arange(-(-in_w // span) + 1))
     byte = np.arange(3 * out_w)
@@ -587,9 +620,10 @@ def _strip_tables(out_w: int, in_w: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _strip_tables_on(dev, out_w: int, in_w: int):
+def _strip_tables_on(dev, out_w: int, in_w: int, block: int = 8,
+                     strip: int = _K6_STRIP):
     """:func:`_strip_tables` as device tensors, copied once per geometry."""
-    col_e, col_f, strip_lo = _strip_tables(out_w, in_w)
+    col_e, col_f, strip_lo = _strip_tables(out_w, in_w, block, strip)
     return [_int32(col_e, dev), _float32(col_f, dev), _int32(strip_lo, dev)]
 
 
@@ -612,12 +646,13 @@ def idct_resize_display(
       coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients.
       steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
       general: launch the general kernel whatever the shape (the yardstick
-        the specialised one is held and timed against).
+        the specialised and square-block ones are held and timed against).
 
     Returns ``(T, out_h, out_w*C)`` uint8. 8x8 blocks of 3 channels go to
-    the specialised kernel, unless the columns are upsampled (``out_w``
-    past the padded width, which the decoder never asks for); every other
-    shape goes to the general one.
+    the specialised kernel, 4x4 and 16x16 blocks of 3 channels to the
+    square-block kernel, unless the columns are upsampled (``out_w`` past
+    the padded width, which the decoder never asks for); every other shape
+    goes to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_resize_display_plain(
@@ -631,20 +666,27 @@ def idct_resize_display(
     out = torch.empty((t, out_h, out_w * channels), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out
-    if (_specialised(block_h, block_w, channels) and out_w <= nbx * 8
-            and not general):
+    if ((_specialised(block_h, block_w, channels)
+            or _square(block_h, block_w, channels))
+            and out_w <= nbx * block_w and not general):
+        b = block_h
+        if b == 8:
+            kernel, strip, ctas = IDCT_RESIZE, _K6_STRIP, _K6_CTAS_PER_SM
+        else:
+            kernel, strip = IDCT_RESIZE_SQ[b], _K6_SQ_STRIP_PIXELS // b
+            ctas = _K6_SQ_GEOM[b][5]
         c = coeffs.contiguous()
         if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
             c = c.clone()
         s = steps.contiguous()
-        tabs, band_rows = _band_tables_on(dev, out_h, nby * 8, nbx, t,
-                                          _K6_CTAS_PER_SM)
+        tabs, band_rows = _band_tables_on(dev, out_h, nby * b, nbx, t, ctas,
+                                          b, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
-        cols = _strip_tables_on(dev, out_w, nbx * 8)
-        d8 = dct_matrix(8)  # host matrix, passed by value
+        cols = _strip_tables_on(dev, out_w, nbx * b, b, strip)
+        d = dct_matrix(b)  # host matrix, passed by value
         with torch.cuda.device(dev):
-            IDCT_RESIZE.launch(
-                c.data_ptr(), s.data_ptr(), d8.ctypes.data,
+            kernel.launch(
+                c.data_ptr(), s.data_ptr(), d.ctypes.data,
                 *[tab.data_ptr() for tab in tabs + cols], out.data_ptr(),
                 t, out_h, out_w, nby, nbx, band_rows, n_bands,
                 stream_handle(c),

@@ -14,16 +14,18 @@ card, the module decodes seeded wire payloads at 352x288 with 2x2 blocks
 (the general K1), through the kernel, the plain version on the card and
 the plain version on the CPU, and prints a JSON line with the share of
 bytes each pair differs on, the share of those that are ties, and each
-one's bytes against the exact value rounded::
+one's bytes against the exact value rounded. A width that is not a
+multiple of 16 takes the decoder's width-excess route (K6, both axes
+resampled; the exact decode through the column resample too)::
 
-    python -m svc_tpu_torch.tools.display_ties [--block 2]
+    python -m svc_tpu_torch.tools.display_ties [--block 2] [--width 120 --height 64]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,11 +78,13 @@ def decode_inputs(header, payloads: List[bytes],
 
 
 def exact_display(coeffs: torch.Tensor, steps: torch.Tensor, out_h: int,
-                  channels: int, block_h: int, block_w: int) -> np.ndarray:
+                  channels: int, block_h: int, block_w: int,
+                  out_w: Optional[int] = None) -> np.ndarray:
     """K1's decode in float64, before the display rounding: ``(T, out_h,
     W*C)`` values in the packed byte layout, through the float64 DCT
-    matrix. The dequantized coefficients and the lerp fractions (float32
-    by contract) are exact in float64."""
+    matrix; with ``out_w``, K6's: the columns resampled too, to ``(T,
+    out_h, out_w*C)``. The dequantized coefficients and the lerp fractions
+    (float32 by contract) are exact in float64."""
     c = coeffs.cpu().double()
     q = dequantize(c, steps.cpu().double()[..., None])
     t, nby, nbx, _ = c.shape
@@ -95,6 +99,14 @@ def exact_display(coeffs: torch.Tensor, steps: torch.Tensor, out_h: int,
     if not ident:
         f = torch.from_numpy(fy.astype(np.float64))[:, None]
         top = top * (1 - f) + x[:, :, torch.as_tensor(y1, dtype=torch.int64)] * f
+    if out_w is not None:
+        x0, x1, fx, ident = bilinear_axis_weights(out_w, top.shape[3])
+        left = top[..., torch.as_tensor(x0, dtype=torch.int64)]
+        if not ident:
+            f = torch.from_numpy(fx.astype(np.float64))
+            left = (left * (1 - f)
+                    + top[..., torch.as_tensor(x1, dtype=torch.int64)] * f)
+        top = left
     return top.permute(0, 2, 3, 1).reshape(t, out_h, -1).numpy()
 
 
@@ -130,16 +142,27 @@ def main(argv=None) -> int:
     w, h, b = args.width, args.height, args.block
     header, payloads, gazes = wire_payloads(w, h, b, 7, seed=w)
     coeffs, steps = decode_inputs(header, payloads, gazes)
-    exact = exact_display(coeffs, steps, h, 3, b, b)
+    # the decoder's route: K1 where the padded width is the frame's, else K6
+    out_w = None if coeffs.shape[2] * b == w else w
+
+    def decode(c, s, plain):
+        if out_w is None:
+            fn = dct.idct_display_plain if plain else dct.idct_display
+            return fn(c, s, h, 3, b, b)
+        if plain:
+            return dct.idct_resize_display_plain(c, s, h, w, 3, b, b)
+        return dct.idct_resize_display(c, s, h, w, 3, b, b)
+
+    exact = exact_display(coeffs, steps, h, 3, b, b, out_w)
     ties = tie_mask(exact)
-    cpu = dct.idct_display_plain(coeffs, steps, h, 3, b, b).numpy()
+    cpu = decode(coeffs, steps, True).numpy()
     out = {"shape": [w, h, b, 7], "ties": float(ties.mean()),
            "cpu_plain_vs_exact": compare(cpu, rounded(exact), ties)}
     if args.device != "cpu":
         dev = torch.device(args.device)
         cd, sd = coeffs.to(dev), steps.to(dev)
-        kern = dct.idct_display(cd, sd, h, 3, b, b).cpu().numpy()
-        plain = dct.idct_display_plain(cd, sd, h, 3, b, b).cpu().numpy()
+        kern = decode(cd, sd, False).cpu().numpy()
+        plain = decode(cd, sd, True).cpu().numpy()
         out.update({
             "kernel_vs_cpu_plain": compare(kern, cpu, ties),
             "card_plain_vs_cpu_plain": compare(plain, cpu, ties),

@@ -8,7 +8,10 @@ CUDA card.
 
 (the fused pyramid kernels with and without their minimum of 6 CTAs per
 SM), with ``--target display``, K1's square-block kernels (e.g. ``--edit
-idct_display_sq.cu 'kMinCtas = 3;' 'kMinCtas = 2;'``), or, with
+idct_display_sq.cu 'kMinCtas = 3;' 'kMinCtas = 2;'``), with ``--target
+resize``, K6's square-block kernels (e.g. the whole halo block in the
+4x4 ring: ``--edit idct_resize_sq.cu 'kHaloColumns = 4, kRingPitch = 206'
+'kHaloColumns = 1, kRingPitch = 198'``), or, with
 ``--target ccl``, K10's cluster kernel, e.g. on clusters of
 16 CTAs (``--edit`` may be given more than once; each old text must occur
 exactly once):
@@ -37,8 +40,10 @@ the 1080p path shape (8 frames of 68x120 cells in 8x8 blobs of 10
 clusters, a tenth background, 4-connectivity), ``tools/ccl_cases.py``'s
 spiral, 8 frames of 135x240 and 2 of 270x480 blobs; the display target
 times ``idct_display`` at 4x4 and 16x16 blocks (8 frames of 1088 padded
-rows to 1080, steps 1 and 640 at random). The two libraries'
-outputs must be equal bit for bit (K10's also to its plain version).
+rows to 1080, steps 1 and 640 at random); the resize target
+``idct_resize_display`` there (8 frames of 1376x768 to 1366x768 and of
+864x480 to 854x480). The two libraries' outputs must be equal bit for
+bit (K10's also to its plain version).
 Nothing of the checkout's sources changes.
 """
 
@@ -61,7 +66,8 @@ from svc_tpu_torch.tools import ccl_cases
 VARIANT_DIR = build.BUILD_DIR.parent / "variant"
 # the ptxas entries reported for each target
 KERNEL = {"pyramid": "pyr_down_levels_kernel", "ccl": "ccl_cluster_kernel",
-          "display": "idct_sq_display_kernel"}
+          "display": "idct_sq_display_kernel",
+          "resize": "idct_sq_resize_kernel"}
 
 
 def build_variant(edits) -> build.BuildResult:
@@ -186,7 +192,25 @@ def display_work():
     return list(dct.IDCT_DISPLAY_SQ.values()), work, {}
 
 
-WORK = {"pyramid": pyramid_work, "ccl": ccl_work, "display": display_work}
+def resize_work():
+    """The kernels, the calls timed and the plain reference (none) of the
+    resize target."""
+    g = torch.Generator().manual_seed(0)
+    work = {}
+    for b, k in dct.IDCT_RESIZE_SQ.items():
+        for w, h, pw in ((1366, 768, 1376), (854, 480, 864)):
+            shape = (8, h // b, pw // b)
+            coeffs = (torch.randn(shape + (3 * b * b,), generator=g) * 90).cuda()
+            steps = torch.where(torch.rand(shape, generator=g) < 0.5, 640.0,
+                                1.0).cuda()
+            work[f"K6 {k.name} 8x{pw}x{h}->{w}x{h}"] = (
+                lambda c=coeffs, s=steps, b=b, w=w, h=h:
+                dct.idct_resize_display(c, s, h, w, 3, b, b))
+    return list(dct.IDCT_RESIZE_SQ.values()), work, {}
+
+
+WORK = {"pyramid": pyramid_work, "ccl": ccl_work, "display": display_work,
+        "resize": resize_work}
 
 
 def diff(a, b) -> str:

@@ -112,6 +112,8 @@ class _HostTraffic(TorchDispatchMode):
     (64, 40, 0, 8, 4, "idct4x4_display"),
     (64, 40, 0, 8, 16, "idct16x16_display"),
     (64, 40, 0, 8, 2, "idct_display_general"),
+    (120, 64, 8, 0, 4, "idct4x4_resize_display"),
+    (120, 64, 8, 0, 16, "idct16x16_resize_display"),
 ])
 def test_captured_program_does_no_host_work_after_its_warm_up(
         monkeypatch, w, h, ew, eh, block, kernel):
@@ -122,7 +124,8 @@ def test_captured_program_does_no_host_work_after_its_warm_up(
     monkeypatch.setattr(dct, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     for k in (dct.IDCT_DISPLAY, dct.IDCT_DISPLAY_GENERAL, dct.IDCT_RESIZE,
-              dct.IDCT_RESIZE_GENERAL, *dct.IDCT_DISPLAY_SQ.values()):
+              dct.IDCT_RESIZE_GENERAL, *dct.IDCT_DISPLAY_SQ.values(),
+              *dct.IDCT_RESIZE_SQ.values()):
         monkeypatch.setattr(k, "launch", lambda *a, _k=k: launched.append(_k.name))
     header = bitstream.Header(2, w, h, ew, eh, block, block, 3)
     dec = Decoder(DecoderConfig(), header, batch_size=2, device="cuda")

@@ -842,7 +842,12 @@ def test_idct_resize_display_in_a_cuda_graph(gen, general):
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("block,channels", [(4, 3), (8, 1)])
+def _k6_launches():
+    return (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches,
+            *(k.launches for k in dct.IDCT_RESIZE_SQ.values()))
+
+
+@pytest.mark.parametrize("block,channels", [(2, 3), (8, 1), (4, 1), (16, 1)])
 def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
                                                                   channels):
     pw, ph, w, h = 208, 128, 200, 120
@@ -851,15 +856,61 @@ def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
     coeffs = (torch.randn((2, nby, nbx, n), generator=gen) * 90).cuda()
     steps = torch.where(torch.rand((2, nby, nbx), generator=gen) < 0.5,
                         640.0, 1.0).cuda()
-    before = (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches)
+    before = _k6_launches()
     got = dct.idct_resize_display(coeffs, steps, h, w, channels, block, block)
-    assert (dct.IDCT_RESIZE.launches, dct.IDCT_RESIZE_GENERAL.launches) == (
-        before[0], before[1] + 1)
+    assert _k6_launches() == (before[0], before[1] + 1, *before[2:])
     ref = dct.idct_resize_display_plain(coeffs, steps, h, w, channels, block,
                                         block)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
     assert d.max().item() <= 1
     assert (d > 0).double().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("w,h,t", [
+    (120, 64, 2),     # width excess 8, identity rows
+    (200, 120, 2),    # both axes resampled
+    (854, 480, 3),    # the 854x480 class: 14 strips, several bands
+    (1366, 768, 1),   # 4098-byte rows; block columns end mid-strip
+    (1270, 714, 2),   # both axes resampled at 1280x720
+    (61, 37, 1)])     # one ragged strip, odd row bytes
+def test_idct_resize_sq_equals_general(gen, block, w, h, t):
+    # the square-block K6 byte-equal to the general one, both within the
+    # display gate of the plain version, at a gaze mix of steps 1 and 640
+    coeffs, steps, _ = _k6_inputs(gen, w, h, t, block)
+    sq = dct.IDCT_RESIZE_SQ[block]
+    before = (sq.launches, dct.IDCT_RESIZE_GENERAL.launches, dct.IDCT_RESIZE.launches)
+    got = dct.idct_resize_display(coeffs, steps, h, w, 3, block, block)
+    got_g = dct.idct_resize_display(coeffs, steps, h, w, 3, block, block,
+                                    general=True)
+    assert (sq.launches, dct.IDCT_RESIZE_GENERAL.launches,
+            dct.IDCT_RESIZE.launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert torch.equal(got, got_g)  # byte for byte
+    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, block, block)
+    assert got.shape == (t, h, w * 3)
+    d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+    assert d.max().item() <= 1
+    assert (d > 0).double().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("block", [4, 16])
+def test_idct_resize_sq_in_a_cuda_graph(gen, block):
+    # the square-block wrapper, captured in a CUDA graph and replayed,
+    # writes the bytes of a direct call: its tables need no host copy
+    coeffs, steps, _ = _k6_inputs(gen, 854, 480, 2, block)
+    want = dct.idct_resize_display(coeffs, steps, 480, 854, 3, block, block)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dct.idct_resize_display(coeffs, steps, 480, 854, 3, block, block)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dct.idct_resize_display(coeffs, steps, 480, 854, 3, block, block)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_wrappers_reject_bad_inputs(gen):
@@ -1382,10 +1433,13 @@ def test_a_failed_capture_raises(gen):
 _wire_payloads = display_ties.wire_payloads
 
 
-# 1080p (K1), 1366x768 (K6), 4x4- and 16x16-block CIF (the square-block
-# K1), 2x2-block CIF (the general K1)
+# 1080p (K1), 1366x768 (K6; at 4x4 and 16x16 blocks the square-block
+# K6), 4x4- and 16x16-block CIF (the square-block K1), 2x2-block CIF (the
+# general K1)
 DECODE_GRAPH_CASES = [(1920, 1080, 8, "idct_display"),
                       (1366, 768, 8, "idct_resize_display"),
+                      (1366, 768, 4, "idct4x4_resize_display"),
+                      (1366, 768, 16, "idct16x16_resize_display"),
                       (352, 288, 4, "idct4x4_display"),
                       (352, 288, 16, "idct16x16_display"),
                       (352, 288, 2, "idct_display_general")]

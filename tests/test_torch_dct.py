@@ -161,11 +161,14 @@ DECODE_GEOMETRIES = [
 
 # 2x2, 4x4 and 16x16 transform blocks at the width-aligned geometries (a
 # 16x16 block divides them): row resample, identity rows, multi-band
-# resample
+# resample; 4x4 and 16x16 also at the width-excess ones (K6's square-block
+# kernels)
 DECODE_CASES = [pytest.param(*g, 8, id="-".join(map(str, g)))
                 for g in DECODE_GEOMETRIES] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
-    for b in (2, 4, 16) for g in DECODE_GEOMETRIES[:3]]
+    for b in (2, 4, 16) for g in DECODE_GEOMETRIES[:3]] + [
+    pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
+    for b in (4, 16) for g in DECODE_GEOMETRIES[3:]]
 
 
 @pytest.mark.parametrize("w,h,ew,eh,block", DECODE_CASES)
@@ -214,6 +217,41 @@ def test_plain_display_differs_from_the_exact_decode_only_on_ties(block):
         assert ties.mean() < 1e-3
 
 
+@pytest.mark.parametrize("w,h,ew,eh", DECODE_GEOMETRIES[3:])
+def test_width_excess_2x2_differs_from_svc_tpu_only_on_ties(w, h, ew, eh):
+    # 2x2 blocks on the width-excess route: the port's decoder and
+    # svc_tpu's differ by 1 on some bytes (1.15e-3 of them at 120x64, over
+    # the decode gate's 1e-3), every one a byte whose exact value (the
+    # float64 decode through both resamples) sits on a half, and neither
+    # differs from the exact value rounded anywhere else
+    from svc_tpu.models.decoder import Decoder as JDecoder
+    from svc_tpu_torch.models.decoder import Decoder
+    from svc_tpu_torch.tools import display_ties
+
+    hdr, coeffs, btypes, rects = _decode_inputs(w, h, ew, eh, seed=w * h,
+                                                block=2)
+    j_cfg = j_config.DecoderConfig()
+    j_hdr = j_bitstream.Header(*dataclasses.astuple(hdr))
+    want = JDecoder.packed_bytes(
+        JDecoder(j_cfg, j_hdr, batch_size=2)._decode_batch(coeffs, btypes, rects)
+    )
+    cfg = config.from_dict(config.DecoderConfig, dataclasses.asdict(j_cfg))
+    dec = Decoder(cfg, hdr, batch_size=2, device="cpu")
+    got = dec.decode_batch(coeffs, btypes, rects).numpy()
+    steps = dec._steps(torch.from_numpy(btypes.astype(np.int64)),
+                       torch.from_numpy(rects))
+    exact = display_ties.exact_display(torch.from_numpy(coeffs), steps, h, 3,
+                                       2, 2, out_w=w)
+    ties = display_ties.tie_mask(exact).reshape(got.shape)
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert d.max() <= 1 and (d > 0).any()
+    assert not d[~ties].any()
+    for out in (got, want):
+        off = np.abs(out.astype(np.int16) - display_ties.rounded(exact).reshape(
+            got.shape))
+        assert off.max() <= 1 and not off[~ties].any()
+
+
 def test_general_route_dispatches_to_k6(monkeypatch):
     # on a non-CPU device the general route launches K6, the kernel
     # specialised for 8x8 blocks of 3 channels (a meta device stands in
@@ -243,6 +281,42 @@ def test_general_route_dispatches_to_k6(monkeypatch):
     assert n_bands == -(-120 // band_rows)
 
 
+@pytest.mark.parametrize("block", [4, 16])
+def test_general_route_dispatches_to_square_k6(monkeypatch, block):
+    # on a non-CPU device the general route at 4x4 and 16x16 transform
+    # blocks launches K6's square-block kernel of that size once, and the
+    # general K6, the 8x8 K6 and every K1 never (a meta device stands in
+    # for the card)
+    from svc_tpu_torch.models import decoder as dec_mod
+
+    launched = []
+    sq = dct.IDCT_RESIZE_SQ[block]
+    monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
+    monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
+    monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(dct, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(sq, "launch", lambda *a: launched.append(a))
+    for k in (dct.IDCT_RESIZE_GENERAL, dct.IDCT_RESIZE, dct.IDCT_DISPLAY,
+              dct.IDCT_DISPLAY_GENERAL, *dct.IDCT_DISPLAY_SQ.values(),
+              *(k for b, k in dct.IDCT_RESIZE_SQ.items() if b != block)):
+        monkeypatch.setattr(k, "launch", lambda *a, _k=k: pytest.fail(_k.name))
+    hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3,
+                                                block=block)
+    out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
+        coeffs, btypes, rects
+    )
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)
+    (args,) = launched
+    assert len(args) == len(sq.argtypes)
+    assert args[2] == dct.dct_matrix(block).ctypes.data
+    # t, out_h, out_w, nby, nbx, band_rows, n_bands follow the 12 pointers
+    t, out_h, out_w, nby, nbx, band_rows, n_bands = args[12:19]
+    assert (t, out_h, out_w, nby, nbx) == (2, 120, 200, 128 // block,
+                                           208 // block)
+    assert n_bands == -(-120 // band_rows)
+
+
 @pytest.mark.parametrize(
     "out_n,in_n", [(1080, 1088), (768, 768), (1366, 1376), (120, 128),
                    (200, 208), (854, 864), (7, 16)],
@@ -257,3 +331,28 @@ def test_span_tables_cover_every_read(out_n, in_n, tile):
         reads = np.concatenate([i0[sl], i1[sl][frac[sl] != 0]])
         assert reads.min() // 8 >= first[t]
         assert reads.max() // 8 < first[t] + n_blk
+
+
+@pytest.mark.parametrize("w,kernel", [(96, "idct_display_plain"),
+                                      (120, "idct_resize_display_plain")])
+def test_display_ties_tool_takes_the_decoders_route(monkeypatch, capsys, w,
+                                                    kernel):
+    # the tool decodes a width that is not a multiple of 16 as the decoder
+    # does (K6, both axes resampled) and holds it to the exact decode
+    # through the column resample: the CPU plain version differs from it
+    # only on ties
+    import json
+
+    from svc_tpu_torch.tools import display_ties
+
+    called = []
+    real = getattr(dct, kernel)
+    monkeypatch.setattr(dct, kernel,
+                        lambda *a, **k: called.append(kernel) or real(*a, **k))
+    assert display_ties.main(["--device", "cpu", "--width", str(w),
+                              "--height", "64", "--block", "2"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert called == [kernel]
+    assert out["shape"] == [w, 64, 2, 7] and out["ties"] > 0.01
+    assert out["cpu_plain_vs_exact"]["off_ties"] == 0
+    assert out["cpu_plain_vs_exact"]["max"] <= 1

@@ -1,8 +1,8 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
 specialised kernels K1 / K2 / K6, 4x4 and 16x16 blocks of 3 channels to
-K1's and K2's square-block kernels, every other shape to the general ones)
-and the band and strip geometry of K1's and K6's specialised kernels and
-K1's square-block kernels, on the CPU.
+their square-block kernels, every other shape to the general ones) and
+the band and strip geometry of K1's and K6's specialised and square-block
+kernels, on the CPU.
 
 A meta device stands in for the card in the dispatch tests: shapes and
 dtypes flow through the wrappers, the launch is replaced, nothing computes.
@@ -36,7 +36,7 @@ def meta_launches(monkeypatch):
     for k in (dct.DCT_WIRE, dct.DCT_WIRE_GENERAL, dct.IDCT_DISPLAY,
               dct.IDCT_DISPLAY_GENERAL, dct.IDCT_RESIZE,
               dct.IDCT_RESIZE_GENERAL, *dct.DCT_WIRE_SQ.values(),
-              *dct.IDCT_DISPLAY_SQ.values()):
+              *dct.IDCT_DISPLAY_SQ.values(), *dct.IDCT_RESIZE_SQ.values()):
         monkeypatch.setattr(k, "launch",
                             lambda *a, _k=k: launched.append((_k.name, a)))
     return launched
@@ -45,8 +45,9 @@ def meta_launches(monkeypatch):
 def _all_kernels():
     return {k.name: k for k in (
         dct.DCT_WIRE, dct.DCT_WIRE_GENERAL, dct.IDCT_DISPLAY,
-        dct.IDCT_DISPLAY_GENERAL, *dct.DCT_WIRE_SQ.values(),
-        *dct.IDCT_DISPLAY_SQ.values())}
+        dct.IDCT_DISPLAY_GENERAL, dct.IDCT_RESIZE, dct.IDCT_RESIZE_GENERAL,
+        *dct.DCT_WIRE_SQ.values(), *dct.IDCT_DISPLAY_SQ.values(),
+        *dct.IDCT_RESIZE_SQ.values())}
 
 
 @pytest.mark.parametrize(
@@ -119,9 +120,17 @@ def test_rectangular_blocks_take_the_general_kernels(meta_launches):
     "block,channels,out_w,general,kernel",
     [(8, 3, 1366, False, "idct_resize_display"),
      (8, 3, 1366, True, "idct_resize_display_general"),
-     (4, 3, 1366, False, "idct_resize_display_general"),
+     (4, 3, 1366, False, "idct4x4_resize_display"),
+     (16, 3, 1366, False, "idct16x16_resize_display"),
+     (4, 3, 1366, True, "idct_resize_display_general"),
+     (16, 3, 1366, True, "idct_resize_display_general"),
+     (2, 3, 1366, False, "idct_resize_display_general"),
      (8, 1, 1366, False, "idct_resize_display_general"),
-     (8, 3, 1400, False, "idct_resize_display_general")],  # columns upsampled
+     (4, 1, 1366, False, "idct_resize_display_general"),
+     (16, 1, 1366, False, "idct_resize_display_general"),
+     (8, 3, 1400, False, "idct_resize_display_general"),  # columns upsampled
+     (4, 3, 1400, False, "idct_resize_display_general"),
+     (16, 3, 1400, False, "idct_resize_display_general")],
 )
 def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
                                       general, kernel):
@@ -134,13 +143,14 @@ def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
     assert tuple(out.shape) == (2, 768, out_w * channels)
     ((name, args),) = meta_launches
     assert name == kernel
-    if kernel == "idct_resize_display":
-        assert len(args) == len(dct.IDCT_RESIZE.argtypes)
+    if kernel != "idct_resize_display_general":
+        assert len(args) == len(_all_kernels()[kernel].argtypes)
         # the DCT matrix travels as a host pointer, read by value
-        assert args[2] == dct.dct_matrix(8).ctypes.data
+        assert args[2] == dct.dct_matrix(block).ctypes.data
         # t, out_h, out_w, nby, nbx, band_rows, n_bands follow 12 pointers
         t, out_h, w, nby, nbx, band_rows, n_bands = args[12:19]
-        assert (t, out_h, w, nby, nbx) == (2, 768, out_w, 96, 172)
+        assert (t, out_h, w, nby, nbx) == (2, 768, out_w, 768 // block,
+                                           1376 // block)
         assert n_bands == -(-768 // band_rows)
     else:
         assert len(args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
@@ -166,6 +176,8 @@ def test_display_wrappers_copy_tables_once(meta_launches, monkeypatch, general):
         call for b, (c, s) in sq.items() for call in (
             lambda b=b, c=c, s=s: dct.idct_display(c, s, 120, 3, b, b,
                                                    general=general),
+            lambda b=b, c=c, s=s: dct.idct_resize_display(
+                c, s, 120, 200, 3, b, b, general=general),
             lambda b=b: dct.dct8x8_to_wire(packed, 1, 2, 128, 208, b, b,
                                            general=general))
     ]
@@ -693,4 +705,262 @@ def test_k6_walk_reproduces_plain_bytes(out_w, out_h, pw, ph, t):
             out[:, yo, k] = torch.where(g != 0, v * (1 - g) + w * g, v)
     got = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     want = dct.idct_resize_display_plain(coeffs, steps, out_h, out_w, 3, 8, 8)
+    assert torch.equal(got, want)
+
+
+def _strip_tables_before(out_w, in_w):
+    """``_strip_tables`` as it was before it took the block size and the
+    strip (strips of 8 block columns of 8 pixels): K6's 8x8 tables must
+    stay exactly these."""
+    x0, _, fx, _ = dct.bilinear_axis_weights(out_w, in_w)
+    strip = x0 // 64
+    lo = np.searchsorted(strip, np.arange(-(-in_w // 64) + 1))
+    byte = np.arange(3 * out_w)
+    col_e = 3 * (x0[byte // 3] - 64 * strip[byte // 3]) + byte % 3
+    return (col_e.astype(np.int32), fx[byte // 3].astype(np.float32),
+            (3 * lo).astype(np.int32))
+
+
+@pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES + [(61, 37, 64, 40)])
+def test_strip_tables_at_block_8_unchanged(out_w, out_h, pw, ph):
+    # K6's 8x8 strip tables are exactly those before the block size and the
+    # strip became parameters, by default and given explicitly; every
+    # square-block kernel's strip spans the same 64 pixels, so its tables
+    # are these too
+    want = _strip_tables_before(out_w, pw)
+    for got in (dct._strip_tables(out_w, pw), dct._strip_tables(out_w, pw, 8, 8),
+                dct._strip_tables(out_w, pw, 4, 16),
+                dct._strip_tables(out_w, pw, 16, 4)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+# K6's square-block kernels: every K6 geometry at 4x4 and 16x16 blocks
+# (1376 pixels are 21.5 strips of 64: the last strip's block columns end
+# mid-strip, without its halo block)
+K6_SQ_CASES = [(b, *g) for b in (4, 16) for g in K6_GEOMETRIES]
+
+
+def _k6_sq_tables(block, out_w, out_h, pw, ph, t):
+    """K6's square-block band tables and strip tables for ``block``."""
+    strip = dct._K6_SQ_STRIP_PIXELS // block
+    rows = dct._band_tables(out_h, ph, pw // block, t, SMS,
+                            dct._K6_SQ_GEOM[block][5], block, strip)
+    return rows, dct._strip_tables(out_w, pw, block, strip)
+
+
+def _k6_sq_ring_width(block):
+    """Floats of the pixels of a ring row: the strip's 64 pixel columns and
+    the halo block's first columns (all B at B = 4, column 0 at B = 16),
+    interleaved."""
+    return (dct._K6_SQ_STRIP_PIXELS + dct._K6_SQ_GEOM[block][2]) * 3
+
+
+def _k6_sq_walk(block, out_w, out_h, pw, ph, t):
+    """Replay the square-block K6's walk: per (band, strip), the block rows
+    it transforms and, after each, the output rows it emits, with the
+    source rows its ring of B + 1 rows holds at that moment (the current
+    block row and the previous one's last row)."""
+    (*_, row_lo, band_b, band_rows), (_, _, strip_lo) = _k6_sq_tables(
+        block, out_w, out_h, pw, ph, t)
+    for band, (b_first, b_last) in enumerate(band_b):
+        yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
+        for s in range(len(strip_lo) - 1):
+            for b in range(b_first, b_last + 1):
+                ring = set(range(max(block * b_first, block * b - 1),
+                                 block * b + block))
+                rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
+                yield band, s, b, rows, ring
+
+
+@pytest.mark.parametrize("block,out_w,out_h,pw,ph", K6_SQ_CASES)
+def test_k6_sq_walk_reads_inside_its_ring_and_window(block, out_w, out_h, pw,
+                                                     ph):
+    # every y0 / y1 an output row reads is in the ring of B + 1 rows when
+    # the row is emitted, each row once per strip by its own band, and a
+    # band walks its own block rows plus at most one halo block row; every
+    # x0 / x1 an output byte reads lies in the strip's block columns or
+    # column 0 of its halo block, at the ring position the tables give
+    (y0, y1, fy, _, band_b, band_rows), (col_e, col_f, strip_lo) = (
+        _k6_sq_tables(block, out_w, out_h, pw, ph, 8))
+    assert band_rows <= 128  # the kernel's kMaxBandRows
+    emitted = np.zeros(out_h, np.int64)
+    for band, s, b, rows, ring in _k6_sq_walk(block, out_w, out_h, pw, ph, 8):
+        assert 0 <= b < ph // block
+        for yo in rows:
+            assert band * band_rows <= yo < (band + 1) * band_rows
+            assert y0[yo] in ring
+            if fy[yo] != 0:
+                assert y1[yo] in ring
+            emitted[yo] += s == 0
+    assert (emitted == 1).all()
+    walked = band_b[:, 1] - band_b[:, 0] + 1
+    assert walked.max() <= -(-band_rows // block) + 2
+    x0, x1, fx, _ = dct.bilinear_axis_weights(out_w, pw)
+    strip, nbx = dct._K6_SQ_STRIP_PIXELS // block, pw // block
+    for s in range(len(strip_lo) - 1):
+        blocks = range(strip * s, min(nbx, strip * s + strip + 1))
+        for byte in range(strip_lo[s], strip_lo[s + 1]):
+            xo, c = divmod(byte, 3)
+            assert x0[xo] // block in blocks and x0[xo] // 64 == s
+            assert col_e[byte] == 3 * (x0[xo] - 64 * s) + c
+            assert col_f[byte] == fx[xo]
+            if fx[xo] != 0:
+                assert x1[xo] == x0[xo] + 1 and x1[xo] // block in blocks
+                # in the ring: the halo block is read at its column 0 only
+                assert x1[xo] - 64 * s <= 64
+                assert col_e[byte] + 3 < _k6_sq_ring_width(block)
+
+
+@pytest.mark.parametrize("block,out_w,out_h,pw,ph", K6_SQ_CASES)
+def test_k6_sq_every_output_byte_written_once(block, out_w, out_h, pw, ph):
+    # the strips split each display row into runs of at most 192 bytes (a
+    # thread each), one strip per CTA column of the grid, and the walk's
+    # emit loop writes every byte of the frame exactly once
+    _, (_, _, strip_lo) = _k6_sq_tables(block, out_w, out_h, pw, ph, 1)
+    assert strip_lo[0] == 0 and strip_lo[-1] == 3 * out_w
+    assert (np.diff(strip_lo) >= 0).all()
+    assert np.diff(strip_lo).max() <= dct._K6_SQ_STRIP_PIXELS * 3
+    strip = dct._K6_SQ_STRIP_PIXELS // block
+    assert len(strip_lo) - 1 == -(-(pw // block) // strip)  # the grid's x
+    row_bytes = 3 * out_w
+    written = np.zeros(out_h * row_bytes, np.int64)
+    for _, s, _, rows, _ in _k6_sq_walk(block, out_w, out_h, pw, ph, 1):
+        k = np.arange(strip_lo[s], strip_lo[s + 1])
+        for yo in rows:
+            written[yo * row_bytes + k] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES[:3])
+def test_k6_sq_grid_fills_the_card(block, out_w, out_h, pw, ph):
+    # at T = 8: at least 2 CTAs per SM, and two waves at the CTAs per SM
+    # that the kernel's shared memory and threads allow; one CTA's shared
+    # memory fits (with the opt-in past 48 KB)
+    (*_, band_b, band_rows), _ = _k6_sq_tables(block, out_w, out_h, pw, ph, 8)
+    strip = dct._K6_SQ_STRIP_PIXELS // block
+    ctas = 8 * -(-(pw // block) // strip) * len(band_b)
+    *_, threads, ctas_per_sm = dct._K6_SQ_GEOM[block]
+    assert ctas >= 2 * SMS
+    if band_rows != dct._K1_BAND_ROWS[-1]:
+        assert ctas >= 2 * ctas_per_sm * SMS
+    smem = dct._k6_sq_smem_bytes(block)
+    assert smem <= CTA_SMEM_BYTES
+    assert ctas_per_sm * (smem + 1024) <= SM_SMEM_BYTES
+    assert ctas_per_sm * threads <= 2048
+
+
+def test_k6_sq_host_geometry_matches_the_kernel_source():
+    # the strip, tallest band, slot padding, halo columns, ring pitch,
+    # threads, CTAs per SM and shared memory that the wrapper plans with are
+    # those csrc/idct_resize_sq.cu is compiled with; its slots are K1's
+    # square-block layout
+    geom, k, src = _geom("idct_resize_sq.cu")
+    assert sorted(geom) == sorted(dct._SQUARE_BLOCKS)
+    assert k["kStripPixels"] == dct._K6_SQ_STRIP_PIXELS
+    assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
+    assert "__launch_bounds__(SqGeom<B>::kThreads, SqGeom<B>::kMinCtas)" in src
+    assert re.search(r"kRingRows = B \+ 1;", src)
+    for b, g in geom.items():
+        assert (g["kCoefPitch"], g["kCoefGroup"], g["kHaloColumns"],
+                g["kRingPitch"], g["kThreads"], g["kMinCtas"]) == (
+                    dct._K6_SQ_GEOM[b])
+        assert dct._K6_SQ_GEOM[b][:2] == dct._K1_SQ_GEOM[b][:2]
+        assert 1 <= g["kHaloColumns"] <= b
+        assert g["kRingPitch"] >= _k6_sq_ring_width(b)
+        blocks = k["kStripPixels"] // b + 1
+        assert blocks * 3 * b <= g["kThreads"]  # a thread per pair column
+        assert k["kStripPixels"] * 3 <= g["kThreads"]  # a thread per byte
+        assert g["kThreads"] % 32 == 0
+        assert g["kCoefGroup"] >= b * g["kCoefPitch"]
+        slot = blocks * 3 * g["kCoefGroup"]
+        assert (4 * slot) % 16 == 0  # 16-byte cp.async into both slots
+        assert dct._k6_sq_smem_bytes(b) == 4 * (
+            2 * (slot + blocks) + (b + 1) * g["kRingPitch"]
+            + 3 * k["kMaxBandRows"])
+
+
+@pytest.mark.parametrize("block", [4, 16])
+def test_k6_sq_layouts_avoid_bank_conflicts(block):
+    # shared memory has 32 banks of 4 bytes; a warp's 16-byte accesses go
+    # in quarter-warps. The column stage (lanes along l) and the row stage's
+    # float4 loads are free of conflicts over the strip's pairs and the
+    # halo's; the row stage's ring stores (of a halo block only the
+    # columns the ring keeps) conflict at most two-way
+    pitch, c_group, halo_cols, ring_pitch, _, _ = dct._K6_SQ_GEOM[block]
+    blocks = dct._K6_SQ_STRIP_PIXELS // block + 1
+    lanes = np.arange(blocks * 3 * block)
+    group, r = lanes // block, lanes % block
+    for fixed in range(block):  # the column stage
+        addr = group * c_group + fixed * pitch + r
+        for w in range(0, len(lanes), 32):
+            a = addr[w:w + 32] % 32
+            assert len(set(a)) == len(a)
+    for q in range(block // 4):  # the row stage's float4 loads
+        addr = (group * c_group + r * pitch + 4 * q) // 4
+        for h in range(0, len(lanes), 8):
+            a = addr[h:h + 8] % 8
+            assert len(set(a)) == len(a)
+    blk, c = group // 3, group % 3
+    for j in range(block):  # the row stage's ring stores
+        col = (blk * block + j) * 3 + c
+        addr = r * ring_pitch + col
+        live = (blk < blocks - 1) | (j < halo_cols)
+        assert col[live].max() < _k6_sq_ring_width(block)
+        for w in range(0, len(lanes), 32):
+            a = addr[w:w + 32][live[w:w + 32]] % 32
+            if len(a):
+                assert np.bincount(a).max() <= 2
+
+
+@pytest.mark.parametrize("block,out_w,out_h,pw,ph,t", [
+    (4, 120, 64, 128, 64, 2), (4, 200, 120, 208, 128, 1),
+    (4, 854, 40, 864, 48, 1), (4, 61, 37, 64, 40, 1),
+    (16, 120, 64, 128, 64, 2), (16, 200, 120, 208, 128, 1),
+    (16, 854, 40, 864, 48, 1), (16, 61, 37, 64, 48, 1)])
+def test_k6_sq_walk_reproduces_plain_bytes(block, out_w, out_h, pw, ph, t):
+    # the square-block kernel's walk, replayed on the plain version's
+    # planes through a ring of B + 1 rows (row y at y % (B + 1)) of the
+    # strip's pixels and the halo's kept columns, with the tables' ring
+    # positions and the kernel's per-element blends, gives the plain
+    # version's bytes
+    rng = np.random.default_rng(out_w + out_h + block)
+    nby, nbx = ph // block, pw // block
+    n = 3 * block * block
+    coeffs = torch.from_numpy(
+        (rng.normal(size=(t, nby, nbx, n)) * 90).astype(np.float32))
+    steps = torch.from_numpy(
+        rng.choice([1.0, 640.0], size=(t, nby, nbx)).astype(np.float32))
+    planes = dct.idct_planes_plain(coeffs, steps, 3, block, block)
+    width = _k6_sq_ring_width(block)
+    cols = width // 3  # the strip's 64 pixel columns and the halo's kept
+    # interleaved pixels, the halo's columns past each strip's end (zero
+    # past nbx)
+    pix = torch.nn.functional.pad(planes.permute(0, 2, 3, 1), (0, 0, 0, cols))
+    (y0, y1, fy, *_), (col_e, col_f, strip_lo) = _k6_sq_tables(
+        block, out_w, out_h, pw, ph, t)
+    rows_n = block + 1
+    out = torch.full((t, out_h, 3 * out_w), float("nan"))
+    ring = torch.full((t, rows_n, width), float("nan"))
+    for _, s, b, rows, _ in _k6_sq_walk(block, out_w, out_h, pw, ph, t):
+        for i in range(block):
+            ring[:, (block * b + i) % rows_n] = pix[
+                :, block * b + i, 64 * s:64 * s + cols].reshape(t, -1)
+        k = torch.arange(strip_lo[s], strip_lo[s + 1])
+        e = torch.from_numpy(col_e[k.numpy()]).long()
+        g = torch.from_numpy(col_f[k.numpy()])
+        e3 = (e + 3).clamp(max=width - 1)
+        for yo in rows:
+            top, bot = ring[:, y0[yo] % rows_n], ring[:, y1[yo] % rows_n]
+            v, w = top[:, e], top[:, e3]
+            if fy[yo] != 0:
+                f = torch.tensor(fy[yo])
+                v = v * (1 - f) + bot[:, e] * f
+                w = w * (1 - f) + bot[:, e3] * f
+            out[:, yo, k] = torch.where(g != 0, v * (1 - g) + w * g, v)
+    got = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    want = dct.idct_resize_display_plain(coeffs, steps, out_h, out_w, 3, block,
+                                         block)
     assert torch.equal(got, want)

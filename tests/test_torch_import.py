@@ -145,7 +145,8 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "idct_resize_display_general", "refine_sads_pitched_general",
         "refine_mads_general", "ccl_converge", "ccl_converge_general",
         "threefry2x32", "dct4x4_to_wire", "dct16x16_to_wire",
-        "idct4x4_display", "idct16x16_display",
+        "idct4x4_display", "idct16x16_display", "idct4x4_resize_display",
+        "idct16x16_resize_display",
     }
     # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
     # while_loop and jax.random's threefry (its k-means++ seeding draw)
@@ -174,11 +175,13 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "refine_rows.cuh", "pyr_down_pitched_levels.cu",
             "pyr_down_levels.cuh", "refine_mads_general.cu",
             "refine_sads.cuh", "ccl_converge.cu", "ccl_converge_general.cu",
-            "threefry.cu", "dct_wire_sq.cu", "idct_display_sq.cu"} <= srcs
+            "threefry.cu", "dct_wire_sq.cu", "idct_display_sq.cu",
+            "idct_resize_sq.cu"} <= srcs
     # one file each, but for the instantiations of one kernel template (the
-    # square-block K2 and K1: one instantiation per block size)
+    # square-block K2, K1 and K6: one instantiation per block size)
     templates = {dct.DCT_WIRE_SQ[4].source: set(dct.DCT_WIRE_SQ),
-                 dct.IDCT_DISPLAY_SQ[4].source: set(dct.IDCT_DISPLAY_SQ)}
+                 dct.IDCT_DISPLAY_SQ[4].source: set(dct.IDCT_DISPLAY_SQ),
+                 dct.IDCT_RESIZE_SQ[4].source: set(dct.IDCT_RESIZE_SQ)}
     for src in {k.source for k in ks.values()}:
         sharing = [k for k in ks.values() if k.source == src]
         if src in templates:

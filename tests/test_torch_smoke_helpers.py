@@ -140,3 +140,32 @@ def test_variant_probe_reports_how_far_its_outputs_are():
     pair = (torch.zeros(3), torch.tensor([0.0, 0.5, 0.0]))
     assert variant_timing.diff(pair, (torch.zeros(3), torch.zeros(3))) == (
         "outputs differ, max |diff| 0.5 on 16.6667% of elements")
+
+
+def test_variant_docstring_edits_apply_once():
+    # the edits the tool's docstring gives as examples each occur exactly
+    # once in the checkout's sources, so they run as written
+    for path, old in (("pyr_down_levels.cuh", "__launch_bounds__(kLvThreads, 6)"),
+                      ("idct_display_sq.cu", "kMinCtas = 3;"),
+                      ("idct_resize_sq.cu", "kHaloColumns = 4, kRingPitch = 206"),
+                      ("ccl_converge.cu", "kCluster = 8;")):
+        assert old in variant_timing.__doc__
+        assert (build.CSRC_DIR / path).read_text().count(old) == 1, (path, old)
+    assert set(variant_timing.KERNEL) == set(variant_timing.WORK)
+
+
+def test_ptxas_report_names_the_square_k6_instances(smoke):
+    # the template kernel of idct_resize_sq.cu, one entry per block size
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN42_GLOBAL__N__6d1f7e2b_17_idct_resize_sq_cu_"
+        "0b5f3e2a21idct_sq_resize_kernelILi16EEEvPKfS2_NS_4DctFIXT_EEEPKiS6_S2_S6_S6_S6_S2_S6_"
+        "Phiiiii' for 'sm_90a'",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN42_GLOBAL__N__6d1f7e2b_17_idct_resize_sq_cu_"
+        "0b5f3e2a21idct_sq_resize_kernelILi4EEEvPKfS2_NS_4DctFIXT_EEEPKiS6_S2_S6_S6_S6_S2_S6_"
+        "Phiiiii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+    ])
+    assert smoke.ptxas_report(log) == [
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<16>", 64, 0),
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<4>", 40, 0)]
