@@ -10,13 +10,14 @@ each:
 1. card — name and power limit (``nvidia-smi``);
 2. build — compile the kernels, with the build time, each kernel's
    registers and static shared memory (ptxas), K5's and K10's dynamic
-   shared memory and CTAs per SM, the display kernels' dynamic shared
-   memory and CTAs per SM, K5's static shared memory held to what
+   shared memory and CTAs per SM, the display kernels' and the templated
+   K2's spill stores, dynamic shared memory and CTAs per SM, K5's static
+   shared memory held to what
    its wrapper plans with, K11's cipher instructions a word counted in the
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the twenty-nine kernels against its plain
+3. kernel parity — each of the forty-one kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -42,12 +43,14 @@ each:
    channels) byte-equal to the general K6 at 1366x768, 1270x714 and
    854x480, T = 8, and on a ragged shape (1312 padded pixels: block
    columns ending mid-strip), timed in turns with it at 1366x768 and
-   854x480; the square-block K2 and K1 at 1080p,
+   854x480; the templated K2 and K1 (4x4, 16x16 and the six rectangles
+   of sides 4, 8 and 16, rows x columns) at 1080p,
    T = 8, bit-equal (K2) or byte-equal (K1) to the general kernels there
    and on a ragged shape (1366-pixel packed rows, 2-byte aligned; block
    columns ending mid-strip), K1 also with identity rows, each timed in
-   turns with the general kernel at its shape, K2 beside its b*b-filter
-   stride-b convolution; K10 (the CCL on the device: the 8-CTA cluster kernel and the
+   turns with the general kernel at its shape, K2 also in turns with its
+   (bh*bw)-filter stride-(bh, bw) convolution; K10 (the CCL on the
+   device: the 8-CTA cluster kernel and the
    general one, each also with ``general=True`` and the general
    global-memory loop) at the path shape with both connectivities, a
    snake, 4K, 270x480, a grid past the cluster's capacity and
@@ -81,19 +84,20 @@ each:
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
    phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9,
-   K10), the single-level K4 or a square-block K1, K2 or K6 (phase 5's
-   square-block runs: only their own size's K2 and K6);
-7. square transform blocks — a 9-frame CIF clip, default config with
-   4x4 transform blocks: the 4x4 K2 and K1 must run, no other K1 or K2
-   and no K6;
+   K10), the single-level K4 or a templated K1 or K2 or square-block K6
+   (phase 5's square-block runs: only their own size's K2 and K6);
+7. transform blocks other than 8x8 — a 9-frame CIF clip, default config
+   with 4x4 transform blocks: the 4x4 K2 and K1 must run, no other K1 or
+   K2 and no K6;
    its 16x16 MV blocks run the specialised K3 and the cluster K5, the
    fused K4 and the 2x2 K9 (no general K3, K5, K9, K10, single-level K4);
-   then a 9-frame 1080p clip with 16x16 transform blocks on graph
-   replays: the 16x16 K2 and K1 must run, no other K1, K2 or K6, and no
-   general kernel; its stream and frames byte-equal to ``graph=False``;
-   its first 3 frames encoded on the CPU port (header and MV fields
-   equal, coefficients within 2.5e-4, block types within 1%) and 2
-   payloads decoded there (the display gate);
+   then 9-frame clips on graph replays at 16x16 and at 8x16 (8 rows, 16
+   columns) transform blocks at 1080p, and at 4x8, 8x4, 4x16, 16x4 and
+   16x8 at CIF: each shape's own K2 and K1 must run, no other K1, K2 or
+   K6, and no general kernel; each stream and its frames byte-equal to
+   ``graph=False``; the first 3 frames encoded on the CPU port (header
+   and MV fields equal, coefficients within 2.5e-4, block types within
+   1%) and 2 payloads decoded there (the display gate);
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
@@ -309,18 +313,35 @@ def ctas_per_sm(regs: int, smem: int, threads: int) -> int:
 def ptxas_report(log: str):
     """``[(source file, kernel, registers, static smem bytes)]`` from nvcc's
     ``-Xptxas -v`` report (empty when the library was already built)."""
-    out, name = [], None
+    return [entry[:4] for entry in ptxas_entries(log)]
+
+
+def ptxas_spills(log: str):
+    """``{kernel: spill store bytes}`` from nvcc's ``-Xptxas -v`` report."""
+    return {entry[1]: entry[4] for entry in ptxas_entries(log)}
+
+
+def ptxas_entries(log: str):
+    """``[(source file, kernel, registers, static smem bytes, spill store
+    bytes)]`` from nvcc's ``-Xptxas -v`` report."""
+    out, name, spill = [], None, 0
     for line in log.splitlines():
         # the mangled kernel name holds "<length>_<source stem>_cu_<hash>"
-        # then "<length><kernel name>", then "ILi<B>E" for a template
+        # then "<length><kernel name>", then "ILi<B>E" for a template of
+        # one int, "ILi<BH>ELi<BW>E" for one of two
         m = re.search(r"Compiling entry function '[^']*?_\d+_([a-z]\w*?)_cu_"
-                      r"[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)(?:ILi(\d+)E)?", line)
+                      r"[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)"
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
         if m:
-            tmpl = f"<{m.group(3)}>" if m.group(3) else ""
-            name = (f"{m.group(1)}.cu", f"{m.group(2)}{tmpl}")
+            args = [a for a in m.group(3, 4) if a]
+            tmpl = f"<{', '.join(args)}>" if args else ""
+            name, spill = (f"{m.group(1)}.cu", f"{m.group(2)}{tmpl}"), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
         if m and name:
-            out.append(name + (int(m.group(1)), int(m.group(2) or 0)))
+            out.append(name + (int(m.group(1)), int(m.group(2) or 0), spill))
             name = None
     return out
 
@@ -868,8 +889,8 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
           f"{', '.join(f'{x:.4f}' for x in turns)}; through the wrappers "
           f"{new_w_ms:.4f} / {gen_w_ms:.4f}) vs plain {plain_ms:.4f} ms "
           f"(1088->1080 rows, T=8); {line}")
-    for block in dct.DCT_WIRE_SQ:
-        square_block_parity(g, dev, results, block, packed, planes)
+    for shape in dct.DCT_WIRE_SQ:
+        block_shape_parity(g, dev, results, shape, packed, planes)
 
     # K5: every Lloyd attempt of an 8-frame batch from the same seeded
     # start, at the 1080p (8160 MV blocks), 1440p (14400) and 4K (32400)
@@ -1018,17 +1039,20 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
     return results
 
 
-def square_block_parity(g, dev, results, block, packed, planes):
-    """Phase 3, K2 and K1 for square ``block`` x ``block`` transform blocks
-    of 3 channels (4 and 16): the square-block kernel against the general
-    one (bit-equal K2, byte-equal K1) and the plain version (within the
-    gates) at 1080p, T = 8, and on a ragged shape; the two timed in turns.
+def block_shape_parity(g, dev, results, shape, packed, planes):
+    """Phase 3, K2 and K1 for ``shape`` = (rows, columns) transform blocks
+    of 3 channels on their templated kernels (4x4, 16x16 and the six
+    rectangles of sides 4, 8 and 16): the templated kernel against the
+    general one (bit-equal K2, byte-equal K1) and the plain version (within
+    the gates) at 1080p, T = 8, and on a ragged shape; each timed in turns
+    with the general kernel, K2 also with its one-call yardstick.
     ``packed`` holds 9 packed 1080p frames, ``planes`` their last 8 as 24
     zero-padded 1088x1920 float32 planes (K2's yardstick)."""
     from svc_tpu_torch.ops import dct, quant
 
-    b = block
-    k2, k1 = dct.DCT_WIRE_SQ[b], dct.IDCT_DISPLAY_SQ[b]
+    bh, bw = shape
+    k2, k1 = dct.DCT_WIRE_SQ[shape], dct.IDCT_DISPLAY_SQ[shape]
+    tag = f"{bh}x{bw}"
 
     def counts():
         return (k2.launches, dct.DCT_WIRE_GENERAL.launches, k1.launches,
@@ -1036,105 +1060,120 @@ def square_block_parity(g, dev, results, block, packed, planes):
 
     # K2: 8 anchor frames from 9 packed 1080p frames (frame_offset 1); then
     # 1366-pixel rows (4098 bytes: 2-byte aligned starts) whose block
-    # columns end mid-strip; yardstick: the b*b-filter stride-b convolution
-    # of the 24 padded float32 planes (no packing, no wire layout)
+    # columns end mid-strip; yardsticks: the general kernel, and the
+    # (bh*bw)-filter stride-(bh, bw) convolution of the 24 padded float32
+    # planes (no packing, no wire layout), each in turns with the kernel
     before = counts()
-    got = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b)
-    got_g = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b, general=True)
+    got = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, bh, bw)
+    got_g = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, bh, bw, general=True)
     if counts() != (before[0] + 1, before[1] + 1, before[2], before[3]):
-        fail(f"K2 at {b}x{b} did not launch the square-block and the general "
+        fail(f"K2 at {tag} did not launch the templated and the general "
              f"kernel once each")
     if not torch.equal(got, got_g):
         fail(f"K2 {k2.name} differs from the general kernel at 1080p")
-    ref = dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, b, b)
+    ref = dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, bh, bw)
     err = (got - ref).abs().max().item()
     if not err <= 2.5e-4:
         fail(f"K2 {k2.name} max |err| {err} > 2.5e-4")
     pw = -(-1366 // 16) * 16
     rag = torch.randint(0, 256, (3, 760, 1366 * 3), generator=g,
                         dtype=torch.uint8).to(dev)
-    rag_new = dct.dct8x8_to_wire(rag, 1, 2, 768, pw, b, b)
-    if not torch.equal(rag_new, dct.dct8x8_to_wire(rag, 1, 2, 768, pw, b, b,
+    rag_new = dct.dct8x8_to_wire(rag, 1, 2, 768, pw, bh, bw)
+    if not torch.equal(rag_new, dct.dct8x8_to_wire(rag, 1, 2, 768, pw, bh, bw,
                                                    general=True)):
         fail(f"K2 {k2.name} differs from the general kernel at 1366x760")
-    rag_err = (rag_new - dct.dct8x8_to_wire_plain(rag, 1, 2, 768, pw, b, b)
+    rag_err = (rag_new - dct.dct8x8_to_wire_plain(rag, 1, 2, 768, pw, bh, bw)
                ).abs().max().item()
     if not rag_err <= 2.5e-4:
         fail(f"K2 {k2.name} max |err| {rag_err} > 2.5e-4 at 1366x760")
+
+    def new2():
+        return dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, bh, bw)
+
     gen_ms, ms, turns = in_turns(
-        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b, general=True),
-        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b), graph_ms)
-    w_ms = cuda_ms(lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, b, b))
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, bh, bw, general=True),
+        new2, graph_ms)
+    w_ms = cuda_ms(new2)
+    gw_ms = cuda_ms(
+        lambda: dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, bh, bw, general=True))
     plain_ms = cuda_ms(
-        lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, b, b), iters=5)
-    cb = torch.tensor(dct.dct_matrix(b), device=dev)
-    basis = (cb[:, None, :, None] * cb[None, :, None, :]).reshape(b * b, 1, b, b)
-    lib_ms = graph_ms(lambda: torch.nn.functional.conv2d(planes, basis, stride=b))
+        lambda: dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, bh, bw), iters=5)
+    ch = torch.tensor(dct.dct_matrix(bh), device=dev)
+    cw = torch.tensor(dct.dct_matrix(bw), device=dev)
+    basis = (ch[:, None, :, None] * cw[None, :, None, :]).reshape(bh * bw, 1, bh, bw)
+    lib_ms, _, turns_c = in_turns(
+        lambda: torch.nn.functional.conv2d(planes, basis, stride=(bh, bw)), new2,
+        graph_ms)
     # bytes: each packed byte read once, each coefficient written once;
-    # operations: 2b float64 multiply-adds (2 each) per coefficient
-    nbytes, ops = 8 * 1080 * 5760 + got.numel() * 4, 4 * b * got.numel()
+    # operations: bh + bw float64 multiply-adds (2 each) per coefficient
+    nbytes, ops = 8 * 1080 * 5760 + got.numel() * 4, 2 * (bh + bw) * got.numel()
     line = record(results, k2.name, k2, err, ms, w_ms, plain_ms, nbytes, ops,
                   lib_ms, FP64_OPS_PER_S)
     print(f"parity K2 {k2.name}: max |err| {err:.3e} <= 2.5e-4, bit-equal to "
-          f"the general kernel at 1080p and at 1366x760 ({-(-pw // b)} block "
-          f"columns, strips of {128 // b}; max |err| {rag_err:.3e}); "
+          f"the general kernel at 1080p and at 1366x760 ({-(-pw // bw)} block "
+          f"columns, strips of {128 // bw}; max |err| {rag_err:.3e}); "
           f"{ms:.4f} ms (general {gen_ms:.4f}, {gen_ms / ms:.1f}x; in turns "
           f"general, new, new, general: {', '.join(f'{x:.4f}' for x in turns)}"
-          f") vs plain {plain_ms:.4f} ms, one conv {lib_ms:.4f} ms "
-          f"({lib_ms / ms:.2f}x the kernel); {line}")
+          f"; through the wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain "
+          f"{plain_ms:.4f} ms, one conv {lib_ms:.4f} ms ({lib_ms / ms:.2f}x the "
+          f"kernel; in turns conv, new, new, conv: "
+          f"{', '.join(f'{x:.4f}' for x in turns_c)}); {line}")
 
-    # K1: 8 frames of 1088 / b block rows -> 1080 display rows at the
+    # K1: 8 frames of 1088 / bh block rows -> 1080 display rows at the
     # decoder's gaze mix of steps 1 and 640, then identity rows, then a
     # ragged shape (block columns ending mid-strip); byte-equal to the
     # general kernel, within the display gate of the plain version; timed
     # in turns at the first
-    nbx, worst, modes = 1920 // b, 0.0, []
-    for t, nby, cols, out_h in ((8, 1088 // b, nbx, 1080),
-                                (8, 1080 // 16 * 16 // b, nbx, 1080 // 16 * 16),
-                                (2, 768 // b, 1376 // b + 1 - 16 // b, 766)):
-        coeffs = (torch.randn((t, nby, cols, 3 * b * b), generator=g) * 90).to(dev)
+    nbx, worst, modes = 1920 // bw, 0.0, []
+    for t, nby, cols, out_h in ((8, 1088 // bh, nbx, 1080),
+                                (8, 1080 // 16 * 16 // bh, nbx, 1080 // 16 * 16),
+                                (2, 768 // bh, 1376 // bw + 1 - 16 // bw, 766)):
+        coeffs = (torch.randn((t, nby, cols, 3 * bh * bw), generator=g) * 90).to(dev)
         btypes = torch.randint(0, 3, (t, nby, cols), generator=g).to(dev)
         gazed = torch.zeros((t, nby, cols), dtype=torch.bool, device=dev)
-        gazed[:, nby // 2 - 64 // b:nby // 2 + 64 // b,
-              cols // 2 - 64 // b:cols // 2 + 64 // b] = True
+        gazed[:, nby // 2 - 64 // bh:nby // 2 + 64 // bh,
+              cols // 2 - 64 // bw:cols // 2 + 64 // bw] = True
         steps = quant.block_quant_steps(btypes, gazed, 1, 640)
         before = counts()
-        out = dct.idct_display(coeffs, steps, out_h, 3, b, b)
-        out_g = dct.idct_display(coeffs, steps, out_h, 3, b, b, general=True)
+        out = dct.idct_display(coeffs, steps, out_h, 3, bh, bw)
+        out_g = dct.idct_display(coeffs, steps, out_h, 3, bh, bw, general=True)
         if counts() != (before[0], before[1], before[2] + 1, before[3] + 1):
-            fail(f"K1 at {b}x{b} did not launch the square-block and the "
-                 f"general kernel once each")
+            fail(f"K1 at {tag} did not launch the templated and the general "
+                 f"kernel once each")
         if not torch.equal(out, out_g):
             fail(f"K1 {k1.name} differs from the general kernel "
-                 f"({nby * b}->{out_h} rows, {cols} block columns)")
+                 f"({nby * bh}->{out_h} rows, {cols} block columns)")
         diff = (out.to(torch.int16) - dct.idct_display_plain(
-            coeffs, steps, out_h, 3, b, b).to(torch.int16)).abs()
+            coeffs, steps, out_h, 3, bh, bw).to(torch.int16)).abs()
         frac = (diff > 0).double().mean().item()
         if diff.max().item() > 1 or not frac < 1e-3:
             fail(f"K1 {k1.name}: max diff {diff.max().item()}, {frac:.2e} of "
-                 f"bytes differ ({nby * b}->{out_h} rows)")
+                 f"bytes differ ({nby * bh}->{out_h} rows)")
         worst = max(worst, float(diff.max().item()))
-        modes.append(f"{nby * b}->{out_h} rows x {cols} block columns "
+        modes.append(f"{nby * bh}->{out_h} rows x {cols} block columns "
                      f"(T={t}): max diff {diff.max().item()}, {frac:.2e} of "
                      f"bytes differ, byte-equal to the general kernel")
         if len(modes) == 1:
             timed_in = (coeffs, steps, out_h, out)
     coeffs, steps, out_h, out = timed_in
     gen1_ms, ms1, turns1 = in_turns(
-        lambda: dct.idct_display(coeffs, steps, out_h, 3, b, b, general=True),
-        lambda: dct.idct_display(coeffs, steps, out_h, 3, b, b), graph_ms)
-    w1_ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, out_h, 3, b, b))
+        lambda: dct.idct_display(coeffs, steps, out_h, 3, bh, bw, general=True),
+        lambda: dct.idct_display(coeffs, steps, out_h, 3, bh, bw), graph_ms)
+    w1_ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, out_h, 3, bh, bw))
+    gw1_ms = cuda_ms(lambda: dct.idct_display(coeffs, steps, out_h, 3, bh, bw,
+                                              general=True))
     plain1_ms = cuda_ms(
-        lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, b, b), iters=5)
-    # dequantize (3 per coefficient), IDCT (2b multiply-adds per
+        lambda: dct.idct_display_plain(coeffs, steps, out_h, 3, bh, bw), iters=5)
+    # dequantize (3 per coefficient), IDCT (bh + bw multiply-adds per
     # coefficient), row lerp (3 per output byte)
     nbytes = coeffs.numel() * 4 + steps.numel() * 4 + out.numel()
-    ops = 3 * coeffs.numel() + 4 * b * coeffs.numel() + 3 * out.numel()
+    ops = 3 * coeffs.numel() + 2 * (bh + bw) * coeffs.numel() + 3 * out.numel()
     line = record(results, k1.name, k1, worst, ms1, w1_ms, plain1_ms, nbytes, ops)
     print(f"parity K1 {k1.name}: {'; '.join(modes)}; {ms1:.4f} ms (general "
           f"{gen1_ms:.4f}, {gen1_ms / ms1:.1f}x; in turns general, new, new, "
-          f"general: {', '.join(f'{x:.4f}' for x in turns1)}) vs plain "
-          f"{plain1_ms:.4f} ms (1088->1080 rows, T=8); {line}")
+          f"general: {', '.join(f'{x:.4f}' for x in turns1)}; through the "
+          f"wrappers {w1_ms:.4f} / {gw1_ms:.4f}) vs plain {plain1_ms:.4f} ms "
+          f"(1088->1080 rows, T=8); {line}")
 
 
 def square_resize_parity(g, dev, results, block):
@@ -1408,51 +1447,54 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
                 payloads=payloads, frames=frames, gaze=gaze, counts=counts)
 
 
-def square_round_trip(required, forbidden):
-    """Phase 7's 16x16 run: a 9-frame 1080p clip, the default config with
-    16x16 transform blocks, through :func:`round_trip` on graph replays
-    (the encoder's and the decoder's default on ``cuda``); then the same
-    clip and payloads with ``graph=False``, byte for byte; then the first 3
-    frames encoded on the CPU port (header and MV fields equal,
-    coefficients within 2.5e-4, block types within ``BLOCK_TYPE_TOL``) and
-    the first 2 payloads decoded there (the display gate)."""
+def block_shape_round_trip(shape, w, h, required, forbidden):
+    """Phase 7's runs at ``shape`` = (rows, columns) transform blocks: a
+    9-frame ``w`` x ``h`` clip, the default config with those blocks,
+    through :func:`round_trip` on graph replays (the encoder's and the
+    decoder's default on ``cuda``); then the same clip and payloads with
+    ``graph=False``, byte for byte; then the first 3 frames encoded on the
+    CPU port (header and MV fields equal, coefficients within 2.5e-4,
+    block types within ``BLOCK_TYPE_TOL``) and the first 2 payloads
+    decoded there (the display gate)."""
     from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
     from svc_tpu_torch.models.decoder import Decoder
     from svc_tpu_torch.models.encoder import Encoder, stream_encode
 
-    cfg = EncoderConfig(transform_block_w=16, transform_block_h=16)
-    run = round_trip(cfg, 1920, 1080, 9, required, forbidden)
+    bh, bw = shape
+    tag = f"phase 7: the {bh}x{bw} run at {w}x{h}"
+    cfg = EncoderConfig(transform_block_h=bh, transform_block_w=bw)
+    run = round_trip(cfg, w, h, 9, required, forbidden)
     clip, gaze, payloads = run["clip"], run["gaze"], run["payloads"]
     if not (run["enc"].graph and run["dec"].graph):
-        fail("phase 7: the 16x16 run did not take graph replays")
-    props = VideoProperties(1920, 1080, len(clip))
+        fail(f"{tag} did not take graph replays")
+    props = VideoProperties(w, h, len(clip))
     eager = Encoder(cfg, props, batch_size=8, device="cuda", graph=False)
     if b"".join(stream_encode(eager, iter(clip))) != run["stream"]:
-        fail("phase 7: the 16x16 stream differs between graph and graph=False")
+        fail(f"{tag}: the stream differs between graph and graph=False")
     eager_dec = Decoder(DecoderConfig(), run["header"], batch_size=8,
                         device="cuda", graph=False)
     eager_frames = np.stack(list(eager_dec.decode_frames(
         iter(payloads), iter([gaze] * len(payloads)))))
     if not np.array_equal(eager_frames, run["frames"]):
-        fail("phase 7: the 16x16 decode differs between graph and graph=False")
+        fail(f"{tag}: the decode differs between graph and graph=False")
     cpu_enc = Encoder(cfg, props, batch_size=2, device="cpu")
     gpu_enc = Encoder(cfg, props, batch_size=2, device="cuda")
     if cpu_enc.header().pack() != run["header"].pack():
-        fail("phase 7: the 16x16 header differs between cuda and cpu")
+        fail(f"{tag}: the header differs between cuda and cpu")
     o_gpu, o_cpu = gpu_enc.encode_batch(clip[:3], 0), cpu_enc.encode_batch(clip[:3], 0)
     if not torch.equal(o_gpu["mv_field"].cpu(), o_cpu["mv_field"]):
-        fail("phase 7: 16x16 MV fields differ between cuda and cpu")
+        fail(f"{tag}: MV fields differ between cuda and cpu")
     cerr = (o_gpu["coeffs"].cpu() - o_cpu["coeffs"]).abs().max().item()
     if not cerr <= 2.5e-4:
-        fail(f"phase 7: 16x16 coefficients differ by {cerr} > 2.5e-4 between "
-             f"cuda and cpu")
+        fail(f"{tag}: coefficients differ by {cerr} > 2.5e-4 between cuda "
+             f"and cpu")
     share = (o_gpu["block_types"].cpu() != o_cpu["block_types"]).double().mean().item()
     if share > BLOCK_TYPE_TOL:
-        fail(f"phase 7: 16x16 block types differ on {share:.3%} of blocks")
+        fail(f"{tag}: block types differ on {share:.3%} of blocks")
     cpu_dec = Decoder(DecoderConfig(), run["header"], batch_size=2, device="cpu")
     ref = np.stack(list(cpu_dec.decode_frames(iter(payloads[:2]), iter([gaze] * 2))))
-    dgate = display_gate(run["frames"][:2], ref, "16x16 decode")
-    print(f"  16x16: graph replays byte-equal to graph=False (stream and "
+    dgate = display_gate(run["frames"][:2], ref, f"{bh}x{bw} decode")
+    print(f"  {bh}x{bw}: graph replays byte-equal to graph=False (stream and "
           f"frames); card vs cpu (3 frames): header and MV fields equal, "
           f"coefficients max |err| {cerr:.3e}, block types differ on "
           f"{share:.4%}; decoded bytes {dgate}")
@@ -2209,18 +2251,22 @@ def main() -> int:
         for name, n in (("1080p", 8160), ("4K", 32400)))
     from svc_tpu_torch.ops import dct
 
-    # the specialised display kernels' and the square-block K2 and K1
-    # kernels' dynamic shared memory and threads
+    # the specialised display kernels', the templated K2 and K1 kernels'
+    # and the square-block K6 kernels' dynamic shared memory and threads
     display = {"idct8x8_display_kernel": (dct._K1_SMEM_BYTES, 192),
                "idct8x8_resize_kernel": (dct._K6_SMEM_BYTES, 224)}
-    for b in dct.DCT_WIRE_SQ:
-        display[f"dct_sq_wire_kernel<{b}>"] = (dct._k2_sq_smem_bytes(b), 384)
-        display[f"idct_sq_display_kernel<{b}>"] = (dct._k1_sq_smem_bytes(b), 192)
+    for bh, bw in dct.DCT_WIRE_SQ:
+        display[f"dct_sq_wire_kernel<{bh}, {bw}>"] = (
+            dct._k2_sq_smem_bytes(bh, bw), 384)
+        display[f"idct_sq_display_kernel<{bh}, {bw}>"] = (
+            dct._k1_sq_smem_bytes(bh, bw), 192)
+    for b in dct.IDCT_RESIZE_SQ:
         display[f"idct_sq_resize_kernel<{b}>"] = (dct._k6_sq_smem_bytes(b),
                                                   dct._K6_SQ_GEOM[b][4])
+    spills = ptxas_spills(res.log)
     display_line = "; ".join(
-        f"{kern} {regs} regs, {smem} B dynamic smem, "
-        f"{ctas_per_sm(regs, smem, threads)} CTAs of {threads} per SM"
+        f"{kern} {regs} regs, {spills[kern]} B spill stores, {smem} B dynamic "
+        f"smem, {ctas_per_sm(regs, smem, threads)} CTAs of {threads} per SM"
         for _, kern, regs, _ in report if kern in display
         for smem, threads in [display[kern]])
     # the 256-thread refine and fused pyramid kernels (K3, K4, K8), static
@@ -2269,10 +2315,18 @@ def main() -> int:
     # blocks at range 8 take the specialised K3 on every level; every
     # frame size here takes K5's cluster kernel
     general_dct = ("dct_to_wire_general", "idct_display_general")
-    # 4x4 and 16x16 blocks of 3 channels take the square-block K2 / K1
-    square_dct = {b: (dct.DCT_WIRE_SQ[b].name, dct.IDCT_DISPLAY_SQ[b].name)
-                  for b in dct.DCT_WIRE_SQ}
-    any_square = square_dct[4] + square_dct[16]
+    # the other blocks of 3 channels with both sides in {4, 8, 16} take
+    # their templated K2 / K1 (4x4, 16x16 and the six rectangles)
+    square_dct = {shape: (dct.DCT_WIRE_SQ[shape].name,
+                          dct.IDCT_DISPLAY_SQ[shape].name)
+                  for shape in dct.DCT_WIRE_SQ}
+    any_square = tuple(n for names in square_dct.values() for n in names)
+
+    def other_dct(shape):
+        """The templated K2 and K1 of every block shape but ``shape``."""
+        return tuple(n for other, names in square_dct.items()
+                     if other != shape for n in names)
+
     # 4x4 and 16x16 blocks of 3 channels on the width-excess route take the
     # square-block K6 of their size
     square_k6 = {b: (k.name,) for b, k in dct.IDCT_RESIZE_SQ.items()}
@@ -2317,10 +2371,10 @@ def main() -> int:
         other = 16 if b == 4 else 4
         wide_sq[b] = wide_square_round_trip(
             b, tuple(k for k in encode_kernels if k != "dct8x8_to_wire")
-            + ("lloyd", square_dct[b][0]) + square_k6[b],
+            + ("lloyd", square_dct[b, b][0]) + square_k6[b],
             ("dct8x8_to_wire", "idct_display", "idct_resize_display")
-            + general_dct + general_k3_k5 + general_k6 + square_dct[other]
-            + (square_dct[b][1],) + square_k6[other])
+            + general_dct + general_k3_k5 + general_k6 + other_dct((b, b))
+            + (square_dct[b, b][1],) + square_k6[other])
 
     # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
@@ -2329,22 +2383,30 @@ def main() -> int:
                general_dct + general_k3_k5 + general_k6 + any_square
                + any_square_k6)
 
-    # 7. square transform blocks other than 8x8 (the config allows any
-    # block dividing the MV block): 4x4 at CIF, then 16x16 at 1080p, each
-    # on its square-block K2 and K1 and on no other K1 or K2
+    # 7. transform blocks other than 8x8 (the config allows any block
+    # whose sides divide the MV block's): 4x4 at CIF, then 16x16 and 8x16
+    # (8 rows, 16 columns) at 1080p, then the other five rectangles at CIF,
+    # each on its templated K2 and K1 and on no other K1 or K2
     print("4x4 transform blocks, CIF 352x288, 9 frames, default config:")
     tb4 = round_trip(EncoderConfig(transform_block_w=4, transform_block_h=4),
-                     352, 288, 9, square_dct[4] + ("refine_sads", "lloyd"),
+                     352, 288, 9, square_dct[4, 4] + ("refine_sads", "lloyd"),
                      ("dct8x8_to_wire", "idct_display") + general_dct
-                     + square_dct[16] + general_k3_k5 + general_k6
+                     + other_dct((4, 4)) + general_k3_k5 + general_k6
                      + any_square_k6)
-    print("16x16 transform blocks, 1080p, 9 frames, default config:")
-    tb16 = square_round_trip(tuple(k for k in encode_kernels
-                                   if k != "dct8x8_to_wire")
-                             + ("lloyd",) + square_dct[16],
-                             ("dct8x8_to_wire", "idct_display") + general_dct
-                             + square_dct[4] + general_k3_k5 + general_k6
-                             + any_square_k6)
+    shape_runs = {}
+    for shape, (w, h) in (((16, 16), (1920, 1080)), ((8, 16), (1920, 1080)),
+                          ((4, 8), (352, 288)), ((8, 4), (352, 288)),
+                          ((4, 16), (352, 288)), ((16, 4), (352, 288)),
+                          ((16, 8), (352, 288))):
+        print(f"{shape[0]}x{shape[1]} transform blocks (rows x columns), "
+              f"{w}x{h}, 9 frames, default config:")
+        # the 1080p runs take every encode kernel; CIF at least K3 and K5
+        encode = (tuple(k for k in encode_kernels if k != "dct8x8_to_wire")
+                  if w == 1920 else ("refine_sads",))
+        shape_runs[shape] = block_shape_round_trip(
+            shape, w, h, encode + ("lloyd",) + square_dct[shape],
+            ("dct8x8_to_wire", "idct_display") + general_dct + other_dct(shape)
+            + general_k3_k5 + general_k6 + any_square_k6)
 
     # 8. card against CPU on the first 3 frames, default config
     cfg = EncoderConfig()
@@ -2453,8 +2515,9 @@ def main() -> int:
                "refine_sads_pitched": pitched_run,
                "refine_sads_pitched_general": pitched_run,
                "dct_to_wire_general": tb4, "idct_display_general": tb4,
-               **{name: tb4 for name in square_dct[4]},
-               **{name: tb16 for name in square_dct[16]},
+               **{name: tb4 for name in square_dct[4, 4]},
+               **{name: run for shape, run in shape_runs.items()
+                  for name in square_dct[shape]},
                **{square_k6[b][0]: wide_sq[b] for b in square_k6}}
     kernels = []
     for name, r in results.items():

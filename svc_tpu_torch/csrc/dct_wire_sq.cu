@@ -1,41 +1,61 @@
-// K2 for square transform blocks of 4 and 16 (dct4x4_to_wire,
-// dct16x16_to_wire): forward B x B DCT of packed 3-channel frames into the
-// bitstream's wire layout, one kernel template instantiated at B = 4 and
-// B = 16 — the transform blocks users pick beside the default 8x8 (finer
-// detail, or one transform block per 16x16 MV block).
+// K2 for transform blocks of BH rows and BW columns, BH and BW in {4, 8,
+// 16}, all but 8x8 (dct{BH}x{BW}_to_wire): forward BH x BW DCT of packed
+// 3-channel frames into the bitstream's wire layout, one kernel template
+// instantiated at the squares 4x4 and 16x16 and at the six rectangles —
+// the transform blocks users pick beside the default 8x8 (finer detail,
+// one transform block per 16x16 MV block, or sides set apart with
+// --transform-block-h / --transform-block-w).
 //
 // Replaces svc_tpu/ops/dct_pallas.py dct2_planes_to_wire_pallas (:282,
 // pallas_call :334) at those shapes. Same contract as the general kernel
 // (dct_wire_general.cu), which serves every other block shape and channel
 // count, and the same arithmetic in the same order, so the outputs are
 // bit-identical:
-//   A[k][j] = sum_i d[k][i] * x[i][j]      (i ascending)
-//   Z[k][l] = sum_j d[l][j] * A[k][j]      (j ascending)
-// with the float32 DCT matrix widened to double, double FMA chains, and one
-// rounding to the float32 output.
+//   A[k][j] = sum_i dh[k][i] * x[i][j]      (i ascending, dh: BH x BH)
+//   Z[k][l] = sum_j dw[l][j] * A[k][j]      (j ascending, dw: BW x BW)
+// with the float32 DCT matrices widened to double, double FMA chains, and
+// one rounding to the float32 output.
 //
 // Bound: 1 byte read and 4 bytes of coefficient written per pixel and
 // channel (250 MB per 8-frame 1080p batch, 0.075 ms at 3.35 TB/s), and
-// 2 * 2B float64 operations per coefficient: at B = 16 those take 0.094 ms
-// at 34 TFLOP/s, so the 16x16 kernel is bound by the FP64 pipe, the 4x4 one
-// by bytes. The design is dct_wire.cu's, its CTA shape kept and every
-// constant a function of B:
+// 2 * (BH + BW) float64 operations per coefficient: at 16x16 those take
+// 0.094 ms at 34 TFLOP/s, so the 16x16 kernel is bound by the FP64 pipe,
+// the 4x4 one by bytes, a side of 16 near both. The design is
+// dct_wire.cu's, its CTA shape kept and every constant a function of
+// (BH, BW):
 //  - one CTA of 384 threads per (frame, block row, strip of 128 pixels):
-//    32 blocks at B = 4, 8 at B = 16; a thread per (block, channel, column)
-//    in stage 1 and per (block, channel, row) in stage 2;
+//    128 / BW blocks; a thread per (block, channel, column) in stage 1
+//    and per BH coefficients of a (block, channel) pair in stage 2 — one
+//    row at BH = BW, BH / BW whole rows (q, q + BW, ...) at BH > BW, a
+//    BH-wide part of a row at BH < BW —, so both stages keep all 384
+//    threads busy at every shape. At BH < BW the part is the thread's
+//    warp's (threads [p * 384 / (BW / BH), ...) take columns [p * BH,
+//    p * BH + BH) of every row), and a switch on it makes the columns
+//    compile-time constants: the DCT matrix's entries stay immediate
+//    operands from the constant bank (indexed by lane, they become
+//    constant loads that diverge within a warp: 5.5x slower at 4x16 on
+//    an H100);
 //  - staging: warp i copies pixel rows i, i + 12, ... of the strip (384
 //    packed bytes) to shared memory with 16-byte loads where the row
 //    segment is 16-byte aligned and whole (every 1080p row), 4-byte or
 //    1-byte loads otherwise, zero past the frame;
-//  - stage 1: a thread converts its column's B pixels to double once, keeps
-//    them in registers and writes A[.][j] to shared memory; A is padded per
-//    B so that neither stage's 8-byte accesses conflict on banks;
-//  - stage 2: a thread reads A[k][.], forms Z[k][.] and stores it as B / 4
-//    float4. A strip's blocks are contiguous in the wire layout, so the CTA
-//    writes one contiguous run (6 KB at B = 4, 24 KB at B = 16);
-//  - the DCT matrix is a kernel parameter (constant bank, 2 KB at B = 16),
-//    widened on the host; every index is a compile-time constant or a
-//    shift, and the FMA loops unroll fully.
+//  - stage 1: a thread converts its column's BH pixels to double once,
+//    keeps them in registers and writes A[.][j] to shared memory; A is
+//    padded per shape so that neither stage's 8-byte accesses conflict on
+//    banks;
+//  - stage 2: a thread reads A[k][.] and forms its coefficients of row k.
+//    A strip's blocks are contiguous in the wire layout, so the CTA writes
+//    one contiguous run (3 * 128 * BH floats): at a square a thread's
+//    coefficients are BH consecutive floats of it, stored as float4; at
+//    BH < BW a BH-wide piece of a row, stored in place; at BH > BW whole
+//    rows BW floats wide and BW rows apart, which go through shared
+//    memory to one coalesced pass of float4 stores (on an H100, stored in
+//    place they took 0.09 ms of 0.16 at 8x4, 0.1618 ms against 0.1102
+//    staged; at BH < BW staging cost more than it saved, 0.1544 ms
+//    against 0.1982 at 4x16);
+//  - the DCT matrices are kernel parameters (constant bank, one matrix for
+//    a square, at most 2.5 KB), widened on the host; every index is a
+//    compile-time constant or a shift, and the FMA loops unroll fully.
 #include "common.cuh"
 
 namespace {
@@ -44,42 +64,129 @@ constexpr int kThreads = 384;
 constexpr int kStripPixels = 128;           // pixels of a strip row
 constexpr int kRowBytes = kStripPixels * 3;  // packed bytes of a strip row
 
-// Per block size B: A[k][j] of pair g at a[g * kAGroup + k * kAPitch + j]
+// Per shape: A[k][j] of pair g at a[g * kAGroup + k * kAPitch + j]
 // (doubles), and the CTAs an SM holds (registers capped to fit them).
-// B = 4: a half-warp spans 4 pairs x 4 lanes; pair strides of 20 (4 banks
-// of 8 bytes apart, mod 16) and row strides of 5 keep both stages' 16
-// addresses distinct. B = 16: a half-warp is one pair; a row stride of 17
-// does it for stage 2, stage 1 is contiguous.
-template <int B> struct SqGeom;
-template <> struct SqGeom<4> { static constexpr int kAPitch = 5, kAGroup = 20, kMinCtas = 4; };
-template <> struct SqGeom<16> { static constexpr int kAPitch = 17, kAGroup = 272, kMinCtas = 3; };
+// A half-warp's 16 8-byte accesses are free of conflicts when their
+// distinct addresses are distinct mod 16 (doubles). Stage 1 stores (lanes
+// along j, BW to a pair) need pair strides that spread the half-warp's
+// 16 / BW pairs over distinct residues; stage 2 loads (lanes along rows:
+// rows q + s * BW of a pair at BH >= BW, at BH < BW lane u of a part on
+// row u % BH of pair u / BH) also need odd row strides.
+//  4x4: 4 pairs x 4 lanes; pair stride 20 (4 banks of 8 bytes apart, mod
+//       16), row stride 5.          16x16: a half-warp is one pair; row
+//       stride 17 for stage 2, stage 1 is contiguous.
+//  4x16, 8x16: row stride 17, pair strides 68 and 136 (4 and 8 mod 16):
+//       stage 2's 4 pairs x 4 rows and 2 x 8 fall on distinct residues.
+//  4x8: stage 1's two pairs a half-warp need a pair stride of 8 mod 16,
+//       which puts stage 2's pairs g and g + 2 on the same residues: row
+//       stride 9, pair stride 40, 2-way conflicts on stage 2's 8 loads.
+//  8x4, 16x4, 16x8: row stride BW + 1 (5, 5, 9) and pair strides 44, 84,
+//       152 (12, 4, 8 mod 16) leave the 4 or 2 pairs of a half-warp on
+//       distinct residues in both stages.
+template <int BH, int BW> struct SqGeom;
+template <> struct SqGeom<4, 4> { static constexpr int kAPitch = 5, kAGroup = 20, kMinCtas = 4; };
+template <> struct SqGeom<16, 16> { static constexpr int kAPitch = 17, kAGroup = 272, kMinCtas = 3; };
+template <> struct SqGeom<4, 8> { static constexpr int kAPitch = 9, kAGroup = 40, kMinCtas = 4; };
+template <> struct SqGeom<8, 4> { static constexpr int kAPitch = 5, kAGroup = 44, kMinCtas = 4; };
+template <> struct SqGeom<4, 16> { static constexpr int kAPitch = 17, kAGroup = 68, kMinCtas = 3; };
+template <> struct SqGeom<16, 4> { static constexpr int kAPitch = 5, kAGroup = 84, kMinCtas = 3; };
+template <> struct SqGeom<8, 16> { static constexpr int kAPitch = 17, kAGroup = 136, kMinCtas = 3; };
+template <> struct SqGeom<16, 8> { static constexpr int kAPitch = 9, kAGroup = 152, kMinCtas = 3; };
 
-template <int B>
+template <int BH, int BW>
 struct Sq {
-  static constexpr int kStrip = kStripPixels / B;  // blocks per CTA
-  static constexpr int kGroups = kStrip * 3;       // (block, channel) pairs
+  static constexpr int kStrip = kStripPixels / BW;  // blocks per CTA
+  static constexpr int kGroups = kStrip * 3;        // (block, channel) pairs
   static constexpr int kABytes =
-      kGroups * SqGeom<B>::kAGroup * static_cast<int>(sizeof(double));
-  static constexpr int kSmemBytes = kABytes + B * kRowBytes;
-  static_assert(kGroups * B == kThreads, "a thread per column of a pair");
-  static_assert(SqGeom<B>::kAGroup >= B * SqGeom<B>::kAPitch, "A rows fit");
+      kGroups * SqGeom<BH, BW>::kAGroup * static_cast<int>(sizeof(double));
+  static constexpr int kSmemBytes = kABytes + BH * kRowBytes;
+  // stage 2: a thread's rows of its pair and the coefficients of each;
+  // at BH < BW a row's columns in kSplit parts of kPart threads each
+  static constexpr int kRows = BH > BW ? BH / BW : 1;
+  static constexpr int kCols = BH < BW ? BH : BW;
+  static constexpr int kSplit = BW > BH ? BW / BH : 1;
+  static constexpr int kPart = kThreads / kSplit;
+  static_assert(kPart % 32 == 0, "a part is whole warps");
+  static_assert(kGroups * BW == kThreads, "a thread per column of a pair");
+  static_assert(SqGeom<BH, BW>::kAGroup >= BH * SqGeom<BH, BW>::kAPitch,
+                "A rows fit");
 };
 
-template <int B>
+// The two DCT matrices, widened to double; a square carries one.
+template <int BH, int BW>
 struct DctD {
-  double m[B * B];
+  double h[BH * BH];
+  double w[BW * BW];
+};
+template <int B>
+struct DctD<B, B> {
+  double h[B * B];
 };
 
-template <int B>
-__global__ void __launch_bounds__(kThreads, SqGeom<B>::kMinCtas)
-dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<B> d,
+template <int BH, int BW>
+__device__ __forceinline__ double dw_at(const DctD<BH, BW>& d, int i) {
+  if constexpr (BH == BW) {
+    return d.h[i];
+  } else {
+    return d.w[i];
+  }
+}
+
+// Coefficients [L0, L0 + kCols) of one row of a pair into z: arow_s
+// points at A[k][0].
+template <int BH, int BW, int L0>
+__device__ __forceinline__ void wire_row(const double* arow_s,
+                                         const DctD<BH, BW>& d, float* z) {
+  double arow[BW];
+#pragma unroll
+  for (int j = 0; j < BW; ++j) arow[j] = arow_s[j];
+#pragma unroll
+  for (int m = 0; m < Sq<BH, BW>::kCols; ++m) {
+    const int l = L0 + m;
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < BW; ++j) acc = fma(dw_at(d, l * BW + j), arow[j], acc);
+    z[m] = static_cast<float>(acc);
+  }
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* z) {
+  *reinterpret_cast<float4*>(dst) = make_float4(z[0], z[1], z[2], z[3]);
+}
+
+// BH < BW: the part p's BH coefficients of a row (columns p * BH, a
+// compile-time constant in each branch), stored in place at o + p * BH
+// where `store`. The coefficients stay in the branch: carried out of the
+// switch, they left registers (34 registers and 0.4506 ms at 4x16 on an
+// H100, against 52 and 0.1544).
+template <int BH, int BW, int P = 0>
+__device__ __forceinline__ void wire_part(int p, const double* arow_s,
+                                          const DctD<BH, BW>& d, float* o,
+                                          bool store) {
+  if constexpr (P < Sq<BH, BW>::kSplit) {
+    if (p == P) {
+      float z[BH];
+      wire_row<BH, BW, P * BH>(arow_s, d, z);
+      if (store) {
+#pragma unroll
+        for (int q = 0; q < BH / 4; ++q) store4(o + P * BH + 4 * q, z + 4 * q);
+      }
+    } else {
+      wire_part<BH, BW, P + 1>(p, arow_s, d, o, store);
+    }
+  }
+}
+
+template <int BH, int BW>
+__global__ void __launch_bounds__(kThreads, SqGeom<BH, BW>::kMinCtas)
+dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<BH, BW> d,
                    float* __restrict__ out, int frame_offset, int frame_h,
                    int frame_w, int nby, int nbx) {
-  constexpr int kStrip = Sq<B>::kStrip;
-  constexpr int kAPitch = SqGeom<B>::kAPitch;
+  constexpr int kStrip = Sq<BH, BW>::kStrip;
+  constexpr int kAPitch = SqGeom<BH, BW>::kAPitch;
   extern __shared__ __align__(16) unsigned char smem_sq[];
   double* a = reinterpret_cast<double*>(smem_sq);
-  uint8_t* px = smem_sq + Sq<B>::kABytes;
+  uint8_t* px = smem_sq + Sq<BH, BW>::kABytes;
 
   const int t = blockIdx.z;
   const int by = blockIdx.y;
@@ -91,9 +198,9 @@ dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<B> d,
   // staging: warp w copies pixel rows w, w + 12, ... of the strip
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int i = warp; i < B; i += kThreads / 32) {
-    const int y = by * B + i;
-    const int x0 = bx0 * B;
+  for (int i = warp; i < BH; i += kThreads / 32) {
+    const int y = by * BH + i;
+    const int x0 = bx0 * BW;
     const int valid =
         y < frame_h ? min(kRowBytes, max(0, (frame_w - x0) * 3)) : 0;
     const uint8_t* src =
@@ -118,67 +225,103 @@ dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<B> d,
   }
   __syncthreads();
 
-  const int g = threadIdx.x / B;       // block * 3 + channel (B: a power of 2)
-  const int r = threadIdx.x & (B - 1);  // column j in stage 1, row k in stage 2
+  const int g = threadIdx.x / BW;  // block * 3 + channel (BW: a power of 2)
+  const int r = threadIdx.x & (BW - 1);  // column j in stage 1; q in stage 2
   const int blk = g / 3;
   const int c = g - 3 * blk;
-  double* ag = a + g * SqGeom<B>::kAGroup;
+  double* ag = a + g * SqGeom<BH, BW>::kAGroup;
 
   // stage 1: column r of pair g
   {
-    double x[B];
+    double x[BH];
 #pragma unroll
-    for (int i = 0; i < B; ++i) {
-      x[i] = static_cast<double>(px[i * kRowBytes + (blk * B + r) * 3 + c]);
+    for (int i = 0; i < BH; ++i) {
+      x[i] = static_cast<double>(px[i * kRowBytes + (blk * BW + r) * 3 + c]);
     }
 #pragma unroll
-    for (int k = 0; k < B; ++k) {
+    for (int k = 0; k < BH; ++k) {
       double acc = 0.0;
 #pragma unroll
-      for (int i = 0; i < B; ++i) acc = fma(d.m[k * B + i], x[i], acc);
+      for (int i = 0; i < BH; ++i) acc = fma(d.h[k * BH + i], x[i], acc);
       ag[k * kAPitch + r] = acc;
     }
   }
   __syncthreads();
 
-  // stage 2: row r of pair g, four coefficients at a time
-  double arow[B];
+  // stage 2: this thread's BH coefficients, the part's columns of row
+  // u % BH of pair u / BH (BH < BW), or rows r + s * BW of pair g
+  // (BH >= BW); the strip's coefficients are one contiguous run of the
+  // wire layout
+  float* os = out + ((static_cast<size_t>(t) * nby + by) * nbx + bx0) *
+                        (3 * BH * BW);
+  if constexpr (BH < BW) {
+    // a BH-wide piece of a row, in place: a warp's pieces are BH rows of
+    // its pairs, at a stride of BW floats
+    const int p = threadIdx.x / Sq<BH, BW>::kPart;  // warp-uniform
+    const int u = threadIdx.x - p * Sq<BH, BW>::kPart;
+    const int g2 = u / BH;
+    const int k = u & (BH - 1);
+    wire_part<BH, BW>(p, a + g2 * SqGeom<BH, BW>::kAGroup + k * kAPitch, d,
+                      os + g2 * (BH * BW) + k * BW, g2 / 3 < nblk);
+  } else {
+    float z[BH];
 #pragma unroll
-  for (int j = 0; j < B; ++j) arow[j] = ag[r * kAPitch + j];
-  // wire offset of (block, channel, row) within the strip: thread * B
-  float4* o = reinterpret_cast<float4*>(
-      out + ((static_cast<size_t>(t) * nby + by) * nbx + bx0) * (3 * B * B) +
-      threadIdx.x * B);
-#pragma unroll
-  for (int q = 0; q < B / 4; ++q) {
-    float z[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int l = 4 * q + m;
-      double acc = 0.0;
-#pragma unroll
-      for (int j = 0; j < B; ++j) acc = fma(d.m[l * B + j], arow[j], acc);
-      z[m] = static_cast<float>(acc);
+    for (int s = 0; s < Sq<BH, BW>::kRows; ++s) {
+      wire_row<BH, BW, 0>(ag + (r + s * BW) * kAPitch, d, z + s * BW);
     }
-    if (blk < nblk) o[q] = make_float4(z[0], z[1], z[2], z[3]);
+    if constexpr (BH == BW) {
+      // row r of pair g is floats [threadIdx.x * B, + B) of the run
+      if (blk < nblk) {
+#pragma unroll
+        for (int q = 0; q < BH / 4; ++q) {
+          store4(os + threadIdx.x * BH + 4 * q, z + 4 * q);
+        }
+      }
+    } else {
+      // rows q + s * BW are not contiguous: through shared memory (over A,
+      // once every thread has read it), then out as one coalesced run of
+      // 16-byte stores
+      float* zs = reinterpret_cast<float*>(smem_sq);
+      static_assert(kThreads * BH * static_cast<int>(sizeof(float)) <=
+                    Sq<BH, BW>::kABytes, "the run fits over A");
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < Sq<BH, BW>::kRows; ++s) {
+#pragma unroll
+        for (int q = 0; q < BW / 4; ++q) {
+          store4(zs + g * (BH * BW) + (r + s * BW) * BW + 4 * q,
+                 z + s * BW + 4 * q);
+        }
+      }
+      __syncthreads();
+      const int n4 = nblk * (3 * BH * BW / 4);
+      for (int i = threadIdx.x; i < n4; i += kThreads) {
+        reinterpret_cast<float4*>(os)[i] =
+            reinterpret_cast<const float4*>(zs)[i];
+      }
+    }
   }
 }
 
-template <int B>
-int launch_sq(const void* packed, const void* d, void* out, int t_count,
-              int frame_offset, int frame_h, int frame_w, int nby, int nbx,
-              void* stream) {
-  DctD<B> m;
-  for (int i = 0; i < B * B; ++i) m.m[i] = static_cast<const float*>(d)[i];
+template <int BH, int BW>
+int launch_sq(const void* packed, const void* dh, const void* dw, void* out,
+              int t_count, int frame_offset, int frame_h, int frame_w,
+              int nby, int nbx, void* stream) {
+  DctD<BH, BW> m;
+  for (int i = 0; i < BH * BH; ++i) m.h[i] = static_cast<const float*>(dh)[i];
+  if constexpr (BH != BW) {
+    for (int i = 0; i < BW * BW; ++i) m.w[i] = static_cast<const float*>(dw)[i];
+  }
   // set on every call: the attribute is per device, and a process may
   // launch on several
   const cudaError_t err = cudaFuncSetAttribute(
-      dct_sq_wire_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Sq<B>::kSmemBytes);
+      dct_sq_wire_kernel<BH, BW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Sq<BH, BW>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nbx + Sq<B>::kStrip - 1) / Sq<B>::kStrip, nby, t_count);
-  dct_sq_wire_kernel<B><<<grid, kThreads, Sq<B>::kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((nbx + Sq<BH, BW>::kStrip - 1) / Sq<BH, BW>::kStrip, nby,
+                  t_count);
+  dct_sq_wire_kernel<BH, BW><<<grid, kThreads, Sq<BH, BW>::kSmemBytes,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), m, static_cast<float*>(out),
       frame_offset, frame_h, frame_w, nby, nbx);
   return static_cast<int>(cudaGetLastError());
@@ -186,21 +329,24 @@ int launch_sq(const void* packed, const void* d, void* out, int t_count,
 
 }  // namespace
 
-// packed: (N, frame_h, frame_w*3) uint8 on the card; d: HOST pointer to
-// the (B, B) float32 DCT-II matrix (passed to the kernel by value); out:
-// (t_count, nby, nbx, 3*B*B) float32 on the card.
-SVC_EXPORT int svc_dct4x4_to_wire(const void* packed, const void* d,
-                                  void* out, int t_count, int frame_offset,
-                                  int frame_h, int frame_w, int nby, int nbx,
-                                  void* stream) {
-  return launch_sq<4>(packed, d, out, t_count, frame_offset, frame_h,
-                      frame_w, nby, nbx, stream);
-}
+// packed: (N, frame_h, frame_w*3) uint8 on the card; dh, dw: HOST pointers
+// to the (BH, BH) and (BW, BW) float32 DCT-II matrices (passed to the
+// kernel by value; a square reads dh only); out: (t_count, nby, nbx,
+// 3*BH*BW) float32 on the card.
+#define SVC_DCT_SQ_ENTRY(BH, BW)                                              \
+  SVC_EXPORT int svc_dct##BH##x##BW##_to_wire(                                \
+      const void* packed, const void* dh, const void* dw, void* out,          \
+      int t_count, int frame_offset, int frame_h, int frame_w, int nby,       \
+      int nbx, void* stream) {                                                \
+    return launch_sq<BH, BW>(packed, dh, dw, out, t_count, frame_offset,      \
+                             frame_h, frame_w, nby, nbx, stream);             \
+  }
 
-SVC_EXPORT int svc_dct16x16_to_wire(const void* packed, const void* d,
-                                    void* out, int t_count, int frame_offset,
-                                    int frame_h, int frame_w, int nby,
-                                    int nbx, void* stream) {
-  return launch_sq<16>(packed, d, out, t_count, frame_offset, frame_h,
-                       frame_w, nby, nbx, stream);
-}
+SVC_DCT_SQ_ENTRY(4, 4)
+SVC_DCT_SQ_ENTRY(16, 16)
+SVC_DCT_SQ_ENTRY(4, 8)
+SVC_DCT_SQ_ENTRY(8, 4)
+SVC_DCT_SQ_ENTRY(4, 16)
+SVC_DCT_SQ_ENTRY(16, 4)
+SVC_DCT_SQ_ENTRY(8, 16)
+SVC_DCT_SQ_ENTRY(16, 8)

@@ -1,8 +1,9 @@
-// K1 for square transform blocks of 4 and 16 (idct4x4_display,
-// idct16x16_display): the decoder's display hot path — dequantize, inverse
-// B x B DCT, bilinear row resample from the padded height to the display
-// height, round, clip, interleaved BGR bytes — one kernel template
-// instantiated at B = 4 and B = 16 for 3 channels.
+// K1 for transform blocks of BH rows and BW columns, BH and BW in {4, 8,
+// 16}, all but 8x8 (idct{BH}x{BW}_display): the decoder's display hot
+// path — dequantize, inverse BH x BW DCT, bilinear row resample from the
+// padded height to the display height, round, clip, interleaved BGR bytes
+// — one kernel template instantiated at the squares 4x4 and 16x16 and at
+// the six rectangles, for 3 channels.
 //
 // Replaces svc_tpu/ops/dct_pallas.py idct_wire_to_pitched_pallas (:692,
 // pallas_call :807; its zero-excess mode is the identity rows here) and
@@ -14,28 +15,36 @@
 // so the two kernels' bytes are equal.
 //
 // Bound: memory — 4 bytes of coefficient read per display byte written
-// (250 MB per 8-frame 1080p batch, 0.075 ms at every B; the 4B float32
-// operations per pixel and channel take 0.048 ms at B = 16). The design is
-// idct_display.cu's, its CTA shape kept and every constant a function of B:
-//  - one CTA of 192 threads per (frame, strip of 64 pixels — 16 block
-//    columns at B = 4, 4 at B = 16 —, band of output rows). It walks down
-//    the band's source block rows one at a time; each is dequantized and
-//    transformed once, plus one halo block row per band. A ring of the
-//    last 2B pixel rows carries the previous block row, which the row lerp
-//    of an output row may still need (y1 <= y0 + 1);
+// (250 MB per 8-frame 1080p batch, 0.075 ms at every shape; the
+// 2 * (BH + BW) float32 operations per pixel and channel take 0.048 ms at
+// 16x16). The design is idct_display.cu's, its CTA shape kept and every
+// constant a function of (BH, BW):
+//  - one CTA of 192 threads per (frame, strip of 64 pixels — 64 / BW block
+//    columns —, band of output rows). It walks down the band's source
+//    block rows (BH pixel rows each) one at a time; each is dequantized
+//    and transformed once, plus one halo block row per band. A ring of
+//    the last 2 BH pixel rows carries the previous block row, which the
+//    row lerp of an output row may still need (y1 <= y0 + 1);
 //  - the coefficients of the block row after next (one contiguous run of
-//    strip * 3 * B^2 floats: 3 KB at B = 4, 12 KB at B = 16) and their
-//    steps arrive by cp.async into one of two shared-memory slots while
-//    the current block row is emitted and the next one transformed;
-//  - columns: thread (block, channel, column l) dequantizes its B
+//    strip * 3 * BH * BW floats, 3 KB to 12 KB) and their steps arrive by
+//    cp.async into one of two shared-memory slots while the current block
+//    row is emitted and the next one transformed;
+//  - columns: thread (block, channel, column l) dequantizes its BH
 //    coefficients and transforms them in registers, writing the result
-//    back in place; rows: thread (block, channel, row i) transforms a row
-//    (16-byte loads) and stores its B pixels interleaved into the ring.
-//    The slot is padded per B so that neither stage conflicts on banks;
+//    back in place; rows: a thread transforms BH pixels of a pair — row q
+//    of pair g (thread (g, q)) at BH = BW, rows q, q + BW, ... at BH > BW,
+//    at BH < BW columns [p * BH, p * BH + BH) of row u % BH of pair u / BH
+//    (thread u of part p, the threads split in BW / BH parts) — from
+//    16-byte loads and stores them interleaved into the ring, so every
+//    thread works in both stages. A switch on the part makes its columns
+//    compile-time constants, so the DCT matrix's entries stay immediate
+//    operands from the constant bank (at 4x16 a part is 48 threads: two
+//    of the six warps take two parts in turn). The slot is padded per
+//    shape against bank conflicts;
 //  - output: a thread blends one 16-byte run of an output row and stores
 //    it with one 16-byte store;
 //  - host tables carry the geometry (ops/dct.py _band_tables with the
-//    block size and the strip), so one kernel serves the resample route
+//    block height and the strip), so one kernel serves the resample route
 //    and, with y0 = y1 = Y and f = 0, the identity route. Every index in
 //    the loops is a compile-time constant or a shift.
 #include "idct8x8.cuh"
@@ -53,51 +62,95 @@ constexpr int kRingPitch = kChunks * 20 + 4;
 // a band's per-row tables: two ring offsets and a weight per output row
 constexpr int kMaxBandRows = 128;
 
-// Per block size B: element (k, l) of pair g at g * kCoefGroup + k *
-// kCoefPitch + l in a coefficient slot (floats), and the CTAs an SM holds.
-// Column stage (lanes along l, 4-byte accesses): the pairs of a warp start
-// at distinct multiples of 4 banks (B = 4: kCoefGroup / 4 odd) or 16 (B =
-// 16). Row stage (lanes along k, 16-byte loads): a quarter-warp's rows
-// start at distinct multiples of 4 banks (B = 4: row stride 8 and odd pair
-// offsets; B = 16: row stride 20, 5 groups of 4 banks).
-template <int B> struct SqGeom;
-template <> struct SqGeom<4> { static constexpr int kCoefPitch = 8, kCoefGroup = 36, kMinCtas = 6; };
-template <> struct SqGeom<16> { static constexpr int kCoefPitch = 20, kCoefGroup = 336, kMinCtas = 3; };
+// Per shape: element (k, l) of pair g at g * kCoefGroup + k * kCoefPitch
+// + l in a coefficient slot (floats), and the CTAs an SM holds. Column
+// stage (lanes along l, BW to a pair, 4-byte accesses): a warp's 32 / BW
+// pairs start at distinct multiples of BW banks. Row stage (16-byte loads,
+// a quarter-warp's 8 rows at distinct multiples of 4 banks):
+//  4x4: row stride 8, odd pair offsets (kCoefGroup / 4 odd). 16x16: row
+//       stride 20, 5 groups of 4 banks.
+//  4x16, 8x16: row stride 20 and pair strides 80 and 176 keep a
+//       quarter-warp's 2 pairs x 4 rows and 8 rows apart, and a warp's 2
+//       column groups.
+//  4x8: the column stage's 4 pairs a warp need pair strides of 8 mod 32
+//       floats, which puts the row stage's pairs g and g + 2 on the same
+//       bank groups: row stride 8, pair stride 40, 2-way conflicts on its
+//       2 float4 loads a block row.
+//  8x4, 16x8: rows q + s * BW; row strides 8 and 12, pair strides 68 and
+//       200 (17 and 50 groups of 4 banks).
+//  16x4: row stride 4 and pair stride 68 keep the column stage (16 rows
+//       of a pair) free, but a quarter-warp's two pairs meet on one bank
+//       group in the row stage: 2-way conflicts on its 4 float4 loads a
+//       block row. The free layout (row stride 8, pair stride 132) needs
+//       83,584 bytes of shared memory, 2 CTAs an SM; this one 59,008, 3.
+// kMinCtas caps the registers at 65,536 / (192 kMinCtas): 4x8 and 4x16
+// fit 6 CTAs in 56 and 55 registers without spills (ptxas on sm_90a);
+// 8x16 takes 4 (80 registers): at 5 (63) it ran 0.7% slower on an H100.
+template <int BH, int BW> struct SqGeom;
+template <> struct SqGeom<4, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 36, kMinCtas = 6; };
+template <> struct SqGeom<16, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 336, kMinCtas = 3; };
+template <> struct SqGeom<4, 8> { static constexpr int kCoefPitch = 8, kCoefGroup = 40, kMinCtas = 6; };
+template <> struct SqGeom<8, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 68, kMinCtas = 5; };
+template <> struct SqGeom<4, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 80, kMinCtas = 6; };
+template <> struct SqGeom<16, 4> { static constexpr int kCoefPitch = 4, kCoefGroup = 68, kMinCtas = 3; };
+template <> struct SqGeom<8, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 176, kMinCtas = 4; };
+template <> struct SqGeom<16, 8> { static constexpr int kCoefPitch = 12, kCoefGroup = 200, kMinCtas = 3; };
 
-template <int B>
+template <int BH, int BW>
 struct Sq {
-  static constexpr int kStrip = kStripPixels / B;  // block columns per CTA
-  static constexpr int kGroups = kStrip * 3;       // (block, channel) pairs
-  static constexpr int kSlot = kGroups * SqGeom<B>::kCoefGroup;
-  static constexpr int kRingRows = 2 * B;  // the current and previous block row
+  static constexpr int kStrip = kStripPixels / BW;  // block columns per CTA
+  static constexpr int kGroups = kStrip * 3;        // (block, channel) pairs
+  static constexpr int kSlot = kGroups * SqGeom<BH, BW>::kCoefGroup;
+  static constexpr int kRingRows = 2 * BH;  // this block row and the last
   static constexpr int kSmemBytes =
       (2 * kSlot + kRingRows * kRingPitch + 2 * kStrip + 3 * kMaxBandRows) *
       static_cast<int>(sizeof(float));
-  static_assert(kGroups * B == kThreads, "a thread per column of a pair");
-  static_assert(SqGeom<B>::kCoefGroup >= B * SqGeom<B>::kCoefPitch,
+  // row stage: a thread's rows of its pair and the pixels of each; at
+  // BH < BW a row's columns in kSplit parts of kPart threads each
+  static constexpr int kRows = BH > BW ? BH / BW : 1;
+  static constexpr int kCols = BH < BW ? BH : BW;
+  static constexpr int kSplit = BW > BH ? BW / BH : 1;
+  static constexpr int kPart = kThreads / kSplit;
+  static_assert(kGroups * BW == kThreads, "a thread per column of a pair");
+  static_assert(SqGeom<BH, BW>::kCoefGroup >= BH * SqGeom<BH, BW>::kCoefPitch,
                 "slot rows fit");
 };
 
-template <int B>
+// The two DCT matrices; a square carries one.
+template <int BH, int BW>
 struct DctF {
-  float m[B * B];
+  float h[BH * BH];
+  float w[BW * BW];
 };
+template <int B>
+struct DctF<B, B> {
+  float h[B * B];
+};
+
+template <int BH, int BW>
+__device__ __forceinline__ float dw_at(const DctF<BH, BW>& d, int i) {
+  if constexpr (BH == BW) {
+    return d.h[i];
+  } else {
+    return d.w[i];
+  }
+}
 
 // Coefficients and steps of blocks [blk0, blk0 + nblk) (flat block index)
 // into a slot, as one cp.async group per thread.
-template <int B>
+template <int BH, int BW>
 __device__ __forceinline__ void fetch_sq_row(const float* __restrict__ coeffs,
                                              const float* __restrict__ steps,
                                              size_t blk0, int nblk,
                                              float* slot, float* slot_steps) {
-  constexpr int kPairChunks = B * B / 4;  // 16-byte chunks of a pair
-  constexpr int kRowChunks = B / 4;       // of a coefficient row
-  const float* src = coeffs + blk0 * (3 * B * B);
+  constexpr int kPairChunks = BH * BW / 4;  // 16-byte chunks of a pair
+  constexpr int kRowChunks = BW / 4;        // of a coefficient row
+  const float* src = coeffs + blk0 * (3 * BH * BW);
   for (int ch = threadIdx.x; ch < nblk * 3 * kPairChunks; ch += kThreads) {
     const int g = ch / kPairChunks;
     const int e = ch & (kPairChunks - 1);
-    cp_async16(slot + g * SqGeom<B>::kCoefGroup +
-                   (e / kRowChunks) * SqGeom<B>::kCoefPitch +
+    cp_async16(slot + g * SqGeom<BH, BW>::kCoefGroup +
+                   (e / kRowChunks) * SqGeom<BH, BW>::kCoefPitch +
                    (e & (kRowChunks - 1)) * 4,
                src + ch * 4);
   }
@@ -108,49 +161,94 @@ __device__ __forceinline__ void fetch_sq_row(const float* __restrict__ coeffs,
 }
 
 // Columns of pair g: dequantize + inverse transform of column r, in place.
-template <int B>
+template <int BH, int BW>
 __device__ __forceinline__ void sq_column_stage(float* grp, float step,
-                                                const DctF<B>& d, int r) {
-  constexpr int kPitch = SqGeom<B>::kCoefPitch;
-  float q[B];
+                                                const DctF<BH, BW>& d, int r) {
+  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+  float q[BH];
 #pragma unroll
-  for (int k = 0; k < B; ++k) {
+  for (int k = 0; k < BH; ++k) {
     const float y = __fdiv_rn(grp[k * kPitch + r], step);
     const float mag = __fmul_rn(floorf(__fadd_rn(fabsf(y), 0.5f)), step);
     q[k] = copysignf(mag, y);
   }
 #pragma unroll
-  for (int i = 0; i < B; ++i) {
+  for (int i = 0; i < BH; ++i) {
     float acc = 0.f;
 #pragma unroll
-    for (int k = 0; k < B; ++k) acc = fmaf(q[k], d.m[k * B + i], acc);
+    for (int k = 0; k < BH; ++k) acc = fmaf(q[k], d.h[k * BH + i], acc);
     grp[i * kPitch + r] = acc;
   }
 }
 
-// Rows of pair g (block blk, channel c): the B pixels of row r, j
-// ascending, into ring row `dst`, interleaved.
-template <int B>
-__device__ __forceinline__ void sq_ring_row(const float* grp, float* dst,
-                                            const DctF<B>& d, int r, int blk,
-                                            int c) {
-  float a[B];
+// Pixels [J0, J0 + kCols) of one row of pair (block blk, channel c), j
+// ascending: arow points at the row in the slot, dst at its ring row.
+template <int BH, int BW, int J0>
+__device__ __forceinline__ void ring_row(const float* arow, float* dst,
+                                         const DctF<BH, BW>& d, int blk,
+                                         int c) {
+  float a[BW];
 #pragma unroll
-  for (int q = 0; q < B / 4; ++q) {
-    const float4 v = *reinterpret_cast<const float4*>(
-        grp + r * SqGeom<B>::kCoefPitch + 4 * q);
+  for (int q = 0; q < BW / 4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(arow + 4 * q);
     a[4 * q] = v.x;
     a[4 * q + 1] = v.y;
     a[4 * q + 2] = v.z;
     a[4 * q + 3] = v.w;
   }
 #pragma unroll
-  for (int j = 0; j < B; ++j) {
+  for (int jj = 0; jj < Sq<BH, BW>::kCols; ++jj) {
+    const int j = J0 + jj;
     float acc = 0.f;
 #pragma unroll
-    for (int l = 0; l < B; ++l) acc = fmaf(a[l], d.m[l * B + j], acc);
-    const int e = (blk * B + j) * 3 + c;
+    for (int l = 0; l < BW; ++l) acc = fmaf(a[l], dw_at(d, l * BW + j), acc);
+    const int e = (blk * BW + j) * 3 + c;
     dst[(e >> 4) * 20 + (e & 15)] = acc;
+  }
+}
+
+// ring_row at the part p's columns (p * BH), as a compile-time constant.
+template <int BH, int BW, int P = 0>
+__device__ __forceinline__ void ring_part(int p, const float* arow, float* dst,
+                                          const DctF<BH, BW>& d, int blk,
+                                          int c) {
+  if constexpr (P < Sq<BH, BW>::kSplit) {
+    if (p == P) {
+      ring_row<BH, BW, P * BH>(arow, dst, d, blk, c);
+    } else {
+      ring_part<BH, BW, P + 1>(p, arow, dst, d, blk, c);
+    }
+  }
+}
+
+// The row stage of block row b from a slot into the ring: this thread's
+// BH pixels, interleaved.
+template <int BH, int BW>
+__device__ __forceinline__ void sq_ring_rows(const float* slot, float* ring,
+                                             const DctF<BH, BW>& d, int b) {
+  constexpr int kRingRows = Sq<BH, BW>::kRingRows;
+  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+  if constexpr (BH >= BW) {
+    const int g = threadIdx.x / BW;
+    const int r = threadIdx.x & (BW - 1);
+    const int blk = g / 3;
+#pragma unroll
+    for (int s = 0; s < Sq<BH, BW>::kRows; ++s) {
+      const int i = r + s * BW;
+      ring_row<BH, BW, 0>(
+          slot + g * SqGeom<BH, BW>::kCoefGroup + i * kPitch,
+          ring + ((b * BH + i) & (kRingRows - 1)) * kRingPitch, d, blk,
+          g - 3 * blk);
+    }
+  } else {
+    const int p = threadIdx.x / Sq<BH, BW>::kPart;
+    const int u = threadIdx.x - p * Sq<BH, BW>::kPart;
+    const int g = u / BH;
+    const int i = u & (BH - 1);
+    const int blk = g / 3;
+    ring_part<BH, BW>(p, slot + g * SqGeom<BH, BW>::kCoefGroup + i * kPitch,
+                      ring + ((b * BH + i) & (kRingRows - 1)) * kRingPitch, d,
+                      blk, g - 3 * blk);
   }
 }
 
@@ -161,10 +259,10 @@ __device__ __forceinline__ uint32_t pack4(float4 v) {
          static_cast<uint32_t>(display_byte(v.w)) << 24;
 }
 
-template <int B>
-__global__ void __launch_bounds__(kThreads, SqGeom<B>::kMinCtas)
+template <int BH, int BW>
+__global__ void __launch_bounds__(kThreads, SqGeom<BH, BW>::kMinCtas)
 idct_sq_display_kernel(const float* __restrict__ coeffs,
-                       const float* __restrict__ steps, const DctF<B> d,
+                       const float* __restrict__ steps, const DctF<BH, BW> d,
                        const int32_t* __restrict__ y0,
                        const int32_t* __restrict__ y1,
                        const float* __restrict__ fy,
@@ -172,10 +270,10 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
                        const int32_t* __restrict__ band_b,
                        uint8_t* __restrict__ out, int out_h, int nby,
                        int nbx, int band_rows) {
-  constexpr int kStrip = Sq<B>::kStrip;
-  constexpr int kSlot = Sq<B>::kSlot;
-  constexpr int kRingRows = Sq<B>::kRingRows;
-  constexpr int kGroup = SqGeom<B>::kCoefGroup;
+  constexpr int kStrip = Sq<BH, BW>::kStrip;
+  constexpr int kSlot = Sq<BH, BW>::kSlot;
+  constexpr int kRingRows = Sq<BH, BW>::kRingRows;
+  constexpr int kGroup = SqGeom<BH, BW>::kCoefGroup;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem + 2 * kSlot;
   float* slot_steps = ring + kRingRows * kRingPitch;
@@ -188,25 +286,25 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   const int band = blockIdx.y;
   const int bx0 = blockIdx.x * kStrip;
   const int nblk = min(kStrip, nbx - bx0);
-  const int valid = nblk * B * 3;  // display bytes of this strip's rows
+  const int valid = nblk * BW * 3;  // display bytes of this strip's rows
   const int yb0 = band * band_rows;
   const int yb1 = min(out_h, yb0 + band_rows);
   const int b_first = band_b[2 * band];
   const int b_last = band_b[2 * band + 1];
-  const size_t row_bytes = static_cast<size_t>(nbx) * B * 3;
+  const size_t row_bytes = static_cast<size_t>(nbx) * BW * 3;
   const bool aligned = (row_bytes & 15) == 0;  // every row start is
   uint8_t* out_t = out + static_cast<size_t>(t) * out_h * row_bytes +
-                   static_cast<size_t>(bx0) * B * 3;
+                   static_cast<size_t>(bx0) * BW * 3;
   const size_t blk_row0 = static_cast<size_t>(t) * nby * nbx + bx0;
 
-  const int g = threadIdx.x / B;        // block * 3 + channel
-  const int r = threadIdx.x & (B - 1);  // column l, then row i
+  // the column stage's pair (block * 3 + channel) and column
+  const int g = threadIdx.x / BW;
+  const int r = threadIdx.x & (BW - 1);
   const int blk = g / 3;
-  const int c = g - 3 * blk;
 
-  fetch_sq_row<B>(coeffs, steps,
-                  blk_row0 + static_cast<size_t>(b_first) * nbx, nblk, smem,
-                  slot_steps);
+  fetch_sq_row<BH, BW>(coeffs, steps,
+                       blk_row0 + static_cast<size_t>(b_first) * nbx, nblk,
+                       smem, slot_steps);
   for (int i = threadIdx.x; i < yb1 - yb0; i += kThreads) {
     band_r0[i] = (y0[yb0 + i] & (kRingRows - 1)) * kRingPitch;
     band_r1[i] = (y1[yb0 + i] & (kRingRows - 1)) * kRingPitch;
@@ -215,11 +313,11 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   cp_async_wait_all();
   __syncthreads();
   if (b_first < b_last) {
-    fetch_sq_row<B>(coeffs, steps,
-                    blk_row0 + static_cast<size_t>(b_first + 1) * nbx, nblk,
-                    smem + kSlot, slot_steps + kStrip);
+    fetch_sq_row<BH, BW>(coeffs, steps,
+                         blk_row0 + static_cast<size_t>(b_first + 1) * nbx,
+                         nblk, smem + kSlot, slot_steps + kStrip);
   }
-  sq_column_stage<B>(smem + g * kGroup, slot_steps[blk], d, r);
+  sq_column_stage<BH, BW>(smem + g * kGroup, slot_steps[blk], d, r);
 
   // Per block row b, two phases: (1) the rows stage of b into the ring;
   // (2) the output rows that b completes, the next block row's column
@@ -229,15 +327,13 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
     const int ya = max(yb0, row_lo[b]);
     const int yz = min(yb1, row_lo[b + 1]);
     __syncthreads();
-    sq_ring_row<B>(smem + s * kSlot + g * kGroup,
-                   ring + ((b * B + r) & (kRingRows - 1)) * kRingPitch, d, r,
-                   blk, c);
+    sq_ring_rows<BH, BW>(smem + s * kSlot, ring, d, b);
     cp_async_wait_all();
     __syncthreads();
     if (b + 2 <= b_last) {
-      fetch_sq_row<B>(coeffs, steps,
-                      blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
-                      smem + s * kSlot, slot_steps + s * kStrip);
+      fetch_sq_row<BH, BW>(coeffs, steps,
+                           blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
+                           smem + s * kSlot, slot_steps + s * kStrip);
     }
     for (int task = threadIdx.x; task < (yz - ya) * kChunks;
          task += kThreads) {
@@ -276,30 +372,33 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
       }
     }
     if (b == b_last) break;
-    sq_column_stage<B>(smem + (s ^ 1) * kSlot + g * kGroup,
-                       slot_steps[(s ^ 1) * kStrip + blk], d, r);
+    sq_column_stage<BH, BW>(smem + (s ^ 1) * kSlot + g * kGroup,
+                            slot_steps[(s ^ 1) * kStrip + blk], d, r);
   }
 }
 
-template <int B>
-int launch_sq(const void* coeffs, const void* steps, const void* d,
-              const void* y0, const void* y1, const void* fy,
+template <int BH, int BW>
+int launch_sq(const void* coeffs, const void* steps, const void* dh,
+              const void* dw, const void* y0, const void* y1, const void* fy,
               const void* row_lo, const void* band_b, void* out, int t_count,
               int out_h, int nby, int nbx, int band_rows, int n_bands,
               void* stream) {
-  DctF<B> m;
-  for (int i = 0; i < B * B; ++i) m.m[i] = static_cast<const float*>(d)[i];
+  DctF<BH, BW> m;
+  for (int i = 0; i < BH * BH; ++i) m.h[i] = static_cast<const float*>(dh)[i];
+  if constexpr (BH != BW) {
+    for (int i = 0; i < BW * BW; ++i) m.w[i] = static_cast<const float*>(dw)[i];
+  }
   if (band_rows < 1 || band_rows > kMaxBandRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      idct_sq_display_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Sq<B>::kSmemBytes);
+      idct_sq_display_kernel<BH, BW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Sq<BH, BW>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nbx + Sq<B>::kStrip - 1) / Sq<B>::kStrip, n_bands,
-                  t_count);
-  idct_sq_display_kernel<B><<<grid, kThreads, Sq<B>::kSmemBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((nbx + Sq<BH, BW>::kStrip - 1) / Sq<BH, BW>::kStrip,
+                  n_bands, t_count);
+  idct_sq_display_kernel<BH, BW><<<grid, kThreads, Sq<BH, BW>::kSmemBytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coeffs), static_cast<const float*>(steps), m,
       static_cast<const int32_t*>(y0), static_cast<const int32_t*>(y1),
       static_cast<const float*>(fy), static_cast<const int32_t*>(row_lo),
@@ -310,31 +409,30 @@ int launch_sq(const void* coeffs, const void* steps, const void* d,
 
 }  // namespace
 
-// coeffs: (t_count, nby, nbx, 3*B*B) float32 wire coefficients, 16-byte
-// aligned; steps: (t_count, nby, nbx) float32; d: HOST pointer to the
-// (B, B) float32 DCT-II matrix (passed to the kernel by value); y0, y1, fy:
-// (out_h,) source rows and weights; row_lo: (nby + 1,) first output row
-// whose last source row lies in block row b or later; band_b: (n_bands, 2)
-// first and last source block row of each band of band_rows output rows;
-// out: (t_count, out_h, nbx*B*3) uint8.
-SVC_EXPORT int svc_idct4x4_display(const void* coeffs, const void* steps,
-                                   const void* d, const void* y0,
-                                   const void* y1, const void* fy,
-                                   const void* row_lo, const void* band_b,
-                                   void* out, int t_count, int out_h, int nby,
-                                   int nbx, int band_rows, int n_bands,
-                                   void* stream) {
-  return launch_sq<4>(coeffs, steps, d, y0, y1, fy, row_lo, band_b, out,
-                      t_count, out_h, nby, nbx, band_rows, n_bands, stream);
-}
+// coeffs: (t_count, nby, nbx, 3*BH*BW) float32 wire coefficients, 16-byte
+// aligned; steps: (t_count, nby, nbx) float32; dh, dw: HOST pointers to the
+// (BH, BH) and (BW, BW) float32 DCT-II matrices (passed to the kernel by
+// value; a square reads dh only); y0, y1, fy: (out_h,) source rows and
+// weights; row_lo: (nby + 1,) first output row whose last source row lies
+// in block row b or later; band_b: (n_bands, 2) first and last source block
+// row of each band of band_rows output rows; out: (t_count, out_h,
+// nbx*BW*3) uint8.
+#define SVC_IDCT_SQ_ENTRY(BH, BW)                                             \
+  SVC_EXPORT int svc_idct##BH##x##BW##_display(                               \
+      const void* coeffs, const void* steps, const void* dh, const void* dw,  \
+      const void* y0, const void* y1, const void* fy, const void* row_lo,     \
+      const void* band_b, void* out, int t_count, int out_h, int nby,         \
+      int nbx, int band_rows, int n_bands, void* stream) {                    \
+    return launch_sq<BH, BW>(coeffs, steps, dh, dw, y0, y1, fy, row_lo,       \
+                             band_b, out, t_count, out_h, nby, nbx,           \
+                             band_rows, n_bands, stream);                     \
+  }
 
-SVC_EXPORT int svc_idct16x16_display(const void* coeffs, const void* steps,
-                                     const void* d, const void* y0,
-                                     const void* y1, const void* fy,
-                                     const void* row_lo, const void* band_b,
-                                     void* out, int t_count, int out_h,
-                                     int nby, int nbx, int band_rows,
-                                     int n_bands, void* stream) {
-  return launch_sq<16>(coeffs, steps, d, y0, y1, fy, row_lo, band_b, out,
-                       t_count, out_h, nby, nbx, band_rows, n_bands, stream);
-}
+SVC_IDCT_SQ_ENTRY(4, 4)
+SVC_IDCT_SQ_ENTRY(16, 16)
+SVC_IDCT_SQ_ENTRY(4, 8)
+SVC_IDCT_SQ_ENTRY(8, 4)
+SVC_IDCT_SQ_ENTRY(4, 16)
+SVC_IDCT_SQ_ENTRY(16, 4)
+SVC_IDCT_SQ_ENTRY(8, 16)
+SVC_IDCT_SQ_ENTRY(16, 8)

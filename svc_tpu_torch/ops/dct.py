@@ -22,11 +22,12 @@ Three wrappers live here, each beside its plain PyTorch version:
 
 Each dispatches by shape: 8x8 blocks of 3 channels (the codec's default)
 go to a kernel specialised for them (``csrc/dct_wire.cu``,
-``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); square 4x4 and 16x16
-blocks of 3 channels (the other transform blocks users pick) go to one
-kernel template each, instantiated per block size
-(``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``,
-``csrc/idct_resize_sq.cu``); every other block
+``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); the other transform
+blocks users pick, of 3 channels, go to one kernel template each,
+instantiated per block shape: K2 and K1 at every (rows, columns) in
+{4, 8, 16}^2 but 8x8 (``csrc/dct_wire_sq.cu``,
+``csrc/idct_display_sq.cu``), K6 at square 4x4 and 16x16
+(``csrc/idct_resize_sq.cu``); every other block
 shape or channel count goes to the general kernel
 (``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
 ``csrc/idct_resize_general.cu``). All give the general kernel's bits.
@@ -79,28 +80,31 @@ IDCT_DISPLAY_GENERAL = Kernel(
     source="svc_tpu_torch/csrc/idct_display_general.cu",
     replaces="svc_tpu/ops/dct_pallas.py:692",
 )
-# K2 and K1 for square blocks of 3 channels other than 8x8: one kernel
-# template each, an instantiation (and a launch count) per block size
-_SQUARE_BLOCKS = (4, 16)
+# K2 and K1 for blocks of 3 channels of (rows, columns) in {4, 8, 16}^2
+# other than 8x8: one kernel template each, an instantiation (and a launch
+# count) per block shape, named rows first; the squares, then the
+# rectangles
+_SQ_SHAPES = ((4, 4), (16, 16), (4, 8), (8, 4), (4, 16), (16, 4), (8, 16),
+              (16, 8))
 DCT_WIRE_SQ = {
-    b: Kernel(
-        f"dct{b}x{b}_to_wire",
-        f"svc_dct{b}x{b}_to_wire",
-        [PTR] * 3 + [INT] * 6 + [PTR],
+    (bh, bw): Kernel(
+        f"dct{bh}x{bw}_to_wire",
+        f"svc_dct{bh}x{bw}_to_wire",
+        [PTR] * 4 + [INT] * 6 + [PTR],
         source="svc_tpu_torch/csrc/dct_wire_sq.cu",
         replaces="svc_tpu/ops/dct_pallas.py:282",
     )
-    for b in _SQUARE_BLOCKS
+    for bh, bw in _SQ_SHAPES
 }
 IDCT_DISPLAY_SQ = {
-    b: Kernel(
-        f"idct{b}x{b}_display",
-        f"svc_idct{b}x{b}_display",
-        [PTR] * 9 + [INT] * 6 + [PTR],
+    (bh, bw): Kernel(
+        f"idct{bh}x{bw}_display",
+        f"svc_idct{bh}x{bw}_display",
+        [PTR] * 10 + [INT] * 6 + [PTR],
         source="svc_tpu_torch/csrc/idct_display_sq.cu",
         replaces="svc_tpu/ops/dct_pallas.py:692",
     )
-    for b in _SQUARE_BLOCKS
+    for bh, bw in _SQ_SHAPES
 }
 IDCT_RESIZE = Kernel(
     "idct_resize_display",
@@ -111,6 +115,7 @@ IDCT_RESIZE = Kernel(
 )
 # K6 for square blocks of 3 channels other than 8x8: one kernel template,
 # an instantiation (and a launch count) per block size
+_SQUARE_BLOCKS = (4, 16)
 IDCT_RESIZE_SQ = {
     b: Kernel(
         f"idct{b}x{b}_resize_display",
@@ -151,18 +156,22 @@ _K6_STRIP = 8
 _K6_STRIP_BYTES = _K6_STRIP * 8 * 3
 _K6_SMEM_BYTES = (2 * 27 * 104 + 16 * 220 + 2 * 9 + 3 * 128) * 4
 _K6_CTAS_PER_SM = 5
-# K2's square-block kernels (csrc/dct_wire_sq.cu): a strip of 128 pixels
-# (128 / B blocks), 384 threads; stage 1's doubles padded to
-# (row stride, pair stride) per B, then the strip's B packed rows
+# K2's templated kernels (csrc/dct_wire_sq.cu): a strip of 128 pixels
+# (128 / BW blocks), 384 threads; stage 1's doubles padded to
+# (row stride, pair stride) per (BH, BW), then the strip's BH packed rows
 _K2_SQ_STRIP_PIXELS = 128
-_K2_SQ_GEOM = {4: (5, 20), 16: (17, 272)}
-# K1's square-block kernels (csrc/idct_display_sq.cu): a strip of 64
-# pixels (64 / B block columns), 192 threads; per B the coefficient slot's
-# (row stride, pair stride) in floats and the CTAs an SM holds; two slots,
-# a ring of 2B pixel rows of 244 floats, two step slots, three tables of up
-# to 128 output rows
+_K2_SQ_GEOM = {(4, 4): (5, 20), (16, 16): (17, 272), (4, 8): (9, 40),
+               (8, 4): (5, 44), (4, 16): (17, 68), (16, 4): (5, 84),
+               (8, 16): (17, 136), (16, 8): (9, 152)}
+# K1's templated kernels (csrc/idct_display_sq.cu): a strip of 64 pixels
+# (64 / BW block columns), 192 threads; per (BH, BW) the coefficient
+# slot's (row stride, pair stride) in floats and the CTAs an SM holds; two
+# slots, a ring of 2 BH pixel rows of 244 floats, two step slots, three
+# tables of up to 128 output rows
 _K1_SQ_STRIP_PIXELS = 64
-_K1_SQ_GEOM = {4: (8, 36, 6), 16: (20, 336, 3)}
+_K1_SQ_GEOM = {(4, 4): (8, 36, 6), (16, 16): (20, 336, 3), (4, 8): (8, 40, 6),
+               (8, 4): (8, 68, 5), (4, 16): (20, 80, 6), (16, 4): (4, 68, 3),
+               (8, 16): (20, 176, 4), (16, 8): (12, 200, 3)}
 # K6's square-block kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
 # (64 / B block columns) plus one halo block column, a thread per byte of a
 # strip's run of at most 192 display-row bytes; per B the coefficient
@@ -174,17 +183,22 @@ _K6_SQ_STRIP_PIXELS = 64
 _K6_SQ_GEOM = {4: (8, 36, 4, 206, 224, 6), 16: (20, 336, 1, 198, 256, 4)}
 
 
-def _k2_sq_smem_bytes(block: int) -> int:
-    """Dynamic shared memory of K2's kernel for ``block`` x ``block``."""
-    groups = _K2_SQ_STRIP_PIXELS // block * 3
-    return groups * _K2_SQ_GEOM[block][1] * 8 + block * _K2_SQ_STRIP_PIXELS * 3
+def _k2_sq_smem_bytes(block_h: int, block_w: int) -> int:
+    """Dynamic shared memory of K2's kernel for ``block_h`` x ``block_w``:
+    the pairs' padded A, then ``block_h`` packed strip rows."""
+    groups = _K2_SQ_STRIP_PIXELS // block_w * 3
+    return (groups * _K2_SQ_GEOM[block_h, block_w][1] * 8
+            + block_h * _K2_SQ_STRIP_PIXELS * 3)
 
 
-def _k1_sq_smem_bytes(block: int) -> int:
-    """Dynamic shared memory of K1's kernel for ``block`` x ``block``."""
-    strip = _K1_SQ_STRIP_PIXELS // block
-    slot = strip * 3 * _K1_SQ_GEOM[block][1]
-    return 4 * (2 * slot + 2 * block * 244 + 2 * strip + 3 * max(_K1_BAND_ROWS))
+def _k1_sq_smem_bytes(block_h: int, block_w: int) -> int:
+    """Dynamic shared memory of K1's kernel for ``block_h`` x ``block_w``:
+    the strip (in block columns) counts ``block_w``, the ring's pixel rows
+    ``block_h``."""
+    strip = _K1_SQ_STRIP_PIXELS // block_w
+    slot = strip * 3 * _K1_SQ_GEOM[block_h, block_w][1]
+    return 4 * (2 * slot + 2 * block_h * 244 + 2 * strip
+                + 3 * max(_K1_BAND_ROWS))
 
 
 def _k6_sq_smem_bytes(block: int) -> int:
@@ -199,9 +213,15 @@ def _specialised(block_h: int, block_w: int, channels: int) -> bool:
     return (block_h, block_w, channels) == _SPECIALISED
 
 
+def _templated(block_h: int, block_w: int, channels: int) -> bool:
+    """Blocks of 3 channels with both sides in {4, 8, 16}, but 8x8: K2's
+    and K1's templated kernels."""
+    return (block_h, block_w) in DCT_WIRE_SQ and channels == 3
+
+
 def _square(block_h: int, block_w: int, channels: int) -> bool:
-    """Square 4x4 or 16x16 blocks of 3 channels: K2's, K1's and K6's
-    square-block kernels."""
+    """Square 4x4 or 16x16 blocks of 3 channels: K6's square-block
+    kernels."""
     return block_h == block_w and block_h in _SQUARE_BLOCKS and channels == 3
 
 
@@ -284,16 +304,16 @@ def dct8x8_to_wire(
     general: bool = False,
 ) -> torch.Tensor:
     """Forward blockwise DCT of packed frames into wire layout (kernel K2:
-    the specialised kernel for 8x8 blocks of 3 channels, the square-block
-    kernel for 4x4 and 16x16 blocks of 3 channels, the general one
-    otherwise).
+    the specialised kernel for 8x8 blocks of 3 channels, the templated
+    kernel for the other blocks of 3 channels with both sides in {4, 8,
+    16}, the general one otherwise).
 
     Args:
       packed: ``(N, H, W*C)`` uint8 interleaved rows; frames
         ``[frame_offset, frame_offset + t_count)`` are transformed. Pixels
         past ``H`` / ``W`` (up to ``padded_h`` / ``padded_w``) are zero.
       general: launch the general kernel whatever the shape (the yardstick
-        the specialised and square-block ones are held and timed against).
+        the specialised and templated ones are held and timed against).
 
     Returns ``(t_count, nby, nbx, C*bh*bw)`` float32.
     """
@@ -323,12 +343,16 @@ def dct8x8_to_wire(
     if out.numel() == 0:
         return out
     with torch.cuda.device(p.device):
-        if (_specialised(block_h, block_w, channels)
-                or _square(block_h, block_w, channels)) and not general:
-            kernel = DCT_WIRE if block_h == 8 else DCT_WIRE_SQ[block_h]
-            d = dct_matrix(block_h)  # host matrix, passed by value
-            kernel.launch(
-                p.data_ptr(), d.ctypes.data, out.data_ptr(),
+        # host matrices, passed by value
+        if _specialised(block_h, block_w, channels) and not general:
+            DCT_WIRE.launch(
+                p.data_ptr(), dct_matrix(8).ctypes.data, out.data_ptr(),
+                t_count, frame_offset, h, w, nby, nbx, stream_handle(p),
+            )
+        elif _templated(block_h, block_w, channels) and not general:
+            DCT_WIRE_SQ[block_h, block_w].launch(
+                p.data_ptr(), dct_matrix(block_h).ctypes.data,
+                dct_matrix(block_w).ctypes.data, out.data_ptr(),
                 t_count, frame_offset, h, w, nby, nbx, stream_handle(p),
             )
         else:
@@ -425,9 +449,9 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
                  ctas_per_sm: int = _K1_CTAS_PER_SM, block: int = 8,
                  strip: int = _K1_STRIP):
     """The row geometry of the specialised display kernels K1 and K6 and of
-    K1's square-block kernels (host numpy), which walk each band of output
-    rows down its source block rows of ``block`` rows, a strip of ``strip``
-    block columns per CTA.
+    K1's templated and K6's square-block kernels (host numpy), which walk
+    each band of output rows down its source block rows of ``block`` pixel
+    rows (the block height), a strip of ``strip`` block columns per CTA.
 
     Returns ``(y0, y1, fy, row_lo, band_b, band_rows)``: the bilinear
     ``(y0, y1, fy)`` per output row; ``row_lo[b]`` (``b`` in ``[0, nby]``)
@@ -511,40 +535,44 @@ def idct_display(
       steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
       out_h: display height (``<= nby*bh``; equal = identity rows).
       general: launch the general kernel whatever the shape (the yardstick
-        the specialised and square-block ones are held and timed against).
+        the specialised and templated ones are held and timed against).
 
     Returns ``(T, out_h, nbx*bw*C)`` uint8 — the width is not resampled
     (the width-aligned display routes). 8x8 blocks of 3 channels go to the
-    specialised kernel, 4x4 and 16x16 blocks of 3 channels to the
-    square-block kernel, every other shape to the general one.
+    specialised kernel, the other blocks of 3 channels with both sides in
+    {4, 8, 16} to the templated kernel, every other shape to the general
+    one.
     """
     if coeffs.device.type == "cpu":
         return idct_display_plain(coeffs, steps, out_h, channels, block_h, block_w)
     _check_idct_inputs("idct_display", coeffs, steps, channels, block_h, block_w)
     t, nby, nbx, cn = coeffs.shape
     dev = coeffs.device
-    if (_specialised(block_h, block_w, channels)
-            or _square(block_h, block_w, channels)) and not general:
-        b = block_h
-        if b == 8:
+    specialised = _specialised(block_h, block_w, channels)
+    if (specialised or _templated(block_h, block_w, channels)) and not general:
+        bh, bw = block_h, block_w
+        if specialised:
             kernel, strip, ctas = IDCT_DISPLAY, _K1_STRIP, _K1_CTAS_PER_SM
+            # host matrix, passed by value
+            mats = (dct_matrix(8).ctypes.data,)
         else:
-            kernel, strip = IDCT_DISPLAY_SQ[b], _K1_SQ_STRIP_PIXELS // b
-            ctas = _K1_SQ_GEOM[b][2]
-        out = torch.empty((t, out_h, nbx * b * 3), dtype=torch.uint8, device=dev)
+            kernel, strip = IDCT_DISPLAY_SQ[bh, bw], _K1_SQ_STRIP_PIXELS // bw
+            ctas = _K1_SQ_GEOM[bh, bw][2]
+            mats = (dct_matrix(bh).ctypes.data, dct_matrix(bw).ctypes.data)
+        out = torch.empty((t, out_h, nbx * bw * 3), dtype=torch.uint8, device=dev)
         if out.numel() == 0:
             return out
         c = coeffs.contiguous()
         if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
             c = c.clone()
         s = steps.contiguous()
-        tabs, band_rows = _band_tables_on(dev, out_h, nby * b, nbx, t, ctas,
-                                          b, strip)
+        # rows are block rows of bh pixel rows; the strip counts block columns
+        tabs, band_rows = _band_tables_on(dev, out_h, nby * bh, nbx, t, ctas,
+                                          bh, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
-        d = dct_matrix(b)  # host matrix, passed by value
         with torch.cuda.device(dev):
             kernel.launch(
-                c.data_ptr(), s.data_ptr(), d.ctypes.data,
+                c.data_ptr(), s.data_ptr(), *mats,
                 *[tab.data_ptr() for tab in tabs], out.data_ptr(),
                 t, out_h, nby, nbx, band_rows, n_bands, stream_handle(c),
             )

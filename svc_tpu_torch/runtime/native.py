@@ -6,12 +6,17 @@ the pipelined bitstream writer — the native counterpart of the reference's
 C++ queue/writer/serializer runtime (libs/queue.hpp,
 apps/encoder.cpp:151-173, libs/encoder.cpp:222-269).
 
-The library is built on demand with ``make`` (g++); every entry point has
-a pure-NumPy fallback so the port works without a native toolchain. The
-build runs under an exclusive ``flock`` on ``build/native.lock`` at the
-checkout root, held around the exists check and ``make``: processes that
-load at once (pytest-xdist workers) build once, and the others wait and
-find the whole library. It is loaded after the lock is released.
+The library is built on demand with ``make`` (g++) from ``native/`` into
+the port's own copy, ``build/native/libsvcio.so`` at the checkout root;
+every entry point has a pure-NumPy fallback so the port works without a
+native toolchain. The build runs under an exclusive ``flock`` on
+``build/native.lock``, held around the exists check and ``make``:
+processes that load at once (pytest-xdist workers) build once, and the
+others wait and find the whole library. It is loaded after the lock is
+released. The copy is the port's alone because other loaders of
+``native/libsvcio.so`` build it there without a lock: one that found the
+file half written by another's ``make`` failed to load it, and so did
+one that found the port's.
 """
 
 from __future__ import annotations
@@ -28,16 +33,19 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libsvcio.so")
+_LIB_PATH = os.path.join(_ROOT, "build", "native", "libsvcio.so")
 _LOCK_PATH = os.path.join(_ROOT, "build", "native.lock")
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def _build() -> bool:
+    """``make`` the library from ``_NATIVE_DIR``'s sources into
+    ``_LIB_PATH``."""
     try:
+        os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
         subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
+            ["make", "-C", _NATIVE_DIR, f"TARGET={_LIB_PATH}"],
             check=True,
             capture_output=True,
             timeout=120,

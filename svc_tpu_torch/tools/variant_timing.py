@@ -7,8 +7,10 @@ CUDA card.
       '__launch_bounds__(kLvThreads)'
 
 (the fused pyramid kernels with and without their minimum of 6 CTAs per
-SM), with ``--target display``, K1's square-block kernels (e.g. ``--edit
-idct_display_sq.cu 'kMinCtas = 3;' 'kMinCtas = 2;'``), with ``--target
+SM), with ``--target display``, K1's templated kernels (e.g. ``--edit
+idct_display_sq.cu 'kCoefGroup = 336, kMinCtas = 3;' 'kCoefGroup = 336,
+kMinCtas = 2;'``), with ``--target wire``, K2's (``dct_wire_sq.cu``),
+with ``--target
 resize``, K6's square-block kernels (e.g. the whole halo block in the
 4x4 ring: ``--edit idct_resize_sq.cu 'kHaloColumns = 4, kRingPitch = 206'
 'kHaloColumns = 1, kRingPitch = 198'``), or, with
@@ -27,6 +29,17 @@ what a piece of the kernel's work costs (e.g. the display target's
 dequantizing division as a multiplication), never a candidate; its
 times are printed beside how far its outputs are from the base build's.
 
+``--against DIR`` builds the variant from another checkout's sources
+(``DIR/svc_tpu_torch/csrc``, e.g. the parent commit unpacked with ``git
+archive`` into a git-ignored directory) and calls it through that
+checkout's wrapper module (``ops/dct.py`` for the display, wire and
+resize targets), so its kernels keep their own C signatures; ``--edit``
+is then optional. Only the shapes both wrapper modules have a templated
+kernel for are timed:
+
+  python -m svc_tpu_torch.tools.variant_timing --target wire \\
+      --against build/parent
+
 The variant's sources go to ``build/variant/csrc`` and its library to
 ``build/variant/lib`` (both gitignored). Both builds compile one nvcc
 process per source; the script prints what ptxas reported for the
@@ -39,11 +52,12 @@ pitched one as 8 subplanes); the ccl target times ``converge_labels`` on
 the 1080p path shape (8 frames of 68x120 cells in 8x8 blobs of 10
 clusters, a tenth background, 4-connectivity), ``tools/ccl_cases.py``'s
 spiral, 8 frames of 135x240 and 2 of 270x480 blobs; the display target
-times ``idct_display`` at 4x4 and 16x16 blocks (8 frames of 1088 padded
-rows to 1080, steps 1 and 640 at random); the resize target
-``idct_resize_display`` there (8 frames of 1376x768 to 1366x768 and of
-864x480 to 854x480). The two libraries' outputs must be equal bit for
-bit (K10's also to its plain version).
+times ``idct_display`` at the blocks of K1's templated kernel (8 frames
+of 1088 padded rows to 1080, steps 1 and 640 at random); the wire target
+``dct8x8_to_wire`` at K2's (8 anchor frames of 9 packed 1080p frames);
+the resize target ``idct_resize_display`` at 4x4 and 16x16 (8 frames of
+1376x768 to 1366x768 and of 864x480 to 854x480). The two libraries'
+outputs must be equal bit for bit (K10's also to its plain version).
 Nothing of the checkout's sources changes.
 """
 
@@ -51,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import re
 import shutil
 import statistics
@@ -59,6 +74,8 @@ import sys
 
 import torch
 
+from pathlib import Path
+
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.ops import ccl, dct, pyramid
 from svc_tpu_torch.tools import ccl_cases
@@ -66,16 +83,20 @@ from svc_tpu_torch.tools import ccl_cases
 VARIANT_DIR = build.BUILD_DIR.parent / "variant"
 # the ptxas entries reported for each target
 KERNEL = {"pyramid": "pyr_down_levels_kernel", "ccl": "ccl_cluster_kernel",
-          "display": "idct_sq_display_kernel",
+          "display": "idct_sq_display_kernel", "wire": "dct_sq_wire_kernel",
           "resize": "idct_sq_resize_kernel"}
+# the wrapper module each target calls
+MODULE = {"pyramid": pyramid, "ccl": ccl, "display": dct, "wire": dct,
+          "resize": dct}
 
 
-def build_variant(edits) -> build.BuildResult:
-    """Build the library from a copy of ``csrc/`` with each ``(path, old,
-    new)`` of ``edits`` applied in turn (``old`` exactly once)."""
+def build_variant(edits, csrc_from=None) -> build.BuildResult:
+    """Build the library from a copy of ``csrc_from`` (this checkout's
+    ``csrc/`` by default) with each ``(path, old, new)`` of ``edits``
+    applied in turn (``old`` exactly once)."""
     csrc = VARIANT_DIR / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(build.CSRC_DIR, csrc)
+    shutil.copytree(csrc_from or build.CSRC_DIR, csrc)
     for path, old, new in edits:
         src = csrc / path
         text = src.read_text()
@@ -109,6 +130,23 @@ def ptxas_lines(log: str, kernel: str):
                 out.append((name, int(m.group(1)), spill))
             name = None
     return out
+
+
+def load_wrappers(checkout, module):
+    """Another checkout's copy of the wrapper module ``module`` (its
+    ``Kernel`` objects carry that checkout's C signatures). Its kernels do
+    not enter this process's registry of launch counts."""
+    name = module.__name__.rsplit(".", 1)[1]
+    path = Path(checkout) / "svc_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"variant_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    saved = dict(build._REGISTRY)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        build._REGISTRY.clear()
+        build._REGISTRY.update(saved)
+    return mod
 
 
 def bind(kernels, lib) -> None:
@@ -147,7 +185,12 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def pyramid_work():
+# Each target's work takes the wrapper modules of the two libraries and
+# returns the kernels of a module to bind, the calls timed (each given the
+# module to call through) and their plain results where they are checked.
+
+
+def pyramid_work(mods):
     """The kernels, the calls timed and the plain reference (none) of the
     pyramid target."""
     g = torch.Generator().manual_seed(0)
@@ -155,13 +198,13 @@ def pyramid_work():
                       dtype=torch.uint8).cuda()
     y8 = pyramid.to_pitched(y, 8)
     work = {
-        "K4 pyr_down_levels": lambda: pyramid.pyr_down_levels(y, 3),
-        "K8 pyr_down_pitched_levels": lambda: pyramid.pyr_down_pitched_levels(y8, 3),
+        "K4 pyr_down_levels": lambda m: m.pyr_down_levels(y, 3),
+        "K8 pyr_down_pitched_levels": lambda m: m.pyr_down_pitched_levels(y8, 3),
     }
-    return [pyramid.PYR_DOWN_LEVELS, pyramid.PYR_DOWN_PITCHED_LEVELS], work, {}
+    return (lambda m: [m.PYR_DOWN_LEVELS, m.PYR_DOWN_PITCHED_LEVELS]), work, {}
 
 
-def ccl_work():
+def ccl_work(mods):
     """The kernel, the calls timed and their plain results for the ccl
     target."""
     g = torch.Generator().manual_seed(0)
@@ -172,45 +215,68 @@ def ccl_work():
     work, want = {}, {}
     for name, lab in inputs.items():
         x = lab.cuda()
-        work[name] = lambda x=x: ccl.converge_labels(x, 4)
+        work[name] = lambda m, x=x: m.converge_labels(x, 4)
         want[name] = ccl.converge_labels_plain(lab, 4)
-    return [ccl.CCL_CONVERGE], work, want
+    return (lambda m: [m.CCL_CONVERGE]), work, want
 
 
-def display_work():
+def templated_shapes(mods, table):
+    """The (rows, columns) block shapes every module's templated-kernel
+    table ``table`` has (keyed by B for squares or by (BH, BW))."""
+    return sorted(set.intersection(*(
+        {k if isinstance(k, tuple) else (k, k) for k in getattr(m, table)}
+        for m in mods)))
+
+
+def display_work(mods):
     """The kernels, the calls timed and the plain reference (none) of the
     display target."""
     g = torch.Generator().manual_seed(0)
     work = {}
-    for b, k in dct.IDCT_DISPLAY_SQ.items():
-        shape = (8, 1088 // b, 1920 // b)
-        coeffs = (torch.randn(shape + (3 * b * b,), generator=g) * 90).cuda()
+    for bh, bw in templated_shapes(mods, "IDCT_DISPLAY_SQ"):
+        shape = (8, 1088 // bh, 1920 // bw)
+        coeffs = (torch.randn(shape + (3 * bh * bw,), generator=g) * 90).cuda()
         steps = torch.where(torch.rand(shape, generator=g) < 0.5, 640.0,
                             1.0).cuda()
-        work[f"K1 {k.name} 8x1088->1080"] = (
-            lambda c=coeffs, s=steps, b=b: dct.idct_display(c, s, 1080, 3, b, b))
-    return list(dct.IDCT_DISPLAY_SQ.values()), work, {}
+        work[f"K1 idct{bh}x{bw}_display 8x1088->1080"] = (
+            lambda m, c=coeffs, s=steps, bh=bh, bw=bw:
+            m.idct_display(c, s, 1080, 3, bh, bw))
+    return (lambda m: list(m.IDCT_DISPLAY_SQ.values())), work, {}
 
 
-def resize_work():
+def wire_work(mods):
+    """The kernels, the calls timed and the plain reference (none) of the
+    wire target."""
+    g = torch.Generator().manual_seed(0)
+    packed = torch.randint(0, 256, (9, 1080, 5760), generator=g,
+                           dtype=torch.uint8).cuda()
+    work = {}
+    for bh, bw in templated_shapes(mods, "DCT_WIRE_SQ"):
+        work[f"K2 dct{bh}x{bw}_to_wire 8x1080p"] = (
+            lambda m, bh=bh, bw=bw: m.dct8x8_to_wire(packed, 1, 8, 1088, 1920,
+                                                     bh, bw))
+    return (lambda m: list(m.DCT_WIRE_SQ.values())), work, {}
+
+
+def resize_work(mods):
     """The kernels, the calls timed and the plain reference (none) of the
     resize target."""
     g = torch.Generator().manual_seed(0)
     work = {}
-    for b, k in dct.IDCT_RESIZE_SQ.items():
+    for b, _ in templated_shapes(mods, "IDCT_RESIZE_SQ"):
         for w, h, pw in ((1366, 768, 1376), (854, 480, 864)):
             shape = (8, h // b, pw // b)
             coeffs = (torch.randn(shape + (3 * b * b,), generator=g) * 90).cuda()
             steps = torch.where(torch.rand(shape, generator=g) < 0.5, 640.0,
                                 1.0).cuda()
-            work[f"K6 {k.name} 8x{pw}x{h}->{w}x{h}"] = (
-                lambda c=coeffs, s=steps, b=b, w=w, h=h:
-                dct.idct_resize_display(c, s, h, w, 3, b, b))
-    return list(dct.IDCT_RESIZE_SQ.values()), work, {}
+            work[f"K6 idct{b}x{b}_resize_display 8x{pw}x{h}->{w}x{h}"] = (
+                lambda m, c=coeffs, s=steps, b=b, w=w, h=h:
+                m.idct_resize_display(c, s, h, w, 3, b, b))
+    return (lambda m: list(m.IDCT_RESIZE_SQ.values())), work, {}
 
 
 WORK = {"pyramid": pyramid_work, "ccl": ccl_work, "display": display_work,
-        "resize": resize_work}
+        "wire": wire_work, "resize": resize_work}
 
 
 def diff(a, b) -> str:
@@ -224,16 +290,21 @@ def diff(a, b) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--edit", nargs=3, action="append", required=True,
+    ap.add_argument("--edit", nargs=3, action="append", default=[],
                     metavar=("FILE", "OLD", "NEW"),
                     help="csrc file and the text replaced once in it "
                          "(repeatable)")
+    ap.add_argument("--against", metavar="DIR",
+                    help="build the variant from the checkout DIR's sources "
+                         "and call it through DIR's wrappers")
     ap.add_argument("--target", choices=sorted(KERNEL), default="pyramid",
                     help="the kernels timed (default: pyramid)")
     ap.add_argument("--unchecked", action="store_true",
                     help="time the variant even where its outputs differ "
                          "(a cost probe, not a candidate)")
     args = ap.parse_args(argv)
+    if not (args.edit or args.against):
+        ap.error("give --edit, --against or both")
     if not torch.cuda.is_available():
         print("variant_timing: needs a CUDA card", file=sys.stderr)
         return 1
@@ -243,17 +314,21 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "card: ?")
 
     base = build.build()
-    variant = build_variant(args.edit)
+    module = MODULE[args.target]
+    csrc = Path(args.against) / "svc_tpu_torch" / "csrc" if args.against else None
+    variant = build_variant(args.edit, csrc)
     libs = {"base": build.library(), "variant": ctypes.CDLL(str(variant.path))}
+    mods = {"base": module,
+            "variant": load_wrappers(args.against, module) if args.against else module}
     for name, res in (("base", base), ("variant", variant)):
         rows = ptxas_lines(res.log, KERNEL[args.target]) or "not reported (already built)"
         print(f"ptxas {name}: {rows}")
 
-    kernels, work, want = WORK[args.target]()
+    kernels, work, want = WORK[args.target](list(mods.values()))
     outs = {}
     for name, lib in libs.items():
-        bind(kernels, lib)
-        outs[name] = {w: fn() for w, fn in work.items()}
+        bind(kernels(mods[name]), lib)
+        outs[name] = {w: fn(mods[name]) for w, fn in work.items()}
     verdict = {}
     for w in work:
         a, b = outs["base"][w], outs["variant"][w]
@@ -270,14 +345,14 @@ def main(argv=None) -> int:
     for w, fn in work.items():
         turns = []
         for name in order:
-            bind(kernels, libs[name])
-            turns.append(graph_ms(fn))
+            bind(kernels(mods[name]), libs[name])
+            turns.append(graph_ms(lambda: fn(mods[name])))
         mean = {n: statistics.mean(t for o, t in zip(order, turns) if o == n)
                 for n in ("base", "variant")}
         print(f"{w}: base {mean['base']:.4f} ms, variant {mean['variant']:.4f} "
               f"ms (in turns {', '.join(f'{o} {t:.4f}' for o, t in zip(order, turns))}); "
               f"{verdict[w]}")
-    bind(kernels, libs["base"])
+    bind(kernels(mods["base"]), libs["base"])
     return 0
 
 

@@ -462,21 +462,33 @@ def test_hbma_on_card_matches_cpu(gen):
 
 
 def _dct_kernel(block, channels=3):
-    """The K2 kernel a block shape dispatches to."""
+    """The K2 kernel a square block shape dispatches to."""
     if (block, channels) == (8, 3):
         return dct.DCT_WIRE
-    if channels == 3 and block in dct.DCT_WIRE_SQ:
-        return dct.DCT_WIRE_SQ[block]
+    if channels == 3 and (block, block) in dct.DCT_WIRE_SQ:
+        return dct.DCT_WIRE_SQ[block, block]
     return dct.DCT_WIRE_GENERAL
 
 
 def _idct_kernel(block, channels=3):
-    """The K1 kernel a block shape dispatches to."""
+    """The K1 kernel a square block shape dispatches to."""
     if (block, channels) == (8, 3):
         return dct.IDCT_DISPLAY
-    if channels == 3 and block in dct.IDCT_DISPLAY_SQ:
-        return dct.IDCT_DISPLAY_SQ[block]
+    if channels == 3 and (block, block) in dct.IDCT_DISPLAY_SQ:
+        return dct.IDCT_DISPLAY_SQ[block, block]
     return dct.IDCT_DISPLAY_GENERAL
+
+
+def _hw(block):
+    """``(block_h, block_w)`` of a test's block: ``B`` for a square, or
+    ``"BHxBW"``."""
+    if isinstance(block, int):
+        return block, block
+    return tuple(int(v) for v in block.split("x"))
+
+
+# the templated K2 / K1 shapes: the squares, then the rectangles
+SQ_BLOCKS = [4, 16, "4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
 
 
 @pytest.mark.parametrize(
@@ -560,30 +572,31 @@ def test_idct_display_specialised_equals_general(gen, t, nby, nbx, out_h):
     assert (d > 0).double().mean().item() < 1e-3
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 @pytest.mark.parametrize(
     "t,h,w,ph,pw",
-    [(8, 64, 208, 64, 208),    # a ragged last strip at both block sizes
+    [(8, 64, 208, 64, 208),    # a ragged last strip at every block shape
      (1, 40, 128, 48, 128),    # T = 1, zero-padded rows
      (2, 24, 1366, 32, 1376),  # 4098-byte rows: 2-byte aligned starts
      (3, 17, 37, 32, 48)],     # odd row bytes, ragged rows and columns
 )
 def test_dct_sq_equals_general(gen, block, t, h, w, ph, pw):
-    # the square-block kernel bit-equal to the general one, both within the
+    # the templated kernel bit-equal to the general one, both within the
     # coefficient gate of the plain version
+    bh, bw = _hw(block)
     packed = _u8(gen, (t + 1, h, w * 3))
-    sq = dct.DCT_WIRE_SQ[block]
+    sq = dct.DCT_WIRE_SQ[bh, bw]
     before = (sq.launches, dct.DCT_WIRE_GENERAL.launches)
-    got = dct.dct8x8_to_wire(packed, 1, t, ph, pw, block, block)
-    gen_out = dct.dct8x8_to_wire(packed, 1, t, ph, pw, block, block, general=True)
+    got = dct.dct8x8_to_wire(packed, 1, t, ph, pw, bh, bw)
+    gen_out = dct.dct8x8_to_wire(packed, 1, t, ph, pw, bh, bw, general=True)
     assert (sq.launches, dct.DCT_WIRE_GENERAL.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(got, gen_out)  # bit for bit
-    ref = dct.dct8x8_to_wire_plain(packed, 1, t, ph, pw, block, block)
+    ref = dct.dct8x8_to_wire_plain(packed, 1, t, ph, pw, bh, bw)
     assert (got - ref).abs().max().item() <= COEFF_GATE
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 @pytest.mark.parametrize(
     "t,ph,pw,out_h",
     [(8, 576, 416, 564),  # ragged strip, resample over several bands
@@ -592,42 +605,43 @@ def test_dct_sq_equals_general(gen, block, t, h, w, ph, pw):
      (3, 320, 704, 320)],  # identity, CIF width
 )
 def test_idct_display_sq_equals_general(gen, block, t, ph, pw, out_h):
-    # the square-block kernel byte-equal to the general one, both within
-    # the display gate of the plain version, at a gaze mix of steps 1 and
-    # 640 (the decoder's)
-    nby, nbx = ph // block, pw // block
-    coeffs = (torch.randn((t, nby, nbx, 3 * block * block), generator=gen)
+    # the templated kernel byte-equal to the general one, both within the
+    # display gate of the plain version, at a gaze mix of steps 1 and 640
+    # (the decoder's)
+    bh, bw = _hw(block)
+    nby, nbx = ph // bh, pw // bw
+    coeffs = (torch.randn((t, nby, nbx, 3 * bh * bw), generator=gen)
               * 90).cuda()
     steps = torch.where(
         torch.rand((t, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
     ).cuda()
-    sq = dct.IDCT_DISPLAY_SQ[block]
+    sq = dct.IDCT_DISPLAY_SQ[bh, bw]
     before = (sq.launches, dct.IDCT_DISPLAY_GENERAL.launches)
-    got = dct.idct_display(coeffs, steps, out_h, 3, block, block)
-    gen_out = dct.idct_display(coeffs, steps, out_h, 3, block, block,
-                               general=True)
+    got = dct.idct_display(coeffs, steps, out_h, 3, bh, bw)
+    gen_out = dct.idct_display(coeffs, steps, out_h, 3, bh, bw, general=True)
     assert (sq.launches, dct.IDCT_DISPLAY_GENERAL.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(got, gen_out)  # byte for byte
-    ref = dct.idct_display_plain(coeffs, steps, out_h, 3, block, block)
+    ref = dct.idct_display_plain(coeffs, steps, out_h, 3, bh, bw)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
     assert d.max().item() <= 1
     assert (d > 0).double().mean().item() < 1e-3
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 def test_sq_kernels_in_a_cuda_graph(gen, block):
     # both wrappers, captured in one CUDA graph and replayed, write the
     # bytes of direct calls: their tables and matrices need no host copy
+    bh, bw = _hw(block)
     packed = _u8(gen, (3, 120, 208 * 3))
-    coeffs = (torch.randn((2, 128 // block, 208 // block, 3 * block * block),
+    coeffs = (torch.randn((2, 128 // bh, 208 // bw, 3 * bh * bw),
                           generator=gen) * 90).cuda()
     steps = torch.where(torch.rand(coeffs.shape[:3], generator=gen) < 0.5,
                         640.0, 1.0).cuda()
 
     def both():
-        return (dct.dct8x8_to_wire(packed, 1, 2, 128, 208, block, block),
-                dct.idct_display(coeffs, steps, 120, 3, block, block))
+        return (dct.dct8x8_to_wire(packed, 1, 2, 128, 208, bh, bw),
+                dct.idct_display(coeffs, steps, 120, 3, bh, bw))
 
     want = both()
     side = torch.cuda.Stream()
@@ -645,21 +659,28 @@ def test_sq_kernels_in_a_cuda_graph(gen, block):
     assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 def test_square_blocks_on_card_match_cpu(gen, block):
-    # EncoderConfig with 4x4 or 16x16 transform blocks: the square-block
-    # kernels on both legs, graph replays byte-equal to graph=False, the
+    # EncoderConfig with 4x4 or 16x16 transform blocks, or a rectangle of
+    # sides 4, 8 and 16: the templated kernels of that shape on both legs
+    # and no other K1 or K2, graph replays byte-equal to graph=False, the
     # stream's coefficients and the decoded bytes within the gates of the
     # CPU port
+    bh, bw = _hw(block)
     w, h = 160, 112
-    clip = make_clip(w, h, 6, seed=block)
-    cfg = EncoderConfig(transform_block_w=block, transform_block_h=block)
+    clip = make_clip(w, h, 6, seed=bh * 17 + bw)
+    cfg = EncoderConfig(transform_block_w=bw, transform_block_h=bh)
     props = VideoProperties(w, h, len(clip))
+    others = [k.name for k in (*dct.DCT_WIRE_SQ.values(),
+                               *dct.IDCT_DISPLAY_SQ.values())
+              if k.name not in (dct.DCT_WIRE_SQ[bh, bw].name,
+                                dct.IDCT_DISPLAY_SQ[bh, bw].name)]
     build.reset_launch_counts()
     cuda_stream = list(Encoder(cfg, props, 2, device="cuda").encode_video(iter(clip)))
     counts = build.launch_counts()
-    assert counts[dct.DCT_WIRE_SQ[block].name] > 0
+    assert counts[dct.DCT_WIRE_SQ[bh, bw].name] > 0
     assert counts["dct8x8_to_wire"] == counts["dct_to_wire_general"] == 0
+    assert not any(counts[k] for k in others)
     eager = list(Encoder(cfg, props, 2, device="cuda", graph=False)
                  .encode_video(iter(clip)))
     assert eager == cuda_stream
@@ -680,8 +701,9 @@ def test_square_blocks_on_card_match_cpu(gen, block):
         frames[device, graph] = np.stack(
             list(dec.decode_frames(iter(cpu_stream[1:]), iter(gaze))))
     counts = build.launch_counts()
-    assert counts[dct.IDCT_DISPLAY_SQ[block].name] > 0
+    assert counts[dct.IDCT_DISPLAY_SQ[bh, bw].name] > 0
     assert counts["idct_display"] == counts["idct_display_general"] == 0
+    assert not any(counts[k] for k in others)
     np.testing.assert_array_equal(frames["cuda", True], frames["cuda", False])
     d = np.abs(frames["cuda", True].astype(np.int16)
                - frames["cpu", True].astype(np.int16))
@@ -847,20 +869,22 @@ def _k6_launches():
             *(k.launches for k in dct.IDCT_RESIZE_SQ.values()))
 
 
-@pytest.mark.parametrize("block,channels", [(2, 3), (8, 1), (4, 1), (16, 1)])
+@pytest.mark.parametrize("block,channels", [(2, 3), (8, 1), (4, 1), (16, 1),
+                                            ("4x8", 3), ("16x4", 3), ("8x16", 3)])
 def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
                                                                   channels):
+    # K6 has no templated kernel for rectangles: they stay on the general one
+    bh, bw = _hw(block)
     pw, ph, w, h = 208, 128, 200, 120
-    nby, nbx = ph // block, pw // block
-    n = channels * block * block
+    nby, nbx = ph // bh, pw // bw
+    n = channels * bh * bw
     coeffs = (torch.randn((2, nby, nbx, n), generator=gen) * 90).cuda()
     steps = torch.where(torch.rand((2, nby, nbx), generator=gen) < 0.5,
                         640.0, 1.0).cuda()
     before = _k6_launches()
-    got = dct.idct_resize_display(coeffs, steps, h, w, channels, block, block)
+    got = dct.idct_resize_display(coeffs, steps, h, w, channels, bh, bw)
     assert _k6_launches() == (before[0], before[1] + 1, *before[2:])
-    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, channels, block,
-                                        block)
+    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, channels, bh, bw)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
     assert d.max().item() <= 1
     assert (d > 0).double().mean().item() < 1e-3

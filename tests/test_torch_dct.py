@@ -57,37 +57,57 @@ def test_forward_dct_matches_jsplit_kernel(w, h):
 # saturated block's DC): at 16x16, twice 8x8's, the gate scales by 16 / 8
 PALLAS_16_GATE = COEFF_GATE * 16 / 8
 
+# the rectangular transform blocks (rows x columns) the config accepts
+# beside the squares: each side divides the 16x16 MV block
+RECT_BLOCKS = ["4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
+
+
+def _hw(block):
+    """``(block_h, block_w)`` of a test's block: ``B`` for a square, or
+    ``"BHxBW"``."""
+    if isinstance(block, int):
+        return block, block
+    return tuple(int(v) for v in block.split("x"))
+
 
 @pytest.mark.parametrize("block,ref,gate", [
     pytest.param(8, "pallas", COEFF_GATE, id="8"),
     pytest.param(4, "pallas", COEFF_GATE, id="4"),
     pytest.param(16, "einsum", COEFF_GATE, id="16"),
     pytest.param(16, "pallas", PALLAS_16_GATE, id="16-pallas"),
+] + [pytest.param(b, "pallas", COEFF_GATE, id=b) for b in RECT_BLOCKS] + [
+    pytest.param(b, "einsum", COEFF_GATE, id=f"{b}-einsum")
+    for b in RECT_BLOCKS if "16" in b
 ])
 def test_forward_dct_matches_planes_kernel(block, ref, gate):
     # width 192 is not lane-aligned: svc_tpu's encoder takes the planes
     # kernel, whose shape gate (pallas_wire_dct_supported) accepts every
     # block here; 4x4 and 16x16 are the square transform blocks users pick
-    # beside 8x8. At 16x16 that kernel sits 3.71e-4 from the port on this
-    # input (ROADMAP Queue 3), past the gate set at 8x8, while the port is
-    # the exact transform rounded once: there the port is held to the
-    # kernel at the scaled gate, and to svc_tpu's float32 einsum of the
-    # same function (ops/dct.py dct2_planes_to_wire) at the gate
+    # beside 8x8, the rectangles the blocks whose sides they set apart.
+    # At 16x16 that kernel sits 3.71e-4 from the port on this input
+    # (ROADMAP Queue 3), past the gate set at 8x8, while the port is the
+    # exact transform rounded once: there the port is held to the kernel
+    # at the scaled gate, and to svc_tpu's float32 einsum of the same
+    # function (ops/dct.py dct2_planes_to_wire) at the gate. The
+    # rectangles sit within the gate of both on this input (at most
+    # 2.44e-4, one ulp at 2048-4096, at 8x4, 8x16 and 16x8), those with a
+    # side of 16 held to both
+    bh, bw = _hw(block)
     w, h = 192, 136
     ph, pw = 144, 192
     packed = _packed(3, h, w, seed=11)
     planes = jnp.stack([jnp.asarray(packed)[:, :, c::3] for c in range(3)])
     planes = j_pad_frame(planes, pw, ph)
-    assert j_dctp.pallas_wire_dct_supported(3, ph, pw, block, block)
+    # svc_tpu takes (block_w, block_h)
+    assert j_dctp.pallas_wire_dct_supported(3, ph, pw, bw, bh)
     if ref == "einsum":
-        want = np.asarray(j_dct.dct2_planes_to_wire(planes[:, 1:], block, block))
+        want = np.asarray(j_dct.dct2_planes_to_wire(planes[:, 1:], bw, bh))
     else:
         want = np.asarray(j_dctp.dct2_planes_to_wire_pallas(
-            planes, block, block, frame_offset=1))
-    got = dct.dct8x8_to_wire(torch.from_numpy(packed), 1, 2, ph, pw, block,
-                             block).numpy()
-    assert got.shape == want.shape == (2, ph // block, pw // block,
-                                       3 * block * block)
+            planes, bw, bh, frame_offset=1))
+    got = dct.dct8x8_to_wire(torch.from_numpy(packed), 1, 2, ph, pw, bh,
+                             bw).numpy()
+    assert got.shape == want.shape == (2, ph // bh, pw // bw, 3 * bh * bw)
     assert np.abs(got - want).max() <= gate
 
 
@@ -135,10 +155,11 @@ def test_bilinear_axis_weights_copy_matches(out_n, in_n):
 
 
 def _decode_inputs(w, h, ew, eh, seed, block=8):
-    hdr = bitstream.Header(2, w, h, ew, eh, block, block, 3)
-    nby, nbx = hdr.padded_frame_h // block, hdr.padded_frame_w // block
+    bh, bw = _hw(block)
+    hdr = bitstream.Header(2, w, h, ew, eh, bw, bh, 3)
+    nby, nbx = hdr.padded_frame_h // bh, hdr.padded_frame_w // bw
     rng = np.random.default_rng(seed)
-    coeffs = (rng.normal(size=(2, nby, nbx, 3 * block * block)) * 90).astype(
+    coeffs = (rng.normal(size=(2, nby, nbx, 3 * bh * bw)) * 90).astype(
         np.float32)
     btypes = rng.integers(0, 3, (2, nby, nbx)).astype(np.uint32)
     rects = np.tile(np.array([[w // 4, h // 4, 64, 32]], np.int32), (2, 1))
@@ -159,14 +180,14 @@ DECODE_GEOMETRIES = [
 ]
 
 
-# 2x2, 4x4 and 16x16 transform blocks at the width-aligned geometries (a
-# 16x16 block divides them): row resample, identity rows, multi-band
-# resample; 4x4 and 16x16 also at the width-excess ones (K6's square-block
-# kernels)
+# 2x2, 4x4 and 16x16 transform blocks and the rectangles at the
+# width-aligned geometries (a 16x16 block divides them): row resample,
+# identity rows, multi-band resample; 4x4 and 16x16 also at the
+# width-excess ones (K6's square-block kernels)
 DECODE_CASES = [pytest.param(*g, 8, id="-".join(map(str, g)))
                 for g in DECODE_GEOMETRIES] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
-    for b in (2, 4, 16) for g in DECODE_GEOMETRIES[:3]] + [
+    for b in (2, 4, 16, *RECT_BLOCKS) for g in DECODE_GEOMETRIES[:3]] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
     for b in (4, 16) for g in DECODE_GEOMETRIES[3:]]
 
@@ -315,6 +336,37 @@ def test_general_route_dispatches_to_square_k6(monkeypatch, block):
     assert (t, out_h, out_w, nby, nbx) == (2, 120, 200, 128 // block,
                                            208 // block)
     assert n_bands == -(-120 // band_rows)
+
+
+@pytest.mark.parametrize("block", RECT_BLOCKS)
+def test_general_route_keeps_rectangles_on_the_general_k6(monkeypatch, block):
+    # K6 has no kernel for rectangular blocks: on a non-CPU device the
+    # general route launches the general K6 once, and no other K6 and no
+    # K1 (a meta device stands in for the card)
+    from svc_tpu_torch.models import decoder as dec_mod
+
+    launched = []
+    bh, bw = _hw(block)
+    monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
+    monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
+    monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(dct, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(dct.IDCT_RESIZE_GENERAL, "launch",
+                        lambda *a: launched.append(a))
+    for k in (dct.IDCT_RESIZE, dct.IDCT_DISPLAY, dct.IDCT_DISPLAY_GENERAL,
+              *dct.IDCT_DISPLAY_SQ.values(), *dct.IDCT_RESIZE_SQ.values()):
+        monkeypatch.setattr(k, "launch", lambda *a, _k=k: pytest.fail(_k.name))
+    hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3,
+                                                block=block)
+    out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
+        coeffs, btypes, rects
+    )
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)
+    (args,) = launched
+    assert len(args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
+    # t, out_h, out_w, nby, nbx, channels, bh, bw follow the 13 pointers
+    assert args[13:21] == (2, 120, 200, 128 // bh, 208 // bw, 3, bh, bw)
 
 
 @pytest.mark.parametrize(

@@ -1,8 +1,9 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
-specialised kernels K1 / K2 / K6, 4x4 and 16x16 blocks of 3 channels to
-their square-block kernels, every other shape to the general ones) and
-the band and strip geometry of K1's and K6's specialised and square-block
-kernels, on the CPU.
+specialised kernels K1 / K2 / K6; the other blocks of 3 channels with both
+sides in {4, 8, 16} to K2's and K1's templated kernels, 4x4 and 16x16 to
+K6's square-block kernels; every other shape to the general ones) and the
+band and strip geometry of K1's and K6's specialised, templated and
+square-block kernels, on the CPU.
 
 A meta device stands in for the card in the dispatch tests: shapes and
 dtypes flow through the wrappers, the launch is replaced, nothing computes.
@@ -68,10 +69,13 @@ def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
     assert name == kernel
     assert len(args) == len(_all_kernels()[kernel].argtypes)
     if kernel != "dct_to_wire_general":
-        # t_count, frame_offset, frame_h, frame_w, nby, nbx follow 3 pointers
-        assert args[3:9] == (2, 1, 16, 32, 16 // block, 32 // block)
-        # the DCT matrix travels as a host pointer, read by value
-        assert args[1] == dct.dct_matrix(block).ctypes.data
+        # the DCT matrices travel as host pointers, read by value: one for
+        # the 8x8 kernel, dh and dw for the templated ones
+        mats = 1 if kernel == "dct8x8_to_wire" else 2
+        assert args[1:1 + mats] == (dct.dct_matrix(block).ctypes.data,) * mats
+        # t_count, frame_offset, frame_h, frame_w, nby, nbx follow the
+        # pointers
+        assert args[2 + mats:8 + mats] == (2, 1, 16, 32, 16 // block, 32 // block)
 
 
 @pytest.mark.parametrize(
@@ -94,26 +98,79 @@ def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
     assert name == kernel
     assert len(args) == len(_all_kernels()[kernel].argtypes)
     if kernel != "idct_display_general":
-        # the DCT matrix travels as a host pointer, read by value
-        assert args[2] == dct.dct_matrix(block).ctypes.data
-        # t, out_h, nby, nbx, band_rows, n_bands follow the 9 pointers
-        t, out_h, nby, nbx, band_rows, n_bands = args[9:15]
+        # the DCT matrices travel as host pointers, read by value: one for
+        # the 8x8 kernel, dh and dw for the templated ones
+        mats = 1 if kernel == "idct_display" else 2
+        assert args[2:2 + mats] == (dct.dct_matrix(block).ctypes.data,) * mats
+        # t, out_h, nby, nbx, band_rows, n_bands follow the pointers
+        t, out_h, nby, nbx, band_rows, n_bands = args[8 + mats:14 + mats]
         assert (t, out_h, nby, nbx) == (2, 1080, 1088 // block, 1920 // block)
         assert n_bands == -(-1080 // band_rows)
 
 
-def test_rectangular_blocks_take_the_general_kernels(meta_launches):
-    # a 4x8 transform block (4 rows, 8 columns) is not square: both legs
-    # go to the general kernels
-    packed = torch.zeros((3, 16, 96), dtype=torch.uint8, device="meta")
-    assert tuple(dct.dct8x8_to_wire(packed, 1, 2, 16, 32, 4, 8).shape) == (
-        2, 4, 4, 96)
-    coeffs = torch.zeros((2, 272, 240, 96), device="meta")
+def _both_legs(block_h, block_w, channels, general):
+    """K2 on 9 packed 1080p frames and K1 on 8 frames of their padded
+    1088 rows to 1080, at ``block_h`` x ``block_w`` blocks: the outputs'
+    shapes, and each launch as ``(name, args)`` (``meta_launches``)."""
+    packed = torch.zeros((9, 1080, 1920 * channels), dtype=torch.uint8,
+                         device="meta")
+    wire = dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, block_h, block_w,
+                              channels, general=general)
+    nby, nbx = 1088 // block_h, 1920 // block_w
+    coeffs = torch.zeros((8, nby, nbx, channels * block_h * block_w),
+                         device="meta")
     steps = torch.ones(coeffs.shape[:3], device="meta")
-    assert tuple(dct.idct_display(coeffs, steps, 1080, 3, 4, 8).shape) == (
-        2, 1080, 5760)
-    assert [name for name, _ in meta_launches] == [
-        "dct_to_wire_general", "idct_display_general"]
+    shown = dct.idct_display(coeffs, steps, 1080, channels, block_h, block_w,
+                             general=general)
+    return tuple(wire.shape), tuple(shown.shape)
+
+
+@pytest.mark.parametrize(
+    "block_h,block_w,channels,general",
+    [(2, 4, 3, False), (4, 2, 3, False), (1, 8, 3, False), (8, 16, 1, False),
+     (4, 8, 3, True), (16, 8, 3, True)],
+)
+def test_rectangular_blocks_take_the_general_kernels(meta_launches, block_h,
+                                                     block_w, channels, general):
+    # a side of 1 or 2, one channel, or general=True: both legs go to the
+    # general kernels, whose dh and dw are their own matrices
+    wire, shown = _both_legs(block_h, block_w, channels, general)
+    n = channels * block_h * block_w
+    assert wire == (8, 1088 // block_h, 1920 // block_w, n)
+    assert shown == (8, 1080, 1920 * channels)
+    (k2, k2_args), (k1, k1_args) = meta_launches
+    assert (k2, k1) == ("dct_to_wire_general", "idct_display_general")
+    assert len(k2_args) == len(dct.DCT_WIRE_GENERAL.argtypes)
+    assert len(k1_args) == len(dct.IDCT_DISPLAY_GENERAL.argtypes)
+    # bh, bw follow channels, nby, nbx
+    assert k2_args[8:13] == (channels, 1088 // block_h, 1920 // block_w,
+                             block_h, block_w)
+
+
+@pytest.mark.parametrize("block_h,block_w", [(4, 8), (8, 4), (4, 16), (16, 4),
+                                             (8, 16), (16, 8)])
+def test_rectangular_blocks_take_their_templated_kernels(meta_launches,
+                                                         block_h, block_w):
+    # each rectangle of 3 channels launches its own K2 and K1 instance,
+    # named rows first, with dh and dw by value; K1's geometry counts rows
+    # in block_h and the strip in block_w
+    wire, shown = _both_legs(block_h, block_w, 3, False)
+    assert wire == (8, 1088 // block_h, 1920 // block_w, 3 * block_h * block_w)
+    assert shown == (8, 1080, 5760)
+    (k2, k2_args), (k1, k1_args) = meta_launches
+    assert (k2, k1) == (f"dct{block_h}x{block_w}_to_wire",
+                        f"idct{block_h}x{block_w}_display")
+    assert len(k2_args) == len(dct.DCT_WIRE_SQ[block_h, block_w].argtypes) == 11
+    assert len(k1_args) == len(dct.IDCT_DISPLAY_SQ[block_h, block_w].argtypes) == 17
+    mats = (dct.dct_matrix(block_h).ctypes.data, dct.dct_matrix(block_w).ctypes.data)
+    assert k2_args[1:3] == k1_args[2:4] == mats
+    nby, nbx = 1088 // block_h, 1920 // block_w
+    assert k2_args[4:10] == (8, 1, 1080, 1920, nby, nbx)
+    t, out_h, k1_nby, k1_nbx, band_rows, n_bands = k1_args[10:16]
+    assert (t, out_h, k1_nby, k1_nbx) == (8, 1080, nby, nbx)
+    assert n_bands == -(-1080 // band_rows)
+    want = _k1_tables(1080, 1088, nbx, 8, block_h, block_w)
+    assert band_rows == want[-1]
 
 
 @pytest.mark.parametrize(
@@ -253,21 +310,33 @@ K1_GEOMETRIES = [(1080, 1088, 1920), (1080, 1080, 1920), (2160, 2160, 3840),
                  (768, 768, 1376), (288, 288, 352)]
 
 
-def _k1_tables(out_h, in_h, nbx, t, block=8):
-    """K1's band tables for ``block`` x ``block`` blocks: the 8x8 kernel's,
-    or the square-block kernel's strip and CTAs per SM."""
-    if block == 8:
+def _k1_tables(out_h, in_h, nbx, t, block=8, block_w=None):
+    """K1's band tables for ``block`` x ``block_w`` blocks (``block_w``
+    defaults to ``block``): the 8x8 kernel's, or the templated kernel's
+    strip (``block_w``) and CTAs per SM; block rows of ``block`` pixel
+    rows."""
+    block_w = block if block_w is None else block_w
+    if (block, block_w) == (8, 8):
         return dct._band_tables(out_h, in_h, nbx, t, SMS)
-    return dct._band_tables(out_h, in_h, nbx, t, SMS, dct._K1_SQ_GEOM[block][2],
-                            block, dct._K1_SQ_STRIP_PIXELS // block)
+    return dct._band_tables(out_h, in_h, nbx, t, SMS,
+                            dct._K1_SQ_GEOM[block, block_w][2], block,
+                            dct._K1_SQ_STRIP_PIXELS // block_w)
 
 
-def _walk(out_h, in_h, nbx, t, block=8):
+def _hw(block):
+    """``(block_h, block_w)`` of a test's block: ``B`` for a square, or
+    ``"BHxBW"``."""
+    if isinstance(block, int):
+        return block, block
+    return tuple(int(v) for v in block.split("x"))
+
+
+def _walk(out_h, in_h, nbx, t, block=8, block_w=None):
     """Replay the kernel's walk: per band, the block rows it transforms and
     the output rows it emits after each, with the source rows the ring
     holds at that moment (the current and the previous block row)."""
     y0, y1, fy, row_lo, band_b, band_rows = _k1_tables(out_h, in_h, nbx, t,
-                                                       block)
+                                                       block, block_w)
     for band, (b_first, b_last) in enumerate(band_b):
         yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
         for b in range(b_first, b_last + 1):
@@ -390,29 +459,33 @@ def test_band_tables_at_block_8_unchanged(out_h, in_h, nbx, t, ctas):
             np.testing.assert_array_equal(a, b)
 
 
-# K1's square-block kernels: (block, display height, padded height, padded
-# width): 1080p resample, identity rows, CIF, 1366x768's padded width (a
-# ragged last strip), 4K, and a small ragged frame
+# K1's templated kernels: (block: B or "BHxBW", display height, padded
+# height, padded width): 1080p resample, identity rows, CIF, 1366x768's
+# padded width (a ragged last strip), 4K, and a small ragged frame; every
+# rectangle at 1080p resample, CIF and 1366x768's padded width
 K1_SQ_GEOMETRIES = [
     (4, 1080, 1088, 1920), (4, 1080, 1080, 1920), (4, 288, 288, 352),
     (4, 768, 768, 1376), (4, 2160, 2160, 3840), (4, 37, 40, 12),
     (16, 1080, 1088, 1920), (16, 1072, 1072, 1920), (16, 288, 288, 352),
     (16, 768, 768, 1376), (16, 2160, 2160, 3840), (16, 37, 48, 48),
-]
+] + [(shape, *g) for shape in ("4x8", "8x4", "4x16", "16x4", "8x16", "16x8")
+     for g in ((1080, 1088, 1920), (288, 288, 352), (766, 768, 1376))] + [
+    ("16x4", 37, 48, 12), ("4x16", 37, 40, 48)]
 
 
 @pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
 def test_k1_sq_band_walk_reads_inside_its_window(block, out_h, in_h, pw):
-    # every y0 / y1 an output row reads is in the ring of the last 2B rows
+    # every y0 / y1 an output row reads is in the ring of the last 2 BH rows
     # when the row is emitted, each row is emitted once by its own band,
     # and a band walks its own block rows plus at most one halo block row
-    nbx = pw // block
+    bh, bw = _hw(block)
+    nbx = pw // bw
     y0, y1, fy, row_lo, band_b, band_rows = _k1_tables(out_h, in_h, nbx, 8,
-                                                       block)
+                                                       bh, bw)
     assert band_rows <= 128  # the kernel's kMaxBandRows
     emitted = np.zeros(out_h, np.int64)
-    for band, b, rows, ring in _walk(out_h, in_h, nbx, 8, block):
-        assert 0 <= b < in_h // block
+    for band, b, rows, ring in _walk(out_h, in_h, nbx, 8, bh, bw):
+        assert 0 <= b < in_h // bh
         for yo in rows:
             assert band * band_rows <= yo < (band + 1) * band_rows
             assert y0[yo] in ring
@@ -421,7 +494,7 @@ def test_k1_sq_band_walk_reads_inside_its_window(block, out_h, in_h, pw):
             emitted[yo] += 1
     assert (emitted == 1).all()
     walked = band_b[:, 1] - band_b[:, 0] + 1
-    assert walked.max() <= -(-band_rows // block) + 2
+    assert walked.max() <= -(-band_rows // bh) + 2
 
 
 @pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
@@ -429,15 +502,16 @@ def test_k1_sq_writes_every_output_byte_once(block, out_h, in_h, pw):
     # the emit loop (per block row: 16-byte runs q of each emitted row,
     # bytes q * 16 + n below the strip's valid bytes, strip s at byte
     # 192 * s of the row) writes every byte of the frame exactly once
-    nbx = pw // block
-    strip = dct._K1_SQ_STRIP_PIXELS // block
-    row_bytes = nbx * block * 3
-    *_, band_b, band_rows = _k1_tables(out_h, in_h, nbx, 1, block)
+    bh, bw = _hw(block)
+    nbx = pw // bw
+    strip = dct._K1_SQ_STRIP_PIXELS // bw
+    row_bytes = nbx * bw * 3
+    *_, band_b, band_rows = _k1_tables(out_h, in_h, nbx, 1, bh, bw)
     written = np.zeros((out_h, row_bytes), np.int64)
     n_strips = -(-nbx // strip)
-    for _, _, rows, _ in _walk(out_h, in_h, nbx, 1, block):
+    for _, _, rows, _ in _walk(out_h, in_h, nbx, 1, bh, bw):
         for s in range(n_strips):
-            valid = min(strip, nbx - s * strip) * block * 3
+            valid = min(strip, nbx - s * strip) * bw * 3
             for q in range(12):
                 if q * 16 >= valid:
                     continue
@@ -447,26 +521,33 @@ def test_k1_sq_writes_every_output_byte_once(block, out_h, in_h, pw):
     assert (written == 1).all()
 
 
-@pytest.mark.parametrize("block", [4, 16])
+SQ_BLOCKS = [4, 16, "4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
+
+
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 def test_k1_sq_grid_fills_the_card(block):
     # at T = 8 at 1080p: two waves at the CTAs per SM that the kernel's
     # shared memory allows; one CTA's shared memory fits (with the opt-in)
-    nbx = 1920 // block
-    _, _, _, _, band_b, band_rows = _k1_tables(1080, 1088, nbx, 8, block)
-    strips = -(-nbx // (dct._K1_SQ_STRIP_PIXELS // block))
-    ctas_per_sm = dct._K1_SQ_GEOM[block][2]
+    bh, bw = _hw(block)
+    nbx = 1920 // bw
+    _, _, _, _, band_b, band_rows = _k1_tables(1080, 1088, nbx, 8, bh, bw)
+    strips = -(-nbx // (dct._K1_SQ_STRIP_PIXELS // bw))
+    ctas_per_sm = dct._K1_SQ_GEOM[bh, bw][2]
     assert 8 * strips * len(band_b) >= 2 * ctas_per_sm * SMS
-    smem = dct._k1_sq_smem_bytes(block)
+    smem = dct._k1_sq_smem_bytes(bh, bw)
     assert smem <= CTA_SMEM_BYTES
     assert ctas_per_sm * (smem + 1024) <= SM_SMEM_BYTES
 
 
 def _geom(path):
-    """``{B: {name: value}}`` of a square-block kernel source's SqGeom
-    specialisations, and its file-scope ``constexpr int`` constants."""
+    """``{key: {name: value}}`` of a templated kernel source's SqGeom
+    specialisations (key ``B`` of ``SqGeom<B>``, ``(BH, BW)`` of
+    ``SqGeom<BH, BW>``), and its file-scope ``constexpr int`` constants."""
     src = (build.CSRC_DIR / path).read_text()
-    geom = {int(b): dict((n, int(v)) for n, v in re.findall(r"(k\w+) = (\d+)", body))
-            for b, body in re.findall(r"struct SqGeom<(\d+)> \{([^}]*)\}", src)}
+    geom = {(int(b) if not bw else (int(b), int(bw))):
+            dict((n, int(v)) for n, v in re.findall(r"(k\w+) = (\d+)", body))
+            for b, bw, body in re.findall(
+                r"struct SqGeom<(\d+)(?:, (\d+))?> \{([^}]*)\}", src)}
     consts = {n: int(v) for n, v in re.findall(r"^constexpr int (k\w+) = (\d+);",
                                                src, re.M)}
     return geom, consts, src
@@ -475,75 +556,145 @@ def _geom(path):
 def test_sq_host_geometry_matches_the_kernel_sources():
     # the strips, paddings, CTAs per SM and shared memory that the
     # wrappers plan with are those csrc/dct_wire_sq.cu and
-    # csrc/idct_display_sq.cu are compiled with
-    geom, k, _ = _geom("idct_display_sq.cu")
-    assert sorted(geom) == sorted(dct._SQUARE_BLOCKS)
+    # csrc/idct_display_sq.cu are compiled with, at every (BH, BW) key
+    geom, k, src = _geom("idct_display_sq.cu")
+    assert sorted(geom) == sorted(dct._SQ_SHAPES) == sorted(dct._K1_SQ_GEOM)
     assert k["kStripPixels"] == dct._K1_SQ_STRIP_PIXELS
     assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
     ring_pitch = k["kStripPixels"] * 3 // 16 * 20 + 4
-    for b, g in geom.items():
-        assert (g["kCoefPitch"], g["kCoefGroup"], g["kMinCtas"]) == dct._K1_SQ_GEOM[b]
-        strip = k["kStripPixels"] // b
-        assert strip * 3 * b == k["kThreads"]
-        assert g["kCoefGroup"] >= b * g["kCoefPitch"]
-        assert dct._k1_sq_smem_bytes(b) == 4 * (
-            2 * strip * 3 * g["kCoefGroup"] + 2 * b * ring_pitch + 2 * strip
+    for (bh, bw), g in geom.items():
+        assert f"SVC_IDCT_SQ_ENTRY({bh}, {bw})" in src
+        assert (g["kCoefPitch"], g["kCoefGroup"], g["kMinCtas"]) == (
+            dct._K1_SQ_GEOM[bh, bw])
+        strip = k["kStripPixels"] // bw
+        assert strip * 3 * bw == k["kThreads"]
+        assert g["kCoefGroup"] >= bh * g["kCoefPitch"]
+        # 16-byte rows: cp.async chunks and the row stage's float4 loads
+        assert g["kCoefPitch"] % 4 == 0 and g["kCoefGroup"] % 4 == 0
+        smem = dct._k1_sq_smem_bytes(bh, bw)
+        assert smem == 4 * (
+            2 * strip * 3 * g["kCoefGroup"] + 2 * bh * ring_pitch + 2 * strip
             + 3 * k["kMaxBandRows"])
-    geom, k, _ = _geom("dct_wire_sq.cu")
-    assert sorted(geom) == sorted(dct._SQUARE_BLOCKS)
+        assert g["kMinCtas"] * (smem + 1024) <= SM_SMEM_BYTES
+    geom, k, src = _geom("dct_wire_sq.cu")
+    assert sorted(geom) == sorted(dct._SQ_SHAPES) == sorted(dct._K2_SQ_GEOM)
     assert k["kStripPixels"] == dct._K2_SQ_STRIP_PIXELS
-    for b, g in geom.items():
-        assert (g["kAPitch"], g["kAGroup"]) == dct._K2_SQ_GEOM[b]
-        groups = k["kStripPixels"] // b * 3
-        assert groups * b == k["kThreads"]
-        assert dct._k2_sq_smem_bytes(b) == (
-            groups * g["kAGroup"] * 8 + b * k["kStripPixels"] * 3)
+    for (bh, bw), g in geom.items():
+        assert f"SVC_DCT_SQ_ENTRY({bh}, {bw})" in src
+        assert (g["kAPitch"], g["kAGroup"]) == dct._K2_SQ_GEOM[bh, bw]
+        groups = k["kStripPixels"] // bw * 3
+        assert groups * bw == k["kThreads"]
+        assert g["kAGroup"] >= bh * g["kAPitch"]
+        assert dct._k2_sq_smem_bytes(bh, bw) == (
+            groups * g["kAGroup"] * 8 + bh * k["kStripPixels"] * 3)
         # with the opt-in, the CTAs per SM the launch bounds ask for fit
-        assert g["kMinCtas"] * (dct._k2_sq_smem_bytes(b) + 1024) <= SM_SMEM_BYTES
+        assert g["kMinCtas"] * (dct._k2_sq_smem_bytes(bh, bw) + 1024) <= SM_SMEM_BYTES
 
 
-@pytest.mark.parametrize("block", [4, 16])
+def _row_stage(bh, bw, lanes):
+    """Per step s of a templated kernel's row stage (K2's stage 2, K1's
+    rows), the pair, row and first column each lane of ``lanes`` (a
+    CTA's threads) transforms: at BH >= BW rows q + s * BW of pair g
+    (lane = g * BW + q), all columns; at BH < BW, the threads in BW / BH
+    parts, lane u of part p columns [p * BH, p * BH + BH) of row u % BH of
+    pair u // BH."""
+    if bh >= bw:
+        g, q = lanes // bw, lanes % bw
+        return [(g, q + s * bw, 0 * lanes) for s in range(bh // bw)]
+    part = len(lanes) // (bw // bh)
+    p, u = lanes // part, lanes % part
+    return [(u // bh, u % bh, p * bh)]
+
+
+def _worst_conflict(addr, phase, banks):
+    """The most distinct addresses of one phase (``phase`` lanes) that
+    share a bank (of ``banks``); 1 is conflict-free (equal addresses
+    broadcast)."""
+    worst = 1
+    for h in range(0, len(addr), phase):
+        distinct = np.unique(addr[h:h + phase])
+        worst = max(worst, int(np.bincount(distinct % banks).max()))
+    return worst
+
+
+# the layouts with a conflict: K1 at 16x4 trades one for occupancy, 2-way
+# on its row stage's float4 loads (3 CTAs an SM instead of 2); at 4x8 no
+# padding frees both stages, and the row stage's loads (K2's stage 2, K1's
+# float4 loads) keep a 2-way conflict
+K1_ROW_CONFLICTS = {(16, 4): 2, (4, 8): 2}
+K2_ROW_CONFLICTS = {(4, 8): 2}
+
+
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 def test_sq_layouts_avoid_bank_conflicts(block):
     # shared memory has 32 banks of 4 bytes; a warp's 8-byte accesses go in
     # half-warps, its 16-byte ones in quarter-warps, and a phase is free of
-    # conflicts when its addresses fall on distinct banks
+    # conflicts when its distinct addresses fall on distinct banks
+    bh, bw = _hw(block)
     lanes = np.arange(384)
-    group, r = lanes // block, lanes % block
-    a_pitch, a_group = dct._K2_SQ_GEOM[block]
-    for fixed in range(block):  # K2, doubles: stage 1 stores, stage 2 loads
-        for addr in (group * a_group + fixed * a_pitch + r,
-                     group * a_group + r * a_pitch + fixed):
-            for h in range(0, 384, 16):
-                assert len(set(addr[h:h + 16] % 16)) == 16
+    group, r = lanes // bw, lanes % bw
+    a_pitch, a_group = dct._K2_SQ_GEOM[bh, bw]
+    for fixed in range(bh):  # K2, doubles: stage 1 stores
+        addr = group * a_group + fixed * a_pitch + r
+        assert _worst_conflict(addr, 16, 16) == 1
+    for pair, row, _ in _row_stage(bh, bw, lanes):  # stage 2 loads
+        for j in range(bw):
+            addr = pair * a_group + row * a_pitch + j
+            assert _worst_conflict(addr, 16, 16) == K2_ROW_CONFLICTS.get((bh, bw), 1)
     lanes = np.arange(192)
-    group, r = lanes // block, lanes % block
-    pitch, c_group, _ = dct._K1_SQ_GEOM[block]
-    for fixed in range(block):  # K1, floats: the column stage
+    group, r = lanes // bw, lanes % bw
+    pitch, c_group, _ = dct._K1_SQ_GEOM[bh, bw]
+    for fixed in range(bh):  # K1, floats: the column stage
         addr = group * c_group + fixed * pitch + r
-        for w in range(0, 192, 32):
-            assert len(set(addr[w:w + 32] % 32)) == 32
-    for q in range(block // 4):  # K1: the row stage's float4 loads
-        addr = (group * c_group + r * pitch + 4 * q) // 4
-        for h in range(0, 192, 8):
-            assert len(set(addr[h:h + 8] % 8)) == 8
+        assert _worst_conflict(addr, 32, 32) == 1
+    for pair, row, _ in _row_stage(bh, bw, lanes):  # K1: row stage float4s
+        for q in range(bw // 4):
+            addr = (pair * c_group + row * pitch + 4 * q) // 4
+            assert _worst_conflict(addr, 8, 8) == K1_ROW_CONFLICTS.get((bh, bw), 1)
+
+
+@pytest.mark.parametrize("block", SQ_BLOCKS)
+def test_sq_row_stage_covers_every_coefficient_once(block):
+    # K2's stage 2 (384 threads) and K1's row stage (192): the threads'
+    # BH outputs each cover every (pair, row, column) of the strip once;
+    # at BH < BW a part is whole warps (K2; K1 but at 4x16, where two
+    # warps hold two parts), so its columns are the same across a warp
+    bh, bw = _hw(block)
+    for threads in (384, 192):
+        lanes = np.arange(threads)
+        hits = np.zeros((threads // bw, bh, bw), np.int64)
+        for pair, row, col0 in _row_stage(bh, bw, lanes):
+            for m in range(min(bh, bw)):
+                np.add.at(hits, (pair, row, col0 + m), 1)
+            warps = col0.reshape(-1, 32)
+            uniform = (warps == warps[:, :1]).all(axis=1)
+            if threads == 384 or (bh, bw) != (4, 16):
+                assert uniform.all()
+            else:
+                assert uniform.sum() == 4
+        assert (hits == 1).all()
 
 
 @pytest.mark.parametrize("block,out_h,in_h,nbx,t", [
     (4, 120, 128, 20, 2), (4, 128, 128, 16, 1), (4, 37, 40, 3, 1),
-    (16, 120, 128, 5, 2), (16, 112, 112, 4, 1), (16, 37, 48, 3, 1)])
+    (16, 120, 128, 5, 2), (16, 112, 112, 4, 1), (16, 37, 48, 3, 1),
+    ("4x8", 120, 128, 10, 2), ("8x4", 120, 128, 20, 1),
+    ("4x16", 37, 40, 3, 1), ("16x4", 120, 128, 20, 2),
+    ("8x16", 112, 112, 5, 1), ("16x8", 37, 48, 9, 1)])
 def test_k1_sq_band_walk_reproduces_plain_bytes(block, out_h, in_h, nbx, t):
-    # the square-block kernel's walk, replayed on the plain version's
-    # planes with the kernel's per-element blend, gives the plain bytes
-    rng = np.random.default_rng(out_h + nbx + block)
-    n = 3 * block * block
+    # the templated kernel's walk, replayed on the plain version's planes
+    # with the kernel's per-element blend, gives the plain bytes
+    bh, bw = _hw(block)
+    rng = np.random.default_rng(out_h + nbx + bh + bw)
+    n = 3 * bh * bw
     coeffs = torch.from_numpy(
-        (rng.normal(size=(t, in_h // block, nbx, n)) * 90).astype(np.float32))
+        (rng.normal(size=(t, in_h // bh, nbx, n)) * 90).astype(np.float32))
     steps = torch.from_numpy(
-        rng.choice([1.0, 640.0], size=(t, in_h // block, nbx)).astype(np.float32))
-    planes = dct.idct_planes_plain(coeffs, steps, 3, block, block)
-    y0, y1, fy, *_ = _k1_tables(out_h, in_h, nbx, t, block)
-    rows = torch.full((t, 3, out_h, nbx * block), float("nan"))
-    for _, _, emit, _ in _walk(out_h, in_h, nbx, t, block):
+        rng.choice([1.0, 640.0], size=(t, in_h // bh, nbx)).astype(np.float32))
+    planes = dct.idct_planes_plain(coeffs, steps, 3, bh, bw)
+    y0, y1, fy, *_ = _k1_tables(out_h, in_h, nbx, t, bh, bw)
+    rows = torch.full((t, 3, out_h, nbx * bw), float("nan"))
+    for _, _, emit, _ in _walk(out_h, in_h, nbx, t, bh, bw):
         for yo in emit:
             v = planes[:, :, y0[yo]]
             if fy[yo] != 0:
@@ -551,7 +702,7 @@ def test_k1_sq_band_walk_reproduces_plain_bytes(block, out_h, in_h, nbx, t):
                 v = v * (1 - f) + planes[:, :, y1[yo]] * f
             rows[:, :, yo] = v
     got = dct.display_bytes(rows)
-    want = dct.idct_display_plain(coeffs, steps, out_h, 3, block, block)
+    want = dct.idct_display_plain(coeffs, steps, out_h, 3, bh, bw)
     assert torch.equal(got, want)
 
 
@@ -867,7 +1018,7 @@ def test_k6_sq_host_geometry_matches_the_kernel_source():
         assert (g["kCoefPitch"], g["kCoefGroup"], g["kHaloColumns"],
                 g["kRingPitch"], g["kThreads"], g["kMinCtas"]) == (
                     dct._K6_SQ_GEOM[b])
-        assert dct._K6_SQ_GEOM[b][:2] == dct._K1_SQ_GEOM[b][:2]
+        assert dct._K6_SQ_GEOM[b][:2] == dct._K1_SQ_GEOM[b, b][:2]
         assert 1 <= g["kHaloColumns"] <= b
         assert g["kRingPitch"] >= _k6_sq_ring_width(b)
         blocks = k["kStripPixels"] // b + 1

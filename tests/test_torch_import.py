@@ -147,6 +147,11 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "threefry2x32", "dct4x4_to_wire", "dct16x16_to_wire",
         "idct4x4_display", "idct16x16_display", "idct4x4_resize_display",
         "idct16x16_resize_display",
+        # the rectangular blocks' K2 and K1, rows first
+        "dct4x8_to_wire", "dct8x4_to_wire", "dct4x16_to_wire",
+        "dct16x4_to_wire", "dct8x16_to_wire", "dct16x8_to_wire",
+        "idct4x8_display", "idct8x4_display", "idct4x16_display",
+        "idct16x4_display", "idct8x16_display", "idct16x8_display",
     }
     # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
     # while_loop and jax.random's threefry (its k-means++ seeding draw)
@@ -178,15 +183,19 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "threefry.cu", "dct_wire_sq.cu", "idct_display_sq.cu",
             "idct_resize_sq.cu"} <= srcs
     # one file each, but for the instantiations of one kernel template (the
-    # square-block K2, K1 and K6: one instantiation per block size)
-    templates = {dct.DCT_WIRE_SQ[4].source: set(dct.DCT_WIRE_SQ),
-                 dct.IDCT_DISPLAY_SQ[4].source: set(dct.IDCT_DISPLAY_SQ),
-                 dct.IDCT_RESIZE_SQ[4].source: set(dct.IDCT_RESIZE_SQ)}
+    # templated K2 and K1: one instantiation per (rows, columns) block
+    # shape, named rows first; the square-block K6: one per block size)
+    templates = {dct.DCT_WIRE_SQ[4, 4].source: dct.DCT_WIRE_SQ,
+                 dct.IDCT_DISPLAY_SQ[4, 4].source: dct.IDCT_DISPLAY_SQ,
+                 dct.IDCT_RESIZE_SQ[4].source: {
+                     (b, b): k for b, k in dct.IDCT_RESIZE_SQ.items()}}
     for src in {k.source for k in ks.values()}:
         sharing = [k for k in ks.values() if k.source == src]
         if src in templates:
-            assert {int(k.name.split("x")[1].split("_")[0]) for k in sharing} == (
-                templates[src])
+            shapes = {tuple(int(v) for v in re.match(r"[a-z]+(\d+)x(\d+)_",
+                                                     k.name).groups())
+                      for k in sharing}
+            assert shapes == set(templates[src]), src
         else:
             assert len(sharing) == 1, src
     # sources are found relative to the package, not the working directory

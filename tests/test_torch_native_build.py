@@ -80,3 +80,22 @@ def test_loader_takes_the_lock_around_the_build(monkeypatch, tmp_path):
     assert events == ["lock", "build"]
     assert lock_path.exists()
     assert native._lib is None
+
+
+def test_port_library_is_its_own_copy(monkeypatch, tmp_path, scratch_native):
+    # the port builds and loads build/native/libsvcio.so, never the
+    # native/libsvcio.so that other loaders build there without a lock: a
+    # half-written file there (here: a truncated one) neither stops the
+    # port's load nor is touched by it
+    assert native._LIB_PATH == os.path.join(REPO, "build", "native", "libsvcio.so")
+    assert os.path.dirname(native._LIB_PATH) != native._NATIVE_DIR
+    partial = scratch_native / "libsvcio.so"
+    partial.write_bytes(b"\x7fELF")
+    lib_path = tmp_path / "build" / "native" / "libsvcio.so"
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_NATIVE_DIR", str(scratch_native))
+    monkeypatch.setattr(native, "_LIB_PATH", str(lib_path))
+    monkeypatch.setattr(native, "_LOCK_PATH", str(tmp_path / "build" / "native.lock"))
+    assert native.load() is not None
+    assert lib_path.stat().st_size > 4
+    assert partial.read_bytes() == b"\x7fELF"

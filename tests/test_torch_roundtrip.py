@@ -158,3 +158,32 @@ def test_stream_resume_from_anchor_index():
                                  first_anchor_index=2))
     assert tail == full[3:]
     assert isinstance(enc.encode_batch(clip[:3], 0)["coeffs"], torch.Tensor)
+
+
+@pytest.mark.parametrize("block_h,block_w", [(8, 16), (8, 4)])
+def test_rectangular_blocks_round_trip(block_h, block_w):
+    # transform blocks with sides set apart (8 rows and 16 or 4 columns)
+    # through both packages on a seeded clip: the same header and block
+    # types, coefficients within the gate, and the port decodes svc_tpu's
+    # stream like svc_tpu does
+    w, h, n = 64, 48, 5
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(transform_block_h=block_h, transform_block_w=block_w)
+    props = VideoProperties(w, h, n)
+    js = list(j_enc.Encoder(cfg, props, batch_size=BATCH).encode_video(iter(clip)))
+    ts = list(t_enc.Encoder(*_port(cfg, props), batch_size=BATCH,
+                            device="cpu").encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    header, jp = _payloads(js)
+    assert (header.transform_block_h, header.transform_block_w) == (block_h, block_w)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert jc.shape == tc.shape == (48 // block_h, 64 // block_w, 3,
+                                        block_h, block_w)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    assert any((tt > 0).any() for tt, _ in tp)  # foreground was found
+    gaze = (w // 2, h // 2)
+    _assert_display_close(_decode(t_dec, js, gaze, device="cpu"),
+                          _decode(j_dec, js, gaze))

@@ -146,7 +146,7 @@ def test_variant_docstring_edits_apply_once():
     # the edits the tool's docstring gives as examples each occur exactly
     # once in the checkout's sources, so they run as written
     for path, old in (("pyr_down_levels.cuh", "__launch_bounds__(kLvThreads, 6)"),
-                      ("idct_display_sq.cu", "kMinCtas = 3;"),
+                      ("idct_display_sq.cu", "kCoefGroup = 336, kMinCtas = 3;"),
                       ("idct_resize_sq.cu", "kHaloColumns = 4, kRingPitch = 206"),
                       ("ccl_converge.cu", "kCluster = 8;")):
         assert old in variant_timing.__doc__
@@ -169,3 +169,29 @@ def test_ptxas_report_names_the_square_k6_instances(smoke):
     assert smoke.ptxas_report(log) == [
         ("idct_resize_sq.cu", "idct_sq_resize_kernel<16>", 64, 0),
         ("idct_resize_sq.cu", "idct_sq_resize_kernel<4>", 40, 0)]
+
+
+def test_ptxas_report_names_the_templated_k2_k1_instances(smoke):
+    # the templates of dct_wire_sq.cu and idct_display_sq.cu take (rows,
+    # columns): one entry per block shape, rows first, with its spill stores
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__93b7408a_14_dct_wire_sq_cu_"
+        "04e6972d18dct_sq_wire_kernelILi16ELi8EEEvPKhNS_4DctDIXT_EXT0_EEEPfiiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN47_GLOBAL__N__93b7408a_14_dct_wire_sq_cu_"
+        "04e6972d18dct_sq_wire_kernelILi16ELi8EEEvPKhNS_4DctDIXT_EXT0_EEEPfiiiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__2947429e_18_idct_display_sq_cu_"
+        "864b1bd722idct_sq_display_kernelILi8ELi16EEEvPKfS2_NS_4DctFIXT_EXT0_EEEPKiS6_S2_S6_S6_"
+        "Phiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN51_GLOBAL__N__2947429e_18_idct_display_sq_cu_"
+        "864b1bd722idct_sq_display_kernelILi8ELi16EEEvPKfS2_NS_4DctFIXT_EXT0_EEEPKiS6_S2_S6_S6_"
+        "Phiiii",
+        "    416 bytes stack frame, 412 bytes spill stores, 412 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+    ])
+    assert smoke.ptxas_report(log) == [
+        ("dct_wire_sq.cu", "dct_sq_wire_kernel<16, 8>", 56, 0),
+        ("idct_display_sq.cu", "idct_sq_display_kernel<8, 16>", 64, 0)]
+    assert smoke.ptxas_spills(log) == {"dct_sq_wire_kernel<16, 8>": 0,
+                                       "idct_sq_display_kernel<8, 16>": 412}
