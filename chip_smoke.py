@@ -17,7 +17,7 @@ each:
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the forty-one kernels against its plain
+3. kernel parity — each of the forty-seven kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -39,12 +39,15 @@ each:
    tiny sizes and 2-5 levels, the K8 pyramid at odd subplane widths and
    a small frame, K9 also with random, past-edge and T = 1 MVs, the K8
    refine with MVs past its staged band and past the frame edges; K5 also
-   at 1080p with D = 7; the square-block K6 (4x4 and 16x16 blocks of 3
-   channels) byte-equal to the general K6 at 1366x768, 1270x714 and
-   854x480, T = 8, and on a ragged shape (1312 padded pixels: block
-   columns ending mid-strip), timed in turns with it at 1366x768 and
-   854x480; the templated K2 and K1 (4x4, 16x16 and the six rectangles
-   of sides 4, 8 and 16, rows x columns) at 1080p,
+   at 1080p with D = 7; the templated K6 (4x4, 16x16 and the six
+   rectangles of sides 4, 8 and 16, rows x columns, blocks of 3 channels)
+   byte-equal to the general K6 at 1366x768, 1270x714 and 854x480, T =
+   8, and on a ragged shape (1312 padded pixels: block columns ending
+   mid-strip), timed in turns with it at 1366x768 and 854x480; the
+   general K2, K1 and K6 at 2x2 blocks timed with their bounds (K2 at
+   1080p and 1366x768 in turns with its 4-filter stride-2 convolution,
+   K1 at 1080p, K6 at 1366x768); the templated K2 and K1 (the same eight
+   shapes) at 1080p,
    T = 8, bit-equal (K2) or byte-equal (K1) to the general kernels there
    and on a ragged shape (1366-pixel packed rows, 2-byte aligned; block
    columns ending mid-strip), K1 also with identity rows, each timed in
@@ -77,15 +80,17 @@ each:
 5. width excess — a 9-frame 1366x768 clip, default config, encoded and
    decoded on ``cuda`` (the 8x8 x 3 K6 must run, and K2 on 2-byte aligned
    rows), the bytes held against the CPU port's decode of the same
-   payloads; then the clip with 4x4 and with 16x16 transform blocks on
-   graph replays: the square-block K2 and K6 of that size must run, no
-   other K6 and no K1; the frames byte-equal to ``graph=False`` and 2
-   payloads held to the CPU port's decode (the display gate);
+   payloads; then the clip with 4x4, 16x16 and 8x16 (rows x columns)
+   transform blocks, and a 9-frame 854x480 clip with each of the other
+   five rectangles, on graph replays: the templated K2 and K6 of that
+   shape must run, no other K6, no K1 and no general kernel; the frames
+   byte-equal to ``graph=False`` and 2 payloads held to the CPU port's
+   decode (the display gate);
 6. reference-compat — a 9-frame 1080p clip with
    ``EncoderConfig(reference_compat=True)``, K1-K4 and K9 must run;
    phases 4-6 must not launch a general kernel (K1, K2, K3, K5, K6, K9,
-   K10), the single-level K4 or a templated K1 or K2 or square-block K6
-   (phase 5's square-block runs: only their own size's K2 and K6);
+   K10), the single-level K4 or a templated K1, K2 or K6 (phase 5's
+   templated runs: only their own shape's K2 and K6);
 7. transform blocks other than 8x8 — a 9-frame CIF clip, default config
    with 4x4 transform blocks: the 4x4 K2 and K1 must run, no other K1 or
    K2 and no K6;
@@ -122,14 +127,14 @@ each:
     3-vector subsets on ``cuda`` and on the CPU (MV fields, inlier masks
     and global motion equal), 8-vector subsets (1177 hypotheses) on one
     frame's field on both, a 9-frame clip streamed at subset 3 (K1-K5 and
-    K9 must run, no general kernel and no square-block K6), and
+    K9 must run, no general kernel and no templated K6), and
     ``estimate_global_motion_ransac``
     timed per 8-frame batch at subsets 1, 3 and 8;
 13. frame-parallel split — ``ShardedEncoder`` and the device-list
     ``Decoder`` over two entries (two cards when there are, else
     ``[cuda:0, cuda:0]``), 4 anchors each: phase 4's 17-frame clip gives
     its stream byte for byte and its decoded frames (K1-K5 and K9 must
-    run, no general kernel and no square-block K6), then single-device and
+    run, no general kernel and no templated K6), then single-device and
     split fps in turns;
 14. compiled batch — the encoder and the decoder run each batch as a
     CUDA graph replay (phases 4-8, 11-13 all do); here against
@@ -1033,8 +1038,9 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
            worst, gen_ms, gen_w_ms, plain_ms, nbytes, ops)
     print(f"parity K6 idct_resize_display (T=8): {'; '.join(modes)}; 1366x768 "
           f"{line}")
-    for b in dct.IDCT_RESIZE_SQ:
-        square_resize_parity(g, dev, results, b)
+    for shape in dct.IDCT_RESIZE_SQ:
+        shape_resize_parity(g, dev, results, shape)
+    general_2x2_timings(g, dev)
     compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word)
     return results
 
@@ -1176,9 +1182,10 @@ def block_shape_parity(g, dev, results, shape, packed, planes):
           f"(1088->1080 rows, T=8); {line}")
 
 
-def square_resize_parity(g, dev, results, block):
-    """Phase 3, K6 for square ``block`` x ``block`` transform blocks of 3
-    channels (4 and 16): the square-block kernel against the general one
+def shape_resize_parity(g, dev, results, shape):
+    """Phase 3, K6 for ``shape`` = (rows, columns) transform blocks of 3
+    channels on its templated kernel (4x4, 16x16 and the six rectangles of
+    sides 4, 8 and 16): the templated kernel against the general one
     (byte-equal) and the plain version (within the display gate) at
     1366x768, 1270x714 and 854x480, T = 8, at the decoder's gaze mix of
     steps 1 and 640, and on a ragged shape (1312 padded pixels: the block
@@ -1187,8 +1194,8 @@ def square_resize_parity(g, dev, results, block):
     each wrapper's time and the plain version's."""
     from svc_tpu_torch.ops import dct, quant
 
-    b = block
-    k6 = dct.IDCT_RESIZE_SQ[b]
+    bh, bw = shape
+    k6 = dct.IDCT_RESIZE_SQ[shape]
 
     def counts():
         return (k6.launches, dct.IDCT_RESIZE_GENERAL.launches,
@@ -1198,23 +1205,23 @@ def square_resize_parity(g, dev, results, block):
     for w, h, t in ((1366, 768, 8), (1270, 714, 8), (854, 480, 8),
                     (1300, 766, 2)):
         pw, ph = -(-w // 16) * 16, -(-h // 16) * 16
-        nby, nbx = ph // b, pw // b
-        coeffs = (torch.randn((t, nby, nbx, 3 * b * b), generator=g) * 90).to(dev)
+        nby, nbx = ph // bh, pw // bw
+        coeffs = (torch.randn((t, nby, nbx, 3 * bh * bw), generator=g) * 90).to(dev)
         btypes = torch.randint(0, 3, (t, nby, nbx), generator=g).to(dev)
         gazed = torch.zeros((t, nby, nbx), dtype=torch.bool, device=dev)
-        gazed[:, nby // 2 - 64 // b:nby // 2 + 64 // b,
-              nbx // 2 - 64 // b:nbx // 2 + 64 // b] = True
+        gazed[:, nby // 2 - 64 // bh:nby // 2 + 64 // bh,
+              nbx // 2 - 64 // bw:nbx // 2 + 64 // bw] = True
         steps = quant.block_quant_steps(btypes, gazed, 1, 640)
         before = counts()
-        got = dct.idct_resize_display(coeffs, steps, h, w, 3, b, b)
-        got_g = dct.idct_resize_display(coeffs, steps, h, w, 3, b, b,
+        got = dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw)
+        got_g = dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw,
                                         general=True)
         if counts() != (before[0] + 1, before[1] + 1, before[2]):
-            fail(f"K6 at {b}x{b} and {w}x{h} did not launch the square-block "
+            fail(f"K6 at {bh}x{bw} and {w}x{h} did not launch the templated "
                  f"and the general kernel once each")
         if not torch.equal(got, got_g):
             fail(f"K6 {k6.name} differs from the general kernel at {w}x{h}")
-        ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, b, b)
+        ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, bh, bw)
         diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
         frac = (diff > 0).double().mean().item()
         if diff.max().item() > 1 or not frac < 1e-3:
@@ -1226,20 +1233,21 @@ def square_resize_parity(g, dev, results, block):
                 f"differ from plain")
         if (w, h) in ((1366, 768), (854, 480)):
             gen_ms, ms, turns = in_turns(
-                lambda: dct.idct_resize_display(coeffs, steps, h, w, 3, b, b,
+                lambda: dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw,
                                                 general=True),
-                lambda: dct.idct_resize_display(coeffs, steps, h, w, 3, b, b),
+                lambda: dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw),
                 graph_ms)
             w_ms = cuda_ms(lambda: dct.idct_resize_display(coeffs, steps, h, w,
-                                                           3, b, b))
+                                                           3, bh, bw))
             gw_ms = cuda_ms(lambda: dct.idct_resize_display(
-                coeffs, steps, h, w, 3, b, b, general=True))
+                coeffs, steps, h, w, 3, bh, bw, general=True))
             p_ms = cuda_ms(lambda: dct.idct_resize_display_plain(
-                coeffs, steps, h, w, 3, b, b), iters=5)
-            # dequantize (3 per coefficient), IDCT (2b multiply-adds per
-            # coefficient), two lerps (3 each) per output byte
+                coeffs, steps, h, w, 3, bh, bw), iters=5)
+            # dequantize (3 per coefficient), IDCT (bh + bw multiply-adds
+            # per coefficient), two lerps (3 each) per output byte
             nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
-            ops = 3 * coeffs.numel() + 4 * b * coeffs.numel() + 6 * got.numel()
+            ops = (3 * coeffs.numel() + 2 * (bh + bw) * coeffs.numel()
+                   + 6 * got.numel())
             timed_at[w, h] = (ms, w_ms, p_ms, nbytes, ops)
             mode += (f"; {ms:.4f} ms (general {gen_ms:.4f}, "
                      f"{gen_ms / ms:.1f}x; in turns general, new, new, "
@@ -1252,6 +1260,88 @@ def square_resize_parity(g, dev, results, block):
     ms, w_ms, p_ms, nbytes, ops = timed_at[1366, 768]
     line = record(results, k6.name, k6, worst, ms, w_ms, p_ms, nbytes, ops)
     print(f"parity K6 {k6.name}: {'; '.join(modes)}; 1366x768 {line}")
+
+
+def general_2x2_timings(g, dev):
+    """Phase 3, the general K2, K1 and K6 at 2x2 transform blocks of 3
+    channels (no templated kernel takes a side of 2), T = 8, each timed by
+    CUDA graph replay with its bound: K2 on 8 packed 1080p frames and on 8
+    of 1366x768 (padded to 1376) in turns with the 4-filter stride-2
+    convolution of their zero-padded float32 planes; K1 from 1088 padded
+    rows to 1080 at 1080p; K6 from 1376x768 to 1366x768. Each is held to
+    its plain version: K2 within 2.5e-4; K1 and K6 on their first frame
+    equal but on the bytes that are exact ties of the float64 decode, and
+    there within 1 (2x2 blocks put about a sixth of the display bytes on a
+    half, ``tools/display_ties.py``)."""
+    from svc_tpu_torch.ops import dct, quant
+    from svc_tpu_torch.tools import display_ties
+
+    lines = []
+    ch = torch.tensor(dct.dct_matrix(2), device=dev)
+    basis = (ch[:, None, :, None] * ch[None, :, None, :]).reshape(4, 1, 2, 2)
+    for w, h in ((1920, 1080), (1366, 768)):
+        pw, ph = -(-w // 16) * 16, -(-h // 16) * 16
+        packed = torch.randint(0, 256, (9, h, w * 3), generator=g,
+                               dtype=torch.uint8).to(dev)
+        got = dct.dct8x8_to_wire(packed, 1, 8, ph, pw, 2, 2)
+        err = (got - dct.dct8x8_to_wire_plain(packed, 1, 8, ph, pw, 2, 2)
+               ).abs().max().item()
+        if not err <= 2.5e-4:
+            fail(f"K2 general at 2x2, {w}x{h}: max |err| {err} > 2.5e-4")
+        planes = torch.nn.functional.pad(
+            packed[1:].reshape(8, h, w, 3).permute(0, 3, 1, 2).float(),
+            (0, pw - w, 0, ph - h)).reshape(24, 1, ph, pw)
+        lib_ms, ms, turns = in_turns(
+            lambda: torch.nn.functional.conv2d(planes, basis, stride=2),
+            lambda: dct.dct8x8_to_wire(packed, 1, 8, ph, pw, 2, 2), graph_ms)
+        # each packed byte read once, each coefficient written once; 2 (2 +
+        # 2) float64 operations a coefficient
+        nbytes, ops = 8 * h * w * 3 + got.numel() * 4, 8 * got.numel()
+        b_ms, b_by = bound(nbytes, ops, FP64_OPS_PER_S)
+        lines.append(f"K2 general 2x2 at {w}x{h}: {ms:.4f} ms, one conv "
+                     f"{lib_ms:.4f} ms ({lib_ms / ms:.2f}x the kernel; in turns "
+                     f"conv, kernel, kernel, conv: "
+                     f"{', '.join(f'{x:.4f}' for x in turns)}), bound "
+                     f"{b_ms:.4f} ms ({b_by}), max |err| {err:.3e}")
+    for kname, w, h, pw, ph in (("K1", 1920, 1080, 1920, 1088),
+                                ("K6", 1366, 768, 1376, 768)):
+        nby, nbx = ph // 2, pw // 2
+        coeffs = (torch.randn((8, nby, nbx, 12), generator=g) * 90).to(dev)
+        btypes = torch.randint(0, 3, (8, nby, nbx), generator=g).to(dev)
+        gazed = torch.zeros((8, nby, nbx), dtype=torch.bool, device=dev)
+        gazed[:, nby // 2 - 32:nby // 2 + 32, nbx // 2 - 32:nbx // 2 + 32] = True
+        steps = quant.block_quant_steps(btypes, gazed, 1, 640)
+        if kname == "K1":
+            def call():
+                return dct.idct_display(coeffs, steps, h, 3, 2, 2)
+            ref = dct.idct_display_plain(coeffs[:1], steps[:1], h, 3, 2, 2)
+            exact = display_ties.exact_display(coeffs[:1], steps[:1], h, 3, 2, 2)
+            ops_per_byte = 3
+        else:
+            def call():
+                return dct.idct_resize_display(coeffs, steps, h, w, 3, 2, 2)
+            ref = dct.idct_resize_display_plain(coeffs[:1], steps[:1], h, w, 3,
+                                                2, 2)
+            exact = display_ties.exact_display(coeffs[:1], steps[:1], h, 3, 2,
+                                               2, out_w=w)
+            ops_per_byte = 6
+        got = call()
+        ties = display_ties.tie_mask(exact).reshape(ref.shape)
+        d = (got[:1].to(torch.int16) - ref.to(torch.int16)).abs().cpu().numpy()
+        if d.max() > 1 or d[~ties].any():
+            fail(f"{kname} general at 2x2, {w}x{h}: differs from its plain "
+                 f"version off the exact ties (max {d.max()})")
+        ms = graph_ms(call)
+        # dequantize (3 per coefficient), IDCT (2 + 2 multiply-adds a
+        # coefficient), the lerps per output byte
+        nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
+        ops = 3 * coeffs.numel() + 8 * coeffs.numel() + ops_per_byte * got.numel()
+        b_ms, b_by = bound(nbytes, ops)
+        lines.append(f"{kname} general 2x2 {pw}x{ph}->{w}x{h}: {ms:.4f} ms, "
+                     f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x; "
+                     f"{int((d > 0).sum())} bytes differ from plain, all on "
+                     f"ties ({ties.mean():.2%} of bytes)")
+    print(f"2x2 blocks on the general kernels (T=8): {'; '.join(lines)}")
 
 
 def compiled_batch_parity(g, dev, results, int_ops_per_s, k11_per_word):
@@ -1501,32 +1591,34 @@ def block_shape_round_trip(shape, w, h, required, forbidden):
     return run
 
 
-def wide_square_round_trip(block, required, forbidden):
-    """Phase 5's square-block runs: a 9-frame 1366x768 clip (width excess
-    10), the default config with ``block`` x ``block`` transform blocks,
-    through :func:`round_trip` on graph replays (the square-block K6 of its
-    size decodes it, no other K6); then its payloads decoded with
-    ``graph=False``, byte for byte, and the first 2 decoded on the CPU port
-    (the display gate)."""
+def wide_shape_round_trip(shape, w, h, required, forbidden):
+    """Phase 5's runs at ``shape`` = (rows, columns) transform blocks: a
+    9-frame ``w`` x ``h`` clip (a width excess), the default config with
+    those blocks, through :func:`round_trip` on graph replays (the
+    templated K6 of its shape decodes it, no other K6); then its payloads
+    decoded with ``graph=False``, byte for byte, and the first 2 decoded on
+    the CPU port (the display gate)."""
     from svc_tpu_torch.config import DecoderConfig, EncoderConfig
     from svc_tpu_torch.models.decoder import Decoder
 
-    cfg = EncoderConfig(transform_block_w=block, transform_block_h=block)
-    run = round_trip(cfg, 1366, 768, 9, required, forbidden)
+    bh, bw = shape
+    cfg = EncoderConfig(transform_block_h=bh, transform_block_w=bw)
+    run = round_trip(cfg, w, h, 9, required, forbidden)
     gaze, payloads = run["gaze"], run["payloads"]
     if not (run["enc"].graph and run["dec"].graph):
-        fail(f"phase 5: the {block}x{block} run did not take graph replays")
+        fail(f"phase 5: the {bh}x{bw} run did not take graph replays")
     eager = Decoder(DecoderConfig(), run["header"], batch_size=8,
                     device="cuda", graph=False)
     eager_frames = np.stack(list(eager.decode_frames(
         iter(payloads), iter([gaze] * len(payloads)))))
     if not np.array_equal(eager_frames, run["frames"]):
-        fail(f"phase 5: the {block}x{block} decode differs between graph and "
+        fail(f"phase 5: the {bh}x{bw} decode differs between graph and "
              f"graph=False")
     cpu_dec = Decoder(DecoderConfig(), run["header"], batch_size=2, device="cpu")
     ref = np.stack(list(cpu_dec.decode_frames(iter(payloads[:2]), iter([gaze] * 2))))
-    dgate = display_gate(run["frames"][:2], ref, f"{block}x{block} width-excess decode")
-    print(f"  {block}x{block}: graph replays byte-equal to graph=False "
+    dgate = display_gate(run["frames"][:2], ref,
+                         f"{bh}x{bw} width-excess decode at {w}x{h}")
+    print(f"  {bh}x{bw}: graph replays byte-equal to graph=False "
           f"(frames); cuda decode vs cpu decode of 2 payloads: {dgate}")
     return run
 
@@ -2252,7 +2344,7 @@ def main() -> int:
     from svc_tpu_torch.ops import dct
 
     # the specialised display kernels', the templated K2 and K1 kernels'
-    # and the square-block K6 kernels' dynamic shared memory and threads
+    # and the templated K6 kernels' dynamic shared memory and threads
     display = {"idct8x8_display_kernel": (dct._K1_SMEM_BYTES, 192),
                "idct8x8_resize_kernel": (dct._K6_SMEM_BYTES, 224)}
     for bh, bw in dct.DCT_WIRE_SQ:
@@ -2260,9 +2352,9 @@ def main() -> int:
             dct._k2_sq_smem_bytes(bh, bw), 384)
         display[f"idct_sq_display_kernel<{bh}, {bw}>"] = (
             dct._k1_sq_smem_bytes(bh, bw), 192)
-    for b in dct.IDCT_RESIZE_SQ:
-        display[f"idct_sq_resize_kernel<{b}>"] = (dct._k6_sq_smem_bytes(b),
-                                                  dct._K6_SQ_GEOM[b][4])
+    for bh, bw in dct.IDCT_RESIZE_SQ:
+        display[f"idct_sq_resize_kernel<{bh}, {bw}>"] = (
+            dct._k6_sq_smem_bytes(bh, bw), dct._K6_SQ_GEOM[bh, bw][4])
     spills = ptxas_spills(res.log)
     display_line = "; ".join(
         f"{kern} {regs} regs, {spills[kern]} B spill stores, {smem} B dynamic "
@@ -2327,10 +2419,9 @@ def main() -> int:
         return tuple(n for other, names in square_dct.items()
                      if other != shape for n in names)
 
-    # 4x4 and 16x16 blocks of 3 channels on the width-excess route take the
-    # square-block K6 of their size
-    square_k6 = {b: (k.name,) for b, k in dct.IDCT_RESIZE_SQ.items()}
-    any_square_k6 = square_k6[4] + square_k6[16]
+    # the same blocks on the width-excess route take their templated K6
+    square_k6 = {shape: (k.name,) for shape, k in dct.IDCT_RESIZE_SQ.items()}
+    any_square_k6 = tuple(n for names in square_k6.values() for n in names)
     # the fused K4 and the 2x2 K9 serve the motion path: the single-level
     # K4 and the general K9 run on none of phases 4-7 and 9
     general_k3_k5 = ("refine_sads_general", "lloyd_general",
@@ -2352,8 +2443,9 @@ def main() -> int:
         print(f"  CLIs on cuda: {cli_checks(main_run, tmp)}")
 
     # 5. width excess: the general decode route, K6; K2 on packed rows of
-    # 4098 bytes (row starts only 2-byte aligned); then 4x4 and 16x16
-    # transform blocks there, on the square-block K6 of their size
+    # 4098 bytes (row starts only 2-byte aligned); then 4x4, 16x16 and 8x16
+    # transform blocks there and the other five rectangles at 854x480, each
+    # on its templated K2 and K6
     print("width excess 1366x768 (padded 1376x768), 9 frames, default config:")
     wide = round_trip(EncoderConfig(), 1366, 768, 9,
                       encode_kernels + ("lloyd", "idct_resize_display"),
@@ -2365,16 +2457,21 @@ def main() -> int:
     print(f"  cuda decode vs cpu decode of the same payloads: "
           f"{display_gate(wide['frames'], cpu_frames, 'width-excess decode')}")
     wide_sq = {}
-    for b in (4, 16):
-        print(f"width excess 1366x768, {b}x{b} transform blocks, 9 frames, "
-              f"default config, graph replays:")
-        other = 16 if b == 4 else 4
-        wide_sq[b] = wide_square_round_trip(
-            b, tuple(k for k in encode_kernels if k != "dct8x8_to_wire")
-            + ("lloyd", square_dct[b, b][0]) + square_k6[b],
+    for shape, (w, h) in (((4, 4), (1366, 768)), ((16, 16), (1366, 768)),
+                          ((8, 16), (1366, 768)), ((4, 8), (854, 480)),
+                          ((8, 4), (854, 480)), ((4, 16), (854, 480)),
+                          ((16, 4), (854, 480)), ((16, 8), (854, 480))):
+        print(f"width excess {w}x{h}, {shape[0]}x{shape[1]} transform blocks "
+              f"(rows x columns), 9 frames, default config, graph replays:")
+        wide_sq[shape] = wide_shape_round_trip(
+            shape, w, h,
+            tuple(k for k in encode_kernels if k != "dct8x8_to_wire")
+            + ("lloyd", square_dct[shape][0]) + square_k6[shape],
             ("dct8x8_to_wire", "idct_display", "idct_resize_display")
-            + general_dct + general_k3_k5 + general_k6 + other_dct((b, b))
-            + (square_dct[b, b][1],) + square_k6[other])
+            + general_dct + general_k3_k5 + general_k6 + other_dct(shape)
+            + (square_dct[shape][1],)
+            + tuple(n for other, names in square_k6.items() if other != shape
+                    for n in names))
 
     # 6. reference-compat at 1080p: K1-K4, K9
     print("reference-compat 1080p, 9 frames:")
@@ -2518,7 +2615,7 @@ def main() -> int:
                **{name: tb4 for name in square_dct[4, 4]},
                **{name: run for shape, run in shape_runs.items()
                   for name in square_dct[shape]},
-               **{square_k6[b][0]: wide_sq[b] for b in square_k6}}
+               **{square_k6[shape][0]: wide_sq[shape] for shape in square_k6}}
     kernels = []
     for name, r in results.items():
         k = r["kernel"]

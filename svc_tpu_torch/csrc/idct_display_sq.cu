@@ -47,7 +47,7 @@
 //    block height and the strip), so one kernel serves the resample route
 //    and, with y0 = y1 = Y and f = 0, the identity route. Every index in
 //    the loops is a compile-time constant or a shift.
-#include "idct8x8.cuh"
+#include "idct_sq.cuh"
 
 namespace {
 
@@ -115,71 +115,6 @@ struct Sq {
   static_assert(SqGeom<BH, BW>::kCoefGroup >= BH * SqGeom<BH, BW>::kCoefPitch,
                 "slot rows fit");
 };
-
-// The two DCT matrices; a square carries one.
-template <int BH, int BW>
-struct DctF {
-  float h[BH * BH];
-  float w[BW * BW];
-};
-template <int B>
-struct DctF<B, B> {
-  float h[B * B];
-};
-
-template <int BH, int BW>
-__device__ __forceinline__ float dw_at(const DctF<BH, BW>& d, int i) {
-  if constexpr (BH == BW) {
-    return d.h[i];
-  } else {
-    return d.w[i];
-  }
-}
-
-// Coefficients and steps of blocks [blk0, blk0 + nblk) (flat block index)
-// into a slot, as one cp.async group per thread.
-template <int BH, int BW>
-__device__ __forceinline__ void fetch_sq_row(const float* __restrict__ coeffs,
-                                             const float* __restrict__ steps,
-                                             size_t blk0, int nblk,
-                                             float* slot, float* slot_steps) {
-  constexpr int kPairChunks = BH * BW / 4;  // 16-byte chunks of a pair
-  constexpr int kRowChunks = BW / 4;        // of a coefficient row
-  const float* src = coeffs + blk0 * (3 * BH * BW);
-  for (int ch = threadIdx.x; ch < nblk * 3 * kPairChunks; ch += kThreads) {
-    const int g = ch / kPairChunks;
-    const int e = ch & (kPairChunks - 1);
-    cp_async16(slot + g * SqGeom<BH, BW>::kCoefGroup +
-                   (e / kRowChunks) * SqGeom<BH, BW>::kCoefPitch +
-                   (e & (kRowChunks - 1)) * 4,
-               src + ch * 4);
-  }
-  if (threadIdx.x < nblk) {
-    cp_async4(slot_steps + threadIdx.x, steps + blk0 + threadIdx.x);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Columns of pair g: dequantize + inverse transform of column r, in place.
-template <int BH, int BW>
-__device__ __forceinline__ void sq_column_stage(float* grp, float step,
-                                                const DctF<BH, BW>& d, int r) {
-  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
-  float q[BH];
-#pragma unroll
-  for (int k = 0; k < BH; ++k) {
-    const float y = __fdiv_rn(grp[k * kPitch + r], step);
-    const float mag = __fmul_rn(floorf(__fadd_rn(fabsf(y), 0.5f)), step);
-    q[k] = copysignf(mag, y);
-  }
-#pragma unroll
-  for (int i = 0; i < BH; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < BH; ++k) acc = fmaf(q[k], d.h[k * BH + i], acc);
-    grp[i * kPitch + r] = acc;
-  }
-}
 
 // Pixels [J0, J0 + kCols) of one row of pair (block blk, channel c), j
 // ascending: arow points at the row in the slot, dst at its ring row.
@@ -274,6 +209,7 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   constexpr int kSlot = Sq<BH, BW>::kSlot;
   constexpr int kRingRows = Sq<BH, BW>::kRingRows;
   constexpr int kGroup = SqGeom<BH, BW>::kCoefGroup;
+  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem + 2 * kSlot;
   float* slot_steps = ring + kRingRows * kRingPitch;
@@ -302,9 +238,9 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   const int r = threadIdx.x & (BW - 1);
   const int blk = g / 3;
 
-  fetch_sq_row<BH, BW>(coeffs, steps,
-                       blk_row0 + static_cast<size_t>(b_first) * nbx, nblk,
-                       smem, slot_steps);
+  fetch_sq_row<BH, BW, kPitch, kGroup, kThreads>(
+      coeffs, steps, blk_row0 + static_cast<size_t>(b_first) * nbx, nblk,
+      smem, slot_steps);
   for (int i = threadIdx.x; i < yb1 - yb0; i += kThreads) {
     band_r0[i] = (y0[yb0 + i] & (kRingRows - 1)) * kRingPitch;
     band_r1[i] = (y1[yb0 + i] & (kRingRows - 1)) * kRingPitch;
@@ -313,11 +249,11 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   cp_async_wait_all();
   __syncthreads();
   if (b_first < b_last) {
-    fetch_sq_row<BH, BW>(coeffs, steps,
-                         blk_row0 + static_cast<size_t>(b_first + 1) * nbx,
-                         nblk, smem + kSlot, slot_steps + kStrip);
+    fetch_sq_row<BH, BW, kPitch, kGroup, kThreads>(
+        coeffs, steps, blk_row0 + static_cast<size_t>(b_first + 1) * nbx,
+        nblk, smem + kSlot, slot_steps + kStrip);
   }
-  sq_column_stage<BH, BW>(smem + g * kGroup, slot_steps[blk], d, r);
+  sq_column_stage<BH, BW, kPitch>(smem + g * kGroup, slot_steps[blk], d, r);
 
   // Per block row b, two phases: (1) the rows stage of b into the ring;
   // (2) the output rows that b completes, the next block row's column
@@ -331,9 +267,9 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
     cp_async_wait_all();
     __syncthreads();
     if (b + 2 <= b_last) {
-      fetch_sq_row<BH, BW>(coeffs, steps,
-                           blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
-                           smem + s * kSlot, slot_steps + s * kStrip);
+      fetch_sq_row<BH, BW, kPitch, kGroup, kThreads>(
+          coeffs, steps, blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
+          smem + s * kSlot, slot_steps + s * kStrip);
     }
     for (int task = threadIdx.x; task < (yz - ya) * kChunks;
          task += kThreads) {
@@ -372,8 +308,8 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
       }
     }
     if (b == b_last) break;
-    sq_column_stage<BH, BW>(smem + (s ^ 1) * kSlot + g * kGroup,
-                            slot_steps[(s ^ 1) * kStrip + blk], d, r);
+    sq_column_stage<BH, BW, kPitch>(smem + (s ^ 1) * kSlot + g * kGroup,
+                                    slot_steps[(s ^ 1) * kStrip + blk], d, r);
   }
 }
 
@@ -383,11 +319,7 @@ int launch_sq(const void* coeffs, const void* steps, const void* dh,
               const void* row_lo, const void* band_b, void* out, int t_count,
               int out_h, int nby, int nbx, int band_rows, int n_bands,
               void* stream) {
-  DctF<BH, BW> m;
-  for (int i = 0; i < BH * BH; ++i) m.h[i] = static_cast<const float*>(dh)[i];
-  if constexpr (BH != BW) {
-    for (int i = 0; i < BW * BW; ++i) m.w[i] = static_cast<const float*>(dw)[i];
-  }
+  const DctF<BH, BW> m = dct_from_host<BH, BW>(dh, dw);
   if (band_rows < 1 || band_rows > kMaxBandRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

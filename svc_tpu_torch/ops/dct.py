@@ -24,10 +24,9 @@ Each dispatches by shape: 8x8 blocks of 3 channels (the codec's default)
 go to a kernel specialised for them (``csrc/dct_wire.cu``,
 ``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); the other transform
 blocks users pick, of 3 channels, go to one kernel template each,
-instantiated per block shape: K2 and K1 at every (rows, columns) in
-{4, 8, 16}^2 but 8x8 (``csrc/dct_wire_sq.cu``,
-``csrc/idct_display_sq.cu``), K6 at square 4x4 and 16x16
-(``csrc/idct_resize_sq.cu``); every other block
+instantiated per block shape at every (rows, columns) in {4, 8, 16}^2
+but 8x8 (``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``,
+``csrc/idct_resize_sq.cu``); every other block
 shape or channel count goes to the general kernel
 (``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
 ``csrc/idct_resize_general.cu``). All give the general kernel's bits.
@@ -80,9 +79,9 @@ IDCT_DISPLAY_GENERAL = Kernel(
     source="svc_tpu_torch/csrc/idct_display_general.cu",
     replaces="svc_tpu/ops/dct_pallas.py:692",
 )
-# K2 and K1 for blocks of 3 channels of (rows, columns) in {4, 8, 16}^2
-# other than 8x8: one kernel template each, an instantiation (and a launch
-# count) per block shape, named rows first; the squares, then the
+# K2, K1 and K6 for blocks of 3 channels of (rows, columns) in {4, 8,
+# 16}^2 other than 8x8: one kernel template each, an instantiation (and a
+# launch count) per block shape, named rows first; the squares, then the
 # rectangles
 _SQ_SHAPES = ((4, 4), (16, 16), (4, 8), (8, 4), (4, 16), (16, 4), (8, 16),
               (16, 8))
@@ -113,18 +112,15 @@ IDCT_RESIZE = Kernel(
     source="svc_tpu_torch/csrc/idct_resize.cu",
     replaces="svc_tpu/ops/resize_pallas.py:96",
 )
-# K6 for square blocks of 3 channels other than 8x8: one kernel template,
-# an instantiation (and a launch count) per block size
-_SQUARE_BLOCKS = (4, 16)
 IDCT_RESIZE_SQ = {
-    b: Kernel(
-        f"idct{b}x{b}_resize_display",
-        f"svc_idct{b}x{b}_resize_display",
-        [PTR] * 12 + [INT] * 7 + [PTR],
+    (bh, bw): Kernel(
+        f"idct{bh}x{bw}_resize_display",
+        f"svc_idct{bh}x{bw}_resize_display",
+        [PTR] * 13 + [INT] * 7 + [PTR],
         source="svc_tpu_torch/csrc/idct_resize_sq.cu",
         replaces="svc_tpu/ops/resize_pallas.py:96",
     )
-    for b in _SQUARE_BLOCKS
+    for bh, bw in _SQ_SHAPES
 }
 IDCT_RESIZE_GENERAL = Kernel(
     "idct_resize_display_general",
@@ -172,15 +168,21 @@ _K1_SQ_STRIP_PIXELS = 64
 _K1_SQ_GEOM = {(4, 4): (8, 36, 6), (16, 16): (20, 336, 3), (4, 8): (8, 40, 6),
                (8, 4): (8, 68, 5), (4, 16): (20, 80, 6), (16, 4): (4, 68, 3),
                (8, 16): (20, 176, 4), (16, 8): (12, 200, 3)}
-# K6's square-block kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
-# (64 / B block columns) plus one halo block column, a thread per byte of a
-# strip's run of at most 192 display-row bytes; per B the coefficient
-# slot's (row stride, pair stride) in floats (K1's), the halo's pixel
-# columns the ring keeps, the ring's row pitch in floats, the threads and
-# the CTAs an SM holds; two slots and their steps, a ring of B + 1 pixel
-# rows, three tables of up to 128 output rows
+# K6's templated kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
+# (64 / BW block columns) plus one halo block column, a thread per byte of
+# a strip's run of at most 192 display-row bytes; per (BH, BW) the
+# coefficient slot's (row stride, pair stride) in floats (K1's), the
+# halo's pixel columns the ring keeps, the ring's row pitch in floats, the
+# threads and the CTAs an SM holds; two slots and their steps, a ring of
+# BH + 1 pixel rows, three tables of up to 128 output rows
 _K6_SQ_STRIP_PIXELS = 64
-_K6_SQ_GEOM = {4: (8, 36, 4, 206, 224, 6), 16: (20, 336, 1, 198, 256, 4)}
+_K6_SQ_GEOM = {(4, 4): (8, 36, 4, 206, 224, 6),
+               (16, 16): (20, 336, 1, 198, 256, 4),
+               (4, 8): (8, 40, 8, 218, 256, 6), (8, 4): (8, 68, 4, 206, 224, 6),
+               (4, 16): (20, 80, 1, 196, 256, 5),
+               (16, 4): (4, 68, 4, 206, 224, 4),
+               (8, 16): (20, 176, 1, 198, 256, 4),
+               (16, 8): (12, 200, 8, 218, 224, 3)}
 
 
 def _k2_sq_smem_bytes(block_h: int, block_w: int) -> int:
@@ -201,12 +203,14 @@ def _k1_sq_smem_bytes(block_h: int, block_w: int) -> int:
                 + 3 * max(_K1_BAND_ROWS))
 
 
-def _k6_sq_smem_bytes(block: int) -> int:
-    """Dynamic shared memory of K6's kernel for ``block`` x ``block``."""
-    _, group, _, ring_pitch, _, _ = _K6_SQ_GEOM[block]
-    blocks = _K6_SQ_STRIP_PIXELS // block + 1
-    return 4 * (2 * (blocks * 3 * group + blocks) + (block + 1) * ring_pitch
-                + 3 * max(_K1_BAND_ROWS))
+def _k6_sq_smem_bytes(block_h: int, block_w: int) -> int:
+    """Dynamic shared memory of K6's kernel for ``block_h`` x ``block_w``:
+    the strip (in block columns) counts ``block_w``, the ring's pixel rows
+    ``block_h``."""
+    _, group, _, ring_pitch, _, _ = _K6_SQ_GEOM[block_h, block_w]
+    blocks = _K6_SQ_STRIP_PIXELS // block_w + 1
+    return 4 * (2 * (blocks * 3 * group + blocks)
+                + (block_h + 1) * ring_pitch + 3 * max(_K1_BAND_ROWS))
 
 
 def _specialised(block_h: int, block_w: int, channels: int) -> bool:
@@ -214,15 +218,9 @@ def _specialised(block_h: int, block_w: int, channels: int) -> bool:
 
 
 def _templated(block_h: int, block_w: int, channels: int) -> bool:
-    """Blocks of 3 channels with both sides in {4, 8, 16}, but 8x8: K2's
-    and K1's templated kernels."""
+    """Blocks of 3 channels with both sides in {4, 8, 16}, but 8x8: K2's,
+    K1's and K6's templated kernels."""
     return (block_h, block_w) in DCT_WIRE_SQ and channels == 3
-
-
-def _square(block_h: int, block_w: int, channels: int) -> bool:
-    """Square 4x4 or 16x16 blocks of 3 channels: K6's square-block
-    kernels."""
-    return block_h == block_w and block_h in _SQUARE_BLOCKS and channels == 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -449,7 +447,7 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
                  ctas_per_sm: int = _K1_CTAS_PER_SM, block: int = 8,
                  strip: int = _K1_STRIP):
     """The row geometry of the specialised display kernels K1 and K6 and of
-    K1's templated and K6's square-block kernels (host numpy), which walk
+    K1's and K6's templated kernels (host numpy), which walk
     each band of output rows down its source block rows of ``block`` pixel
     rows (the block height), a strip of ``strip`` block columns per CTA.
 
@@ -623,11 +621,11 @@ def idct_resize_display_plain(
 @functools.lru_cache(maxsize=64)
 def _strip_tables(out_w: int, in_w: int, block: int = 8,
                   strip: int = _K6_STRIP):
-    """The column geometry of K6's specialised kernel and its square-block
+    """The column geometry of K6's specialised kernel and its templated
     kernels (host numpy), whose CTAs each transform a strip of ``strip``
-    block columns of ``block`` pixels (``span = block * strip`` source
-    columns; 64 for every kernel) plus one halo block column, and emit the
-    output columns whose ``x0`` lies in the strip.
+    block columns of ``block`` pixels (the block width; ``span = block *
+    strip`` source columns, 64 for every kernel) plus one halo block
+    column, and emit the output columns whose ``x0`` lies in the strip.
 
     Returns ``(col_e, col_f, strip_lo)``: per byte ``3 * xo + c`` of a
     display row, ``col_e`` the ring position of its ``x0`` within its strip
@@ -674,13 +672,13 @@ def idct_resize_display(
       coeffs: ``(T, nby, nbx, C*bh*bw)`` float32 wire coefficients.
       steps: ``(T, nby, nbx)`` float32 per-block quantization steps (> 0).
       general: launch the general kernel whatever the shape (the yardstick
-        the specialised and square-block ones are held and timed against).
+        the specialised and templated ones are held and timed against).
 
     Returns ``(T, out_h, out_w*C)`` uint8. 8x8 blocks of 3 channels go to
-    the specialised kernel, 4x4 and 16x16 blocks of 3 channels to the
-    square-block kernel, unless the columns are upsampled (``out_w`` past
-    the padded width, which the decoder never asks for); every other shape
-    goes to the general one.
+    the specialised kernel, the other blocks of 3 channels with both sides
+    in {4, 8, 16} to the templated kernel, unless the columns are
+    upsampled (``out_w`` past the padded width, which the decoder never
+    asks for); every other shape goes to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_resize_display_plain(
@@ -694,27 +692,31 @@ def idct_resize_display(
     out = torch.empty((t, out_h, out_w * channels), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out
-    if ((_specialised(block_h, block_w, channels)
-            or _square(block_h, block_w, channels))
+    specialised = _specialised(block_h, block_w, channels)
+    if ((specialised or _templated(block_h, block_w, channels))
             and out_w <= nbx * block_w and not general):
-        b = block_h
-        if b == 8:
+        bh, bw = block_h, block_w
+        if specialised:
             kernel, strip, ctas = IDCT_RESIZE, _K6_STRIP, _K6_CTAS_PER_SM
+            # host matrix, passed by value
+            mats = (dct_matrix(8).ctypes.data,)
         else:
-            kernel, strip = IDCT_RESIZE_SQ[b], _K6_SQ_STRIP_PIXELS // b
-            ctas = _K6_SQ_GEOM[b][5]
+            kernel, strip = IDCT_RESIZE_SQ[bh, bw], _K6_SQ_STRIP_PIXELS // bw
+            ctas = _K6_SQ_GEOM[bh, bw][5]
+            mats = (dct_matrix(bh).ctypes.data, dct_matrix(bw).ctypes.data)
         c = coeffs.contiguous()
         if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
             c = c.clone()
         s = steps.contiguous()
-        tabs, band_rows = _band_tables_on(dev, out_h, nby * b, nbx, t, ctas,
-                                          b, strip)
+        # rows are block rows of bh pixel rows; the strip counts block
+        # columns of bw pixels
+        tabs, band_rows = _band_tables_on(dev, out_h, nby * bh, nbx, t, ctas,
+                                          bh, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
-        cols = _strip_tables_on(dev, out_w, nbx * b, b, strip)
-        d = dct_matrix(b)  # host matrix, passed by value
+        cols = _strip_tables_on(dev, out_w, nbx * bw, bw, strip)
         with torch.cuda.device(dev):
             kernel.launch(
-                c.data_ptr(), s.data_ptr(), d.ctypes.data,
+                c.data_ptr(), s.data_ptr(), *mats,
                 *[tab.data_ptr() for tab in tabs + cols], out.data_ptr(),
                 t, out_h, out_w, nby, nbx, band_rows, n_bands,
                 stream_handle(c),

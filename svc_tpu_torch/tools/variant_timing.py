@@ -11,9 +11,10 @@ SM), with ``--target display``, K1's templated kernels (e.g. ``--edit
 idct_display_sq.cu 'kCoefGroup = 336, kMinCtas = 3;' 'kCoefGroup = 336,
 kMinCtas = 2;'``), with ``--target wire``, K2's (``dct_wire_sq.cu``),
 with ``--target
-resize``, K6's square-block kernels (e.g. the whole halo block in the
-4x4 ring: ``--edit idct_resize_sq.cu 'kHaloColumns = 4, kRingPitch = 206'
-'kHaloColumns = 1, kRingPitch = 198'``), or, with
+resize``, K6's templated kernels (e.g. column 0 alone of the halo
+block in the 4x4 ring: ``--edit idct_resize_sq.cu
+'kCoefGroup = 36, kHaloColumns = 4' 'kCoefGroup = 36, kHaloColumns = 1'``),
+or, with
 ``--target ccl``, K10's cluster kernel, e.g. on clusters of
 16 CTAs (``--edit`` may be given more than once; each old text must occur
 exactly once):
@@ -55,8 +56,9 @@ spiral, 8 frames of 135x240 and 2 of 270x480 blobs; the display target
 times ``idct_display`` at the blocks of K1's templated kernel (8 frames
 of 1088 padded rows to 1080, steps 1 and 640 at random); the wire target
 ``dct8x8_to_wire`` at K2's (8 anchor frames of 9 packed 1080p frames);
-the resize target ``idct_resize_display`` at 4x4 and 16x16 (8 frames of
-1376x768 to 1366x768 and of 864x480 to 854x480). The two libraries'
+the resize target ``idct_resize_display`` at the blocks of K6's
+templated kernel (8 frames of 1376x768 to 1366x768 and of 864x480 to
+854x480). The two libraries'
 outputs must be equal bit for bit (K10's also to its plain version).
 Nothing of the checkout's sources changes.
 """
@@ -263,15 +265,15 @@ def resize_work(mods):
     resize target."""
     g = torch.Generator().manual_seed(0)
     work = {}
-    for b, _ in templated_shapes(mods, "IDCT_RESIZE_SQ"):
+    for bh, bw in templated_shapes(mods, "IDCT_RESIZE_SQ"):
         for w, h, pw in ((1366, 768, 1376), (854, 480, 864)):
-            shape = (8, h // b, pw // b)
-            coeffs = (torch.randn(shape + (3 * b * b,), generator=g) * 90).cuda()
+            shape = (8, h // bh, pw // bw)
+            coeffs = (torch.randn(shape + (3 * bh * bw,), generator=g) * 90).cuda()
             steps = torch.where(torch.rand(shape, generator=g) < 0.5, 640.0,
                                 1.0).cuda()
-            work[f"K6 idct{b}x{b}_resize_display 8x{pw}x{h}->{w}x{h}"] = (
-                lambda m, c=coeffs, s=steps, b=b, w=w, h=h:
-                m.idct_resize_display(c, s, h, w, 3, b, b))
+            work[f"K6 idct{bh}x{bw}_resize_display 8x{pw}x{h}->{w}x{h}"] = (
+                lambda m, c=coeffs, s=steps, bh=bh, bw=bw, w=w, h=h:
+                m.idct_resize_display(c, s, h, w, 3, bh, bw))
     return (lambda m: list(m.IDCT_RESIZE_SQ.values())), work, {}
 
 

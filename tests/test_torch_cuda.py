@@ -814,9 +814,10 @@ def test_lloyd_cluster_first_launch_past_48k_with_static(gen, n, d):
 
 def _k6_inputs(gen, w, h, t=2, block=8):
     # the decoder's padded geometry: 16-pixel MV blocks
+    bh, bw = _hw(block)
     pw, ph = -(-w // 16) * 16, -(-h // 16) * 16
-    nby, nbx = ph // block, pw // block
-    coeffs = (torch.randn((t, nby, nbx, 3 * block * block), generator=gen)
+    nby, nbx = ph // bh, pw // bw
+    coeffs = (torch.randn((t, nby, nbx, 3 * bh * bw), generator=gen)
               * 90).cuda()
     steps = torch.where(
         torch.rand((t, nby, nbx), generator=gen) < 0.5, 640.0, 1.0
@@ -870,10 +871,11 @@ def _k6_launches():
 
 
 @pytest.mark.parametrize("block,channels", [(2, 3), (8, 1), (4, 1), (16, 1),
-                                            ("4x8", 3), ("16x4", 3), ("8x16", 3)])
+                                            ("2x4", 3), ("4x2", 3), ("16x2", 3)])
 def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
                                                                   channels):
-    # K6 has no templated kernel for rectangles: they stay on the general one
+    # K6 has no templated kernel for a side of 2 or channels other than 3:
+    # they stay on the general one
     bh, bw = _hw(block)
     pw, ph, w, h = 208, 128, 200, 120
     nby, nbx = ph // bh, pw // bw
@@ -890,7 +892,7 @@ def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
     assert (d > 0).double().mean().item() < 1e-3
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 @pytest.mark.parametrize("w,h,t", [
     (120, 64, 2),     # width excess 8, identity rows
     (200, 120, 2),    # both axes resampled
@@ -899,38 +901,40 @@ def test_idct_resize_display_other_shapes_take_the_general_kernel(gen, block,
     (1270, 714, 2),   # both axes resampled at 1280x720
     (61, 37, 1)])     # one ragged strip, odd row bytes
 def test_idct_resize_sq_equals_general(gen, block, w, h, t):
-    # the square-block K6 byte-equal to the general one, both within the
+    # the templated K6 byte-equal to the general one, both within the
     # display gate of the plain version, at a gaze mix of steps 1 and 640
+    bh, bw = _hw(block)
     coeffs, steps, _ = _k6_inputs(gen, w, h, t, block)
-    sq = dct.IDCT_RESIZE_SQ[block]
+    sq = dct.IDCT_RESIZE_SQ[bh, bw]
     before = (sq.launches, dct.IDCT_RESIZE_GENERAL.launches, dct.IDCT_RESIZE.launches)
-    got = dct.idct_resize_display(coeffs, steps, h, w, 3, block, block)
-    got_g = dct.idct_resize_display(coeffs, steps, h, w, 3, block, block,
+    got = dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw)
+    got_g = dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw,
                                     general=True)
     assert (sq.launches, dct.IDCT_RESIZE_GENERAL.launches,
             dct.IDCT_RESIZE.launches) == (before[0] + 1, before[1] + 1, before[2])
     assert torch.equal(got, got_g)  # byte for byte
-    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, block, block)
+    ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, bh, bw)
     assert got.shape == (t, h, w * 3)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
     assert d.max().item() <= 1
     assert (d > 0).double().mean().item() < 1e-3
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 def test_idct_resize_sq_in_a_cuda_graph(gen, block):
-    # the square-block wrapper, captured in a CUDA graph and replayed,
-    # writes the bytes of a direct call: its tables need no host copy
+    # the templated wrapper, captured in a CUDA graph and replayed, writes
+    # the bytes of a direct call: its tables need no host copy
+    bh, bw = _hw(block)
     coeffs, steps, _ = _k6_inputs(gen, 854, 480, 2, block)
-    want = dct.idct_resize_display(coeffs, steps, 480, 854, 3, block, block)
+    want = dct.idct_resize_display(coeffs, steps, 480, 854, 3, bh, bw)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        dct.idct_resize_display(coeffs, steps, 480, 854, 3, block, block)
+        dct.idct_resize_display(coeffs, steps, 480, 854, 3, bh, bw)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = dct.idct_resize_display(coeffs, steps, 480, 854, 3, block, block)
+        out = dct.idct_resize_display(coeffs, steps, 480, 854, 3, bh, bw)
     out.zero_()
     graph.replay()
     torch.cuda.synchronize()

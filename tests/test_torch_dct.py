@@ -182,14 +182,14 @@ DECODE_GEOMETRIES = [
 
 # 2x2, 4x4 and 16x16 transform blocks and the rectangles at the
 # width-aligned geometries (a 16x16 block divides them): row resample,
-# identity rows, multi-band resample; 4x4 and 16x16 also at the
-# width-excess ones (K6's square-block kernels)
+# identity rows, multi-band resample; 4x4, 16x16 and the rectangles also
+# at the width-excess ones (K6's templated kernels)
 DECODE_CASES = [pytest.param(*g, 8, id="-".join(map(str, g)))
                 for g in DECODE_GEOMETRIES] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
     for b in (2, 4, 16, *RECT_BLOCKS) for g in DECODE_GEOMETRIES[:3]] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
-    for b in (4, 16) for g in DECODE_GEOMETRIES[3:]]
+    for b in (4, 16, *RECT_BLOCKS) for g in DECODE_GEOMETRIES[3:]]
 
 
 @pytest.mark.parametrize("w,h,ew,eh,block", DECODE_CASES)
@@ -302,61 +302,30 @@ def test_general_route_dispatches_to_k6(monkeypatch):
     assert n_bands == -(-120 // band_rows)
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", [4, 16, *RECT_BLOCKS, "2x4", "4x2"])
 def test_general_route_dispatches_to_square_k6(monkeypatch, block):
-    # on a non-CPU device the general route at 4x4 and 16x16 transform
-    # blocks launches K6's square-block kernel of that size once, and the
-    # general K6, the 8x8 K6 and every K1 never (a meta device stands in
-    # for the card)
-    from svc_tpu_torch.models import decoder as dec_mod
-
-    launched = []
-    sq = dct.IDCT_RESIZE_SQ[block]
-    monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
-    monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
-    monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
-    monkeypatch.setattr(dct, "_sm_count", lambda dev: 132)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(sq, "launch", lambda *a: launched.append(a))
-    for k in (dct.IDCT_RESIZE_GENERAL, dct.IDCT_RESIZE, dct.IDCT_DISPLAY,
-              dct.IDCT_DISPLAY_GENERAL, *dct.IDCT_DISPLAY_SQ.values(),
-              *(k for b, k in dct.IDCT_RESIZE_SQ.items() if b != block)):
-        monkeypatch.setattr(k, "launch", lambda *a, _k=k: pytest.fail(_k.name))
-    hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3,
-                                                block=block)
-    out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
-        coeffs, btypes, rects
-    )
-    assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)
-    (args,) = launched
-    assert len(args) == len(sq.argtypes)
-    assert args[2] == dct.dct_matrix(block).ctypes.data
-    # t, out_h, out_w, nby, nbx, band_rows, n_bands follow the 12 pointers
-    t, out_h, out_w, nby, nbx, band_rows, n_bands = args[12:19]
-    assert (t, out_h, out_w, nby, nbx) == (2, 120, 200, 128 // block,
-                                           208 // block)
-    assert n_bands == -(-120 // band_rows)
-
-
-@pytest.mark.parametrize("block", RECT_BLOCKS)
-def test_general_route_keeps_rectangles_on_the_general_k6(monkeypatch, block):
-    # K6 has no kernel for rectangular blocks: on a non-CPU device the
-    # general route launches the general K6 once, and no other K6 and no
-    # K1 (a meta device stands in for the card)
+    # on a non-CPU device the general route at blocks of 3 channels with
+    # both sides in {4, 8, 16} (the squares and the rectangles) launches
+    # K6's templated kernel of that shape once, with dh and dw by value and
+    # its geometry in block rows of BH and strips of 64 / BW block columns;
+    # the general K6, the 8x8 K6, every other K6 and every K1 never; a side
+    # of 2 still takes the general K6 (a meta device stands in for the
+    # card)
     from svc_tpu_torch.models import decoder as dec_mod
 
     launched = []
     bh, bw = _hw(block)
+    want = dct.IDCT_RESIZE_SQ.get((bh, bw), dct.IDCT_RESIZE_GENERAL)
     monkeypatch.setattr(dec_mod, "resolve_device", lambda d: torch.device("meta"))
     monkeypatch.setattr(dct, "_check_cuda", lambda name, t: None)
     monkeypatch.setattr(dct, "stream_handle", lambda t: 0)
     monkeypatch.setattr(dct, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(dct.IDCT_RESIZE_GENERAL, "launch",
-                        lambda *a: launched.append(a))
-    for k in (dct.IDCT_RESIZE, dct.IDCT_DISPLAY, dct.IDCT_DISPLAY_GENERAL,
-              *dct.IDCT_DISPLAY_SQ.values(), *dct.IDCT_RESIZE_SQ.values()):
-        monkeypatch.setattr(k, "launch", lambda *a, _k=k: pytest.fail(_k.name))
+    for k in (dct.IDCT_RESIZE_GENERAL, dct.IDCT_RESIZE, dct.IDCT_DISPLAY,
+              dct.IDCT_DISPLAY_GENERAL, *dct.IDCT_DISPLAY_SQ.values(),
+              *dct.IDCT_RESIZE_SQ.values()):
+        monkeypatch.setattr(k, "launch", lambda *a, _k=k: (
+            launched.append(a) if _k is want else pytest.fail(_k.name)))
     hdr, coeffs, btypes, rects = _decode_inputs(200, 120, 8, 8, seed=3,
                                                 block=block)
     out = dec_mod.Decoder(config.DecoderConfig(), hdr, device="cuda").decode_batch(
@@ -364,9 +333,21 @@ def test_general_route_keeps_rectangles_on_the_general_k6(monkeypatch, block):
     )
     assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 120, 600)
     (args,) = launched
-    assert len(args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
-    # t, out_h, out_w, nby, nbx, channels, bh, bw follow the 13 pointers
-    assert args[13:21] == (2, 120, 200, 128 // bh, 208 // bw, 3, bh, bw)
+    assert len(args) == len(want.argtypes)
+    nby, nbx = 128 // bh, 208 // bw
+    if want is dct.IDCT_RESIZE_GENERAL:
+        # t, out_h, out_w, nby, nbx, channels, bh, bw follow the 13 pointers
+        assert args[13:21] == (2, 120, 200, nby, nbx, 3, bh, bw)
+        return
+    assert args[2:4] == (dct.dct_matrix(bh).ctypes.data,
+                         dct.dct_matrix(bw).ctypes.data)
+    # t, out_h, out_w, nby, nbx, band_rows, n_bands follow the 13 pointers
+    t, out_h, out_w, k_nby, k_nbx, band_rows, n_bands = args[13:20]
+    assert (t, out_h, out_w, k_nby, k_nbx) == (2, 120, 200, nby, nbx)
+    *_, band_b, want_rows = dct._band_tables(
+        120, 128, nbx, 2, 132, dct._K6_SQ_GEOM[bh, bw][5], bh, 64 // bw)
+    assert band_rows == want_rows and n_bands == len(band_b)
+    assert n_bands == -(-120 // band_rows)
 
 
 @pytest.mark.parametrize(

@@ -202,10 +202,12 @@ def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
     assert name == kernel
     if kernel != "idct_resize_display_general":
         assert len(args) == len(_all_kernels()[kernel].argtypes)
-        # the DCT matrix travels as a host pointer, read by value
-        assert args[2] == dct.dct_matrix(block).ctypes.data
-        # t, out_h, out_w, nby, nbx, band_rows, n_bands follow 12 pointers
-        t, out_h, w, nby, nbx, band_rows, n_bands = args[12:19]
+        # the DCT matrices travel as host pointers, read by value: one for
+        # the 8x8 kernel, dh and dw for the templated ones
+        mats = 1 if kernel == "idct_resize_display" else 2
+        assert args[2:2 + mats] == (dct.dct_matrix(block).ctypes.data,) * mats
+        # t, out_h, out_w, nby, nbx, band_rows, n_bands follow the pointers
+        t, out_h, w, nby, nbx, band_rows, n_bands = args[11 + mats:18 + mats]
         assert (t, out_h, w, nby, nbx) == (2, 768, out_w, 768 // block,
                                            1376 // block)
         assert n_bands == -(-768 // band_rows)
@@ -324,10 +326,12 @@ def _k1_tables(out_h, in_h, nbx, t, block=8, block_w=None):
 
 
 def _hw(block):
-    """``(block_h, block_w)`` of a test's block: ``B`` for a square, or
-    ``"BHxBW"``."""
+    """``(block_h, block_w)`` of a test's block: ``B`` for a square,
+    ``"BHxBW"`` or ``(BH, BW)``."""
     if isinstance(block, int):
         return block, block
+    if isinstance(block, tuple):
+        return block
     return tuple(int(v) for v in block.split("x"))
 
 
@@ -887,40 +891,42 @@ def test_strip_tables_at_block_8_unchanged(out_w, out_h, pw, ph):
             np.testing.assert_array_equal(a, b)
 
 
-# K6's square-block kernels: every K6 geometry at 4x4 and 16x16 blocks
-# (1376 pixels are 21.5 strips of 64: the last strip's block columns end
+# K6's templated kernels: every K6 geometry at each block shape (1376
+# pixels are 21.5 strips of 64: the last strip's block columns end
 # mid-strip, without its halo block)
-K6_SQ_CASES = [(b, *g) for b in (4, 16) for g in K6_GEOMETRIES]
+K6_SQ_CASES = [(b, *g) for b in SQ_BLOCKS for g in K6_GEOMETRIES]
 
 
 def _k6_sq_tables(block, out_w, out_h, pw, ph, t):
-    """K6's square-block band tables and strip tables for ``block``."""
-    strip = dct._K6_SQ_STRIP_PIXELS // block
-    rows = dct._band_tables(out_h, ph, pw // block, t, SMS,
-                            dct._K6_SQ_GEOM[block][5], block, strip)
-    return rows, dct._strip_tables(out_w, pw, block, strip)
+    """K6's templated kernel's band tables (block rows of BH pixel rows)
+    and strip tables (block columns of BW pixels) for ``block``."""
+    bh, bw = _hw(block)
+    strip = dct._K6_SQ_STRIP_PIXELS // bw
+    rows = dct._band_tables(out_h, ph, pw // bw, t, SMS,
+                            dct._K6_SQ_GEOM[bh, bw][5], bh, strip)
+    return rows, dct._strip_tables(out_w, pw, bw, strip)
 
 
 def _k6_sq_ring_width(block):
     """Floats of the pixels of a ring row: the strip's 64 pixel columns and
-    the halo block's first columns (all B at B = 4, column 0 at B = 16),
-    interleaved."""
-    return (dct._K6_SQ_STRIP_PIXELS + dct._K6_SQ_GEOM[block][2]) * 3
+    the halo block's first columns (all BW at BW = 4 and 8, column 0 at
+    BW = 16), interleaved."""
+    return (dct._K6_SQ_STRIP_PIXELS + dct._K6_SQ_GEOM[_hw(block)][2]) * 3
 
 
 def _k6_sq_walk(block, out_w, out_h, pw, ph, t):
-    """Replay the square-block K6's walk: per (band, strip), the block rows
-    it transforms and, after each, the output rows it emits, with the
-    source rows its ring of B + 1 rows holds at that moment (the current
-    block row and the previous one's last row)."""
+    """Replay the templated K6's walk: per (band, strip), the block rows it
+    transforms and, after each, the output rows it emits, with the source
+    rows its ring of BH + 1 rows holds at that moment (the current block
+    row and the previous one's last row)."""
+    bh, _ = _hw(block)
     (*_, row_lo, band_b, band_rows), (_, _, strip_lo) = _k6_sq_tables(
         block, out_w, out_h, pw, ph, t)
     for band, (b_first, b_last) in enumerate(band_b):
         yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
         for s in range(len(strip_lo) - 1):
             for b in range(b_first, b_last + 1):
-                ring = set(range(max(block * b_first, block * b - 1),
-                                 block * b + block))
+                ring = set(range(max(bh * b_first, bh * b - 1), bh * b + bh))
                 rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
                 yield band, s, b, rows, ring
 
@@ -928,17 +934,18 @@ def _k6_sq_walk(block, out_w, out_h, pw, ph, t):
 @pytest.mark.parametrize("block,out_w,out_h,pw,ph", K6_SQ_CASES)
 def test_k6_sq_walk_reads_inside_its_ring_and_window(block, out_w, out_h, pw,
                                                      ph):
-    # every y0 / y1 an output row reads is in the ring of B + 1 rows when
+    # every y0 / y1 an output row reads is in the ring of BH + 1 rows when
     # the row is emitted, each row once per strip by its own band, and a
     # band walks its own block rows plus at most one halo block row; every
     # x0 / x1 an output byte reads lies in the strip's block columns or
     # column 0 of its halo block, at the ring position the tables give
+    bh, bw = _hw(block)
     (y0, y1, fy, _, band_b, band_rows), (col_e, col_f, strip_lo) = (
         _k6_sq_tables(block, out_w, out_h, pw, ph, 8))
     assert band_rows <= 128  # the kernel's kMaxBandRows
     emitted = np.zeros(out_h, np.int64)
     for band, s, b, rows, ring in _k6_sq_walk(block, out_w, out_h, pw, ph, 8):
-        assert 0 <= b < ph // block
+        assert 0 <= b < ph // bh
         for yo in rows:
             assert band * band_rows <= yo < (band + 1) * band_rows
             assert y0[yo] in ring
@@ -947,18 +954,18 @@ def test_k6_sq_walk_reads_inside_its_ring_and_window(block, out_w, out_h, pw,
             emitted[yo] += s == 0
     assert (emitted == 1).all()
     walked = band_b[:, 1] - band_b[:, 0] + 1
-    assert walked.max() <= -(-band_rows // block) + 2
+    assert walked.max() <= -(-band_rows // bh) + 2
     x0, x1, fx, _ = dct.bilinear_axis_weights(out_w, pw)
-    strip, nbx = dct._K6_SQ_STRIP_PIXELS // block, pw // block
+    strip, nbx = dct._K6_SQ_STRIP_PIXELS // bw, pw // bw
     for s in range(len(strip_lo) - 1):
         blocks = range(strip * s, min(nbx, strip * s + strip + 1))
         for byte in range(strip_lo[s], strip_lo[s + 1]):
             xo, c = divmod(byte, 3)
-            assert x0[xo] // block in blocks and x0[xo] // 64 == s
+            assert x0[xo] // bw in blocks and x0[xo] // 64 == s
             assert col_e[byte] == 3 * (x0[xo] - 64 * s) + c
             assert col_f[byte] == fx[xo]
             if fx[xo] != 0:
-                assert x1[xo] == x0[xo] + 1 and x1[xo] // block in blocks
+                assert x1[xo] == x0[xo] + 1 and x1[xo] // bw in blocks
                 # in the ring: the halo block is read at its column 0 only
                 assert x1[xo] - 64 * s <= 64
                 assert col_e[byte] + 3 < _k6_sq_ring_width(block)
@@ -969,12 +976,13 @@ def test_k6_sq_every_output_byte_written_once(block, out_w, out_h, pw, ph):
     # the strips split each display row into runs of at most 192 bytes (a
     # thread each), one strip per CTA column of the grid, and the walk's
     # emit loop writes every byte of the frame exactly once
+    _, bw = _hw(block)
     _, (_, _, strip_lo) = _k6_sq_tables(block, out_w, out_h, pw, ph, 1)
     assert strip_lo[0] == 0 and strip_lo[-1] == 3 * out_w
     assert (np.diff(strip_lo) >= 0).all()
     assert np.diff(strip_lo).max() <= dct._K6_SQ_STRIP_PIXELS * 3
-    strip = dct._K6_SQ_STRIP_PIXELS // block
-    assert len(strip_lo) - 1 == -(-(pw // block) // strip)  # the grid's x
+    strip = dct._K6_SQ_STRIP_PIXELS // bw
+    assert len(strip_lo) - 1 == -(-(pw // bw) // strip)  # the grid's x
     row_bytes = 3 * out_w
     written = np.zeros(out_h * row_bytes, np.int64)
     for _, s, _, rows, _ in _k6_sq_walk(block, out_w, out_h, pw, ph, 1):
@@ -984,107 +992,157 @@ def test_k6_sq_every_output_byte_written_once(block, out_w, out_h, pw, ph):
     assert (written == 1).all()
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 @pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES[:3])
 def test_k6_sq_grid_fills_the_card(block, out_w, out_h, pw, ph):
     # at T = 8: at least 2 CTAs per SM, and two waves at the CTAs per SM
     # that the kernel's shared memory and threads allow; one CTA's shared
     # memory fits (with the opt-in past 48 KB)
+    bh, bw = _hw(block)
     (*_, band_b, band_rows), _ = _k6_sq_tables(block, out_w, out_h, pw, ph, 8)
-    strip = dct._K6_SQ_STRIP_PIXELS // block
-    ctas = 8 * -(-(pw // block) // strip) * len(band_b)
-    *_, threads, ctas_per_sm = dct._K6_SQ_GEOM[block]
+    strip = dct._K6_SQ_STRIP_PIXELS // bw
+    ctas = 8 * -(-(pw // bw) // strip) * len(band_b)
+    *_, threads, ctas_per_sm = dct._K6_SQ_GEOM[bh, bw]
     assert ctas >= 2 * SMS
     if band_rows != dct._K1_BAND_ROWS[-1]:
         assert ctas >= 2 * ctas_per_sm * SMS
-    smem = dct._k6_sq_smem_bytes(block)
+    smem = dct._k6_sq_smem_bytes(bh, bw)
     assert smem <= CTA_SMEM_BYTES
     assert ctas_per_sm * (smem + 1024) <= SM_SMEM_BYTES
     assert ctas_per_sm * threads <= 2048
 
 
+def _k6_row_stage(bh, bw, threads):
+    """Per step s of the templated K6's row stage, the pair (-1 where the
+    lane forms no row), row and first column of each of the CTA's
+    ``threads`` lanes: at BH >= BW rows q + s * BW of pair g (lane = g * BW
+    + q), all columns; at BH < BW the lanes in BW / BH parts of whole warps
+    (kPart lanes: the pairs' rows rounded up to warps), lane u of part p
+    columns [p * BH, p * BH + BH) of row u % BH of pair u // BH."""
+    groups = (dct._K6_SQ_STRIP_PIXELS // bw + 1) * 3
+    lanes = np.arange(threads)
+    if bh >= bw:
+        g = np.where(lanes // bw < groups, lanes // bw, -1)
+        return [(g, lanes % bw + s * bw, 0 * lanes) for s in range(bh // bw)]
+    part = -(-groups * bh // 32) * 32
+    p, u = lanes // part, lanes % part
+    g = np.where((u // bh < groups) & (p < bw // bh), u // bh, -1)
+    return [(g, u % bh, p * bh)]
+
+
 def test_k6_sq_host_geometry_matches_the_kernel_source():
     # the strip, tallest band, slot padding, halo columns, ring pitch,
     # threads, CTAs per SM and shared memory that the wrapper plans with are
-    # those csrc/idct_resize_sq.cu is compiled with; its slots are K1's
-    # square-block layout
+    # those csrc/idct_resize_sq.cu is compiled with, at every (BH, BW) key;
+    # its slots are K1's layout at each shape
     geom, k, src = _geom("idct_resize_sq.cu")
-    assert sorted(geom) == sorted(dct._SQUARE_BLOCKS)
+    assert sorted(geom) == sorted(dct._SQ_SHAPES) == sorted(dct._K6_SQ_GEOM)
     assert k["kStripPixels"] == dct._K6_SQ_STRIP_PIXELS
     assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
-    assert "__launch_bounds__(SqGeom<B>::kThreads, SqGeom<B>::kMinCtas)" in src
-    assert re.search(r"kRingRows = B \+ 1;", src)
-    for b, g in geom.items():
+    assert re.search(r"__launch_bounds__\(SqGeom<BH, BW>::kThreads,\s+"
+                     r"SqGeom<BH, BW>::kMinCtas\)", src)
+    assert re.search(r"kRingRows = BH \+ 1;", src)
+    for (bh, bw), g in geom.items():
+        assert f"SVC_IDCT_SQ_RESIZE_ENTRY({bh}, {bw})" in src
         assert (g["kCoefPitch"], g["kCoefGroup"], g["kHaloColumns"],
                 g["kRingPitch"], g["kThreads"], g["kMinCtas"]) == (
-                    dct._K6_SQ_GEOM[b])
-        assert dct._K6_SQ_GEOM[b][:2] == dct._K1_SQ_GEOM[b, b][:2]
-        assert 1 <= g["kHaloColumns"] <= b
-        assert g["kRingPitch"] >= _k6_sq_ring_width(b)
-        blocks = k["kStripPixels"] // b + 1
-        assert blocks * 3 * b <= g["kThreads"]  # a thread per pair column
+                    dct._K6_SQ_GEOM[bh, bw])
+        assert dct._K6_SQ_GEOM[bh, bw][:2] == dct._K1_SQ_GEOM[bh, bw][:2]
+        # the whole halo block at BW = 4 and 8, its column 0 at BW = 16
+        assert g["kHaloColumns"] == (1 if bw == 16 else bw)
+        assert g["kRingPitch"] >= _k6_sq_ring_width((bh, bw))
+        blocks = k["kStripPixels"] // bw + 1
+        assert blocks * 3 * bw <= g["kThreads"]  # a thread per pair column
+        rows = _k6_row_stage(bh, bw, g["kThreads"])
+        assert all(len(pair) == g["kThreads"] for pair, _, _ in rows)
         assert k["kStripPixels"] * 3 <= g["kThreads"]  # a thread per byte
         assert g["kThreads"] % 32 == 0
-        assert g["kCoefGroup"] >= b * g["kCoefPitch"]
+        # the least whole warps that hold the column stage and the parts
+        assert g["kThreads"] - 32 < max(
+            blocks * 3 * bw, bw // min(bh, bw) * -(-blocks * 3 * min(bh, bw)
+                                                  // 32) * 32)
+        assert g["kCoefGroup"] >= bh * g["kCoefPitch"]
         slot = blocks * 3 * g["kCoefGroup"]
         assert (4 * slot) % 16 == 0  # 16-byte cp.async into both slots
-        assert dct._k6_sq_smem_bytes(b) == 4 * (
-            2 * (slot + blocks) + (b + 1) * g["kRingPitch"]
-            + 3 * k["kMaxBandRows"])
+        smem = dct._k6_sq_smem_bytes(bh, bw)
+        assert smem == 4 * (2 * (slot + blocks) + (bh + 1) * g["kRingPitch"]
+                            + 3 * k["kMaxBandRows"])
+        assert g["kMinCtas"] * (smem + 1024) <= SM_SMEM_BYTES
 
 
-@pytest.mark.parametrize("block", [4, 16])
+@pytest.mark.parametrize("block", SQ_BLOCKS)
 def test_k6_sq_layouts_avoid_bank_conflicts(block):
     # shared memory has 32 banks of 4 bytes; a warp's 16-byte accesses go
-    # in quarter-warps. The column stage (lanes along l) and the row stage's
-    # float4 loads are free of conflicts over the strip's pairs and the
-    # halo's; the row stage's ring stores (of a halo block only the
-    # columns the ring keeps) conflict at most two-way
-    pitch, c_group, halo_cols, ring_pitch, _, _ = dct._K6_SQ_GEOM[block]
-    blocks = dct._K6_SQ_STRIP_PIXELS // block + 1
-    lanes = np.arange(blocks * 3 * block)
-    group, r = lanes // block, lanes % block
-    for fixed in range(block):  # the column stage
+    # in quarter-warps. The column stage (lanes along l) is free of
+    # conflicts over the strip's pairs and the halo's, the row stage's
+    # float4 loads as free as K1's at that shape (2-way at 4x8 and 16x4);
+    # the row stage's ring stores (of a halo block only the columns the
+    # ring keeps) conflict at most two-way
+    bh, bw = _hw(block)
+    pitch, c_group, halo_cols, ring_pitch, threads, _ = dct._K6_SQ_GEOM[bh, bw]
+    blocks = dct._K6_SQ_STRIP_PIXELS // bw + 1
+    lanes = np.arange(blocks * 3 * bw)
+    group, r = lanes // bw, lanes % bw
+    for fixed in range(bh):  # the column stage
         addr = group * c_group + fixed * pitch + r
-        for w in range(0, len(lanes), 32):
-            a = addr[w:w + 32] % 32
-            assert len(set(a)) == len(a)
-    for q in range(block // 4):  # the row stage's float4 loads
-        addr = (group * c_group + r * pitch + 4 * q) // 4
-        for h in range(0, len(lanes), 8):
-            a = addr[h:h + 8] % 8
-            assert len(set(a)) == len(a)
-    blk, c = group // 3, group % 3
-    for j in range(block):  # the row stage's ring stores
-        col = (blk * block + j) * 3 + c
-        addr = r * ring_pitch + col
-        live = (blk < blocks - 1) | (j < halo_cols)
-        assert col[live].max() < _k6_sq_ring_width(block)
-        for w in range(0, len(lanes), 32):
-            a = addr[w:w + 32][live[w:w + 32]] % 32
-            if len(a):
-                assert np.bincount(a).max() <= 2
+        assert _worst_conflict(addr, 32, 32) == 1
+    rows = _k6_row_stage(bh, bw, threads)
+    for pair, row, col0 in rows:
+        live = pair >= 0
+        for q in range(bw // 4):  # the row stage's float4 loads
+            addr = (pair * c_group + row * pitch + 4 * q) // 4
+            for h in range(0, threads, 8):
+                a = addr[h:h + 8][live[h:h + 8]]
+                if len(a):
+                    worst = int(np.bincount(np.unique(a) % 8).max())
+                    assert worst <= K1_ROW_CONFLICTS.get((bh, bw), 1)
+        blk, c = pair // 3, pair % 3
+        for jj in range(min(bh, bw)):  # the row stage's ring stores
+            j = col0 + jj
+            col = (blk * bw + j) * 3 + c
+            addr = (row % (bh + 1)) * ring_pitch + col
+            kept = live & ((blk < blocks - 1) | (j < halo_cols))
+            assert col[kept].max() < _k6_sq_ring_width(block)
+            for w in range(0, threads, 32):
+                a = addr[w:w + 32][kept[w:w + 32]] % 32
+                if len(a):
+                    assert np.bincount(a).max() <= 2
+        # every (pair, row, column) of the strip and its halo once
+    hits = np.zeros((blocks * 3, bh, bw), np.int64)
+    for pair, row, col0 in rows:
+        live = pair >= 0
+        for m in range(min(bh, bw)):
+            np.add.at(hits, (pair[live], row[live], col0[live] + m), 1)
+        warps = col0.reshape(-1, 32)
+        assert (warps == warps[:, :1]).all()  # a part's columns: whole warps
+    assert (hits == 1).all()
 
 
 @pytest.mark.parametrize("block,out_w,out_h,pw,ph,t", [
     (4, 120, 64, 128, 64, 2), (4, 200, 120, 208, 128, 1),
     (4, 854, 40, 864, 48, 1), (4, 61, 37, 64, 40, 1),
     (16, 120, 64, 128, 64, 2), (16, 200, 120, 208, 128, 1),
-    (16, 854, 40, 864, 48, 1), (16, 61, 37, 64, 48, 1)])
+    (16, 854, 40, 864, 48, 1), (16, 61, 37, 64, 48, 1),
+    ("4x8", 120, 64, 128, 64, 2), ("4x8", 854, 40, 864, 48, 1),
+    ("8x4", 200, 120, 208, 128, 1), ("8x4", 61, 37, 64, 40, 1),
+    ("4x16", 200, 120, 208, 128, 1), ("4x16", 854, 40, 864, 48, 1),
+    ("16x4", 120, 64, 128, 64, 2), ("16x4", 61, 37, 64, 48, 1),
+    ("8x16", 854, 40, 864, 48, 1), ("8x16", 61, 37, 64, 40, 1),
+    ("16x8", 200, 120, 208, 128, 1), ("16x8", 120, 64, 128, 64, 2)])
 def test_k6_sq_walk_reproduces_plain_bytes(block, out_w, out_h, pw, ph, t):
-    # the square-block kernel's walk, replayed on the plain version's
-    # planes through a ring of B + 1 rows (row y at y % (B + 1)) of the
-    # strip's pixels and the halo's kept columns, with the tables' ring
-    # positions and the kernel's per-element blends, gives the plain
-    # version's bytes
-    rng = np.random.default_rng(out_w + out_h + block)
-    nby, nbx = ph // block, pw // block
-    n = 3 * block * block
+    # the templated kernel's walk, replayed on the plain version's planes
+    # through a ring of BH + 1 rows (row y at y % (BH + 1)) of the strip's
+    # pixels and the halo's kept columns, with the tables' ring positions
+    # and the kernel's per-element blends, gives the plain version's bytes
+    bh, bw = _hw(block)
+    rng = np.random.default_rng(out_w + out_h + bh + 3 * bw)
+    nby, nbx = ph // bh, pw // bw
+    n = 3 * bh * bw
     coeffs = torch.from_numpy(
         (rng.normal(size=(t, nby, nbx, n)) * 90).astype(np.float32))
     steps = torch.from_numpy(
         rng.choice([1.0, 640.0], size=(t, nby, nbx)).astype(np.float32))
-    planes = dct.idct_planes_plain(coeffs, steps, 3, block, block)
+    planes = dct.idct_planes_plain(coeffs, steps, 3, bh, bw)
     width = _k6_sq_ring_width(block)
     cols = width // 3  # the strip's 64 pixel columns and the halo's kept
     # interleaved pixels, the halo's columns past each strip's end (zero
@@ -1092,13 +1150,13 @@ def test_k6_sq_walk_reproduces_plain_bytes(block, out_w, out_h, pw, ph, t):
     pix = torch.nn.functional.pad(planes.permute(0, 2, 3, 1), (0, 0, 0, cols))
     (y0, y1, fy, *_), (col_e, col_f, strip_lo) = _k6_sq_tables(
         block, out_w, out_h, pw, ph, t)
-    rows_n = block + 1
+    rows_n = bh + 1
     out = torch.full((t, out_h, 3 * out_w), float("nan"))
     ring = torch.full((t, rows_n, width), float("nan"))
     for _, s, b, rows, _ in _k6_sq_walk(block, out_w, out_h, pw, ph, t):
-        for i in range(block):
-            ring[:, (block * b + i) % rows_n] = pix[
-                :, block * b + i, 64 * s:64 * s + cols].reshape(t, -1)
+        for i in range(bh):
+            ring[:, (bh * b + i) % rows_n] = pix[
+                :, bh * b + i, 64 * s:64 * s + cols].reshape(t, -1)
         k = torch.arange(strip_lo[s], strip_lo[s + 1])
         e = torch.from_numpy(col_e[k.numpy()]).long()
         g = torch.from_numpy(col_f[k.numpy()])
@@ -1112,6 +1170,6 @@ def test_k6_sq_walk_reproduces_plain_bytes(block, out_w, out_h, pw, ph, t):
                 w = w * (1 - f) + bot[:, e3] * f
             out[:, yo, k] = torch.where(g != 0, v * (1 - g) + w * g, v)
     got = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
-    want = dct.idct_resize_display_plain(coeffs, steps, out_h, out_w, 3, block,
-                                         block)
+    want = dct.idct_resize_display_plain(coeffs, steps, out_h, out_w, 3, bh,
+                                         bw)
     assert torch.equal(got, want)

@@ -147,11 +147,14 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "threefry2x32", "dct4x4_to_wire", "dct16x16_to_wire",
         "idct4x4_display", "idct16x16_display", "idct4x4_resize_display",
         "idct16x16_resize_display",
-        # the rectangular blocks' K2 and K1, rows first
+        # the rectangular blocks' K2, K1 and K6, rows first
         "dct4x8_to_wire", "dct8x4_to_wire", "dct4x16_to_wire",
         "dct16x4_to_wire", "dct8x16_to_wire", "dct16x8_to_wire",
         "idct4x8_display", "idct8x4_display", "idct4x16_display",
         "idct16x4_display", "idct8x16_display", "idct16x8_display",
+        "idct4x8_resize_display", "idct8x4_resize_display",
+        "idct4x16_resize_display", "idct16x4_resize_display",
+        "idct8x16_resize_display", "idct16x8_resize_display",
     }
     # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
     # while_loop and jax.random's threefry (its k-means++ seeding draw)
@@ -181,14 +184,13 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
             "pyr_down_levels.cuh", "refine_mads_general.cu",
             "refine_sads.cuh", "ccl_converge.cu", "ccl_converge_general.cu",
             "threefry.cu", "dct_wire_sq.cu", "idct_display_sq.cu",
-            "idct_resize_sq.cu"} <= srcs
+            "idct_resize_sq.cu", "idct_sq.cuh"} <= srcs
     # one file each, but for the instantiations of one kernel template (the
-    # templated K2 and K1: one instantiation per (rows, columns) block
-    # shape, named rows first; the square-block K6: one per block size)
+    # templated K2, K1 and K6: one instantiation per (rows, columns) block
+    # shape, named rows first)
     templates = {dct.DCT_WIRE_SQ[4, 4].source: dct.DCT_WIRE_SQ,
                  dct.IDCT_DISPLAY_SQ[4, 4].source: dct.IDCT_DISPLAY_SQ,
-                 dct.IDCT_RESIZE_SQ[4].source: {
-                     (b, b): k for b, k in dct.IDCT_RESIZE_SQ.items()}}
+                 dct.IDCT_RESIZE_SQ[4, 4].source: dct.IDCT_RESIZE_SQ}
     for src in {k.source for k in ks.values()}:
         sharing = [k for k in ks.values() if k.source == src]
         if src in templates:

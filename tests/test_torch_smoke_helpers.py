@@ -147,7 +147,7 @@ def test_variant_docstring_edits_apply_once():
     # once in the checkout's sources, so they run as written
     for path, old in (("pyr_down_levels.cuh", "__launch_bounds__(kLvThreads, 6)"),
                       ("idct_display_sq.cu", "kCoefGroup = 336, kMinCtas = 3;"),
-                      ("idct_resize_sq.cu", "kHaloColumns = 4, kRingPitch = 206"),
+                      ("idct_resize_sq.cu", "kCoefGroup = 36, kHaloColumns = 4"),
                       ("ccl_converge.cu", "kCluster = 8;")):
         assert old in variant_timing.__doc__
         assert (build.CSRC_DIR / path).read_text().count(old) == 1, (path, old)
@@ -155,20 +155,21 @@ def test_variant_docstring_edits_apply_once():
 
 
 def test_ptxas_report_names_the_square_k6_instances(smoke):
-    # the template kernel of idct_resize_sq.cu, one entry per block size
+    # the template kernel of idct_resize_sq.cu takes (rows, columns): one
+    # entry per block shape, rows first, the squares' too
     log = "\n".join([
-        "ptxas info    : Compiling entry function '_ZN42_GLOBAL__N__6d1f7e2b_17_idct_resize_sq_cu_"
-        "0b5f3e2a21idct_sq_resize_kernelILi16EEEvPKfS2_NS_4DctFIXT_EEEPKiS6_S2_S6_S6_S6_S2_S6_"
-        "Phiiiii' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__e38884e4_17_idct_resize_sq_cu_"
+        "7581c29221idct_sq_resize_kernelILi16ELi16EEEvPKfS2_NS_4DctFIXT_EXT0_EEEPKiS6_S2_S6_S6_"
+        "S6_S2_S6_Phiiiii' for 'sm_90a'",
         "ptxas info    : Used 64 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_ZN42_GLOBAL__N__6d1f7e2b_17_idct_resize_sq_cu_"
-        "0b5f3e2a21idct_sq_resize_kernelILi4EEEvPKfS2_NS_4DctFIXT_EEEPKiS6_S2_S6_S6_S6_S2_S6_"
-        "Phiiiii' for 'sm_90a'",
-        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__e38884e4_17_idct_resize_sq_cu_"
+        "7581c29221idct_sq_resize_kernelILi4ELi16EEEvPKfS2_NS_4DctFIXT_EXT0_EEEPKiS6_S2_S6_S6_"
+        "S6_S2_S6_Phiiiii' for 'sm_90a'",
+        "ptxas info    : Used 47 registers, used 1 barriers",
     ])
     assert smoke.ptxas_report(log) == [
-        ("idct_resize_sq.cu", "idct_sq_resize_kernel<16>", 64, 0),
-        ("idct_resize_sq.cu", "idct_sq_resize_kernel<4>", 40, 0)]
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<16, 16>", 64, 0),
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<4, 16>", 47, 0)]
 
 
 def test_ptxas_report_names_the_templated_k2_k1_instances(smoke):
