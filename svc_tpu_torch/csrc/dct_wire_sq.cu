@@ -1,10 +1,11 @@
-// K2 for transform blocks of BH rows and BW columns, BH and BW in {4, 8,
-// 16}, all but 8x8 (dct{BH}x{BW}_to_wire): forward BH x BW DCT of packed
-// 3-channel frames into the bitstream's wire layout, one kernel template
-// instantiated at the squares 4x4 and 16x16 and at the six rectangles —
-// the transform blocks users pick beside the default 8x8 (finer detail,
-// one transform block per 16x16 MV block, or sides set apart with
-// --transform-block-h / --transform-block-w).
+// K2 for transform blocks of BH rows and BW columns, BH and BW in {2, 4,
+// 8, 16}, all but 8x8 (dct{BH}x{BW}_to_wire): forward BH x BW DCT of
+// packed 3-channel frames into the bitstream's wire layout, one kernel
+// template instantiated at the squares 2x2, 4x4 and 16x16, at the six
+// rectangles of sides 4, 8 and 16 and at the six with a side of 2 (2x4,
+// 4x2, 2x8, 8x2, 2x16, 16x2) — the transform blocks users pick beside
+// the default 8x8 (finer detail, one transform block per 16x16 MV block,
+// or sides set apart with --transform-block-h / --transform-block-w).
 //
 // Replaces svc_tpu/ops/dct_pallas.py dct2_planes_to_wire_pallas (:282,
 // pallas_call :334) at those shapes. Same contract as the general kernel
@@ -28,7 +29,11 @@
 //    and per BH coefficients of a (block, channel) pair in stage 2 — one
 //    row at BH = BW, BH / BW whole rows (q, q + BW, ...) at BH > BW, a
 //    BH-wide part of a row at BH < BW —, so both stages keep all 384
-//    threads busy at every shape. At BH < BW the part is the thread's
+//    threads busy at every shape. Where a block has a side of 2, a CTA
+//    takes kStep block rows (8 pixel rows; 16 at 16x2), and stage 2 maps
+//    its threads over those rows as over the rows of one block (SqGeom's
+//    comment); its output goes through shared memory unless kStep * BH <
+//    BW. At BH < BW the part is the thread's
 //    warp's (threads [p * 384 / (BW / BH), ...) take columns [p * BH,
 //    p * BH + BH) of every row), and a switch on it makes the columns
 //    compile-time constants: the DCT matrix's entries stay immediate
@@ -83,32 +88,55 @@ constexpr int kRowBytes = kStripPixels * 3;  // packed bytes of a strip row
 //  8x4, 16x4, 16x8: row stride BW + 1 (5, 5, 9) and pair strides 44, 84,
 //       152 (12, 4, 8 mod 16) leave the 4 or 2 pairs of a half-warp on
 //       distinct residues in both stages.
+// kStep is the block rows a CTA takes: 1 at the shapes above, 8 / BH
+// pixel rows' worth where a block has a side of 2 (at BH = 2 one block
+// row is 768 packed bytes, so a CTA of one block row would spend its
+// time on launch and tail). The CTA's S = kStep * BH pixel rows of a
+// pair then stand in A as the rows of one S x BW block (block row m's
+// row k at A row m * BH + k), and stage 2 maps its threads as it would
+// for S x BW: the layouts are those of the S x BW shape.
+//  2x2, 4x2, 8x2 (S = 8), 16x2 (S = 16): stage 1's 8 pairs x 2 lanes a
+//       half-warp need a pair stride of 2 mod 4; stage 2's rows q + 2s
+//       an odd row stride: 3 and 26 (50 at 16x2, A's 16 rows).
+//  2x4, 2x8, 2x16 (S = 8): 8x4's layout, dct_wire.cu's (9, 72) and
+//       8x16's.
 template <int BH, int BW> struct SqGeom;
-template <> struct SqGeom<4, 4> { static constexpr int kAPitch = 5, kAGroup = 20, kMinCtas = 4; };
-template <> struct SqGeom<16, 16> { static constexpr int kAPitch = 17, kAGroup = 272, kMinCtas = 3; };
-template <> struct SqGeom<4, 8> { static constexpr int kAPitch = 9, kAGroup = 40, kMinCtas = 4; };
-template <> struct SqGeom<8, 4> { static constexpr int kAPitch = 5, kAGroup = 44, kMinCtas = 4; };
-template <> struct SqGeom<4, 16> { static constexpr int kAPitch = 17, kAGroup = 68, kMinCtas = 3; };
-template <> struct SqGeom<16, 4> { static constexpr int kAPitch = 5, kAGroup = 84, kMinCtas = 3; };
-template <> struct SqGeom<8, 16> { static constexpr int kAPitch = 17, kAGroup = 136, kMinCtas = 3; };
-template <> struct SqGeom<16, 8> { static constexpr int kAPitch = 9, kAGroup = 152, kMinCtas = 3; };
+template <> struct SqGeom<4, 4> { static constexpr int kAPitch = 5, kAGroup = 20, kMinCtas = 4, kStep = 1; };
+template <> struct SqGeom<16, 16> { static constexpr int kAPitch = 17, kAGroup = 272, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<4, 8> { static constexpr int kAPitch = 9, kAGroup = 40, kMinCtas = 4, kStep = 1; };
+template <> struct SqGeom<8, 4> { static constexpr int kAPitch = 5, kAGroup = 44, kMinCtas = 4, kStep = 1; };
+template <> struct SqGeom<4, 16> { static constexpr int kAPitch = 17, kAGroup = 68, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<16, 4> { static constexpr int kAPitch = 5, kAGroup = 84, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<8, 16> { static constexpr int kAPitch = 17, kAGroup = 136, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<16, 8> { static constexpr int kAPitch = 9, kAGroup = 152, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<2, 2> { static constexpr int kAPitch = 3, kAGroup = 26, kMinCtas = 4, kStep = 4; };
+template <> struct SqGeom<2, 4> { static constexpr int kAPitch = 5, kAGroup = 44, kMinCtas = 4, kStep = 4; };
+template <> struct SqGeom<4, 2> { static constexpr int kAPitch = 3, kAGroup = 26, kMinCtas = 4, kStep = 2; };
+template <> struct SqGeom<2, 8> { static constexpr int kAPitch = 9, kAGroup = 72, kMinCtas = 4, kStep = 4; };
+template <> struct SqGeom<8, 2> { static constexpr int kAPitch = 3, kAGroup = 26, kMinCtas = 4, kStep = 1; };
+template <> struct SqGeom<2, 16> { static constexpr int kAPitch = 17, kAGroup = 136, kMinCtas = 3, kStep = 4; };
+template <> struct SqGeom<16, 2> { static constexpr int kAPitch = 3, kAGroup = 50, kMinCtas = 2, kStep = 1; };
 
 template <int BH, int BW>
 struct Sq {
+  static constexpr int kStep = SqGeom<BH, BW>::kStep;  // block rows a CTA
+  static constexpr int kRowsCta = kStep * BH;          // pixel rows a CTA
   static constexpr int kStrip = kStripPixels / BW;  // blocks per CTA
   static constexpr int kGroups = kStrip * 3;        // (block, channel) pairs
+  static constexpr int kRun = kGroups * BH * BW;    // floats a block row
   static constexpr int kABytes =
       kGroups * SqGeom<BH, BW>::kAGroup * static_cast<int>(sizeof(double));
-  static constexpr int kSmemBytes = kABytes + BH * kRowBytes;
-  // stage 2: a thread's rows of its pair and the coefficients of each;
-  // at BH < BW a row's columns in kSplit parts of kPart threads each
-  static constexpr int kRows = BH > BW ? BH / BW : 1;
-  static constexpr int kCols = BH < BW ? BH : BW;
-  static constexpr int kSplit = BW > BH ? BW / BH : 1;
+  static constexpr int kSmemBytes = kABytes + kRowsCta * kRowBytes;
+  // stage 2: a thread's rows of its pair's kRowsCta and the coefficients
+  // of each; at kRowsCta < BW a row's columns in kSplit parts of kPart
+  // threads each
+  static constexpr int kRows = kRowsCta > BW ? kRowsCta / BW : 1;
+  static constexpr int kCols = kRowsCta < BW ? kRowsCta : BW;
+  static constexpr int kSplit = BW > kRowsCta ? BW / kRowsCta : 1;
   static constexpr int kPart = kThreads / kSplit;
   static_assert(kPart % 32 == 0, "a part is whole warps");
   static_assert(kGroups * BW == kThreads, "a thread per column of a pair");
-  static_assert(SqGeom<BH, BW>::kAGroup >= BH * SqGeom<BH, BW>::kAPitch,
+  static_assert(SqGeom<BH, BW>::kAGroup >= kRowsCta * SqGeom<BH, BW>::kAPitch,
                 "A rows fit");
 };
 
@@ -150,13 +178,24 @@ __device__ __forceinline__ void wire_row(const double* arow_s,
   }
 }
 
-__device__ __forceinline__ void store4(float* dst, const float* z) {
-  *reinterpret_cast<float4*>(dst) = make_float4(z[0], z[1], z[2], z[3]);
+// N consecutive floats of z to dst: float4 stores, float2 at N = 2.
+template <int N>
+__device__ __forceinline__ void store_n(float* dst, const float* z) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      *reinterpret_cast<float4*>(dst + 4 * q) =
+          make_float4(z[4 * q], z[4 * q + 1], z[4 * q + 2], z[4 * q + 3]);
+    }
+  } else {
+    static_assert(N == 2, "rows of 2 or of a multiple of 4 floats");
+    *reinterpret_cast<float2*>(dst) = make_float2(z[0], z[1]);
+  }
 }
 
-// BH < BW: the part p's BH coefficients of a row (columns p * BH, a
-// compile-time constant in each branch), stored in place at o + p * BH
-// where `store`. The coefficients stay in the branch: carried out of the
+// kRowsCta < BW: the part p's kCols coefficients of a row (columns p *
+// kCols, a compile-time constant in each branch), stored in place at o +
+// p * kCols where `store`. The coefficients stay in the branch: carried out of the
 // switch, they left registers (34 registers and 0.4506 ms at 4x16 on an
 // H100, against 52 and 0.1544).
 template <int BH, int BW, int P = 0>
@@ -165,12 +204,10 @@ __device__ __forceinline__ void wire_part(int p, const double* arow_s,
                                           bool store) {
   if constexpr (P < Sq<BH, BW>::kSplit) {
     if (p == P) {
-      float z[BH];
-      wire_row<BH, BW, P * BH>(arow_s, d, z);
-      if (store) {
-#pragma unroll
-        for (int q = 0; q < BH / 4; ++q) store4(o + P * BH + 4 * q, z + 4 * q);
-      }
+      constexpr int kCols = Sq<BH, BW>::kCols;
+      float z[kCols];
+      wire_row<BH, BW, P * kCols>(arow_s, d, z);
+      if (store) store_n<kCols>(o + P * kCols, z);
     } else {
       wire_part<BH, BW, P + 1>(p, arow_s, d, o, store);
     }
@@ -183,13 +220,15 @@ dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<BH, BW> d,
                    float* __restrict__ out, int frame_offset, int frame_h,
                    int frame_w, int nby, int nbx) {
   constexpr int kStrip = Sq<BH, BW>::kStrip;
+  constexpr int kStep = Sq<BH, BW>::kStep;
+  constexpr int kS = Sq<BH, BW>::kRowsCta;
   constexpr int kAPitch = SqGeom<BH, BW>::kAPitch;
   extern __shared__ __align__(16) unsigned char smem_sq[];
   double* a = reinterpret_cast<double*>(smem_sq);
   uint8_t* px = smem_sq + Sq<BH, BW>::kABytes;
 
   const int t = blockIdx.z;
-  const int by = blockIdx.y;
+  const int by = blockIdx.y * kStep;  // the CTA's first block row
   const int bx0 = blockIdx.x * kStrip;
   const int nblk = min(kStrip, nbx - bx0);
   const uint8_t* frame = packed + static_cast<size_t>(t + frame_offset) *
@@ -198,7 +237,7 @@ dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<BH, BW> d,
   // staging: warp w copies pixel rows w, w + 12, ... of the strip
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int i = warp; i < BH; i += kThreads / 32) {
+  for (int i = warp; i < kS; i += kThreads / 32) {
     const int y = by * BH + i;
     const int x0 = bx0 * BW;
     const int valid =
@@ -231,73 +270,80 @@ dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<BH, BW> d,
   const int c = g - 3 * blk;
   double* ag = a + g * SqGeom<BH, BW>::kAGroup;
 
-  // stage 1: column r of pair g
-  {
+  // stage 1: column r of pair g, in each of the CTA's block rows
+#pragma unroll
+  for (int m = 0; m < kStep; ++m) {
     double x[BH];
 #pragma unroll
     for (int i = 0; i < BH; ++i) {
-      x[i] = static_cast<double>(px[i * kRowBytes + (blk * BW + r) * 3 + c]);
+      x[i] = static_cast<double>(
+          px[(m * BH + i) * kRowBytes + (blk * BW + r) * 3 + c]);
     }
 #pragma unroll
     for (int k = 0; k < BH; ++k) {
       double acc = 0.0;
 #pragma unroll
       for (int i = 0; i < BH; ++i) acc = fma(d.h[k * BH + i], x[i], acc);
-      ag[k * kAPitch + r] = acc;
+      ag[(m * BH + k) * kAPitch + r] = acc;
     }
   }
   __syncthreads();
 
-  // stage 2: this thread's BH coefficients, the part's columns of row
-  // u % BH of pair u / BH (BH < BW), or rows r + s * BW of pair g
-  // (BH >= BW); the strip's coefficients are one contiguous run of the
-  // wire layout
+  // stage 2: this thread's kS coefficients, the part's columns of row u %
+  // kS of pair u / kS (kS < BW), or rows r + s * BW of pair g (kS >= BW),
+  // row i of a pair being row i % BH of block row i / BH; a block row's
+  // strip of coefficients is one contiguous run of the wire layout. At
+  // kStep = 1 the CTA's one block row lies in the frame, and the tests
+  // of kStep below keep those instances free of the step's bounds
+  const size_t run_stride = static_cast<size_t>(nbx) * (3 * BH * BW);
   float* os = out + ((static_cast<size_t>(t) * nby + by) * nbx + bx0) *
                         (3 * BH * BW);
-  if constexpr (BH < BW) {
-    // a BH-wide piece of a row, in place: a warp's pieces are BH rows of
+  if constexpr (kS < BW) {
+    // a kS-wide piece of a row, in place: a warp's pieces are kS rows of
     // its pairs, at a stride of BW floats
     const int p = threadIdx.x / Sq<BH, BW>::kPart;  // warp-uniform
     const int u = threadIdx.x - p * Sq<BH, BW>::kPart;
-    const int g2 = u / BH;
-    const int k = u & (BH - 1);
-    wire_part<BH, BW>(p, a + g2 * SqGeom<BH, BW>::kAGroup + k * kAPitch, d,
-                      os + g2 * (BH * BW) + k * BW, g2 / 3 < nblk);
+    const int g2 = u / kS;
+    const int i = u & (kS - 1);
+    const int m = kStep == 1 ? 0 : i / BH;
+    wire_part<BH, BW>(p, a + g2 * SqGeom<BH, BW>::kAGroup + i * kAPitch, d,
+                      os + m * run_stride + g2 * (BH * BW) + (i % BH) * BW,
+                      g2 / 3 < nblk && (kStep == 1 || by + m < nby));
   } else {
-    float z[BH];
+    float z[kS];
 #pragma unroll
     for (int s = 0; s < Sq<BH, BW>::kRows; ++s) {
       wire_row<BH, BW, 0>(ag + (r + s * BW) * kAPitch, d, z + s * BW);
     }
-    if constexpr (BH == BW) {
+    if constexpr (BH == BW && kStep == 1) {
       // row r of pair g is floats [threadIdx.x * B, + B) of the run
-      if (blk < nblk) {
-#pragma unroll
-        for (int q = 0; q < BH / 4; ++q) {
-          store4(os + threadIdx.x * BH + 4 * q, z + 4 * q);
-        }
-      }
+      if (blk < nblk) store_n<BH>(os + threadIdx.x * BH, z);
     } else {
-      // rows q + s * BW are not contiguous: through shared memory (over A,
-      // once every thread has read it), then out as one coalesced run of
-      // 16-byte stores
+      // rows r + s * BW are not contiguous: through shared memory (over
+      // A, once every thread has read it), block row m's run at m * kRun,
+      // then out as one coalesced pass of 16-byte stores
+      constexpr int kRun4 = Sq<BH, BW>::kRun / 4;
       float* zs = reinterpret_cast<float*>(smem_sq);
-      static_assert(kThreads * BH * static_cast<int>(sizeof(float)) <=
-                    Sq<BH, BW>::kABytes, "the run fits over A");
+      static_assert(kThreads * kS * static_cast<int>(sizeof(float)) <=
+                    Sq<BH, BW>::kABytes, "the runs fit over A");
       __syncthreads();
 #pragma unroll
       for (int s = 0; s < Sq<BH, BW>::kRows; ++s) {
-#pragma unroll
-        for (int q = 0; q < BW / 4; ++q) {
-          store4(zs + g * (BH * BW) + (r + s * BW) * BW + 4 * q,
-                 z + s * BW + 4 * q);
-        }
+        const int i = r + s * BW;
+        store_n<BW>(zs + (i / BH) * Sq<BH, BW>::kRun + g * (BH * BW) +
+                        (i % BH) * BW,
+                    z + s * BW);
       }
       __syncthreads();
       const int n4 = nblk * (3 * BH * BW / 4);
-      for (int i = threadIdx.x; i < n4; i += kThreads) {
-        reinterpret_cast<float4*>(os)[i] =
-            reinterpret_cast<const float4*>(zs)[i];
+      for (int e = threadIdx.x; e < (kStep == 1 ? n4 : kStep * kRun4);
+           e += kThreads) {
+        const int m = kStep == 1 ? 0 : e / kRun4;
+        const int q = e - m * kRun4;
+        if (kStep == 1 || (q < n4 && by + m < nby)) {
+          reinterpret_cast<float4*>(os + m * run_stride)[q] =
+              reinterpret_cast<const float4*>(zs)[e];
+        }
       }
     }
   }
@@ -318,8 +364,8 @@ int launch_sq(const void* packed, const void* dh, const void* dw, void* out,
       dct_sq_wire_kernel<BH, BW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Sq<BH, BW>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nbx + Sq<BH, BW>::kStrip - 1) / Sq<BH, BW>::kStrip, nby,
-                  t_count);
+  const dim3 grid((nbx + Sq<BH, BW>::kStrip - 1) / Sq<BH, BW>::kStrip,
+                  (nby + Sq<BH, BW>::kStep - 1) / Sq<BH, BW>::kStep, t_count);
   dct_sq_wire_kernel<BH, BW><<<grid, kThreads, Sq<BH, BW>::kSmemBytes,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), m, static_cast<float*>(out),
@@ -350,3 +396,10 @@ SVC_DCT_SQ_ENTRY(4, 16)
 SVC_DCT_SQ_ENTRY(16, 4)
 SVC_DCT_SQ_ENTRY(8, 16)
 SVC_DCT_SQ_ENTRY(16, 8)
+SVC_DCT_SQ_ENTRY(2, 2)
+SVC_DCT_SQ_ENTRY(2, 4)
+SVC_DCT_SQ_ENTRY(4, 2)
+SVC_DCT_SQ_ENTRY(2, 8)
+SVC_DCT_SQ_ENTRY(8, 2)
+SVC_DCT_SQ_ENTRY(2, 16)
+SVC_DCT_SQ_ENTRY(16, 2)

@@ -1,9 +1,10 @@
-// K1 for transform blocks of BH rows and BW columns, BH and BW in {4, 8,
-// 16}, all but 8x8 (idct{BH}x{BW}_display): the decoder's display hot
+// K1 for transform blocks of BH rows and BW columns, BH and BW in {2, 4,
+// 8, 16}, all but 8x8 (idct{BH}x{BW}_display): the decoder's display hot
 // path — dequantize, inverse BH x BW DCT, bilinear row resample from the
 // padded height to the display height, round, clip, interleaved BGR bytes
-// — one kernel template instantiated at the squares 4x4 and 16x16 and at
-// the six rectangles, for 3 channels.
+// — one kernel template instantiated at the squares 2x2, 4x4 and 16x16,
+// at the six rectangles of sides 4, 8 and 16 and at the six with a side
+// of 2, for 3 channels.
 //
 // Replaces svc_tpu/ops/dct_pallas.py idct_wire_to_pitched_pallas (:692,
 // pallas_call :807; its zero-excess mode is the identity rows here) and
@@ -24,7 +25,9 @@
 //    block rows (BH pixel rows each) one at a time; each is dequantized
 //    and transformed once, plus one halo block row per band. A ring of
 //    the last 2 BH pixel rows carries the previous block row, which the
-//    row lerp of an output row may still need (y1 <= y0 + 1);
+//    row lerp of an output row may still need (y1 <= y0 + 1). Where a
+//    block has a side of 2, a walk step takes kStep block rows (8 pixel
+//    rows; 16 at 16x2) and the ring 2 steps (SqGeom's comment);
 //  - the coefficients of the block row after next (one contiguous run of
 //    strip * 3 * BH * BW floats, 3 KB to 12 KB) and their steps arrive by
 //    cp.async into one of two shared-memory slots while the current block
@@ -35,16 +38,16 @@
 //    of pair g (thread (g, q)) at BH = BW, rows q, q + BW, ... at BH > BW,
 //    at BH < BW columns [p * BH, p * BH + BH) of row u % BH of pair u / BH
 //    (thread u of part p, the threads split in BW / BH parts) — from
-//    16-byte loads and stores them interleaved into the ring, so every
-//    thread works in both stages. A switch on the part makes its columns
-//    compile-time constants, so the DCT matrix's entries stay immediate
-//    operands from the constant bank (at 4x16 a part is 48 threads: two
-//    of the six warps take two parts in turn). The slot is padded per
-//    shape against bank conflicts;
+//    16-byte loads (8-byte at BW = 2) and stores them interleaved into
+//    the ring, so every thread works in both stages. A switch on the
+//    part makes its columns compile-time constants, so the DCT matrix's
+//    entries stay immediate operands from the constant bank (at 4x16 a
+//    part is 48 threads: two of the six warps take two parts in turn).
+//    The slot is padded per shape against bank conflicts;
 //  - output: a thread blends one 16-byte run of an output row and stores
 //    it with one 16-byte store;
-//  - host tables carry the geometry (ops/dct.py _band_tables with the
-//    block height and the strip), so one kernel serves the resample route
+//  - host tables carry the geometry (ops/dct.py _band_tables with a
+//    step's pixel rows and the strip), so one kernel serves the resample route
 //    and, with y0 = y1 = Y and f = 0, the identity route. Every index in
 //    the loops is a compile-time constant or a shift.
 #include "idct_sq.cuh"
@@ -86,33 +89,58 @@ constexpr int kMaxBandRows = 128;
 // kMinCtas caps the registers at 65,536 / (192 kMinCtas): 4x8 and 4x16
 // fit 6 CTAs in 56 and 55 registers without spills (ptxas on sm_90a);
 // 8x16 takes 4 (80 registers): at 5 (63) it ran 0.7% slower on an H100.
+// kStep is the block rows a walk step takes: 1 at the shapes above, 8 /
+// BH pixel rows' worth where a block has a side of 2 (at BH = 2 one block
+// row is 1.5 KB of coefficients, and a 128-row band would take 64 steps
+// of three barriers each). A step's S = kStep * BH rows of a pair stand
+// in the slot as the rows of one S x BW block (block row m's row k at
+// slot row m * BH + k); the row stage maps its threads as for S x BW and
+// the ring keeps 2 S rows, so the layouts are those of the S x BW shape:
+//  2x4, 2x8, 2x16 (S = 8): 8x4's, idct_display.cu's (12, 104), 8x16's.
+//  2x2, 4x2, 8x2 (S = 8), 16x2 (S = 16): a 16-byte chunk is two rows, so
+//       the row stride is 2 and the pair stride a multiple of 4; 20 (36
+//       at 16x2, 4 mod 8) keeps the row stage's float2 loads free (a
+//       half-warp's 8 pairs x 2 rows) and leaves the column stage's
+//       4-byte accesses 2-way (16 pairs a warp on 8 bank offsets).
 template <int BH, int BW> struct SqGeom;
-template <> struct SqGeom<4, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 36, kMinCtas = 6; };
-template <> struct SqGeom<16, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 336, kMinCtas = 3; };
-template <> struct SqGeom<4, 8> { static constexpr int kCoefPitch = 8, kCoefGroup = 40, kMinCtas = 6; };
-template <> struct SqGeom<8, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 68, kMinCtas = 5; };
-template <> struct SqGeom<4, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 80, kMinCtas = 6; };
-template <> struct SqGeom<16, 4> { static constexpr int kCoefPitch = 4, kCoefGroup = 68, kMinCtas = 3; };
-template <> struct SqGeom<8, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 176, kMinCtas = 4; };
-template <> struct SqGeom<16, 8> { static constexpr int kCoefPitch = 12, kCoefGroup = 200, kMinCtas = 3; };
+template <> struct SqGeom<4, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 36, kMinCtas = 6, kStep = 1; };
+template <> struct SqGeom<16, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 336, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<4, 8> { static constexpr int kCoefPitch = 8, kCoefGroup = 40, kMinCtas = 6, kStep = 1; };
+template <> struct SqGeom<8, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 68, kMinCtas = 5, kStep = 1; };
+template <> struct SqGeom<4, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 80, kMinCtas = 6, kStep = 1; };
+template <> struct SqGeom<16, 4> { static constexpr int kCoefPitch = 4, kCoefGroup = 68, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<8, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 176, kMinCtas = 4, kStep = 1; };
+template <> struct SqGeom<16, 8> { static constexpr int kCoefPitch = 12, kCoefGroup = 200, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<2, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 20, kMinCtas = 6, kStep = 4; };
+template <> struct SqGeom<2, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 68, kMinCtas = 5, kStep = 4; };
+template <> struct SqGeom<4, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 20, kMinCtas = 6, kStep = 2; };
+template <> struct SqGeom<2, 8> { static constexpr int kCoefPitch = 12, kCoefGroup = 104, kMinCtas = 6, kStep = 4; };
+template <> struct SqGeom<8, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 20, kMinCtas = 6, kStep = 1; };
+template <> struct SqGeom<2, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 176, kMinCtas = 6, kStep = 4; };
+template <> struct SqGeom<16, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 36, kMinCtas = 3, kStep = 1; };
 
 template <int BH, int BW>
 struct Sq {
+  static constexpr int kStep = SqGeom<BH, BW>::kStep;  // block rows a step
+  static constexpr int kRowsStep = kStep * BH;          // pixel rows a step
   static constexpr int kStrip = kStripPixels / BW;  // block columns per CTA
   static constexpr int kGroups = kStrip * 3;        // (block, channel) pairs
   static constexpr int kSlot = kGroups * SqGeom<BH, BW>::kCoefGroup;
-  static constexpr int kRingRows = 2 * BH;  // this block row and the last
+  static constexpr int kSteps = kStep * kStrip;  // a slot's steps
+  static constexpr int kRingRows = 2 * kRowsStep;  // this step and the last
   static constexpr int kSmemBytes =
-      (2 * kSlot + kRingRows * kRingPitch + 2 * kStrip + 3 * kMaxBandRows) *
+      (2 * kSlot + kRingRows * kRingPitch + 2 * kSteps + 3 * kMaxBandRows) *
       static_cast<int>(sizeof(float));
-  // row stage: a thread's rows of its pair and the pixels of each; at
-  // BH < BW a row's columns in kSplit parts of kPart threads each
-  static constexpr int kRows = BH > BW ? BH / BW : 1;
-  static constexpr int kCols = BH < BW ? BH : BW;
-  static constexpr int kSplit = BW > BH ? BW / BH : 1;
+  // row stage: a thread's rows of its pair's kRowsStep and the pixels of
+  // each; at kRowsStep < BW a row's columns in kSplit parts of kPart
+  // threads each
+  static constexpr int kRows = kRowsStep > BW ? kRowsStep / BW : 1;
+  static constexpr int kCols = kRowsStep < BW ? kRowsStep : BW;
+  static constexpr int kSplit = BW > kRowsStep ? BW / kRowsStep : 1;
   static constexpr int kPart = kThreads / kSplit;
   static_assert(kGroups * BW == kThreads, "a thread per column of a pair");
-  static_assert(SqGeom<BH, BW>::kCoefGroup >= BH * SqGeom<BH, BW>::kCoefPitch,
+  static_assert(SqGeom<BH, BW>::kCoefGroup >=
+                    kRowsStep * SqGeom<BH, BW>::kCoefPitch,
                 "slot rows fit");
 };
 
@@ -123,13 +151,19 @@ __device__ __forceinline__ void ring_row(const float* arow, float* dst,
                                          const DctF<BH, BW>& d, int blk,
                                          int c) {
   float a[BW];
+  if constexpr (BW >= 4) {
 #pragma unroll
-  for (int q = 0; q < BW / 4; ++q) {
-    const float4 v = *reinterpret_cast<const float4*>(arow + 4 * q);
-    a[4 * q] = v.x;
-    a[4 * q + 1] = v.y;
-    a[4 * q + 2] = v.z;
-    a[4 * q + 3] = v.w;
+    for (int q = 0; q < BW / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(arow + 4 * q);
+      a[4 * q] = v.x;
+      a[4 * q + 1] = v.y;
+      a[4 * q + 2] = v.z;
+      a[4 * q + 3] = v.w;
+    }
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(arow);
+    a[0] = v.x;
+    a[1] = v.y;
   }
 #pragma unroll
   for (int jj = 0; jj < Sq<BH, BW>::kCols; ++jj) {
@@ -142,28 +176,30 @@ __device__ __forceinline__ void ring_row(const float* arow, float* dst,
   }
 }
 
-// ring_row at the part p's columns (p * BH), as a compile-time constant.
+// ring_row at the part p's columns (p * kCols), as a compile-time
+// constant.
 template <int BH, int BW, int P = 0>
 __device__ __forceinline__ void ring_part(int p, const float* arow, float* dst,
                                           const DctF<BH, BW>& d, int blk,
                                           int c) {
   if constexpr (P < Sq<BH, BW>::kSplit) {
     if (p == P) {
-      ring_row<BH, BW, P * BH>(arow, dst, d, blk, c);
+      ring_row<BH, BW, P * Sq<BH, BW>::kCols>(arow, dst, d, blk, c);
     } else {
       ring_part<BH, BW, P + 1>(p, arow, dst, d, blk, c);
     }
   }
 }
 
-// The row stage of block row b from a slot into the ring: this thread's
-// BH pixels, interleaved.
+// The row stage of step b (block rows b * kStep, ...) from a slot into
+// the ring: this thread's kRowsStep pixels, interleaved.
 template <int BH, int BW>
 __device__ __forceinline__ void sq_ring_rows(const float* slot, float* ring,
                                              const DctF<BH, BW>& d, int b) {
+  constexpr int kS = Sq<BH, BW>::kRowsStep;
   constexpr int kRingRows = Sq<BH, BW>::kRingRows;
   constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
-  if constexpr (BH >= BW) {
+  if constexpr (kS >= BW) {
     const int g = threadIdx.x / BW;
     const int r = threadIdx.x & (BW - 1);
     const int blk = g / 3;
@@ -172,18 +208,54 @@ __device__ __forceinline__ void sq_ring_rows(const float* slot, float* ring,
       const int i = r + s * BW;
       ring_row<BH, BW, 0>(
           slot + g * SqGeom<BH, BW>::kCoefGroup + i * kPitch,
-          ring + ((b * BH + i) & (kRingRows - 1)) * kRingPitch, d, blk,
+          ring + ((b * kS + i) & (kRingRows - 1)) * kRingPitch, d, blk,
           g - 3 * blk);
     }
   } else {
     const int p = threadIdx.x / Sq<BH, BW>::kPart;
     const int u = threadIdx.x - p * Sq<BH, BW>::kPart;
-    const int g = u / BH;
-    const int i = u & (BH - 1);
+    const int g = u / kS;
+    const int i = u & (kS - 1);
     const int blk = g / 3;
     ring_part<BH, BW>(p, slot + g * SqGeom<BH, BW>::kCoefGroup + i * kPitch,
-                      ring + ((b * BH + i) & (kRingRows - 1)) * kRingPitch, d,
+                      ring + ((b * kS + i) & (kRingRows - 1)) * kRingPitch, d,
                       blk, g - 3 * blk);
+  }
+}
+
+// The coefficients and steps of step b's block rows (those below nby)
+// into a slot.
+template <int BH, int BW>
+__device__ __forceinline__ void fetch_step(const float* __restrict__ coeffs,
+                                           const float* __restrict__ steps,
+                                           size_t blk_row0, int b, int nby,
+                                           int nbx, int nblk, float* slot,
+                                           float* slot_steps) {
+  constexpr int kStep = Sq<BH, BW>::kStep;
+  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+#pragma unroll
+  for (int m = 0; m < kStep; ++m) {
+    const int by = b * kStep + m;
+    if (kStep == 1 || by < nby) {
+      fetch_sq_row<BH, BW, kPitch, SqGeom<BH, BW>::kCoefGroup, kThreads>(
+          coeffs, steps, blk_row0 + static_cast<size_t>(by) * nbx, nblk,
+          slot + m * BH * kPitch, slot_steps + m * Sq<BH, BW>::kStrip);
+    }
+  }
+}
+
+// The column stage of a slot's kStep block rows: column r of pair g.
+template <int BH, int BW>
+__device__ __forceinline__ void sq_step_columns(float* grp,
+                                                const float* slot_steps,
+                                                const DctF<BH, BW>& d, int blk,
+                                                int r) {
+  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+#pragma unroll
+  for (int m = 0; m < Sq<BH, BW>::kStep; ++m) {
+    sq_column_stage<BH, BW, kPitch>(grp + m * BH * kPitch,
+                                    slot_steps[m * Sq<BH, BW>::kStrip + blk],
+                                    d, r);
   }
 }
 
@@ -207,14 +279,14 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
                        int nbx, int band_rows) {
   constexpr int kStrip = Sq<BH, BW>::kStrip;
   constexpr int kSlot = Sq<BH, BW>::kSlot;
+  constexpr int kSteps = Sq<BH, BW>::kSteps;
   constexpr int kRingRows = Sq<BH, BW>::kRingRows;
   constexpr int kGroup = SqGeom<BH, BW>::kCoefGroup;
-  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem + 2 * kSlot;
   float* slot_steps = ring + kRingRows * kRingPitch;
   // per output row of the band: ring offsets of y0 and y1, and fy
-  int* band_r0 = reinterpret_cast<int*>(slot_steps + 2 * kStrip);
+  int* band_r0 = reinterpret_cast<int*>(slot_steps + 2 * kSteps);
   int* band_r1 = band_r0 + kMaxBandRows;
   float* band_f = reinterpret_cast<float*>(band_r1 + kMaxBandRows);
 
@@ -238,9 +310,8 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   const int r = threadIdx.x & (BW - 1);
   const int blk = g / 3;
 
-  fetch_sq_row<BH, BW, kPitch, kGroup, kThreads>(
-      coeffs, steps, blk_row0 + static_cast<size_t>(b_first) * nbx, nblk,
-      smem, slot_steps);
+  fetch_step<BH, BW>(coeffs, steps, blk_row0, b_first, nby, nbx, nblk, smem,
+                     slot_steps);
   for (int i = threadIdx.x; i < yb1 - yb0; i += kThreads) {
     band_r0[i] = (y0[yb0 + i] & (kRingRows - 1)) * kRingPitch;
     band_r1[i] = (y1[yb0 + i] & (kRingRows - 1)) * kRingPitch;
@@ -249,15 +320,15 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   cp_async_wait_all();
   __syncthreads();
   if (b_first < b_last) {
-    fetch_sq_row<BH, BW, kPitch, kGroup, kThreads>(
-        coeffs, steps, blk_row0 + static_cast<size_t>(b_first + 1) * nbx,
-        nblk, smem + kSlot, slot_steps + kStrip);
+    fetch_step<BH, BW>(coeffs, steps, blk_row0, b_first + 1, nby, nbx, nblk,
+                       smem + kSlot, slot_steps + kSteps);
   }
-  sq_column_stage<BH, BW, kPitch>(smem + g * kGroup, slot_steps[blk], d, r);
+  sq_step_columns<BH, BW>(smem + g * kGroup, slot_steps, d, blk, r);
 
-  // Per block row b, two phases: (1) the rows stage of b into the ring;
-  // (2) the output rows that b completes, the next block row's column
-  // stage, and the copy of the one after that into the slot (1) freed.
+  // Per step b (kStep block rows; the tables count rows in steps), two
+  // phases: (1) the rows stage of b into the ring; (2) the output rows
+  // that b completes, the next step's column stage, and the copy of the
+  // one after that into the slot (1) freed.
   for (int b = b_first;; ++b) {
     const int s = (b - b_first) & 1;
     const int ya = max(yb0, row_lo[b]);
@@ -267,9 +338,8 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
     cp_async_wait_all();
     __syncthreads();
     if (b + 2 <= b_last) {
-      fetch_sq_row<BH, BW, kPitch, kGroup, kThreads>(
-          coeffs, steps, blk_row0 + static_cast<size_t>(b + 2) * nbx, nblk,
-          smem + s * kSlot, slot_steps + s * kStrip);
+      fetch_step<BH, BW>(coeffs, steps, blk_row0, b + 2, nby, nbx, nblk,
+                         smem + s * kSlot, slot_steps + s * kSteps);
     }
     for (int task = threadIdx.x; task < (yz - ya) * kChunks;
          task += kThreads) {
@@ -308,8 +378,8 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
       }
     }
     if (b == b_last) break;
-    sq_column_stage<BH, BW, kPitch>(smem + (s ^ 1) * kSlot + g * kGroup,
-                                    slot_steps[(s ^ 1) * kStrip + blk], d, r);
+    sq_step_columns<BH, BW>(smem + (s ^ 1) * kSlot + g * kGroup,
+                            slot_steps + (s ^ 1) * kSteps, d, blk, r);
   }
 }
 
@@ -345,10 +415,10 @@ int launch_sq(const void* coeffs, const void* steps, const void* dh,
 // aligned; steps: (t_count, nby, nbx) float32; dh, dw: HOST pointers to the
 // (BH, BH) and (BW, BW) float32 DCT-II matrices (passed to the kernel by
 // value; a square reads dh only); y0, y1, fy: (out_h,) source rows and
-// weights; row_lo: (nby + 1,) first output row whose last source row lies
-// in block row b or later; band_b: (n_bands, 2) first and last source block
-// row of each band of band_rows output rows; out: (t_count, out_h,
-// nbx*BW*3) uint8.
+// weights; row_lo: (n_steps + 1,) first output row whose last source row
+// lies in step b or later (a step: SqGeom's kStep block rows, n_steps =
+// ceil(nby / kStep)); band_b: (n_bands, 2) first and last step of each
+// band of band_rows output rows; out: (t_count, out_h, nbx*BW*3) uint8.
 #define SVC_IDCT_SQ_ENTRY(BH, BW)                                             \
   SVC_EXPORT int svc_idct##BH##x##BW##_display(                               \
       const void* coeffs, const void* steps, const void* dh, const void* dw,  \
@@ -368,3 +438,10 @@ SVC_IDCT_SQ_ENTRY(4, 16)
 SVC_IDCT_SQ_ENTRY(16, 4)
 SVC_IDCT_SQ_ENTRY(8, 16)
 SVC_IDCT_SQ_ENTRY(16, 8)
+SVC_IDCT_SQ_ENTRY(2, 2)
+SVC_IDCT_SQ_ENTRY(2, 4)
+SVC_IDCT_SQ_ENTRY(4, 2)
+SVC_IDCT_SQ_ENTRY(2, 8)
+SVC_IDCT_SQ_ENTRY(8, 2)
+SVC_IDCT_SQ_ENTRY(2, 16)
+SVC_IDCT_SQ_ENTRY(16, 2)

@@ -1,7 +1,7 @@
 // Dequantize + inverse DCT of transform blocks of BH rows and BW columns
-// (BH, BW in {4, 8, 16}), one block row of a strip of blocks at a time: the
-// machinery the two templated display kernels share, K1
-// (idct_display_sq.cu) and K6 (idct_resize_sq.cu).
+// (BH, BW in {4, 8, 16}; K1 also a side of 2), one block row of a strip
+// of blocks at a time: the machinery the two templated display kernels
+// share, K1 (idct_display_sq.cu) and K6 (idct_resize_sq.cu).
 //
 // A strip's block row is one contiguous run of coefficients in the wire
 // layout (T, nby, nbx, 3 * BH * BW); it arrives by cp.async into a
@@ -52,20 +52,28 @@ __device__ __forceinline__ float dw_at(const DctF<BH, BW>& d, int i) {
 
 // Coefficients and steps of blocks [blk0, blk0 + nblk) (flat block index)
 // into a slot, as one cp.async group per thread of a kThreads-thread CTA.
+// At BW = 2 a 16-byte chunk holds two coefficient rows, so a pair's rows
+// are contiguous in the slot (kPitch = 2).
 template <int BH, int BW, int kPitch, int kGroup, int kThreads>
 __device__ __forceinline__ void fetch_sq_row(const float* __restrict__ coeffs,
                                              const float* __restrict__ steps,
                                              size_t blk0, int nblk,
                                              float* slot, float* slot_steps) {
   constexpr int kPairChunks = BH * BW / 4;  // 16-byte chunks of a pair
-  constexpr int kRowChunks = BW / 4;        // of a coefficient row
   const float* src = coeffs + blk0 * (3 * BH * BW);
   for (int ch = threadIdx.x; ch < nblk * 3 * kPairChunks; ch += kThreads) {
     const int g = ch / kPairChunks;
     const int e = ch & (kPairChunks - 1);
-    cp_async16(slot + g * kGroup + (e / kRowChunks) * kPitch +
-                   (e & (kRowChunks - 1)) * 4,
-               src + ch * 4);
+    if constexpr (BW >= 4) {
+      constexpr int kRowChunks = BW / 4;  // of a coefficient row
+      cp_async16(slot + g * kGroup + (e / kRowChunks) * kPitch +
+                     (e & (kRowChunks - 1)) * 4,
+                 src + ch * 4);
+    } else {
+      static_assert(BW == 2 && kPitch == 2 && kGroup % 4 == 0,
+                    "two contiguous rows a chunk");
+      cp_async16(slot + g * kGroup + e * 4, src + ch * 4);
+    }
   }
   if (threadIdx.x < nblk) {
     cp_async4(slot_steps + threadIdx.x, steps + blk0 + threadIdx.x);

@@ -24,10 +24,11 @@ Each dispatches by shape: 8x8 blocks of 3 channels (the codec's default)
 go to a kernel specialised for them (``csrc/dct_wire.cu``,
 ``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); the other transform
 blocks users pick, of 3 channels, go to one kernel template each,
-instantiated per block shape at every (rows, columns) in {4, 8, 16}^2
-but 8x8 (``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``,
-``csrc/idct_resize_sq.cu``); every other block
-shape or channel count goes to the general kernel
+instantiated per block shape: K2 and K1 at every (rows, columns) in
+{2, 4, 8, 16}^2 but 8x8 (``csrc/dct_wire_sq.cu``,
+``csrc/idct_display_sq.cu``), K6 at {4, 8, 16}^2 but 8x8
+(``csrc/idct_resize_sq.cu``); every other block shape or channel count
+(a side of 1; K6 a side of 2) goes to the general kernel
 (``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
 ``csrc/idct_resize_general.cu``). All give the general kernel's bits.
 No call copies from host memory once its geometry is cached: tables and
@@ -82,9 +83,12 @@ IDCT_DISPLAY_GENERAL = Kernel(
 # K2, K1 and K6 for blocks of 3 channels of (rows, columns) in {4, 8,
 # 16}^2 other than 8x8: one kernel template each, an instantiation (and a
 # launch count) per block shape, named rows first; the squares, then the
-# rectangles
+# rectangles. K2 and K1 also take 2x2 and the blocks with a side of 2
+# and the other in {4, 8, 16}, K6 not
 _SQ_SHAPES = ((4, 4), (16, 16), (4, 8), (8, 4), (4, 16), (16, 4), (8, 16),
               (16, 8))
+_THIN_SHAPES = ((2, 2), (2, 4), (4, 2), (2, 8), (8, 2), (2, 16), (16, 2))
+_K12_SHAPES = _SQ_SHAPES + _THIN_SHAPES
 DCT_WIRE_SQ = {
     (bh, bw): Kernel(
         f"dct{bh}x{bw}_to_wire",
@@ -93,7 +97,7 @@ DCT_WIRE_SQ = {
         source="svc_tpu_torch/csrc/dct_wire_sq.cu",
         replaces="svc_tpu/ops/dct_pallas.py:282",
     )
-    for bh, bw in _SQ_SHAPES
+    for bh, bw in _K12_SHAPES
 }
 IDCT_DISPLAY_SQ = {
     (bh, bw): Kernel(
@@ -103,7 +107,7 @@ IDCT_DISPLAY_SQ = {
         source="svc_tpu_torch/csrc/idct_display_sq.cu",
         replaces="svc_tpu/ops/dct_pallas.py:692",
     )
-    for bh, bw in _SQ_SHAPES
+    for bh, bw in _K12_SHAPES
 }
 IDCT_RESIZE = Kernel(
     "idct_resize_display",
@@ -153,21 +157,31 @@ _K6_STRIP_BYTES = _K6_STRIP * 8 * 3
 _K6_SMEM_BYTES = (2 * 27 * 104 + 16 * 220 + 2 * 9 + 3 * 128) * 4
 _K6_CTAS_PER_SM = 5
 # K2's templated kernels (csrc/dct_wire_sq.cu): a strip of 128 pixels
-# (128 / BW blocks), 384 threads; stage 1's doubles padded to
-# (row stride, pair stride) per (BH, BW), then the strip's BH packed rows
+# (128 / BW blocks), 384 threads; per (BH, BW) stage 1's doubles padded to
+# (row stride, pair stride) and the block rows a CTA takes (a step: 8 / BH
+# where a side is 2), then the step's packed rows
 _K2_SQ_STRIP_PIXELS = 128
-_K2_SQ_GEOM = {(4, 4): (5, 20), (16, 16): (17, 272), (4, 8): (9, 40),
-               (8, 4): (5, 44), (4, 16): (17, 68), (16, 4): (5, 84),
-               (8, 16): (17, 136), (16, 8): (9, 152)}
+_K2_SQ_GEOM = {(4, 4): (5, 20, 1), (16, 16): (17, 272, 1), (4, 8): (9, 40, 1),
+               (8, 4): (5, 44, 1), (4, 16): (17, 68, 1), (16, 4): (5, 84, 1),
+               (8, 16): (17, 136, 1), (16, 8): (9, 152, 1),
+               (2, 2): (3, 26, 4), (2, 4): (5, 44, 4), (4, 2): (3, 26, 2),
+               (2, 8): (9, 72, 4), (8, 2): (3, 26, 1), (2, 16): (17, 136, 4),
+               (16, 2): (3, 50, 1)}
 # K1's templated kernels (csrc/idct_display_sq.cu): a strip of 64 pixels
 # (64 / BW block columns), 192 threads; per (BH, BW) the coefficient
-# slot's (row stride, pair stride) in floats and the CTAs an SM holds; two
-# slots, a ring of 2 BH pixel rows of 244 floats, two step slots, three
-# tables of up to 128 output rows
+# slot's (row stride, pair stride) in floats, the CTAs an SM holds and the
+# block rows a walk step takes; two slots, a ring of two steps' pixel rows
+# of 244 floats, two steps' step slots, three tables of up to 128 output
+# rows
 _K1_SQ_STRIP_PIXELS = 64
-_K1_SQ_GEOM = {(4, 4): (8, 36, 6), (16, 16): (20, 336, 3), (4, 8): (8, 40, 6),
-               (8, 4): (8, 68, 5), (4, 16): (20, 80, 6), (16, 4): (4, 68, 3),
-               (8, 16): (20, 176, 4), (16, 8): (12, 200, 3)}
+_K1_SQ_GEOM = {(4, 4): (8, 36, 6, 1), (16, 16): (20, 336, 3, 1),
+               (4, 8): (8, 40, 6, 1), (8, 4): (8, 68, 5, 1),
+               (4, 16): (20, 80, 6, 1), (16, 4): (4, 68, 3, 1),
+               (8, 16): (20, 176, 4, 1), (16, 8): (12, 200, 3, 1),
+               (2, 2): (2, 20, 6, 4), (2, 4): (8, 68, 5, 4),
+               (4, 2): (2, 20, 6, 2), (2, 8): (12, 104, 6, 4),
+               (8, 2): (2, 20, 6, 1), (2, 16): (20, 176, 6, 4),
+               (16, 2): (2, 36, 3, 1)}
 # K6's templated kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
 # (64 / BW block columns) plus one halo block column, a thread per byte of
 # a strip's run of at most 192 display-row bytes; per (BH, BW) the
@@ -187,20 +201,28 @@ _K6_SQ_GEOM = {(4, 4): (8, 36, 4, 206, 224, 6),
 
 def _k2_sq_smem_bytes(block_h: int, block_w: int) -> int:
     """Dynamic shared memory of K2's kernel for ``block_h`` x ``block_w``:
-    the pairs' padded A, then ``block_h`` packed strip rows."""
+    the pairs' padded A, then the packed strip rows of a CTA's block
+    rows."""
     groups = _K2_SQ_STRIP_PIXELS // block_w * 3
-    return (groups * _K2_SQ_GEOM[block_h, block_w][1] * 8
-            + block_h * _K2_SQ_STRIP_PIXELS * 3)
+    _, group, step = _K2_SQ_GEOM[block_h, block_w]
+    return groups * group * 8 + step * block_h * _K2_SQ_STRIP_PIXELS * 3
+
+
+def _k1_sq_step_rows(block_h: int, block_w: int) -> int:
+    """The pixel rows of a walk step of K1's kernel for ``block_h`` x
+    ``block_w`` (its tables count rows in steps)."""
+    return block_h * _K1_SQ_GEOM[block_h, block_w][3]
 
 
 def _k1_sq_smem_bytes(block_h: int, block_w: int) -> int:
     """Dynamic shared memory of K1's kernel for ``block_h`` x ``block_w``:
     the strip (in block columns) counts ``block_w``, the ring's pixel rows
-    ``block_h``."""
+    two steps."""
     strip = _K1_SQ_STRIP_PIXELS // block_w
-    slot = strip * 3 * _K1_SQ_GEOM[block_h, block_w][1]
-    return 4 * (2 * slot + 2 * block_h * 244 + 2 * strip
-                + 3 * max(_K1_BAND_ROWS))
+    _, group, _, step = _K1_SQ_GEOM[block_h, block_w]
+    return 4 * (2 * strip * 3 * group
+                + 2 * _k1_sq_step_rows(block_h, block_w) * 244
+                + 2 * step * strip + 3 * max(_K1_BAND_ROWS))
 
 
 def _k6_sq_smem_bytes(block_h: int, block_w: int) -> int:
@@ -218,9 +240,15 @@ def _specialised(block_h: int, block_w: int, channels: int) -> bool:
 
 
 def _templated(block_h: int, block_w: int, channels: int) -> bool:
-    """Blocks of 3 channels with both sides in {4, 8, 16}, but 8x8: K2's,
-    K1's and K6's templated kernels."""
+    """Blocks of 3 channels with both sides in {2, 4, 8, 16}, but 8x8:
+    K2's and K1's templated kernels."""
     return (block_h, block_w) in DCT_WIRE_SQ and channels == 3
+
+
+def _templated_k6(block_h: int, block_w: int, channels: int) -> bool:
+    """Blocks of 3 channels with both sides in {4, 8, 16}, but 8x8: K6's
+    templated kernels."""
+    return (block_h, block_w) in IDCT_RESIZE_SQ and channels == 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -303,8 +331,9 @@ def dct8x8_to_wire(
 ) -> torch.Tensor:
     """Forward blockwise DCT of packed frames into wire layout (kernel K2:
     the specialised kernel for 8x8 blocks of 3 channels, the templated
-    kernel for the other blocks of 3 channels with both sides in {4, 8,
-    16}, the general one otherwise).
+    kernel for the other blocks of 3 channels with both sides in {2, 4,
+    8, 16}, the general one otherwise: a side of 1, other channel
+    counts).
 
     Args:
       packed: ``(N, H, W*C)`` uint8 interleaved rows; frames
@@ -449,23 +478,27 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
     """The row geometry of the specialised display kernels K1 and K6 and of
     K1's and K6's templated kernels (host numpy), which walk
     each band of output rows down its source block rows of ``block`` pixel
-    rows (the block height), a strip of ``strip`` block columns per CTA.
+    rows (the block height; K1's templated kernel walks steps of several
+    block rows where a side is 2, and ``block`` is a step's pixel rows),
+    a strip of ``strip`` block columns per CTA.
 
     Returns ``(y0, y1, fy, row_lo, band_b, band_rows)``: the bilinear
-    ``(y0, y1, fy)`` per output row; ``row_lo[b]`` (``b`` in ``[0, nby]``)
-    the first output row whose last source row (``y1`` where its weight is
-    not zero, else ``y0``) lies in block row ``b`` or later — the kernel
-    emits rows ``[row_lo[b], row_lo[b + 1])`` once block row ``b`` is
-    transformed; ``band_b`` ``(n_bands, 2)`` each band's first block row
-    (that of its first ``y0``) and last (that of its last row's last source
-    row); ``band_rows`` the tallest of 128, 64, ..., 8 output rows that
-    still gives two waves of CTAs (``ctas_per_sm`` per SM) on
-    ``sm_count`` SMs, else 8.
+    ``(y0, y1, fy)`` per output row; ``row_lo[b]`` (``b`` in ``[0,
+    ceil(in_h / block)]``) the first output row whose last source row
+    (``y1`` where its weight is not zero, else ``y0``) lies in block row
+    ``b`` or later — the kernel emits rows ``[row_lo[b], row_lo[b + 1])``
+    once block row ``b`` is transformed; ``band_b`` ``(n_bands, 2)`` each
+    band's first block row (that of its first ``y0``) and last (that of
+    its last row's last source row); ``band_rows`` the tallest of 128,
+    64, ..., 8 output rows that still gives two waves of CTAs
+    (``ctas_per_sm`` per SM) on ``sm_count`` SMs, else 8.
     """
     y0, y1, fy, _ = bilinear_axis_weights(out_h, in_h)
     hi = np.where(fy != 0, y1, y0)  # non-decreasing, y0 <= hi <= y0 + 1
+    # a last block row past in_h (a walk step of several block rows) ends
+    # the frame
     row_lo = np.searchsorted(hi // block,
-                             np.arange(in_h // block + 1)).astype(np.int32)
+                             np.arange(-(-in_h // block) + 1)).astype(np.int32)
     strips = -(-nbx // strip)
     for band_rows in _K1_BAND_ROWS:
         if t * strips * -(-out_h // band_rows) >= 2 * ctas_per_sm * sm_count:
@@ -538,8 +571,8 @@ def idct_display(
     Returns ``(T, out_h, nbx*bw*C)`` uint8 — the width is not resampled
     (the width-aligned display routes). 8x8 blocks of 3 channels go to the
     specialised kernel, the other blocks of 3 channels with both sides in
-    {4, 8, 16} to the templated kernel, every other shape to the general
-    one.
+    {2, 4, 8, 16} to the templated kernel, every other shape (a side of
+    1, other channel counts) to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_display_plain(coeffs, steps, out_h, channels, block_h, block_w)
@@ -553,10 +586,12 @@ def idct_display(
             kernel, strip, ctas = IDCT_DISPLAY, _K1_STRIP, _K1_CTAS_PER_SM
             # host matrix, passed by value
             mats = (dct_matrix(8).ctypes.data,)
+            step_rows = 8
         else:
             kernel, strip = IDCT_DISPLAY_SQ[bh, bw], _K1_SQ_STRIP_PIXELS // bw
             ctas = _K1_SQ_GEOM[bh, bw][2]
             mats = (dct_matrix(bh).ctypes.data, dct_matrix(bw).ctypes.data)
+            step_rows = _k1_sq_step_rows(bh, bw)
         out = torch.empty((t, out_h, nbx * bw * 3), dtype=torch.uint8, device=dev)
         if out.numel() == 0:
             return out
@@ -564,9 +599,10 @@ def idct_display(
         if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
             c = c.clone()
         s = steps.contiguous()
-        # rows are block rows of bh pixel rows; the strip counts block columns
+        # rows are walk steps of step_rows pixel rows (a block row, or
+        # several where a side is 2); the strip counts block columns
         tabs, band_rows = _band_tables_on(dev, out_h, nby * bh, nbx, t, ctas,
-                                          bh, strip)
+                                          step_rows, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
         with torch.cuda.device(dev):
             kernel.launch(
@@ -693,7 +729,7 @@ def idct_resize_display(
     if out.numel() == 0:
         return out
     specialised = _specialised(block_h, block_w, channels)
-    if ((specialised or _templated(block_h, block_w, channels))
+    if ((specialised or _templated_k6(block_h, block_w, channels))
             and out_w <= nbx * block_w and not general):
         bh, bw = block_h, block_w
         if specialised:

@@ -8,8 +8,8 @@ CUDA card.
 
 (the fused pyramid kernels with and without their minimum of 6 CTAs per
 SM), with ``--target display``, K1's templated kernels (e.g. ``--edit
-idct_display_sq.cu 'kCoefGroup = 336, kMinCtas = 3;' 'kCoefGroup = 336,
-kMinCtas = 2;'``), with ``--target wire``, K2's (``dct_wire_sq.cu``),
+idct_display_sq.cu 'kCoefGroup = 336, kMinCtas = 3,' 'kCoefGroup = 336,
+kMinCtas = 2,'``), with ``--target wire``, K2's (``dct_wire_sq.cu``),
 with ``--target
 resize``, K6's templated kernels (e.g. column 0 alone of the halo
 block in the 4x4 ring: ``--edit idct_resize_sq.cu

@@ -60,6 +60,8 @@ PALLAS_16_GATE = COEFF_GATE * 16 / 8
 # the rectangular transform blocks (rows x columns) the config accepts
 # beside the squares: each side divides the 16x16 MV block
 RECT_BLOCKS = ["4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
+# and those with a side of 2 (K2's and K1's templated kernels take them)
+THIN_RECT_BLOCKS = ["2x4", "4x2", "2x8", "8x2", "2x16", "16x2"]
 
 
 def _hw(block):
@@ -75,9 +77,10 @@ def _hw(block):
     pytest.param(4, "pallas", COEFF_GATE, id="4"),
     pytest.param(16, "einsum", COEFF_GATE, id="16"),
     pytest.param(16, "pallas", PALLAS_16_GATE, id="16-pallas"),
-] + [pytest.param(b, "pallas", COEFF_GATE, id=b) for b in RECT_BLOCKS] + [
+] + [pytest.param(b, "pallas", COEFF_GATE, id=b)
+      for b in RECT_BLOCKS + ["2x2"] + THIN_RECT_BLOCKS] + [
     pytest.param(b, "einsum", COEFF_GATE, id=f"{b}-einsum")
-    for b in RECT_BLOCKS if "16" in b
+    for b in RECT_BLOCKS + THIN_RECT_BLOCKS if "16" in b
 ])
 def test_forward_dct_matches_planes_kernel(block, ref, gate):
     # width 192 is not lane-aligned: svc_tpu's encoder takes the planes
@@ -90,8 +93,9 @@ def test_forward_dct_matches_planes_kernel(block, ref, gate):
     # at the scaled gate, and to svc_tpu's float32 einsum of the same
     # function (ops/dct.py dct2_planes_to_wire) at the gate. The
     # rectangles sit within the gate of both on this input (at most
-    # 2.44e-4, one ulp at 2048-4096, at 8x4, 8x16 and 16x8), those with a
-    # side of 16 held to both
+    # 2.44e-4, one ulp at 2048-4096, at 8x4, 8x16, 16x8 and 2x16), those
+    # with a side of 16 held to both; 2x2 and the blocks with a side of 2
+    # (2.44e-4 at 2x16, 1.22e-4 at 8x2 and 16x2, 6.1e-5 at the others)
     bh, bw = _hw(block)
     w, h = 192, 136
     ph, pw = 144, 192
@@ -180,14 +184,16 @@ DECODE_GEOMETRIES = [
 ]
 
 
-# 2x2, 4x4 and 16x16 transform blocks and the rectangles at the
-# width-aligned geometries (a 16x16 block divides them): row resample,
-# identity rows, multi-band resample; 4x4, 16x16 and the rectangles also
-# at the width-excess ones (K6's templated kernels)
+# 2x2, 4x4 and 16x16 transform blocks and the rectangles (those with a
+# side of 2 too) at the width-aligned geometries (a 16x16 block divides
+# them): row resample, identity rows, multi-band resample; 4x4, 16x16 and
+# the rectangles of sides 4, 8 and 16 also at the width-excess ones (K6's
+# templated kernels)
 DECODE_CASES = [pytest.param(*g, 8, id="-".join(map(str, g)))
                 for g in DECODE_GEOMETRIES] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
-    for b in (2, 4, 16, *RECT_BLOCKS) for g in DECODE_GEOMETRIES[:3]] + [
+    for b in (2, 4, 16, *RECT_BLOCKS, *THIN_RECT_BLOCKS)
+    for g in DECODE_GEOMETRIES[:3]] + [
     pytest.param(*g, b, id="-".join(map(str, g)) + f"-b{b}")
     for b in (4, 16, *RECT_BLOCKS) for g in DECODE_GEOMETRIES[3:]]
 

@@ -1,7 +1,7 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
 specialised kernels K1 / K2 / K6; the other blocks of 3 channels with both
-sides in {4, 8, 16} to K2's and K1's templated kernels, 4x4 and 16x16 to
-K6's square-block kernels; every other shape to the general ones) and the
+sides in {4, 8, 16} to K2's, K1's and K6's templated kernels, those with a
+side of 2 to K2's and K1's; every other shape to the general ones) and the
 band and strip geometry of K1's and K6's specialised, templated and
 square-block kernels, on the CPU.
 
@@ -56,7 +56,8 @@ def _all_kernels():
     [(8, 3, False, "dct8x8_to_wire"), (8, 3, True, "dct_to_wire_general"),
      (4, 3, False, "dct4x4_to_wire"), (16, 3, False, "dct16x16_to_wire"),
      (4, 3, True, "dct_to_wire_general"), (16, 3, True, "dct_to_wire_general"),
-     (2, 3, False, "dct_to_wire_general"), (8, 1, False, "dct_to_wire_general"),
+     (2, 3, False, "dct2x2_to_wire"), (1, 3, False, "dct_to_wire_general"),
+     (2, 3, True, "dct_to_wire_general"), (8, 1, False, "dct_to_wire_general"),
      (16, 1, False, "dct_to_wire_general")],
 )
 def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
@@ -83,7 +84,8 @@ def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
     [(8, 3, False, "idct_display"), (8, 3, True, "idct_display_general"),
      (4, 3, False, "idct4x4_display"), (16, 3, False, "idct16x16_display"),
      (4, 3, True, "idct_display_general"), (16, 3, True, "idct_display_general"),
-     (2, 3, False, "idct_display_general"), (8, 1, False, "idct_display_general"),
+     (2, 3, False, "idct2x2_display"), (1, 3, False, "idct_display_general"),
+     (2, 3, True, "idct_display_general"), (8, 1, False, "idct_display_general"),
      (16, 1, False, "idct_display_general")],
 )
 def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
@@ -127,12 +129,12 @@ def _both_legs(block_h, block_w, channels, general):
 
 @pytest.mark.parametrize(
     "block_h,block_w,channels,general",
-    [(2, 4, 3, False), (4, 2, 3, False), (1, 8, 3, False), (8, 16, 1, False),
+    [(1, 2, 3, False), (2, 1, 3, False), (1, 8, 3, False), (8, 16, 1, False),
      (4, 8, 3, True), (16, 8, 3, True)],
 )
 def test_rectangular_blocks_take_the_general_kernels(meta_launches, block_h,
                                                      block_w, channels, general):
-    # a side of 1 or 2, one channel, or general=True: both legs go to the
+    # a side of 1, one channel, or general=True: both legs go to the
     # general kernels, whose dh and dw are their own matrices
     wire, shown = _both_legs(block_h, block_w, channels, general)
     n = channels * block_h * block_w
@@ -148,12 +150,15 @@ def test_rectangular_blocks_take_the_general_kernels(meta_launches, block_h,
 
 
 @pytest.mark.parametrize("block_h,block_w", [(4, 8), (8, 4), (4, 16), (16, 4),
-                                             (8, 16), (16, 8)])
+                                             (8, 16), (16, 8), (2, 2), (2, 4),
+                                             (4, 2), (2, 8), (8, 2), (2, 16),
+                                             (16, 2)])
 def test_rectangular_blocks_take_their_templated_kernels(meta_launches,
                                                          block_h, block_w):
-    # each rectangle of 3 channels launches its own K2 and K1 instance,
-    # named rows first, with dh and dw by value; K1's geometry counts rows
-    # in block_h and the strip in block_w
+    # each rectangle of 3 channels (and 2x2) launches its own K2 and K1
+    # instance, named rows first, with dh and dw by value; K1's geometry
+    # counts rows in walk steps (block_h, or 8 pixel rows where a side is
+    # 2) and the strip in block_w
     wire, shown = _both_legs(block_h, block_w, 3, False)
     assert wire == (8, 1088 // block_h, 1920 // block_w, 3 * block_h * block_w)
     assert shown == (8, 1080, 5760)
@@ -215,6 +220,40 @@ def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
         assert len(args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
         assert args[13:21] == (2, 768, out_w, 768 // block, 1376 // block,
                                channels, block, block)
+
+
+def test_k6_keeps_its_nine_shapes():
+    # K2's and K1's templated kernels took the blocks with a side of 2; K6
+    # did not: its templated kernels stay the eight shapes of sides 4, 8
+    # and 16, the ninth (8x8) its specialised kernel
+    assert sorted(dct.IDCT_RESIZE_SQ) == sorted(dct._SQ_SHAPES)
+    assert len(dct.IDCT_RESIZE_SQ) + 1 == 9
+    assert (8, 8) not in dct.IDCT_RESIZE_SQ
+    assert sorted(dct.DCT_WIRE_SQ) == sorted(dct.IDCT_DISPLAY_SQ) == sorted(
+        dct._SQ_SHAPES + dct._THIN_SHAPES)
+    for bh, bw in dct._THIN_SHAPES:
+        assert dct._templated(bh, bw, 3) and not dct._templated_k6(bh, bw, 3)
+
+
+@pytest.mark.parametrize("block_h,block_w", [(2, 2), (2, 4), (4, 2), (2, 8),
+                                             (8, 2), (2, 16), (16, 2)])
+def test_side_2_width_excess_takes_the_general_k6(meta_launches, block_h,
+                                                  block_w):
+    # a width-excess decode (1376 padded columns to 1366) at a side of 2
+    # launches the general K6, while the width-aligned decode of the same
+    # blocks takes their templated K1
+    n = 3 * block_h * block_w
+    coeffs = torch.zeros((2, 768 // block_h, 1376 // block_w, n), device="meta")
+    steps = torch.ones(coeffs.shape[:3], device="meta")
+    out = dct.idct_resize_display(coeffs, steps, 768, 1366, 3, block_h, block_w)
+    assert tuple(out.shape) == (2, 768, 1366 * 3)
+    dct.idct_display(coeffs, steps, 766, 3, block_h, block_w)
+    (k6, k6_args), (k1, _) = meta_launches
+    assert (k6, k1) == ("idct_resize_display_general",
+                        f"idct{block_h}x{block_w}_display")
+    assert len(k6_args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
+    assert k6_args[13:21] == (2, 768, 1366, 768 // block_h, 1376 // block_w,
+                              3, block_h, block_w)
 
 
 @pytest.mark.parametrize("general", [False, True])
@@ -312,16 +351,27 @@ K1_GEOMETRIES = [(1080, 1088, 1920), (1080, 1080, 1920), (2160, 2160, 3840),
                  (768, 768, 1376), (288, 288, 352)]
 
 
+def _k1_step_rows(block, block_w=None):
+    """The pixel rows of a walk step of K1's kernel for ``block`` x
+    ``block_w`` blocks: the block height, but a step of several block rows
+    (8 pixel rows) where a side of the templated kernel's block is 2."""
+    block_w = block if block_w is None else block_w
+    if (block, block_w) == (8, 8):
+        return 8
+    return block * dct._K1_SQ_GEOM[block, block_w][3]
+
+
 def _k1_tables(out_h, in_h, nbx, t, block=8, block_w=None):
     """K1's band tables for ``block`` x ``block_w`` blocks (``block_w``
     defaults to ``block``): the 8x8 kernel's, or the templated kernel's
-    strip (``block_w``) and CTAs per SM; block rows of ``block`` pixel
-    rows."""
+    strip (``block_w``) and CTAs per SM; rows in walk steps
+    (:func:`_k1_step_rows`)."""
     block_w = block if block_w is None else block_w
     if (block, block_w) == (8, 8):
         return dct._band_tables(out_h, in_h, nbx, t, SMS)
     return dct._band_tables(out_h, in_h, nbx, t, SMS,
-                            dct._K1_SQ_GEOM[block, block_w][2], block,
+                            dct._K1_SQ_GEOM[block, block_w][2],
+                            _k1_step_rows(block, block_w),
                             dct._K1_SQ_STRIP_PIXELS // block_w)
 
 
@@ -336,16 +386,18 @@ def _hw(block):
 
 
 def _walk(out_h, in_h, nbx, t, block=8, block_w=None):
-    """Replay the kernel's walk: per band, the block rows it transforms and
-    the output rows it emits after each, with the source rows the ring
-    holds at that moment (the current and the previous block row)."""
+    """Replay the kernel's walk: per band, the walk steps (block rows, or
+    several where a side is 2) it transforms and the output rows it emits
+    after each, with the source rows the ring holds at that moment (the
+    current and the previous step)."""
     y0, y1, fy, row_lo, band_b, band_rows = _k1_tables(out_h, in_h, nbx, t,
                                                        block, block_w)
+    step = _k1_step_rows(block, block_w)
     for band, (b_first, b_last) in enumerate(band_b):
         yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
         for b in range(b_first, b_last + 1):
-            ring = set(range(max(block * b_first, block * (b - 1)),
-                             block * b + block))
+            ring = set(range(max(step * b_first, step * (b - 1)),
+                             min(in_h, step * b + step)))
             rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
             yield band, b, rows, ring
 
@@ -472,24 +524,30 @@ K1_SQ_GEOMETRIES = [
     (4, 768, 768, 1376), (4, 2160, 2160, 3840), (4, 37, 40, 12),
     (16, 1080, 1088, 1920), (16, 1072, 1072, 1920), (16, 288, 288, 352),
     (16, 768, 768, 1376), (16, 2160, 2160, 3840), (16, 37, 48, 48),
-] + [(shape, *g) for shape in ("4x8", "8x4", "4x16", "16x4", "8x16", "16x8")
+] + [(shape, *g) for shape in ("4x8", "8x4", "4x16", "16x4", "8x16", "16x8",
+                                "2x2", "2x4", "4x2", "2x8", "8x2", "2x16",
+                                "16x2")
      for g in ((1080, 1088, 1920), (288, 288, 352), (766, 768, 1376))] + [
-    ("16x4", 37, 48, 12), ("4x16", 37, 40, 48)]
+    ("16x4", 37, 48, 12), ("4x16", 37, 40, 48),
+    # a side of 2: a last walk step of fewer block rows than the others
+    ("2x2", 37, 42, 12), ("4x2", 37, 44, 12), ("2x16", 35, 38, 48)]
 
 
 @pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
 def test_k1_sq_band_walk_reads_inside_its_window(block, out_h, in_h, pw):
-    # every y0 / y1 an output row reads is in the ring of the last 2 BH rows
-    # when the row is emitted, each row is emitted once by its own band,
-    # and a band walks its own block rows plus at most one halo block row
+    # every y0 / y1 an output row reads is in the ring of the last two
+    # walk steps (2 BH rows, or 16 where a side is 2) when the row is
+    # emitted, each row is emitted once by its own band, and a band walks
+    # its own steps plus at most one halo step
     bh, bw = _hw(block)
+    step = _k1_step_rows(bh, bw)
     nbx = pw // bw
     y0, y1, fy, row_lo, band_b, band_rows = _k1_tables(out_h, in_h, nbx, 8,
                                                        bh, bw)
     assert band_rows <= 128  # the kernel's kMaxBandRows
     emitted = np.zeros(out_h, np.int64)
     for band, b, rows, ring in _walk(out_h, in_h, nbx, 8, bh, bw):
-        assert 0 <= b < in_h // bh
+        assert 0 <= b < -(-in_h // step)
         for yo in rows:
             assert band * band_rows <= yo < (band + 1) * band_rows
             assert y0[yo] in ring
@@ -498,7 +556,7 @@ def test_k1_sq_band_walk_reads_inside_its_window(block, out_h, in_h, pw):
             emitted[yo] += 1
     assert (emitted == 1).all()
     walked = band_b[:, 1] - band_b[:, 0] + 1
-    assert walked.max() <= -(-band_rows // bh) + 2
+    assert walked.max() <= -(-band_rows // step) + 2
 
 
 @pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
@@ -526,9 +584,11 @@ def test_k1_sq_writes_every_output_byte_once(block, out_h, in_h, pw):
 
 
 SQ_BLOCKS = [4, 16, "4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
+# K2's and K1's templated kernels also take the blocks with a side of 2
+K12_BLOCKS = SQ_BLOCKS + [2, "2x4", "4x2", "2x8", "8x2", "2x16", "16x2"]
 
 
-@pytest.mark.parametrize("block", SQ_BLOCKS)
+@pytest.mark.parametrize("block", K12_BLOCKS)
 def test_k1_sq_grid_fills_the_card(block):
     # at T = 8 at 1080p: two waves at the CTAs per SM that the kernel's
     # shared memory allows; one CTA's shared memory fits (with the opt-in)
@@ -558,56 +618,67 @@ def _geom(path):
 
 
 def test_sq_host_geometry_matches_the_kernel_sources():
-    # the strips, paddings, CTAs per SM and shared memory that the
-    # wrappers plan with are those csrc/dct_wire_sq.cu and
+    # the strips, paddings, walk steps, CTAs per SM and shared memory that
+    # the wrappers plan with are those csrc/dct_wire_sq.cu and
     # csrc/idct_display_sq.cu are compiled with, at every (BH, BW) key
     geom, k, src = _geom("idct_display_sq.cu")
-    assert sorted(geom) == sorted(dct._SQ_SHAPES) == sorted(dct._K1_SQ_GEOM)
+    assert sorted(geom) == sorted(dct._K12_SHAPES) == sorted(dct._K1_SQ_GEOM)
     assert k["kStripPixels"] == dct._K1_SQ_STRIP_PIXELS
     assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
     ring_pitch = k["kStripPixels"] * 3 // 16 * 20 + 4
     for (bh, bw), g in geom.items():
         assert f"SVC_IDCT_SQ_ENTRY({bh}, {bw})" in src
-        assert (g["kCoefPitch"], g["kCoefGroup"], g["kMinCtas"]) == (
-            dct._K1_SQ_GEOM[bh, bw])
+        assert (g["kCoefPitch"], g["kCoefGroup"], g["kMinCtas"],
+                g["kStep"]) == dct._K1_SQ_GEOM[bh, bw]
+        # a step of one block row, or 8 pixel rows where a side is 2 (16
+        # at 16x2)
+        rows = bh * g["kStep"]
+        assert rows == (max(bh, 8) if 2 in (bh, bw) else bh)
         strip = k["kStripPixels"] // bw
         assert strip * 3 * bw == k["kThreads"]
-        assert g["kCoefGroup"] >= bh * g["kCoefPitch"]
-        # 16-byte rows: cp.async chunks and the row stage's float4 loads
-        assert g["kCoefPitch"] % 4 == 0 and g["kCoefGroup"] % 4 == 0
+        assert g["kCoefGroup"] >= rows * g["kCoefPitch"]
+        # 16-byte rows: cp.async chunks and the row stage's float4 loads;
+        # at BW = 2 a chunk is two rows, so the rows are contiguous
+        assert g["kCoefPitch"] % 4 == 0 or g["kCoefPitch"] == bw == 2
+        assert g["kCoefGroup"] % 4 == 0
         smem = dct._k1_sq_smem_bytes(bh, bw)
         assert smem == 4 * (
-            2 * strip * 3 * g["kCoefGroup"] + 2 * bh * ring_pitch + 2 * strip
-            + 3 * k["kMaxBandRows"])
+            2 * strip * 3 * g["kCoefGroup"] + 2 * rows * ring_pitch
+            + 2 * g["kStep"] * strip + 3 * k["kMaxBandRows"])
         assert g["kMinCtas"] * (smem + 1024) <= SM_SMEM_BYTES
     geom, k, src = _geom("dct_wire_sq.cu")
-    assert sorted(geom) == sorted(dct._SQ_SHAPES) == sorted(dct._K2_SQ_GEOM)
+    assert sorted(geom) == sorted(dct._K12_SHAPES) == sorted(dct._K2_SQ_GEOM)
     assert k["kStripPixels"] == dct._K2_SQ_STRIP_PIXELS
     for (bh, bw), g in geom.items():
         assert f"SVC_DCT_SQ_ENTRY({bh}, {bw})" in src
-        assert (g["kAPitch"], g["kAGroup"]) == dct._K2_SQ_GEOM[bh, bw]
+        assert (g["kAPitch"], g["kAGroup"], g["kStep"]) == dct._K2_SQ_GEOM[bh, bw]
+        # a CTA takes the block rows of K1's walk step
+        assert g["kStep"] == dct._K1_SQ_GEOM[bh, bw][3]
+        rows = bh * g["kStep"]
         groups = k["kStripPixels"] // bw * 3
         assert groups * bw == k["kThreads"]
-        assert g["kAGroup"] >= bh * g["kAPitch"]
+        assert g["kAGroup"] >= rows * g["kAPitch"]
         assert dct._k2_sq_smem_bytes(bh, bw) == (
-            groups * g["kAGroup"] * 8 + bh * k["kStripPixels"] * 3)
+            groups * g["kAGroup"] * 8 + rows * k["kStripPixels"] * 3)
         # with the opt-in, the CTAs per SM the launch bounds ask for fit
         assert g["kMinCtas"] * (dct._k2_sq_smem_bytes(bh, bw) + 1024) <= SM_SMEM_BYTES
 
 
-def _row_stage(bh, bw, lanes):
+def _row_stage(bh, bw, lanes, rows=None):
     """Per step s of a templated kernel's row stage (K2's stage 2, K1's
     rows), the pair, row and first column each lane of ``lanes`` (a
-    CTA's threads) transforms: at BH >= BW rows q + s * BW of pair g
-    (lane = g * BW + q), all columns; at BH < BW, the threads in BW / BH
-    parts, lane u of part p columns [p * BH, p * BH + BH) of row u % BH of
-    pair u // BH."""
-    if bh >= bw:
+    CTA's threads) transforms, over a pair's ``rows`` rows (``bh``; a
+    CTA's or a walk step's pixel rows where a side is 2): at rows >= BW
+    rows q + s * BW of pair g (lane = g * BW + q), all columns; at rows <
+    BW, the threads in BW / rows parts, lane u of part p columns [p *
+    rows, p * rows + rows) of row u % rows of pair u // rows."""
+    rows = bh if rows is None else rows
+    if rows >= bw:
         g, q = lanes // bw, lanes % bw
-        return [(g, q + s * bw, 0 * lanes) for s in range(bh // bw)]
-    part = len(lanes) // (bw // bh)
+        return [(g, q + s * bw, 0 * lanes) for s in range(rows // bw)]
+    part = len(lanes) // (bw // rows)
     p, u = lanes // part, lanes % part
-    return [(u // bh, u % bh, p * bh)]
+    return [(u // rows, u % rows, p * rows)]
 
 
 def _worst_conflict(addr, phase, banks):
@@ -624,51 +695,62 @@ def _worst_conflict(addr, phase, banks):
 # the layouts with a conflict: K1 at 16x4 trades one for occupancy, 2-way
 # on its row stage's float4 loads (3 CTAs an SM instead of 2); at 4x8 no
 # padding frees both stages, and the row stage's loads (K2's stage 2, K1's
-# float4 loads) keep a 2-way conflict
+# float4 loads) keep a 2-way conflict; at BW = 2 K1's 16-byte chunks span
+# two rows, so its pair stride is a multiple of 4 and the column stage's
+# 16 pairs a warp fall on 8 bank offsets, 2-way
 K1_ROW_CONFLICTS = {(16, 4): 2, (4, 8): 2}
+K1_COLUMN_CONFLICTS = {(2, 2): 2, (4, 2): 2, (8, 2): 2, (16, 2): 2}
 K2_ROW_CONFLICTS = {(4, 8): 2}
 
 
-@pytest.mark.parametrize("block", SQ_BLOCKS)
+@pytest.mark.parametrize("block", K12_BLOCKS)
 def test_sq_layouts_avoid_bank_conflicts(block):
     # shared memory has 32 banks of 4 bytes; a warp's 8-byte accesses go in
     # half-warps, its 16-byte ones in quarter-warps, and a phase is free of
-    # conflicts when its distinct addresses fall on distinct banks
+    # conflicts when its distinct addresses fall on distinct banks; a CTA's
+    # (K2) or a walk step's (K1) block rows stand as the rows of one block
+    # of their pixel rows
     bh, bw = _hw(block)
     lanes = np.arange(384)
     group, r = lanes // bw, lanes % bw
-    a_pitch, a_group = dct._K2_SQ_GEOM[bh, bw]
-    for fixed in range(bh):  # K2, doubles: stage 1 stores
+    a_pitch, a_group, step = dct._K2_SQ_GEOM[bh, bw]
+    for fixed in range(bh * step):  # K2, doubles: stage 1 stores
         addr = group * a_group + fixed * a_pitch + r
         assert _worst_conflict(addr, 16, 16) == 1
-    for pair, row, _ in _row_stage(bh, bw, lanes):  # stage 2 loads
+    for pair, row, _ in _row_stage(bh, bw, lanes, bh * step):  # stage 2
         for j in range(bw):
             addr = pair * a_group + row * a_pitch + j
             assert _worst_conflict(addr, 16, 16) == K2_ROW_CONFLICTS.get((bh, bw), 1)
     lanes = np.arange(192)
     group, r = lanes // bw, lanes % bw
-    pitch, c_group, _ = dct._K1_SQ_GEOM[bh, bw]
-    for fixed in range(bh):  # K1, floats: the column stage
+    pitch, c_group, _, step = dct._K1_SQ_GEOM[bh, bw]
+    for fixed in range(bh * step):  # K1, floats: the column stage
         addr = group * c_group + fixed * pitch + r
-        assert _worst_conflict(addr, 32, 32) == 1
-    for pair, row, _ in _row_stage(bh, bw, lanes):  # K1: row stage float4s
-        for q in range(bw // 4):
+        assert _worst_conflict(addr, 32, 32) == K1_COLUMN_CONFLICTS.get((bh, bw), 1)
+    for pair, row, _ in _row_stage(bh, bw, lanes, bh * step):  # K1: rows
+        if bw == 2:  # float2s, in half-warps
+            addr = (pair * c_group + row * pitch) // 2
+            assert _worst_conflict(addr, 16, 16) == 1
+        for q in range(bw // 4):  # float4s
             addr = (pair * c_group + row * pitch + 4 * q) // 4
             assert _worst_conflict(addr, 8, 8) == K1_ROW_CONFLICTS.get((bh, bw), 1)
 
 
-@pytest.mark.parametrize("block", SQ_BLOCKS)
+@pytest.mark.parametrize("block", K12_BLOCKS)
 def test_sq_row_stage_covers_every_coefficient_once(block):
     # K2's stage 2 (384 threads) and K1's row stage (192): the threads'
-    # BH outputs each cover every (pair, row, column) of the strip once;
-    # at BH < BW a part is whole warps (K2; K1 but at 4x16, where two
-    # warps hold two parts), so its columns are the same across a warp
+    # outputs each cover every (pair, row, column) of the strip's block
+    # rows (those of a CTA or a walk step) once; at fewer rows than BW a
+    # part is whole warps (K2; K1 but at 4x16, where two warps hold two
+    # parts), so its columns are the same across a warp
     bh, bw = _hw(block)
-    for threads in (384, 192):
+    for threads, step in ((384, dct._K2_SQ_GEOM[bh, bw][2]),
+                          (192, dct._K1_SQ_GEOM[bh, bw][3])):
         lanes = np.arange(threads)
-        hits = np.zeros((threads // bw, bh, bw), np.int64)
-        for pair, row, col0 in _row_stage(bh, bw, lanes):
-            for m in range(min(bh, bw)):
+        rows = bh * step
+        hits = np.zeros((threads // bw, rows, bw), np.int64)
+        for pair, row, col0 in _row_stage(bh, bw, lanes, rows):
+            for m in range(min(rows, bw)):
                 np.add.at(hits, (pair, row, col0 + m), 1)
             warps = col0.reshape(-1, 32)
             uniform = (warps == warps[:, :1]).all(axis=1)
@@ -684,7 +766,10 @@ def test_sq_row_stage_covers_every_coefficient_once(block):
     (16, 120, 128, 5, 2), (16, 112, 112, 4, 1), (16, 37, 48, 3, 1),
     ("4x8", 120, 128, 10, 2), ("8x4", 120, 128, 20, 1),
     ("4x16", 37, 40, 3, 1), ("16x4", 120, 128, 20, 2),
-    ("8x16", 112, 112, 5, 1), ("16x8", 37, 48, 9, 1)])
+    ("8x16", 112, 112, 5, 1), ("16x8", 37, 48, 9, 1),
+    (2, 120, 128, 40, 2), (2, 37, 42, 9, 1), ("2x4", 120, 128, 20, 1),
+    ("4x2", 37, 44, 41, 1), ("2x8", 112, 112, 10, 1), ("8x2", 120, 128, 40, 2),
+    ("2x16", 35, 38, 3, 1), ("16x2", 37, 48, 33, 1)])
 def test_k1_sq_band_walk_reproduces_plain_bytes(block, out_h, in_h, nbx, t):
     # the templated kernel's walk, replayed on the plain version's planes
     # with the kernel's per-element blend, gives the plain bytes

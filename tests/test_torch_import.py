@@ -155,7 +155,14 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "idct4x8_resize_display", "idct8x4_resize_display",
         "idct4x16_resize_display", "idct16x4_resize_display",
         "idct8x16_resize_display", "idct16x8_resize_display",
+        # K2 and K1 at 2x2 and the rectangles with a side of 2
+        "dct2x2_to_wire", "dct2x4_to_wire", "dct4x2_to_wire",
+        "dct2x8_to_wire", "dct8x2_to_wire", "dct2x16_to_wire",
+        "dct16x2_to_wire", "idct2x2_display", "idct2x4_display",
+        "idct4x2_display", "idct2x8_display", "idct8x2_display",
+        "idct2x16_display", "idct16x2_display",
     }
+    assert len(ks) == 61
     # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
     # while_loop and jax.random's threefry (its k-means++ seeding draw)
     no_pallas = {"ccl_converge": "jax.lax.while_loop(",

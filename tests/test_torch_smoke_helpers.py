@@ -146,7 +146,7 @@ def test_variant_docstring_edits_apply_once():
     # the edits the tool's docstring gives as examples each occur exactly
     # once in the checkout's sources, so they run as written
     for path, old in (("pyr_down_levels.cuh", "__launch_bounds__(kLvThreads, 6)"),
-                      ("idct_display_sq.cu", "kCoefGroup = 336, kMinCtas = 3;"),
+                      ("idct_display_sq.cu", "kCoefGroup = 336, kMinCtas = 3,"),
                       ("idct_resize_sq.cu", "kCoefGroup = 36, kHaloColumns = 4"),
                       ("ccl_converge.cu", "kCluster = 8;")):
         assert old in variant_timing.__doc__
