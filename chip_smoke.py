@@ -17,7 +17,7 @@ each:
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the sixty-one kernels against its plain
+3. kernel parity — each of the seventy-nine kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -44,17 +44,17 @@ each:
    byte-equal to the general K6 at 1366x768, 1270x714 and 854x480, T =
    8, and on a ragged shape (1312 padded pixels: block columns ending
    mid-strip), timed in turns with it at 1366x768 and 854x480; the
-   general K2, K1 and K6 at the blocks no templated kernel takes, timed
-   with their bounds (K2 and K1 at 1080p at the nine blocks with a side
-   of 1, K2 in turns with its (bh*bw)-filter stride-(bh, bw)
-   convolution; K6 at 1366x768 at those and at the seven with a side of
-   2); the templated K2 and K1 (the same eight shapes, and 2x2 and the
-   six rectangles with a side of 2) at 1080p,
+   general K6 at the blocks no templated K6 takes, timed with its bound
+   at 1366x768 (the nine blocks with a side of 1 and the seven with a
+   side of 2); the templated K2 and K1 (the same eight shapes, 2x2 and
+   the six rectangles with a side of 2, 1x1 and the eight with a side of
+   1) at 1080p,
    T = 8, bit-equal (K2) or byte-equal (K1) to the general kernels there
    and on a ragged shape (1366-pixel packed rows, 2-byte aligned; block
-   columns ending mid-strip), K1 also with identity rows (at 2x2 held to
-   its plain version off the exact ties, ``tools/display_ties.py``),
-   each timed in turns with the general kernel at its shape, K2 also in
+   columns ending mid-strip), K1 also with identity rows (at 2x2 and 1x1
+   held to its plain version off the exact ties,
+   ``tools/display_ties.py``), each timed in turns with the general
+   kernel at its shape (the general K2 / K1 timings there), K2 also in
    turns with its (bh*bw)-filter stride-(bh, bw) convolution; K10 (the
    CCL on the
    device: the 8-CTA cluster kernel and the
@@ -101,14 +101,14 @@ each:
    its 16x16 MV blocks run the specialised K3 and the cluster K5, the
    fused K4 and the 2x2 K9 (no general K3, K5, K9, K10, single-level K4);
    then 9-frame clips on graph replays at 16x16, 8x16 (8 rows, 16
-   columns) and 2x2 transform blocks at 1080p, and at 4x8, 8x4, 4x16,
-   16x4, 16x8, 2x4, 4x2, 2x8, 8x2, 2x16 and 16x2 at CIF: each shape's own
-   K2 and K1 must run, no other K1, K2 or K6, and no general kernel; each
-   stream and its frames byte-equal to ``graph=False``; the first 3
-   frames encoded on the CPU port (header and MV fields equal,
-   coefficients within 2.5e-4, block types within 1%) and 2 payloads
-   decoded there (the display gate; at 2x2 within 1, and at the gate off
-   the exact ties);
+   columns), 2x2 and 1x1 transform blocks at 1080p, and at 4x8, 8x4,
+   4x16, 16x4, 16x8, 2x4, 4x2, 2x8, 8x2, 2x16, 16x2, 1x2, 2x1, 1x4, 4x1,
+   1x8, 8x1, 1x16 and 16x1 at CIF: each shape's own K2 and K1 must run,
+   no other K1, K2 or K6, and no general kernel; each stream and its
+   frames byte-equal to ``graph=False``; the first 3 frames encoded on
+   the CPU port (header and MV fields equal, coefficients within 2.5e-4,
+   block types within 1%) and 2 payloads decoded there (the display
+   gate; at 2x2 and 1x1 within 1, and at the gate off the exact ties);
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
@@ -183,6 +183,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BLOCK_TYPE_TOL = 0.01  # phase 8: share of blocks allowed to differ
+# transform blocks (rows, columns) whose decode puts many display bytes on
+# exact halves of the float64 decode (integer dequantized coefficients
+# through a 1- or 2-point transform): their decode gates hold the bytes
+# off those ties (tools/display_ties.py)
+TIE_SHAPES = ((2, 2), (1, 1))
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
 # HBM rate, or the operations over the float32 rate outside the tensor
@@ -1053,11 +1058,12 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
 
 def block_shape_parity(g, dev, results, shape, packed, planes):
     """Phase 3, K2 and K1 for ``shape`` = (rows, columns) transform blocks
-    of 3 channels on their templated kernels (2x2, 4x4, 16x16, the six
-    rectangles of sides 4, 8 and 16 and the six with a side of 2): the
-    templated kernel against the general one (bit-equal K2, byte-equal K1)
-    and the plain version (within the gates; K1 at 2x2 within 1 and, on
-    the first frame, at the gate off the exact ties) at 1080p, T = 8, and
+    of 3 channels on their templated kernels (1x1, 2x2, 4x4, 16x16, the
+    six rectangles of sides 4, 8 and 16, the six with a side of 2 and the
+    eight with a side of 1): the templated kernel against the general one
+    (bit-equal K2, byte-equal K1) and the plain version (within the gates;
+    K1 at 2x2 and 1x1 within 1 and, on the first frame, at the gate off
+    the exact ties) at 1080p, T = 8, and
     on a ragged shape; each timed in turns with the general kernel, K2
     also with its one-call yardstick. ``packed`` holds 9 packed 1080p
     frames, ``planes`` their last 8 as 24 zero-padded 1088x1920 float32
@@ -1162,10 +1168,11 @@ def block_shape_parity(g, dev, results, shape, packed, planes):
             coeffs, steps, out_h, 3, bh, bw).to(torch.int16)).abs()
         frac = (diff > 0).double().mean().item()
         tie_note = ""
-        if shape == (2, 2):
-            # 2x2 blocks put ~17% of the bytes on exact halves of the
-            # float64 decode, which float32 summing order rounds either
-            # way: the gate holds the first frame's other bytes
+        if shape in TIE_SHAPES:
+            # 2x2 and 1x1 blocks put ~17% and a few % of the bytes on
+            # exact halves of the float64 decode, which float32 summing
+            # order rounds either way: the gate holds the first frame's
+            # other bytes
             ties = display_ties.tie_mask(display_ties.exact_display(
                 coeffs[:1], steps[:1], out_h, 3, bh, bw)).reshape(-1)
             frac = (diff[0].reshape(-1).cpu().numpy()[~ties] > 0).mean()
@@ -1282,116 +1289,68 @@ def shape_resize_parity(g, dev, results, shape):
     print(f"parity K6 {k6.name}: {'; '.join(modes)}; 1366x768 {line}")
 
 
-# the transform blocks of 3 channels that still run the general kernels: a
-# side of 1 (the other side in {1, 2, 4, 8, 16}) on K2, K1 and K6, and a
-# side of 2 (the other side in {2, 4, 8, 16}) on K6 (rows x columns)
+# the transform blocks of 3 channels that still run the general K6: a
+# side of 1 (the other side in {1, 2, 4, 8, 16}) and a side of 2 (the
+# other side in {2, 4, 8, 16}) (rows x columns); K2 and K1 take them on
+# their templated kernels, and block_shape_parity times the general K2 /
+# K1 there in turns with them
 SIDE_1_SHAPES = ((1, 1), (1, 2), (2, 1), (1, 4), (4, 1), (1, 8), (8, 1),
                  (1, 16), (16, 1))
 SIDE_2_SHAPES = ((2, 2), (2, 4), (4, 2), (2, 8), (8, 2), (2, 16), (16, 2))
 
 
 def general_timings(g, dev):
-    """Phase 3, the general K2, K1 and K6 at the transform blocks of 3
-    channels no templated kernel takes, T = 8, each timed by CUDA graph
-    replay with its bound: K2 on 8 packed 1080p frames, in turns with the
-    (bh*bw)-filter stride-(bh, bw) convolution of their zero-padded
-    float32 planes, and K1 from 1088 padded rows to 1080, at the nine
-    blocks with a side of 1; K6 from 1376x768 to 1366x768 at those and at
-    the seven with a side of 2. Each is held to its plain version: K2
-    within 2.5e-4; K1 and K6 within 1, and on the first frame at the
-    display gate off the bytes that are exact ties of the float64 decode
-    (2x2 blocks put about a sixth of the display bytes on a half,
-    ``tools/display_ties.py``)."""
+    """Phase 3, the general K6 at the transform blocks of 3 channels no
+    templated K6 takes (the nine with a side of 1 and the seven with a
+    side of 2), from 1376x768 to 1366x768, T = 8, each timed by CUDA graph
+    replay with its bound and held to its plain version: within 1, and on
+    the first frame at the display gate off the bytes that are exact ties
+    of the float64 decode (``tools/display_ties.py``)."""
     from svc_tpu_torch.ops import dct, quant
     from svc_tpu_torch.tools import display_ties
 
     lines = []
-    packed = torch.randint(0, 256, (9, 1080, 5760), generator=g,
-                           dtype=torch.uint8).to(dev)
-    planes = torch.nn.functional.pad(
-        packed[1:].reshape(8, 1080, 1920, 3).permute(0, 3, 1, 2).float(),
-        (0, 0, 0, 8)).reshape(24, 1, 1088, 1920)
-    for bh, bw in SIDE_1_SHAPES:
+    w, h, pw, ph = 1366, 768, 1376, 768
+    for bh, bw in SIDE_1_SHAPES + SIDE_2_SHAPES:
+        nby, nbx = ph // bh, pw // bw
+        coeffs = (torch.randn((8, nby, nbx, 3 * bh * bw), generator=g)
+                  * 90).to(dev)
+        btypes = torch.randint(0, 3, (8, nby, nbx), generator=g).to(dev)
+        gazed = torch.zeros((8, nby, nbx), dtype=torch.bool, device=dev)
+        gazed[:, nby // 2 - 64 // bh:nby // 2 + 64 // bh,
+              nbx // 2 - 64 // bw:nbx // 2 + 64 // bw] = True
+        steps = quant.block_quant_steps(btypes, gazed, 1, 640)
+
         def call():
-            return dct.dct8x8_to_wire(packed, 1, 8, 1088, 1920, bh, bw)
+            return dct.idct_resize_display(coeffs, steps, h, w, 3, bh, bw)
+
+        ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, bh, bw)
+        exact = display_ties.exact_display(coeffs[:1], steps[:1], h, 3, bh,
+                                           bw, out_w=w)
+        before = dct.IDCT_RESIZE_GENERAL.launches
         got = call()
-        err = (got - dct.dct8x8_to_wire_plain(packed, 1, 8, 1088, 1920, bh, bw)
-               ).abs().max().item()
-        if not err <= 2.5e-4:
-            fail(f"K2 general at {bh}x{bw}: max |err| {err} > 2.5e-4")
-        ch = torch.tensor(dct.dct_matrix(bh), device=dev)
-        cw = torch.tensor(dct.dct_matrix(bw), device=dev)
-        basis = (ch[:, None, :, None] * cw[None, :, None, :]).reshape(
-            bh * bw, 1, bh, bw)
-        lib_ms, ms, turns = in_turns(
-            lambda: torch.nn.functional.conv2d(planes, basis, stride=(bh, bw)),
-            call, graph_ms)
-        # each packed byte read once, each coefficient written once; 2 (bh +
-        # bw) float64 operations a coefficient
-        nbytes, ops = 8 * 1080 * 5760 + got.numel() * 4, 2 * (bh + bw) * got.numel()
-        b_ms, b_by = bound(nbytes, ops, FP64_OPS_PER_S)
-        lines.append(f"K2 {bh}x{bw} 1080p: {ms:.4f} ms, one conv {lib_ms:.4f} "
-                     f"ms ({lib_ms / ms:.2f}x the kernel; in turns conv, "
-                     f"kernel, kernel, conv: "
-                     f"{', '.join(f'{x:.4f}' for x in turns)}), bound "
-                     f"{b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x; max |err| "
-                     f"{err:.3e}")
-    for kname, shapes, w, h, pw, ph in (
-            ("K1", SIDE_1_SHAPES, 1920, 1080, 1920, 1088),
-            ("K6", SIDE_1_SHAPES + SIDE_2_SHAPES, 1366, 768, 1376, 768)):
-        for bh, bw in shapes:
-            nby, nbx = ph // bh, pw // bw
-            coeffs = (torch.randn((8, nby, nbx, 3 * bh * bw), generator=g)
-                      * 90).to(dev)
-            btypes = torch.randint(0, 3, (8, nby, nbx), generator=g).to(dev)
-            gazed = torch.zeros((8, nby, nbx), dtype=torch.bool, device=dev)
-            gazed[:, nby // 2 - 64 // bh:nby // 2 + 64 // bh,
-                  nbx // 2 - 64 // bw:nbx // 2 + 64 // bw] = True
-            steps = quant.block_quant_steps(btypes, gazed, 1, 640)
-            if kname == "K1":
-                def call():
-                    return dct.idct_display(coeffs, steps, h, 3, bh, bw)
-                ref = dct.idct_display_plain(coeffs, steps, h, 3, bh, bw)
-                exact = display_ties.exact_display(coeffs[:1], steps[:1], h, 3,
-                                                   bh, bw)
-                ops_per_byte = 3
-            else:
-                def call():
-                    return dct.idct_resize_display(coeffs, steps, h, w, 3, bh,
-                                                   bw)
-                ref = dct.idct_resize_display_plain(coeffs, steps, h, w, 3, bh,
-                                                    bw)
-                exact = display_ties.exact_display(coeffs[:1], steps[:1], h, 3,
-                                                   bh, bw, out_w=w)
-                ops_per_byte = 6
-            before = (dct.IDCT_DISPLAY_GENERAL.launches,
-                      dct.IDCT_RESIZE_GENERAL.launches)
-            got = call()
-            after = (dct.IDCT_DISPLAY_GENERAL.launches,
-                     dct.IDCT_RESIZE_GENERAL.launches)
-            if sum(after) != sum(before) + 1:
-                fail(f"{kname} at {bh}x{bw} did not launch the general kernel")
-            d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
-            ties = display_ties.tie_mask(exact).reshape(-1)
-            off = (d[0].reshape(-1).cpu().numpy()[~ties] > 0).mean()
-            if d.max().item() > 1 or not off < 1e-3:
-                fail(f"{kname} general at {bh}x{bw}, {w}x{h}: max diff "
-                     f"{d.max().item()}, {off:.2e} of frame 0's bytes differ "
-                     f"off the exact ties")
-            ms = graph_ms(call)
-            # dequantize (3 per coefficient), IDCT (bh + bw multiply-adds
-            # a coefficient), the lerps per output byte
-            nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
-            ops = (3 * coeffs.numel() + 2 * (bh + bw) * coeffs.numel()
-                   + ops_per_byte * got.numel())
-            b_ms, b_by = bound(nbytes, ops)
-            lines.append(f"{kname} {bh}x{bw} {pw}x{ph}->{w}x{h}: {ms:.4f} ms, "
-                         f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x; "
-                         f"{(d > 0).double().mean().item():.2e} of bytes "
-                         f"differ from plain, {off:.2e} of frame 0's off "
-                         f"its exact ties ({ties.mean():.2%} of its bytes)")
-    print("the general kernels at the blocks no templated kernel takes "
-          "(T=8):")
+        if dct.IDCT_RESIZE_GENERAL.launches != before + 1:
+            fail(f"K6 at {bh}x{bw} did not launch the general kernel")
+        d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+        ties = display_ties.tie_mask(exact).reshape(-1)
+        off = (d[0].reshape(-1).cpu().numpy()[~ties] > 0).mean()
+        if d.max().item() > 1 or not off < 1e-3:
+            fail(f"K6 general at {bh}x{bw}, {w}x{h}: max diff "
+                 f"{d.max().item()}, {off:.2e} of frame 0's bytes differ "
+                 f"off the exact ties")
+        ms = graph_ms(call)
+        # dequantize (3 per coefficient), IDCT (bh + bw multiply-adds a
+        # coefficient), two lerps (3 each) per output byte
+        nbytes = coeffs.numel() * 4 + steps.numel() * 4 + got.numel()
+        ops = (3 * coeffs.numel() + 2 * (bh + bw) * coeffs.numel()
+               + 6 * got.numel())
+        b_ms, b_by = bound(nbytes, ops)
+        lines.append(f"K6 {bh}x{bw} {pw}x{ph}->{w}x{h}: {ms:.4f} ms, bound "
+                     f"{b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x; "
+                     f"{(d > 0).double().mean().item():.2e} of bytes differ "
+                     f"from plain, {off:.2e} of frame 0's off its exact ties "
+                     f"({ties.mean():.2%} of its bytes)")
+    print("the general K6 at the blocks no templated K6 takes (T=8):")
     for line in lines:
         print(f"  {line}")
 
@@ -1597,9 +1556,9 @@ def block_shape_round_trip(shape, w, h, required, forbidden):
     ``graph=False``, byte for byte; then the first 3 frames encoded on the
     CPU port (header and MV fields equal, coefficients within 2.5e-4,
     block types within ``BLOCK_TYPE_TOL``) and the first 2 payloads
-    decoded there (the display gate; at 2x2 blocks, where about a sixth of
-    the bytes are exact ties of the float64 decode, within 1 and at the
-    gate off the ties)."""
+    decoded there (the display gate; at 2x2 and 1x1 blocks, where about a
+    sixth and a few % of the bytes are exact ties of the float64 decode,
+    within 1 and at the gate off the ties)."""
     from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
     from svc_tpu_torch.models.decoder import Decoder
     from svc_tpu_torch.models.encoder import Encoder, stream_encode
@@ -1638,7 +1597,7 @@ def block_shape_round_trip(shape, w, h, required, forbidden):
     cpu_dec = Decoder(DecoderConfig(), run["header"], batch_size=2, device="cpu")
     ref = np.stack(list(cpu_dec.decode_frames(iter(payloads[:2]), iter([gaze] * 2))))
     ties = None
-    if shape == (2, 2):
+    if shape in TIE_SHAPES:
         from svc_tpu_torch.tools import display_ties
 
         coeffs, steps = display_ties.decode_inputs(run["header"], payloads[:2],
@@ -2477,8 +2436,9 @@ def main() -> int:
     # frame size here takes K5's cluster kernel
     general_dct = ("dct_to_wire_general", "idct_display_general")
     # the other blocks of 3 channels with both sides in {4, 8, 16}, or a
-    # side of 2 and the other in {2, 4, 8, 16}, take their templated K2 /
-    # K1 (4x4, 16x16, the six rectangles; 2x2 and six more)
+    # side of 2 or 1 and the other in {1, 2, 4, 8, 16}, take their
+    # templated K2 / K1 (4x4, 16x16, the six rectangles; 2x2 and six
+    # more; 1x1 and eight more)
     square_dct = {shape: (dct.DCT_WIRE_SQ[shape].name,
                           dct.IDCT_DISPLAY_SQ[shape].name)
                   for shape in dct.DCT_WIRE_SQ}
@@ -2554,6 +2514,7 @@ def main() -> int:
     # whose sides divide the MV block's): 4x4 at CIF, then 16x16 and 8x16
     # (8 rows, 16 columns) at 1080p, then the other five rectangles at CIF,
     # then 2x2 at 1080p and the six rectangles with a side of 2 at CIF,
+    # then 1x1 at 1080p and the eight rectangles with a side of 1 at CIF,
     # each on its templated K2 and K1 and on no other K1 or K2
     print("4x4 transform blocks, CIF 352x288, 9 frames, default config:")
     tb4 = round_trip(EncoderConfig(transform_block_w=4, transform_block_h=4),
@@ -2568,7 +2529,12 @@ def main() -> int:
                           ((16, 8), (352, 288)), ((2, 2), (1920, 1080)),
                           ((2, 4), (352, 288)), ((4, 2), (352, 288)),
                           ((2, 8), (352, 288)), ((8, 2), (352, 288)),
-                          ((2, 16), (352, 288)), ((16, 2), (352, 288))):
+                          ((2, 16), (352, 288)), ((16, 2), (352, 288)),
+                          ((1, 1), (1920, 1080)), ((1, 2), (352, 288)),
+                          ((2, 1), (352, 288)), ((1, 4), (352, 288)),
+                          ((4, 1), (352, 288)), ((1, 8), (352, 288)),
+                          ((8, 1), (352, 288)), ((1, 16), (352, 288)),
+                          ((16, 1), (352, 288))):
         print(f"{shape[0]}x{shape[1]} transform blocks (rows x columns), "
               f"{w}x{h}, 9 frames, default config:")
         # the 1080p runs take every encode kernel; CIF at least K3 and K5

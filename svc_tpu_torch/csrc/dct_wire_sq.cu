@@ -1,11 +1,15 @@
-// K2 for transform blocks of BH rows and BW columns, BH and BW in {2, 4,
-// 8, 16}, all but 8x8 (dct{BH}x{BW}_to_wire): forward BH x BW DCT of
+// K2 for transform blocks of BH rows and BW columns, BH and BW in {1, 2,
+// 4, 8, 16}, all but 8x8 (dct{BH}x{BW}_to_wire): forward BH x BW DCT of
 // packed 3-channel frames into the bitstream's wire layout, one kernel
-// template instantiated at the squares 2x2, 4x4 and 16x16, at the six
-// rectangles of sides 4, 8 and 16 and at the six with a side of 2 (2x4,
-// 4x2, 2x8, 8x2, 2x16, 16x2) — the transform blocks users pick beside
-// the default 8x8 (finer detail, one transform block per 16x16 MV block,
-// or sides set apart with --transform-block-h / --transform-block-w).
+// template instantiated at the squares 1x1, 2x2, 4x4 and 16x16, at the
+// six rectangles of sides 4, 8 and 16, at the six with a side of 2 (2x4,
+// 4x2, 2x8, 8x2, 2x16, 16x2) and at the eight with a side of 1 (1x2, 2x1,
+// 1x4, 4x1, 1x8, 8x1, 1x16, 16x1) — the transform blocks users pick
+// beside the default 8x8 (finer detail, one transform block per 16x16 MV
+// block, or sides set apart with --transform-block-h /
+// --transform-block-w). Along a side of 1 the transform is a multiply-add
+// by dct_matrix(1) = [[1]], kept so that the bits stay the general
+// kernel's.
 //
 // Replaces svc_tpu/ops/dct_pallas.py dct2_planes_to_wire_pallas (:282,
 // pallas_call :334) at those shapes. Same contract as the general kernel
@@ -29,11 +33,13 @@
 //    and per BH coefficients of a (block, channel) pair in stage 2 — one
 //    row at BH = BW, BH / BW whole rows (q, q + BW, ...) at BH > BW, a
 //    BH-wide part of a row at BH < BW —, so both stages keep all 384
-//    threads busy at every shape. Where a block has a side of 2, a CTA
-//    takes kStep block rows (8 pixel rows; 16 at 16x2), and stage 2 maps
-//    its threads over those rows as over the rows of one block (SqGeom's
-//    comment); its output goes through shared memory unless kStep * BH <
-//    BW. At BH < BW the part is the thread's
+//    threads busy at every shape. Where a block has a side of 1 or 2, a
+//    CTA takes kStep block rows (8 pixel rows; 16 at 16x2 and 16x1), and
+//    stage 2 maps its threads over those rows as over the rows of one
+//    block (SqGeom's comment); at a side of 2 its output goes through
+//    shared memory unless kStep * BH < BW, at a side of 1 a thread's
+//    coefficients of a block row are one piece of the run, stored in
+//    place. At BH < BW the part is the thread's
 //    warp's (threads [p * 384 / (BW / BH), ...) take columns [p * BH,
 //    p * BH + BH) of every row), and a switch on it makes the columns
 //    compile-time constants: the DCT matrix's entries stay immediate
@@ -100,6 +106,13 @@ constexpr int kRowBytes = kStripPixels * 3;  // packed bytes of a strip row
 //       an odd row stride: 3 and 26 (50 at 16x2, A's 16 rows).
 //  2x4, 2x8, 2x16 (S = 8): 8x4's layout, dct_wire.cu's (9, 72) and
 //       8x16's.
+// A side of 1 takes the same steps (S = 8 pixel rows; 16 at 16x1, one
+// block row):
+//  1x2, 1x4, 1x8, 1x16: 8x2's, 8x4's, dct_wire.cu's and 8x16's layouts.
+//  1x1, 2x1, 4x1, 8x1 (S = 8), 16x1 (S = 16): a thread per pair (384
+//       pairs a strip), its column's S doubles in both stages; row stride
+//       1 and an odd pair stride (9, 17) keep a half-warp's 16 pairs on
+//       distinct residues.
 template <int BH, int BW> struct SqGeom;
 template <> struct SqGeom<4, 4> { static constexpr int kAPitch = 5, kAGroup = 20, kMinCtas = 4, kStep = 1; };
 template <> struct SqGeom<16, 16> { static constexpr int kAPitch = 17, kAGroup = 272, kMinCtas = 3, kStep = 1; };
@@ -116,6 +129,15 @@ template <> struct SqGeom<2, 8> { static constexpr int kAPitch = 9, kAGroup = 72
 template <> struct SqGeom<8, 2> { static constexpr int kAPitch = 3, kAGroup = 26, kMinCtas = 4, kStep = 1; };
 template <> struct SqGeom<2, 16> { static constexpr int kAPitch = 17, kAGroup = 136, kMinCtas = 3, kStep = 4; };
 template <> struct SqGeom<16, 2> { static constexpr int kAPitch = 3, kAGroup = 50, kMinCtas = 2, kStep = 1; };
+template <> struct SqGeom<1, 1> { static constexpr int kAPitch = 1, kAGroup = 9, kMinCtas = 4, kStep = 8; };
+template <> struct SqGeom<1, 2> { static constexpr int kAPitch = 3, kAGroup = 26, kMinCtas = 4, kStep = 8; };
+template <> struct SqGeom<2, 1> { static constexpr int kAPitch = 1, kAGroup = 9, kMinCtas = 4, kStep = 4; };
+template <> struct SqGeom<1, 4> { static constexpr int kAPitch = 5, kAGroup = 44, kMinCtas = 4, kStep = 8; };
+template <> struct SqGeom<4, 1> { static constexpr int kAPitch = 1, kAGroup = 9, kMinCtas = 4, kStep = 2; };
+template <> struct SqGeom<1, 8> { static constexpr int kAPitch = 9, kAGroup = 72, kMinCtas = 4, kStep = 8; };
+template <> struct SqGeom<8, 1> { static constexpr int kAPitch = 1, kAGroup = 9, kMinCtas = 4, kStep = 1; };
+template <> struct SqGeom<1, 16> { static constexpr int kAPitch = 17, kAGroup = 136, kMinCtas = 3, kStep = 8; };
+template <> struct SqGeom<16, 1> { static constexpr int kAPitch = 1, kAGroup = 17, kMinCtas = 3, kStep = 1; };
 
 template <int BH, int BW>
 struct Sq {
@@ -178,7 +200,8 @@ __device__ __forceinline__ void wire_row(const double* arow_s,
   }
 }
 
-// N consecutive floats of z to dst: float4 stores, float2 at N = 2.
+// N consecutive floats of z to dst: float4 stores, a float2 at N = 2, a
+// float at N = 1.
 template <int N>
 __device__ __forceinline__ void store_n(float* dst, const float* z) {
   if constexpr (N % 4 == 0) {
@@ -187,9 +210,11 @@ __device__ __forceinline__ void store_n(float* dst, const float* z) {
       *reinterpret_cast<float4*>(dst + 4 * q) =
           make_float4(z[4 * q], z[4 * q + 1], z[4 * q + 2], z[4 * q + 3]);
     }
-  } else {
-    static_assert(N == 2, "rows of 2 or of a multiple of 4 floats");
+  } else if constexpr (N == 2) {
     *reinterpret_cast<float2*>(dst) = make_float2(z[0], z[1]);
+  } else {
+    static_assert(N == 1, "1, 2 or a multiple of 4 floats");
+    *dst = z[0];
   }
 }
 
@@ -318,6 +343,19 @@ dct_sq_wire_kernel(const uint8_t* __restrict__ packed, const DctD<BH, BW> d,
     if constexpr (BH == BW && kStep == 1) {
       // row r of pair g is floats [threadIdx.x * B, + B) of the run
       if (blk < nblk) store_n<BH>(os + threadIdx.x * BH, z);
+    } else if constexpr (BH == 1 || BW == 1) {
+      // a side of 1: pair g's coefficients of a block row are kN
+      // consecutive floats of its run — at BH = 1 row r + s * BW (block
+      // row r + s * BW), at BW = 1 the column's BH (block row s) —, in
+      // place; a warp's pieces of one block row are contiguous
+      constexpr int kN = BW == 1 ? BH : BW;
+#pragma unroll
+      for (int s = 0; s < kS / kN; ++s) {
+        const int m = BW == 1 ? s : r + s * BW;
+        if (blk < nblk && (kStep == 1 || by + m < nby)) {
+          store_n<kN>(os + m * run_stride + g * (BH * BW), z + s * kN);
+        }
+      }
     } else {
       // rows r + s * BW are not contiguous: through shared memory (over
       // A, once every thread has read it), block row m's run at m * kRun,
@@ -403,3 +441,12 @@ SVC_DCT_SQ_ENTRY(2, 8)
 SVC_DCT_SQ_ENTRY(8, 2)
 SVC_DCT_SQ_ENTRY(2, 16)
 SVC_DCT_SQ_ENTRY(16, 2)
+SVC_DCT_SQ_ENTRY(1, 1)
+SVC_DCT_SQ_ENTRY(1, 2)
+SVC_DCT_SQ_ENTRY(2, 1)
+SVC_DCT_SQ_ENTRY(1, 4)
+SVC_DCT_SQ_ENTRY(4, 1)
+SVC_DCT_SQ_ENTRY(1, 8)
+SVC_DCT_SQ_ENTRY(8, 1)
+SVC_DCT_SQ_ENTRY(1, 16)
+SVC_DCT_SQ_ENTRY(16, 1)

@@ -1,10 +1,13 @@
-// K1 for transform blocks of BH rows and BW columns, BH and BW in {2, 4,
-// 8, 16}, all but 8x8 (idct{BH}x{BW}_display): the decoder's display hot
-// path — dequantize, inverse BH x BW DCT, bilinear row resample from the
-// padded height to the display height, round, clip, interleaved BGR bytes
-// — one kernel template instantiated at the squares 2x2, 4x4 and 16x16,
-// at the six rectangles of sides 4, 8 and 16 and at the six with a side
-// of 2, for 3 channels.
+// K1 for transform blocks of BH rows and BW columns, BH and BW in {1, 2,
+// 4, 8, 16}, all but 8x8 (idct{BH}x{BW}_display): the decoder's display
+// hot path — dequantize, inverse BH x BW DCT, bilinear row resample from
+// the padded height to the display height, round, clip, interleaved BGR
+// bytes — one kernel template instantiated at the squares 1x1, 2x2, 4x4
+// and 16x16, at the six rectangles of sides 4, 8 and 16, at the six with
+// a side of 2 and at the eight with a side of 1 (1x2, 2x1, 1x4, 4x1, 1x8,
+// 8x1, 1x16, 16x1), for 3 channels. Along a side of 1 the transform is a
+// multiply-add by dct_matrix(1) = [[1]], kept so that the bits stay the
+// general kernel's (fmaf(-0, 1, 0) is +0).
 //
 // Replaces svc_tpu/ops/dct_pallas.py idct_wire_to_pitched_pallas (:692,
 // pallas_call :807; its zero-excess mode is the identity rows here) and
@@ -16,18 +19,20 @@
 // so the two kernels' bytes are equal.
 //
 // Bound: memory — 4 bytes of coefficient read per display byte written
-// (250 MB per 8-frame 1080p batch, 0.075 ms at every shape; the
-// 2 * (BH + BW) float32 operations per pixel and channel take 0.048 ms at
-// 16x16). The design is idct_display.cu's, its CTA shape kept and every
-// constant a function of (BH, BW):
+// (250 MB per 8-frame 1080p batch, 0.075 ms at every shape) and 4 bytes
+// of step a block (67 MB at 1x1: 0.095 ms; the 2 * (BH + BW) float32
+// operations per pixel and channel take 0.048 ms at 16x16). The design is
+// idct_display.cu's, its CTA shape kept and every constant a function of
+// (BH, BW):
 //  - one CTA of 192 threads per (frame, strip of 64 pixels — 64 / BW block
 //    columns —, band of output rows). It walks down the band's source
 //    block rows (BH pixel rows each) one at a time; each is dequantized
 //    and transformed once, plus one halo block row per band. A ring of
 //    the last 2 BH pixel rows carries the previous block row, which the
 //    row lerp of an output row may still need (y1 <= y0 + 1). Where a
-//    block has a side of 2, a walk step takes kStep block rows (8 pixel
-//    rows; 16 at 16x2) and the ring 2 steps (SqGeom's comment);
+//    block has a side of 1 or 2, a walk step takes kStep block rows (8
+//    pixel rows; 16 at 16x2 and 16x1) and the ring 2 steps (SqGeom's
+//    comment);
 //  - the coefficients of the block row after next (one contiguous run of
 //    strip * 3 * BH * BW floats, 3 KB to 12 KB) and their steps arrive by
 //    cp.async into one of two shared-memory slots while the current block
@@ -38,12 +43,13 @@
 //    of pair g (thread (g, q)) at BH = BW, rows q, q + BW, ... at BH > BW,
 //    at BH < BW columns [p * BH, p * BH + BH) of row u % BH of pair u / BH
 //    (thread u of part p, the threads split in BW / BH parts) — from
-//    16-byte loads (8-byte at BW = 2) and stores them interleaved into
-//    the ring, so every thread works in both stages. A switch on the
-//    part makes its columns compile-time constants, so the DCT matrix's
-//    entries stay immediate operands from the constant bank (at 4x16 a
-//    part is 48 threads: two of the six warps take two parts in turn).
-//    The slot is padded per shape against bank conflicts;
+//    16-byte loads (8-byte at BW = 2; at BW = 1 its pair's S rows at
+//    once) and stores them interleaved into the ring, so every thread
+//    works in both stages. A switch on the part makes its columns
+//    compile-time constants, so the DCT matrix's entries stay immediate
+//    operands from the constant bank (at 4x16 a part is 48 threads: two
+//    of the six warps take two parts in turn). The slot is padded per
+//    shape against bank conflicts;
 //  - output: a thread blends one 16-byte run of an output row and stores
 //    it with one 16-byte store;
 //  - host tables carry the geometry (ops/dct.py _band_tables with a
@@ -102,6 +108,17 @@ constexpr int kMaxBandRows = 128;
 //       at 16x2, 4 mod 8) keeps the row stage's float2 loads free (a
 //       half-warp's 8 pairs x 2 rows) and leaves the column stage's
 //       4-byte accesses 2-way (16 pairs a warp on 8 bank offsets).
+// A side of 1 takes the same steps (S = 8 pixel rows; 16 at 16x1, one
+// block row). Its blocks are 1 to 16 floats, so fetch_side_1 copies a
+// step's runs in one pass, 4, 8 or 16 bytes a copy, each to its slot
+// place; the layouts:
+//  1x2, 1x4, 1x8, 1x16: 8x2's, 8x4's, idct_display.cu's, 8x16's.
+//  1x1, 2x1, 4x1, 8x1 (S = 8), 16x1 (S = 16): a thread per pair, whose
+//       S floats are one slot column (row stride 1) that both stages read
+//       and write at once (load_column): as float4s at a pair stride of
+//       an odd multiple of 4 (12, 20: a quarter-warp's 8 on distinct bank
+//       groups), at 1x1 as floats at an odd stride (9: a warp's 32 on
+//       distinct banks, and 5 CTAs an SM at 12).
 template <int BH, int BW> struct SqGeom;
 template <> struct SqGeom<4, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 36, kMinCtas = 6, kStep = 1; };
 template <> struct SqGeom<16, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 336, kMinCtas = 3, kStep = 1; };
@@ -118,6 +135,15 @@ template <> struct SqGeom<2, 8> { static constexpr int kCoefPitch = 12, kCoefGro
 template <> struct SqGeom<8, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 20, kMinCtas = 6, kStep = 1; };
 template <> struct SqGeom<2, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 176, kMinCtas = 6, kStep = 4; };
 template <> struct SqGeom<16, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 36, kMinCtas = 3, kStep = 1; };
+template <> struct SqGeom<1, 1> { static constexpr int kCoefPitch = 1, kCoefGroup = 9, kMinCtas = 6, kStep = 8; };
+template <> struct SqGeom<1, 2> { static constexpr int kCoefPitch = 2, kCoefGroup = 20, kMinCtas = 6, kStep = 8; };
+template <> struct SqGeom<2, 1> { static constexpr int kCoefPitch = 1, kCoefGroup = 12, kMinCtas = 6, kStep = 4; };
+template <> struct SqGeom<1, 4> { static constexpr int kCoefPitch = 8, kCoefGroup = 68, kMinCtas = 5, kStep = 8; };
+template <> struct SqGeom<4, 1> { static constexpr int kCoefPitch = 1, kCoefGroup = 12, kMinCtas = 6, kStep = 2; };
+template <> struct SqGeom<1, 8> { static constexpr int kCoefPitch = 12, kCoefGroup = 104, kMinCtas = 6, kStep = 8; };
+template <> struct SqGeom<8, 1> { static constexpr int kCoefPitch = 1, kCoefGroup = 12, kMinCtas = 6, kStep = 1; };
+template <> struct SqGeom<1, 16> { static constexpr int kCoefPitch = 20, kCoefGroup = 176, kMinCtas = 6, kStep = 8; };
+template <> struct SqGeom<16, 1> { static constexpr int kCoefPitch = 1, kCoefGroup = 20, kMinCtas = 3, kStep = 1; };
 
 template <int BH, int BW>
 struct Sq {
@@ -191,6 +217,40 @@ __device__ __forceinline__ void ring_part(int p, const float* arow, float* dst,
   }
 }
 
+// At BW = 1, pair g's S slot rows from its group into v: float4s where the
+// pair stride is a multiple of 4, else floats.
+template <int S, int kGroup>
+__device__ __forceinline__ void load_column(const float* grp, float* v) {
+  if constexpr (kGroup % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < S / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(grp + 4 * q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < S; ++i) v[i] = grp[i];
+  }
+}
+
+// load_column's inverse.
+template <int S, int kGroup>
+__device__ __forceinline__ void store_column(float* grp, const float* v) {
+  if constexpr (kGroup % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < S / 4; ++q) {
+      *reinterpret_cast<float4*>(grp + 4 * q) =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < S; ++i) grp[i] = v[i];
+  }
+}
+
 // The row stage of step b (block rows b * kStep, ...) from a slot into
 // the ring: this thread's kRowsStep pixels, interleaved.
 template <int BH, int BW>
@@ -199,7 +259,20 @@ __device__ __forceinline__ void sq_ring_rows(const float* slot, float* ring,
   constexpr int kS = Sq<BH, BW>::kRowsStep;
   constexpr int kRingRows = Sq<BH, BW>::kRingRows;
   constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
-  if constexpr (kS >= BW) {
+  if constexpr (BW == 1) {
+    // pair g = threadIdx.x: its S rows at once, one pixel each (pixel e
+    // of the strip's row is g)
+    const int g = threadIdx.x;
+    float v[kS];
+    load_column<kS, SqGeom<BH, BW>::kCoefGroup>(
+        slot + g * SqGeom<BH, BW>::kCoefGroup, v);
+    float* dst = ring + (g >> 4) * 20 + (g & 15);
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      dst[((b * kS + i) & (kRingRows - 1)) * kRingPitch] =
+          fmaf(v[i], dw_at(d, 0), 0.f);
+    }
+  } else if constexpr (kS >= BW) {
     const int g = threadIdx.x / BW;
     const int r = threadIdx.x & (BW - 1);
     const int blk = g / 3;
@@ -223,6 +296,63 @@ __device__ __forceinline__ void sq_ring_rows(const float* slot, float* ring,
   }
 }
 
+template <int W>
+__device__ __forceinline__ void cp_async_floats(float* smem, const float* gmem) {
+  if constexpr (W == 4) {
+    cp_async16(smem, gmem);
+  } else if constexpr (W == 2) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  } else {
+    cp_async4(smem, gmem);
+  }
+}
+
+// A side of 1: step b's runs (a block row's is nblk * 3 * BH * BW floats,
+// 1 to 16 a block) and steps into a slot in one pass, kW floats a copy
+// (16-byte copies where a pair is whole 4-float chunks), each to the slot
+// place of its (pair, row, column): one cp.async group.
+template <int BH, int BW>
+__device__ __forceinline__ void fetch_side_1(const float* __restrict__ coeffs,
+                                             const float* __restrict__ steps,
+                                             size_t blk_row0, int b, int nby,
+                                             int nbx, int nblk, float* slot,
+                                             float* slot_steps) {
+  constexpr int kStep = Sq<BH, BW>::kStep;
+  constexpr int kStrip = Sq<BH, BW>::kStrip;
+  constexpr int kPair = BH * BW;              // floats of a pair
+  constexpr int kW = kPair < 4 ? kPair : 4;   // floats a copy
+  constexpr int kCopies = Sq<BH, BW>::kGroups * kPair / kW;  // a whole run
+  const int n = nblk * 3 * kPair / kW;        // this strip's, a run
+  // the step's block rows in the frame, and its first block row's run
+  // and steps
+  const int rows = kStep == 1 ? 1 : min(kStep, nby - b * kStep);
+  const size_t blk0 = blk_row0 + static_cast<size_t>(b) * kStep * nbx;
+  const float* run = coeffs + blk0 * (3 * kPair);
+  for (int c = threadIdx.x; c < kStep * kCopies; c += kThreads) {
+    const int m = c / kCopies;
+    const int e = c - m * kCopies;
+    if (e < n && m < rows) {
+      const int g = e * kW / kPair;
+      const int w = e * kW - g * kPair;  // (row, column) w / BW, w % BW
+      cp_async_floats<kW>(
+          slot + g * SqGeom<BH, BW>::kCoefGroup +
+              (m * BH + w / BW) * SqGeom<BH, BW>::kCoefPitch + w % BW,
+          run + m * nbx * (3 * kPair) + e * kW);
+    }
+  }
+  for (int e = threadIdx.x; e < kStep * kStrip; e += kThreads) {
+    const int m = e / kStrip;
+    const int blk = e - m * kStrip;
+    if (blk < nblk && m < rows) {
+      cp_async4(slot_steps + e, steps + blk0 + m * nbx + blk);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 // The coefficients and steps of step b's block rows (those below nby)
 // into a slot.
 template <int BH, int BW>
@@ -233,29 +363,48 @@ __device__ __forceinline__ void fetch_step(const float* __restrict__ coeffs,
                                            float* slot_steps) {
   constexpr int kStep = Sq<BH, BW>::kStep;
   constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+  if constexpr (BH == 1 || BW == 1) {
+    fetch_side_1<BH, BW>(coeffs, steps, blk_row0, b, nby, nbx, nblk, slot,
+                         slot_steps);
+  } else {
 #pragma unroll
-  for (int m = 0; m < kStep; ++m) {
-    const int by = b * kStep + m;
-    if (kStep == 1 || by < nby) {
-      fetch_sq_row<BH, BW, kPitch, SqGeom<BH, BW>::kCoefGroup, kThreads>(
-          coeffs, steps, blk_row0 + static_cast<size_t>(by) * nbx, nblk,
-          slot + m * BH * kPitch, slot_steps + m * Sq<BH, BW>::kStrip);
+    for (int m = 0; m < kStep; ++m) {
+      const int by = b * kStep + m;
+      if (kStep == 1 || by < nby) {
+        fetch_sq_row<BH, BW, kPitch, SqGeom<BH, BW>::kCoefGroup, kThreads>(
+            coeffs, steps, blk_row0 + static_cast<size_t>(by) * nbx, nblk,
+            slot + m * BH * kPitch, slot_steps + m * Sq<BH, BW>::kStrip);
+      }
     }
   }
 }
 
-// The column stage of a slot's kStep block rows: column r of pair g.
+// The column stage of a slot's kStep block rows: column r of pair g (at
+// BW = 1 the pair's S rows read and written at once, transformed in
+// registers).
 template <int BH, int BW>
 __device__ __forceinline__ void sq_step_columns(float* grp,
                                                 const float* slot_steps,
                                                 const DctF<BH, BW>& d, int blk,
                                                 int r) {
   constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+  if constexpr (BW == 1) {
+    constexpr int kS = Sq<BH, BW>::kRowsStep;
+    float v[kS];
+    load_column<kS, SqGeom<BH, BW>::kCoefGroup>(grp, v);
 #pragma unroll
-  for (int m = 0; m < Sq<BH, BW>::kStep; ++m) {
-    sq_column_stage<BH, BW, kPitch>(grp + m * BH * kPitch,
-                                    slot_steps[m * Sq<BH, BW>::kStrip + blk],
-                                    d, r);
+    for (int m = 0; m < Sq<BH, BW>::kStep; ++m) {
+      sq_column_stage<BH, 1, 1>(v + m * BH,
+                                slot_steps[m * Sq<BH, BW>::kStrip + blk], d, 0);
+    }
+    store_column<kS, SqGeom<BH, BW>::kCoefGroup>(grp, v);
+  } else {
+#pragma unroll
+    for (int m = 0; m < Sq<BH, BW>::kStep; ++m) {
+      sq_column_stage<BH, BW, kPitch>(grp + m * BH * kPitch,
+                                      slot_steps[m * Sq<BH, BW>::kStrip + blk],
+                                      d, r);
+    }
   }
 }
 
@@ -445,3 +594,12 @@ SVC_IDCT_SQ_ENTRY(2, 8)
 SVC_IDCT_SQ_ENTRY(8, 2)
 SVC_IDCT_SQ_ENTRY(2, 16)
 SVC_IDCT_SQ_ENTRY(16, 2)
+SVC_IDCT_SQ_ENTRY(1, 1)
+SVC_IDCT_SQ_ENTRY(1, 2)
+SVC_IDCT_SQ_ENTRY(2, 1)
+SVC_IDCT_SQ_ENTRY(1, 4)
+SVC_IDCT_SQ_ENTRY(4, 1)
+SVC_IDCT_SQ_ENTRY(1, 8)
+SVC_IDCT_SQ_ENTRY(8, 1)
+SVC_IDCT_SQ_ENTRY(1, 16)
+SVC_IDCT_SQ_ENTRY(16, 1)

@@ -1,7 +1,7 @@
 // Dequantize + inverse DCT of transform blocks of BH rows and BW columns
-// (BH, BW in {4, 8, 16}; K1 also a side of 2), one block row of a strip
-// of blocks at a time: the machinery the two templated display kernels
-// share, K1 (idct_display_sq.cu) and K6 (idct_resize_sq.cu).
+// (BH, BW in {4, 8, 16}; K1 also a side of 1 or 2), one block row of a
+// strip of blocks at a time: the machinery the two templated display
+// kernels share, K1 (idct_display_sq.cu) and K6 (idct_resize_sq.cu).
 //
 // A strip's block row is one contiguous run of coefficients in the wire
 // layout (T, nby, nbx, 3 * BH * BW); it arrives by cp.async into a

@@ -25,10 +25,10 @@ go to a kernel specialised for them (``csrc/dct_wire.cu``,
 ``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); the other transform
 blocks users pick, of 3 channels, go to one kernel template each,
 instantiated per block shape: K2 and K1 at every (rows, columns) in
-{2, 4, 8, 16}^2 but 8x8 (``csrc/dct_wire_sq.cu``,
+{1, 2, 4, 8, 16}^2 but 8x8 (``csrc/dct_wire_sq.cu``,
 ``csrc/idct_display_sq.cu``), K6 at {4, 8, 16}^2 but 8x8
 (``csrc/idct_resize_sq.cu``); every other block shape or channel count
-(a side of 1; K6 a side of 2) goes to the general kernel
+(K6 a side of 1 or 2) goes to the general kernel
 (``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
 ``csrc/idct_resize_general.cu``). All give the general kernel's bits.
 No call copies from host memory once its geometry is cached: tables and
@@ -84,11 +84,14 @@ IDCT_DISPLAY_GENERAL = Kernel(
 # 16}^2 other than 8x8: one kernel template each, an instantiation (and a
 # launch count) per block shape, named rows first; the squares, then the
 # rectangles. K2 and K1 also take 2x2 and the blocks with a side of 2
-# and the other in {4, 8, 16}, K6 not
+# and the other in {4, 8, 16}, and 1x1 and the blocks with a side of 1
+# and the other in {2, 4, 8, 16}, K6 not
 _SQ_SHAPES = ((4, 4), (16, 16), (4, 8), (8, 4), (4, 16), (16, 4), (8, 16),
               (16, 8))
 _THIN_SHAPES = ((2, 2), (2, 4), (4, 2), (2, 8), (8, 2), (2, 16), (16, 2))
-_K12_SHAPES = _SQ_SHAPES + _THIN_SHAPES
+_SIDE_1_SHAPES = ((1, 1), (1, 2), (2, 1), (1, 4), (4, 1), (1, 8), (8, 1),
+                  (1, 16), (16, 1))
+_K12_SHAPES = _SQ_SHAPES + _THIN_SHAPES + _SIDE_1_SHAPES
 DCT_WIRE_SQ = {
     (bh, bw): Kernel(
         f"dct{bh}x{bw}_to_wire",
@@ -159,14 +162,18 @@ _K6_CTAS_PER_SM = 5
 # K2's templated kernels (csrc/dct_wire_sq.cu): a strip of 128 pixels
 # (128 / BW blocks), 384 threads; per (BH, BW) stage 1's doubles padded to
 # (row stride, pair stride) and the block rows a CTA takes (a step: 8 / BH
-# where a side is 2), then the step's packed rows
+# where a side is 1 or 2, one at 16x2 and 16x1), then the step's packed
+# rows
 _K2_SQ_STRIP_PIXELS = 128
 _K2_SQ_GEOM = {(4, 4): (5, 20, 1), (16, 16): (17, 272, 1), (4, 8): (9, 40, 1),
                (8, 4): (5, 44, 1), (4, 16): (17, 68, 1), (16, 4): (5, 84, 1),
                (8, 16): (17, 136, 1), (16, 8): (9, 152, 1),
                (2, 2): (3, 26, 4), (2, 4): (5, 44, 4), (4, 2): (3, 26, 2),
                (2, 8): (9, 72, 4), (8, 2): (3, 26, 1), (2, 16): (17, 136, 4),
-               (16, 2): (3, 50, 1)}
+               (16, 2): (3, 50, 1),
+               (1, 1): (1, 9, 8), (1, 2): (3, 26, 8), (2, 1): (1, 9, 4),
+               (1, 4): (5, 44, 8), (4, 1): (1, 9, 2), (1, 8): (9, 72, 8),
+               (8, 1): (1, 9, 1), (1, 16): (17, 136, 8), (16, 1): (1, 17, 1)}
 # K1's templated kernels (csrc/idct_display_sq.cu): a strip of 64 pixels
 # (64 / BW block columns), 192 threads; per (BH, BW) the coefficient
 # slot's (row stride, pair stride) in floats, the CTAs an SM holds and the
@@ -181,7 +188,12 @@ _K1_SQ_GEOM = {(4, 4): (8, 36, 6, 1), (16, 16): (20, 336, 3, 1),
                (2, 2): (2, 20, 6, 4), (2, 4): (8, 68, 5, 4),
                (4, 2): (2, 20, 6, 2), (2, 8): (12, 104, 6, 4),
                (8, 2): (2, 20, 6, 1), (2, 16): (20, 176, 6, 4),
-               (16, 2): (2, 36, 3, 1)}
+               (16, 2): (2, 36, 3, 1),
+               (1, 1): (1, 9, 6, 8), (1, 2): (2, 20, 6, 8),
+               (2, 1): (1, 12, 6, 4), (1, 4): (8, 68, 5, 8),
+               (4, 1): (1, 12, 6, 2), (1, 8): (12, 104, 6, 8),
+               (8, 1): (1, 12, 6, 1), (1, 16): (20, 176, 6, 8),
+               (16, 1): (1, 20, 3, 1)}
 # K6's templated kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
 # (64 / BW block columns) plus one halo block column, a thread per byte of
 # a strip's run of at most 192 display-row bytes; per (BH, BW) the
@@ -240,8 +252,8 @@ def _specialised(block_h: int, block_w: int, channels: int) -> bool:
 
 
 def _templated(block_h: int, block_w: int, channels: int) -> bool:
-    """Blocks of 3 channels with both sides in {2, 4, 8, 16}, but 8x8:
-    K2's and K1's templated kernels."""
+    """Blocks of 3 channels with both sides in {1, 2, 4, 8, 16}, but
+    8x8: K2's and K1's templated kernels."""
     return (block_h, block_w) in DCT_WIRE_SQ and channels == 3
 
 
@@ -331,8 +343,8 @@ def dct8x8_to_wire(
 ) -> torch.Tensor:
     """Forward blockwise DCT of packed frames into wire layout (kernel K2:
     the specialised kernel for 8x8 blocks of 3 channels, the templated
-    kernel for the other blocks of 3 channels with both sides in {2, 4,
-    8, 16}, the general one otherwise: a side of 1, other channel
+    kernel for the other blocks of 3 channels with both sides in {1, 2,
+    4, 8, 16}, the general one otherwise: other sides, other channel
     counts).
 
     Args:
@@ -479,7 +491,8 @@ def _band_tables(out_h: int, in_h: int, nbx: int, t: int, sm_count: int,
     K1's and K6's templated kernels (host numpy), which walk
     each band of output rows down its source block rows of ``block`` pixel
     rows (the block height; K1's templated kernel walks steps of several
-    block rows where a side is 2, and ``block`` is a step's pixel rows),
+    block rows where a side is 1 or 2, and ``block`` is a step's pixel
+    rows),
     a strip of ``strip`` block columns per CTA.
 
     Returns ``(y0, y1, fy, row_lo, band_b, band_rows)``: the bilinear
@@ -571,8 +584,8 @@ def idct_display(
     Returns ``(T, out_h, nbx*bw*C)`` uint8 — the width is not resampled
     (the width-aligned display routes). 8x8 blocks of 3 channels go to the
     specialised kernel, the other blocks of 3 channels with both sides in
-    {2, 4, 8, 16} to the templated kernel, every other shape (a side of
-    1, other channel counts) to the general one.
+    {1, 2, 4, 8, 16} to the templated kernel, every other shape (other
+    sides, other channel counts) to the general one.
     """
     if coeffs.device.type == "cpu":
         return idct_display_plain(coeffs, steps, out_h, channels, block_h, block_w)
@@ -600,7 +613,7 @@ def idct_display(
             c = c.clone()
         s = steps.contiguous()
         # rows are walk steps of step_rows pixel rows (a block row, or
-        # several where a side is 2); the strip counts block columns
+        # several where a side is 1 or 2); the strip counts block columns
         tabs, band_rows = _band_tables_on(dev, out_h, nby * bh, nbx, t, ctas,
                                           step_rows, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)

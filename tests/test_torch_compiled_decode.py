@@ -112,7 +112,8 @@ class _HostTraffic(TorchDispatchMode):
     (64, 40, 0, 8, 4, "idct4x4_display"),
     (64, 40, 0, 8, 16, "idct16x16_display"),
     (64, 40, 0, 8, 2, "idct2x2_display"),
-    (64, 40, 0, 8, 1, "idct_display_general"),
+    (48, 40, 0, 8, 3, "idct_display_general"),
+    (64, 40, 0, 8, 1, "idct1x1_display"),
     (120, 64, 8, 0, 4, "idct4x4_resize_display"),
     (120, 64, 8, 0, 16, "idct16x16_resize_display"),
 ])

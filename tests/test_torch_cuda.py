@@ -489,20 +489,26 @@ def _hw(block):
 
 # the templated K2 / K1 / K6 shapes: the squares, then the rectangles
 SQ_BLOCKS = [4, 16, "4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
-# K2's and K1's templated kernels also take the blocks with a side of 2
+# K2's and K1's templated kernels also take the blocks with a side of 2,
+# and those with a side of 1
 THIN_BLOCKS = [2, "2x4", "4x2", "2x8", "8x2", "2x16", "16x2"]
-K12_BLOCKS = SQ_BLOCKS + THIN_BLOCKS
+SIDE_1_BLOCKS = [1, "1x2", "2x1", "1x4", "4x1", "1x8", "8x1", "1x16", "16x1"]
+K12_BLOCKS = SQ_BLOCKS + THIN_BLOCKS + SIDE_1_BLOCKS
+# where the exact decode puts many display bytes on halves (integer
+# dequantized coefficients through a 1- or 2-point transform)
+TIE_BLOCKS = ((2, 2), (1, 1))
 
 
 def _held_to_plain_display(got, coeffs, steps, out_h, bh, bw):
     """K1's bytes against its plain version: within 1, and under 1e-3 of
-    the bytes differing; at 2x2, where ~17% of the bytes are exact ties
-    of the float64 decode (tools/display_ties.py) that float32 summing
-    order may round either way, under 1e-3 off the ties."""
+    the bytes differing; at 2x2 and 1x1, where ~17% and ~5% of the bytes
+    are exact ties of the float64 decode (tools/display_ties.py) that
+    float32 summing order may round either way, under 1e-3 off the
+    ties."""
     ref = dct.idct_display_plain(coeffs, steps, out_h, 3, bh, bw)
     d = (got.to(torch.int16) - ref.to(torch.int16)).abs().cpu().numpy()
     assert d.max() <= 1
-    if (bh, bw) == (2, 2):
+    if (bh, bw) in TIE_BLOCKS:
         ties = display_ties.tie_mask(display_ties.exact_display(
             coeffs, steps, out_h, 3, bh, bw)).reshape(d.shape)
         d = d[~ties]
@@ -643,12 +649,13 @@ def test_idct_display_sq_equals_general(gen, block, t, ph, pw, out_h):
     _held_to_plain_display(got, coeffs, steps, out_h, bh, bw)
 
 
-@pytest.mark.parametrize("block", THIN_BLOCKS)
+@pytest.mark.parametrize("block", THIN_BLOCKS + SIDE_1_BLOCKS)
 def test_thin_blocks_partial_last_step(gen, block):
-    # a side of 2: a CTA of K2 and a walk step of K1 take several block
-    # rows (8 pixel rows), and here the frame's last step is partial (one
-    # block row more than whole steps); both bit- / byte-equal to the
-    # general kernels, K1 resampled and with identity rows
+    # a side of 1 or 2: a CTA of K2 and a walk step of K1 take several
+    # block rows (8 pixel rows; one at 8x1, 16x2 and 16x1), and here the
+    # frame's last step is partial (one block row more than whole steps);
+    # both bit- / byte-equal to the general kernels, K1 resampled and with
+    # identity rows
     bh, bw = _hw(block)
     step = dct._K2_SQ_GEOM[bh, bw][2]
     assert step == dct._K1_SQ_GEOM[bh, bw][3]
@@ -702,11 +709,12 @@ def test_sq_kernels_in_a_cuda_graph(gen, block):
 
 @pytest.mark.parametrize("block", K12_BLOCKS)
 def test_square_blocks_on_card_match_cpu(gen, block):
-    # EncoderConfig with 2x2, 4x4 or 16x16 transform blocks, or a rectangle
-    # of sides 4, 8 and 16 or with a side of 2: the templated kernels of
-    # that shape on both legs and no other K1 or K2, graph replays
-    # byte-equal to graph=False, the stream's coefficients and the decoded
-    # bytes within the gates of the CPU port (at 2x2 off the exact ties)
+    # EncoderConfig with 1x1, 2x2, 4x4 or 16x16 transform blocks, or a
+    # rectangle of sides 4, 8 and 16 or with a side of 1 or 2: the
+    # templated kernels of that shape on both legs and no other K1 or K2,
+    # graph replays byte-equal to graph=False, the stream's coefficients
+    # and the decoded bytes within the gates of the CPU port (at 2x2 and
+    # 1x1 off the exact ties)
     bh, bw = _hw(block)
     w, h = 160, 112
     clip = make_clip(w, h, 6, seed=bh * 17 + bw)
@@ -749,7 +757,7 @@ def test_square_blocks_on_card_match_cpu(gen, block):
     d = np.abs(frames["cuda", True].astype(np.int16)
                - frames["cpu", True].astype(np.int16))
     assert d.max() <= 1
-    if (bh, bw) == (2, 2):
+    if (bh, bw) in TIE_BLOCKS:
         coeffs, steps = display_ties.decode_inputs(header, cpu_stream[1:], gaze)
         ties = display_ties.tie_mask(display_ties.exact_display(
             coeffs, steps, h, 3, bh, bw))
@@ -1509,8 +1517,8 @@ _wire_payloads = display_ties.wire_payloads
 
 
 # 1080p (K1), 1366x768 (K6; at 4x4 and 16x16 blocks the square-block
-# K6), 4x4-, 16x16- and 2x2-block CIF (the templated K1), 1x1-block CIF
-# (the general K1)
+# K6), 4x4-, 16x16-, 2x2- and 1x1-block CIF (the templated K1), 3x3-block
+# 336x288 (the general K1)
 DECODE_GRAPH_CASES = [(1920, 1080, 8, "idct_display"),
                       (1366, 768, 8, "idct_resize_display"),
                       (1366, 768, 4, "idct4x4_resize_display"),
@@ -1518,7 +1526,8 @@ DECODE_GRAPH_CASES = [(1920, 1080, 8, "idct_display"),
                       (352, 288, 4, "idct4x4_display"),
                       (352, 288, 16, "idct16x16_display"),
                       (352, 288, 2, "idct2x2_display"),
-                      (352, 288, 1, "idct_display_general")]
+                      (336, 288, 3, "idct_display_general"),
+                      (352, 288, 1, "idct1x1_display")]
 
 
 @pytest.mark.parametrize("w,h,block,kernel", DECODE_GRAPH_CASES)
@@ -1545,14 +1554,17 @@ def test_decode_graph_equals_eager(gen, w, h, block, kernel):
     ref = np.stack(list(cpu.decode_frames(iter(payloads), iter(gazes))))
     d = np.abs(want.astype(np.int16) - ref.astype(np.int16))
     assert d.max() <= 1
-    if block == 2:
+    if block in (1, 2):
         # 2x2 blocks of integer dequantized coefficients put ~17% of the
         # bytes on exact halves, where float32 summing order picks either
-        # neighbour (tools/display_ties.py): the gate holds the other bytes
+        # neighbour (tools/display_ties.py), and 1x1 blocks where rows are
+        # blended (none at CIF's identity rows): the gate holds the other
+        # bytes
         coeffs, steps = display_ties.decode_inputs(header, payloads, gazes)
         ties = display_ties.tie_mask(
             display_ties.exact_display(coeffs, steps, h, 3, block, block))
-        assert ties.mean() > 0.1
+        if block == 2:
+            assert ties.mean() > 0.1
         d = d[~ties.reshape(d.shape)]
     assert (d > 0).mean() < 1e-3
 

@@ -1,7 +1,7 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
 specialised kernels K1 / K2 / K6; the other blocks of 3 channels with both
 sides in {4, 8, 16} to K2's, K1's and K6's templated kernels, those with a
-side of 2 to K2's and K1's; every other shape to the general ones) and the
+side of 1 or 2 to K2's and K1's; every other shape to the general ones) and the
 band and strip geometry of K1's and K6's specialised, templated and
 square-block kernels, on the CPU.
 
@@ -56,9 +56,10 @@ def _all_kernels():
     [(8, 3, False, "dct8x8_to_wire"), (8, 3, True, "dct_to_wire_general"),
      (4, 3, False, "dct4x4_to_wire"), (16, 3, False, "dct16x16_to_wire"),
      (4, 3, True, "dct_to_wire_general"), (16, 3, True, "dct_to_wire_general"),
-     (2, 3, False, "dct2x2_to_wire"), (1, 3, False, "dct_to_wire_general"),
+     (2, 3, False, "dct2x2_to_wire"), (1, 3, True, "dct_to_wire_general"),
      (2, 3, True, "dct_to_wire_general"), (8, 1, False, "dct_to_wire_general"),
-     (16, 1, False, "dct_to_wire_general")],
+     (16, 1, False, "dct_to_wire_general"), (1, 3, False, "dct1x1_to_wire"),
+     (1, 1, False, "dct_to_wire_general")],
 )
 def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
     packed = torch.zeros((3, 16, 32 * channels), dtype=torch.uint8, device="meta")
@@ -84,9 +85,10 @@ def test_dct_to_wire_dispatch(meta_launches, block, channels, general, kernel):
     [(8, 3, False, "idct_display"), (8, 3, True, "idct_display_general"),
      (4, 3, False, "idct4x4_display"), (16, 3, False, "idct16x16_display"),
      (4, 3, True, "idct_display_general"), (16, 3, True, "idct_display_general"),
-     (2, 3, False, "idct2x2_display"), (1, 3, False, "idct_display_general"),
+     (2, 3, False, "idct2x2_display"), (1, 3, True, "idct_display_general"),
      (2, 3, True, "idct_display_general"), (8, 1, False, "idct_display_general"),
-     (16, 1, False, "idct_display_general")],
+     (16, 1, False, "idct_display_general"), (1, 3, False, "idct1x1_display"),
+     (1, 1, False, "idct_display_general")],
 )
 def test_idct_display_dispatch(meta_launches, block, channels, general, kernel):
     n = channels * block * block
@@ -129,13 +131,13 @@ def _both_legs(block_h, block_w, channels, general):
 
 @pytest.mark.parametrize(
     "block_h,block_w,channels,general",
-    [(1, 2, 3, False), (2, 1, 3, False), (1, 8, 3, False), (8, 16, 1, False),
+    [(1, 2, 1, False), (2, 1, 3, True), (1, 8, 3, True), (8, 16, 1, False),
      (4, 8, 3, True), (16, 8, 3, True)],
 )
 def test_rectangular_blocks_take_the_general_kernels(meta_launches, block_h,
                                                      block_w, channels, general):
-    # a side of 1, one channel, or general=True: both legs go to the
-    # general kernels, whose dh and dw are their own matrices
+    # one channel, or general=True: both legs go to the general kernels,
+    # whose dh and dw are their own matrices
     wire, shown = _both_legs(block_h, block_w, channels, general)
     n = channels * block_h * block_w
     assert wire == (8, 1088 // block_h, 1920 // block_w, n)
@@ -152,13 +154,15 @@ def test_rectangular_blocks_take_the_general_kernels(meta_launches, block_h,
 @pytest.mark.parametrize("block_h,block_w", [(4, 8), (8, 4), (4, 16), (16, 4),
                                              (8, 16), (16, 8), (2, 2), (2, 4),
                                              (4, 2), (2, 8), (8, 2), (2, 16),
-                                             (16, 2)])
+                                             (16, 2), (1, 1), (1, 2), (2, 1),
+                                             (1, 4), (4, 1), (1, 8), (8, 1),
+                                             (1, 16), (16, 1)])
 def test_rectangular_blocks_take_their_templated_kernels(meta_launches,
                                                          block_h, block_w):
-    # each rectangle of 3 channels (and 2x2) launches its own K2 and K1
-    # instance, named rows first, with dh and dw by value; K1's geometry
+    # each rectangle of 3 channels (and 2x2, 1x1) launches its own K2 and
+    # K1 instance, named rows first, with dh and dw by value; K1's geometry
     # counts rows in walk steps (block_h, or 8 pixel rows where a side is
-    # 2) and the strip in block_w
+    # 1 or 2) and the strip in block_w
     wire, shown = _both_legs(block_h, block_w, 3, False)
     assert wire == (8, 1088 // block_h, 1920 // block_w, 3 * block_h * block_w)
     assert shown == (8, 1080, 5760)
@@ -223,16 +227,18 @@ def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
 
 
 def test_k6_keeps_its_nine_shapes():
-    # K2's and K1's templated kernels took the blocks with a side of 2; K6
-    # did not: its templated kernels stay the eight shapes of sides 4, 8
-    # and 16, the ninth (8x8) its specialised kernel
+    # K2's and K1's templated kernels took the blocks with a side of 1 or
+    # 2; K6 did not: its templated kernels stay the eight shapes of sides
+    # 4, 8 and 16, the ninth (8x8) its specialised kernel
     assert sorted(dct.IDCT_RESIZE_SQ) == sorted(dct._SQ_SHAPES)
     assert len(dct.IDCT_RESIZE_SQ) + 1 == 9
     assert (8, 8) not in dct.IDCT_RESIZE_SQ
     assert sorted(dct.DCT_WIRE_SQ) == sorted(dct.IDCT_DISPLAY_SQ) == sorted(
-        dct._SQ_SHAPES + dct._THIN_SHAPES)
-    for bh, bw in dct._THIN_SHAPES:
+        dct._SQ_SHAPES + dct._THIN_SHAPES + dct._SIDE_1_SHAPES)
+    assert len(dct.DCT_WIRE_SQ) == 24
+    for bh, bw in dct._THIN_SHAPES + dct._SIDE_1_SHAPES:
         assert dct._templated(bh, bw, 3) and not dct._templated_k6(bh, bw, 3)
+        assert not dct._templated(bh, bw, 1)
 
 
 @pytest.mark.parametrize("block_h,block_w", [(2, 2), (2, 4), (4, 2), (2, 8),
@@ -526,11 +532,15 @@ K1_SQ_GEOMETRIES = [
     (16, 768, 768, 1376), (16, 2160, 2160, 3840), (16, 37, 48, 48),
 ] + [(shape, *g) for shape in ("4x8", "8x4", "4x16", "16x4", "8x16", "16x8",
                                 "2x2", "2x4", "4x2", "2x8", "8x2", "2x16",
-                                "16x2")
+                                "16x2", "1x1", "1x2", "2x1", "1x4", "4x1",
+                                "1x8", "8x1", "1x16", "16x1")
      for g in ((1080, 1088, 1920), (288, 288, 352), (766, 768, 1376))] + [
     ("16x4", 37, 48, 12), ("4x16", 37, 40, 48),
-    # a side of 2: a last walk step of fewer block rows than the others
-    ("2x2", 37, 42, 12), ("4x2", 37, 44, 12), ("2x16", 35, 38, 48)]
+    # a side of 1 or 2: a last walk step of fewer block rows than the
+    # others
+    ("2x2", 37, 42, 12), ("4x2", 37, 44, 12), ("2x16", 35, 38, 48),
+    ("1x1", 37, 45, 12), ("2x1", 37, 42, 12), ("4x1", 37, 44, 12),
+    ("1x16", 35, 37, 48)]
 
 
 @pytest.mark.parametrize("block,out_h,in_h,pw", K1_SQ_GEOMETRIES)
@@ -585,7 +595,10 @@ def test_k1_sq_writes_every_output_byte_once(block, out_h, in_h, pw):
 
 SQ_BLOCKS = [4, 16, "4x8", "8x4", "4x16", "16x4", "8x16", "16x8"]
 # K2's and K1's templated kernels also take the blocks with a side of 2
-K12_BLOCKS = SQ_BLOCKS + [2, "2x4", "4x2", "2x8", "8x2", "2x16", "16x2"]
+# and those with a side of 1
+SIDE_1_BLOCKS = [1, "1x2", "2x1", "1x4", "4x1", "1x8", "8x1", "1x16", "16x1"]
+K12_BLOCKS = SQ_BLOCKS + [2, "2x4", "4x2", "2x8", "8x2", "2x16",
+                          "16x2"] + SIDE_1_BLOCKS
 
 
 @pytest.mark.parametrize("block", K12_BLOCKS)
@@ -630,17 +643,26 @@ def test_sq_host_geometry_matches_the_kernel_sources():
         assert f"SVC_IDCT_SQ_ENTRY({bh}, {bw})" in src
         assert (g["kCoefPitch"], g["kCoefGroup"], g["kMinCtas"],
                 g["kStep"]) == dct._K1_SQ_GEOM[bh, bw]
-        # a step of one block row, or 8 pixel rows where a side is 2 (16
-        # at 16x2)
+        # a step of one block row, or 8 pixel rows where a side is 1 or 2
+        # (16 at 16x2 and 16x1)
         rows = bh * g["kStep"]
-        assert rows == (max(bh, 8) if 2 in (bh, bw) else bh)
+        assert rows == (max(bh, 8) if {1, 2} & {bh, bw} else bh)
         strip = k["kStripPixels"] // bw
         assert strip * 3 * bw == k["kThreads"]
         assert g["kCoefGroup"] >= rows * g["kCoefPitch"]
-        # 16-byte rows: cp.async chunks and the row stage's float4 loads;
-        # at BW = 2 a chunk is two rows, so the rows are contiguous
-        assert g["kCoefPitch"] % 4 == 0 or g["kCoefPitch"] == bw == 2
-        assert g["kCoefGroup"] % 4 == 0
+        if bw == 1:
+            # a pair's S rows are one contiguous slot column, read at once:
+            # as float4s at a pair stride of an odd multiple of 4 (a
+            # quarter-warp's 8 pairs on 8 bank groups), else as floats at
+            # an odd one (a warp's 32 pairs on 32 banks)
+            assert g["kCoefPitch"] == 1
+            assert g["kCoefGroup"] % 2 == 1 or g["kCoefGroup"] % 8 == 4
+        else:
+            # 16-byte rows: cp.async chunks and the row stage's float4
+            # loads; at BW = 2 a chunk is two rows, so the rows are
+            # contiguous (and at 1x2 the float2 loads of a row aligned)
+            assert g["kCoefPitch"] % 4 == 0 or g["kCoefPitch"] == bw == 2
+            assert g["kCoefGroup"] % 4 == 0
         smem = dct._k1_sq_smem_bytes(bh, bw)
         assert smem == 4 * (
             2 * strip * 3 * g["kCoefGroup"] + 2 * rows * ring_pitch
@@ -699,7 +721,7 @@ def _worst_conflict(addr, phase, banks):
 # two rows, so its pair stride is a multiple of 4 and the column stage's
 # 16 pairs a warp fall on 8 bank offsets, 2-way
 K1_ROW_CONFLICTS = {(16, 4): 2, (4, 8): 2}
-K1_COLUMN_CONFLICTS = {(2, 2): 2, (4, 2): 2, (8, 2): 2, (16, 2): 2}
+K1_COLUMN_CONFLICTS = {(2, 2): 2, (4, 2): 2, (8, 2): 2, (16, 2): 2, (1, 2): 2}
 K2_ROW_CONFLICTS = {(4, 8): 2}
 
 
@@ -724,6 +746,15 @@ def test_sq_layouts_avoid_bank_conflicts(block):
     lanes = np.arange(192)
     group, r = lanes // bw, lanes % bw
     pitch, c_group, _, step = dct._K1_SQ_GEOM[bh, bw]
+    if bw == 1:
+        # both stages read and write a pair's column at once: float4s in
+        # quarter-warps, or floats a warp at once
+        for i in range(0, bh * step, 4 if c_group % 4 == 0 else 1):
+            if c_group % 4 == 0:
+                assert _worst_conflict((group * c_group + i) // 4, 8, 8) == 1
+            else:
+                assert _worst_conflict(group * c_group + i, 32, 32) == 1
+        return
     for fixed in range(bh * step):  # K1, floats: the column stage
         addr = group * c_group + fixed * pitch + r
         assert _worst_conflict(addr, 32, 32) == K1_COLUMN_CONFLICTS.get((bh, bw), 1)
@@ -761,6 +792,88 @@ def test_sq_row_stage_covers_every_coefficient_once(block):
         assert (hits == 1).all()
 
 
+@pytest.mark.parametrize("block", SIDE_1_BLOCKS)
+def test_k2_side_1_stores_write_every_coefficient_once(block):
+    # K2's stage 2 at a side of 1 stores in place from registers: thread
+    # (g, r) holds rows r + s * BW of its pair (kRowsCta >= BW; BW floats
+    # each), and its s-th piece of kN floats (BH at BW = 1, BW at BH = 1)
+    # lands at float g * BH * BW of block row m's run (m = s at BW = 1,
+    # r + s * BW at BH = 1); at 1x16 (8 rows < 16 columns) lane u of part
+    # p holds columns [8 p, 8 p + 8) of row u % 8 of pair u // 8, stored
+    # at block row u % 8. Every coefficient of the CTA's block rows is
+    # written once, at its wire place, each piece aligned for its
+    # float4 / float2 / float store
+    bh, bw = _hw(block)
+    _, _, step = dct._K2_SQ_GEOM[bh, bw]
+    rows = bh * step
+    lanes = np.arange(384)
+    pairs = 384 // bw
+    run = pairs * bh * bw  # floats of a block row's run
+
+    def wire(pair, i, col):  # (pair, CTA row i, column) -> run place
+        return (i // bh) * run + pair * bh * bw + (i % bh) * bw + col
+
+    hits = np.zeros(step * run, np.int64)
+    if rows >= bw:
+        g, r = lanes // bw, lanes % bw
+        n_piece = bh if bw == 1 else bw
+        for s in range(rows // n_piece):
+            m = s if bw == 1 else r + s * bw
+            start = m * run + g * bh * bw
+            assert (start % min(n_piece, 4) == 0).all()
+            for n in range(n_piece):
+                j = s * n_piece + n  # z[j]: row r + (j // bw) * bw, col j % bw
+                want = wire(g, r + (j // bw) * bw, j % bw)
+                np.testing.assert_array_equal(start + n, want)
+                np.add.at(hits, start + n, 1)
+    else:
+        cols = rows
+        part = 384 // (bw // rows)
+        p, u = lanes // part, lanes % part
+        g2, i = u // rows, u % rows
+        start = wire(g2, i, p * cols)
+        assert (start % 4 == 0).all()
+        for n in range(cols):
+            np.add.at(hits, start + n, 1)
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("block", SIDE_1_BLOCKS)
+def test_k1_side_1_fetch_fills_the_slot(block):
+    # at a side of 1, K1's slot fetch (fetch_side_1) copies a walk step's
+    # runs in one pass, kW floats a copy (4 where a pair is whole 4-float
+    # chunks, else the pair's 1 or 2): copy e of block row m's run, at
+    # float w0 = e * kW of it, pair g = w0 // (BH * BW), goes to g *
+    # kGroup + (m * BH + w // BW) * kPitch + w % BW (w its place in the
+    # pair). Every float of the step's runs lands once, at the slot place
+    # of its (pair, row, column) that the column and row stages read,
+    # inside its pair's group; copies are aligned to their size, and a
+    # copy instruction's phase (a warp at 4 bytes, half at 8, a quarter
+    # at 16) meets a bank at most twice
+    bh, bw = _hw(block)
+    pitch, group, _, step = dct._K1_SQ_GEOM[bh, bw]
+    pair = bh * bw
+    kw = min(pair, 4)
+    pairs = 192 // bw  # a strip's 64 / BW blocks x 3 channels
+    e = np.arange(pairs * pair // kw)
+    w0 = e * kw
+    g, w = w0 // pair, w0 % pair
+    phase = {1: 32, 2: 16, 4: 8}[kw]
+    seen = np.zeros(pairs * group, np.int64)
+    for m in range(step):
+        dst = g * group + (m * bh + w // bw) * pitch + w % bw
+        assert (dst % kw == 0).all()
+        assert (((m * bh + w // bw) * pitch + w % bw + kw - 1) < group).all()
+        assert _worst_conflict(dst // kw, phase, 32 // kw) <= 2
+        for n in range(kw):  # float n of the copy: (row, column) of w + n
+            row, col = m * bh + (w + n) // bw, (w + n) % bw
+            np.testing.assert_array_equal(dst + n, g * group + row * pitch + col)
+            np.add.at(seen, dst + n, 1)
+    assert seen.max() == 1 and seen.sum() == step * pairs * pair
+    # a run's copies start kW-aligned in the wire (its blocks are 3 pairs)
+    assert (3 * pair) % kw == 0
+
+
 @pytest.mark.parametrize("block,out_h,in_h,nbx,t", [
     (4, 120, 128, 20, 2), (4, 128, 128, 16, 1), (4, 37, 40, 3, 1),
     (16, 120, 128, 5, 2), (16, 112, 112, 4, 1), (16, 37, 48, 3, 1),
@@ -769,7 +882,11 @@ def test_sq_row_stage_covers_every_coefficient_once(block):
     ("8x16", 112, 112, 5, 1), ("16x8", 37, 48, 9, 1),
     (2, 120, 128, 40, 2), (2, 37, 42, 9, 1), ("2x4", 120, 128, 20, 1),
     ("4x2", 37, 44, 41, 1), ("2x8", 112, 112, 10, 1), ("8x2", 120, 128, 40, 2),
-    ("2x16", 35, 38, 3, 1), ("16x2", 37, 48, 33, 1)])
+    ("2x16", 35, 38, 3, 1), ("16x2", 37, 48, 33, 1),
+    (1, 120, 128, 40, 2), (1, 37, 45, 9, 1), ("1x2", 120, 128, 20, 1),
+    ("2x1", 37, 42, 41, 1), ("1x4", 112, 112, 10, 1), ("4x1", 37, 44, 33, 1),
+    ("1x8", 120, 128, 5, 2), ("8x1", 120, 128, 40, 1), ("1x16", 35, 37, 3, 1),
+    ("16x1", 37, 48, 33, 1)])
 def test_k1_sq_band_walk_reproduces_plain_bytes(block, out_h, in_h, nbx, t):
     # the templated kernel's walk, replayed on the plain version's planes
     # with the kernel's per-element blend, gives the plain bytes

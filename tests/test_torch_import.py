@@ -161,8 +161,15 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "dct16x2_to_wire", "idct2x2_display", "idct2x4_display",
         "idct4x2_display", "idct2x8_display", "idct8x2_display",
         "idct2x16_display", "idct16x2_display",
+        # K2 and K1 at 1x1 and the rectangles with a side of 1
+        "dct1x1_to_wire", "dct1x2_to_wire", "dct2x1_to_wire",
+        "dct1x4_to_wire", "dct4x1_to_wire", "dct1x8_to_wire",
+        "dct8x1_to_wire", "dct1x16_to_wire", "dct16x1_to_wire",
+        "idct1x1_display", "idct1x2_display", "idct2x1_display",
+        "idct1x4_display", "idct4x1_display", "idct1x8_display",
+        "idct8x1_display", "idct1x16_display", "idct16x1_display",
     }
-    assert len(ks) == 61
+    assert len(ks) == 79
     # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
     # while_loop and jax.random's threefry (its k-means++ seeding draw)
     no_pallas = {"ccl_converge": "jax.lax.while_loop(",
