@@ -217,40 +217,6 @@ __device__ __forceinline__ void ring_part(int p, const float* arow, float* dst,
   }
 }
 
-// At BW = 1, pair g's S slot rows from its group into v: float4s where the
-// pair stride is a multiple of 4, else floats.
-template <int S, int kGroup>
-__device__ __forceinline__ void load_column(const float* grp, float* v) {
-  if constexpr (kGroup % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < S / 4; ++q) {
-      const float4 x = *reinterpret_cast<const float4*>(grp + 4 * q);
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < S; ++i) v[i] = grp[i];
-  }
-}
-
-// load_column's inverse.
-template <int S, int kGroup>
-__device__ __forceinline__ void store_column(float* grp, const float* v) {
-  if constexpr (kGroup % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < S / 4; ++q) {
-      *reinterpret_cast<float4*>(grp + 4 * q) =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < S; ++i) grp[i] = v[i];
-  }
-}
-
 // The row stage of step b (block rows b * kStep, ...) from a slot into
 // the ring: this thread's kRowsStep pixels, interleaved.
 template <int BH, int BW>
@@ -296,118 +262,6 @@ __device__ __forceinline__ void sq_ring_rows(const float* slot, float* ring,
   }
 }
 
-template <int W>
-__device__ __forceinline__ void cp_async_floats(float* smem, const float* gmem) {
-  if constexpr (W == 4) {
-    cp_async16(smem, gmem);
-  } else if constexpr (W == 2) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-  } else {
-    cp_async4(smem, gmem);
-  }
-}
-
-// A side of 1: step b's runs (a block row's is nblk * 3 * BH * BW floats,
-// 1 to 16 a block) and steps into a slot in one pass, kW floats a copy
-// (16-byte copies where a pair is whole 4-float chunks), each to the slot
-// place of its (pair, row, column): one cp.async group.
-template <int BH, int BW>
-__device__ __forceinline__ void fetch_side_1(const float* __restrict__ coeffs,
-                                             const float* __restrict__ steps,
-                                             size_t blk_row0, int b, int nby,
-                                             int nbx, int nblk, float* slot,
-                                             float* slot_steps) {
-  constexpr int kStep = Sq<BH, BW>::kStep;
-  constexpr int kStrip = Sq<BH, BW>::kStrip;
-  constexpr int kPair = BH * BW;              // floats of a pair
-  constexpr int kW = kPair < 4 ? kPair : 4;   // floats a copy
-  constexpr int kCopies = Sq<BH, BW>::kGroups * kPair / kW;  // a whole run
-  const int n = nblk * 3 * kPair / kW;        // this strip's, a run
-  // the step's block rows in the frame, and its first block row's run
-  // and steps
-  const int rows = kStep == 1 ? 1 : min(kStep, nby - b * kStep);
-  const size_t blk0 = blk_row0 + static_cast<size_t>(b) * kStep * nbx;
-  const float* run = coeffs + blk0 * (3 * kPair);
-  for (int c = threadIdx.x; c < kStep * kCopies; c += kThreads) {
-    const int m = c / kCopies;
-    const int e = c - m * kCopies;
-    if (e < n && m < rows) {
-      const int g = e * kW / kPair;
-      const int w = e * kW - g * kPair;  // (row, column) w / BW, w % BW
-      cp_async_floats<kW>(
-          slot + g * SqGeom<BH, BW>::kCoefGroup +
-              (m * BH + w / BW) * SqGeom<BH, BW>::kCoefPitch + w % BW,
-          run + m * nbx * (3 * kPair) + e * kW);
-    }
-  }
-  for (int e = threadIdx.x; e < kStep * kStrip; e += kThreads) {
-    const int m = e / kStrip;
-    const int blk = e - m * kStrip;
-    if (blk < nblk && m < rows) {
-      cp_async4(slot_steps + e, steps + blk0 + m * nbx + blk);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// The coefficients and steps of step b's block rows (those below nby)
-// into a slot.
-template <int BH, int BW>
-__device__ __forceinline__ void fetch_step(const float* __restrict__ coeffs,
-                                           const float* __restrict__ steps,
-                                           size_t blk_row0, int b, int nby,
-                                           int nbx, int nblk, float* slot,
-                                           float* slot_steps) {
-  constexpr int kStep = Sq<BH, BW>::kStep;
-  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
-  if constexpr (BH == 1 || BW == 1) {
-    fetch_side_1<BH, BW>(coeffs, steps, blk_row0, b, nby, nbx, nblk, slot,
-                         slot_steps);
-  } else {
-#pragma unroll
-    for (int m = 0; m < kStep; ++m) {
-      const int by = b * kStep + m;
-      if (kStep == 1 || by < nby) {
-        fetch_sq_row<BH, BW, kPitch, SqGeom<BH, BW>::kCoefGroup, kThreads>(
-            coeffs, steps, blk_row0 + static_cast<size_t>(by) * nbx, nblk,
-            slot + m * BH * kPitch, slot_steps + m * Sq<BH, BW>::kStrip);
-      }
-    }
-  }
-}
-
-// The column stage of a slot's kStep block rows: column r of pair g (at
-// BW = 1 the pair's S rows read and written at once, transformed in
-// registers).
-template <int BH, int BW>
-__device__ __forceinline__ void sq_step_columns(float* grp,
-                                                const float* slot_steps,
-                                                const DctF<BH, BW>& d, int blk,
-                                                int r) {
-  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
-  if constexpr (BW == 1) {
-    constexpr int kS = Sq<BH, BW>::kRowsStep;
-    float v[kS];
-    load_column<kS, SqGeom<BH, BW>::kCoefGroup>(grp, v);
-#pragma unroll
-    for (int m = 0; m < Sq<BH, BW>::kStep; ++m) {
-      sq_column_stage<BH, 1, 1>(v + m * BH,
-                                slot_steps[m * Sq<BH, BW>::kStrip + blk], d, 0);
-    }
-    store_column<kS, SqGeom<BH, BW>::kCoefGroup>(grp, v);
-  } else {
-#pragma unroll
-    for (int m = 0; m < Sq<BH, BW>::kStep; ++m) {
-      sq_column_stage<BH, BW, kPitch>(grp + m * BH * kPitch,
-                                      slot_steps[m * Sq<BH, BW>::kStrip + blk],
-                                      d, r);
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t pack4(float4 v) {
   return static_cast<uint32_t>(display_byte(v.x)) |
          static_cast<uint32_t>(display_byte(v.y)) << 8 |
@@ -431,6 +285,8 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   constexpr int kSteps = Sq<BH, BW>::kSteps;
   constexpr int kRingRows = Sq<BH, BW>::kRingRows;
   constexpr int kGroup = SqGeom<BH, BW>::kCoefGroup;
+  constexpr int kPitch = SqGeom<BH, BW>::kCoefPitch;
+  constexpr int kStep = SqGeom<BH, BW>::kStep;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem + 2 * kSlot;
   float* slot_steps = ring + kRingRows * kRingPitch;
@@ -459,8 +315,8 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   const int r = threadIdx.x & (BW - 1);
   const int blk = g / 3;
 
-  fetch_step<BH, BW>(coeffs, steps, blk_row0, b_first, nby, nbx, nblk, smem,
-                     slot_steps);
+  fetch_step<BH, BW, kStep, kStrip, kPitch, kGroup, kThreads>(
+      coeffs, steps, blk_row0, b_first, nby, nbx, nblk, smem, slot_steps);
   for (int i = threadIdx.x; i < yb1 - yb0; i += kThreads) {
     band_r0[i] = (y0[yb0 + i] & (kRingRows - 1)) * kRingPitch;
     band_r1[i] = (y1[yb0 + i] & (kRingRows - 1)) * kRingPitch;
@@ -469,10 +325,12 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
   cp_async_wait_all();
   __syncthreads();
   if (b_first < b_last) {
-    fetch_step<BH, BW>(coeffs, steps, blk_row0, b_first + 1, nby, nbx, nblk,
-                       smem + kSlot, slot_steps + kSteps);
+    fetch_step<BH, BW, kStep, kStrip, kPitch, kGroup, kThreads>(
+        coeffs, steps, blk_row0, b_first + 1, nby, nbx, nblk, smem + kSlot,
+        slot_steps + kSteps);
   }
-  sq_step_columns<BH, BW>(smem + g * kGroup, slot_steps, d, blk, r);
+  sq_step_columns<BH, BW, kStep, kStrip, kPitch, kGroup>(
+      smem + g * kGroup, slot_steps, d, blk, r);
 
   // Per step b (kStep block rows; the tables count rows in steps), two
   // phases: (1) the rows stage of b into the ring; (2) the output rows
@@ -487,8 +345,9 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
     cp_async_wait_all();
     __syncthreads();
     if (b + 2 <= b_last) {
-      fetch_step<BH, BW>(coeffs, steps, blk_row0, b + 2, nby, nbx, nblk,
-                         smem + s * kSlot, slot_steps + s * kSteps);
+      fetch_step<BH, BW, kStep, kStrip, kPitch, kGroup, kThreads>(
+          coeffs, steps, blk_row0, b + 2, nby, nbx, nblk, smem + s * kSlot,
+          slot_steps + s * kSteps);
     }
     for (int task = threadIdx.x; task < (yz - ya) * kChunks;
          task += kThreads) {
@@ -527,8 +386,9 @@ idct_sq_display_kernel(const float* __restrict__ coeffs,
       }
     }
     if (b == b_last) break;
-    sq_step_columns<BH, BW>(smem + (s ^ 1) * kSlot + g * kGroup,
-                            slot_steps + (s ^ 1) * kSteps, d, blk, r);
+    sq_step_columns<BH, BW, kStep, kStrip, kPitch, kGroup>(
+        smem + (s ^ 1) * kSlot + g * kGroup, slot_steps + (s ^ 1) * kSteps, d,
+        blk, r);
   }
 }
 

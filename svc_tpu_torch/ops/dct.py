@@ -24,11 +24,10 @@ Each dispatches by shape: 8x8 blocks of 3 channels (the codec's default)
 go to a kernel specialised for them (``csrc/dct_wire.cu``,
 ``csrc/idct_display.cu``, ``csrc/idct_resize.cu``); the other transform
 blocks users pick, of 3 channels, go to one kernel template each,
-instantiated per block shape: K2 and K1 at every (rows, columns) in
-{1, 2, 4, 8, 16}^2 but 8x8 (``csrc/dct_wire_sq.cu``,
-``csrc/idct_display_sq.cu``), K6 at {4, 8, 16}^2 but 8x8
-(``csrc/idct_resize_sq.cu``); every other block shape or channel count
-(K6 a side of 1 or 2) goes to the general kernel
+instantiated per block shape at every (rows, columns) in {1, 2, 4, 8,
+16}^2 but 8x8 (``csrc/dct_wire_sq.cu``, ``csrc/idct_display_sq.cu``,
+``csrc/idct_resize_sq.cu``); every other block shape or channel count
+(K6 also upsampled columns) goes to the general kernel
 (``csrc/dct_wire_general.cu``, ``csrc/idct_display_general.cu``,
 ``csrc/idct_resize_general.cu``). All give the general kernel's bits.
 No call copies from host memory once its geometry is cached: tables and
@@ -80,18 +79,18 @@ IDCT_DISPLAY_GENERAL = Kernel(
     source="svc_tpu_torch/csrc/idct_display_general.cu",
     replaces="svc_tpu/ops/dct_pallas.py:692",
 )
-# K2, K1 and K6 for blocks of 3 channels of (rows, columns) in {4, 8,
-# 16}^2 other than 8x8: one kernel template each, an instantiation (and a
-# launch count) per block shape, named rows first; the squares, then the
-# rectangles. K2 and K1 also take 2x2 and the blocks with a side of 2
-# and the other in {4, 8, 16}, and 1x1 and the blocks with a side of 1
-# and the other in {2, 4, 8, 16}, K6 not
+# K2, K1 and K6 for blocks of 3 channels of (rows, columns) in {1, 2, 4,
+# 8, 16}^2 other than 8x8: one kernel template each, an instantiation (and
+# a launch count) per block shape, named rows first; the squares and
+# rectangles of sides 4, 8 and 16, then 2x2 and the blocks with a side of
+# 2 and the other in {4, 8, 16}, then 1x1 and the blocks with a side of 1
+# and the other in {2, 4, 8, 16}
 _SQ_SHAPES = ((4, 4), (16, 16), (4, 8), (8, 4), (4, 16), (16, 4), (8, 16),
               (16, 8))
 _THIN_SHAPES = ((2, 2), (2, 4), (4, 2), (2, 8), (8, 2), (2, 16), (16, 2))
 _SIDE_1_SHAPES = ((1, 1), (1, 2), (2, 1), (1, 4), (4, 1), (1, 8), (8, 1),
                   (1, 16), (16, 1))
-_K12_SHAPES = _SQ_SHAPES + _THIN_SHAPES + _SIDE_1_SHAPES
+_TEMPLATED_SHAPES = _SQ_SHAPES + _THIN_SHAPES + _SIDE_1_SHAPES
 DCT_WIRE_SQ = {
     (bh, bw): Kernel(
         f"dct{bh}x{bw}_to_wire",
@@ -100,7 +99,7 @@ DCT_WIRE_SQ = {
         source="svc_tpu_torch/csrc/dct_wire_sq.cu",
         replaces="svc_tpu/ops/dct_pallas.py:282",
     )
-    for bh, bw in _K12_SHAPES
+    for bh, bw in _TEMPLATED_SHAPES
 }
 IDCT_DISPLAY_SQ = {
     (bh, bw): Kernel(
@@ -110,7 +109,7 @@ IDCT_DISPLAY_SQ = {
         source="svc_tpu_torch/csrc/idct_display_sq.cu",
         replaces="svc_tpu/ops/dct_pallas.py:692",
     )
-    for bh, bw in _K12_SHAPES
+    for bh, bw in _TEMPLATED_SHAPES
 }
 IDCT_RESIZE = Kernel(
     "idct_resize_display",
@@ -127,7 +126,7 @@ IDCT_RESIZE_SQ = {
         source="svc_tpu_torch/csrc/idct_resize_sq.cu",
         replaces="svc_tpu/ops/resize_pallas.py:96",
     )
-    for bh, bw in _SQ_SHAPES
+    for bh, bw in _TEMPLATED_SHAPES
 }
 IDCT_RESIZE_GENERAL = Kernel(
     "idct_resize_display_general",
@@ -196,11 +195,12 @@ _K1_SQ_GEOM = {(4, 4): (8, 36, 6, 1), (16, 16): (20, 336, 3, 1),
                (16, 1): (1, 20, 3, 1)}
 # K6's templated kernels (csrc/idct_resize_sq.cu): a strip of 64 pixels
 # (64 / BW block columns) plus one halo block column, a thread per byte of
-# a strip's run of at most 192 display-row bytes; per (BH, BW) the
-# coefficient slot's (row stride, pair stride) in floats (K1's), the
-# halo's pixel columns the ring keeps, the ring's row pitch in floats, the
-# threads and the CTAs an SM holds; two slots and their steps, a ring of
-# BH + 1 pixel rows, three tables of up to 128 output rows
+# a strip's run of at most 192 display-row bytes, K1's walk steps; per
+# (BH, BW) the coefficient slot's (row stride, pair stride) in floats
+# (K1's, but at 16x1), the halo's pixel columns the ring keeps, the ring's
+# row pitch in floats, the threads and the CTAs an SM holds; two slots
+# (each rounded up to 16 bytes) and their steps, a ring of a step's pixel
+# rows and one more, three tables of up to 128 output rows
 _K6_SQ_STRIP_PIXELS = 64
 _K6_SQ_GEOM = {(4, 4): (8, 36, 4, 206, 224, 6),
                (16, 16): (20, 336, 1, 198, 256, 4),
@@ -208,7 +208,18 @@ _K6_SQ_GEOM = {(4, 4): (8, 36, 4, 206, 224, 6),
                (4, 16): (20, 80, 1, 196, 256, 5),
                (16, 4): (4, 68, 4, 206, 224, 4),
                (8, 16): (20, 176, 1, 198, 256, 4),
-               (16, 8): (12, 200, 8, 218, 224, 3)}
+               (16, 8): (12, 200, 8, 218, 224, 3),
+               (2, 2): (2, 20, 2, 198, 224, 6), (2, 4): (8, 68, 4, 206, 224, 6),
+               (4, 2): (2, 20, 2, 198, 224, 6), (2, 8): (12, 104, 8, 218, 224, 6),
+               (8, 2): (2, 20, 2, 198, 224, 6),
+               (2, 16): (20, 176, 1, 198, 256, 4),
+               (16, 2): (2, 36, 2, 198, 224, 4),
+               (1, 1): (1, 9, 1, 196, 224, 6), (1, 2): (2, 20, 2, 198, 224, 6),
+               (2, 1): (1, 12, 1, 196, 224, 6), (1, 4): (8, 68, 4, 206, 224, 6),
+               (4, 1): (1, 12, 1, 196, 224, 6), (1, 8): (12, 104, 8, 218, 224, 5),
+               (8, 1): (1, 12, 1, 196, 224, 6),
+               (1, 16): (20, 176, 1, 198, 256, 4),
+               (16, 1): (1, 16, 1, 196, 224, 5)}
 
 
 def _k2_sq_smem_bytes(block_h: int, block_w: int) -> int:
@@ -240,11 +251,13 @@ def _k1_sq_smem_bytes(block_h: int, block_w: int) -> int:
 def _k6_sq_smem_bytes(block_h: int, block_w: int) -> int:
     """Dynamic shared memory of K6's kernel for ``block_h`` x ``block_w``:
     the strip (in block columns) counts ``block_w``, the ring's pixel rows
-    ``block_h``."""
+    a walk step's (K1's, :func:`_k1_sq_step_rows`) and one more."""
     _, group, _, ring_pitch, _, _ = _K6_SQ_GEOM[block_h, block_w]
     blocks = _K6_SQ_STRIP_PIXELS // block_w + 1
-    return 4 * (2 * (blocks * 3 * group + blocks)
-                + (block_h + 1) * ring_pitch + 3 * max(_K1_BAND_ROWS))
+    step_rows = _k1_sq_step_rows(block_h, block_w)
+    slot = -(-blocks * 3 * group // 4) * 4
+    return 4 * (2 * (slot + step_rows // block_h * blocks)
+                + (step_rows + 1) * ring_pitch + 3 * max(_K1_BAND_ROWS))
 
 
 def _specialised(block_h: int, block_w: int, channels: int) -> bool:
@@ -253,14 +266,8 @@ def _specialised(block_h: int, block_w: int, channels: int) -> bool:
 
 def _templated(block_h: int, block_w: int, channels: int) -> bool:
     """Blocks of 3 channels with both sides in {1, 2, 4, 8, 16}, but
-    8x8: K2's and K1's templated kernels."""
+    8x8: K2's, K1's and K6's templated kernels."""
     return (block_h, block_w) in DCT_WIRE_SQ and channels == 3
-
-
-def _templated_k6(block_h: int, block_w: int, channels: int) -> bool:
-    """Blocks of 3 channels with both sides in {4, 8, 16}, but 8x8: K6's
-    templated kernels."""
-    return (block_h, block_w) in IDCT_RESIZE_SQ and channels == 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -725,7 +732,7 @@ def idct_resize_display(
 
     Returns ``(T, out_h, out_w*C)`` uint8. 8x8 blocks of 3 channels go to
     the specialised kernel, the other blocks of 3 channels with both sides
-    in {4, 8, 16} to the templated kernel, unless the columns are
+    in {1, 2, 4, 8, 16} to the templated kernel, unless the columns are
     upsampled (``out_w`` past the padded width, which the decoder never
     asks for); every other shape goes to the general one.
     """
@@ -742,25 +749,28 @@ def idct_resize_display(
     if out.numel() == 0:
         return out
     specialised = _specialised(block_h, block_w, channels)
-    if ((specialised or _templated_k6(block_h, block_w, channels))
+    if ((specialised or _templated(block_h, block_w, channels))
             and out_w <= nbx * block_w and not general):
         bh, bw = block_h, block_w
         if specialised:
             kernel, strip, ctas = IDCT_RESIZE, _K6_STRIP, _K6_CTAS_PER_SM
             # host matrix, passed by value
             mats = (dct_matrix(8).ctypes.data,)
+            step_rows = 8
         else:
             kernel, strip = IDCT_RESIZE_SQ[bh, bw], _K6_SQ_STRIP_PIXELS // bw
             ctas = _K6_SQ_GEOM[bh, bw][5]
             mats = (dct_matrix(bh).ctypes.data, dct_matrix(bw).ctypes.data)
+            step_rows = _k1_sq_step_rows(bh, bw)
         c = coeffs.contiguous()
         if c.data_ptr() % 16:  # the kernel copies 16-byte chunks
             c = c.clone()
         s = steps.contiguous()
-        # rows are block rows of bh pixel rows; the strip counts block
+        # rows are walk steps of step_rows pixel rows (K1's: a block row,
+        # or several where a side is 1 or 2); the strip counts block
         # columns of bw pixels
         tabs, band_rows = _band_tables_on(dev, out_h, nby * bh, nbx, t, ctas,
-                                          bh, strip)
+                                          step_rows, strip)
         n_bands = len(tabs[-1])  # band_b: (n_bands, 2)
         cols = _strip_tables_on(dev, out_w, nbx * bw, bw, strip)
         with torch.cuda.device(dev):

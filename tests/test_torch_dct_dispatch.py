@@ -1,9 +1,8 @@
 """The DCT wrappers' dispatch by shape (8x8 blocks of 3 channels to the
 specialised kernels K1 / K2 / K6; the other blocks of 3 channels with both
-sides in {4, 8, 16} to K2's, K1's and K6's templated kernels, those with a
-side of 1 or 2 to K2's and K1's; every other shape to the general ones) and the
-band and strip geometry of K1's and K6's specialised, templated and
-square-block kernels, on the CPU.
+sides in {1, 2, 4, 8, 16} to K2's, K1's and K6's templated kernels; every
+other shape to the general ones) and the band and strip geometry of K1's
+and K6's specialised, templated and square-block kernels, on the CPU.
 
 A meta device stands in for the card in the dispatch tests: shapes and
 dtypes flow through the wrappers, the launch is replaced, nothing computes.
@@ -190,13 +189,20 @@ def test_rectangular_blocks_take_their_templated_kernels(meta_launches,
      (16, 3, 1366, False, "idct16x16_resize_display"),
      (4, 3, 1366, True, "idct_resize_display_general"),
      (16, 3, 1366, True, "idct_resize_display_general"),
-     (2, 3, 1366, False, "idct_resize_display_general"),
+     (2, 3, 1366, False, "idct2x2_resize_display"),
+     (1, 3, 1366, False, "idct1x1_resize_display"),
+     (2, 3, 1366, True, "idct_resize_display_general"),
+     (1, 3, 1366, True, "idct_resize_display_general"),
+     (2, 1, 1366, False, "idct_resize_display_general"),
+     (1, 2, 1366, False, "idct_resize_display_general"),
      (8, 1, 1366, False, "idct_resize_display_general"),
      (4, 1, 1366, False, "idct_resize_display_general"),
      (16, 1, 1366, False, "idct_resize_display_general"),
      (8, 3, 1400, False, "idct_resize_display_general"),  # columns upsampled
      (4, 3, 1400, False, "idct_resize_display_general"),
-     (16, 3, 1400, False, "idct_resize_display_general")],
+     (16, 3, 1400, False, "idct_resize_display_general"),
+     (2, 3, 1400, False, "idct_resize_display_general"),
+     (1, 3, 1400, False, "idct_resize_display_general")],
 )
 def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
                                       general, kernel):
@@ -227,18 +233,29 @@ def test_idct_resize_display_dispatch(meta_launches, block, channels, out_w,
 
 
 def test_k6_keeps_its_nine_shapes():
-    # K2's and K1's templated kernels took the blocks with a side of 1 or
-    # 2; K6 did not: its templated kernels stay the eight shapes of sides
-    # 4, 8 and 16, the ninth (8x8) its specialised kernel
-    assert sorted(dct.IDCT_RESIZE_SQ) == sorted(dct._SQ_SHAPES)
-    assert len(dct.IDCT_RESIZE_SQ) + 1 == 9
+    # the nine shapes of sides 4, 8 and 16 stay K6's: the eight templated
+    # ones in its template, 8x8 its specialised kernel
+    assert set(dct._SQ_SHAPES) <= set(dct.IDCT_RESIZE_SQ)
     assert (8, 8) not in dct.IDCT_RESIZE_SQ
-    assert sorted(dct.DCT_WIRE_SQ) == sorted(dct.IDCT_DISPLAY_SQ) == sorted(
-        dct._SQ_SHAPES + dct._THIN_SHAPES + dct._SIDE_1_SHAPES)
-    assert len(dct.DCT_WIRE_SQ) == 24
-    for bh, bw in dct._THIN_SHAPES + dct._SIDE_1_SHAPES:
-        assert dct._templated(bh, bw, 3) and not dct._templated_k6(bh, bw, 3)
-        assert not dct._templated(bh, bw, 1)
+    for bh, bw in dct._SQ_SHAPES:
+        assert dct._templated(bh, bw, 3) and not dct._specialised(bh, bw, 3)
+        assert dct.IDCT_RESIZE_SQ[bh, bw].name == f"idct{bh}x{bw}_resize_display"
+    assert dct._specialised(8, 8, 3) and not dct._templated(8, 8, 3)
+
+
+def test_k6_takes_the_24_shapes():
+    # K6's template takes every shape K2's and K1's take: 1x1, 2x2, 4x4,
+    # 16x16, the six rectangles of sides 4, 8 and 16, the six with a side
+    # of 2 and the eight with a side of 1, of 3 channels only
+    assert sorted(dct.IDCT_RESIZE_SQ) == sorted(dct.DCT_WIRE_SQ) == sorted(
+        dct.IDCT_DISPLAY_SQ) == sorted(dct._TEMPLATED_SHAPES)
+    assert len(dct.IDCT_RESIZE_SQ) == 24
+    assert sorted(dct._K6_SQ_GEOM) == sorted(dct._TEMPLATED_SHAPES)
+    for bh, bw in dct._TEMPLATED_SHAPES:
+        assert dct.IDCT_RESIZE_SQ[bh, bw].source == (
+            "svc_tpu_torch/csrc/idct_resize_sq.cu")
+        assert dct._templated(bh, bw, 3)
+        assert not any(dct._templated(bh, bw, c) for c in (1, 2, 4))
 
 
 @pytest.mark.parametrize("block_h,block_w", [(2, 2), (2, 4), (4, 2), (2, 8),
@@ -246,8 +263,34 @@ def test_k6_keeps_its_nine_shapes():
 def test_side_2_width_excess_takes_the_general_k6(meta_launches, block_h,
                                                   block_w):
     # a width-excess decode (1376 padded columns to 1366) at a side of 2
-    # launches the general K6, while the width-aligned decode of the same
-    # blocks takes their templated K1
+    # takes the general K6 only where the templated one does not serve:
+    # general=True, channels other than 3, or upsampled columns (1400 of
+    # 1376)
+    for channels, out_w, general in ((3, 1366, True), (1, 1366, False),
+                                     (4, 1366, False), (3, 1400, False)):
+        n = channels * block_h * block_w
+        coeffs = torch.zeros((2, 768 // block_h, 1376 // block_w, n),
+                             device="meta")
+        steps = torch.ones(coeffs.shape[:3], device="meta")
+        out = dct.idct_resize_display(coeffs, steps, 768, out_w, channels,
+                                      block_h, block_w, general=general)
+        assert tuple(out.shape) == (2, 768, out_w * channels)
+        ((k6, k6_args),) = meta_launches
+        assert k6 == "idct_resize_display_general"
+        assert len(k6_args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
+        assert k6_args[13:21] == (2, 768, out_w, 768 // block_h,
+                                  1376 // block_w, channels, block_h, block_w)
+        meta_launches.clear()
+
+
+@pytest.mark.parametrize("block_h,block_w",
+                         dct._THIN_SHAPES + dct._SIDE_1_SHAPES)
+def test_side_1_or_2_width_excess_takes_its_templated_k6(meta_launches, block_h,
+                                                         block_w):
+    # a width-excess decode (1376 padded columns to 1366) at a side of 1 or
+    # 2 launches its templated K6, with its walk step's tables (rows in
+    # steps of 8 pixel rows, 16 at 16x2 and 16x1), and the width-aligned
+    # decode of the same blocks its templated K1
     n = 3 * block_h * block_w
     coeffs = torch.zeros((2, 768 // block_h, 1376 // block_w, n), device="meta")
     steps = torch.ones(coeffs.shape[:3], device="meta")
@@ -255,11 +298,21 @@ def test_side_2_width_excess_takes_the_general_k6(meta_launches, block_h,
     assert tuple(out.shape) == (2, 768, 1366 * 3)
     dct.idct_display(coeffs, steps, 766, 3, block_h, block_w)
     (k6, k6_args), (k1, _) = meta_launches
-    assert (k6, k1) == ("idct_resize_display_general",
+    assert (k6, k1) == (f"idct{block_h}x{block_w}_resize_display",
                         f"idct{block_h}x{block_w}_display")
-    assert len(k6_args) == len(dct.IDCT_RESIZE_GENERAL.argtypes)
-    assert k6_args[13:21] == (2, 768, 1366, 768 // block_h, 1376 // block_w,
-                              3, block_h, block_w)
+    assert len(k6_args) == len(dct.IDCT_RESIZE_SQ[block_h, block_w].argtypes)
+    assert k6_args[2:4] == (dct.dct_matrix(block_h).ctypes.data,
+                            dct.dct_matrix(block_w).ctypes.data)
+    t, out_h, w, nby, nbx, band_rows, n_bands = k6_args[13:20]
+    assert (t, out_h, w, nby, nbx) == (2, 768, 1366, 768 // block_h,
+                                       1376 // block_w)
+    step_rows = max(block_h, 8)
+    assert dct._k1_sq_step_rows(block_h, block_w) == step_rows
+    *_, band_b, rows = dct._band_tables(
+        768, 768, 1376 // block_w, 2, SMS, dct._K6_SQ_GEOM[block_h, block_w][5],
+        step_rows, 64 // block_w)
+    assert (band_rows, n_bands) == (rows, len(band_b))
+    assert band_b.max() < 768 // step_rows
 
 
 @pytest.mark.parametrize("general", [False, True])
@@ -635,7 +688,7 @@ def test_sq_host_geometry_matches_the_kernel_sources():
     # the wrappers plan with are those csrc/dct_wire_sq.cu and
     # csrc/idct_display_sq.cu are compiled with, at every (BH, BW) key
     geom, k, src = _geom("idct_display_sq.cu")
-    assert sorted(geom) == sorted(dct._K12_SHAPES) == sorted(dct._K1_SQ_GEOM)
+    assert sorted(geom) == sorted(dct._TEMPLATED_SHAPES) == sorted(dct._K1_SQ_GEOM)
     assert k["kStripPixels"] == dct._K1_SQ_STRIP_PIXELS
     assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
     ring_pitch = k["kStripPixels"] * 3 // 16 * 20 + 4
@@ -669,7 +722,7 @@ def test_sq_host_geometry_matches_the_kernel_sources():
             + 2 * g["kStep"] * strip + 3 * k["kMaxBandRows"])
         assert g["kMinCtas"] * (smem + 1024) <= SM_SMEM_BYTES
     geom, k, src = _geom("dct_wire_sq.cu")
-    assert sorted(geom) == sorted(dct._K12_SHAPES) == sorted(dct._K2_SQ_GEOM)
+    assert sorted(geom) == sorted(dct._TEMPLATED_SHAPES) == sorted(dct._K2_SQ_GEOM)
     assert k["kStripPixels"] == dct._K2_SQ_STRIP_PIXELS
     for (bh, bw), g in geom.items():
         assert f"SVC_DCT_SQ_ENTRY({bh}, {bw})" in src
@@ -841,37 +894,16 @@ def test_k2_side_1_stores_write_every_coefficient_once(block):
 @pytest.mark.parametrize("block", SIDE_1_BLOCKS)
 def test_k1_side_1_fetch_fills_the_slot(block):
     # at a side of 1, K1's slot fetch (fetch_side_1) copies a walk step's
-    # runs in one pass, kW floats a copy (4 where a pair is whole 4-float
-    # chunks, else the pair's 1 or 2): copy e of block row m's run, at
-    # float w0 = e * kW of it, pair g = w0 // (BH * BW), goes to g *
-    # kGroup + (m * BH + w // BW) * kPitch + w % BW (w its place in the
-    # pair). Every float of the step's runs lands once, at the slot place
-    # of its (pair, row, column) that the column and row stages read,
-    # inside its pair's group; copies are aligned to their size, and a
-    # copy instruction's phase (a warp at 4 bytes, half at 8, a quarter
-    # at 16) meets a bank at most twice
+    # runs in one pass, kW floats a copy (:func:`_side_1_fetch_hits`):
+    # every float of the step's runs lands once, at the slot place of its
+    # (pair, row, column) that the column and row stages read, inside its
+    # pair's group; copies are aligned to their size, and a copy
+    # instruction's phase meets a bank at most twice
     bh, bw = _hw(block)
     pitch, group, _, step = dct._K1_SQ_GEOM[bh, bw]
-    pair = bh * bw
-    kw = min(pair, 4)
     pairs = 192 // bw  # a strip's 64 / BW blocks x 3 channels
-    e = np.arange(pairs * pair // kw)
-    w0 = e * kw
-    g, w = w0 // pair, w0 % pair
-    phase = {1: 32, 2: 16, 4: 8}[kw]
-    seen = np.zeros(pairs * group, np.int64)
-    for m in range(step):
-        dst = g * group + (m * bh + w // bw) * pitch + w % bw
-        assert (dst % kw == 0).all()
-        assert (((m * bh + w // bw) * pitch + w % bw + kw - 1) < group).all()
-        assert _worst_conflict(dst // kw, phase, 32 // kw) <= 2
-        for n in range(kw):  # float n of the copy: (row, column) of w + n
-            row, col = m * bh + (w + n) // bw, (w + n) % bw
-            np.testing.assert_array_equal(dst + n, g * group + row * pitch + col)
-            np.add.at(seen, dst + n, 1)
-    assert seen.max() == 1 and seen.sum() == step * pairs * pair
-    # a run's copies start kW-aligned in the wire (its blocks are 3 pairs)
-    assert (3 * pair) % kw == 0
+    seen = _side_1_fetch_hits(bh, bw, pitch, group, step, pairs)
+    assert seen.max() == 1 and seen.sum() == step * pairs * bh * bw
 
 
 @pytest.mark.parametrize("block,out_h,in_h,nbx,t", [
@@ -1095,40 +1127,48 @@ def test_strip_tables_at_block_8_unchanged(out_w, out_h, pw, ph):
 
 # K6's templated kernels: every K6 geometry at each block shape (1376
 # pixels are 21.5 strips of 64: the last strip's block columns end
-# mid-strip, without its halo block)
-K6_SQ_CASES = [(b, *g) for b in SQ_BLOCKS for g in K6_GEOMETRIES]
+# mid-strip, without its halo block; 714 rows end a step of 8 mid-step)
+K6_SQ_CASES = [(b, *g) for b in K12_BLOCKS for g in K6_GEOMETRIES]
+
+
+def _k6_step_rows(block):
+    """The pixel rows of a walk step of K6's templated kernel: K1's, the
+    block height or 8 where a side is 1 or 2 (16 at 16x2 and 16x1)."""
+    return dct._k1_sq_step_rows(*_hw(block))
 
 
 def _k6_sq_tables(block, out_w, out_h, pw, ph, t):
-    """K6's templated kernel's band tables (block rows of BH pixel rows)
-    and strip tables (block columns of BW pixels) for ``block``."""
+    """K6's templated kernel's band tables (rows in walk steps) and strip
+    tables (block columns of BW pixels) for ``block``."""
     bh, bw = _hw(block)
     strip = dct._K6_SQ_STRIP_PIXELS // bw
     rows = dct._band_tables(out_h, ph, pw // bw, t, SMS,
-                            dct._K6_SQ_GEOM[bh, bw][5], bh, strip)
+                            dct._K6_SQ_GEOM[bh, bw][5], _k6_step_rows(block),
+                            strip)
     return rows, dct._strip_tables(out_w, pw, bw, strip)
 
 
 def _k6_sq_ring_width(block):
     """Floats of the pixels of a ring row: the strip's 64 pixel columns and
-    the halo block's first columns (all BW at BW = 4 and 8, column 0 at
-    BW = 16), interleaved."""
+    the halo block's first columns (all BW at BW = 1, 2, 4 and 8, column 0
+    at BW = 16), interleaved."""
     return (dct._K6_SQ_STRIP_PIXELS + dct._K6_SQ_GEOM[_hw(block)][2]) * 3
 
 
 def _k6_sq_walk(block, out_w, out_h, pw, ph, t):
-    """Replay the templated K6's walk: per (band, strip), the block rows it
-    transforms and, after each, the output rows it emits, with the source
-    rows its ring of BH + 1 rows holds at that moment (the current block
-    row and the previous one's last row)."""
-    bh, _ = _hw(block)
+    """Replay the templated K6's walk: per (band, strip), the walk steps
+    (S pixel rows each) it transforms and, after each, the output rows it
+    emits, with the source rows its ring of S + 1 rows holds at that
+    moment (the current step and the previous one's last row)."""
+    step = _k6_step_rows(block)
     (*_, row_lo, band_b, band_rows), (_, _, strip_lo) = _k6_sq_tables(
         block, out_w, out_h, pw, ph, t)
     for band, (b_first, b_last) in enumerate(band_b):
         yb0, yb1 = band * band_rows, min(out_h, (band + 1) * band_rows)
         for s in range(len(strip_lo) - 1):
             for b in range(b_first, b_last + 1):
-                ring = set(range(max(bh * b_first, bh * b - 1), bh * b + bh))
+                ring = set(range(max(step * b_first, step * b - 1),
+                                 min(ph, step * b + step)))
                 rows = range(max(yb0, row_lo[b]), min(yb1, row_lo[b + 1]))
                 yield band, s, b, rows, ring
 
@@ -1136,18 +1176,19 @@ def _k6_sq_walk(block, out_w, out_h, pw, ph, t):
 @pytest.mark.parametrize("block,out_w,out_h,pw,ph", K6_SQ_CASES)
 def test_k6_sq_walk_reads_inside_its_ring_and_window(block, out_w, out_h, pw,
                                                      ph):
-    # every y0 / y1 an output row reads is in the ring of BH + 1 rows when
-    # the row is emitted, each row once per strip by its own band, and a
-    # band walks its own block rows plus at most one halo block row; every
-    # x0 / x1 an output byte reads lies in the strip's block columns or
-    # column 0 of its halo block, at the ring position the tables give
+    # every y0 / y1 an output row reads is in the ring of S + 1 rows (S a
+    # walk step's) when the row is emitted, each row once per strip by its
+    # own band, and a band walks its own steps plus at most one halo step;
+    # every x0 / x1 an output byte reads lies in the strip's block columns
+    # or column 0 of its halo block, at the ring position the tables give
     bh, bw = _hw(block)
+    step = _k6_step_rows(block)
     (y0, y1, fy, _, band_b, band_rows), (col_e, col_f, strip_lo) = (
         _k6_sq_tables(block, out_w, out_h, pw, ph, 8))
     assert band_rows <= 128  # the kernel's kMaxBandRows
     emitted = np.zeros(out_h, np.int64)
     for band, s, b, rows, ring in _k6_sq_walk(block, out_w, out_h, pw, ph, 8):
-        assert 0 <= b < ph // bh
+        assert 0 <= b < -(-ph // step)
         for yo in rows:
             assert band * band_rows <= yo < (band + 1) * band_rows
             assert y0[yo] in ring
@@ -1156,7 +1197,7 @@ def test_k6_sq_walk_reads_inside_its_ring_and_window(block, out_w, out_h, pw,
             emitted[yo] += s == 0
     assert (emitted == 1).all()
     walked = band_b[:, 1] - band_b[:, 0] + 1
-    assert walked.max() <= -(-band_rows // bh) + 2
+    assert walked.max() <= -(-band_rows // step) + 2
     x0, x1, fx, _ = dct.bilinear_axis_weights(out_w, pw)
     strip, nbx = dct._K6_SQ_STRIP_PIXELS // bw, pw // bw
     for s in range(len(strip_lo) - 1):
@@ -1194,7 +1235,7 @@ def test_k6_sq_every_output_byte_written_once(block, out_w, out_h, pw, ph):
     assert (written == 1).all()
 
 
-@pytest.mark.parametrize("block", SQ_BLOCKS)
+@pytest.mark.parametrize("block", K12_BLOCKS)
 @pytest.mark.parametrize("out_w,out_h,pw,ph", K6_GEOMETRIES[:3])
 def test_k6_sq_grid_fills_the_card(block, out_w, out_h, pw, ph):
     # at T = 8: at least 2 CTAs per SM, and two waves at the CTAs per SM
@@ -1215,82 +1256,122 @@ def test_k6_sq_grid_fills_the_card(block, out_w, out_h, pw, ph):
 
 
 def _k6_row_stage(bh, bw, threads):
-    """Per step s of the templated K6's row stage, the pair (-1 where the
-    lane forms no row), row and first column of each of the CTA's
-    ``threads`` lanes: at BH >= BW rows q + s * BW of pair g (lane = g * BW
-    + q), all columns; at BH < BW the lanes in BW / BH parts of whole warps
+    """Per step s of the templated K6's row stage over a walk step's S
+    rows of a pair, the pair (-1 where the lane forms no row), row and
+    first column of each of the CTA's ``threads`` lanes: at S >= BW rows q
+    + s * BW of pair g (lane = g * BW + q), all columns (at BW = 1 lane g
+    its pair's S rows); at S < BW the lanes in BW / S parts of whole warps
     (kPart lanes: the pairs' rows rounded up to warps), lane u of part p
-    columns [p * BH, p * BH + BH) of row u % BH of pair u // BH."""
+    columns [p * S, p * S + S) of row u % S of pair u // S."""
     groups = (dct._K6_SQ_STRIP_PIXELS // bw + 1) * 3
+    rows = dct._k1_sq_step_rows(bh, bw)
     lanes = np.arange(threads)
-    if bh >= bw:
+    if rows >= bw:
         g = np.where(lanes // bw < groups, lanes // bw, -1)
-        return [(g, lanes % bw + s * bw, 0 * lanes) for s in range(bh // bw)]
-    part = -(-groups * bh // 32) * 32
+        return [(g, lanes % bw + s * bw, 0 * lanes) for s in range(rows // bw)]
+    part = -(-groups * rows // 32) * 32
     p, u = lanes // part, lanes % part
-    g = np.where((u // bh < groups) & (p < bw // bh), u // bh, -1)
-    return [(g, u % bh, p * bh)]
+    g = np.where((u // rows < groups) & (p < bw // rows), u // rows, -1)
+    return [(g, u % rows, p * rows)]
 
 
 def test_k6_sq_host_geometry_matches_the_kernel_source():
     # the strip, tallest band, slot padding, halo columns, ring pitch,
-    # threads, CTAs per SM and shared memory that the wrapper plans with are
-    # those csrc/idct_resize_sq.cu is compiled with, at every (BH, BW) key;
-    # its slots are K1's layout at each shape
+    # threads, CTAs per SM, walk steps and shared memory that the wrapper
+    # plans with are those csrc/idct_resize_sq.cu is compiled with, at
+    # every (BH, BW) key; its slots and steps are K1's at each shape
     geom, k, src = _geom("idct_resize_sq.cu")
-    assert sorted(geom) == sorted(dct._SQ_SHAPES) == sorted(dct._K6_SQ_GEOM)
+    assert sorted(geom) == sorted(dct._TEMPLATED_SHAPES) == sorted(
+        dct._K6_SQ_GEOM)
     assert k["kStripPixels"] == dct._K6_SQ_STRIP_PIXELS
     assert k["kMaxBandRows"] == max(dct._K1_BAND_ROWS)
     assert re.search(r"__launch_bounds__\(SqGeom<BH, BW>::kThreads,\s+"
                      r"SqGeom<BH, BW>::kMinCtas\)", src)
-    assert re.search(r"kRingRows = BH \+ 1;", src)
+    assert re.search(r"kRingRows = kRowsStep \+ 1;", src)
+    assert re.search(r"kRowsStep = kStep \* BH;", src)
+    assert re.search(r"kSlot =\s+\(kGroups \* SqGeom<BH, BW>::kCoefGroup \+ 3\) "
+                     r"/ 4 \* 4;", src)
     for (bh, bw), g in geom.items():
         assert f"SVC_IDCT_SQ_RESIZE_ENTRY({bh}, {bw})" in src
         assert (g["kCoefPitch"], g["kCoefGroup"], g["kHaloColumns"],
                 g["kRingPitch"], g["kThreads"], g["kMinCtas"]) == (
                     dct._K6_SQ_GEOM[bh, bw])
-        assert dct._K6_SQ_GEOM[bh, bw][:2] == dct._K1_SQ_GEOM[bh, bw][:2]
-        # the whole halo block at BW = 4 and 8, its column 0 at BW = 16
+        # K1's slot layout, but 16x1's pairs packed at 16 floats (5 CTAs
+        # an SM where K1's 20 allow 4)
+        if (bh, bw) == (16, 1):
+            assert (g["kCoefPitch"], g["kCoefGroup"]) == (1, 16)
+        else:
+            assert dct._K6_SQ_GEOM[bh, bw][:2] == dct._K1_SQ_GEOM[bh, bw][:2]
+        assert g["kStep"] == dct._K1_SQ_GEOM[bh, bw][3]
+        rows = bh * g["kStep"]  # a walk step's pixel rows
+        assert rows == _k6_step_rows((bh, bw))
+        # the whole halo block at BW = 1, 2, 4 and 8, its column 0 at 16
         assert g["kHaloColumns"] == (1 if bw == 16 else bw)
         assert g["kRingPitch"] >= _k6_sq_ring_width((bh, bw))
         blocks = k["kStripPixels"] // bw + 1
         assert blocks * 3 * bw <= g["kThreads"]  # a thread per pair column
-        rows = _k6_row_stage(bh, bw, g["kThreads"])
-        assert all(len(pair) == g["kThreads"] for pair, _, _ in rows)
+        stage = _k6_row_stage(bh, bw, g["kThreads"])
+        assert all(len(pair) == g["kThreads"] for pair, _, _ in stage)
         assert k["kStripPixels"] * 3 <= g["kThreads"]  # a thread per byte
         assert g["kThreads"] % 32 == 0
         # the least whole warps that hold the column stage and the parts
         assert g["kThreads"] - 32 < max(
-            blocks * 3 * bw, bw // min(bh, bw) * -(-blocks * 3 * min(bh, bw)
-                                                  // 32) * 32)
-        assert g["kCoefGroup"] >= bh * g["kCoefPitch"]
-        slot = blocks * 3 * g["kCoefGroup"]
-        assert (4 * slot) % 16 == 0  # 16-byte cp.async into both slots
+            blocks * 3 * bw, bw // min(rows, bw) * -(-blocks * 3 * min(rows, bw)
+                                                    // 32) * 32)
+        assert g["kCoefGroup"] >= rows * g["kCoefPitch"]
+        slot = -(-blocks * 3 * g["kCoefGroup"] // 4) * 4  # whole 16 bytes
         smem = dct._k6_sq_smem_bytes(bh, bw)
-        assert smem == 4 * (2 * (slot + blocks) + (bh + 1) * g["kRingPitch"]
+        assert smem == 4 * (2 * (slot + g["kStep"] * blocks)
+                            + (rows + 1) * g["kRingPitch"]
                             + 3 * k["kMaxBandRows"])
         assert g["kMinCtas"] * (smem + 1024) <= SM_SMEM_BYTES
 
 
-@pytest.mark.parametrize("block", SQ_BLOCKS)
+# K6's own conflict: 16x1 packs its pairs at 16 floats (K1's 20 pad them)
+K6_COLUMN_CONFLICTS = {(16, 1): 4}
+
+
+@pytest.mark.parametrize("block", K12_BLOCKS)
 def test_k6_sq_layouts_avoid_bank_conflicts(block):
-    # shared memory has 32 banks of 4 bytes; a warp's 16-byte accesses go
-    # in quarter-warps. The column stage (lanes along l) is free of
-    # conflicts over the strip's pairs and the halo's, the row stage's
-    # float4 loads as free as K1's at that shape (2-way at 4x8 and 16x4);
+    # shared memory has 32 banks of 4 bytes; a warp's 8-byte accesses go in
+    # half-warps, its 16-byte ones in quarter-warps. The column stage (lanes
+    # along l) is free of conflicts over the strip's pairs and the halo's
+    # (2-way at BW = 2, as in K1), the row stage's float4 loads as free as
+    # K1's at that shape (2-way at 4x8 and 16x4), its float2 loads at BW =
+    # 2 free; at BW = 1 both stages read a pair's slot column at once, free;
     # the row stage's ring stores (of a halo block only the columns the
-    # ring keeps) conflict at most two-way
+    # ring keeps) conflict at most two-way. A walk step's rows stand as
+    # those of one S x BW block
     bh, bw = _hw(block)
     pitch, c_group, halo_cols, ring_pitch, threads, _ = dct._K6_SQ_GEOM[bh, bw]
+    rows = _k6_step_rows(block)
     blocks = dct._K6_SQ_STRIP_PIXELS // bw + 1
     lanes = np.arange(blocks * 3 * bw)
     group, r = lanes // bw, lanes % bw
-    for fixed in range(bh):  # the column stage
-        addr = group * c_group + fixed * pitch + r
-        assert _worst_conflict(addr, 32, 32) == 1
-    rows = _k6_row_stage(bh, bw, threads)
-    for pair, row, col0 in rows:
+    if bw == 1:
+        # both stages: float4s in quarter-warps at a pair stride of an odd
+        # multiple of 4 (16x1's 16 floats: 4-way, for a fifth CTA an SM),
+        # else floats a warp at once at an odd stride
+        for i in range(0, rows, 4 if c_group % 4 == 0 else 1):
+            if c_group % 4 == 0:
+                assert _worst_conflict((group * c_group + i) // 4, 8, 8) == (
+                    K6_COLUMN_CONFLICTS.get((bh, bw), 1))
+            else:
+                assert _worst_conflict(group * c_group + i, 32, 32) == 1
+    else:
+        for fixed in range(rows):  # the column stage
+            addr = group * c_group + fixed * pitch + r
+            assert _worst_conflict(addr, 32, 32) == K1_COLUMN_CONFLICTS.get(
+                (bh, bw), 1)
+    stage = _k6_row_stage(bh, bw, threads)
+    for pair, row, col0 in stage:
         live = pair >= 0
+        if bw == 2:  # the row stage's float2 loads, in half-warps
+            addr = (pair * c_group + row * pitch) // 2
+            for h in range(0, threads, 16):
+                a = addr[h:h + 16][live[h:h + 16]]
+                if len(a):
+                    assert int(np.bincount(np.unique(a) % 16).max()) == 1
         for q in range(bw // 4):  # the row stage's float4 loads
             addr = (pair * c_group + row * pitch + 4 * q) // 4
             for h in range(0, threads, 8):
@@ -1299,10 +1380,10 @@ def test_k6_sq_layouts_avoid_bank_conflicts(block):
                     worst = int(np.bincount(np.unique(a) % 8).max())
                     assert worst <= K1_ROW_CONFLICTS.get((bh, bw), 1)
         blk, c = pair // 3, pair % 3
-        for jj in range(min(bh, bw)):  # the row stage's ring stores
+        for jj in range(min(rows, bw)):  # the row stage's ring stores
             j = col0 + jj
             col = (blk * bw + j) * 3 + c
-            addr = (row % (bh + 1)) * ring_pitch + col
+            addr = (row % (rows + 1)) * ring_pitch + col
             kept = live & ((blk < blocks - 1) | (j < halo_cols))
             assert col[kept].max() < _k6_sq_ring_width(block)
             for w in range(0, threads, 32):
@@ -1310,14 +1391,60 @@ def test_k6_sq_layouts_avoid_bank_conflicts(block):
                 if len(a):
                     assert np.bincount(a).max() <= 2
         # every (pair, row, column) of the strip and its halo once
-    hits = np.zeros((blocks * 3, bh, bw), np.int64)
-    for pair, row, col0 in rows:
+    hits = np.zeros((blocks * 3, rows, bw), np.int64)
+    for pair, row, col0 in stage:
         live = pair >= 0
-        for m in range(min(bh, bw)):
+        for m in range(min(rows, bw)):
             np.add.at(hits, (pair[live], row[live], col0[live] + m), 1)
         warps = col0.reshape(-1, 32)
         assert (warps == warps[:, :1]).all()  # a part's columns: whole warps
     assert (hits == 1).all()
+
+
+def _side_1_fetch_hits(bh, bw, pitch, group, step, pairs):
+    """Replay fetch_side_1 (csrc/idct_sq.cuh) for a slot of ``pairs``
+    pairs at (``pitch``, ``group``) over a walk step of ``step`` block
+    rows: copy e of block row m's run, at float w0 = e * kW of it, pair g =
+    w0 // (BH * BW), goes to g * kGroup + (m * BH + w // BW) * kPitch + w %
+    BW (w its place in the pair), kW = 4 floats where a pair is whole
+    4-float chunks, else the pair's 1 or 2. Checks that each float lands at
+    the slot place of its (pair, row, column), inside its pair's group,
+    every copy aligned to its size and a copy instruction's phase (a warp
+    at 4 bytes, half at 8, a quarter at 16) on a bank at most twice; returns
+    the count of copies that landed on each slot float."""
+    pair = bh * bw
+    kw = min(pair, 4)
+    e = np.arange(pairs * pair // kw)
+    w0 = e * kw
+    g, w = w0 // pair, w0 % pair
+    phase = {1: 32, 2: 16, 4: 8}[kw]
+    seen = np.zeros(pairs * group, np.int64)
+    for m in range(step):
+        dst = g * group + (m * bh + w // bw) * pitch + w % bw
+        assert (dst % kw == 0).all()
+        assert (((m * bh + w // bw) * pitch + w % bw + kw - 1) < group).all()
+        assert _worst_conflict(dst // kw, phase, 32 // kw) <= 2
+        for n in range(kw):  # float n of the copy: (row, column) of w + n
+            row, col = m * bh + (w + n) // bw, (w + n) % bw
+            np.testing.assert_array_equal(dst + n, g * group + row * pitch + col)
+            np.add.at(seen, dst + n, 1)
+    # a run's copies start kW-aligned in the wire (its blocks are 3 pairs)
+    assert (3 * pair) % kw == 0
+    return seen
+
+
+@pytest.mark.parametrize("block", SIDE_1_BLOCKS)
+def test_k6_side_1_fetch_fills_the_slot(block):
+    # at a side of 1, K6 fetches a walk step's runs with K1's one-pass
+    # fetch (fetch_side_1), over the strip's blocks and its halo block:
+    # every float of the step's runs lands once, where the two stages read
+    # it
+    bh, bw = _hw(block)
+    pitch, group, *_ = dct._K6_SQ_GEOM[bh, bw]
+    step = dct._K1_SQ_GEOM[bh, bw][3]
+    pairs = (dct._K6_SQ_STRIP_PIXELS // bw + 1) * 3
+    seen = _side_1_fetch_hits(bh, bw, pitch, group, step, pairs)
+    assert seen.max() == 1 and seen.sum() == step * pairs * bh * bw
 
 
 @pytest.mark.parametrize("block,out_w,out_h,pw,ph,t", [
@@ -1330,12 +1457,24 @@ def test_k6_sq_layouts_avoid_bank_conflicts(block):
     ("4x16", 200, 120, 208, 128, 1), ("4x16", 854, 40, 864, 48, 1),
     ("16x4", 120, 64, 128, 64, 2), ("16x4", 61, 37, 64, 48, 1),
     ("8x16", 854, 40, 864, 48, 1), ("8x16", 61, 37, 64, 40, 1),
-    ("16x8", 200, 120, 208, 128, 1), ("16x8", 120, 64, 128, 64, 2)])
+    ("16x8", 200, 120, 208, 128, 1), ("16x8", 120, 64, 128, 64, 2),
+    # a side of 1 or 2 (some with a last walk step of fewer block rows
+    # than the others: padded heights of 42, 44, 45, 36 and 37)
+    (2, 61, 37, 64, 42, 1), ("2x4", 120, 64, 128, 64, 2),
+    ("4x2", 854, 40, 864, 44, 1), ("2x8", 200, 120, 208, 128, 1),
+    ("8x2", 61, 37, 64, 40, 1), ("2x16", 100, 34, 112, 36, 1),
+    ("16x2", 120, 64, 128, 64, 2), (1, 61, 37, 64, 45, 1),
+    (1, 200, 120, 208, 128, 1), ("1x2", 854, 40, 864, 48, 1),
+    ("2x1", 59, 42, 64, 42, 1), ("1x4", 120, 64, 128, 64, 2),
+    ("4x1", 61, 37, 64, 44, 1), ("1x8", 200, 120, 208, 128, 1),
+    ("8x1", 854, 40, 864, 48, 1), ("1x16", 61, 35, 64, 37, 1),
+    ("16x1", 61, 37, 64, 48, 1)])
 def test_k6_sq_walk_reproduces_plain_bytes(block, out_w, out_h, pw, ph, t):
     # the templated kernel's walk, replayed on the plain version's planes
-    # through a ring of BH + 1 rows (row y at y % (BH + 1)) of the strip's
-    # pixels and the halo's kept columns, with the tables' ring positions
-    # and the kernel's per-element blends, gives the plain version's bytes
+    # through a ring of S + 1 rows (S a walk step's pixel rows; row y at y
+    # % (S + 1)) of the strip's pixels and the halo's kept columns, with
+    # the tables' ring positions and the kernel's per-element blends, gives
+    # the plain version's bytes
     bh, bw = _hw(block)
     rng = np.random.default_rng(out_w + out_h + bh + 3 * bw)
     nby, nbx = ph // bh, pw // bw
@@ -1348,17 +1487,20 @@ def test_k6_sq_walk_reproduces_plain_bytes(block, out_w, out_h, pw, ph, t):
     width = _k6_sq_ring_width(block)
     cols = width // 3  # the strip's 64 pixel columns and the halo's kept
     # interleaved pixels, the halo's columns past each strip's end (zero
-    # past nbx)
+    # past nbx), rows past the frame (a partial last step) NaN
+    step = _k6_step_rows(block)
     pix = torch.nn.functional.pad(planes.permute(0, 2, 3, 1), (0, 0, 0, cols))
+    pix = torch.nn.functional.pad(pix, (0, 0, 0, 0, 0, -ph % step),
+                                  value=float("nan"))
     (y0, y1, fy, *_), (col_e, col_f, strip_lo) = _k6_sq_tables(
         block, out_w, out_h, pw, ph, t)
-    rows_n = bh + 1
+    rows_n = step + 1
     out = torch.full((t, out_h, 3 * out_w), float("nan"))
     ring = torch.full((t, rows_n, width), float("nan"))
     for _, s, b, rows, _ in _k6_sq_walk(block, out_w, out_h, pw, ph, t):
-        for i in range(bh):
-            ring[:, (bh * b + i) % rows_n] = pix[
-                :, bh * b + i, 64 * s:64 * s + cols].reshape(t, -1)
+        for i in range(step):
+            ring[:, (step * b + i) % rows_n] = pix[
+                :, step * b + i, 64 * s:64 * s + cols].reshape(t, -1)
         k = torch.arange(strip_lo[s], strip_lo[s + 1])
         e = torch.from_numpy(col_e[k.numpy()]).long()
         g = torch.from_numpy(col_f[k.numpy()])

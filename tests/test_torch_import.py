@@ -168,8 +168,18 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         "idct1x1_display", "idct1x2_display", "idct2x1_display",
         "idct1x4_display", "idct4x1_display", "idct1x8_display",
         "idct8x1_display", "idct1x16_display", "idct16x1_display",
+        # K6 at 2x2, the rectangles with a side of 2, 1x1 and those with a
+        # side of 1
+        "idct2x2_resize_display", "idct2x4_resize_display",
+        "idct4x2_resize_display", "idct2x8_resize_display",
+        "idct8x2_resize_display", "idct2x16_resize_display",
+        "idct16x2_resize_display", "idct1x1_resize_display",
+        "idct1x2_resize_display", "idct2x1_resize_display",
+        "idct1x4_resize_display", "idct4x1_resize_display",
+        "idct1x8_resize_display", "idct8x1_resize_display",
+        "idct1x16_resize_display", "idct16x1_resize_display",
     }
-    assert len(ks) == 79
+    assert len(ks) == 95
     # K10 (both kernels) and K11 replace no pl.pallas_call: svc_tpu's CCL
     # while_loop and jax.random's threefry (its k-means++ seeding draw)
     no_pallas = {"ccl_converge": "jax.lax.while_loop(",

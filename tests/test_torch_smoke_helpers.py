@@ -172,6 +172,36 @@ def test_ptxas_report_names_the_square_k6_instances(smoke):
         ("idct_resize_sq.cu", "idct_sq_resize_kernel<4, 16>", 47, 0)]
 
 
+def test_ptxas_report_names_the_side_1_and_2_k6_instances(smoke):
+    # K6's template at a side of 1 or 2 (rows first, one-digit sides and a
+    # 16): one entry per shape, with its spill stores
+    mangled = ("_ZN50_GLOBAL__N__e38884e4_17_idct_resize_sq_cu_7581c29221"
+               "idct_sq_resize_kernelILi{}ELi{}EEEvPKfS2_NS_4DctFIXT_EXT0_EEE"
+               "PKiS6_S2_S6_S6_S6_S2_S6_Phiiiii")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{mangled.format(1, 1)}' "
+        "for 'sm_90a'",
+        f"ptxas info    : Function properties for {mangled.format(1, 1)}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{mangled.format(2, 16)}' "
+        "for 'sm_90a'",
+        f"ptxas info    : Function properties for {mangled.format(2, 16)}",
+        "    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{mangled.format(16, 1)}' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 72 registers, used 1 barriers",
+    ])
+    assert smoke.ptxas_report(log) == [
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<1, 1>", 40, 0),
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<2, 16>", 64, 0),
+        ("idct_resize_sq.cu", "idct_sq_resize_kernel<16, 1>", 72, 0)]
+    assert smoke.ptxas_spills(log) == {"idct_sq_resize_kernel<1, 1>": 0,
+                                       "idct_sq_resize_kernel<2, 16>": 20,
+                                       "idct_sq_resize_kernel<16, 1>": 0}
+
+
 def test_ptxas_report_names_the_templated_k2_k1_instances(smoke):
     # the templates of dct_wire_sq.cu and idct_display_sq.cu take (rows,
     # columns): one entry per block shape, rows first, with its spill stores
