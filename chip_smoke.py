@@ -30,7 +30,12 @@ each:
    too). Every kernel runs on its new kernel (K1 / K2 / K6 8x8 x 3, K3
    and K7 square 4/8/16 blocks at r = 1, K4 and the K8 pyramid levels 1-3
    in one launch, K5 the 8-CTA cluster kernel, the K8 refine 8 subplanes
-   with 16x16 blocks at r = 1, K9 2x2 blocks at r = 1), held bit for bit
+   with 16x16 blocks at r = 1, K9 2x2 blocks at r = 1; K3, K7 and K9 also
+   at r = 2, 3, 4, each instance on the MVs the encoder's own search gives
+   its level of a 1080p clip at ranges 16, 24 and 32, on random MVs and on
+   odd MVs past the frame edges, K7 on frames 0-1, K9 at the EBMA shape
+   with zero, random and past-edge MVs and T = 1, each timed in turns
+   with the general kernel at its shape), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
    in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
@@ -115,9 +120,11 @@ each:
 8. card against CPU — the first 3 frames, default config, on both devices;
 9. per-frame motion — two consecutive 1080p frames (padded to 1088 rows)
    through ``build_pyramid`` -> ``hbma(., ., 8, 16, 16)`` -> the three
-   global-motion estimators on ``cuda`` (K7, the fused K4 and the 2x2 K9
-   must run, the general K7 and K9 and the single-level K4 not), held against
-   ``hbma_stack`` on the same 2-frame stack and the CPU port;
+   global-motion estimators on ``cuda``, then ``hbma`` at ranges 16, 24
+   and 32 (K7, the fused K4 and the 2x2 K9 must run, every K7 and K9
+   instance at r = 1-4, the general K7 and K9 and the single-level K4 not),
+   each held against ``hbma_stack`` on the same 2-frame stack and the CPU
+   port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
     launch) and ``hbma_stack(..., base_pitched=...)`` (the fused K8
@@ -160,12 +167,23 @@ each:
     and launches; one staged replay's profile (in a child process),
     whose coefficients cross in one H2D copy straight into the graph's
     input with no device-to-device copy of their size; a replay launches
-    K1 once and nothing else.
+    K1 once and nothing else;
+15. search ranges — 9-frame 1080p clips with
+    ``EncoderConfig(mv_search_range=16)``, 24 and 32 (top radii 2, 3, 4)
+    on graph replays: K9's and K3's instances of that radius must run, no
+    other radius's and no general K3 or K9; each stream and its frames
+    byte-equal to ``graph=False``, the first 3 frames encoded on the CPU
+    port (header and MV fields equal, coefficients within 2.5e-4, block
+    types within 1%), 2 payloads decoded there (the display gate); then
+    the device batch time of each range's encoder (graph replays) in turns
+    with the default range 8.
 
-Phases 4-7 and 12 also need K10 and K11 to run. A graph's kernels count
+Phases 4-7, 12 and 15 also need K10 and K11 to run. A graph's kernels count
 one launch each on every replay (its warm-up runs them once more). Each
-path of phases 4-7, 9, 10, 12 and 13 runs with the launch counters set
-to 0 just before it and read just after. The second-to-last line is a JSON
+path of phases 4-7, 9, 10, 12, 13 and 15 runs with the launch counters set
+to 0 just before it and read just after; K3's, K7's and K9's are also
+counted per template instance (``refine_sads<16, 2>``,
+``candidate_sads<4>``). The second-to-last line is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -191,6 +209,9 @@ BLOCK_TYPE_TOL = 0.01  # phase 8: share of blocks allowed to differ
 # through a 1- or 2-point transform): their decode gates hold the bytes
 # off those ties (tools/display_ties.py)
 TIE_SHAPES = ((2, 2), (1, 1))
+# --mv-search-range values past the default 8 that phases 9 and 15 run: top
+# radii 2, 3 and 4 at 16x16 MV blocks and 4 levels
+WIDE_RANGES = (16, 24, 32)
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
 # HBM rate, or the operations over the float32 rate outside the tensor
@@ -414,6 +435,168 @@ def record(results, name, kernel, err, ms, wrapper_ms, plain_ms, nbytes, ops,
 def even_mvs(g, shape, bound_, dev):
     return 2 * torch.randint(-bound_ // 2, bound_ // 2 + 1, shape, generator=g,
                              dtype=torch.int32).to(dev)
+
+
+def search_level_mvs(pyr, search_range: int):
+    """The MVs each refinement level of ``hbma_stack(pyr, search_range, 16,
+    16)`` receives (its doubled, rounded propagated field), by the
+    encoder's own search: ``{level: (T, 68, 120, 2) int32}`` and the top
+    level's radius."""
+    from svc_tpu_torch.ops import motion
+
+    levels = len(pyr)
+    r = motion._top_range(levels, search_range, 16, 16)
+    top = pyr[-1]
+    mv, min_mad = motion.ebma(top[:-1], top[1:], r, 2, 2)
+    out = {}
+    for lvl in range(levels - 2, -1, -1):
+        b = 16 >> lvl
+        mv = mv * 2.0
+        out[lvl] = torch.round(mv).to(torch.int32)
+        stack = pyr[lvl]
+        sads = motion.refine_sads(stack, out[lvl], r, b, b)
+        mv, min_mad = motion._refine_select(motion._mads(sads, b, b), mv, min_mad,
+                                            r, b, b, *stack.shape[1:])
+    return out, r
+
+
+def wide_search_parity(g, dev, results, int_ops_per_s):
+    """Phase 3's radii 2-4 (``--mv-search-range`` 16, 24, 32 at 16x16 MV
+    blocks and 4 levels): the K3 instances at levels 2, 1, 0 of a 9-frame
+    1080p clip's luma pyramid (blocks 4, 8, 16), on the MVs the encoder's
+    own search gives each level, on random MVs and on odd MVs past the
+    frame edges; K7's on frames 0 and 1 (the search's MVs and odd past-edge
+    ones); K9's at the EBMA path shape (136x240, T = 8) with zero, random
+    and past-edge MVs and at T = 1. Each bit-equal to the general kernel
+    and to the plain version on every entry, timed in turns with the
+    general kernel (CUDA graph replays), its bound beside it."""
+    from svc_tpu_torch.ops import motion
+    from svc_tpu_torch.ops.pyramid import build_pyramid
+    from svc_tpu_torch.tools.clips import make_clip
+
+    pyr = build_pyramid(padded_luma(make_clip(1920, 1080, 9), dev), 4)
+    lines = []
+    for search_range in WIDE_RANGES:
+        level_mvs, r = search_level_mvs(pyr, search_range)
+        side2 = (2 * r + 1) ** 2
+        k3, k7 = [], []
+        for lvl in (2, 1, 0):
+            b = 16 >> lvl
+            stack = pyr[lvl]
+            mfh, mfw = stack.shape[1] // b, stack.shape[2] // b
+            own = level_mvs[lvl]
+            bnd = (4 * r) << (2 - lvl)  # the reach of the search's MVs at this level
+            cases = {
+                "the search's": own,
+                "random": torch.randint(-bnd, bnd + 1, own.shape, generator=g,
+                                        dtype=torch.int32).to(dev),
+                "odd past the edges": (2 * torch.randint(-b, b + 1, own.shape, generator=g,
+                                                         dtype=torch.int32) + 1).to(dev),
+            }
+            name = f"refine_sads<{b}, {r}>"
+            for kind, mv in cases.items():
+                before = motion.REFINE_SADS.instance_launches[name]
+                got = motion.refine_sads(stack, mv, r, b, b)
+                if motion.REFINE_SADS.instance_launches[name] != before + 1:
+                    fail(f"K3 at r={r}, level {lvl} did not take {name}")
+                ref = motion.refine_sads_plain(stack, mv, r, b, b)
+                if not torch.equal(got, ref):
+                    fail(f"K3 {name} differs from its plain version ({kind} MVs)")
+                if not torch.equal(got, motion.refine_sads(stack, mv, r, b, b, general=True)):
+                    fail(f"K3 {name} differs from the general kernel ({kind} MVs)")
+            g_ms, n_ms, turns = in_turns(
+                lambda: motion.refine_sads(stack, own, r, b, b, general=True),
+                lambda: motion.refine_sads(stack, own, r, b, b), graph_ms)
+            w_ms = cuda_ms(lambda: motion.refine_sads(stack, own, r, b, b))
+            p_ms = cuda_ms(lambda: motion.refine_sads_plain(stack, own, r, b, b), iters=3,
+                           warmup=1)
+            # bytes: the stack read once, the MVs, each SAD written once;
+            # operations: a SIMD SAD of 4 bytes each
+            n_out = (stack.shape[0] - 1) * side2 * mfh * mfw
+            nbytes = stack.numel() + own.numel() * 4 + n_out * 4
+            ops = n_out * b * b // 4
+            line = record(results, name, motion.REFINE_SADS, 0, n_ms, w_ms, p_ms, nbytes,
+                          ops, ops_per_s=int_ops_per_s)
+            k3.append(f"level {lvl} {name} {n_ms:.4f} ms, general {g_ms:.4f} "
+                      f"({g_ms / n_ms:.1f}x; in turns {', '.join(f'{x:.4f}' for x in turns)}), "
+                      f"plain {p_ms:.4f}; {line}")
+
+            # K7: frames 0 and 1 of the level, the search's MVs of frame 0
+            tr, an = stack[0], stack[1]
+            name7 = f"refine_mads<{b}, {r}>"
+            odd = cases["odd past the edges"][0].contiguous()
+            for kind, mv in (("the search's", own[0].contiguous()), ("odd past the edges", odd)):
+                before = motion.REFINE_MADS.instance_launches[name7]
+                got = motion.refine_mads(tr, an, mv, r, b, b)
+                if motion.REFINE_MADS.instance_launches[name7] != before + 1:
+                    fail(f"K7 at r={r}, level {lvl} did not take {name7}")
+                ref = motion.refine_mads_plain(tr, an, mv, r, b, b)
+                if not torch.equal(got, ref):
+                    fail(f"K7 {name7} differs from its plain version ({kind} MVs)")
+                if not torch.equal(got, motion.refine_mads(tr, an, mv, r, b, b, general=True)):
+                    fail(f"K7 {name7} differs from the general kernel ({kind} MVs)")
+            mv0 = own[0].contiguous()
+            g_ms, n_ms, turns = in_turns(
+                lambda: motion.refine_mads(tr, an, mv0, r, b, b, general=True),
+                lambda: motion.refine_mads(tr, an, mv0, r, b, b), graph_ms)
+            w_ms = cuda_ms(lambda: motion.refine_mads(tr, an, mv0, r, b, b))
+            p_ms = cuda_ms(lambda: motion.refine_mads_plain(tr, an, mv0, r, b, b), iters=3,
+                           warmup=1)
+            nbytes = 2 * tr.numel() + mv0.numel() * 4 + side2 * mfh * mfw * 4
+            ops = side2 * mfh * mfw * b * b // 4
+            line = record(results, name7, motion.REFINE_MADS, 0, n_ms, w_ms, p_ms, nbytes,
+                          ops, ops_per_s=int_ops_per_s)
+            k7.append(f"level {lvl} {name7} {n_ms:.4f} ms, general {g_ms:.4f} "
+                      f"({g_ms / n_ms:.1f}x; in turns {', '.join(f'{x:.4f}' for x in turns)}); "
+                      f"{line}")
+
+        # K9: the top level's EBMA shape
+        top = pyr[3]
+        tr, an = top[:-1], top[1:]
+        zero = torch.zeros((8, 68, 120, 2), dtype=torch.int32, device=dev)
+        odd1 = (2 * torch.randint(-4, 5, (1, 68, 120, 2), generator=g, dtype=torch.int32)
+                + 1).to(dev)
+        cases = {
+            "T=8 zero MVs": (tr, an, zero),
+            "T=8 MVs within +-14": (tr, an, torch.randint(
+                -14, 15, (8, 68, 120, 2), generator=g, dtype=torch.int32).to(dev)),
+            "T=8 odd MVs past the edges": (tr, an, (2 * torch.randint(
+                -4, 5, (8, 68, 120, 2), generator=g, dtype=torch.int32) + 1).to(dev)),
+            "T=1 odd MVs past the edges": (tr[:1], an[:1], odd1),
+        }
+        name9 = f"candidate_sads<{r}>"
+        for kind, (a, bb, mv) in cases.items():
+            before = motion.CANDIDATE_SADS.instance_launches[name9]
+            got = motion.candidate_sads(a, bb, mv, r, 2, 2)
+            if motion.CANDIDATE_SADS.instance_launches[name9] != before + 1:
+                fail(f"K9 at r={r} ({kind}) did not take {name9}")
+            if not torch.equal(got, motion.candidate_sads_plain(a, bb, mv, r, 2, 2)):
+                fail(f"K9 {name9} differs from its plain version ({kind})")
+            if not torch.equal(got, motion.candidate_sads(a, bb, mv, r, 2, 2, general=True)):
+                fail(f"K9 {name9} differs from the general kernel ({kind})")
+        g_ms, n_ms, turns = in_turns(
+            lambda: motion.candidate_sads(tr, an, zero, r, 2, 2, general=True),
+            lambda: motion.candidate_sads(tr, an, zero, r, 2, 2), graph_ms)
+        w_ms = cuda_ms(lambda: motion.candidate_sads(tr, an, zero, r, 2, 2))
+        p_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, r, 2, 2), iters=3,
+                       warmup=1)
+        n_out = 8 * side2 * 68 * 120
+        nbytes = 2 * tr.numel() + zero.numel() * 4 + n_out * 4
+        # one SIMD SAD of 4 bytes a candidate of a 2x2 block
+        line = record(results, name9, motion.CANDIDATE_SADS, 0, n_ms, w_ms, p_ms, nbytes,
+                      n_out, ops_per_s=int_ops_per_s)
+        lines.append(
+            f"range {search_range} (r={r}): K3 {'; '.join(k3)}; K7 (one pair) "
+            f"{'; '.join(k7)}; K9 {name9} {n_ms:.4f} ms, general {g_ms:.4f} "
+            f"({g_ms / n_ms:.1f}x; in turns {', '.join(f'{x:.4f}' for x in turns)}), "
+            f"plain {p_ms:.4f}; {line}")
+    print("parity K3 / K7 / K9 at radii 2-4: every instance bit-equal to the "
+          "general kernel and to the plain version on every entry (K3: the "
+          "search's, random and odd past-edge MVs, levels 2-0 of a 9-frame 1080p "
+          "clip; K7: frames 0-1; K9: the EBMA shape with zero, random and "
+          "past-edge MVs, T=8 and 1); timed in turns with the general kernel:")
+    for line in lines:
+        print(f"  {line}")
 
 
 def phase_parity(dev, int_ops_per_s, k11_per_word):
@@ -682,6 +865,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
           f"wrappers {w_ms:.4f} / {gw_ms:.4f}) vs plain {plain_ms:.4f} ms; "
           f"{line}; general kernel at T=8, r=4, 16x16, 1088x1920: "
           f"{'; '.join(wide)}; refine_sads_static (mv_bound 12) bit-equal")
+
+    # K3, K7 and K9 at radii 2-4: their instances against the general
+    # kernels at the path shapes of search ranges 16, 24 and 32
+    wide_search_parity(g, dev, results, int_ops_per_s)
 
     # K8 pyramid: levels 1-3 of the 9-frame 1088x1920 stack as tbw=8
     # column-pitched subplanes in one fused launch, bit-equal to the fused
@@ -1503,21 +1690,32 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
 def block_shape_round_trip(shape, w, h, required, forbidden):
     """Phase 7's runs at ``shape`` = (rows, columns) transform blocks: a
     9-frame ``w`` x ``h`` clip, the default config with those blocks,
-    through :func:`round_trip` on graph replays (the encoder's and the
-    decoder's default on ``cuda``); then the same clip and payloads with
-    ``graph=False``, byte for byte; then the first 3 frames encoded on the
-    CPU port (header and MV fields equal, coefficients within 2.5e-4,
-    block types within ``BLOCK_TYPE_TOL``) and the first 2 payloads
-    decoded there (the display gate; at 2x2 and 1x1 blocks, where about a
-    sixth and a few % of the bytes are exact ties of the float64 decode,
-    within 1 and at the gate off the ties)."""
-    from svc_tpu_torch.config import DecoderConfig, EncoderConfig, VideoProperties
+    through :func:`config_round_trip` (at 2x2 and 1x1 blocks, where about
+    a sixth and a few % of the display bytes are exact ties of the float64
+    decode, the CPU decode is held within 1 and at the gate off the
+    ties)."""
+    from svc_tpu_torch.config import EncoderConfig
+
+    bh, bw = shape
+    cfg = EncoderConfig(transform_block_h=bh, transform_block_w=bw)
+    return config_round_trip(cfg, f"phase 7: the {bh}x{bw} run at {w}x{h}",
+                             f"{bh}x{bw}", w, h, required, forbidden,
+                             ties_block=shape if shape in TIE_SHAPES else None)
+
+
+def config_round_trip(cfg, tag, label, w, h, required, forbidden, ties_block=None):
+    """A 9-frame ``w`` x ``h`` clip with ``cfg`` through :func:`round_trip`
+    on graph replays (the encoder's and the decoder's default on
+    ``cuda``); then the same clip and payloads with ``graph=False``, byte
+    for byte; then the first 3 frames encoded on the CPU port (header and
+    MV fields equal, coefficients within 2.5e-4, block types within
+    ``BLOCK_TYPE_TOL``) and the first 2 payloads decoded there (the display
+    gate; off the exact ties of ``ties_block`` = (rows, columns) where
+    given)."""
+    from svc_tpu_torch.config import DecoderConfig, VideoProperties
     from svc_tpu_torch.models.decoder import Decoder
     from svc_tpu_torch.models.encoder import Encoder, stream_encode
 
-    bh, bw = shape
-    tag = f"phase 7: the {bh}x{bw} run at {w}x{h}"
-    cfg = EncoderConfig(transform_block_h=bh, transform_block_w=bw)
     run = round_trip(cfg, w, h, 9, required, forbidden)
     clip, gaze, payloads = run["clip"], run["gaze"], run["payloads"]
     if not (run["enc"].graph and run["dec"].graph):
@@ -1549,18 +1747,20 @@ def block_shape_round_trip(shape, w, h, required, forbidden):
     cpu_dec = Decoder(DecoderConfig(), run["header"], batch_size=2, device="cpu")
     ref = np.stack(list(cpu_dec.decode_frames(iter(payloads[:2]), iter([gaze] * 2))))
     ties = None
-    if shape in TIE_SHAPES:
+    if ties_block is not None:
         from svc_tpu_torch.tools import display_ties
 
+        bh, bw = ties_block
         coeffs, steps = display_ties.decode_inputs(run["header"], payloads[:2],
                                                    [gaze] * 2)
         ties = display_ties.tie_mask(display_ties.exact_display(
             coeffs, steps, h, 3, bh, bw)).reshape(ref.shape)
-    dgate = display_gate(run["frames"][:2], ref, f"{bh}x{bw} decode", ties)
-    print(f"  {bh}x{bw}: graph replays byte-equal to graph=False (stream and "
-          f"frames); card vs cpu (3 frames): header and MV fields equal, "
-          f"coefficients max |err| {cerr:.3e}, block types differ on "
-          f"{share:.4%}; decoded bytes {dgate}")
+    dgate = display_gate(run["frames"][:2], ref, f"{label} decode", ties)
+    moved = int((o_gpu["mv_field"] != 0).any(dim=-1).sum().item())
+    print(f"  {label}: graph replays byte-equal to graph=False (stream and "
+          f"frames); card vs cpu (3 frames): header and MV fields equal "
+          f"({moved} MV blocks moved), coefficients max |err| {cerr:.3e}, block "
+          f"types differ on {share:.4%}; decoded bytes {dgate}")
     return run
 
 
@@ -1895,10 +2095,16 @@ def per_frame_motion(clip: np.ndarray, dev):
     gm_avg = motion.estimate_global_motion_avg(mv)
     gm_ex, mad_ex = motion.estimate_global_motion_exhaustive(tracked[0], anchor[0], 8)
     gm_h = motion.estimate_global_motion_hierarchical(tracked, anchor, 8)
+    # --mv-search-range 16, 24 and 32: K9's and K7's instances at r = 2-4
+    wide = {rng: motion.hbma(tracked, anchor, rng, 16, 16) for rng in WIDE_RANGES}
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = build.launch_counts()
-    missing = [k for k in ("pyr_down_levels", "candidate_sads", "refine_mads")
+    radius_instances = [f"refine_mads<{b}, {rng // 8}>" for rng in (8,) + WIDE_RANGES
+                        for b in (4, 8, 16)]
+    radius_instances += [f"candidate_sads<{rng // 8}>" for rng in (8,) + WIDE_RANGES]
+    missing = [k for k in ("pyr_down_levels", "candidate_sads", "refine_mads",
+                           *radius_instances)
                if counts[k] <= 0]
     if missing:
         fail(f"per-frame motion: kernels never launched on this path: {missing}")
@@ -1921,6 +2127,17 @@ def per_frame_motion(clip: np.ndarray, dev):
     mv_c, mm_c = motion.hbma(ct, ca, 8, 16, 16)
     if not (torch.equal(mv.cpu(), mv_c) and torch.equal(mm.cpu(), mm_c)):
         fail("per-frame motion: hbma on cuda differs from the CPU port")
+    wide_moved = []
+    for rng, (mv_w, mm_w) in wide.items():
+        mv_ws, mm_ws = motion.hbma_stack(pyr, rng, 16, 16)
+        if not (torch.equal(mv_w, mv_ws[0]) and torch.equal(mm_w, mm_ws[0])):
+            fail(f"per-frame motion: hbma at range {rng} differs from hbma_stack")
+        mv_wc, mm_wc = motion.hbma(ct, ca, rng, 16, 16)
+        if not (torch.equal(mv_w.cpu(), mv_wc) and torch.equal(mm_w.cpu(), mm_wc)):
+            fail(f"per-frame motion: hbma at range {rng} on cuda differs from the "
+                 f"CPU port")
+        wide_moved.append(f"range {rng}: {int((mv_w != 0).any(dim=-1).sum().item())} "
+                          f"blocks moved")
     gms = {
         "avg": (gm_avg, motion.estimate_global_motion_avg(mv_c)),
         "exhaustive": (gm_ex, motion.estimate_global_motion_exhaustive(ct[0], ca[0], 8)[0]),
@@ -1935,8 +2152,10 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"{moved} blocks moved; global motion (x, y) avg "
           f"{gm_avg.tolist()}, exhaustive {gm_ex.tolist()} (MAD "
           f"{mad_ex.item():.4f}), hierarchical {gm_h.tolist()}, each equal "
-          f"to the CPU port; {seconds:.2f} s incl. first calls; launches "
-          f"{counts}")
+          f"to the CPU port; at ranges {', '.join(map(str, WIDE_RANGES))} "
+          f"(K7's and K9's r = 2-4 instances) equal to hbma_stack and to the CPU "
+          f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
+          f"launches {counts}")
     return dict(pyr=pyr, counts=counts)
 
 
@@ -2351,13 +2570,15 @@ def main() -> int:
         f"smem, {ctas_per_sm(regs, smem, threads)} CTAs of {threads} per SM"
         for _, kern, regs, _ in report if kern in display
         for smem, threads in [display[kern]])
-    # the 256-thread refine and fused pyramid kernels (K3, K4, K8), static
-    # shared memory only
+    # the refine, candidate-SAD and fused pyramid kernels (K3 / K7, K4, K8,
+    # K9), static shared memory only, at their threads a CTA
+    static_threads = {"refine_sads_kernel": 256, "refine_sads_split_kernel": 256,
+                      "refine_sads_pitched_kernel": 256, "pyr_down_levels_kernel": 256,
+                      "candidate_sads_kernel": 128}
     static_line = "; ".join(
-        f"{src} {kern} {ctas_per_sm(regs, smem, 256)} CTAs of 256 per SM"
+        f"{src} {kern} {ctas_per_sm(regs, smem, n)} CTAs of {n} per SM"
         for src, kern, regs, smem in report
-        if kern.split("<")[0] in ("refine_sads_kernel", "refine_sads_pitched_kernel",
-                                  "pyr_down_levels_kernel"))
+        for n in [static_threads.get(kern.split("<")[0])] if n)
     # K10: the cluster kernel (a band of ceil(H / 8) rows a CTA, 1024
     # threads) and the general one (a frame a CTA)
     from svc_tpu_torch.ops import ccl
@@ -2609,6 +2830,36 @@ def main() -> int:
     compiled_batch(main_run, split_stream, card, dev)
     compiled_decode(main_run, card, dev)
 
+    # 15. search ranges past the default: K9's and K3's r = 2-4 instances
+    # (the encoder's search at 16x16 MV blocks and 4 levels), each run on
+    # its own radius's instances and on no general K3 or K9
+    radius_k3_k9 = {q: tuple(f"refine_sads<{b}, {q}>" for b in (4, 8, 16))
+                    + (f"candidate_sads<{q}>",) for q in (1, 2, 3, 4)}
+    search_runs = {}
+    for rng in WIDE_RANGES:
+        r = rng // 8
+        print(f"--mv-search-range {rng} (top radius {r}), 1080p, 9 frames, "
+              f"default config otherwise, graph replays:")
+        search_runs[rng] = config_round_trip(
+            EncoderConfig(mv_search_range=rng), f"phase 15: the range-{rng} run",
+            f"range {rng}", 1920, 1080,
+            encode_kernels + ("lloyd", "idct_display") + radius_k3_k9[r],
+            general_dct + general_k3_k5 + general_k6 + any_square + any_square_k6
+            + tuple(n for q, names in radius_k3_k9.items() if q != r for n in names))
+    # the device batch time (graph replays, 8 frames of phase 4's clip) at
+    # each range, in turns with the default range 8
+    packed = torch.as_tensor(main_run["clip"][:9]).reshape(9, 1080, 1920 * 3).to(dev)
+    encoders = {8: main_run["enc"], **{rng: run["enc"] for rng, run in search_runs.items()}}
+    order = (8,) + WIDE_RANGES + WIDE_RANGES[::-1] + (8,)
+    batch_ms = {rng: [] for rng in encoders}
+    for rng in order:
+        batch_ms[rng].append(cuda_ms(lambda e=encoders[rng]: e.encode_packed(packed, 0),
+                                     iters=5, warmup=1))
+    print(f"  device batch ms at 1080p, 8 frames, graph replays, in turns "
+          f"{', '.join(map(str, order))} [{card}]: " + "; ".join(
+              f"range {rng} {np.mean(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+              for rng, v in batch_ms.items()))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))
     if loaded:
@@ -2624,7 +2875,10 @@ def main() -> int:
                **{name: tb4 for name in square_dct[4, 4]},
                **{name: run for shape, run in shape_runs.items()
                   for name in square_dct[shape]},
-               **{square_k6[shape][0]: wide_sq[shape] for shape in square_k6}}
+               **{square_k6[shape][0]: wide_sq[shape] for shape in square_k6},
+               **{name: search_runs[rng] for rng in WIDE_RANGES
+                  for name in radius_k3_k9[rng // 8]},
+               **{name: frame_run for name in results if name.startswith("refine_mads<")}}
     kernels = []
     for name, r in results.items():
         k = r["kernel"]

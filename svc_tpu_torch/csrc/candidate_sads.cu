@@ -1,38 +1,48 @@
-// K9 candidate_sads: per-block SADs of the 9 candidates around each
-// block's MV, for T separate (tracked, anchor) plane pairs, as float32,
-// specialised for square 2x2 MV blocks at search radius r = 1: the
-// encoder's top-level EBMA (16x16 blocks, 4 pyramid levels, range 8), in
-// hbma_stack and per-frame hbma alike.
+// K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
+// each block's MV, for T separate (tracked, anchor) plane pairs, as
+// float32, specialised for square 2x2 MV blocks at search radius R = 1 to
+// 4: the encoder's top-level EBMA at 16x16 blocks and 4 pyramid levels,
+// range 8 (R = 1, the default) to 39 (R = range / 8), in hbma_stack and
+// per-frame hbma alike.
 //
 // Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) at that
 // shape; every other shape runs candidate_sads_general.cu
 // (window_sads.cuh), and ops/motion.py dispatches. The contract is the
 // general kernel's: SAD of candidate (oy, ox) in raster order at
-//   sum_{i,j<2} |trk(t, 2*by + mvy + oy - 1 + i, 2*bx + mvx + ox - 1 + j)
+//   sum_{i,j<2} |trk(t, 2*by + mvy + oy - R + i, 2*bx + mvx + ox - R + j)
 //               - anc(t, 2*by + i, 2*bx + j)|
 // for any int32 MVs, with tracked pixels outside the frame read as 0:
 // exact integer sums, bit-equal to the general kernel and to
 // candidate_sads_plain on every entry, valid or not.
 //
-// Bound: bytes, and mostly the output (9 float32 per block against 8
-// bytes read: 2.35 MB of 2.87 MB at 1080p, T = 8; 0.0009 ms on an H100).
-// The general kernel gives a warp to each block (4 of 32 lanes busy at
-// 2x2), stages both tiles in shared memory, divides by runtime sizes and
-// reduces each of the 9 sums by five shuffles. Design:
+// Bound: bytes, and mostly the output ((2R + 1)^2 float32 per block
+// against 8 bytes read: 2.35 MB of 2.87 MB at 1080p, T = 8, R = 1; 21.2
+// MB of 22.0 at R = 4; 0.0009 to 0.0066 ms on an H100). The general kernel
+// gives a warp to each block (4 of 32 lanes busy at 2x2), stages both
+// tiles in shared memory, divides by runtime sizes and reduces each sum by
+// five shuffles. Design:
 //   - a thread per MV block; consecutive threads take consecutive block
 //     columns of one block row, so the window-row loads and the stores of
-//     each of the nine candidate planes coalesce across the warp;
+//     each candidate plane coalesce across the warp;
 //   - the two anchor rows are 16-bit loads (2*bx is even, fw is even);
-//   - each of the 4 window rows, bytes x0 .. x0+3 with x0 = 2*bx + mvx - 1
-//     at any alignment, is two aligned 32-bit words (planes are 4-byte
-//     aligned and fh*fw is a multiple of 4) joined by __funnelshift_r. A
-//     word is loaded only where it meets the row's bytes, so no load
-//     leaves the plane; a byte mask then zeroes what lies outside [0, fw)
-//     (fw is even but need not be a multiple of 4, so a word can straddle
-//     the row's edge) and a row outside [0, fh) reads as 0;
-//   - __vsadu4 of a window word shifted to candidate column ox (low two
-//     bytes) against an anchor row (high bytes 0) adds that row's two
-//     absolute differences: 18 of them make the 9 sums;
+//   - at R = 1 each of the 4 window rows, bytes x0 .. x0+3 with x0 = 2*bx
+//     + mvx - 1 at any alignment, is two aligned 32-bit words (planes are
+//     4-byte aligned and fh*fw is a multiple of 4) joined by
+//     __funnelshift_r; at R >= 2 each of the 2R + 2 rows is 2R + 2 bytes,
+//     2 or 3 words from up to 4 aligned loads. A word is loaded only where
+//     it meets the row's bytes, so no load leaves the plane; a byte mask
+//     then zeroes what lies outside [0, fw) (fw is even but need not be a
+//     multiple of 4, so a word can straddle the row's edge) and a row
+//     outside [0, fh) reads as 0;
+//   - at R = 1, __vsadu4 of a window word shifted to candidate column ox
+//     (low two bytes) against an anchor row (high bytes 0) adds that row's
+//     two absolute differences: 18 of them make the 9 sums; at R >= 2 one
+//     __byte_perm puts candidate (oy, ox)'s bytes of window rows oy and
+//     oy + 1 in one word, against both anchor rows in another, so one
+//     __vsadu4 is its SAD, stored at once (no accumulators);
+//   - the SADs (< 2^23) become float32 exactly by 2^23 + x in the mantissa
+//     less 2^23 at R >= 2 (an integer-to-float conversion issues at a
+//     quarter of that rate);
 //   - no shared memory, no shuffles; all index math is compile-time but
 //     the block's own origin.
 #include "common.cuh"
@@ -64,6 +74,45 @@ __device__ __forceinline__ uint32_t window_row(const uint8_t* __restrict__ frame
   return v & below_last & (0xffffffffu << (8 * first));
 }
 
+// Bytes [x0, x0 + N) of row y of a frame as (N + 3) / 4 words (byte k of
+// the run at bits 8(k % 4) of word k / 4), bytes outside the frame 0. frame
+// is 4-byte aligned and holds fh rows of fw bytes, fh * fw a multiple of 4.
+template <int N>
+__device__ __forceinline__ void window_run(const uint8_t* __restrict__ frame, int y,
+                                           int x0, int fh, int fw,
+                                           uint32_t (&al)[(N + 3) / 4]) {
+  constexpr int kA = (N + 3) / 4;
+  if (y < 0 || y >= fh || x0 <= -N || x0 >= fw) {
+#pragma unroll
+    for (int j = 0; j < kA; ++j) al[j] = 0u;
+    return;
+  }
+  const int row0 = y * fw;
+  const int row1 = row0 + fw;
+  const int o = row0 + x0;
+  const int a = o & ~3;  // floor to a multiple of 4 (o > -N)
+  const int s = o - a;   // 0 .. 3
+  uint32_t w[kA + 1];
+#pragma unroll
+  for (int m = 0; m <= kA; ++m) {
+    // word m holds a byte of the run when 4m < s + N; it is loaded when it
+    // also meets the row (and so lies in the frame)
+    const int p = a + 4 * m;
+    w[m] = (4 * m < s + N && p + 4 > row0 && p < row1)
+               ? __ldg(reinterpret_cast<const unsigned int*>(frame + p)) : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < kA; ++j) {
+    const uint32_t v = __funnelshift_r(w[j], w[j + 1], 8 * s);
+    const int first = min(4, max(0, -x0 - 4 * j));       // first byte in the row
+    const int last = max(0, min(4, fw - x0 - 4 * j));    // one past the last
+    const uint32_t below_last = last >= 4 ? 0xffffffffu : (1u << (8 * last)) - 1u;
+    const uint32_t from_first = first >= 4 ? 0u : 0xffffffffu << (8 * first);
+    al[j] = v & below_last & from_first;
+  }
+}
+
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 candidate_sads_kernel(const uint8_t* __restrict__ tracked,
                       const uint8_t* __restrict__ anchor,
@@ -83,48 +132,96 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
   const uint32_t a0 = __ldg(reinterpret_cast<const unsigned short*>(anc));
   const uint32_t a1 = __ldg(reinterpret_cast<const unsigned short*>(anc + fw));
 
-  const int x0 = 2 * bx + mvx - 1;  // window column of ox = 0
-  const int y0 = 2 * by + mvy - 1;  // window row of oy = 0
-  uint32_t acc[kCand];
+  const int x0 = 2 * bx + mvx - R;  // window column of ox = 0
+  const int y0 = 2 * by + mvy - R;  // window row of oy = 0
+  if constexpr (R == 1) {
+    uint32_t acc[kCand];
 #pragma unroll
-  for (int c = 0; c < kCand; ++c) acc[c] = 0u;
-  // window row wr meets anchor row 0 in candidate row oy = wr and anchor
-  // row 1 in oy = wr - 1
+    for (int c = 0; c < kCand; ++c) acc[c] = 0u;
+    // window row wr meets anchor row 0 in candidate row oy = wr and anchor
+    // row 1 in oy = wr - 1
 #pragma unroll
-  for (int wr = 0; wr < 4; ++wr) {
-    const uint32_t w = window_row(trk, y0 + wr, x0, fh, fw);
+    for (int wr = 0; wr < 4; ++wr) {
+      const uint32_t w = window_row(trk, y0 + wr, x0, fh, fw);
 #pragma unroll
-    for (int ox = 0; ox < 3; ++ox) {
-      const uint32_t c = (w >> (8 * ox)) & 0xffffu;
-      if (wr <= 2) acc[wr * 3 + ox] = __vsadu4(c, a0) + acc[wr * 3 + ox];
-      if (wr >= 1) acc[(wr - 1) * 3 + ox] = __vsadu4(c, a1) + acc[(wr - 1) * 3 + ox];
+      for (int ox = 0; ox < 3; ++ox) {
+        const uint32_t c = (w >> (8 * ox)) & 0xffffu;
+        if (wr <= 2) acc[wr * 3 + ox] = __vsadu4(c, a0) + acc[wr * 3 + ox];
+        if (wr >= 1) acc[(wr - 1) * 3 + ox] = __vsadu4(c, a1) + acc[(wr - 1) * 3 + ox];
+      }
+    }
+
+    const size_t plane_out = static_cast<size_t>(mfh) * mfw;
+    float* o = out + (static_cast<size_t>(t) * kCand * mfh + by) * mfw + bx;
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) o[c * plane_out] = static_cast<float>(acc[c]);
+  } else {
+    constexpr int kSide = 2 * R + 1;
+    constexpr int kRun = 2 * R + 2;  // window rows, and bytes a row
+    uint32_t rows[kRun][(kRun + 3) / 4];
+#pragma unroll
+    for (int wr = 0; wr < kRun; ++wr) window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);
+    const uint32_t a01 = a0 | (a1 << 16);  // anchor rows 0 and 1, 2 bytes each
+    const size_t plane_out = static_cast<size_t>(mfh) * mfw;
+    float* o = out + (static_cast<size_t>(t) * kSide * kSide * mfh + by) * mfw + bx;
+#pragma unroll
+    for (int oy = 0; oy < kSide; ++oy) {
+#pragma unroll
+      for (int ox = 0; ox < kSide; ++ox) {
+        // bytes ox, ox + 1 of window rows oy and oy + 1
+        const int j = ox / 4;
+        const int d = ox % 4;
+        uint32_t pair;
+        if (d < 3) {
+          pair = __byte_perm(rows[oy][j], rows[oy + 1][j],
+                             d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12);
+        } else {
+          pair = __byte_perm(__funnelshift_r(rows[oy][j], rows[oy][j + 1], 24),
+                             __funnelshift_r(rows[oy + 1][j], rows[oy + 1][j + 1], 24),
+                             0x5410);
+        }
+        const uint32_t sad = __vsadu4(pair, a01);
+        o[(oy * kSide + ox) * plane_out] = __uint_as_float(0x4b000000u | sad) - 8388608.0f;
+      }
     }
   }
+}
 
-  const size_t plane_out = static_cast<size_t>(mfh) * mfw;
-  float* o = out + (static_cast<size_t>(t) * kCand * mfh + by) * mfw + bx;
-#pragma unroll
-  for (int c = 0; c < kCand; ++c) o[c * plane_out] = static_cast<float>(acc[c]);
+template <int R>
+int launch(const uint8_t* tracked, const uint8_t* anchor, const int32_t* mv,
+           float* out, int t_count, int fh, int fw, cudaStream_t stream) {
+  const int mfh = fh / 2;
+  const int mfw = fw / 2;
+  const dim3 grid((mfw + kThreads - 1) / kThreads, mfh, t_count);
+  candidate_sads_kernel<R><<<grid, kThreads, 0, stream>>>(tracked, anchor, mv, out,
+                                                          fh, fw, mfh, mfw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // tracked, anchor: (t_count, fh, fw) uint8, tracked 4-byte and anchor
 // 2-byte aligned; mv: (t_count, fh/2, fw/2, 2) int32 (x, y); out:
-// (t_count, 9, fh/2, fw/2) float32. All contiguous; fh and fw even; 2x2
-// blocks, r = 1. Refuses (cudaErrorInvalidValue) anything else.
+// (t_count, (2r + 1)^2, fh/2, fw/2) float32. All contiguous; fh and fw
+// even; 2x2 blocks, 1 <= r <= 4. Refuses (cudaErrorInvalidValue) anything
+// else.
 SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
                                   const void* mv, void* out, int t_count,
-                                  int fh, int fw, void* stream) {
+                                  int fh, int fw, int r, void* stream) {
   if (reinterpret_cast<uintptr_t>(tracked) % 4 ||
       reinterpret_cast<uintptr_t>(anchor) % 2 || fh % 2 || fw % 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int mfh = fh / 2;
-  const int mfw = fw / 2;
-  const dim3 grid((mfw + kThreads - 1) / kThreads, mfh, t_count);
-  candidate_sads_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(tracked), static_cast<const uint8_t*>(anchor),
-      static_cast<const int32_t*>(mv), static_cast<float*>(out), fh, fw, mfh, mfw);
-  return static_cast<int>(cudaGetLastError());
+  const auto* trk = static_cast<const uint8_t*>(tracked);
+  const auto* anc = static_cast<const uint8_t*>(anchor);
+  const auto* m = static_cast<const int32_t*>(mv);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 1: return launch<1>(trk, anc, m, o, t_count, fh, fw, st);
+    case 2: return launch<2>(trk, anc, m, o, t_count, fh, fw, st);
+    case 3: return launch<3>(trk, anc, m, o, t_count, fh, fw, st);
+    case 4: return launch<4>(trk, anc, m, o, t_count, fh, fw, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,9 +1,9 @@
 // K7 refine_mads: candidate SADs of one hierarchical motion refinement
 // level for ONE frame pair, from separate tracked and anchor planes — the
 // per-frame refine behind ops/motion.py refine() and hbma() — specialised
-// for square B x B MV blocks (B = 4, 8, 16) at r = 1: the three refinement
-// levels of the default per-frame search (16x16 blocks, range 8, 4
-// levels).
+// for square B x B MV blocks (B = 4, 8, 16) at radius r = 1 to 4: the
+// three refinement levels of the per-frame search at 16x16 blocks and 4
+// levels, range 8 (r = 1, the default) to 39.
 //
 // Replaces svc_tpu/ops/motion_pallas.py refine_mads_pallas (:541), which
 // svc_tpu's per-frame hbma reaches through _refine_spread (motion.py:346).
@@ -12,25 +12,26 @@
 // lane owns one anchor row of one block, window rows come as aligned
 // chunks with the frame-edge zero fill by predicate, and all index math is
 // compile-time; each window sits at its block's own MV (odd, unbounded).
-// Output: the TPU kernel's first 9 rows, (9, mfh, mfw) int32 in (oy, ox)
-// raster order, bit-equal on valid candidates, and bit-equal to
-// refine_mads_general.cu (window_sads.cuh, every other shape) and to the
-// plain version on every candidate.
+// Output: the TPU kernel's first (2r + 1)^2 rows, ((2r + 1)^2, mfh, mfw)
+// int32 in (oy, ox) raster order, bit-equal on valid candidates, and
+// bit-equal to refine_mads_general.cu (window_sads.cuh, every other shape)
+// and to the plain version on every candidate.
 //
-// Bound: bytes (0.002 ms for the three 1080p levels of one pair on an
-// H100), but one pair gives grids of 136 / 272 / 544 CTAs of 256 at levels
-// 2 / 1 / 0, under one wave on 132 SMs: each launch is latency-bound.
+// Bound: bytes at r = 1 (0.002 ms for the three 1080p levels of one pair
+// on an H100; K3's integer bound at level 0 from r = 3), but one pair
+// gives grids of 136 / 272 / 544 CTAs of 256 at levels 2 / 1 / 0, under
+// one wave on 132 SMs: each launch is latency-bound.
 #include "common.cuh"
 #include "refine_sads.cuh"
 
 // tracked, anchor: (fh, fw) uint8, 16-byte aligned; mv: (fh/bw, fw/bw, 2)
-// int32 (x, y); out: (9, fh/bw, fw/bw) int32. All contiguous; bw == bh in
-// {4, 8, 16} divides fh and fw; r = 1. Refuses (cudaErrorInvalidValue)
-// anything else.
+// int32 (x, y); out: ((2r + 1)^2, fh/bw, fw/bw) int32. All contiguous; bw
+// == bh in {4, 8, 16} divides fh and fw; 1 <= r <= 4. Refuses
+// (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_refine_mads(const void* tracked, const void* anchor,
                                const void* mv, void* out, int fh, int fw,
                                int bw, int bh, int r, void* stream) {
-  if (bw != bh || r != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_refine_sads(tracked, anchor, 0, mv, out, 1, fh, fw, bw,
+  if (bw != bh) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_refine_sads(tracked, anchor, 0, mv, out, 1, fh, fw, bw, r,
                             stream);
 }

@@ -6,9 +6,10 @@
 // this code, so both give the same bits.
 //
 // A CTA of kThreads lanes handles kThreads / B MV blocks of one block row
-// (square B x B blocks, r = 1); lane i of a block owns anchor row i (B / 4
-// words). A window row is B / 4 + 1 words from the window's first byte
-// (ox = 0) on; it needs B + 2 of those bytes.
+// (square B x B blocks, search radius R = 1 to 4; the K8 refine R = 1);
+// lane i of a block owns anchor row i (B / 4 words). A window row is
+// Window<B, R>::kWords words from the window's first byte (ox = 0) on; it
+// needs B + 2R of those bytes.
 #pragma once
 
 #include "common.cuh"
@@ -16,28 +17,42 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCand = 9;  // (2r + 1)^2 at r = 1
+constexpr int kCand = 9;  // (2r + 1)^2 at r = 1: the K8 refine, block_sads
 constexpr unsigned kFull = 0xffffffffu;
 
-// al: the B / 4 + 1 words of a row from byte s on (0 <= s < B), given w,
-// the B / 2 + 1 words of the row from an aligned base. v[j] = w[s / 4 + j]
-// by selects (register arrays take no runtime index), then a funnel shift
-// by s % 4 bytes.
-template <int B>
-__device__ __forceinline__ void align_window_row(const uint32_t (&w)[B / 2 + 1], int s,
-                                                 uint32_t (&al)[B / 4 + 1]) {
+// The word counts of a window row of B x B blocks at radius R.
+template <int B, int R>
+struct Window {
+  static constexpr int kExtra = (2 * R + 3) / 4;  // words past the B / 4 of a block
+  static constexpr int kWords = B / 4 + kExtra;   // a row from its first byte
+  static constexpr int kFetch = B / 2 + kExtra;   // a row from an aligned base
+  // window rows a lane holds at R >= 2 (rows i, i + B, ...)
+  static constexpr int kSlots = 1 + (2 * R + B - 1) / B;
+  static constexpr int kCand = (2 * R + 1) * (2 * R + 1);
+  static constexpr int kPacked = (kCand + 1) / 2;  // two 16-bit sums a word
+};
+
+// al: the kWords words of a row from byte s on (0 <= s < B), given w, the
+// kFetch words of the row from an aligned base. v[j] = w[s / 4 + j] by
+// selects (register arrays take no runtime index), then a funnel shift by
+// s % 4 bytes.
+template <int B, int R = 1>
+__device__ __forceinline__ void align_window_row(const uint32_t (&w)[Window<B, R>::kFetch],
+                                                 int s,
+                                                 uint32_t (&al)[Window<B, R>::kWords]) {
   constexpr int kW = B / 4;
+  constexpr int kWords = Window<B, R>::kWords;
   const int q = s >> 2;
-  uint32_t v[kW + 2];
+  uint32_t v[kWords + 1];
 #pragma unroll
-  for (int j = 0; j < kW + 2; ++j) {
+  for (int j = 0; j < kWords + 1; ++j) {
     uint32_t r = w[j];
 #pragma unroll
     for (int t = 1; t < kW; ++t) r = q == t ? w[t + j] : r;
     v[j] = r;
   }
 #pragma unroll
-  for (int j = 0; j <= kW; ++j) al[j] = __funnelshift_r(v[j], v[j + 1], 8 * (s & 3));
+  for (int j = 0; j < kWords; ++j) al[j] = __funnelshift_r(v[j], v[j + 1], 8 * (s & 3));
 }
 
 // Adds one window row's share of the three candidates ox = 0, 1, 2 to
@@ -97,17 +112,138 @@ __device__ __forceinline__ void block_sads(const uint32_t (&r0)[B / 4 + 1],
   }
 }
 
-// The CTA's SADs (s_out, after a barrier) to out (t_count, kCand, mfh,
-// mfw): runs of consecutive block columns of each candidate plane.
-template <int B>
-__device__ __forceinline__ void store_sads(int32_t (*s_out)[kThreads / B],
+// One transposed xor step over lane offset H of a group of L lanes, then
+// the steps below it: of each pair (v[k], v[k + M]), M = ceil(N / 2), a
+// lane keeps the one its bit H picks and adds its partner's, so every step
+// halves what a lane holds (N + N / 2 + ... shuffles where plain xor
+// steps take N log2(L)). A single value takes plain xor steps.
+template <int N, int H, int L>
+__device__ __forceinline__ void reduce_transposed(uint32_t* v, unsigned i) {
+  if constexpr (H > 0) {
+    constexpr int M = (N + 1) / 2;
+    if constexpr (N == 1) {
+      v[0] += __shfl_xor_sync(kFull, v[0], H, L);
+    } else {
+      const bool upper = i & H;
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        const uint32_t lo = v[k];
+        const uint32_t hi = k + M < N ? v[k + M] : 0u;
+        v[k] = (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, H, L);
+      }
+    }
+    reduce_transposed<M, H / 2, L>(v, i);
+  }
+}
+
+// How many values a lane holds after reduce_transposed<N, H, L>.
+template <int N, int H>
+__host__ __device__ constexpr int reduced_count() {
+  if constexpr (H == 0 || N == 1) {
+    return N;
+  } else {
+    return reduced_count<(N + 1) / 2, H / 2>();
+  }
+}
+
+// The index (into the N values) whose group sum lane i holds in v[k] after
+// reduce_transposed<N, H, L>, or -1 where it holds none (a pad, or the
+// upper lane of a plain xor step, whose copy the lower lane keeps).
+template <int N, int H>
+__device__ __forceinline__ int reduced_index(int k, unsigned i) {
+  if constexpr (H == 0) {
+    return k < N ? k : -1;
+  } else if constexpr (N == 1) {
+    return (i & H) ? -1 : reduced_index<1, H / 2>(k, i);
+  } else {
+    constexpr int M = (N + 1) / 2;
+    const int inner = reduced_index<M, H / 2>(k, i);
+    const int idx = inner + ((i & H) ? M : 0);
+    return inner >= 0 && idx < N ? idx : -1;
+  }
+}
+
+// The (2R + 1)^2 SADs at R >= 2 of each MV block of the CTA into
+// s_out[c][blk]. rows[k]: window row i + k B on lane i (rows past the
+// window unused). Lane i takes window row i + oy of candidate row oy from
+// lane (i + oy) mod B, slot (i + oy) / B; each lane sends the slot its
+// taker wants, so a row costs one shuffle a word (none where oy is a
+// multiple of B: the lane's own slot). A candidate is B / 4 __vsadu4 over
+// the lane's anchor row; the lane's sums (at most 255 B, a block's at most
+// 255 B^2 < 2^16) go two to a word in raster order, and the words reduce
+// over the block's B lanes by reduce_transposed. Every lane of the warp
+// calls it (full-mask shuffles).
+template <int B, int R>
+__device__ __forceinline__ void block_sads_wide(
+    uint32_t (&rows)[Window<B, R>::kSlots][Window<B, R>::kWords],
+    const uint32_t (&a)[B / 4], unsigned i, unsigned blk,
+    int32_t (*s_out)[kThreads / B]) {
+  using W = Window<B, R>;
+  constexpr int kSide = 2 * R + 1;
+  uint32_t packed[W::kPacked];
+#pragma unroll
+  for (int oy = 0; oy < kSide; ++oy) {
+    const int q = oy / B;
+    const int rho = oy % B;
+    uint32_t row[W::kWords];
+#pragma unroll
+    for (int k = 0; k < W::kWords; ++k) {
+      if (rho == 0) {
+        row[k] = rows[q][k];
+      } else {
+        const uint32_t send = static_cast<int>(i) < rho ? rows[q + 1][k] : rows[q][k];
+        row[k] = __shfl_sync(kFull, send, static_cast<int>(i) + rho, B);
+      }
+    }
+#pragma unroll
+    for (int ox = 0; ox < kSide; ++ox) {
+      const int wo = ox / 4;
+      const int d = ox % 4;
+      uint32_t sum = 0;
+#pragma unroll
+      for (int j = 0; j < B / 4; ++j) {
+        uint32_t c;
+        if (d == 0) {
+          c = row[j + wo];
+        } else {
+          c = __funnelshift_r(row[j + wo], row[j + wo + 1], 8 * d);
+        }
+        sum = __vsadu4(c, a[j]) + sum;
+      }
+      const int cand = oy * kSide + ox;
+      if (cand % 2 == 0) {
+        packed[cand / 2] = sum;
+      } else {
+        packed[cand / 2] = __byte_perm(packed[cand / 2], sum, 0x5410);
+      }
+    }
+  }
+  reduce_transposed<W::kPacked, B / 2, B>(packed, i);
+  constexpr int kHeld = reduced_count<W::kPacked, B / 2>();
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int p = reduced_index<W::kPacked, B / 2>(k, i);
+    if (p >= 0) {
+      s_out[2 * p][blk] = static_cast<int32_t>(packed[k] & 0xffffu);
+      if (2 * p + 1 < W::kCand) {
+        s_out[2 * p + 1][blk] = static_cast<int32_t>(packed[k] >> 16);
+      }
+    }
+  }
+}
+
+// The CTA's SADs (s_out, after a barrier; kBlocks MV blocks) to out
+// (t_count, (2R + 1)^2, mfh, mfw): runs of consecutive block columns of
+// each candidate plane.
+template <int B, int R = 1, int kBlocks = kThreads / B>
+__device__ __forceinline__ void store_sads(int32_t (*s_out)[kBlocks],
                                            int32_t* __restrict__ out, int t, int by,
                                            int mfh, int mfw) {
-  constexpr int kBlocks = kThreads / B;
+  constexpr int kC = Window<B, R>::kCand;
   const size_t plane_out = static_cast<size_t>(mfh) * mfw;
   const int bx0 = blockIdx.x * kBlocks;
-  int32_t* o = out + (static_cast<size_t>(t) * kCand * mfh + by) * mfw + bx0;
-  for (unsigned e = threadIdx.x; e < kCand * kBlocks; e += kThreads) {
+  int32_t* o = out + (static_cast<size_t>(t) * kC * mfh + by) * mfw + bx0;
+  for (unsigned e = threadIdx.x; e < kC * kBlocks; e += kThreads) {
     const unsigned c = e / kBlocks;
     const unsigned b = e % kBlocks;
     if (bx0 + static_cast<int>(b) < mfw) o[c * plane_out + b] = s_out[c][b];

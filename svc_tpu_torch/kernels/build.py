@@ -30,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -161,9 +161,12 @@ class Kernel:
 
     ``launches`` is a plain integer that :meth:`launch` adds one to after
     each successful launch — a run can show that its main path went
-    through the kernel (``chip_smoke.py``). A launch made while this
-    thread captures a CUDA graph (:func:`captured_launches`) runs nothing
-    yet: it is recorded for the graph, whose replays add it
+    through the kernel (``chip_smoke.py``). An entry point that picks a
+    template instance from its arguments names it through ``instance``
+    (the arguments to a suffix such as ``"<16, 2>"``); each instance's
+    launches are counted too, under ``name + suffix``. A launch made while
+    this thread captures a CUDA graph (:func:`captured_launches`) runs
+    nothing yet: it is recorded for the graph, whose replays add it
     (:func:`add_launches`).
     """
 
@@ -174,13 +177,16 @@ class Kernel:
         argtypes: Sequence,
         source: str,
         replaces: str,
+        instance: Optional[Callable[[tuple], str]] = None,
     ):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.source = source  # repo path of the CUDA source
         self.replaces = replaces  # file:line of the TPU kernel it ports
+        self.instance = instance
         self.launches = 0
+        self.instance_launches: Dict[str, int] = collections.Counter()
         self._fn = None
         _REGISTRY[name] = self
 
@@ -195,11 +201,16 @@ class Kernel:
         if rc != 0:
             msg = library().svc_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
+        inst = None if self.instance is None else self.name + self.instance(args)
         recording = getattr(_capture, "counts", None)
         if recording is not None:
             recording[self.name] += 1
+            if inst is not None:
+                recording[inst] += 1
         else:
             self.launches += 1
+            if inst is not None:
+                self.instance_launches[inst] += 1
 
 
 def kernels() -> Dict[str, Kernel]:
@@ -210,10 +221,17 @@ def kernels() -> Dict[str, Kernel]:
 def reset_launch_counts() -> None:
     for k in _REGISTRY.values():
         k.launches = 0
+        k.instance_launches.clear()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in _REGISTRY.items()}
+    """Each kernel's launches by name, and each instance's that launched by
+    ``name + suffix``; a name never launched reads 0."""
+    counts: Dict[str, int] = collections.Counter()
+    for name, k in _REGISTRY.items():
+        counts[name] = k.launches
+        counts.update(k.instance_launches)
+    return counts
 
 
 @contextlib.contextmanager
@@ -233,8 +251,12 @@ def captured_launches() -> Iterator[Dict[str, int]]:
 def add_launches(counts: Dict[str, int]) -> None:
     """Add one replay's launches (as :func:`captured_launches` recorded
     them) to the kernels' counts."""
-    for name, n in counts.items():
-        _REGISTRY[name].launches += n
+    for key, n in counts.items():
+        k = _REGISTRY[key.split("<")[0]]
+        if key == k.name:
+            k.launches += n
+        else:
+            k.instance_launches[key] += n
 
 
 def stream_handle(tensor) -> int:

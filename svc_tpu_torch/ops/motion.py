@@ -17,12 +17,13 @@ the plain version; a CUDA tensor launches the kernel or raises):
 
 * K3 :func:`refine_sads` — candidate SADs of one refinement level for a
   frame stack (``hbma_stack``): ``csrc/refine_sads.cu`` for square 4/8/16
-  blocks at ``r = 1`` (the default encoder's three levels), the general
-  kernel ``csrc/refine_sads_general.cu`` otherwise;
+  blocks at ``1 <= r <= 4`` (the encoder's three levels at 16x16 MV
+  blocks, 4 levels and search ranges 8 to 39; ``r = 1`` the default), the
+  general kernel ``csrc/refine_sads_general.cu`` otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
   ``hbma``): K3's specialised kernel with the tracked and anchor planes as
   two bases (``csrc/refine_mads.cu``) for square 4/8/16 blocks at
-  ``r = 1`` (the default per-frame search's three levels), the general
+  ``1 <= r <= 4`` (the per-frame search's three levels), the general
   kernel ``csrc/refine_mads_general.cu`` otherwise;
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
   (``hbma_stack(..., base_pitched=...)``): ``csrc/refine_sads_pitched.cu``
@@ -31,8 +32,14 @@ the plain version; a CUDA tensor launches the kernel or raises):
   ``csrc/refine_sads_pitched_general.cu`` otherwise;
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
   ``T`` separate plane pairs (``ebma``): ``csrc/candidate_sads.cu`` for
-  square 2x2 blocks at ``r = 1`` (the default encoder's top level), the
-  general kernel ``csrc/candidate_sads_general.cu`` otherwise.
+  square 2x2 blocks at ``1 <= r <= 4`` (the encoder's top level at 16x16
+  MV blocks, 4 levels and ranges 8 to 39), the general kernel
+  ``csrc/candidate_sads_general.cu`` otherwise.
+
+The specialised K3, K7 and K9 kernels are templates over the radius, an
+instance for each ``r`` (and K3's and K7's for each block); their launch
+counts are kept per instance too (``refine_sads<16, 2>``,
+``refine_mads<8, 3>``, ``candidate_sads<4>``).
 
 K3's, K7's, K8's and K9's general kernels are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
@@ -58,15 +65,17 @@ from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
-_K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's / K7's specialised kernel (r = 1)
+_K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's / K7's specialised kernel
+_SAD_RADII = (1, 2, 3, 4)  # search radii of the specialised K3, K7 and K9
 _K8_TBW, _K8_BLOCK = 8, 16  # subplanes and square MV block of K8's specialised refine
 
 REFINE_SADS = Kernel(
     "refine_sads",
     "svc_refine_sads",
-    [PTR, PTR, PTR, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_sads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:887",
+    instance=lambda a: f"<{a[6]}, {a[7]}>",  # <block, r>
 )
 REFINE_SADS_GENERAL = Kernel(
     "refine_sads_general",
@@ -81,6 +90,7 @@ REFINE_MADS = Kernel(
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_mads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:541",
+    instance=lambda a: f"<{a[6]}, {a[8]}>",  # <block, r>
 )
 REFINE_MADS_GENERAL = Kernel(
     "refine_mads_general",
@@ -92,9 +102,10 @@ REFINE_MADS_GENERAL = Kernel(
 CANDIDATE_SADS = Kernel(
     "candidate_sads",
     "svc_candidate_sads",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/candidate_sads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:121",
+    instance=lambda a: f"<{a[7]}>",  # <r>
 )
 CANDIDATE_SADS_GENERAL = Kernel(
     "candidate_sads_general",
@@ -208,9 +219,9 @@ def refine_sads_plain(
 
 
 def _refine_specialised(block_w: int, block_h: int, r: int, stack) -> bool:
-    """K3's specialised kernel takes square 4/8/16 blocks at r = 1 on a
-    16-byte aligned stack; every other case runs the general kernel."""
-    return (block_w == block_h and block_w in _K3_BLOCKS and r == 1
+    """K3's specialised kernel takes square 4/8/16 blocks at 1 <= r <= 4
+    on a 16-byte aligned stack; every other case runs the general kernel."""
+    return (block_w == block_h and block_w in _K3_BLOCKS and r in _SAD_RADII
             and stack.data_ptr() % 16 == 0)
 
 
@@ -224,7 +235,7 @@ def refine_sads(
     general: bool = False,
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level (kernel K3: the specialised
-    kernel for square 4/8/16 blocks at ``r = 1``, the general one
+    kernel for square 4/8/16 blocks at ``1 <= r <= 4``, the general one
     otherwise).
 
     Args:
@@ -257,7 +268,7 @@ def refine_sads(
         if _refine_specialised(block_w, block_h, r, s) and not general:
             REFINE_SADS.launch(
                 s.data_ptr(), m.data_ptr(), out.data_ptr(),
-                tp1 - 1, fh, fw, block_w, stream_handle(s),
+                tp1 - 1, fh, fw, block_w, r, stream_handle(s),
             )
         else:
             REFINE_SADS_GENERAL.launch(
@@ -299,8 +310,8 @@ def refine_mads(
     general: bool = False,
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level for one frame pair (kernel
-    K7: K3's specialised kernel for square 4/8/16 blocks at ``r = 1``, the
-    general one otherwise).
+    K7: K3's specialised kernel for square 4/8/16 blocks at ``1 <= r <=
+    4``, the general one otherwise).
 
     Args:
       tracked / anchor: ``(fh, fw)`` uint8 luma planes.
@@ -352,11 +363,11 @@ def candidate_sads_plain(
 
 def _candidate_specialised(block_w: int, block_h: int, r: int, tracked,
                            anchor) -> bool:
-    """K9's specialised kernel takes square 2x2 blocks at r = 1 on a
+    """K9's specialised kernel takes square 2x2 blocks at 1 <= r <= 4 on a
     4-byte aligned tracked and a 2-byte aligned anchor stack; every other
     case runs the general kernel."""
-    return (block_w == block_h == 2 and r == 1 and tracked.data_ptr() % 4 == 0
-            and anchor.data_ptr() % 2 == 0)
+    return (block_w == block_h == 2 and r in _SAD_RADII
+            and tracked.data_ptr() % 4 == 0 and anchor.data_ptr() % 2 == 0)
 
 
 def candidate_sads(
@@ -372,8 +383,8 @@ def candidate_sads(
 ) -> torch.Tensor:
     """Per-block SADs of every ``(2r+1)**2`` candidate around each block's
     MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``): the
-    specialised kernel for square 2x2 blocks at ``r = 1``, the general one
-    otherwise.
+    specialised kernel for square 2x2 blocks at ``1 <= r <= 4``, the
+    general one otherwise.
 
     Args:
       tracked / anchor: ``(T, H, W)`` uint8 luma planes.
@@ -410,7 +421,7 @@ def candidate_sads(
         if _candidate_specialised(block_w, block_h, r, tr, an) and not general:
             CANDIDATE_SADS.launch(
                 tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
-                t, fh, fw, stream_handle(tr),
+                t, fh, fw, r, stream_handle(tr),
             )
         else:
             CANDIDATE_SADS_GENERAL.launch(

@@ -14,7 +14,12 @@ with ``--target
 resize``, K6's templated kernels (e.g. column 0 alone of the halo
 block in the 4x4 ring: ``--edit idct_resize_sq.cu
 'kCoefGroup = 36, kHaloColumns = 4' 'kCoefGroup = 36, kHaloColumns = 1'``),
-or, with
+with ``--target motion``, the specialised K3 (its instances at every
+radius both wrapper modules take), K9 and the K8 refine, which shares
+K3's row arithmetic (e.g. K3's split kernel at 16x16 blocks and R >= 2
+with 8 lanes of 2 anchor rows a block, not 4 of 4: ``--edit
+refine_sads.cu 'constexpr int kSplitRows = 4;' 'constexpr int kSplitRows
+= 2;'``), or, with
 ``--target ccl``, K10's cluster kernel, e.g. on clusters of
 16 CTAs (``--edit`` may be given more than once; each old text must occur
 exactly once):
@@ -34,9 +39,9 @@ times are printed beside how far its outputs are from the base build's.
 (``DIR/svc_tpu_torch/csrc``, e.g. the parent commit unpacked with ``git
 archive`` into a git-ignored directory) and calls it through that
 checkout's wrapper module (``ops/dct.py`` for the display, wire and
-resize targets), so its kernels keep their own C signatures; ``--edit``
-is then optional. Only the shapes both wrapper modules have a templated
-kernel for are timed:
+resize targets, ``ops/motion.py`` for the motion target), so its kernels
+keep their own C signatures; ``--edit`` is then optional. Only the shapes
+(and radii) both wrapper modules have a templated kernel for are timed:
 
   python -m svc_tpu_torch.tools.variant_timing --target wire \\
       --against build/parent
@@ -58,8 +63,13 @@ of 1088 padded rows to 1080, steps 1 and 640 at random); the wire target
 ``dct8x8_to_wire`` at K2's (8 anchor frames of 9 packed 1080p frames);
 the resize target ``idct_resize_display`` at the blocks of K6's
 templated kernel (8 frames of 1376x768 to 1366x768 and of 864x480 to
-854x480). The two libraries'
-outputs must be equal bit for bit (K10's also to its plain version).
+854x480); the motion target ``refine_sads`` at levels 2, 1, 0 of that
+stack (blocks 4, 8, 16; even MVs within the level's reach), ``refine_mads``
+on frames 0 and 1 of each level and
+``candidate_sads`` at its 136x240 top level (zero MVs, T = 8) at each
+radius, and ``refine_sads_pitched`` at level 0 (8 subplanes, r = 1). The
+two libraries' outputs must be equal bit for bit (K10's also to its plain
+version).
 Nothing of the checkout's sources changes.
 """
 
@@ -79,17 +89,17 @@ import torch
 from pathlib import Path
 
 from svc_tpu_torch.kernels import build
-from svc_tpu_torch.ops import ccl, dct, pyramid
+from svc_tpu_torch.ops import ccl, dct, motion, pyramid
 from svc_tpu_torch.tools import ccl_cases
 
 VARIANT_DIR = build.BUILD_DIR.parent / "variant"
 # the ptxas entries reported for each target
 KERNEL = {"pyramid": "pyr_down_levels_kernel", "ccl": "ccl_cluster_kernel",
           "display": "idct_sq_display_kernel", "wire": "dct_sq_wire_kernel",
-          "resize": "idct_sq_resize_kernel"}
+          "resize": "idct_sq_resize_kernel", "motion": "sads"}
 # the wrapper module each target calls
 MODULE = {"pyramid": pyramid, "ccl": ccl, "display": dct, "wire": dct,
-          "resize": dct}
+          "resize": dct, "motion": motion}
 
 
 def build_variant(edits, csrc_from=None) -> build.BuildResult:
@@ -277,8 +287,43 @@ def resize_work(mods):
     return (lambda m: list(m.IDCT_RESIZE_SQ.values())), work, {}
 
 
+def motion_work(mods):
+    """The kernels, the calls timed and the plain reference (none) of the
+    motion target: the specialised K3 at each radius every module's
+    ``_SAD_RADII`` has (a module without it takes r = 1 only), K9 at the
+    same radii, and the K8 refine."""
+    g = torch.Generator().manual_seed(0)
+    y = torch.randint(0, 256, (9, 1088, 1920), generator=g,
+                      dtype=torch.uint8).cuda()
+    chain = pyramid.build_pyramid(y, 4)
+    radii = sorted(set.intersection(*(set(getattr(m, "_SAD_RADII", (1,)))
+                                      for m in mods)))
+    work = {}
+    for r in radii:
+        for lvl in (2, 1, 0):
+            b, reach = 16 >> lvl, (2 * r) << (2 - lvl)
+            mv = (2 * torch.randint(-reach // 2, reach // 2 + 1, (8, 68, 120, 2),
+                                    generator=g, dtype=torch.int32)).cuda()
+            work[f"K3 refine_sads<{b}, {r}> level {lvl}"] = (
+                lambda m, s=chain[lvl], mv=mv, b=b, r=r: m.refine_sads(s, mv, r, b, b))
+            work[f"K7 refine_mads<{b}, {r}> level {lvl} (one pair)"] = (
+                lambda m, s=chain[lvl], mv=mv[0], b=b, r=r:
+                m.refine_mads(s[0], s[1], mv, r, b, b))
+        top = chain[3]
+        zero = torch.zeros((8, 68, 120, 2), dtype=torch.int32).cuda()
+        work[f"K9 candidate_sads<{r}> 8x136x240"] = (
+            lambda m, tr=top[:-1], an=top[1:], r=r: m.candidate_sads(tr, an, zero, r, 2, 2))
+    y8 = pyramid.to_pitched(y, 8)
+    mv0 = (2 * torch.randint(-7, 8, (8, 68, 120, 2), generator=g,
+                             dtype=torch.int32)).cuda()
+    work["K8 refine_sads_pitched level 0"] = (
+        lambda m: m.refine_sads_pitched(y8, mv0, 1, 16, 16))
+    return (lambda m: [m.REFINE_SADS, m.REFINE_MADS, m.CANDIDATE_SADS,
+                       m.REFINE_SADS_PITCHED]), work, {}
+
+
 WORK = {"pyramid": pyramid_work, "ccl": ccl_work, "display": display_work,
-        "wire": wire_work, "resize": resize_work}
+        "wire": wire_work, "resize": resize_work, "motion": motion_work}
 
 
 def diff(a, b) -> str:

@@ -69,6 +69,7 @@ def test_refine_sads_bit_equal(gen, block, r, bound):
     )
 
 
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
 @pytest.mark.parametrize(
     "block,t,h,w,bound",
     [(4, 2, 48, 344, 2),     # level 2 of a 1376-wide padded frame
@@ -77,19 +78,23 @@ def test_refine_sads_bit_equal(gen, block, r, bound):
      (16, 1, 32, 48, 30),    # windows far past every edge
      (4, 1, 8, 12, 9)],      # a 3x2 field
 )
-def test_refine_sads_specialised_equals_general(gen, block, t, h, w, bound):
+def test_refine_sads_specialised_equals_general(gen, block, t, h, w, bound, r):
     # every candidate, valid or not, bit-equal across the two kernels and
-    # the plain version
+    # the plain version, at each radius's instance
     stack = _u8(gen, (t + 1, h, w))
+    bound *= r
     mv = torch.randint(-bound, bound + 1, (t, h // block, w // block, 2),
                        generator=gen, dtype=torch.int32).cuda()
     before = (motion.REFINE_SADS.launches, motion.REFINE_SADS_GENERAL.launches)
-    got = motion.refine_sads(stack, mv, 1, block, block)
-    gen_out = motion.refine_sads(stack, mv, 1, block, block, general=True)
+    name = f"refine_sads<{block}, {r}>"
+    inst = motion.REFINE_SADS.instance_launches[name]
+    got = motion.refine_sads(stack, mv, r, block, block)
+    gen_out = motion.refine_sads(stack, mv, r, block, block, general=True)
     assert (motion.REFINE_SADS.launches, motion.REFINE_SADS_GENERAL.launches) == (
         before[0] + 1, before[1] + 1)
+    assert motion.REFINE_SADS.instance_launches[name] == inst + 1
     assert torch.equal(got, gen_out)
-    assert torch.equal(got, motion.refine_sads_plain(stack, mv, 1, block, block))
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, block, block))
 
 
 def test_refine_sads_unaligned_stack_takes_the_general_kernel(gen):
@@ -107,14 +112,14 @@ def test_refine_sads_unaligned_stack_takes_the_general_kernel(gen):
 
 
 @pytest.mark.parametrize("block,r,bound", [(4, 1, 2), (8, 1, 6), (16, 1, 14),
-                                           (8, 3, 21), (16, 4, 40)])
+                                           (8, 3, 21), (16, 4, 40), (8, 5, 21)])
 def test_refine_mads_bit_equal(gen, block, r, bound):
-    # one frame pair; odd MVs reaching past the frame edge; r = 1 takes the
-    # specialised kernel, r > 1 the general one
+    # one frame pair; odd MVs reaching past the frame edge; r = 1 to 4
+    # take the specialised kernel, r > 4 the general one
     tr, an = _u8(gen, (4 * block, 6 * block)), _u8(gen, (4 * block, 6 * block))
     mv = torch.randint(-bound, bound + 1, (4, 6, 2), generator=gen,
                        dtype=torch.int32).cuda()
-    kernel = motion.REFINE_MADS if r == 1 else motion.REFINE_MADS_GENERAL
+    kernel = motion.REFINE_MADS if r <= 4 else motion.REFINE_MADS_GENERAL
     before = kernel.launches
     got = motion.refine_mads(tr, an, mv, r, block, block)
     assert kernel.launches == before + 1
@@ -126,9 +131,10 @@ def _k7_launches():
     return motion.REFINE_MADS.launches, motion.REFINE_MADS_GENERAL.launches
 
 
+@pytest.mark.parametrize("r", [1, 2, 4])
 @pytest.mark.parametrize("block", [4, 8, 16])
 @pytest.mark.parametrize("kind", ["odd", "within40", "past_edges", "unaligned"])
-def test_refine_mads_specialised_equals_general(gen, block, kind):
+def test_refine_mads_specialised_equals_general(gen, block, kind, r):
     # the specialised K7, the general K7, the plain version and K3 on the
     # stacked pair agree on every candidate, valid or not; an anchor one
     # byte into its buffer takes the general kernel
@@ -150,16 +156,16 @@ def test_refine_mads_specialised_equals_general(gen, block, kind):
                            dtype=torch.int32)
     mv = mv.cuda()
     before = _k7_launches()
-    got = motion.refine_mads(tr, an, mv, 1, block, block)
+    got = motion.refine_mads(tr, an, mv, r, block, block)
     want = (before[0], before[1] + 1) if kind == "unaligned" else (
         before[0] + 1, before[1])
     assert _k7_launches() == want
-    gen_out = motion.refine_mads(tr, an, mv, 1, block, block, general=True)
+    gen_out = motion.refine_mads(tr, an, mv, r, block, block, general=True)
     assert _k7_launches() == (want[0], want[1] + 1)
-    k3 = motion.refine_sads(torch.stack((tr, an)), mv[None], 1, block, block)[0]
+    k3 = motion.refine_sads(torch.stack((tr, an)), mv[None], r, block, block)[0]
     assert torch.equal(got, gen_out)
     assert torch.equal(got, k3)
-    assert torch.equal(got, motion.refine_mads_plain(tr, an, mv, 1, block, block))
+    assert torch.equal(got, motion.refine_mads_plain(tr, an, mv, r, block, block))
 
 
 @pytest.mark.parametrize("mv_pad", [0, 14])
@@ -170,7 +176,7 @@ def test_candidate_sads_bit_equal(gen, mv_pad, t, h, w, bw, bh, r):
     tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
     mv = torch.randint(-mv_pad, mv_pad + 1, (t, h // bh, w // bw, 2),
                        generator=gen, dtype=torch.int32).cuda()
-    kernel = (motion.CANDIDATE_SADS if (bw, bh, r) == (2, 2, 1)
+    kernel = (motion.CANDIDATE_SADS if bw == bh == 2 and r <= 4
               else motion.CANDIDATE_SADS_GENERAL)
     before = kernel.launches
     got = motion.candidate_sads(tr, an, mv, r, bw, bh, mv_pad)
@@ -188,7 +194,8 @@ def test_candidate_sads_bit_equal(gen, mv_pad, t, h, w, bw, bh, r):
      (3, 10, 300, "far"),       # windows wholly outside, 3 CTAs a row
      (1, 2, 2, "random")],
 )
-def test_candidate_sads_2x2_equals_general(gen, t, h, w, mv_kind):
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_candidate_sads_2x2_equals_general(gen, t, h, w, mv_kind, r):
     tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
     shape = (t, h // 2, w // 2, 2)
     if mv_kind == "zero":
@@ -201,12 +208,14 @@ def test_candidate_sads_2x2_equals_general(gen, t, h, w, mv_kind):
         mv = torch.randint(-400, 401, shape, generator=gen, dtype=torch.int32)
     mv = mv.cuda()
     before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
-    got = motion.candidate_sads(tr, an, mv, 1, 2, 2)
-    gen_out = motion.candidate_sads(tr, an, mv, 1, 2, 2, general=True)
+    inst = motion.CANDIDATE_SADS.instance_launches[f"candidate_sads<{r}>"]
+    got = motion.candidate_sads(tr, an, mv, r, 2, 2)
+    gen_out = motion.candidate_sads(tr, an, mv, r, 2, 2, general=True)
     assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
         before[0] + 1, before[1] + 1)
+    assert motion.CANDIDATE_SADS.instance_launches[f"candidate_sads<{r}>"] == inst + 1
     assert torch.equal(got, gen_out)  # every entry, valid or not
-    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 1, 2, 2))
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, 2, 2))
 
 
 def test_candidate_sads_unaligned_takes_the_general_kernel(gen):

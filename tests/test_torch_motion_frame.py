@@ -49,10 +49,12 @@ def _valid(mv, r, bw, bh, fh, fw):
 
 
 # (h, w, levels, block_w, block_h, search range): the default 4-level
-# 16x16 search, a rectangular block, a 3-level pyramid; every level has
-# mfw >= 8, so svc_tpu's hbma takes refine_mads_pallas
+# 16x16 search, the same at range 16 (top radius 2), a rectangular block,
+# a 3-level pyramid; every level has mfw >= 8, so svc_tpu's hbma takes
+# refine_mads_pallas
 HBMA_CASES = [
     (128, 256, 4, 16, 16, 8),
+    (128, 256, 4, 16, 16, 16),
     (64, 256, 3, 16, 8, 4),
     (64, 128, 3, 8, 8, 4),
 ]

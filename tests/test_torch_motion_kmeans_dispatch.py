@@ -54,7 +54,9 @@ def _meta_u8(*shape):
     "bw,bh,r,general,kernel",
     [(4, 4, 1, False, "refine_sads"), (8, 8, 1, False, "refine_sads"),
      (16, 16, 1, False, "refine_sads"), (16, 8, 1, False, "refine_sads_general"),
-     (16, 16, 2, False, "refine_sads_general"),
+     (16, 16, 2, False, "refine_sads"), (4, 4, 3, False, "refine_sads"),
+     (8, 8, 4, False, "refine_sads"),
+     (16, 16, 5, False, "refine_sads_general"),
      (16, 16, 1, True, "refine_sads_general")],
 )
 def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
@@ -69,21 +71,27 @@ def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     k = motion.REFINE_SADS if kernel == "refine_sads" else motion.REFINE_SADS_GENERAL
     assert len(args) == len(k.argtypes)
     if kernel == "refine_sads":
-        assert args[3:7] == (2, fh, fw, bw)  # t_count, fh, fw, block
+        assert args[3:8] == (2, fh, fw, bw, r)  # t_count, fh, fw, block, r
+        assert motion.REFINE_SADS.instance(args) == f"<{bw}, {r}>"
     else:
         assert args[3:9] == (2, fh, fw, bw, bh, r)
 
 
-def test_hbma_stack_default_levels_take_the_specialised_k3(meta_launches):
-    # the default encoder's search (16x16 MV blocks, range 8, 4 levels):
-    # the top-level EBMA on K9, then levels 2, 1, 0 on the new K3
+@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (23, 2), (24, 3),
+                                            (32, 4), (39, 4)])
+def test_hbma_stack_default_levels_take_the_specialised_k3(meta_launches,
+                                                           search_range, r):
+    # the encoder's search at 16x16 MV blocks and 4 levels, range 8 (the
+    # default) to 39: the top-level EBMA on K9, then levels 2, 1, 0 on the
+    # specialised K3, all at the top radius range // 8
     pyr = [_meta_u8(9, 1088 >> lvl, 1920 >> lvl) for lvl in range(4)]
-    mv, mm = motion.hbma_stack(pyr, 8, 16, 16)
+    mv, mm = motion.hbma_stack(pyr, search_range, 16, 16)
     assert tuple(mv.shape) == (8, 68, 120, 2) and tuple(mm.shape) == (8, 68, 120)
     names = [name for name, _ in meta_launches]
     assert names == ["candidate_sads"] + ["refine_sads"] * 3
-    blocks = [args[6] for name, args in meta_launches if name == "refine_sads"]
-    assert blocks == [4, 8, 16]
+    assert meta_launches[0][1][7] == r  # K9's radius
+    blocks = [args[6:8] for name, args in meta_launches if name == "refine_sads"]
+    assert blocks == [(4, r), (8, r), (16, r)]
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +111,9 @@ def _meta_plane_at(offset, fh, fw):
      (16, 16, 1, False, 0, "refine_mads"),
      (16, 16, 1, False, 16, "refine_mads"),  # 16-byte aligned view
      (4, 8, 1, False, 0, "refine_mads_general"),
-     (16, 16, 2, False, 0, "refine_mads_general"),
+     (16, 16, 2, False, 0, "refine_mads"), (8, 8, 3, False, 16, "refine_mads"),
+     (4, 4, 4, False, 0, "refine_mads"),
+     (16, 16, 5, False, 0, "refine_mads_general"),
      (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
      (16, 16, 1, True, 0, "refine_mads_general")],
 )
@@ -123,29 +133,57 @@ def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
     assert len(args) == len(k.argtypes)
     assert args[1] == anchor_offset  # the anchor plane itself, not a copy
     assert args[4:9] == (fh, fw, bw, bh, r)
+    if kernel == "refine_mads":
+        assert motion.REFINE_MADS.instance(args) == f"<{bw}, {r}>"
 
 
-def test_hbma_default_levels_take_the_specialised_k7(meta_launches):
-    # the default per-frame search (16x16 MV blocks, range 8, 4 levels) on
+@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4)])
+def test_hbma_default_levels_take_the_specialised_k7(meta_launches,
+                                                     search_range, r):
+    # the per-frame search (16x16 MV blocks, 4 levels, range 8 to 32) on
     # one padded 1080p pair: the top-level EBMA on K9, then levels 2, 1, 0
     # on the specialised K7
     pyr = [_meta_u8(2, 1088 >> lvl, 1920 >> lvl) for lvl in range(4)]
-    mv, mm = motion.hbma([p[0] for p in pyr], [p[1] for p in pyr], 8, 16, 16)
+    mv, mm = motion.hbma([p[0] for p in pyr], [p[1] for p in pyr],
+                         search_range, 16, 16)
     assert tuple(mv.shape) == (68, 120, 2) and tuple(mm.shape) == (68, 120)
     names = [name for name, _ in meta_launches]
     assert names == ["candidate_sads"] + ["refine_mads"] * 3
-    blocks = [args[6:8] for name, args in meta_launches if name == "refine_mads"]
-    assert blocks == [(4, 4), (8, 8), (16, 16)]
+    blocks = [args[6:9] for name, args in meta_launches if name == "refine_mads"]
+    assert blocks == [(4, 4, r), (8, 8, r), (16, 16, r)]
 
 
 def test_k3_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
-    cases = set(map(int, re.findall(r"case (\d+): return launch<", src)))
-    assert cases == set(motion._K3_BLOCKS)
-    # the SAD arithmetic K3 shares with the K8 refine: r = 1 only
+    blocks = {int(a) for a, b in re.findall(r"case (\d+): return launch_block<(\d+)>",
+                                            src) if a == b}
+    assert blocks == set(motion._K3_BLOCKS)
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<B, (\d+)>", src)
+             if a == b}
+    assert radii == set(motion._SAD_RADII)
+    # the SAD arithmetic K3 shares with the K8 refine (r = 1 there) and
+    # the word counts the replay above follows
     assert '#include "refine_rows.cuh"' in src
     rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
     assert "constexpr int kCand = 9;" in rows
+    assert "constexpr int kThreads = 256;" in rows
+    for line in ("static constexpr int kExtra = (2 * R + 3) / 4;",
+                 "static constexpr int kWords = B / 4 + kExtra;",
+                 "static constexpr int kFetch = B / 2 + kExtra;",
+                 "static constexpr int kSlots = 1 + (2 * R + B - 1) / B;",
+                 "static constexpr int kPacked = (kCand + 1) / 2;"):
+        assert line in rows, line
+    # the r = 1 instances keep the parent's shuffles; R >= 2 the transposed
+    # reduction over the block's lanes
+    assert "reduce_transposed<W::kPacked, B / 2, B>(packed, i);" in rows
+    assert "block_sads<B>(r0, ext, a, i, blk, s_out);" in src
+    assert "block_sads_wide<B, R>(rows, a, i, blk, s_out);" in src
+    # B = 16 at R >= 2: the split kernel the replay above follows
+    assert f"constexpr int kSplitRows = {_SPLIT_ROWS};" in src
+    assert "if constexpr (B == 16 && R >= 2) {" in src
+    # where its grid holds two CTAs an SM; else the one-row-a-lane kernel
+    assert "if (static_cast<long long>(grid.x) * grid.y * grid.z >= 2LL * sms) {" in src
+    assert "reduce_transposed<W::kPacked, kLanes / 2, kLanes>(packed, l);" in src
 
 
 def test_k7_entry_launches_k3s_kernel():
@@ -158,6 +196,321 @@ def test_k7_entry_launches_k3s_kernel():
     assert '#include "window_sads.cuh"' not in src
     general = (build.CSRC_DIR / "refine_mads_general.cu").read_text()
     assert '#include "window_sads.cuh"' in general
+
+
+# ---------------------------------------------------------------------------
+# K3 (and K7): the lane-per-anchor-row kernel, replayed on the CPU
+# ---------------------------------------------------------------------------
+
+# csrc/refine_rows.cuh and csrc/refine_sads.cu
+_M32 = 0xFFFFFFFF
+
+
+def _le_words(b):
+    """Little-endian 32-bit words of uint8 bytes ``(..., 4n)`` as int64
+    ``(..., n)``."""
+    b = np.asarray(b, np.int64).reshape(b.shape[:-1] + (-1, 4))
+    return (b << (8 * np.arange(4))).sum(-1)
+
+
+def _fshr(lo, hi, bits):
+    """``__funnelshift_r(lo, hi, bits)`` (bits < 32)."""
+    return ((hi << 32 | lo) >> bits) & _M32
+
+
+def _vsadu4(a, b):
+    return sum(np.abs(((a >> (8 * k)) & 0xFF) - ((b >> (8 * k)) & 0xFF)) for k in range(4))
+
+
+class _Win:
+    """``Window<B, R>``'s word counts."""
+
+    def __init__(self, b, r):
+        self.extra = (2 * r + 3) // 4
+        self.words = b // 4 + self.extra
+        self.fetch = b // 2 + self.extra
+        self.slots = 1 + (2 * r + b - 1) // b
+        self.cand = (2 * r + 1) ** 2
+        self.packed = (self.cand + 1) // 2
+
+
+def _k3_window_row(plane, y, x0, enabled, b, r):
+    """``load_window_row<B, R>`` for arrays of rows ``y``, first window
+    columns ``x0`` and lane predicates: the aligned chunks and extra words
+    with their predicates, then ``align_window_row``'s word selects and
+    funnel shift. ``(..., kWords)`` int64 words."""
+    fh, fw = plane.shape
+    win = _Win(b, r)
+    kw = b // 4
+    row_in = enabled & (y >= 0) & (y < fh)
+    yy = np.where(row_in, y, 0)
+    xb = x0 & ~(b - 1)
+    s = x0 - xb
+
+    def word_at(x, ok):
+        assert ((x >= 0) & (x + 4 <= fw) | ~ok).all()  # inside its row
+        xs = np.where(ok, x, 0)
+        return np.where(ok, _le_words(np.stack([plane[yy, xs + k] for k in range(4)],
+                                               -1))[..., 0], 0)
+
+    w = []
+    for c in range(2):
+        x = xb + c * b
+        ok = row_in & (x >= 0) & (x < fw)
+        w += [word_at(x + 4 * k, ok) for k in range(kw)]
+    x2 = xb + 2 * b
+    for e in range(win.extra):
+        x = x2 + 4 * e
+        if r == 1:
+            need, edge = s == b - 1, x2
+        elif b == 4:
+            need, edge = s > 4 * e + 4 - 2 * r, x
+        else:  # both extra words in one chunk, one predicate
+            need, edge = s > b - 2 * r, x2
+        w.append(word_at(x, row_in & need & (edge >= 0) & (edge < fw)))
+    w = np.stack(w, -1)
+    assert w.shape[-1] == win.fetch
+    q = s >> 2
+    v = [np.take_along_axis(w, (q + j)[..., None], -1)[..., 0] for j in range(win.words + 1)]
+    al = np.stack([_fshr(v[j], v[j + 1], 8 * (s & 3)) for j in range(win.words)], -1)
+    # the words hold the window row's bytes from x0 on, 0 outside the frame
+    want = np.zeros(al.shape[:-1] + (4 * win.words,), np.int64)
+    for k in range(b + 2 * r):
+        x = x0 + k
+        inside = row_in & (x >= 0) & (x < fw)
+        want[..., k] = np.where(inside, plane[yy, np.clip(x, 0, fw - 1)], 0)
+    got = (al[..., :, None] >> (8 * np.arange(4))) & 0xFF
+    np.testing.assert_array_equal(got.reshape(want.shape)[..., : b + 2 * r],
+                                  want[..., : b + 2 * r])
+    return al
+
+
+def _reduced_count(n, h):
+    return n if h == 0 or n == 1 else _reduced_count((n + 1) // 2, h // 2)
+
+
+def _reduced_index(n, h, k, i):
+    """``reduced_index<N, H>(k, i)`` for an array of lanes ``i``."""
+    if h == 0:
+        return np.full(i.shape, k if k < n else -1)
+    if n == 1:
+        return np.where(i & h, -1, _reduced_index(1, h // 2, k, i))
+    m = (n + 1) // 2
+    inner = _reduced_index(m, h // 2, k, i)
+    idx = inner + np.where(i & h, m, 0)
+    return np.where((inner >= 0) & (idx < n), idx, -1)
+
+
+def _reduce_transposed(v, lanes):
+    """``reduce_transposed<N, B / 2, B>`` over the lane axis -2 of ``v``
+    (..., B, N): the xor partner's words by lane index."""
+    n, h = v.shape[-1], lanes.size // 2
+    while h > 0:
+        partner = lanes ^ h
+        upper = (lanes & h).astype(bool)[:, None]
+        if n == 1:
+            v = (v + v[..., partner, :]) & _M32
+        else:
+            m = (n + 1) // 2
+            lo = v[..., :m]
+            hi = np.concatenate([v[..., m:], np.zeros(v.shape[:-1] + (2 * m - n,),
+                                                      np.int64)], -1)
+            send = np.where(upper, lo, hi)
+            v = (np.where(upper, hi, lo) + send[..., partner, :]) & _M32
+            n = m
+        h //= 2
+    return v
+
+
+def _replay_k3(stack, mv, b, r):
+    """SADs of a ``(T+1, fh, fw)`` stack as ``refine_sads_kernel<B, R>``
+    computes them: per block, lane i's anchor row and its window rows
+    (i and, on lanes B-2 and B-1, i + 2 at R = 1; i, i + B, ... at R >=
+    2), rows taken from other lanes as the shuffles take them (width B),
+    the funnel shifts and ``__vsadu4`` sums, and at R >= 2 the 16-bit
+    pairs, the transposed reduction and each lane's stores."""
+    tp1, fh, fw = stack.shape
+    mfh, mfw = fh // b, fw // b
+    win = _Win(b, r)
+    side = 2 * r + 1
+    lanes = np.arange(b)
+    out = np.full((tp1 - 1, win.cand, mfh, mfw), -1, np.int64)
+    for t in range(tp1 - 1):
+        trk, anc = stack[t], stack[t + 1]
+        for by in range(mfh):
+            bx = np.arange(mfw)[:, None]
+            mvx = mv[t, by, :, 0].astype(np.int64)[:, None]
+            mvy = mv[t, by, :, 1].astype(np.int64)[:, None]
+            x0 = np.broadcast_to(bx * b + mvx - r, (mfw, b))
+            y0 = by * b + mvy - r + lanes[None, :]
+            # lane i's anchor row of each block: (mfw, b lanes, b / 4) words
+            a = _le_words(anc[by * b : by * b + b].reshape(b, mfw, b).transpose(1, 0, 2))
+            on = np.ones((mfw, b), bool)
+            if r == 1:
+                r0 = _k3_window_row(trk, y0, x0, on, b, r)
+                ext = _k3_window_row(trk, y0 + 2, x0, on & (lanes >= b - 2), b, r)
+                # shuffles within the B-lane group; a source past it gives
+                # the lane its own value
+                down1 = r0[:, np.minimum(lanes + 1, b - 1)]
+                down2 = np.where((lanes + 2 < b)[:, None], r0[:, np.minimum(lanes + 2, b - 1)], r0)
+                up1 = np.where((lanes >= 1)[:, None], ext[:, np.maximum(lanes - 1, 0)], ext)
+                rows = [r0, np.where((lanes == b - 1)[:, None], up1, down1),
+                        np.where((lanes >= b - 2)[:, None], ext, down2)]
+            else:
+                slots = [_k3_window_row(trk, y0 + k * b, x0,
+                                        on & ((k == 0) | (lanes + k * b < b + 2 * r)), b, r)
+                         for k in range(win.slots)]
+                rows = []
+                for oy in range(side):
+                    q, rho = divmod(oy, b)
+                    if rho == 0:
+                        rows.append(slots[q])
+                    else:  # a lane sends the slot its taker (lane - rho) wants
+                        send = np.where((lanes < rho)[:, None], slots[q + 1], slots[q])
+                        rows.append(send[:, (lanes + rho) % b])
+            sums = np.zeros((mfw, b, side, side), np.int64)
+            for oy in range(side):
+                row = rows[oy]
+                for ox in range(side):
+                    wo, d = divmod(ox, 4)
+                    for j in range(b // 4):
+                        c = row[..., j + wo] if d == 0 else _fshr(
+                            row[..., j + wo], row[..., j + wo + 1], 8 * d)
+                        sums[:, :, oy, ox] += _vsadu4(c, a[..., j])
+            sums = sums.reshape(mfw, b, win.cand)
+            if r == 1:  # log2(B) xor steps: every lane holds the block's sums
+                out[t, :, by] = sums.sum(1).T
+                continue
+            assert sums.max() < 1 << 16
+            flat = np.concatenate([sums, np.zeros((mfw, b, 1), np.int64)], -1)
+            packed = flat[..., 0::2][..., : win.packed] | (flat[..., 1::2][..., : win.packed] << 16)
+            held = _reduce_transposed(packed, lanes)
+            count = _reduced_count(win.packed, b // 2)
+            assert held.shape[-1] == count
+            got = np.full((mfw, win.cand), -1, np.int64)
+            for k in range(count):
+                p = _reduced_index(win.packed, b // 2, k, lanes)
+                for lane in lanes[p >= 0]:
+                    pk = p[lane]
+                    assert (got[:, 2 * pk] == -1).all()  # each sum stored once
+                    got[:, 2 * pk] = held[:, lane, k] & 0xFFFF
+                    if 2 * pk + 1 < win.cand:
+                        got[:, 2 * pk + 1] = held[:, lane, k] >> 16
+            assert (got >= 0).all()  # every candidate stored
+            out[t, :, by] = got.T
+    return out
+
+
+_SPLIT_ROWS = 4  # anchor rows a lane of refine_sads_split_kernel (B = 16, R >= 2)
+
+
+def _replay_k3_split(stack, mv, r):
+    """SADs of a ``(T+1, fh, fw)`` stack as ``refine_sads_split_kernel<R>``
+    (B = 16, R >= 2) computes them: 4 lanes a block, lane l with anchor
+    rows 4l .. 4l + 3 loading its window rows 4l .. 4l + 3 + 2R itself,
+    each row's shifted words against each anchor row it meets, sums added
+    into 16-bit halves as they come, two transposed xor steps over the 4
+    lanes and each lane's stores."""
+    b, rows = 16, _SPLIT_ROWS
+    tp1, fh, fw = stack.shape
+    mfh, mfw = fh // b, fw // b
+    win = _Win(b, r)
+    side = 2 * r + 1
+    lanes = np.arange(b // rows)
+    out = np.full((tp1 - 1, win.cand, mfh, mfw), -1, np.int64)
+    for t in range(tp1 - 1):
+        trk, anc = stack[t], stack[t + 1]
+        for by in range(mfh):
+            bx = np.arange(mfw)[:, None]
+            mvx = mv[t, by, :, 0].astype(np.int64)[:, None]
+            mvy = mv[t, by, :, 1].astype(np.int64)[:, None]
+            x0 = np.broadcast_to(bx * b + mvx - r, (mfw, lanes.size))
+            y0 = by * b + mvy - r + rows * lanes[None, :]
+            blocks = anc[by * b : by * b + b].reshape(b, mfw, b).transpose(1, 0, 2)
+            a = [_le_words(blocks[:, rows * lanes + m]) for m in range(rows)]  # (mfw, 4, 4)
+            packed = np.zeros((mfw, lanes.size, win.packed), np.int64)
+            on = np.ones((mfw, lanes.size), bool)
+            for k in range(rows + 2 * r):
+                row = _k3_window_row(trk, y0 + k, x0, on, b, r)
+                for m in range(rows):
+                    oy = k - m
+                    if not 0 <= oy <= 2 * r:
+                        continue
+                    for ox in range(side):
+                        wo, d = divmod(ox, 4)
+                        cand = oy * side + ox
+                        total = packed[..., cand // 2] if cand % 2 == 0 else 0
+                        for j in range(b // 4):
+                            c = row[..., j + wo] if d == 0 else _fshr(
+                                row[..., j + wo], row[..., j + wo + 1], 8 * d)
+                            total = total + _vsadu4(c, a[m][..., j])
+                        if cand % 2 == 0:
+                            packed[..., cand // 2] = total & _M32
+                        else:
+                            packed[..., cand // 2] = (packed[..., cand // 2] + (total << 16)) & _M32
+            # a lane's sums (at most 4 * 16 * 255) never carry into the high half
+            assert ((packed & 0xFFFF) <= rows * b * 255).all()
+            held = _reduce_transposed(packed, lanes)
+            got = np.full((mfw, win.cand), -1, np.int64)
+            for k in range(held.shape[-1]):
+                p = _reduced_index(win.packed, lanes.size // 2, k, lanes)
+                for lane in lanes[p >= 0]:
+                    pk = p[lane]
+                    assert (got[:, 2 * pk] == -1).all()  # each sum stored once
+                    got[:, 2 * pk] = held[:, lane, k] & 0xFFFF
+                    if 2 * pk + 1 < win.cand:
+                        got[:, 2 * pk + 1] = held[:, lane, k] >> 16
+            assert (got >= 0).all()  # every candidate stored
+            out[t, :, by] = got.T
+    return out
+
+
+def _k3_mvs(rng, kind, shape, b, r):
+    if kind == "path":  # doubled propagated MVs, the refine's own inputs
+        return 2 * rng.integers(-2 * r, 2 * r + 1, shape)
+    if kind == "edge":  # odd MVs past every frame edge
+        return 2 * rng.integers(-b, b + 1, shape) + 1
+    # windows far outside the frame, and partly inside at both edges
+    return rng.choice(np.array([-300, -b - r, -b, -1, 1, b, b + r, 300]), shape)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("b", [4, 8, 16])
+@pytest.mark.parametrize("kind", ["path", "edge", "far"])
+def test_k3_replay_equals_plain(b, r, kind):
+    rng = np.random.default_rng(100 * b + 10 * r + len(kind))
+    t, mfh, mfw = 2, 3, 5
+    stack = rng.integers(0, 256, (t + 1, mfh * b, mfw * b)).astype(np.uint8)
+    mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), b, r).astype(np.int32)
+    # B = 16 at R >= 2 runs the split kernel where its grid fills the card
+    # (K3's stack) and the one-row-a-lane kernel elsewhere (K7's pair):
+    # both replayed
+    got = _replay_k3(stack, mv, b, r)
+    ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv),
+                                   r, b, b)
+    np.testing.assert_array_equal(got, ref.numpy())
+    if b == 16 and r >= 2:
+        np.testing.assert_array_equal(_replay_k3_split(stack, mv, r), ref.numpy())
+
+
+@pytest.mark.parametrize("b", [4, 8, 16])
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_k3_transposed_reduction_stores_every_sum_once(b, r):
+    # lane i's slots after reduce_transposed cover each packed word once,
+    # and the words a lane holds fit the register count the kernel keeps
+    win = _Win(b, r)
+    lanes = np.arange(b)
+    count = _reduced_count(win.packed, b // 2)
+    idx = np.stack([_reduced_index(win.packed, b // 2, k, lanes) for k in range(count)])
+    held = np.sort(idx[idx >= 0])
+    np.testing.assert_array_equal(held, np.arange(win.packed))
+    assert count <= win.packed
+    # shuffles a lane makes: one per kept pair at each step
+    n, h, shuffles = win.packed, b // 2, 0
+    while h:
+        shuffles += 1 if n == 1 else (n + 1) // 2
+        n, h = (n + 1) // 2 if n > 1 else 1, h // 2
+    assert shuffles < win.packed * np.log2(b)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ computes. The replays follow the kernels' own index arithmetic:
   every level;
 * ``csrc/candidate_sads.cu``: per MV block, each window row as two aligned
   32-bit words joined by a funnel shift, a byte mask at the row's edges,
-  and ``__vsadu4`` sums.
+  and ``__vsadu4`` sums (r = 1); at r = 2 to 4 each of the 2r + 2 window
+  rows as 2 or 3 words from up to 4 aligned loads, masked the same way,
+  and per candidate one ``__byte_perm`` of two rows and one ``__vsadu4``
+  against both anchor rows, made float32 through the mantissa.
 """
 
 import contextlib
@@ -60,7 +63,9 @@ def _meta_u8(*shape):
 @pytest.mark.parametrize(
     "bw,bh,r,general,kernel",
     [(2, 2, 1, False, "candidate_sads"), (4, 4, 1, False, "candidate_sads_general"),
-     (2, 2, 2, False, "candidate_sads_general"),
+     (2, 2, 2, False, "candidate_sads"), (2, 2, 3, False, "candidate_sads"),
+     (2, 2, 4, False, "candidate_sads"),
+     (2, 2, 5, False, "candidate_sads_general"),
      (2, 4, 1, False, "candidate_sads_general"),
      (2, 2, 1, True, "candidate_sads_general")],
 )
@@ -76,7 +81,8 @@ def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     k = motion.CANDIDATE_SADS if kernel == "candidate_sads" else motion.CANDIDATE_SADS_GENERAL
     assert len(args) == len(k.argtypes)
     if kernel == "candidate_sads":
-        assert args[4:7] == (t, fh, fw)
+        assert args[4:8] == (t, fh, fw, r)
+        assert motion.CANDIDATE_SADS.instance(args) == f"<{r}>"
     else:
         assert args[4:10] == (t, fh, fw, bw, bh, r)
 
@@ -100,13 +106,18 @@ def test_build_pyramid_general_takes_the_single_level_kernel(meta_launches):
     assert [name for name, _ in meta_launches] == ["pyr_down_u8"] * 3
 
 
-def test_hbma_stack_default_levels_take_the_new_kernels(meta_launches):
+@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4)])
+def test_hbma_stack_default_levels_take_the_new_kernels(meta_launches,
+                                                        search_range, r):
     # the encoder's motion path: the fused pyramid, then the top-level
-    # EBMA on the 2x2 K9 and levels 2, 1, 0 on the specialised K3
+    # EBMA on the 2x2 K9 and levels 2, 1, 0 on the specialised K3, each at
+    # the top radius range // 8
     pyr = pyramid.build_pyramid(_meta_u8(9, 1088, 1920), 4)
-    motion.hbma_stack(pyr, 8, 16, 16)
+    motion.hbma_stack(pyr, search_range, 16, 16)
     assert [name for name, _ in meta_launches] == (
         ["pyr_down_levels", "candidate_sads"] + ["refine_sads"] * 3)
+    assert meta_launches[1][1][7] == r
+    assert [args[7] for _, args in meta_launches[2:]] == [r] * 3
 
 
 def test_pyr_down_levels_rejects_bad_halvings():
@@ -379,7 +390,113 @@ def test_k9_word_replay_equals_plain(t, fh, fw, mv_kind):
     np.testing.assert_array_equal(got, ref.numpy())
 
 
+def _byte_perm(x, y, sel):
+    """``__byte_perm(x, y, sel)`` for selectors of bytes 0-7."""
+    pool = x | (y << 32)
+    return sum(((pool >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n) for n in range(4))
+
+
+def _window_run(frame, y, x0, fh, fw, n):
+    """``window_run<N>`` of csrc/candidate_sads.cu, vectorised over blocks:
+    (N + 3) / 4 words of row y from byte x0 on."""
+    live = (y >= 0) & (y < fh) & (x0 > -n) & (x0 < fw)
+    y_, x_ = np.where(live, y, 0), np.where(live, x0, 0)
+    row0 = y_ * fw
+    row1 = row0 + fw
+    o = row0 + x_
+    a = o & ~3
+    s = o - a
+    k_a = (n + 3) // 4
+    w = []
+    for m in range(k_a + 1):
+        p = a + 4 * m
+        ok = live & (4 * m < s + n) & (p + 4 > row0) & (p < row1)
+        assert ((p >= 0) & (p + 4 <= frame.size) | ~ok).all()  # inside the plane
+        w.append(np.where(ok, _word(frame, np.where(ok, p, 0)), 0).astype(np.int64))
+    out = []
+    for j in range(k_a):
+        v = ((w[j + 1] << 32) | w[j]) >> (8 * s) & 0xFFFFFFFF
+        first = np.clip(-x_ - 4 * j, 0, 4)
+        last = np.clip(fw - x_ - 4 * j, 0, 4)
+        below = np.where(last >= 4, 0xFFFFFFFF, (1 << (8 * np.minimum(last, 3))) - 1)
+        above = np.where(first >= 4, 0, (0xFFFFFFFF << (8 * np.minimum(first, 3))) & 0xFFFFFFFF)
+        out.append(np.where(live, v & below & above, 0))
+    return out
+
+
+def _replay_k9_wide(tracked, anchor, mv, r):
+    """SADs as ``candidate_sads_kernel<R>`` (R >= 2) computes them: the
+    2R + 2 window rows of each block as words, one ``__byte_perm`` of rows
+    oy and oy + 1 per candidate against both anchor rows in one word, one
+    ``__vsadu4``, and the float32 made by 2^23 + x less 2^23."""
+    t, fh, fw = tracked.shape
+    mfh, mfw = fh // 2, fw // 2
+    side, run = 2 * r + 1, 2 * r + 2
+    out = np.zeros((t, side * side, mfh, mfw), np.float32)
+    by, bx = np.meshgrid(np.arange(mfh), np.arange(mfw), indexing="ij")
+    for ti in range(t):
+        trk = tracked[ti].reshape(-1)
+        anc = anchor[ti].astype(np.int64)
+        a01 = (anc[2 * by, 2 * bx] | (anc[2 * by, 2 * bx + 1] << 8)
+               | (anc[2 * by + 1, 2 * bx] << 16) | (anc[2 * by + 1, 2 * bx + 1] << 24))
+        x0 = 2 * bx + mv[ti, ..., 0].astype(np.int64) - r
+        y0 = 2 * by + mv[ti, ..., 1].astype(np.int64) - r
+        rows = [_window_run(trk, y0 + wr, x0, fh, fw, run) for wr in range(run)]
+        for oy in range(side):
+            for ox in range(side):
+                j, d = divmod(ox, 4)
+                top, bot = rows[oy], rows[oy + 1]
+                if d < 3:
+                    pair = _byte_perm(top[j], bot[j],
+                                      d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12)
+                else:
+                    def shifted(rw):
+                        return ((rw[j + 1] << 32) | rw[j]) >> 24 & 0xFFFFFFFF
+                    pair = _byte_perm(shifted(top), shifted(bot), 0x5410)
+                sad = _vsadu4(pair.astype(np.uint64), a01.astype(np.uint64)).astype(np.int64)
+                assert (sad < 1 << 23).all()
+                f = (np.uint32(0x4B000000) | sad.astype(np.uint32)).view(np.float32)
+                out[ti, oy * side + ox] = f - np.float32(8388608.0)
+    return out
+
+
+@pytest.mark.parametrize("r", [2, 3, 4])
+@pytest.mark.parametrize(
+    "t,fh,fw,mv_kind",
+    [(2, 16, 24, "zero"), (2, 16, 24, "random"),  # fw % 4 == 0
+     (3, 14, 10, "random"), (1, 6, 14, "edge"),   # fw % 4 == 2
+     (2, 12, 18, "edge"), (1, 2, 2, "edge"), (2, 20, 22, "far"),
+     (1, 34, 60, "random")],
+)
+def test_k9_wide_replay_equals_plain(r, t, fh, fw, mv_kind):
+    rng = np.random.default_rng(fh * fw + t + 1000 * r)
+    tracked = rng.integers(0, 256, (t, fh, fw)).astype(np.uint8)
+    anchor = rng.integers(0, 256, (t, fh, fw)).astype(np.uint8)
+    shape = (t, fh // 2, fw // 2, 2)
+    if mv_kind == "zero":
+        mv = np.zeros(shape, np.int32)
+    elif mv_kind == "random":
+        mv = rng.integers(-14, 15, shape).astype(np.int32)
+    elif mv_kind == "edge":  # odd MVs that reach past every frame edge
+        mv = (2 * rng.integers(-3, 4, shape) + 1).astype(np.int32)
+    else:  # windows wholly outside the frame, and just inside
+        mv = rng.choice(np.array([-40, -9, -5, -4, -3, 3, 4, 5, 9, 40], np.int32), shape)
+    got = _replay_k9_wide(tracked, anchor, mv, r)
+    ref = motion.candidate_sads_plain(torch.from_numpy(tracked),
+                                      torch.from_numpy(anchor),
+                                      torch.from_numpy(mv), r, 2, 2)
+    np.testing.assert_array_equal(got, ref.numpy())
+
+
 def test_k9_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "candidate_sads.cu").read_text()
-    assert "constexpr int kCand = 9;" in src  # r = 1 only
+    assert "constexpr int kCand = 9;" in src  # the r = 1 instance's count
     assert "fh % 2 || fw % 2" in src  # 2x2 blocks
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<(\d+)>", src)
+             if a == b}
+    assert radii == set(motion._SAD_RADII)
+    # R >= 2: 2R + 2 window rows of 2R + 2 bytes, a byte_perm and one
+    # __vsadu4 a candidate, the exact float32 by the mantissa
+    assert "constexpr int kRun = 2 * R + 2;" in src
+    assert "window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);" in src
+    assert "__uint_as_float(0x4b000000u | sad) - 8388608.0f" in src

@@ -112,11 +112,19 @@ def test_refine_sads_match_pallas_on_valid_candidates():
     assert n_valid > 0
 
 
-def test_hbma_stack_bit_equal():
-    x = _moving_stack(3, 64, 128, seed=8)
-    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), 4), 8, 16, 16)
+@pytest.mark.parametrize(
+    "search_range,h,w",
+    # ranges 8 (the default), 16, 24 and 32 at 16x16 MV blocks and 4
+    # levels: top radii 1 to 4; at 32 a top level of 16x32 pixels (8x16
+    # 2x2 blocks) holds a radius-4 window inside the frame
+    [(8, 64, 128), (16, 64, 128), (24, 64, 128), (32, 128, 256)],
+)
+def test_hbma_stack_bit_equal(search_range, h, w):
+    x = _moving_stack(3, h, w, seed=8)
+    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), 4),
+                                     search_range, 16, 16)
     mv_t, mm_t = motion.hbma_stack(
-        pyramid.build_pyramid(torch.from_numpy(x), 4), 8, 16, 16
+        pyramid.build_pyramid(torch.from_numpy(x), 4), search_range, 16, 16
     )
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))

@@ -146,6 +146,34 @@ def test_default_config_round_trip():
                           _decode(j_dec, js, gaze))
 
 
+def test_search_range_16_round_trip():
+    # --mv-search-range 16 (top radius 2 at 16x16 MV blocks and 4 levels)
+    # through both packages on the smallest frame the default test clip
+    # keeps four levels at: the same header, MV fields and block types,
+    # coefficients within the gate
+    w, h, n = 64, 48, 5
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(mv_search_range=16)
+    props = VideoProperties(w, h, n)
+    jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=BATCH, device="cpu")
+    js = list(jenc.encode_video(iter(clip)))
+    ts = list(tenc.encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    jb = jenc.encode_batch(clip[: BATCH + 1], 0)
+    tb = tenc.encode_batch(clip[: BATCH + 1], 0)
+    np.testing.assert_array_equal(tb["mv_field"].numpy(), np.array(jb["mv_field"]))
+    np.testing.assert_array_equal(tb["block_types"].numpy().astype(np.uint32),
+                                  np.array(jb["block_types"]))
+    assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
+
+
 def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads

@@ -148,7 +148,8 @@ def test_variant_docstring_edits_apply_once():
     for path, old in (("pyr_down_levels.cuh", "__launch_bounds__(kLvThreads, 6)"),
                       ("idct_display_sq.cu", "kCoefGroup = 336, kMinCtas = 3,"),
                       ("idct_resize_sq.cu", "kCoefGroup = 36, kHaloColumns = 4"),
-                      ("ccl_converge.cu", "kCluster = 8;")):
+                      ("ccl_converge.cu", "kCluster = 8;"),
+                      ("refine_sads.cu", "constexpr int kSplitRows = 4;")):
         assert old in variant_timing.__doc__
         assert (build.CSRC_DIR / path).read_text().count(old) == 1, (path, old)
     assert set(variant_timing.KERNEL) == set(variant_timing.WORK)
@@ -226,3 +227,32 @@ def test_ptxas_report_names_the_templated_k2_k1_instances(smoke):
         ("idct_display_sq.cu", "idct_sq_display_kernel<8, 16>", 64, 0)]
     assert smoke.ptxas_spills(log) == {"dct_sq_wire_kernel<16, 8>": 0,
                                        "idct_sq_display_kernel<8, 16>": 412}
+
+
+def test_ptxas_report_names_the_radius_instances(smoke):
+    # K3's template takes (block, radius), its split kernel (16x16 blocks)
+    # and K9's the radius: one entry per instance, as chip_smoke's phase 2
+    # reports their registers and CTAs
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb18refine_sads_kernelILi16ELi4EEEvPKhS2_mPKiPiiiii' for 'sm_90a'",
+        "ptxas info    : Used 79 registers, used 1 barriers, 5184 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb18refine_sads_kernelILi4ELi1EEEvPKhS2_mPKiPiiiii' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, used 1 barriers, 2304 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__0b7d8c2e_17_candidate_sads_cu_"
+        "7d395fff21candidate_sads_kernelILi3EEEvPKhS2_PKiPfiiii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb24refine_sads_split_kernelILi2EEEvPKhS2_mPKiPiiiii' for 'sm_90a'",
+        "ptxas info    : Used 64 registers, used 1 barriers, 6400 bytes smem",
+    ])
+    assert smoke.ptxas_report(log) == [
+        ("refine_sads.cu", "refine_sads_kernel<16, 4>", 79, 5184),
+        ("refine_sads.cu", "refine_sads_kernel<4, 1>", 32, 2304),
+        ("candidate_sads.cu", "candidate_sads_kernel<3>", 40, 0),
+        ("refine_sads.cu", "refine_sads_split_kernel<2>", 64, 6400)]
+    # 256 threads: 79 registers (80 a thread allotted) hold 3 CTAs an SM,
+    # 32 hold 8
+    assert smoke.ctas_per_sm(79, 5184, 256) == 3
+    assert smoke.ctas_per_sm(32, 2304, 256) == 8
