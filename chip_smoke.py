@@ -17,7 +17,7 @@ each:
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the ninety-five kernels against its plain
+3. kernel parity — each of the ninety-six kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -35,7 +35,10 @@ each:
    its level of a 1080p clip at ranges 16, 24 and 32, on random MVs and on
    odd MVs past the frame edges, K7 on frames 0-1, K9 at the EBMA shape
    with zero, random and past-edge MVs and T = 1, each timed in turns
-   with the general kernel at its shape), held bit for bit
+   with the general kernel at its shape; K9 at 1x1, 4x4 and 8x8 blocks and
+   K3 / K7 at 2x2, r = 1-4, at the levels phase 16's settings give them,
+   T = 8, on zero or even, random and past-edge MVs, each timed in turns
+   with the general kernel), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
    in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
@@ -123,8 +126,9 @@ each:
    global-motion estimators on ``cuda``, then ``hbma`` at ranges 16, 24
    and 32 (K7, the fused K4 and the 2x2 K9 must run, every K7 and K9
    instance at r = 1-4, the general K7 and K9 and the single-level K4 not),
-   each held against ``hbma_stack`` on the same 2-frame stack and the CPU
-   port;
+   and at 8x8 MV blocks and at 3 levels (K9's 1x1 and 4x4, K7's 2x2
+   instances), each held against ``hbma_stack`` on the same 2-frame stack
+   and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
     launch) and ``hbma_stack(..., base_pitched=...)`` (the fused K8
@@ -176,14 +180,25 @@ each:
     port (header and MV fields equal, coefficients within 2.5e-4, block
     types within 1%), 2 payloads decoded there (the display gate); then
     the device batch time of each range's encoder (graph replays) in turns
-    with the default range 8.
+    with the default range 8;
+16. MV blocks and pyramid levels — 9-frame 1080p clips with 8x8 MV blocks
+    (``EncoderConfig(mv_block_w=8, mv_block_h=8)``), 3 and 2 levels, and 5
+    levels at range 16 on graph replays: the K9 and K3 instances of the
+    setting's blocks and radius must run (K9 at 1x1, 4x4, 8x8, 1x1; K3 at
+    2x2 under 8x8 MV blocks and 5 levels), no other instance and no
+    general K3 or K9; the same checks as phase 15, then the device batch
+    time of each setting in turns with the default config.
 
-Phases 4-7, 12 and 15 also need K10 and K11 to run. A graph's kernels count
-one launch each on every replay (its warm-up runs them once more). Each
-path of phases 4-7, 9, 10, 12, 13 and 15 runs with the launch counters set
-to 0 just before it and read just after; K3's, K7's and K9's are also
-counted per template instance (``refine_sads<16, 2>``,
-``candidate_sads<4>``). The second-to-last line is a JSON
+``python3 chip_smoke.py --batch-ms`` runs phase 1 and phase 16's batch
+timing alone (``motion_batch_ms``), so that a copy of this script in
+another checkout times that checkout's encoders.
+
+Phases 4-7, 12, 15 and 16 also need K10 and K11 to run. A graph's kernels
+count one launch each on every replay (its warm-up runs them once more).
+Each path of phases 4-7, 9, 10, 12, 13, 15 and 16 runs with the launch
+counters set to 0 just before it and read just after; K3's, K7's and K9's
+are also counted per template instance (``refine_sads<16, 2>``,
+``candidate_sads<1, 4>``). The second-to-last line is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -212,6 +227,16 @@ TIE_SHAPES = ((2, 2), (1, 1))
 # --mv-search-range values past the default 8 that phases 9 and 15 run: top
 # radii 2, 3 and 4 at 16x16 MV blocks and 4 levels
 WIDE_RANGES = (16, 24, 32)
+# the MV block and pyramid level settings phase 16 runs (--mv-block-w/-h,
+# --pyr-lvl-count; range 8 unless set): the top level's blocks S and radius
+# r are 1x1 at r = 1, 4x4 at r = 2, 8x8 at r = 4 and 1x1 at r = 1, the
+# first and the last with 2x2 refinement blocks
+MOTION_CONFIGS = {
+    "G1 8x8 MV blocks": dict(mv_block_w=8, mv_block_h=8),
+    "G2 3 levels": dict(pyr_lvl_count=3),
+    "G3 2 levels": dict(pyr_lvl_count=2),
+    "G4 5 levels, range 16": dict(pyr_lvl_count=5, mv_search_range=16),
+}
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
 # HBM rate, or the operations over the float32 rate outside the tensor
@@ -368,12 +393,14 @@ def ptxas_entries(log: str):
     for line in log.splitlines():
         # the mangled kernel name holds "<length>_<source stem>_cu_<hash>"
         # then "<length><kernel name>", then "ILi<B>E" for a template of
-        # one int, "ILi<BH>ELi<BW>E" for one of two
+        # one int, "ILi<BH>ELi<BW>E" for one of two, each with "f" or "i"
+        # after it for an output type float or int32_t
         m = re.search(r"Compiling entry function '[^']*?_\d+_([a-z]\w*?)_cu_"
                       r"[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)"
-                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?([fi])?)?", line)
         if m:
-            args = [a for a in m.group(3, 4) if a]
+            args = [a for a in m.group(3, 4) if a] + [
+                {"f": "float", "i": "int"}[c] for c in m.group(5) or ""]
             tmpl = f"<{', '.join(args)}>" if args else ""
             name, spill = (f"{m.group(1)}.cu", f"{m.group(2)}{tmpl}"), 0
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -564,7 +591,7 @@ def wide_search_parity(g, dev, results, int_ops_per_s):
                 -4, 5, (8, 68, 120, 2), generator=g, dtype=torch.int32) + 1).to(dev)),
             "T=1 odd MVs past the edges": (tr[:1], an[:1], odd1),
         }
-        name9 = f"candidate_sads<{r}>"
+        name9 = f"candidate_sads<2, {r}>"
         for kind, (a, bb, mv) in cases.items():
             before = motion.CANDIDATE_SADS.instance_launches[name9]
             got = motion.candidate_sads(a, bb, mv, r, 2, 2)
@@ -595,6 +622,117 @@ def wide_search_parity(g, dev, results, int_ops_per_s):
           "search's, random and odd past-edge MVs, levels 2-0 of a 9-frame 1080p "
           "clip; K7: frames 0-1; K9: the EBMA shape with zero, random and "
           "past-edge MVs, T=8 and 1); timed in turns with the general kernel:")
+    for line in lines:
+        print(f"  {line}")
+    return pyr
+
+
+def block_instance_parity(pyr, g, dev, results, int_ops_per_s):
+    """Phase 3's instances for phase 16's block and level settings, each
+    at r = 1-4 at the shape of the setting that runs it, T = 8: K9 at 1x1
+    blocks on level 3 of the 9-frame 1080p pyramid ``pyr`` (8x8 MV blocks,
+    4 levels), at 4x4 on level 2 (3 levels) and at 8x8 on level 1 (2
+    levels), zero, random and past-edge MVs; K3 at 2x2 on level 2 (8x8 MV
+    blocks), K7 on its frames 0-1, the refine's even MVs and odd ones past
+    the edges. Each bit-equal to the general kernel and to the plain
+    version on every entry, timed in turns with the general kernel (20
+    launches in one CUDA graph), its bound beside it."""
+    from svc_tpu_torch.ops import motion
+
+    def held(kernel, name, new, general, plain, kind):
+        before = kernel.instance_launches[name]
+        got = new()
+        if kernel.instance_launches[name] != before + 1:
+            fail(f"{name} ({kind}) did not take its instance")
+        if not torch.equal(got, plain()):
+            fail(f"{name} differs from its plain version ({kind})")
+        if not torch.equal(got, general()):
+            fail(f"{name} differs from the general kernel ({kind})")
+        return got
+
+    def timed_against_general(kernel, name, new, general, plain, nbytes, ops):
+        g_ms, n_ms, turns = in_turns(general, new, graph_ms)
+        w_ms = cuda_ms(new)
+        p_ms = cuda_ms(plain, iters=3, warmup=1)
+        line = record(results, name, kernel, 0, n_ms, w_ms, p_ms, nbytes, ops,
+                      ops_per_s=int_ops_per_s)
+        return (f"{name} {n_ms:.4f} ms, general {g_ms:.4f} ({g_ms / n_ms:.1f}x; in turns "
+                f"{', '.join(f'{x:.4f}' for x in turns)}), plain {p_ms:.4f}; {line}")
+
+    lines = []
+    for s, lvl in ((1, 3), (4, 2), (8, 1)):
+        top = pyr[lvl]
+        tr, an = top[:-1], top[1:]
+        t, fh, fw = tr.shape
+        shape = (t, fh // s, fw // s, 2)
+        zero = torch.zeros(shape, dtype=torch.int32, device=dev)
+        for r in motion._SAD_RADII:
+            name = f"candidate_sads<{s}, {r}>"
+            cases = {
+                "zero MVs": zero,
+                "MVs within +-14": torch.randint(-14, 15, shape, generator=g,
+                                                 dtype=torch.int32).to(dev),
+                "odd MVs past the edges": (2 * torch.randint(
+                    -2 * s - 2, 2 * s + 3, shape, generator=g, dtype=torch.int32) + 1).to(dev),
+            }
+            for kind, mv in cases.items():
+                got = held(motion.CANDIDATE_SADS, name,
+                           lambda: motion.candidate_sads(tr, an, mv, r, s, s),
+                           lambda: motion.candidate_sads(tr, an, mv, r, s, s, general=True),
+                           lambda: motion.candidate_sads_plain(tr, an, mv, r, s, s), kind)
+            # bytes: both stacks read once, the MVs, each SAD written once;
+            # operations: a SIMD SAD of 4 bytes each (S^2 / 4 a candidate,
+            # one a candidate at 1x1: its byte_perm)
+            n_out = got.numel()
+            nbytes = 2 * tr.numel() + zero.numel() * 4 + n_out * 4
+            lines.append(timed_against_general(
+                motion.CANDIDATE_SADS, name,
+                lambda: motion.candidate_sads(tr, an, zero, r, s, s),
+                lambda: motion.candidate_sads(tr, an, zero, r, s, s, general=True),
+                lambda: motion.candidate_sads_plain(tr, an, zero, r, s, s),
+                nbytes, n_out * max(1, s * s // 4)) + f" ({t}x{fh}x{fw}, zero MVs)")
+
+    stack = pyr[2]  # 2x2 refine blocks: level 2 at 8x8 MV blocks
+    tp1, fh, fw = stack.shape
+    shape = (tp1 - 1, fh // 2, fw // 2, 2)
+    for r in motion._SAD_RADII:
+        name3, name7 = f"refine_sads<2, {r}>", f"refine_mads<2, {r}>"
+        cases = {
+            "even MVs within the reach": 2 * torch.randint(
+                -2 * r, 2 * r + 1, shape, generator=g, dtype=torch.int32).to(dev),
+            "odd MVs past the edges": (2 * torch.randint(
+                -4, 5, shape, generator=g, dtype=torch.int32) + 1).to(dev),
+        }
+        for kind, mv in cases.items():
+            got = held(motion.REFINE_SADS, name3,
+                       lambda: motion.refine_sads(stack, mv, r, 2, 2),
+                       lambda: motion.refine_sads(stack, mv, r, 2, 2, general=True),
+                       lambda: motion.refine_sads_plain(stack, mv, r, 2, 2), kind)
+            held(motion.REFINE_MADS, name7,
+                 lambda: motion.refine_mads(stack[0], stack[1], mv[0], r, 2, 2),
+                 lambda: motion.refine_mads(stack[0], stack[1], mv[0], r, 2, 2,
+                                            general=True),
+                 lambda: motion.refine_mads_plain(stack[0], stack[1], mv[0], r, 2, 2),
+                 kind)
+        mv = cases["even MVs within the reach"]
+        mv0 = mv[0].contiguous()
+        n_out = got.numel()  # a SIMD SAD of 4 bytes a candidate
+        lines.append(timed_against_general(
+            motion.REFINE_SADS, name3, lambda: motion.refine_sads(stack, mv, r, 2, 2),
+            lambda: motion.refine_sads(stack, mv, r, 2, 2, general=True),
+            lambda: motion.refine_sads_plain(stack, mv, r, 2, 2),
+            stack.numel() + mv.numel() * 4 + n_out * 4, n_out) + f" ({tp1}x{fh}x{fw})")
+        lines.append(timed_against_general(
+            motion.REFINE_MADS, name7,
+            lambda: motion.refine_mads(stack[0], stack[1], mv0, r, 2, 2),
+            lambda: motion.refine_mads(stack[0], stack[1], mv0, r, 2, 2, general=True),
+            lambda: motion.refine_mads_plain(stack[0], stack[1], mv0, r, 2, 2),
+            2 * fh * fw + mv0.numel() * 4 + n_out // (tp1 - 1) * 4, n_out // (tp1 - 1))
+            + f" (one {fh}x{fw} pair)")
+    print("parity K9 at 1x1, 4x4, 8x8 and K3 / K7 at 2x2, r = 1-4 (the top and "
+          "refinement levels of 8x8 MV blocks and of 3 and 2 levels): every "
+          "instance bit-equal to the general kernel and to the plain version on "
+          "every entry; timed in turns with the general kernel:")
     for line in lines:
         print(f"  {line}")
 
@@ -867,8 +1005,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
           f"{'; '.join(wide)}; refine_sads_static (mv_bound 12) bit-equal")
 
     # K3, K7 and K9 at radii 2-4: their instances against the general
-    # kernels at the path shapes of search ranges 16, 24 and 32
-    wide_search_parity(g, dev, results, int_ops_per_s)
+    # kernels at the path shapes of search ranges 16, 24 and 32; then K9's
+    # 1x1, 4x4 and 8x8 and K3's / K7's 2x2 instances (phase 16's settings)
+    pyr = wide_search_parity(g, dev, results, int_ops_per_s)
+    block_instance_parity(pyr, g, dev, results, int_ops_per_s)
 
     # K8 pyramid: levels 1-3 of the 9-frame 1088x1920 stack as tbw=8
     # column-pitched subplanes in one fused launch, bit-equal to the fused
@@ -1687,6 +1827,68 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
                 payloads=payloads, frames=frames, gaze=gaze, counts=counts)
 
 
+def motion_instances(cfg):
+    """The K9 and K3 instances the encoder's search launches at ``cfg``
+    (square MV blocks): the top level's ``candidate_sads<S, r>`` and each
+    refinement level's ``refine_sads<B, r>``, r the top radius."""
+    factor = 1 << (cfg.pyr_lvl_count - 1)
+    r = cfg.mv_search_range // factor
+    return ((f"candidate_sads<{cfg.mv_block_w // factor}, {r}>",)
+            + tuple(f"refine_sads<{cfg.mv_block_w >> lvl}, {r}>"
+                    for lvl in range(cfg.pyr_lvl_count - 2, -1, -1)))
+
+
+def batch_ms_in_turns(encoders, packed, card: str, prefix: str = ""):
+    """Phases 15 and 16: the device batch ms (graph replays) of each of
+    ``encoders`` on the 9 packed 1080p frames ``packed``, in turns there
+    and back."""
+    order = list(encoders) + list(encoders)[::-1]
+    batch_ms = {k: [] for k in encoders}
+    for k in order:
+        batch_ms[k].append(cuda_ms(lambda e=encoders[k]: e.encode_packed(packed, 0),
+                                   iters=5, warmup=1))
+    print(f"  device batch ms at 1080p, 8 frames, graph replays, in turns "
+          f"{', '.join(map(str, order))} [{card}]: " + "; ".join(
+              f"{prefix}{k} {np.mean(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+              for k, v in batch_ms.items()))
+
+
+def motion_batch_ms(card: str):
+    """``python3 chip_smoke.py --batch-ms``: phase 16's device batch ms
+    alone (the default config and each of ``MOTION_CONFIGS``, 1080p, 8
+    frames, graph replays, in turns), on the package beside this script;
+    run in two checkouts, one call, it compares their encoders."""
+    from svc_tpu_torch.config import EncoderConfig, VideoProperties
+    from svc_tpu_torch.models.encoder import Encoder
+    from svc_tpu_torch.tools.clips import make_clip
+
+    props = VideoProperties(1920, 1080, 9)
+    encoders = {label: Encoder(EncoderConfig(**kw), props, batch_size=8, device="cuda")
+                for label, kw in {"default": {}, **MOTION_CONFIGS}.items()}
+    packed = torch.as_tensor(make_clip(1920, 1080, 9)).reshape(9, 1080, 1920 * 3)
+    batch_ms_in_turns(encoders, packed.to("cuda"), card)
+
+
+def motion_config_runs(plan, default_enc, card: str):
+    """Phase 16: each of ``plan`` = {label: (EncoderConfig, required,
+    forbidden)} as a 9-frame 1080p clip through :func:`config_round_trip`
+    (graph replays byte-equal to ``graph=False``, 3 frames against the CPU
+    port, the launch lists), then the device batch ms of each encoder in
+    turns with ``default_enc`` (the default config's)."""
+    runs = {}
+    for label, (cfg, required, forbidden) in plan.items():
+        print(f"{label} (MV blocks {cfg.mv_block_w}x{cfg.mv_block_h}, "
+              f"{cfg.pyr_lvl_count} levels, range {cfg.mv_search_range}: "
+              f"{', '.join(motion_instances(cfg))}), 1080p, 9 frames, graph replays:")
+        runs[label] = config_round_trip(cfg, f"phase 16: the {label} run", label, 1920,
+                                        1080, required, forbidden)
+    clip = next(iter(runs.values()))["clip"]
+    packed = torch.as_tensor(clip[:9]).reshape(9, 1080, 1920 * 3).to("cuda")
+    batch_ms_in_turns({"default": default_enc, **{k: r["enc"] for k, r in runs.items()}},
+                      packed, card)
+    return runs
+
+
 def block_shape_round_trip(shape, w, h, required, forbidden):
     """Phase 7's runs at ``shape`` = (rows, columns) transform blocks: a
     9-frame ``w`` x ``h`` clip, the default config with those blocks,
@@ -2081,6 +2283,7 @@ def padded_luma(clip: np.ndarray, dev) -> torch.Tensor:
 def per_frame_motion(clip: np.ndarray, dev):
     """Phase 9: ``build_pyramid`` -> ``hbma`` -> the three global-motion
     estimators on one 1080p frame pair, on ``cuda``."""
+    from svc_tpu_torch.config import EncoderConfig
     from svc_tpu_torch.kernels import build
     from svc_tpu_torch.ops import motion
     from svc_tpu_torch.ops.pyramid import build_pyramid
@@ -2097,12 +2300,23 @@ def per_frame_motion(clip: np.ndarray, dev):
     gm_h = motion.estimate_global_motion_hierarchical(tracked, anchor, 8)
     # --mv-search-range 16, 24 and 32: K9's and K7's instances at r = 2-4
     wide = {rng: motion.hbma(tracked, anchor, rng, 16, 16) for rng in WIDE_RANGES}
+    # phase 16's 8x8 MV blocks and 3 levels: K9's 1x1 and 4x4 instances,
+    # K7's 2x2 ones
+    settings = {label: EncoderConfig(**MOTION_CONFIGS[label])
+                for label in ("G1 8x8 MV blocks", "G2 3 levels")}
+    pyrs = {label: pyr if cfg.pyr_lvl_count == 4 else build_pyramid(y, cfg.pyr_lvl_count)
+            for label, cfg in settings.items()}
+    blocks = {label: motion.hbma([p[0] for p in pyrs[label]], [p[1] for p in pyrs[label]],
+                                 cfg.mv_search_range, cfg.mv_block_w, cfg.mv_block_h)
+              for label, cfg in settings.items()}
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = build.launch_counts()
     radius_instances = [f"refine_mads<{b}, {rng // 8}>" for rng in (8,) + WIDE_RANGES
                         for b in (4, 8, 16)]
-    radius_instances += [f"candidate_sads<{rng // 8}>" for rng in (8,) + WIDE_RANGES]
+    radius_instances += [f"candidate_sads<2, {rng // 8}>" for rng in (8,) + WIDE_RANGES]
+    radius_instances += [n.replace("refine_sads", "refine_mads") for cfg in settings.values()
+                         for n in motion_instances(cfg)]
     missing = [k for k in ("pyr_down_levels", "candidate_sads", "refine_mads",
                            *radius_instances)
                if counts[k] <= 0]
@@ -2138,6 +2352,19 @@ def per_frame_motion(clip: np.ndarray, dev):
                  f"CPU port")
         wide_moved.append(f"range {rng}: {int((mv_w != 0).any(dim=-1).sum().item())} "
                           f"blocks moved")
+    for label, (mv_b, mm_b) in blocks.items():
+        cfg = settings[label]
+        bw, bh = cfg.mv_block_w, cfg.mv_block_h
+        mv_bs, mm_bs = motion.hbma_stack(pyrs[label], cfg.mv_search_range, bw, bh)
+        if not (torch.equal(mv_b, mv_bs[0]) and torch.equal(mm_b, mm_bs[0])):
+            fail(f"per-frame motion: hbma at {label} differs from hbma_stack")
+        cpu_b = [p.cpu() for p in pyrs[label]]
+        mv_bc, mm_bc = motion.hbma([p[0] for p in cpu_b], [p[1] for p in cpu_b],
+                                   cfg.mv_search_range, bw, bh)
+        if not (torch.equal(mv_b.cpu(), mv_bc) and torch.equal(mm_b.cpu(), mm_bc)):
+            fail(f"per-frame motion: hbma at {label} on cuda differs from the CPU port")
+        wide_moved.append(f"{label}: {tuple(mv_b.shape[:2])} field, "
+                          f"{int((mv_b != 0).any(dim=-1).sum().item())} blocks moved")
     gms = {
         "avg": (gm_avg, motion.estimate_global_motion_avg(mv_c)),
         "exhaustive": (gm_ex, motion.estimate_global_motion_exhaustive(ct[0], ca[0], 8)[0]),
@@ -2153,7 +2380,8 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"{gm_avg.tolist()}, exhaustive {gm_ex.tolist()} (MAD "
           f"{mad_ex.item():.4f}), hierarchical {gm_h.tolist()}, each equal "
           f"to the CPU port; at ranges {', '.join(map(str, WIDE_RANGES))} "
-          f"(K7's and K9's r = 2-4 instances) equal to hbma_stack and to the CPU "
+          f"(K7's and K9's r = 2-4 instances), at 8x8 MV blocks and at 3 levels "
+          f"(K9's 1x1 and 4x4, K7's 2x2) equal to hbma_stack and to the CPU "
           f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
           f"launches {counts}")
     return dict(pyr=pyr, counts=counts)
@@ -2526,6 +2754,9 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card)
+    if sys.argv[1:] == ["--batch-ms"]:
+        motion_batch_ms(card)
+        return 0
 
     # 2. build
     from svc_tpu_torch.kernels import build
@@ -2574,7 +2805,7 @@ def main() -> int:
     # K9), static shared memory only, at their threads a CTA
     static_threads = {"refine_sads_kernel": 256, "refine_sads_split_kernel": 256,
                       "refine_sads_pitched_kernel": 256, "pyr_down_levels_kernel": 256,
-                      "candidate_sads_kernel": 128}
+                      "candidate_sads_kernel": 128, "candidate_sads_1x1_kernel": 128}
     static_line = "; ".join(
         f"{src} {kern} {ctas_per_sm(regs, smem, n)} CTAs of {n} per SM"
         for src, kern, regs, smem in report
@@ -2833,32 +3064,40 @@ def main() -> int:
     # 15. search ranges past the default: K9's and K3's r = 2-4 instances
     # (the encoder's search at 16x16 MV blocks and 4 levels), each run on
     # its own radius's instances and on no general K3 or K9
-    radius_k3_k9 = {q: tuple(f"refine_sads<{b}, {q}>" for b in (4, 8, 16))
-                    + (f"candidate_sads<{q}>",) for q in (1, 2, 3, 4)}
+    # every K9 and K3 instance: a config's run takes its own and no other
+    all_instances = tuple(
+        f"{name}<{b}, {q}>" for name, blocks in (("candidate_sads", motion._K9_BLOCKS),
+                                                 ("refine_sads", motion._K3_BLOCKS))
+        for b in blocks for q in motion._SAD_RADII)
+
+    def motion_plan(cfg):
+        """``(cfg, required, forbidden)``: the encode kernels and the
+        instances of ``cfg``'s search; no general kernel, no other
+        instance."""
+        own = motion_instances(cfg)
+        return (cfg, encode_kernels + ("lloyd", "idct_display") + own,
+                general_dct + general_k3_k5 + general_k6 + any_square + any_square_k6
+                + tuple(n for n in all_instances if n not in own))
+
     search_runs = {}
     for rng in WIDE_RANGES:
-        r = rng // 8
-        print(f"--mv-search-range {rng} (top radius {r}), 1080p, 9 frames, "
+        print(f"--mv-search-range {rng} (top radius {rng // 8}), 1080p, 9 frames, "
               f"default config otherwise, graph replays:")
-        search_runs[rng] = config_round_trip(
-            EncoderConfig(mv_search_range=rng), f"phase 15: the range-{rng} run",
-            f"range {rng}", 1920, 1080,
-            encode_kernels + ("lloyd", "idct_display") + radius_k3_k9[r],
-            general_dct + general_k3_k5 + general_k6 + any_square + any_square_k6
-            + tuple(n for q, names in radius_k3_k9.items() if q != r for n in names))
+        cfg, required, forbidden = motion_plan(EncoderConfig(mv_search_range=rng))
+        search_runs[rng] = config_round_trip(cfg, f"phase 15: the range-{rng} run",
+                                             f"range {rng}", 1920, 1080, required,
+                                             forbidden)
     # the device batch time (graph replays, 8 frames of phase 4's clip) at
     # each range, in turns with the default range 8
     packed = torch.as_tensor(main_run["clip"][:9]).reshape(9, 1080, 1920 * 3).to(dev)
-    encoders = {8: main_run["enc"], **{rng: run["enc"] for rng, run in search_runs.items()}}
-    order = (8,) + WIDE_RANGES + WIDE_RANGES[::-1] + (8,)
-    batch_ms = {rng: [] for rng in encoders}
-    for rng in order:
-        batch_ms[rng].append(cuda_ms(lambda e=encoders[rng]: e.encode_packed(packed, 0),
-                                     iters=5, warmup=1))
-    print(f"  device batch ms at 1080p, 8 frames, graph replays, in turns "
-          f"{', '.join(map(str, order))} [{card}]: " + "; ".join(
-              f"range {rng} {np.mean(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
-              for rng, v in batch_ms.items()))
+    batch_ms_in_turns({8: main_run["enc"], **{rng: run["enc"] for rng, run in
+                                              search_runs.items()}}, packed, card, "range ")
+
+    # 16. MV blocks and pyramid levels: 8x8 MV blocks, 3, 2 and 5 levels,
+    # each run on its own K9 and K3 instances and on no general K3 or K9
+    config_runs = motion_config_runs(
+        {label: motion_plan(EncoderConfig(**kw)) for label, kw in MOTION_CONFIGS.items()},
+        main_run["enc"], card)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "svc_tpu", "benchmarks"))
@@ -2876,8 +3115,11 @@ def main() -> int:
                **{name: run for shape, run in shape_runs.items()
                   for name in square_dct[shape]},
                **{square_k6[shape][0]: wide_sq[shape] for shape in square_k6},
-               **{name: search_runs[rng] for rng in WIDE_RANGES
-                  for name in radius_k3_k9[rng // 8]},
+               # the K3 and K9 instances the default search does not run:
+               # where phase 15 or 16 ran them
+               **{name: run for run in (*config_runs.values(), *search_runs.values())
+                  for name in motion_instances(run["enc"].cfg)
+                  if name not in motion_instances(EncoderConfig())},
                **{name: frame_run for name in results if name.startswith("refine_mads<")}}
     kernels = []
     for name, r in results.items():

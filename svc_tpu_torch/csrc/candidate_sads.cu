@@ -1,51 +1,69 @@
 // K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
-// float32, specialised for square 2x2 MV blocks at search radius R = 1 to
-// 4: the encoder's top-level EBMA at 16x16 blocks and 4 pyramid levels,
-// range 8 (R = 1, the default) to 39 (R = range / 8), in hbma_stack and
-// per-frame hbma alike.
+// float32, specialised for square S x S MV blocks, S = 1, 2, 4 or 8, at
+// search radius R = 1 to 4: the encoder's top-level EBMA, in hbma_stack and
+// per-frame hbma alike, at 16x16 blocks and 4 pyramid levels (S = 2),
+// range 8 (R = 1, the default) to 39 (R = range / 8), and at the other
+// block and level settings (--mv-block-w/-h, --pyr-lvl-count): 8x8 blocks
+// at 4 levels or 16x16 at 5 (S = 1), 16x16 at 3 levels (S = 4) or 2 (S =
+// 8). S = 1 and 2 run the kernels of this file, S = 4 and 8 K3's kernel
+// (refine_sads.cu, launch_refine_rows) with float32 output.
 //
-// Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) at that
-// shape; every other shape runs candidate_sads_general.cu
+// Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) at those
+// shapes; every other shape runs candidate_sads_general.cu
 // (window_sads.cuh), and ops/motion.py dispatches. The contract is the
 // general kernel's: SAD of candidate (oy, ox) in raster order at
-//   sum_{i,j<2} |trk(t, 2*by + mvy + oy - R + i, 2*bx + mvx + ox - R + j)
-//               - anc(t, 2*by + i, 2*bx + j)|
+//   sum_{i,j<S} |trk(t, S*by + mvy + oy - R + i, S*bx + mvx + ox - R + j)
+//               - anc(t, S*by + i, S*bx + j)|
 // for any int32 MVs, with tracked pixels outside the frame read as 0:
 // exact integer sums, bit-equal to the general kernel and to
 // candidate_sads_plain on every entry, valid or not.
 //
-// Bound: bytes, and mostly the output ((2R + 1)^2 float32 per block
-// against 8 bytes read: 2.35 MB of 2.87 MB at 1080p, T = 8, R = 1; 21.2
-// MB of 22.0 at R = 4; 0.0009 to 0.0066 ms on an H100). The general kernel
-// gives a warp to each block (4 of 32 lanes busy at 2x2), stages both
-// tiles in shared memory, divides by runtime sizes and reduces each sum by
-// five shuffles. Design:
-//   - a thread per MV block; consecutive threads take consecutive block
-//     columns of one block row, so the window-row loads and the stores of
-//     each candidate plane coalesce across the warp;
-//   - the two anchor rows are 16-bit loads (2*bx is even, fw is even);
-//   - at R = 1 each of the 4 window rows, bytes x0 .. x0+3 with x0 = 2*bx
-//     + mvx - 1 at any alignment, is two aligned 32-bit words (planes are
-//     4-byte aligned and fh*fw is a multiple of 4) joined by
+// The 2x2 kernel is also K3's and K7's at 2x2 blocks (refine_sads.cu,
+// launch_block2_sads) with int32 output: it reads frame t's tracked plane
+// and its anchor from two bases, each frame a plane on (K9: the two
+// stacks; K3: the stack and the stack plus a plane; K7: the pair, one
+// frame).
+//
+// Bound: bytes, and mostly the output ((2R + 1)^2 SADs of 4 bytes per
+// block against 2 S^2 bytes read and 8 of MVs: at S = 2, 1080p, T = 8, R =
+// 1, 2.35 MB of 2.87 MB, 0.0009 ms on an H100; at S = 1, 136 x 240 pixels
+// a frame, 78% of 12.0 MB at R = 1). The general kernel gives a warp to
+// each block (4 of 32 lanes busy at 2x2, 1 at 1x1), stages both tiles in
+// shared memory, divides by runtime sizes and reduces each sum by five
+// shuffles. Design:
+//   - a thread per MV block (S = 2) or per pixel (S = 1); consecutive
+//     threads take consecutive block columns of one block row, so the
+//     window-row loads and the stores of each candidate plane coalesce
+//     across the warp;
+//   - at S = 2 the two anchor rows are 16-bit loads (2*bx is even, fw is
+//     even); at S = 1 the anchor byte, copied to the four bytes of a word;
+//   - at S = 2 and R = 1 each of the 4 window rows, bytes x0 .. x0+3 with
+//     x0 = 2*bx + mvx - 1 at any alignment, is two aligned 32-bit words
+//     (planes are 4-byte aligned and fh*fw is a multiple of 4) joined by
 //     __funnelshift_r; at R >= 2 each of the 2R + 2 rows is 2R + 2 bytes,
-//     2 or 3 words from up to 4 aligned loads. A word is loaded only where
-//     it meets the row's bytes, so no load leaves the plane; a byte mask
-//     then zeroes what lies outside [0, fw) (fw is even but need not be a
-//     multiple of 4, so a word can straddle the row's edge) and a row
-//     outside [0, fh) reads as 0;
-//   - at R = 1, __vsadu4 of a window word shifted to candidate column ox
-//     (low two bytes) against an anchor row (high bytes 0) adds that row's
-//     two absolute differences: 18 of them make the 9 sums; at R >= 2 one
-//     __byte_perm puts candidate (oy, ox)'s bytes of window rows oy and
-//     oy + 1 in one word, against both anchor rows in another, so one
-//     __vsadu4 is its SAD, stored at once (no accumulators);
+//     2 or 3 words from up to 4 aligned loads; at S = 1 each of the 2R + 1
+//     rows is 2R + 1 bytes, 1 to 3 words. A word is loaded only where it
+//     meets the row's bytes, so no load leaves the plane; a byte mask then
+//     zeroes what lies outside [0, fw) (fw need not be a multiple of 4, so
+//     a word can straddle the row's edge) and a row outside [0, fh) reads
+//     as 0;
+//   - at S = 2 and R = 1, __vsadu4 of a window word shifted to candidate
+//     column ox (low two bytes) against an anchor row (high bytes 0) adds
+//     that row's two absolute differences: 18 of them make the 9 sums; at
+//     R >= 2 one __byte_perm puts candidate (oy, ox)'s bytes of window rows
+//     oy and oy + 1 in one word, against both anchor rows in another, so
+//     one __vsadu4 is its SAD, stored at once (no accumulators); at S = 1
+//     one __vabsdiffu4 of a window word against the anchor word gives four
+//     candidates' SADs at once, each byte of it put into a float's
+//     mantissa by one __byte_perm;
 //   - the SADs (< 2^23) become float32 exactly by 2^23 + x in the mantissa
-//     less 2^23 at R >= 2 (an integer-to-float conversion issues at a
-//     quarter of that rate);
+//     less 2^23 (sad_as, common.cuh) at R >= 2 and at S = 1 (an
+//     integer-to-float conversion issues at a quarter of that rate);
 //   - no shared memory, no shuffles; all index math is compile-time but
 //     the block's own origin.
 #include "common.cuh"
+#include "refine_sads.cuh"
 
 namespace {
 
@@ -112,11 +130,11 @@ __device__ __forceinline__ void window_run(const uint8_t* __restrict__ frame, in
   }
 }
 
-template <int R>
+template <int R, class Out>
 __global__ void __launch_bounds__(kThreads)
 candidate_sads_kernel(const uint8_t* __restrict__ tracked,
                       const uint8_t* __restrict__ anchor,
-                      const int32_t* __restrict__ mv, float* __restrict__ out,
+                      const int32_t* __restrict__ mv, Out* __restrict__ out,
                       int fh, int fw, int mfh, int mfw) {
   const int bx = blockIdx.x * kThreads + threadIdx.x;
   const int by = blockIdx.y;
@@ -152,9 +170,9 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
     }
 
     const size_t plane_out = static_cast<size_t>(mfh) * mfw;
-    float* o = out + (static_cast<size_t>(t) * kCand * mfh + by) * mfw + bx;
+    Out* o = out + (static_cast<size_t>(t) * kCand * mfh + by) * mfw + bx;
 #pragma unroll
-    for (int c = 0; c < kCand; ++c) o[c * plane_out] = static_cast<float>(acc[c]);
+    for (int c = 0; c < kCand; ++c) o[c * plane_out] = static_cast<Out>(acc[c]);
   } else {
     constexpr int kSide = 2 * R + 1;
     constexpr int kRun = 2 * R + 2;  // window rows, and bytes a row
@@ -163,7 +181,7 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
     for (int wr = 0; wr < kRun; ++wr) window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);
     const uint32_t a01 = a0 | (a1 << 16);  // anchor rows 0 and 1, 2 bytes each
     const size_t plane_out = static_cast<size_t>(mfh) * mfw;
-    float* o = out + (static_cast<size_t>(t) * kSide * kSide * mfh + by) * mfw + bx;
+    Out* o = out + (static_cast<size_t>(t) * kSide * kSide * mfh + by) * mfw + bx;
 #pragma unroll
     for (int oy = 0; oy < kSide; ++oy) {
 #pragma unroll
@@ -180,34 +198,99 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
                              __funnelshift_r(rows[oy + 1][j], rows[oy + 1][j + 1], 24),
                              0x5410);
         }
-        const uint32_t sad = __vsadu4(pair, a01);
-        o[(oy * kSide + ox) * plane_out] = __uint_as_float(0x4b000000u | sad) - 8388608.0f;
+        o[(oy * kSide + ox) * plane_out] = sad_as<Out>(__vsadu4(pair, a01));
       }
     }
   }
 }
 
+// K9 at 1x1 blocks: a thread a pixel (x, y) of frame t. Window row oy is
+// the 2R + 1 bytes from x + mvx - R on (window_run); one __vabsdiffu4
+// against the anchor byte in all four bytes gives candidates 4j .. 4j + 3
+// of word j at once, and one __byte_perm puts each into the mantissa of
+// 2^23 (bytes 1, 2 of 0x4b000000 are 0, byte 3 is its exponent).
 template <int R>
+__global__ void __launch_bounds__(kThreads)
+candidate_sads_1x1_kernel(const uint8_t* __restrict__ tracked,
+                          const uint8_t* __restrict__ anchor,
+                          const int32_t* __restrict__ mv, float* __restrict__ out,
+                          int fh, int fw) {
+  constexpr int kSide = 2 * R + 1;
+  constexpr int kWords = (kSide + 3) / 4;  // words a window row
+  const int x = blockIdx.x * kThreads + threadIdx.x;
+  const int y = blockIdx.y;
+  const int t = blockIdx.z;
+  if (x >= fw) return;
+
+  const size_t plane = static_cast<size_t>(fh) * fw;
+  const size_t at = t * plane + static_cast<size_t>(y) * fw + x;  // (t, y, x)
+  const uint8_t* trk = tracked + t * plane;
+  const int mvx = __ldg(mv + 2 * at);
+  const int mvy = __ldg(mv + 2 * at + 1);
+  const uint32_t a4 = __ldg(anchor + at) * 0x01010101u;
+  float* o = out + (static_cast<size_t>(t) * kSide * kSide * fh + y) * fw + x;
+#pragma unroll
+  for (int oy = 0; oy < kSide; ++oy) {
+    uint32_t row[kWords];
+    window_run<kSide>(trk, y + mvy + oy - R, x + mvx - R, fh, fw, row);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      const uint32_t d = __vabsdiffu4(row[j], a4);
+#pragma unroll
+      for (int k = 0; k < 4 && 4 * j + k < kSide; ++k) {
+        o[(oy * kSide + 4 * j + k) * plane] =
+            __uint_as_float(__byte_perm(d, 0x4b000000u, k | 0x7440)) - 8388608.0f;
+      }
+    }
+  }
+}
+
+template <int R, class Out>
 int launch(const uint8_t* tracked, const uint8_t* anchor, const int32_t* mv,
-           float* out, int t_count, int fh, int fw, cudaStream_t stream) {
+           Out* out, int t_count, int fh, int fw, cudaStream_t stream) {
   const int mfh = fh / 2;
   const int mfw = fw / 2;
   const dim3 grid((mfw + kThreads - 1) / kThreads, mfh, t_count);
-  candidate_sads_kernel<R><<<grid, kThreads, 0, stream>>>(tracked, anchor, mv, out,
-                                                          fh, fw, mfh, mfw);
+  candidate_sads_kernel<R, Out><<<grid, kThreads, 0, stream>>>(tracked, anchor, mv, out,
+                                                               fh, fw, mfh, mfw);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_1x1(const uint8_t* tracked, const uint8_t* anchor, const int32_t* mv,
+               float* out, int t_count, int fh, int fw, cudaStream_t stream) {
+  const dim3 grid((fw + kThreads - 1) / kThreads, fh, t_count);
+  candidate_sads_1x1_kernel<R><<<grid, kThreads, 0, stream>>>(tracked, anchor, mv, out,
+                                                              fh, fw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 1x1 instance of radius r. tracked is 4-byte aligned and fh * fw a
+// multiple of 4 (window_run's whole-word loads stay in the plane).
+int launch_block1(const void* tracked, const void* anchor, const void* mv,
+                  float* out, int t_count, int fh, int fw, int r,
+                  cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(tracked) % 4 ||
+      (static_cast<size_t>(fh) * fw) % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* trk = static_cast<const uint8_t*>(tracked);
+  const auto* anc = static_cast<const uint8_t*>(anchor);
+  const auto* m = static_cast<const int32_t*>(mv);
+  switch (r) {
+    case 1: return launch_1x1<1>(trk, anc, m, out, t_count, fh, fw, stream);
+    case 2: return launch_1x1<2>(trk, anc, m, out, t_count, fh, fw, stream);
+    case 3: return launch_1x1<3>(trk, anc, m, out, t_count, fh, fw, stream);
+    case 4: return launch_1x1<4>(trk, anc, m, out, t_count, fh, fw, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// tracked, anchor: (t_count, fh, fw) uint8, tracked 4-byte and anchor
-// 2-byte aligned; mv: (t_count, fh/2, fw/2, 2) int32 (x, y); out:
-// (t_count, (2r + 1)^2, fh/2, fw/2) float32. All contiguous; fh and fw
-// even; 2x2 blocks, 1 <= r <= 4. Refuses (cudaErrorInvalidValue) anything
-// else.
-SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
-                                  const void* mv, void* out, int t_count,
-                                  int fh, int fw, int r, void* stream) {
+template <class Out>
+int launch_block2_sads(const void* tracked, const void* anchor, const void* mv,
+                       Out* out, int t_count, int fh, int fw, int r, void* stream) {
   if (reinterpret_cast<uintptr_t>(tracked) % 4 ||
       reinterpret_cast<uintptr_t>(anchor) % 2 || fh % 2 || fw % 2) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -215,13 +298,42 @@ SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
   const auto* trk = static_cast<const uint8_t*>(tracked);
   const auto* anc = static_cast<const uint8_t*>(anchor);
   const auto* m = static_cast<const int32_t*>(mv);
-  auto* o = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (r) {
-    case 1: return launch<1>(trk, anc, m, o, t_count, fh, fw, st);
-    case 2: return launch<2>(trk, anc, m, o, t_count, fh, fw, st);
-    case 3: return launch<3>(trk, anc, m, o, t_count, fh, fw, st);
-    case 4: return launch<4>(trk, anc, m, o, t_count, fh, fw, st);
+    case 1: return launch<1>(trk, anc, m, out, t_count, fh, fw, st);
+    case 2: return launch<2>(trk, anc, m, out, t_count, fh, fw, st);
+    case 3: return launch<3>(trk, anc, m, out, t_count, fh, fw, st);
+    case 4: return launch<4>(trk, anc, m, out, t_count, fh, fw, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K9 (float32) and K3 / K7 (int32) at 2x2 blocks
+template int launch_block2_sads<float>(const void*, const void*, const void*, float*, int,
+                                       int, int, int, void*);
+template int launch_block2_sads<int32_t>(const void*, const void*, const void*, int32_t*,
+                                         int, int, int, int, void*);
+
+// tracked, anchor: (t_count, fh, fw) uint8; mv: (t_count, fh/block,
+// fw/block, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/block,
+// fw/block) float32. All contiguous; block in {1, 2, 4, 8} divides fh and
+// fw, 1 <= r <= 4; tracked 4-byte aligned and fh * fw a multiple of 4 at
+// block 1, tracked 4- and anchor 2-byte aligned at 2, both 16-byte aligned
+// at 4 and 8. Refuses (cudaErrorInvalidValue) anything else.
+SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
+                                  const void* mv, void* out, int t_count,
+                                  int fh, int fw, int block, int r, void* stream) {
+  const size_t plane = static_cast<size_t>(fh) * fw;
+  auto* o = static_cast<float*>(out);
+  switch (block) {
+    case 1: return launch_block1(tracked, anchor, mv, o, t_count, fh, fw, r,
+                                 static_cast<cudaStream_t>(stream));
+    case 2: return launch_block2_sads<float>(tracked, anchor, mv, o, t_count, fh, fw, r,
+                                             stream);
+    case 4: return launch_refine_rows<4, float>(tracked, anchor, plane, mv, o,
+                                                t_count, fh, fw, r, stream);
+    case 8: return launch_refine_rows<8, float>(tracked, anchor, plane, mv, o,
+                                                t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,9 @@
 // K9 candidate_sads_general: per-block SADs of every (2r+1)^2 candidate
 // around each block's MV, for T separate (tracked, anchor) plane pairs, as
-// float32, for any block shape and range. Square 2x2 blocks at r = 1 to
-// 4 (the encoder's top-level EBMA at ranges 8 to 39) run
-// candidate_sads.cu; ops/motion.py dispatches, and general=True forces
-// this kernel.
+// float32, for any block shape and range. Square 1x1, 2x2, 4x4 and 8x8
+// blocks at r = 1 to 4 (the encoder's top-level EBMA at ranges 8 to 39,
+// 8x8 MV blocks, 2, 3 or 5 levels) run candidate_sads.cu; ops/motion.py
+// dispatches, and general=True forces this kernel.
 //
 // Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) and its
 // static-addressing twin refine_sads_static (:285). The TPU kernels pad the
@@ -15,7 +15,7 @@
 // (bh*bw + (bh+2r)*(bw+2r)) bytes, 3.3 KB at r = 4 and 16x16 blocks; a
 // launch past the default 48 KB is refused. ops/motion.py ebma() runs the
 // exhaustive search through it (zero MVs, r = the search range) at every
-// shape but 2x2 blocks at r = 1 to 4.
+// shape but those.
 //
 // Bound: at r = 4 and 16x16 blocks, operations: 81 candidates x 256
 // absolute-difference accumulates per block against 512 bytes read.

@@ -1,7 +1,9 @@
 // The SAD arithmetic of the lane-per-anchor-row refine kernels: K3's
 // specialised kernel (refine_sads.cu, window rows loaded from dense planes
-// in global memory; also K7's, refine_mads.cu) and the K8 refine (refine_sads_pitched.cu, window rows
-// read from a band of column-pitched subplanes staged in shared memory).
+// in global memory; also K7's, refine_mads.cu, and K9's at 4x4 and 8x8
+// blocks, candidate_sads.cu) and the K8 refine (refine_sads_pitched.cu,
+// window rows read from a band of column-pitched subplanes staged in
+// shared memory).
 // Each kernel gets its window rows its own way; from the rows on both run
 // this code, so both give the same bits.
 //
@@ -233,20 +235,22 @@ __device__ __forceinline__ void block_sads_wide(
 }
 
 // The CTA's SADs (s_out, after a barrier; kBlocks MV blocks) to out
-// (t_count, (2R + 1)^2, mfh, mfw): runs of consecutive block columns of
-// each candidate plane.
-template <int B, int R = 1, int kBlocks = kThreads / B>
+// (t_count, (2R + 1)^2, mfh, mfw) of Out (int32 for K3 / K7 / K8, float32
+// for K9): runs of consecutive block columns of each candidate plane.
+template <int B, int R = 1, int kBlocks = kThreads / B, class Out>
 __device__ __forceinline__ void store_sads(int32_t (*s_out)[kBlocks],
-                                           int32_t* __restrict__ out, int t, int by,
+                                           Out* __restrict__ out, int t, int by,
                                            int mfh, int mfw) {
   constexpr int kC = Window<B, R>::kCand;
   const size_t plane_out = static_cast<size_t>(mfh) * mfw;
   const int bx0 = blockIdx.x * kBlocks;
-  int32_t* o = out + (static_cast<size_t>(t) * kC * mfh + by) * mfw + bx0;
+  Out* o = out + (static_cast<size_t>(t) * kC * mfh + by) * mfw + bx0;
   for (unsigned e = threadIdx.x; e < kC * kBlocks; e += kThreads) {
     const unsigned c = e / kBlocks;
     const unsigned b = e % kBlocks;
-    if (bx0 + static_cast<int>(b) < mfw) o[c * plane_out + b] = s_out[c][b];
+    if (bx0 + static_cast<int>(b) < mfw) {
+      o[c * plane_out + b] = sad_as<Out>(static_cast<uint32_t>(s_out[c][b]));
+    }
   }
 }
 

@@ -1,12 +1,15 @@
 // K3 refine_sads: candidate SADs of one hierarchical motion refinement
 // level for a whole frame stack, specialised for square B x B MV blocks
-// (B = 4, 8, 16) and search radius R = 1 to 4: the three refinement levels
-// of the encoder's search at 16x16 MV blocks and 4 pyramid levels, range 8
-// (R = 1, the default) to 39 (R = range / 8). The same kernel is K7's for
-// one frame pair (refine_mads.cu, through launch_refine_sads,
-// refine_sads.cuh): it reads frame t's tracked plane and its anchor from
-// two bases a per-frame stride apart, so K3 passes (stack, stack + plane,
-// plane) and K7 (tracked, anchor, 0).
+// (B = 4, 8, 16 here; B = 2 on K9's 2x2 kernel, candidate_sads.cu) and
+// search radius R = 1 to 4: the refinement levels of the encoder's search
+// at 16x16 MV blocks and 4 pyramid levels, range 8 (R = 1, the default) to
+// 39 (R = range / 8), and at 8x8 MV blocks or 2, 3 or 5 levels (--mv-block-
+// w/-h, --pyr-lvl-count). The same kernel is K7's for one frame pair
+// (refine_mads.cu) and K9's at 4x4 and 8x8 blocks with float32 output
+// (candidate_sads.cu), through the launchers of refine_sads.cuh: it reads
+// frame t's tracked plane and its anchor from two bases a per-frame stride
+// apart, so K3 passes (stack, stack + plane, plane), K7 (tracked, anchor,
+// 0) and K9 (tracked, anchor, plane).
 //
 // Replaces svc_tpu/ops/motion_pallas.py refine_mads_stack_pallas (:887,
 // pallas_call in _refine_stack_call :1093) and, for K7, refine_mads_pallas
@@ -140,11 +143,11 @@ __device__ __forceinline__ void load_window_row(const uint8_t* __restrict__ plan
   align_window_row<B, R>(w, s, al);
 }
 
-template <int B, int R>
+template <int B, int R, class Out>
 __global__ void __launch_bounds__(kThreads)
 refine_sads_kernel(const uint8_t* __restrict__ tracked,
                    const uint8_t* __restrict__ anchor, size_t frame_stride,
-                   const int32_t* __restrict__ mv, int32_t* __restrict__ out,
+                   const int32_t* __restrict__ mv, Out* __restrict__ out,
                    int fh, int fw, int mfh, int mfw) {
   constexpr int kBlocks = kThreads / B;  // MV blocks of one block row
   using W = Window<B, R>;
@@ -289,9 +292,9 @@ refine_sads_split_kernel(const uint8_t* __restrict__ tracked,
   store_sads<B, R, kBlocks>(s_out, out, t, by, mfh, mfw);
 }
 
-template <int B, int R>
+template <int B, int R, class Out>
 int launch(const void* tracked, const void* anchor, size_t frame_stride,
-           const void* mv, void* out, int t_count, int fh, int fw,
+           const void* mv, Out* o, int t_count, int fh, int fw,
            void* stream) {
   const int mfh = fh / B;
   const int mfw = fw / B;
@@ -299,7 +302,6 @@ int launch(const void* tracked, const void* anchor, size_t frame_stride,
   const auto* trk = static_cast<const uint8_t*>(tracked);
   const auto* anc = static_cast<const uint8_t*>(anchor);
   const auto* m = static_cast<const int32_t*>(mv);
-  auto* o = static_cast<int32_t*>(out);
   if constexpr (B == 16 && R >= 2) {
     // the split kernel where its 64-block CTAs still fill the card twice
     // over (a stack of 1080p frames); one pair's 136 run the one-row kernel
@@ -316,16 +318,23 @@ int launch(const void* tracked, const void* anchor, size_t frame_stride,
   }
   constexpr int kBlocks = kThreads / B;
   const dim3 grid((mfw + kBlocks - 1) / kBlocks, mfh, t_count);
-  refine_sads_kernel<B, R><<<grid, kThreads, 0, st>>>(trk, anc, frame_stride, m, o,
-                                                      fh, fw, mfh, mfw);
+  refine_sads_kernel<B, R, Out><<<grid, kThreads, 0, st>>>(trk, anc, frame_stride, m,
+                                                           o, fh, fw, mfh, mfw);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
 // The instance of radius r for B x B blocks.
-template <int B>
-int launch_block(const void* tracked, const void* anchor, size_t frame_stride,
-                 const void* mv, void* out, int t_count, int fh, int fw, int r,
-                 void* stream) {
+template <int B, class Out>
+int launch_refine_rows(const void* tracked, const void* anchor,
+                       size_t frame_stride, const void* mv, Out* out,
+                       int t_count, int fh, int fw, int r, void* stream) {
+  if (reinterpret_cast<uintptr_t>(tracked) % 16 ||
+      reinterpret_cast<uintptr_t>(anchor) % 16 || frame_stride % 16 || fh % B ||
+      fw % B) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (r) {
     case 1: return launch<B, 1>(tracked, anchor, frame_stride, mv, out,
                                 t_count, fh, fw, stream);
@@ -339,32 +348,45 @@ int launch_block(const void* tracked, const void* anchor, size_t frame_stride,
   }
 }
 
-}  // namespace
+// K3 and K7 at 4x4, 8x8 and 16x16 blocks; K9 at 4x4 and 8x8
+#define SVC_REFINE_ROWS(B, Out)                                              \
+  template int launch_refine_rows<B, Out>(const void*, const void*, size_t, \
+                                          const void*, Out*, int, int, int, \
+                                          int, void*);
+SVC_REFINE_ROWS(4, int32_t)
+SVC_REFINE_ROWS(8, int32_t)
+SVC_REFINE_ROWS(16, int32_t)
+SVC_REFINE_ROWS(4, float)
+SVC_REFINE_ROWS(8, float)
+#undef SVC_REFINE_ROWS
 
 int launch_refine_sads(const void* tracked, const void* anchor,
                        size_t frame_stride, const void* mv, void* out,
                        int t_count, int fh, int fw, int block, int r,
                        void* stream) {
-  if (reinterpret_cast<uintptr_t>(tracked) % 16 ||
-      reinterpret_cast<uintptr_t>(anchor) % 16 || block < 4 || fh % block ||
-      fw % block) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  auto* o = static_cast<int32_t*>(out);
   switch (block) {
-    case 4: return launch_block<4>(tracked, anchor, frame_stride, mv, out,
-                                   t_count, fh, fw, r, stream);
-    case 8: return launch_block<8>(tracked, anchor, frame_stride, mv, out,
-                                   t_count, fh, fw, r, stream);
-    case 16: return launch_block<16>(tracked, anchor, frame_stride, mv, out,
-                                     t_count, fh, fw, r, stream);
+    case 2:  // its frames lie a plane apart (K3) or it has one (K7)
+      if (t_count > 1 && frame_stride != static_cast<size_t>(fh) * fw) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return launch_block2_sads<int32_t>(tracked, anchor, mv, o, t_count, fh, fw, r,
+                                         stream);
+    case 4: return launch_refine_rows<4, int32_t>(tracked, anchor, frame_stride, mv,
+                                                  o, t_count, fh, fw, r, stream);
+    case 8: return launch_refine_rows<8, int32_t>(tracked, anchor, frame_stride, mv,
+                                                  o, t_count, fh, fw, r, stream);
+    case 16: return launch_refine_rows<16, int32_t>(tracked, anchor, frame_stride, mv,
+                                                    o, t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // stack: (t_count + 1, fh, fw) uint8, 16-byte aligned; mv: (t_count,
 // fh/block, fw/block, 2) int32 (x, y); out: (t_count, (2r + 1)^2,
-// fh/block, fw/block) int32. All contiguous; block in {4, 8, 16} divides
-// fh and fw; 1 <= r <= 4. Refuses (cudaErrorInvalidValue) anything else.
+// fh/block, fw/block) int32. All contiguous; block in {2, 4, 8, 16}
+// divides fh and fw; 1 <= r <= 4. Refuses (cudaErrorInvalidValue) anything
+// else.
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int block, int r,
                                void* stream) {

@@ -17,14 +17,16 @@ the plain version; a CUDA tensor launches the kernel or raises):
 
 * K3 :func:`refine_sads` — candidate SADs of one refinement level for a
   frame stack (``hbma_stack``): ``csrc/refine_sads.cu`` for square 4/8/16
-  blocks at ``1 <= r <= 4`` (the encoder's three levels at 16x16 MV
-  blocks, 4 levels and search ranges 8 to 39; ``r = 1`` the default), the
-  general kernel ``csrc/refine_sads_general.cu`` otherwise;
+  blocks and K9's 2x2 kernel (``csrc/candidate_sads.cu``) for 2x2 blocks,
+  at ``1 <= r <= 4`` (the encoder's levels at 16x16 MV blocks, 4 levels and
+  search ranges 8 to 39, ``r = 1`` the default; at 8x8 MV blocks or 2, 3
+  or 5 levels), the general kernel ``csrc/refine_sads_general.cu``
+  otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
-  ``hbma``): K3's specialised kernel with the tracked and anchor planes as
-  two bases (``csrc/refine_mads.cu``) for square 4/8/16 blocks at
-  ``1 <= r <= 4`` (the per-frame search's three levels), the general
-  kernel ``csrc/refine_mads_general.cu`` otherwise;
+  ``hbma``): K3's specialised kernels with the tracked and anchor planes as
+  two bases (``csrc/refine_mads.cu``) for square 2/4/8/16 blocks at
+  ``1 <= r <= 4`` (the per-frame search's levels), the general kernel
+  ``csrc/refine_mads_general.cu`` otherwise;
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
   (``hbma_stack(..., base_pitched=...)``): ``csrc/refine_sads_pitched.cu``
   for 8 subplanes, square 16x16 blocks at ``r = 1`` (the pitched
@@ -32,21 +34,26 @@ the plain version; a CUDA tensor launches the kernel or raises):
   ``csrc/refine_sads_pitched_general.cu`` otherwise;
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
   ``T`` separate plane pairs (``ebma``): ``csrc/candidate_sads.cu`` for
-  square 2x2 blocks at ``1 <= r <= 4`` (the encoder's top level at 16x16
-  MV blocks, 4 levels and ranges 8 to 39), the general kernel
-  ``csrc/candidate_sads_general.cu`` otherwise.
+  square 1x1, 2x2, 4x4 and 8x8 blocks at ``1 <= r <= 4`` (the encoder's
+  top level: 2x2 at 16x16 MV blocks, 4 levels and ranges 8 to 39; 1x1 at
+  8x8 MV blocks or 5 levels, 4x4 at 3 levels, 8x8 at 2), the general
+  kernel ``csrc/candidate_sads_general.cu`` otherwise.
 
-The specialised K3, K7 and K9 kernels are templates over the radius, an
-instance for each ``r`` (and K3's and K7's for each block); their launch
-counts are kept per instance too (``refine_sads<16, 2>``,
-``refine_mads<8, 3>``, ``candidate_sads<4>``).
+The specialised K3, K7 and K9 kernels are templates over the block and
+the radius, an instance for each; their launch counts are kept per
+instance too (``refine_sads<16, 2>``, ``refine_mads<8, 3>``,
+``candidate_sads<2, 4>``).
 
 K3's, K7's, K8's and K9's general kernels are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
-type; the specialised K3 and K7 are one kernel, and share their SAD
-arithmetic with the specialised K8 (``csrc/refine_rows.cuh``). Every SAD kernel sums exact integers: bit-equal to its plain version
-on every entry. Tracked pixels outside the frame read as
-zero; candidates whose window leaves the frame are masked by the callers.
+type. The specialised kernels are three: a lane per anchor row
+(``csrc/refine_sads.cu``: K3 and K7 at 4/8/16, K9 at 4/8 with float32
+output), which shares its SAD arithmetic with the specialised K8
+(``csrc/refine_rows.cuh``); a thread per 2x2 block (K9, and K3 and K7 at
+2x2 with int32 output); a thread per pixel (K9 at 1x1). Every SAD kernel
+sums exact integers: bit-equal to its plain version on every entry.
+Tracked pixels outside the frame read as zero; candidates whose window
+leaves the frame are masked by the callers.
 
 Conventions as in ``svc_tpu``: a motion field is ``(..., mfh, mfw, 2)``
 float32 with ``[..., 0] = x`` and ``[..., 1] = y``; MADs are
@@ -65,8 +72,13 @@ from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
-_K3_BLOCKS = (4, 8, 16)  # square MV blocks of K3's / K7's specialised kernel
+_K3_BLOCKS = (2, 4, 8, 16)  # square MV blocks of K3's / K7's specialised kernels
+_K9_BLOCKS = (1, 2, 4, 8)  # square MV blocks of K9's specialised kernels
 _SAD_RADII = (1, 2, 3, 4)  # search radii of the specialised K3, K7 and K9
+# the byte alignment of K9's (tracked, anchor) stacks at each block: whole
+# words of tracked rows at 1x1 and 2x2 (and 16-bit anchor pairs at 2x2),
+# 16-byte chunks of both at 4x4 and 8x8 (K3's kernel)
+_K9_ALIGN = {1: (4, 1), 2: (4, 2), 4: (16, 16), 8: (16, 16)}
 _K8_TBW, _K8_BLOCK = 8, 16  # subplanes and square MV block of K8's specialised refine
 
 REFINE_SADS = Kernel(
@@ -102,10 +114,10 @@ REFINE_MADS_GENERAL = Kernel(
 CANDIDATE_SADS = Kernel(
     "candidate_sads",
     "svc_candidate_sads",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/candidate_sads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:121",
-    instance=lambda a: f"<{a[7]}>",  # <r>
+    instance=lambda a: f"<{a[7]}, {a[8]}>",  # <block, r>
 )
 CANDIDATE_SADS_GENERAL = Kernel(
     "candidate_sads_general",
@@ -219,7 +231,7 @@ def refine_sads_plain(
 
 
 def _refine_specialised(block_w: int, block_h: int, r: int, stack) -> bool:
-    """K3's specialised kernel takes square 4/8/16 blocks at 1 <= r <= 4
+    """K3's specialised kernels take square 2/4/8/16 blocks at 1 <= r <= 4
     on a 16-byte aligned stack; every other case runs the general kernel."""
     return (block_w == block_h and block_w in _K3_BLOCKS and r in _SAD_RADII
             and stack.data_ptr() % 16 == 0)
@@ -235,7 +247,7 @@ def refine_sads(
     general: bool = False,
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level (kernel K3: the specialised
-    kernel for square 4/8/16 blocks at ``1 <= r <= 4``, the general one
+    kernels for square 2/4/8/16 blocks at ``1 <= r <= 4``, the general one
     otherwise).
 
     Args:
@@ -310,7 +322,7 @@ def refine_mads(
     general: bool = False,
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level for one frame pair (kernel
-    K7: K3's specialised kernel for square 4/8/16 blocks at ``1 <= r <=
+    K7: K3's specialised kernels for square 2/4/8/16 blocks at ``1 <= r <=
     4``, the general one otherwise).
 
     Args:
@@ -363,11 +375,15 @@ def candidate_sads_plain(
 
 def _candidate_specialised(block_w: int, block_h: int, r: int, tracked,
                            anchor) -> bool:
-    """K9's specialised kernel takes square 2x2 blocks at 1 <= r <= 4 on a
-    4-byte aligned tracked and a 2-byte aligned anchor stack; every other
-    case runs the general kernel."""
-    return (block_w == block_h == 2 and r in _SAD_RADII
-            and tracked.data_ptr() % 4 == 0 and anchor.data_ptr() % 2 == 0)
+    """K9's specialised kernels take square 1/2/4/8 blocks at 1 <= r <= 4
+    on stacks aligned as ``_K9_ALIGN`` says (at 1x1 also planes of a whole
+    number of words); every other case runs the general kernel."""
+    if block_w != block_h or block_w not in _K9_BLOCKS or r not in _SAD_RADII:
+        return False
+    t_align, a_align = _K9_ALIGN[block_w]
+    words = block_w > 1 or tracked.shape[-2] * tracked.shape[-1] % 4 == 0
+    return (words and tracked.data_ptr() % t_align == 0
+            and anchor.data_ptr() % a_align == 0)
 
 
 def candidate_sads(
@@ -383,8 +399,8 @@ def candidate_sads(
 ) -> torch.Tensor:
     """Per-block SADs of every ``(2r+1)**2`` candidate around each block's
     MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``): the
-    specialised kernel for square 2x2 blocks at ``1 <= r <= 4``, the
-    general one otherwise.
+    specialised kernels for square 1x1, 2x2, 4x4 and 8x8 blocks at ``1 <= r
+    <= 4``, the general one otherwise.
 
     Args:
       tracked / anchor: ``(T, H, W)`` uint8 luma planes.
@@ -421,7 +437,7 @@ def candidate_sads(
         if _candidate_specialised(block_w, block_h, r, tr, an) and not general:
             CANDIDATE_SADS.launch(
                 tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
-                t, fh, fw, r, stream_handle(tr),
+                t, fh, fw, block_w, r, stream_handle(tr),
             )
         else:
             CANDIDATE_SADS_GENERAL.launch(

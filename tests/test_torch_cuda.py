@@ -76,7 +76,10 @@ def test_refine_sads_bit_equal(gen, block, r, bound):
      (8, 3, 40, 688, 6),     # level 1 of it, 86 block columns
      (16, 2, 64, 1376, 14),  # level 0: a ragged last CTA (86 of 96 columns)
      (16, 1, 32, 48, 30),    # windows far past every edge
-     (4, 1, 8, 12, 9)],      # a 3x2 field
+     (4, 1, 8, 12, 9),       # a 3x2 field
+     (2, 2, 48, 344, 2),     # 2x2 blocks on K9's kernel: 172 block columns
+     (2, 3, 34, 58, 9),      # fw % 4 == 2, windows past the edges
+     (2, 1, 2, 2, 40)],      # one block, windows far outside
 )
 def test_refine_sads_specialised_equals_general(gen, block, t, h, w, bound, r):
     # every candidate, valid or not, bit-equal across the two kernels and
@@ -132,7 +135,7 @@ def _k7_launches():
 
 
 @pytest.mark.parametrize("r", [1, 2, 4])
-@pytest.mark.parametrize("block", [4, 8, 16])
+@pytest.mark.parametrize("block", [2, 4, 8, 16])
 @pytest.mark.parametrize("kind", ["odd", "within40", "past_edges", "unaligned"])
 def test_refine_mads_specialised_equals_general(gen, block, kind, r):
     # the specialised K7, the general K7, the plain version and K3 on the
@@ -176,7 +179,7 @@ def test_candidate_sads_bit_equal(gen, mv_pad, t, h, w, bw, bh, r):
     tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
     mv = torch.randint(-mv_pad, mv_pad + 1, (t, h // bh, w // bw, 2),
                        generator=gen, dtype=torch.int32).cuda()
-    kernel = (motion.CANDIDATE_SADS if bw == bh == 2 and r <= 4
+    kernel = (motion.CANDIDATE_SADS if bw == bh and bw in (1, 2, 4, 8) and r <= 4
               else motion.CANDIDATE_SADS_GENERAL)
     before = kernel.launches
     got = motion.candidate_sads(tr, an, mv, r, bw, bh, mv_pad)
@@ -208,14 +211,67 @@ def test_candidate_sads_2x2_equals_general(gen, t, h, w, mv_kind, r):
         mv = torch.randint(-400, 401, shape, generator=gen, dtype=torch.int32)
     mv = mv.cuda()
     before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
-    inst = motion.CANDIDATE_SADS.instance_launches[f"candidate_sads<{r}>"]
+    inst = motion.CANDIDATE_SADS.instance_launches[f"candidate_sads<2, {r}>"]
     got = motion.candidate_sads(tr, an, mv, r, 2, 2)
     gen_out = motion.candidate_sads(tr, an, mv, r, 2, 2, general=True)
     assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
         before[0] + 1, before[1] + 1)
-    assert motion.CANDIDATE_SADS.instance_launches[f"candidate_sads<{r}>"] == inst + 1
+    assert motion.CANDIDATE_SADS.instance_launches[f"candidate_sads<2, {r}>"] == inst + 1
     assert torch.equal(got, gen_out)  # every entry, valid or not
     assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, 2, 2))
+
+
+@pytest.mark.parametrize(
+    "block,t,h,w,mv_kind",
+    [(1, 8, 136, 240, "zero"),    # the top level at 8x8 MV blocks, 4 levels
+     (1, 8, 68, 120, "random"),   # and at 16x16, 5 levels
+     (1, 1, 136, 240, "edge"),    # per-frame hbma's shape
+     (1, 2, 10, 302, "far"),      # fw % 4 == 2, 3 CTAs a row
+     (1, 1, 1, 4, "edge"),
+     (4, 8, 272, 480, "zero"),    # the top level at 3 levels
+     (4, 2, 40, 344, "edge"),
+     (8, 8, 544, 960, "zero"),    # the top level at 2 levels
+     (8, 1, 24, 48, "far")],
+)
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_candidate_sads_blocks_equal_general(gen, block, t, h, w, mv_kind, r):
+    # K9's 1x1 kernel and K3's kernel at 4x4 and 8x8 (float32 output)
+    # against the general kernel and the plain version on every entry
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    shape = (t, h // block, w // block, 2)
+    if mv_kind == "zero":
+        mv = torch.zeros(shape, dtype=torch.int32)
+    elif mv_kind == "random":
+        mv = torch.randint(-14, 15, shape, generator=gen, dtype=torch.int32)
+    elif mv_kind == "edge":
+        mv = 2 * torch.randint(-2 * block, 2 * block + 1, shape, generator=gen,
+                               dtype=torch.int32) + 1
+    else:
+        mv = torch.randint(-400, 401, shape, generator=gen, dtype=torch.int32)
+    mv = mv.cuda()
+    name = f"candidate_sads<{block}, {r}>"
+    before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
+    inst = motion.CANDIDATE_SADS.instance_launches[name]
+    got = motion.candidate_sads(tr, an, mv, r, block, block)
+    gen_out = motion.candidate_sads(tr, an, mv, r, block, block, general=True)
+    assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert motion.CANDIDATE_SADS.instance_launches[name] == inst + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gen_out)
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, block, block))
+
+
+def test_candidate_sads_1x1_odd_plane_takes_the_general_kernel(gen):
+    # 5x7 planes are no whole number of words: the 1x1 kernel's loads would
+    # leave the last plane, so the general kernel takes them
+    tr, an = _u8(gen, (2, 5, 7)), _u8(gen, (2, 5, 7))
+    mv = torch.randint(-3, 4, (2, 5, 7, 2), generator=gen, dtype=torch.int32).cuda()
+    before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
+    got = motion.candidate_sads(tr, an, mv, 1, 1, 1)
+    assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, 1, 1, 1))
 
 
 def test_candidate_sads_unaligned_takes_the_general_kernel(gen):

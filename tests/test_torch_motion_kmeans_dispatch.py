@@ -56,8 +56,13 @@ def _meta_u8(*shape):
      (16, 16, 1, False, "refine_sads"), (16, 8, 1, False, "refine_sads_general"),
      (16, 16, 2, False, "refine_sads"), (4, 4, 3, False, "refine_sads"),
      (8, 8, 4, False, "refine_sads"),
+     *((2, 2, r, False, "refine_sads") for r in (1, 2, 3, 4)),
      (16, 16, 5, False, "refine_sads_general"),
-     (16, 16, 1, True, "refine_sads_general")],
+     (16, 16, 8, False, "refine_sads_general"),
+     (2, 4, 1, False, "refine_sads_general"),
+     (1, 1, 1, False, "refine_sads_general"),
+     (16, 16, 1, True, "refine_sads_general"),
+     (2, 2, 1, True, "refine_sads_general")],
 )
 def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     fh, fw = 4 * bh, 6 * bw
@@ -89,7 +94,7 @@ def test_hbma_stack_default_levels_take_the_specialised_k3(meta_launches,
     assert tuple(mv.shape) == (8, 68, 120, 2) and tuple(mm.shape) == (8, 68, 120)
     names = [name for name, _ in meta_launches]
     assert names == ["candidate_sads"] + ["refine_sads"] * 3
-    assert meta_launches[0][1][7] == r  # K9's radius
+    assert meta_launches[0][1][7:9] == (2, r)  # K9's block and radius
     blocks = [args[6:8] for name, args in meta_launches if name == "refine_sads"]
     assert blocks == [(4, r), (8, r), (16, r)]
 
@@ -113,7 +118,12 @@ def _meta_plane_at(offset, fh, fw):
      (4, 8, 1, False, 0, "refine_mads_general"),
      (16, 16, 2, False, 0, "refine_mads"), (8, 8, 3, False, 16, "refine_mads"),
      (4, 4, 4, False, 0, "refine_mads"),
+     *((2, 2, r, False, 0, "refine_mads") for r in (1, 2, 3, 4)),
+     (2, 2, 1, False, 16, "refine_mads"),
+     (2, 2, 1, False, 2, "refine_mads_general"),  # K3's 16-byte gate stays
+     (2, 4, 1, False, 0, "refine_mads_general"),
      (16, 16, 5, False, 0, "refine_mads_general"),
+     (16, 16, 8, False, 0, "refine_mads_general"),
      (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
      (16, 16, 1, True, 0, "refine_mads_general")],
 )
@@ -155,9 +165,17 @@ def test_hbma_default_levels_take_the_specialised_k7(meta_launches,
 
 def test_k3_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
-    blocks = {int(a) for a, b in re.findall(r"case (\d+): return launch_block<(\d+)>",
-                                            src) if a == b}
-    assert blocks == set(motion._K3_BLOCKS)
+    # K3's / K7's blocks: 4, 8, 16 on this file's kernel, 2 on K9's 2x2 one
+    entry = src[src.index("int launch_refine_sads("):]
+    blocks = {int(a) for a, b in re.findall(
+        r"case (\d+): return launch_refine_rows<(\d+), int32_t>\(", entry) if a == b}
+    two = entry[entry.index("case 2:"):]
+    assert two[:two.index("case 4:")].count("return launch_block2_sads<int32_t>(") == 1
+    assert blocks | {2} == set(motion._K3_BLOCKS)
+    # the instances built: int32 for K3 / K7, float32 for K9's 4x4 and 8x8
+    built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\w+)\)\n", src))
+    assert built == ({(str(b), "int32_t") for b in blocks}
+                     | {(str(b), "float") for b in motion._K9_BLOCKS if b >= 4})
     radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<B, (\d+)>", src)
              if a == b}
     assert radii == set(motion._SAD_RADII)
@@ -184,6 +202,25 @@ def test_k3_host_constants_match_the_kernel_source():
     # where its grid holds two CTAs an SM; else the one-row-a-lane kernel
     assert "if (static_cast<long long>(grid.x) * grid.y * grid.z >= 2LL * sms) {" in src
     assert "reduce_transposed<W::kPacked, kLanes / 2, kLanes>(packed, l);" in src
+
+
+@pytest.mark.parametrize("config,blocks", [((8, 4, 8), (2, 4, 8)), ((16, 3, 8), (8, 16)),
+                                          ((16, 2, 8), (16,)), ((16, 5, 16), (2, 4, 8, 16))])
+def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
+    # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
+    # levels: the top level on K9, then each level on its K7 instance
+    block, levels, search_range = config
+    r = search_range >> (levels - 1)
+    pyr = [_meta_u8(2, 1088 >> lvl, 1920 >> lvl) for lvl in range(levels)]
+    mv, mm = motion.hbma([p[0] for p in pyr], [p[1] for p in pyr], search_range,
+                         block, block)
+    assert tuple(mv.shape) == (1088 // block, 1920 // block, 2)
+    assert [name for name, _ in meta_launches] == (
+        ["candidate_sads"] + ["refine_mads"] * (levels - 1))
+    top = meta_launches[0][1]
+    assert motion.CANDIDATE_SADS.instance(top) == f"<{block >> (levels - 1)}, {r}>"
+    assert [motion.REFINE_MADS.instance(args) for _, args in meta_launches[1:]] == [
+        f"<{b}, {r}>" for b in blocks]
 
 
 def test_k7_entry_launches_k3s_kernel():
@@ -322,21 +359,24 @@ def _reduce_transposed(v, lanes):
     return v
 
 
-def _replay_k3(stack, mv, b, r):
-    """SADs of a ``(T+1, fh, fw)`` stack as ``refine_sads_kernel<B, R>``
-    computes them: per block, lane i's anchor row and its window rows
-    (i and, on lanes B-2 and B-1, i + 2 at R = 1; i, i + B, ... at R >=
-    2), rows taken from other lanes as the shuffles take them (width B),
-    the funnel shifts and ``__vsadu4`` sums, and at R >= 2 the 16-bit
-    pairs, the transposed reduction and each lane's stores."""
+def _replay_k3(stack, mv, b, r, anchor=None):
+    """SADs of a ``(T+1, fh, fw)`` stack (or, with ``anchor``, of ``T``
+    pairs ``stack[t]``, ``anchor[t]``: K9's two stacks) as
+    ``refine_sads_kernel<B, R>`` computes them: per block, lane i's anchor
+    row and its window rows (i and, on lanes B-2 and B-1, i + 2 at R = 1;
+    i, i + B, ... at R >= 2), rows taken from other lanes as the shuffles
+    take them (width B), the funnel shifts and ``__vsadu4`` sums, and at R
+    >= 2 the 16-bit pairs, the transposed reduction and each lane's
+    stores."""
     tp1, fh, fw = stack.shape
+    frames = tp1 - 1 if anchor is None else tp1
     mfh, mfw = fh // b, fw // b
     win = _Win(b, r)
     side = 2 * r + 1
     lanes = np.arange(b)
-    out = np.full((tp1 - 1, win.cand, mfh, mfw), -1, np.int64)
-    for t in range(tp1 - 1):
-        trk, anc = stack[t], stack[t + 1]
+    out = np.full((frames, win.cand, mfh, mfw), -1, np.int64)
+    for t in range(frames):
+        trk, anc = (stack[t], stack[t + 1]) if anchor is None else (stack[t], anchor[t])
         for by in range(mfh):
             bx = np.arange(mfw)[:, None]
             mvx = mv[t, by, :, 0].astype(np.int64)[:, None]
@@ -491,6 +531,31 @@ def test_k3_replay_equals_plain(b, r, kind):
     np.testing.assert_array_equal(got, ref.numpy())
     if b == 16 and r >= 2:
         np.testing.assert_array_equal(_replay_k3_split(stack, mv, r), ref.numpy())
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("b", [4, 8])
+@pytest.mark.parametrize("kind", ["zero", "edge", "far"])
+def test_k9_on_k3s_kernel_replay_equals_plain(b, r, kind):
+    # K9 at 4x4 and 8x8 blocks: K3's one-row-a-lane kernel on two stacks a
+    # plane apart (tracked t against anchor t), its sums stored as float32
+    # through the mantissa (sad_as, csrc/common.cuh)
+    rng = np.random.default_rng(1000 + 100 * b + 10 * r + len(kind))
+    t, mfh, mfw = 2, 3, 5
+    tracked = rng.integers(0, 256, (t, mfh * b, mfw * b)).astype(np.uint8)
+    anchor = rng.integers(0, 256, (t, mfh * b, mfw * b)).astype(np.uint8)
+    if kind == "zero":  # the EBMA's own MVs
+        mv = np.zeros((t, mfh, mfw, 2), np.int32)
+    else:
+        mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), b, r).astype(np.int32)
+    sads = _replay_k3(tracked, mv, b, r, anchor=anchor)
+    assert ((sads >= 0) & (sads < 1 << 23)).all()
+    got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
+        8388608.0)
+    ref = motion.candidate_sads_plain(torch.from_numpy(tracked), torch.from_numpy(anchor),
+                                      torch.from_numpy(mv), r, b, b)
+    assert ref.dtype == torch.float32
+    np.testing.assert_array_equal(got, ref.numpy())
 
 
 @pytest.mark.parametrize("b", [4, 8, 16])

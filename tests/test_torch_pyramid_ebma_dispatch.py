@@ -1,6 +1,6 @@
-"""K4's fused pyramid kernel and K9's 2x2 kernel: their dispatch, and CPU
-replays of what each CUDA kernel does, held bit for bit against the plain
-versions.
+"""K4's fused pyramid kernel and K9's specialised kernels: their dispatch,
+and CPU replays of what each CUDA kernel does, held bit for bit against the
+plain versions.
 
 A meta device stands in for the card in the dispatch tests: shapes and
 dtypes flow through the wrappers, the launch is replaced, nothing
@@ -18,7 +18,12 @@ computes. The replays follow the kernels' own index arithmetic:
   and ``__vsadu4`` sums (r = 1); at r = 2 to 4 each of the 2r + 2 window
   rows as 2 or 3 words from up to 4 aligned loads, masked the same way,
   and per candidate one ``__byte_perm`` of two rows and one ``__vsadu4``
-  against both anchor rows, made float32 through the mantissa.
+  against both anchor rows, made float32 through the mantissa; per pixel
+  of a 1x1 block each of the 2r + 1 window rows as 1 to 3 words the same
+  way, one ``__vabsdiffu4`` a word against the anchor byte in all four
+  bytes and one ``__byte_perm`` a candidate into a float's mantissa (K9 at
+  4x4 and 8x8 blocks runs K3's kernel, replayed in
+  ``test_torch_motion_kmeans_dispatch.py``).
 """
 
 import contextlib
@@ -62,12 +67,18 @@ def _meta_u8(*shape):
 
 @pytest.mark.parametrize(
     "bw,bh,r,general,kernel",
-    [(2, 2, 1, False, "candidate_sads"), (4, 4, 1, False, "candidate_sads_general"),
+    [(2, 2, 1, False, "candidate_sads"), (4, 4, 1, False, "candidate_sads"),
      (2, 2, 2, False, "candidate_sads"), (2, 2, 3, False, "candidate_sads"),
      (2, 2, 4, False, "candidate_sads"),
+     *((s, s, r, False, "candidate_sads") for s in (1, 4, 8) for r in (1, 2, 3, 4)
+       if (s, r) != (4, 1)),
      (2, 2, 5, False, "candidate_sads_general"),
+     (1, 1, 5, False, "candidate_sads_general"),
+     (16, 16, 1, False, "candidate_sads_general"),
+     (16, 16, 8, False, "candidate_sads_general"),
      (2, 4, 1, False, "candidate_sads_general"),
-     (2, 2, 1, True, "candidate_sads_general")],
+     (2, 2, 1, True, "candidate_sads_general"),
+     (8, 8, 2, True, "candidate_sads_general")],
 )
 def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     t, fh, fw = 3, 4 * bh, 6 * bw
@@ -81,8 +92,8 @@ def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     k = motion.CANDIDATE_SADS if kernel == "candidate_sads" else motion.CANDIDATE_SADS_GENERAL
     assert len(args) == len(k.argtypes)
     if kernel == "candidate_sads":
-        assert args[4:8] == (t, fh, fw, r)
-        assert motion.CANDIDATE_SADS.instance(args) == f"<{r}>"
+        assert args[4:9] == (t, fh, fw, bw, r)
+        assert motion.CANDIDATE_SADS.instance(args) == f"<{bw}, {r}>"
     else:
         assert args[4:10] == (t, fh, fw, bw, bh, r)
 
@@ -116,8 +127,64 @@ def test_hbma_stack_default_levels_take_the_new_kernels(meta_launches,
     motion.hbma_stack(pyr, search_range, 16, 16)
     assert [name for name, _ in meta_launches] == (
         ["pyr_down_levels", "candidate_sads"] + ["refine_sads"] * 3)
-    assert meta_launches[1][1][7] == r
+    assert meta_launches[1][1][7:9] == (2, r)
     assert [args[7] for _, args in meta_launches[2:]] == [r] * 3
+
+
+# --mv-block-w/-h and --pyr-lvl-count at 1080p: (MV block, levels, range),
+# then the K9 and K3 instances the search launches, top level first
+MOTION_CONFIGS = [
+    ((8, 4, 8), ["<1, 1>", "<2, 1>", "<4, 1>", "<8, 1>"]),
+    ((16, 3, 8), ["<4, 2>", "<8, 2>", "<16, 2>"]),
+    ((16, 2, 8), ["<8, 4>", "<16, 4>"]),
+    ((16, 5, 16), ["<1, 1>", "<2, 1>", "<4, 1>", "<8, 1>", "<16, 1>"]),
+]
+
+
+@pytest.mark.parametrize("config,instances", MOTION_CONFIGS)
+def test_hbma_stack_motion_configs_take_their_instances(meta_launches, config,
+                                                         instances):
+    # 8x8 MV blocks (the top level's 1x1 on K9, 2x2 on K3), 3 levels (4x4
+    # on K9), 2 levels (8x8 on K9), 5 levels (1x1 and 2x2 again): each
+    # level on its own specialised instance, no general kernel
+    block, levels, search_range = config
+    pyr = pyramid.build_pyramid(_meta_u8(9, 1088, 1920), levels)
+    meta_launches.clear()
+    mv, mm = motion.hbma_stack(pyr, search_range, block, block)
+    assert tuple(mv.shape) == (8, 1088 // block, 1920 // block, 2)
+    assert [name for name, _ in meta_launches] == (
+        ["candidate_sads"] + ["refine_sads"] * (levels - 1))
+    kernels = [motion.CANDIDATE_SADS] + [motion.REFINE_SADS] * (levels - 1)
+    assert [k.instance(args) for k, (_, args) in zip(kernels, meta_launches)] == instances
+
+
+def _meta_stack_at(offset, t, fh, fw):
+    """A meta ``(t, fh, fw)`` uint8 stack ``offset`` bytes into its buffer."""
+    return _meta_u8(offset + t * fh * fw)[offset:].view(t, fh, fw)
+
+
+@pytest.mark.parametrize(
+    "block,shape,offsets,kernel",
+    [(1, (2, 6, 14), (0, 0), "candidate_sads"),      # 84-byte planes
+     (1, (2, 5, 7), (0, 0), "candidate_sads_general"),  # 35: not whole words
+     (1, (2, 6, 14), (2, 1), "candidate_sads_general"),  # tracked off a word
+     (1, (2, 6, 14), (4, 1), "candidate_sads"),      # the anchor any byte
+     (2, (2, 8, 12), (4, 2), "candidate_sads"),
+     (2, (2, 8, 12), (4, 1), "candidate_sads_general"),
+     (4, (2, 8, 12), (16, 16), "candidate_sads"),
+     (4, (2, 8, 12), (4, 16), "candidate_sads_general"),  # 16-byte chunks
+     (8, (2, 16, 24), (16, 8), "candidate_sads_general")],
+)
+def test_candidate_sads_alignment_gates(meta_launches, block, shape, offsets,
+                                        kernel):
+    tr = _meta_stack_at(offsets[0], *shape)
+    an = _meta_stack_at(offsets[1], *shape)
+    t, fh, fw = shape
+    mv = torch.zeros((t, fh // block, fw // block, 2), dtype=torch.int32, device="meta")
+    motion.candidate_sads(tr, an, mv, 1, block, block)
+    ((name, args),) = meta_launches
+    assert name == kernel
+    assert args[:2] == offsets  # the stacks themselves, not copies
 
 
 def test_pyr_down_levels_rejects_bad_halvings():
@@ -492,11 +559,118 @@ def test_k9_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "candidate_sads.cu").read_text()
     assert "constexpr int kCand = 9;" in src  # the r = 1 instance's count
     assert "fh % 2 || fw % 2" in src  # 2x2 blocks
-    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<(\d+)>", src)
-             if a == b}
-    assert radii == set(motion._SAD_RADII)
+    # the blocks of K9's entry: 1x1 and 2x2 here, 4x4 and 8x8 on K3's kernel
+    entry = src[src.index("SVC_EXPORT int svc_candidate_sads("):]
+    blocks = {int(b) for b in re.findall(r"case (\d+): return launch_", entry)}
+    assert blocks == set(motion._K9_BLOCKS)
+    assert "case 1: return launch_block1(" in entry
+    assert "case 2: return launch_block2_sads<float>(" in entry
+    for b in (4, 8):
+        assert f"case {b}: return launch_refine_rows<{b}, float>(" in entry
+        assert motion._K9_ALIGN[b] == (16, 16)
+    assert "reinterpret_cast<uintptr_t>(anchor) % 2" in src
+    assert motion._K9_ALIGN[1] == (4, 1) and motion._K9_ALIGN[2] == (4, 2)
+    # each launcher's radii, the 2x2 and the 1x1 one
+    for launcher in ("launch", "launch_1x1"):
+        radii = {int(a) for a, b in re.findall(
+            rf"case (\d+): return {launcher}<(\d+)>\(", src) if a == b}
+        assert radii == set(motion._SAD_RADII), launcher
     # R >= 2: 2R + 2 window rows of 2R + 2 bytes, a byte_perm and one
     # __vsadu4 a candidate, the exact float32 by the mantissa
     assert "constexpr int kRun = 2 * R + 2;" in src
     assert "window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);" in src
-    assert "__uint_as_float(0x4b000000u | sad) - 8388608.0f" in src
+    assert "o[(oy * kSide + ox) * plane_out] = sad_as<Out>(__vsadu4(pair, a01));" in src
+    common = (build.CSRC_DIR / "common.cuh").read_text()
+    assert "return __uint_as_float(0x4b000000u | sad) - 8388608.0f;" in common
+    # 1x1: 2R + 1 window rows of 2R + 1 bytes, __vabsdiffu4 against the
+    # anchor byte in every byte, a byte_perm into the mantissa a candidate
+    assert "window_run<kSide>(trk, y + mvy + oy - R, x + mvx - R, fh, fw, row);" in src
+    assert "__ldg(anchor + at) * 0x01010101u" in src
+    assert "const uint32_t d = __vabsdiffu4(row[j], a4);" in src
+    assert "__uint_as_float(__byte_perm(d, 0x4b000000u, k | 0x7440)) - 8388608.0f" in src
+
+
+def _vabsdiffu4(a, b):
+    """``__vabsdiffu4``: the four bytes' absolute differences, in place."""
+    return sum(np.abs(((a >> (8 * k)) & 0xFF) - ((b >> (8 * k)) & 0xFF)) << (8 * k)
+               for k in range(4))
+
+
+def _replay_k9_1x1(tracked, anchor, mv, r):
+    """SADs as ``candidate_sads_1x1_kernel<R>`` computes them: per pixel
+    each of the 2R + 1 window rows as words (``window_run<2R + 1>``), one
+    ``__vabsdiffu4`` a word against the anchor byte in all four bytes, and
+    one ``__byte_perm`` a candidate into the mantissa of 2^23, less 2^23."""
+    t, fh, fw = tracked.shape
+    side = 2 * r + 1
+    out = np.zeros((t, side * side, fh, fw), np.float32)
+    y, x = np.meshgrid(np.arange(fh), np.arange(fw), indexing="ij")
+    for ti in range(t):
+        trk = tracked[ti].reshape(-1)
+        a4 = anchor[ti].astype(np.int64) * 0x01010101
+        mvx, mvy = mv[ti, ..., 0].astype(np.int64), mv[ti, ..., 1].astype(np.int64)
+        for oy in range(side):
+            row = _window_run(trk, y + mvy + oy - r, x + mvx - r, fh, fw, side)
+            assert len(row) == (side + 3) // 4
+            for j, word in enumerate(row):
+                d = _vabsdiffu4(word, a4)
+                for k in range(min(4, side - 4 * j)):
+                    f = _byte_perm(d, 0x4B000000, k | 0x7440).astype(np.uint32)
+                    out[ti, oy * side + 4 * j + k] = f.view(np.float32) - np.float32(8388608.0)
+    return out
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize(
+    "t,fh,fw,mv_kind",
+    # planes of whole words (the 1x1 kernel's gate); fw % 4 == 0 and not
+    [(2, 8, 12, "zero"), (2, 8, 12, "random"), (3, 6, 14, "random"),
+     (1, 5, 8, "edge"), (2, 10, 6, "edge"), (1, 1, 4, "edge"),
+     (2, 10, 6, "far"), (1, 17, 60, "random")],
+)
+def test_k9_1x1_replay_equals_plain(r, t, fh, fw, mv_kind):
+    rng = np.random.default_rng(fh * fw + t + 100 * r)
+    tracked = rng.integers(0, 256, (t, fh, fw)).astype(np.uint8)
+    anchor = rng.integers(0, 256, (t, fh, fw)).astype(np.uint8)
+    shape = (t, fh, fw, 2)
+    if mv_kind == "zero":
+        mv = np.zeros(shape, np.int32)
+    elif mv_kind == "random":
+        mv = rng.integers(-14, 15, shape).astype(np.int32)
+    elif mv_kind == "edge":  # odd MVs that reach past every frame edge
+        mv = (2 * rng.integers(-3, 4, shape) + 1).astype(np.int32)
+    else:  # windows wholly outside the frame, and just inside
+        mv = rng.choice(np.array([-40, -9, -5, -1, 1, 5, 9, 40], np.int32), shape)
+    got = _replay_k9_1x1(tracked, anchor, mv, r)
+    ref = motion.candidate_sads_plain(torch.from_numpy(tracked),
+                                      torch.from_numpy(anchor),
+                                      torch.from_numpy(mv), r, 1, 1)
+    np.testing.assert_array_equal(got, ref.numpy())
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("t,fh,fw,mv_kind", [(2, 16, 24, "path"), (3, 14, 10, "edge"),
+                                             (2, 20, 22, "far"), (1, 2, 2, "edge")])
+def test_k3_2x2_replay_equals_plain(r, t, fh, fw, mv_kind):
+    # K3 and K7 at 2x2 blocks run K9's 2x2 kernel with two bases (the stack
+    # and the stack plus a plane; the pair) and int32 output: the same
+    # word arithmetic, its sums stored as they are
+    rng = np.random.default_rng(fh * fw + t + 10 * r)
+    stack = rng.integers(0, 256, (t + 1, fh, fw)).astype(np.uint8)
+    shape = (t, fh // 2, fw // 2, 2)
+    if mv_kind == "path":  # doubled propagated MVs, the refine's own inputs
+        mv = 2 * rng.integers(-2 * r, 2 * r + 1, shape)
+    elif mv_kind == "edge":
+        mv = 2 * rng.integers(-3, 4, shape) + 1
+    else:
+        mv = rng.choice(np.array([-40, -9, -5, -1, 1, 5, 9, 40]), shape)
+    mv = mv.astype(np.int32)
+    replay = _replay_k9 if r == 1 else lambda a, b, m: _replay_k9_wide(a, b, m, r)
+    got = replay(stack[:-1], stack[1:], mv)
+    assert (got < 1 << 23).all() and (got == np.round(got)).all()
+    got = got.astype(np.int32)
+    ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv), r, 2, 2)
+    np.testing.assert_array_equal(got, ref.numpy())
+    pair = motion.refine_mads_plain(torch.from_numpy(stack[0]), torch.from_numpy(stack[1]),
+                                    torch.from_numpy(mv[0]), r, 2, 2)
+    np.testing.assert_array_equal(got[0], pair.numpy())

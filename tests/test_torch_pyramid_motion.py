@@ -130,3 +130,50 @@ def test_hbma_stack_bit_equal(search_range, h, w):
     np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
     assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
 
+
+
+# --mv-block-w/-h and --pyr-lvl-count, (MV block, levels, range): 8x8 MV
+# blocks at 4 levels (1x1 blocks at the top, 2x2 below it), 3 levels (4x4
+# at the top, r = 2), 2 levels (8x8, r = 4) and 5 levels at range 16 (1x1
+# and 2x2 again); 64x128 frames keep 8 block columns or more a level
+MOTION_CONFIGS = [(8, 4, 8), (16, 3, 8), (16, 2, 8), (16, 5, 16)]
+
+
+@pytest.mark.parametrize("block,levels,search_range", MOTION_CONFIGS)
+def test_hbma_stack_motion_configs_bit_equal(block, levels, search_range):
+    x = _moving_stack(3, 64, 128, seed=10)
+    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), levels),
+                                     search_range, block, block)
+    mv_t, mm_t = motion.hbma_stack(pyramid.build_pyramid(torch.from_numpy(x), levels),
+                                   search_range, block, block)
+    assert mv_t.shape == (2, 64 // block, 128 // block, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
+
+
+@pytest.mark.parametrize("block,levels,search_range", MOTION_CONFIGS)
+def test_hbma_motion_configs_bit_equal(block, levels, search_range, monkeypatch):
+    # the per-frame search; svc_tpu's refinement levels on its
+    # refine_mads_pallas (K7's TPU original, in interpret mode)
+    from svc_tpu.ops import motion_pallas as j_mp
+
+    frames = _moving_stack(2, 64, 128, seed=11)
+    jp = j_pyr.build_pyramid(jnp.asarray(frames), levels)
+    tp = pyramid.build_pyramid(torch.from_numpy(frames), levels)
+    calls = []
+    pallas = j_mp.refine_mads_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_pallas", counted)
+    mv_j, mm_j = j_motion.hbma([p[0] for p in jp], [p[1] for p in jp], search_range,
+                               block, block)
+    assert len(calls) == levels - 1
+    mv_t, mm_t = motion.hbma([p[0] for p in tp], [p[1] for p in tp], search_range,
+                             block, block)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0

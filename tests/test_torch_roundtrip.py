@@ -174,6 +174,38 @@ def test_search_range_16_round_trip():
     assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
 
 
+@pytest.mark.parametrize(
+    "settings", [dict(mv_block_w=8, mv_block_h=8), dict(pyr_lvl_count=3)],
+    ids=["8x8-mv-blocks", "3-levels"])
+def test_motion_configs_round_trip(settings):
+    # --mv-block-w/-h 8 (1x1 blocks at the top level, 2x2 below it) and
+    # --pyr-lvl-count 3 (4x4 at the top, radius 2) through both packages:
+    # the same header, MV fields and block types, coefficients within the
+    # gate
+    w, h, n = 64, 48, 5
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(**settings)
+    props = VideoProperties(w, h, n)
+    jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=BATCH, device="cpu")
+    js = list(jenc.encode_video(iter(clip)))
+    ts = list(tenc.encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    jb = jenc.encode_batch(clip[: BATCH + 1], 0)
+    tb = tenc.encode_batch(clip[: BATCH + 1], 0)
+    assert tb["mv_field"].shape == (BATCH, h // cfg.mv_block_h, w // cfg.mv_block_w, 2)
+    np.testing.assert_array_equal(tb["mv_field"].numpy(), np.array(jb["mv_field"]))
+    np.testing.assert_array_equal(tb["block_types"].numpy().astype(np.uint32),
+                                  np.array(jb["block_types"]))
+    assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
+
+
 def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads

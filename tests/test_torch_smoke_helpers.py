@@ -256,3 +256,28 @@ def test_ptxas_report_names_the_radius_instances(smoke):
     # 32 hold 8
     assert smoke.ctas_per_sm(79, 5184, 256) == 3
     assert smoke.ctas_per_sm(32, 2304, 256) == 8
+
+
+def test_ptxas_report_names_the_output_type_instances(smoke):
+    # K3's kernel and K9's 2x2 kernel also take their output type (float32
+    # for K9, int32 for K3 / K7): each instance named with it; K9's 1x1
+    # kernel takes the radius alone
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb18refine_sads_kernelILi8ELi4EfEEvPKhS2_mPKiPT1_iiii' for 'sm_90a'",
+        "ptxas info    : Used 63 registers, used 1 barriers, 10368 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb18refine_sads_kernelILi8ELi4EiEEvPKhS2_mPKiPT1_iiii' for 'sm_90a'",
+        "ptxas info    : Used 63 registers, used 1 barriers, 10368 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__0b7d8c2e_17_candidate_sads_cu_"
+        "7d395fff21candidate_sads_kernelILi1EiEEvPKhS2_mPKiPT0_iiii' for 'sm_90a'",
+        "ptxas info    : Used 26 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__0b7d8c2e_17_candidate_sads_cu_"
+        "7d395fff25candidate_sads_1x1_kernelILi2EEEvPKhS2_PKiPfii' for 'sm_90a'",
+        "ptxas info    : Used 30 registers, used 0 barriers",
+    ])
+    assert smoke.ptxas_report(log) == [
+        ("refine_sads.cu", "refine_sads_kernel<8, 4, float>", 63, 10368),
+        ("refine_sads.cu", "refine_sads_kernel<8, 4, int>", 63, 10368),
+        ("candidate_sads.cu", "candidate_sads_kernel<1, int>", 26, 0),
+        ("candidate_sads.cu", "candidate_sads_1x1_kernel<2>", 30, 0)]
