@@ -35,10 +35,15 @@ each:
    its level of a 1080p clip at ranges 16, 24 and 32, on random MVs and on
    odd MVs past the frame edges, K7 on frames 0-1, K9 at the EBMA shape
    with zero, random and past-edge MVs and T = 1, each timed in turns
-   with the general kernel at its shape; K9 at 1x1, 4x4 and 8x8 blocks and
-   K3 / K7 at 2x2, r = 1-4, at the levels phase 16's settings give them,
-   T = 8, on zero or even, random and past-edge MVs, each timed in turns
-   with the general kernel), held bit for bit
+   with the general kernel at its shape; K9 at 1x1, 4x4, 8x8, 2x1, 4x2,
+   8x4, 1x2, 2x4, 4x8 and K3 / K7 at 2x2, 4x2, 8x4, 16x8, 2x4, 4x8, 8x16
+   blocks (width x height: the levels of 8x8 MV blocks, of 2 and 3
+   levels, and of 16x8 and 8x16 MV blocks at 2, 3 or 4 levels, each at
+   the 1080p level shape its setting's encoder pads to,
+   ``INSTANCE_SETTINGS``), r = 1-4, T = 8, K9 on zero, random and
+   past-edge MVs, K3 on the setting's own search's MVs, random and
+   past-edge ones, K7 on frames 0-1, each timed in turns with the general
+   kernel), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
    in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
@@ -126,9 +131,9 @@ each:
    global-motion estimators on ``cuda``, then ``hbma`` at ranges 16, 24
    and 32 (K7, the fused K4 and the 2x2 K9 must run, every K7 and K9
    instance at r = 1-4, the general K7 and K9 and the single-level K4 not),
-   and at 8x8 MV blocks and at 3 levels (K9's 1x1 and 4x4, K7's 2x2
-   instances), each held against ``hbma_stack`` on the same 2-frame stack
-   and the CPU port;
+   at 8x8 MV blocks, at 3 levels and at 16x8 MV blocks (K9's 1x1, 4x4 and
+   2x1, K7's 2x2, 4x2, 8x4 and 16x8 instances), each held against
+   ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
     launch) and ``hbma_stack(..., base_pitched=...)`` (the fused K8
@@ -182,12 +187,15 @@ each:
     the device batch time of each range's encoder (graph replays) in turns
     with the default range 8;
 16. MV blocks and pyramid levels — 9-frame 1080p clips with 8x8 MV blocks
-    (``EncoderConfig(mv_block_w=8, mv_block_h=8)``), 3 and 2 levels, and 5
-    levels at range 16 on graph replays: the K9 and K3 instances of the
-    setting's blocks and radius must run (K9 at 1x1, 4x4, 8x8, 1x1; K3 at
-    2x2 under 8x8 MV blocks and 5 levels), no other instance and no
-    general K3 or K9; the same checks as phase 15, then the device batch
-    time of each setting in turns with the default config.
+    (``EncoderConfig(mv_block_w=8, mv_block_h=8)``), 3 and 2 levels, 5
+    levels at range 16, 16x8 MV blocks (G5), 8x16 at range 16 (G6) and
+    16x8 at 3 levels (G7) on graph replays: the K9 and K3 instances of
+    the setting's blocks and radius must run (K9 at 1x1, 4x4, 8x8, 1x1,
+    2x1, 1x2, 4x2; K3 at 2x2 under 8x8 MV blocks and 5 levels, at 4x2, 8x4,
+    16x8 under G5, 2x4, 4x8, 8x16 under G6, 8x4, 16x8 under G7), no other
+    instance and no general K3 or K9; the same checks as phase 15, then
+    the device batch time of each setting in turns with the default
+    config.
 
 ``python3 chip_smoke.py --batch-ms`` runs phase 1 and phase 16's batch
 timing alone (``motion_batch_ms``), so that a copy of this script in
@@ -230,12 +238,18 @@ WIDE_RANGES = (16, 24, 32)
 # the MV block and pyramid level settings phase 16 runs (--mv-block-w/-h,
 # --pyr-lvl-count; range 8 unless set): the top level's blocks S and radius
 # r are 1x1 at r = 1, 4x4 at r = 2, 8x8 at r = 4 and 1x1 at r = 1, the
-# first and the last with 2x2 refinement blocks
+# first and the last with 2x2 refinement blocks; then 16x8 and 8x16 MV
+# blocks (width x height): 2x1 at r = 1 under 4x2, 8x4, 16x8 refinement
+# blocks, 1x2 at r = 2 under 2x4, 4x8, 8x16, and 4x2 at r = 2 under 8x4,
+# 16x8
 MOTION_CONFIGS = {
     "G1 8x8 MV blocks": dict(mv_block_w=8, mv_block_h=8),
     "G2 3 levels": dict(pyr_lvl_count=3),
     "G3 2 levels": dict(pyr_lvl_count=2),
     "G4 5 levels, range 16": dict(pyr_lvl_count=5, mv_search_range=16),
+    "G5 16x8 MV blocks": dict(mv_block_w=16, mv_block_h=8),
+    "G6 8x16 MV blocks, range 16": dict(mv_block_w=8, mv_block_h=16, mv_search_range=16),
+    "G7 16x8, 3 levels": dict(mv_block_w=16, mv_block_h=8, pyr_lvl_count=3),
 }
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
@@ -393,14 +407,14 @@ def ptxas_entries(log: str):
     for line in log.splitlines():
         # the mangled kernel name holds "<length>_<source stem>_cu_<hash>"
         # then "<length><kernel name>", then "ILi<B>E" for a template of
-        # one int, "ILi<BH>ELi<BW>E" for one of two, each with "f" or "i"
-        # after it for an output type float or int32_t
+        # one int, "ILi<BH>ELi<BW>E" for one of two and so on, with "f" or
+        # "i" after them for an output type float or int32_t
         m = re.search(r"Compiling entry function '[^']*?_\d+_([a-z]\w*?)_cu_"
                       r"[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)"
-                      r"(?:ILi(\d+)E(?:Li(\d+)E)?([fi])?)?", line)
+                      r"(?:I((?:Li\d+E)+)([fi])?)?", line)
         if m:
-            args = [a for a in m.group(3, 4) if a] + [
-                {"f": "float", "i": "int"}[c] for c in m.group(5) or ""]
+            args = re.findall(r"Li(\d+)E", m.group(3) or "") + [
+                {"f": "float", "i": "int"}[c] for c in m.group(4) or ""]
             tmpl = f"<{', '.join(args)}>" if args else ""
             name, spill = (f"{m.group(1)}.cu", f"{m.group(2)}{tmpl}"), 0
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -464,26 +478,28 @@ def even_mvs(g, shape, bound_, dev):
                              dtype=torch.int32).to(dev)
 
 
-def search_level_mvs(pyr, search_range: int):
-    """The MVs each refinement level of ``hbma_stack(pyr, search_range, 16,
-    16)`` receives (its doubled, rounded propagated field), by the
-    encoder's own search: ``{level: (T, 68, 120, 2) int32}`` and the top
-    level's radius."""
+def search_level_mvs(pyr, search_range: int, block_w: int = 16, block_h: int = 16):
+    """The MVs each refinement level of ``hbma_stack(pyr, search_range,
+    block_w, block_h)`` receives (its doubled, rounded propagated field), by
+    the encoder's own search: ``{level: (T, mfh, mfw, 2) int32}`` and the
+    top level's radius."""
     from svc_tpu_torch.ops import motion
 
     levels = len(pyr)
-    r = motion._top_range(levels, search_range, 16, 16)
+    r = motion._top_range(levels, search_range, block_w, block_h)
     top = pyr[-1]
-    mv, min_mad = motion.ebma(top[:-1], top[1:], r, 2, 2)
+    factor = 1 << (levels - 1)
+    mv, min_mad = motion.ebma(top[:-1], top[1:], r, block_w // factor,
+                              block_h // factor)
     out = {}
     for lvl in range(levels - 2, -1, -1):
-        b = 16 >> lvl
+        bw, bh = block_w >> lvl, block_h >> lvl
         mv = mv * 2.0
         out[lvl] = torch.round(mv).to(torch.int32)
         stack = pyr[lvl]
-        sads = motion.refine_sads(stack, out[lvl], r, b, b)
-        mv, min_mad = motion._refine_select(motion._mads(sads, b, b), mv, min_mad,
-                                            r, b, b, *stack.shape[1:])
+        sads = motion.refine_sads(stack, out[lvl], r, bw, bh)
+        mv, min_mad = motion._refine_select(motion._mads(sads, bw, bh), mv, min_mad,
+                                            r, bw, bh, *stack.shape[1:])
     return out, r
 
 
@@ -608,7 +624,9 @@ def wide_search_parity(g, dev, results, int_ops_per_s):
         p_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, r, 2, 2), iters=3,
                        warmup=1)
         n_out = 8 * side2 * 68 * 120
-        nbytes = 2 * tr.numel() + zero.numel() * 4 + n_out * 4
+        # bytes: the level's 9 frames read once (the tracked and the anchor
+        # stack are two views of them), the MVs, each SAD written once
+        nbytes = top.numel() + zero.numel() * 4 + n_out * 4
         # one SIMD SAD of 4 bytes a candidate of a 2x2 block
         line = record(results, name9, motion.CANDIDATE_SADS, 0, n_ms, w_ms, p_ms, nbytes,
                       n_out, ops_per_s=int_ops_per_s)
@@ -624,115 +642,165 @@ def wide_search_parity(g, dev, results, int_ops_per_s):
           "past-edge MVs, T=8 and 1); timed in turns with the general kernel:")
     for line in lines:
         print(f"  {line}")
-    return pyr
 
 
-def block_instance_parity(pyr, g, dev, results, int_ops_per_s):
-    """Phase 3's instances for phase 16's block and level settings, each
-    at r = 1-4 at the shape of the setting that runs it, T = 8: K9 at 1x1
-    blocks on level 3 of the 9-frame 1080p pyramid ``pyr`` (8x8 MV blocks,
-    4 levels), at 4x4 on level 2 (3 levels) and at 8x8 on level 1 (2
-    levels), zero, random and past-edge MVs; K3 at 2x2 on level 2 (8x8 MV
-    blocks), K7 on its frames 0-1, the refine's even MVs and odd ones past
-    the edges. Each bit-equal to the general kernel and to the plain
-    version on every entry, timed in turns with the general kernel (20
-    launches in one CUDA graph), its bound beside it."""
+def held(kernel, name, new, general, plain, kind):
+    """``new()``, which must launch ``kernel``'s instance ``name`` once and
+    equal ``plain()`` and ``general()`` bit for bit (``kind``: its MVs)."""
+    before = kernel.instance_launches[name]
+    got = new()
+    if kernel.instance_launches[name] != before + 1:
+        fail(f"{name} ({kind}) did not take its instance")
+    if not torch.equal(got, plain()):
+        fail(f"{name} differs from its plain version ({kind})")
+    if not torch.equal(got, general()):
+        fail(f"{name} differs from the general kernel ({kind})")
+    return got
+
+
+def timed_against_general(results, int_ops_per_s, kernel, name, new, general, plain,
+                          nbytes, ops):
+    """An instance timed in turns with the general kernel (20 launches in
+    one CUDA graph), through its wrapper and against its plain version,
+    recorded in ``results`` with its bound; its report line."""
+    g_ms, n_ms, turns = in_turns(general, new, graph_ms)
+    w_ms = cuda_ms(new)
+    p_ms = cuda_ms(plain, iters=3, warmup=1)
+    line = record(results, name, kernel, 0, n_ms, w_ms, p_ms, nbytes, ops,
+                  ops_per_s=int_ops_per_s)
+    return (f"{name} {n_ms:.4f} ms, general {g_ms:.4f} ({g_ms / n_ms:.1f}x; in turns "
+            f"{', '.join(f'{x:.4f}' for x in turns)}), plain {p_ms:.4f}; {line}")
+
+
+# MV block and level settings past the default whose instances phase 3
+# holds (width, height, levels; the default, 16x16 at 4 levels, is held
+# above it): 8x8 MV blocks (K9 1x1, K3 2x2), 16x16 at 3 and 2 levels (K9
+# 4x4, 8x8), and 16x8 and 8x16 at 4, 3 and 2 levels (K9 2x1, 4x2, 8x4,
+# 1x2, 2x4, 4x8; K3 4x2, 8x4, 16x8, 2x4, 4x8, 8x16)
+INSTANCE_SETTINGS = ((8, 8, 4), (16, 16, 3), (16, 16, 2), (16, 8, 4), (16, 8, 3),
+                     (16, 8, 2), (8, 16, 4), (8, 16, 3), (8, 16, 2))
+
+
+def setting_levels(settings=INSTANCE_SETTINGS):
+    """``[((width, height, levels), k9_levels, k3_levels)]``: for each MV
+    block setting, its top level where K9's blocks there are new and its
+    refinement levels whose K3 blocks are new, top down; new meaning
+    neither the default setting (16x16, 4 levels) nor an earlier one of
+    ``settings`` has them."""
+    k9, k3, plan = set(), set(), []
+    for mw, mh, levels in ((16, 16, 4),) + tuple(settings):
+        top = [levels - 1] if (mw >> levels - 1, mh >> levels - 1) not in k9 else []
+        refine = [lvl for lvl in range(levels - 2, -1, -1) if (mw >> lvl, mh >> lvl) not in k3]
+        k9.update((mw >> lvl, mh >> lvl) for lvl in top)
+        k3.update((mw >> lvl, mh >> lvl) for lvl in refine)
+        plan.append(((mw, mh, levels), top, refine))
+    return plan[1:]
+
+
+def setting_instance_parity(g, dev, results, int_ops_per_s):
+    """Phase 3's instances for the MV block and level settings past the
+    default (``setting_levels``), each at r = 1-4 at the 1080p level shape
+    its setting's encoder gives it (``padded_luma``: 1080 rows at 8x8 and
+    16x8 MV blocks, 1088 at 16x16 and 8x16), T = 8: K9 at the top level's
+    blocks with zero (the EBMA's), random and past-edge MVs; K3 at the
+    refinement levels' blocks with the MVs the setting's own search at
+    the top radius r gives each level, random and odd past-edge MVs; K7
+    on frames 0-1 of each with the search's and the past-edge MVs. Each
+    bit-equal to the general kernel and to the plain version on every
+    entry, timed in turns with the general kernel (20 launches in one CUDA
+    graph), its bound beside it."""
     from svc_tpu_torch.ops import motion
+    from svc_tpu_torch.ops.pyramid import build_pyramid
+    from svc_tpu_torch.tools.clips import make_clip
 
-    def held(kernel, name, new, general, plain, kind):
-        before = kernel.instance_launches[name]
-        got = new()
-        if kernel.instance_launches[name] != before + 1:
-            fail(f"{name} ({kind}) did not take its instance")
-        if not torch.equal(got, plain()):
-            fail(f"{name} differs from its plain version ({kind})")
-        if not torch.equal(got, general()):
-            fail(f"{name} differs from the general kernel ({kind})")
-        return got
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi + 1, shape, generator=g, dtype=torch.int32).to(dev)
 
-    def timed_against_general(kernel, name, new, general, plain, nbytes, ops):
-        g_ms, n_ms, turns = in_turns(general, new, graph_ms)
-        w_ms = cuda_ms(new)
-        p_ms = cuda_ms(plain, iters=3, warmup=1)
-        line = record(results, name, kernel, 0, n_ms, w_ms, p_ms, nbytes, ops,
-                      ops_per_s=int_ops_per_s)
-        return (f"{name} {n_ms:.4f} ms, general {g_ms:.4f} ({g_ms / n_ms:.1f}x; in turns "
-                f"{', '.join(f'{x:.4f}' for x in turns)}), plain {p_ms:.4f}; {line}")
-
+    clip = make_clip(1920, 1080, 9)
     lines = []
-    for s, lvl in ((1, 3), (4, 2), (8, 1)):
-        top = pyr[lvl]
-        tr, an = top[:-1], top[1:]
-        t, fh, fw = tr.shape
-        shape = (t, fh // s, fw // s, 2)
-        zero = torch.zeros(shape, dtype=torch.int32, device=dev)
+    for (mw, mh, levels), top_levels, refine_levels in setting_levels():
+        pyr = build_pyramid(padded_luma(clip, dev, mw, mh, levels), levels)
         for r in motion._SAD_RADII:
-            name = f"candidate_sads<{s}, {r}>"
-            cases = {
-                "zero MVs": zero,
-                "MVs within +-14": torch.randint(-14, 15, shape, generator=g,
-                                                 dtype=torch.int32).to(dev),
-                "odd MVs past the edges": (2 * torch.randint(
-                    -2 * s - 2, 2 * s + 3, shape, generator=g, dtype=torch.int32) + 1).to(dev),
-            }
-            for kind, mv in cases.items():
-                got = held(motion.CANDIDATE_SADS, name,
-                           lambda: motion.candidate_sads(tr, an, mv, r, s, s),
-                           lambda: motion.candidate_sads(tr, an, mv, r, s, s, general=True),
-                           lambda: motion.candidate_sads_plain(tr, an, mv, r, s, s), kind)
-            # bytes: both stacks read once, the MVs, each SAD written once;
-            # operations: a SIMD SAD of 4 bytes each (S^2 / 4 a candidate,
-            # one a candidate at 1x1: its byte_perm)
-            n_out = got.numel()
-            nbytes = 2 * tr.numel() + zero.numel() * 4 + n_out * 4
-            lines.append(timed_against_general(
-                motion.CANDIDATE_SADS, name,
-                lambda: motion.candidate_sads(tr, an, zero, r, s, s),
-                lambda: motion.candidate_sads(tr, an, zero, r, s, s, general=True),
-                lambda: motion.candidate_sads_plain(tr, an, zero, r, s, s),
-                nbytes, n_out * max(1, s * s // 4)) + f" ({t}x{fh}x{fw}, zero MVs)")
-
-    stack = pyr[2]  # 2x2 refine blocks: level 2 at 8x8 MV blocks
-    tp1, fh, fw = stack.shape
-    shape = (tp1 - 1, fh // 2, fw // 2, 2)
-    for r in motion._SAD_RADII:
-        name3, name7 = f"refine_sads<2, {r}>", f"refine_mads<2, {r}>"
-        cases = {
-            "even MVs within the reach": 2 * torch.randint(
-                -2 * r, 2 * r + 1, shape, generator=g, dtype=torch.int32).to(dev),
-            "odd MVs past the edges": (2 * torch.randint(
-                -4, 5, shape, generator=g, dtype=torch.int32) + 1).to(dev),
-        }
-        for kind, mv in cases.items():
-            got = held(motion.REFINE_SADS, name3,
-                       lambda: motion.refine_sads(stack, mv, r, 2, 2),
-                       lambda: motion.refine_sads(stack, mv, r, 2, 2, general=True),
-                       lambda: motion.refine_sads_plain(stack, mv, r, 2, 2), kind)
-            held(motion.REFINE_MADS, name7,
-                 lambda: motion.refine_mads(stack[0], stack[1], mv[0], r, 2, 2),
-                 lambda: motion.refine_mads(stack[0], stack[1], mv[0], r, 2, 2,
-                                            general=True),
-                 lambda: motion.refine_mads_plain(stack[0], stack[1], mv[0], r, 2, 2),
-                 kind)
-        mv = cases["even MVs within the reach"]
-        mv0 = mv[0].contiguous()
-        n_out = got.numel()  # a SIMD SAD of 4 bytes a candidate
-        lines.append(timed_against_general(
-            motion.REFINE_SADS, name3, lambda: motion.refine_sads(stack, mv, r, 2, 2),
-            lambda: motion.refine_sads(stack, mv, r, 2, 2, general=True),
-            lambda: motion.refine_sads_plain(stack, mv, r, 2, 2),
-            stack.numel() + mv.numel() * 4 + n_out * 4, n_out) + f" ({tp1}x{fh}x{fw})")
-        lines.append(timed_against_general(
-            motion.REFINE_MADS, name7,
-            lambda: motion.refine_mads(stack[0], stack[1], mv0, r, 2, 2),
-            lambda: motion.refine_mads(stack[0], stack[1], mv0, r, 2, 2, general=True),
-            lambda: motion.refine_mads_plain(stack[0], stack[1], mv0, r, 2, 2),
-            2 * fh * fw + mv0.numel() * 4 + n_out // (tp1 - 1) * 4, n_out // (tp1 - 1))
-            + f" (one {fh}x{fw} pair)")
-    print("parity K9 at 1x1, 4x4, 8x8 and K3 / K7 at 2x2, r = 1-4 (the top and "
-          "refinement levels of 8x8 MV blocks and of 3 and 2 levels): every "
-          "instance bit-equal to the general kernel and to the plain version on "
-          "every entry; timed in turns with the general kernel:")
+            for lvl in top_levels:
+                bw, bh = mw >> lvl, mh >> lvl
+                top = pyr[lvl]
+                tr, an = top[:-1], top[1:]
+                t, fh, fw = tr.shape
+                shape = (t, fh // bh, fw // bw, 2)
+                zero = torch.zeros(shape, dtype=torch.int32, device=dev)
+                reach = 2 * max(bw, bh) + 2
+                name = "candidate_sads" + motion._instance(bw, bh, r)
+                for kind, mv in {"zero MVs": zero, "MVs within +-14": ints(-14, 14, shape),
+                                 "odd MVs past the edges": 2 * ints(-reach, reach, shape) + 1
+                                 }.items():
+                    got = held(motion.CANDIDATE_SADS, name,
+                               lambda: motion.candidate_sads(tr, an, mv, r, bw, bh),
+                               lambda: motion.candidate_sads(tr, an, mv, r, bw, bh,
+                                                             general=True),
+                               lambda: motion.candidate_sads_plain(tr, an, mv, r, bw, bh),
+                               kind)
+                # bytes: the level's frames read once (the tracked and the
+                # anchor stack are two views of them), the MVs, each SAD
+                # written once; operations: BW BH / 4 SIMD SADs of 4 bytes
+                # a candidate (one at least)
+                n_out = got.numel()
+                lines.append(timed_against_general(
+                    results, int_ops_per_s, motion.CANDIDATE_SADS, name,
+                    lambda: motion.candidate_sads(tr, an, zero, r, bw, bh),
+                    lambda: motion.candidate_sads(tr, an, zero, r, bw, bh, general=True),
+                    lambda: motion.candidate_sads_plain(tr, an, zero, r, bw, bh),
+                    top.numel() + zero.numel() * 4 + n_out * 4,
+                    n_out * max(1, bw * bh // 4)) + f" ({t}x{fh}x{fw}, zero MVs)")
+            if not refine_levels:
+                continue
+            level_mvs, _ = search_level_mvs(pyr, r << levels - 1, mw, mh)
+            for lvl in refine_levels:
+                bw, bh = mw >> lvl, mh >> lvl
+                stack = pyr[lvl]
+                tp1, fh, fw = stack.shape
+                own = level_mvs[lvl]
+                bnd = (2 * r) << (levels - 1 - lvl)  # the reach of the search's MVs here
+                reach = max(bw, bh)
+                inst = motion._instance(bw, bh, r)
+                name3, name7 = "refine_sads" + inst, "refine_mads" + inst
+                tr, an = stack[0], stack[1]
+                cases = {"the search's": own, "random": ints(-bnd, bnd, own.shape),
+                         "odd past the edges": 2 * ints(-reach, reach, own.shape) + 1}
+                for kind, mv in cases.items():
+                    got = held(motion.REFINE_SADS, name3,
+                               lambda: motion.refine_sads(stack, mv, r, bw, bh),
+                               lambda: motion.refine_sads(stack, mv, r, bw, bh, general=True),
+                               lambda: motion.refine_sads_plain(stack, mv, r, bw, bh), kind)
+                    if kind != "random":
+                        m0 = mv[0].contiguous()
+                        held(motion.REFINE_MADS, name7,
+                             lambda: motion.refine_mads(tr, an, m0, r, bw, bh),
+                             lambda: motion.refine_mads(tr, an, m0, r, bw, bh, general=True),
+                             lambda: motion.refine_mads_plain(tr, an, m0, r, bw, bh), kind)
+                # bytes: the stack (K7: its two frames) read once, the MVs,
+                # each SAD written once; operations as K9's
+                n_out = got.numel()
+                ops = n_out * max(1, bw * bh // 4)
+                lines.append(timed_against_general(
+                    results, int_ops_per_s, motion.REFINE_SADS, name3,
+                    lambda: motion.refine_sads(stack, own, r, bw, bh),
+                    lambda: motion.refine_sads(stack, own, r, bw, bh, general=True),
+                    lambda: motion.refine_sads_plain(stack, own, r, bw, bh),
+                    stack.numel() + own.numel() * 4 + n_out * 4, ops)
+                    + f" ({tp1}x{fh}x{fw}, the search's MVs)")
+                m0 = own[0].contiguous()
+                lines.append(timed_against_general(
+                    results, int_ops_per_s, motion.REFINE_MADS, name7,
+                    lambda: motion.refine_mads(tr, an, m0, r, bw, bh),
+                    lambda: motion.refine_mads(tr, an, m0, r, bw, bh, general=True),
+                    lambda: motion.refine_mads_plain(tr, an, m0, r, bw, bh),
+                    2 * fh * fw + m0.numel() * 4 + n_out // (tp1 - 1) * 4,
+                    ops // (tp1 - 1)) + f" (one {fh}x{fw} pair)")
+    print("parity K9, K3 and K7 at the MV block and level settings past the "
+          "default (K9 1x1, 4x4, 8x8, 2x1, 4x2, 8x4, 1x2, 2x4, 4x8; K3 / K7 2x2, "
+          "4x2, 8x4, 16x8, 2x4, 4x8, 8x16), r = 1-4: every instance bit-equal to "
+          "the general kernel and to the plain version on every entry; timed in "
+          "turns with the general kernel:")
     for line in lines:
         print(f"  {line}")
 
@@ -972,8 +1040,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
     gw_ms = cuda_ms(lambda: motion.candidate_sads(tr, an, zero, 1, 2, 2, general=True))
     plain_ms = cuda_ms(lambda: motion.candidate_sads_plain(tr, an, zero, 1, 2, 2),
                        iters=5)
-    nbytes = 2 * tr.numel() + zero.numel() * 4 + got.numel() * 4
-    # one SIMD SAD of 4 bytes a candidate of a 2x2 block
+    # bytes: the level's 9 frames read once (``tr`` and ``an`` are two
+    # views of them), the MVs, each SAD written once; one SIMD SAD of 4
+    # bytes a candidate of a 2x2 block
+    nbytes = top.numel() + zero.numel() * 4 + got.numel() * 4
     line = record(results, "candidate_sads", motion.CANDIDATE_SADS, 0, ms, w_ms,
                   plain_ms, nbytes, got.numel(), ops_per_s=int_ops_per_s)
     record(results, "candidate_sads_general", motion.CANDIDATE_SADS_GENERAL, 0,
@@ -1006,9 +1076,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
 
     # K3, K7 and K9 at radii 2-4: their instances against the general
     # kernels at the path shapes of search ranges 16, 24 and 32; then K9's
-    # 1x1, 4x4 and 8x8 and K3's / K7's 2x2 instances (phase 16's settings)
-    pyr = wide_search_parity(g, dev, results, int_ops_per_s)
-    block_instance_parity(pyr, g, dev, results, int_ops_per_s)
+    # 1x1, 4x4 and 8x8 and K3's / K7's 2x2 instances (phase 16's settings);
+    # then the instances of 16x8 and 8x16 MV blocks
+    wide_search_parity(g, dev, results, int_ops_per_s)
+    setting_instance_parity(g, dev, results, int_ops_per_s)
 
     # K8 pyramid: levels 1-3 of the 9-frame 1088x1920 stack as tbw=8
     # column-pitched subplanes in one fused launch, bit-equal to the fused
@@ -1828,13 +1899,17 @@ def round_trip(cfg, w: int, h: int, n_frames: int, required, forbidden=()):
 
 
 def motion_instances(cfg):
-    """The K9 and K3 instances the encoder's search launches at ``cfg``
-    (square MV blocks): the top level's ``candidate_sads<S, r>`` and each
-    refinement level's ``refine_sads<B, r>``, r the top radius."""
+    """The K9 and K3 instances the encoder's search launches at ``cfg``: the
+    top level's ``candidate_sads<S, r>`` and each refinement level's
+    ``refine_sads<B, r>`` (``<16x8, 1>`` where the blocks are not square),
+    r the top radius."""
+    from svc_tpu_torch.ops.motion import _instance
+
     factor = 1 << (cfg.pyr_lvl_count - 1)
     r = cfg.mv_search_range // factor
-    return ((f"candidate_sads<{cfg.mv_block_w // factor}, {r}>",)
-            + tuple(f"refine_sads<{cfg.mv_block_w >> lvl}, {r}>"
+    bw, bh = cfg.mv_block_w, cfg.mv_block_h
+    return (("candidate_sads" + _instance(bw // factor, bh // factor, r),)
+            + tuple("refine_sads" + _instance(bw >> lvl, bh >> lvl, r)
                     for lvl in range(cfg.pyr_lvl_count - 2, -1, -1)))
 
 
@@ -2268,15 +2343,17 @@ def display_gate(a: np.ndarray, b: np.ndarray, what: str, ties=None) -> str:
             f"off the exact ties ({ties.mean():.2%} of the bytes)")
 
 
-def padded_luma(clip: np.ndarray, dev) -> torch.Tensor:
-    """``(n, ph, pw)`` uint8 luma of BGR frames, padded as the default
-    config's encoder pads them (1080p: 1088 rows)."""
+def padded_luma(clip: np.ndarray, dev, block_w: int = 16, block_h: int = 16,
+                levels: int = 4) -> torch.Tensor:
+    """``(n, ph, pw)`` uint8 luma of BGR frames, padded as the encoder pads
+    them at ``block_w`` x ``block_h`` MV blocks and ``levels`` levels (the
+    default config's 1080p: 1088 rows; at 16x8 MV blocks 1080)."""
     from svc_tpu_torch.ops.color import bgr_planes_to_y
     from svc_tpu_torch.ops.pad import pad_frame, padded_dims
 
     px = torch.as_tensor(clip).to(dev)
     y = bgr_planes_to_y(px[..., 0], px[..., 1], px[..., 2])
-    pw, ph = padded_dims(clip.shape[2], clip.shape[1], 16, 16, 4)
+    pw, ph = padded_dims(clip.shape[2], clip.shape[1], block_w, block_h, levels)
     return pad_frame(y, pw, ph)
 
 
@@ -2300,11 +2377,13 @@ def per_frame_motion(clip: np.ndarray, dev):
     gm_h = motion.estimate_global_motion_hierarchical(tracked, anchor, 8)
     # --mv-search-range 16, 24 and 32: K9's and K7's instances at r = 2-4
     wide = {rng: motion.hbma(tracked, anchor, rng, 16, 16) for rng in WIDE_RANGES}
-    # phase 16's 8x8 MV blocks and 3 levels: K9's 1x1 and 4x4 instances,
-    # K7's 2x2 ones
+    # phase 16's 8x8 MV blocks, 3 levels and 16x8 MV blocks: K9's 1x1,
+    # 4x4 and 2x1 instances, K7's 2x2 ones and its 4x2, 8x4 and 16x8 (on
+    # the 1080 rows 16x8 MV blocks pad to)
     settings = {label: EncoderConfig(**MOTION_CONFIGS[label])
-                for label in ("G1 8x8 MV blocks", "G2 3 levels")}
-    pyrs = {label: pyr if cfg.pyr_lvl_count == 4 else build_pyramid(y, cfg.pyr_lvl_count)
+                for label in ("G1 8x8 MV blocks", "G2 3 levels", "G5 16x8 MV blocks")}
+    pyrs = {label: build_pyramid(padded_luma(clip[:2], dev, cfg.mv_block_w, cfg.mv_block_h,
+                                             cfg.pyr_lvl_count), cfg.pyr_lvl_count)
             for label, cfg in settings.items()}
     blocks = {label: motion.hbma([p[0] for p in pyrs[label]], [p[1] for p in pyrs[label]],
                                  cfg.mv_search_range, cfg.mv_block_w, cfg.mv_block_h)
@@ -2380,8 +2459,9 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"{gm_avg.tolist()}, exhaustive {gm_ex.tolist()} (MAD "
           f"{mad_ex.item():.4f}), hierarchical {gm_h.tolist()}, each equal "
           f"to the CPU port; at ranges {', '.join(map(str, WIDE_RANGES))} "
-          f"(K7's and K9's r = 2-4 instances), at 8x8 MV blocks and at 3 levels "
-          f"(K9's 1x1 and 4x4, K7's 2x2) equal to hbma_stack and to the CPU "
+          f"(K7's and K9's r = 2-4 instances), at 8x8 MV blocks, at 3 levels and "
+          f"at 16x8 MV blocks (K9's 1x1, 4x4 and 2x1, K7's 2x2, 4x2, 8x4, 16x8) "
+          f"equal to hbma_stack and to the CPU "
           f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
           f"launches {counts}")
     return dict(pyr=pyr, counts=counts)
@@ -3066,9 +3146,10 @@ def main() -> int:
     # its own radius's instances and on no general K3 or K9
     # every K9 and K3 instance: a config's run takes its own and no other
     all_instances = tuple(
-        f"{name}<{b}, {q}>" for name, blocks in (("candidate_sads", motion._K9_BLOCKS),
-                                                 ("refine_sads", motion._K3_BLOCKS))
-        for b in blocks for q in motion._SAD_RADII)
+        name + motion._instance(bw, bh, q)
+        for name, blocks in (("candidate_sads", motion._K9_BLOCKS),
+                             ("refine_sads", motion._K3_BLOCKS))
+        for bw, bh in sorted(blocks) for q in motion._SAD_RADII)
 
     def motion_plan(cfg):
         """``(cfg, required, forbidden)``: the encode kernels and the
@@ -3094,7 +3175,8 @@ def main() -> int:
                                               search_runs.items()}}, packed, card, "range ")
 
     # 16. MV blocks and pyramid levels: 8x8 MV blocks, 3, 2 and 5 levels,
-    # each run on its own K9 and K3 instances and on no general K3 or K9
+    # 16x8 and 8x16 MV blocks, each run on its own K9 and K3 instances and
+    # on no general K3 or K9
     config_runs = motion_config_runs(
         {label: motion_plan(EncoderConfig(**kw)) for label, kw in MOTION_CONFIGS.items()},
         main_run["enc"], card)

@@ -1,64 +1,72 @@
 // K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
-// float32, specialised for square S x S MV blocks, S = 1, 2, 4 or 8, at
-// search radius R = 1 to 4: the encoder's top-level EBMA, in hbma_stack and
-// per-frame hbma alike, at 16x16 blocks and 4 pyramid levels (S = 2),
-// range 8 (R = 1, the default) to 39 (R = range / 8), and at the other
-// block and level settings (--mv-block-w/-h, --pyr-lvl-count): 8x8 blocks
-// at 4 levels or 16x16 at 5 (S = 1), 16x16 at 3 levels (S = 4) or 2 (S =
-// 8). S = 1 and 2 run the kernels of this file, S = 4 and 8 K3's kernel
-// (refine_sads.cu, launch_refine_rows) with float32 output.
+// float32, specialised for BW x BH MV blocks (BW columns, BH rows) at
+// search radius R = 1 to 4: square 1, 2, 4 or 8 and the ratio-2
+// rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8. These are the encoder's
+// top-level EBMA, in hbma_stack and per-frame hbma alike, at 16x16 blocks
+// and 4 pyramid levels (2x2), range 8 (R = 1, the default) to 39 (R = range
+// / 8), and at the other block and level settings (--mv-block-w/-h,
+// --pyr-lvl-count): 8x8 blocks at 4 levels or 16x16 at 5 (1x1), 16x16 at 3
+// levels (4x4) or 2 (8x8), 16x8 blocks at 4, 3 or 2 levels (2x1, 4x2, 8x4)
+// and 8x16 (1x2, 2x4, 4x8). 1x1 runs the thread-a-pixel kernel of this
+// file, 2x2, 2x1, 1x2, 4x2 and 2x4 its thread-a-block kernel, the shapes
+// with both sides 4 or more K3's kernel (refine_sads.cu,
+// launch_refine_rows) with float32 output.
 //
 // Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) at those
 // shapes; every other shape runs candidate_sads_general.cu
 // (window_sads.cuh), and ops/motion.py dispatches. The contract is the
 // general kernel's: SAD of candidate (oy, ox) in raster order at
-//   sum_{i,j<S} |trk(t, S*by + mvy + oy - R + i, S*bx + mvx + ox - R + j)
-//               - anc(t, S*by + i, S*bx + j)|
+//   sum_{i<BH, j<BW} |trk(t, BH*by + mvy + oy - R + i, BW*bx + mvx + ox - R + j)
+//                     - anc(t, BH*by + i, BW*bx + j)|
 // for any int32 MVs, with tracked pixels outside the frame read as 0:
 // exact integer sums, bit-equal to the general kernel and to
 // candidate_sads_plain on every entry, valid or not.
 //
-// The 2x2 kernel is also K3's and K7's at 2x2 blocks (refine_sads.cu,
-// launch_block2_sads) with int32 output: it reads frame t's tracked plane
-// and its anchor from two bases, each frame a plane on (K9: the two
-// stacks; K3: the stack and the stack plus a plane; K7: the pair, one
-// frame).
+// The thread-a-block kernel is also K3's and K7's at 2x2, 4x2 and 2x4
+// blocks (refine_sads.cu, launch_block_sads) with int32 output: it reads
+// frame t's tracked plane and its anchor from two bases, each frame a
+// plane on (K9: the two stacks; K3: the stack and the stack plus a plane;
+// K7: the pair, one frame).
 //
 // Bound: bytes, and mostly the output ((2R + 1)^2 SADs of 4 bytes per
-// block against 2 S^2 bytes read and 8 of MVs: at S = 2, 1080p, T = 8, R =
-// 1, 2.35 MB of 2.87 MB, 0.0009 ms on an H100; at S = 1, 136 x 240 pixels
-// a frame, 78% of 12.0 MB at R = 1). The general kernel gives a warp to
-// each block (4 of 32 lanes busy at 2x2, 1 at 1x1), stages both tiles in
-// shared memory, divides by runtime sizes and reduces each sum by five
+// block against 2 BW BH bytes read and 8 of MVs: at 2x2, 1080p, T = 8, R =
+// 1, 2.35 MB of 2.87 MB, 0.0009 ms on an H100; at 1x1, 136 x 240 pixels a
+// frame, 78% of 12.0 MB at R = 1). The general kernel gives a warp to each
+// block (4 of 32 lanes busy at 2x2, 2 at 2x1, 1 at 1x1), stages both tiles
+// in shared memory, divides by runtime sizes and reduces each sum by five
 // shuffles. Design:
-//   - a thread per MV block (S = 2) or per pixel (S = 1); consecutive
-//     threads take consecutive block columns of one block row, so the
-//     window-row loads and the stores of each candidate plane coalesce
-//     across the warp;
-//   - at S = 2 the two anchor rows are 16-bit loads (2*bx is even, fw is
-//     even); at S = 1 the anchor byte, copied to the four bytes of a word;
-//   - at S = 2 and R = 1 each of the 4 window rows, bytes x0 .. x0+3 with
-//     x0 = 2*bx + mvx - 1 at any alignment, is two aligned 32-bit words
+//   - a thread per MV block (BW, BH <= 4, one side 1 or 2) or per pixel
+//     (1x1); consecutive threads take consecutive block columns of one
+//     block row, so the window-row loads and the stores of each candidate
+//     plane coalesce across the warp;
+//   - the anchor rows are one load each (32-bit at BW = 4, 16-bit at 2,
+//     8-bit at 1), packed into words of 4 bytes: one row a word at BW = 4,
+//     two rows at BW = 2 (one at 2x1) and at BW = 1; at 1x1 the anchor
+//     byte, copied to the four bytes of a word;
+//   - at 2x2 and R = 1 each of the 4 window rows, bytes x0 .. x0+3 with x0
+//     = 2*bx + mvx - 1 at any alignment, is two aligned 32-bit words
 //     (planes are 4-byte aligned and fh*fw is a multiple of 4) joined by
-//     __funnelshift_r; at R >= 2 each of the 2R + 2 rows is 2R + 2 bytes,
-//     2 or 3 words from up to 4 aligned loads; at S = 1 each of the 2R + 1
-//     rows is 2R + 1 bytes, 1 to 3 words. A word is loaded only where it
-//     meets the row's bytes, so no load leaves the plane; a byte mask then
-//     zeroes what lies outside [0, fw) (fw need not be a multiple of 4, so
-//     a word can straddle the row's edge) and a row outside [0, fh) reads
-//     as 0;
-//   - at S = 2 and R = 1, __vsadu4 of a window word shifted to candidate
+//     __funnelshift_r; otherwise each of the BH + 2R rows is BW + 2R
+//     bytes, 1 to 3 words from up to 4 aligned loads; at 1x1 each of the
+//     2R + 1 rows is 2R + 1 bytes, 1 to 3 words. A word is loaded only
+//     where it meets the row's bytes, so no load leaves the plane; a byte
+//     mask then zeroes what lies outside [0, fw) (fw need not be a multiple
+//     of 4, so a word can straddle the row's edge) and a row outside [0,
+//     fh) reads as 0;
+//   - at 2x2 and R = 1, __vsadu4 of a window word shifted to candidate
 //     column ox (low two bytes) against an anchor row (high bytes 0) adds
-//     that row's two absolute differences: 18 of them make the 9 sums; at
-//     R >= 2 one __byte_perm puts candidate (oy, ox)'s bytes of window rows
-//     oy and oy + 1 in one word, against both anchor rows in another, so
-//     one __vsadu4 is its SAD, stored at once (no accumulators); at S = 1
-//     one __vabsdiffu4 of a window word against the anchor word gives four
-//     candidates' SADs at once, each byte of it put into a float's
-//     mantissa by one __byte_perm;
+//     that row's two absolute differences: 18 of them make the 9 sums;
+//     otherwise a candidate (oy, ox) is one __vsadu4 an anchor word: the
+//     window row's word shifted to byte ox at BW = 4, one __byte_perm of
+//     rows oy + i and oy + i + 1 (bytes ox, ox + 1) at BW = 2, of row oy's
+//     two bytes and zeros at 2x1, of rows oy and oy + 1 (byte ox) at 1x2,
+//     summed and stored at once (no accumulators); at 1x1 one __vabsdiffu4
+//     of a window word against the anchor word gives four candidates' SADs
+//     at once, each byte of it put into a float's mantissa by one
+//     __byte_perm;
 //   - the SADs (< 2^23) become float32 exactly by 2^23 + x in the mantissa
-//     less 2^23 (sad_as, common.cuh) at R >= 2 and at S = 1 (an
+//     less 2^23 (sad_as, common.cuh) past 2x2 at R = 1 (an
 //     integer-to-float conversion issues at a quarter of that rate);
 //   - no shared memory, no shuffles; all index math is compile-time but
 //     the block's own origin.
@@ -130,7 +138,15 @@ __device__ __forceinline__ void window_run(const uint8_t* __restrict__ frame, in
   }
 }
 
-template <int R, class Out>
+// The anchor bytes of a BW x BH block as BH / kStep words of kStep rows
+// each (row q of a word at bits 8 BW q), one load a row.
+template <int BW, int BH>
+struct AnchorWords {
+  static constexpr int kStep = 4 / BW < BH ? 4 / BW : BH;  // rows a word
+  static constexpr int kCount = BH / kStep;
+};
+
+template <int BW, int BH, int R, class Out>
 __global__ void __launch_bounds__(kThreads)
 candidate_sads_kernel(const uint8_t* __restrict__ tracked,
                       const uint8_t* __restrict__ anchor,
@@ -143,16 +159,16 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
 
   const size_t plane = static_cast<size_t>(fh) * fw;
   const uint8_t* trk = tracked + t * plane;
-  const uint8_t* anc = anchor + t * plane + static_cast<size_t>(2 * by) * fw + 2 * bx;
+  const uint8_t* anc = anchor + t * plane + static_cast<size_t>(BH * by) * fw + BW * bx;
   const int32_t* m = mv + ((static_cast<size_t>(t) * mfh + by) * mfw + bx) * 2;
   const int mvx = __ldg(m);
   const int mvy = __ldg(m + 1);
-  const uint32_t a0 = __ldg(reinterpret_cast<const unsigned short*>(anc));
-  const uint32_t a1 = __ldg(reinterpret_cast<const unsigned short*>(anc + fw));
 
-  const int x0 = 2 * bx + mvx - R;  // window column of ox = 0
-  const int y0 = 2 * by + mvy - R;  // window row of oy = 0
-  if constexpr (R == 1) {
+  const int x0 = BW * bx + mvx - R;  // window column of ox = 0
+  const int y0 = BH * by + mvy - R;  // window row of oy = 0
+  if constexpr (BW == 2 && BH == 2 && R == 1) {
+    const uint32_t a0 = __ldg(reinterpret_cast<const unsigned short*>(anc));
+    const uint32_t a1 = __ldg(reinterpret_cast<const unsigned short*>(anc + fw));
     uint32_t acc[kCand];
 #pragma unroll
     for (int c = 0; c < kCand; ++c) acc[c] = 0u;
@@ -174,31 +190,65 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
 #pragma unroll
     for (int c = 0; c < kCand; ++c) o[c * plane_out] = static_cast<Out>(acc[c]);
   } else {
+    using A = AnchorWords<BW, BH>;
     constexpr int kSide = 2 * R + 1;
-    constexpr int kRun = 2 * R + 2;  // window rows, and bytes a row
-    uint32_t rows[kRun][(kRun + 3) / 4];
+    constexpr int kRows = BH + 2 * R;  // window rows
+    constexpr int kRun = BW + 2 * R;   // bytes a window row
+    uint32_t a[A::kCount];
 #pragma unroll
-    for (int wr = 0; wr < kRun; ++wr) window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);
-    const uint32_t a01 = a0 | (a1 << 16);  // anchor rows 0 and 1, 2 bytes each
+    for (int k = 0; k < A::kCount; ++k) {
+      a[k] = 0u;
+#pragma unroll
+      for (int q = 0; q < A::kStep; ++q) {
+        const uint8_t* p = anc + static_cast<size_t>(A::kStep * k + q) * fw;
+        uint32_t v;
+        if constexpr (BW == 4) {
+          v = __ldg(reinterpret_cast<const unsigned int*>(p));
+        } else if constexpr (BW == 2) {
+          v = __ldg(reinterpret_cast<const unsigned short*>(p));
+        } else {
+          v = __ldg(p);
+        }
+        a[k] |= v << (8 * BW * q);
+      }
+    }
+    uint32_t rows[kRows][(kRun + 3) / 4];
+#pragma unroll
+    for (int wr = 0; wr < kRows; ++wr) window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);
     const size_t plane_out = static_cast<size_t>(mfh) * mfw;
     Out* o = out + (static_cast<size_t>(t) * kSide * kSide * mfh + by) * mfw + bx;
 #pragma unroll
     for (int oy = 0; oy < kSide; ++oy) {
 #pragma unroll
       for (int ox = 0; ox < kSide; ++ox) {
-        // bytes ox, ox + 1 of window rows oy and oy + 1
         const int j = ox / 4;
         const int d = ox % 4;
-        uint32_t pair;
-        if (d < 3) {
-          pair = __byte_perm(rows[oy][j], rows[oy + 1][j],
-                             d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12);
-        } else {
-          pair = __byte_perm(__funnelshift_r(rows[oy][j], rows[oy][j + 1], 24),
-                             __funnelshift_r(rows[oy + 1][j], rows[oy + 1][j + 1], 24),
-                             0x5410);
+        uint32_t sad = 0u;
+#pragma unroll
+        for (int k = 0; k < A::kCount; ++k) {
+          const uint32_t* top = rows[oy + A::kStep * k];
+          uint32_t c;
+          if constexpr (BW == 4) {  // window row oy + k, bytes ox .. ox + 3
+            c = d == 0 ? top[j] : __funnelshift_r(top[j], top[j + 1], 8 * d);
+          } else if constexpr (BW == 2 && A::kStep == 2) {
+            // bytes ox, ox + 1 of window rows oy + 2k and oy + 2k + 1
+            const uint32_t* bot = rows[oy + A::kStep * k + 1];
+            if (d < 3) {
+              c = __byte_perm(top[j], bot[j],
+                              d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12);
+            } else {
+              c = __byte_perm(__funnelshift_r(top[j], top[j + 1], 24),
+                              __funnelshift_r(bot[j], bot[j + 1], 24), 0x5410);
+            }
+          } else if constexpr (BW == 2) {  // 2x1: bytes ox, ox + 1 of row oy
+            c = d < 3 ? __byte_perm(top[j], 0u, d | (d + 1) << 4 | 0x4400)
+                      : __funnelshift_r(top[j], top[j + 1], 24) & 0xffffu;
+          } else {  // 1x2: byte ox of window rows oy and oy + 1
+            c = __byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4) & 0xffffu;
+          }
+          sad = __vsadu4(c, a[k]) + sad;
         }
-        o[(oy * kSide + ox) * plane_out] = sad_as<Out>(__vsadu4(pair, a01));
+        o[(oy * kSide + ox) * plane_out] = sad_as<Out>(sad);
       }
     }
   }
@@ -245,14 +295,14 @@ candidate_sads_1x1_kernel(const uint8_t* __restrict__ tracked,
   }
 }
 
-template <int R, class Out>
+template <int BW, int BH, int R, class Out>
 int launch(const uint8_t* tracked, const uint8_t* anchor, const int32_t* mv,
            Out* out, int t_count, int fh, int fw, cudaStream_t stream) {
-  const int mfh = fh / 2;
-  const int mfw = fw / 2;
+  const int mfh = fh / BH;
+  const int mfw = fw / BW;
   const dim3 grid((mfw + kThreads - 1) / kThreads, mfh, t_count);
-  candidate_sads_kernel<R, Out><<<grid, kThreads, 0, stream>>>(tracked, anchor, mv, out,
-                                                               fh, fw, mfh, mfw);
+  candidate_sads_kernel<BW, BH, R, Out><<<grid, kThreads, 0, stream>>>(
+      tracked, anchor, mv, out, fh, fw, mfh, mfw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,11 +338,12 @@ int launch_block1(const void* tracked, const void* anchor, const void* mv,
 
 }  // namespace
 
-template <class Out>
-int launch_block2_sads(const void* tracked, const void* anchor, const void* mv,
-                       Out* out, int t_count, int fh, int fw, int r, void* stream) {
+template <int BW, int BH, class Out>
+int launch_block_sads(const void* tracked, const void* anchor, const void* mv,
+                      Out* out, int t_count, int fh, int fw, int r, void* stream) {
   if (reinterpret_cast<uintptr_t>(tracked) % 4 ||
-      reinterpret_cast<uintptr_t>(anchor) % 2 || fh % 2 || fw % 2) {
+      reinterpret_cast<uintptr_t>(anchor) % BW || fh % BH || fw % BW ||
+      (static_cast<size_t>(fh) * fw) % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* trk = static_cast<const uint8_t*>(tracked);
@@ -300,40 +351,63 @@ int launch_block2_sads(const void* tracked, const void* anchor, const void* mv,
   const auto* m = static_cast<const int32_t*>(mv);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (r) {
-    case 1: return launch<1>(trk, anc, m, out, t_count, fh, fw, st);
-    case 2: return launch<2>(trk, anc, m, out, t_count, fh, fw, st);
-    case 3: return launch<3>(trk, anc, m, out, t_count, fh, fw, st);
-    case 4: return launch<4>(trk, anc, m, out, t_count, fh, fw, st);
+    case 1: return launch<BW, BH, 1>(trk, anc, m, out, t_count, fh, fw, st);
+    case 2: return launch<BW, BH, 2>(trk, anc, m, out, t_count, fh, fw, st);
+    case 3: return launch<BW, BH, 3>(trk, anc, m, out, t_count, fh, fw, st);
+    case 4: return launch<BW, BH, 4>(trk, anc, m, out, t_count, fh, fw, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K9 (float32) and K3 / K7 (int32) at 2x2 blocks
-template int launch_block2_sads<float>(const void*, const void*, const void*, float*, int,
-                                       int, int, int, void*);
-template int launch_block2_sads<int32_t>(const void*, const void*, const void*, int32_t*,
-                                         int, int, int, int, void*);
+// K9 (float32) at 2x2, 4x2, 2x4, 2x1 and 1x2 blocks; K3 / K7 (int32) at
+// 2x2, 4x2 and 2x4
+#define SVC_BLOCK_SADS(BW, BH, Out)                                                  \
+  template int launch_block_sads<BW, BH, Out>(const void*, const void*, const void*, \
+                                              Out*, int, int, int, int, void*);
+SVC_BLOCK_SADS(2, 2, float)
+SVC_BLOCK_SADS(4, 2, float)
+SVC_BLOCK_SADS(2, 4, float)
+SVC_BLOCK_SADS(2, 1, float)
+SVC_BLOCK_SADS(1, 2, float)
+SVC_BLOCK_SADS(2, 2, int32_t)
+SVC_BLOCK_SADS(4, 2, int32_t)
+SVC_BLOCK_SADS(2, 4, int32_t)
+#undef SVC_BLOCK_SADS
 
-// tracked, anchor: (t_count, fh, fw) uint8; mv: (t_count, fh/block,
-// fw/block, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/block,
-// fw/block) float32. All contiguous; block in {1, 2, 4, 8} divides fh and
-// fw, 1 <= r <= 4; tracked 4-byte aligned and fh * fw a multiple of 4 at
-// block 1, tracked 4- and anchor 2-byte aligned at 2, both 16-byte aligned
-// at 4 and 8. Refuses (cudaErrorInvalidValue) anything else.
+// tracked, anchor: (t_count, fh, fw) uint8; mv: (t_count, fh/bh, fw/bw, 2)
+// int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw) float32. All
+// contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 2x1, 1x2, 4x2, 2x4, 8x4,
+// 4x8, dividing fw and fh, 1 <= r <= 4; at 1x1 tracked 4-byte aligned and
+// fh * fw a multiple of 4; at 2x2, 2x1, 1x2, 4x2 and 2x4 also the anchor
+// aligned to its rows' bytes (BW); both 16-byte aligned where both sides
+// are 4 or more. Refuses (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
                                   const void* mv, void* out, int t_count,
-                                  int fh, int fw, int block, int r, void* stream) {
+                                  int fh, int fw, int bw, int bh, int r,
+                                  void* stream) {
   const size_t plane = static_cast<size_t>(fh) * fw;
   auto* o = static_cast<float*>(out);
-  switch (block) {
-    case 1: return launch_block1(tracked, anchor, mv, o, t_count, fh, fw, r,
-                                 static_cast<cudaStream_t>(stream));
-    case 2: return launch_block2_sads<float>(tracked, anchor, mv, o, t_count, fh, fw, r,
-                                             stream);
-    case 4: return launch_refine_rows<4, float>(tracked, anchor, plane, mv, o,
-                                                t_count, fh, fw, r, stream);
-    case 8: return launch_refine_rows<8, float>(tracked, anchor, plane, mv, o,
-                                                t_count, fh, fw, r, stream);
+  switch (shape_key(bw, bh)) {
+    case shape_key(1, 1): return launch_block1(tracked, anchor, mv, o, t_count, fh, fw,
+                                               r, static_cast<cudaStream_t>(stream));
+    case shape_key(2, 2): return launch_block_sads<2, 2, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(2, 1): return launch_block_sads<2, 1, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(1, 2): return launch_block_sads<1, 2, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(4, 2): return launch_block_sads<4, 2, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(2, 4): return launch_block_sads<2, 4, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(4, 4): return launch_refine_rows<4, 4, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(8, 8): return launch_refine_rows<8, 8, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(8, 4): return launch_refine_rows<8, 4, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(4, 8): return launch_refine_rows<4, 8, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

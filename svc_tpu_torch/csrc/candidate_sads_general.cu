@@ -1,9 +1,11 @@
 // K9 candidate_sads_general: per-block SADs of every (2r+1)^2 candidate
 // around each block's MV, for T separate (tracked, anchor) plane pairs, as
 // float32, for any block shape and range. Square 1x1, 2x2, 4x4 and 8x8
-// blocks at r = 1 to 4 (the encoder's top-level EBMA at ranges 8 to 39,
-// 8x8 MV blocks, 2, 3 or 5 levels) run candidate_sads.cu; ops/motion.py
-// dispatches, and general=True forces this kernel.
+// blocks and the rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8 at r = 1 to 4
+// (the encoder's top-level EBMA at ranges 8 to 39, 8x8 MV blocks, 2, 3 or
+// 5 levels, 16x8 or 8x16 MV blocks at 2, 3 or 4 levels) run
+// candidate_sads.cu; ops/motion.py dispatches, and general=True forces
+// this kernel.
 //
 // Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) and its
 // static-addressing twin refine_sads_static (:285). The TPU kernels pad the

@@ -3,8 +3,9 @@
 // planes, at any block shape and range.
 //
 // Replaces svc_tpu/ops/motion_pallas.py refine_mads_pallas (:541) for the
-// shapes the specialised entry (refine_mads.cu: square 2/4/8/16 blocks at
-// r = 1 to 4 on 16-byte aligned planes, K3's kernels) does not take. The TPU
+// shapes the specialised entry (refine_mads.cu: K3's blocks, square 2/4/8/16
+// and 4x2, 8x4, 16x8, 2x4, 4x8, 8x16, at r = 1 to 4 on 16-byte aligned
+// planes, K3's kernels) does not take. The TPU
 // kernel reads a block-pitched copy of the padded tracked plane and
 // selects each block's window with masked-select chains over the even
 // shifts in [-bound_in, bound_in]; here each warp loads its block's window

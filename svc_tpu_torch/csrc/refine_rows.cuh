@@ -7,11 +7,12 @@
 // Each kernel gets its window rows its own way; from the rows on both run
 // this code, so both give the same bits.
 //
-// A CTA of kThreads lanes handles kThreads / B MV blocks of one block row
-// (square B x B blocks, search radius R = 1 to 4; the K8 refine R = 1);
-// lane i of a block owns anchor row i (B / 4 words). A window row is
-// Window<B, R>::kWords words from the window's first byte (ox = 0) on; it
-// needs B + 2R of those bytes.
+// A CTA of kThreads lanes handles kThreads / BH MV blocks of one block row
+// (BW x BH blocks, BW columns and BH rows, each 4, 8 or 16; search radius
+// R = 1 to 4; the K8 refine 16 x 16 at R = 1); lane i of a block owns
+// anchor row i (BW / 4 words). A window row is Window<BW, R>::kWords words
+// from the window's first byte (ox = 0) on; it needs BW + 2R of those
+// bytes.
 #pragma once
 
 #include "common.cuh"
@@ -22,28 +23,29 @@ constexpr int kThreads = 256;
 constexpr int kCand = 9;  // (2r + 1)^2 at r = 1: the K8 refine, block_sads
 constexpr unsigned kFull = 0xffffffffu;
 
-// The word counts of a window row of B x B blocks at radius R.
-template <int B, int R>
+// The word counts of a window row of BW-column blocks at radius R, and the
+// window rows a lane of a BH-row block holds.
+template <int BW, int R, int BH = BW>
 struct Window {
-  static constexpr int kExtra = (2 * R + 3) / 4;  // words past the B / 4 of a block
-  static constexpr int kWords = B / 4 + kExtra;   // a row from its first byte
-  static constexpr int kFetch = B / 2 + kExtra;   // a row from an aligned base
-  // window rows a lane holds at R >= 2 (rows i, i + B, ...)
-  static constexpr int kSlots = 1 + (2 * R + B - 1) / B;
+  static constexpr int kExtra = (2 * R + 3) / 4;  // words past the BW / 4 of a block
+  static constexpr int kWords = BW / 4 + kExtra;  // a row from its first byte
+  static constexpr int kFetch = BW / 2 + kExtra;  // a row from an aligned base
+  // window rows a lane holds at R >= 2 (rows i, i + BH, ...)
+  static constexpr int kSlots = 1 + (2 * R + BH - 1) / BH;
   static constexpr int kCand = (2 * R + 1) * (2 * R + 1);
   static constexpr int kPacked = (kCand + 1) / 2;  // two 16-bit sums a word
 };
 
-// al: the kWords words of a row from byte s on (0 <= s < B), given w, the
+// al: the kWords words of a row from byte s on (0 <= s < BW), given w, the
 // kFetch words of the row from an aligned base. v[j] = w[s / 4 + j] by
 // selects (register arrays take no runtime index), then a funnel shift by
 // s % 4 bytes.
-template <int B, int R = 1>
-__device__ __forceinline__ void align_window_row(const uint32_t (&w)[Window<B, R>::kFetch],
+template <int BW, int R = 1>
+__device__ __forceinline__ void align_window_row(const uint32_t (&w)[Window<BW, R>::kFetch],
                                                  int s,
-                                                 uint32_t (&al)[Window<B, R>::kWords]) {
-  constexpr int kW = B / 4;
-  constexpr int kWords = Window<B, R>::kWords;
+                                                 uint32_t (&al)[Window<BW, R>::kWords]) {
+  constexpr int kW = BW / 4;
+  constexpr int kWords = Window<BW, R>::kWords;
   const int q = s >> 2;
   uint32_t v[kWords + 1];
 #pragma unroll
@@ -59,14 +61,14 @@ __device__ __forceinline__ void align_window_row(const uint32_t (&w)[Window<B, R
 
 // Adds one window row's share of the three candidates ox = 0, 1, 2 to
 // acc[0..2]; al holds the row from its first byte on.
-template <int B>
-__device__ __forceinline__ void sad_row(const uint32_t (&al)[B / 4 + 1],
-                                        const uint32_t (&a)[B / 4],
+template <int BW>
+__device__ __forceinline__ void sad_row(const uint32_t (&al)[BW / 4 + 1],
+                                        const uint32_t (&a)[BW / 4],
                                         uint32_t* acc) {
 #pragma unroll
   for (int ox = 0; ox < 3; ++ox) {
 #pragma unroll
-    for (int j = 0; j < B / 4; ++j) {
+    for (int j = 0; j < BW / 4; ++j) {
       const uint32_t c = ox == 0 ? al[j] : __funnelshift_r(al[j], al[j + 1], 8 * ox);
       acc[ox] = __vsadu4(c, a[j]) + acc[ox];
     }
@@ -74,43 +76,43 @@ __device__ __forceinline__ void sad_row(const uint32_t (&al)[B / 4 + 1],
 }
 
 // The 9 SADs of each MV block of the CTA into s_out[c][blk]. r0: lane i's
-// window row at oy = 0 (window row i); ext: window row i + 2 on lanes B - 2
-// and B - 1 (unused elsewhere). The block's lanes share the window's first
+// window row at oy = 0 (window row i); ext: window row i + 2 on lanes BH - 2
+// and BH - 1 (unused elsewhere). The block's lanes share the window's first
 // column, so their rows are aligned alike: the rows of oy = 1, 2 come from
-// the next lanes by shuffles, and the sums reduce over the block's B lanes
-// by log2(B) xor shuffles. Every lane of the warp calls it (full-mask
+// the next lanes by shuffles, and the sums reduce over the block's BH lanes
+// by log2(BH) xor shuffles. Every lane of the warp calls it (full-mask
 // shuffles).
-template <int B>
-__device__ __forceinline__ void block_sads(const uint32_t (&r0)[B / 4 + 1],
-                                           const uint32_t (&ext)[B / 4 + 1],
-                                           const uint32_t (&a)[B / 4], unsigned i,
+template <int BW, int BH = BW>
+__device__ __forceinline__ void block_sads(const uint32_t (&r0)[BW / 4 + 1],
+                                           const uint32_t (&ext)[BW / 4 + 1],
+                                           const uint32_t (&a)[BW / 4], unsigned i,
                                            unsigned blk,
-                                           int32_t (*s_out)[kThreads / B]) {
-  constexpr int kWords = B / 4 + 1;
+                                           int32_t (*s_out)[kThreads / BH]) {
+  constexpr int kWords = BW / 4 + 1;
   uint32_t r1[kWords], r2[kWords];
 #pragma unroll
   for (int k = 0; k < kWords; ++k) {
-    const uint32_t down1 = __shfl_down_sync(kFull, r0[k], 1, B);
-    const uint32_t down2 = __shfl_down_sync(kFull, r0[k], 2, B);
-    const uint32_t up1 = __shfl_up_sync(kFull, ext[k], 1, B);
-    r1[k] = i == B - 1 ? up1 : down1;
-    r2[k] = i >= B - 2 ? ext[k] : down2;
+    const uint32_t down1 = __shfl_down_sync(kFull, r0[k], 1, BH);
+    const uint32_t down2 = __shfl_down_sync(kFull, r0[k], 2, BH);
+    const uint32_t up1 = __shfl_up_sync(kFull, ext[k], 1, BH);
+    r1[k] = i == BH - 1 ? up1 : down1;
+    r2[k] = i >= BH - 2 ? ext[k] : down2;
   }
 
   uint32_t acc[kCand];
 #pragma unroll
   for (int c = 0; c < kCand; ++c) acc[c] = 0;
-  sad_row<B>(r0, a, acc);
-  sad_row<B>(r1, a, acc + 3);
-  sad_row<B>(r2, a, acc + 6);
+  sad_row<BW>(r0, a, acc);
+  sad_row<BW>(r1, a, acc + 3);
+  sad_row<BW>(r2, a, acc + 6);
 
 #pragma unroll
   for (int c = 0; c < kCand; ++c) {
 #pragma unroll
-    for (int off = B / 2; off > 0; off >>= 1) {
-      acc[c] += __shfl_xor_sync(kFull, acc[c], off, B);
+    for (int off = BH / 2; off > 0; off >>= 1) {
+      acc[c] += __shfl_xor_sync(kFull, acc[c], off, BH);
     }
-    if (i == static_cast<unsigned>(c % B)) s_out[c][blk] = static_cast<int32_t>(acc[c]);
+    if (i == static_cast<unsigned>(c % BH)) s_out[c][blk] = static_cast<int32_t>(acc[c]);
   }
 }
 
@@ -166,27 +168,27 @@ __device__ __forceinline__ int reduced_index(int k, unsigned i) {
 }
 
 // The (2R + 1)^2 SADs at R >= 2 of each MV block of the CTA into
-// s_out[c][blk]. rows[k]: window row i + k B on lane i (rows past the
+// s_out[c][blk]. rows[k]: window row i + k BH on lane i (rows past the
 // window unused). Lane i takes window row i + oy of candidate row oy from
-// lane (i + oy) mod B, slot (i + oy) / B; each lane sends the slot its
+// lane (i + oy) mod BH, slot (i + oy) / BH; each lane sends the slot its
 // taker wants, so a row costs one shuffle a word (none where oy is a
-// multiple of B: the lane's own slot). A candidate is B / 4 __vsadu4 over
-// the lane's anchor row; the lane's sums (at most 255 B, a block's at most
-// 255 B^2 < 2^16) go two to a word in raster order, and the words reduce
-// over the block's B lanes by reduce_transposed. Every lane of the warp
-// calls it (full-mask shuffles).
-template <int B, int R>
+// multiple of BH: the lane's own slot). A candidate is BW / 4 __vsadu4 over
+// the lane's anchor row; the lane's sums (at most 255 BW, a block's at most
+// 255 BW BH <= 255 x 256 < 2^16) go two to a word in raster order, and the
+// words reduce over the block's BH lanes by reduce_transposed. Every lane
+// of the warp calls it (full-mask shuffles).
+template <int BW, int BH, int R>
 __device__ __forceinline__ void block_sads_wide(
-    uint32_t (&rows)[Window<B, R>::kSlots][Window<B, R>::kWords],
-    const uint32_t (&a)[B / 4], unsigned i, unsigned blk,
-    int32_t (*s_out)[kThreads / B]) {
-  using W = Window<B, R>;
+    uint32_t (&rows)[Window<BW, R, BH>::kSlots][Window<BW, R, BH>::kWords],
+    const uint32_t (&a)[BW / 4], unsigned i, unsigned blk,
+    int32_t (*s_out)[kThreads / BH]) {
+  using W = Window<BW, R, BH>;
   constexpr int kSide = 2 * R + 1;
   uint32_t packed[W::kPacked];
 #pragma unroll
   for (int oy = 0; oy < kSide; ++oy) {
-    const int q = oy / B;
-    const int rho = oy % B;
+    const int q = oy / BH;
+    const int rho = oy % BH;
     uint32_t row[W::kWords];
 #pragma unroll
     for (int k = 0; k < W::kWords; ++k) {
@@ -194,7 +196,7 @@ __device__ __forceinline__ void block_sads_wide(
         row[k] = rows[q][k];
       } else {
         const uint32_t send = static_cast<int>(i) < rho ? rows[q + 1][k] : rows[q][k];
-        row[k] = __shfl_sync(kFull, send, static_cast<int>(i) + rho, B);
+        row[k] = __shfl_sync(kFull, send, static_cast<int>(i) + rho, BH);
       }
     }
 #pragma unroll
@@ -203,7 +205,7 @@ __device__ __forceinline__ void block_sads_wide(
       const int d = ox % 4;
       uint32_t sum = 0;
 #pragma unroll
-      for (int j = 0; j < B / 4; ++j) {
+      for (int j = 0; j < BW / 4; ++j) {
         uint32_t c;
         if (d == 0) {
           c = row[j + wo];
@@ -220,11 +222,11 @@ __device__ __forceinline__ void block_sads_wide(
       }
     }
   }
-  reduce_transposed<W::kPacked, B / 2, B>(packed, i);
-  constexpr int kHeld = reduced_count<W::kPacked, B / 2>();
+  reduce_transposed<W::kPacked, BH / 2, BH>(packed, i);
+  constexpr int kHeld = reduced_count<W::kPacked, BH / 2>();
 #pragma unroll
   for (int k = 0; k < kHeld; ++k) {
-    const int p = reduced_index<W::kPacked, B / 2>(k, i);
+    const int p = reduced_index<W::kPacked, BH / 2>(k, i);
     if (p >= 0) {
       s_out[2 * p][blk] = static_cast<int32_t>(packed[k] & 0xffffu);
       if (2 * p + 1 < W::kCand) {
@@ -234,14 +236,15 @@ __device__ __forceinline__ void block_sads_wide(
   }
 }
 
-// The CTA's SADs (s_out, after a barrier; kBlocks MV blocks) to out
-// (t_count, (2R + 1)^2, mfh, mfw) of Out (int32 for K3 / K7 / K8, float32
-// for K9): runs of consecutive block columns of each candidate plane.
-template <int B, int R = 1, int kBlocks = kThreads / B, class Out>
+// The CTA's SADs (s_out, after a barrier; kBlocks MV blocks, kThreads / BH
+// unless given) to out (t_count, (2R + 1)^2, mfh, mfw) of Out (int32 for K3
+// / K7 / K8, float32 for K9): runs of consecutive block columns of each
+// candidate plane.
+template <int BH, int R = 1, int kBlocks = kThreads / BH, class Out>
 __device__ __forceinline__ void store_sads(int32_t (*s_out)[kBlocks],
                                            Out* __restrict__ out, int t, int by,
                                            int mfh, int mfw) {
-  constexpr int kC = Window<B, R>::kCand;
+  constexpr int kC = Window<BH, R>::kCand;
   const size_t plane_out = static_cast<size_t>(mfh) * mfw;
   const int bx0 = blockIdx.x * kBlocks;
   Out* o = out + (static_cast<size_t>(t) * kC * mfh + by) * mfw + bx0;

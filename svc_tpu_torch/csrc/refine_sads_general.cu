@@ -3,8 +3,8 @@
 //
 // Replaces svc_tpu/ops/motion_pallas.py refine_mads_stack_pallas (:887,
 // pallas_call in _refine_stack_call :1093) for the shapes the specialised
-// kernels (refine_sads.cu: square 4/8/16 blocks; candidate_sads.cu: 2x2;
-// r = 1 to 4) do not take.
+// kernels (refine_sads.cu: square 4/8/16 blocks and 8x4, 4x8, 16x8, 8x16;
+// candidate_sads.cu: 2x2, 4x2, 2x4; r = 1 to 4) do not take.
 // Frame t is tracked against anchor t+1 (the reference's pyramid swap) of
 // one (T+1, fh, fw) stack. The arithmetic, bound and design are
 // window_sads.cuh's: one warp per MV block, window and anchor block staged

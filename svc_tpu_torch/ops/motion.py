@@ -17,15 +17,16 @@ the plain version; a CUDA tensor launches the kernel or raises):
 
 * K3 :func:`refine_sads` — candidate SADs of one refinement level for a
   frame stack (``hbma_stack``): ``csrc/refine_sads.cu`` for square 4/8/16
-  blocks and K9's 2x2 kernel (``csrc/candidate_sads.cu``) for 2x2 blocks,
+  blocks and the rectangles 8x4, 4x8, 16x8, 8x16 (width x height), K9's
+  thread-a-block kernel (``csrc/candidate_sads.cu``) for 2x2, 4x2 and 2x4,
   at ``1 <= r <= 4`` (the encoder's levels at 16x16 MV blocks, 4 levels and
   search ranges 8 to 39, ``r = 1`` the default; at 8x8 MV blocks or 2, 3
-  or 5 levels), the general kernel ``csrc/refine_sads_general.cu``
-  otherwise;
+  or 5 levels; at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels), the
+  general kernel ``csrc/refine_sads_general.cu`` otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
   ``hbma``): K3's specialised kernels with the tracked and anchor planes as
-  two bases (``csrc/refine_mads.cu``) for square 2/4/8/16 blocks at
-  ``1 <= r <= 4`` (the per-frame search's levels), the general kernel
+  two bases (``csrc/refine_mads.cu``) for K3's shapes at ``1 <= r <= 4``
+  (the per-frame search's levels), the general kernel
   ``csrc/refine_mads_general.cu`` otherwise;
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
   (``hbma_stack(..., base_pitched=...)``): ``csrc/refine_sads_pitched.cu``
@@ -34,23 +35,27 @@ the plain version; a CUDA tensor launches the kernel or raises):
   ``csrc/refine_sads_pitched_general.cu`` otherwise;
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
   ``T`` separate plane pairs (``ebma``): ``csrc/candidate_sads.cu`` for
-  square 1x1, 2x2, 4x4 and 8x8 blocks at ``1 <= r <= 4`` (the encoder's
-  top level: 2x2 at 16x16 MV blocks, 4 levels and ranges 8 to 39; 1x1 at
-  8x8 MV blocks or 5 levels, 4x4 at 3 levels, 8x8 at 2), the general
-  kernel ``csrc/candidate_sads_general.cu`` otherwise.
+  square 1x1, 2x2, 4x4 and 8x8 blocks and the rectangles 2x1, 1x2, 4x2,
+  2x4, 8x4, 4x8 at ``1 <= r <= 4`` (the encoder's top level: 2x2 at 16x16
+  MV blocks, 4 levels and ranges 8 to 39; 1x1 at 8x8 MV blocks or 5
+  levels, 4x4 at 3 levels, 8x8 at 2; 2x1, 4x2, 8x4 at 16x8 MV blocks and
+  4, 3, 2 levels, 1x2, 2x4, 4x8 at 8x16), the general kernel
+  ``csrc/candidate_sads_general.cu`` otherwise.
 
 The specialised K3, K7 and K9 kernels are templates over the block and
 the radius, an instance for each; their launch counts are kept per
 instance too (``refine_sads<16, 2>``, ``refine_mads<8, 3>``,
-``candidate_sads<2, 4>``).
+``candidate_sads<2, 4>``; width x height where the block is not square:
+``refine_sads<16x8, 1>``).
 
 K3's, K7's, K8's and K9's general kernels are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
 type. The specialised kernels are three: a lane per anchor row
-(``csrc/refine_sads.cu``: K3 and K7 at 4/8/16, K9 at 4/8 with float32
-output), which shares its SAD arithmetic with the specialised K8
-(``csrc/refine_rows.cuh``); a thread per 2x2 block (K9, and K3 and K7 at
-2x2 with int32 output); a thread per pixel (K9 at 1x1). Every SAD kernel
+(``csrc/refine_sads.cu``: K3 and K7 where both sides are 4 or more, K9 at
+4x4, 8x8, 8x4 and 4x8 with float32 output), which shares its SAD
+arithmetic with the specialised K8 (``csrc/refine_rows.cuh``); a thread
+per block (K9 at 2x2, 2x1, 1x2, 4x2 and 2x4, and K3 and K7 at 2x2, 4x2
+and 2x4 with int32 output); a thread per pixel (K9 at 1x1). Every SAD kernel
 sums exact integers: bit-equal to its plain version on every entry.
 Tracked pixels outside the frame read as zero; candidates whose window
 leaves the frame are masked by the callers.
@@ -72,22 +77,37 @@ from svc_tpu_torch.kernels.build import INT, PTR, Kernel, stream_handle
 from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
-_K3_BLOCKS = (2, 4, 8, 16)  # square MV blocks of K3's / K7's specialised kernels
-_K9_BLOCKS = (1, 2, 4, 8)  # square MV blocks of K9's specialised kernels
+# (width, height) of the MV blocks of K3's / K7's specialised kernels: the
+# square ones and the ratio-2 rectangles of 16x8 and 8x16 MV blocks' levels
+_K3_BLOCKS = frozenset({(2, 2), (4, 4), (8, 8), (16, 16), (4, 2), (8, 4), (16, 8),
+                        (2, 4), (4, 8), (8, 16)})
 _SAD_RADII = (1, 2, 3, 4)  # search radii of the specialised K3, K7 and K9
-# the byte alignment of K9's (tracked, anchor) stacks at each block: whole
-# words of tracked rows at 1x1 and 2x2 (and 16-bit anchor pairs at 2x2),
-# 16-byte chunks of both at 4x4 and 8x8 (K3's kernel)
-_K9_ALIGN = {1: (4, 1), 2: (4, 2), 4: (16, 16), 8: (16, 16)}
+# (width, height) of the MV blocks of K9's specialised kernels, and the
+# byte alignment of its (tracked, anchor) stacks at each: whole words of
+# tracked rows on the thread-a-pixel and thread-a-block kernels (1x1 and
+# the blocks with a side of 1 or 2) and their anchor rows' bytes (one load
+# a row), 16-byte chunks of both on K3's kernel
+_K9_ALIGN = {(1, 1): (4, 1), (2, 2): (4, 2), (2, 1): (4, 2), (1, 2): (4, 1),
+             (4, 2): (4, 4), (2, 4): (4, 2), (4, 4): (16, 16), (8, 8): (16, 16),
+             (8, 4): (16, 16), (4, 8): (16, 16)}
+_K9_BLOCKS = frozenset(_K9_ALIGN)
 _K8_TBW, _K8_BLOCK = 8, 16  # subplanes and square MV block of K8's specialised refine
+
+
+def _instance(block_w: int, block_h: int, r: int) -> str:
+    """A SAD instance's launch-count suffix: ``<16, 2>`` for square
+    blocks, ``<16x8, 1>`` (width x height) for the others."""
+    block = block_w if block_w == block_h else f"{block_w}x{block_h}"
+    return f"<{block}, {r}>"
+
 
 REFINE_SADS = Kernel(
     "refine_sads",
     "svc_refine_sads",
-    [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_sads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:887",
-    instance=lambda a: f"<{a[6]}, {a[7]}>",  # <block, r>
+    instance=lambda a: _instance(a[6], a[7], a[8]),
 )
 REFINE_SADS_GENERAL = Kernel(
     "refine_sads_general",
@@ -102,7 +122,7 @@ REFINE_MADS = Kernel(
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/refine_mads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:541",
-    instance=lambda a: f"<{a[6]}, {a[8]}>",  # <block, r>
+    instance=lambda a: _instance(a[6], a[7], a[8]),
 )
 REFINE_MADS_GENERAL = Kernel(
     "refine_mads_general",
@@ -114,10 +134,10 @@ REFINE_MADS_GENERAL = Kernel(
 CANDIDATE_SADS = Kernel(
     "candidate_sads",
     "svc_candidate_sads",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
     source="svc_tpu_torch/csrc/candidate_sads.cu",
     replaces="svc_tpu/ops/motion_pallas.py:121",
-    instance=lambda a: f"<{a[7]}, {a[8]}>",  # <block, r>
+    instance=lambda a: _instance(a[7], a[8], a[9]),
 )
 CANDIDATE_SADS_GENERAL = Kernel(
     "candidate_sads_general",
@@ -231,9 +251,10 @@ def refine_sads_plain(
 
 
 def _refine_specialised(block_w: int, block_h: int, r: int, stack) -> bool:
-    """K3's specialised kernels take square 2/4/8/16 blocks at 1 <= r <= 4
-    on a 16-byte aligned stack; every other case runs the general kernel."""
-    return (block_w == block_h and block_w in _K3_BLOCKS and r in _SAD_RADII
+    """K3's specialised kernels take the blocks of ``_K3_BLOCKS`` at 1 <= r
+    <= 4 on a 16-byte aligned stack; every other case runs the general
+    kernel."""
+    return ((block_w, block_h) in _K3_BLOCKS and r in _SAD_RADII
             and stack.data_ptr() % 16 == 0)
 
 
@@ -247,8 +268,8 @@ def refine_sads(
     general: bool = False,
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level (kernel K3: the specialised
-    kernels for square 2/4/8/16 blocks at ``1 <= r <= 4``, the general one
-    otherwise).
+    kernels for the blocks of ``_K3_BLOCKS`` at ``1 <= r <= 4``, the general
+    one otherwise).
 
     Args:
       stack: ``(T+1, fh, fw)`` uint8 luma planes of one pyramid level;
@@ -280,7 +301,7 @@ def refine_sads(
         if _refine_specialised(block_w, block_h, r, s) and not general:
             REFINE_SADS.launch(
                 s.data_ptr(), m.data_ptr(), out.data_ptr(),
-                tp1 - 1, fh, fw, block_w, r, stream_handle(s),
+                tp1 - 1, fh, fw, block_w, block_h, r, stream_handle(s),
             )
         else:
             REFINE_SADS_GENERAL.launch(
@@ -322,8 +343,8 @@ def refine_mads(
     general: bool = False,
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level for one frame pair (kernel
-    K7: K3's specialised kernels for square 2/4/8/16 blocks at ``1 <= r <=
-    4``, the general one otherwise).
+    K7: K3's specialised kernels for the blocks of ``_K3_BLOCKS`` at ``1 <=
+    r <= 4``, the general one otherwise).
 
     Args:
       tracked / anchor: ``(fh, fw)`` uint8 luma planes.
@@ -375,13 +396,13 @@ def candidate_sads_plain(
 
 def _candidate_specialised(block_w: int, block_h: int, r: int, tracked,
                            anchor) -> bool:
-    """K9's specialised kernels take square 1/2/4/8 blocks at 1 <= r <= 4
-    on stacks aligned as ``_K9_ALIGN`` says (at 1x1 also planes of a whole
-    number of words); every other case runs the general kernel."""
-    if block_w != block_h or block_w not in _K9_BLOCKS or r not in _SAD_RADII:
+    """K9's specialised kernels take the blocks of ``_K9_BLOCKS`` at 1 <= r
+    <= 4 on stacks aligned as ``_K9_ALIGN`` says, planes of a whole number
+    of words; every other case runs the general kernel."""
+    if (block_w, block_h) not in _K9_BLOCKS or r not in _SAD_RADII:
         return False
-    t_align, a_align = _K9_ALIGN[block_w]
-    words = block_w > 1 or tracked.shape[-2] * tracked.shape[-1] % 4 == 0
+    t_align, a_align = _K9_ALIGN[block_w, block_h]
+    words = tracked.shape[-2] * tracked.shape[-1] % 4 == 0
     return (words and tracked.data_ptr() % t_align == 0
             and anchor.data_ptr() % a_align == 0)
 
@@ -399,8 +420,8 @@ def candidate_sads(
 ) -> torch.Tensor:
     """Per-block SADs of every ``(2r+1)**2`` candidate around each block's
     MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``): the
-    specialised kernels for square 1x1, 2x2, 4x4 and 8x8 blocks at ``1 <= r
-    <= 4``, the general one otherwise.
+    specialised kernels for the blocks of ``_K9_BLOCKS`` at ``1 <= r <= 4``,
+    the general one otherwise.
 
     Args:
       tracked / anchor: ``(T, H, W)`` uint8 luma planes.
@@ -437,7 +458,7 @@ def candidate_sads(
         if _candidate_specialised(block_w, block_h, r, tr, an) and not general:
             CANDIDATE_SADS.launch(
                 tr.data_ptr(), an.data_ptr(), m.data_ptr(), out.data_ptr(),
-                t, fh, fw, block_w, r, stream_handle(tr),
+                t, fh, fw, block_w, block_h, r, stream_handle(tr),
             )
         else:
             CANDIDATE_SADS_GENERAL.launch(

@@ -64,11 +64,13 @@ of 1088 padded rows to 1080, steps 1 and 640 at random); the wire target
 the resize target ``idct_resize_display`` at the blocks of K6's
 templated kernel (8 frames of 1376x768 to 1366x768 and of 864x480 to
 854x480); the motion target ``refine_sads`` at levels 2, 1, 0 of that
-stack (blocks 4, 8, 16, and 2 on level 2; even MVs within the level's
-reach), ``refine_mads`` on frames 0 and 1 of each level and
-``candidate_sads`` at the level each block is the top of (2x2 and 1x1 on
-the 136x240 one, 4x4 on 272x480, 8x8 on 544x960; zero MVs, T = 8) at each
-radius (the blocks and radii both wrapper modules specialise), and ``refine_sads_pitched`` at level 0 (8 subplanes, r = 1). The
+stack (blocks whose longer side is 4, 8, 16, and 2x2 on level 2; even MVs
+within the level's reach), ``refine_mads`` on frames 0 and 1 of each
+level and ``candidate_sads`` at the level each block is the top of (1x1,
+2x2, 2x1 and 1x2 on the 136x240 one, 4x4, 4x2 and 2x4 on 272x480, 8x8, 8x4
+and 4x8 on 544x960; zero MVs, T = 8) at each radius (the blocks and radii
+both wrapper modules specialise), and ``refine_sads_pitched`` at level 0
+(8 subplanes, r = 1). The
 two libraries' outputs must be equal bit for bit (K10's also to its plain
 version).
 Nothing of the checkout's sources changes.
@@ -293,40 +295,48 @@ def motion_work(mods):
     motion target: the specialised K3 and K7 at each block of every
     module's ``_K3_BLOCKS`` (4, 8, 16 without it) and each radius of every
     ``_SAD_RADII`` (r = 1 without it), K9 at each block of every
-    ``_K9_BLOCKS`` (2 without it) and the same radii, and the K8 refine."""
+    ``_K9_BLOCKS`` (2 without it) and the same radii, and the K8 refine.
+    A block is (width, height); a module whose sets hold sides names
+    square blocks."""
     g = torch.Generator().manual_seed(0)
     y = torch.randint(0, 256, (9, 1088, 1920), generator=g,
                       dtype=torch.uint8).cuda()
     chain = pyramid.build_pyramid(y, 4)
-    def common(name, default):
-        return sorted(set.intersection(*(set(getattr(m, name, default)) for m in mods)))
 
-    radii = common("_SAD_RADII", (1,))
+    def common(name, default):
+        sets = [{(b, b) if isinstance(b, int) else b for b in getattr(m, name, default)}
+                for m in mods]
+        return sorted(set.intersection(*sets))
+
+    radii = sorted(set.intersection(*(set(getattr(m, "_SAD_RADII", (1,))) for m in mods)))
     work = {}
     for r in radii:
-        # K3 / K7 on levels 2, 1, 0 (blocks 4, 8, 16; 2 on level 2 where
-        # both modules specialise it: 8x8 MV blocks)
-        for b in common("_K3_BLOCKS", (4, 8, 16)):
-            lvl = {2: 2, 4: 2, 8: 1, 16: 0}[b]
-            shape = (8, (1088 >> lvl) // b, (1920 >> lvl) // b, 2)
+        # K3 / K7 on levels 2, 1, 0 (longer sides 4, 8, 16; 2x2 on level 2
+        # where both modules specialise it: 8x8 MV blocks)
+        for bw, bh in common("_K3_BLOCKS", (4, 8, 16)):
+            lvl = {2: 2, 4: 2, 8: 1, 16: 0}[max(bw, bh)]
+            shape = (8, (1088 >> lvl) // bh, (1920 >> lvl) // bw, 2)
             reach = (2 * r) << (2 - lvl)
             mv = (2 * torch.randint(-reach // 2, reach // 2 + 1, shape,
                                     generator=g, dtype=torch.int32)).cuda()
-            work[f"K3 refine_sads<{b}, {r}> level {lvl}"] = (
-                lambda m, s=chain[lvl], mv=mv, b=b, r=r: m.refine_sads(s, mv, r, b, b))
-            work[f"K7 refine_mads<{b}, {r}> level {lvl} (one pair)"] = (
-                lambda m, s=chain[lvl], mv=mv[0], b=b, r=r:
-                m.refine_mads(s[0], s[1], mv, r, b, b))
-        # K9 at the top level each block size is the top of (1x1 and 2x2
-        # on level 3, 4x4 on 2, 8x8 on 1), zero MVs
-        for b in common("_K9_BLOCKS", (2,)):
-            lvl = {1: 3, 2: 3, 4: 2, 8: 1}[b]
+            label = f"<{bw}, {r}>" if bw == bh else f"<{bw}x{bh}, {r}>"
+            work[f"K3 refine_sads{label} level {lvl}"] = (
+                lambda m, s=chain[lvl], mv=mv, bw=bw, bh=bh, r=r:
+                m.refine_sads(s, mv, r, bw, bh))
+            work[f"K7 refine_mads{label} level {lvl} (one pair)"] = (
+                lambda m, s=chain[lvl], mv=mv[0], bw=bw, bh=bh, r=r:
+                m.refine_mads(s[0], s[1], mv, r, bw, bh))
+        # K9 at the top level each block is the top of (1x1, 2x2, 2x1, 1x2
+        # on level 3, 4x4, 4x2, 2x4 on 2, 8x8, 8x4, 4x8 on 1), zero MVs
+        for bw, bh in common("_K9_BLOCKS", (2,)):
+            lvl = {1: 3, 2: 3, 4: 2, 8: 1}[max(bw, bh)]
             top = chain[lvl]
-            zero = torch.zeros((8, top.shape[1] // b, top.shape[2] // b, 2),
+            zero = torch.zeros((8, top.shape[1] // bh, top.shape[2] // bw, 2),
                                dtype=torch.int32).cuda()
-            work[f"K9 candidate_sads<{b}, {r}> 8x{top.shape[1]}x{top.shape[2]}"] = (
-                lambda m, tr=top[:-1], an=top[1:], z=zero, b=b, r=r:
-                m.candidate_sads(tr, an, z, r, b, b))
+            label = f"<{bw}, {r}>" if bw == bh else f"<{bw}x{bh}, {r}>"
+            work[f"K9 candidate_sads{label} 8x{top.shape[1]}x{top.shape[2]}"] = (
+                lambda m, tr=top[:-1], an=top[1:], z=zero, bw=bw, bh=bh, r=r:
+                m.candidate_sads(tr, an, z, r, bw, bh))
     y8 = pyramid.to_pitched(y, 8)
     mv0 = (2 * torch.randint(-7, 8, (8, 68, 120, 2), generator=g,
                              dtype=torch.int32)).cuda()

@@ -179,7 +179,7 @@ def test_candidate_sads_bit_equal(gen, mv_pad, t, h, w, bw, bh, r):
     tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
     mv = torch.randint(-mv_pad, mv_pad + 1, (t, h // bh, w // bw, 2),
                        generator=gen, dtype=torch.int32).cuda()
-    kernel = (motion.CANDIDATE_SADS if bw == bh and bw in (1, 2, 4, 8) and r <= 4
+    kernel = (motion.CANDIDATE_SADS if (bw, bh) in motion._K9_BLOCKS and r <= 4
               else motion.CANDIDATE_SADS_GENERAL)
     before = kernel.launches
     got = motion.candidate_sads(tr, an, mv, r, bw, bh, mv_pad)
@@ -260,6 +260,83 @@ def test_candidate_sads_blocks_equal_general(gen, block, t, h, w, mv_kind, r):
     assert got.dtype == torch.float32
     assert torch.equal(got, gen_out)
     assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, block, block))
+
+
+# the ratio-2 rectangles (width x height) of 16x8 and 8x16 MV blocks'
+# top levels: (block, t, h, w, MVs); 135 block rows at 2x1 (the 1080-row
+# frame of 16x8 MV blocks at 4 levels), fw % 4 == 2 and odd widths
+RECT_K9_CASES = [
+    ((2, 1), 8, 135, 240, "zero"), ((2, 1), 2, 10, 22, "edge"), ((2, 1), 1, 9, 20, "far"),
+    ((1, 2), 8, 136, 240, "zero"), ((1, 2), 2, 12, 21, "edge"), ((1, 2), 1, 4, 9 * 4, "far"),
+    ((4, 2), 8, 270, 480, "zero"), ((4, 2), 2, 6, 44, "edge"),
+    ((2, 4), 8, 272, 480, "zero"), ((2, 4), 2, 12, 22, "edge"),
+    ((8, 4), 8, 540, 960, "zero"), ((8, 4), 2, 12, 40, "far"),
+    ((4, 8), 8, 544, 960, "zero"), ((4, 8), 2, 24, 20, "edge"),
+]
+
+
+def _rect_mvs(gen, kind, shape, bw, bh, r):
+    if kind == "zero":
+        return torch.zeros(shape, dtype=torch.int32).cuda()
+    if kind == "path":  # doubled propagated MVs, the refine's own inputs
+        return (2 * torch.randint(-2 * r, 2 * r + 1, shape, generator=gen,
+                                  dtype=torch.int32)).cuda()
+    if kind == "edge":  # odd MVs past every frame edge
+        reach = 2 * max(bw, bh) + r
+        return (2 * torch.randint(-reach, reach + 1, shape, generator=gen,
+                                  dtype=torch.int32) + 1).cuda()
+    return torch.randint(-400, 401, shape, generator=gen, dtype=torch.int32).cuda()
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block,t,h,w,mv_kind", RECT_K9_CASES)
+def test_candidate_sads_rect_blocks_equal_general(gen, block, t, h, w, mv_kind, r):
+    # K9's thread-a-block kernel at 2x1, 1x2, 4x2, 2x4 and K3's kernel at
+    # 8x4, 4x8 (float32 output) against the general kernel and the plain
+    # version on every entry
+    bw, bh = block
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    mv = _rect_mvs(gen, mv_kind, (t, h // bh, w // bw, 2), bw, bh, r)
+    name = f"candidate_sads<{bw}x{bh}, {r}>"
+    before = (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches)
+    inst = motion.CANDIDATE_SADS.instance_launches[name]
+    got = motion.candidate_sads(tr, an, mv, r, bw, bh)
+    gen_out = motion.candidate_sads(tr, an, mv, r, bw, bh, general=True)
+    assert (motion.CANDIDATE_SADS.launches, motion.CANDIDATE_SADS_GENERAL.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert motion.CANDIDATE_SADS.instance_launches[name] == inst + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gen_out)
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, bw, bh))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", [(4, 2), (8, 4), (16, 8), (2, 4), (4, 8), (8, 16)])
+@pytest.mark.parametrize("kind", ["path", "edge", "far", "large"])
+def test_refine_rect_blocks_equal_general(gen, block, kind, r):
+    # K3 and K7 at the ratio-2 rectangles of 16x8 and 8x16 MV blocks'
+    # refinement levels (4x2, 2x4 on K9's thread-a-block kernel, the others
+    # on K3's; "large": 1080p at 16x8, where the split kernel's grid fills
+    # the card at r >= 2) against the general kernels, the plain versions
+    # and K3 on the stacked pair, every candidate
+    bw, bh = block
+    t, h, w = (2, -(-1080 // bh) * bh, 1920) if kind == "large" else (2, 5 * bh, 41 * bw)
+    stack = _u8(gen, (t + 1, h, w))
+    mv = _rect_mvs(gen, "path" if kind == "large" else kind, (t, h // bh, w // bw, 2),
+                   bw, bh, r)
+    name = f"<{bw}x{bh}, {r}>"
+    inst = motion.REFINE_SADS.instance_launches["refine_sads" + name]
+    got = motion.refine_sads(stack, mv, r, bw, bh)
+    assert motion.REFINE_SADS.instance_launches["refine_sads" + name] == inst + 1
+    assert torch.equal(got, motion.refine_sads(stack, mv, r, bw, bh, general=True))
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, bw, bh))
+    # K7 on frames 0 and 1, each plane 16-byte aligned (K7's gate)
+    tr, an, mv0 = stack[0].clone(), stack[1].clone(), mv[0].contiguous()
+    inst = motion.REFINE_MADS.instance_launches["refine_mads" + name]
+    pair = motion.refine_mads(tr, an, mv0, r, bw, bh)
+    assert motion.REFINE_MADS.instance_launches["refine_mads" + name] == inst + 1
+    assert torch.equal(pair, got[0])
+    assert torch.equal(pair, motion.refine_mads(tr, an, mv0, r, bw, bh, general=True))
 
 
 def test_candidate_sads_1x1_odd_plane_takes_the_general_kernel(gen):

@@ -57,6 +57,16 @@ HBMA_CASES = [
     (128, 256, 4, 16, 16, 16),
     (64, 256, 3, 16, 8, 4),
     (64, 128, 3, 8, 8, 4),
+    # 16x8 and 8x16 MV blocks (width x height) at 4, 3 and 2 levels: the
+    # instances of K9 (2x1, 4x2, 8x4; 1x2, 2x4, 4x8) and K7 (4x2, 8x4,
+    # 16x8; 2x4, 4x8, 8x16); 72 rows give 9 block rows at every level of
+    # 16x8 (odd, as 1080 rows do)
+    (72, 128, 4, 16, 8, 8),
+    (72, 128, 3, 16, 8, 8),
+    (72, 128, 2, 16, 8, 8),
+    (64, 128, 4, 8, 16, 16),
+    (64, 128, 3, 8, 16, 8),
+    (64, 128, 2, 8, 16, 8),
 ]
 
 

@@ -19,6 +19,7 @@ import torch
 
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.ops import kmeans, motion, prng
+from svc_tpu_torch.ops.pad import padded_dims
 
 
 @pytest.fixture
@@ -45,6 +46,11 @@ def _meta_u8(*shape):
     return torch.zeros(shape, dtype=torch.uint8, device="meta")
 
 
+# the ratio-2 rectangles (width x height) of 16x8 and 8x16 MV blocks'
+# refinement levels: K3's / K7's instances
+_RECTS = [(4, 2), (8, 4), (16, 8), (2, 4), (4, 8), (8, 16)]
+
+
 # ---------------------------------------------------------------------------
 # K3
 # ---------------------------------------------------------------------------
@@ -53,16 +59,24 @@ def _meta_u8(*shape):
 @pytest.mark.parametrize(
     "bw,bh,r,general,kernel",
     [(4, 4, 1, False, "refine_sads"), (8, 8, 1, False, "refine_sads"),
-     (16, 16, 1, False, "refine_sads"), (16, 8, 1, False, "refine_sads_general"),
+     (16, 16, 1, False, "refine_sads"), (16, 8, 1, False, "refine_sads"),
      (16, 16, 2, False, "refine_sads"), (4, 4, 3, False, "refine_sads"),
      (8, 8, 4, False, "refine_sads"),
      *((2, 2, r, False, "refine_sads") for r in (1, 2, 3, 4)),
      (16, 16, 5, False, "refine_sads_general"),
      (16, 16, 8, False, "refine_sads_general"),
-     (2, 4, 1, False, "refine_sads_general"),
+     (2, 4, 1, False, "refine_sads"),
      (1, 1, 1, False, "refine_sads_general"),
      (16, 16, 1, True, "refine_sads_general"),
-     (2, 2, 1, True, "refine_sads_general")],
+     (2, 2, 1, True, "refine_sads_general"),
+     # the ratio-2 rectangles (width x height) of 16x8 and 8x16 MV blocks
+     *((bw, bh, r, False, "refine_sads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
+     (16, 8, 2, True, "refine_sads_general"),
+     (16, 8, 5, False, "refine_sads_general"),
+     # other ratios and sides stay general
+     (4, 16, 1, False, "refine_sads_general"), (16, 4, 1, False, "refine_sads_general"),
+     (6, 3, 1, False, "refine_sads_general"), (32, 16, 1, False, "refine_sads_general"),
+     (1, 2, 1, False, "refine_sads_general")],
 )
 def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     fh, fw = 4 * bh, 6 * bw
@@ -75,11 +89,9 @@ def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     assert name == kernel
     k = motion.REFINE_SADS if kernel == "refine_sads" else motion.REFINE_SADS_GENERAL
     assert len(args) == len(k.argtypes)
+    assert args[3:9] == (2, fh, fw, bw, bh, r)  # t_count, fh, fw, block, r
     if kernel == "refine_sads":
-        assert args[3:8] == (2, fh, fw, bw, r)  # t_count, fh, fw, block, r
-        assert motion.REFINE_SADS.instance(args) == f"<{bw}, {r}>"
-    else:
-        assert args[3:9] == (2, fh, fw, bw, bh, r)
+        assert motion.REFINE_SADS.instance(args) == motion._instance(bw, bh, r)
 
 
 @pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (23, 2), (24, 3),
@@ -94,9 +106,9 @@ def test_hbma_stack_default_levels_take_the_specialised_k3(meta_launches,
     assert tuple(mv.shape) == (8, 68, 120, 2) and tuple(mm.shape) == (8, 68, 120)
     names = [name for name, _ in meta_launches]
     assert names == ["candidate_sads"] + ["refine_sads"] * 3
-    assert meta_launches[0][1][7:9] == (2, r)  # K9's block and radius
-    blocks = [args[6:8] for name, args in meta_launches if name == "refine_sads"]
-    assert blocks == [(4, r), (8, r), (16, r)]
+    assert meta_launches[0][1][7:10] == (2, 2, r)  # K9's block and radius
+    blocks = [args[6:9] for name, args in meta_launches if name == "refine_sads"]
+    assert blocks == [(4, 4, r), (8, 8, r), (16, 16, r)]
 
 
 # ---------------------------------------------------------------------------
@@ -115,17 +127,22 @@ def _meta_plane_at(offset, fh, fw):
     [(4, 4, 1, False, 0, "refine_mads"), (8, 8, 1, False, 0, "refine_mads"),
      (16, 16, 1, False, 0, "refine_mads"),
      (16, 16, 1, False, 16, "refine_mads"),  # 16-byte aligned view
-     (4, 8, 1, False, 0, "refine_mads_general"),
+     (4, 8, 1, False, 0, "refine_mads"),
      (16, 16, 2, False, 0, "refine_mads"), (8, 8, 3, False, 16, "refine_mads"),
      (4, 4, 4, False, 0, "refine_mads"),
      *((2, 2, r, False, 0, "refine_mads") for r in (1, 2, 3, 4)),
      (2, 2, 1, False, 16, "refine_mads"),
      (2, 2, 1, False, 2, "refine_mads_general"),  # K3's 16-byte gate stays
-     (2, 4, 1, False, 0, "refine_mads_general"),
+     (2, 4, 1, False, 0, "refine_mads"),
      (16, 16, 5, False, 0, "refine_mads_general"),
      (16, 16, 8, False, 0, "refine_mads_general"),
      (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
-     (16, 16, 1, True, 0, "refine_mads_general")],
+     (16, 16, 1, True, 0, "refine_mads_general"),
+     *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
+     (16, 8, 1, False, 4, "refine_mads_general"),  # K3's 16-byte gate
+     (4, 2, 3, True, 0, "refine_mads_general"),
+     (16, 4, 1, False, 0, "refine_mads_general"),
+     (6, 3, 1, False, 0, "refine_mads_general")],
 )
 def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
                               kernel):
@@ -144,7 +161,7 @@ def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
     assert args[1] == anchor_offset  # the anchor plane itself, not a copy
     assert args[4:9] == (fh, fw, bw, bh, r)
     if kernel == "refine_mads":
-        assert motion.REFINE_MADS.instance(args) == f"<{bw}, {r}>"
+        assert motion.REFINE_MADS.instance(args) == motion._instance(bw, bh, r)
 
 
 @pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4)])
@@ -165,18 +182,27 @@ def test_hbma_default_levels_take_the_specialised_k7(meta_launches,
 
 def test_k3_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
-    # K3's / K7's blocks: 4, 8, 16 on this file's kernel, 2 on K9's 2x2 one
+    # K3's / K7's blocks (width, height): both sides 4 or more on this
+    # file's kernel, 2x2, 4x2 and 2x4 on K9's thread-a-block one
     entry = src[src.index("int launch_refine_sads("):]
-    blocks = {int(a) for a, b in re.findall(
-        r"case (\d+): return launch_refine_rows<(\d+), int32_t>\(", entry) if a == b}
-    two = entry[entry.index("case 2:"):]
-    assert two[:two.index("case 4:")].count("return launch_block2_sads<int32_t>(") == 1
-    assert blocks | {2} == set(motion._K3_BLOCKS)
-    # the instances built: int32 for K3 / K7, float32 for K9's 4x4 and 8x8
-    built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\w+)\)\n", src))
-    assert built == ({(str(b), "int32_t") for b in blocks}
-                     | {(str(b), "float") for b in motion._K9_BLOCKS if b >= 4})
-    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<B, (\d+)>", src)
+    rows = {(int(a), int(b)) for a, b, c, d in re.findall(
+        r"case shape_key\((\d+), (\d+)\): return launch_refine_rows<(\d+), (\d+), int32_t>\(",
+        entry) if (a, b) == (c, d)}
+    thin = {(int(a), int(b)) for a, b, c, d in re.findall(
+        r"case shape_key\((\d+), (\d+)\): return launch_block_sads<(\d+), (\d+), int32_t>\(",
+        entry) if (a, b) == (c, d)}
+    # its frames a plane apart (K3) or one frame (K7)
+    assert "if ((bw == 2 || bh == 2) && t_count > 1 &&" in entry
+    assert thin == {(2, 2), (4, 2), (2, 4)}
+    assert min(min(b) for b in rows) >= 4
+    assert rows | thin == set(motion._K3_BLOCKS)
+    # the instances built: int32 for K3 / K7, float32 for K9's shapes with
+    # both sides 4 or more
+    built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\d+), (\w+)\)\n", src))
+    assert built == ({(str(w), str(h), "int32_t") for w, h in rows}
+                     | {(str(w), str(h), "float") for w, h in motion._K9_BLOCKS
+                        if min(w, h) >= 4})
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>", src)
              if a == b}
     assert radii == set(motion._SAD_RADII)
     # the SAD arithmetic K3 shares with the K8 refine (r = 1 there) and
@@ -186,39 +212,56 @@ def test_k3_host_constants_match_the_kernel_source():
     assert "constexpr int kCand = 9;" in rows
     assert "constexpr int kThreads = 256;" in rows
     for line in ("static constexpr int kExtra = (2 * R + 3) / 4;",
-                 "static constexpr int kWords = B / 4 + kExtra;",
-                 "static constexpr int kFetch = B / 2 + kExtra;",
-                 "static constexpr int kSlots = 1 + (2 * R + B - 1) / B;",
+                 "static constexpr int kWords = BW / 4 + kExtra;",
+                 "static constexpr int kFetch = BW / 2 + kExtra;",
+                 "static constexpr int kSlots = 1 + (2 * R + BH - 1) / BH;",
                  "static constexpr int kPacked = (kCand + 1) / 2;"):
         assert line in rows, line
-    # the r = 1 instances keep the parent's shuffles; R >= 2 the transposed
-    # reduction over the block's lanes
-    assert "reduce_transposed<W::kPacked, B / 2, B>(packed, i);" in rows
-    assert "block_sads<B>(r0, ext, a, i, blk, s_out);" in src
-    assert "block_sads_wide<B, R>(rows, a, i, blk, s_out);" in src
-    # B = 16 at R >= 2: the split kernel the replay above follows
+    # the r = 1 instances keep the parent's shuffles (over BH lanes); R >= 2
+    # the transposed reduction over the block's lanes
+    assert "reduce_transposed<W::kPacked, BH / 2, BH>(packed, i);" in rows
+    assert "__shfl_xor_sync(kFull, acc[c], off, BH);" in rows
+    assert "block_sads<BW, BH>(r0, ext, a, i, blk, s_out);" in src
+    assert "constexpr bool kXorSums = R == 1 && (BH == 4 || (BW == 8 && BH == 8));" in src
+    assert "if constexpr (kXorSums<BW, BH, R>) {" in src
+    assert "block_sads_wide<BW, BH, R>(rows, a, i, blk, s_out);" in src
+    # 16-column blocks at R >= 2, 8x16 and 4x8: the split kernel the
+    # replay above follows
     assert f"constexpr int kSplitRows = {_SPLIT_ROWS};" in src
-    assert "if constexpr (B == 16 && R >= 2) {" in src
+    assert "constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8);" in src
+    assert "if constexpr (kSplit<BW, BH, R>) {" in src
+    assert "constexpr int kLanes = BH / kRows;" in src
     # where its grid holds two CTAs an SM; else the one-row-a-lane kernel
     assert "if (static_cast<long long>(grid.x) * grid.y * grid.z >= 2LL * sms) {" in src
     assert "reduce_transposed<W::kPacked, kLanes / 2, kLanes>(packed, l);" in src
 
 
-@pytest.mark.parametrize("config,blocks", [((8, 4, 8), (2, 4, 8)), ((16, 3, 8), (8, 16)),
-                                          ((16, 2, 8), (16,)), ((16, 5, 16), (2, 4, 8, 16))])
+@pytest.mark.parametrize("config,blocks", [
+    ((8, 4, 8), (2, 4, 8)), ((16, 3, 8), (8, 16)), ((16, 2, 8), (16,)),
+    ((16, 5, 16), (2, 4, 8, 16)),
+    # 16x8 and 8x16 MV blocks (width x height) at 4, 3 and 2 levels
+    (((16, 8), 4, 8), ("4x2", "8x4", "16x8")), (((16, 8), 3, 8), ("8x4", "16x8")),
+    (((16, 8), 2, 8), ("16x8",)), (((8, 16), 4, 16), ("2x4", "4x8", "8x16")),
+    (((8, 16), 3, 8), ("4x8", "8x16")), (((8, 16), 2, 8), ("8x16",))])
 def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
     # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
-    # levels: the top level on K9, then each level on its K7 instance
+    # levels, and at 16x8 and 8x16 MV blocks and 4, 3, 2 levels on the
+    # 1080p frame they pad to (1080 rows at 16x8: an odd count of block
+    # rows at every level): the top level on K9, then each level on its K7
+    # instance
     block, levels, search_range = config
+    bw, bh = (block, block) if isinstance(block, int) else block
     r = search_range >> (levels - 1)
-    pyr = [_meta_u8(2, 1088 >> lvl, 1920 >> lvl) for lvl in range(levels)]
+    fh = 1088 if bw == bh else padded_dims(1920, 1080, bw, bh, levels)[1]
+    pyr = [_meta_u8(2, fh >> lvl, 1920 >> lvl) for lvl in range(levels)]
     mv, mm = motion.hbma([p[0] for p in pyr], [p[1] for p in pyr], search_range,
-                         block, block)
-    assert tuple(mv.shape) == (1088 // block, 1920 // block, 2)
+                         bw, bh)
+    assert tuple(mv.shape) == (fh // bh, 1920 // bw, 2)
     assert [name for name, _ in meta_launches] == (
         ["candidate_sads"] + ["refine_mads"] * (levels - 1))
     top = meta_launches[0][1]
-    assert motion.CANDIDATE_SADS.instance(top) == f"<{block >> (levels - 1)}, {r}>"
+    assert motion.CANDIDATE_SADS.instance(top) == motion._instance(
+        bw >> (levels - 1), bh >> (levels - 1), r)
     assert [motion.REFINE_MADS.instance(args) for _, args in meta_launches[1:]] == [
         f"<{b}, {r}>" for b in blocks]
 
@@ -260,13 +303,14 @@ def _vsadu4(a, b):
 
 
 class _Win:
-    """``Window<B, R>``'s word counts."""
+    """``Window<BW, R, BH>``'s word counts (``bh`` defaults to ``bw``)."""
 
-    def __init__(self, b, r):
+    def __init__(self, bw, r, bh=None):
+        bh = bw if bh is None else bh
         self.extra = (2 * r + 3) // 4
-        self.words = b // 4 + self.extra
-        self.fetch = b // 2 + self.extra
-        self.slots = 1 + (2 * r + b - 1) // b
+        self.words = bw // 4 + self.extra
+        self.fetch = bw // 2 + self.extra
+        self.slots = 1 + (2 * r + bh - 1) // bh
         self.cand = (2 * r + 1) ** 2
         self.packed = (self.cand + 1) // 2
 
@@ -359,21 +403,24 @@ def _reduce_transposed(v, lanes):
     return v
 
 
-def _replay_k3(stack, mv, b, r, anchor=None):
+def _replay_k3(stack, mv, b, r, anchor=None, bh=None):
     """SADs of a ``(T+1, fh, fw)`` stack (or, with ``anchor``, of ``T``
     pairs ``stack[t]``, ``anchor[t]``: K9's two stacks) as
-    ``refine_sads_kernel<B, R>`` computes them: per block, lane i's anchor
-    row and its window rows (i and, on lanes B-2 and B-1, i + 2 at R = 1;
-    i, i + B, ... at R >= 2), rows taken from other lanes as the shuffles
-    take them (width B), the funnel shifts and ``__vsadu4`` sums, and at R
-    >= 2 the 16-bit pairs, the transposed reduction and each lane's
-    stores."""
+    ``refine_sads_kernel<BW, BH, R>`` computes them for ``b`` (BW) x ``bh``
+    (BH, ``b`` unless given) blocks: per block, lane i's anchor row and its
+    window rows (i and, on lanes BH-2 and BH-1, i + 2 at R = 1 on square
+    and 4-row blocks; i, i + BH, ... otherwise), rows taken from other
+    lanes as the shuffles take them (width BH), the funnel shifts and
+    ``__vsadu4`` sums, and but on those R = 1 instances the 16-bit pairs,
+    the transposed reduction and each lane's stores."""
+    bw, bh = b, b if bh is None else bh
+    xor_sums = r == 1 and (bh == 4 or (bw == 8 and bh == 8))  # kXorSums<BW, BH, R>
     tp1, fh, fw = stack.shape
     frames = tp1 - 1 if anchor is None else tp1
-    mfh, mfw = fh // b, fw // b
-    win = _Win(b, r)
+    mfh, mfw = fh // bh, fw // bw
+    win = _Win(bw, r, bh)
     side = 2 * r + 1
-    lanes = np.arange(b)
+    lanes = np.arange(bh)
     out = np.full((frames, win.cand, mfh, mfw), -1, np.int64)
     for t in range(frames):
         trk, anc = (stack[t], stack[t + 1]) if anchor is None else (stack[t], anchor[t])
@@ -381,55 +428,56 @@ def _replay_k3(stack, mv, b, r, anchor=None):
             bx = np.arange(mfw)[:, None]
             mvx = mv[t, by, :, 0].astype(np.int64)[:, None]
             mvy = mv[t, by, :, 1].astype(np.int64)[:, None]
-            x0 = np.broadcast_to(bx * b + mvx - r, (mfw, b))
-            y0 = by * b + mvy - r + lanes[None, :]
-            # lane i's anchor row of each block: (mfw, b lanes, b / 4) words
-            a = _le_words(anc[by * b : by * b + b].reshape(b, mfw, b).transpose(1, 0, 2))
-            on = np.ones((mfw, b), bool)
-            if r == 1:
-                r0 = _k3_window_row(trk, y0, x0, on, b, r)
-                ext = _k3_window_row(trk, y0 + 2, x0, on & (lanes >= b - 2), b, r)
-                # shuffles within the B-lane group; a source past it gives
+            x0 = np.broadcast_to(bx * bw + mvx - r, (mfw, bh))
+            y0 = by * bh + mvy - r + lanes[None, :]
+            # lane i's anchor row of each block: (mfw, bh lanes, bw / 4) words
+            a = _le_words(anc[by * bh : by * bh + bh].reshape(bh, mfw, bw).transpose(1, 0, 2))
+            on = np.ones((mfw, bh), bool)
+            if xor_sums:
+                r0 = _k3_window_row(trk, y0, x0, on, bw, r)
+                ext = _k3_window_row(trk, y0 + 2, x0, on & (lanes >= bh - 2), bw, r)
+                # shuffles within the BH-lane group; a source past it gives
                 # the lane its own value
-                down1 = r0[:, np.minimum(lanes + 1, b - 1)]
-                down2 = np.where((lanes + 2 < b)[:, None], r0[:, np.minimum(lanes + 2, b - 1)], r0)
+                down1 = r0[:, np.minimum(lanes + 1, bh - 1)]
+                down2 = np.where((lanes + 2 < bh)[:, None],
+                                 r0[:, np.minimum(lanes + 2, bh - 1)], r0)
                 up1 = np.where((lanes >= 1)[:, None], ext[:, np.maximum(lanes - 1, 0)], ext)
-                rows = [r0, np.where((lanes == b - 1)[:, None], up1, down1),
-                        np.where((lanes >= b - 2)[:, None], ext, down2)]
+                rows = [r0, np.where((lanes == bh - 1)[:, None], up1, down1),
+                        np.where((lanes >= bh - 2)[:, None], ext, down2)]
             else:
-                slots = [_k3_window_row(trk, y0 + k * b, x0,
-                                        on & ((k == 0) | (lanes + k * b < b + 2 * r)), b, r)
+                slots = [_k3_window_row(trk, y0 + k * bh, x0,
+                                        on & ((k == 0) | (lanes + k * bh < bh + 2 * r)), bw, r)
                          for k in range(win.slots)]
                 rows = []
                 for oy in range(side):
-                    q, rho = divmod(oy, b)
+                    q, rho = divmod(oy, bh)
                     if rho == 0:
                         rows.append(slots[q])
                     else:  # a lane sends the slot its taker (lane - rho) wants
                         send = np.where((lanes < rho)[:, None], slots[q + 1], slots[q])
-                        rows.append(send[:, (lanes + rho) % b])
-            sums = np.zeros((mfw, b, side, side), np.int64)
+                        rows.append(send[:, (lanes + rho) % bh])
+            sums = np.zeros((mfw, bh, side, side), np.int64)
             for oy in range(side):
                 row = rows[oy]
                 for ox in range(side):
                     wo, d = divmod(ox, 4)
-                    for j in range(b // 4):
+                    for j in range(bw // 4):
                         c = row[..., j + wo] if d == 0 else _fshr(
                             row[..., j + wo], row[..., j + wo + 1], 8 * d)
                         sums[:, :, oy, ox] += _vsadu4(c, a[..., j])
-            sums = sums.reshape(mfw, b, win.cand)
-            if r == 1:  # log2(B) xor steps: every lane holds the block's sums
+            sums = sums.reshape(mfw, bh, win.cand)
+            if xor_sums:  # log2(BH) xor steps: every lane holds the block's sums
                 out[t, :, by] = sums.sum(1).T
                 continue
             assert sums.max() < 1 << 16
-            flat = np.concatenate([sums, np.zeros((mfw, b, 1), np.int64)], -1)
+            flat = np.concatenate([sums, np.zeros((mfw, bh, 1), np.int64)], -1)
             packed = flat[..., 0::2][..., : win.packed] | (flat[..., 1::2][..., : win.packed] << 16)
             held = _reduce_transposed(packed, lanes)
-            count = _reduced_count(win.packed, b // 2)
+            count = _reduced_count(win.packed, bh // 2)
             assert held.shape[-1] == count
             got = np.full((mfw, win.cand), -1, np.int64)
             for k in range(count):
-                p = _reduced_index(win.packed, b // 2, k, lanes)
+                p = _reduced_index(win.packed, bh // 2, k, lanes)
                 for lane in lanes[p >= 0]:
                     pk = p[lane]
                     assert (got[:, 2 * pk] == -1).all()  # each sum stored once
@@ -441,33 +489,41 @@ def _replay_k3(stack, mv, b, r, anchor=None):
     return out
 
 
-_SPLIT_ROWS = 4  # anchor rows a lane of refine_sads_split_kernel (B = 16, R >= 2)
+_SPLIT_ROWS = 4  # anchor rows a lane of refine_sads_split_kernel
 
 
-def _replay_k3_split(stack, mv, r):
-    """SADs of a ``(T+1, fh, fw)`` stack as ``refine_sads_split_kernel<R>``
-    (B = 16, R >= 2) computes them: 4 lanes a block, lane l with anchor
-    rows 4l .. 4l + 3 loading its window rows 4l .. 4l + 3 + 2R itself,
-    each row's shifted words against each anchor row it meets, sums added
-    into 16-bit halves as they come, two transposed xor steps over the 4
-    lanes and each lane's stores."""
-    b, rows = 16, _SPLIT_ROWS
+def _split(bw, bh, r):
+    """``kSplit<BW, BH, R>``: the instances that run the split kernel where
+    its grid fills the card."""
+    return (bw == 16 and r >= 2) or (bw < bh and bh >= 8)
+
+
+def _replay_k3_split(stack, mv, r, bh=16, bw=16, anchor=None):
+    """SADs of a ``(T+1, fh, fw)`` stack (or, with ``anchor``, of ``T``
+    pairs: K9's two stacks) as ``refine_sads_split_kernel<BW, BH, R>``
+    computes them: BH / 4 lanes a block, lane l with anchor rows 4l .. 4l
+    + 3 loading its window rows 4l .. 4l + 3 + 2R itself, each row's
+    shifted words against each anchor row it meets, sums added into 16-bit
+    halves as they come, transposed xor steps over the BH / 4 lanes and
+    each lane's stores."""
+    b, rows = bw, _SPLIT_ROWS
     tp1, fh, fw = stack.shape
-    mfh, mfw = fh // b, fw // b
+    frames = tp1 - 1 if anchor is None else tp1
+    mfh, mfw = fh // bh, fw // b
     win = _Win(b, r)
     side = 2 * r + 1
-    lanes = np.arange(b // rows)
-    out = np.full((tp1 - 1, win.cand, mfh, mfw), -1, np.int64)
-    for t in range(tp1 - 1):
-        trk, anc = stack[t], stack[t + 1]
+    lanes = np.arange(bh // rows)
+    out = np.full((frames, win.cand, mfh, mfw), -1, np.int64)
+    for t in range(frames):
+        trk, anc = (stack[t], stack[t + 1]) if anchor is None else (stack[t], anchor[t])
         for by in range(mfh):
             bx = np.arange(mfw)[:, None]
             mvx = mv[t, by, :, 0].astype(np.int64)[:, None]
             mvy = mv[t, by, :, 1].astype(np.int64)[:, None]
             x0 = np.broadcast_to(bx * b + mvx - r, (mfw, lanes.size))
-            y0 = by * b + mvy - r + rows * lanes[None, :]
-            blocks = anc[by * b : by * b + b].reshape(b, mfw, b).transpose(1, 0, 2)
-            a = [_le_words(blocks[:, rows * lanes + m]) for m in range(rows)]  # (mfw, 4, 4)
+            y0 = by * bh + mvy - r + rows * lanes[None, :]
+            blocks = anc[by * bh : by * bh + bh].reshape(bh, mfw, b).transpose(1, 0, 2)
+            a = [_le_words(blocks[:, rows * lanes + m]) for m in range(rows)]  # (mfw, lanes, b / 4)
             packed = np.zeros((mfw, lanes.size, win.packed), np.int64)
             on = np.ones((mfw, lanes.size), bool)
             for k in range(rows + 2 * r):
@@ -488,7 +544,7 @@ def _replay_k3_split(stack, mv, r):
                             packed[..., cand // 2] = total & _M32
                         else:
                             packed[..., cand // 2] = (packed[..., cand // 2] + (total << 16)) & _M32
-            # a lane's sums (at most 4 * 16 * 255) never carry into the high half
+            # a lane's sums (at most 4 * BW * 255) never carry into the high half
             assert ((packed & 0xFFFF) <= rows * b * 255).all()
             held = _reduce_transposed(packed, lanes)
             got = np.full((mfw, win.cand), -1, np.int64)
@@ -556,6 +612,59 @@ def test_k9_on_k3s_kernel_replay_equals_plain(b, r, kind):
                                       torch.from_numpy(mv), r, b, b)
     assert ref.dtype == torch.float32
     np.testing.assert_array_equal(got, ref.numpy())
+
+
+# the rectangles with both sides 4 or more (width x height): K3's / K7's at
+# the refinement levels of 16x8 and 8x16 MV blocks, K9's 8x4 and 4x8 at
+# their top levels; 3 block rows, as 1080-row frames give odd counts
+_K3_RECTS = [(8, 4), (4, 8), (16, 8), (8, 16)]
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", _K3_RECTS, ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("kind", ["path", "edge", "far"])
+def test_k3_rect_replay_equals_plain(block, r, kind):
+    bw, bh = block
+    rng = np.random.default_rng(100 * bw + 10 * bh + r + len(kind))
+    t, mfh, mfw = 2, 3, 5
+    stack = rng.integers(0, 256, (t + 1, mfh * bh, mfw * bw)).astype(np.uint8)
+    mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), max(bw, bh), r).astype(np.int32)
+    got = _replay_k3(stack, mv, bw, r, bh=bh)
+    ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv), r,
+                                   bw, bh)
+    np.testing.assert_array_equal(got, ref.numpy())
+    # 16x8 at R >= 2, 8x16 and 4x8 run the split kernel (BH / 4 lanes of 4
+    # anchor rows) where its grid fills the card
+    if _split(bw, bh, r):
+        np.testing.assert_array_equal(_replay_k3_split(stack, mv, r, bh, bw), ref.numpy())
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", [(8, 4), (4, 8)], ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("kind", ["zero", "edge", "far"])
+def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
+    # K9 at 8x4 and 4x8 blocks: K3's one-row-a-lane kernel on two stacks,
+    # its sums stored as float32 through the mantissa
+    bw, bh = block
+    rng = np.random.default_rng(2000 + 100 * bw + 10 * bh + r + len(kind))
+    t, mfh, mfw = 2, 3, 5
+    tracked = rng.integers(0, 256, (t, mfh * bh, mfw * bw)).astype(np.uint8)
+    anchor = rng.integers(0, 256, (t, mfh * bh, mfw * bw)).astype(np.uint8)
+    if kind == "zero":
+        mv = np.zeros((t, mfh, mfw, 2), np.int32)
+    else:
+        mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), max(bw, bh), r).astype(np.int32)
+    ref = motion.candidate_sads_plain(torch.from_numpy(tracked), torch.from_numpy(anchor),
+                                      torch.from_numpy(mv), r, bw, bh)
+    # 4x8 runs the split kernel where its grid fills the card
+    replays = [_replay_k3(tracked, mv, bw, r, anchor=anchor, bh=bh)]
+    if _split(bw, bh, r):
+        replays.append(_replay_k3_split(tracked, mv, r, bh, bw, anchor=anchor))
+    for sads in replays:
+        assert ((sads >= 0) & (sads < 1 << 23)).all()
+        got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
+            8388608.0)
+        np.testing.assert_array_equal(got, ref.numpy())
 
 
 @pytest.mark.parametrize("b", [4, 8, 16])

@@ -35,6 +35,7 @@ import torch
 
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.ops import motion, pyramid
+from svc_tpu_torch.ops.pad import padded_dims
 
 
 @pytest.fixture
@@ -60,6 +61,11 @@ def _meta_u8(*shape):
     return torch.zeros(shape, dtype=torch.uint8, device="meta")
 
 
+# the ratio-2 rectangles (width x height) of 16x8 and 8x16 MV blocks' top
+# levels: K9's instances
+_RECTS = [(2, 1), (4, 2), (8, 4), (1, 2), (2, 4), (4, 8)]
+
+
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
@@ -76,9 +82,17 @@ def _meta_u8(*shape):
      (1, 1, 5, False, "candidate_sads_general"),
      (16, 16, 1, False, "candidate_sads_general"),
      (16, 16, 8, False, "candidate_sads_general"),
-     (2, 4, 1, False, "candidate_sads_general"),
+     (2, 4, 1, False, "candidate_sads"),
      (2, 2, 1, True, "candidate_sads_general"),
-     (8, 8, 2, True, "candidate_sads_general")],
+     (8, 8, 2, True, "candidate_sads_general"),
+     # the top levels of 16x8 and 8x16 MV blocks (width x height)
+     *((bw, bh, r, False, "candidate_sads") for bw, bh in _RECTS for r in (1, 2, 3, 4)
+       if (bw, bh, r) != (2, 4, 1)),
+     (4, 2, 5, False, "candidate_sads_general"),
+     (8, 4, 2, True, "candidate_sads_general"),
+     # other ratios and shapes stay general
+     (4, 16, 1, False, "candidate_sads_general"), (6, 3, 1, False, "candidate_sads_general"),
+     (1, 4, 1, False, "candidate_sads_general"), (16, 8, 1, False, "candidate_sads_general")],
 )
 def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     t, fh, fw = 3, 4 * bh, 6 * bw
@@ -91,11 +105,9 @@ def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     assert name == kernel
     k = motion.CANDIDATE_SADS if kernel == "candidate_sads" else motion.CANDIDATE_SADS_GENERAL
     assert len(args) == len(k.argtypes)
+    assert args[4:10] == (t, fh, fw, bw, bh, r)
     if kernel == "candidate_sads":
-        assert args[4:9] == (t, fh, fw, bw, r)
-        assert motion.CANDIDATE_SADS.instance(args) == f"<{bw}, {r}>"
-    else:
-        assert args[4:10] == (t, fh, fw, bw, bh, r)
+        assert motion.CANDIDATE_SADS.instance(args) == motion._instance(bw, bh, r)
 
 
 @pytest.mark.parametrize("levels,launches", [(1, []), (2, [1]), (3, [2]), (4, [3]),
@@ -127,17 +139,24 @@ def test_hbma_stack_default_levels_take_the_new_kernels(meta_launches,
     motion.hbma_stack(pyr, search_range, 16, 16)
     assert [name for name, _ in meta_launches] == (
         ["pyr_down_levels", "candidate_sads"] + ["refine_sads"] * 3)
-    assert meta_launches[1][1][7:9] == (2, r)
-    assert [args[7] for _, args in meta_launches[2:]] == [r] * 3
+    assert meta_launches[1][1][7:10] == (2, 2, r)
+    assert [args[8] for _, args in meta_launches[2:]] == [r] * 3
 
 
 # --mv-block-w/-h and --pyr-lvl-count at 1080p: (MV block, levels, range),
-# then the K9 and K3 instances the search launches, top level first
+# then the K9 and K3 instances the search launches, top level first; the
+# MV block is (width, height) where it is not square
 MOTION_CONFIGS = [
     ((8, 4, 8), ["<1, 1>", "<2, 1>", "<4, 1>", "<8, 1>"]),
     ((16, 3, 8), ["<4, 2>", "<8, 2>", "<16, 2>"]),
     ((16, 2, 8), ["<8, 4>", "<16, 4>"]),
     ((16, 5, 16), ["<1, 1>", "<2, 1>", "<4, 1>", "<8, 1>", "<16, 1>"]),
+    (((16, 8), 4, 8), ["<2x1, 1>", "<4x2, 1>", "<8x4, 1>", "<16x8, 1>"]),
+    (((16, 8), 3, 8), ["<4x2, 2>", "<8x4, 2>", "<16x8, 2>"]),
+    (((16, 8), 2, 8), ["<8x4, 4>", "<16x8, 4>"]),
+    (((8, 16), 4, 16), ["<1x2, 2>", "<2x4, 2>", "<4x8, 2>", "<8x16, 2>"]),
+    (((8, 16), 3, 8), ["<2x4, 2>", "<4x8, 2>", "<8x16, 2>"]),
+    (((8, 16), 2, 8), ["<4x8, 4>", "<8x16, 4>"]),
 ]
 
 
@@ -145,13 +164,17 @@ MOTION_CONFIGS = [
 def test_hbma_stack_motion_configs_take_their_instances(meta_launches, config,
                                                          instances):
     # 8x8 MV blocks (the top level's 1x1 on K9, 2x2 on K3), 3 levels (4x4
-    # on K9), 2 levels (8x8 on K9), 5 levels (1x1 and 2x2 again): each
+    # on K9), 2 levels (8x8 on K9), 5 levels (1x1 and 2x2 again); 16x8 and
+    # 8x16 MV blocks at 4, 3 and 2 levels on the 1080p frame they pad to
+    # (1080 rows at 16x8: an odd count of block rows at every level): each
     # level on its own specialised instance, no general kernel
     block, levels, search_range = config
-    pyr = pyramid.build_pyramid(_meta_u8(9, 1088, 1920), levels)
+    bw, bh = (block, block) if isinstance(block, int) else block
+    fh = 1088 if bw == bh else padded_dims(1920, 1080, bw, bh, levels)[1]
+    pyr = pyramid.build_pyramid(_meta_u8(9, fh, 1920), levels)
     meta_launches.clear()
-    mv, mm = motion.hbma_stack(pyr, search_range, block, block)
-    assert tuple(mv.shape) == (8, 1088 // block, 1920 // block, 2)
+    mv, mm = motion.hbma_stack(pyr, search_range, bw, bh)
+    assert tuple(mv.shape) == (8, fh // bh, 1920 // bw, 2)
     assert [name for name, _ in meta_launches] == (
         ["candidate_sads"] + ["refine_sads"] * (levels - 1))
     kernels = [motion.CANDIDATE_SADS] + [motion.REFINE_SADS] * (levels - 1)
@@ -173,15 +196,31 @@ def _meta_stack_at(offset, t, fh, fw):
      (2, (2, 8, 12), (4, 1), "candidate_sads_general"),
      (4, (2, 8, 12), (16, 16), "candidate_sads"),
      (4, (2, 8, 12), (4, 16), "candidate_sads_general"),  # 16-byte chunks
-     (8, (2, 16, 24), (16, 8), "candidate_sads_general")],
+     (8, (2, 16, 24), (16, 8), "candidate_sads_general"),
+     # the rectangles (width, height) of 16x8 and 8x16 MV blocks' top levels
+     ((2, 1), (2, 135, 240), (4, 2), "candidate_sads"),  # 1080 rows at 16x8
+     ((2, 1), (2, 135, 240), (4, 1), "candidate_sads_general"),  # 16-bit anchor rows
+     ((2, 1), (2, 5, 10), (0, 0), "candidate_sads_general"),  # 50: not whole words
+     ((1, 2), (2, 136, 240), (4, 1), "candidate_sads"),  # the anchor any byte
+     ((1, 2), (2, 136, 240), (2, 0), "candidate_sads_general"),  # tracked off a word
+     ((1, 2), (2, 6, 7), (0, 0), "candidate_sads_general"),  # 42: not whole words
+     ((4, 2), (2, 270, 480), (4, 4), "candidate_sads"),
+     ((4, 2), (2, 270, 480), (4, 2), "candidate_sads_general"),  # 32-bit anchor rows
+     ((2, 4), (2, 272, 480), (4, 2), "candidate_sads"),
+     ((2, 4), (2, 272, 480), (4, 1), "candidate_sads_general"),
+     ((8, 4), (2, 540, 960), (16, 16), "candidate_sads"),
+     ((8, 4), (2, 540, 960), (16, 4), "candidate_sads_general"),  # 16-byte chunks
+     ((4, 8), (2, 544, 960), (16, 16), "candidate_sads"),
+     ((4, 8), (2, 544, 960), (8, 16), "candidate_sads_general")],
 )
 def test_candidate_sads_alignment_gates(meta_launches, block, shape, offsets,
                                         kernel):
     tr = _meta_stack_at(offsets[0], *shape)
     an = _meta_stack_at(offsets[1], *shape)
     t, fh, fw = shape
-    mv = torch.zeros((t, fh // block, fw // block, 2), dtype=torch.int32, device="meta")
-    motion.candidate_sads(tr, an, mv, 1, block, block)
+    bw, bh = (block, block) if isinstance(block, int) else block
+    mv = torch.zeros((t, fh // bh, fw // bw, 2), dtype=torch.int32, device="meta")
+    motion.candidate_sads(tr, an, mv, 1, bw, bh)
     ((name, args),) = meta_launches
     assert name == kernel
     assert args[:2] == offsets  # the stacks themselves, not copies
@@ -558,28 +597,50 @@ def test_k9_wide_replay_equals_plain(r, t, fh, fw, mv_kind):
 def test_k9_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "candidate_sads.cu").read_text()
     assert "constexpr int kCand = 9;" in src  # the r = 1 instance's count
-    assert "fh % 2 || fw % 2" in src  # 2x2 blocks
-    # the blocks of K9's entry: 1x1 and 2x2 here, 4x4 and 8x8 on K3's kernel
+    assert "fh % BH || fw % BW" in src
+    # the blocks (width, height) of K9's entry: 1x1 on the thread-a-pixel
+    # kernel, a side of 1 or 2 on the thread-a-block one, both sides 4 or
+    # more on K3's kernel
     entry = src[src.index("SVC_EXPORT int svc_candidate_sads("):]
-    blocks = {int(b) for b in re.findall(r"case (\d+): return launch_", entry)}
+    blocks = {(int(a), int(b)) for a, b in re.findall(
+        r"case shape_key\((\d+), (\d+)\): return launch_", entry)}
     assert blocks == set(motion._K9_BLOCKS)
-    assert "case 1: return launch_block1(" in entry
-    assert "case 2: return launch_block2_sads<float>(" in entry
-    for b in (4, 8):
-        assert f"case {b}: return launch_refine_rows<{b}, float>(" in entry
-        assert motion._K9_ALIGN[b] == (16, 16)
-    assert "reinterpret_cast<uintptr_t>(anchor) % 2" in src
-    assert motion._K9_ALIGN[1] == (4, 1) and motion._K9_ALIGN[2] == (4, 2)
-    # each launcher's radii, the 2x2 and the 1x1 one
-    for launcher in ("launch", "launch_1x1"):
-        radii = {int(a) for a, b in re.findall(
-            rf"case (\d+): return {launcher}<(\d+)>\(", src) if a == b}
+    assert "case shape_key(1, 1): return launch_block1(" in entry
+    thin = set()
+    for bw, bh in blocks - {(1, 1)}:
+        if min(bw, bh) >= 4:
+            assert (f"case shape_key({bw}, {bh}): return launch_refine_rows<{bw}, {bh}, "
+                    f"float>(") in entry
+            assert motion._K9_ALIGN[bw, bh] == (16, 16)
+        else:
+            assert (f"case shape_key({bw}, {bh}): return launch_block_sads<{bw}, {bh}, "
+                    f"float>(") in entry
+            # whole tracked words; the anchor's rows one load each
+            assert motion._K9_ALIGN[bw, bh] == (4, bw)
+            thin.add((bw, bh))
+    assert motion._K9_ALIGN[1, 1] == (4, 1)
+    # the thread-a-block kernel's instances: float32 for K9, int32 for K3 /
+    # K7 at their blocks with a side of 2
+    built = set(re.findall(r"SVC_BLOCK_SADS\((\d+), (\d+), (\w+)\)\n", src))
+    assert built == ({(str(w), str(h), "float") for w, h in thin}
+                     | {(str(w), str(h), "int32_t") for w, h in motion._K3_BLOCKS
+                        if min(w, h) <= 2})
+    assert "reinterpret_cast<uintptr_t>(anchor) % BW" in src
+    assert "(static_cast<size_t>(fh) * fw) % 4" in src
+    # each launcher's radii, the thread-a-block and the 1x1 one
+    for launcher, pattern in (("launch", r"case (\d+): return launch<BW, BH, (\d+)>\("),
+                              ("launch_1x1", r"case (\d+): return launch_1x1<(\d+)>\(")):
+        radii = {int(a) for a, b in re.findall(pattern, src) if a == b}
         assert radii == set(motion._SAD_RADII), launcher
-    # R >= 2: 2R + 2 window rows of 2R + 2 bytes, a byte_perm and one
-    # __vsadu4 a candidate, the exact float32 by the mantissa
-    assert "constexpr int kRun = 2 * R + 2;" in src
+    # past 2x2 at R = 1: BH + 2R window rows of BW + 2R bytes, anchor words
+    # of 4 / BW rows (BH at most), one __vsadu4 an anchor word a candidate,
+    # the exact float32 by the mantissa
+    assert "constexpr int kRows = BH + 2 * R;" in src
+    assert "constexpr int kRun = BW + 2 * R;" in src
+    assert "static constexpr int kStep = 4 / BW < BH ? 4 / BW : BH;" in src
     assert "window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);" in src
-    assert "o[(oy * kSide + ox) * plane_out] = sad_as<Out>(__vsadu4(pair, a01));" in src
+    assert "sad = __vsadu4(c, a[k]) + sad;" in src
+    assert "o[(oy * kSide + ox) * plane_out] = sad_as<Out>(sad);" in src
     common = (build.CSRC_DIR / "common.cuh").read_text()
     assert "return __uint_as_float(0x4b000000u | sad) - 8388608.0f;" in common
     # 1x1: 2R + 1 window rows of 2R + 1 bytes, __vabsdiffu4 against the
@@ -588,6 +649,132 @@ def test_k9_host_constants_match_the_kernel_source():
     assert "__ldg(anchor + at) * 0x01010101u" in src
     assert "const uint32_t d = __vabsdiffu4(row[j], a4);" in src
     assert "__uint_as_float(__byte_perm(d, 0x4b000000u, k | 0x7440)) - 8388608.0f" in src
+
+
+def _fshr(lo, hi, bits):
+    """``__funnelshift_r(lo, hi, bits)`` (bits < 32)."""
+    return (((hi << 32) | lo) >> bits) & 0xFFFFFFFF
+
+
+def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
+    """int64 SADs as ``candidate_sads_kernel<BW, BH, R>`` computes them past
+    2x2 at R = 1: the BH + 2R window rows of each block as words
+    (``window_run<BW + 2R>``), its anchor rows packed kStep to a word, and
+    per candidate one ``__vsadu4`` an anchor word of the window's bytes
+    there: the row's word shifted to byte ox (BW = 4), one ``__byte_perm``
+    of two rows (BW = 2), of a row and zeros (2x1) or of a row's byte and
+    the next row's (1x2)."""
+    t, fh, fw = tracked.shape
+    mfh, mfw = fh // bh, fw // bw
+    side, n_rows, run = 2 * r + 1, bh + 2 * r, bw + 2 * r
+    step = 4 // bw if 4 // bw < bh else bh  # AnchorWords<BW, BH>::kStep
+    out = np.zeros((t, side * side, mfh, mfw), np.int64)
+    by, bx = np.meshgrid(np.arange(mfh), np.arange(mfw), indexing="ij")
+    for ti in range(t):
+        trk = tracked[ti].reshape(-1)
+        anc = anchor[ti].astype(np.int64)
+        a = []
+        for k in range(bh // step):
+            word = np.zeros((mfh, mfw), np.int64)
+            for q in range(step):
+                for j in range(bw):
+                    word |= anc[bh * by + step * k + q, bw * bx + j] << (8 * (bw * q + j))
+            a.append(word)
+        x0 = bw * bx + mv[ti, ..., 0].astype(np.int64) - r
+        y0 = bh * by + mv[ti, ..., 1].astype(np.int64) - r
+        rows = [_window_run(trk, y0 + wr, x0, fh, fw, run) for wr in range(n_rows)]
+        for oy in range(side):
+            for ox in range(side):
+                j, d = divmod(ox, 4)
+                sad = 0
+                for k, ak in enumerate(a):
+                    top = rows[oy + step * k]
+                    if bw == 4:
+                        c = top[j] if d == 0 else _fshr(top[j], top[j + 1], 8 * d)
+                    elif bw == 2 and step == 2:
+                        bot = rows[oy + step * k + 1]
+                        if d < 3:
+                            c = _byte_perm(top[j], bot[j],
+                                           d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12)
+                        else:
+                            c = _byte_perm(_fshr(top[j], top[j + 1], 24),
+                                           _fshr(bot[j], bot[j + 1], 24), 0x5410)
+                    elif bw == 2:  # 2x1
+                        c = (_byte_perm(top[j], 0, d | (d + 1) << 4 | 0x4400) if d < 3
+                             else _fshr(top[j], top[j + 1], 24) & 0xFFFF)
+                    else:  # 1x2
+                        c = _byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4) & 0xFFFF
+                    sad = sad + _vsadu4(c, ak)
+                out[ti, oy * side + ox] = sad
+    return out
+
+
+# the blocks (width, height) with a side of 1 or 2 on the thread-a-block
+# kernel besides 2x2: the top levels of 16x8 and 8x16 MV blocks (K9), and
+# K3's / K7's 4x2 and 2x4 refinement levels
+_THIN = [(2, 1), (1, 2), (4, 2), (2, 4)]
+
+
+@pytest.mark.parametrize(
+    "block,r",
+    # 2x2 at r = 1 runs the 4-word path (test_k9_word_replay_equals_plain)
+    [(b, r) for b in _THIN + [(2, 2)] for r in (1, 2, 3, 4) if (b, r) != ((2, 2), 1)],
+    ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v))
+@pytest.mark.parametrize("frames,mfh,mfw,mv_kind", [
+    (2, 5, 12, "zero"), (2, 5, 12, "random"),  # odd block rows, fw % 4 == 0
+    (3, 4, 7, "edge"), (1, 1, 1, "edge"),       # odd widths: fw % 4 != 0
+    (2, 6, 11, "far")])
+def test_k9_block_replay_equals_plain(block, r, frames, mfh, mfw, mv_kind):
+    bw, bh = block
+    rng = np.random.default_rng(1000 * bw + 100 * bh + 10 * r + mfh + mfw + len(mv_kind))
+    fh, fw = mfh * bh, mfw * bw
+    if fh * fw % 4:  # the kernel's gate: planes of whole words
+        fh, mfh = fh * 2, mfh * 2
+    tracked = rng.integers(0, 256, (frames, fh, fw)).astype(np.uint8)
+    anchor = rng.integers(0, 256, (frames, fh, fw)).astype(np.uint8)
+    shape = (frames, mfh, mfw, 2)
+    if mv_kind == "zero":
+        mv = np.zeros(shape, np.int32)
+    elif mv_kind == "random":
+        mv = rng.integers(-14, 15, shape).astype(np.int32)
+    elif mv_kind == "edge":  # odd MVs that reach past every frame edge
+        mv = (2 * rng.integers(-4, 5, shape) + 1).astype(np.int32)
+    else:  # windows wholly outside the frame, and just inside
+        mv = rng.choice(np.array([-40, -9, -5, -4, -3, 3, 4, 5, 9, 40], np.int32), shape)
+    sads = _replay_k9_block(tracked, anchor, mv, bw, bh, r)
+    assert ((sads >= 0) & (sads < 1 << 23)).all()
+    got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
+        8388608.0)
+    ref = motion.candidate_sads_plain(torch.from_numpy(tracked), torch.from_numpy(anchor),
+                                      torch.from_numpy(mv), r, bw, bh)
+    np.testing.assert_array_equal(got, ref.numpy())
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", [(4, 2), (2, 4)], ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("t,mfh,mfw,mv_kind", [(2, 5, 12, "path"), (3, 3, 7, "edge"),
+                                               (2, 4, 6, "far")])
+def test_k3_block_replay_equals_plain(r, block, t, mfh, mfw, mv_kind):
+    # K3 and K7 at 4x2 and 2x4 blocks run K9's thread-a-block kernel with
+    # two bases (the stack and the stack plus a plane; the pair) and int32
+    # output: its sums stored as they are
+    bw, bh = block
+    rng = np.random.default_rng(100 * bw + 10 * bh + r + mfh + len(mv_kind))
+    stack = rng.integers(0, 256, (t + 1, mfh * bh, mfw * bw)).astype(np.uint8)
+    shape = (t, mfh, mfw, 2)
+    if mv_kind == "path":  # doubled propagated MVs, the refine's own inputs
+        mv = 2 * rng.integers(-2 * r, 2 * r + 1, shape)
+    elif mv_kind == "edge":
+        mv = 2 * rng.integers(-5, 6, shape) + 1
+    else:
+        mv = rng.choice(np.array([-40, -9, -5, -1, 1, 5, 9, 40]), shape)
+    mv = mv.astype(np.int32)
+    got = _replay_k9_block(stack[:-1], stack[1:], mv, bw, bh, r)
+    ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv), r, bw, bh)
+    np.testing.assert_array_equal(got, ref.numpy())
+    pair = motion.refine_mads_plain(torch.from_numpy(stack[0]), torch.from_numpy(stack[1]),
+                                    torch.from_numpy(mv[0]), r, bw, bh)
+    np.testing.assert_array_equal(got[0], pair.numpy())
 
 
 def _vabsdiffu4(a, b):

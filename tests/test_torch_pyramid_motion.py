@@ -177,3 +177,23 @@ def test_hbma_motion_configs_bit_equal(block, levels, search_range, monkeypatch)
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
     assert np.abs(mv_t.numpy()).max() > 0
+
+
+# 16x8 and 8x16 MV blocks (width x height) at 4, 3 and 2 levels: (block_w,
+# block_h, levels, range, rows); 72 rows give 9 block rows at every level
+# of 16x8 (odd, as the 1080 rows of 1080p do)
+RECT_CONFIGS = [(16, 8, 4, 8, 72), (16, 8, 3, 8, 72), (16, 8, 2, 8, 72),
+                (8, 16, 4, 16, 64), (8, 16, 3, 8, 64), (8, 16, 2, 8, 64)]
+
+
+@pytest.mark.parametrize("bw,bh,levels,search_range,h", RECT_CONFIGS)
+def test_hbma_stack_rect_configs_bit_equal(bw, bh, levels, search_range, h):
+    x = _moving_stack(3, h, 128, seed=12)
+    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), levels),
+                                     search_range, bw, bh)
+    mv_t, mm_t = motion.hbma_stack(pyramid.build_pyramid(torch.from_numpy(x), levels),
+                                   search_range, bw, bh)
+    assert mv_t.shape == (2, h // bh, 128 // bw, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0  # the pan was found

@@ -206,6 +206,36 @@ def test_motion_configs_round_trip(settings):
     assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
 
 
+def test_rect_mv_blocks_round_trip():
+    # --mv-block-w 16 --mv-block-h 8 at 4 levels (2x1 blocks at the top
+    # level, 4x2, 8x4 and 16x8 below it) through both packages on a frame
+    # whose MV field has an odd count of block rows (56 rows: 7, as the
+    # 1080 rows of 1080p give 135): the same header, MV fields and block
+    # types, coefficients within the gate
+    w, h, n = 64, 56, 5
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(mv_block_w=16, mv_block_h=8)
+    props = VideoProperties(w, h, n)
+    jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=BATCH, device="cpu")
+    js = list(jenc.encode_video(iter(clip)))
+    ts = list(tenc.encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    jb = jenc.encode_batch(clip[: BATCH + 1], 0)
+    tb = tenc.encode_batch(clip[: BATCH + 1], 0)
+    assert tb["mv_field"].shape == (BATCH, 7, 4, 2)
+    np.testing.assert_array_equal(tb["mv_field"].numpy(), np.array(jb["mv_field"]))
+    np.testing.assert_array_equal(tb["block_types"].numpy().astype(np.uint32),
+                                  np.array(jb["block_types"]))
+    assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
+
+
 def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads

@@ -281,3 +281,46 @@ def test_ptxas_report_names_the_output_type_instances(smoke):
         ("refine_sads.cu", "refine_sads_kernel<8, 4, int>", 63, 10368),
         ("candidate_sads.cu", "candidate_sads_kernel<1, int>", 26, 0),
         ("candidate_sads.cu", "candidate_sads_1x1_kernel<2>", 30, 0)]
+
+
+def test_ptxas_report_names_the_rect_instances(smoke):
+    # K3's and K9's kernels take (width, height, radius) and the output
+    # type, the split kernel (height, radius): every template argument in
+    # the name, as phase 2 reports the 16x8 and 8x16 MV blocks' instances
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb18refine_sads_kernelILi16ELi8ELi4EiEEvPKhS2_mPKiPT2_iiii' for 'sm_90a'",
+        "ptxas info    : Used 77 registers, used 1 barriers, 10368 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__c2cfe8a7_14_refine_sads_cu_"
+        "a44f72fb24refine_sads_split_kernelILi8ELi4EEEvPKhS2_mPKiPiiiii' for 'sm_90a'",
+        "ptxas info    : Used 103 registers, used 1 barriers, 41472 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__0b7d8c2e_17_candidate_sads_cu_"
+        "7d395fff21candidate_sads_kernelILi1ELi2ELi3EfEEvPKhS2_PKiPT2_iiii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+    ])
+    assert smoke.ptxas_report(log) == [
+        ("refine_sads.cu", "refine_sads_kernel<16, 8, 4, int>", 77, 10368),
+        ("refine_sads.cu", "refine_sads_split_kernel<8, 4>", 103, 41472),
+        ("candidate_sads.cu", "candidate_sads_kernel<1, 2, 3, float>", 40, 0)]
+    # 128 blocks of 2 lanes a CTA: 103 registers (104 a thread allotted)
+    # hold 2 CTAs of 256 an SM
+    assert smoke.ctas_per_sm(103, 41472, 256) == 2
+
+
+def test_setting_levels_hold_every_instance_once(smoke):
+    # phase 3's settings past the default reach every specialised K9 and
+    # K3 block that the default's own levels (K9 2x2; K3 4x4, 8x8, 16x16)
+    # do not, each at one setting only, at the level its setting's encoder
+    # runs it on
+    from svc_tpu_torch.ops import motion
+
+    plan = smoke.setting_levels()
+    k9 = [(mw >> lvl, mh >> lvl) for (mw, mh, _), top, _ in plan for lvl in top]
+    k3 = [(mw >> lvl, mh >> lvl) for (mw, mh, _), _, refine in plan for lvl in refine]
+    assert sorted(k9) == sorted(motion._K9_BLOCKS - {(2, 2)})
+    assert sorted(k3) == sorted(motion._K3_BLOCKS - {(4, 4), (8, 8), (16, 16)})
+    for (mw, mh, levels), top, refine in plan:
+        assert top in ([], [levels - 1])
+        assert all(0 <= lvl < levels - 1 for lvl in refine)
+    assert plan[0] == ((8, 8, 4), [3], [2])  # 1x1 on top, 2x2 under it
+    assert plan[1] == ((16, 16, 3), [2], [])  # 4x4 on top; its K3 blocks are the default's
