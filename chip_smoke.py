@@ -17,7 +17,7 @@ each:
    built library's SASS (``cuobjdump -sass``), and the card's 32-bit
    integer rate (64 instructions a clock on each SM at its maximum SM
    clock, ``nvidia-smi``);
-3. kernel parity — each of the ninety-six kernels against its plain
+3. kernel parity — each of the 120 kernels against its plain
    PyTorch version on the card at the shapes of its path (K3, K4, K5, K7,
    K8, K9, K10, K11 bit-equal, K5's compactness within rtol 1e-6; K2 within 2.5e-4;
    K1 and K6 within 1 with under 1e-3 of the bytes differing), with the
@@ -35,14 +35,17 @@ each:
    its level of a 1080p clip at ranges 16, 24 and 32, on random MVs and on
    odd MVs past the frame edges, K7 on frames 0-1, K9 at the EBMA shape
    with zero, random and past-edge MVs and T = 1, each timed in turns
-   with the general kernel at its shape; K9 at 1x1, 4x4, 8x8, 2x1, 4x2,
-   8x4, 1x2, 2x4, 4x8 and K3 / K7 at 2x2, 4x2, 8x4, 16x8, 2x4, 4x8, 8x16
-   blocks (width x height: the levels of 8x8 MV blocks, of 2 and 3
-   levels, and of 16x8 and 8x16 MV blocks at 2, 3 or 4 levels, each at
-   the 1080p level shape its setting's encoder pads to,
-   ``INSTANCE_SETTINGS``), r = 1-4, T = 8, K9 on zero, random and
-   past-edge MVs, K3 on the setting's own search's MVs, random and
-   past-edge ones, K7 on frames 0-1, each timed in turns with the general
+   with the general kernel at its shape; K9 at 1x1, 4x4, 8x8, 16x16, 2x1,
+   4x2, 8x4, 1x2, 2x4, 4x8, 16x8, 8x16 and K3 / K7 at 2x2, 4x2, 8x4, 16x8,
+   2x4, 4x8, 8x16, 32x32, 32x16, 16x32 blocks (width x height: the levels
+   of 8x8 MV blocks, of 2 and 3 levels, of 16x8 and 8x16 MV blocks at 2, 3
+   or 4 levels, and of 32x32, 32x16 and 16x32 MV blocks at 2 levels, each
+   at the 1080p level shape its setting's encoder pads to,
+   ``INSTANCE_SETTINGS``), r = 1-4, T = 8, K9 on zero, random, past-edge
+   and saturated MVs and planes, K3 on the setting's own search's MVs,
+   random and past-edge ones and a saturated stack (anchor 255 against
+   tracked 0 over whole blocks: a block's SAD 255 BW BH, 261,120 at
+   32x32), K7 on frames 0-1, each timed in turns with the general
    kernel), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
@@ -131,9 +134,10 @@ each:
    global-motion estimators on ``cuda``, then ``hbma`` at ranges 16, 24
    and 32 (K7, the fused K4 and the 2x2 K9 must run, every K7 and K9
    instance at r = 1-4, the general K7 and K9 and the single-level K4 not),
-   at 8x8 MV blocks, at 3 levels and at 16x8 MV blocks (K9's 1x1, 4x4 and
-   2x1, K7's 2x2, 4x2, 8x4 and 16x8 instances), each held against
-   ``hbma_stack`` on the same 2-frame stack and the CPU port;
+   at 8x8 MV blocks, at 3 levels, at 16x8, 32x32 and 32x16 MV blocks
+   (K9's 1x1, 4x4, 2x1 and 4x2, K7's 2x2, 4x2, 8x4, 16x8, 32x32 and
+   32x16 instances), each held against ``hbma_stack`` on the same 2-frame
+   stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
     launch) and ``hbma_stack(..., base_pitched=...)`` (the fused K8
@@ -188,14 +192,16 @@ each:
     with the default range 8;
 16. MV blocks and pyramid levels — 9-frame 1080p clips with 8x8 MV blocks
     (``EncoderConfig(mv_block_w=8, mv_block_h=8)``), 3 and 2 levels, 5
-    levels at range 16, 16x8 MV blocks (G5), 8x16 at range 16 (G6) and
-    16x8 at 3 levels (G7) on graph replays: the K9 and K3 instances of
+    levels at range 16, 16x8 MV blocks (G5), 8x16 at range 16 (G6), 16x8
+    at 3 levels (G7), 32x32 at 4 and 2 levels (G8, G9), 32x16 (G10) and
+    16x32 at 2 levels (G11) on graph replays: the K9 and K3 instances of
     the setting's blocks and radius must run (K9 at 1x1, 4x4, 8x8, 1x1,
-    2x1, 1x2, 4x2; K3 at 2x2 under 8x8 MV blocks and 5 levels, at 4x2, 8x4,
-    16x8 under G5, 2x4, 4x8, 8x16 under G6, 8x4, 16x8 under G7), no other
-    instance and no general K3 or K9; the same checks as phase 15, then
-    the device batch time of each setting in turns with the default
-    config.
+    2x1, 1x2, 4x2, 4x4, 16x16, 4x2, 8x16; K3 at 2x2 under 8x8 MV blocks and
+    5 levels, at 4x2, 8x4, 16x8 under G5, 2x4, 4x8, 8x16 under G6, 8x4,
+    16x8 under G7, 8x8, 16x16, 32x32 under G8, 32x32 under G9, 8x4, 16x8,
+    32x16 under G10, 16x32 under G11), no other instance and no general
+    K3 or K9; the same checks as phase 15, then the device batch time of
+    each setting in turns with the default config.
 
 ``python3 chip_smoke.py --batch-ms`` runs phase 1 and phase 16's batch
 timing alone (``motion_batch_ms``), so that a copy of this script in
@@ -241,7 +247,10 @@ WIDE_RANGES = (16, 24, 32)
 # first and the last with 2x2 refinement blocks; then 16x8 and 8x16 MV
 # blocks (width x height): 2x1 at r = 1 under 4x2, 8x4, 16x8 refinement
 # blocks, 1x2 at r = 2 under 2x4, 4x8, 8x16, and 4x2 at r = 2 under 8x4,
-# 16x8
+# 16x8; then MV blocks with a 32-pixel side: 32x32 with 4x4 at r = 1 under
+# 8x8, 16x16, 32x32, and at 2 levels 16x16 at r = 4 under 32x32; 32x16
+# with 4x2 at r = 1 under 8x4, 16x8, 32x16; 16x32 at 2 levels, 8x16 at r =
+# 4 under 16x32
 MOTION_CONFIGS = {
     "G1 8x8 MV blocks": dict(mv_block_w=8, mv_block_h=8),
     "G2 3 levels": dict(pyr_lvl_count=3),
@@ -250,6 +259,10 @@ MOTION_CONFIGS = {
     "G5 16x8 MV blocks": dict(mv_block_w=16, mv_block_h=8),
     "G6 8x16 MV blocks, range 16": dict(mv_block_w=8, mv_block_h=16, mv_search_range=16),
     "G7 16x8, 3 levels": dict(mv_block_w=16, mv_block_h=8, pyr_lvl_count=3),
+    "G8 32x32 MV blocks": dict(mv_block_w=32, mv_block_h=32),
+    "G9 32x32, 2 levels": dict(mv_block_w=32, mv_block_h=32, pyr_lvl_count=2),
+    "G10 32x16 MV blocks": dict(mv_block_w=32, mv_block_h=16),
+    "G11 16x32, 2 levels": dict(mv_block_w=16, mv_block_h=32, pyr_lvl_count=2),
 }
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
@@ -675,10 +688,13 @@ def timed_against_general(results, int_ops_per_s, kernel, name, new, general, pl
 # MV block and level settings past the default whose instances phase 3
 # holds (width, height, levels; the default, 16x16 at 4 levels, is held
 # above it): 8x8 MV blocks (K9 1x1, K3 2x2), 16x16 at 3 and 2 levels (K9
-# 4x4, 8x8), and 16x8 and 8x16 at 4, 3 and 2 levels (K9 2x1, 4x2, 8x4,
-# 1x2, 2x4, 4x8; K3 4x2, 8x4, 16x8, 2x4, 4x8, 8x16)
+# 4x4, 8x8), 16x8 and 8x16 at 4, 3 and 2 levels (K9 2x1, 4x2, 8x4, 1x2,
+# 2x4, 4x8; K3 4x2, 8x4, 16x8, 2x4, 4x8, 8x16), and 32x32, 32x16 and 16x32
+# at 2 levels (K9 16x16, 16x8, 8x16; K3 32x32, 32x16, 16x32: at 3-5 levels
+# their blocks are among the others)
 INSTANCE_SETTINGS = ((8, 8, 4), (16, 16, 3), (16, 16, 2), (16, 8, 4), (16, 8, 3),
-                     (16, 8, 2), (8, 16, 4), (8, 16, 3), (8, 16, 2))
+                     (16, 8, 2), (8, 16, 4), (8, 16, 3), (8, 16, 2), (32, 32, 2),
+                     (32, 16, 2), (16, 32, 2))
 
 
 def setting_levels(settings=INSTANCE_SETTINGS):
@@ -705,16 +721,29 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
     blocks with zero (the EBMA's), random and past-edge MVs; K3 at the
     refinement levels' blocks with the MVs the setting's own search at
     the top radius r gives each level, random and odd past-edge MVs; K7
-    on frames 0-1 of each with the search's and the past-edge MVs. Each
-    bit-equal to the general kernel and to the plain version on every
-    entry, timed in turns with the general kernel (20 launches in one CUDA
-    graph), its bound beside it."""
+    on frames 0-1 of each with the search's and the past-edge MVs; each
+    also saturated (anchor 255 over a checkerboard of whole blocks against
+    tracked 0: those blocks' SADs 255 BW BH at every candidate, past 2^16
+    from 32x16 on). Each bit-equal to the general kernel and to the plain
+    version on every entry, timed in turns with the general kernel (20
+    launches in one CUDA graph), its bound beside it."""
     from svc_tpu_torch.ops import motion
     from svc_tpu_torch.ops.pyramid import build_pyramid
     from svc_tpu_torch.tools.clips import make_clip
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi + 1, shape, generator=g, dtype=torch.int32).to(dev)
+
+    def checkerboard(fh, fw, bw, bh):
+        """255 over every other bw x bh block of an fh x fw plane, 0 elsewhere."""
+        by = torch.arange(fh, device=dev)[:, None] // bh
+        bx = torch.arange(fw, device=dev)[None, :] // bw
+        return ((by + bx) % 2 == 0).to(torch.uint8) * 255
+
+    def saturated(got, name, bw, bh):
+        if int(got.max()) != 255 * bw * bh:
+            fail(f"{name}: the saturated case's largest SAD is {int(got.max())}, "
+                 f"not {255 * bw * bh}")
 
     clip = make_clip(1920, 1080, 9)
     lines = []
@@ -739,6 +768,14 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
                                                              general=True),
                                lambda: motion.candidate_sads_plain(tr, an, mv, r, bw, bh),
                                kind)
+                dark = torch.zeros_like(tr)
+                lit = checkerboard(fh, fw, bw, bh).expand(t, fh, fw).contiguous()
+                saturated(held(motion.CANDIDATE_SADS, name,
+                               lambda: motion.candidate_sads(dark, lit, zero, r, bw, bh),
+                               lambda: motion.candidate_sads(dark, lit, zero, r, bw, bh,
+                                                             general=True),
+                               lambda: motion.candidate_sads_plain(dark, lit, zero, r, bw, bh),
+                               "saturated"), name, bw, bh)
                 # bytes: the level's frames read once (the tracked and the
                 # anchor stack are two views of them), the MVs, each SAD
                 # written once; operations: BW BH / 4 SIMD SADs of 4 bytes
@@ -777,6 +814,20 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
                              lambda: motion.refine_mads(tr, an, m0, r, bw, bh),
                              lambda: motion.refine_mads(tr, an, m0, r, bw, bh, general=True),
                              lambda: motion.refine_mads_plain(tr, an, m0, r, bw, bh), kind)
+                # saturated: frames 1, 3, ... lit, the even ones dark
+                sat = torch.zeros_like(stack)
+                sat[1::2] = checkerboard(fh, fw, bw, bh)
+                saturated(held(motion.REFINE_SADS, name3,
+                               lambda: motion.refine_sads(sat, own, r, bw, bh),
+                               lambda: motion.refine_sads(sat, own, r, bw, bh, general=True),
+                               lambda: motion.refine_sads_plain(sat, own, r, bw, bh),
+                               "saturated"), name3, bw, bh)
+                s0, s1, m0 = sat[0], sat[1], own[0].contiguous()
+                saturated(held(motion.REFINE_MADS, name7,
+                               lambda: motion.refine_mads(s0, s1, m0, r, bw, bh),
+                               lambda: motion.refine_mads(s0, s1, m0, r, bw, bh, general=True),
+                               lambda: motion.refine_mads_plain(s0, s1, m0, r, bw, bh),
+                               "saturated"), name7, bw, bh)
                 # bytes: the stack (K7: its two frames) read once, the MVs,
                 # each SAD written once; operations as K9's
                 n_out = got.numel()
@@ -797,10 +848,11 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
                     2 * fh * fw + m0.numel() * 4 + n_out // (tp1 - 1) * 4,
                     ops // (tp1 - 1)) + f" (one {fh}x{fw} pair)")
     print("parity K9, K3 and K7 at the MV block and level settings past the "
-          "default (K9 1x1, 4x4, 8x8, 2x1, 4x2, 8x4, 1x2, 2x4, 4x8; K3 / K7 2x2, "
-          "4x2, 8x4, 16x8, 2x4, 4x8, 8x16), r = 1-4: every instance bit-equal to "
-          "the general kernel and to the plain version on every entry; timed in "
-          "turns with the general kernel:")
+          "default (K9 1x1, 4x4, 8x8, 16x16, 2x1, 4x2, 8x4, 1x2, 2x4, 4x8, 16x8, "
+          "8x16; K3 / K7 2x2, 4x2, 8x4, 16x8, 2x4, 4x8, 8x16, 32x32, 32x16, "
+          "16x32), r = 1-4: every instance bit-equal to the general kernel and to "
+          "the plain version on every entry, a saturated case too (255 BW BH a "
+          "block); timed in turns with the general kernel:")
     for line in lines:
         print(f"  {line}")
 
@@ -2377,11 +2429,12 @@ def per_frame_motion(clip: np.ndarray, dev):
     gm_h = motion.estimate_global_motion_hierarchical(tracked, anchor, 8)
     # --mv-search-range 16, 24 and 32: K9's and K7's instances at r = 2-4
     wide = {rng: motion.hbma(tracked, anchor, rng, 16, 16) for rng in WIDE_RANGES}
-    # phase 16's 8x8 MV blocks, 3 levels and 16x8 MV blocks: K9's 1x1,
-    # 4x4 and 2x1 instances, K7's 2x2 ones and its 4x2, 8x4 and 16x8 (on
-    # the 1080 rows 16x8 MV blocks pad to)
+    # phase 16's 8x8 MV blocks, 3 levels and 16x8, 32x32 and 32x16 MV
+    # blocks: K9's 1x1, 4x4, 2x1 and 4x2 instances, K7's 2x2 ones, its 4x2,
+    # 8x4 and 16x8 (on the 1080 rows 16x8 MV blocks pad to), 32x32 and 32x16
     settings = {label: EncoderConfig(**MOTION_CONFIGS[label])
-                for label in ("G1 8x8 MV blocks", "G2 3 levels", "G5 16x8 MV blocks")}
+                for label in ("G1 8x8 MV blocks", "G2 3 levels", "G5 16x8 MV blocks",
+                              "G8 32x32 MV blocks", "G10 32x16 MV blocks")}
     pyrs = {label: build_pyramid(padded_luma(clip[:2], dev, cfg.mv_block_w, cfg.mv_block_h,
                                              cfg.pyr_lvl_count), cfg.pyr_lvl_count)
             for label, cfg in settings.items()}
@@ -2460,7 +2513,8 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"{mad_ex.item():.4f}), hierarchical {gm_h.tolist()}, each equal "
           f"to the CPU port; at ranges {', '.join(map(str, WIDE_RANGES))} "
           f"(K7's and K9's r = 2-4 instances), at 8x8 MV blocks, at 3 levels and "
-          f"at 16x8 MV blocks (K9's 1x1, 4x4 and 2x1, K7's 2x2, 4x2, 8x4, 16x8) "
+          f"at 16x8, 32x32 and 32x16 MV blocks (K9's 1x1, 4x4, 2x1 and 4x2, K7's "
+          f"2x2, 4x2, 8x4, 16x8, 32x32, 32x16) "
           f"equal to hbma_stack and to the CPU "
           f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
           f"launches {counts}")

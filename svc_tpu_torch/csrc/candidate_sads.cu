@@ -1,17 +1,19 @@
 // K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
 // float32, specialised for BW x BH MV blocks (BW columns, BH rows) at
-// search radius R = 1 to 4: square 1, 2, 4 or 8 and the ratio-2
-// rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8. These are the encoder's
-// top-level EBMA, in hbma_stack and per-frame hbma alike, at 16x16 blocks
-// and 4 pyramid levels (2x2), range 8 (R = 1, the default) to 39 (R = range
-// / 8), and at the other block and level settings (--mv-block-w/-h,
-// --pyr-lvl-count): 8x8 blocks at 4 levels or 16x16 at 5 (1x1), 16x16 at 3
-// levels (4x4) or 2 (8x8), 16x8 blocks at 4, 3 or 2 levels (2x1, 4x2, 8x4)
-// and 8x16 (1x2, 2x4, 4x8). 1x1 runs the thread-a-pixel kernel of this
-// file, 2x2, 2x1, 1x2, 4x2 and 2x4 its thread-a-block kernel, the shapes
-// with both sides 4 or more K3's kernel (refine_sads.cu,
-// launch_refine_rows) with float32 output.
+// search radius R = 1 to 4: square 1, 2, 4, 8 or 16 and the ratio-2
+// rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8, 16x8, 8x16. These are the
+// encoder's top-level EBMA, in hbma_stack and per-frame hbma alike, at
+// 16x16 blocks and 4 pyramid levels (2x2), range 8 (R = 1, the default) to
+// 39 (R = range / 8), and at the other block and level settings
+// (--mv-block-w/-h, --pyr-lvl-count): 8x8 blocks at 4 levels or 16x16 at 5
+// (1x1), 16x16 at 3 levels (4x4) or 2 (8x8), 16x8 blocks at 4, 3 or 2
+// levels (2x1, 4x2, 8x4) and 8x16 (1x2, 2x4, 4x8), 32x32, 32x16 and 16x32
+// blocks at 2 levels (16x16, 16x8, 8x16; at 3-5 levels their top blocks
+// are among the others). 1x1 runs the thread-a-pixel kernel of this file,
+// 2x2, 2x1, 1x2, 4x2 and 2x4 its thread-a-block kernel, the shapes with
+// both sides 4 or more K3's kernel (refine_sads.cu, launch_refine_rows)
+// with float32 output.
 //
 // Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) at those
 // shapes; every other shape runs candidate_sads_general.cu
@@ -376,8 +378,9 @@ SVC_BLOCK_SADS(2, 4, int32_t)
 
 // tracked, anchor: (t_count, fh, fw) uint8; mv: (t_count, fh/bh, fw/bw, 2)
 // int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw) float32. All
-// contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 2x1, 1x2, 4x2, 2x4, 8x4,
-// 4x8, dividing fw and fh, 1 <= r <= 4; at 1x1 tracked 4-byte aligned and
+// contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 16x16, 2x1, 1x2, 4x2,
+// 2x4, 8x4, 4x8, 16x8, 8x16, dividing fw and fh, 1 <= r <= 4; at 1x1
+// tracked 4-byte aligned and
 // fh * fw a multiple of 4; at 2x2, 2x1, 1x2, 4x2 and 2x4 also the anchor
 // aligned to its rows' bytes (BW); both 16-byte aligned where both sides
 // are 4 or more. Refuses (cudaErrorInvalidValue) anything else.
@@ -407,6 +410,12 @@ SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
     case shape_key(8, 4): return launch_refine_rows<8, 4, float>(
         tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
     case shape_key(4, 8): return launch_refine_rows<4, 8, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(16, 16): return launch_refine_rows<16, 16, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(16, 8): return launch_refine_rows<16, 8, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(8, 16): return launch_refine_rows<8, 16, float>(
         tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

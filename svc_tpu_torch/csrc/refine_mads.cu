@@ -1,11 +1,12 @@
 // K7 refine_mads: candidate SADs of one hierarchical motion refinement
 // level for ONE frame pair, from separate tracked and anchor planes — the
 // per-frame refine behind ops/motion.py refine() and hbma() — specialised
-// for K3's block shapes (square 2, 4, 8, 16 and the ratio-2 rectangles
-// 4x2, 2x4, 8x4, 4x8, 16x8, 8x16, columns x rows) at radius r = 1 to 4:
-// the refinement levels of the per-frame search at 16x16 blocks and 4
-// levels, range 8 (r = 1, the default) to 39, at 8x8 blocks or 2, 3 or 5
-// levels, and at 16x8 or 8x16 blocks and 2, 3 or 4 levels.
+// for K3's block shapes (square 2, 4, 8, 16, 32 and the ratio-2
+// rectangles 4x2, 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, columns x rows)
+// at radius r = 1 to 4: the refinement levels of the per-frame search at
+// 16x16 blocks and 4 levels, range 8 (r = 1, the default) to 39, at 8x8
+// blocks or 2, 3 or 5 levels, at 16x8 or 8x16 blocks and 2, 3 or 4 levels,
+// and at 32x32, 32x16 or 16x32 blocks and 2 to 5 levels.
 //
 // Replaces svc_tpu/ops/motion_pallas.py refine_mads_pallas (:541), which
 // svc_tpu's per-frame hbma reaches through _refine_spread (motion.py:346).

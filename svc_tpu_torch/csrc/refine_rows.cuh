@@ -8,8 +8,8 @@
 // this code, so both give the same bits.
 //
 // A CTA of kThreads lanes handles kThreads / BH MV blocks of one block row
-// (BW x BH blocks, BW columns and BH rows, each 4, 8 or 16; search radius
-// R = 1 to 4; the K8 refine 16 x 16 at R = 1); lane i of a block owns
+// (BW x BH blocks, BW columns and BH rows, each 4, 8, 16 or 32; search
+// radius R = 1 to 4; the K8 refine 16 x 16 at R = 1); lane i of a block owns
 // anchor row i (BW / 4 words). A window row is Window<BW, R>::kWords words
 // from the window's first byte (ox = 0) on; it needs BW + 2R of those
 // bytes.
@@ -24,27 +24,32 @@ constexpr int kCand = 9;  // (2r + 1)^2 at r = 1: the K8 refine, block_sads
 constexpr unsigned kFull = 0xffffffffu;
 
 // The word counts of a window row of BW-column blocks at radius R, and the
-// window rows a lane of a BH-row block holds.
+// window rows a lane of a BH-row block holds. A row is fetched from a base
+// aligned to kGrain bytes (BW, 16 at most: the widest load a lane issues)
+// as kChunks aligned chunks of kGrain bytes and kExtra words.
 template <int BW, int R, int BH = BW>
 struct Window {
+  static constexpr int kGrain = BW < 16 ? BW : 16;  // bytes of an aligned chunk
+  static constexpr int kChunks = BW / kGrain + 1;   // chunks a row spans
   static constexpr int kExtra = (2 * R + 3) / 4;  // words past the BW / 4 of a block
   static constexpr int kWords = BW / 4 + kExtra;  // a row from its first byte
-  static constexpr int kFetch = BW / 2 + kExtra;  // a row from an aligned base
+  static constexpr int kFetch = kChunks * kGrain / 4 + kExtra;  // from an aligned base
   // window rows a lane holds at R >= 2 (rows i, i + BH, ...)
   static constexpr int kSlots = 1 + (2 * R + BH - 1) / BH;
   static constexpr int kCand = (2 * R + 1) * (2 * R + 1);
   static constexpr int kPacked = (kCand + 1) / 2;  // two 16-bit sums a word
 };
 
-// al: the kWords words of a row from byte s on (0 <= s < BW), given w, the
-// kFetch words of the row from an aligned base. v[j] = w[s / 4 + j] by
-// selects (register arrays take no runtime index), then a funnel shift by
-// s % 4 bytes.
+// al: the kWords words of a row from byte s on (0 <= s < kGrain), given w,
+// the kFetch words of the row from an aligned base. v[j] = w[s / 4 + j] by
+// selects (register arrays take no runtime index; kGrain / 4 - 1 a word, so
+// 32-column blocks at a 16-byte grain take 3, not 7), then a funnel shift
+// by s % 4 bytes.
 template <int BW, int R = 1>
 __device__ __forceinline__ void align_window_row(const uint32_t (&w)[Window<BW, R>::kFetch],
                                                  int s,
                                                  uint32_t (&al)[Window<BW, R>::kWords]) {
-  constexpr int kW = BW / 4;
+  constexpr int kG = Window<BW, R>::kGrain / 4;
   constexpr int kWords = Window<BW, R>::kWords;
   const int q = s >> 2;
   uint32_t v[kWords + 1];
@@ -52,7 +57,7 @@ __device__ __forceinline__ void align_window_row(const uint32_t (&w)[Window<BW, 
   for (int j = 0; j < kWords + 1; ++j) {
     uint32_t r = w[j];
 #pragma unroll
-    for (int t = 1; t < kW; ++t) r = q == t ? w[t + j] : r;
+    for (int t = 1; t < kG; ++t) r = q == t ? w[t + j] : r;
     v[j] = r;
   }
 #pragma unroll
@@ -117,13 +122,14 @@ __device__ __forceinline__ void block_sads(const uint32_t (&r0)[BW / 4 + 1],
 }
 
 // One transposed xor step over lane offset H of a group of L lanes, then
-// the steps below it: of each pair (v[k], v[k + M]), M = ceil(N / 2), a
-// lane keeps the one its bit H picks and adds its partner's, so every step
-// halves what a lane holds (N + N / 2 + ... shuffles where plain xor
-// steps take N log2(L)). A single value takes plain xor steps.
-template <int N, int H, int L>
+// the steps below it down to offset Lo + 1 (Lo = 0: every step): of each
+// pair (v[k], v[k + M]), M = ceil(N / 2), a lane keeps the one its bit H
+// picks and adds its partner's, so every step halves what a lane holds
+// (N + N / 2 + ... shuffles where plain xor steps take N log2(L)). A single
+// value takes plain xor steps.
+template <int N, int H, int L, int Lo = 0>
 __device__ __forceinline__ void reduce_transposed(uint32_t* v, unsigned i) {
-  if constexpr (H > 0) {
+  if constexpr (H > Lo) {
     constexpr int M = (N + 1) / 2;
     if constexpr (N == 1) {
       v[0] += __shfl_xor_sync(kFull, v[0], H, L);
@@ -136,34 +142,80 @@ __device__ __forceinline__ void reduce_transposed(uint32_t* v, unsigned i) {
         v[k] = (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, H, L);
       }
     }
-    reduce_transposed<M, H / 2, L>(v, i);
+    reduce_transposed<M, H / 2, L, Lo>(v, i);
   }
 }
 
-// How many values a lane holds after reduce_transposed<N, H, L>.
-template <int N, int H>
+// How many values a lane holds after reduce_transposed<N, H, L, Lo>.
+template <int N, int H, int Lo = 0>
 __host__ __device__ constexpr int reduced_count() {
-  if constexpr (H == 0 || N == 1) {
+  if constexpr (H <= Lo || N == 1) {
     return N;
   } else {
-    return reduced_count<(N + 1) / 2, H / 2>();
+    return reduced_count<(N + 1) / 2, H / 2, Lo>();
   }
 }
 
 // The index (into the N values) whose group sum lane i holds in v[k] after
-// reduce_transposed<N, H, L>, or -1 where it holds none (a pad, or the
+// reduce_transposed<N, H, L, Lo>, or -1 where it holds none (a pad, or the
 // upper lane of a plain xor step, whose copy the lower lane keeps).
-template <int N, int H>
+template <int N, int H, int Lo = 0>
 __device__ __forceinline__ int reduced_index(int k, unsigned i) {
-  if constexpr (H == 0) {
+  if constexpr (H <= Lo) {
     return k < N ? k : -1;
   } else if constexpr (N == 1) {
-    return (i & H) ? -1 : reduced_index<1, H / 2>(k, i);
+    return (i & H) ? -1 : reduced_index<1, H / 2, Lo>(k, i);
   } else {
     constexpr int M = (N + 1) / 2;
-    const int inner = reduced_index<M, H / 2>(k, i);
+    const int inner = reduced_index<M, H / 2, Lo>(k, i);
     const int idx = inner + ((i & H) ? M : 0);
     return inner >= 0 && idx < N ? idx : -1;
+  }
+}
+
+// Lane i's N words of 16-bit sums (candidates 2p and 2p + 1 in word p)
+// reduced over its group of L lanes, each candidate's block sum stored once
+// to s_out[c][blk] (c < kCand). A lane's sums cover kPixels pixels (its
+// anchor rows' bytes); a pair stays packed while its sums cover at most
+// 256 of them (255 x 256 < 2^16): over the steps at lane offsets L / 2 down
+// to Lo + 1, Lo = L / (2 * 256 / kPixels). Past that (a 32-column block
+// reaches 255 x 1024 on 32 lanes, 32 x 16 and 16 x 32 blocks 255 x 512)
+// the words a lane still holds unpack into 32-bit sums for the steps at
+// offsets Lo down to 1. Lo = 0 keeps every step packed.
+template <int N, int L, int kPixels, int kCand, int kBlocks>
+__device__ __forceinline__ void reduce_store(uint32_t (&packed)[N], unsigned i,
+                                             unsigned blk, int32_t (*s_out)[kBlocks]) {
+  constexpr int Lo = L / (2 * (256 / kPixels));
+  reduce_transposed<N, L / 2, L, Lo>(packed, i);
+  constexpr int kHeld = reduced_count<N, L / 2, Lo>();
+  if constexpr (Lo == 0) {
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int p = reduced_index<N, L / 2>(k, i);
+      if (p >= 0) {
+        s_out[2 * p][blk] = static_cast<int32_t>(packed[k] & 0xffffu);
+        if (2 * p + 1 < kCand) s_out[2 * p + 1][blk] = static_cast<int32_t>(packed[k] >> 16);
+      }
+    }
+  } else {
+    uint32_t v[2 * kHeld];
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      v[2 * k] = packed[k] & 0xffffu;
+      v[2 * k + 1] = packed[k] >> 16;
+    }
+    reduce_transposed<2 * kHeld, Lo, L>(v, i);
+    constexpr int kLeft = reduced_count<2 * kHeld, Lo>();
+#pragma unroll
+    for (int k = 0; k < kLeft; ++k) {
+      // value q of the unpacked words: half q % 2 of the lane's word q / 2,
+      // which held pair p after the packed steps (the packed steps' lane
+      // bits lie above Lo, so the lanes of a 32-bit step agree on p)
+      const int q = reduced_index<2 * kHeld, Lo>(k, i);
+      const int p = q >= 0 ? reduced_index<N, L / 2, Lo>(q >> 1, i) : -1;
+      const int c = 2 * p + (q & 1);
+      if (p >= 0 && c < kCand) s_out[c][blk] = static_cast<int32_t>(v[k]);
+    }
   }
 }
 
@@ -173,10 +225,12 @@ __device__ __forceinline__ int reduced_index(int k, unsigned i) {
 // lane (i + oy) mod BH, slot (i + oy) / BH; each lane sends the slot its
 // taker wants, so a row costs one shuffle a word (none where oy is a
 // multiple of BH: the lane's own slot). A candidate is BW / 4 __vsadu4 over
-// the lane's anchor row; the lane's sums (at most 255 BW, a block's at most
-// 255 BW BH <= 255 x 256 < 2^16) go two to a word in raster order, and the
-// words reduce over the block's BH lanes by reduce_transposed. Every lane
-// of the warp calls it (full-mask shuffles).
+// the lane's anchor row; the lane's sums (at most 255 BW < 2^16) go two to
+// a word in raster order, and the words reduce over the block's BH lanes by
+// reduce_store: packed while a sum covers at most 256 pixels (every step
+// up to 16 x 16 blocks), then as 32-bit sums (a block's reaches 255 BW BH,
+// 261,120 at 32 x 32). Every lane of the warp calls it (full-mask
+// shuffles).
 template <int BW, int BH, int R>
 __device__ __forceinline__ void block_sads_wide(
     uint32_t (&rows)[Window<BW, R, BH>::kSlots][Window<BW, R, BH>::kWords],
@@ -222,18 +276,7 @@ __device__ __forceinline__ void block_sads_wide(
       }
     }
   }
-  reduce_transposed<W::kPacked, BH / 2, BH>(packed, i);
-  constexpr int kHeld = reduced_count<W::kPacked, BH / 2>();
-#pragma unroll
-  for (int k = 0; k < kHeld; ++k) {
-    const int p = reduced_index<W::kPacked, BH / 2>(k, i);
-    if (p >= 0) {
-      s_out[2 * p][blk] = static_cast<int32_t>(packed[k] & 0xffffu);
-      if (2 * p + 1 < W::kCand) {
-        s_out[2 * p + 1][blk] = static_cast<int32_t>(packed[k] >> 16);
-      }
-    }
-  }
+  reduce_store<W::kPacked, BH, BW, W::kCand>(packed, i, blk, s_out);
 }
 
 // The CTA's SADs (s_out, after a barrier; kBlocks MV blocks, kThreads / BH

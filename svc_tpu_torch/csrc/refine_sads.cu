@@ -1,14 +1,16 @@
 // K3 refine_sads: candidate SADs of one hierarchical motion refinement
 // level for a whole frame stack, specialised for BW x BH MV blocks (BW
-// columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16 and the
-// ratio-2 rectangles 8x4, 4x8, 16x8, 8x16 here; 2x2, 4x2 and 2x4 on K9's
-// thread-a-block kernel (candidate_sads.cu). These are the refinement
-// levels of the encoder's search at 16x16 MV blocks and 4 pyramid levels,
-// range 8 (R = 1, the default) to 39 (R = range / 8), at 8x8 MV blocks or
-// 2, 3 or 5 levels, and at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels
+// columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16, 32 and
+// the ratio-2 rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 here; 2x2, 4x2
+// and 2x4 on K9's thread-a-block kernel (candidate_sads.cu). These are the
+// refinement levels of the encoder's search at 16x16 MV blocks and 4
+// pyramid levels, range 8 (R = 1, the default) to 39 (R = range / 8), at
+// 8x8 MV blocks or 2, 3 or 5 levels, at 16x8 or 8x16 MV blocks and 2, 3 or
+// 4 levels, and at 32x32, 32x16 or 16x32 MV blocks and 2 to 5 levels
 // (--mv-block-w/-h, --pyr-lvl-count). The same kernel is K7's for one
-// frame pair (refine_mads.cu) and K9's at 4x4, 8x8, 8x4 and 4x8 blocks
-// with float32 output (candidate_sads.cu), through the launchers of
+// frame pair (refine_mads.cu) and K9's at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8
+// and 8x16 blocks with float32 output (candidate_sads.cu), through the
+// launchers of
 // refine_sads.cuh: it reads frame t's tracked plane and its anchor from two
 // bases a per-frame stride apart, so K3 passes (stack, stack + plane,
 // plane), K7 (tracked, anchor, 0) and K9 (tracked, anchor, plane).
@@ -35,8 +37,10 @@
 //   - a lane owns one anchor row of one block (BW / 4 words in registers);
 //     the BH lanes of a block are neighbours in a warp, 256 / BH blocks of
 //     one block row per CTA, so every lane is busy at every level;
-//   - window rows arrive as two aligned BW-byte chunks (16-, 8- or 4-byte
-//     loads through the read-only path) plus Window<BW, R>::kExtra words
+//   - window rows arrive as aligned chunks of kGrain = min(BW, 16) bytes
+//     (16-, 8- or 4-byte loads through the read-only path; two at BW <= 16,
+//     three at BW = 32, whose window starts at a 16-byte grain so that its
+//     word selects span 4 words, not 8) plus Window<BW, R>::kExtra words
 //     (one at R <= 2, two at R = 3, 4) when the window reaches past them; a
 //     chunk outside the frame (rows outside [0, fh), columns outside [0,
 //     fw); fw is a multiple of BW) reads as 0 by one predicate per chunk.
@@ -57,20 +61,26 @@
 //     blocks, a lane's (2R + 1)^2 sums fit 16 bits and go two to a word,
 //     and the words reduce by transposed xor steps (each halves what a lane
 //     holds: 41 shuffles for R = 4 at 16 lanes, not 324; 7 for R = 1, not
-//     36); then through shared memory, leaving as runs of consecutive block
-//     columns of each candidate plane;
-//   - at BW = 16 and R >= 2, and on the tall rectangles 8x16 and 4x8 at
-//     every R, the ALU work of the shifts, the row shuffles and the
-//     reduction outweighs the SADs, so refine_sads_split_kernel gives a
-//     block BH / 4 lanes of 4 anchor rows each: every lane loads its 4 + 2R
+//     36) while a sum covers at most 256 pixels, then as 32-bit sums
+//     (reduce_store: a 32x32 block's sum reaches 255 x 1024 > 2^16); then
+//     through shared memory, leaving as runs of consecutive block columns
+//     of each candidate plane;
+//   - at BW = 16 and R >= 2 (32 columns: R = 2, and R = 1 at 32x16), and
+//     on the tall rectangles 16x32, 8x16 and 4x8 at every R, the ALU work
+//     of the shifts, the row shuffles and the reduction outweighs the SADs,
+//     so refine_sads_split_kernel gives a block BH / 4 lanes of 4 anchor
+//     rows each: every lane loads its 4 + 2R
 //     window rows itself, a row's shifted words serve up to 4 anchor rows,
 //     and the reduction spans BH / 4 lanes (kSplit; in turns on an H100:
 //     22-27% faster at 16x16 and R = 2, 3, 9% at R = 4; at 16x8 22 / 13 /
 //     9% at R = 2 / 3 / 4; at 8x16 46 / 38 / 34 / 17% at R = 1-4 and at 4x8
-//     44 / 37 / 23 / 7%; at 8x8 no faster, 16% slower at R = 4: twice the
-//     row loads). Its CTAs hold 1024 / BH blocks, so it runs only where its
-//     grid has two CTAs an SM or more (K3's stack); a single 1080p pair
-//     (K7) keeps the one-row-a-lane kernel's grid but at 8x16.
+//     44 / 37 / 23 / 7%; at 32x32 and 32x16 3-5% at R = 2, 15% at 32x16
+//     and R = 1; at 8x8 no faster, 16% slower at R = 4: twice the row
+//     loads). Its CTAs hold 1024 / BH blocks, so it runs only where its
+//     grid gives every SM two CTAs, does not spill just past one wave at
+//     the kernel's own CTAs an SM and leaves few of its lanes idle past a
+//     block row's end (split_fits: K3's stacks; a single 1080p pair, K7,
+//     keeps the one-row-a-lane kernel's grid but at 8x16, R <= 3).
 // From the window rows on, the one-row-a-lane kernel runs refine_rows.cuh,
 // shared with the K8 refine (refine_sads_pitched.cu, 16x16, R = 1).
 #include "refine_rows.cuh"
@@ -81,11 +91,16 @@ namespace {
 // Anchor rows a lane owns in the split kernel.
 constexpr int kSplitRows = 4;
 
-// Whether an instance runs the split kernel (where its grid holds two CTAs
-// an SM): 16-column blocks at R >= 2, and the tall rectangles 8x16 and 4x8
-// at every R.
+// Whether an instance runs the split kernel (where its grid fits it,
+// launch): 16-column blocks at R >= 2, the tall rectangles 16x32, 8x16 and
+// 4x8 at every R, and 32-column blocks at R = 2 and 32x16 at R = 1. At R =
+// 3, 4 the 32-column split kernel needs 137-139 registers, one CTA an SM,
+// and the one-row kernel (75-109, two or three) is 10-19% faster; at R =
+// 1 32x32's one-row kernel is 4% faster, 32x16's 15% slower (in turns on
+// an H100).
 template <int BW, int BH, int R>
-constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8);
+constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8) ||
+                        (BW == 32 && (R == 2 || (R == 1 && BH < BW)));
 
 // Whether an instance's 9 sums at R = 1 reduce by plain xor steps over the
 // block's BH lanes (8x8 blocks and 4-row ones) rather than two to a word
@@ -96,13 +111,17 @@ constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8);
 template <int BW, int BH, int R>
 constexpr bool kXorSums = R == 1 && (BH == 4 || (BW == 8 && BH == 8));
 
-// One aligned BW-byte chunk (16, 8 or 4 bytes) as BW / 4 words.
-template <int BW>
+// N aligned bytes (32, 16, 8 or 4; 16-byte aligned from 16 on) as N / 4
+// words.
+template <int N>
 __device__ __forceinline__ void load_chunk(const uint8_t* p, uint32_t* w) {
-  if constexpr (BW == 16) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else if constexpr (BW == 8) {
+  if constexpr (N >= 16) {
+#pragma unroll
+    for (int k = 0; k < N / 16; ++k) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + k);
+      w[4 * k] = v.x; w[4 * k + 1] = v.y; w[4 * k + 2] = v.z; w[4 * k + 3] = v.w;
+    }
+  } else if constexpr (N == 8) {
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
     w[0] = v.x; w[1] = v.y;
   } else {
@@ -112,54 +131,58 @@ __device__ __forceinline__ void load_chunk(const uint8_t* p, uint32_t* w) {
 
 // Bytes [x0, x0 + 4 kWords) of row y of a plane as Window<BW, R>::kWords
 // words, the first starting at byte x0 (the window row needs BW + 2R of
-// them). It loads the two aligned BW-byte chunks from floor(x0 / BW) * BW
-// on, and the kExtra words after them when the window reaches them; a
-// chunk outside the frame, and every chunk when the row lies outside it or
-// the lane is disabled, reads as 0 (fw is a multiple of BW, so a chunk is
-// wholly in or out).
+// them). It loads the kChunks aligned kGrain-byte chunks from floor(x0 /
+// kGrain) * kGrain on (two BW-byte chunks at BW <= 16, three of 16 bytes
+// at BW = 32), and the kExtra words after them when the window reaches
+// them; a chunk outside the frame, and every chunk when the row lies
+// outside it or the lane is disabled, reads as 0 (fw is a multiple of BW,
+// so of kGrain, and a chunk is wholly in or out).
 template <int BW, int R>
 __device__ __forceinline__ void load_window_row(const uint8_t* __restrict__ plane,
                                                 int y, int x0, int fh, int fw,
                                                 bool enabled,
                                                 uint32_t (&al)[Window<BW, R>::kWords]) {
-  constexpr int kW = BW / 4;
+  using W = Window<BW, R>;
+  constexpr int kG = W::kGrain;
+  constexpr int kW = kG / 4;  // words a chunk
+  constexpr int kTail = W::kChunks * kW;  // the first extra word
   const bool row_in = enabled && y >= 0 && y < fh;
   const uint8_t* row = plane + static_cast<size_t>(row_in ? y : 0) * fw;
-  const int xb = x0 & ~(BW - 1);  // floor to a multiple of BW
-  const int s = x0 - xb;          // 0 .. BW-1
-  uint32_t w[Window<BW, R>::kFetch];
+  const int xb = x0 & ~(kG - 1);  // floor to a multiple of kGrain
+  const int s = x0 - xb;          // 0 .. kGrain-1
+  uint32_t w[W::kFetch];
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int x = xb + c * BW;
+  for (int c = 0; c < W::kChunks; ++c) {
+    const int x = xb + c * kG;
     if (row_in && x >= 0 && x < fw) {
-      load_chunk<BW>(row + x, w + c * kW);
+      load_chunk<kG>(row + x, w + c * kW);
     } else {
 #pragma unroll
       for (int k = 0; k < kW; ++k) w[c * kW + k] = 0u;
     }
   }
-  const int x2 = xb + 2 * BW;  // the window's last bytes lie here when s is large
+  const int x2 = xb + W::kChunks * kG;  // the window's last bytes lie here when s is large
   if constexpr (R == 1) {
-    w[2 * kW] = (row_in && s == BW - 1 && x2 >= 0 && x2 < fw)
-                    ? __ldg(reinterpret_cast<const unsigned int*>(row + x2)) : 0u;
-  } else if constexpr (BW == 4) {
+    w[kTail] = (row_in && s == kG - 1 && x2 >= 0 && x2 < fw)
+                   ? __ldg(reinterpret_cast<const unsigned int*>(row + x2)) : 0u;
+  } else if constexpr (kG == 4) {
     // chunks of one word: word e is needed when s + 4 + 2R > 8 + 4e
 #pragma unroll
-    for (int e = 0; e < Window<BW, R>::kExtra; ++e) {
+    for (int e = 0; e < W::kExtra; ++e) {
       const int x = x2 + 4 * e;
-      w[2 + e] = (row_in && s > 4 * e + 4 - 2 * R && x >= 0 && x < fw)
-                     ? __ldg(reinterpret_cast<const unsigned int*>(row + x)) : 0u;
+      w[kTail + e] = (row_in && s > 4 * e + 4 - 2 * R && x >= 0 && x < fw)
+                         ? __ldg(reinterpret_cast<const unsigned int*>(row + x)) : 0u;
     }
   } else {
-    // BW >= 8: the kExtra (1 or 2) words lie in one chunk, 8-byte aligned
-    const bool need = row_in && s > BW - 2 * R && x2 >= 0 && x2 < fw;
-    if constexpr (Window<BW, R>::kExtra == 1) {
-      w[2 * kW] = need ? __ldg(reinterpret_cast<const unsigned int*>(row + x2)) : 0u;
+    // kGrain >= 8: the kExtra (1 or 2) words lie in one chunk, 8-byte aligned
+    const bool need = row_in && s > kG - 2 * R && x2 >= 0 && x2 < fw;
+    if constexpr (W::kExtra == 1) {
+      w[kTail] = need ? __ldg(reinterpret_cast<const unsigned int*>(row + x2)) : 0u;
     } else {
       uint2 v = make_uint2(0u, 0u);
       if (need) v = __ldg(reinterpret_cast<const uint2*>(row + x2));
-      w[2 * kW] = v.x;
-      w[2 * kW + 1] = v.y;
+      w[kTail] = v.x;
+      w[kTail + 1] = v.y;
     }
   }
   align_window_row<BW, R>(w, s, al);
@@ -222,8 +245,9 @@ refine_sads_kernel(const uint8_t* __restrict__ tracked,
 // 4l .. 4l + 3 and loading its own window rows 4l .. 4l + 3 + 2R (no row
 // shuffles); a window row's shifted words serve each of the lane's anchor
 // rows it meets, the 16-bit sums accumulate two to a word as they come (at
-// most 4 * 16 * 255 a lane), and the words reduce over the BH / 4 lanes by
-// transposed xor steps. 1024 / BH blocks a CTA.
+// most 4 * 32 * 255 a lane), and the words reduce over the BH / 4 lanes by
+// transposed xor steps (reduce_store: as 32-bit sums once a sum covers
+// more than 256 pixels). 1024 / BH blocks a CTA.
 template <int BW, int BH, int R, class Out>
 __global__ void __launch_bounds__(kThreads)
 refine_sads_split_kernel(const uint8_t* __restrict__ tracked,
@@ -298,20 +322,26 @@ refine_sads_split_kernel(const uint8_t* __restrict__ tracked,
       }
     }
   }
-  reduce_transposed<W::kPacked, kLanes / 2, kLanes>(packed, l);
-  constexpr int kHeld = reduced_count<W::kPacked, kLanes / 2>();
-#pragma unroll
-  for (int k = 0; k < kHeld; ++k) {
-    const int p = reduced_index<W::kPacked, kLanes / 2>(k, l);
-    if (p >= 0) {
-      s_out[2 * p][blk] = static_cast<int32_t>(packed[k] & 0xffffu);
-      if (2 * p + 1 < W::kCand) {
-        s_out[2 * p + 1][blk] = static_cast<int32_t>(packed[k] >> 16);
-      }
-    }
-  }
+  reduce_store<W::kPacked, kLanes, kRows * BW, W::kCand>(packed, l, blk, s_out);
   __syncthreads();
   store_sads<BH, R, kBlocks>(s_out, out, t, by, mfh, mfw);
+}
+
+// Whether the split kernel takes a grid of `ctas` CTAs on `sms` SMs that
+// hold `per_sm` of them at once (its own occupancy), its CTAs of `blocks`
+// block columns leaving `idle` of them past a block row's end: every SM
+// gets two CTAs or more; the grid does not spill past one full wave by
+// fewer CTAs than there are SMs (such a remainder runs as a second wave of
+// under one CTA an SM on an otherwise idle card, a whole CTA's time for a
+// sliver of the work: K7's 8x16 pair at R = 4, 272 CTAs, 264 at once; past
+// two waves the tail's share is a third or less); and a quarter of a CTA's
+// lanes at most idle (K9's 16x8 on a 960-column level: 60 block columns
+// in a CTA of 128). Else the one-row kernel's four times as many, smaller
+// CTAs spread evenly.
+constexpr bool split_fits(long long ctas, long long sms, long long per_sm, int idle,
+                          int blocks) {
+  const long long wave = per_sm * sms;
+  return 4 * idle <= blocks && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);
 }
 
 template <int BW, int BH, int R, class Out>
@@ -325,14 +355,21 @@ int launch(const void* tracked, const void* anchor, size_t frame_stride,
   const auto* anc = static_cast<const uint8_t*>(anchor);
   const auto* m = static_cast<const int32_t*>(mv);
   if constexpr (kSplit<BW, BH, R>) {
-    // the split kernel where its CTAs still fill the card twice over (a
-    // stack of 1080p frames); one pair's grid runs the one-row kernel
+    // the split kernel where its grid fits the card (a stack of 1080p
+    // frames; a pair at some shapes); else the one-row kernel
     constexpr int kBlocks = kThreads / (BH / kSplitRows);
     const dim3 grid((mfw + kBlocks - 1) / kBlocks, mfh, t_count);
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (static_cast<long long>(grid.x) * grid.y * grid.z >= 2LL * sms) {
+    static const int per_sm = [] {  // the instance's CTAs an SM, asked once
+      int n = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, refine_sads_split_kernel<BW, BH, R, Out>, kThreads, 0);
+      return n;
+    }();
+    if (split_fits(static_cast<long long>(grid.x) * grid.y * grid.z, sms, per_sm,
+                   grid.x * kBlocks - mfw, kBlocks)) {
       refine_sads_split_kernel<BW, BH, R, Out><<<grid, kThreads, 0, st>>>(
           trk, anc, frame_stride, m, o, fh, fw, mfh, mfw);
       return static_cast<int>(cudaGetLastError());
@@ -370,8 +407,8 @@ int launch_refine_rows(const void* tracked, const void* anchor,
   }
 }
 
-// K3 and K7 at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8 and 8x16 blocks; K9 at 4x4,
-// 8x8, 8x4 and 4x8
+// K3 and K7 at 4x4, 8x8, 16x16, 32x32, 8x4, 4x8, 16x8, 8x16, 32x16 and
+// 16x32 blocks; K9 at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8 and 8x16
 #define SVC_REFINE_ROWS(BW, BH, Out)                                             \
   template int launch_refine_rows<BW, BH, Out>(const void*, const void*, size_t, \
                                                const void*, Out*, int, int, int, \
@@ -383,10 +420,16 @@ SVC_REFINE_ROWS(8, 4, int32_t)
 SVC_REFINE_ROWS(4, 8, int32_t)
 SVC_REFINE_ROWS(16, 8, int32_t)
 SVC_REFINE_ROWS(8, 16, int32_t)
+SVC_REFINE_ROWS(32, 32, int32_t)
+SVC_REFINE_ROWS(32, 16, int32_t)
+SVC_REFINE_ROWS(16, 32, int32_t)
 SVC_REFINE_ROWS(4, 4, float)
 SVC_REFINE_ROWS(8, 8, float)
 SVC_REFINE_ROWS(8, 4, float)
 SVC_REFINE_ROWS(4, 8, float)
+SVC_REFINE_ROWS(16, 16, float)
+SVC_REFINE_ROWS(16, 8, float)
+SVC_REFINE_ROWS(8, 16, float)
 #undef SVC_REFINE_ROWS
 
 int launch_refine_sads(const void* tracked, const void* anchor,
@@ -421,15 +464,21 @@ int launch_refine_sads(const void* tracked, const void* anchor,
         tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
     case shape_key(8, 16): return launch_refine_rows<8, 16, int32_t>(
         tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(32, 32): return launch_refine_rows<32, 32, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(32, 16): return launch_refine_rows<32, 16, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(16, 32): return launch_refine_rows<16, 32, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // stack: (t_count + 1, fh, fw) uint8, 16-byte aligned; mv: (t_count,
 // fh/bh, fw/bw, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw)
-// int32. All contiguous; (bw, bh) one of 2x2, 4x4, 8x8, 16x16, 4x2, 2x4,
-// 8x4, 4x8, 16x8, 8x16, dividing fw and fh; 1 <= r <= 4. Refuses
-// (cudaErrorInvalidValue) anything else.
+// int32. All contiguous; (bw, bh) one of 2x2, 4x4, 8x8, 16x16, 32x32, 4x2,
+// 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, dividing fw and fh; 1 <= r <= 4.
+// Refuses (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int bw, int bh, int r,
                                void* stream) {

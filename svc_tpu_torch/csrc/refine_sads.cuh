@@ -14,8 +14,9 @@
 constexpr int shape_key(int bw, int bh) { return bw << 8 | bh; }
 
 // K3's lane-per-anchor-row kernel (refine_sads.cu, over refine_rows.cuh)
-// for BW x BH blocks: 4x4, 8x8, 16x16, 8x4, 4x8, 16x8, 8x16 with int32
-// output (K3, K7), 4x4, 8x8, 8x4, 4x8 with float32 (K9). tracked, anchor:
+// for BW x BH blocks: 4x4, 8x8, 16x16, 32x32, 8x4, 4x8, 16x8, 8x16, 32x16,
+// 16x32 with int32 output (K3, K7), 4x4, 8x8, 16x16, 8x4, 4x8, 16x8, 8x16
+// with float32 (K9). tracked, anchor:
 // (fh, fw) uint8 planes, 16-byte aligned, frame_stride a multiple of 16;
 // mv: (t_count, fh/BH, fw/BW, 2) int32 (x, y); out: (t_count, (2r + 1)^2,
 // fh/BH, fw/BW). All contiguous; BH divides fh and BW divides fw.

@@ -64,11 +64,12 @@ of 1088 padded rows to 1080, steps 1 and 640 at random); the wire target
 the resize target ``idct_resize_display`` at the blocks of K6's
 templated kernel (8 frames of 1376x768 to 1366x768 and of 864x480 to
 854x480); the motion target ``refine_sads`` at levels 2, 1, 0 of that
-stack (blocks whose longer side is 4, 8, 16, and 2x2 on level 2; even MVs
-within the level's reach), ``refine_mads`` on frames 0 and 1 of each
-level and ``candidate_sads`` at the level each block is the top of (1x1,
-2x2, 2x1 and 1x2 on the 136x240 one, 4x4, 4x2 and 2x4 on 272x480, 8x8, 8x4
-and 4x8 on 544x960; zero MVs, T = 8) at each radius (the blocks and radii
+stack (blocks whose longer side is 4, 8, 16, and 2x2 on level 2, 32 on
+level 0; even MVs within the level's reach), ``refine_mads`` on frames 0
+and 1 of each level and ``candidate_sads`` at the level each block is the
+top of (1x1, 2x2, 2x1 and 1x2 on the 136x240 one, 4x4, 4x2 and 2x4 on
+272x480, 8x8, 8x4, 4x8, 16x16, 16x8 and 8x16 on 544x960; zero MVs, T = 8)
+at each radius (the blocks and radii
 both wrapper modules specialise), and ``refine_sads_pitched`` at level 0
 (8 subplanes, r = 1). The
 two libraries' outputs must be equal bit for bit (K10's also to its plain
@@ -311,10 +312,10 @@ def motion_work(mods):
     radii = sorted(set.intersection(*(set(getattr(m, "_SAD_RADII", (1,))) for m in mods)))
     work = {}
     for r in radii:
-        # K3 / K7 on levels 2, 1, 0 (longer sides 4, 8, 16; 2x2 on level 2
-        # where both modules specialise it: 8x8 MV blocks)
+        # K3 / K7 on levels 2, 1, 0 (longer sides 4, 8, 16 and 32; 2x2 on
+        # level 2 where both modules specialise it: 8x8 MV blocks)
         for bw, bh in common("_K3_BLOCKS", (4, 8, 16)):
-            lvl = {2: 2, 4: 2, 8: 1, 16: 0}[max(bw, bh)]
+            lvl = {2: 2, 4: 2, 8: 1, 16: 0, 32: 0}[max(bw, bh)]
             shape = (8, (1088 >> lvl) // bh, (1920 >> lvl) // bw, 2)
             reach = (2 * r) << (2 - lvl)
             mv = (2 * torch.randint(-reach // 2, reach // 2 + 1, shape,
@@ -327,9 +328,11 @@ def motion_work(mods):
                 lambda m, s=chain[lvl], mv=mv[0], bw=bw, bh=bh, r=r:
                 m.refine_mads(s[0], s[1], mv, r, bw, bh))
         # K9 at the top level each block is the top of (1x1, 2x2, 2x1, 1x2
-        # on level 3, 4x4, 4x2, 2x4 on 2, 8x8, 8x4, 4x8 on 1), zero MVs
+        # on level 3, 4x4, 4x2, 2x4 on 2, 8x8, 8x4, 4x8 on 1, and 16x16,
+        # 16x8, 8x16 on 1, the top of 2 levels of 32-pixel MV blocks), zero
+        # MVs
         for bw, bh in common("_K9_BLOCKS", (2,)):
-            lvl = {1: 3, 2: 3, 4: 2, 8: 1}[max(bw, bh)]
+            lvl = {1: 3, 2: 3, 4: 2, 8: 1, 16: 1}[max(bw, bh)]
             top = chain[lvl]
             zero = torch.zeros((8, top.shape[1] // bh, top.shape[2] // bw, 2),
                                dtype=torch.int32).cuda()

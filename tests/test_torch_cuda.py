@@ -339,6 +339,73 @@ def test_refine_rect_blocks_equal_general(gen, block, kind, r):
     assert torch.equal(pair, motion.refine_mads(tr, an, mv0, r, bw, bh, general=True))
 
 
+def _checkerboard(h, w, bw, bh):
+    """255 over every other bw x bh block of an h x w plane, 0 elsewhere."""
+    by = torch.arange(h)[:, None] // bh
+    bx = torch.arange(w)[None, :] // bw
+    return (((by + bx) % 2 == 0).to(torch.uint8) * 255).cuda()
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", [(32, 32), (32, 16), (16, 32)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("kind", ["path", "edge", "far", "large", "saturated"])
+def test_refine_wide_blocks_equal_general(gen, block, kind, r):
+    # K3 and K7 at level 0 of 32x32, 32x16 and 16x32 MV blocks ("large": a
+    # 1088x1920 stack of 9 frames, where the split kernel's grid fits the
+    # card; "saturated": anchor 255 against tracked 0 over whole blocks, a
+    # block's SAD 255 BW BH, past 2^16) against the general kernels, the
+    # plain versions and K3 on the stacked pair, every candidate
+    bw, bh = block
+    t, h, w = (8, 1088, 1920) if kind == "large" else (2, 5 * bh, 41 * bw)
+    stack = _u8(gen, (t + 1, h, w))
+    if kind == "saturated":
+        stack.zero_()
+        stack[1::2] = _checkerboard(h, w, bw, bh)
+    mv = _rect_mvs(gen, kind if kind in ("edge", "far") else "path",
+                   (t, h // bh, w // bw, 2), bw, bh, r)
+    name = motion._instance(bw, bh, r)
+    inst = motion.REFINE_SADS.instance_launches["refine_sads" + name]
+    got = motion.refine_sads(stack, mv, r, bw, bh)
+    assert motion.REFINE_SADS.instance_launches["refine_sads" + name] == inst + 1
+    assert torch.equal(got, motion.refine_sads(stack, mv, r, bw, bh, general=True))
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, bw, bh))
+    if kind == "saturated":
+        assert int(got.max()) == 255 * bw * bh
+    tr, an, mv0 = stack[0].clone(), stack[1].clone(), mv[0].contiguous()
+    inst = motion.REFINE_MADS.instance_launches["refine_mads" + name]
+    pair = motion.refine_mads(tr, an, mv0, r, bw, bh)
+    assert motion.REFINE_MADS.instance_launches["refine_mads" + name] == inst + 1
+    assert torch.equal(pair, got[0])
+    assert torch.equal(pair, motion.refine_mads(tr, an, mv0, r, bw, bh, general=True))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", [(16, 16), (16, 8), (8, 16)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("t,h,w,kind", [(8, 544, 960, "zero"), (2, 48, 80, "edge"),
+                                        (1, 32, 48, "far"), (8, 544, 960, "saturated")])
+def test_candidate_sads_wide_top_blocks_equal_general(gen, block, t, h, w, kind, r):
+    # K9 on K3's kernel (float32 output) at the top levels of 32x32, 32x16
+    # and 16x32 MV blocks at 2 levels (8 x 544x960), saturated too (65,280
+    # at 16x16), against the general kernel and the plain version
+    bw, bh = block
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    if kind == "saturated":
+        tr.zero_()
+        an[:] = _checkerboard(h, w, bw, bh)
+    mv = _rect_mvs(gen, "zero" if kind == "saturated" else kind,
+                   (t, h // bh, w // bw, 2), bw, bh, r)
+    name = "candidate_sads" + motion._instance(bw, bh, r)
+    inst = motion.CANDIDATE_SADS.instance_launches[name]
+    got = motion.candidate_sads(tr, an, mv, r, bw, bh)
+    assert motion.CANDIDATE_SADS.instance_launches[name] == inst + 1
+    assert torch.equal(got, motion.candidate_sads(tr, an, mv, r, bw, bh, general=True))
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, bw, bh))
+    if kind == "saturated":
+        assert int(got.max()) == 255 * bw * bh
+
+
 def test_candidate_sads_1x1_odd_plane_takes_the_general_kernel(gen):
     # 5x7 planes are no whole number of words: the 1x1 kernel's loads would
     # leave the last plane, so the general kernel takes them

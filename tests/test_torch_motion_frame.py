@@ -90,6 +90,35 @@ def test_hbma_bit_equal(h, w, levels, bw, bh, r, monkeypatch):
     assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
 
 
+# MV blocks with a 32-pixel side on 64x256 frames (width, height, levels,
+# range): 32x32 at 2, 3, 4 and 5 levels (range 16 at 5), 32x16 and 16x32 at
+# 2 and 4; 8 block columns or more at every level, so svc_tpu's hbma takes
+# refine_mads_pallas at each refinement level
+WIDE_HBMA_CASES = [(32, 32, 2, 8), (32, 32, 3, 8), (32, 32, 4, 8), (32, 32, 5, 16),
+                   (32, 16, 2, 8), (32, 16, 4, 8), (16, 32, 2, 8), (16, 32, 4, 8)]
+
+
+@pytest.mark.parametrize("bw,bh,levels,r", WIDE_HBMA_CASES)
+def test_hbma_wide_blocks_bit_equal(bw, bh, levels, r, monkeypatch):
+    frames = _moving_stack(2, 64, 256, seed=bw + 2 * bh + levels)
+    jp, tp = _pyramids(frames, levels)
+    calls = []
+    pallas = j_mp.refine_mads_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_pallas", counted)
+    mv_j, mm_j = j_motion.hbma([p[0] for p in jp], [p[1] for p in jp], r, bw, bh)
+    assert len(calls) == levels - 1  # every refinement level took the kernel
+    mv_t, mm_t = motion.hbma([p[0] for p in tp], [p[1] for p in tp], r, bw, bh)
+    assert mv_t.shape == (64 // bh, 256 // bw, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0
+
+
 def test_hbma_validation_errors_match():
     pyr = pyramid.build_pyramid(torch.from_numpy(_moving_stack(2, 32, 64)), 4)
     tr, an = [p[0] for p in pyr], [p[1] for p in pyr]

@@ -49,6 +49,9 @@ def _meta_u8(*shape):
 # the ratio-2 rectangles (width x height) of 16x8 and 8x16 MV blocks'
 # refinement levels: K3's / K7's instances
 _RECTS = [(4, 2), (8, 4), (16, 8), (2, 4), (4, 8), (8, 16)]
+# the blocks with a 32-pixel side: level 0 of 32x32, 32x16 and 16x32 MV
+# blocks
+_WIDE = [(32, 32), (32, 16), (16, 32)]
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +78,12 @@ _RECTS = [(4, 2), (8, 4), (16, 8), (2, 4), (4, 8), (8, 16)]
      (16, 8, 5, False, "refine_sads_general"),
      # other ratios and sides stay general
      (4, 16, 1, False, "refine_sads_general"), (16, 4, 1, False, "refine_sads_general"),
-     (6, 3, 1, False, "refine_sads_general"), (32, 16, 1, False, "refine_sads_general"),
-     (1, 2, 1, False, "refine_sads_general")],
+     (6, 3, 1, False, "refine_sads_general"), (32, 8, 1, False, "refine_sads_general"),
+     (1, 2, 1, False, "refine_sads_general"), (64, 64, 1, False, "refine_sads_general"),
+     # a 32-pixel side: 32x32, 32x16, 16x32 MV blocks' level 0
+     *((bw, bh, r, False, "refine_sads") for bw, bh in _WIDE for r in (1, 2, 3, 4)),
+     (32, 32, 5, False, "refine_sads_general"),
+     (32, 16, 2, True, "refine_sads_general")],
 )
 def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     fh, fw = 4 * bh, 6 * bw
@@ -142,7 +149,11 @@ def _meta_plane_at(offset, fh, fw):
      (16, 8, 1, False, 4, "refine_mads_general"),  # K3's 16-byte gate
      (4, 2, 3, True, 0, "refine_mads_general"),
      (16, 4, 1, False, 0, "refine_mads_general"),
-     (6, 3, 1, False, 0, "refine_mads_general")],
+     (6, 3, 1, False, 0, "refine_mads_general"),
+     *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _WIDE for r in (1, 2, 3, 4)),
+     (32, 32, 1, False, 8, "refine_mads_general"),  # K3's 16-byte gate
+     (16, 32, 4, True, 0, "refine_mads_general"),
+     (32, 32, 5, False, 0, "refine_mads_general")],
 )
 def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
                               kernel):
@@ -196,6 +207,7 @@ def test_k3_host_constants_match_the_kernel_source():
     assert thin == {(2, 2), (4, 2), (2, 4)}
     assert min(min(b) for b in rows) >= 4
     assert rows | thin == set(motion._K3_BLOCKS)
+    assert set(_WIDE) <= rows  # level 0 of 32x32, 32x16 and 16x32 MV blocks
     # the instances built: int32 for K3 / K7, float32 for K9's shapes with
     # both sides 4 or more
     built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\d+), (\w+)\)\n", src))
@@ -211,29 +223,45 @@ def test_k3_host_constants_match_the_kernel_source():
     rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
     assert "constexpr int kCand = 9;" in rows
     assert "constexpr int kThreads = 256;" in rows
-    for line in ("static constexpr int kExtra = (2 * R + 3) / 4;",
+    for line in ("static constexpr int kGrain = BW < 16 ? BW : 16;",
+                 "static constexpr int kChunks = BW / kGrain + 1;",
+                 "static constexpr int kExtra = (2 * R + 3) / 4;",
                  "static constexpr int kWords = BW / 4 + kExtra;",
-                 "static constexpr int kFetch = BW / 2 + kExtra;",
+                 "static constexpr int kFetch = kChunks * kGrain / 4 + kExtra;",
                  "static constexpr int kSlots = 1 + (2 * R + BH - 1) / BH;",
                  "static constexpr int kPacked = (kCand + 1) / 2;"):
         assert line in rows, line
     # the r = 1 instances keep the parent's shuffles (over BH lanes); R >= 2
-    # the transposed reduction over the block's lanes
-    assert "reduce_transposed<W::kPacked, BH / 2, BH>(packed, i);" in rows
+    # the transposed reduction over the block's lanes, on 16-bit pairs
+    # while a sum covers at most 256 pixels (_reduce_store)
+    assert "reduce_store<W::kPacked, BH, BW, W::kCand>(packed, i, blk, s_out);" in rows
+    assert "constexpr int Lo = L / (2 * (256 / kPixels));" in rows
+    assert "reduce_transposed<N, L / 2, L, Lo>(packed, i);" in rows
+    assert "reduce_transposed<2 * kHeld, Lo, L>(v, i);" in rows
     assert "__shfl_xor_sync(kFull, acc[c], off, BH);" in rows
     assert "block_sads<BW, BH>(r0, ext, a, i, blk, s_out);" in src
     assert "constexpr bool kXorSums = R == 1 && (BH == 4 || (BW == 8 && BH == 8));" in src
     assert "if constexpr (kXorSums<BW, BH, R>) {" in src
     assert "block_sads_wide<BW, BH, R>(rows, a, i, blk, s_out);" in src
-    # 16-column blocks at R >= 2, 8x16 and 4x8: the split kernel the
-    # replay above follows
+    # 16-column blocks at R >= 2, 16x32, 8x16 and 4x8, 32-column ones at R
+    # = 2 and 32x16 at R = 1: the split kernel the replay above follows
     assert f"constexpr int kSplitRows = {_SPLIT_ROWS};" in src
-    assert "constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8);" in src
+    assert ("constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8) ||\n"
+            "                        (BW == 32 && (R == 2 || (R == 1 && BH < BW)));") in src
     assert "if constexpr (kSplit<BW, BH, R>) {" in src
     assert "constexpr int kLanes = BH / kRows;" in src
-    # where its grid holds two CTAs an SM; else the one-row-a-lane kernel
-    assert "if (static_cast<long long>(grid.x) * grid.y * grid.z >= 2LL * sms) {" in src
-    assert "reduce_transposed<W::kPacked, kLanes / 2, kLanes>(packed, l);" in src
+    # where its grid gives every SM two CTAs and does not spill just past
+    # one wave at the kernel's own CTAs an SM (_split_fits); else the
+    # one-row-a-lane kernel
+    assert "&n, refine_sads_split_kernel<BW, BH, R, Out>, kThreads, 0);" in src
+    assert ("if (split_fits(static_cast<long long>(grid.x) * grid.y * grid.z, sms, "
+            "per_sm,\n") in src
+    assert "const long long wave = per_sm * sms;" in src
+    assert ("return 4 * idle <= blocks && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);"
+            in src)
+    assert "grid.x * kBlocks - mfw, kBlocks)) {" in src
+    assert ("reduce_store<W::kPacked, kLanes, kRows * BW, W::kCand>(packed, l, blk, s_out);"
+            in src)
 
 
 @pytest.mark.parametrize("config,blocks", [
@@ -242,13 +270,19 @@ def test_k3_host_constants_match_the_kernel_source():
     # 16x8 and 8x16 MV blocks (width x height) at 4, 3 and 2 levels
     (((16, 8), 4, 8), ("4x2", "8x4", "16x8")), (((16, 8), 3, 8), ("8x4", "16x8")),
     (((16, 8), 2, 8), ("16x8",)), (((8, 16), 4, 16), ("2x4", "4x8", "8x16")),
-    (((8, 16), 3, 8), ("4x8", "8x16")), (((8, 16), 2, 8), ("8x16",))])
+    (((8, 16), 3, 8), ("4x8", "8x16")), (((8, 16), 2, 8), ("8x16",)),
+    # 32x32 MV blocks at 4, 3, 2 and 5 levels (range 16), 32x16 and 16x32
+    # at 4 and 2
+    ((32, 4, 8), (8, 16, 32)), ((32, 3, 8), (16, 32)), ((32, 2, 8), (32,)),
+    ((32, 5, 16), (4, 8, 16, 32)),
+    (((32, 16), 4, 8), ("8x4", "16x8", "32x16")), (((32, 16), 2, 8), ("32x16",)),
+    (((16, 32), 4, 8), ("4x8", "8x16", "16x32")), (((16, 32), 2, 8), ("16x32",))])
 def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
     # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
-    # levels, and at 16x8 and 8x16 MV blocks and 4, 3, 2 levels on the
-    # 1080p frame they pad to (1080 rows at 16x8: an odd count of block
-    # rows at every level): the top level on K9, then each level on its K7
-    # instance
+    # levels, at 16x8 and 8x16 MV blocks and 4, 3, 2 levels, and at 32x32,
+    # 32x16 and 16x32 MV blocks on the 1080p frame they pad to (1080 rows at
+    # 16x8: an odd count of block rows at every level; 1088 at a 32-pixel
+    # side): the top level on K9, then each level on its K7 instance
     block, levels, search_range = config
     bw, bh = (block, block) if isinstance(block, int) else block
     r = search_range >> (levels - 1)
@@ -307,9 +341,11 @@ class _Win:
 
     def __init__(self, bw, r, bh=None):
         bh = bw if bh is None else bh
+        self.grain = min(bw, 16)  # bytes of an aligned chunk
+        self.chunks = bw // self.grain + 1
         self.extra = (2 * r + 3) // 4
         self.words = bw // 4 + self.extra
-        self.fetch = bw // 2 + self.extra
+        self.fetch = self.chunks * self.grain // 4 + self.extra
         self.slots = 1 + (2 * r + bh - 1) // bh
         self.cand = (2 * r + 1) ** 2
         self.packed = (self.cand + 1) // 2
@@ -317,15 +353,17 @@ class _Win:
 
 def _k3_window_row(plane, y, x0, enabled, b, r):
     """``load_window_row<B, R>`` for arrays of rows ``y``, first window
-    columns ``x0`` and lane predicates: the aligned chunks and extra words
-    with their predicates, then ``align_window_row``'s word selects and
-    funnel shift. ``(..., kWords)`` int64 words."""
+    columns ``x0`` and lane predicates: the aligned chunks (of ``kGrain``
+    bytes: B, 16 at B = 32) and extra words with their predicates, then
+    ``align_window_row``'s word selects and funnel shift. ``(..., kWords)``
+    int64 words."""
     fh, fw = plane.shape
     win = _Win(b, r)
-    kw = b // 4
+    g = win.grain
+    kw = g // 4
     row_in = enabled & (y >= 0) & (y < fh)
     yy = np.where(row_in, y, 0)
-    xb = x0 & ~(b - 1)
+    xb = x0 & ~(g - 1)
     s = x0 - xb
 
     def word_at(x, ok):
@@ -335,19 +373,19 @@ def _k3_window_row(plane, y, x0, enabled, b, r):
                                                -1))[..., 0], 0)
 
     w = []
-    for c in range(2):
-        x = xb + c * b
+    for c in range(win.chunks):
+        x = xb + c * g
         ok = row_in & (x >= 0) & (x < fw)
         w += [word_at(x + 4 * k, ok) for k in range(kw)]
-    x2 = xb + 2 * b
+    x2 = xb + win.chunks * g
     for e in range(win.extra):
         x = x2 + 4 * e
         if r == 1:
-            need, edge = s == b - 1, x2
-        elif b == 4:
+            need, edge = s == g - 1, x2
+        elif g == 4:
             need, edge = s > 4 * e + 4 - 2 * r, x
         else:  # both extra words in one chunk, one predicate
-            need, edge = s > b - 2 * r, x2
+            need, edge = s > g - 2 * r, x2
         w.append(word_at(x, row_in & need & (edge >= 0) & (edge < fw)))
     w = np.stack(w, -1)
     assert w.shape[-1] == win.fetch
@@ -366,27 +404,31 @@ def _k3_window_row(plane, y, x0, enabled, b, r):
     return al
 
 
-def _reduced_count(n, h):
-    return n if h == 0 or n == 1 else _reduced_count((n + 1) // 2, h // 2)
+def _reduced_count(n, h, lo=0):
+    return n if h <= lo or n == 1 else _reduced_count((n + 1) // 2, h // 2, lo)
 
 
-def _reduced_index(n, h, k, i):
-    """``reduced_index<N, H>(k, i)`` for an array of lanes ``i``."""
-    if h == 0:
-        return np.full(i.shape, k if k < n else -1)
+def _reduced_index(n, h, k, i, lo=0):
+    """``reduced_index<N, H, Lo>(k, i)`` for an array of lanes ``i`` (``k``
+    an int or an array over them, >= 0)."""
+    if h <= lo:
+        return np.broadcast_to(np.where(np.asarray(k) < n, k, -1), i.shape)
     if n == 1:
-        return np.where(i & h, -1, _reduced_index(1, h // 2, k, i))
+        return np.where(i & h, -1, _reduced_index(1, h // 2, k, i, lo))
     m = (n + 1) // 2
-    inner = _reduced_index(m, h // 2, k, i)
+    inner = _reduced_index(m, h // 2, k, i, lo)
     idx = inner + np.where(i & h, m, 0)
     return np.where((inner >= 0) & (idx < n), idx, -1)
 
 
-def _reduce_transposed(v, lanes):
-    """``reduce_transposed<N, B / 2, B>`` over the lane axis -2 of ``v``
-    (..., B, N): the xor partner's words by lane index."""
-    n, h = v.shape[-1], lanes.size // 2
-    while h > 0:
+def _reduce_transposed(v, lanes, h=None, stop=0):
+    """``reduce_transposed<N, H, B, Lo>`` (Lo = ``stop``) over the lane axis
+    -2 of ``v`` (..., B, N), H = B / 2 unless given: the xor partner's words
+    by lane index, 32-bit adds (a 16-bit pair's carry reaches its upper
+    half)."""
+    n = v.shape[-1]
+    h = lanes.size // 2 if h is None else h
+    while h > stop:
         partner = lanes ^ h
         upper = (lanes & h).astype(bool)[:, None]
         if n == 1:
@@ -403,7 +445,45 @@ def _reduce_transposed(v, lanes):
     return v
 
 
-def _replay_k3(stack, mv, b, r, anchor=None, bh=None):
+def _reduce_store(packed, lanes, pixels, cand, packed_only=False):
+    """``reduce_store<N, L, kPixels, kCand>``: each lane's words of 16-bit
+    pairs (..., L, N) reduced over the L lanes, packed over the steps at
+    lane offsets above Lo = L / (2 * 256 / kPixels), then unpacked into
+    32-bit sums for the rest; every candidate's sum stored once, (...,
+    cand). ``packed_only`` keeps every step packed (Lo = 0, the reduction
+    before 32-column and 32-row blocks), whatever the sums reach."""
+    n, size = packed.shape[-1], lanes.size
+    lo = 0 if packed_only else size // (2 * (256 // pixels))
+    held = _reduce_transposed(packed, lanes, size // 2, lo)
+    count = _reduced_count(n, size // 2, lo)
+    assert held.shape[-1] == count
+    got = np.full(packed.shape[:-2] + (cand,), -1, np.int64)
+
+    def store(c, lane, value):
+        if c < cand:
+            assert (got[..., c] == -1).all()  # each sum stored once
+            got[..., c] = value[..., lane]
+
+    if lo == 0:
+        for k in range(count):
+            p = _reduced_index(n, size // 2, k, lanes)
+            for lane in lanes[p >= 0]:
+                store(2 * p[lane], lane, held[..., k] & 0xFFFF)
+                store(2 * p[lane] + 1, lane, held[..., k] >> 16)
+    else:
+        v = np.stack([held & 0xFFFF, held >> 16], -1).reshape(held.shape[:-1] + (2 * count,))
+        v = _reduce_transposed(v, lanes, lo, 0)
+        for k in range(_reduced_count(2 * count, lo)):
+            q = _reduced_index(2 * count, lo, k, lanes)
+            p = np.where(q >= 0, _reduced_index(n, size // 2, np.maximum(q, 0) >> 1,
+                                                lanes, lo), -1)
+            for lane in lanes[p >= 0]:
+                store(2 * p[lane] + (q[lane] & 1), lane, v[..., k])
+    assert (got >= 0).all()  # every candidate stored
+    return got
+
+
+def _replay_k3(stack, mv, b, r, anchor=None, bh=None, packed_only=False):
     """SADs of a ``(T+1, fh, fw)`` stack (or, with ``anchor``, of ``T``
     pairs ``stack[t]``, ``anchor[t]``: K9's two stacks) as
     ``refine_sads_kernel<BW, BH, R>`` computes them for ``b`` (BW) x ``bh``
@@ -412,7 +492,8 @@ def _replay_k3(stack, mv, b, r, anchor=None, bh=None):
     and 4-row blocks; i, i + BH, ... otherwise), rows taken from other
     lanes as the shuffles take them (width BH), the funnel shifts and
     ``__vsadu4`` sums, and but on those R = 1 instances the 16-bit pairs,
-    the transposed reduction and each lane's stores."""
+    the transposed reduction (``_reduce_store``; ``packed_only``: every
+    step on pairs) and each lane's stores."""
     bw, bh = b, b if bh is None else bh
     xor_sums = r == 1 and (bh == 4 or (bw == 8 and bh == 8))  # kXorSums<BW, BH, R>
     tp1, fh, fw = stack.shape
@@ -472,20 +553,7 @@ def _replay_k3(stack, mv, b, r, anchor=None, bh=None):
             assert sums.max() < 1 << 16
             flat = np.concatenate([sums, np.zeros((mfw, bh, 1), np.int64)], -1)
             packed = flat[..., 0::2][..., : win.packed] | (flat[..., 1::2][..., : win.packed] << 16)
-            held = _reduce_transposed(packed, lanes)
-            count = _reduced_count(win.packed, bh // 2)
-            assert held.shape[-1] == count
-            got = np.full((mfw, win.cand), -1, np.int64)
-            for k in range(count):
-                p = _reduced_index(win.packed, bh // 2, k, lanes)
-                for lane in lanes[p >= 0]:
-                    pk = p[lane]
-                    assert (got[:, 2 * pk] == -1).all()  # each sum stored once
-                    got[:, 2 * pk] = held[:, lane, k] & 0xFFFF
-                    if 2 * pk + 1 < win.cand:
-                        got[:, 2 * pk + 1] = held[:, lane, k] >> 16
-            assert (got >= 0).all()  # every candidate stored
-            out[t, :, by] = got.T
+            out[t, :, by] = _reduce_store(packed, lanes, bw, win.cand, packed_only).T
     return out
 
 
@@ -494,18 +562,28 @@ _SPLIT_ROWS = 4  # anchor rows a lane of refine_sads_split_kernel
 
 def _split(bw, bh, r):
     """``kSplit<BW, BH, R>``: the instances that run the split kernel where
-    its grid fills the card."""
-    return (bw == 16 and r >= 2) or (bw < bh and bh >= 8)
+    its grid fits the card."""
+    return ((bw == 16 and r >= 2) or (bw < bh and bh >= 8)
+            or (bw == 32 and (r == 2 or (r == 1 and bh < bw))))
 
 
-def _replay_k3_split(stack, mv, r, bh=16, bw=16, anchor=None):
+def _split_fits(ctas, sms, per_sm, idle, blocks):
+    """``split_fits``: whether the split kernel takes a grid of ``ctas``
+    CTAs on ``sms`` SMs that hold ``per_sm`` of them at once, its CTAs of
+    ``blocks`` block columns leaving ``idle`` past a block row's end."""
+    wave = per_sm * sms
+    return 4 * idle <= blocks and ctas >= 2 * sms and not wave < ctas < wave + sms
+
+
+def _replay_k3_split(stack, mv, r, bh=16, bw=16, anchor=None, packed_only=False):
     """SADs of a ``(T+1, fh, fw)`` stack (or, with ``anchor``, of ``T``
     pairs: K9's two stacks) as ``refine_sads_split_kernel<BW, BH, R>``
     computes them: BH / 4 lanes a block, lane l with anchor rows 4l .. 4l
     + 3 loading its window rows 4l .. 4l + 3 + 2R itself, each row's
     shifted words against each anchor row it meets, sums added into 16-bit
-    halves as they come, transposed xor steps over the BH / 4 lanes and
-    each lane's stores."""
+    halves as they come, transposed xor steps over the BH / 4 lanes
+    (``_reduce_store``: as 32-bit sums past 256 pixels a sum) and each
+    lane's stores."""
     b, rows = bw, _SPLIT_ROWS
     tp1, fh, fw = stack.shape
     frames = tp1 - 1 if anchor is None else tp1
@@ -546,18 +624,7 @@ def _replay_k3_split(stack, mv, r, bh=16, bw=16, anchor=None):
                             packed[..., cand // 2] = (packed[..., cand // 2] + (total << 16)) & _M32
             # a lane's sums (at most 4 * BW * 255) never carry into the high half
             assert ((packed & 0xFFFF) <= rows * b * 255).all()
-            held = _reduce_transposed(packed, lanes)
-            got = np.full((mfw, win.cand), -1, np.int64)
-            for k in range(held.shape[-1]):
-                p = _reduced_index(win.packed, lanes.size // 2, k, lanes)
-                for lane in lanes[p >= 0]:
-                    pk = p[lane]
-                    assert (got[:, 2 * pk] == -1).all()  # each sum stored once
-                    got[:, 2 * pk] = held[:, lane, k] & 0xFFFF
-                    if 2 * pk + 1 < win.cand:
-                        got[:, 2 * pk + 1] = held[:, lane, k] >> 16
-            assert (got >= 0).all()  # every candidate stored
-            out[t, :, by] = got.T
+            out[t, :, by] = _reduce_store(packed, lanes, rows * b, win.cand, packed_only).T
     return out
 
 
@@ -571,31 +638,32 @@ def _k3_mvs(rng, kind, shape, b, r):
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-@pytest.mark.parametrize("b", [4, 8, 16])
+@pytest.mark.parametrize("b", [4, 8, 16, 32])
 @pytest.mark.parametrize("kind", ["path", "edge", "far"])
 def test_k3_replay_equals_plain(b, r, kind):
     rng = np.random.default_rng(100 * b + 10 * r + len(kind))
     t, mfh, mfw = 2, 3, 5
     stack = rng.integers(0, 256, (t + 1, mfh * b, mfw * b)).astype(np.uint8)
     mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), b, r).astype(np.int32)
-    # B = 16 at R >= 2 runs the split kernel where its grid fills the card
-    # (K3's stack) and the one-row-a-lane kernel elsewhere (K7's pair):
-    # both replayed
+    # B = 16 at R >= 2 and B = 32 at R = 2 run the split kernel where its
+    # grid fits the card (K3's stack) and the one-row-a-lane kernel
+    # elsewhere (K7's pair): both replayed
     got = _replay_k3(stack, mv, b, r)
     ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv),
                                    r, b, b)
     np.testing.assert_array_equal(got, ref.numpy())
-    if b == 16 and r >= 2:
-        np.testing.assert_array_equal(_replay_k3_split(stack, mv, r), ref.numpy())
+    if _split(b, b, r):
+        np.testing.assert_array_equal(_replay_k3_split(stack, mv, r, b, b), ref.numpy())
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-@pytest.mark.parametrize("b", [4, 8])
+@pytest.mark.parametrize("b", [4, 8, 16])
 @pytest.mark.parametrize("kind", ["zero", "edge", "far"])
 def test_k9_on_k3s_kernel_replay_equals_plain(b, r, kind):
-    # K9 at 4x4 and 8x8 blocks: K3's one-row-a-lane kernel on two stacks a
-    # plane apart (tracked t against anchor t), its sums stored as float32
-    # through the mantissa (sad_as, csrc/common.cuh)
+    # K9 at 4x4, 8x8 and 16x16 blocks: K3's one-row-a-lane kernel (16x16 at
+    # r >= 2 also the split one) on two stacks a plane apart (tracked t
+    # against anchor t), its sums stored as float32 through the mantissa
+    # (sad_as, csrc/common.cuh)
     rng = np.random.default_rng(1000 + 100 * b + 10 * r + len(kind))
     t, mfh, mfw = 2, 3, 5
     tracked = rng.integers(0, 256, (t, mfh * b, mfw * b)).astype(np.uint8)
@@ -604,20 +672,24 @@ def test_k9_on_k3s_kernel_replay_equals_plain(b, r, kind):
         mv = np.zeros((t, mfh, mfw, 2), np.int32)
     else:
         mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), b, r).astype(np.int32)
-    sads = _replay_k3(tracked, mv, b, r, anchor=anchor)
-    assert ((sads >= 0) & (sads < 1 << 23)).all()
-    got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
-        8388608.0)
     ref = motion.candidate_sads_plain(torch.from_numpy(tracked), torch.from_numpy(anchor),
                                       torch.from_numpy(mv), r, b, b)
     assert ref.dtype == torch.float32
-    np.testing.assert_array_equal(got, ref.numpy())
+    replays = [_replay_k3(tracked, mv, b, r, anchor=anchor)]
+    if _split(b, b, r):
+        replays.append(_replay_k3_split(tracked, mv, r, b, b, anchor=anchor))
+    for sads in replays:
+        assert ((sads >= 0) & (sads < 1 << 23)).all()
+        got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
+            8388608.0)
+        np.testing.assert_array_equal(got, ref.numpy())
 
 
 # the rectangles with both sides 4 or more (width x height): K3's / K7's at
-# the refinement levels of 16x8 and 8x16 MV blocks, K9's 8x4 and 4x8 at
-# their top levels; 3 block rows, as 1080-row frames give odd counts
-_K3_RECTS = [(8, 4), (4, 8), (16, 8), (8, 16)]
+# the refinement levels of 16x8, 8x16, 32x16 and 16x32 MV blocks, K9's 8x4,
+# 4x8, 16x8 and 8x16 at their top levels; 3 block rows, as 1080-row frames
+# give odd counts
+_K3_RECTS = [(8, 4), (4, 8), (16, 8), (8, 16), (32, 16), (16, 32)]
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
@@ -633,18 +705,19 @@ def test_k3_rect_replay_equals_plain(block, r, kind):
     ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv), r,
                                    bw, bh)
     np.testing.assert_array_equal(got, ref.numpy())
-    # 16x8 at R >= 2, 8x16 and 4x8 run the split kernel (BH / 4 lanes of 4
-    # anchor rows) where its grid fills the card
+    # 16x8 at R >= 2, 32x16 at R <= 2, 16x32, 8x16 and 4x8 run the split
+    # kernel (BH / 4 lanes of 4 anchor rows) where its grid fits the card
     if _split(bw, bh, r):
         np.testing.assert_array_equal(_replay_k3_split(stack, mv, r, bh, bw), ref.numpy())
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-@pytest.mark.parametrize("block", [(8, 4), (4, 8)], ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("block", [(8, 4), (4, 8), (16, 8), (8, 16)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
 @pytest.mark.parametrize("kind", ["zero", "edge", "far"])
 def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
-    # K9 at 8x4 and 4x8 blocks: K3's one-row-a-lane kernel on two stacks,
-    # its sums stored as float32 through the mantissa
+    # K9 at 8x4, 4x8, 16x8 and 8x16 blocks: K3's one-row-a-lane kernel on
+    # two stacks, its sums stored as float32 through the mantissa
     bw, bh = block
     rng = np.random.default_rng(2000 + 100 * bw + 10 * bh + r + len(kind))
     t, mfh, mfw = 2, 3, 5
@@ -656,7 +729,8 @@ def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
         mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), max(bw, bh), r).astype(np.int32)
     ref = motion.candidate_sads_plain(torch.from_numpy(tracked), torch.from_numpy(anchor),
                                       torch.from_numpy(mv), r, bw, bh)
-    # 4x8 runs the split kernel where its grid fills the card
+    # 4x8, 8x16 and 16x8 at r >= 2 run the split kernel where its grid
+    # fits the card
     replays = [_replay_k3(tracked, mv, bw, r, anchor=anchor, bh=bh)]
     if _split(bw, bh, r):
         replays.append(_replay_k3_split(tracked, mv, r, bh, bw, anchor=anchor))
@@ -665,6 +739,74 @@ def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
         got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
             8388608.0)
         np.testing.assert_array_equal(got, ref.numpy())
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", _WIDE + [(16, 16)], ids=lambda b: f"{b[0]}x{b[1]}")
+def test_k3_saturated_blocks_need_32bit_sums(block, r):
+    # anchor 255 over a checkerboard of whole blocks, tracked 0 everywhere:
+    # every candidate of those blocks sums 255 BW BH (261,120 at 32x32,
+    # 130,560 at 32x16 and 16x32). Both kernels (the split one where kSplit
+    # holds) give it exactly; all-packed steps, the reduction before blocks
+    # with a 32-pixel side, carry into the next candidate's half past 256
+    # pixels, and hold at 16x16 (65,280)
+    bw, bh = block
+    rng = np.random.default_rng(3000 + bw + bh + r)
+    t, mfh, mfw = 2, 3, 4
+    stack = np.zeros((t + 1, mfh * bh, mfw * bw), np.uint8)
+    anchor = rng.integers(0, 256, stack.shape[1:]).astype(np.uint8)
+    full = (np.add.outer(np.arange(mfh), np.arange(mfw)) % 2 == 0)
+    anchor[np.kron(full, np.ones((bh, bw), bool))] = 255
+    stack[1:] = anchor
+    mv = _k3_mvs(rng, "path", (t, mfh, mfw, 2), max(bw, bh), r).astype(np.int32)
+    ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv), r,
+                                   bw, bh).numpy()
+    assert (ref[0][:, full] == 255 * bw * bh).all()
+    replays = [_replay_k3(stack, mv, bw, r, bh=bh)]
+    if _split(bw, bh, r):
+        replays.append(_replay_k3_split(stack, mv, r, bh, bw))
+    for got in replays:
+        np.testing.assert_array_equal(got, ref)
+    old = [_replay_k3(stack, mv, bw, r, bh=bh, packed_only=True)]
+    if _split(bw, bh, r):
+        old.append(_replay_k3_split(stack, mv, r, bh, bw, packed_only=True))
+    for got in old:
+        if bw * bh > 256:
+            assert (got[0][:, full] != ref[0][:, full]).any()
+        else:
+            np.testing.assert_array_equal(got, ref)
+
+
+def _split_grid(bw, bh, fh, fw, t):
+    """The split kernel's CTAs for ``t`` frames of ``fh`` x ``fw`` (1024 /
+    BH blocks of one block row a CTA), the block columns its CTAs leave
+    idle past a block row's end, and its blocks a CTA."""
+    blocks, mfw = 1024 // bh, fw // bw
+    across = -(-mfw // blocks)
+    return across * (fh // bh) * t, across * blocks - mfw, blocks
+
+
+@pytest.mark.parametrize("bw,bh,fh,t,per_sm,split", [
+    # K7's 8x16 pair at r = 1, 2, 3, 4 (CTAs an SM by ptxas, H100): 272
+    # CTAs; at r = 4 a second wave of 8
+    (8, 16, 1088, 1, 6, True), (8, 16, 1088, 1, 5, True), (8, 16, 1088, 1, 3, True),
+    (8, 16, 1088, 1, 2, False),
+    # K3's stacks: 8x16 and 16x16 at r = 2 and 4, 16x8 (1080 rows) at r = 2,
+    # 4x8 at r = 1 (1,088 CTAs, 792 at once: the second wave gives every SM
+    # two)
+    (8, 16, 1088, 8, 2, True), (16, 16, 1088, 8, 4, True), (16, 16, 1088, 8, 2, True),
+    (16, 8, 1080, 8, 3, True), (4, 8, 544, 8, 6, True),
+    # K9's 16x16 at 2 levels of 32x32 MV blocks (8 x 544x960) at r = 2 and
+    # 4; its 16x8 at 2 levels of 32x16 (60 block columns in CTAs of 128)
+    (16, 16, 544, 8, 4, True), (16, 16, 544, 8, 2, False), (16, 8, 544, 8, 3, False),
+    # one pair at 16x16 and 4x8: under two CTAs an SM
+    (16, 16, 1088, 1, 4, False), (4, 8, 544, 1, 6, False),
+])
+def test_split_rule_keeps_grids_off_a_sliver_of_a_second_wave(bw, bh, fh, t, per_sm,
+                                                             split):
+    fw = 1920 >> {1088: 0, 1080: 0, 544: 1}[fh]
+    ctas, idle, blocks = _split_grid(bw, bh, fh, fw, t)
+    assert _split_fits(ctas, 132, per_sm, idle, blocks) == split
 
 
 @pytest.mark.parametrize("b", [4, 8, 16])

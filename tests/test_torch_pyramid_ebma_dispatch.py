@@ -80,7 +80,6 @@ _RECTS = [(2, 1), (4, 2), (8, 4), (1, 2), (2, 4), (4, 8)]
        if (s, r) != (4, 1)),
      (2, 2, 5, False, "candidate_sads_general"),
      (1, 1, 5, False, "candidate_sads_general"),
-     (16, 16, 1, False, "candidate_sads_general"),
      (16, 16, 8, False, "candidate_sads_general"),
      (2, 4, 1, False, "candidate_sads"),
      (2, 2, 1, True, "candidate_sads_general"),
@@ -90,9 +89,15 @@ _RECTS = [(2, 1), (4, 2), (8, 4), (1, 2), (2, 4), (4, 8)]
        if (bw, bh, r) != (2, 4, 1)),
      (4, 2, 5, False, "candidate_sads_general"),
      (8, 4, 2, True, "candidate_sads_general"),
+     # the top levels of 32x32, 32x16 and 16x32 MV blocks at 2 levels
+     *((bw, bh, r, False, "candidate_sads") for bw, bh in [(16, 16), (16, 8), (8, 16)]
+       for r in (1, 2, 3, 4)),
+     (16, 8, 5, False, "candidate_sads_general"),
+     (16, 16, 2, True, "candidate_sads_general"),
      # other ratios and shapes stay general
      (4, 16, 1, False, "candidate_sads_general"), (6, 3, 1, False, "candidate_sads_general"),
-     (1, 4, 1, False, "candidate_sads_general"), (16, 8, 1, False, "candidate_sads_general")],
+     (1, 4, 1, False, "candidate_sads_general"), (32, 32, 1, False, "candidate_sads_general"),
+     (32, 16, 1, False, "candidate_sads_general")],
 )
 def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     t, fh, fw = 3, 4 * bh, 6 * bw
@@ -157,6 +162,16 @@ MOTION_CONFIGS = [
     (((8, 16), 4, 16), ["<1x2, 2>", "<2x4, 2>", "<4x8, 2>", "<8x16, 2>"]),
     (((8, 16), 3, 8), ["<2x4, 2>", "<4x8, 2>", "<8x16, 2>"]),
     (((8, 16), 2, 8), ["<4x8, 4>", "<8x16, 4>"]),
+    # 32x32 MV blocks at 4, 3, 2 and 5 levels (range 16), 32x16 and 16x32 at
+    # 4 and 2 (1088 rows)
+    ((32, 4, 8), ["<4, 1>", "<8, 1>", "<16, 1>", "<32, 1>"]),
+    ((32, 3, 8), ["<8, 2>", "<16, 2>", "<32, 2>"]),
+    ((32, 2, 8), ["<16, 4>", "<32, 4>"]),
+    ((32, 5, 16), ["<2, 1>", "<4, 1>", "<8, 1>", "<16, 1>", "<32, 1>"]),
+    (((32, 16), 4, 8), ["<4x2, 1>", "<8x4, 1>", "<16x8, 1>", "<32x16, 1>"]),
+    (((32, 16), 2, 8), ["<16x8, 4>", "<32x16, 4>"]),
+    (((16, 32), 4, 8), ["<2x4, 1>", "<4x8, 1>", "<8x16, 1>", "<16x32, 1>"]),
+    (((16, 32), 2, 8), ["<8x16, 4>", "<16x32, 4>"]),
 ]
 
 
@@ -165,9 +180,10 @@ def test_hbma_stack_motion_configs_take_their_instances(meta_launches, config,
                                                          instances):
     # 8x8 MV blocks (the top level's 1x1 on K9, 2x2 on K3), 3 levels (4x4
     # on K9), 2 levels (8x8 on K9), 5 levels (1x1 and 2x2 again); 16x8 and
-    # 8x16 MV blocks at 4, 3 and 2 levels on the 1080p frame they pad to
-    # (1080 rows at 16x8: an odd count of block rows at every level): each
-    # level on its own specialised instance, no general kernel
+    # 8x16 MV blocks at 4, 3 and 2 levels, and 32x32, 32x16 and 16x32, on
+    # the 1080p frame they pad to (1080 rows at 16x8: an odd count of block
+    # rows at every level): each level on its own specialised instance, no
+    # general kernel
     block, levels, search_range = config
     bw, bh = (block, block) if isinstance(block, int) else block
     fh = 1088 if bw == bh else padded_dims(1920, 1080, bw, bh, levels)[1]
@@ -211,7 +227,14 @@ def _meta_stack_at(offset, t, fh, fw):
      ((8, 4), (2, 540, 960), (16, 16), "candidate_sads"),
      ((8, 4), (2, 540, 960), (16, 4), "candidate_sads_general"),  # 16-byte chunks
      ((4, 8), (2, 544, 960), (16, 16), "candidate_sads"),
-     ((4, 8), (2, 544, 960), (8, 16), "candidate_sads_general")],
+     ((4, 8), (2, 544, 960), (8, 16), "candidate_sads_general"),
+     # the top levels of 32x32, 32x16 and 16x32 MV blocks at 2 levels
+     (16, (2, 544, 960), (16, 16), "candidate_sads"),
+     (16, (2, 544, 960), (16, 8), "candidate_sads_general"),  # 16-byte chunks
+     ((16, 8), (2, 544, 960), (16, 16), "candidate_sads"),
+     ((16, 8), (2, 544, 960), (4, 16), "candidate_sads_general"),
+     ((8, 16), (2, 544, 960), (16, 16), "candidate_sads"),
+     ((8, 16), (2, 544, 960), (16, 2), "candidate_sads_general")],
 )
 def test_candidate_sads_alignment_gates(meta_launches, block, shape, offsets,
                                         kernel):
@@ -605,6 +628,8 @@ def test_k9_host_constants_match_the_kernel_source():
     blocks = {(int(a), int(b)) for a, b in re.findall(
         r"case shape_key\((\d+), (\d+)\): return launch_", entry)}
     assert blocks == set(motion._K9_BLOCKS)
+    # the top level of 32x32, 32x16 and 16x32 MV blocks at 2 levels
+    assert {(16, 16), (16, 8), (8, 16)} <= blocks
     assert "case shape_key(1, 1): return launch_block1(" in entry
     thin = set()
     for bw, bh in blocks - {(1, 1)}:

@@ -197,3 +197,35 @@ def test_hbma_stack_rect_configs_bit_equal(bw, bh, levels, search_range, h):
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
     assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
+
+
+# MV blocks with a 32-pixel side (width, height, levels, range): 32x32 at
+# 2, 3, 4 and 5 levels (range 16 at 5), 32x16 and 16x32 at 2 and 4; 64x256
+# frames keep 8 block columns or more at every level, so svc_tpu's search
+# takes refine_mads_stack_pallas (in interpret mode) at each refinement level
+WIDE_CONFIGS = [(32, 32, 2, 8), (32, 32, 3, 8), (32, 32, 4, 8), (32, 32, 5, 16),
+                (32, 16, 2, 8), (32, 16, 4, 8), (16, 32, 2, 8), (16, 32, 4, 8)]
+
+
+@pytest.mark.parametrize("bw,bh,levels,search_range", WIDE_CONFIGS)
+def test_hbma_stack_wide_configs_bit_equal(bw, bh, levels, search_range, monkeypatch):
+    from svc_tpu.ops import motion_pallas as j_mp
+
+    x = _moving_stack(2, 64, 256, seed=13)
+    calls = []
+    pallas = j_mp.refine_mads_stack_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_stack_pallas", counted)
+    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), levels),
+                                     search_range, bw, bh)
+    assert len(calls) == levels - 1  # every refinement level took the kernel
+    mv_t, mm_t = motion.hbma_stack(pyramid.build_pyramid(torch.from_numpy(x), levels),
+                                   search_range, bw, bh)
+    assert mv_t.shape == (1, 64 // bh, 256 // bw, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0  # the pan was found

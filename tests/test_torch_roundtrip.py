@@ -236,6 +236,36 @@ def test_rect_mv_blocks_round_trip():
     assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
 
 
+def test_wide_mv_blocks_round_trip():
+    # --mv-block-w 32 --mv-block-h 32 --pyr-lvl-count 2 (16x16 blocks at
+    # the top level, radius 4, and 32x32 below it) through both packages on
+    # 256x64 (8 block columns: svc_tpu's search takes its Pallas stack
+    # refine): the same header, MV fields and block types, coefficients
+    # within the gate
+    w, h, n = 256, 64, 4
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(mv_block_w=32, mv_block_h=32, pyr_lvl_count=2)
+    props = VideoProperties(w, h, n)
+    jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=BATCH, device="cpu")
+    js = list(jenc.encode_video(iter(clip)))
+    ts = list(tenc.encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    jb = jenc.encode_batch(clip[: BATCH + 1], 0)
+    tb = tenc.encode_batch(clip[: BATCH + 1], 0)
+    assert tb["mv_field"].shape == (BATCH, 2, 8, 2)
+    np.testing.assert_array_equal(tb["mv_field"].numpy(), np.array(jb["mv_field"]))
+    np.testing.assert_array_equal(tb["block_types"].numpy().astype(np.uint32),
+                                  np.array(jb["block_types"]))
+    assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
+
+
 def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads
