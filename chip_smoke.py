@@ -36,17 +36,18 @@ each:
    odd MVs past the frame edges, K7 on frames 0-1, K9 at the EBMA shape
    with zero, random and past-edge MVs and T = 1, each timed in turns
    with the general kernel at its shape; K9 at 1x1, 4x4, 8x8, 16x16, 2x1,
-   4x2, 8x4, 1x2, 2x4, 4x8, 16x8, 8x16 and K3 / K7 at 2x2, 4x2, 8x4, 16x8,
-   2x4, 4x8, 8x16, 32x32, 32x16, 16x32 blocks (width x height: the levels
-   of 8x8 MV blocks, of 2 and 3 levels, of 16x8 and 8x16 MV blocks at 2, 3
-   or 4 levels, and of 32x32, 32x16 and 16x32 MV blocks at 2 levels, each
-   at the 1080p level shape its setting's encoder pads to,
-   ``INSTANCE_SETTINGS``), r = 1-4, T = 8, K9 on zero, random, past-edge
-   and saturated MVs and planes, K3 on the setting's own search's MVs,
-   random and past-edge ones and a saturated stack (anchor 255 against
-   tracked 0 over whole blocks: a block's SAD 255 BW BH, 261,120 at
-   32x32), K7 on frames 0-1, each timed in turns with the general
-   kernel), held bit for bit
+   4x2, 8x4, 1x2, 2x4, 4x8, 16x8, 8x16, 4x1, 8x2, 16x4, 1x4, 2x8, 4x16 and
+   K3 / K7 at 2x2, 4x2, 8x4, 16x8, 2x4, 4x8, 8x16, 32x32, 32x16, 16x32,
+   8x2, 16x4, 32x8, 2x8, 4x16, 8x32 blocks (width x height: the levels of
+   8x8 MV blocks, of 2 and 3 levels, of 16x8 and 8x16 MV blocks at 2, 3 or
+   4 levels, of 32x32, 32x16 and 16x32 MV blocks at 2 levels, and of 32x8
+   and 8x32 MV blocks at 2, 3 or 4 levels, each at the 1080p level shape
+   its setting's encoder pads to, ``INSTANCE_SETTINGS``), r = 1-4, T = 8,
+   K9 on zero, random, past-edge and saturated MVs and planes, K3 on the
+   setting's own search's MVs, random and past-edge ones and a saturated
+   stack (anchor 255 against tracked 0 over whole blocks: a block's SAD
+   255 BW BH, 261,120 at 32x32, 65,280 at 32x8 and 8x32), K7 on frames
+   0-1, each timed in turns with the general kernel), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
    in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
@@ -134,10 +135,10 @@ each:
    global-motion estimators on ``cuda``, then ``hbma`` at ranges 16, 24
    and 32 (K7, the fused K4 and the 2x2 K9 must run, every K7 and K9
    instance at r = 1-4, the general K7 and K9 and the single-level K4 not),
-   at 8x8 MV blocks, at 3 levels, at 16x8, 32x32 and 32x16 MV blocks
-   (K9's 1x1, 4x4, 2x1 and 4x2, K7's 2x2, 4x2, 8x4, 16x8, 32x32 and
-   32x16 instances), each held against ``hbma_stack`` on the same 2-frame
-   stack and the CPU port;
+   at 8x8 MV blocks, at 3 levels, at 16x8, 32x32, 32x16, 32x8 and 8x32 MV
+   blocks (K9's 1x1, 4x4, 2x1, 4x2, 4x1 and 1x4, K7's 2x2, 4x2, 8x4, 16x8,
+   32x32, 32x16, 8x2, 16x4, 32x8, 2x8, 4x16 and 8x32 instances), each held
+   against ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
     launch) and ``hbma_stack(..., base_pitched=...)`` (the fused K8
@@ -194,14 +195,17 @@ each:
     (``EncoderConfig(mv_block_w=8, mv_block_h=8)``), 3 and 2 levels, 5
     levels at range 16, 16x8 MV blocks (G5), 8x16 at range 16 (G6), 16x8
     at 3 levels (G7), 32x32 at 4 and 2 levels (G8, G9), 32x16 (G10) and
-    16x32 at 2 levels (G11) on graph replays: the K9 and K3 instances of
-    the setting's blocks and radius must run (K9 at 1x1, 4x4, 8x8, 1x1,
-    2x1, 1x2, 4x2, 4x4, 16x16, 4x2, 8x16; K3 at 2x2 under 8x8 MV blocks and
-    5 levels, at 4x2, 8x4, 16x8 under G5, 2x4, 4x8, 8x16 under G6, 8x4,
-    16x8 under G7, 8x8, 16x16, 32x32 under G8, 32x32 under G9, 8x4, 16x8,
-    32x16 under G10, 16x32 under G11), no other instance and no general
-    K3 or K9; the same checks as phase 15, then the device batch time of
-    each setting in turns with the default config.
+    16x32 at 2 levels (G11), 32x8 (G12) and 8x32 (G13) MV blocks, 32x8 at
+    2 levels (G14) and 8x32 at 3 (G15) on graph replays: the K9 and K3
+    instances of the setting's blocks and radius must run (K9 at 1x1, 4x4,
+    8x8, 1x1, 2x1, 1x2, 4x2, 4x4, 16x16, 4x2, 8x16, 4x1, 1x4, 16x4, 2x8;
+    K3 at 2x2 under 8x8 MV blocks and 5 levels, at 4x2, 8x4, 16x8 under
+    G5, 2x4, 4x8, 8x16 under G6, 8x4, 16x8 under G7, 8x8, 16x16, 32x32
+    under G8, 32x32 under G9, 8x4, 16x8, 32x16 under G10, 16x32 under G11,
+    8x2, 16x4, 32x8 under G12, 2x8, 4x16, 8x32 under G13, 32x8 under G14,
+    4x16, 8x32 under G15), no other instance and no general K3 or K9; the
+    same checks as phase 15, then the device batch time of each setting in
+    turns with the default config.
 
 ``python3 chip_smoke.py --batch-ms`` runs phase 1 and phase 16's batch
 timing alone (``motion_batch_ms``), so that a copy of this script in
@@ -250,7 +254,10 @@ WIDE_RANGES = (16, 24, 32)
 # 16x8; then MV blocks with a 32-pixel side: 32x32 with 4x4 at r = 1 under
 # 8x8, 16x16, 32x32, and at 2 levels 16x16 at r = 4 under 32x32; 32x16
 # with 4x2 at r = 1 under 8x4, 16x8, 32x16; 16x32 at 2 levels, 8x16 at r =
-# 4 under 16x32
+# 4 under 16x32; then ratio-4 MV blocks: 32x8 with 4x1 at r = 1 under 8x2,
+# 16x4, 32x8 (1080 rows: 135 block rows at every level), 8x32 with 1x4 at
+# r = 1 under 2x8, 4x16, 8x32 (1088 rows), 32x8 at 2 levels, 16x4 at r =
+# 4 under 32x8, 8x32 at 3 levels, 2x8 at r = 2 under 4x16, 8x32
 MOTION_CONFIGS = {
     "G1 8x8 MV blocks": dict(mv_block_w=8, mv_block_h=8),
     "G2 3 levels": dict(pyr_lvl_count=3),
@@ -263,6 +270,10 @@ MOTION_CONFIGS = {
     "G9 32x32, 2 levels": dict(mv_block_w=32, mv_block_h=32, pyr_lvl_count=2),
     "G10 32x16 MV blocks": dict(mv_block_w=32, mv_block_h=16),
     "G11 16x32, 2 levels": dict(mv_block_w=16, mv_block_h=32, pyr_lvl_count=2),
+    "G12 32x8 MV blocks": dict(mv_block_w=32, mv_block_h=8),
+    "G13 8x32 MV blocks": dict(mv_block_w=8, mv_block_h=32),
+    "G14 32x8, 2 levels": dict(mv_block_w=32, mv_block_h=8, pyr_lvl_count=2),
+    "G15 8x32, 3 levels": dict(mv_block_w=8, mv_block_h=32, pyr_lvl_count=3),
 }
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
@@ -691,10 +702,13 @@ def timed_against_general(results, int_ops_per_s, kernel, name, new, general, pl
 # 4x4, 8x8), 16x8 and 8x16 at 4, 3 and 2 levels (K9 2x1, 4x2, 8x4, 1x2,
 # 2x4, 4x8; K3 4x2, 8x4, 16x8, 2x4, 4x8, 8x16), and 32x32, 32x16 and 16x32
 # at 2 levels (K9 16x16, 16x8, 8x16; K3 32x32, 32x16, 16x32: at 3-5 levels
-# their blocks are among the others)
+# their blocks are among the others), and 32x8 and 8x32 at 4, 3 and 2
+# levels (K9 4x1, 8x2, 16x4, 1x4, 2x8, 4x16; K3 8x2, 16x4, 32x8, 2x8, 4x16,
+# 8x32)
 INSTANCE_SETTINGS = ((8, 8, 4), (16, 16, 3), (16, 16, 2), (16, 8, 4), (16, 8, 3),
                      (16, 8, 2), (8, 16, 4), (8, 16, 3), (8, 16, 2), (32, 32, 2),
-                     (32, 16, 2), (16, 32, 2))
+                     (32, 16, 2), (16, 32, 2), (32, 8, 4), (32, 8, 3), (32, 8, 2),
+                     (8, 32, 4), (8, 32, 3), (8, 32, 2))
 
 
 def setting_levels(settings=INSTANCE_SETTINGS):
@@ -849,10 +863,11 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
                     ops // (tp1 - 1)) + f" (one {fh}x{fw} pair)")
     print("parity K9, K3 and K7 at the MV block and level settings past the "
           "default (K9 1x1, 4x4, 8x8, 16x16, 2x1, 4x2, 8x4, 1x2, 2x4, 4x8, 16x8, "
-          "8x16; K3 / K7 2x2, 4x2, 8x4, 16x8, 2x4, 4x8, 8x16, 32x32, 32x16, "
-          "16x32), r = 1-4: every instance bit-equal to the general kernel and to "
-          "the plain version on every entry, a saturated case too (255 BW BH a "
-          "block); timed in turns with the general kernel:")
+          "8x16, 4x1, 8x2, 16x4, 1x4, 2x8, 4x16; K3 / K7 2x2, 4x2, 8x4, 16x8, 2x4, "
+          "4x8, 8x16, 32x32, 32x16, 16x32, 8x2, 16x4, 32x8, 2x8, 4x16, 8x32), r = "
+          "1-4: every instance bit-equal to the general kernel and to the plain "
+          "version on every entry, a saturated case too (255 BW BH a block); "
+          "timed in turns with the general kernel:")
     for line in lines:
         print(f"  {line}")
 
@@ -2429,12 +2444,14 @@ def per_frame_motion(clip: np.ndarray, dev):
     gm_h = motion.estimate_global_motion_hierarchical(tracked, anchor, 8)
     # --mv-search-range 16, 24 and 32: K9's and K7's instances at r = 2-4
     wide = {rng: motion.hbma(tracked, anchor, rng, 16, 16) for rng in WIDE_RANGES}
-    # phase 16's 8x8 MV blocks, 3 levels and 16x8, 32x32 and 32x16 MV
-    # blocks: K9's 1x1, 4x4, 2x1 and 4x2 instances, K7's 2x2 ones, its 4x2,
-    # 8x4 and 16x8 (on the 1080 rows 16x8 MV blocks pad to), 32x32 and 32x16
+    # phase 16's 8x8 MV blocks, 3 levels and 16x8, 32x32, 32x16, 32x8 and
+    # 8x32 MV blocks: K9's 1x1, 4x4, 2x1, 4x2, 4x1 and 1x4 instances, K7's
+    # 2x2 ones, its 4x2, 8x4 and 16x8 (on the 1080 rows 16x8 MV blocks pad
+    # to), 32x32, 32x16, 8x2, 16x4, 32x8 (1080 rows) and 2x8, 4x16, 8x32
     settings = {label: EncoderConfig(**MOTION_CONFIGS[label])
                 for label in ("G1 8x8 MV blocks", "G2 3 levels", "G5 16x8 MV blocks",
-                              "G8 32x32 MV blocks", "G10 32x16 MV blocks")}
+                              "G8 32x32 MV blocks", "G10 32x16 MV blocks",
+                              "G12 32x8 MV blocks", "G13 8x32 MV blocks")}
     pyrs = {label: build_pyramid(padded_luma(clip[:2], dev, cfg.mv_block_w, cfg.mv_block_h,
                                              cfg.pyr_lvl_count), cfg.pyr_lvl_count)
             for label, cfg in settings.items()}
@@ -2513,8 +2530,9 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"{mad_ex.item():.4f}), hierarchical {gm_h.tolist()}, each equal "
           f"to the CPU port; at ranges {', '.join(map(str, WIDE_RANGES))} "
           f"(K7's and K9's r = 2-4 instances), at 8x8 MV blocks, at 3 levels and "
-          f"at 16x8, 32x32 and 32x16 MV blocks (K9's 1x1, 4x4, 2x1 and 4x2, K7's "
-          f"2x2, 4x2, 8x4, 16x8, 32x32, 32x16) "
+          f"at 16x8, 32x32, 32x16, 32x8 and 8x32 MV blocks (K9's 1x1, 4x4, 2x1, "
+          f"4x2, 4x1 and 1x4, K7's 2x2, 4x2, 8x4, 16x8, 32x32, 32x16, 8x2, 16x4, "
+          f"32x8, 2x8, 4x16, 8x32) "
           f"equal to hbma_stack and to the CPU "
           f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
           f"launches {counts}")

@@ -1,19 +1,21 @@
 // K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
 // float32, specialised for BW x BH MV blocks (BW columns, BH rows) at
-// search radius R = 1 to 4: square 1, 2, 4, 8 or 16 and the ratio-2
-// rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8, 16x8, 8x16. These are the
-// encoder's top-level EBMA, in hbma_stack and per-frame hbma alike, at
-// 16x16 blocks and 4 pyramid levels (2x2), range 8 (R = 1, the default) to
-// 39 (R = range / 8), and at the other block and level settings
-// (--mv-block-w/-h, --pyr-lvl-count): 8x8 blocks at 4 levels or 16x16 at 5
-// (1x1), 16x16 at 3 levels (4x4) or 2 (8x8), 16x8 blocks at 4, 3 or 2
-// levels (2x1, 4x2, 8x4) and 8x16 (1x2, 2x4, 4x8), 32x32, 32x16 and 16x32
-// blocks at 2 levels (16x16, 16x8, 8x16; at 3-5 levels their top blocks
-// are among the others). 1x1 runs the thread-a-pixel kernel of this file,
-// 2x2, 2x1, 1x2, 4x2 and 2x4 its thread-a-block kernel, the shapes with
-// both sides 4 or more K3's kernel (refine_sads.cu, launch_refine_rows)
-// with float32 output.
+// search radius R = 1 to 4: square 1, 2, 4, 8 or 16, the ratio-2
+// rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8, 16x8, 8x16 and the ratio-4 ones
+// 4x1, 1x4, 8x2, 2x8, 16x4, 4x16. These are the encoder's top-level EBMA,
+// in hbma_stack and per-frame hbma alike, at 16x16 blocks and 4 pyramid
+// levels (2x2), range 8 (R = 1, the default) to 39 (R = range / 8), and at
+// the other block and level settings (--mv-block-w/-h, --pyr-lvl-count):
+// 8x8 blocks at 4 levels or 16x16 at 5 (1x1), 16x16 at 3 levels (4x4) or 2
+// (8x8), 16x8 blocks at 4, 3 or 2 levels (2x1, 4x2, 8x4) and 8x16 (1x2,
+// 2x4, 4x8), 32x32, 32x16 and 16x32 blocks at 2 levels (16x16, 16x8, 8x16;
+// at 3-5 levels their top blocks are among the others), 32x8 blocks at 4,
+// 3 or 2 levels (4x1, 8x2, 16x4) and 8x32 (1x4, 2x8, 4x16). 1x1 runs the
+// thread-a-pixel kernel of this file; 2x2 and the blocks with a side of 1
+// or 2, 2x1, 1x2, 4x2, 2x4, 4x1, 1x4, 8x2, 2x8, its thread-a-block kernel;
+// the shapes with both sides 4 or more K3's kernel (refine_sads.cu,
+// launch_refine_rows) with float32 output.
 //
 // Replaces svc_tpu/ops/motion_pallas.py candidate_sads (:121) at those
 // shapes; every other shape runs candidate_sads_general.cu
@@ -25,11 +27,11 @@
 // exact integer sums, bit-equal to the general kernel and to
 // candidate_sads_plain on every entry, valid or not.
 //
-// The thread-a-block kernel is also K3's and K7's at 2x2, 4x2 and 2x4
-// blocks (refine_sads.cu, launch_block_sads) with int32 output: it reads
-// frame t's tracked plane and its anchor from two bases, each frame a
-// plane on (K9: the two stacks; K3: the stack and the stack plus a plane;
-// K7: the pair, one frame).
+// The thread-a-block kernel is also K3's and K7's at 2x2, 4x2, 2x4, 8x2
+// and 2x8 blocks (refine_sads.cu, launch_block_sads) with int32 output: it
+// reads frame t's tracked plane and its anchor from two bases, each frame
+// a plane on (K9: the two stacks; K3: the stack and the stack plus a
+// plane; K7: the pair, one frame).
 //
 // Bound: bytes, and mostly the output ((2R + 1)^2 SADs of 4 bytes per
 // block against 2 BW BH bytes read and 8 of MVs: at 2x2, 1080p, T = 8, R =
@@ -38,19 +40,26 @@
 // block (4 of 32 lanes busy at 2x2, 2 at 2x1, 1 at 1x1), stages both tiles
 // in shared memory, divides by runtime sizes and reduces each sum by five
 // shuffles. Design:
-//   - a thread per MV block (BW, BH <= 4, one side 1 or 2) or per pixel
-//     (1x1); consecutive threads take consecutive block columns of one
-//     block row, so the window-row loads and the stores of each candidate
-//     plane coalesce across the warp;
-//   - the anchor rows are one load each (32-bit at BW = 4, 16-bit at 2,
-//     8-bit at 1), packed into words of 4 bytes: one row a word at BW = 4,
-//     two rows at BW = 2 (one at 2x1) and at BW = 1; at 1x1 the anchor
-//     byte, copied to the four bytes of a word;
+//   - a thread per MV block (one side 1 or 2, the other at most 8) or per
+//     pixel (1x1); consecutive threads take consecutive block columns of
+//     one block row, so the window-row loads and the stores of each
+//     candidate plane coalesce across the warp. A CTA's kThreads threads
+//     span the level's block columns rounded up to a warp (kThreads at
+//     most) and as many block rows as fill it: 60 block columns (1920 /
+//     32, ... 240 / 4 under 32x8 MV blocks) leave 4 of 64 threads a row
+//     idle, not 68 of 128 (in turns on an H100, 8x2 up to 14% faster at R
+//     = 4, 22 columns up to 4%, 86 unchanged; from 97 columns on the grid
+//     is one block row of 128 a CTA);
+//   - the anchor rows are one load each (64-bit at BW = 8, 32-bit at 4,
+//     16-bit at 2, 8-bit at 1), packed into words of 4 bytes: two words a
+//     row at BW = 8, one row a word at BW = 4, two rows at BW = 2 (one at
+//     2x1), two at 1x2 and four at 1x4; at 1x1 the anchor byte, copied to
+//     the four bytes of a word;
 //   - at 2x2 and R = 1 each of the 4 window rows, bytes x0 .. x0+3 with x0
 //     = 2*bx + mvx - 1 at any alignment, is two aligned 32-bit words
 //     (planes are 4-byte aligned and fh*fw is a multiple of 4) joined by
 //     __funnelshift_r; otherwise each of the BH + 2R rows is BW + 2R
-//     bytes, 1 to 3 words from up to 4 aligned loads; at 1x1 each of the
+//     bytes, 1 to 4 words from up to 5 aligned loads; at 1x1 each of the
 //     2R + 1 rows is 2R + 1 bytes, 1 to 3 words. A word is loaded only
 //     where it meets the row's bytes, so no load leaves the plane; a byte
 //     mask then zeroes what lies outside [0, fw) (fw need not be a multiple
@@ -63,10 +72,12 @@
 //     window row's word shifted to byte ox at BW = 4, one __byte_perm of
 //     rows oy + i and oy + i + 1 (bytes ox, ox + 1) at BW = 2, of row oy's
 //     two bytes and zeros at 2x1, of rows oy and oy + 1 (byte ox) at 1x2,
-//     summed and stored at once (no accumulators); at 1x1 one __vabsdiffu4
-//     of a window word against the anchor word gives four candidates' SADs
-//     at once, each byte of it put into a float's mantissa by one
-//     __byte_perm;
+//     at 1x4 two of those pairs (rows oy, oy + 1 and oy + 2, oy + 3)
+//     joined by a third, each pair shared by two candidate rows, at BW = 8
+//     the row's two words shifted to byte ox; summed and stored at once
+//     (no accumulators); at 1x1 one __vabsdiffu4 of a window word against
+//     the anchor word gives four candidates' SADs at once, each byte of it
+//     put into a float's mantissa by one __byte_perm;
 //   - the SADs (< 2^23) become float32 exactly by 2^23 + x in the mantissa
 //     less 2^23 (sad_as, common.cuh) past 2x2 at R = 1 (an
 //     integer-to-float conversion issues at a quarter of that rate);
@@ -140,12 +151,14 @@ __device__ __forceinline__ void window_run(const uint8_t* __restrict__ frame, in
   }
 }
 
-// The anchor bytes of a BW x BH block as BH / kStep words of kStep rows
-// each (row q of a word at bits 8 BW q), one load a row.
+// The anchor bytes of a BW x BH block as kCount words, one load a row:
+// BH / kStep words of kStep rows each (row q of a word at bits 8 BW q) at
+// BW <= 4, kRowWords words a row at BW = 8.
 template <int BW, int BH>
 struct AnchorWords {
-  static constexpr int kStep = 4 / BW < BH ? 4 / BW : BH;  // rows a word
-  static constexpr int kCount = BH / kStep;
+  static constexpr int kStep = BW >= 4 ? 1 : (4 / BW < BH ? 4 / BW : BH);  // rows a word
+  static constexpr int kRowWords = BW >= 4 ? BW / 4 : 1;  // words a row
+  static constexpr int kCount = BH / kStep * kRowWords;
 };
 
 template <int BW, int BH, int R, class Out>
@@ -154,10 +167,10 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
                       const uint8_t* __restrict__ anchor,
                       const int32_t* __restrict__ mv, Out* __restrict__ out,
                       int fh, int fw, int mfh, int mfw) {
-  const int bx = blockIdx.x * kThreads + threadIdx.x;
-  const int by = blockIdx.y;
+  const int bx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int by = blockIdx.y * blockDim.y + threadIdx.y;
   const int t = blockIdx.z;
-  if (bx >= mfw) return;
+  if (bx >= mfw || by >= mfh) return;
 
   const size_t plane = static_cast<size_t>(fh) * fw;
   const uint8_t* trk = tracked + t * plane;
@@ -198,20 +211,26 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
     constexpr int kRun = BW + 2 * R;   // bytes a window row
     uint32_t a[A::kCount];
 #pragma unroll
-    for (int k = 0; k < A::kCount; ++k) {
-      a[k] = 0u;
+    for (int k = 0; k < BH / A::kStep; ++k) {
+      if constexpr (BW == 8) {  // row k as words 2k, 2k + 1
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(anc + static_cast<size_t>(k) * fw));
+        a[2 * k] = v.x;
+        a[2 * k + 1] = v.y;
+      } else {
+        a[k] = 0u;
 #pragma unroll
-      for (int q = 0; q < A::kStep; ++q) {
-        const uint8_t* p = anc + static_cast<size_t>(A::kStep * k + q) * fw;
-        uint32_t v;
-        if constexpr (BW == 4) {
-          v = __ldg(reinterpret_cast<const unsigned int*>(p));
-        } else if constexpr (BW == 2) {
-          v = __ldg(reinterpret_cast<const unsigned short*>(p));
-        } else {
-          v = __ldg(p);
+        for (int q = 0; q < A::kStep; ++q) {
+          const uint8_t* p = anc + static_cast<size_t>(A::kStep * k + q) * fw;
+          uint32_t v;
+          if constexpr (BW == 4) {
+            v = __ldg(reinterpret_cast<const unsigned int*>(p));
+          } else if constexpr (BW == 2) {
+            v = __ldg(reinterpret_cast<const unsigned short*>(p));
+          } else {
+            v = __ldg(p);
+          }
+          a[k] |= v << (8 * BW * q);
         }
-        a[k] |= v << (8 * BW * q);
       }
     }
     uint32_t rows[kRows][(kRun + 3) / 4];
@@ -228,10 +247,13 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
         uint32_t sad = 0u;
 #pragma unroll
         for (int k = 0; k < A::kCount; ++k) {
-          const uint32_t* top = rows[oy + A::kStep * k];
+          const uint32_t* top = rows[oy + A::kStep * (k / A::kRowWords)];
           uint32_t c;
-          if constexpr (BW == 4) {  // window row oy + k, bytes ox .. ox + 3
-            c = d == 0 ? top[j] : __funnelshift_r(top[j], top[j + 1], 8 * d);
+          if constexpr (BW >= 4) {
+            // window row oy + k / kRowWords, bytes ox + 4w .. ox + 4w + 3 (w
+            // = k % kRowWords: the anchor row's word)
+            const int w = j + k % A::kRowWords;
+            c = d == 0 ? top[w] : __funnelshift_r(top[w], top[w + 1], 8 * d);
           } else if constexpr (BW == 2 && A::kStep == 2) {
             // bytes ox, ox + 1 of window rows oy + 2k and oy + 2k + 1
             const uint32_t* bot = rows[oy + A::kStep * k + 1];
@@ -245,8 +267,12 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
           } else if constexpr (BW == 2) {  // 2x1: bytes ox, ox + 1 of row oy
             c = d < 3 ? __byte_perm(top[j], 0u, d | (d + 1) << 4 | 0x4400)
                       : __funnelshift_r(top[j], top[j + 1], 24) & 0xffffu;
-          } else {  // 1x2: byte ox of window rows oy and oy + 1
+          } else if constexpr (A::kStep == 2) {  // 1x2: byte ox of window rows oy and oy + 1
             c = __byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4) & 0xffffu;
+          } else {  // 1x4: byte ox of window rows oy .. oy + 3, two rows a pair
+            const uint32_t lo = __byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4);
+            const uint32_t hi = __byte_perm(rows[oy + 2][j], rows[oy + 3][j], d | (d + 4) << 4);
+            c = __byte_perm(lo, hi, 0x5410);
           }
           sad = __vsadu4(c, a[k]) + sad;
         }
@@ -302,8 +328,12 @@ int launch(const uint8_t* tracked, const uint8_t* anchor, const int32_t* mv,
            Out* out, int t_count, int fh, int fw, cudaStream_t stream) {
   const int mfh = fh / BH;
   const int mfw = fw / BW;
-  const dim3 grid((mfw + kThreads - 1) / kThreads, mfh, t_count);
-  candidate_sads_kernel<BW, BH, R, Out><<<grid, kThreads, 0, stream>>>(
+  // a CTA's block columns: the level's rounded up to a warp, kThreads at
+  // most; block rows enough to fill kThreads
+  const int cols = min(kThreads, (mfw + 31) / 32 * 32);
+  const dim3 block(cols, kThreads / cols);
+  const dim3 grid((mfw + cols - 1) / cols, (mfh + block.y - 1) / block.y, t_count);
+  candidate_sads_kernel<BW, BH, R, Out><<<grid, block, 0, stream>>>(
       tracked, anchor, mv, out, fh, fw, mfh, mfw);
   return static_cast<int>(cudaGetLastError());
 }
@@ -361,8 +391,8 @@ int launch_block_sads(const void* tracked, const void* anchor, const void* mv,
   }
 }
 
-// K9 (float32) at 2x2, 4x2, 2x4, 2x1 and 1x2 blocks; K3 / K7 (int32) at
-// 2x2, 4x2 and 2x4
+// K9 (float32) at 2x2, 4x2, 2x4, 2x1, 1x2, 4x1, 1x4, 8x2 and 2x8 blocks;
+// K3 / K7 (int32) at 2x2, 4x2, 2x4, 8x2 and 2x8
 #define SVC_BLOCK_SADS(BW, BH, Out)                                                  \
   template int launch_block_sads<BW, BH, Out>(const void*, const void*, const void*, \
                                               Out*, int, int, int, int, void*);
@@ -371,19 +401,25 @@ SVC_BLOCK_SADS(4, 2, float)
 SVC_BLOCK_SADS(2, 4, float)
 SVC_BLOCK_SADS(2, 1, float)
 SVC_BLOCK_SADS(1, 2, float)
+SVC_BLOCK_SADS(4, 1, float)
+SVC_BLOCK_SADS(1, 4, float)
+SVC_BLOCK_SADS(8, 2, float)
+SVC_BLOCK_SADS(2, 8, float)
 SVC_BLOCK_SADS(2, 2, int32_t)
 SVC_BLOCK_SADS(4, 2, int32_t)
 SVC_BLOCK_SADS(2, 4, int32_t)
+SVC_BLOCK_SADS(8, 2, int32_t)
+SVC_BLOCK_SADS(2, 8, int32_t)
 #undef SVC_BLOCK_SADS
 
 // tracked, anchor: (t_count, fh, fw) uint8; mv: (t_count, fh/bh, fw/bw, 2)
 // int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw) float32. All
 // contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 16x16, 2x1, 1x2, 4x2,
-// 2x4, 8x4, 4x8, 16x8, 8x16, dividing fw and fh, 1 <= r <= 4; at 1x1
-// tracked 4-byte aligned and
-// fh * fw a multiple of 4; at 2x2, 2x1, 1x2, 4x2 and 2x4 also the anchor
-// aligned to its rows' bytes (BW); both 16-byte aligned where both sides
-// are 4 or more. Refuses (cudaErrorInvalidValue) anything else.
+// 2x4, 8x4, 4x8, 16x8, 8x16, 4x1, 1x4, 8x2, 2x8, 16x4, 4x16, dividing fw
+// and fh, 1 <= r <= 4; at 1x1 tracked 4-byte aligned and fh * fw a
+// multiple of 4; on the thread-a-block kernel (a side of 1 or 2) also the
+// anchor aligned to its rows' bytes (BW); both 16-byte aligned where both
+// sides are 4 or more. Refuses (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
                                   const void* mv, void* out, int t_count,
                                   int fh, int fw, int bw, int bh, int r,
@@ -403,6 +439,14 @@ SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
         tracked, anchor, mv, o, t_count, fh, fw, r, stream);
     case shape_key(2, 4): return launch_block_sads<2, 4, float>(
         tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(4, 1): return launch_block_sads<4, 1, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(1, 4): return launch_block_sads<1, 4, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(8, 2): return launch_block_sads<8, 2, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(2, 8): return launch_block_sads<2, 8, float>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
     case shape_key(4, 4): return launch_refine_rows<4, 4, float>(
         tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
     case shape_key(8, 8): return launch_refine_rows<8, 8, float>(
@@ -416,6 +460,10 @@ SVC_EXPORT int svc_candidate_sads(const void* tracked, const void* anchor,
     case shape_key(16, 8): return launch_refine_rows<16, 8, float>(
         tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
     case shape_key(8, 16): return launch_refine_rows<8, 16, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(16, 4): return launch_refine_rows<16, 4, float>(
+        tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(4, 16): return launch_refine_rows<4, 16, float>(
         tracked, anchor, plane, mv, o, t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

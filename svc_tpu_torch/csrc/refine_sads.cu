@@ -1,16 +1,18 @@
 // K3 refine_sads: candidate SADs of one hierarchical motion refinement
 // level for a whole frame stack, specialised for BW x BH MV blocks (BW
-// columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16, 32 and
-// the ratio-2 rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 here; 2x2, 4x2
-// and 2x4 on K9's thread-a-block kernel (candidate_sads.cu). These are the
-// refinement levels of the encoder's search at 16x16 MV blocks and 4
-// pyramid levels, range 8 (R = 1, the default) to 39 (R = range / 8), at
-// 8x8 MV blocks or 2, 3 or 5 levels, at 16x8 or 8x16 MV blocks and 2, 3 or
-// 4 levels, and at 32x32, 32x16 or 16x32 MV blocks and 2 to 5 levels
+// columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16, 32, the
+// ratio-2 rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 and the ratio-4
+// ones 32x8, 16x4, 8x32, 4x16 here; 2x2, 4x2, 2x4, 8x2 and 2x8 on K9's
+// thread-a-block kernel (candidate_sads.cu). These are the refinement
+// levels of the encoder's search at 16x16 MV blocks and 4 pyramid levels,
+// range 8 (R = 1, the default) to 39 (R = range / 8), at 8x8 MV blocks or
+// 2, 3 or 5 levels, at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels, at
+// 32x32, 32x16 or 16x32 MV blocks and 2 to 5 levels, and at 32x8 or 8x32
+// MV blocks and 2, 3 or 4 levels (16x4 at 2 or 3 levels too)
 // (--mv-block-w/-h, --pyr-lvl-count). The same kernel is K7's for one
-// frame pair (refine_mads.cu) and K9's at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8
-// and 8x16 blocks with float32 output (candidate_sads.cu), through the
-// launchers of
+// frame pair (refine_mads.cu) and K9's at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8,
+// 8x16, 16x4 and 4x16 blocks with float32 output (candidate_sads.cu),
+// through the launchers of
 // refine_sads.cuh: it reads frame t's tracked plane and its anchor from two
 // bases a per-frame stride apart, so K3 passes (stack, stack + plane,
 // plane), K7 (tracked, anchor, 0) and K9 (tracked, anchor, plane).
@@ -66,21 +68,22 @@
 //     through shared memory, leaving as runs of consecutive block columns
 //     of each candidate plane;
 //   - at BW = 16 and R >= 2 (32 columns: R = 2, and R = 1 at 32x16), and
-//     on the tall rectangles 16x32, 8x16 and 4x8 at every R, the ALU work
-//     of the shifts, the row shuffles and the reduction outweighs the SADs,
-//     so refine_sads_split_kernel gives a block BH / 4 lanes of 4 anchor
-//     rows each: every lane loads its 4 + 2R
-//     window rows itself, a row's shifted words serve up to 4 anchor rows,
-//     and the reduction spans BH / 4 lanes (kSplit; in turns on an H100:
-//     22-27% faster at 16x16 and R = 2, 3, 9% at R = 4; at 16x8 22 / 13 /
-//     9% at R = 2 / 3 / 4; at 8x16 46 / 38 / 34 / 17% at R = 1-4 and at 4x8
-//     44 / 37 / 23 / 7%; at 32x32 and 32x16 3-5% at R = 2, 15% at 32x16
-//     and R = 1; at 8x8 no faster, 16% slower at R = 4: twice the row
-//     loads). Its CTAs hold 1024 / BH blocks, so it runs only where its
-//     grid gives every SM two CTAs, does not spill just past one wave at
-//     the kernel's own CTAs an SM and leaves few of its lanes idle past a
-//     block row's end (split_fits: K3's stacks; a single 1080p pair, K7,
-//     keeps the one-row-a-lane kernel's grid but at 8x16, R <= 3).
+//     on the tall rectangles 16x32, 8x16, 4x8, 8x32 and 4x16 at every R,
+//     the ALU work of the shifts, the row shuffles and the reduction
+//     outweighs the SADs, so refine_sads_split_kernel gives a block BH / 4
+//     lanes of 4 anchor rows each: every lane loads its 4 + 2R window rows
+//     itself, a row's shifted words serve up to 4 anchor rows, and the
+//     reduction spans BH / 4 lanes (kSplit; in turns on an H100: 22-27%
+//     faster at 16x16 and R = 2, 3, 9% at R = 4; at 16x8 22 / 13 / 9% at R
+//     = 2 / 3 / 4; at 8x16 46 / 38 / 34 / 17% at R = 1-4 and at 4x8 44 / 37
+//     / 23 / 7%; at 8x32 20-25% and at 4x16 5-41%; at 32x32 and 32x16 3-5%
+//     at R = 2, 15% at 32x16 and R = 1; at 8x8 no faster, 16% slower at R
+//     = 4: twice the row loads; 32x8 and 16x4 run one row a lane). Its CTAs
+//     hold 1024 / BH blocks, so it runs only where its grid gives every SM
+//     two CTAs, does not spill just past one wave at the kernel's own CTAs
+//     an SM and leaves few of its block slots idle past a block row's end
+//     (split_fits: K3's stacks; a single 1080p pair, K7, keeps the
+//     one-row-a-lane kernel's grid but at 8x16, R <= 3, and 8x32).
 // From the window rows on, the one-row-a-lane kernel runs refine_rows.cuh,
 // shared with the K8 refine (refine_sads_pitched.cu, 16x16, R = 1).
 #include "refine_rows.cuh"
@@ -92,15 +95,18 @@ namespace {
 constexpr int kSplitRows = 4;
 
 // Whether an instance runs the split kernel (where its grid fits it,
-// launch): 16-column blocks at R >= 2, the tall rectangles 16x32, 8x16 and
-// 4x8 at every R, and 32-column blocks at R = 2 and 32x16 at R = 1. At R =
-// 3, 4 the 32-column split kernel needs 137-139 registers, one CTA an SM,
-// and the one-row kernel (75-109, two or three) is 10-19% faster; at R =
-// 1 32x32's one-row kernel is 4% faster, 32x16's 15% slower (in turns on
-// an H100).
+// launch): 16-column blocks of 8 rows or more at R >= 2, the tall
+// rectangles 16x32, 8x16, 4x8, 8x32 and 4x16 at every R, and 32-column
+// blocks of 16 rows or more at R = 2 and 32x16 at R = 1. At R = 3, 4 the
+// 32-column split kernel needs 137-139 registers, one CTA an SM, and the
+// one-row kernel (75-109, two or three) is 10-19% faster; at R = 1 32x32's
+// one-row kernel is 4% faster, 32x16's 15% slower; 32x8's split (2 lanes a
+// block) 16% slower at R = 1, 43% at R = 2 (in turns on an H100). A 4-row
+// block would get one lane and a CTA of 256 blocks (past 48 KB of sums
+// from R = 3): 16x4 runs one row a lane.
 template <int BW, int BH, int R>
-constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8) ||
-                        (BW == 32 && (R == 2 || (R == 1 && BH < BW)));
+constexpr bool kSplit = (BW == 16 && BH >= 8 && R >= 2) || (BW < BH && BH >= 8) ||
+                        (BW == 32 && BH >= 16 && (R == 2 || (R == 1 && BH < BW)));
 
 // Whether an instance's 9 sums at R = 1 reduce by plain xor steps over the
 // block's BH lanes (8x8 blocks and 4-row ones) rather than two to a word
@@ -328,20 +334,21 @@ refine_sads_split_kernel(const uint8_t* __restrict__ tracked,
 }
 
 // Whether the split kernel takes a grid of `ctas` CTAs on `sms` SMs that
-// hold `per_sm` of them at once (its own occupancy), its CTAs of `blocks`
-// block columns leaving `idle` of them past a block row's end: every SM
-// gets two CTAs or more; the grid does not spill past one full wave by
-// fewer CTAs than there are SMs (such a remainder runs as a second wave of
-// under one CTA an SM on an otherwise idle card, a whole CTA's time for a
-// sliver of the work: K7's 8x16 pair at R = 4, 272 CTAs, 264 at once; past
-// two waves the tail's share is a third or less); and a quarter of a CTA's
-// lanes at most idle (K9's 16x8 on a 960-column level: 60 block columns
-// in a CTA of 128). Else the one-row kernel's four times as many, smaller
-// CTAs spread evenly.
+// hold `per_sm` of them at once (its own occupancy), its CTAs spanning
+// `slots` block columns a block row and leaving `idle` of them past the
+// row's end: every SM gets two CTAs or more; the grid does not spill past
+// one full wave by fewer CTAs than there are SMs (such a remainder runs as
+// a second wave of under one CTA an SM on an otherwise idle card, a whole
+// CTA's time for a sliver of the work: K7's 8x16 pair at R = 4, 272 CTAs,
+// 264 at once; past two waves the tail's share is a third or less); and a
+// quarter of a block row's slots at most idle (K9's 16x8 on a 960-column
+// level: 60 block columns in a CTA of 128; 8x32 at 1080p takes 240 in 8
+// CTAs of 32, 16 of 256 idle, and the split is 20-25% faster there). Else
+// the one-row kernel's four times as many, smaller CTAs spread evenly.
 constexpr bool split_fits(long long ctas, long long sms, long long per_sm, int idle,
-                          int blocks) {
+                          int slots) {
   const long long wave = per_sm * sms;
-  return 4 * idle <= blocks && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);
+  return 4 * idle <= slots && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);
 }
 
 template <int BW, int BH, int R, class Out>
@@ -369,7 +376,7 @@ int launch(const void* tracked, const void* anchor, size_t frame_stride,
       return n;
     }();
     if (split_fits(static_cast<long long>(grid.x) * grid.y * grid.z, sms, per_sm,
-                   grid.x * kBlocks - mfw, kBlocks)) {
+                   grid.x * kBlocks - mfw, grid.x * kBlocks)) {
       refine_sads_split_kernel<BW, BH, R, Out><<<grid, kThreads, 0, st>>>(
           trk, anc, frame_stride, m, o, fh, fw, mfh, mfw);
       return static_cast<int>(cudaGetLastError());
@@ -407,8 +414,9 @@ int launch_refine_rows(const void* tracked, const void* anchor,
   }
 }
 
-// K3 and K7 at 4x4, 8x8, 16x16, 32x32, 8x4, 4x8, 16x8, 8x16, 32x16 and
-// 16x32 blocks; K9 at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8 and 8x16
+// K3 and K7 at 4x4, 8x8, 16x16, 32x32, 8x4, 4x8, 16x8, 8x16, 32x16,
+// 16x32, 32x8, 16x4, 8x32 and 4x16 blocks; K9 at 4x4, 8x8, 16x16, 8x4,
+// 4x8, 16x8, 8x16, 16x4 and 4x16
 #define SVC_REFINE_ROWS(BW, BH, Out)                                             \
   template int launch_refine_rows<BW, BH, Out>(const void*, const void*, size_t, \
                                                const void*, Out*, int, int, int, \
@@ -423,6 +431,10 @@ SVC_REFINE_ROWS(8, 16, int32_t)
 SVC_REFINE_ROWS(32, 32, int32_t)
 SVC_REFINE_ROWS(32, 16, int32_t)
 SVC_REFINE_ROWS(16, 32, int32_t)
+SVC_REFINE_ROWS(32, 8, int32_t)
+SVC_REFINE_ROWS(16, 4, int32_t)
+SVC_REFINE_ROWS(8, 32, int32_t)
+SVC_REFINE_ROWS(4, 16, int32_t)
 SVC_REFINE_ROWS(4, 4, float)
 SVC_REFINE_ROWS(8, 8, float)
 SVC_REFINE_ROWS(8, 4, float)
@@ -430,6 +442,8 @@ SVC_REFINE_ROWS(4, 8, float)
 SVC_REFINE_ROWS(16, 16, float)
 SVC_REFINE_ROWS(16, 8, float)
 SVC_REFINE_ROWS(8, 16, float)
+SVC_REFINE_ROWS(16, 4, float)
+SVC_REFINE_ROWS(4, 16, float)
 #undef SVC_REFINE_ROWS
 
 int launch_refine_sads(const void* tracked, const void* anchor,
@@ -449,6 +463,10 @@ int launch_refine_sads(const void* tracked, const void* anchor,
     case shape_key(4, 2): return launch_block_sads<4, 2, int32_t>(
         tracked, anchor, mv, o, t_count, fh, fw, r, stream);
     case shape_key(2, 4): return launch_block_sads<2, 4, int32_t>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(8, 2): return launch_block_sads<8, 2, int32_t>(
+        tracked, anchor, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(2, 8): return launch_block_sads<2, 8, int32_t>(
         tracked, anchor, mv, o, t_count, fh, fw, r, stream);
     case shape_key(4, 4): return launch_refine_rows<4, 4, int32_t>(
         tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
@@ -470,6 +488,14 @@ int launch_refine_sads(const void* tracked, const void* anchor,
         tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
     case shape_key(16, 32): return launch_refine_rows<16, 32, int32_t>(
         tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(32, 8): return launch_refine_rows<32, 8, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(16, 4): return launch_refine_rows<16, 4, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(8, 32): return launch_refine_rows<8, 32, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
+    case shape_key(4, 16): return launch_refine_rows<4, 16, int32_t>(
+        tracked, anchor, frame_stride, mv, o, t_count, fh, fw, r, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -477,8 +503,9 @@ int launch_refine_sads(const void* tracked, const void* anchor,
 // stack: (t_count + 1, fh, fw) uint8, 16-byte aligned; mv: (t_count,
 // fh/bh, fw/bw, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw)
 // int32. All contiguous; (bw, bh) one of 2x2, 4x4, 8x8, 16x16, 32x32, 4x2,
-// 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, dividing fw and fh; 1 <= r <= 4.
-// Refuses (cudaErrorInvalidValue) anything else.
+// 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, 32x8, 16x4, 8x2, 8x32, 4x16,
+// 2x8, dividing fw and fh; 1 <= r <= 4. Refuses (cudaErrorInvalidValue)
+// anything else.
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int bw, int bh, int r,
                                void* stream) {

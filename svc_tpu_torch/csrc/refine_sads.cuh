@@ -15,8 +15,9 @@ constexpr int shape_key(int bw, int bh) { return bw << 8 | bh; }
 
 // K3's lane-per-anchor-row kernel (refine_sads.cu, over refine_rows.cuh)
 // for BW x BH blocks: 4x4, 8x8, 16x16, 32x32, 8x4, 4x8, 16x8, 8x16, 32x16,
-// 16x32 with int32 output (K3, K7), 4x4, 8x8, 16x16, 8x4, 4x8, 16x8, 8x16
-// with float32 (K9). tracked, anchor:
+// 16x32, 32x8, 16x4, 8x32, 4x16 with int32 output (K3, K7), 4x4, 8x8,
+// 16x16, 8x4, 4x8, 16x8, 8x16, 16x4, 4x16 with float32 (K9). tracked,
+// anchor:
 // (fh, fw) uint8 planes, 16-byte aligned, frame_stride a multiple of 16;
 // mv: (t_count, fh/BH, fw/BW, 2) int32 (x, y); out: (t_count, (2r + 1)^2,
 // fh/BH, fw/BW). All contiguous; BH divides fh and BW divides fw.
@@ -26,17 +27,17 @@ int launch_refine_rows(const void* tracked, const void* anchor,
                        int t_count, int fh, int fw, int r, void* stream);
 
 // K9's thread-a-block kernel (candidate_sads.cu) for BW x BH blocks: 2x2,
-// 4x2 and 2x4 with float32 output (K9) or int32 (K3, K7), 2x1 and 1x2
-// with float32; the frame stride a plane (fh * fw: K9, K3; K7 has one
-// frame). tracked 4-byte aligned, anchor aligned to its rows' bytes (4 at
-// BW = 4, 2 at BW = 2, 1 at BW = 1) and fh * fw a multiple of 4; mv:
+// 4x2, 2x4, 8x2 and 2x8 with float32 output (K9) or int32 (K3, K7), 2x1,
+// 1x2, 4x1 and 1x4 with float32; the frame stride a plane (fh * fw: K9,
+// K3; K7 has one frame). tracked 4-byte aligned, anchor aligned to its
+// rows' bytes (BW: 8, 4, 2 or 1) and fh * fw a multiple of 4; mv:
 // (t_count, fh/BH, fw/BW, 2) int32 (x, y); out: (t_count, (2r + 1)^2,
 // fh/BH, fw/BW). All contiguous; BH divides fh and BW divides fw.
 template <int BW, int BH, class Out>
 int launch_block_sads(const void* tracked, const void* anchor, const void* mv,
                       Out* out, int t_count, int fh, int fw, int r, void* stream);
 
-// K3's and K7's entry, int32 output: 2x2, 4x2 and 2x4 on K9's
+// K3's and K7's entry, int32 output: 2x2, 4x2, 2x4, 8x2 and 2x8 on K9's
 // thread-a-block kernel, the other shapes of launch_refine_rows on it.
 int launch_refine_sads(const void* tracked, const void* anchor,
                        size_t frame_stride, const void* mv, void* out,

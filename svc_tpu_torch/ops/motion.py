@@ -17,13 +17,15 @@ the plain version; a CUDA tensor launches the kernel or raises):
 
 * K3 :func:`refine_sads` — candidate SADs of one refinement level for a
   frame stack (``hbma_stack``): ``csrc/refine_sads.cu`` for square
-  4/8/16/32 blocks and the rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32
-  (width x height), K9's thread-a-block kernel (``csrc/candidate_sads.cu``)
-  for 2x2, 4x2 and 2x4, at ``1 <= r <= 4`` (the encoder's levels at 16x16
-  MV blocks, 4 levels and search ranges 8 to 39, ``r = 1`` the default; at
-  8x8 MV blocks or 2, 3 or 5 levels; at 16x8 or 8x16 MV blocks and 2, 3 or
-  4 levels; at 32x32, 32x16 or 16x32 MV blocks and 2 to 5 levels), the
-  general kernel ``csrc/refine_sads_general.cu`` otherwise;
+  4/8/16/32 blocks and the rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32,
+  32x8, 16x4, 8x32, 4x16 (width x height), K9's thread-a-block kernel
+  (``csrc/candidate_sads.cu``) for 2x2, 4x2, 2x4, 8x2 and 2x8, at ``1 <= r
+  <= 4`` (the encoder's levels at 16x16 MV blocks, 4 levels and search
+  ranges 8 to 39, ``r = 1`` the default; at 8x8 MV blocks or 2, 3 or 5
+  levels; at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels; at 32x32, 32x16
+  or 16x32 MV blocks and 2 to 5 levels; at 32x8 or 8x32 MV blocks and 2, 3
+  or 4 levels), the general kernel ``csrc/refine_sads_general.cu``
+  otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
   ``hbma``): K3's specialised kernels with the tracked and anchor planes as
   two bases (``csrc/refine_mads.cu``) for K3's shapes at ``1 <= r <= 4``
@@ -37,12 +39,14 @@ the plain version; a CUDA tensor launches the kernel or raises):
 * K9 :func:`candidate_sads` / :func:`refine_sads_static` — float32 SADs of
   ``T`` separate plane pairs (``ebma``): ``csrc/candidate_sads.cu`` for
   square 1x1, 2x2, 4x4, 8x8 and 16x16 blocks and the rectangles 2x1, 1x2,
-  4x2, 2x4, 8x4, 4x8, 16x8, 8x16 at ``1 <= r <= 4`` (the encoder's top
-  level: 2x2 at 16x16 MV blocks, 4 levels and ranges 8 to 39; 1x1 at 8x8
-  MV blocks or 5 levels, 4x4 at 3 levels, 8x8 at 2; 2x1, 4x2, 8x4 at 16x8
-  MV blocks and 4, 3, 2 levels, 1x2, 2x4, 4x8 at 8x16; 16x16, 16x8, 8x16
-  at 32x32, 32x16, 16x32 MV blocks and 2 levels), the general kernel
-  ``csrc/candidate_sads_general.cu`` otherwise.
+  4x2, 2x4, 8x4, 4x8, 16x8, 8x16, 4x1, 1x4, 8x2, 2x8, 16x4, 4x16 at ``1 <=
+  r <= 4`` (the encoder's top level: 2x2 at 16x16 MV blocks, 4 levels and
+  ranges 8 to 39; 1x1 at 8x8 MV blocks or 5 levels, 4x4 at 3 levels, 8x8
+  at 2; 2x1, 4x2, 8x4 at 16x8 MV blocks and 4, 3, 2 levels, 1x2, 2x4, 4x8
+  at 8x16; 16x16, 16x8, 8x16 at 32x32, 32x16, 16x32 MV blocks and 2
+  levels; 4x1, 8x2, 16x4 at 32x8 MV blocks and 4, 3, 2 levels, 1x4, 2x8,
+  4x16 at 8x32), the general kernel ``csrc/candidate_sads_general.cu``
+  otherwise.
 
 The specialised K3, K7 and K9 kernels are templates over the block and
 the radius, an instance for each; their launch counts are kept per
@@ -54,11 +58,11 @@ K3's, K7's, K8's and K9's general kernels are one CUDA kernel
 (``csrc/window_sads.cuh``) templated on the plane layout and the output
 type. The specialised kernels are three: a lane per anchor row
 (``csrc/refine_sads.cu``: K3 and K7 where both sides are 4 or more, K9 at
-4x4, 8x8, 16x16, 8x4, 4x8, 16x8 and 8x16 with float32 output), which
-shares its SAD
-arithmetic with the specialised K8 (``csrc/refine_rows.cuh``); a thread
-per block (K9 at 2x2, 2x1, 1x2, 4x2 and 2x4, and K3 and K7 at 2x2, 4x2
-and 2x4 with int32 output); a thread per pixel (K9 at 1x1). Every SAD kernel
+4x4, 8x8, 16x16, 8x4, 4x8, 16x8, 8x16, 16x4 and 4x16 with float32
+output), which shares its SAD arithmetic with the specialised K8
+(``csrc/refine_rows.cuh``); a thread per block (K9 at 2x2, 2x1, 1x2, 4x2,
+2x4, 4x1, 1x4, 8x2 and 2x8, and K3 and K7 at 2x2, 4x2, 2x4, 8x2 and 2x8
+with int32 output); a thread per pixel (K9 at 1x1). Every SAD kernel
 sums exact integers: bit-equal to its plain version on every entry.
 Tracked pixels outside the frame read as zero; candidates whose window
 leaves the frame are masked by the callers.
@@ -81,10 +85,12 @@ from svc_tpu_torch.ops.pyramid import respatialize
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 # (width, height) of the MV blocks of K3's / K7's specialised kernels: the
-# square ones (32x32 MV blocks' level 0 too) and the ratio-2 rectangles of
-# 16x8, 8x16, 32x16 and 16x32 MV blocks' levels
+# square ones (32x32 MV blocks' level 0 too), the ratio-2 rectangles of
+# 16x8, 8x16, 32x16 and 16x32 MV blocks' levels and the ratio-4 ones of
+# 32x8 and 8x32 MV blocks' levels
 _K3_BLOCKS = frozenset({(2, 2), (4, 4), (8, 8), (16, 16), (32, 32), (4, 2), (8, 4),
-                        (16, 8), (32, 16), (2, 4), (4, 8), (8, 16), (16, 32)})
+                        (16, 8), (32, 16), (2, 4), (4, 8), (8, 16), (16, 32),
+                        (8, 2), (16, 4), (32, 8), (2, 8), (4, 16), (8, 32)})
 _SAD_RADII = (1, 2, 3, 4)  # search radii of the specialised K3, K7 and K9
 # (width, height) of the MV blocks of K9's specialised kernels, and the
 # byte alignment of its (tracked, anchor) stacks at each: whole words of
@@ -92,11 +98,13 @@ _SAD_RADII = (1, 2, 3, 4)  # search radii of the specialised K3, K7 and K9
 # the blocks with a side of 1 or 2) and their anchor rows' bytes (one load
 # a row), 16-byte chunks of both on K3's kernel (both sides 4 or more; 16x16,
 # 16x8 and 8x16 the top levels of 32x32, 32x16 and 16x32 MV blocks at 2
-# levels)
+# levels; 4x1, 8x2, 16x4 those of 32x8 MV blocks at 4, 3, 2 levels and
+# 1x4, 2x8, 4x16 of 8x32)
 _K9_ALIGN = {(1, 1): (4, 1), (2, 2): (4, 2), (2, 1): (4, 2), (1, 2): (4, 1),
              (4, 2): (4, 4), (2, 4): (4, 2), (4, 4): (16, 16), (8, 8): (16, 16),
              (8, 4): (16, 16), (4, 8): (16, 16), (16, 16): (16, 16),
-             (16, 8): (16, 16), (8, 16): (16, 16)}
+             (16, 8): (16, 16), (8, 16): (16, 16), (4, 1): (4, 4), (1, 4): (4, 1),
+             (8, 2): (4, 8), (2, 8): (4, 2), (16, 4): (16, 16), (4, 16): (16, 16)}
 _K9_BLOCKS = frozenset(_K9_ALIGN)
 _K8_TBW, _K8_BLOCK = 8, 16  # subplanes and square MV block of K8's specialised refine
 
@@ -276,8 +284,9 @@ def refine_sads(
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level (kernel K3: the specialised
     kernels for the blocks of ``_K3_BLOCKS`` at ``1 <= r <= 4`` — squares
-    of side 2 to 32 and the ratio-2 rectangles from 4x2 to 32x16 and 16x32
-    — the general one otherwise).
+    of side 2 to 32, the ratio-2 rectangles from 4x2 to 32x16 and 16x32 and
+    the ratio-4 ones from 8x2 to 32x8 and 8x32 — the general one
+    otherwise).
 
     Args:
       stack: ``(T+1, fh, fw)`` uint8 luma planes of one pyramid level;
@@ -352,7 +361,7 @@ def refine_mads(
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level for one frame pair (kernel
     K7: K3's specialised kernels for the blocks of ``_K3_BLOCKS`` at ``1 <=
-    r <= 4``, 32x32, 32x16 and 16x32 among them, the general one
+    r <= 4``, 32x32, 32x16, 16x32, 32x8 and 8x32 among them, the general one
     otherwise).
 
     Args:
@@ -430,8 +439,9 @@ def candidate_sads(
     """Per-block SADs of every ``(2r+1)**2`` candidate around each block's
     MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``): the
     specialised kernels for the blocks of ``_K9_BLOCKS`` at ``1 <= r <= 4``
-    (squares of side 1 to 16 and the ratio-2 rectangles from 2x1 to 16x8
-    and 8x16), the general one otherwise.
+    (squares of side 1 to 16, the ratio-2 rectangles from 2x1 to 16x8 and
+    8x16 and the ratio-4 ones from 4x1 to 16x4 and 4x16), the general one
+    otherwise.
 
     Args:
       tracked / anchor: ``(T, H, W)`` uint8 luma planes.

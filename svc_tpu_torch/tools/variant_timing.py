@@ -65,14 +65,17 @@ the resize target ``idct_resize_display`` at the blocks of K6's
 templated kernel (8 frames of 1376x768 to 1366x768 and of 864x480 to
 854x480); the motion target ``refine_sads`` at levels 2, 1, 0 of that
 stack (blocks whose longer side is 4, 8, 16, and 2x2 on level 2, 32 on
-level 0; even MVs within the level's reach), ``refine_mads`` on frames 0
-and 1 of each level and ``candidate_sads`` at the level each block is the
-top of (1x1, 2x2, 2x1 and 1x2 on the 136x240 one, 4x4, 4x2 and 2x4 on
-272x480, 8x8, 8x4, 4x8, 16x16, 16x8 and 8x16 on 544x960; zero MVs, T = 8)
-at each radius (the blocks and radii
-both wrapper modules specialise), and ``refine_sads_pitched`` at level 0
-(8 subplanes, r = 1). The
-two libraries' outputs must be equal bit for bit (K10's also to its plain
+level 0; the ratio-4 blocks on the levels of 32x8 and 8x32 MV blocks,
+32x8's on 1080 rows; even MVs within the level's reach), ``refine_mads``
+on frames 0 and 1 of each level and ``candidate_sads`` at the level each
+block is the top of (1x1, 2x2, 2x1 and 1x2 on the 136x240 one, 4x4, 4x2
+and 2x4 on 272x480, 8x8, 8x4, 4x8, 16x16, 16x8 and 8x16 on 544x960; the
+ratio-4 blocks of 32x8 MV blocks on 1080 rows, 4x1 on 135x240, 8x2 on
+270x480, 16x4 on 540x960, those of 8x32 on 1088; 2x2 also on 96x172 and
+36x44, the tops of 1376x768 and 352x288; zero MVs, T = 8) at each radius
+(the blocks and radii both wrapper modules specialise), and
+``refine_sads_pitched`` at level 0 (8 subplanes, r = 1). The two
+libraries' outputs must be equal bit for bit (K10's also to its plain
 version).
 Nothing of the checkout's sources changes.
 """
@@ -303,6 +306,8 @@ def motion_work(mods):
     y = torch.randint(0, 256, (9, 1088, 1920), generator=g,
                       dtype=torch.uint8).cuda()
     chain = pyramid.build_pyramid(y, 4)
+    # 32x8 MV blocks' levels: 1080 rows, as the encoder pads them
+    chain1080 = pyramid.build_pyramid(y[:, :1080].contiguous(), 4)
 
     def common(name, default):
         sets = [{(b, b) if isinstance(b, int) else b for b in getattr(m, name, default)}
@@ -313,33 +318,54 @@ def motion_work(mods):
     work = {}
     for r in radii:
         # K3 / K7 on levels 2, 1, 0 (longer sides 4, 8, 16 and 32; 2x2 on
-        # level 2 where both modules specialise it: 8x8 MV blocks)
+        # level 2 where both modules specialise it: 8x8 MV blocks; the
+        # ratio-4 blocks on the levels of 32x8 and 8x32 MV blocks, 32x8's on
+        # 1080 rows)
         for bw, bh in common("_K3_BLOCKS", (4, 8, 16)):
-            lvl = {2: 2, 4: 2, 8: 1, 16: 0, 32: 0}[max(bw, bh)]
-            shape = (8, (1088 >> lvl) // bh, (1920 >> lvl) // bw, 2)
+            ratio4 = max(bw, bh) == 4 * min(bw, bh)
+            if ratio4:
+                lvl = {32: 0, 16: 1, 8: 2}[max(bw, bh)]
+            else:
+                lvl = {2: 2, 4: 2, 8: 1, 16: 0, 32: 0}[max(bw, bh)]
+            levels = chain1080 if ratio4 and bw > bh else chain
+            shape = (8, levels[lvl].shape[1] // bh, (1920 >> lvl) // bw, 2)
             reach = (2 * r) << (2 - lvl)
             mv = (2 * torch.randint(-reach // 2, reach // 2 + 1, shape,
                                     generator=g, dtype=torch.int32)).cuda()
             label = f"<{bw}, {r}>" if bw == bh else f"<{bw}x{bh}, {r}>"
             work[f"K3 refine_sads{label} level {lvl}"] = (
-                lambda m, s=chain[lvl], mv=mv, bw=bw, bh=bh, r=r:
+                lambda m, s=levels[lvl], mv=mv, bw=bw, bh=bh, r=r:
                 m.refine_sads(s, mv, r, bw, bh))
             work[f"K7 refine_mads{label} level {lvl} (one pair)"] = (
-                lambda m, s=chain[lvl], mv=mv[0], bw=bw, bh=bh, r=r:
+                lambda m, s=levels[lvl], mv=mv[0], bw=bw, bh=bh, r=r:
                 m.refine_mads(s[0], s[1], mv, r, bw, bh))
         # K9 at the top level each block is the top of (1x1, 2x2, 2x1, 1x2
         # on level 3, 4x4, 4x2, 2x4 on 2, 8x8, 8x4, 4x8 on 1, and 16x16,
-        # 16x8, 8x16 on 1, the top of 2 levels of 32-pixel MV blocks), zero
-        # MVs
+        # 16x8, 8x16 on 1, the top of 2 levels of 32-pixel MV blocks; 4x1,
+        # 1x4 on 3, 8x2, 2x8 on 2, 16x4, 4x16 on 1, 32x8's on 1080 rows),
+        # zero MVs
         for bw, bh in common("_K9_BLOCKS", (2,)):
-            lvl = {1: 3, 2: 3, 4: 2, 8: 1, 16: 1}[max(bw, bh)]
-            top = chain[lvl]
+            ratio4 = max(bw, bh) == 4 * min(bw, bh)
+            if ratio4:
+                lvl = {4: 3, 8: 2, 16: 1}[max(bw, bh)]
+            else:
+                lvl = {1: 3, 2: 3, 4: 2, 8: 1, 16: 1}[max(bw, bh)]
+            top = (chain1080 if ratio4 and bw > bh else chain)[lvl]
             zero = torch.zeros((8, top.shape[1] // bh, top.shape[2] // bw, 2),
                                dtype=torch.int32).cuda()
             label = f"<{bw}, {r}>" if bw == bh else f"<{bw}x{bh}, {r}>"
             work[f"K9 candidate_sads{label} 8x{top.shape[1]}x{top.shape[2]}"] = (
                 lambda m, tr=top[:-1], an=top[1:], z=zero, bw=bw, bh=bh, r=r:
                 m.candidate_sads(tr, an, z, r, bw, bh))
+        # K9 2x2 on the top levels of 1376x768 and 352x288 (86 and 22 block
+        # columns: under a CTA's 128 threads)
+        for h, w in ((768, 1376), (288, 352)):
+            small = pyramid.build_pyramid(y[:, :h, :w].contiguous(), 4)[3]
+            zero = torch.zeros((8, small.shape[1] // 2, small.shape[2] // 2, 2),
+                               dtype=torch.int32).cuda()
+            work[f"K9 candidate_sads<2, {r}> 8x{small.shape[1]}x{small.shape[2]}"] = (
+                lambda m, tr=small[:-1], an=small[1:], z=zero, r=r:
+                m.candidate_sads(tr, an, z, r, 2, 2))
     y8 = pyramid.to_pitched(y, 8)
     mv0 = (2 * torch.randint(-7, 8, (8, 68, 120, 2), generator=g,
                              dtype=torch.int32)).cuda()

@@ -406,6 +406,82 @@ def test_candidate_sads_wide_top_blocks_equal_general(gen, block, t, h, w, kind,
         assert int(got.max()) == 255 * bw * bh
 
 
+# the ratio-4 rectangles (width x height) of 32x8 and 8x32 MV blocks'
+# refinement levels, and the 1080p level each sits on (1080 rows at 32x8:
+# 135 block rows, 60 block columns; 1088 at 8x32)
+RATIO4_K3 = [((32, 8), 1080, 1920), ((16, 4), 540, 960), ((8, 2), 270, 480),
+             ((8, 32), 1088, 1920), ((4, 16), 544, 960), ((2, 8), 272, 480)]
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block,lh,lw", RATIO4_K3, ids=lambda b: (
+    f"{b[0]}x{b[1]}" if isinstance(b, tuple) else str(b)))
+@pytest.mark.parametrize("kind", ["path", "edge", "far", "large", "saturated"])
+def test_refine_ratio4_blocks_equal_general(gen, block, lh, lw, kind, r):
+    # K3 and K7 at the levels of 32x8 and 8x32 MV blocks (8x2, 2x8 on K9's
+    # thread-a-block kernel, the others on K3's; "large": the 1080p level,
+    # 9 frames; "saturated": anchor 255 against tracked 0 over whole
+    # blocks, 65,280 at 32x8 and 8x32) against the general kernels, the
+    # plain versions and K3 on the stacked pair, every candidate
+    bw, bh = block
+    t, h, w = (8, lh, lw) if kind == "large" else (2, 5 * bh, 41 * bw)
+    stack = _u8(gen, (t + 1, h, w))
+    if kind == "saturated":
+        stack.zero_()
+        stack[1::2] = _checkerboard(h, w, bw, bh)
+    mv = _rect_mvs(gen, kind if kind in ("edge", "far") else "path",
+                   (t, h // bh, w // bw, 2), bw, bh, r)
+    name = motion._instance(bw, bh, r)
+    inst = motion.REFINE_SADS.instance_launches["refine_sads" + name]
+    got = motion.refine_sads(stack, mv, r, bw, bh)
+    assert motion.REFINE_SADS.instance_launches["refine_sads" + name] == inst + 1
+    assert torch.equal(got, motion.refine_sads(stack, mv, r, bw, bh, general=True))
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, bw, bh))
+    if kind == "saturated":
+        assert int(got.max()) == 255 * bw * bh
+    tr, an, mv0 = stack[0].clone(), stack[1].clone(), mv[0].contiguous()
+    inst = motion.REFINE_MADS.instance_launches["refine_mads" + name]
+    pair = motion.refine_mads(tr, an, mv0, r, bw, bh)
+    assert motion.REFINE_MADS.instance_launches["refine_mads" + name] == inst + 1
+    assert torch.equal(pair, got[0])
+    assert torch.equal(pair, motion.refine_mads(tr, an, mv0, r, bw, bh, general=True))
+
+
+# K9 at the top levels of 32x8 and 8x32 MV blocks at 4, 3 and 2 levels: 4x1,
+# 1x4, 8x2, 2x8 on the thread-a-block kernel, 16x4, 4x16 on K3's (T = 8 at
+# the 1080p level; small planes with odd widths where the block allows)
+RATIO4_K9 = [((4, 1), 8, 135, 240), ((1, 4), 8, 136, 240), ((8, 2), 8, 270, 480),
+             ((2, 8), 8, 272, 480), ((16, 4), 8, 540, 960), ((4, 16), 8, 544, 960)]
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("block,t,h,w", RATIO4_K9, ids=lambda b: (
+    f"{b[0]}x{b[1]}" if isinstance(b, tuple) else str(b)))
+@pytest.mark.parametrize("kind", ["zero", "edge", "far", "small", "saturated"])
+def test_candidate_sads_ratio4_top_blocks_equal_general(gen, block, t, h, w, kind, r):
+    # against the general kernel and the plain version; "small": 3 frames of
+    # 7 x 9 blocks (odd widths at 1x4), "saturated": 255 BW BH a block
+    bw, bh = block
+    if kind == "small":
+        t, h, w = 3, 7 * bh, 9 * bw
+        if h * w % 4:  # the thread-a-block kernel's gate: planes of whole words
+            h *= 4
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    if kind == "saturated":
+        tr.zero_()
+        an[:] = _checkerboard(h, w, bw, bh)
+    mv = _rect_mvs(gen, "zero" if kind in ("saturated", "zero") else
+                   ("edge" if kind == "small" else kind), (t, h // bh, w // bw, 2), bw, bh, r)
+    name = "candidate_sads" + motion._instance(bw, bh, r)
+    inst = motion.CANDIDATE_SADS.instance_launches[name]
+    got = motion.candidate_sads(tr, an, mv, r, bw, bh)
+    assert motion.CANDIDATE_SADS.instance_launches[name] == inst + 1
+    assert torch.equal(got, motion.candidate_sads(tr, an, mv, r, bw, bh, general=True))
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, bw, bh))
+    if kind == "saturated":
+        assert int(got.max()) == 255 * bw * bh
+
+
 def test_candidate_sads_1x1_odd_plane_takes_the_general_kernel(gen):
     # 5x7 planes are no whole number of words: the 1x1 kernel's loads would
     # leave the last plane, so the general kernel takes them

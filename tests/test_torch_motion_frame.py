@@ -119,6 +119,36 @@ def test_hbma_wide_blocks_bit_equal(bw, bh, levels, r, monkeypatch):
     assert np.abs(mv_t.numpy()).max() > 0
 
 
+# ratio-4 MV blocks (width, height, levels, rows, columns): 32x8 and 8x32
+# at 4, 3 and 2 levels, 16x4 at 3; an odd count of block rows at every
+# level and 8 block columns, so svc_tpu's hbma takes refine_mads_pallas at
+# each refinement level
+RATIO4_HBMA_CASES = [(32, 8, 4, 40, 256), (32, 8, 3, 40, 256), (32, 8, 2, 40, 256),
+                     (8, 32, 4, 96, 64), (8, 32, 3, 96, 64), (8, 32, 2, 96, 64),
+                     (16, 4, 3, 20, 128)]
+
+
+@pytest.mark.parametrize("bw,bh,levels,h,w", RATIO4_HBMA_CASES)
+def test_hbma_ratio4_blocks_bit_equal(bw, bh, levels, h, w, monkeypatch):
+    frames = _moving_stack(2, h, w, seed=bw + 3 * bh + levels)
+    jp, tp = _pyramids(frames, levels)
+    calls = []
+    pallas = j_mp.refine_mads_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_pallas", counted)
+    mv_j, mm_j = j_motion.hbma([p[0] for p in jp], [p[1] for p in jp], 8, bw, bh)
+    assert len(calls) == levels - 1  # every refinement level took the kernel
+    mv_t, mm_t = motion.hbma([p[0] for p in tp], [p[1] for p in tp], 8, bw, bh)
+    assert mv_t.shape == (h // bh, w // bw, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0
+
+
 def test_hbma_validation_errors_match():
     pyr = pyramid.build_pyramid(torch.from_numpy(_moving_stack(2, 32, 64)), 4)
     tr, an = [p[0] for p in pyr], [p[1] for p in pyr]

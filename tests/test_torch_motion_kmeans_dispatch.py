@@ -52,6 +52,8 @@ _RECTS = [(4, 2), (8, 4), (16, 8), (2, 4), (4, 8), (8, 16)]
 # the blocks with a 32-pixel side: level 0 of 32x32, 32x16 and 16x32 MV
 # blocks
 _WIDE = [(32, 32), (32, 16), (16, 32)]
+# the ratio-4 rectangles of 32x8 and 8x32 MV blocks' refinement levels
+_RATIO4 = [(32, 8), (16, 4), (8, 2), (8, 32), (4, 16), (2, 8)]
 
 
 # ---------------------------------------------------------------------------
@@ -76,10 +78,20 @@ _WIDE = [(32, 32), (32, 16), (16, 32)]
      *((bw, bh, r, False, "refine_sads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
      (16, 8, 2, True, "refine_sads_general"),
      (16, 8, 5, False, "refine_sads_general"),
+     # the ratio-4 rectangles of 32x8 and 8x32 MV blocks (4x16, 16x4 and
+     # 32x8 at r = 1 were general before them)
+     (4, 16, 1, False, "refine_sads"), (16, 4, 1, False, "refine_sads"),
+     (32, 8, 1, False, "refine_sads"),
+     *((bw, bh, r, False, "refine_sads") for bw, bh in _RATIO4 for r in (1, 2, 3, 4)
+       if (bw, bh, r) not in ((4, 16, 1), (16, 4, 1), (32, 8, 1))),
+     (32, 8, 5, False, "refine_sads_general"), (2, 8, 5, False, "refine_sads_general"),
+     (8, 2, 2, True, "refine_sads_general"), (8, 32, 4, True, "refine_sads_general"),
      # other ratios and sides stay general
-     (4, 16, 1, False, "refine_sads_general"), (16, 4, 1, False, "refine_sads_general"),
-     (6, 3, 1, False, "refine_sads_general"), (32, 8, 1, False, "refine_sads_general"),
+     (6, 3, 1, False, "refine_sads_general"),
      (1, 2, 1, False, "refine_sads_general"), (64, 64, 1, False, "refine_sads_general"),
+     (64, 16, 1, False, "refine_sads_general"), (16, 2, 1, False, "refine_sads_general"),
+     (8, 1, 1, False, "refine_sads_general"), (1, 8, 1, False, "refine_sads_general"),
+     (4, 1, 1, False, "refine_sads_general"),
      # a 32-pixel side: 32x32, 32x16, 16x32 MV blocks' level 0
      *((bw, bh, r, False, "refine_sads") for bw, bh in _WIDE for r in (1, 2, 3, 4)),
      (32, 32, 5, False, "refine_sads_general"),
@@ -148,8 +160,13 @@ def _meta_plane_at(offset, fh, fw):
      *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
      (16, 8, 1, False, 4, "refine_mads_general"),  # K3's 16-byte gate
      (4, 2, 3, True, 0, "refine_mads_general"),
-     (16, 4, 1, False, 0, "refine_mads_general"),
+     (16, 4, 1, False, 0, "refine_mads"),  # ratio 4: general before 32x8 MV blocks
      (6, 3, 1, False, 0, "refine_mads_general"),
+     *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _RATIO4 for r in (1, 2, 3, 4)),
+     (8, 2, 1, False, 8, "refine_mads_general"),  # K3's 16-byte gate
+     (32, 8, 2, True, 0, "refine_mads_general"),
+     (2, 8, 5, False, 0, "refine_mads_general"),
+     (64, 16, 1, False, 0, "refine_mads_general"),
      *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _WIDE for r in (1, 2, 3, 4)),
      (32, 32, 1, False, 8, "refine_mads_general"),  # K3's 16-byte gate
      (16, 32, 4, True, 0, "refine_mads_general"),
@@ -194,7 +211,7 @@ def test_hbma_default_levels_take_the_specialised_k7(meta_launches,
 def test_k3_host_constants_match_the_kernel_source():
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
     # K3's / K7's blocks (width, height): both sides 4 or more on this
-    # file's kernel, 2x2, 4x2 and 2x4 on K9's thread-a-block one
+    # file's kernel, 2x2, 4x2, 2x4, 8x2 and 2x8 on K9's thread-a-block one
     entry = src[src.index("int launch_refine_sads("):]
     rows = {(int(a), int(b)) for a, b, c, d in re.findall(
         r"case shape_key\((\d+), (\d+)\): return launch_refine_rows<(\d+), (\d+), int32_t>\(",
@@ -204,10 +221,11 @@ def test_k3_host_constants_match_the_kernel_source():
         entry) if (a, b) == (c, d)}
     # its frames a plane apart (K3) or one frame (K7)
     assert "if ((bw == 2 || bh == 2) && t_count > 1 &&" in entry
-    assert thin == {(2, 2), (4, 2), (2, 4)}
+    assert thin == {(2, 2), (4, 2), (2, 4), (8, 2), (2, 8)}
     assert min(min(b) for b in rows) >= 4
     assert rows | thin == set(motion._K3_BLOCKS)
     assert set(_WIDE) <= rows  # level 0 of 32x32, 32x16 and 16x32 MV blocks
+    assert set(_RATIO4) <= rows | thin  # the levels of 32x8 and 8x32 MV blocks
     # the instances built: int32 for K3 / K7, float32 for K9's shapes with
     # both sides 4 or more
     built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\d+), (\w+)\)\n", src))
@@ -243,23 +261,28 @@ def test_k3_host_constants_match_the_kernel_source():
     assert "constexpr bool kXorSums = R == 1 && (BH == 4 || (BW == 8 && BH == 8));" in src
     assert "if constexpr (kXorSums<BW, BH, R>) {" in src
     assert "block_sads_wide<BW, BH, R>(rows, a, i, blk, s_out);" in src
-    # 16-column blocks at R >= 2, 16x32, 8x16 and 4x8, 32-column ones at R
-    # = 2 and 32x16 at R = 1: the split kernel the replay above follows
+    # 16-column blocks of 8 rows or more at R >= 2, the tall rectangles
+    # (16x32, 8x16, 4x8, 8x32, 4x16), 32-column ones of 16 rows or more at
+    # R = 2 and 32x16 at R = 1: the split kernel the replay above follows
+    # (_split)
     assert f"constexpr int kSplitRows = {_SPLIT_ROWS};" in src
-    assert ("constexpr bool kSplit = (BW == 16 && R >= 2) || (BW < BH && BH >= 8) ||\n"
-            "                        (BW == 32 && (R == 2 || (R == 1 && BH < BW)));") in src
+    assert ("constexpr bool kSplit = (BW == 16 && BH >= 8 && R >= 2) || "
+            "(BW < BH && BH >= 8) ||\n"
+            "                        (BW == 32 && BH >= 16 && (R == 2 || (R == 1 && BH < BW)));"
+            ) in src
     assert "if constexpr (kSplit<BW, BH, R>) {" in src
     assert "constexpr int kLanes = BH / kRows;" in src
-    # where its grid gives every SM two CTAs and does not spill just past
-    # one wave at the kernel's own CTAs an SM (_split_fits); else the
-    # one-row-a-lane kernel
+    # where its grid gives every SM two CTAs, does not spill just past one
+    # wave at the kernel's own CTAs an SM and leaves a quarter of a block
+    # row's slots idle at most (_split_fits); else the one-row-a-lane
+    # kernel
     assert "&n, refine_sads_split_kernel<BW, BH, R, Out>, kThreads, 0);" in src
     assert ("if (split_fits(static_cast<long long>(grid.x) * grid.y * grid.z, sms, "
             "per_sm,\n") in src
     assert "const long long wave = per_sm * sms;" in src
-    assert ("return 4 * idle <= blocks && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);"
+    assert ("return 4 * idle <= slots && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);"
             in src)
-    assert "grid.x * kBlocks - mfw, kBlocks)) {" in src
+    assert "grid.x * kBlocks - mfw, grid.x * kBlocks)) {" in src
     assert ("reduce_store<W::kPacked, kLanes, kRows * BW, W::kCand>(packed, l, blk, s_out);"
             in src)
 
@@ -276,13 +299,19 @@ def test_k3_host_constants_match_the_kernel_source():
     ((32, 4, 8), (8, 16, 32)), ((32, 3, 8), (16, 32)), ((32, 2, 8), (32,)),
     ((32, 5, 16), (4, 8, 16, 32)),
     (((32, 16), 4, 8), ("8x4", "16x8", "32x16")), (((32, 16), 2, 8), ("32x16",)),
-    (((16, 32), 4, 8), ("4x8", "8x16", "16x32")), (((16, 32), 2, 8), ("16x32",))])
+    (((16, 32), 4, 8), ("4x8", "8x16", "16x32")), (((16, 32), 2, 8), ("16x32",)),
+    # 32x8 and 8x32 MV blocks at 4, 3 and 2 levels, 16x4 at 3
+    (((32, 8), 4, 8), ("8x2", "16x4", "32x8")), (((32, 8), 3, 8), ("16x4", "32x8")),
+    (((32, 8), 2, 8), ("32x8",)), (((8, 32), 4, 8), ("2x8", "4x16", "8x32")),
+    (((8, 32), 3, 8), ("4x16", "8x32")), (((8, 32), 2, 8), ("8x32",)),
+    (((16, 4), 3, 8), ("8x2", "16x4"))])
 def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
     # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
     # levels, at 16x8 and 8x16 MV blocks and 4, 3, 2 levels, and at 32x32,
-    # 32x16 and 16x32 MV blocks on the 1080p frame they pad to (1080 rows at
-    # 16x8: an odd count of block rows at every level; 1088 at a 32-pixel
-    # side): the top level on K9, then each level on its K7 instance
+    # 32x16 and 16x32 MV blocks, and at 32x8 and 8x32, on the 1080p frame
+    # they pad to (1080 rows at 16x8 and 32x8: an odd count of block rows at
+    # every level; 1088 at a 32-pixel height): the top level on K9, then
+    # each level on its K7 instance
     block, levels, search_range = config
     bw, bh = (block, block) if isinstance(block, int) else block
     r = search_range >> (levels - 1)
@@ -563,16 +592,17 @@ _SPLIT_ROWS = 4  # anchor rows a lane of refine_sads_split_kernel
 def _split(bw, bh, r):
     """``kSplit<BW, BH, R>``: the instances that run the split kernel where
     its grid fits the card."""
-    return ((bw == 16 and r >= 2) or (bw < bh and bh >= 8)
-            or (bw == 32 and (r == 2 or (r == 1 and bh < bw))))
+    return ((bw == 16 and bh >= 8 and r >= 2) or (bw < bh and bh >= 8)
+            or (bw == 32 and bh >= 16 and (r == 2 or (r == 1 and bh < bw))))
 
 
-def _split_fits(ctas, sms, per_sm, idle, blocks):
+def _split_fits(ctas, sms, per_sm, idle, slots):
     """``split_fits``: whether the split kernel takes a grid of ``ctas``
-    CTAs on ``sms`` SMs that hold ``per_sm`` of them at once, its CTAs of
-    ``blocks`` block columns leaving ``idle`` past a block row's end."""
+    CTAs on ``sms`` SMs that hold ``per_sm`` of them at once, its CTAs
+    spanning ``slots`` block columns a block row, ``idle`` of them past the
+    row's end."""
     wave = per_sm * sms
-    return 4 * idle <= blocks and ctas >= 2 * sms and not wave < ctas < wave + sms
+    return 4 * idle <= slots and ctas >= 2 * sms and not wave < ctas < wave + sms
 
 
 def _replay_k3_split(stack, mv, r, bh=16, bw=16, anchor=None, packed_only=False):
@@ -686,10 +716,11 @@ def test_k9_on_k3s_kernel_replay_equals_plain(b, r, kind):
 
 
 # the rectangles with both sides 4 or more (width x height): K3's / K7's at
-# the refinement levels of 16x8, 8x16, 32x16 and 16x32 MV blocks, K9's 8x4,
-# 4x8, 16x8 and 8x16 at their top levels; 3 block rows, as 1080-row frames
-# give odd counts
-_K3_RECTS = [(8, 4), (4, 8), (16, 8), (8, 16), (32, 16), (16, 32)]
+# the refinement levels of 16x8, 8x16, 32x16, 16x32, 32x8 and 8x32 MV
+# blocks, K9's 8x4, 4x8, 16x8, 8x16, 16x4 and 4x16 at their top levels; 3
+# block rows, as 1080-row frames give odd counts
+_K3_RECTS = [(8, 4), (4, 8), (16, 8), (8, 16), (32, 16), (16, 32), (32, 8), (16, 4),
+             (8, 32), (4, 16)]
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
@@ -705,19 +736,20 @@ def test_k3_rect_replay_equals_plain(block, r, kind):
     ref = motion.refine_sads_plain(torch.from_numpy(stack), torch.from_numpy(mv), r,
                                    bw, bh)
     np.testing.assert_array_equal(got, ref.numpy())
-    # 16x8 at R >= 2, 32x16 at R <= 2, 16x32, 8x16 and 4x8 run the split
-    # kernel (BH / 4 lanes of 4 anchor rows) where its grid fits the card
+    # 16x8 at R >= 2, 32x16 and 32x8 at R <= 2, 16x32, 8x16, 4x8, 8x32 and
+    # 4x16 run the split kernel (BH / 4 lanes of 4 anchor rows) where its
+    # grid fits the card
     if _split(bw, bh, r):
         np.testing.assert_array_equal(_replay_k3_split(stack, mv, r, bh, bw), ref.numpy())
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-@pytest.mark.parametrize("block", [(8, 4), (4, 8), (16, 8), (8, 16)],
+@pytest.mark.parametrize("block", [(8, 4), (4, 8), (16, 8), (8, 16), (16, 4), (4, 16)],
                          ids=lambda b: f"{b[0]}x{b[1]}")
 @pytest.mark.parametrize("kind", ["zero", "edge", "far"])
 def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
-    # K9 at 8x4, 4x8, 16x8 and 8x16 blocks: K3's one-row-a-lane kernel on
-    # two stacks, its sums stored as float32 through the mantissa
+    # K9 at 8x4, 4x8, 16x8, 8x16, 16x4 and 4x16 blocks: K3's one-row-a-lane
+    # kernel on two stacks, its sums stored as float32 through the mantissa
     bw, bh = block
     rng = np.random.default_rng(2000 + 100 * bw + 10 * bh + r + len(kind))
     t, mfh, mfw = 2, 3, 5
@@ -729,8 +761,8 @@ def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
         mv = _k3_mvs(rng, kind, (t, mfh, mfw, 2), max(bw, bh), r).astype(np.int32)
     ref = motion.candidate_sads_plain(torch.from_numpy(tracked), torch.from_numpy(anchor),
                                       torch.from_numpy(mv), r, bw, bh)
-    # 4x8, 8x16 and 16x8 at r >= 2 run the split kernel where its grid
-    # fits the card
+    # 4x8, 8x16, 4x16 and 16x8 at r >= 2 run the split kernel where its
+    # grid fits the card
     replays = [_replay_k3(tracked, mv, bw, r, anchor=anchor, bh=bh)]
     if _split(bw, bh, r):
         replays.append(_replay_k3_split(tracked, mv, r, bh, bw, anchor=anchor))
@@ -742,14 +774,16 @@ def test_k9_rect_on_k3s_kernel_replay_equals_plain(block, r, kind):
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-@pytest.mark.parametrize("block", _WIDE + [(16, 16)], ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("block", _WIDE + [(16, 16), (32, 8), (8, 32)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
 def test_k3_saturated_blocks_need_32bit_sums(block, r):
     # anchor 255 over a checkerboard of whole blocks, tracked 0 everywhere:
     # every candidate of those blocks sums 255 BW BH (261,120 at 32x32,
     # 130,560 at 32x16 and 16x32). Both kernels (the split one where kSplit
     # holds) give it exactly; all-packed steps, the reduction before blocks
     # with a 32-pixel side, carry into the next candidate's half past 256
-    # pixels, and hold at 16x16 (65,280)
+    # pixels, and hold at 256 pixels (65,280 at 16x16, 32x8 and 8x32: the
+    # 16-bit pairs' last case)
     bw, bh = block
     rng = np.random.default_rng(3000 + bw + bh + r)
     t, mfh, mfw = 2, 3, 4
@@ -780,10 +814,10 @@ def test_k3_saturated_blocks_need_32bit_sums(block, r):
 def _split_grid(bw, bh, fh, fw, t):
     """The split kernel's CTAs for ``t`` frames of ``fh`` x ``fw`` (1024 /
     BH blocks of one block row a CTA), the block columns its CTAs leave
-    idle past a block row's end, and its blocks a CTA."""
+    idle past a block row's end, and the slots its CTAs span a block row."""
     blocks, mfw = 1024 // bh, fw // bw
     across = -(-mfw // blocks)
-    return across * (fh // bh) * t, across * blocks - mfw, blocks
+    return across * (fh // bh) * t, across * blocks - mfw, across * blocks
 
 
 @pytest.mark.parametrize("bw,bh,fh,t,per_sm,split", [
@@ -801,12 +835,17 @@ def _split_grid(bw, bh, fh, fw, t):
     (16, 16, 544, 8, 4, True), (16, 16, 544, 8, 2, False), (16, 8, 544, 8, 3, False),
     # one pair at 16x16 and 4x8: under two CTAs an SM
     (16, 16, 1088, 1, 4, False), (4, 8, 544, 1, 6, False),
+    # 8x32 at 1080p (240 block columns in 8 CTAs of 32: 16 of 256 slots
+    # idle), K3's stack at r = 1 and 4 and K7's pair (272 CTAs, a wave of
+    # 396 or more); 4x16 at 544x960 (64-block CTAs, 16 of 256 idle)
+    (8, 32, 1088, 8, 5, True), (8, 32, 1088, 8, 3, True), (8, 32, 1088, 1, 3, True),
+    (4, 16, 544, 8, 2, True),
 ])
 def test_split_rule_keeps_grids_off_a_sliver_of_a_second_wave(bw, bh, fh, t, per_sm,
                                                              split):
     fw = 1920 >> {1088: 0, 1080: 0, 544: 1}[fh]
-    ctas, idle, blocks = _split_grid(bw, bh, fh, fw, t)
-    assert _split_fits(ctas, 132, per_sm, idle, blocks) == split
+    ctas, idle, slots = _split_grid(bw, bh, fh, fw, t)
+    assert _split_fits(ctas, 132, per_sm, idle, slots) == split
 
 
 @pytest.mark.parametrize("b", [4, 8, 16])

@@ -64,6 +64,9 @@ def _meta_u8(*shape):
 # the ratio-2 rectangles (width x height) of 16x8 and 8x16 MV blocks' top
 # levels: K9's instances
 _RECTS = [(2, 1), (4, 2), (8, 4), (1, 2), (2, 4), (4, 8)]
+# the ratio-4 rectangles of 32x8 and 8x32 MV blocks' top levels at 4, 3
+# and 2 levels
+_RATIO4 = [(4, 1), (8, 2), (16, 4), (1, 4), (2, 8), (4, 16)]
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +97,21 @@ _RECTS = [(2, 1), (4, 2), (8, 4), (1, 2), (2, 4), (4, 8)]
        for r in (1, 2, 3, 4)),
      (16, 8, 5, False, "candidate_sads_general"),
      (16, 16, 2, True, "candidate_sads_general"),
+     # the top levels of 32x8 and 8x32 MV blocks at 4, 3 and 2 levels (4x16
+     # and 1x4 at r = 1 were general before them)
+     (4, 16, 1, False, "candidate_sads"), (1, 4, 1, False, "candidate_sads"),
+     *((bw, bh, r, False, "candidate_sads") for bw, bh in _RATIO4 for r in (1, 2, 3, 4)
+       if (bw, bh, r) not in ((4, 16, 1), (1, 4, 1))),
+     (16, 4, 5, False, "candidate_sads_general"),
+     (1, 4, 5, False, "candidate_sads_general"),
+     (8, 2, 3, True, "candidate_sads_general"),
+     (4, 16, 2, True, "candidate_sads_general"),
      # other ratios and shapes stay general
-     (4, 16, 1, False, "candidate_sads_general"), (6, 3, 1, False, "candidate_sads_general"),
-     (1, 4, 1, False, "candidate_sads_general"), (32, 32, 1, False, "candidate_sads_general"),
-     (32, 16, 1, False, "candidate_sads_general")],
+     (6, 3, 1, False, "candidate_sads_general"),
+     (32, 32, 1, False, "candidate_sads_general"),
+     (32, 16, 1, False, "candidate_sads_general"),
+     (16, 2, 1, False, "candidate_sads_general"), (8, 1, 1, False, "candidate_sads_general"),
+     (1, 8, 1, False, "candidate_sads_general"), (32, 8, 1, False, "candidate_sads_general")],
 )
 def test_candidate_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
     t, fh, fw = 3, 4 * bh, 6 * bw
@@ -172,6 +186,15 @@ MOTION_CONFIGS = [
     (((32, 16), 2, 8), ["<16x8, 4>", "<32x16, 4>"]),
     (((16, 32), 4, 8), ["<2x4, 1>", "<4x8, 1>", "<8x16, 1>", "<16x32, 1>"]),
     (((16, 32), 2, 8), ["<8x16, 4>", "<16x32, 4>"]),
+    # 32x8 and 8x32 MV blocks at 4, 3 and 2 levels (1080 and 1088 rows),
+    # 16x4 at 3 (4x4 transform blocks)
+    (((32, 8), 4, 8), ["<4x1, 1>", "<8x2, 1>", "<16x4, 1>", "<32x8, 1>"]),
+    (((32, 8), 3, 8), ["<8x2, 2>", "<16x4, 2>", "<32x8, 2>"]),
+    (((32, 8), 2, 8), ["<16x4, 4>", "<32x8, 4>"]),
+    (((8, 32), 4, 8), ["<1x4, 1>", "<2x8, 1>", "<4x16, 1>", "<8x32, 1>"]),
+    (((8, 32), 3, 8), ["<2x8, 2>", "<4x16, 2>", "<8x32, 2>"]),
+    (((8, 32), 2, 8), ["<4x16, 4>", "<8x32, 4>"]),
+    (((16, 4), 3, 8), ["<4x1, 2>", "<8x2, 2>", "<16x4, 2>"]),
 ]
 
 
@@ -182,8 +205,8 @@ def test_hbma_stack_motion_configs_take_their_instances(meta_launches, config,
     # on K9), 2 levels (8x8 on K9), 5 levels (1x1 and 2x2 again); 16x8 and
     # 8x16 MV blocks at 4, 3 and 2 levels, and 32x32, 32x16 and 16x32, on
     # the 1080p frame they pad to (1080 rows at 16x8: an odd count of block
-    # rows at every level): each level on its own specialised instance, no
-    # general kernel
+    # rows at every level; 135 at every level of 32x8): each level on its
+    # own specialised instance, no general kernel
     block, levels, search_range = config
     bw, bh = (block, block) if isinstance(block, int) else block
     fh = 1088 if bw == bh else padded_dims(1920, 1080, bw, bh, levels)[1]
@@ -234,7 +257,23 @@ def _meta_stack_at(offset, t, fh, fw):
      ((16, 8), (2, 544, 960), (16, 16), "candidate_sads"),
      ((16, 8), (2, 544, 960), (4, 16), "candidate_sads_general"),
      ((8, 16), (2, 544, 960), (16, 16), "candidate_sads"),
-     ((8, 16), (2, 544, 960), (16, 2), "candidate_sads_general")],
+     ((8, 16), (2, 544, 960), (16, 2), "candidate_sads_general"),
+     # the top levels of 32x8 and 8x32 MV blocks at 4, 3 and 2 levels
+     ((4, 1), (2, 135, 240), (4, 4), "candidate_sads"),
+     ((4, 1), (2, 135, 240), (4, 2), "candidate_sads_general"),  # 32-bit anchor rows
+     ((4, 1), (2, 135, 240), (2, 4), "candidate_sads_general"),  # tracked off a word
+     ((1, 4), (2, 136, 240), (4, 1), "candidate_sads"),  # the anchor any byte
+     # 4-row blocks: planes of whole words at any width
+     ((1, 4), (2, 4, 7), (0, 3), "candidate_sads"),
+     ((1, 4), (2, 8, 5), (2, 0), "candidate_sads_general"),  # tracked off a word
+     ((8, 2), (2, 270, 480), (4, 8), "candidate_sads"),
+     ((8, 2), (2, 270, 480), (4, 4), "candidate_sads_general"),  # 64-bit anchor rows
+     ((2, 8), (2, 272, 480), (4, 2), "candidate_sads"),
+     ((2, 8), (2, 272, 480), (4, 1), "candidate_sads_general"),
+     ((16, 4), (2, 540, 960), (16, 16), "candidate_sads"),
+     ((16, 4), (2, 540, 960), (16, 8), "candidate_sads_general"),  # 16-byte chunks
+     ((4, 16), (2, 544, 960), (16, 16), "candidate_sads"),
+     ((4, 16), (2, 544, 960), (8, 16), "candidate_sads_general")],
 )
 def test_candidate_sads_alignment_gates(meta_launches, block, shape, offsets,
                                         kernel):
@@ -628,8 +667,10 @@ def test_k9_host_constants_match_the_kernel_source():
     blocks = {(int(a), int(b)) for a, b in re.findall(
         r"case shape_key\((\d+), (\d+)\): return launch_", entry)}
     assert blocks == set(motion._K9_BLOCKS)
-    # the top level of 32x32, 32x16 and 16x32 MV blocks at 2 levels
+    # the top level of 32x32, 32x16 and 16x32 MV blocks at 2 levels, and of
+    # 32x8 and 8x32 at 4, 3 and 2
     assert {(16, 16), (16, 8), (8, 16)} <= blocks
+    assert set(_RATIO4) <= blocks
     assert "case shape_key(1, 1): return launch_block1(" in entry
     thin = set()
     for bw, bh in blocks - {(1, 1)}:
@@ -658,11 +699,24 @@ def test_k9_host_constants_match_the_kernel_source():
         radii = {int(a) for a, b in re.findall(pattern, src) if a == b}
         assert radii == set(motion._SAD_RADII), launcher
     # past 2x2 at R = 1: BH + 2R window rows of BW + 2R bytes, anchor words
-    # of 4 / BW rows (BH at most), one __vsadu4 an anchor word a candidate,
-    # the exact float32 by the mantissa
+    # of 4 / BW rows (BH at most; BW / 4 words a row from BW = 4 on), one
+    # __vsadu4 an anchor word a candidate, the exact float32 by the mantissa
     assert "constexpr int kRows = BH + 2 * R;" in src
     assert "constexpr int kRun = BW + 2 * R;" in src
-    assert "static constexpr int kStep = 4 / BW < BH ? 4 / BW : BH;" in src
+    assert ("static constexpr int kStep = BW >= 4 ? 1 : (4 / BW < BH ? 4 / BW : BH);"
+            in src)
+    assert "static constexpr int kRowWords = BW >= 4 ? BW / 4 : 1;" in src
+    assert "static constexpr int kCount = BH / kStep * kRowWords;" in src
+    assert "const uint32_t* top = rows[oy + A::kStep * (k / A::kRowWords)];" in src
+    assert "const int w = j + k % A::kRowWords;" in src
+    # a CTA: the level's block columns rounded up to a warp (kThreads at
+    # most), block rows to fill it (_cta_geometry)
+    assert "const int cols = min(kThreads, (mfw + 31) / 32 * 32);" in src
+    assert "const dim3 block(cols, kThreads / cols);" in src
+    assert ("const dim3 grid((mfw + cols - 1) / cols, (mfh + block.y - 1) / block.y, "
+            "t_count);") in src
+    assert "const int by = blockIdx.y * blockDim.y + threadIdx.y;" in src
+    assert "if (bx >= mfw || by >= mfh) return;" in src
     assert "window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);" in src
     assert "sad = __vsadu4(c, a[k]) + sad;" in src
     assert "o[(oy * kSide + ox) * plane_out] = sad_as<Out>(sad);" in src
@@ -684,15 +738,18 @@ def _fshr(lo, hi, bits):
 def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
     """int64 SADs as ``candidate_sads_kernel<BW, BH, R>`` computes them past
     2x2 at R = 1: the BH + 2R window rows of each block as words
-    (``window_run<BW + 2R>``), its anchor rows packed kStep to a word, and
-    per candidate one ``__vsadu4`` an anchor word of the window's bytes
-    there: the row's word shifted to byte ox (BW = 4), one ``__byte_perm``
-    of two rows (BW = 2), of a row and zeros (2x1) or of a row's byte and
-    the next row's (1x2)."""
+    (``window_run<BW + 2R>``), its anchor rows packed kStep to a word (at BW
+    = 8 two words a row), and per candidate one ``__vsadu4`` an anchor word
+    of the window's bytes there: the row's word shifted to byte ox (BW = 4;
+    at BW = 8 each of the row's two words), one ``__byte_perm`` of two rows
+    (BW = 2), of a row and zeros (2x1), of a row's byte and the next row's
+    (1x2) or two such pairs joined by a third (1x4)."""
     t, fh, fw = tracked.shape
     mfh, mfw = fh // bh, fw // bw
     side, n_rows, run = 2 * r + 1, bh + 2 * r, bw + 2 * r
-    step = 4 // bw if 4 // bw < bh else bh  # AnchorWords<BW, BH>::kStep
+    # AnchorWords<BW, BH>: rows a word, words a row
+    step = 1 if bw >= 4 else (4 // bw if 4 // bw < bh else bh)
+    row_words = bw // 4 if bw >= 4 else 1
     out = np.zeros((t, side * side, mfh, mfw), np.int64)
     by, bx = np.meshgrid(np.arange(mfh), np.arange(mfw), indexing="ij")
     for ti in range(t):
@@ -700,11 +757,13 @@ def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
         anc = anchor[ti].astype(np.int64)
         a = []
         for k in range(bh // step):
-            word = np.zeros((mfh, mfw), np.int64)
-            for q in range(step):
-                for j in range(bw):
-                    word |= anc[bh * by + step * k + q, bw * bx + j] << (8 * (bw * q + j))
-            a.append(word)
+            for w in range(row_words):
+                word = np.zeros((mfh, mfw), np.int64)
+                for q in range(step):
+                    for j in range(min(bw, 4)):
+                        word |= (anc[bh * by + step * k + q, bw * bx + 4 * w + j]
+                                 << (8 * (bw * q + j)))
+                a.append(word)
         x0 = bw * bx + mv[ti, ..., 0].astype(np.int64) - r
         y0 = bh * by + mv[ti, ..., 1].astype(np.int64) - r
         rows = [_window_run(trk, y0 + wr, x0, fh, fw, run) for wr in range(n_rows)]
@@ -713,9 +772,10 @@ def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
                 j, d = divmod(ox, 4)
                 sad = 0
                 for k, ak in enumerate(a):
-                    top = rows[oy + step * k]
-                    if bw == 4:
-                        c = top[j] if d == 0 else _fshr(top[j], top[j + 1], 8 * d)
+                    top = rows[oy + step * (k // row_words)]
+                    if bw >= 4:
+                        w = j + k % row_words
+                        c = top[w] if d == 0 else _fshr(top[w], top[w + 1], 8 * d)
                     elif bw == 2 and step == 2:
                         bot = rows[oy + step * k + 1]
                         if d < 3:
@@ -727,8 +787,12 @@ def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
                     elif bw == 2:  # 2x1
                         c = (_byte_perm(top[j], 0, d | (d + 1) << 4 | 0x4400) if d < 3
                              else _fshr(top[j], top[j + 1], 24) & 0xFFFF)
-                    else:  # 1x2
+                    elif step == 2:  # 1x2
                         c = _byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4) & 0xFFFF
+                    else:  # 1x4
+                        lo = _byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4)
+                        hi = _byte_perm(rows[oy + 2][j], rows[oy + 3][j], d | (d + 4) << 4)
+                        c = _byte_perm(lo, hi, 0x5410)
                     sad = sad + _vsadu4(c, ak)
                 out[ti, oy * side + ox] = sad
     return out
@@ -736,8 +800,9 @@ def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
 
 # the blocks (width, height) with a side of 1 or 2 on the thread-a-block
 # kernel besides 2x2: the top levels of 16x8 and 8x16 MV blocks (K9), and
-# K3's / K7's 4x2 and 2x4 refinement levels
-_THIN = [(2, 1), (1, 2), (4, 2), (2, 4)]
+# K3's / K7's 4x2 and 2x4 refinement levels; the top levels of 32x8 and
+# 8x32 MV blocks (K9 4x1, 1x4, 8x2, 2x8) and K3's / K7's 8x2 and 2x8
+_THIN = [(2, 1), (1, 2), (4, 2), (2, 4), (4, 1), (1, 4), (8, 2), (2, 8)]
 
 
 @pytest.mark.parametrize(
@@ -776,13 +841,14 @@ def test_k9_block_replay_equals_plain(block, r, frames, mfh, mfw, mv_kind):
 
 
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-@pytest.mark.parametrize("block", [(4, 2), (2, 4)], ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("block", [(4, 2), (2, 4), (8, 2), (2, 8)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
 @pytest.mark.parametrize("t,mfh,mfw,mv_kind", [(2, 5, 12, "path"), (3, 3, 7, "edge"),
                                                (2, 4, 6, "far")])
 def test_k3_block_replay_equals_plain(r, block, t, mfh, mfw, mv_kind):
-    # K3 and K7 at 4x2 and 2x4 blocks run K9's thread-a-block kernel with
-    # two bases (the stack and the stack plus a plane; the pair) and int32
-    # output: its sums stored as they are
+    # K3 and K7 at 4x2, 2x4, 8x2 and 2x8 blocks run K9's thread-a-block
+    # kernel with two bases (the stack and the stack plus a plane; the pair)
+    # and int32 output: its sums stored as they are
     bw, bh = block
     rng = np.random.default_rng(100 * bw + 10 * bh + r + mfh + len(mv_kind))
     stack = rng.integers(0, 256, (t + 1, mfh * bh, mfw * bw)).astype(np.uint8)
@@ -800,6 +866,45 @@ def test_k3_block_replay_equals_plain(r, block, t, mfh, mfw, mv_kind):
     pair = motion.refine_mads_plain(torch.from_numpy(stack[0]), torch.from_numpy(stack[1]),
                                     torch.from_numpy(mv[0]), r, bw, bh)
     np.testing.assert_array_equal(got[0], pair.numpy())
+
+
+def _cta_geometry(mfh, mfw, t):
+    """The thread-a-block kernel's launch: threads a CTA (block columns,
+    block rows) and its grid, as ``launch`` in csrc/candidate_sads.cu sets
+    them for an mfh x mfw field of t frames."""
+    threads = 128  # kThreads
+    cols = min(threads, -(-mfw // 32) * 32)
+    block = (cols, threads // cols)
+    grid = (-(-mfw // cols), -(-mfh // block[1]), t)
+    return block, grid
+
+
+@pytest.mark.parametrize("mfh,mfw,idle", [
+    # 32x8 and 8x32 MV blocks' levels at 1080p: 60 block columns at each
+    # level of 32x8 (135 block rows), 240 of 8x32 (34)
+    (135, 60, 4), (34, 240, 16),
+    # the default config's top level (2x2, 68 x 120), 1376x768's (48 x 86),
+    # a CIF one (18 x 22), one block, a column of them
+    (68, 120, 8), (48, 86, 10), (18, 22, 10), (1, 1, 31), (7, 1, 31)])
+def test_thread_a_block_grid_covers_every_block_once(mfh, mfw, idle):
+    # the CTAs of 128 threads: the field's block columns rounded up to a
+    # warp (128 at most) and as many block rows as fill the CTA; every block
+    # of every frame taken by exactly one thread, the rest past the field's
+    # edge (the kernel returns there)
+    t = 2
+    (cols, rows), grid = _cta_geometry(mfh, mfw, t)
+    assert cols * rows <= 128 and cols % 32 == 0
+    hits = np.zeros((t, mfh, mfw), np.int64)
+    for gz in range(grid[2]):
+        for gy in range(grid[1]):
+            for gx in range(grid[0]):
+                ty, tx = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+                bx, by = gx * cols + tx, gy * rows + ty
+                live = (bx < mfw) & (by < mfh)
+                np.add.at(hits[gz], (by[live], bx[live]), 1)
+    assert (hits == 1).all()
+    # idle threads a row of CTAs: under a warp's worth past the last column
+    assert grid[0] * cols - mfw == idle < 32
 
 
 def _vabsdiffu4(a, b):

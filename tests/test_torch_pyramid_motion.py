@@ -229,3 +229,37 @@ def test_hbma_stack_wide_configs_bit_equal(bw, bh, levels, search_range, monkeyp
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
     assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
+
+
+# ratio-4 MV blocks (width, height, levels, rows, columns): 32x8 and 8x32
+# at 4, 3 and 2 levels, 16x4 at 3 (the shapes of 32x8's lower levels); 5
+# block rows at every level of 32x8 and 16x4 (odd, as the 135 of 1080p),
+# 3 at 8x32, and 8 block columns at every level, so svc_tpu's search takes
+# refine_mads_stack_pallas (in interpret mode) at each refinement level
+RATIO4_CONFIGS = [(32, 8, 4, 40, 256), (32, 8, 3, 40, 256), (32, 8, 2, 40, 256),
+                  (8, 32, 4, 96, 64), (8, 32, 3, 96, 64), (8, 32, 2, 96, 64),
+                  (16, 4, 3, 20, 128)]
+
+
+@pytest.mark.parametrize("bw,bh,levels,h,w", RATIO4_CONFIGS)
+def test_hbma_stack_ratio4_configs_bit_equal(bw, bh, levels, h, w, monkeypatch):
+    from svc_tpu.ops import motion_pallas as j_mp
+
+    x = _moving_stack(2, h, w, seed=14)
+    calls = []
+    pallas = j_mp.refine_mads_stack_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_stack_pallas", counted)
+    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), levels), 8,
+                                     bw, bh)
+    assert len(calls) == levels - 1  # every refinement level took the kernel
+    mv_t, mm_t = motion.hbma_stack(pyramid.build_pyramid(torch.from_numpy(x), levels),
+                                   8, bw, bh)
+    assert mv_t.shape == (1, h // bh, w // bw, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 0  # the pan was found

@@ -266,6 +266,44 @@ def test_wide_mv_blocks_round_trip():
     assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
 
 
+# ratio-4 MV blocks through both packages (width, height, levels, frame
+# width, frame height, transform block side): 32x8 at 4 and 2 levels (5
+# block rows, odd as 1080p's 135, 8 block columns: svc_tpu's search takes
+# its Pallas stack refine), 8x32 at 4 and 3, and 16x4 at 3 levels, which
+# needs 4x4 transform blocks (transform block height <= MV block height)
+RATIO4_ENCODES = [(32, 8, 4, 256, 40, 8), (32, 8, 2, 256, 40, 8), (8, 32, 4, 64, 96, 8),
+                  (8, 32, 3, 64, 96, 8), (16, 4, 3, 128, 20, 4)]
+
+
+@pytest.mark.parametrize("bw,bh,levels,w,h,tb", RATIO4_ENCODES)
+def test_ratio4_mv_blocks_round_trip(bw, bh, levels, w, h, tb):
+    # the same header, MV fields and block types, coefficients within the
+    # gate
+    n = 4
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(mv_block_w=bw, mv_block_h=bh, pyr_lvl_count=levels,
+                        transform_block_w=tb, transform_block_h=tb)
+    props = VideoProperties(w, h, n)
+    jenc = j_enc.Encoder(cfg, props, batch_size=BATCH)
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=BATCH, device="cpu")
+    js = list(jenc.encode_video(iter(clip)))
+    ts = list(tenc.encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    jb = jenc.encode_batch(clip[: BATCH + 1], 0)
+    tb_ = tenc.encode_batch(clip[: BATCH + 1], 0)
+    assert tb_["mv_field"].shape == (BATCH, h // bh, w // bw, 2)
+    np.testing.assert_array_equal(tb_["mv_field"].numpy(), np.array(jb["mv_field"]))
+    np.testing.assert_array_equal(tb_["block_types"].numpy().astype(np.uint32),
+                                  np.array(jb["block_types"]))
+    assert np.abs(tb_["mv_field"].numpy()).max() > 0  # motion was found
+
+
 def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads
