@@ -47,7 +47,10 @@ each:
    setting's own search's MVs, random and past-edge ones and a saturated
    stack (anchor 255 against tracked 0 over whole blocks: a block's SAD
    255 BW BH, 261,120 at 32x32, 65,280 at 32x8 and 8x32), K7 on frames
-   0-1, each timed in turns with the general kernel), held bit for bit
+   0-1, each timed in turns with the general kernel; past r = 4 the same
+   at r = 5-8 for K9 at 16x16 (one level of 16x16 MV blocks, 8 x
+   1088x1920) and 8x8 (the top of two levels, 8 x 544x960) and K3 / K7 at
+   16x16 (level 0 of two levels), ``FAR_SETTINGS``), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
    in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
@@ -137,7 +140,8 @@ each:
    instance at r = 1-4, the general K7 and K9 and the single-level K4 not),
    at 8x8 MV blocks, at 3 levels, at 16x8, 32x32, 32x16, 32x8 and 8x32 MV
    blocks (K9's 1x1, 4x4, 2x1, 4x2, 4x1 and 1x4, K7's 2x2, 4x2, 8x4, 16x8,
-   32x32, 32x16, 8x2, 16x4, 32x8, 2x8, 4x16 and 8x32 instances), each held
+   32x32, 32x16, 8x2, 16x4, 32x8, 2x8, 4x16 and 8x32 instances) and at 2
+   levels, range 16 (K9's 8x8 and K7's 16x16 at r = 8), each held
    against ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
@@ -196,14 +200,18 @@ each:
     levels at range 16, 16x8 MV blocks (G5), 8x16 at range 16 (G6), 16x8
     at 3 levels (G7), 32x32 at 4 and 2 levels (G8, G9), 32x16 (G10) and
     16x32 at 2 levels (G11), 32x8 (G12) and 8x32 (G13) MV blocks, 32x8 at
-    2 levels (G14) and 8x32 at 3 (G15) on graph replays: the K9 and K3
+    2 levels (G14) and 8x32 at 3 (G15), one level at range 8 (G16) and 2
+    levels at range 16 (G17) on graph replays: the K9 and K3
     instances of the setting's blocks and radius must run (K9 at 1x1, 4x4,
-    8x8, 1x1, 2x1, 1x2, 4x2, 4x4, 16x16, 4x2, 8x16, 4x1, 1x4, 16x4, 2x8;
+    8x8, 1x1, 2x1, 1x2, 4x2, 4x4, 16x16, 4x2, 8x16, 4x1, 1x4, 16x4, 2x8,
+    16x16 at r = 8 under G16 (which must launch neither K4 nor K3), 8x8 at
+    r = 8 under G17;
     K3 at 2x2 under 8x8 MV blocks and 5 levels, at 4x2, 8x4, 16x8 under
     G5, 2x4, 4x8, 8x16 under G6, 8x4, 16x8 under G7, 8x8, 16x16, 32x32
     under G8, 32x32 under G9, 8x4, 16x8, 32x16 under G10, 16x32 under G11,
     8x2, 16x4, 32x8 under G12, 2x8, 4x16, 8x32 under G13, 32x8 under G14,
-    4x16, 8x32 under G15), no other instance and no general K3 or K9; the
+    4x16, 8x32 under G15, 16x16 at r = 8 under G17), no other instance and
+    no general K3 or K9; the
     same checks as phase 15, then the device batch time of each setting in
     turns with the default config.
 
@@ -257,7 +265,10 @@ WIDE_RANGES = (16, 24, 32)
 # 4 under 16x32; then ratio-4 MV blocks: 32x8 with 4x1 at r = 1 under 8x2,
 # 16x4, 32x8 (1080 rows: 135 block rows at every level), 8x32 with 1x4 at
 # r = 1 under 2x8, 4x16, 8x32 (1088 rows), 32x8 at 2 levels, 16x4 at r =
-# 4 under 32x8, 8x32 at 3 levels, 2x8 at r = 2 under 4x16, 8x32
+# 4 under 32x8, 8x32 at 3 levels, 2x8 at r = 2 under 4x16, 8x32; then
+# 16x16 MV blocks past r = 4: one level at range 8 (16x16 at r = 8, the
+# whole search on K9: no pyramid level, no K4, no K3), two levels at range
+# 16 (8x8 at r = 8 under 16x16)
 MOTION_CONFIGS = {
     "G1 8x8 MV blocks": dict(mv_block_w=8, mv_block_h=8),
     "G2 3 levels": dict(pyr_lvl_count=3),
@@ -274,6 +285,8 @@ MOTION_CONFIGS = {
     "G13 8x32 MV blocks": dict(mv_block_w=8, mv_block_h=32),
     "G14 32x8, 2 levels": dict(mv_block_w=32, mv_block_h=8, pyr_lvl_count=2),
     "G15 8x32, 3 levels": dict(mv_block_w=8, mv_block_h=32, pyr_lvl_count=3),
+    "G16 1 level": dict(pyr_lvl_count=1),
+    "G17 2 levels, range 16": dict(pyr_lvl_count=2, mv_search_range=16),
 }
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
@@ -727,9 +740,17 @@ def setting_levels(settings=INSTANCE_SETTINGS):
     return plan[1:]
 
 
-def setting_instance_parity(g, dev, results, int_ops_per_s):
+# the settings of the instances past the near radii (R = 5-8 at 16x16 MV
+# blocks, ``motion._FAR_RADII``), in ``setting_levels``' form: one level
+# (K9 16x16 at level 0), two levels (K9 8x8 at the top, K3 / K7 16x16 at
+# level 0)
+FAR_SETTINGS = (((16, 16, 1), [0], []), ((16, 16, 2), [1], [0]))
+
+
+def setting_instance_parity(g, dev, results, int_ops_per_s, plan=None, radii=None):
     """Phase 3's instances for the MV block and level settings past the
-    default (``setting_levels``), each at r = 1-4 at the 1080p level shape
+    default (``plan``, ``setting_levels()`` unless given), each at each of
+    ``radii`` (``motion._SAD_RADII``, r = 1-4, unless given) at the 1080p level shape
     its setting's encoder gives it (``padded_luma``: 1080 rows at 8x8 and
     16x8 MV blocks, 1088 at 16x16 and 8x16), T = 8: K9 at the top level's
     blocks with zero (the EBMA's), random and past-edge MVs; K3 at the
@@ -759,11 +780,15 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
             fail(f"{name}: the saturated case's largest SAD is {int(got.max())}, "
                  f"not {255 * bw * bh}")
 
+    plan = setting_levels() if plan is None else plan
+    radii = radii or motion._SAD_RADII
     clip = make_clip(1920, 1080, 9)
-    lines = []
-    for (mw, mh, levels), top_levels, refine_levels in setting_levels():
+    lines, shapes = [], {"K9": [], "K3 / K7": []}
+    for (mw, mh, levels), top_levels, refine_levels in plan:
         pyr = build_pyramid(padded_luma(clip, dev, mw, mh, levels), levels)
-        for r in motion._SAD_RADII:
+        shapes["K9"] += [f"{mw >> lvl}x{mh >> lvl}" for lvl in top_levels]
+        shapes["K3 / K7"] += [f"{mw >> lvl}x{mh >> lvl}" for lvl in refine_levels]
+        for r in radii:
             for lvl in top_levels:
                 bw, bh = mw >> lvl, mh >> lvl
                 top = pyr[lvl]
@@ -861,13 +886,12 @@ def setting_instance_parity(g, dev, results, int_ops_per_s):
                     lambda: motion.refine_mads_plain(tr, an, m0, r, bw, bh),
                     2 * fh * fw + m0.numel() * 4 + n_out // (tp1 - 1) * 4,
                     ops // (tp1 - 1)) + f" (one {fh}x{fw} pair)")
-    print("parity K9, K3 and K7 at the MV block and level settings past the "
-          "default (K9 1x1, 4x4, 8x8, 16x16, 2x1, 4x2, 8x4, 1x2, 2x4, 4x8, 16x8, "
-          "8x16, 4x1, 8x2, 16x4, 1x4, 2x8, 4x16; K3 / K7 2x2, 4x2, 8x4, 16x8, 2x4, "
-          "4x8, 8x16, 32x32, 32x16, 16x32, 8x2, 16x4, 32x8, 2x8, 4x16, 8x32), r = "
-          "1-4: every instance bit-equal to the general kernel and to the plain "
-          "version on every entry, a saturated case too (255 BW BH a block); "
-          "timed in turns with the general kernel:")
+    print(f"parity K9, K3 and K7 at the MV block and level settings "
+          f"{', '.join(f'{w}x{h} at {n} levels' for (w, h, n), _, _ in plan)} "
+          f"(K9 {', '.join(shapes['K9'])}; K3 / K7 {', '.join(shapes['K3 / K7'])}), r = "
+          f"{min(radii)}-{max(radii)}: every instance bit-equal to the general kernel and "
+          f"to the plain version on every entry, a saturated case too (255 BW BH a "
+          f"block); timed in turns with the general kernel:")
     for line in lines:
         print(f"  {line}")
 
@@ -1147,6 +1171,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
     # then the instances of 16x8 and 8x16 MV blocks
     wide_search_parity(g, dev, results, int_ops_per_s)
     setting_instance_parity(g, dev, results, int_ops_per_s)
+    # past the near radii: K9 16x16 and 8x8, K3 / K7 16x16 at R = 5-8 (one
+    # level and two levels of 16x16 MV blocks, ranges 5-8 and 10-17)
+    setting_instance_parity(g, dev, results, int_ops_per_s, FAR_SETTINGS,
+                            motion._FAR_RADII)
 
     # K8 pyramid: levels 1-3 of the 9-frame 1088x1920 stack as tbw=8
     # column-pitched subplanes in one fused launch, bit-equal to the fused
@@ -2448,10 +2476,12 @@ def per_frame_motion(clip: np.ndarray, dev):
     # 8x32 MV blocks: K9's 1x1, 4x4, 2x1, 4x2, 4x1 and 1x4 instances, K7's
     # 2x2 ones, its 4x2, 8x4 and 16x8 (on the 1080 rows 16x8 MV blocks pad
     # to), 32x32, 32x16, 8x2, 16x4, 32x8 (1080 rows) and 2x8, 4x16, 8x32
+    # and G17's 16x16 at r = 8 (K9's 8x8 and K7's 16x16 past r = 4)
     settings = {label: EncoderConfig(**MOTION_CONFIGS[label])
                 for label in ("G1 8x8 MV blocks", "G2 3 levels", "G5 16x8 MV blocks",
                               "G8 32x32 MV blocks", "G10 32x16 MV blocks",
-                              "G12 32x8 MV blocks", "G13 8x32 MV blocks")}
+                              "G12 32x8 MV blocks", "G13 8x32 MV blocks",
+                              "G17 2 levels, range 16")}
     pyrs = {label: build_pyramid(padded_luma(clip[:2], dev, cfg.mv_block_w, cfg.mv_block_h,
                                              cfg.pyr_lvl_count), cfg.pyr_lvl_count)
             for label, cfg in settings.items()}
@@ -2532,7 +2562,8 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"(K7's and K9's r = 2-4 instances), at 8x8 MV blocks, at 3 levels and "
           f"at 16x8, 32x32, 32x16, 32x8 and 8x32 MV blocks (K9's 1x1, 4x4, 2x1, "
           f"4x2, 4x1 and 1x4, K7's 2x2, 4x2, 8x4, 16x8, 32x32, 32x16, 8x2, 16x4, "
-          f"32x8, 2x8, 4x16, 8x32) "
+          f"32x8, 2x8, 4x16, 8x32) and at 2 levels, range 16 (K9's 8x8 and K7's "
+          f"16x16 at r = 8) "
           f"equal to hbma_stack and to the CPU "
           f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
           f"launches {counts}")
@@ -3219,18 +3250,24 @@ def main() -> int:
     # every K9 and K3 instance: a config's run takes its own and no other
     all_instances = tuple(
         name + motion._instance(bw, bh, q)
-        for name, blocks in (("candidate_sads", motion._K9_BLOCKS),
-                             ("refine_sads", motion._K3_BLOCKS))
-        for bw, bh in sorted(blocks) for q in motion._SAD_RADII)
+        for name, blocks, radii in (
+            ("candidate_sads", motion._K9_BLOCKS, motion._SAD_RADII),
+            ("refine_sads", motion._K3_BLOCKS, motion._SAD_RADII),
+            ("candidate_sads", motion._K9_FAR_BLOCKS, motion._FAR_RADII),
+            ("refine_sads", motion._K3_FAR_BLOCKS, motion._FAR_RADII))
+        for bw, bh in sorted(blocks) for q in radii)
 
     def motion_plan(cfg):
         """``(cfg, required, forbidden)``: the encode kernels and the
         instances of ``cfg``'s search; no general kernel, no other
-        instance."""
+        instance. One level builds no pyramid and refines nothing: K4 and
+        K3 must not run."""
         own = motion_instances(cfg)
-        return (cfg, encode_kernels + ("lloyd", "idct_display") + own,
+        flat = ("pyr_down_levels", "refine_sads") if cfg.pyr_lvl_count == 1 else ()
+        return (cfg, tuple(k for k in encode_kernels if k not in flat)
+                + ("lloyd", "idct_display") + own,
                 general_dct + general_k3_k5 + general_k6 + any_square + any_square_k6
-                + tuple(n for n in all_instances if n not in own))
+                + flat + tuple(n for n in all_instances if n not in own))
 
     search_runs = {}
     for rng in WIDE_RANGES:

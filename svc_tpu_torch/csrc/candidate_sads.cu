@@ -1,7 +1,8 @@
 // K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
 // float32, specialised for BW x BH MV blocks (BW columns, BH rows) at
-// search radius R = 1 to 4: square 1, 2, 4, 8 or 16, the ratio-2
+// search radius R = 1 to 4 (16x16 and 8x8 at R = 5 to 8 too, on K3's
+// kernel): square 1, 2, 4, 8 or 16, the ratio-2
 // rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8, 16x8, 8x16 and the ratio-4 ones
 // 4x1, 1x4, 8x2, 2x8, 16x4, 4x16. These are the encoder's top-level EBMA,
 // in hbma_stack and per-frame hbma alike, at 16x16 blocks and 4 pyramid
@@ -11,7 +12,9 @@
 // (8x8), 16x8 blocks at 4, 3 or 2 levels (2x1, 4x2, 8x4) and 8x16 (1x2,
 // 2x4, 4x8), 32x32, 32x16 and 16x32 blocks at 2 levels (16x16, 16x8, 8x16;
 // at 3-5 levels their top blocks are among the others), 32x8 blocks at 4,
-// 3 or 2 levels (4x1, 8x2, 16x4) and 8x32 (1x4, 2x8, 4x16). 1x1 runs the
+// 3 or 2 levels (4x1, 8x2, 16x4) and 8x32 (1x4, 2x8, 4x16), 16x16 MV
+// blocks at one level, ranges 5-8 (16x16 at R = 5-8) and at 2 levels,
+// ranges 10-17 (8x8 at R = 5-8). 1x1 runs the
 // thread-a-pixel kernel of this file; 2x2 and the blocks with a side of 1
 // or 2, 2x1, 1x2, 4x2, 2x4, 4x1, 1x4, 8x2, 2x8, its thread-a-block kernel;
 // the shapes with both sides 4 or more K3's kernel (refine_sads.cu,
@@ -416,7 +419,8 @@ SVC_BLOCK_SADS(2, 8, int32_t)
 // int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw) float32. All
 // contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 16x16, 2x1, 1x2, 4x2,
 // 2x4, 8x4, 4x8, 16x8, 8x16, 4x1, 1x4, 8x2, 2x8, 16x4, 4x16, dividing fw
-// and fh, 1 <= r <= 4; at 1x1 tracked 4-byte aligned and fh * fw a
+// and fh, 1 <= r <= 4 (also 5 <= r <= 8 at 16x16 and 8x8); at 1x1
+// tracked 4-byte aligned and fh * fw a
 // multiple of 4; on the thread-a-block kernel (a side of 1 or 2) also the
 // anchor aligned to its rows' bytes (BW); both 16-byte aligned where both
 // sides are 4 or more. Refuses (cudaErrorInvalidValue) anything else.

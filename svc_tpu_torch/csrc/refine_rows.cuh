@@ -9,7 +9,8 @@
 //
 // A CTA of kThreads lanes handles kThreads / BH MV blocks of one block row
 // (BW x BH blocks, BW columns and BH rows, each 4, 8, 16 or 32; search
-// radius R = 1 to 4; the K8 refine 16 x 16 at R = 1); lane i of a block owns
+// radius R = 1 to 4, and 5 to 8 at 16 x 16 and 8 x 8, a candidate row at a
+// time; the K8 refine 16 x 16 at R = 1); lane i of a block owns
 // anchor row i (BW / 4 words). A window row is Window<BW, R>::kWords words
 // from the window's first byte (ox = 0) on; it needs BW + 2R of those
 // bytes.
@@ -277,6 +278,79 @@ __device__ __forceinline__ void block_sads_wide(
     }
   }
   reduce_store<W::kPacked, BH, BW, W::kCand>(packed, i, blk, s_out);
+}
+
+// The 2R + 1 sums of one candidate row (16-bit pairs, ox 2p and 2p + 1 in
+// word p of `packed`) reduced over a group of L lanes by transposed xor
+// steps, all on pairs (a block's sum fits 16 bits up to 256 pixels). Then
+// `put(ox, sum)` for each sum lane i holds, each ox on one lane of the
+// group. Every lane of the warp calls it (full-mask shuffles).
+template <int R, int L, class Put>
+__device__ __forceinline__ void reduce_row(uint32_t (&packed)[R + 1], unsigned i, Put put) {
+  constexpr int kSide = 2 * R + 1;
+  reduce_transposed<R + 1, L / 2, L>(packed, i);
+#pragma unroll
+  for (int k = 0; k < reduced_count<R + 1, L / 2>(); ++k) {
+    const int p = reduced_index<R + 1, L / 2>(k, i);
+    if (p >= 0) {
+      put(2 * p, packed[k] & 0xffffu);
+      if (2 * p + 1 < kSide) put(2 * p + 1, packed[k] >> 16);
+    }
+  }
+}
+
+// block_sads_wide at R >= 5, one candidate row at a time: (2R + 1)^2 sums
+// a lane would outgrow its registers (145 words of pairs at R = 8), so
+// each oy's row i + oy comes from lane (i + oy) mod BH as there, its 2R + 1
+// sums go two to a word and reduce over the block's BH lanes at once
+// (reduce_row), into s_out[oy (2R + 1) + ox][blk]: registers for 2R + 1
+// sums, one small reduction a row. The oy loop runs at run time (its code
+// fits the instruction cache); the slot a lane sends is picked by selects
+// (register arrays take no runtime index). Blocks of 256 pixels at most.
+template <int BW, int BH, int R>
+__device__ __forceinline__ void block_sads_by_row(
+    const uint32_t (&rows)[Window<BW, R, BH>::kSlots][Window<BW, R, BH>::kWords],
+    const uint32_t (&a)[BW / 4], unsigned i, unsigned blk,
+    int32_t (*s_out)[kThreads / BH]) {
+  using W = Window<BW, R, BH>;
+  constexpr int kSide = 2 * R + 1;
+  static_assert(BW * BH <= 256, "a block's sums must fit 16 bits");
+#pragma unroll 1
+  for (int oy = 0; oy < kSide; ++oy) {
+    const int q = oy / BH;
+    const int rho = oy % BH;
+    const int send_slot = static_cast<int>(i) < rho ? q + 1 : q;
+    uint32_t row[W::kWords];
+#pragma unroll
+    for (int k = 0; k < W::kWords; ++k) {
+      uint32_t send = rows[0][k];
+#pragma unroll
+      for (int s = 1; s < W::kSlots; ++s) send = send_slot == s ? rows[s][k] : send;
+      row[k] = __shfl_sync(kFull, send, static_cast<int>(i) + rho, BH);
+    }
+    uint32_t packed[R + 1];
+#pragma unroll
+    for (int ox = 0; ox < kSide; ++ox) {
+      const int wo = ox / 4;
+      const int d = ox % 4;
+      uint32_t sum = 0;
+#pragma unroll
+      for (int j = 0; j < BW / 4; ++j) {
+        const uint32_t c =
+            d == 0 ? row[j + wo] : __funnelshift_r(row[j + wo], row[j + wo + 1], 8 * d);
+        sum = __vsadu4(c, a[j]) + sum;
+      }
+      if (ox % 2 == 0) {
+        packed[ox / 2] = sum;
+      } else {
+        packed[ox / 2] = __byte_perm(packed[ox / 2], sum, 0x5410);
+      }
+    }
+    int32_t* s_row = &s_out[oy * kSide][blk];
+    reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) {
+      s_row[ox * (kThreads / BH)] = static_cast<int32_t>(sum);
+    });
+  }
 }
 
 // The CTA's SADs (s_out, after a barrier; kBlocks MV blocks, kThreads / BH

@@ -3,16 +3,17 @@
 // columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16, 32, the
 // ratio-2 rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 and the ratio-4
 // ones 32x8, 16x4, 8x32, 4x16 here; 2x2, 4x2, 2x4, 8x2 and 2x8 on K9's
-// thread-a-block kernel (candidate_sads.cu). These are the refinement
-// levels of the encoder's search at 16x16 MV blocks and 4 pyramid levels,
+// thread-a-block kernel (candidate_sads.cu); and 16x16 at R = 5 to 8
+// (level 0 of 16x16 MV blocks at 2 levels, ranges 10-17). These are the
+// refinement levels of the encoder's search at 16x16 MV blocks and 4 pyramid levels,
 // range 8 (R = 1, the default) to 39 (R = range / 8), at 8x8 MV blocks or
 // 2, 3 or 5 levels, at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels, at
 // 32x32, 32x16 or 16x32 MV blocks and 2 to 5 levels, and at 32x8 or 8x32
 // MV blocks and 2, 3 or 4 levels (16x4 at 2 or 3 levels too)
 // (--mv-block-w/-h, --pyr-lvl-count). The same kernel is K7's for one
 // frame pair (refine_mads.cu) and K9's at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8,
-// 8x16, 16x4 and 4x16 blocks with float32 output (candidate_sads.cu),
-// through the launchers of
+// 8x16, 16x4 and 4x16 blocks with float32 output (candidate_sads.cu), and
+// at 16x16 and 8x8 at R = 5 to 8 too, through the launchers of
 // refine_sads.cuh: it reads frame t's tracked plane and its anchor from two
 // bases a per-frame stride apart, so K3 passes (stack, stack + plane,
 // plane), K7 (tracked, anchor, 0) and K9 (tracked, anchor, plane).
@@ -83,7 +84,16 @@
 //     two CTAs, does not spill just past one wave at the kernel's own CTAs
 //     an SM and leaves few of its block slots idle past a block row's end
 //     (split_fits: K3's stacks; a single 1080p pair, K7, keeps the
-//     one-row-a-lane kernel's grid but at 8x16, R <= 3, and 8x32).
+//     one-row-a-lane kernel's grid but at 8x16, R <= 3, and 8x32);
+//   - past R = 4 (kNearRadius: 16x16 for K3 / K7 / K9, 8x8 for K9) a
+//     lane's (2R + 1)^2 sums would outgrow its registers (145 words of
+//     pairs at R = 8), so the kernels work one candidate row at a time:
+//     the one-row kernel reduces each row's 2R + 1 sums as soon as it has
+//     them (block_sads_by_row), the split kernel keeps the 4 candidate rows
+//     its window rows can still meet in slots and reduces and stores each
+//     when its last window row has passed (refine_sads_split_rows_kernel,
+//     8x8 only: kSplitFar); the window rows take 3-4 extra words past R =
+//     4, as whole chunks.
 // From the window rows on, the one-row-a-lane kernel runs refine_rows.cuh,
 // shared with the K8 refine (refine_sads_pitched.cu, 16x16, R = 1).
 #include "refine_rows.cuh"
@@ -93,6 +103,29 @@ namespace {
 
 // Anchor rows a lane owns in the split kernel.
 constexpr int kSplitRows = 4;
+// The largest radius whose instances hold all (2R + 1)^2 sums of a lane at
+// once; past it the kernels work one candidate row at a time.
+constexpr int kNearRadius = 4;
+
+// Whether a BW x BH instance also takes R = 5 to 8 (kFarRadii's switch):
+// 16x16 blocks (K3, K7: level 0 of two levels at ranges 10-17; K9: one
+// level at ranges 5-8) and K9's 8x8 (the top of two levels, or one level
+// of 8x8 MV blocks).
+template <int BW, int BH, class Out>
+constexpr bool kFarRadii = (BW == 16 && BH == 16) ||
+                           (BW == 8 && BH == 8 && std::is_same<Out, float>::value);
+
+// Whether an instance past kNearRadius runs refine_sads_split_rows_kernel
+// (where its grid fits it, launch) rather than the one-row kernel's
+// block_sads_by_row: 8-column blocks, whose 8 lanes would spend more on
+// row shuffles and reductions than on their rows' 2 words of SADs (in
+// turns on an H100, K9 8x8 on 8 x 544x960 at R = 5, 7, 8: 0.035 / 0.056 /
+// 0.073 ms against 0.052 / 0.074 / 0.111; at R = 6 its 4 CTAs an SM put
+// 544 CTAs just past one wave and split_fits keeps the one-row kernel).
+// At 16x16 the one-row kernel is 3-7% faster at R = 5 and 8 and at most
+// 5% slower at R = 6, 7 (K3 on 9 x 1088x1920, K9 on 8).
+template <int BW, int BH>
+constexpr bool kSplitFar = BW < 16;
 
 // Whether an instance runs the split kernel (where its grid fits it,
 // launch): 16-column blocks of 8 rows or more at R >= 2, the tall
@@ -179,6 +212,19 @@ __device__ __forceinline__ void load_window_row(const uint8_t* __restrict__ plan
       w[kTail + e] = (row_in && s > 4 * e + 4 - 2 * R && x >= 0 && x < fw)
                          ? __ldg(reinterpret_cast<const unsigned int*>(row + x)) : 0u;
     }
+  } else if constexpr (W::kExtra > 2) {
+    // past kNearRadius (kExtra 3, 4): the extra words fill whole chunks past
+    // the kChunks, one at kGrain 16, two at 8; chunk c is read when the
+    // window reaches it (s > kGrain (c + 1) - 2R) and lies in the row
+    constexpr int kXChunks = (4 * W::kExtra + kG - 1) / kG;
+#pragma unroll
+    for (int c = 0; c < kXChunks; ++c) {
+      const int x = x2 + c * kG;
+      uint32_t v[kW] = {};
+      if (row_in && s > kG * (c + 1) - 2 * R && x >= 0 && x < fw) load_chunk<kG>(row + x, v);
+#pragma unroll
+      for (int k = 0; k < kW && c * kW + k < W::kExtra; ++k) w[kTail + c * kW + k] = v[k];
+    }
   } else {
     // kGrain >= 8: the kExtra (1 or 2) words lie in one chunk, 8-byte aligned
     const bool need = row_in && s > kG - 2 * R && x2 >= 0 && x2 < fw;
@@ -241,7 +287,11 @@ refine_sads_kernel(const uint8_t* __restrict__ tracked,
       const bool inside = k == 0 || static_cast<int>(i) + k * BH < BH + 2 * R;
       load_window_row<BW, R>(trk, y0 + k * BH, x0, fh, fw, active && inside, rows[k]);
     }
-    block_sads_wide<BW, BH, R>(rows, a, i, blk, s_out);
+    if constexpr (R > kNearRadius) {
+      block_sads_by_row<BW, BH, R>(rows, a, i, blk, s_out);
+    } else {
+      block_sads_wide<BW, BH, R>(rows, a, i, blk, s_out);
+    }
   }
   __syncthreads();
   store_sads<BH, R>(s_out, out, t, by, mfh, mfw);
@@ -333,6 +383,104 @@ refine_sads_split_kernel(const uint8_t* __restrict__ tracked,
   store_sads<BH, R, kBlocks>(s_out, out, t, by, mfh, mfw);
 }
 
+// The split kernel at R >= 5 (kSplitFar), one candidate row at a time: a
+// lane's (2R + 1)^2 sums would outgrow its registers, but window row k
+// meets its anchor rows m in candidate rows k - m only, so at most 4 rows
+// of sums are open at once. Candidate row oy accumulates in slot oy % 4
+// (R + 1 words of 16-bit pairs); window row k is the last to meet row k -
+// 3, which then reduces over the block's BH / 4 lanes by transposed xor
+// steps (reduce_row) and goes straight to out, its slot cleared for row k +
+// 1. The rows of a pass of 4 window rows are unrolled (slot indices
+// compile-time), the passes run at run time. A warp's stores of a sum
+// cover 32 / (BH / 4) consecutive block columns of one candidate plane.
+template <int BW, int BH, int R, class Out>
+__global__ void __launch_bounds__(kThreads)
+refine_sads_split_rows_kernel(const uint8_t* __restrict__ tracked,
+                              const uint8_t* __restrict__ anchor, size_t frame_stride,
+                              const int32_t* __restrict__ mv, Out* __restrict__ out,
+                              int fh, int fw, int mfh, int mfw) {
+  constexpr int kRows = kSplitRows;
+  constexpr int kLanes = BH / kRows;
+  constexpr int kBlocks = kThreads / kLanes;
+  constexpr int kSide = 2 * R + 1;
+  using W = Window<BW, R>;
+  static_assert(kRows == 4, "a slot for each of 4 open candidate rows");
+
+  const unsigned l = threadIdx.x % kLanes;  // this lane's anchor rows: 4l ..
+  const unsigned blk = threadIdx.x / kLanes;
+  const int bx = blockIdx.x * kBlocks + blk;
+  const int by = blockIdx.y;
+  const int t = blockIdx.z;
+  const bool active = bx < mfw;  // a whole group of lanes is in or out
+
+  int mvx = 0, mvy = 0;
+  if (active) {
+    const int32_t* m = mv + ((static_cast<size_t>(t) * mfh + by) * mfw + bx) * 2;
+    mvx = __ldg(m);
+    mvy = __ldg(m + 1);
+  }
+  const uint8_t* trk = tracked + t * frame_stride;
+  uint32_t a[kRows][BW / 4];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+#pragma unroll
+    for (int j = 0; j < BW / 4; ++j) a[m][j] = 0u;
+    if (active) {
+      load_chunk<BW>(anchor + t * frame_stride +
+                         static_cast<size_t>(by * BH + kRows * l + m) * fw + bx * BW, a[m]);
+    }
+  }
+  const int x0 = bx * BW + mvx - R;  // first window column (ox = 0)
+  const int y0 = by * BH + mvy - R + kRows * static_cast<int>(l);  // the lane's first row
+  const size_t plane_out = static_cast<size_t>(mfh) * mfw;
+  Out* o = out + (static_cast<size_t>(t) * W::kCand * mfh + by) * mfw + bx;
+  uint32_t acc[kRows][R + 1];
+#pragma unroll
+  for (int s = 0; s < kRows; ++s) {
+#pragma unroll
+    for (int p = 0; p <= R; ++p) acc[s][p] = 0u;
+  }
+#pragma unroll 1
+  for (int k0 = 0; k0 < kRows + 2 * R; k0 += kRows) {
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int k = k0 + u;  // the window row
+      if (k >= kRows + 2 * R) break;
+      uint32_t row[W::kWords];
+      load_window_row<BW, R>(trk, y0 + k, x0, fh, fw, active, row);
+#pragma unroll
+      for (int ox = 0; ox < kSide; ++ox) {
+        const int wo = ox / 4;
+        const int d = ox % 4;
+        uint32_t c[BW / 4];
+#pragma unroll
+        for (int j = 0; j < BW / 4; ++j) {
+          c[j] = d == 0 ? row[j + wo] : __funnelshift_r(row[j + wo], row[j + wo + 1], 8 * d);
+        }
+#pragma unroll
+        for (int m = 0; m < kRows; ++m) {
+          if (k - m < 0 || k - m > 2 * R) continue;  // no candidate row oy = k - m
+          uint32_t sum = 0;
+#pragma unroll
+          for (int j = 0; j < BW / 4; ++j) sum = __vsadu4(c[j], a[m][j]) + sum;
+          // slot (k - m) % 4; a lane's sums reach 4 * BW * 255 < 2^16
+          acc[(u - m) & 3][ox / 2] += ox % 2 == 0 ? sum : sum << 16;
+        }
+      }
+      if (k >= kRows - 1) {  // candidate row k - 3 is complete
+        const int oy = k - (kRows - 1);
+        uint32_t(&done)[R + 1] = acc[(u + 1) & 3];
+        Out* o_row = o + static_cast<size_t>(oy * kSide) * plane_out;
+        reduce_row<R, kLanes>(done, l, [&](int ox, uint32_t sum) {
+          if (active) o_row[ox * plane_out] = sad_as<Out>(sum);
+        });
+#pragma unroll
+        for (int p = 0; p <= R; ++p) done[p] = 0u;
+      }
+    }
+  }
+}
+
 // Whether the split kernel takes a grid of `ctas` CTAs on `sms` SMs that
 // hold `per_sm` of them at once (its own occupancy), its CTAs spanning
 // `slots` block columns a block row and leaving `idle` of them past the
@@ -351,6 +499,17 @@ constexpr bool split_fits(long long ctas, long long sms, long long per_sm, int i
   return 4 * idle <= slots && ctas >= 2 * sms && !(ctas > wave && ctas < wave + sms);
 }
 
+// An instance's split kernel: refine_sads_split_kernel, past kNearRadius
+// its by-row form.
+template <int BW, int BH, int R, class Out>
+auto split_kernel() {
+  if constexpr (R > kNearRadius) {
+    return refine_sads_split_rows_kernel<BW, BH, R, Out>;
+  } else {
+    return refine_sads_split_kernel<BW, BH, R, Out>;
+  }
+}
+
 template <int BW, int BH, int R, class Out>
 int launch(const void* tracked, const void* anchor, size_t frame_stride,
            const void* mv, Out* o, int t_count, int fh, int fw,
@@ -361,24 +520,23 @@ int launch(const void* tracked, const void* anchor, size_t frame_stride,
   const auto* trk = static_cast<const uint8_t*>(tracked);
   const auto* anc = static_cast<const uint8_t*>(anchor);
   const auto* m = static_cast<const int32_t*>(mv);
-  if constexpr (kSplit<BW, BH, R>) {
+  if constexpr (R > kNearRadius ? kSplitFar<BW, BH> : kSplit<BW, BH, R>) {
     // the split kernel where its grid fits the card (a stack of 1080p
     // frames; a pair at some shapes); else the one-row kernel
     constexpr int kBlocks = kThreads / (BH / kSplitRows);
     const dim3 grid((mfw + kBlocks - 1) / kBlocks, mfh, t_count);
+    auto* kernel = split_kernel<BW, BH, R, Out>();
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    static const int per_sm = [] {  // the instance's CTAs an SM, asked once
+    static const int per_sm = [kernel] {  // the instance's CTAs an SM, asked once
       int n = 0;
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, refine_sads_split_kernel<BW, BH, R, Out>, kThreads, 0);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0);
       return n;
     }();
     if (split_fits(static_cast<long long>(grid.x) * grid.y * grid.z, sms, per_sm,
                    grid.x * kBlocks - mfw, grid.x * kBlocks)) {
-      refine_sads_split_kernel<BW, BH, R, Out><<<grid, kThreads, 0, st>>>(
-          trk, anc, frame_stride, m, o, fh, fw, mfh, mfw);
+      kernel<<<grid, kThreads, 0, st>>>(trk, anc, frame_stride, m, o, fh, fw, mfh, mfw);
       return static_cast<int>(cudaGetLastError());
     }
   }
@@ -410,8 +568,22 @@ int launch_refine_rows(const void* tracked, const void* anchor,
                                      t_count, fh, fw, stream);
     case 4: return launch<BW, BH, 4>(tracked, anchor, frame_stride, mv, out,
                                      t_count, fh, fw, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if constexpr (kFarRadii<BW, BH, Out>) {
+    switch (r) {
+      case 5: return launch<BW, BH, 5>(tracked, anchor, frame_stride, mv, out,
+                                       t_count, fh, fw, stream);
+      case 6: return launch<BW, BH, 6>(tracked, anchor, frame_stride, mv, out,
+                                       t_count, fh, fw, stream);
+      case 7: return launch<BW, BH, 7>(tracked, anchor, frame_stride, mv, out,
+                                       t_count, fh, fw, stream);
+      case 8: return launch<BW, BH, 8>(tracked, anchor, frame_stride, mv, out,
+                                       t_count, fh, fw, stream);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K3 and K7 at 4x4, 8x8, 16x16, 32x32, 8x4, 4x8, 16x8, 8x16, 32x16,
@@ -504,8 +676,8 @@ int launch_refine_sads(const void* tracked, const void* anchor,
 // fh/bh, fw/bw, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw)
 // int32. All contiguous; (bw, bh) one of 2x2, 4x4, 8x8, 16x16, 32x32, 4x2,
 // 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, 32x8, 16x4, 8x2, 8x32, 4x16,
-// 2x8, dividing fw and fh; 1 <= r <= 4. Refuses (cudaErrorInvalidValue)
-// anything else.
+// 2x8, dividing fw and fh; 1 <= r <= 4, and 5 <= r <= 8 at 16x16. Refuses
+// (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int bw, int bh, int r,
                                void* stream) {

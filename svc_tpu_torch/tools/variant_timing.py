@@ -73,8 +73,12 @@ and 2x4 on 272x480, 8x8, 8x4, 4x8, 16x16, 16x8 and 8x16 on 544x960; the
 ratio-4 blocks of 32x8 MV blocks on 1080 rows, 4x1 on 135x240, 8x2 on
 270x480, 16x4 on 540x960, those of 8x32 on 1088; 2x2 also on 96x172 and
 36x44, the tops of 1376x768 and 352x288; zero MVs, T = 8) at each radius
-(the blocks and radii both wrapper modules specialise), and
-``refine_sads_pitched`` at level 0 (8 subplanes, r = 1). The two
+(the blocks and radii both wrapper modules specialise); past the near
+radii (``_FAR_RADII``, R = 5-8) ``refine_sads`` and ``refine_mads`` at
+16x16 on level 0 (even MVs within +-2R) and ``candidate_sads`` at 16x16
+on level 0 and 8x8 on level 1 (zero MVs); and ``refine_sads_pitched`` at
+level 0 (8 subplanes, r = 1). ``--only REGEX`` times only the calls
+whose names match (e.g. ``--only ', [5-8]>'``). The two
 libraries' outputs must be equal bit for bit (K10's also to its plain
 version).
 Nothing of the checkout's sources changes.
@@ -366,6 +370,30 @@ def motion_work(mods):
             work[f"K9 candidate_sads<2, {r}> 8x{small.shape[1]}x{small.shape[2]}"] = (
                 lambda m, tr=small[:-1], an=small[1:], z=zero, r=r:
                 m.candidate_sads(tr, an, z, r, 2, 2))
+    # past the near radii (R = 5-8 where both modules have them): K3 / K7
+    # at 16x16 on level 0 with the even MVs of 2 levels (within +-2R), K9
+    # at 16x16 on level 0 (one level's EBMA) and 8x8 on level 1 (the top of
+    # 2 levels), zero MVs
+    far = sorted(set.intersection(*(set(getattr(m, "_FAR_RADII", ())) for m in mods)))
+    for r in far:
+        for bw, bh in common("_K3_FAR_BLOCKS", ()):
+            level = chain[0]
+            shape = (8, level.shape[1] // bh, level.shape[2] // bw, 2)
+            mv = (2 * torch.randint(-r, r + 1, shape, generator=g, dtype=torch.int32)).cuda()
+            label = f"<{bw}, {r}>" if bw == bh else f"<{bw}x{bh}, {r}>"
+            work[f"K3 refine_sads{label} level 0"] = (
+                lambda m, s=level, mv=mv, bw=bw, bh=bh, r=r: m.refine_sads(s, mv, r, bw, bh))
+            work[f"K7 refine_mads{label} level 0 (one pair)"] = (
+                lambda m, s=level, mv=mv[0], bw=bw, bh=bh, r=r:
+                m.refine_mads(s[0], s[1], mv, r, bw, bh))
+        for bw, bh in common("_K9_FAR_BLOCKS", ()):
+            top = chain[{16: 0, 8: 1}[max(bw, bh)]]
+            zero = torch.zeros((8, top.shape[1] // bh, top.shape[2] // bw, 2),
+                               dtype=torch.int32).cuda()
+            label = f"<{bw}, {r}>" if bw == bh else f"<{bw}x{bh}, {r}>"
+            work[f"K9 candidate_sads{label} 8x{top.shape[1]}x{top.shape[2]}"] = (
+                lambda m, tr=top[:-1], an=top[1:], z=zero, bw=bw, bh=bh, r=r:
+                m.candidate_sads(tr, an, z, r, bw, bh))
     y8 = pyramid.to_pitched(y, 8)
     mv0 = (2 * torch.randint(-7, 8, (8, 68, 120, 2), generator=g,
                              dtype=torch.int32)).cuda()
@@ -399,6 +427,8 @@ def main(argv=None) -> int:
                          "and call it through DIR's wrappers")
     ap.add_argument("--target", choices=sorted(KERNEL), default="pyramid",
                     help="the kernels timed (default: pyramid)")
+    ap.add_argument("--only", metavar="REGEX",
+                    help="time only the target's calls whose names match")
     ap.add_argument("--unchecked", action="store_true",
                     help="time the variant even where its outputs differ "
                          "(a cost probe, not a candidate)")
@@ -425,6 +455,8 @@ def main(argv=None) -> int:
         print(f"ptxas {name}: {rows}")
 
     kernels, work, want = WORK[args.target](list(mods.values()))
+    if args.only:
+        work = {w: fn for w, fn in work.items() if re.search(args.only, w)}
     outs = {}
     for name, lib in libs.items():
         bind(kernels(mods[name]), lib)

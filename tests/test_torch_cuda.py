@@ -482,6 +482,65 @@ def test_candidate_sads_ratio4_top_blocks_equal_general(gen, block, t, h, w, kin
         assert int(got.max()) == 255 * bw * bh
 
 
+@pytest.mark.parametrize("r", [5, 6, 7, 8])
+@pytest.mark.parametrize("kind", ["path", "edge", "far", "large", "saturated"])
+def test_refine_far_radii_equal_general(gen, kind, r):
+    # K3 and K7 at 16x16 blocks and R = 5-8 (level 0 of 16x16 MV blocks at 2
+    # levels, ranges 10-17: one candidate row at a time; "large": the 1088 x
+    # 1920 level, 9 frames, where the split kernel's grid fits the card;
+    # "saturated": 65,280 a block) against the general kernels, the plain
+    # versions and K3 on the stacked pair, every candidate
+    b = 16
+    t, h, w = (8, 1088, 1920) if kind == "large" else (2, 5 * b, 41 * b)
+    stack = _u8(gen, (t + 1, h, w))
+    if kind == "saturated":
+        stack.zero_()
+        stack[1::2] = _checkerboard(h, w, b, b)
+    mv = _rect_mvs(gen, kind if kind in ("edge", "far") else "path",
+                   (t, h // b, w // b, 2), b, b, r)
+    name = motion._instance(b, b, r)
+    inst = motion.REFINE_SADS.instance_launches["refine_sads" + name]
+    got = motion.refine_sads(stack, mv, r, b, b)
+    assert motion.REFINE_SADS.instance_launches["refine_sads" + name] == inst + 1
+    assert torch.equal(got, motion.refine_sads(stack, mv, r, b, b, general=True))
+    assert torch.equal(got, motion.refine_sads_plain(stack, mv, r, b, b))
+    if kind == "saturated":
+        assert int(got.max()) == 255 * b * b
+    tr, an, mv0 = stack[0].clone(), stack[1].clone(), mv[0].contiguous()
+    inst = motion.REFINE_MADS.instance_launches["refine_mads" + name]
+    pair = motion.refine_mads(tr, an, mv0, r, b, b)
+    assert motion.REFINE_MADS.instance_launches["refine_mads" + name] == inst + 1
+    assert torch.equal(pair, got[0])
+    assert torch.equal(pair, motion.refine_mads(tr, an, mv0, r, b, b, general=True))
+
+
+@pytest.mark.parametrize("r", [5, 6, 7, 8])
+@pytest.mark.parametrize("block,h,w", [(16, 1088, 1920), (8, 544, 960)])
+@pytest.mark.parametrize("kind", ["zero", "edge", "far", "small", "saturated"])
+def test_candidate_sads_far_radii_equal_general(gen, block, h, w, kind, r):
+    # K9 at 16x16 (one level, ranges 5-8: 8 x 1088x1920) and 8x8 (the top
+    # of 2 levels: 8 x 544x960) at R = 5-8 against the general kernel and
+    # the plain version; "small": 3 frames of 7 x 9 blocks
+    b = block
+    t = 8
+    if kind == "small":
+        t, h, w = 3, 7 * b, 9 * b
+    tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
+    if kind == "saturated":
+        tr.zero_()
+        an[:] = _checkerboard(h, w, b, b)
+    mv = _rect_mvs(gen, "zero" if kind in ("saturated", "zero") else
+                   ("edge" if kind == "small" else kind), (t, h // b, w // b, 2), b, b, r)
+    name = "candidate_sads" + motion._instance(b, b, r)
+    inst = motion.CANDIDATE_SADS.instance_launches[name]
+    got = motion.candidate_sads(tr, an, mv, r, b, b)
+    assert motion.CANDIDATE_SADS.instance_launches[name] == inst + 1
+    assert torch.equal(got, motion.candidate_sads(tr, an, mv, r, b, b, general=True))
+    assert torch.equal(got, motion.candidate_sads_plain(tr, an, mv, r, b, b))
+    if kind == "saturated":
+        assert int(got.max()) == 255 * b * b
+
+
 def test_candidate_sads_1x1_odd_plane_takes_the_general_kernel(gen):
     # 5x7 planes are no whole number of words: the 1x1 kernel's loads would
     # leave the last plane, so the general kernel takes them

@@ -128,6 +128,34 @@ RATIO4_HBMA_CASES = [(32, 8, 4, 40, 256), (32, 8, 3, 40, 256), (32, 8, 2, 40, 25
                      (16, 4, 3, 20, 128)]
 
 
+# 16x16 MV blocks past r = 4 (levels, range, rows), as in
+# test_torch_pyramid_motion.py's FAR_CONFIGS: one level at ranges 5 and 8,
+# two at 10 and 16 (K7 at r = 5, 8 on level 0, where svc_tpu's hbma takes
+# refine_mads_pallas: 8 block columns)
+FAR_HBMA_CASES = [(1, 5, 64), (1, 8, 64), (2, 10, 48), (2, 16, 48)]
+
+
+@pytest.mark.parametrize("levels,r,h", FAR_HBMA_CASES)
+def test_hbma_far_radii_bit_equal(levels, r, h, monkeypatch):
+    frames = _moving_stack(2, h, 128, seed=17)
+    jp, tp = _pyramids(frames, levels)
+    calls = []
+    pallas = j_mp.refine_mads_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_pallas", counted)
+    mv_j, mm_j = j_motion.hbma([p[0] for p in jp], [p[1] for p in jp], r, 16, 16)
+    assert len(calls) == levels - 1  # every refinement level took the kernel
+    mv_t, mm_t = motion.hbma([p[0] for p in tp], [p[1] for p in tp], r, 16, 16)
+    assert mv_t.shape == (h // 16, 8, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 4
+
+
 @pytest.mark.parametrize("bw,bh,levels,h,w", RATIO4_HBMA_CASES)
 def test_hbma_ratio4_blocks_bit_equal(bw, bh, levels, h, w, monkeypatch):
     frames = _moving_stack(2, h, w, seed=bw + 3 * bh + levels)

@@ -68,8 +68,14 @@ _RATIO4 = [(32, 8), (16, 4), (8, 2), (8, 32), (4, 16), (2, 8)]
      (16, 16, 2, False, "refine_sads"), (4, 4, 3, False, "refine_sads"),
      (8, 8, 4, False, "refine_sads"),
      *((2, 2, r, False, "refine_sads") for r in (1, 2, 3, 4)),
-     (16, 16, 5, False, "refine_sads_general"),
-     (16, 16, 8, False, "refine_sads_general"),
+     # R = 5-8 at 16x16 (level 0 of 2 levels, ranges 10-17): one candidate
+     # row at a time; R = 9 and the other blocks past R = 4 stay general
+     (16, 16, 5, False, "refine_sads"),
+     (16, 16, 8, False, "refine_sads"),
+     *((16, 16, r, False, "refine_sads") for r in (6, 7)),
+     (16, 16, 9, False, "refine_sads_general"),
+     (16, 16, 6, True, "refine_sads_general"),
+     (8, 8, 5, False, "refine_sads_general"), (32, 32, 8, False, "refine_sads_general"),
      (2, 4, 1, False, "refine_sads"),
      (1, 1, 1, False, "refine_sads_general"),
      (16, 16, 1, True, "refine_sads_general"),
@@ -153,8 +159,12 @@ def _meta_plane_at(offset, fh, fw):
      (2, 2, 1, False, 16, "refine_mads"),
      (2, 2, 1, False, 2, "refine_mads_general"),  # K3's 16-byte gate stays
      (2, 4, 1, False, 0, "refine_mads"),
-     (16, 16, 5, False, 0, "refine_mads_general"),
-     (16, 16, 8, False, 0, "refine_mads_general"),
+     *((16, 16, r, False, 0, "refine_mads") for r in (5, 6, 7, 8)),
+     (16, 16, 8, False, 16, "refine_mads"),
+     (16, 16, 5, False, 4, "refine_mads_general"),  # K3's 16-byte gate
+     (16, 16, 9, False, 0, "refine_mads_general"),
+     (16, 16, 7, True, 0, "refine_mads_general"),
+     (8, 8, 6, False, 0, "refine_mads_general"),
      (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
      (16, 16, 1, True, 0, "refine_mads_general"),
      *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
@@ -232,8 +242,10 @@ def test_k3_host_constants_match_the_kernel_source():
     assert built == ({(str(w), str(h), "int32_t") for w, h in rows}
                      | {(str(w), str(h), "float") for w, h in motion._K9_BLOCKS
                         if min(w, h) >= 4})
-    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>", src)
-             if a == b}
+    # the radii of every instance, then those of kFarRadii's switch
+    launcher = src[src.index("int launch_refine_rows("):src.index("if constexpr (kFarRadii<")]
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>",
+                                           launcher) if a == b}
     assert radii == set(motion._SAD_RADII)
     # the SAD arithmetic K3 shares with the K8 refine (r = 1 there) and
     # the word counts the replay above follows
@@ -270,13 +282,14 @@ def test_k3_host_constants_match_the_kernel_source():
             "(BW < BH && BH >= 8) ||\n"
             "                        (BW == 32 && BH >= 16 && (R == 2 || (R == 1 && BH < BW)));"
             ) in src
-    assert "if constexpr (kSplit<BW, BH, R>) {" in src
+    assert "if constexpr (R > kNearRadius ? kSplitFar<BW, BH> : kSplit<BW, BH, R>) {" in src
     assert "constexpr int kLanes = BH / kRows;" in src
     # where its grid gives every SM two CTAs, does not spill just past one
     # wave at the kernel's own CTAs an SM and leaves a quarter of a block
     # row's slots idle at most (_split_fits); else the one-row-a-lane
     # kernel
-    assert "&n, refine_sads_split_kernel<BW, BH, R, Out>, kThreads, 0);" in src
+    assert "return refine_sads_split_kernel<BW, BH, R, Out>;" in src
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0);" in src
     assert ("if (split_fits(static_cast<long long>(grid.x) * grid.y * grid.z, sms, "
             "per_sm,\n") in src
     assert "const long long wave = per_sm * sms;" in src
@@ -285,6 +298,48 @@ def test_k3_host_constants_match_the_kernel_source():
     assert "grid.x * kBlocks - mfw, grid.x * kBlocks)) {" in src
     assert ("reduce_store<W::kPacked, kLanes, kRows * BW, W::kCand>(packed, l, blk, s_out);"
             in src)
+
+
+def test_far_radius_constants_match_the_kernel_source():
+    # R = 5-8: kFarRadii's switch and blocks (16x16 for K3 / K7 and K9, 8x8
+    # for K9's float32 instances), the kernels that work one candidate row
+    # at a time, and the word counts past kNearRadius the replays follow
+    src = (build.CSRC_DIR / "refine_sads.cu").read_text()
+    assert "constexpr int kNearRadius = 4;" in src
+    assert max(motion._SAD_RADII) == 4 < min(motion._FAR_RADII)
+    far = src[src.index("if constexpr (kFarRadii<BW, BH, Out>) {"):]
+    far = far[:far.index("return static_cast<int>(cudaErrorInvalidValue);")]
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>\(",
+                                           far) if a == b}
+    assert radii == set(motion._FAR_RADII)
+    assert ("constexpr bool kFarRadii = (BW == 16 && BH == 16) ||\n"
+            "                           (BW == 8 && BH == 8 && "
+            "std::is_same<Out, float>::value);") in src
+    assert motion._K3_FAR_BLOCKS == {(16, 16)} <= motion._K3_BLOCKS
+    assert motion._K9_FAR_BLOCKS == {(16, 16), (8, 8)} <= motion._K9_BLOCKS
+    # the one-row kernel past kNearRadius, and the split by-row kernel where
+    # kSplitFar holds and its grid fits (split_fits)
+    assert ("if constexpr (R > kNearRadius) {\n"
+            "      block_sads_by_row<BW, BH, R>(rows, a, i, blk, s_out);") in src
+    assert "constexpr bool kSplitFar = BW < 16;" in src
+    assert "return refine_sads_split_rows_kernel<BW, BH, R, Out>;" in src
+    assert "acc[(u - m) & 3][ox / 2] += ox % 2 == 0 ? sum : sum << 16;" in src
+    assert "uint32_t(&done)[R + 1] = acc[(u + 1) & 3];" in src
+    assert "reduce_row<R, kLanes>(done, l, [&](int ox, uint32_t sum) {" in src
+    rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
+    assert "reduce_transposed<R + 1, L / 2, L>(packed, i);" in rows
+    assert "const int send_slot = static_cast<int>(i) < rho ? q + 1 : q;" in rows
+    assert "reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) {" in rows
+    # the extra words past R = 4: whole chunks, chunk c read when the window
+    # reaches it (the replay's _k3_window_row)
+    assert "constexpr int kXChunks = (4 * W::kExtra + kG - 1) / kG;" in src
+    assert ("if (row_in && s > kG * (c + 1) - 2 * R && x >= 0 && x < fw) "
+            "load_chunk<kG>(row + x, v);") in src
+    for b in (8, 16):
+        for r in motion._FAR_RADII:
+            win = _Win(b, r)
+            assert win.extra in (3, 4) and 4 * win.words >= b + 2 * r
+            assert win.slots == 1 + (2 * r + b - 1) // b <= 3
 
 
 @pytest.mark.parametrize("config,blocks", [
@@ -304,7 +359,10 @@ def test_k3_host_constants_match_the_kernel_source():
     (((32, 8), 4, 8), ("8x2", "16x4", "32x8")), (((32, 8), 3, 8), ("16x4", "32x8")),
     (((32, 8), 2, 8), ("32x8",)), (((8, 32), 4, 8), ("2x8", "4x16", "8x32")),
     (((8, 32), 3, 8), ("4x16", "8x32")), (((8, 32), 2, 8), ("8x32",)),
-    (((16, 4), 3, 8), ("8x2", "16x4"))])
+    (((16, 4), 3, 8), ("8x2", "16x4")),
+    # 16x16 MV blocks at 2 levels, ranges 10 and 16 (R = 5, 8), and at one
+    # level (no refinement level)
+    ((16, 2, 10), (16,)), ((16, 2, 16), (16,)), ((16, 1, 8), ())])
 def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
     # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
     # levels, at 16x8 and 8x16 MV blocks and 4, 3, 2 levels, and at 32x32,
@@ -413,6 +471,9 @@ def _k3_window_row(plane, y, x0, enabled, b, r):
             need, edge = s == g - 1, x2
         elif g == 4:
             need, edge = s > 4 * e + 4 - 2 * r, x
+        elif win.extra > 2:  # past R = 4: chunk c of the extra words, whole
+            c = 4 * e // g
+            need, edge = s > g * (c + 1) - 2 * r, x2 + c * g
         else:  # both extra words in one chunk, one predicate
             need, edge = s > g - 2 * r, x2
         w.append(word_at(x, row_in & need & (edge >= 0) & (edge < fw)))
@@ -809,6 +870,178 @@ def test_k3_saturated_blocks_need_32bit_sums(block, r):
             assert (got[0][:, full] != ref[0][:, full]).any()
         else:
             np.testing.assert_array_equal(got, ref)
+
+
+def _row_sums_stored(packed, lanes, side, out):
+    """``reduce_row<R, L>``: one candidate row's words of 16-bit pairs
+    (..., L, R + 1) reduced over the L lanes by transposed xor steps, each
+    of its ``side`` sums put once into ``out`` (..., side)."""
+    n, half = packed.shape[-1], lanes.size // 2
+    held = _reduce_transposed(packed, lanes, half, 0)
+    for k in range(_reduced_count(n, half)):
+        p = _reduced_index(n, half, k, lanes)
+        for lane in lanes[p >= 0]:
+            for ox, value in ((2 * p[lane], held[..., lane, k] & 0xFFFF),
+                              (2 * p[lane] + 1, held[..., lane, k] >> 16)):
+                if ox < side:
+                    assert (out[..., ox] == -1).all()  # each sum stored once
+                    out[..., ox] = value
+    assert (out >= 0).all()  # every sum of the row stored
+
+
+def _pairs(sums):
+    """A row's 2R + 1 sums (..., 2R + 1) as R + 1 words of 16-bit pairs."""
+    assert sums.max() < 1 << 16
+    flat = np.concatenate([sums, np.zeros(sums.shape[:-1] + (1,), np.int64)], -1)
+    return flat[..., 0::2] | (flat[..., 1::2] << 16)
+
+
+def _replay_k3_by_row(stack, mv, b, r, anchor=None):
+    """SADs as ``refine_sads_kernel<B, B, R>`` computes them past
+    kNearRadius (``block_sads_by_row``): lane i's window rows i, i + B,
+    ..., and per candidate row oy the row i + oy from lane (i + oy) mod B
+    (the slot that lane sends by selects), the 2R + 1 sums two to a word,
+    reduced over the block's B lanes at once (``reduce_row``) into
+    ``s_out[oy (2R + 1) + ox]``. ``anchor``: K9's second stack."""
+    tp1, fh, fw = stack.shape
+    frames = tp1 - 1 if anchor is None else tp1
+    mfh, mfw = fh // b, fw // b
+    win = _Win(b, r)
+    side = 2 * r + 1
+    lanes = np.arange(b)
+    out = np.full((frames, side, side, mfh, mfw), -1, np.int64)
+    for t in range(frames):
+        trk, anc = (stack[t], stack[t + 1]) if anchor is None else (stack[t], anchor[t])
+        for by in range(mfh):
+            bx = np.arange(mfw)[:, None]
+            x0 = np.broadcast_to(bx * b + mv[t, by, :, 0].astype(np.int64)[:, None] - r,
+                                 (mfw, b))
+            y0 = by * b + mv[t, by, :, 1].astype(np.int64)[:, None] - r + lanes[None, :]
+            a = _le_words(anc[by * b : by * b + b].reshape(b, mfw, b).transpose(1, 0, 2))
+            on = np.ones((mfw, b), bool)
+            slots = [_k3_window_row(trk, y0 + k * b, x0,
+                                    on & ((k == 0) | (lanes + k * b < b + 2 * r)), b, r)
+                     for k in range(win.slots)]
+            for oy in range(side):
+                q, rho = divmod(oy, b)
+                send_slot = np.where(lanes < rho, q + 1, q)
+                assert send_slot.max() < win.slots
+                send = np.stack([slots[s][:, lane] for lane, s in enumerate(send_slot)], 1)
+                row = send[:, (lanes + rho) % b]
+                sums = np.zeros((mfw, b, side), np.int64)
+                for ox in range(side):
+                    wo, d = divmod(ox, 4)
+                    for j in range(b // 4):
+                        c = row[..., j + wo] if d == 0 else _fshr(
+                            row[..., j + wo], row[..., j + wo + 1], 8 * d)
+                        sums[..., ox] += _vsadu4(c, a[..., j])
+                stored = np.full((mfw, side), -1, np.int64)
+                _row_sums_stored(_pairs(sums), lanes, side, stored)
+                out[t, oy, :, by] = stored.T
+    return out.reshape(frames, side * side, mfh, mfw)
+
+
+def _replay_k3_split_rows(stack, mv, b, r, anchor=None):
+    """SADs as ``refine_sads_split_rows_kernel<B, B, R>`` computes them: B /
+    4 lanes a block, lane l with anchor rows 4l .. 4l + 3 loading window
+    rows 4l .. 4l + 3 + 2R itself; each row's shifted words against each
+    anchor row m it meets, added into slot (k - m) % 4 of candidate row k -
+    m (16-bit halves); after window row k, candidate row k - 3 reduced over
+    the B / 4 lanes (``reduce_row``), stored, its slot cleared."""
+    rows = _SPLIT_ROWS
+    tp1, fh, fw = stack.shape
+    frames = tp1 - 1 if anchor is None else tp1
+    mfh, mfw = fh // b, fw // b
+    side = 2 * r + 1
+    lanes = np.arange(b // rows)
+    out = np.full((frames, side, side, mfh, mfw), -1, np.int64)
+    for t in range(frames):
+        trk, anc = (stack[t], stack[t + 1]) if anchor is None else (stack[t], anchor[t])
+        for by in range(mfh):
+            bx = np.arange(mfw)[:, None]
+            x0 = np.broadcast_to(bx * b + mv[t, by, :, 0].astype(np.int64)[:, None] - r,
+                                 (mfw, lanes.size))
+            y0 = by * b + mv[t, by, :, 1].astype(np.int64)[:, None] - r + rows * lanes[None, :]
+            blocks = anc[by * b : by * b + b].reshape(b, mfw, b).transpose(1, 0, 2)
+            a = [_le_words(blocks[:, rows * lanes + m]) for m in range(rows)]
+            acc = np.zeros((rows, mfw, lanes.size, r + 1), np.int64)
+            on = np.ones((mfw, lanes.size), bool)
+            for k in range(rows + 2 * r):
+                row = _k3_window_row(trk, y0 + k, x0, on, b, r)
+                for ox in range(side):
+                    wo, d = divmod(ox, 4)
+                    c = [row[..., j + wo] if d == 0 else _fshr(row[..., j + wo],
+                                                             row[..., j + wo + 1], 8 * d)
+                         for j in range(b // 4)]
+                    for m in range(rows):
+                        if not 0 <= k - m <= 2 * r:
+                            continue
+                        total = sum(_vsadu4(c[j], a[m][..., j]) for j in range(b // 4))
+                        slot = acc[(k - m) % rows]
+                        slot[..., ox // 2] = (slot[..., ox // 2]
+                                              + (total if ox % 2 == 0 else total << 16)) & _M32
+                if k >= rows - 1:
+                    done = acc[(k + 1) % rows]
+                    # a lane's halves never carry: 4 rows of B pixels at most
+                    assert ((done & 0xFFFF) <= rows * b * 255).all()
+                    stored = np.full((mfw, side), -1, np.int64)
+                    _row_sums_stored(done, lanes, side, stored)
+                    out[t, k - (rows - 1), :, by] = stored.T
+                    done[...] = 0
+    return out.reshape(frames, side * side, mfh, mfw)
+
+
+# the blocks past kNearRadius: K3's / K7's 16x16, K9's 16x16 and 8x8
+_FAR = [(16, "refine"), (16, "candidate"), (8, "candidate")]
+
+
+@pytest.mark.parametrize("r", [5, 6, 7, 8])
+@pytest.mark.parametrize("b,entry", _FAR, ids=lambda v: str(v))
+@pytest.mark.parametrize("kind", ["zero", "path", "edge", "far", "saturated"])
+def test_far_radius_replays_equal_plain(b, entry, r, kind):
+    # R = 5-8 at 16x16 (K3, K7, K9) and 8x8 (K9): the one-row kernel's
+    # block_sads_by_row and, at 8x8 (kSplitFar), the split by-row kernel,
+    # each replayed, equal the plain version on every candidate; a
+    # saturated block (anchor 255, tracked 0: 255 B^2 at every candidate,
+    # 65,280 at 16x16, the 16-bit pairs' last case) too
+    rng = np.random.default_rng(4000 + 100 * b + 10 * r + len(kind) + len(entry))
+    t, mfh, mfw = 2, 3, 5
+    tracked = rng.integers(0, 256, (t + 1, mfh * b, mfw * b)).astype(np.uint8)
+    anchor = rng.integers(0, 256, (t, mfh * b, mfw * b)).astype(np.uint8)
+    if kind == "saturated":
+        # K3's stack: frame 1 lit against dark frames 0 and 2; K9's anchors lit
+        tracked[:] = 0
+        tracked[1::2] = 255
+        anchor[:] = 255
+    if kind == "zero" or (kind == "saturated" and entry == "candidate"):  # the EBMA's
+        mv = np.zeros((t, mfh, mfw, 2), np.int64)
+    else:
+        mv = _k3_mvs(rng, "path" if kind == "saturated" else kind, (t, mfh, mfw, 2), b, r)
+    mv = mv.astype(np.int32)
+    if entry == "refine":
+        ref = motion.refine_sads_plain(torch.from_numpy(tracked), torch.from_numpy(mv), r,
+                                       b, b).numpy()
+        replays = [_replay_k3_by_row(tracked, mv, b, r)]
+        pair = motion.refine_mads_plain(torch.from_numpy(tracked[0]),
+                                        torch.from_numpy(tracked[1]),
+                                        torch.from_numpy(mv[0]), r, b, b).numpy()
+        np.testing.assert_array_equal(replays[0][0], pair)  # K7: the one-row kernel
+    else:
+        tr = tracked[:t]
+        ref = motion.candidate_sads_plain(torch.from_numpy(tr), torch.from_numpy(anchor),
+                                          torch.from_numpy(mv), r, b, b).numpy()
+        replays = []
+        sads = [_replay_k3_by_row(tr, mv, b, r, anchor=anchor)]
+        if b < 16:  # kSplitFar
+            sads.append(_replay_k3_split_rows(tr, mv, b, r, anchor=anchor))
+        for sads in sads:
+            assert ((sads >= 0) & (sads < 1 << 23)).all()
+            replays.append((np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32)
+                           - np.float32(8388608.0))
+    for got in replays:
+        np.testing.assert_array_equal(got, ref)
+    if kind == "saturated":
+        assert ref.max() == 255 * b * b
 
 
 def _split_grid(bw, bh, fh, fw, t):

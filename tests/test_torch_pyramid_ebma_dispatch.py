@@ -83,7 +83,13 @@ _RATIO4 = [(4, 1), (8, 2), (16, 4), (1, 4), (2, 8), (4, 16)]
        if (s, r) != (4, 1)),
      (2, 2, 5, False, "candidate_sads_general"),
      (1, 1, 5, False, "candidate_sads_general"),
-     (16, 16, 8, False, "candidate_sads_general"),
+     # R = 5-8 at 16x16 (one level, ranges 5-8) and 8x8 (the top of 2
+     # levels, ranges 10-17): one candidate row at a time; R = 9, and the
+     # other blocks past R = 4, stay general
+     *((s, s, r, False, "candidate_sads") for s in (16, 8) for r in (5, 6, 7, 8)),
+     (16, 16, 9, False, "candidate_sads_general"), (8, 8, 9, False, "candidate_sads_general"),
+     (4, 4, 5, False, "candidate_sads_general"), (8, 16, 5, False, "candidate_sads_general"),
+     (16, 16, 8, True, "candidate_sads_general"), (8, 8, 6, True, "candidate_sads_general"),
      (2, 4, 1, False, "candidate_sads"),
      (2, 2, 1, True, "candidate_sads_general"),
      (8, 8, 2, True, "candidate_sads_general"),
@@ -195,6 +201,12 @@ MOTION_CONFIGS = [
     (((8, 32), 3, 8), ["<2x8, 2>", "<4x16, 2>", "<8x32, 2>"]),
     (((8, 32), 2, 8), ["<4x16, 4>", "<8x32, 4>"]),
     (((16, 4), 3, 8), ["<4x1, 2>", "<8x2, 2>", "<16x4, 2>"]),
+    # one level at ranges 5 and 8 (the whole search on K9 at 16x16), two at
+    # ranges 10 and 16 (K9 8x8, K3 16x16 at R = 5 and 8); 8x8 MV blocks at
+    # one level, range 8
+    ((16, 1, 5), ["<16, 5>"]), ((16, 1, 8), ["<16, 8>"]),
+    ((16, 2, 10), ["<8, 5>", "<16, 5>"]), ((16, 2, 16), ["<8, 8>", "<16, 8>"]),
+    ((8, 1, 8), ["<8, 8>"]),
 ]
 
 

@@ -263,3 +263,35 @@ def test_hbma_stack_ratio4_configs_bit_equal(bw, bh, levels, h, w, monkeypatch):
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
     assert np.abs(mv_t.numpy()).max() > 0  # the pan was found
+
+
+# 16x16 MV blocks past r = 4 (levels, range, rows): one level at ranges 5
+# and 8 (the whole search an EBMA at r = 5, 8), two levels at ranges 10 and
+# 16 (r = 5, 8 at the top and at level 0); 128 columns give 8 block columns
+# at level 0, so svc_tpu's search takes refine_mads_stack_pallas (in
+# interpret mode) there; 48 rows keep its interpret-mode run to seconds
+FAR_CONFIGS = [(1, 5, 64), (1, 8, 64), (2, 10, 48), (2, 16, 48)]
+
+
+@pytest.mark.parametrize("levels,search_range,h", FAR_CONFIGS)
+def test_hbma_stack_far_radii_bit_equal(levels, search_range, h, monkeypatch):
+    from svc_tpu.ops import motion_pallas as j_mp
+
+    x = _moving_stack(2, h, 128, seed=16)
+    calls = []
+    pallas = j_mp.refine_mads_stack_pallas
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pallas(*a, **k)
+
+    monkeypatch.setattr(j_mp, "refine_mads_stack_pallas", counted)
+    mv_j, mm_j = j_motion.hbma_stack(j_pyr.build_pyramid(jnp.asarray(x), levels),
+                                     search_range, 16, 16)
+    assert len(calls) == levels - 1  # every refinement level took the kernel
+    mv_t, mm_t = motion.hbma_stack(pyramid.build_pyramid(torch.from_numpy(x), levels),
+                                   search_range, 16, 16)
+    assert mv_t.shape == (1, h // 16, 8, 2)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    np.testing.assert_array_equal(mm_t.numpy(), np.asarray(mm_j))
+    assert np.abs(mv_t.numpy()).max() > 4  # motion found past the near radii

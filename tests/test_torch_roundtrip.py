@@ -304,6 +304,42 @@ def test_ratio4_mv_blocks_round_trip(bw, bh, levels, w, h, tb):
     assert np.abs(tb_["mv_field"].numpy()).max() > 0  # motion was found
 
 
+# 16x16 MV blocks past r = 4 through both packages (levels, range): one
+# level at range 8 (the whole search an EBMA at r = 8, no pyramid) and two
+# levels at range 16 (r = 8 at the top and at level 0; 8 block columns:
+# svc_tpu's search takes its Pallas stack refine)
+FAR_ENCODES = [(1, 8), (2, 16)]
+
+
+@pytest.mark.parametrize("levels,search_range", FAR_ENCODES)
+def test_far_radius_round_trip(levels, search_range):
+    # the same header, MV fields and block types, coefficients within the
+    # gate; one batch of 2 anchors (svc_tpu's interpret-mode refine costs
+    # tens of seconds a call at r = 8)
+    w, h, n, batch = 128, 48, 3, 2
+    clip = make_clip(w, h, n, seed=9)
+    cfg = EncoderConfig(pyr_lvl_count=levels, mv_search_range=search_range)
+    props = VideoProperties(w, h, n)
+    jenc = j_enc.Encoder(cfg, props, batch_size=batch)
+    tenc = t_enc.Encoder(*_port(cfg, props), batch_size=batch, device="cpu")
+    js = list(jenc.encode_video(iter(clip)))
+    ts = list(tenc.encode_video(iter(clip)))
+    assert ts[0] == js[0]
+    _, jp = _payloads(js)
+    _, tp = _payloads(ts)
+    assert len(tp) == len(jp) == n - 1
+    for (jt, jc), (tt, tc) in zip(jp, tp):
+        np.testing.assert_array_equal(tt, jt)
+        assert np.abs(tc - jc).max() <= COEFF_GATE
+    jb = jenc.encode_batch(clip[: batch + 1], 0)
+    tb = tenc.encode_batch(clip[: batch + 1], 0)
+    assert tb["mv_field"].shape == (batch, h // 16, w // 16, 2)
+    np.testing.assert_array_equal(tb["mv_field"].numpy(), np.array(jb["mv_field"]))
+    np.testing.assert_array_equal(tb["block_types"].numpy().astype(np.uint32),
+                                  np.array(jb["block_types"]))
+    assert np.abs(tb["mv_field"].numpy()).max() > 0  # motion was found
+
+
 def test_stream_resume_from_anchor_index():
     # the codec state of anchor t is frame t-1 only, so encoding from an
     # overlap frame with first_anchor_index reproduces the tail payloads
