@@ -1,8 +1,9 @@
 // K9 candidate_sads: per-block SADs of the (2R + 1)^2 candidates around
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
 // float32, specialised for BW x BH MV blocks (BW columns, BH rows) at
-// search radius R = 1 to 4 (16x16 and 8x8 at R = 5 to 8 too, on K3's
-// kernel): square 1, 2, 4, 8 or 16, the ratio-2
+// search radius R = 1 to 4 (16x16, 8x8 and 4x4 at R = 5 to 8 too, on K3's
+// kernel, and 2x2 on this file's thread-a-block kernel): square 1, 2, 4, 8
+// or 16, the ratio-2
 // rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8, 16x8, 8x16 and the ratio-4 ones
 // 4x1, 1x4, 8x2, 2x8, 16x4, 4x16. These are the encoder's top-level EBMA,
 // in hbma_stack and per-frame hbma alike, at 16x16 blocks and 4 pyramid
@@ -13,8 +14,9 @@
 // 2x4, 4x8), 32x32, 32x16 and 16x32 blocks at 2 levels (16x16, 16x8, 8x16;
 // at 3-5 levels their top blocks are among the others), 32x8 blocks at 4,
 // 3 or 2 levels (4x1, 8x2, 16x4) and 8x32 (1x4, 2x8, 4x16), 16x16 MV
-// blocks at one level, ranges 5-8 (16x16 at R = 5-8) and at 2 levels,
-// ranges 10-17 (8x8 at R = 5-8). 1x1 runs the
+// blocks at one level, ranges 5-8 (16x16 at R = 5-8), at 2 levels,
+// ranges 10-17 (8x8 at R = 5-8), at 3 levels, ranges 20-35 (4x4 at R =
+// 5-8) and at 4 levels, ranges 40-71 (2x2 at R = 5-8). 1x1 runs the
 // thread-a-pixel kernel of this file; 2x2 and the blocks with a side of 1
 // or 2, 2x1, 1x2, 4x2, 2x4, 4x1, 1x4, 8x2, 2x8, its thread-a-block kernel;
 // the shapes with both sides 4 or more K3's kernel (refine_sads.cu,
@@ -81,6 +83,12 @@
 //     (no accumulators); at 1x1 one __vabsdiffu4 of a window word against
 //     the anchor word gives four candidates' SADs at once, each byte of it
 //     put into a float's mantissa by one __byte_perm;
+//   - past R = 4 (2x2 only, kFarBlocks) the BH + 2R window rows would take
+//     90 registers at R = 8 (18 rows of 5 words), so a thread streams them:
+//     it holds the BH rows candidate row oy needs, stores that row's 2R + 1
+//     sums, then slides one row down (the next row loaded before the
+//     sums, its latency behind them; in turns on an H100, 12-17% faster
+//     than holding every row at R = 5-8);
 //   - the SADs (< 2^23) become float32 exactly by 2^23 + x in the mantissa
 //     less 2^23 (sad_as, common.cuh) past 2x2 at R = 1 (an
 //     integer-to-float conversion issues at a quarter of that rate);
@@ -93,6 +101,13 @@ namespace {
 
 constexpr int kThreads = 128;  // block columns per CTA
 constexpr int kCand = 9;       // (2r + 1)^2 at r = 1
+// The largest radius whose instances hold all their window rows at once.
+constexpr int kNearRadius = 4;
+
+// Whether a BW x BH instance also takes R = 5 to 8: K9's 2x2 (the top level
+// of 16x16 MV blocks at 4 levels, ranges 40-71), a candidate row at a time.
+template <int BW, int BH, class Out>
+constexpr bool kFarBlocks = BW == 2 && BH == 2 && std::is_same<Out, float>::value;
 
 // Bytes [x0, x0 + 4) of row y of a frame as one word (byte k at bits 8k),
 // bytes outside the frame 0. frame is 4-byte aligned and holds fh rows of
@@ -164,6 +179,80 @@ struct AnchorWords {
   static constexpr int kCount = BH / kStep * kRowWords;
 };
 
+// A block's anchor words (AnchorWords<BW, BH>), anc its first byte.
+template <int BW, int BH>
+__device__ __forceinline__ void load_anchor_words(const uint8_t* __restrict__ anc, int fw,
+                                                  uint32_t (&a)[AnchorWords<BW, BH>::kCount]) {
+  using A = AnchorWords<BW, BH>;
+#pragma unroll
+  for (int k = 0; k < BH / A::kStep; ++k) {
+    if constexpr (BW == 8) {  // row k as words 2k, 2k + 1
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(anc + static_cast<size_t>(k) * fw));
+      a[2 * k] = v.x;
+      a[2 * k + 1] = v.y;
+    } else {
+      a[k] = 0u;
+#pragma unroll
+      for (int q = 0; q < A::kStep; ++q) {
+        const uint8_t* p = anc + static_cast<size_t>(A::kStep * k + q) * fw;
+        uint32_t v;
+        if constexpr (BW == 4) {
+          v = __ldg(reinterpret_cast<const unsigned int*>(p));
+        } else if constexpr (BW == 2) {
+          v = __ldg(reinterpret_cast<const unsigned short*>(p));
+        } else {
+          v = __ldg(p);
+        }
+        a[k] |= v << (8 * BW * q);
+      }
+    }
+  }
+}
+
+// The SAD of candidate column ox of a candidate row oy against the block's
+// anchor words: row(q) gives window row oy + q (q < BH) as the words of
+// window_run<BW + 2R>.
+template <int BW, int BH, class Row>
+__device__ __forceinline__ uint32_t block_sad(Row row,
+                                              const uint32_t (&a)[AnchorWords<BW, BH>::kCount],
+                                              int ox) {
+  using A = AnchorWords<BW, BH>;
+  const int j = ox / 4;
+  const int d = ox % 4;
+  uint32_t sad = 0u;
+#pragma unroll
+  for (int k = 0; k < A::kCount; ++k) {
+    const uint32_t* top = row(A::kStep * (k / A::kRowWords));
+    uint32_t c;
+    if constexpr (BW >= 4) {
+      // window row oy + k / kRowWords, bytes ox + 4w .. ox + 4w + 3 (w
+      // = k % kRowWords: the anchor row's word)
+      const int w = j + k % A::kRowWords;
+      c = d == 0 ? top[w] : __funnelshift_r(top[w], top[w + 1], 8 * d);
+    } else if constexpr (BW == 2 && A::kStep == 2) {
+      // bytes ox, ox + 1 of window rows oy + 2k and oy + 2k + 1
+      const uint32_t* bot = row(A::kStep * k + 1);
+      if (d < 3) {
+        c = __byte_perm(top[j], bot[j], d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12);
+      } else {
+        c = __byte_perm(__funnelshift_r(top[j], top[j + 1], 24),
+                        __funnelshift_r(bot[j], bot[j + 1], 24), 0x5410);
+      }
+    } else if constexpr (BW == 2) {  // 2x1: bytes ox, ox + 1 of row oy
+      c = d < 3 ? __byte_perm(top[j], 0u, d | (d + 1) << 4 | 0x4400)
+                : __funnelshift_r(top[j], top[j + 1], 24) & 0xffffu;
+    } else if constexpr (A::kStep == 2) {  // 1x2: byte ox of window rows oy and oy + 1
+      c = __byte_perm(top[j], row(1)[j], d | (d + 4) << 4) & 0xffffu;
+    } else {  // 1x4: byte ox of window rows oy .. oy + 3, two rows a pair
+      const uint32_t lo = __byte_perm(top[j], row(1)[j], d | (d + 4) << 4);
+      const uint32_t hi = __byte_perm(row(2)[j], row(3)[j], d | (d + 4) << 4);
+      c = __byte_perm(lo, hi, 0x5410);
+    }
+    sad = __vsadu4(c, a[k]) + sad;
+  }
+  return sad;
+}
+
 template <int BW, int BH, int R, class Out>
 __global__ void __launch_bounds__(kThreads)
 candidate_sads_kernel(const uint8_t* __restrict__ tracked,
@@ -212,74 +301,42 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
     constexpr int kSide = 2 * R + 1;
     constexpr int kRows = BH + 2 * R;  // window rows
     constexpr int kRun = BW + 2 * R;   // bytes a window row
+    constexpr int kWords = (kRun + 3) / 4;
     uint32_t a[A::kCount];
-#pragma unroll
-    for (int k = 0; k < BH / A::kStep; ++k) {
-      if constexpr (BW == 8) {  // row k as words 2k, 2k + 1
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(anc + static_cast<size_t>(k) * fw));
-        a[2 * k] = v.x;
-        a[2 * k + 1] = v.y;
-      } else {
-        a[k] = 0u;
-#pragma unroll
-        for (int q = 0; q < A::kStep; ++q) {
-          const uint8_t* p = anc + static_cast<size_t>(A::kStep * k + q) * fw;
-          uint32_t v;
-          if constexpr (BW == 4) {
-            v = __ldg(reinterpret_cast<const unsigned int*>(p));
-          } else if constexpr (BW == 2) {
-            v = __ldg(reinterpret_cast<const unsigned short*>(p));
-          } else {
-            v = __ldg(p);
-          }
-          a[k] |= v << (8 * BW * q);
-        }
-      }
-    }
-    uint32_t rows[kRows][(kRun + 3) / 4];
-#pragma unroll
-    for (int wr = 0; wr < kRows; ++wr) window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);
+    load_anchor_words<BW, BH>(anc, fw, a);
     const size_t plane_out = static_cast<size_t>(mfh) * mfw;
     Out* o = out + (static_cast<size_t>(t) * kSide * kSide * mfh + by) * mfw + bx;
+    if constexpr (R > kNearRadius) {
+      // win[q]: window row oy + q; the next one loaded before the sums
+      uint32_t win[BH][kWords];
 #pragma unroll
-    for (int oy = 0; oy < kSide; ++oy) {
+      for (int q = 0; q < BH; ++q) window_run<kRun>(trk, y0 + q, x0, fh, fw, win[q]);
+#pragma unroll 1
+      for (int oy = 0; oy < kSide; ++oy) {
+        uint32_t next[kWords] = {};
+        if (oy + 1 < kSide) window_run<kRun>(trk, y0 + oy + BH, x0, fh, fw, next);
 #pragma unroll
-      for (int ox = 0; ox < kSide; ++ox) {
-        const int j = ox / 4;
-        const int d = ox % 4;
-        uint32_t sad = 0u;
-#pragma unroll
-        for (int k = 0; k < A::kCount; ++k) {
-          const uint32_t* top = rows[oy + A::kStep * (k / A::kRowWords)];
-          uint32_t c;
-          if constexpr (BW >= 4) {
-            // window row oy + k / kRowWords, bytes ox + 4w .. ox + 4w + 3 (w
-            // = k % kRowWords: the anchor row's word)
-            const int w = j + k % A::kRowWords;
-            c = d == 0 ? top[w] : __funnelshift_r(top[w], top[w + 1], 8 * d);
-          } else if constexpr (BW == 2 && A::kStep == 2) {
-            // bytes ox, ox + 1 of window rows oy + 2k and oy + 2k + 1
-            const uint32_t* bot = rows[oy + A::kStep * k + 1];
-            if (d < 3) {
-              c = __byte_perm(top[j], bot[j],
-                              d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12);
-            } else {
-              c = __byte_perm(__funnelshift_r(top[j], top[j + 1], 24),
-                              __funnelshift_r(bot[j], bot[j + 1], 24), 0x5410);
-            }
-          } else if constexpr (BW == 2) {  // 2x1: bytes ox, ox + 1 of row oy
-            c = d < 3 ? __byte_perm(top[j], 0u, d | (d + 1) << 4 | 0x4400)
-                      : __funnelshift_r(top[j], top[j + 1], 24) & 0xffffu;
-          } else if constexpr (A::kStep == 2) {  // 1x2: byte ox of window rows oy and oy + 1
-            c = __byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4) & 0xffffu;
-          } else {  // 1x4: byte ox of window rows oy .. oy + 3, two rows a pair
-            const uint32_t lo = __byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4);
-            const uint32_t hi = __byte_perm(rows[oy + 2][j], rows[oy + 3][j], d | (d + 4) << 4);
-            c = __byte_perm(lo, hi, 0x5410);
-          }
-          sad = __vsadu4(c, a[k]) + sad;
+        for (int ox = 0; ox < kSide; ++ox) {
+          const uint32_t sad = block_sad<BW, BH>([&](int q) { return win[q]; }, a, ox);
+          o[(oy * kSide + ox) * plane_out] = sad_as<Out>(sad);
         }
-        o[(oy * kSide + ox) * plane_out] = sad_as<Out>(sad);
+#pragma unroll
+        for (int q = 0; q < BH; ++q) {
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) win[q][w] = q + 1 < BH ? win[q + 1][w] : next[w];
+        }
+      }
+    } else {
+      uint32_t rows[kRows][kWords];
+#pragma unroll
+      for (int wr = 0; wr < kRows; ++wr) window_run<kRun>(trk, y0 + wr, x0, fh, fw, rows[wr]);
+#pragma unroll
+      for (int oy = 0; oy < kSide; ++oy) {
+#pragma unroll
+        for (int ox = 0; ox < kSide; ++ox) {
+          const uint32_t sad = block_sad<BW, BH>([&](int q) { return rows[oy + q]; }, a, ox);
+          o[(oy * kSide + ox) * plane_out] = sad_as<Out>(sad);
+        }
       }
     }
   }
@@ -390,8 +447,18 @@ int launch_block_sads(const void* tracked, const void* anchor, const void* mv,
     case 2: return launch<BW, BH, 2>(trk, anc, m, out, t_count, fh, fw, st);
     case 3: return launch<BW, BH, 3>(trk, anc, m, out, t_count, fh, fw, st);
     case 4: return launch<BW, BH, 4>(trk, anc, m, out, t_count, fh, fw, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if constexpr (kFarBlocks<BW, BH, Out>) {
+    switch (r) {
+      case 5: return launch<BW, BH, 5>(trk, anc, m, out, t_count, fh, fw, st);
+      case 6: return launch<BW, BH, 6>(trk, anc, m, out, t_count, fh, fw, st);
+      case 7: return launch<BW, BH, 7>(trk, anc, m, out, t_count, fh, fw, st);
+      case 8: return launch<BW, BH, 8>(trk, anc, m, out, t_count, fh, fw, st);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K9 (float32) at 2x2, 4x2, 2x4, 2x1, 1x2, 4x1, 1x4, 8x2 and 2x8 blocks;
@@ -419,7 +486,7 @@ SVC_BLOCK_SADS(2, 8, int32_t)
 // int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw) float32. All
 // contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 16x16, 2x1, 1x2, 4x2,
 // 2x4, 8x4, 4x8, 16x8, 8x16, 4x1, 1x4, 8x2, 2x8, 16x4, 4x16, dividing fw
-// and fh, 1 <= r <= 4 (also 5 <= r <= 8 at 16x16 and 8x8); at 1x1
+// and fh, 1 <= r <= 4 (also 5 <= r <= 8 at 16x16, 8x8, 4x4 and 2x2); at 1x1
 // tracked 4-byte aligned and fh * fw a
 // multiple of 4; on the thread-a-block kernel (a side of 1 or 2) also the
 // anchor aligned to its rows' bytes (BW); both 16-byte aligned where both

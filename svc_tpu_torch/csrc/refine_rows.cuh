@@ -9,8 +9,8 @@
 //
 // A CTA of kThreads lanes handles kThreads / BH MV blocks of one block row
 // (BW x BH blocks, BW columns and BH rows, each 4, 8, 16 or 32; search
-// radius R = 1 to 4, and 5 to 8 at 16 x 16 and 8 x 8, a candidate row at a
-// time; the K8 refine 16 x 16 at R = 1); lane i of a block owns
+// radius R = 1 to 4, and 5 to 8 at 16 x 16, 8 x 8 and 4 x 4, a candidate
+// row at a time; the K8 refine 16 x 16 at R = 1); lane i of a block owns
 // anchor row i (BW / 4 words). A window row is Window<BW, R>::kWords words
 // from the window's first byte (ox = 0) on; it needs BW + 2R of those
 // bytes.
@@ -303,15 +303,16 @@ __device__ __forceinline__ void reduce_row(uint32_t (&packed)[R + 1], unsigned i
 // a lane would outgrow its registers (145 words of pairs at R = 8), so
 // each oy's row i + oy comes from lane (i + oy) mod BH as there, its 2R + 1
 // sums go two to a word and reduce over the block's BH lanes at once
-// (reduce_row), into s_out[oy (2R + 1) + ox][blk]: registers for 2R + 1
-// sums, one small reduction a row. The oy loop runs at run time (its code
-// fits the instruction cache); the slot a lane sends is picked by selects
-// (register arrays take no runtime index). Blocks of 256 pixels at most.
-template <int BW, int BH, int R>
+// (reduce_row), each block sum of candidate c = oy (2R + 1) + ox to
+// `put(c, sum)` on one lane (the kernel's: into s_out[c][blk], or at 4x4
+// straight to the output): registers for 2R + 1 sums, one small reduction
+// a row. The oy loop runs at run time (its code fits the instruction
+// cache); the slot a lane sends is picked by selects (register arrays take
+// no runtime index). Blocks of 256 pixels at most.
+template <int BW, int BH, int R, class Put>
 __device__ __forceinline__ void block_sads_by_row(
     const uint32_t (&rows)[Window<BW, R, BH>::kSlots][Window<BW, R, BH>::kWords],
-    const uint32_t (&a)[BW / 4], unsigned i, unsigned blk,
-    int32_t (*s_out)[kThreads / BH]) {
+    const uint32_t (&a)[BW / 4], unsigned i, Put put) {
   using W = Window<BW, R, BH>;
   constexpr int kSide = 2 * R + 1;
   static_assert(BW * BH <= 256, "a block's sums must fit 16 bits");
@@ -346,10 +347,7 @@ __device__ __forceinline__ void block_sads_by_row(
         packed[ox / 2] = __byte_perm(packed[ox / 2], sum, 0x5410);
       }
     }
-    int32_t* s_row = &s_out[oy * kSide][blk];
-    reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) {
-      s_row[ox * (kThreads / BH)] = static_cast<int32_t>(sum);
-    });
+    reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) { put(oy * kSide + ox, sum); });
   }
 }
 

@@ -3,8 +3,9 @@
 // columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16, 32, the
 // ratio-2 rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 and the ratio-4
 // ones 32x8, 16x4, 8x32, 4x16 here; 2x2, 4x2, 2x4, 8x2 and 2x8 on K9's
-// thread-a-block kernel (candidate_sads.cu); and 16x16 at R = 5 to 8
-// (level 0 of 16x16 MV blocks at 2 levels, ranges 10-17). These are the
+// thread-a-block kernel (candidate_sads.cu); and 16x16, 8x8 and 4x4 at R
+// = 5 to 8 (the levels under the top of 16x16 MV blocks at 2, 3 and 4
+// levels, ranges 10-17, 20-35 and 40-71). These are the
 // refinement levels of the encoder's search at 16x16 MV blocks and 4 pyramid levels,
 // range 8 (R = 1, the default) to 39 (R = range / 8), at 8x8 MV blocks or
 // 2, 3 or 5 levels, at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels, at
@@ -13,7 +14,7 @@
 // (--mv-block-w/-h, --pyr-lvl-count). The same kernel is K7's for one
 // frame pair (refine_mads.cu) and K9's at 4x4, 8x8, 16x16, 8x4, 4x8, 16x8,
 // 8x16, 16x4 and 4x16 blocks with float32 output (candidate_sads.cu), and
-// at 16x16 and 8x8 at R = 5 to 8 too, through the launchers of
+// at 16x16, 8x8 and 4x4 at R = 5 to 8 too, through the launchers of
 // refine_sads.cuh: it reads frame t's tracked plane and its anchor from two
 // bases a per-frame stride apart, so K3 passes (stack, stack + plane,
 // plane), K7 (tracked, anchor, 0) and K9 (tracked, anchor, plane).
@@ -85,15 +86,18 @@
 //     an SM and leaves few of its block slots idle past a block row's end
 //     (split_fits: K3's stacks; a single 1080p pair, K7, keeps the
 //     one-row-a-lane kernel's grid but at 8x16, R <= 3, and 8x32);
-//   - past R = 4 (kNearRadius: 16x16 for K3 / K7 / K9, 8x8 for K9) a
-//     lane's (2R + 1)^2 sums would outgrow its registers (145 words of
-//     pairs at R = 8), so the kernels work one candidate row at a time:
-//     the one-row kernel reduces each row's 2R + 1 sums as soon as it has
-//     them (block_sads_by_row), the split kernel keeps the 4 candidate rows
-//     its window rows can still meet in slots and reduces and stores each
-//     when its last window row has passed (refine_sads_split_rows_kernel,
-//     8x8 only: kSplitFar); the window rows take 3-4 extra words past R =
-//     4, as whole chunks.
+//   - past R = 4 (kNearRadius: 16x16, 8x8 and 4x4, kFarRadii) a lane's
+//     (2R + 1)^2 sums would outgrow its registers (145 words of pairs at R
+//     = 8), so the kernels work one candidate row at a time: the one-row
+//     kernel reduces each row's 2R + 1 sums as soon as it has them
+//     (block_sads_by_row), the split kernel keeps the 4 candidate rows its
+//     window rows can still meet in slots and reduces and stores each when
+//     its last window row has passed (refine_sads_split_rows_kernel, 8x8
+//     only: kSplitFar); the window rows take 3-4 extra words past R = 4, as
+//     whole chunks (one word a chunk at 4 columns). The one-row kernel's
+//     4x4 blocks, 64 a CTA, store each row's sums straight to the output
+//     (kRowsToOut: their candidate planes in shared memory would pass 48 KB
+//     from R = 7).
 // From the window rows on, the one-row-a-lane kernel runs refine_rows.cuh,
 // shared with the K8 refine (refine_sads_pitched.cu, 16x16, R = 1).
 #include "refine_rows.cuh"
@@ -108,12 +112,12 @@ constexpr int kSplitRows = 4;
 constexpr int kNearRadius = 4;
 
 // Whether a BW x BH instance also takes R = 5 to 8 (kFarRadii's switch):
-// 16x16 blocks (K3, K7: level 0 of two levels at ranges 10-17; K9: one
-// level at ranges 5-8) and K9's 8x8 (the top of two levels, or one level
-// of 8x8 MV blocks).
-template <int BW, int BH, class Out>
-constexpr bool kFarRadii = (BW == 16 && BH == 16) ||
-                           (BW == 8 && BH == 8 && std::is_same<Out, float>::value);
+// 16x16, 8x8 and 4x4 blocks, the levels of 16x16 MV blocks at 2, 3 and 4
+// levels (K3, K7: 16x16 at level 0 of 2-4 levels, 8x8 at level 1 of 3 and
+// 4, 4x4 at level 2 of 4; K9: 16x16 one level, 8x8 the top of 2, 4x4 of
+// 3).
+template <int BW, int BH>
+constexpr bool kFarRadii = BW == BH && BW >= 4 && BW <= 16;
 
 // Whether an instance past kNearRadius runs refine_sads_split_rows_kernel
 // (where its grid fits it, launch) rather than the one-row kernel's
@@ -123,9 +127,21 @@ constexpr bool kFarRadii = (BW == 16 && BH == 16) ||
 // 0.073 ms against 0.052 / 0.074 / 0.111; at R = 6 its 4 CTAs an SM put
 // 544 CTAs just past one wave and split_fits keeps the one-row kernel).
 // At 16x16 the one-row kernel is 3-7% faster at R = 5 and 8 and at most
-// 5% slower at R = 6, 7 (K3 on 9 x 1088x1920, K9 on 8).
+// 5% slower at R = 6, 7 (K3 on 9 x 1088x1920, K9 on 8). A 4x4 block would
+// get one lane and a CTA of 256 blocks of one block row, half of them idle
+// on a 120-column level: 4x4 runs one row a lane.
 template <int BW, int BH>
-constexpr bool kSplitFar = BW < 16;
+constexpr bool kSplitFar = BW == 8;
+
+// Whether the one-row kernel past kNearRadius stores each candidate row's
+// sums straight to out rather than through s_out: 4-row blocks, whose
+// kCand x 64 words of sums would pass 48 KB of static shared memory from R
+// = 7 (57,600 B; 73,984 at R = 8). A warp's store of one sum covers 8
+// consecutive block columns of a candidate plane, 32 bytes (in turns on an
+// H100, K3 on 9 x 272x480: as fast as through s_out at R = 5, 20% faster
+// at R = 6).
+template <int BH, int R>
+constexpr bool kRowsToOut = R > kNearRadius && BH == 4;
 
 // Whether an instance runs the split kernel (where its grid fits it,
 // launch): 16-column blocks of 8 rows or more at R >= 2, the tall
@@ -248,7 +264,7 @@ refine_sads_kernel(const uint8_t* __restrict__ tracked,
                    int fh, int fw, int mfh, int mfw) {
   constexpr int kBlocks = kThreads / BH;  // MV blocks of one block row
   using W = Window<BW, R, BH>;
-  __shared__ int32_t s_out[W::kCand][kBlocks];
+  __shared__ int32_t s_out[kRowsToOut<BH, R> ? 1 : W::kCand][kBlocks];
 
   const unsigned i = threadIdx.x % BH;  // anchor row of this lane
   const unsigned blk = threadIdx.x / BH;
@@ -287,14 +303,24 @@ refine_sads_kernel(const uint8_t* __restrict__ tracked,
       const bool inside = k == 0 || static_cast<int>(i) + k * BH < BH + 2 * R;
       load_window_row<BW, R>(trk, y0 + k * BH, x0, fh, fw, active && inside, rows[k]);
     }
-    if constexpr (R > kNearRadius) {
-      block_sads_by_row<BW, BH, R>(rows, a, i, blk, s_out);
+    if constexpr (kRowsToOut<BH, R>) {
+      const size_t plane_out = static_cast<size_t>(mfh) * mfw;
+      Out* o = out + (static_cast<size_t>(t) * W::kCand * mfh + by) * mfw + bx;
+      block_sads_by_row<BW, BH, R>(rows, a, i, [&](int c, uint32_t sum) {
+        if (active) o[c * plane_out] = sad_as<Out>(sum);
+      });
+    } else if constexpr (R > kNearRadius) {
+      block_sads_by_row<BW, BH, R>(rows, a, i, [&](int c, uint32_t sum) {
+        s_out[c][blk] = static_cast<int32_t>(sum);
+      });
     } else {
       block_sads_wide<BW, BH, R>(rows, a, i, blk, s_out);
     }
   }
-  __syncthreads();
-  store_sads<BH, R>(s_out, out, t, by, mfh, mfw);
+  if constexpr (!kRowsToOut<BH, R>) {
+    __syncthreads();
+    store_sads<BH, R>(s_out, out, t, by, mfh, mfw);
+  }
 }
 
 // K3 where kSplit holds: BH / 4 lanes a block, lane l owning anchor rows
@@ -570,7 +596,7 @@ int launch_refine_rows(const void* tracked, const void* anchor,
                                      t_count, fh, fw, stream);
     default: break;
   }
-  if constexpr (kFarRadii<BW, BH, Out>) {
+  if constexpr (kFarRadii<BW, BH>) {
     switch (r) {
       case 5: return launch<BW, BH, 5>(tracked, anchor, frame_stride, mv, out,
                                        t_count, fh, fw, stream);
@@ -676,7 +702,8 @@ int launch_refine_sads(const void* tracked, const void* anchor,
 // fh/bh, fw/bw, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw)
 // int32. All contiguous; (bw, bh) one of 2x2, 4x4, 8x8, 16x16, 32x32, 4x2,
 // 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, 32x8, 16x4, 8x2, 8x32, 4x16,
-// 2x8, dividing fw and fh; 1 <= r <= 4, and 5 <= r <= 8 at 16x16. Refuses
+// 2x8, dividing fw and fh; 1 <= r <= 4, and 5 <= r <= 8 at 16x16, 8x8 and
+// 4x4. Refuses
 // (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int bw, int bh, int r,

@@ -115,14 +115,16 @@ def test_refine_sads_unaligned_stack_takes_the_general_kernel(gen):
 
 
 @pytest.mark.parametrize("block,r,bound", [(4, 1, 2), (8, 1, 6), (16, 1, 14),
-                                           (8, 3, 21), (16, 4, 40), (8, 5, 21)])
+                                           (8, 3, 21), (16, 4, 40), (8, 5, 21),
+                                           (4, 9, 21)])
 def test_refine_mads_bit_equal(gen, block, r, bound):
-    # one frame pair; odd MVs reaching past the frame edge; r = 1 to 4
-    # take the specialised kernel, r > 4 the general one
+    # one frame pair; odd MVs reaching past the frame edge; r = 1 to 8 take
+    # the specialised kernel (square 4, 8, 16: r = 5 to 8 too), r = 9 the
+    # general one
     tr, an = _u8(gen, (4 * block, 6 * block)), _u8(gen, (4 * block, 6 * block))
     mv = torch.randint(-bound, bound + 1, (4, 6, 2), generator=gen,
                        dtype=torch.int32).cuda()
-    kernel = motion.REFINE_MADS if r <= 4 else motion.REFINE_MADS_GENERAL
+    kernel = motion.REFINE_MADS if r <= 8 else motion.REFINE_MADS_GENERAL
     before = kernel.launches
     got = motion.refine_mads(tr, an, mv, r, block, block)
     assert kernel.launches == before + 1
@@ -484,14 +486,15 @@ def test_candidate_sads_ratio4_top_blocks_equal_general(gen, block, t, h, w, kin
 
 @pytest.mark.parametrize("r", [5, 6, 7, 8])
 @pytest.mark.parametrize("kind", ["path", "edge", "far", "large", "saturated"])
-def test_refine_far_radii_equal_general(gen, kind, r):
-    # K3 and K7 at 16x16 blocks and R = 5-8 (level 0 of 16x16 MV blocks at 2
-    # levels, ranges 10-17: one candidate row at a time; "large": the 1088 x
-    # 1920 level, 9 frames, where the split kernel's grid fits the card;
-    # "saturated": 65,280 a block) against the general kernels, the plain
-    # versions and K3 on the stacked pair, every candidate
-    b = 16
-    t, h, w = (8, 1088, 1920) if kind == "large" else (2, 5 * b, 41 * b)
+@pytest.mark.parametrize("b", [16, 8, 4])
+def test_refine_far_radii_equal_general(gen, kind, r, b):
+    # K3 and K7 at 16x16, 8x8 and 4x4 blocks and R = 5-8 (levels 0, 1 and 2
+    # of 16x16 MV blocks at 2-4 levels, ranges 10-71: one candidate row at a
+    # time; "large": the 1080p level, 9 frames, where the split kernel's
+    # grid fits the card at 8x8; "saturated": 255 B^2 a block) against the
+    # general kernels, the plain versions and K3 on the stacked pair, every
+    # candidate
+    t, h, w = (8, 1088 * b // 16, 1920 * b // 16) if kind == "large" else (2, 5 * b, 41 * b)
     stack = _u8(gen, (t + 1, h, w))
     if kind == "saturated":
         stack.zero_()
@@ -515,12 +518,14 @@ def test_refine_far_radii_equal_general(gen, kind, r):
 
 
 @pytest.mark.parametrize("r", [5, 6, 7, 8])
-@pytest.mark.parametrize("block,h,w", [(16, 1088, 1920), (8, 544, 960)])
+@pytest.mark.parametrize("block,h,w", [(16, 1088, 1920), (8, 544, 960), (4, 272, 480),
+                                       (2, 136, 240)])
 @pytest.mark.parametrize("kind", ["zero", "edge", "far", "small", "saturated"])
 def test_candidate_sads_far_radii_equal_general(gen, block, h, w, kind, r):
-    # K9 at 16x16 (one level, ranges 5-8: 8 x 1088x1920) and 8x8 (the top
-    # of 2 levels: 8 x 544x960) at R = 5-8 against the general kernel and
-    # the plain version; "small": 3 frames of 7 x 9 blocks
+    # K9 at 16x16 (one level, ranges 5-8: 8 x 1088x1920), 8x8, 4x4 and 2x2
+    # (the top of 2, 3 and 4 levels: 8 x 544x960, 272x480, 136x240) at R =
+    # 5-8 against the general kernel and the plain version; "small": 3
+    # frames of 7 x 9 blocks
     b = block
     t = 8
     if kind == "small":

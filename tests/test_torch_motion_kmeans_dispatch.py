@@ -20,6 +20,7 @@ import torch
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.ops import kmeans, motion, prng
 from svc_tpu_torch.ops.pad import padded_dims
+from test_torch_pyramid_ebma_dispatch import _replay_k9_block
 
 
 @pytest.fixture
@@ -68,14 +69,20 @@ _RATIO4 = [(32, 8), (16, 4), (8, 2), (8, 32), (4, 16), (2, 8)]
      (16, 16, 2, False, "refine_sads"), (4, 4, 3, False, "refine_sads"),
      (8, 8, 4, False, "refine_sads"),
      *((2, 2, r, False, "refine_sads") for r in (1, 2, 3, 4)),
-     # R = 5-8 at 16x16 (level 0 of 2 levels, ranges 10-17): one candidate
-     # row at a time; R = 9 and the other blocks past R = 4 stay general
+     # R = 5-8 at 16x16, 8x8 and 4x4 (levels 0, 1 and 2 of 2-4 levels,
+     # ranges 10-71): one candidate row at a time; R = 9 and the other
+     # blocks past R = 4 stay general
      (16, 16, 5, False, "refine_sads"),
      (16, 16, 8, False, "refine_sads"),
      *((16, 16, r, False, "refine_sads") for r in (6, 7)),
      (16, 16, 9, False, "refine_sads_general"),
      (16, 16, 6, True, "refine_sads_general"),
-     (8, 8, 5, False, "refine_sads_general"), (32, 32, 8, False, "refine_sads_general"),
+     (8, 8, 5, False, "refine_sads"), (32, 32, 8, False, "refine_sads_general"),
+     *((b, b, r, False, "refine_sads") for b in (8, 4) for r in (5, 6, 7, 8)
+       if (b, r) != (8, 5)),
+     (8, 8, 9, False, "refine_sads_general"), (4, 4, 9, False, "refine_sads_general"),
+     (8, 8, 7, True, "refine_sads_general"), (4, 4, 8, True, "refine_sads_general"),
+     (2, 2, 5, False, "refine_sads_general"), (8, 4, 5, False, "refine_sads_general"),
      (2, 4, 1, False, "refine_sads"),
      (1, 1, 1, False, "refine_sads_general"),
      (16, 16, 1, True, "refine_sads_general"),
@@ -120,11 +127,11 @@ def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
 
 
 @pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (23, 2), (24, 3),
-                                            (32, 4), (39, 4)])
+                                            (32, 4), (39, 4), (40, 5), (64, 8), (71, 8)])
 def test_hbma_stack_default_levels_take_the_specialised_k3(meta_launches,
                                                            search_range, r):
     # the encoder's search at 16x16 MV blocks and 4 levels, range 8 (the
-    # default) to 39: the top-level EBMA on K9, then levels 2, 1, 0 on the
+    # default) to 71: the top-level EBMA on K9, then levels 2, 1, 0 on the
     # specialised K3, all at the top radius range // 8
     pyr = [_meta_u8(9, 1088 >> lvl, 1920 >> lvl) for lvl in range(4)]
     mv, mm = motion.hbma_stack(pyr, search_range, 16, 16)
@@ -164,7 +171,14 @@ def _meta_plane_at(offset, fh, fw):
      (16, 16, 5, False, 4, "refine_mads_general"),  # K3's 16-byte gate
      (16, 16, 9, False, 0, "refine_mads_general"),
      (16, 16, 7, True, 0, "refine_mads_general"),
-     (8, 8, 6, False, 0, "refine_mads_general"),
+     (8, 8, 6, False, 0, "refine_mads"),
+     *((b, b, r, False, 0, "refine_mads") for b in (8, 4) for r in (5, 6, 7, 8)
+       if (b, r) != (8, 6)),
+     (4, 4, 7, False, 16, "refine_mads"),
+     (4, 4, 5, False, 4, "refine_mads_general"),  # K3's 16-byte gate
+     (8, 8, 9, False, 0, "refine_mads_general"), (4, 4, 9, False, 0, "refine_mads_general"),
+     (4, 4, 6, True, 0, "refine_mads_general"), (8, 8, 8, True, 0, "refine_mads_general"),
+     (2, 2, 5, False, 0, "refine_mads_general"),
      (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
      (16, 16, 1, True, 0, "refine_mads_general"),
      *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
@@ -202,10 +216,11 @@ def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
         assert motion.REFINE_MADS.instance(args) == motion._instance(bw, bh, r)
 
 
-@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4)])
+@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4), (40, 5),
+                                            (64, 8)])
 def test_hbma_default_levels_take_the_specialised_k7(meta_launches,
                                                      search_range, r):
-    # the per-frame search (16x16 MV blocks, 4 levels, range 8 to 32) on
+    # the per-frame search (16x16 MV blocks, 4 levels, range 8 to 64) on
     # one padded 1080p pair: the top-level EBMA on K9, then levels 2, 1, 0
     # on the specialised K7
     pyr = [_meta_u8(2, 1088 >> lvl, 1920 >> lvl) for lvl in range(4)]
@@ -301,27 +316,42 @@ def test_k3_host_constants_match_the_kernel_source():
 
 
 def test_far_radius_constants_match_the_kernel_source():
-    # R = 5-8: kFarRadii's switch and blocks (16x16 for K3 / K7 and K9, 8x8
-    # for K9's float32 instances), the kernels that work one candidate row
-    # at a time, and the word counts past kNearRadius the replays follow
+    # R = 5-8: kFarRadii's switch and blocks (16x16, 8x8 and 4x4 for K3 / K7
+    # and K9; K9's 2x2 on the thread-a-block kernel, candidate_sads.cu), the
+    # kernels that work one candidate row at a time, and the word counts
+    # past kNearRadius the replays follow
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
     assert "constexpr int kNearRadius = 4;" in src
     assert max(motion._SAD_RADII) == 4 < min(motion._FAR_RADII)
-    far = src[src.index("if constexpr (kFarRadii<BW, BH, Out>) {"):]
+    far = src[src.index("if constexpr (kFarRadii<BW, BH>) {"):]
     far = far[:far.index("return static_cast<int>(cudaErrorInvalidValue);")]
     radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>\(",
                                            far) if a == b}
     assert radii == set(motion._FAR_RADII)
-    assert ("constexpr bool kFarRadii = (BW == 16 && BH == 16) ||\n"
-            "                           (BW == 8 && BH == 8 && "
-            "std::is_same<Out, float>::value);") in src
-    assert motion._K3_FAR_BLOCKS == {(16, 16)} <= motion._K3_BLOCKS
-    assert motion._K9_FAR_BLOCKS == {(16, 16), (8, 8)} <= motion._K9_BLOCKS
+    assert "constexpr bool kFarRadii = BW == BH && BW >= 4 && BW <= 16;" in src
+    assert "if constexpr (kFarRadii<BW, BH>) {" in src
+    squares = {(b, b) for b in (4, 8, 16)}
+    assert motion._K3_FAR_BLOCKS == squares <= motion._K3_BLOCKS
+    assert motion._K9_FAR_BLOCKS == squares | {(2, 2)} and motion._K9_FAR_BLOCKS <= (
+        motion._K9_BLOCKS)
+    # the K3 / K7 / K9 instances of this file's switch: both outputs at
+    # every far square (K9's 2x2 is the thread-a-block kernel's)
+    built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\d+), (\w+)\)\n", src))
+    assert {(str(b), str(b), out) for b, _ in squares for out in ("int32_t", "float")} <= built
     # the one-row kernel past kNearRadius, and the split by-row kernel where
     # kSplitFar holds and its grid fits (split_fits)
-    assert ("if constexpr (R > kNearRadius) {\n"
-            "      block_sads_by_row<BW, BH, R>(rows, a, i, blk, s_out);") in src
-    assert "constexpr bool kSplitFar = BW < 16;" in src
+    assert ("} else if constexpr (R > kNearRadius) {\n"
+            "      block_sads_by_row<BW, BH, R>(rows, a, i, [&](int c, uint32_t sum) {") in src
+    assert "constexpr bool kSplitFar = BW == 8;" in src
+    # 4x4's one-row kernel stores each candidate row straight to the output
+    # (kCand x 64 words of shared memory would pass 48 KB from R = 7)
+    assert "constexpr bool kRowsToOut = R > kNearRadius && BH == 4;" in src
+    assert "__shared__ int32_t s_out[kRowsToOut<BH, R> ? 1 : W::kCand][kBlocks];" in src
+    assert "if (active) o[c * plane_out] = sad_as<Out>(sum);" in src
+    assert "s_out[c][blk] = static_cast<int32_t>(sum);" in src
+    # the sums of a CTA's 64 4x4 blocks would pass 48 KB from R = 7
+    assert [(2 * r + 1) ** 2 * 64 * 4 > 48 * 1024 for r in motion._FAR_RADII] == [
+        False, False, True, True]
     assert "return refine_sads_split_rows_kernel<BW, BH, R, Out>;" in src
     assert "acc[(u - m) & 3][ox / 2] += ox % 2 == 0 ? sum : sum << 16;" in src
     assert "uint32_t(&done)[R + 1] = acc[(u + 1) & 3];" in src
@@ -329,17 +359,18 @@ def test_far_radius_constants_match_the_kernel_source():
     rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
     assert "reduce_transposed<R + 1, L / 2, L>(packed, i);" in rows
     assert "const int send_slot = static_cast<int>(i) < rho ? q + 1 : q;" in rows
-    assert "reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) {" in rows
+    assert ("reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) { put(oy * kSide + ox, "
+            "sum); });") in rows
     # the extra words past R = 4: whole chunks, chunk c read when the window
     # reaches it (the replay's _k3_window_row)
     assert "constexpr int kXChunks = (4 * W::kExtra + kG - 1) / kG;" in src
     assert ("if (row_in && s > kG * (c + 1) - 2 * R && x >= 0 && x < fw) "
             "load_chunk<kG>(row + x, v);") in src
-    for b in (8, 16):
+    for b in (4, 8, 16):
         for r in motion._FAR_RADII:
             win = _Win(b, r)
             assert win.extra in (3, 4) and 4 * win.words >= b + 2 * r
-            assert win.slots == 1 + (2 * r + b - 1) // b <= 3
+            assert win.slots == 1 + (2 * r + b - 1) // b <= {4: 5, 8: 3, 16: 2}[b]
 
 
 @pytest.mark.parametrize("config,blocks", [
@@ -361,8 +392,11 @@ def test_far_radius_constants_match_the_kernel_source():
     (((8, 32), 3, 8), ("4x16", "8x32")), (((8, 32), 2, 8), ("8x32",)),
     (((16, 4), 3, 8), ("8x2", "16x4")),
     # 16x16 MV blocks at 2 levels, ranges 10 and 16 (R = 5, 8), and at one
-    # level (no refinement level)
-    ((16, 2, 10), (16,)), ((16, 2, 16), (16,)), ((16, 1, 8), ())])
+    # level (no refinement level); at 3 levels, ranges 20 and 32, and 4,
+    # ranges 48 and 64 (R = 5, 8 and 6, 8)
+    ((16, 2, 10), (16,)), ((16, 2, 16), (16,)), ((16, 1, 8), ()),
+    ((16, 3, 20), (8, 16)), ((16, 3, 32), (8, 16)), ((16, 4, 48), (4, 8, 16)),
+    ((16, 4, 64), (4, 8, 16))])
 def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
     # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
     # levels, at 16x8 and 8x16 MV blocks and 4, 3, 2 levels, and at 32x32,
@@ -991,19 +1025,22 @@ def _replay_k3_split_rows(stack, mv, b, r, anchor=None):
     return out.reshape(frames, side * side, mfh, mfw)
 
 
-# the blocks past kNearRadius: K3's / K7's 16x16, K9's 16x16 and 8x8
-_FAR = [(16, "refine"), (16, "candidate"), (8, "candidate")]
+# the blocks past kNearRadius: K3's / K7's 16x16, 8x8 and 4x4, K9's 16x16,
+# 8x8, 4x4 and 2x2
+_FAR = [(16, "refine"), (16, "candidate"), (8, "candidate"), (8, "refine"), (4, "refine"),
+        (4, "candidate"), (2, "candidate")]
 
 
 @pytest.mark.parametrize("r", [5, 6, 7, 8])
 @pytest.mark.parametrize("b,entry", _FAR, ids=lambda v: str(v))
 @pytest.mark.parametrize("kind", ["zero", "path", "edge", "far", "saturated"])
 def test_far_radius_replays_equal_plain(b, entry, r, kind):
-    # R = 5-8 at 16x16 (K3, K7, K9) and 8x8 (K9): the one-row kernel's
-    # block_sads_by_row and, at 8x8 (kSplitFar), the split by-row kernel,
-    # each replayed, equal the plain version on every candidate; a
-    # saturated block (anchor 255, tracked 0: 255 B^2 at every candidate,
-    # 65,280 at 16x16, the 16-bit pairs' last case) too
+    # R = 5-8 at 16x16, 8x8, 4x4 (K3, K7, K9) and 2x2 (K9): the one-row
+    # kernel's block_sads_by_row, at 8x8 (kSplitFar) the split by-row
+    # kernel, at 2x2 the thread-a-block kernel's streamed rows, each
+    # replayed, equal the plain version on every candidate; a saturated
+    # block (anchor 255, tracked 0: 255 B^2 at every candidate, 65,280 at
+    # 16x16, the 16-bit pairs' last case) too
     rng = np.random.default_rng(4000 + 100 * b + 10 * r + len(kind) + len(entry))
     t, mfh, mfw = 2, 3, 5
     tracked = rng.integers(0, 256, (t + 1, mfh * b, mfw * b)).astype(np.uint8)
@@ -1022,6 +1059,8 @@ def test_far_radius_replays_equal_plain(b, entry, r, kind):
         ref = motion.refine_sads_plain(torch.from_numpy(tracked), torch.from_numpy(mv), r,
                                        b, b).numpy()
         replays = [_replay_k3_by_row(tracked, mv, b, r)]
+        if b == 8:  # kSplitFar
+            replays.append(_replay_k3_split_rows(tracked, mv, b, r))
         pair = motion.refine_mads_plain(torch.from_numpy(tracked[0]),
                                         torch.from_numpy(tracked[1]),
                                         torch.from_numpy(mv[0]), r, b, b).numpy()
@@ -1031,8 +1070,11 @@ def test_far_radius_replays_equal_plain(b, entry, r, kind):
         ref = motion.candidate_sads_plain(torch.from_numpy(tr), torch.from_numpy(anchor),
                                           torch.from_numpy(mv), r, b, b).numpy()
         replays = []
-        sads = [_replay_k3_by_row(tr, mv, b, r, anchor=anchor)]
-        if b < 16:  # kSplitFar
+        if b == 2:  # the thread-a-block kernel, its window rows streamed
+            sads = [_replay_k9_block(tr, anchor, mv, b, b, r, streamed=True)]
+        else:
+            sads = [_replay_k3_by_row(tr, mv, b, r, anchor=anchor)]
+        if b == 8:  # kSplitFar
             sads.append(_replay_k3_split_rows(tr, mv, b, r, anchor=anchor))
         for sads in sads:
             assert ((sads >= 0) & (sads < 1 << 23)).all()

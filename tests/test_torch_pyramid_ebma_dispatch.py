@@ -81,15 +81,19 @@ _RATIO4 = [(4, 1), (8, 2), (16, 4), (1, 4), (2, 8), (4, 16)]
      (2, 2, 4, False, "candidate_sads"),
      *((s, s, r, False, "candidate_sads") for s in (1, 4, 8) for r in (1, 2, 3, 4)
        if (s, r) != (4, 1)),
-     (2, 2, 5, False, "candidate_sads_general"),
+     (2, 2, 5, False, "candidate_sads"),
      (1, 1, 5, False, "candidate_sads_general"),
-     # R = 5-8 at 16x16 (one level, ranges 5-8) and 8x8 (the top of 2
-     # levels, ranges 10-17): one candidate row at a time; R = 9, and the
-     # other blocks past R = 4, stay general
+     # R = 5-8 at 16x16 (one level, ranges 5-8), 8x8, 4x4 and 2x2 (the top
+     # of 2, 3 and 4 levels, ranges 10-17, 20-35 and 40-71): one candidate
+     # row at a time; R = 9, and the other blocks past R = 4, stay general
      *((s, s, r, False, "candidate_sads") for s in (16, 8) for r in (5, 6, 7, 8)),
+     *((s, s, r, False, "candidate_sads") for s in (4, 2) for r in (6, 7, 8)),
      (16, 16, 9, False, "candidate_sads_general"), (8, 8, 9, False, "candidate_sads_general"),
-     (4, 4, 5, False, "candidate_sads_general"), (8, 16, 5, False, "candidate_sads_general"),
+     (4, 4, 9, False, "candidate_sads_general"), (2, 2, 9, False, "candidate_sads_general"),
+     (4, 4, 5, False, "candidate_sads"), (8, 16, 5, False, "candidate_sads_general"),
+     (2, 1, 5, False, "candidate_sads_general"), (8, 2, 8, False, "candidate_sads_general"),
      (16, 16, 8, True, "candidate_sads_general"), (8, 8, 6, True, "candidate_sads_general"),
+     (4, 4, 7, True, "candidate_sads_general"), (2, 2, 8, True, "candidate_sads_general"),
      (2, 4, 1, False, "candidate_sads"),
      (2, 2, 1, True, "candidate_sads_general"),
      (8, 8, 2, True, "candidate_sads_general"),
@@ -154,7 +158,8 @@ def test_build_pyramid_general_takes_the_single_level_kernel(meta_launches):
     assert [name for name, _ in meta_launches] == ["pyr_down_u8"] * 3
 
 
-@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4)])
+@pytest.mark.parametrize("search_range,r", [(8, 1), (16, 2), (24, 3), (32, 4), (40, 5),
+                                            (64, 8), (71, 8)])
 def test_hbma_stack_default_levels_take_the_new_kernels(meta_launches,
                                                         search_range, r):
     # the encoder's motion path: the fused pyramid, then the top-level
@@ -207,6 +212,13 @@ MOTION_CONFIGS = [
     ((16, 1, 5), ["<16, 5>"]), ((16, 1, 8), ["<16, 8>"]),
     ((16, 2, 10), ["<8, 5>", "<16, 5>"]), ((16, 2, 16), ["<8, 8>", "<16, 8>"]),
     ((8, 1, 8), ["<8, 8>"]),
+    # three levels at ranges 20 and 32 (K9 4x4, K3 8x8, 16x16 at R = 5, 8),
+    # four at 40, 56 and 64 (K9 2x2, K3 4x4, 8x8, 16x16 at R = 5, 7, 8)
+    ((16, 3, 20), ["<4, 5>", "<8, 5>", "<16, 5>"]),
+    ((16, 3, 32), ["<4, 8>", "<8, 8>", "<16, 8>"]),
+    ((16, 4, 40), ["<2, 5>", "<4, 5>", "<8, 5>", "<16, 5>"]),
+    ((16, 4, 56), ["<2, 7>", "<4, 7>", "<8, 7>", "<16, 7>"]),
+    ((16, 4, 64), ["<2, 8>", "<4, 8>", "<8, 8>", "<16, 8>"]),
 ]
 
 
@@ -705,11 +717,31 @@ def test_k9_host_constants_match_the_kernel_source():
                         if min(w, h) <= 2})
     assert "reinterpret_cast<uintptr_t>(anchor) % BW" in src
     assert "(static_cast<size_t>(fh) * fw) % 4" in src
-    # each launcher's radii, the thread-a-block and the 1x1 one
+    # each launcher's radii, the thread-a-block and the 1x1 one; the
+    # thread-a-block kernel's past kNearRadius (K9's 2x2: kFarBlocks)
+    near = src[:src.index("if constexpr (kFarBlocks<BW, BH, Out>) {")]
     for launcher, pattern in (("launch", r"case (\d+): return launch<BW, BH, (\d+)>\("),
                               ("launch_1x1", r"case (\d+): return launch_1x1<(\d+)>\(")):
-        radii = {int(a) for a, b in re.findall(pattern, src) if a == b}
+        radii = {int(a) for a, b in re.findall(pattern, near if launcher == "launch" else src)
+                 if a == b}
         assert radii == set(motion._SAD_RADII), launcher
+    far = src[src.index("if constexpr (kFarBlocks<BW, BH, Out>) {"):]
+    far = far[:far.index("return static_cast<int>(cudaErrorInvalidValue);")]
+    assert {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>\(", far)
+            if a == b} == set(motion._FAR_RADII)
+    assert "constexpr int kNearRadius = 4;" in src
+    assert ("constexpr bool kFarBlocks = BW == 2 && BH == 2 && "
+            "std::is_same<Out, float>::value;") in src
+    assert {b for b in motion._K9_FAR_BLOCKS if min(b) < 4} == {(2, 2)}
+    # past it a thread streams its window rows: the BH rows of candidate
+    # row oy held, the next loaded before the row's sums, then a slide
+    # (_replay_k9_block's streamed walk)
+    assert "uint32_t win[BH][kWords];" in src
+    assert "if (oy + 1 < kSide) window_run<kRun>(trk, y0 + oy + BH, x0, fh, fw, next);" in src
+    assert ("const uint32_t sad = block_sad<BW, BH>([&](int q) { return win[q]; }, a, ox);"
+            in src)
+    assert ("for (int w = 0; w < kWords; ++w) win[q][w] = q + 1 < BH ? win[q + 1][w] : next[w];"
+            in src)
     # past 2x2 at R = 1: BH + 2R window rows of BW + 2R bytes, anchor words
     # of 4 / BW rows (BH at most; BW / 4 words a row from BW = 4 on), one
     # __vsadu4 an anchor word a candidate, the exact float32 by the mantissa
@@ -719,8 +751,10 @@ def test_k9_host_constants_match_the_kernel_source():
             in src)
     assert "static constexpr int kRowWords = BW >= 4 ? BW / 4 : 1;" in src
     assert "static constexpr int kCount = BH / kStep * kRowWords;" in src
-    assert "const uint32_t* top = rows[oy + A::kStep * (k / A::kRowWords)];" in src
+    assert "const uint32_t* top = row(A::kStep * (k / A::kRowWords));" in src
     assert "const int w = j + k % A::kRowWords;" in src
+    assert ("const uint32_t sad = block_sad<BW, BH>([&](int q) { return rows[oy + q]; }, "
+            "a, ox);") in src
     # a CTA: the level's block columns rounded up to a warp (kThreads at
     # most), block rows to fill it (_cta_geometry)
     assert "const int cols = min(kThreads, (mfw + 31) / 32 * 32);" in src
@@ -747,66 +781,95 @@ def _fshr(lo, hi, bits):
     return (((hi << 32) | lo) >> bits) & 0xFFFFFFFF
 
 
-def _replay_k9_block(tracked, anchor, mv, bw, bh, r):
+def _anchor_words(anc, by, bx, bw, bh):
+    """``AnchorWords<BW, BH>`` of every block of a frame's anchor plane: its
+    rows packed kStep to a word (at BW = 8 two words a row), one load a
+    row (``load_anchor_words``)."""
+    step = 1 if bw >= 4 else (4 // bw if 4 // bw < bh else bh)
+    row_words = bw // 4 if bw >= 4 else 1
+    a = []
+    for k in range(bh // step):
+        for w in range(row_words):
+            word = np.zeros(by.shape, np.int64)
+            for q in range(step):
+                for j in range(min(bw, 4)):
+                    word |= (anc[bh * by + step * k + q, bw * bx + 4 * w + j]
+                             << (8 * (bw * q + j)))
+            a.append(word)
+    return a, step, row_words
+
+
+def _block_sad(row, a, ox, bw, step, row_words):
+    """``block_sad<BW, BH>``: the SAD of candidate column ox of a candidate
+    row oy, ``row(q)`` giving window row oy + q as ``window_run``'s words:
+    one ``__vsadu4`` an anchor word of the window's bytes there: the row's
+    word shifted to byte ox (BW = 4; at BW = 8 each of the row's two
+    words), one ``__byte_perm`` of two rows (BW = 2), of a row and zeros
+    (2x1), of a row's byte and the next row's (1x2) or two such pairs
+    joined by a third (1x4)."""
+    j, d = divmod(ox, 4)
+    sad = 0
+    for k, ak in enumerate(a):
+        top = row(step * (k // row_words))
+        if bw >= 4:
+            w = j + k % row_words
+            c = top[w] if d == 0 else _fshr(top[w], top[w + 1], 8 * d)
+        elif bw == 2 and step == 2:
+            bot = row(step * k + 1)
+            if d < 3:
+                c = _byte_perm(top[j], bot[j],
+                               d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12)
+            else:
+                c = _byte_perm(_fshr(top[j], top[j + 1], 24),
+                               _fshr(bot[j], bot[j + 1], 24), 0x5410)
+        elif bw == 2:  # 2x1
+            c = (_byte_perm(top[j], 0, d | (d + 1) << 4 | 0x4400) if d < 3
+                 else _fshr(top[j], top[j + 1], 24) & 0xFFFF)
+        elif step == 2:  # 1x2
+            c = _byte_perm(top[j], row(1)[j], d | (d + 4) << 4) & 0xFFFF
+        else:  # 1x4
+            lo = _byte_perm(top[j], row(1)[j], d | (d + 4) << 4)
+            hi = _byte_perm(row(2)[j], row(3)[j], d | (d + 4) << 4)
+            c = _byte_perm(lo, hi, 0x5410)
+        sad = sad + _vsadu4(c, ak)
+    return sad
+
+
+def _replay_k9_block(tracked, anchor, mv, bw, bh, r, streamed=False):
     """int64 SADs as ``candidate_sads_kernel<BW, BH, R>`` computes them past
-    2x2 at R = 1: the BH + 2R window rows of each block as words
-    (``window_run<BW + 2R>``), its anchor rows packed kStep to a word (at BW
-    = 8 two words a row), and per candidate one ``__vsadu4`` an anchor word
-    of the window's bytes there: the row's word shifted to byte ox (BW = 4;
-    at BW = 8 each of the row's two words), one ``__byte_perm`` of two rows
-    (BW = 2), of a row and zeros (2x1), of a row's byte and the next row's
-    (1x2) or two such pairs joined by a third (1x4)."""
+    2x2 at R = 1: each block's anchor words and, per candidate, its
+    ``block_sad`` over the window rows (``window_run<BW + 2R>``): at R <= 4
+    all BH + 2R of them loaded first; ``streamed`` (R > kNearRadius) the BH
+    rows candidate row oy needs held at once, row oy + BH loaded before
+    that row's sums, then the window slid down a row."""
     t, fh, fw = tracked.shape
     mfh, mfw = fh // bh, fw // bw
     side, n_rows, run = 2 * r + 1, bh + 2 * r, bw + 2 * r
-    # AnchorWords<BW, BH>: rows a word, words a row
-    step = 1 if bw >= 4 else (4 // bw if 4 // bw < bh else bh)
-    row_words = bw // 4 if bw >= 4 else 1
     out = np.zeros((t, side * side, mfh, mfw), np.int64)
     by, bx = np.meshgrid(np.arange(mfh), np.arange(mfw), indexing="ij")
     for ti in range(t):
         trk = tracked[ti].reshape(-1)
-        anc = anchor[ti].astype(np.int64)
-        a = []
-        for k in range(bh // step):
-            for w in range(row_words):
-                word = np.zeros((mfh, mfw), np.int64)
-                for q in range(step):
-                    for j in range(min(bw, 4)):
-                        word |= (anc[bh * by + step * k + q, bw * bx + 4 * w + j]
-                                 << (8 * (bw * q + j)))
-                a.append(word)
+        a, step, row_words = _anchor_words(anchor[ti].astype(np.int64), by, bx, bw, bh)
         x0 = bw * bx + mv[ti, ..., 0].astype(np.int64) - r
         y0 = bh * by + mv[ti, ..., 1].astype(np.int64) - r
-        rows = [_window_run(trk, y0 + wr, x0, fh, fw, run) for wr in range(n_rows)]
-        for oy in range(side):
-            for ox in range(side):
-                j, d = divmod(ox, 4)
-                sad = 0
-                for k, ak in enumerate(a):
-                    top = rows[oy + step * (k // row_words)]
-                    if bw >= 4:
-                        w = j + k % row_words
-                        c = top[w] if d == 0 else _fshr(top[w], top[w + 1], 8 * d)
-                    elif bw == 2 and step == 2:
-                        bot = rows[oy + step * k + 1]
-                        if d < 3:
-                            c = _byte_perm(top[j], bot[j],
-                                           d | (d + 1) << 4 | (d + 4) << 8 | (d + 5) << 12)
-                        else:
-                            c = _byte_perm(_fshr(top[j], top[j + 1], 24),
-                                           _fshr(bot[j], bot[j + 1], 24), 0x5410)
-                    elif bw == 2:  # 2x1
-                        c = (_byte_perm(top[j], 0, d | (d + 1) << 4 | 0x4400) if d < 3
-                             else _fshr(top[j], top[j + 1], 24) & 0xFFFF)
-                    elif step == 2:  # 1x2
-                        c = _byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4) & 0xFFFF
-                    else:  # 1x4
-                        lo = _byte_perm(top[j], rows[oy + 1][j], d | (d + 4) << 4)
-                        hi = _byte_perm(rows[oy + 2][j], rows[oy + 3][j], d | (d + 4) << 4)
-                        c = _byte_perm(lo, hi, 0x5410)
-                    sad = sad + _vsadu4(c, ak)
-                out[ti, oy * side + ox] = sad
+
+        def load(wr):
+            return _window_run(trk, y0 + wr, x0, fh, fw, run)
+
+        if streamed:
+            win = [load(q) for q in range(bh)]
+            for oy in range(side):
+                nxt = load(oy + bh) if oy + 1 < side else None
+                for ox in range(side):
+                    out[ti, oy * side + ox] = _block_sad(lambda q: win[q], a, ox, bw, step,
+                                                         row_words)
+                win = win[1:] + [nxt]
+        else:
+            rows = [load(wr) for wr in range(n_rows)]
+            for oy in range(side):
+                for ox in range(side):
+                    out[ti, oy * side + ox] = _block_sad(lambda q: rows[oy + q], a, ox, bw,
+                                                         step, row_words)
     return out
 
 
@@ -819,8 +882,10 @@ _THIN = [(2, 1), (1, 2), (4, 2), (2, 4), (4, 1), (1, 4), (8, 2), (2, 8)]
 
 @pytest.mark.parametrize(
     "block,r",
-    # 2x2 at r = 1 runs the 4-word path (test_k9_word_replay_equals_plain)
-    [(b, r) for b in _THIN + [(2, 2)] for r in (1, 2, 3, 4) if (b, r) != ((2, 2), 1)],
+    # 2x2 at r = 1 runs the 4-word path (test_k9_word_replay_equals_plain);
+    # 2x2 at r = 5-8 (the top of 4 levels, ranges 40-71) streams its rows
+    [(b, r) for b in _THIN + [(2, 2)] for r in (1, 2, 3, 4) if (b, r) != ((2, 2), 1)]
+    + [((2, 2), r) for r in motion._FAR_RADII],
     ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v))
 @pytest.mark.parametrize("frames,mfh,mfw,mv_kind", [
     (2, 5, 12, "zero"), (2, 5, 12, "random"),  # odd block rows, fw % 4 == 0
@@ -843,7 +908,7 @@ def test_k9_block_replay_equals_plain(block, r, frames, mfh, mfw, mv_kind):
         mv = (2 * rng.integers(-4, 5, shape) + 1).astype(np.int32)
     else:  # windows wholly outside the frame, and just inside
         mv = rng.choice(np.array([-40, -9, -5, -4, -3, 3, 4, 5, 9, 40], np.int32), shape)
-    sads = _replay_k9_block(tracked, anchor, mv, bw, bh, r)
+    sads = _replay_k9_block(tracked, anchor, mv, bw, bh, r, streamed=r > 4)
     assert ((sads >= 0) & (sads < 1 << 23)).all()
     got = (np.uint32(0x4B000000) | sads.astype(np.uint32)).view(np.float32) - np.float32(
         8388608.0)
