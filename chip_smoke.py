@@ -51,7 +51,11 @@ each:
    at r = 5-8 for K9 at 16x16 (one level of 16x16 MV blocks, 8 x
    1088x1920), 8x8, 4x4 and 2x2 (the top of two, three and four levels, 8
    x 544x960, 272x480, 136x240) and K3 / K7 at 16x16, 8x8 and 4x4 (levels
-   0, 1 and 2 of two to four levels), ``FAR_SETTINGS``), held bit for bit
+   0, 1 and 2 of two to four levels), K9 at 1x1 (the top of 8x8 MV blocks
+   at 4 levels, 8 x 136x240, and of 16x16 at 5, 8 x 68x120), K3 / K7 at
+   2x2 (level 2 of 8x8 MV blocks at 4 levels, 272x480, level 3 of 16x16 at
+   5, 136x240) and at 32x32 (level 0 of 32x32 MV blocks, 1088x1920; a
+   saturated block 261,120), ``FAR_SETTINGS``), held bit for bit
    against the general (K4: single-level; K8 pyramid: the general pitched
    level, then the single-level K4) kernels on the same inputs and timed
    in turns with them (K3 per level, K5 at 1080p, 1440p and 4K, K6 at
@@ -142,8 +146,10 @@ each:
    at 8x8 MV blocks, at 3 levels, at 16x8, 32x32, 32x16, 32x8 and 8x32 MV
    blocks (K9's 1x1, 4x4, 2x1, 4x2, 4x1 and 1x4, K7's 2x2, 4x2, 8x4, 16x8,
    32x32, 32x16, 8x2, 16x4, 32x8, 2x8, 4x16 and 8x32 instances) and at 2
-   levels, range 16 (K9's 8x8 and K7's 16x16 at r = 8) and 4 levels,
-   range 64 (K9's 2x2 and K7's 4x4, 8x8 and 16x16 at r = 8), each held
+   levels, range 16 (K9's 8x8 and K7's 16x16 at r = 8), 4 levels,
+   range 64 (K9's 2x2 and K7's 4x4, 8x8 and 16x16 at r = 8), 8x8 MV blocks
+   at range 64 (G20: K9's 1x1 and K7's 2x2 at r = 8) and 32x32 MV blocks at
+   range 64 (G22: K7's 32x32 at r = 8), each held
    against ``hbma_stack`` on the same 2-frame stack and the CPU port;
 10. pitched motion — the 9-frame 1080p luma stack as tbw=8 column-pitched
     subplanes through ``pyr_down_pitched_levels`` (levels 1-3 in one
@@ -203,18 +209,23 @@ each:
     at 3 levels (G7), 32x32 at 4 and 2 levels (G8, G9), 32x16 (G10) and
     16x32 at 2 levels (G11), 32x8 (G12) and 8x32 (G13) MV blocks, 32x8 at
     2 levels (G14) and 8x32 at 3 (G15), one level at range 8 (G16), 2
-    levels at range 16 (G17), 3 levels at range 32 (G18) and 4 levels at
-    range 64 (G19) on graph replays: the K9 and K3
+    levels at range 16 (G17), 3 levels at range 32 (G18), 4 levels at
+    range 64 (G19), 8x8 MV blocks at range 64 (G20), 5 levels at range 128
+    (G21) and 32x32 MV blocks at range 64 (G22) on graph replays: the K9
+    and K3
     instances of the setting's blocks and radius must run (K9 at 1x1, 4x4,
     8x8, 1x1, 2x1, 1x2, 4x2, 4x4, 16x16, 4x2, 8x16, 4x1, 1x4, 16x4, 2x8,
     16x16 at r = 8 under G16 (which must launch neither K4 nor K3), 8x8 at
-    r = 8 under G17, 4x4 at r = 8 under G18, 2x2 at r = 8 under G19;
+    r = 8 under G17, 4x4 at r = 8 under G18, 2x2 at r = 8 under G19, 1x1
+    at r = 8 under G20 and G21, 4x4 at r = 8 under G22;
     K3 at 2x2 under 8x8 MV blocks and 5 levels, at 4x2, 8x4, 16x8 under
     G5, 2x4, 4x8, 8x16 under G6, 8x4, 16x8 under G7, 8x8, 16x16, 32x32
     under G8, 32x32 under G9, 8x4, 16x8, 32x16 under G10, 16x32 under G11,
     8x2, 16x4, 32x8 under G12, 2x8, 4x16, 8x32 under G13, 32x8 under G14,
     4x16, 8x32 under G15, 16x16 at r = 8 under G17, 8x8 and 16x16 at r = 8
-    under G18, 4x4, 8x8 and 16x16 at r = 8 under G19), no other instance and
+    under G18, 4x4, 8x8 and 16x16 at r = 8 under G19, 2x2, 4x4 and 8x8 at r
+    = 8 under G20, 2x2 to 16x16 at r = 8 under G21, 8x8, 16x16 and 32x32 at
+    r = 8 under G22), no other instance and
     no general K3 or K9; the
     same checks as phase 15, then the device batch time of each setting in
     turns with the default config.
@@ -275,7 +286,10 @@ WIDE_RANGES = (16, 24, 32)
 # 16 (8x8 at r = 8 under 16x16), three at range 32 (4x4 at r = 8 under 8x8,
 # 16x16) and four at range 64 (2x2 at r = 8 under 4x4, 8x8, 16x16: the
 # reference's SSE2 build, which fixes 16x16 MV blocks and 4 levels, at
-# --mv-search-range 64)
+# --mv-search-range 64); then the other square MV blocks past r = 4: 8x8 at
+# 4 levels, range 64 (1x1 at r = 8 under 2x2, 4x4, 8x8), 16x16 at 5
+# levels, range 128 (1x1 at r = 8 under 2x2 ... 16x16) and 32x32 at 4
+# levels, range 64 (4x4 at r = 8 under 8x8, 16x16, 32x32)
 MOTION_CONFIGS = {
     "G1 8x8 MV blocks": dict(mv_block_w=8, mv_block_h=8),
     "G2 3 levels": dict(pyr_lvl_count=3),
@@ -296,6 +310,9 @@ MOTION_CONFIGS = {
     "G17 2 levels, range 16": dict(pyr_lvl_count=2, mv_search_range=16),
     "G18 3 levels, range 32": dict(pyr_lvl_count=3, mv_search_range=32),
     "G19 4 levels, range 64": dict(mv_search_range=64),
+    "G20 8x8, range 64": dict(mv_block_w=8, mv_block_h=8, mv_search_range=64),
+    "G21 5 levels, range 128": dict(pyr_lvl_count=5, mv_search_range=128),
+    "G22 32x32, range 64": dict(mv_block_w=32, mv_block_h=32, mv_search_range=64),
 }
 # the bound of a kernel (H100 SXM data sheet):
 # each input byte read once and each output byte written once over the
@@ -753,9 +770,14 @@ def setting_levels(settings=INSTANCE_SETTINGS):
 # blocks, ``motion._FAR_RADII``), in ``setting_levels``' form: one level
 # (K9 16x16 at level 0), two levels (K9 8x8 at the top, K3 / K7 16x16 at
 # level 0), three levels (K9 4x4 at the top, K3 / K7 8x8 at level 1), four
-# levels (K9 2x2 at the top, K3 / K7 4x4 at level 2)
+# levels (K9 2x2 at the top, K3 / K7 4x4 at level 2); then 8x8 MV blocks
+# at four levels (K9 1x1 at the top, 136x240, K3 / K7 2x2 at level 2,
+# 272x480), 16x16 at five (K9 1x1 at the top, 68x120, K3 / K7 2x2 at level
+# 3, 136x240) and 32x32 at two (K3 / K7 32x32 at level 0; the top's K9
+# 16x16 is one level's above)
 FAR_SETTINGS = (((16, 16, 1), [0], []), ((16, 16, 2), [1], [0]), ((16, 16, 3), [2], [1]),
-                ((16, 16, 4), [3], [2]))
+                ((16, 16, 4), [3], [2]), ((8, 8, 4), [3], [2]), ((16, 16, 5), [4], [3]),
+                ((32, 32, 2), [], [0]))
 
 
 def setting_instance_parity(g, dev, results, int_ops_per_s, plan=None, radii=None):
@@ -1182,9 +1204,10 @@ def phase_parity(dev, int_ops_per_s, k11_per_word):
     # then the instances of 16x8 and 8x16 MV blocks
     wide_search_parity(g, dev, results, int_ops_per_s)
     setting_instance_parity(g, dev, results, int_ops_per_s)
-    # past the near radii: K9 16x16, 8x8, 4x4 and 2x2, K3 / K7 16x16, 8x8
-    # and 4x4 at R = 5-8 (one to four levels of 16x16 MV blocks, ranges 5-8,
-    # 10-17, 20-35 and 40-71)
+    # past the near radii: K9 16x16, 8x8, 4x4, 2x2 and 1x1, K3 / K7 32x32,
+    # 16x16, 8x8, 4x4 and 2x2 at R = 5-8 (one to five levels of 16x16 MV
+    # blocks, ranges 5-143; 8x8 at four, ranges 40-71; 32x32 at two, ranges
+    # 10-17)
     setting_instance_parity(g, dev, results, int_ops_per_s, FAR_SETTINGS,
                             motion._FAR_RADII)
 
@@ -2489,12 +2512,14 @@ def per_frame_motion(clip: np.ndarray, dev):
     # 2x2 ones, its 4x2, 8x4 and 16x8 (on the 1080 rows 16x8 MV blocks pad
     # to), 32x32, 32x16, 8x2, 16x4, 32x8 (1080 rows) and 2x8, 4x16, 8x32
     # and G17's 16x16 at r = 8 (K9's 8x8 and K7's 16x16 past r = 4), G19's
-    # 4x4, 8x8 and 16x16 at r = 8 (K9's 2x2)
+    # 4x4, 8x8 and 16x16 at r = 8 (K9's 2x2), G20's 2x2 (K9's 1x1) and
+    # G22's 32x32 at r = 8
     settings = {label: EncoderConfig(**MOTION_CONFIGS[label])
                 for label in ("G1 8x8 MV blocks", "G2 3 levels", "G5 16x8 MV blocks",
                               "G8 32x32 MV blocks", "G10 32x16 MV blocks",
                               "G12 32x8 MV blocks", "G13 8x32 MV blocks",
-                              "G17 2 levels, range 16", "G19 4 levels, range 64")}
+                              "G17 2 levels, range 16", "G19 4 levels, range 64",
+                              "G20 8x8, range 64", "G22 32x32, range 64")}
     pyrs = {label: build_pyramid(padded_luma(clip[:2], dev, cfg.mv_block_w, cfg.mv_block_h,
                                              cfg.pyr_lvl_count), cfg.pyr_lvl_count)
             for label, cfg in settings.items()}
@@ -2576,8 +2601,10 @@ def per_frame_motion(clip: np.ndarray, dev):
           f"at 16x8, 32x32, 32x16, 32x8 and 8x32 MV blocks (K9's 1x1, 4x4, 2x1, "
           f"4x2, 4x1 and 1x4, K7's 2x2, 4x2, 8x4, 16x8, 32x32, 32x16, 8x2, 16x4, "
           f"32x8, 2x8, 4x16, 8x32), at 2 levels, range 16 (K9's 8x8 and K7's "
-          f"16x16 at r = 8) and at 4 levels, range 64 (K9's 2x2, K7's 4x4, 8x8 "
-          f"and 16x16 at r = 8) "
+          f"16x16 at r = 8), at 4 levels, range 64 (K9's 2x2, K7's 4x4, 8x8 "
+          f"and 16x16 at r = 8), at 8x8 MV blocks, range 64 (K9's 1x1, K7's 2x2, "
+          f"4x4, 8x8 at r = 8) and at 32x32, range 64 (K7's 8x8, 16x16, 32x32 at "
+          f"r = 8) "
           f"equal to hbma_stack and to the CPU "
           f"port ({'; '.join(wide_moved)}); {seconds:.2f} s incl. first calls; "
           f"launches {counts}")

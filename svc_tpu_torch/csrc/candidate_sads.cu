@@ -2,8 +2,8 @@
 // each block's MV, for T separate (tracked, anchor) plane pairs, as
 // float32, specialised for BW x BH MV blocks (BW columns, BH rows) at
 // search radius R = 1 to 4 (16x16, 8x8 and 4x4 at R = 5 to 8 too, on K3's
-// kernel, and 2x2 on this file's thread-a-block kernel): square 1, 2, 4, 8
-// or 16, the ratio-2
+// kernel, 2x2 on this file's thread-a-block kernel and 1x1 on its
+// thread-a-pixel one): square 1, 2, 4, 8 or 16, the ratio-2
 // rectangles 2x1, 1x2, 4x2, 2x4, 8x4, 4x8, 16x8, 8x16 and the ratio-4 ones
 // 4x1, 1x4, 8x2, 2x8, 16x4, 4x16. These are the encoder's top-level EBMA,
 // in hbma_stack and per-frame hbma alike, at 16x16 blocks and 4 pyramid
@@ -16,7 +16,9 @@
 // 3 or 2 levels (4x1, 8x2, 16x4) and 8x32 (1x4, 2x8, 4x16), 16x16 MV
 // blocks at one level, ranges 5-8 (16x16 at R = 5-8), at 2 levels,
 // ranges 10-17 (8x8 at R = 5-8), at 3 levels, ranges 20-35 (4x4 at R =
-// 5-8) and at 4 levels, ranges 40-71 (2x2 at R = 5-8). 1x1 runs the
+// 5-8), at 4 levels, ranges 40-71 (2x2 at R = 5-8) and at 5 levels,
+// ranges 80-143 (1x1 at R = 5-8; 8x8 MV blocks at 4 levels, ranges 40-71,
+// and 4x4 at 3, ranges 20-35, too). 1x1 runs the
 // thread-a-pixel kernel of this file; 2x2 and the blocks with a side of 1
 // or 2, 2x1, 1x2, 4x2, 2x4, 4x1, 1x4, 8x2, 2x8, its thread-a-block kernel;
 // the shapes with both sides 4 or more K3's kernel (refine_sads.cu,
@@ -33,7 +35,9 @@
 // candidate_sads_plain on every entry, valid or not.
 //
 // The thread-a-block kernel is also K3's and K7's at 2x2, 4x2, 2x4, 8x2
-// and 2x8 blocks (refine_sads.cu, launch_block_sads) with int32 output: it
+// and 2x8 blocks (refine_sads.cu, launch_block_sads) with int32 output (2x2
+// at R = 5 to 8 too: level 2 of 8x8 MV blocks at 4 levels, level 3 of
+// 16x16 and 32x32 MV blocks at 5): it
 // reads frame t's tracked plane and its anchor from two bases, each frame
 // a plane on (K9: the two stacks; K3: the stack and the stack plus a
 // plane; K7: the pair, one frame).
@@ -41,7 +45,8 @@
 // Bound: bytes, and mostly the output ((2R + 1)^2 SADs of 4 bytes per
 // block against 2 BW BH bytes read and 8 of MVs: at 2x2, 1080p, T = 8, R =
 // 1, 2.35 MB of 2.87 MB, 0.0009 ms on an H100; at 1x1, 136 x 240 pixels a
-// frame, 78% of 12.0 MB at R = 1). The general kernel gives a warp to each
+// frame, 78% of 12.0 MB at R = 1 and 99.1% of 304.5 MB at R = 8). The
+// general kernel gives a warp to each
 // block (4 of 32 lanes busy at 2x2, 2 at 2x1, 1 at 1x1), stages both tiles
 // in shared memory, divides by runtime sizes and reduces each sum by five
 // shuffles. Design:
@@ -83,7 +88,8 @@
 //     (no accumulators); at 1x1 one __vabsdiffu4 of a window word against
 //     the anchor word gives four candidates' SADs at once, each byte of it
 //     put into a float's mantissa by one __byte_perm;
-//   - past R = 4 (2x2 only, kFarBlocks) the BH + 2R window rows would take
+//   - past R = 4 (2x2 only, kFarBlocks; K9's float32 and K3's / K7's
+//     int32 alike) the BH + 2R window rows would take
 //     90 registers at R = 8 (18 rows of 5 words), so a thread streams them:
 //     it holds the BH rows candidate row oy needs, stores that row's 2R + 1
 //     sums, then slides one row down (the next row loaded before the
@@ -104,10 +110,12 @@ constexpr int kCand = 9;       // (2r + 1)^2 at r = 1
 // The largest radius whose instances hold all their window rows at once.
 constexpr int kNearRadius = 4;
 
-// Whether a BW x BH instance also takes R = 5 to 8: K9's 2x2 (the top level
-// of 16x16 MV blocks at 4 levels, ranges 40-71), a candidate row at a time.
-template <int BW, int BH, class Out>
-constexpr bool kFarBlocks = BW == 2 && BH == 2 && std::is_same<Out, float>::value;
+// Whether a BW x BH instance also takes R = 5 to 8, a candidate row at a
+// time: 2x2, K9's (the top level of 16x16 MV blocks at 4 levels, ranges
+// 40-71) and K3's / K7's (level 2 of 8x8 MV blocks at 4 levels, level 3 of
+// 16x16 at 5 and 32x32 at 5).
+template <int BW, int BH>
+constexpr bool kFarBlocks = BW == 2 && BH == 2;
 
 // Bytes [x0, x0 + 4) of row y of a frame as one word (byte k at bits 8k),
 // bytes outside the frame 0. frame is 4-byte aligned and holds fh rows of
@@ -346,7 +354,11 @@ candidate_sads_kernel(const uint8_t* __restrict__ tracked,
 // the 2R + 1 bytes from x + mvx - R on (window_run); one __vabsdiffu4
 // against the anchor byte in all four bytes gives candidates 4j .. 4j + 3
 // of word j at once, and one __byte_perm puts each into the mantissa of
-// 2^23 (bytes 1, 2 of 0x4b000000 are 0, byte 3 is its exponent).
+// 2^23 (bytes 1, 2 of 0x4b000000 are 0, byte 3 is its exponent). Each
+// candidate plane's store covers 32 consecutive pixels of a row a warp
+// (128 bytes): past R = 4 the (2R + 1)^2 planes, 289 at R = 8, are the
+// kernel's bytes. Each window row (at most 5 words) is used as soon as it
+// is loaded.
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 candidate_sads_1x1_kernel(const uint8_t* __restrict__ tracked,
@@ -424,6 +436,12 @@ int launch_block1(const void* tracked, const void* anchor, const void* mv,
     case 2: return launch_1x1<2>(trk, anc, m, out, t_count, fh, fw, stream);
     case 3: return launch_1x1<3>(trk, anc, m, out, t_count, fh, fw, stream);
     case 4: return launch_1x1<4>(trk, anc, m, out, t_count, fh, fw, stream);
+    // past kNearRadius: the top level of 16x16 MV blocks at 5 levels and of
+    // 8x8 ones at 4 (ranges 80-143 and 40-71)
+    case 5: return launch_1x1<5>(trk, anc, m, out, t_count, fh, fw, stream);
+    case 6: return launch_1x1<6>(trk, anc, m, out, t_count, fh, fw, stream);
+    case 7: return launch_1x1<7>(trk, anc, m, out, t_count, fh, fw, stream);
+    case 8: return launch_1x1<8>(trk, anc, m, out, t_count, fh, fw, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -449,7 +467,7 @@ int launch_block_sads(const void* tracked, const void* anchor, const void* mv,
     case 4: return launch<BW, BH, 4>(trk, anc, m, out, t_count, fh, fw, st);
     default: break;
   }
-  if constexpr (kFarBlocks<BW, BH, Out>) {
+  if constexpr (kFarBlocks<BW, BH>) {
     switch (r) {
       case 5: return launch<BW, BH, 5>(trk, anc, m, out, t_count, fh, fw, st);
       case 6: return launch<BW, BH, 6>(trk, anc, m, out, t_count, fh, fw, st);
@@ -486,7 +504,7 @@ SVC_BLOCK_SADS(2, 8, int32_t)
 // int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw) float32. All
 // contiguous; (bw, bh) one of 1x1, 2x2, 4x4, 8x8, 16x16, 2x1, 1x2, 4x2,
 // 2x4, 8x4, 4x8, 16x8, 8x16, 4x1, 1x4, 8x2, 2x8, 16x4, 4x16, dividing fw
-// and fh, 1 <= r <= 4 (also 5 <= r <= 8 at 16x16, 8x8, 4x4 and 2x2); at 1x1
+// and fh, 1 <= r <= 4 (also 5 <= r <= 8 at 16x16, 8x8, 4x4, 2x2 and 1x1); at 1x1
 // tracked 4-byte aligned and fh * fw a
 // multiple of 4; on the thread-a-block kernel (a side of 1 or 2) also the
 // anchor aligned to its rows' bytes (BW); both 16-byte aligned where both

@@ -4,8 +4,9 @@
 // for K3's block shapes (square 2, 4, 8, 16, 32, the ratio-2 rectangles
 // 4x2, 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 and the ratio-4 ones 8x2,
 // 2x8, 16x4, 4x16, 32x8, 8x32, columns x rows) at radius r = 1 to 4, and
-// 16x16, 8x8 and 4x4 at r = 5 to 8 (16x16 blocks at 2, 3 and 4 levels,
-// ranges 10-17, 20-35 and 40-71): the
+// 32x32, 16x16, 8x8, 4x4 and 2x2 at r = 5 to 8 (the levels under the top
+// of 16x16 blocks at 2-5 levels, ranges 10-143, of 8x8 blocks at 4 levels,
+// ranges 40-71, and of 32x32 blocks at 2-5 levels, ranges 10-143): the
 // refinement levels of the per-frame search at 16x16 blocks and 4 levels,
 // range 8 (r = 1, the default) to 39, at 8x8 blocks or 2, 3 or 5 levels,
 // at 16x8 or 8x16 blocks and 2, 3 or 4 levels, at 32x32, 32x16 or 16x32
@@ -37,7 +38,7 @@
 // kernel: 4-byte and aligned to the anchor rows' bytes); mv: (fh/bh,
 // fw/bw, 2) int32 (x, y); out: ((2r + 1)^2, fh/bh, fw/bw) int32. All contiguous; (bw,
 // bh) one of K3's shapes, dividing fw and fh; 1 <= r <= 4 (5 <= r <= 8
-// at 16x16, 8x8 and 4x4). Refuses
+// at 32x32, 16x16, 8x8, 4x4 and 2x2). Refuses
 // (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_refine_mads(const void* tracked, const void* anchor,
                                const void* mv, void* out, int fh, int fw,

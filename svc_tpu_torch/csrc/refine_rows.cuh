@@ -9,8 +9,9 @@
 //
 // A CTA of kThreads lanes handles kThreads / BH MV blocks of one block row
 // (BW x BH blocks, BW columns and BH rows, each 4, 8, 16 or 32; search
-// radius R = 1 to 4, and 5 to 8 at 16 x 16, 8 x 8 and 4 x 4, a candidate
-// row at a time; the K8 refine 16 x 16 at R = 1); lane i of a block owns
+// radius R = 1 to 4, and 5 to 8 at 32 x 32, 16 x 16, 8 x 8 and 4 x 4, a
+// candidate row at a time; the K8 refine 16 x 16 at R = 1); lane i of a
+// block owns
 // anchor row i (BW / 4 words). A window row is Window<BW, R>::kWords words
 // from the window's first byte (ox = 0) on; it needs BW + 2R of those
 // bytes.
@@ -175,17 +176,18 @@ __device__ __forceinline__ int reduced_index(int k, unsigned i) {
 }
 
 // Lane i's N words of 16-bit sums (candidates 2p and 2p + 1 in word p)
-// reduced over its group of L lanes, each candidate's block sum stored once
-// to s_out[c][blk] (c < kCand). A lane's sums cover kPixels pixels (its
-// anchor rows' bytes); a pair stays packed while its sums cover at most
-// 256 of them (255 x 256 < 2^16): over the steps at lane offsets L / 2 down
-// to Lo + 1, Lo = L / (2 * 256 / kPixels). Past that (a 32-column block
-// reaches 255 x 1024 on 32 lanes, 32 x 16 and 16 x 32 blocks 255 x 512)
-// the words a lane still holds unpack into 32-bit sums for the steps at
-// offsets Lo down to 1. Lo = 0 keeps every step packed.
-template <int N, int L, int kPixels, int kCand, int kBlocks>
-__device__ __forceinline__ void reduce_store(uint32_t (&packed)[N], unsigned i,
-                                             unsigned blk, int32_t (*s_out)[kBlocks]) {
+// reduced over its group of L lanes, each candidate's block sum handed
+// once to `put(c, sum)` (c < kCount) on one lane. A lane's sums cover
+// kPixels pixels (its anchor rows' bytes); a pair stays packed while its
+// sums cover at most 256 of them (255 x 256 < 2^16): over the steps at
+// lane offsets L / 2 down to Lo + 1, Lo = L / (2 * 256 / kPixels). Past
+// that (a 32-column block reaches 255 x 1024 on 32 lanes, 32 x 16 and 16 x
+// 32 blocks 255 x 512) the words a lane still holds unpack into 32-bit
+// sums for the steps at offsets Lo down to 1. Lo = 0 keeps every step
+// packed.
+template <int N, int L, int kPixels, int kCount, class Put>
+__device__ __forceinline__ void reduce_pairs(uint32_t (&packed)[N], unsigned i, Put put) {
+  static_assert(kPixels <= 256, "a lane's sums must fit 16 bits");
   constexpr int Lo = L / (2 * (256 / kPixels));
   reduce_transposed<N, L / 2, L, Lo>(packed, i);
   constexpr int kHeld = reduced_count<N, L / 2, Lo>();
@@ -194,8 +196,8 @@ __device__ __forceinline__ void reduce_store(uint32_t (&packed)[N], unsigned i,
     for (int k = 0; k < kHeld; ++k) {
       const int p = reduced_index<N, L / 2>(k, i);
       if (p >= 0) {
-        s_out[2 * p][blk] = static_cast<int32_t>(packed[k] & 0xffffu);
-        if (2 * p + 1 < kCand) s_out[2 * p + 1][blk] = static_cast<int32_t>(packed[k] >> 16);
+        put(2 * p, packed[k] & 0xffffu);
+        if (2 * p + 1 < kCount) put(2 * p + 1, packed[k] >> 16);
       }
     }
   } else {
@@ -215,9 +217,19 @@ __device__ __forceinline__ void reduce_store(uint32_t (&packed)[N], unsigned i,
       const int q = reduced_index<2 * kHeld, Lo>(k, i);
       const int p = q >= 0 ? reduced_index<N, L / 2, Lo>(q >> 1, i) : -1;
       const int c = 2 * p + (q & 1);
-      if (p >= 0 && c < kCand) s_out[c][blk] = static_cast<int32_t>(v[k]);
+      if (p >= 0 && c < kCount) put(c, v[k]);
     }
   }
+}
+
+// reduce_pairs of a lane's words of kCand candidates, each block sum
+// stored to s_out[c][blk].
+template <int N, int L, int kPixels, int kCand, int kBlocks>
+__device__ __forceinline__ void reduce_store(uint32_t (&packed)[N], unsigned i,
+                                             unsigned blk, int32_t (*s_out)[kBlocks]) {
+  reduce_pairs<N, L, kPixels, kCand>(packed, i, [&](int c, uint32_t sum) {
+    s_out[c][blk] = static_cast<int32_t>(sum);
+  });
 }
 
 // The (2R + 1)^2 SADs at R >= 2 of each MV block of the CTA into
@@ -281,22 +293,15 @@ __device__ __forceinline__ void block_sads_wide(
 }
 
 // The 2R + 1 sums of one candidate row (16-bit pairs, ox 2p and 2p + 1 in
-// word p of `packed`) reduced over a group of L lanes by transposed xor
-// steps, all on pairs (a block's sum fits 16 bits up to 256 pixels). Then
+// word p of `packed`; a lane's cover kPixels pixels) reduced over a group
+// of L lanes by reduce_pairs: on pairs while a sum covers at most 256
+// pixels (every step up to 16 x 16 blocks), then as 32-bit sums (a 32 x
+// 32 block's reaches 261,120: the steps at lane offsets 2 and 1). Then
 // `put(ox, sum)` for each sum lane i holds, each ox on one lane of the
 // group. Every lane of the warp calls it (full-mask shuffles).
-template <int R, int L, class Put>
+template <int R, int L, int kPixels, class Put>
 __device__ __forceinline__ void reduce_row(uint32_t (&packed)[R + 1], unsigned i, Put put) {
-  constexpr int kSide = 2 * R + 1;
-  reduce_transposed<R + 1, L / 2, L>(packed, i);
-#pragma unroll
-  for (int k = 0; k < reduced_count<R + 1, L / 2>(); ++k) {
-    const int p = reduced_index<R + 1, L / 2>(k, i);
-    if (p >= 0) {
-      put(2 * p, packed[k] & 0xffffu);
-      if (2 * p + 1 < kSide) put(2 * p + 1, packed[k] >> 16);
-    }
-  }
+  reduce_pairs<R + 1, L, kPixels, 2 * R + 1>(packed, i, put);
 }
 
 // block_sads_wide at R >= 5, one candidate row at a time: (2R + 1)^2 sums
@@ -308,14 +313,13 @@ __device__ __forceinline__ void reduce_row(uint32_t (&packed)[R + 1], unsigned i
 // straight to the output): registers for 2R + 1 sums, one small reduction
 // a row. The oy loop runs at run time (its code fits the instruction
 // cache); the slot a lane sends is picked by selects (register arrays take
-// no runtime index). Blocks of 256 pixels at most.
+// no runtime index). A lane's row sums (255 BW at most) fit 16 bits.
 template <int BW, int BH, int R, class Put>
 __device__ __forceinline__ void block_sads_by_row(
     const uint32_t (&rows)[Window<BW, R, BH>::kSlots][Window<BW, R, BH>::kWords],
     const uint32_t (&a)[BW / 4], unsigned i, Put put) {
   using W = Window<BW, R, BH>;
   constexpr int kSide = 2 * R + 1;
-  static_assert(BW * BH <= 256, "a block's sums must fit 16 bits");
 #pragma unroll 1
   for (int oy = 0; oy < kSide; ++oy) {
     const int q = oy / BH;
@@ -347,7 +351,7 @@ __device__ __forceinline__ void block_sads_by_row(
         packed[ox / 2] = __byte_perm(packed[ox / 2], sum, 0x5410);
       }
     }
-    reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) { put(oy * kSide + ox, sum); });
+    reduce_row<R, BH, BW>(packed, i, [&](int ox, uint32_t sum) { put(oy * kSide + ox, sum); });
   }
 }
 

@@ -3,9 +3,11 @@
 // columns, BH rows) at search radius R = 1 to 4: square 4, 8, 16, 32, the
 // ratio-2 rectangles 8x4, 4x8, 16x8, 8x16, 32x16, 16x32 and the ratio-4
 // ones 32x8, 16x4, 8x32, 4x16 here; 2x2, 4x2, 2x4, 8x2 and 2x8 on K9's
-// thread-a-block kernel (candidate_sads.cu); and 16x16, 8x8 and 4x4 at R
-// = 5 to 8 (the levels under the top of 16x16 MV blocks at 2, 3 and 4
-// levels, ranges 10-17, 20-35 and 40-71). These are the
+// thread-a-block kernel (candidate_sads.cu); and 32x32, 16x16, 8x8, 4x4
+// (and on the thread-a-block kernel 2x2) at R = 5 to 8 (the levels under
+// the top of square MV blocks past top radius 4: 16x16 MV blocks at 2-5
+// levels, ranges 10-143; 8x8 at 4 levels, ranges 40-71; 32x32 at 2-5
+// levels, ranges 10-143). These are the
 // refinement levels of the encoder's search at 16x16 MV blocks and 4 pyramid levels,
 // range 8 (R = 1, the default) to 39 (R = range / 8), at 8x8 MV blocks or
 // 2, 3 or 5 levels, at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels, at
@@ -86,15 +88,19 @@
 //     an SM and leaves few of its block slots idle past a block row's end
 //     (split_fits: K3's stacks; a single 1080p pair, K7, keeps the
 //     one-row-a-lane kernel's grid but at 8x16, R <= 3, and 8x32);
-//   - past R = 4 (kNearRadius: 16x16, 8x8 and 4x4, kFarRadii) a lane's
-//     (2R + 1)^2 sums would outgrow its registers (145 words of pairs at R
-//     = 8), so the kernels work one candidate row at a time: the one-row
-//     kernel reduces each row's 2R + 1 sums as soon as it has them
-//     (block_sads_by_row), the split kernel keeps the 4 candidate rows its
+//   - past R = 4 (kNearRadius: 32x32, 16x16, 8x8 and 4x4, kFarRadii) a
+//     lane's (2R + 1)^2 sums would outgrow its registers (145 words of
+//     pairs at R = 8), so the kernels work one candidate row at a time: the
+//     one-row kernel reduces each row's 2R + 1 sums as soon as it has them
+//     (block_sads_by_row; at 32x32 on pairs over the lane offsets 16, 8, 4
+//     and as 32-bit sums over 2 and 1, reduce_row: a block's sum reaches
+//     261,120), the split kernel keeps the 4 candidate rows its
 //     window rows can still meet in slots and reduces and stores each when
 //     its last window row has passed (refine_sads_split_rows_kernel, 8x8
 //     only: kSplitFar); the window rows take 3-4 extra words past R = 4, as
-//     whole chunks (one word a chunk at 4 columns). The one-row kernel's
+//     whole chunks (one word a chunk at 4 columns, one 16-byte chunk at
+//     32: a 32x32 window row at R = 8 is 48 of the 64 bytes from its
+//     16-byte grain on). The one-row kernel's
 //     4x4 blocks, 64 a CTA, store each row's sums straight to the output
 //     (kRowsToOut: their candidate planes in shared memory would pass 48 KB
 //     from R = 7).
@@ -112,12 +118,15 @@ constexpr int kSplitRows = 4;
 constexpr int kNearRadius = 4;
 
 // Whether a BW x BH instance also takes R = 5 to 8 (kFarRadii's switch):
-// 16x16, 8x8 and 4x4 blocks, the levels of 16x16 MV blocks at 2, 3 and 4
-// levels (K3, K7: 16x16 at level 0 of 2-4 levels, 8x8 at level 1 of 3 and
-// 4, 4x4 at level 2 of 4; K9: 16x16 one level, 8x8 the top of 2, 4x4 of
-// 3).
+// square 4 to 32, the levels of square MV blocks past top radius 4 (K3,
+// K7: 32x32 at level 0 of 32x32 MV blocks, 16x16 at level 0 of 16x16 and
+// at level 1 of 32x32, 8x8 and 4x4 below them; K9: 16x16 one level of
+// 16x16 MV blocks or the top of 2 of 32x32, 8x8 and 4x4 the tops of
+// deeper ones). 32x32 runs the one-row kernel (8 blocks a CTA, 289 x 8
+// words of sums in shared memory at R = 8): 32-column blocks' split kernel
+// took 137-139 registers from R = 3.
 template <int BW, int BH>
-constexpr bool kFarRadii = BW == BH && BW >= 4 && BW <= 16;
+constexpr bool kFarRadii = BW == BH && BW >= 4;
 
 // Whether an instance past kNearRadius runs refine_sads_split_rows_kernel
 // (where its grid fits it, launch) rather than the one-row kernel's
@@ -497,7 +506,7 @@ refine_sads_split_rows_kernel(const uint8_t* __restrict__ tracked,
         const int oy = k - (kRows - 1);
         uint32_t(&done)[R + 1] = acc[(u + 1) & 3];
         Out* o_row = o + static_cast<size_t>(oy * kSide) * plane_out;
-        reduce_row<R, kLanes>(done, l, [&](int ox, uint32_t sum) {
+        reduce_row<R, kLanes, kRows * BW>(done, l, [&](int ox, uint32_t sum) {
           if (active) o_row[ox * plane_out] = sad_as<Out>(sum);
         });
 #pragma unroll
@@ -702,8 +711,8 @@ int launch_refine_sads(const void* tracked, const void* anchor,
 // fh/bh, fw/bw, 2) int32 (x, y); out: (t_count, (2r + 1)^2, fh/bh, fw/bw)
 // int32. All contiguous; (bw, bh) one of 2x2, 4x4, 8x8, 16x16, 32x32, 4x2,
 // 2x4, 8x4, 4x8, 16x8, 8x16, 32x16, 16x32, 32x8, 16x4, 8x2, 8x32, 4x16,
-// 2x8, dividing fw and fh; 1 <= r <= 4, and 5 <= r <= 8 at 16x16, 8x8 and
-// 4x4. Refuses
+// 2x8, dividing fw and fh; 1 <= r <= 4, and 5 <= r <= 8 at 32x32, 16x16,
+// 8x8, 4x4 and 2x2. Refuses
 // (cudaErrorInvalidValue) anything else.
 SVC_EXPORT int svc_refine_sads(const void* stack, const void* mv, void* out,
                                int t_count, int fh, int fw, int bw, int bh, int r,

@@ -1,6 +1,6 @@
 // The SAD launchers shared across the entries of K3, K7 and K9: candidate
-// SADs at radius r = 1 to 4 (5 to 8 at 16x16, 8x8 and 4x4, and K9's 2x2) of
-// BW x BH MV blocks (BW columns, BH rows) for
+// SADs at radius r = 1 to 4 (5 to 8 at 16x16, 8x8, 4x4 and 2x2, K3's and
+// K7's 32x32 and K9's 1x1) of BW x BH MV blocks (BW columns, BH rows) for
 // t_count frames, frame t's tracked plane at tracked + t * frame_stride and
 // its anchor at anchor + t * frame_stride (K3: the stack and the stack
 // plus one plane, stride a plane; K7: the pair, stride 0; K9: the two

@@ -24,14 +24,16 @@ the plain version; a CUDA tensor launches the kernel or raises):
   ranges 8 to 39, ``r = 1`` the default; at 8x8 MV blocks or 2, 3 or 5
   levels; at 16x8 or 8x16 MV blocks and 2, 3 or 4 levels; at 32x32, 32x16
   or 16x32 MV blocks and 2 to 5 levels; at 32x8 or 8x32 MV blocks and 2, 3
-  or 4 levels), and 16x16, 8x8 and 4x4 at ``5 <= r <= 8`` (the levels
-  under the top of 16x16 MV blocks at 2, 3 and 4 levels, ranges 10 to 17,
-  20 to 35 and 40 to 71), the general kernel
+  or 4 levels), and 32x32, 16x16, 8x8, 4x4 and 2x2 at ``5 <= r <= 8``
+  (the levels under the top of square MV blocks past top radius 4: 16x16
+  MV blocks at 2 to 5 levels, ranges 10 to 143, 8x8 at 4 levels, ranges
+  40 to 71, 32x32 at 2 to 5 levels, ranges 10 to 143), the general kernel
   ``csrc/refine_sads_general.cu`` otherwise;
 * K7 :func:`refine_mads` — the same for one frame pair (``refine``,
   ``hbma``): K3's specialised kernels with the tracked and anchor planes as
   two bases (``csrc/refine_mads.cu``) for K3's shapes at ``1 <= r <= 4``
-  and 16x16, 8x8, 4x4 at ``5 <= r <= 8`` (the per-frame search's levels), the
+  and 32x32, 16x16, 8x8, 4x4, 2x2 at ``5 <= r <= 8`` (the per-frame
+  search's levels), the
   general kernel ``csrc/refine_mads_general.cu`` otherwise;
 * K8 :func:`refine_sads_pitched` — K3 over column-pitched luma subplanes
   (``hbma_stack(..., base_pitched=...)``): ``csrc/refine_sads_pitched.cu``
@@ -47,10 +49,10 @@ the plain version; a CUDA tensor launches the kernel or raises):
   at 2; 2x1, 4x2, 8x4 at 16x8 MV blocks and 4, 3, 2 levels, 1x2, 2x4, 4x8
   at 8x16; 16x16, 16x8, 8x16 at 32x32, 32x16, 16x32 MV blocks and 2
   levels; 4x1, 8x2, 16x4 at 32x8 MV blocks and 4, 3, 2 levels, 1x4, 2x8,
-  4x16 at 8x32), and 16x16, 8x8, 4x4 and 2x2 at ``5 <= r <= 8`` (16x16 MV
-  blocks at one level, ranges 5 to 8, and at 2, 3 and 4 levels, ranges 10
-  to 17, 20 to 35 and 40 to 71), the general kernel
-  ``csrc/candidate_sads_general.cu`` otherwise.
+  4x16 at 8x32), and 16x16, 8x8, 4x4, 2x2 and 1x1 at ``5 <= r <= 8``
+  (16x16 MV blocks at one level, ranges 5 to 8, and at 2 to 5 levels,
+  ranges 10 to 143; 1x1 also 8x8 MV blocks at 4 levels, ranges 40 to 71),
+  the general kernel ``csrc/candidate_sads_general.cu`` otherwise.
 
 The specialised K3, K7 and K9 kernels are templates over the block and
 the radius, an instance for each (past ``r = 4`` the lane-per-anchor-row
@@ -99,13 +101,17 @@ _K3_BLOCKS = frozenset({(2, 2), (4, 4), (8, 8), (16, 16), (32, 32), (4, 2), (8, 
                         (8, 2), (16, 4), (32, 8), (2, 8), (4, 16), (8, 32)})
 _SAD_RADII = (1, 2, 3, 4)  # search radii of the specialised K3, K7 and K9
 # the radii past them whose instances work one candidate row at a time, and
-# the blocks that take them, the levels of 16x16 MV blocks at 1-4 levels
-# (ranges 5-8, 10-17, 20-35, 40-71): K3's / K7's 16x16 (level 0 of 2-4
-# levels), 8x8 (level 1 of 3 and 4) and 4x4 (level 2 of 4); K9's 16x16 (one
-# level), 8x8, 4x4 and 2x2 (the top of 2, 3 and 4 levels)
+# the blocks that take them: every level of square MV blocks past top
+# radius 4 but one level of 32x32 (16x16 MV blocks at 1-5 levels, ranges
+# 5-143; 8x8 at 1-4 levels, ranges 5-71; 32x32 at 2-5 levels, ranges
+# 10-143; 4x4 at 3 levels, ranges 20-35): K3's / K7's 32x32 (level 0 of
+# 32x32 MV blocks), 16x16, 8x8, 4x4 and 2x2 (the levels below); K9's
+# 16x16 (one level of 16x16 MV blocks, the top of 2 of 32x32), 8x8, 4x4,
+# 2x2 and 1x1 (the tops of deeper ones: 1x1 at 5 levels of 16x16, 4 of
+# 8x8). R >= 9, and the rectangles past R = 4, stay general
 _FAR_RADII = (5, 6, 7, 8)
-_K3_FAR_BLOCKS = frozenset({(16, 16), (8, 8), (4, 4)})
-_K9_FAR_BLOCKS = frozenset({(16, 16), (8, 8), (4, 4), (2, 2)})
+_K3_FAR_BLOCKS = frozenset({(32, 32), (16, 16), (8, 8), (4, 4), (2, 2)})
+_K9_FAR_BLOCKS = frozenset({(16, 16), (8, 8), (4, 4), (2, 2), (1, 1)})
 # (width, height) of the MV blocks of K9's specialised kernels, and the
 # byte alignment of its (tracked, anchor) stacks at each: whole words of
 # tracked rows on the thread-a-pixel and thread-a-block kernels (1x1 and
@@ -306,8 +312,8 @@ def refine_sads(
     """Candidate SADs of one refinement level (kernel K3: the specialised
     kernels for the blocks of ``_K3_BLOCKS`` at ``1 <= r <= 4`` — squares
     of side 2 to 32, the ratio-2 rectangles from 4x2 to 32x16 and 16x32 and
-    the ratio-4 ones from 8x2 to 32x8 and 8x32 — and for 16x16, 8x8 and
-    4x4 at ``5 <= r <= 8``, the general one otherwise).
+    the ratio-4 ones from 8x2 to 32x8 and 8x32 — and for the squares of
+    side 2 to 32 at ``5 <= r <= 8``, the general one otherwise).
 
     Args:
       stack: ``(T+1, fh, fw)`` uint8 luma planes of one pyramid level;
@@ -382,8 +388,9 @@ def refine_mads(
 ) -> torch.Tensor:
     """Candidate SADs of one refinement level for one frame pair (kernel
     K7: K3's specialised kernels for the blocks of ``_K3_BLOCKS`` at ``1 <=
-    r <= 4``, 32x32, 32x16, 16x32, 32x8 and 8x32 among them, and for 16x16,
-    8x8 and 4x4 at ``5 <= r <= 8``, the general one otherwise).
+    r <= 4``, 32x32, 32x16, 16x32, 32x8 and 8x32 among them, and for the
+    squares of side 2 to 32 at ``5 <= r <= 8``, the general one
+    otherwise).
 
     Args:
       tracked / anchor: ``(fh, fw)`` uint8 luma planes.
@@ -462,8 +469,8 @@ def candidate_sads(
     MV (kernel K9; svc_tpu's ``motion_pallas.candidate_sads``): the
     specialised kernels for the blocks of ``_K9_BLOCKS`` at ``1 <= r <= 4``
     (squares of side 1 to 16, the ratio-2 rectangles from 2x1 to 16x8 and
-    8x16 and the ratio-4 ones from 4x1 to 16x4 and 4x16) and for 16x16,
-    8x8, 4x4 and 2x2 at ``5 <= r <= 8``, the general one otherwise.
+    8x16 and the ratio-4 ones from 4x1 to 16x4 and 4x16) and for the
+    squares of side 1 to 16 at ``5 <= r <= 8``, the general one otherwise.
 
     Args:
       tracked / anchor: ``(T, H, W)`` uint8 luma planes.

@@ -75,9 +75,10 @@ ratio-4 blocks of 32x8 MV blocks on 1080 rows, 4x1 on 135x240, 8x2 on
 36x44, the tops of 1376x768 and 352x288; zero MVs, T = 8) at each radius
 (the blocks and radii both wrapper modules specialise); past the near
 radii (``_FAR_RADII``, R = 5-8) ``refine_sads`` and ``refine_mads`` at
-16x16, 8x8 and 4x4 on levels 0, 1 and 2 (even MVs within +-2R) and
-``candidate_sads`` at 16x16 on level 0, 8x8 on level 1, 4x4 on level 2
-and 2x2 on level 3 (zero MVs); and ``refine_sads_pitched`` at
+32x32 and 16x16 on level 0, 8x8 on level 1, 4x4 and 2x2 on level 2 (even
+MVs within +-2R) and ``candidate_sads`` at 16x16 on level 0, 8x8 on level
+1, 4x4 on level 2 and 2x2 and 1x1 on level 3 (zero MVs); and
+``refine_sads_pitched`` at
 level 0 (8 subplanes, r = 1). ``--only REGEX`` times only the calls
 whose names match (e.g. ``--only ', [5-8]>'``). The two
 libraries' outputs must be equal bit for bit (K10's also to its plain
@@ -372,14 +373,17 @@ def motion_work(mods):
                 lambda m, tr=small[:-1], an=small[1:], z=zero, r=r:
                 m.candidate_sads(tr, an, z, r, 2, 2))
     # past the near radii (R = 5-8 where both modules have them): K3 / K7
-    # at 16x16, 8x8 and 4x4 on levels 0, 1 and 2 with even MVs within +-2R,
-    # K9 at 16x16 on level 0 (one level's EBMA), 8x8, 4x4 and 2x2 on levels
-    # 1, 2 and 3 (the top of 2, 3 and 4 levels), zero MVs
+    # at 32x32 and 16x16 on level 0, 8x8 on 1, 4x4 and 2x2 on 2 (2x2: level
+    # 2 of 8x8 MV blocks at 4 levels) with even MVs within +-2R, K9 at 16x16
+    # on level 0 (one level's EBMA), 8x8, 4x4, 2x2 and 1x1 on levels 1, 2, 3
+    # and 3 (the top of 2, 3 and 4 levels of 16x16 MV blocks, of 4 of 8x8),
+    # zero MVs
     far = sorted(set.intersection(*(set(getattr(m, "_FAR_RADII", ())) for m in mods)))
-    level_of = {16: 0, 8: 1, 4: 2, 2: 3}
+    k3_level = {32: 0, 16: 0, 8: 1, 4: 2, 2: 2}
+    level_of = {16: 0, 8: 1, 4: 2, 2: 3, 1: 3}
     for r in far:
         for bw, bh in common("_K3_FAR_BLOCKS", ()):
-            lvl = level_of[max(bw, bh)]
+            lvl = k3_level[max(bw, bh)]
             level = chain[lvl]
             shape = (8, level.shape[1] // bh, level.shape[2] // bw, 2)
             mv = (2 * torch.randint(-r, r + 1, shape, generator=g, dtype=torch.int32)).cuda()

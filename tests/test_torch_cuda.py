@@ -486,15 +486,18 @@ def test_candidate_sads_ratio4_top_blocks_equal_general(gen, block, t, h, w, kin
 
 @pytest.mark.parametrize("r", [5, 6, 7, 8])
 @pytest.mark.parametrize("kind", ["path", "edge", "far", "large", "saturated"])
-@pytest.mark.parametrize("b", [16, 8, 4])
+@pytest.mark.parametrize("b", [16, 8, 4, 32, 2])
 def test_refine_far_radii_equal_general(gen, kind, r, b):
     # K3 and K7 at 16x16, 8x8 and 4x4 blocks and R = 5-8 (levels 0, 1 and 2
     # of 16x16 MV blocks at 2-4 levels, ranges 10-71: one candidate row at a
-    # time; "large": the 1080p level, 9 frames, where the split kernel's
-    # grid fits the card at 8x8; "saturated": 255 B^2 a block) against the
-    # general kernels, the plain versions and K3 on the stacked pair, every
-    # candidate
-    t, h, w = (8, 1088 * b // 16, 1920 * b // 16) if kind == "large" else (2, 5 * b, 41 * b)
+    # time), at 32x32 (level 0 of 32x32 MV blocks at 2-5 levels) and 2x2
+    # (the thread-a-block kernel, its rows streamed: level 2 of 8x8 MV
+    # blocks at 4 levels); "large": the 1080p level, 9 frames, where the
+    # split kernel's grid fits the card at 8x8; "saturated": 255 B^2 a
+    # block, 261,120 at 32x32) against the general kernels, the plain
+    # versions and K3 on the stacked pair, every candidate
+    level = {32: (1088, 1920), 16: (1088, 1920), 8: (544, 960), 4: (272, 480), 2: (272, 480)}
+    t, h, w = (8, *level[b]) if kind == "large" else (2, 5 * b, 41 * b)
     stack = _u8(gen, (t + 1, h, w))
     if kind == "saturated":
         stack.zero_()
@@ -519,17 +522,18 @@ def test_refine_far_radii_equal_general(gen, kind, r, b):
 
 @pytest.mark.parametrize("r", [5, 6, 7, 8])
 @pytest.mark.parametrize("block,h,w", [(16, 1088, 1920), (8, 544, 960), (4, 272, 480),
-                                       (2, 136, 240)])
+                                       (2, 136, 240), (1, 136, 240), (1, 68, 120)])
 @pytest.mark.parametrize("kind", ["zero", "edge", "far", "small", "saturated"])
 def test_candidate_sads_far_radii_equal_general(gen, block, h, w, kind, r):
     # K9 at 16x16 (one level, ranges 5-8: 8 x 1088x1920), 8x8, 4x4 and 2x2
-    # (the top of 2, 3 and 4 levels: 8 x 544x960, 272x480, 136x240) at R =
-    # 5-8 against the general kernel and the plain version; "small": 3
-    # frames of 7 x 9 blocks
+    # (the top of 2, 3 and 4 levels: 8 x 544x960, 272x480, 136x240) and 1x1
+    # (the top of 8x8 MV blocks at 4 levels and of 16x16 at 5: 8 x 136x240,
+    # 68x120) at R = 5-8 against the general kernel and the plain version;
+    # "small": 3 frames of 7 x 9 blocks (8 x 12 at 1x1: whole words)
     b = block
     t = 8
     if kind == "small":
-        t, h, w = 3, 7 * b, 9 * b
+        t, h, w = (3, 8, 12) if b == 1 else (3, 7 * b, 9 * b)
     tr, an = _u8(gen, (t, h, w)), _u8(gen, (t, h, w))
     if kind == "saturated":
         tr.zero_()

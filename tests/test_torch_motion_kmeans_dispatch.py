@@ -20,7 +20,7 @@ import torch
 from svc_tpu_torch.kernels import build
 from svc_tpu_torch.ops import kmeans, motion, prng
 from svc_tpu_torch.ops.pad import padded_dims
-from test_torch_pyramid_ebma_dispatch import _replay_k9_block
+from test_torch_pyramid_ebma_dispatch import _replay_k9_1x1, _replay_k9_block
 
 
 @pytest.fixture
@@ -77,12 +77,20 @@ _RATIO4 = [(32, 8), (16, 4), (8, 2), (8, 32), (4, 16), (2, 8)]
      *((16, 16, r, False, "refine_sads") for r in (6, 7)),
      (16, 16, 9, False, "refine_sads_general"),
      (16, 16, 6, True, "refine_sads_general"),
-     (8, 8, 5, False, "refine_sads"), (32, 32, 8, False, "refine_sads_general"),
+     (8, 8, 5, False, "refine_sads"), (32, 32, 8, False, "refine_sads"),
      *((b, b, r, False, "refine_sads") for b in (8, 4) for r in (5, 6, 7, 8)
        if (b, r) != (8, 5)),
      (8, 8, 9, False, "refine_sads_general"), (4, 4, 9, False, "refine_sads_general"),
      (8, 8, 7, True, "refine_sads_general"), (4, 4, 8, True, "refine_sads_general"),
-     (2, 2, 5, False, "refine_sads_general"), (8, 4, 5, False, "refine_sads_general"),
+     (2, 2, 5, False, "refine_sads"), (8, 4, 5, False, "refine_sads_general"),
+     # R = 5-8 at 32x32 (level 0 of 32x32 MV blocks at 2-5 levels, ranges
+     # 10-143) and 2x2 (level 2 of 8x8 MV blocks at 4 levels, level 3 of
+     # 16x16 and 32x32 at 5); R = 9 and general=True stay general
+     *((b, b, r, False, "refine_sads") for b in (32, 2) for r in (6, 7)),
+     (2, 2, 8, False, "refine_sads"),
+     (32, 32, 9, False, "refine_sads_general"), (2, 2, 9, False, "refine_sads_general"),
+     (32, 32, 7, True, "refine_sads_general"), (2, 2, 6, True, "refine_sads_general"),
+     (32, 16, 5, False, "refine_sads_general"), (16, 32, 8, False, "refine_sads_general"),
      (2, 4, 1, False, "refine_sads"),
      (1, 1, 1, False, "refine_sads_general"),
      (16, 16, 1, True, "refine_sads_general"),
@@ -107,7 +115,7 @@ _RATIO4 = [(32, 8), (16, 4), (8, 2), (8, 32), (4, 16), (2, 8)]
      (4, 1, 1, False, "refine_sads_general"),
      # a 32-pixel side: 32x32, 32x16, 16x32 MV blocks' level 0
      *((bw, bh, r, False, "refine_sads") for bw, bh in _WIDE for r in (1, 2, 3, 4)),
-     (32, 32, 5, False, "refine_sads_general"),
+     (32, 32, 5, False, "refine_sads"),
      (32, 16, 2, True, "refine_sads_general")],
 )
 def test_refine_sads_dispatch(meta_launches, bw, bh, r, general, kernel):
@@ -178,7 +186,15 @@ def _meta_plane_at(offset, fh, fw):
      (4, 4, 5, False, 4, "refine_mads_general"),  # K3's 16-byte gate
      (8, 8, 9, False, 0, "refine_mads_general"), (4, 4, 9, False, 0, "refine_mads_general"),
      (4, 4, 6, True, 0, "refine_mads_general"), (8, 8, 8, True, 0, "refine_mads_general"),
-     (2, 2, 5, False, 0, "refine_mads_general"),
+     (2, 2, 5, False, 0, "refine_mads"),
+     # 32x32 and 2x2 at R = 5-8 (the per-frame search's level 0 of 32x32 MV
+     # blocks, level 2 of 8x8 at 4 levels); R = 9 and general=True general
+     *((b, b, r, False, 16, "refine_mads") for b in (32, 2) for r in (6, 7, 8)),
+     (2, 2, 7, False, 2, "refine_mads_general"),  # K3's 16-byte gate
+     (32, 32, 8, False, 8, "refine_mads_general"),  # K3's 16-byte gate
+     (32, 32, 9, False, 0, "refine_mads_general"), (2, 2, 9, False, 0, "refine_mads_general"),
+     (32, 32, 6, True, 0, "refine_mads_general"), (2, 2, 8, True, 0, "refine_mads_general"),
+     (32, 8, 5, False, 0, "refine_mads_general"),
      (8, 8, 1, False, 1, "refine_mads_general"),  # unaligned anchor
      (16, 16, 1, True, 0, "refine_mads_general"),
      *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _RECTS for r in (1, 2, 3, 4)),
@@ -194,7 +210,7 @@ def _meta_plane_at(offset, fh, fw):
      *((bw, bh, r, False, 16, "refine_mads") for bw, bh in _WIDE for r in (1, 2, 3, 4)),
      (32, 32, 1, False, 8, "refine_mads_general"),  # K3's 16-byte gate
      (16, 32, 4, True, 0, "refine_mads_general"),
-     (32, 32, 5, False, 0, "refine_mads_general")],
+     (32, 32, 5, False, 0, "refine_mads")],
 )
 def test_refine_mads_dispatch(meta_launches, bw, bh, r, general, anchor_offset,
                               kernel):
@@ -317,9 +333,10 @@ def test_k3_host_constants_match_the_kernel_source():
 
 def test_far_radius_constants_match_the_kernel_source():
     # R = 5-8: kFarRadii's switch and blocks (16x16, 8x8 and 4x4 for K3 / K7
-    # and K9; K9's 2x2 on the thread-a-block kernel, candidate_sads.cu), the
-    # kernels that work one candidate row at a time, and the word counts
-    # past kNearRadius the replays follow
+    # and K9, 32x32 for K3 / K7; 2x2 on the thread-a-block kernel and K9's
+    # 1x1 on the thread-a-pixel one, candidate_sads.cu), the kernels that
+    # work one candidate row at a time, and the word counts past
+    # kNearRadius the replays follow
     src = (build.CSRC_DIR / "refine_sads.cu").read_text()
     assert "constexpr int kNearRadius = 4;" in src
     assert max(motion._SAD_RADII) == 4 < min(motion._FAR_RADII)
@@ -328,16 +345,18 @@ def test_far_radius_constants_match_the_kernel_source():
     radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>\(",
                                            far) if a == b}
     assert radii == set(motion._FAR_RADII)
-    assert "constexpr bool kFarRadii = BW == BH && BW >= 4 && BW <= 16;" in src
+    assert "constexpr bool kFarRadii = BW == BH && BW >= 4;" in src
     assert "if constexpr (kFarRadii<BW, BH>) {" in src
     squares = {(b, b) for b in (4, 8, 16)}
-    assert motion._K3_FAR_BLOCKS == squares <= motion._K3_BLOCKS
-    assert motion._K9_FAR_BLOCKS == squares | {(2, 2)} and motion._K9_FAR_BLOCKS <= (
+    assert motion._K3_FAR_BLOCKS == squares | {(32, 32), (2, 2)}
+    assert motion._K3_FAR_BLOCKS <= motion._K3_BLOCKS
+    assert motion._K9_FAR_BLOCKS == squares | {(2, 2), (1, 1)} and motion._K9_FAR_BLOCKS <= (
         motion._K9_BLOCKS)
-    # the K3 / K7 / K9 instances of this file's switch: both outputs at
-    # every far square (K9's 2x2 is the thread-a-block kernel's)
+    # the K3 / K7 / K9 instances of this file's switch: both outputs at 4x4,
+    # 8x8 and 16x16, int32 at 32x32 (2x2 and K9's 1x1 are candidate_sads.cu's)
     built = set(re.findall(r"SVC_REFINE_ROWS\((\d+), (\d+), (\w+)\)\n", src))
     assert {(str(b), str(b), out) for b, _ in squares for out in ("int32_t", "float")} <= built
+    assert ("32", "32", "int32_t") in built and ("32", "32", "float") not in built
     # the one-row kernel past kNearRadius, and the split by-row kernel where
     # kSplitFar holds and its grid fits (split_fits)
     assert ("} else if constexpr (R > kNearRadius) {\n"
@@ -355,22 +374,35 @@ def test_far_radius_constants_match_the_kernel_source():
     assert "return refine_sads_split_rows_kernel<BW, BH, R, Out>;" in src
     assert "acc[(u - m) & 3][ox / 2] += ox % 2 == 0 ? sum : sum << 16;" in src
     assert "uint32_t(&done)[R + 1] = acc[(u + 1) & 3];" in src
-    assert "reduce_row<R, kLanes>(done, l, [&](int ox, uint32_t sum) {" in src
+    assert "reduce_row<R, kLanes, kRows * BW>(done, l, [&](int ox, uint32_t sum) {" in src
     rows = (build.CSRC_DIR / "refine_rows.cuh").read_text()
-    assert "reduce_transposed<R + 1, L / 2, L>(packed, i);" in rows
+    # a row's sums reduce as reduce_store's do (_reduce_store): on 16-bit
+    # pairs while a sum covers 256 pixels at most, then as 32-bit sums (a
+    # 32x32 block's, 261,120, over the lane offsets 2 and 1)
+    assert "reduce_pairs<R + 1, L, kPixels, 2 * R + 1>(packed, i, put);" in rows
+    assert "reduce_pairs<N, L, kPixels, kCand>(packed, i, [&](int c, uint32_t sum) {" in rows
+    assert 'static_assert(kPixels <= 256, "a lane\'s sums must fit 16 bits");' in rows
+    assert "constexpr int Lo = L / (2 * (256 / kPixels));" in rows
     assert "const int send_slot = static_cast<int>(i) < rho ? q + 1 : q;" in rows
-    assert ("reduce_row<R, BH>(packed, i, [&](int ox, uint32_t sum) { put(oy * kSide + ox, "
+    assert ("reduce_row<R, BH, BW>(packed, i, [&](int ox, uint32_t sum) { put(oy * kSide + ox, "
             "sum); });") in rows
+    # 32x32 runs the one-row kernel past R = 4 (kSplitFar: 8x8 only), its 8
+    # blocks' sums in shared memory (9,248 B at R = 8), not straight to out
+    assert [(2 * r + 1) ** 2 * 8 * 4 for r in motion._FAR_RADII] == [3872, 5408, 7200, 9248]
     # the extra words past R = 4: whole chunks, chunk c read when the window
     # reaches it (the replay's _k3_window_row)
     assert "constexpr int kXChunks = (4 * W::kExtra + kG - 1) / kG;" in src
     assert ("if (row_in && s > kG * (c + 1) - 2 * R && x >= 0 && x < fw) "
             "load_chunk<kG>(row + x, v);") in src
-    for b in (4, 8, 16):
+    for b in (4, 8, 16, 32):
         for r in motion._FAR_RADII:
             win = _Win(b, r)
             assert win.extra in (3, 4) and 4 * win.words >= b + 2 * r
-            assert win.slots == 1 + (2 * r + b - 1) // b <= {4: 5, 8: 3, 16: 2}[b]
+            assert win.slots == 1 + (2 * r + b - 1) // b <= {4: 5, 8: 3, 16: 2, 32: 2}[b]
+            # 32 columns: 3 chunks of 16 bytes and one more for the extra
+            # words (kXChunks), 16 words at most from the grain on
+            if b == 32:
+                assert win.fetch == 12 + win.extra <= 16 and -(-4 * win.extra // 16) == 1
 
 
 @pytest.mark.parametrize("config,blocks", [
@@ -396,7 +428,15 @@ def test_far_radius_constants_match_the_kernel_source():
     # ranges 48 and 64 (R = 5, 8 and 6, 8)
     ((16, 2, 10), (16,)), ((16, 2, 16), (16,)), ((16, 1, 8), ()),
     ((16, 3, 20), (8, 16)), ((16, 3, 32), (8, 16)), ((16, 4, 48), (4, 8, 16)),
-    ((16, 4, 64), (4, 8, 16))])
+    ((16, 4, 64), (4, 8, 16)),
+    # square MV blocks past top radius 4 at their other level counts: 8x8
+    # at 4 levels, ranges 40 and 64 (G20), 16x16 at 5, ranges 80 and 128
+    # (G21), 32x32 at 2-5 levels, ranges 10 and 128 (G22 at 4, range 64),
+    # 4x4 at 3, range 32 (K9 1x1 and K7 2x2 at R = 5, 8)
+    ((8, 4, 40), (2, 4, 8)), ((8, 4, 64), (2, 4, 8)),
+    ((16, 5, 80), (2, 4, 8, 16)), ((16, 5, 128), (2, 4, 8, 16)),
+    ((32, 2, 10), (32,)), ((32, 3, 32), (16, 32)), ((32, 4, 64), (8, 16, 32)),
+    ((32, 5, 128), (4, 8, 16, 32)), ((4, 3, 32), (2, 4))])
 def test_hbma_motion_configs_take_the_specialised_k7(meta_launches, config, blocks):
     # the per-frame search at 8x8 MV blocks and 4 levels, 3, 2 and 5
     # levels, at 16x8 and 8x16 MV blocks and 4, 3, 2 levels, and at 32x32,
@@ -906,23 +946,6 @@ def test_k3_saturated_blocks_need_32bit_sums(block, r):
             np.testing.assert_array_equal(got, ref)
 
 
-def _row_sums_stored(packed, lanes, side, out):
-    """``reduce_row<R, L>``: one candidate row's words of 16-bit pairs
-    (..., L, R + 1) reduced over the L lanes by transposed xor steps, each
-    of its ``side`` sums put once into ``out`` (..., side)."""
-    n, half = packed.shape[-1], lanes.size // 2
-    held = _reduce_transposed(packed, lanes, half, 0)
-    for k in range(_reduced_count(n, half)):
-        p = _reduced_index(n, half, k, lanes)
-        for lane in lanes[p >= 0]:
-            for ox, value in ((2 * p[lane], held[..., lane, k] & 0xFFFF),
-                              (2 * p[lane] + 1, held[..., lane, k] >> 16)):
-                if ox < side:
-                    assert (out[..., ox] == -1).all()  # each sum stored once
-                    out[..., ox] = value
-    assert (out >= 0).all()  # every sum of the row stored
-
-
 def _pairs(sums):
     """A row's 2R + 1 sums (..., 2R + 1) as R + 1 words of 16-bit pairs."""
     assert sums.max() < 1 << 16
@@ -930,12 +953,14 @@ def _pairs(sums):
     return flat[..., 0::2] | (flat[..., 1::2] << 16)
 
 
-def _replay_k3_by_row(stack, mv, b, r, anchor=None):
+def _replay_k3_by_row(stack, mv, b, r, anchor=None, packed_only=False):
     """SADs as ``refine_sads_kernel<B, B, R>`` computes them past
     kNearRadius (``block_sads_by_row``): lane i's window rows i, i + B,
     ..., and per candidate row oy the row i + oy from lane (i + oy) mod B
     (the slot that lane sends by selects), the 2R + 1 sums two to a word,
-    reduced over the block's B lanes at once (``reduce_row``) into
+    reduced over the block's B lanes at once (``reduce_row``: on pairs
+    while a sum covers 256 pixels at most, then as 32-bit sums, as
+    ``_reduce_store``; ``packed_only``: every step on pairs) into
     ``s_out[oy (2R + 1) + ox]``. ``anchor``: K9's second stack."""
     tp1, fh, fw = stack.shape
     frames = tp1 - 1 if anchor is None else tp1
@@ -969,9 +994,7 @@ def _replay_k3_by_row(stack, mv, b, r, anchor=None):
                         c = row[..., j + wo] if d == 0 else _fshr(
                             row[..., j + wo], row[..., j + wo + 1], 8 * d)
                         sums[..., ox] += _vsadu4(c, a[..., j])
-                stored = np.full((mfw, side), -1, np.int64)
-                _row_sums_stored(_pairs(sums), lanes, side, stored)
-                out[t, oy, :, by] = stored.T
+                out[t, oy, :, by] = _reduce_store(_pairs(sums), lanes, b, side, packed_only).T
     return out.reshape(frames, side * side, mfh, mfw)
 
 
@@ -981,7 +1004,8 @@ def _replay_k3_split_rows(stack, mv, b, r, anchor=None):
     rows 4l .. 4l + 3 + 2R itself; each row's shifted words against each
     anchor row m it meets, added into slot (k - m) % 4 of candidate row k -
     m (16-bit halves); after window row k, candidate row k - 3 reduced over
-    the B / 4 lanes (``reduce_row``), stored, its slot cleared."""
+    the B / 4 lanes (``reduce_row``, all on pairs: 4 rows of B pixels a
+    lane), stored, its slot cleared."""
     rows = _SPLIT_ROWS
     tp1, fh, fw = stack.shape
     frames = tp1 - 1 if anchor is None else tp1
@@ -1018,31 +1042,32 @@ def _replay_k3_split_rows(stack, mv, b, r, anchor=None):
                     done = acc[(k + 1) % rows]
                     # a lane's halves never carry: 4 rows of B pixels at most
                     assert ((done & 0xFFFF) <= rows * b * 255).all()
-                    stored = np.full((mfw, side), -1, np.int64)
-                    _row_sums_stored(done, lanes, side, stored)
-                    out[t, k - (rows - 1), :, by] = stored.T
+                    out[t, k - (rows - 1), :, by] = _reduce_store(done, lanes, rows * b, side).T
                     done[...] = 0
     return out.reshape(frames, side * side, mfh, mfw)
 
 
-# the blocks past kNearRadius: K3's / K7's 16x16, 8x8 and 4x4, K9's 16x16,
-# 8x8, 4x4 and 2x2
+# the blocks past kNearRadius: K3's / K7's 32x32, 16x16, 8x8, 4x4 and 2x2,
+# K9's 16x16, 8x8, 4x4, 2x2 and 1x1
 _FAR = [(16, "refine"), (16, "candidate"), (8, "candidate"), (8, "refine"), (4, "refine"),
-        (4, "candidate"), (2, "candidate")]
+        (4, "candidate"), (2, "candidate"), (32, "refine"), (2, "refine"), (1, "candidate")]
 
 
 @pytest.mark.parametrize("r", [5, 6, 7, 8])
 @pytest.mark.parametrize("b,entry", _FAR, ids=lambda v: str(v))
 @pytest.mark.parametrize("kind", ["zero", "path", "edge", "far", "saturated"])
 def test_far_radius_replays_equal_plain(b, entry, r, kind):
-    # R = 5-8 at 16x16, 8x8, 4x4 (K3, K7, K9) and 2x2 (K9): the one-row
-    # kernel's block_sads_by_row, at 8x8 (kSplitFar) the split by-row
-    # kernel, at 2x2 the thread-a-block kernel's streamed rows, each
+    # R = 5-8 at 32x32 (K3, K7), 16x16, 8x8, 4x4 (K3, K7, K9), 2x2 (K3, K7,
+    # K9) and 1x1 (K9): the one-row kernel's block_sads_by_row, at 8x8
+    # (kSplitFar) the split by-row kernel, at 2x2 the thread-a-block
+    # kernel's streamed rows, at 1x1 the thread-a-pixel kernel, each
     # replayed, equal the plain version on every candidate; a saturated
     # block (anchor 255, tracked 0: 255 B^2 at every candidate, 65,280 at
-    # 16x16, the 16-bit pairs' last case) too
+    # 16x16, the 16-bit pairs' last case, 261,120 at 32x32, whose row sums
+    # reduce on pairs only to 8 lanes) too
     rng = np.random.default_rng(4000 + 100 * b + 10 * r + len(kind) + len(entry))
-    t, mfh, mfw = 2, 3, 5
+    # 1x1: planes of whole words (the thread-a-pixel kernel's gate)
+    t, mfh, mfw = (2, 4, 6) if b == 1 else (2, 3, 5)
     tracked = rng.integers(0, 256, (t + 1, mfh * b, mfw * b)).astype(np.uint8)
     anchor = rng.integers(0, 256, (t, mfh * b, mfw * b)).astype(np.uint8)
     if kind == "saturated":
@@ -1058,9 +1083,16 @@ def test_far_radius_replays_equal_plain(b, entry, r, kind):
     if entry == "refine":
         ref = motion.refine_sads_plain(torch.from_numpy(tracked), torch.from_numpy(mv), r,
                                        b, b).numpy()
-        replays = [_replay_k3_by_row(tracked, mv, b, r)]
+        if b == 2:  # the thread-a-block kernel's int32 output, rows streamed
+            replays = [_replay_k9_block(tracked[:-1], tracked[1:], mv, b, b, r, streamed=True)]
+        else:
+            replays = [_replay_k3_by_row(tracked, mv, b, r)]
         if b == 8:  # kSplitFar
             replays.append(_replay_k3_split_rows(tracked, mv, b, r))
+        if b == 32 and kind == "saturated":
+            # on pairs over all 32 lanes the saturated sums would carry
+            old = _replay_k3_by_row(tracked, mv, b, r, packed_only=True)
+            assert (old != ref).any()
         pair = motion.refine_mads_plain(torch.from_numpy(tracked[0]),
                                         torch.from_numpy(tracked[1]),
                                         torch.from_numpy(mv[0]), r, b, b).numpy()
@@ -1070,7 +1102,10 @@ def test_far_radius_replays_equal_plain(b, entry, r, kind):
         ref = motion.candidate_sads_plain(torch.from_numpy(tr), torch.from_numpy(anchor),
                                           torch.from_numpy(mv), r, b, b).numpy()
         replays = []
-        if b == 2:  # the thread-a-block kernel, its window rows streamed
+        if b == 1:  # the thread-a-pixel kernel: float32 through the mantissa
+            replays.append(_replay_k9_1x1(tr, anchor, mv, r))
+            sads = []
+        elif b == 2:  # the thread-a-block kernel, its window rows streamed
             sads = [_replay_k9_block(tr, anchor, mv, b, b, r, streamed=True)]
         else:
             sads = [_replay_k3_by_row(tr, mv, b, r, anchor=anchor)]

@@ -82,7 +82,12 @@ _RATIO4 = [(4, 1), (8, 2), (16, 4), (1, 4), (2, 8), (4, 16)]
      *((s, s, r, False, "candidate_sads") for s in (1, 4, 8) for r in (1, 2, 3, 4)
        if (s, r) != (4, 1)),
      (2, 2, 5, False, "candidate_sads"),
-     (1, 1, 5, False, "candidate_sads_general"),
+     (1, 1, 5, False, "candidate_sads"),
+     # 1x1 at R = 5-8: the top of 8x8 MV blocks at 4 levels (ranges 40-71)
+     # and of 16x16 at 5 (ranges 80-143); R = 9 and general=True general
+     *((1, 1, r, False, "candidate_sads") for r in (6, 7, 8)),
+     (1, 1, 9, False, "candidate_sads_general"), (1, 1, 7, True, "candidate_sads_general"),
+     (2, 1, 8, False, "candidate_sads_general"), (1, 4, 6, False, "candidate_sads_general"),
      # R = 5-8 at 16x16 (one level, ranges 5-8), 8x8, 4x4 and 2x2 (the top
      # of 2, 3 and 4 levels, ranges 10-17, 20-35 and 40-71): one candidate
      # row at a time; R = 9, and the other blocks past R = 4, stay general
@@ -219,6 +224,18 @@ MOTION_CONFIGS = [
     ((16, 4, 40), ["<2, 5>", "<4, 5>", "<8, 5>", "<16, 5>"]),
     ((16, 4, 56), ["<2, 7>", "<4, 7>", "<8, 7>", "<16, 7>"]),
     ((16, 4, 64), ["<2, 8>", "<4, 8>", "<8, 8>", "<16, 8>"]),
+    # square MV blocks past top radius 4 at their other level counts: 8x8
+    # at 4 levels, ranges 40 and 64 (G20: K9 1x1, K3 2x2, 4x4, 8x8 at R =
+    # 5, 8), 16x16 at 5, ranges 80 and 128 (G21), 32x32 at 2-5 levels (G22
+    # at 4, range 64), 4x4 at 3, range 20
+    ((8, 4, 40), ["<1, 5>", "<2, 5>", "<4, 5>", "<8, 5>"]),
+    ((8, 4, 64), ["<1, 8>", "<2, 8>", "<4, 8>", "<8, 8>"]),
+    ((16, 5, 80), ["<1, 5>", "<2, 5>", "<4, 5>", "<8, 5>", "<16, 5>"]),
+    ((16, 5, 128), ["<1, 8>", "<2, 8>", "<4, 8>", "<8, 8>", "<16, 8>"]),
+    ((32, 2, 10), ["<16, 5>", "<32, 5>"]), ((32, 3, 28), ["<8, 7>", "<16, 7>", "<32, 7>"]),
+    ((32, 4, 64), ["<4, 8>", "<8, 8>", "<16, 8>", "<32, 8>"]),
+    ((32, 5, 96), ["<2, 6>", "<4, 6>", "<8, 6>", "<16, 6>", "<32, 6>"]),
+    ((4, 3, 20), ["<1, 5>", "<2, 5>", "<4, 5>"]),
 ]
 
 
@@ -719,20 +736,24 @@ def test_k9_host_constants_match_the_kernel_source():
     assert "(static_cast<size_t>(fh) * fw) % 4" in src
     # each launcher's radii, the thread-a-block and the 1x1 one; the
     # thread-a-block kernel's past kNearRadius (K9's 2x2: kFarBlocks)
-    near = src[:src.index("if constexpr (kFarBlocks<BW, BH, Out>) {")]
-    for launcher, pattern in (("launch", r"case (\d+): return launch<BW, BH, (\d+)>\("),
-                              ("launch_1x1", r"case (\d+): return launch_1x1<(\d+)>\(")):
-        radii = {int(a) for a, b in re.findall(pattern, near if launcher == "launch" else src)
-                 if a == b}
-        assert radii == set(motion._SAD_RADII), launcher
-    far = src[src.index("if constexpr (kFarBlocks<BW, BH, Out>) {"):]
+    near = src[:src.index("if constexpr (kFarBlocks<BW, BH>) {")]
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>\(", near)
+             if a == b}
+    assert radii == set(motion._SAD_RADII)
+    # the 1x1 launcher: R = 1-8 (the top of 8x8 MV blocks at 4 levels and of
+    # 16x16 at 5 past R = 4)
+    radii = {int(a) for a, b in re.findall(r"case (\d+): return launch_1x1<(\d+)>\(", src)
+             if a == b}
+    assert radii == set(motion._SAD_RADII) | set(motion._FAR_RADII)
+    far = src[src.index("if constexpr (kFarBlocks<BW, BH>) {"):]
     far = far[:far.index("return static_cast<int>(cudaErrorInvalidValue);")]
     assert {int(a) for a, b in re.findall(r"case (\d+): return launch<BW, BH, (\d+)>\(", far)
             if a == b} == set(motion._FAR_RADII)
     assert "constexpr int kNearRadius = 4;" in src
-    assert ("constexpr bool kFarBlocks = BW == 2 && BH == 2 && "
-            "std::is_same<Out, float>::value;") in src
-    assert {b for b in motion._K9_FAR_BLOCKS if min(b) < 4} == {(2, 2)}
+    # 2x2 past R = 4 for both outputs (K9's float32, K3's / K7's int32)
+    assert "constexpr bool kFarBlocks = BW == 2 && BH == 2;" in src
+    assert {b for b in motion._K9_FAR_BLOCKS if min(b) < 4} == {(2, 2), (1, 1)}
+    assert {b for b in motion._K3_FAR_BLOCKS if min(b) < 4} == {(2, 2)}
     # past it a thread streams its window rows: the BH rows of candidate
     # row oy held, the next loaded before the row's sums, then a slide
     # (_replay_k9_block's streamed walk)
@@ -1014,7 +1035,8 @@ def _replay_k9_1x1(tracked, anchor, mv, r):
     return out
 
 
-@pytest.mark.parametrize("r", [1, 2, 3, 4])
+# R = 5-8: the top of 8x8 MV blocks at 4 levels and of 16x16 at 5
+@pytest.mark.parametrize("r", [1, 2, 3, 4, *motion._FAR_RADII])
 @pytest.mark.parametrize(
     "t,fh,fw,mv_kind",
     # planes of whole words (the 1x1 kernel's gate); fw % 4 == 0 and not
